@@ -1,0 +1,16 @@
+"""cirkit-tpu-torch: the PyTorch and CUDA port of cirkit-tpu.
+
+A second package beside the JAX one (``cirkit_tpu``), held against it as
+its reference. The symbolic IR, region graphs and templates are copies of
+the JAX package's modules that contain no JAX code; the backend
+(``backend/torch``), the log-einsum-exp ops (``ops``, with hand-written
+CUDA kernels under ``csrc``) and the pipeline are rebuilt in PyTorch.
+Importing this package never imports ``jax``.
+"""
+
+__version__ = "0.1.1"
+
+from cirkit_tpu_torch import models, symbolic, utils  # noqa: E402,F401
+from cirkit_tpu_torch.pipeline import PipelineContext  # noqa: E402,F401
+
+__all__ = ["PipelineContext", "models", "symbolic", "utils"]

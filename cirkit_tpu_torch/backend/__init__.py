@@ -1,0 +1,5 @@
+"""Backends: compilers lowering the symbolic IR to executable plans.
+
+The PyTorch backend (``cirkit_tpu_torch.backend.torch``) compiles circuits
+into ``nn.Module`` evaluation plans over a parameter store.
+"""

@@ -1,0 +1,301 @@
+"""Compiled layers for the PyTorch backend.
+
+The counterpart of ``cirkit_tpu/backend/jax/layers.py:45-283, 416-504``:
+layers are ``nn.Module``s whose forward reads parameters from the store.
+
+- inner layers:  ``forward(store, x)`` with ``x: (F, H, B, Ki) -> (F, B, Ko)``
+- input layers:  ``forward(store, x)`` with ``x: (F, B, D)  -> (F, B, K)``
+
+F is the fold axis (homogeneous layers vectorized into one kernel launch),
+H the arity, B the batch.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from cirkit_tpu_torch.backend.torch.parameters import (
+    Store,
+    TorchParameter,
+    TorchSoftmaxParameter,
+    TorchTensorSlot,
+)
+from cirkit_tpu_torch.backend.torch.semiring import (
+    LSESumSemiring,
+    Semiring,
+    SumProductSemiring,
+)
+
+
+def softmax_logits_slot(param: TorchParameter) -> str | None:
+    """If ``param`` is exactly ``TensorSlot -> Softmax(last axis)``, return
+    the slot name, else None. Layers use this to route the most common sum
+    parameterization to the softmax-fused kernels, so the normalized weights
+    are never materialized in device memory."""
+    nodes = list(param.topological_ordering())
+    if len(nodes) != 2:
+        return None
+    slot, sm = nodes
+    if not isinstance(slot, TorchTensorSlot) or not isinstance(sm, TorchSoftmaxParameter):
+        return None
+    if sm.axis != len(slot.shape) - 1:
+        return None
+    return slot.slot
+
+
+class TorchLayer(nn.Module, ABC):
+    """The abstract compiled layer."""
+
+    def __init__(
+        self,
+        num_input_units: int,
+        num_output_units: int,
+        *,
+        arity: int = 1,
+        num_folds: int = 1,
+        semiring: Semiring | None = None,
+    ):
+        super().__init__()
+        self.num_input_units = num_input_units
+        self.num_output_units = num_output_units
+        self.arity = arity
+        self.num_folds = num_folds
+        self.semiring: Semiring = SumProductSemiring if semiring is None else semiring
+
+    @property
+    @abstractmethod
+    def config(self) -> Mapping[str, Any]:
+        """Static hyperparameters (folding groups on these)."""
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        """Compiled parameter graphs by name."""
+        return {}
+
+    @property
+    def fold_settings(self) -> tuple[Any, ...]:
+        """Hashable key: layers fold together iff these match."""
+        psig = tuple((n, p.fold_settings) for n, p in self.params.items())
+        return (type(self).__name__, *sorted(self.config.items()), psig)
+
+    @abstractmethod
+    def forward(self, store: Store, x) -> torch.Tensor: ...
+
+    def extra_repr(self) -> str:
+        return (
+            f"F={self.num_folds}, arity={self.arity}, "
+            f"Ki={self.num_input_units}, Ko={self.num_output_units}"
+        )
+
+
+# --------------------------------------------------------------------------- #
+# Inner layers
+# --------------------------------------------------------------------------- #
+
+
+class TorchInnerLayer(TorchLayer, ABC):
+    """A sum or product layer: (F, H, B, Ki) -> (F, B, Ko)."""
+
+
+class TorchHadamardLayer(TorchInnerLayer):
+    """Elementwise semiring product over the arity axis."""
+
+    def __init__(self, num_input_units: int, *, arity: int = 2, num_folds: int = 1, semiring=None):
+        super().__init__(
+            num_input_units, num_input_units, arity=arity, num_folds=num_folds, semiring=semiring
+        )
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_input_units": self.num_input_units, "arity": self.arity}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        return self.semiring.prod(x, dim=1)
+
+
+class TorchKroneckerLayer(TorchInnerLayer):
+    """Iterated semiring outer product, flattened row-major (the unit for
+    inputs (i_1, ..., i_H) sits at index i_1 * Ki^(H-1) + ... + i_H)."""
+
+    def __init__(self, num_input_units: int, *, arity: int = 2, num_folds: int = 1, semiring=None):
+        super().__init__(
+            num_input_units,
+            int(num_input_units**arity),
+            arity=arity,
+            num_folds=num_folds,
+            semiring=semiring,
+        )
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_input_units": self.num_input_units, "arity": self.arity}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        out = x[:, 0]  # (F, B, Ki)
+        for h in range(1, self.arity):
+            out = self.semiring.mul(out[..., :, None], x[:, h][..., None, :])
+            out = out.reshape(out.shape[0], out.shape[1], -1)
+        return out
+
+
+class TorchSumLayer(TorchInnerLayer):
+    """The dense sum layer: a semiring einsum contracting (H, Ki) against a
+    (F, Ko, H*Ki) weight; the lse-sum semiring runs it through the fused
+    log-einsum-exp kernel."""
+
+    def __init__(
+        self,
+        num_input_units: int,
+        num_output_units: int,
+        *,
+        arity: int = 1,
+        weight: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(
+            num_input_units, num_output_units, arity=arity, num_folds=num_folds, semiring=semiring
+        )
+        assert weight.shape == (num_output_units, arity * num_input_units), (
+            weight.shape,
+            (num_output_units, arity * num_input_units),
+        )
+        self.weight = weight
+        self._logits_slot = softmax_logits_slot(weight)
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {
+            "num_input_units": self.num_input_units,
+            "num_output_units": self.num_output_units,
+            "arity": self.arity,
+        }
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"weight": self.weight}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        f, h, b, ki = x.shape
+        x = x.transpose(1, 2).reshape(f, b, h * ki)
+        if self._logits_slot is not None:
+            # Softmax-parameterized weights: the normalization runs inside
+            # the contraction kernel; (F, Ko, H*Ki) is never materialized.
+            return self.semiring.matmul_softmax(x, store[self._logits_slot])
+        return self.semiring.matmul(x, self.weight(store))
+
+
+# --------------------------------------------------------------------------- #
+# Input layers
+# --------------------------------------------------------------------------- #
+
+
+class TorchInputLayer(TorchLayer, ABC):
+    """An input layer: consumes the gathered data slice (F, B, D)."""
+
+    def __init__(
+        self,
+        scope_idx: np.ndarray,
+        num_output_units: int,
+        *,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        scope_idx = np.atleast_2d(np.asarray(scope_idx, dtype=np.int64))
+        assert scope_idx.shape[0] == num_folds, (scope_idx.shape, num_folds)
+        super().__init__(
+            scope_idx.shape[1], num_output_units, arity=1, num_folds=num_folds, semiring=semiring
+        )
+        self.scope_idx = scope_idx
+
+    @property
+    def num_variables(self) -> int:
+        return self.num_input_units
+
+    @property
+    def fold_settings(self) -> tuple[Any, ...]:
+        return (self.num_variables, *super().fold_settings)
+
+
+class TorchExpFamilyLayer(TorchInputLayer, ABC):
+    """Exponential-family input layers: define the (possibly unnormalized)
+    log likelihood and log partition function."""
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        ll = self.log_unnormalized_likelihood(store, x)
+        return self.semiring.map_from(ll, LSESumSemiring)
+
+    @abstractmethod
+    def log_unnormalized_likelihood(self, store: Store, x) -> torch.Tensor: ...
+
+    @abstractmethod
+    def log_partition_function(self, store: Store) -> torch.Tensor: ...
+
+
+class TorchCategoricalLayer(TorchExpFamilyLayer):
+    """Categorical units: normalized under probs, unnormalized under logits."""
+
+    def __init__(
+        self,
+        scope_idx: np.ndarray,
+        num_output_units: int,
+        *,
+        num_categories: int,
+        probs: TorchParameter | None = None,
+        logits: TorchParameter | None = None,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(scope_idx, num_output_units, num_folds=num_folds, semiring=semiring)
+        if (logits is None) == (probs is None):
+            raise ValueError("Exactly one of 'logits' and 'probs' must be given")
+        self.num_categories = num_categories
+        self.probs = probs
+        self.logits = logits
+        # Softmax-parameterized probs (the image_data default): one fused
+        # log_softmax over the raw logits instead of log(softmax(theta)).
+        self._probs_logits_slot = None if probs is None else softmax_logits_slot(probs)
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {
+            "num_output_units": self.num_output_units,
+            "num_categories": self.num_categories,
+        }
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        if self.logits is None:
+            return {"probs": self.probs}
+        return {"logits": self.logits}
+
+    def _log_probs(self, store: Store) -> torch.Tensor:
+        if self.logits is None:
+            if self._probs_logits_slot is not None:
+                return torch.log_softmax(store[self._probs_logits_slot], dim=-1)
+            return torch.log(self.probs(store))
+        return self.logits(store)
+
+    def log_unnormalized_likelihood(self, store, x):
+        logits = self._log_probs(store)  # (F, K, C)
+        # A gather with the clamping of the JAX package's one-hot matmul:
+        # indices clip to the category range, and -inf log-probs become the
+        # finite minimum.
+        logits = logits.clamp_min(torch.finfo(logits.dtype).min)
+        xi = x[..., 0].long().clamp(0, logits.shape[2] - 1)  # (F, B)
+        idx = xi[:, :, None].expand(-1, -1, logits.shape[1])  # (F, B, K)
+        return torch.gather(logits.transpose(1, 2), 1, idx)
+
+    def log_partition_function(self, store):
+        if self.logits is None:
+            p = self.probs(store)
+            return torch.zeros(
+                (self.num_folds, self.num_output_units), dtype=p.dtype, device=p.device
+            )
+        return torch.logsumexp(self.logits(store), dim=2)

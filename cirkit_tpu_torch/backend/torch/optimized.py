@@ -1,0 +1,115 @@
+"""Fusion-target layers: Tucker and CP-transposed.
+
+The counterpart of ``cirkit_tpu/backend/jax/optimized.py:23-141``: the
+layers the optimizer rewrites into. Tucker contracts the arity inputs
+against the core weight in one semiring einsum (never materializing the
+Kronecker product); CP-T Hadamard-reduces then contracts. The TensorDot
+layer of the shatter rewrites is not ported yet.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any
+
+import torch
+
+from cirkit_tpu_torch.backend.torch.layers import TorchInnerLayer, softmax_logits_slot
+from cirkit_tpu_torch.backend.torch.parameters import Store, TorchParameter
+
+
+class TorchTuckerLayer(TorchInnerLayer):
+    """Fused sum-of-Kronecker: a multi-operand semiring einsum with the core
+    weight reshaped to (F, Ko, Ki, ..., Ki)."""
+
+    def __init__(
+        self,
+        num_input_units: int,
+        num_output_units: int,
+        arity: int = 2,
+        *,
+        weight: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        if arity < 2:
+            raise ValueError("The arity should be at least 2")
+        super().__init__(
+            num_input_units, num_output_units, arity=arity, num_folds=num_folds, semiring=semiring
+        )
+        assert weight.shape == (num_output_units, num_input_units**arity)
+        self.weight = weight
+        self._logits_slot = softmax_logits_slot(weight)
+        # int-axis einsum spec: inputs (f, b, k_h) each, weight (f, o, k_1..k_H)
+        self._einsum = (
+            tuple((0, 1, i + 2) for i in range(arity))
+            + ((0, arity + 2, *(i + 2 for i in range(arity))),)
+            + ((0, 1, arity + 2),)
+        )
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {
+            "num_input_units": self.num_input_units,
+            "num_output_units": self.num_output_units,
+            "arity": self.arity,
+        }
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"weight": self.weight}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        if self.arity == 2:
+            # The hot configuration: the fused contraction kernel, with the
+            # softmax reparameterization folded into it.
+            x1, x2 = x[:, 0], x[:, 1]
+            if self._logits_slot is not None:
+                return self.semiring.tucker2_softmax(x1, x2, store[self._logits_slot])
+            return self.semiring.tucker2(x1, x2, self.weight(store))
+        w = self.weight(store)  # (F, Ko, Ki^arity)
+        w = w.reshape(-1, self.num_output_units, *(self.num_input_units,) * self.arity)
+        inputs = tuple(x[:, h] for h in range(self.arity))
+        return self.semiring.einsum(
+            self._einsum, inputs=inputs, operands=(w,), dim=-1, keepdim=True
+        )
+
+
+class TorchCPTLayer(TorchInnerLayer):
+    """Fused sum-of-Hadamard (CP-transposed): semiring product over the arity
+    axis followed by a dense contraction with a (F, Ko, Ki) weight."""
+
+    def __init__(
+        self,
+        num_input_units: int,
+        num_output_units: int,
+        arity: int = 2,
+        *,
+        weight: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(
+            num_input_units, num_output_units, arity=arity, num_folds=num_folds, semiring=semiring
+        )
+        assert weight.shape == (num_output_units, num_input_units)
+        self.weight = weight
+        self._logits_slot = softmax_logits_slot(weight)
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {
+            "num_input_units": self.num_input_units,
+            "num_output_units": self.num_output_units,
+            "arity": self.arity,
+        }
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"weight": self.weight}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        x = self.semiring.prod(x, dim=1)  # (F, B, Ki)
+        if self._logits_slot is not None:
+            return self.semiring.matmul_softmax(x, store[self._logits_slot])
+        return self.semiring.matmul(x, self.weight(store))

@@ -1,0 +1,293 @@
+"""Pluggable evaluation semirings.
+
+The counterpart of ``cirkit_tpu/backend/jax/semiring.py:51-305``: a
+(⊕, ⊗) algebra the compiled plan evaluates under, with a string registry
+and cross-semiring morphisms. The log-space semiring implements the
+numerically-stable max-shift log-einsum-exp; its four fused hooks (dense or
+Tucker, with or without a softmax of the weights) go to the ops of
+``cirkit_tpu_torch/ops/lse_einsum.py``, which launch the CUDA kernel on
+CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from collections.abc import Callable, Sequence
+from functools import reduce
+from typing import ClassVar, Protocol
+
+import torch
+
+from cirkit_tpu_torch.backend.torch.utils import default_real_dtype
+from cirkit_tpu_torch.ops.lse_einsum import (
+    lse_matmul,
+    lse_matmul_softmax,
+    lse_tucker2,
+    lse_tucker2_softmax,
+)
+
+Semiring = type["SemiringImpl"]
+
+
+class EinsumFunc(Protocol):
+    def __call__(self, *xs: torch.Tensor) -> torch.Tensor: ...
+
+
+def _finfo_clamp(x: torch.Tensor) -> torch.Tensor:
+    info = torch.finfo(x.dtype)
+    return x.clamp(info.min, info.max)
+
+
+class SemiringImpl(ABC):
+    """Base class for semiring implementations over torch tensors."""
+
+    _registry: ClassVar[dict[str, Semiring]] = {}
+    _morphisms: ClassVar[dict[tuple[Semiring, Semiring], Callable]] = {}
+
+    def __new__(cls) -> "SemiringImpl":
+        raise TypeError("Semirings are static namespaces and cannot be instantiated")
+
+    # -- registry -------------------------------------------------------------
+    @staticmethod
+    def register(name: str) -> Callable[[Semiring], Semiring]:
+        def _decorator(cls: Semiring) -> Semiring:
+            SemiringImpl._registry[name] = cls
+            return cls
+
+        return _decorator
+
+    @classmethod
+    def register_map_from(cls, other: Semiring) -> Callable[[Callable], Callable]:
+        def _decorator(func: Callable) -> Callable:
+            SemiringImpl._morphisms[(other, cls)] = func
+            return func
+
+        return _decorator
+
+    @staticmethod
+    def from_name(name: str) -> Semiring:
+        if name not in SemiringImpl._registry:
+            raise IndexError(
+                f"Unknown semiring '{name}'; register one with "
+                f"@SemiringImpl.register('{name}')"
+            )
+        return SemiringImpl._registry[name]
+
+    @classmethod
+    def map_from(cls, x: torch.Tensor, semiring: Semiring) -> torch.Tensor:
+        """Map values represented in another semiring into this one."""
+        if cls is semiring:
+            return x
+        func = SemiringImpl._morphisms.get((semiring, cls))
+        if func is None:
+            raise NotImplementedError(
+                f"No morphism from '{semiring.__name__}' to '{cls.__name__}'"
+            )
+        return func(x)
+
+    # -- generic einsum -------------------------------------------------------
+    @classmethod
+    def einsum(
+        cls,
+        equation: str | Sequence[Sequence[int]],
+        *,
+        inputs: tuple[torch.Tensor, ...] | None = None,
+        operands: tuple[torch.Tensor, ...] | None = None,
+        dim: int,
+        keepdim: bool,
+    ) -> torch.Tensor:
+        """An einsum whose additions/multiplications follow this semiring.
+
+        ``inputs`` are semiring-represented values (e.g. log-space); the extra
+        ``operands`` (e.g. sum-layer weights) are linear-space and only cast.
+        ``dim`` is the axis of the inputs that is contracted (used for the
+        max-shift); ``keepdim`` keeps that axis as size 1 in the output.
+        ``equation`` is an einsum string or per-operand integer axis lists
+        (inputs, then operands, then the output).
+        """
+        inputs = () if inputs is None else inputs
+        operands = () if operands is None else operands
+
+        def func(*xs: torch.Tensor) -> torch.Tensor:
+            all_ops = xs + tuple(cls.cast(o) for o in operands)
+            if isinstance(equation, str):
+                return torch.einsum(equation, *all_ops)
+            args: list = []
+            for op, spec in zip(all_ops, equation[:-1]):
+                args.extend((op, list(spec)))
+            args.append(list(equation[-1]))
+            return torch.einsum(*args)
+
+        return cls.apply_reduce(func, *inputs, dim=dim, keepdim=keepdim)
+
+    # -- fused contractions (overridden with CUDA kernels where available) ---
+    @classmethod
+    def matmul(cls, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The dense sum-layer contraction: semiring values ``x`` (F, B, I)
+        against linear-space weights ``w`` (F, O, I) -> (F, B, O)."""
+        return cls.einsum("fbi,foi->fbo", inputs=(x,), operands=(w,), dim=-1, keepdim=True)
+
+    @classmethod
+    def tucker2(cls, x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The arity-2 Tucker contraction: semiring values ``x1`` (F, B, K1)
+        and ``x2`` (F, B, K2) against the linear-space core ``w``
+        (F, O, K1*K2), flattened row-major -> (F, B, O)."""
+        k1 = x1.shape[-1]
+        k2 = x2.shape[-1]
+        w3 = w.reshape(w.shape[0], w.shape[1], k1, k2)
+        return cls.einsum(
+            "fbi,fbj,foij->fbo", inputs=(x1, x2), operands=(w3,), dim=-1, keepdim=True
+        )
+
+    @classmethod
+    def matmul_softmax(cls, x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        """:meth:`matmul` with weights ``softmax(theta, axis=-1)``; the
+        lse-sum override fuses the normalization into the kernel."""
+        return cls.matmul(x, torch.softmax(theta, dim=-1))
+
+    @classmethod
+    def tucker2_softmax(
+        cls, x1: torch.Tensor, x2: torch.Tensor, theta: torch.Tensor
+    ) -> torch.Tensor:
+        """:meth:`tucker2` with core weights ``softmax(theta, axis=-1)``."""
+        return cls.tucker2(x1, x2, torch.softmax(theta, dim=-1))
+
+    # -- abstract algebra ------------------------------------------------------
+    @classmethod
+    @abstractmethod
+    def cast(cls, x: torch.Tensor) -> torch.Tensor:
+        """Cast to the value dtype of this semiring."""
+
+    @classmethod
+    @abstractmethod
+    def sum(cls, x: torch.Tensor, dim: int, *, keepdim: bool = False) -> torch.Tensor:
+        """Semiring sum-reduce along an axis."""
+
+    @classmethod
+    @abstractmethod
+    def add(cls, *xs: torch.Tensor) -> torch.Tensor:
+        """Semiring addition of broadcastable tensors."""
+
+    @classmethod
+    @abstractmethod
+    def prod(cls, x: torch.Tensor, dim: int, *, keepdim: bool = False) -> torch.Tensor:
+        """Semiring product-reduce along an axis."""
+
+    @classmethod
+    @abstractmethod
+    def mul(cls, *xs: torch.Tensor) -> torch.Tensor:
+        """Semiring multiplication of broadcastable tensors."""
+
+    @classmethod
+    @abstractmethod
+    def apply_reduce(
+        cls, func: EinsumFunc, *xs: torch.Tensor, dim: int, keepdim: bool
+    ) -> torch.Tensor:
+        """Apply a linear-space sum-like function to semiring-space inputs."""
+
+
+def _cast_real(cls: Semiring, x: torch.Tensor) -> torch.Tensor:
+    if x.dtype.is_floating_point:
+        return x
+    if x.dtype.is_complex:
+        raise ValueError(f"Cannot cast dtype '{x.dtype}' to {cls.__name__}")
+    return x.to(default_real_dtype())
+
+
+@SemiringImpl.register("sum-product")
+class SumProductSemiring(SemiringImpl):
+    """Plain linear-space evaluation."""
+
+    @classmethod
+    def cast(cls, x):
+        return _cast_real(cls, x)
+
+    @classmethod
+    def sum(cls, x, dim, *, keepdim=False):
+        return x.sum(dim=dim, keepdim=keepdim)
+
+    @classmethod
+    def add(cls, *xs):
+        return reduce(torch.add, xs)
+
+    @classmethod
+    def prod(cls, x, dim, *, keepdim=False):
+        return x.prod(dim=dim, keepdim=keepdim)
+
+    @classmethod
+    def mul(cls, *xs):
+        return reduce(torch.mul, xs)
+
+    @classmethod
+    def apply_reduce(cls, func, *xs, dim, keepdim):
+        return func(*xs)
+
+
+@SemiringImpl.register("lse-sum")
+class LSESumSemiring(SemiringImpl):
+    """Log-space evaluation: (logsumexp, +)."""
+
+    @classmethod
+    def cast(cls, x):
+        return _cast_real(cls, x)
+
+    @classmethod
+    def sum(cls, x, dim, *, keepdim=False):
+        m = _finfo_clamp(x.amax(dim=dim, keepdim=True))
+        out = torch.log(torch.sum(torch.exp(x - m), dim=dim, keepdim=keepdim))
+        return out + (m if keepdim else m.squeeze(dim))
+
+    @classmethod
+    def add(cls, *xs):
+        return reduce(torch.logaddexp, xs)
+
+    @classmethod
+    def prod(cls, x, dim, *, keepdim=False):
+        return x.sum(dim=dim, keepdim=keepdim)
+
+    @classmethod
+    def mul(cls, *xs):
+        return reduce(torch.add, xs)
+
+    @classmethod
+    def apply_reduce(cls, func, *xs, dim, keepdim):
+        # The max-shift trick: shift by the clamped max along the contracted
+        # axis so exp() never overflows, contract in linear space, then log
+        # and add the shifts back.
+        maxs = [_finfo_clamp(x.amax(dim=dim, keepdim=True)) for x in xs]
+        exps = [torch.exp(x - m) for x, m in zip(xs, maxs)]
+        out = func(*exps)
+        shift = reduce(torch.add, maxs)
+        if not keepdim:
+            shift = shift.squeeze(dim)
+        return torch.log(out) + shift
+
+    # The fused ops launch the CUDA kernel on CUDA tensors (which takes
+    # contiguous operands) and run their plain versions on the CPU.
+    @classmethod
+    def matmul(cls, x, w):
+        return lse_matmul(x.contiguous(), cls.cast(w).contiguous())
+
+    @classmethod
+    def tucker2(cls, x1, x2, w):
+        return lse_tucker2(x1.contiguous(), x2.contiguous(), cls.cast(w).contiguous())
+
+    @classmethod
+    def matmul_softmax(cls, x, theta):
+        return lse_matmul_softmax(x.contiguous(), cls.cast(theta).contiguous())
+
+    @classmethod
+    def tucker2_softmax(cls, x1, x2, theta):
+        return lse_tucker2_softmax(
+            x1.contiguous(), x2.contiguous(), cls.cast(theta).contiguous()
+        )
+
+
+@SumProductSemiring.register_map_from(LSESumSemiring)
+def _lse_to_sum_product(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x)
+
+
+@LSESumSemiring.register_map_from(SumProductSemiring)
+def _sum_product_to_lse(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x)

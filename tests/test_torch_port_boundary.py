@@ -1,0 +1,62 @@
+"""The boundary between the JAX package and its PyTorch port.
+
+The port carries its own copies of the JAX package's modules that contain
+no JAX code (importing ``cirkit_tpu`` loads JAX, which the machines with a
+CUDA card do not have). The copies must not drift from their originals:
+each equals its ``cirkit_tpu`` original once the ``cirkit_tpu.`` import
+prefix is rewritten to ``cirkit_tpu_torch.``. And importing the port must
+not load JAX.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+COPIED = [
+    *(f"symbolic/{p.name}" for p in sorted((ROOT / "cirkit_tpu" / "symbolic").glob("*.py"))),
+    "models/region_graph/__init__.py",
+    "models/region_graph/algorithms.py",
+    "models/region_graph/graph.py",
+    "models/region_graph/io.py",
+    "models/utils.py",
+    "models/data_modalities.py",
+    "utils/__init__.py",
+    "utils/algorithms.py",
+    "utils/scope.py",
+    "backend/base.py",
+]
+_IMPORT = re.compile(r"^(\s*(?:from|import) )cirkit_tpu\.", re.MULTILINE)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_matches_original(rel):
+    original = (ROOT / "cirkit_tpu" / rel).read_text()
+    copy = (ROOT / "cirkit_tpu_torch" / rel).read_text()
+    assert copy == _IMPORT.sub(r"\1cirkit_tpu_torch.", original)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, cirkit_tpu_torch, cirkit_tpu_torch.pipeline, cirkit_tpu_torch.ops; "
+        "assert 'jax' not in sys.modules, 'jax imported'; "
+        "assert 'cirkit_tpu' not in sys.modules, 'cirkit_tpu imported'"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    pattern = re.compile(r"^\s*(import jax|from jax|import cirkit_tpu\b|from cirkit_tpu[ .])",
+                         re.MULTILINE)
+    offenders = [
+        str(p.relative_to(ROOT))
+        for p in (ROOT / "cirkit_tpu_torch").rglob("*.py")
+        if pattern.search(p.read_text())
+    ]
+    assert offenders == []
