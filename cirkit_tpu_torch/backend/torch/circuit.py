@@ -21,7 +21,11 @@ import torch
 from torch import nn
 
 from cirkit_tpu_torch.backend.torch.layers import TorchInputLayer, TorchLayer
-from cirkit_tpu_torch.backend.torch.parameters import Store, TorchTensorSlot
+from cirkit_tpu_torch.backend.torch.parameters import (
+    Store,
+    TorchPointerSlot,
+    TorchTensorSlot,
+)
 from cirkit_tpu_torch.backend.torch.semiring import Semiring
 from cirkit_tpu_torch.symbolic.circuit import StructuralProperties
 from cirkit_tpu_torch.utils.scope import Scope
@@ -126,17 +130,51 @@ class TorchCircuit(nn.Module):
 
         # -- collect the parameter store specification -------------------------
         self._slots: dict[str, TorchTensorSlot] = {}
+        used: set[str] = set()
+        ptr_learnable: set[str] = set()
         for layer in self.layers:
             for p in layer.params.values():
                 for node in p.nodes:
                     if isinstance(node, TorchTensorSlot):
                         self._slots.setdefault(node.slot, node)
+                        used.add(node.slot)
+                    elif isinstance(node, TorchPointerSlot):
+                        used.add(node.slot)
+                        if node.learnable:
+                            ptr_learnable.add(node.slot)
+        self._used_slots: tuple[str, ...] = tuple(sorted(used))
+        # learnable slots this circuit only POINTS at (parameter sharing with
+        # operand circuits): fit() on a derived circuit trains them
+        self._shared_learnable: frozenset[str] = frozenset(ptr_learnable - set(self._slots))
 
     # -- parameter store -------------------------------------------------------
     @property
     def slots(self) -> Mapping[str, TorchTensorSlot]:
         """The parameter-store slot specification of this circuit."""
         return self._slots
+
+    @property
+    def learnable_slots(self) -> frozenset[str]:
+        return (
+            frozenset(s for s, n in self._slots.items() if n.learnable)
+            | self._shared_learnable
+        )
+
+    @property
+    def shared_learnable_slots(self) -> frozenset[str]:
+        """Learnable slots this circuit only POINTS at: parameters shared
+        with operand circuits. ``fit(..., freeze="shared")`` keeps exactly
+        these fixed."""
+        return self._shared_learnable
+
+    @property
+    def used_slots(self) -> tuple[str, ...]:
+        """Every store slot this circuit reads (own tensors + shared pointers)."""
+        return self._used_slots
+
+    def restrict_store(self, store: Store) -> dict[str, torch.Tensor]:
+        """Project a (possibly larger shared) store onto the used slots."""
+        return {s: store[s] for s in self._used_slots}
 
     def initialize(
         self,

@@ -39,7 +39,12 @@
 #include <cstddef>
 #include <cuda_runtime.h>
 
+#include "lse_common.cuh"
+
 namespace {
+
+using cirkit::clamp_max;
+using cirkit::warp_max;
 
 constexpr int BM = 128;  // batch rows per block
 constexpr int BN = 64;   // output units per block
@@ -50,24 +55,6 @@ constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int WARPS = THREADS / 32;
 constexpr int AS = BM + 4;  // padded strides keep float4 reads aligned
 constexpr int BS = BN + 4;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, d));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-  return v;
-}
-
-// The row max clamped to the finite range, so a row that is all -inf
-// shifts by -FLT_MAX and yields log(0) = -inf instead of NaN.
-__device__ __forceinline__ float clamp_max(float m) {
-  return fminf(fmaxf(m, -FLT_MAX), FLT_MAX);
-}
 
 template <bool TUCKER, bool SOFTMAX>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -117,23 +104,10 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   if (SOFTMAX) {
     for (int r = warp; r < BN; r += WARPS) {
       const int o = o0 + r;
-      float mx = -INFINITY, s = 0.f;
-      if (o < O) {
-        const float* row = wf + (size_t)o * I;
-        for (int k = lane; k < I; k += 32) {
-          const float v = row[k];
-          if (v == -INFINITY) continue;
-          if (v > mx) {
-            s *= __expf(mx - v);
-            mx = v;
-          }
-          s += __expf(v - mx);
-        }
-      }
-      const float m = warp_max(mx);
-      s = warp_sum(mx == -INFINITY ? 0.f : s * __expf(mx - m));
+      float m = 0.f, s = 0.f;
+      if (o < O) cirkit::softmax_row_stats(wf + (size_t)o * I, I, lane, &m, &s);
       if (lane == 0) {
-        mw[r] = m == -INFINITY ? 0.f : m;  // units past O stage exp(-inf) = 0
+        mw[r] = m;  // units past O stage exp(-inf) = 0
         lsw[r] = logf(s);
       }
     }

@@ -3,6 +3,8 @@ plain PyTorch versions."""
 
 from cirkit_tpu_torch.ops.lse_einsum import (
     LAUNCHES,
+    OPS,
+    backward,
     lse_matmul,
     lse_matmul_softmax,
     lse_tucker2,
@@ -11,6 +13,8 @@ from cirkit_tpu_torch.ops.lse_einsum import (
 
 __all__ = [
     "LAUNCHES",
+    "OPS",
+    "backward",
     "lse_matmul",
     "lse_matmul_softmax",
     "lse_tucker2",

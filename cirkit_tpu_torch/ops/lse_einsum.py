@@ -12,13 +12,16 @@ contract in linear space, take the log and add the shift back.
   contraction ``(F, B, K1) x (F, B, K2) x (F, O, K1*K2) -> (F, B, O)``; the
   outer product of the two inputs never reaches device memory.
 
-Each op is a wrapper around one entry of the hand-written CUDA kernel
-``csrc/lse_einsum.cu``, beside a plain PyTorch version (``*_ref``) that
-mirrors the JAX package's XLA fallbacks. The wrapper takes the plain
-version only for tensors on the CPU; a CUDA tensor gets the kernel or an
-exception. ``LAUNCHES`` counts the kernel launches of each wrapper.
-
-The ops are forward-only: the backward kernel comes with training.
+Each op is a ``torch.autograd.Function`` (the counterpart of the JAX
+package's custom VJP ``_fused_p``, ``cirkit_tpu/ops/lse_einsum.py:447-463``)
+around two entries of the hand-written CUDA kernels: the forward in
+``csrc/lse_einsum.cu`` and the backward in ``csrc/lse_einsum_bwd.cu``.
+Beside each stands a plain PyTorch version: ``*_ref`` for the forward,
+mirroring the JAX package's XLA fallbacks, and ``*_bwd_ref`` for the
+backward, computing exactly the backward kernel's math. An op takes the
+plain versions only for tensors on the CPU; a CUDA tensor gets the kernel
+or an exception. ``LAUNCHES`` counts the op calls that launched a kernel,
+one key per op and one per op's backward (``lse_matmul_bwd``, ...).
 """
 
 from __future__ import annotations
@@ -27,16 +30,17 @@ import torch
 
 from cirkit_tpu_torch.ops import _build
 
-LAUNCHES: dict[str, int] = {
-    "lse_matmul": 0,
-    "lse_matmul_softmax": 0,
-    "lse_tucker2": 0,
-    "lse_tucker2_softmax": 0,
-}
-"""Kernel launches per wrapper; a wrapper adds one only where it launches."""
+OPS = ("lse_matmul", "lse_matmul_softmax", "lse_tucker2", "lse_tucker2_softmax")
+LAUNCHES: dict[str, int] = {name: 0 for op in OPS for name in (op, f"{op}_bwd")}
+"""Kernel launches per op and per op's backward; a count rises by one only
+where its op launches its kernel."""
 
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-_BN, _BM = 64, 128  # the kernel's output-unit and batch-row tiles
+_BN, _BM = 64, 128  # the forward kernel's output-unit and batch-row tiles
+# the backward kernels' grid tiles (csrc/lse_einsum_bwd.cu): rows per warp
+# pass, and input columns of the dense dx kernel (the other grids are smaller)
+_BWD_ROWS, _BWD_DX_COLS = 8, 64
+_MAX_SMEM = 232_448  # shared memory a block can use on sm_90
 
 
 def _clamp_max(x: torch.Tensor) -> torch.Tensor:
@@ -79,8 +83,102 @@ def lse_tucker2_softmax_ref(
     return lse_tucker2_ref(x1, x2, torch.softmax(theta, dim=-1))
 
 
+# The plain backward versions: the math of the backward kernel (and of the
+# JAX package's ``_bwd_kernel``, ``cirkit_tpu/ops/lse_einsum.py:350-396``).
+# ``needs`` says which gradients to compute, in argument order; the others
+# come back as None.
+
+
+def _gy(g: torch.Tensor, out: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``g / y = g * exp(shift - out)``, with non-finite values set to 0, so
+    a row that is all -inf gives zero gradients and no NaN."""
+    gy = g * torch.exp(shift - out)
+    return torch.where(torch.isfinite(gy), gy, torch.zeros_like(gy))
+
+
+def _softmax_vjp(w: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """The softmax VJP on the logits: ``w * (dw - sum_c w_c dw_c)`` per row."""
+    return w * (dw - (w * dw).sum(dim=-1, keepdim=True))
+
+
+def lse_matmul_bwd_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    out: torch.Tensor,
+    g: torch.Tensor,
+    needs: tuple[bool, bool] = (True, True),
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """``(dx, dw)`` of :func:`lse_matmul`: ``dx = e * (gy @ w)`` and
+    ``dw = sum_b gy^T e`` with ``e = exp(x - m)``."""
+    m = _clamp_max(x)
+    e = torch.exp(x - m)
+    gy = _gy(g, out, m)
+    dx = e * torch.bmm(gy, w) if needs[0] else None
+    dw = torch.bmm(gy.transpose(1, 2), e) if needs[1] else None
+    return dx, dw
+
+
+def lse_matmul_softmax_bwd_ref(
+    x: torch.Tensor,
+    theta: torch.Tensor,
+    out: torch.Tensor,
+    g: torch.Tensor,
+    needs: tuple[bool, bool] = (True, True),
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """``(dx, dtheta)`` of :func:`lse_matmul_softmax`."""
+    w = torch.softmax(theta, dim=-1)
+    dx, dw = lse_matmul_bwd_ref(x, w, out, g, needs)
+    return dx, None if dw is None else _softmax_vjp(w, dw)
+
+
+def lse_tucker2_bwd_ref(
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    w: torch.Tensor,
+    out: torch.Tensor,
+    g: torch.Tensor,
+    needs: tuple[bool, bool, bool] = (True, True, True),
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+    """``(dx1, dx2, dw)`` of :func:`lse_tucker2`, with ``s = gy @ w``:
+    ``dx1[b,i] = e1[b,i] sum_j s[b,i*K2+j] e2[b,j]``,
+    ``dx2[b,j] = e2[b,j] sum_i s[b,i*K2+j] e1[b,i]`` and ``dw = sum_b gy^T e``
+    over the (F, B, K1*K2) outer product ``e``, which this materializes."""
+    f, b, k1 = x1.shape
+    k2 = x2.shape[2]
+    m1 = _clamp_max(x1)
+    m2 = _clamp_max(x2)
+    e1 = torch.exp(x1 - m1)
+    e2 = torch.exp(x2 - m2)
+    gy = _gy(g, out, m1 + m2)
+    dx1 = dx2 = dw = None
+    if needs[0] or needs[1]:
+        s = torch.bmm(gy, w).reshape(f, b, k1, k2)
+        if needs[0]:
+            dx1 = e1 * (s @ e2[..., None])[..., 0]
+        if needs[1]:
+            dx2 = e2 * (e1[..., None, :] @ s)[..., 0, :]
+    if needs[2]:
+        e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
+        dw = torch.bmm(gy.transpose(1, 2), e)
+    return dx1, dx2, dw
+
+
+def lse_tucker2_softmax_bwd_ref(
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    theta: torch.Tensor,
+    out: torch.Tensor,
+    g: torch.Tensor,
+    needs: tuple[bool, bool, bool] = (True, True, True),
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+    """``(dx1, dx2, dtheta)`` of :func:`lse_tucker2_softmax`."""
+    w = torch.softmax(theta, dim=-1)
+    dx1, dx2, dw = lse_tucker2_bwd_ref(x1, x2, w, out, g, needs)
+    return dx1, dx2, None if dw is None else _softmax_vjp(w, dw)
+
+
 # --------------------------------------------------------------------------- #
-# Kernel wrappers
+# Kernel launches
 # --------------------------------------------------------------------------- #
 
 
@@ -109,38 +207,185 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _launch(entry: str, op: str, ins: tuple[torch.Tensor, ...], sizes: tuple[int, ...],
-            out_shape: tuple[int, int, int]) -> torch.Tensor:
-    """Check the operands of a CUDA launch, allocate the output and launch
-    ``entry`` of the kernel library on the current stream."""
-    dev = ins[0].device
+def _check_cuda(op: str, ts: tuple[torch.Tensor, ...]) -> torch.device:
+    """The common device of a CUDA launch's operands, checked."""
+    dev = ts[0].device
     if dev.type != "cuda":
         raise ValueError(f"{op}: tensors on {dev}; the op runs on CPU or CUDA tensors")
-    for t in ins:
+    for t in ts:
         if t.device != dev:
             raise ValueError(f"{op}: operands on {dev} and {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{op}: the CUDA kernel takes float32 operands, found {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: the CUDA kernel takes contiguous operands")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        raise NotImplementedError("backward kernel: training PR")
-    f, b, o = out_shape
+    return dev
+
+
+def _call(lib, entry: str, op: str, args) -> None:
+    err = getattr(lib, entry)(*args)
+    if err != 0:
+        msg = lib.cirkit_cuda_error_string(err).decode()
+        raise RuntimeError(f"{op}: kernel launch failed with CUDA error {err} ({msg})")
+
+
+def _sizes(ins: tuple[torch.Tensor, ...]) -> tuple[int, ...]:
+    """(F, B, I, O) of the dense ops, (F, B, K1, K2, O) of the Tucker ones."""
+    *xs, w = ins
+    return (*xs[0].shape[:2], *(x.shape[2] for x in xs), w.shape[1])
+
+
+def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """Check the operands, allocate the output and launch the forward entry
+    of ``op`` on the current stream."""
+    dev = _check_cuda(op, ins)
+    sizes = _sizes(ins)
+    f, b, o = sizes[0], sizes[1], sizes[-1]
     if max(sizes) >= 2**31 or -(-o // _BN) > _MAX_GRID_YZ or -(-b // _BM) > _MAX_GRID_YZ:
         raise ValueError(f"{op}: sizes {sizes} exceed the kernel's launch grid")
-    out = torch.empty(out_shape, device=dev, dtype=torch.float32)
+    out = torch.empty((f, b, o), device=dev, dtype=torch.float32)
     if out.numel() == 0:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(
-        *(t.data_ptr() for t in ins), out.data_ptr(), *sizes, dev.index, stream
-    )
-    if err != 0:
-        msg = lib.cirkit_cuda_error_string(err).decode()
-        raise RuntimeError(f"{op}: kernel launch failed with CUDA error {err} ({msg})")
+    args = (*(t.data_ptr() for t in ins), out.data_ptr(), *sizes, dev.index, stream)
+    _call(lib, _ENTRIES[op][0], op, args)
     LAUNCHES[op] += 1
     return out
+
+
+def _launch_bwd(
+    op: str, ins: tuple[torch.Tensor, ...], out: torch.Tensor, g: torch.Tensor,
+    needs: tuple[bool, ...],
+) -> tuple[torch.Tensor | None, ...]:
+    """Allocate the requested gradients and the scratch, and launch the
+    backward entry of ``op`` on the current stream."""
+    dev = _check_cuda(f"{op} backward", (*ins, out, g))
+    grads = tuple(torch.empty_like(t) if need else None for t, need in zip(ins, needs))
+    if not any(needs):
+        return grads
+    if out.numel() == 0 or ins[0].numel() == 0:
+        return tuple(None if d is None else d.zero_() for d in grads)
+    sizes = _sizes(ins)
+    f, b, o = sizes[0], sizes[1], sizes[-1]
+    i = ins[-1].shape[2]
+    tucker = op.startswith("lse_tucker2")
+    if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
+        raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
+    lib = _build.library()
+    if tucker and lib.lse_bwd_tucker_smem(*sizes[2:4]) > _MAX_SMEM:
+        raise ValueError(f"{op} backward: K1, K2 = {sizes[2:4]} exceed the dx kernel's "
+                         "shared memory")
+    # scratch: the row shifts, gy, and for softmax the (F, O, I) weights
+    scratch = [torch.empty((f, b), device=dev, dtype=torch.float32)
+               for _ in range(2 if tucker else 1)]
+    scratch.append(torch.empty((f, b, o), device=dev, dtype=torch.float32))
+    if op.endswith("softmax"):
+        scratch.append(torch.empty_like(ins[-1]))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (
+        *(t.data_ptr() for t in (*ins, out, g)),
+        *(None if d is None else d.data_ptr() for d in grads),
+        *(t.data_ptr() for t in scratch),
+        *sizes,
+        dev.index,
+        stream,
+    )
+    _call(lib, _ENTRIES[op][1], f"{op} backward", args)
+    LAUNCHES[f"{op}_bwd"] += 1
+    return grads
+
+
+# op -> (forward entry, backward entry, forward plain version, backward plain version)
+_ENTRIES = {
+    "lse_matmul": ("lse_fwd_dense", "lse_bwd_dense", lse_matmul_ref, lse_matmul_bwd_ref),
+    "lse_matmul_softmax": ("lse_fwd_dense_softmax", "lse_bwd_dense_softmax",
+                           lse_matmul_softmax_ref, lse_matmul_softmax_bwd_ref),
+    "lse_tucker2": ("lse_fwd_tucker", "lse_bwd_tucker", lse_tucker2_ref, lse_tucker2_bwd_ref),
+    "lse_tucker2_softmax": ("lse_fwd_tucker_softmax", "lse_bwd_tucker_softmax",
+                            lse_tucker2_softmax_ref, lse_tucker2_softmax_bwd_ref),
+}
+
+
+def _forward(ctx, op: str, *ins: torch.Tensor) -> torch.Tensor:
+    out = _ENTRIES[op][2](*ins) if _on_cpu(*ins) else _launch_fwd(op, ins)
+    ctx.save_for_backward(*ins, out)
+    return out
+
+
+def backward(
+    op: str,
+    ins: tuple[torch.Tensor, ...],
+    out: torch.Tensor,
+    g: torch.Tensor,
+    needs: tuple[bool, ...] | None = None,
+) -> tuple[torch.Tensor | None, ...]:
+    """The gradients of ``op`` (one of :data:`OPS`) with respect to its
+    arguments ``ins``, given its output ``out`` and the cotangent ``g``;
+    ``needs`` (default: all) selects which. The plain version on CPU
+    tensors, the backward kernel on CUDA tensors."""
+    needs = (True,) * len(ins) if needs is None else tuple(needs)
+    if _on_cpu(*ins, out, g):
+        return _ENTRIES[op][3](*ins, out, g, needs)
+    return _launch_bwd(op, tuple(ins), out, g, needs)
+
+
+def _backward(ctx, op: str, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
+    *ins, out = ctx.saved_tensors
+    return backward(op, tuple(ins), out, g.contiguous(), ctx.needs_input_grad)
+
+
+# --------------------------------------------------------------------------- #
+# The differentiable ops
+# --------------------------------------------------------------------------- #
+
+
+class LseMatmul(torch.autograd.Function):
+    """:func:`lse_matmul` with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        return _forward(ctx, "lse_matmul", x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, "lse_matmul", g)
+
+
+class LseMatmulSoftmax(torch.autograd.Function):
+    """:func:`lse_matmul_softmax`; the backward returns the logits' gradient."""
+
+    @staticmethod
+    def forward(ctx, x, theta):
+        return _forward(ctx, "lse_matmul_softmax", x, theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, "lse_matmul_softmax", g)
+
+
+class LseTucker2(torch.autograd.Function):
+    """:func:`lse_tucker2` with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, w):
+        return _forward(ctx, "lse_tucker2", x1, x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, "lse_tucker2", g)
+
+
+class LseTucker2Softmax(torch.autograd.Function):
+    """:func:`lse_tucker2_softmax`; the backward returns the logits' gradient."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, theta):
+        return _forward(ctx, "lse_tucker2_softmax", x1, x2, theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, "lse_tucker2_softmax", g)
 
 
 def lse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -149,24 +394,14 @@ def lse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``x``: (F, B, I) log-space values; ``w``: (F, O, I) linear-space weights.
     Returns (F, B, O) log-space values."""
     _check_dense(x, w)
-    if _on_cpu(x, w):
-        return lse_matmul_ref(x, w)
-    f, b, i = x.shape
-    o = w.shape[1]
-    return _launch("lse_fwd_dense", "lse_matmul", (x, w), (f, b, i, o), (f, b, o))
+    return LseMatmul.apply(x, w)
 
 
 def lse_matmul_softmax(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """:func:`lse_matmul` with ``w = softmax(theta, axis=-1)`` fused into the
     kernel: the normalized weights are never stored."""
     _check_dense(x, theta)
-    if _on_cpu(x, theta):
-        return lse_matmul_softmax_ref(x, theta)
-    f, b, i = x.shape
-    o = theta.shape[1]
-    return _launch(
-        "lse_fwd_dense_softmax", "lse_matmul_softmax", (x, theta), (f, b, i, o), (f, b, o)
-    )
+    return LseMatmulSoftmax.apply(x, theta)
 
 
 def lse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -176,14 +411,7 @@ def lse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Te
     (F, O, K1*K2) linear-space core weight, flattened row-major over (K1, K2).
     Returns (F, B, O) log-space values."""
     _check_tucker(x1, x2, w)
-    if _on_cpu(x1, x2, w):
-        return lse_tucker2_ref(x1, x2, w)
-    f, b, k1 = x1.shape
-    k2 = x2.shape[2]
-    o = w.shape[1]
-    return _launch(
-        "lse_fwd_tucker", "lse_tucker2", (x1, x2, w), (f, b, k1, k2, o), (f, b, o)
-    )
+    return LseTucker2.apply(x1, x2, w)
 
 
 def lse_tucker2_softmax(
@@ -192,15 +420,4 @@ def lse_tucker2_softmax(
     """:func:`lse_tucker2` with ``w = softmax(theta, axis=-1)`` fused into
     the kernel (see :func:`lse_matmul_softmax`)."""
     _check_tucker(x1, x2, theta)
-    if _on_cpu(x1, x2, theta):
-        return lse_tucker2_softmax_ref(x1, x2, theta)
-    f, b, k1 = x1.shape
-    k2 = x2.shape[2]
-    o = theta.shape[1]
-    return _launch(
-        "lse_fwd_tucker_softmax",
-        "lse_tucker2_softmax",
-        (x1, x2, theta),
-        (f, b, k1, k2, o),
-        (f, b, o),
-    )
+    return LseTucker2Softmax.apply(x1, x2, theta)
