@@ -18,6 +18,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    some rows, each gradient to ``|kernel - plain| <= 1e-4 max|plain| +
    1e-4 |plain|`` (linear sums of up to B or O*K2 terms), no NaN, and input
    gradients that are 0 where the plain version's are;
+3c. routing against plain: the max-product Tucker kernel
+   (``tropical_tucker2``) and the routing choice (``route_tucker2``) against
+   their plain versions at the flagship's largest Tucker entry (F=784,
+   B=128, K1=K2=O=64) with logits and with linear weights, and at edge
+   shapes (B=13, O=1, O=70, K1 != K2, -inf children, zero weights, -inf
+   logits): tropical values to ``|kernel - plain| <= 1e-5 |plain| + 1e-5``
+   with the same -inf pattern; each argmax by the score of its choice, the
+   plain scores at the kernel's index within ``1e-5 |max| + 1e-5`` of the
+   plain maximum (f32 rounding may flip near-ties; the indices that differ
+   are counted); the Gumbel draws of the ``"sample"`` kind over 65,536
+   identical rows against the exact ``softmax(scores)``, every frequency
+   within ``5 sqrt(p(1-p)/N) + 1e-3``, and the same draws from the same
+   seed;
 4. slice: the MNIST QuadGraph flagship forward (K=64, 784 variables, batch
    128) for the Tucker circuit, the CP circuit and the Tucker circuit with
    plain (EM-ready) weights, through ``PipelineContext.compile`` and
@@ -42,12 +55,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    128 and its median time;
 6. profile: the forward, backward and optimizer of each training run timed
    apart, and 5 steps traced with ``torch.profiler`` for the device time by
-   kernel category and the device's idle share.
+   kernel category and the device's idle share;
+7. queries: the Tucker flagship at batch 128 with the 50% random mask of
+   ``bench.py:222-224``: ``IntegrateQuery``, ``MAPQuery`` (plain and with
+   ``marginalize_vars``), ``SamplingQuery`` of 128 samples and
+   ``SamplingQuery.conditional``, each call counted (one tropical and one
+   route launch per Tucker entry for MAP, one route launch per Tucker
+   entry and one forward launch per kernel-bearing entry for sampling, the
+   forward launches for the marginals); 8 rows of the marginals, of both
+   MAP log-values and of the conditional log-evidence against a float64
+   CPU run of the same store (rtol 1e-5), evidence returned unchanged, the
+   assignments that differ from float64 counted; the median ms of each
+   query, and the device time of MAP and sampling by kernel category.
 
 The line before the last is a JSON object with each kernel's launches on
-its main path (the forward ops in phase 4, the backward ops in phase 5),
-its worst error and its median time beside the plain version's; the last
-line is ``{"ok": true, "device": {...}}``.
+its main path (the forward ops in phase 4, the backward ops in phase 5,
+the routing ops in phase 7), its worst error and its median time beside
+the plain version's; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -65,6 +89,18 @@ SOURCE = "cirkit_tpu_torch/csrc/lse_einsum.cu"
 REPLACES = "cirkit_tpu/ops/lse_einsum.py:335"
 BWD_SOURCE = "cirkit_tpu_torch/csrc/lse_einsum_bwd.cu"
 BWD_REPLACES = "cirkit_tpu/ops/lse_einsum.py:350"
+ROUTE_SOURCE = "cirkit_tpu_torch/csrc/tucker_route.cu"
+ROUTE_REPLACES = {  # the Pallas kernel each routing op replaces
+    "tropical_tucker2": "cirkit_tpu/ops/lse_einsum.py:1334",
+    "route_tucker2": "cirkit_tpu/ops/lse_einsum.py:1176",
+}
+DEV = "cuda"  # the device of phases 3c and 7
+ROUTE_FLAGSHIP = (784, 128, 64, 64, 64)  # F, B, K1, K2, O of the largest Tucker entry
+TROP_ATOL = TROP_RTOL = 1e-5  # tropical bound: TROP_RTOL |plain| + TROP_ATOL
+SCORE_REL = SCORE_ABS = 1e-5  # route bound on the chosen score
+FREQ_ROWS = 65536  # identical rows of the sample-kind frequency check
+FLAGSHIP_K = 64
+QUERY_ROWS = 8  # rows held against the float64 CPU queries
 ATOL, RTOL = 1e-4, 1e-5
 BWD_REL = 1e-4  # backward bound: BWD_REL * (max|plain| + |plain|)
 BATCH = 128
@@ -240,6 +276,163 @@ def phase_kernels() -> dict[str, dict]:
     return results
 
 
+def _route_cases(gen):
+    """(label, x1, x2, th, log_weights, sel) at the flagship's largest Tucker
+    entry first, then the edge shapes; sel has some -1 rows (clamped)."""
+    import torch
+
+    def logx(*shape):
+        return torch.randn(shape, generator=gen, device=DEV) * 3.0 - 2.0
+
+    def case(label, f, b, k1, k2, o, log_weights):
+        th = (torch.randn((f, o, k1 * k2), generator=gen, device=DEV) if log_weights
+              else torch.rand((f, o, k1 * k2), generator=gen, device=DEV) * 0.99 + 0.01)
+        sel = torch.randint(-1, o, (f, b), generator=gen, device=DEV)
+        return [label, logx(f, b, k1), logx(f, b, k2), th, log_weights, sel]
+
+    f, b, k1, k2, o = ROUTE_FLAGSHIP
+    shape = f"F={f} B={b} K1={k1} K2={k2} O={o}"
+    cases = [
+        case(f"{shape} logits", f, b, k1, k2, o, True),
+        case(f"{shape} linear", f, b, k1, k2, o, False),
+        case("B=13 O=1 K1=8 K2=16 logits", 5, 13, 8, 16, 1, True),
+        case("B=13 O=70 K1=16 K2=8 linear", 3, 13, 16, 8, 70, False),
+        case("B=130 O=3 K1=3 K2=5 logits", 2, 130, 3, 5, 3, True),
+    ]
+    inf = float("-inf")
+    edge = case("-inf children, zero weights", 3, 16, 8, 8, 16, False)
+    edge[1][0, 2] = inf  # a row of x1 all -inf
+    edge[1][1, 3, :4] = inf
+    edge[2][2, 5, 1:] = inf
+    edge[3][:, :, 9] = 0.0  # zero linear weights: log 0 = -inf never wins
+    edge[3][1, :, : 32] = 0.0
+    cases.append(edge)
+    edge = case("-inf children, -inf logits", 3, 16, 8, 8, 16, True)
+    edge[1][0, 2] = inf
+    edge[3][0, :, 7] = inf
+    edge[3][2, 4, 20:] = inf
+    cases.append(edge)
+    return cases
+
+
+def _check_choice(label, got, scores) -> int:
+    """The plain scores at the kernel's index within SCORE_REL |max| +
+    SCORE_ABS of the plain maximum; returns how many indices differ from
+    the plain argmax."""
+    import torch
+
+    best = scores.amax(dim=-1)
+    at = torch.gather(scores, -1, got[..., None])[..., 0]
+    ok = (at >= best - (SCORE_REL * best.abs() + SCORE_ABS)) | (best == float("-inf"))
+    if got.shape != best.shape or not bool(ok.all()):
+        raise AssertionError(f"route_tucker2 [{label}]: a choice scores below the bound: "
+                             f"{int((~ok).sum())} rows")
+    return int((got != scores.argmax(dim=-1)).sum())
+
+
+def _sample_frequencies(R, log_weights: bool) -> float:
+    """The sample kind's draws over FREQ_ROWS identical rows against the exact
+    softmax(scores); returns the worst deviation as a share of its bound."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    f, k1, k2, o = 2, 4, 4, 8
+    x1 = torch.randn((f, 1, k1), generator=gen, device=DEV)
+    x2 = torch.randn((f, 1, k2), generator=gen, device=DEV)
+    th = (torch.randn((f, o, k1 * k2), generator=gen, device=DEV) if log_weights
+          else torch.rand((f, o, k1 * k2), generator=gen, device=DEV) + 0.05)
+    sel = torch.tensor([[3], [6]], device=DEV)
+    p = torch.softmax(R.route_scores(x1.double(), x2.double(), th.double(), sel,
+                                     log_weights=log_weights)[:, 0], dim=-1)
+    rows = [t.expand(-1, FREQ_ROWS, -1).contiguous() for t in (x1, x2)]
+    sel_rows = sel.expand(-1, FREQ_ROWS).contiguous()
+    draw = lambda seed: R.route_tucker2(rows[0], rows[1], th, sel_rows, kind="sample",  # noqa: E731
+                                        log_weights=log_weights, seed=seed)
+    idx = draw(2**40 + 17)
+    if not torch.equal(idx, draw(2**40 + 17)) or torch.equal(idx, draw(2**40 + 18)):
+        raise AssertionError("route_tucker2 sample: draws not reproducible by seed")
+    worst = 0.0
+    for ff in range(f):
+        freq = torch.bincount(idx[ff], minlength=k1 * k2).double() / FREQ_ROWS
+        bound = 5 * torch.sqrt(p[ff] * (1 - p[ff]) / FREQ_ROWS) + 1e-3
+        share = float(((freq - p[ff]).abs() / bound).max())
+        if not share <= 1.0:
+            raise AssertionError(f"route_tucker2 sample: frequencies {freq.tolist()} against "
+                                 f"{p[ff].tolist()}")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_routing() -> dict[str, dict]:
+    """Both routing kernels against their plain versions; returns per-op
+    results (times of the flagship-shaped case with logits)."""
+    import torch
+
+    from cirkit_tpu_torch.ops import routing as R
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    results = {op: {"max_abs_err": 0.0} for op in R.ROUTING_OPS}
+    with torch.inference_mode():
+        for label, x1, x2, th, lw, sel in _route_cases(gen):
+            got = R.tropical_tucker2(x1, x2, th, log_weights=lw)
+            ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=lw)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or torch.isnan(got).any():
+                raise AssertionError(f"tropical_tucker2 [{label}]: shape or NaN")
+            same_inf = torch.equal(torch.isneginf(got), torch.isneginf(ref))
+            finite = torch.isfinite(ref)
+            err = (got[finite] - ref[finite]).abs()
+            max_err = float(err.max()) if err.numel() else 0.0
+            if not same_inf or not bool((err <= TROP_ATOL + TROP_RTOL * ref[finite].abs()).all()):
+                raise AssertionError(f"tropical_tucker2 [{label}]: max |kernel - plain| = "
+                                     f"{max_err:.3e}, -inf pattern equal: {same_inf}")
+            entry = results["tropical_tucker2"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+            line = f"[routing] tropical_tucker2 {label:36s} max|err|={max_err:.3e}"
+            if "ms" not in entry:
+                entry["ms"] = _median_ms(lambda: R.tropical_tucker2(x1, x2, th, log_weights=lw))
+                entry["plain_ms"] = _median_ms(
+                    lambda: R.tropical_tucker2_ref(x1, x2, th, log_weights=lw), iters=5)
+                entry["shape"] = label
+                line += f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms"
+            print(line)
+
+            idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw)
+            scores = R.route_scores(x1, x2, th, sel, log_weights=lw)
+            differ = _check_choice(label, idx, scores)
+            ref_idx = R.route_tucker2_ref(x1, x2, th, sel, kind="max", log_weights=lw)
+            at = torch.gather(scores, -1, idx[..., None])[..., 0]
+            ref_at = torch.gather(scores, -1, ref_idx[..., None])[..., 0]
+            fin = torch.isfinite(ref_at)
+            gap = float((ref_at - at)[fin].max()) if bool(fin.any()) else 0.0
+            entry = results["route_tucker2"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], gap)
+            entry["differ"] = entry.get("differ", 0) + differ
+            line = (f"[routing] route_tucker2    {label:36s} score gap {gap:.3e}, "
+                    f"{differ} of {idx.numel()} indices differ from plain")
+            if "ms" not in entry:
+                entry["ms"] = _median_ms(
+                    lambda: R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw))
+                entry["plain_ms"] = _median_ms(
+                    lambda: R.route_tucker2_ref(x1, x2, th, sel, kind="max", log_weights=lw))
+                seed = 12345
+                entry["sample_ms"] = _median_ms(lambda: R.route_tucker2(
+                    x1, x2, th, sel, kind="sample", log_weights=lw, seed=seed))
+                plain_gen = torch.Generator(device=DEV).manual_seed(seed)
+                entry["sample_plain_ms"] = _median_ms(lambda: R.route_tucker2_ref(
+                    x1, x2, th, sel, kind="sample", log_weights=lw, generator=plain_gen))
+                entry["shape"] = label
+                line += (f"  max: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} "
+                         f"ms; sample: kernel {entry['sample_ms']:.3f} ms, plain "
+                         f"{entry['sample_plain_ms']:.3f} ms")
+            print(line)
+        for lw in (True, False):
+            share = _sample_frequencies(R, lw)
+            print(f"[routing] route_tucker2 sample, log_weights={lw}: frequencies over "
+                  f"{FREQ_ROWS} rows within {share:.3f} of the bound; seed-reproducible")
+    return results
+
+
 def _zero_launches() -> None:
     from cirkit_tpu_torch.ops import lse_einsum as L
 
@@ -311,9 +504,9 @@ def _build_flagship(spl: str, em_ready: bool, device: str):
         (1, 28, 28),
         "quad-graph",
         input_layer="categorical",
-        num_input_units=64,
+        num_input_units=FLAGSHIP_K,
         sum_product_layer=spl,
-        num_sum_units=64,
+        num_sum_units=FLAGSHIP_K,
         em_ready=em_ready,
     )
     ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=device, seed=0)
@@ -555,6 +748,8 @@ def phase_train(smi: str, built: list) -> dict[str, int]:
 
 PROFILE_STEPS = 5
 _KERNEL_CATEGORIES = (  # (category, substrings of kernel names), first match wins
+    ("tropical kernel", ("tropical_tucker",)),
+    ("route kernel", ("route_tucker",)),
     ("forward kernel", ("lse_fwd",)),
     ("backward kernel", ("bwd_prep", "softmax_weights", "lse_bwd_dx", "lse_bwd_dw",
                          "softmax_vjp")),
@@ -646,6 +841,166 @@ def phase_profile(smi: str, built: list) -> None:
         del step, store, opt
 
 
+def _device_breakdown(fn, calls: int) -> str:
+    """``torch.profiler`` over ``calls`` calls of ``fn`` (after a warm-up):
+    device ms a call by kernel category, and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    cats: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            cat = _kernel_category(e.key)
+            cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total / 1e3 / calls
+    device = sum(cats.values())
+    return (f"{wall:.3f} ms a call under the profiler, device busy {device:.3f} ms "
+            f"(idle {1 - device / wall:.1%}): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(cats.items(), key=lambda i: -i[1])))
+
+
+def _query_counted(label: str, fn, want: dict[str, int], launches: dict[str, int]):
+    """Run ``fn`` once and require the launches of each op group in ``want``:
+    ``forward`` (the lse forward ops), ``tropical_tucker2``,
+    ``route_tucker2``; the launches add into ``launches``."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    before = dict(L.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    diff = {op: L.LAUNCHES[op] - before[op] for op in L.LAUNCHES}
+    got = {"forward": sum(diff[op] for op in L.OPS),
+           "tropical_tucker2": diff["tropical_tucker2"], "route_tucker2": diff["route_tucker2"]}
+    if got != want or any(diff[f"{op}_bwd"] for op in L.OPS):
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    for op, n in diff.items():
+        launches[op] = launches.get(op, 0) + n
+    return out
+
+
+def phase_queries(smi: str, built: list) -> dict[str, int]:
+    """The queries on the Tucker flagship at batch 128; returns the launches
+    of each op over the counted (main-path) calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import IntegrateQuery, MAPQuery, SamplingQuery
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTuckerLayer
+
+    ctx, cc, n_kernel = next((ctx, cc, n) for spl, em, _, ctx, cc, n in built
+                             if spl == "tucker" and not em)
+    n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc.layers)
+    rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
+    x_np = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
+    mask_np = rng.random((BATCH, 784)) < 0.5
+    marg_np = ~mask_np & (rng.random((BATCH, 784)) < 0.5)
+    x = torch.as_tensor(x_np, device=DEV)
+    mask = torch.as_tensor(mask_np, device=DEV)
+    marg = torch.as_tensor(marg_np, device=DEV)
+    iq, mq, sq = IntegrateQuery(cc), MAPQuery(cc), SamplingQuery(cc)
+    gen = torch.Generator().manual_seed(0)
+    # the store of the compile (phase 5's fit bound its trained store as
+    # cc.default_store), the one the float64 reference below loads
+    st = ctx.parameters
+    calls = {
+        "integrate": (lambda: iq(x, integrate_vars=mask, store=st), {"forward": n_kernel}),
+        "map": (lambda: mq(x, evidence_mask=mask, store=st), {}),
+        "map marginal": (lambda: mq(x, evidence_mask=mask, marginalize_vars=marg, store=st),
+                         {}),
+        "sample": (lambda: sq(BATCH, generator=gen, store=st), {"forward": n_kernel}),
+        "conditional": (lambda: sq.conditional(x, evidence_mask=mask, generator=gen, store=st),
+                        {"forward": n_kernel}),
+    }
+    for name, (_, want) in calls.items():
+        want.setdefault("forward", 0)
+        want["tropical_tucker2"] = n_tucker if name.startswith("map") else 0
+        want["route_tucker2"] = 0 if name == "integrate" else n_tucker
+
+    # The main-path run: each query once, counted.
+    _zero_launches()
+    launches: dict[str, int] = {}
+    outs = {name: _query_counted(name, fn, want, launches)
+            for name, (fn, want) in calls.items()}
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    routed = {op: launches[op] for op in ROUTE_REPLACES}
+    print(f"[queries] Tucker flagship, batch {BATCH}, {n_tucker} Tucker entries of {n_kernel} "
+          f"kernel-bearing: launches on the main path {routed}, forward "
+          f"{sum(launches[op] for op in L.OPS)}")
+    for op in ("tropical_tucker2", "route_tucker2"):
+        if launches[op] == 0:
+            raise AssertionError(f"{op} was not launched on the query path")
+
+    marginals = outs["integrate"]
+    (asg, vals), (asg_m, vals_m) = outs["map"], outs["map marginal"]
+    samples, mixtures = outs["sample"]
+    csamples, log_ev = outs["conditional"]
+    checks = [
+        ("marginals", marginals.shape == (BATCH, 1, 1) and bool(marginals.isfinite().all())),
+        ("map", asg.shape == (BATCH, 784) and bool(vals.isfinite().all())
+         and torch.equal(asg[mask], x[mask].to(asg.dtype))),
+        ("map marginal", bool(vals_m.isfinite().all()) and bool((asg_m[marg] == 0).all())
+         and torch.equal(asg_m[mask], x[mask].to(asg.dtype))),
+        ("sample", samples.shape == (BATCH, 784) and len(mixtures) > 0),
+        ("conditional", torch.equal(csamples[mask], x[mask].to(csamples.dtype))
+         and bool(log_ev.isfinite().all())),
+    ]
+    for s_ in (asg, asg_m, samples, csamples):
+        checks.append(("states", bool(((s_ >= 0) & (s_ <= 255) & (s_ == s_.round())).all())))
+    bad = [name for name, ok in checks if not ok]
+    if bad:
+        raise AssertionError(f"queries: outputs wrong in {bad}")
+
+    # QUERY_ROWS rows against the same store in float64 on the CPU
+    t0 = time.perf_counter()
+    _, ctx_cpu, cc_cpu = _build_flagship("tucker", False, "cpu")
+    ctx_cpu.load_parameters(
+        {k: v.detach().cpu().numpy() for k, v in ctx.parameters.items()}, dtype=torch.float64
+    )
+    r = QUERY_ROWS
+    xr, mr, gr = (torch.as_tensor(a[:r]) for a in (x_np, mask_np, marg_np))
+    want_marg = IntegrateQuery(cc_cpu)(xr, integrate_vars=mr)
+    want_map = MAPQuery(cc_cpu)(xr, evidence_mask=mr)
+    want_map_m = MAPQuery(cc_cpu)(xr, evidence_mask=mr, marginalize_vars=gr)
+    _, want_ev = SamplingQuery(cc_cpu).conditional(xr, evidence_mask=mr,
+                                                   generator=torch.Generator().manual_seed(0))
+    del ctx_cpu, cc_cpu
+    rels = {}
+    for name, got, want in (("marginals", marginals[:r, 0, 0], want_marg[:, 0, 0]),
+                            ("map", vals[:r], want_map[1]), ("map marginal", vals_m[:r],
+                                                               want_map_m[1]),
+                            ("log-evidence", log_ev[:r], want_ev)):
+        got = got.double().cpu()
+        rels[name] = float(((got - want).abs() / want.abs()).max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"queries: {name} off the float64 CPU run by {rels[name]:.3e}")
+    differ = [int((a[:r].double().cpu() != w[0]).sum()) for a, w in ((asg, want_map),
+                                                                      (asg_m, want_map_m))]
+    print(f"[queries] {r} rows against float64 on the CPU ({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} max rel err {v:.2e}" for k, v in rels.items())
+          + f"; assignments differing from float64: MAP {differ[0]}, marginal MAP {differ[1]} "
+          f"of {r * 784} entries; evidence returned unchanged")
+
+    with torch.inference_mode():
+        for name, (fn, _) in calls.items():
+            ms = _median_ms(fn, warmup=2, iters=10)
+            print(f"[queries] {name}: {ms:.3f} ms median of 10 = {BATCH / ms * 1e3:.1f} rows/s "
+                  f"({smi})")
+        for name in ("map", "sample"):
+            print(f"[queries] {name} profile: {_device_breakdown(calls[name][0], 3)} ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -656,15 +1011,24 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     results.update(phase_backward())
+    results.update(phase_routing())
     built, launches = phase_slice(smi)
     launches.update(phase_train(smi, built))
     phase_profile(smi, built)
+    query_launches = phase_queries(smi, built)
+    launches.update({op: query_launches[op] for op in ROUTE_REPLACES})
+
+    def source(op: str) -> tuple[str, str]:
+        if op in ROUTE_REPLACES:
+            return ROUTE_SOURCE, ROUTE_REPLACES[op]
+        return (BWD_SOURCE, BWD_REPLACES) if op.endswith("_bwd") else (SOURCE, REPLACES)
+
     kernels = [
         {
             "name": op,
             "route": "cuda",
-            "source": BWD_SOURCE if op.endswith("_bwd") else SOURCE,
-            "replaces": BWD_REPLACES if op.endswith("_bwd") else REPLACES,
+            "source": source(op)[0],
+            "replaces": source(op)[1],
             "launches": launches[op],
             "max_abs_err": results[op]["max_abs_err"],
             "ms": results[op]["ms"],

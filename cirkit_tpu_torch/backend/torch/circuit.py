@@ -13,7 +13,7 @@ same slot names as the JAX package's store.
 
 from __future__ import annotations
 
-from collections.abc import Mapping, Sequence
+from collections.abc import Callable, Mapping, Sequence
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +33,8 @@ from cirkit_tpu_torch.utils.scope import Scope
 # For every layer: per fold, the ordered (producer layer index, fold within
 # producer) pairs feeding each operand slot. Input layers have no entries.
 FoldInputs = list[list[tuple[int, int]]]
+# A per-layer evaluation override: (layer, store, layer input) -> output.
+ModuleFn = Callable[[TorchLayer, Store, torch.Tensor], torch.Tensor]
 
 
 @dataclass
@@ -71,6 +73,52 @@ def _build_gather(
         if layer_folds[in_ids[0]] == f:
             return in_ids, None
     return in_ids, fold_idx
+
+
+def _pad_rows(pad: int | None, x, *masks):
+    """Round the batch up to a multiple of ``pad`` by repeating row 0 (2-D
+    masks with a matching batch alike); returns ``(x, *masks,
+    original_b_or_None)``, and callers slice outputs back to ``b`` with
+    :func:`_slice_rows`. Single-``Scope`` specs pass through (they broadcast
+    from the padded ``x``); per-row Scope lists cannot pad and raise."""
+    if pad is None:
+        return (x, *masks, None)
+    if pad <= 0:
+        raise ValueError("pad_batch_to must be a positive integer")
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    b = x.shape[0]
+    bp = -(-b // pad) * pad
+    if bp == b:
+        return (x, *masks, None)
+
+    def ext(a):
+        if isinstance(a, torch.Tensor):
+            return torch.cat([a, a[:1].expand(bp - b, *a.shape[1:])], dim=0)
+        a = np.asarray(a)
+        return np.concatenate([a, np.broadcast_to(a[:1], (bp - b, *a.shape[1:]))], axis=0)
+
+    padded = []
+    for m in masks:
+        if isinstance(m, (torch.Tensor, np.ndarray)) and m.ndim >= 2 and m.shape[0] == b:
+            padded.append(ext(m))
+        elif isinstance(m, (list, tuple)) and len(m) == b and b > 1:
+            raise ValueError(
+                "pad_batch_to cannot pad a per-row list of Scopes; pass the "
+                "evidence as a boolean array (or a single broadcast Scope)"
+            )
+        else:
+            padded.append(m)
+    return (ext(x), *padded, b)
+
+
+def _slice_rows(out, b: int | None):
+    """Undo :func:`_pad_rows` on a tensor or a tuple of tensors."""
+    if b is None:
+        return out
+    if isinstance(out, tuple):
+        return tuple(o[:b] for o in out)
+    return out[:b]
 
 
 class TorchCircuit(nn.Module):
@@ -191,29 +239,43 @@ class TorchCircuit(nn.Module):
         return sum(node.num_folds * int(np.prod(node.shape)) for node in self._slots.values())
 
     # -- evaluation --------------------------------------------------------------
-    def evaluate(self, store: Store, x: torch.Tensor) -> torch.Tensor:
-        """Run the plan: (B, D) inputs -> (B, O, K) outputs."""
-        return self.evaluate_raw(store, x).transpose(0, 1)
+    def evaluate(
+        self, store: Store, x: torch.Tensor, *, module_fn: ModuleFn | None = None
+    ) -> torch.Tensor:
+        """Run the plan: (B, D) inputs -> (B, O, K) outputs. ``module_fn(layer,
+        store, xin)`` overrides per-layer evaluation (the hook of the
+        queries)."""
+        return self.evaluate_raw(store, x, module_fn=module_fn).transpose(0, 1)
 
-    def evaluate_raw(self, store: Store, x: torch.Tensor) -> torch.Tensor:
-        """Run the plan returning the raw output stack (O, B, K)."""
-        outs: list[torch.Tensor] = []
-        for entry in self._entries:
-            if isinstance(entry.layer, TorchInputLayer):
-                # (B, D_total) -> (F, B, D) via the static scope gather
-                if entry.gather is None:
-                    xin = x.t()[:, :, None]
-                else:
-                    xin = x[:, getattr(self, entry.gather)].permute(1, 0, 2)
-            else:
-                ins = [outs[i] for i in entry.in_ids]
-                cat = ins[0] if len(ins) == 1 else torch.cat(ins, dim=0)
-                # (F, H, B, K)
-                xin = cat[:, None] if entry.gather is None else cat[getattr(self, entry.gather)]
-            outs.append(entry.layer(store, xin))
+    def entry_input(self, entry: PlanEntry, x: torch.Tensor, outs: Sequence[torch.Tensor]):
+        """What the plan hands ``entry``'s layer: the (F, B, D) data slice of
+        an input layer, or the (F, H, B, K) gather of an inner layer's
+        producers from the outputs ``outs`` of the entries before it."""
+        if isinstance(entry.layer, TorchInputLayer):
+            # (B, D_total) -> (F, B, D) via the static scope gather
+            if entry.gather is None:
+                return x.t()[:, :, None]
+            return x[:, getattr(self, entry.gather)].permute(1, 0, 2)
+        ins = [outs[i] for i in entry.in_ids]
+        cat = ins[0] if len(ins) == 1 else torch.cat(ins, dim=0)
+        return cat[:, None] if entry.gather is None else cat[getattr(self, entry.gather)]
+
+    def output_stack(self, outs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The (O, B, K) output stack from the entries' outputs."""
         ins = [outs[i] for i in self._out_ids]
         cat = ins[0] if len(ins) == 1 else torch.cat(ins, dim=0)
         return cat if self._out_gather is None else cat[getattr(self, self._out_gather)]
+
+    def evaluate_raw(
+        self, store: Store, x: torch.Tensor, *, module_fn: ModuleFn | None = None
+    ) -> torch.Tensor:
+        """Run the plan returning the raw output stack (O, B, K)."""
+        outs: list[torch.Tensor] = []
+        for entry in self._entries:
+            xin = self.entry_input(entry, x, outs)
+            layer = entry.layer
+            outs.append(layer(store, xin) if module_fn is None else module_fn(layer, store, xin))
+        return self.output_stack(outs)
 
     def forward(self, *args) -> torch.Tensor:
         """``cc(store, x)``, or ``cc(x)`` using the pipeline context's store."""

@@ -31,6 +31,7 @@ from cirkit_tpu_torch.backend.torch.semiring import (
     Semiring,
     SumProductSemiring,
 )
+from cirkit_tpu_torch.ops.routing import gumbel_argmax
 
 
 def softmax_logits_slot(param: TorchParameter) -> str | None:
@@ -222,6 +223,32 @@ class TorchInputLayer(TorchLayer, ABC):
     def fold_settings(self) -> tuple[Any, ...]:
         return (self.num_variables, *super().fold_settings)
 
+    # The query hooks (``backend/torch/queries.py``); a layer that does not
+    # support one raises.
+    def integrate(self, store: Store) -> torch.Tensor:
+        """The layer's integral over its variables' domain: (F, K)."""
+        raise TypeError(f"Integration is not supported for {type(self).__name__}")
+
+    def mpe(self, store: Store) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-unit mode: the (max log-value (F, K), argmax state (F, K))
+        pair under the same (possibly unnormalized) measure as ``forward``.
+        Drives :class:`~cirkit_tpu_torch.backend.torch.queries.MAPQuery`."""
+        raise TypeError(f"MPE is not supported for {type(self).__name__}")
+
+    def state_distribution(self, store: Store) -> torch.Tensor:
+        """Per-unit normalized finite-support state distribution
+        p(x = s | unit): (F, K, S). Continuous layers raise."""
+        raise TypeError(f"State distributions are not defined for {type(self).__name__}")
+
+    def sample_selected(
+        self, store: Store, generator: torch.Generator, sel: torch.Tensor
+    ) -> torch.Tensor:
+        """One draw per (fold, sample) from the SELECTED unit only: ``sel`` is
+        an (F, B) int64 unit index; returns (F, B) states. The lazy draw of
+        conditional sampling's downward pass: one unit per (fold, sample) is
+        on the parse, so the other K - 1 units are never drawn."""
+        raise TypeError(f"Sampling is not supported for {type(self).__name__}")
+
 
 class TorchExpFamilyLayer(TorchInputLayer, ABC):
     """Exponential-family input layers: define the (possibly unnormalized)
@@ -230,6 +257,9 @@ class TorchExpFamilyLayer(TorchInputLayer, ABC):
     def forward(self, store: Store, x) -> torch.Tensor:
         ll = self.log_unnormalized_likelihood(store, x)
         return self.semiring.map_from(ll, LSESumSemiring)
+
+    def integrate(self, store: Store) -> torch.Tensor:
+        return self.semiring.map_from(self.log_partition_function(store), LSESumSemiring)
 
     @abstractmethod
     def log_unnormalized_likelihood(self, store: Store, x) -> torch.Tensor: ...
@@ -299,3 +329,17 @@ class TorchCategoricalLayer(TorchExpFamilyLayer):
                 (self.num_folds, self.num_output_units), dtype=p.dtype, device=p.device
             )
         return torch.logsumexp(self.logits(store), dim=2)
+
+    def mpe(self, store):
+        lp = self._log_probs(store)  # (F, K, C), the measure of forward
+        return lp.amax(dim=2), lp.argmax(dim=2)
+
+    def state_distribution(self, store):
+        # softmax normalizes the logits-parameterized (unnormalized) case
+        return torch.softmax(self._log_probs(store), dim=2)  # (F, K, C)
+
+    def sample_selected(self, store, generator, sel):
+        logits = self._log_probs(store)  # (F, K, C)
+        c = logits.shape[2]
+        lsel = torch.gather(logits, 1, sel[:, :, None].expand(-1, -1, c))  # (F, B, C)
+        return gumbel_argmax(lsel, generator)  # -inf logits (zero probability) never win

@@ -386,10 +386,16 @@ class TorchParameter(RootedDiAcyclicGraph[TorchParameterNode]):
     def shape(self) -> Shape:
         return self.output.shape
 
-    def __call__(self, store: Store) -> torch.Tensor:
+    def __call__(self, store: Store, *, node_override=None) -> torch.Tensor:
+        """Evaluate the plan. ``node_override(plan, node, ins)``, when given,
+        may return a replacement value for ``node`` (or None to defer to the
+        node's own evaluation): the one hook behind the routing-time
+        reinterpretation of fused weights (``queries._max_weight``)."""
         values: dict[TorchParameterNode, torch.Tensor] = {}
         for node in self._ordering:
-            values[node] = node(store, *(values[n] for n in self.node_inputs(node)))
+            ins = [values[n] for n in self.node_inputs(node)]
+            out = node_override(self, node, ins) if node_override else None
+            values[node] = node(store, *ins) if out is None else out
         return values[self.output]
 
     # -- canonicalization for folding -----------------------------------------

@@ -1,0 +1,841 @@
+"""Queries over compiled lse-sum circuits: marginals, MAP and sampling.
+
+The counterpart of ``cirkit_tpu/backend/jax/queries.py`` (``:30-470``,
+``:723``, ``:939``, ``:1065-1240`` and ``:1382-1911``). Every query is a
+variant of the circuit's evaluation plan:
+
+- :class:`IntegrateQuery` and :func:`masked_evaluate`: per-sample
+  marginals, with input layers selecting their integral under a (B, D)
+  mask (and :func:`soft_evaluate` for virtual evidence);
+- :class:`MAPQuery` and :class:`SamplingQuery`: the two-pass routing of
+  :func:`_build_routing_run`, an upward pass of values and a downward pass
+  that picks one composite index per (entry, fold, sample) at the selected
+  output unit only. The arity-2 Tucker entries go through the hand-written
+  kernels of :mod:`cirkit_tpu_torch.ops.routing` (``tropical_tucker2`` up,
+  ``route_tucker2`` down); the dense mixing sums and CP layers use torch
+  compositions.
+
+Randomness comes from an explicit ``torch.Generator`` (``generator=``,
+where the JAX package takes ``key=``): a sampling call draws one int64 seed
+per plan entry from it, so one generator seed reproduces the same draws.
+The queries run under ``torch.inference_mode()``. Top-k MAP (ROADMAP item
+10), ``ExpectationQuery`` (item 7), the tensor-parallel ``mesh=`` (item 12)
+and the dense bottom-up sampler of non-lse-sum circuits (item 9) raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from abc import ABC
+from collections.abc import Callable, Sequence
+
+import numpy as np
+import torch
+
+from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit, _pad_rows, _slice_rows
+from cirkit_tpu_torch.backend.torch.layers import (
+    TorchCategoricalLayer,
+    TorchHadamardLayer,
+    TorchInputLayer,
+    TorchKroneckerLayer,
+    TorchLayer,
+    TorchSumLayer,
+)
+from cirkit_tpu_torch.backend.torch.optimized import TorchCPTLayer, TorchTuckerLayer
+from cirkit_tpu_torch.backend.torch.parameters import (
+    Store,
+    TorchMatMulParameter,
+    TorchParameter,
+)
+from cirkit_tpu_torch.backend.torch.semiring import LSESumSemiring
+from cirkit_tpu_torch.backend.torch.utils import safelog
+from cirkit_tpu_torch.ops.routing import (
+    gumbel_argmax,
+    max_plus,
+    route_tucker2,
+    tropical_tucker2,
+    tucker_comb,
+)
+from cirkit_tpu_torch.utils.scope import Scope
+
+_MESH = "tensor-parallel queries (mesh=) wait for ROADMAP item 12"
+_TOPK = "top-k MAP (top_k=) waits for ROADMAP item 10"
+_DENSE_SAMPLER = (
+    "sampling a circuit that is not under the 'lse-sum' semiring needs the dense "
+    "bottom-up sampler, which waits for ROADMAP item 9"
+)
+
+MaskSpec = torch.Tensor | np.ndarray | Scope | Sequence[Scope]
+
+
+class Query(ABC):
+    """A query object over a compiled circuit."""
+
+
+# --------------------------------------------------------------------------- #
+# Helpers
+# --------------------------------------------------------------------------- #
+
+
+def _bound_store(cc: TorchCircuit, store: Store | None) -> dict[str, torch.Tensor]:
+    if store is None:
+        store = cc.default_store
+        if store is None:
+            raise ValueError("No parameter store bound; pass store=...")
+    return cc.restrict_store(store)
+
+
+def _store_device(store: Store) -> torch.device:
+    return next(iter(store.values())).device
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x), device=device)
+
+
+def _scope_vars(layer: TorchInputLayer, device: torch.device) -> torch.Tensor:
+    """The (F,) variable of each fold of a univariate input layer."""
+    return torch.as_tensor(layer.scope_idx[:, 0], device=device)
+
+
+def _num_vars(cc: TorchCircuit) -> int:
+    return max(cc.scope) + 1
+
+
+def _generator(generator: torch.Generator | None) -> torch.Generator:
+    if generator is None:
+        generator = torch.Generator()
+        generator.seed()
+    return generator
+
+
+def _device_generator(seed: int, device: torch.device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+# --------------------------------------------------------------------------- #
+# Masked and soft evaluation
+# --------------------------------------------------------------------------- #
+
+
+def masked_leaf_select(layer: TorchLayer, store: Store, out: torch.Tensor, mask: torch.Tensor):
+    """``where(mask-at-scope, integral, out)`` for an input layer: the
+    masked-integrate select shared by every marginalization consumer
+    (IntegrateQuery, missing-data training). ``mask`` is (B, D) with True =
+    marginalize this variable. Non-input (and empty-scope) layers pass
+    through; multivariate input layers raise."""
+    if not isinstance(layer, TorchInputLayer) or layer.num_variables == 0:
+        return out
+    if layer.num_variables > 1:
+        raise NotImplementedError("Integration of multivariate input layers is not supported")
+    m = mask[:, _scope_vars(layer, mask.device)].t()[:, :, None]  # (F, B, 1)
+    return torch.where(m, layer.integrate(store)[:, None, :], out)
+
+
+def masked_evaluate(
+    cc: TorchCircuit, store: Store, x: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """(B, O, K) log-likelihoods with the ``mask``-ed (True) variables
+    marginalized out: the :class:`IntegrateQuery` evaluation as a plain
+    function, differentiable, so training losses (missing-data MLE) compose
+    it. ``mask`` is a (B, D) boolean tensor; entries of ``x`` under the mask
+    are ignored."""
+
+    def layer_fn(layer: TorchLayer, s: Store, xin: torch.Tensor) -> torch.Tensor:
+        return masked_leaf_select(layer, s, layer(s, xin), mask)
+
+    return cc.evaluate(store, x, module_fn=layer_fn)
+
+
+def _leaf_support_size(layer: TorchLayer) -> int | None:
+    """Finite-support size of an input layer, None if continuous."""
+    if isinstance(layer, TorchCategoricalLayer):
+        return layer.num_categories
+    return None
+
+
+def _variable_supports(cc: TorchCircuit) -> np.ndarray:
+    """Per-variable finite support sizes (D,): -1 for variables covered by a
+    continuous leaf, -2 for variables with no input layer."""
+    supports = np.full(_num_vars(cc), -2, dtype=np.int64)
+    for entry in cc._entries:
+        layer = entry.layer
+        if not isinstance(layer, TorchInputLayer):
+            continue
+        s = _leaf_support_size(layer)
+        for v in layer.scope_idx[:, 0]:
+            supports[int(v)] = max(supports[int(v)], -1 if s is None else s)
+    return supports
+
+
+def soft_leaf_select(
+    layer: TorchLayer, store: Store, out: torch.Tensor, soft_mask: torch.Tensor,
+    logw: torch.Tensor,
+):
+    """Virtual (soft) evidence for an input layer: where ``soft_mask`` (B, D)
+    is True at the layer's variable, the leaf contributes ``log sum_s w(s)
+    f(s)`` for the per-state log-weights ``logw`` (B, D, S) (a shorter S pads
+    with -inf, a longer one truncates). Computed as a max-shifted contraction
+    against the leaf's normalized state table times its integral, so it is
+    exact under both the lse-sum and sum-product semirings. Continuous
+    leaves pass through (the query validates soft variables away from
+    them)."""
+    if not isinstance(layer, TorchInputLayer) or layer.num_variables == 0:
+        return out
+    if layer.num_variables > 1:
+        raise NotImplementedError("Soft evidence on multivariate input layers is not supported")
+    if _leaf_support_size(layer) is None:
+        return out
+    v = _scope_vars(layer, soft_mask.device)
+    sm = soft_mask[:, v].t()[:, :, None]
+    sd = layer.state_distribution(store)  # (F, K, S)
+    iz = layer.integrate(store)  # (F, K)
+    lw = logw[:, v, :].transpose(0, 1).to(sd.dtype)  # (F, B, S')
+    s = sd.shape[2]
+    if lw.shape[2] < s:
+        lw = torch.nn.functional.pad(lw, (0, s - lw.shape[2]), value=-float("inf"))
+    else:
+        lw = lw[:, :, :s]
+    # the finite floor keeps rows of zero weight everywhere from NaN
+    m = lw.amax(dim=2).clamp_min(-1e30)  # (F, B)
+    val = torch.einsum("fbs,fks->fbk", torch.exp(lw - m[:, :, None]), sd)
+    logv = safelog(val) + m[:, :, None]
+    sem = layer.semiring
+    weighted = sem.mul(sem.map_from(logv, LSESumSemiring), iz[:, None, :])
+    return torch.where(sm, weighted, out)
+
+
+def soft_evaluate(
+    cc: TorchCircuit,
+    store: Store,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    soft_mask: torch.Tensor,
+    logw: torch.Tensor,
+) -> torch.Tensor:
+    """(B, O, K) log-likelihoods with the ``mask``-ed variables marginalized
+    and the ``soft_mask``-ed variables observed as virtual evidence with
+    per-state log-weights ``logw`` (B, D, S)."""
+
+    def layer_fn(layer: TorchLayer, s: Store, xin: torch.Tensor) -> torch.Tensor:
+        out = soft_leaf_select(layer, s, layer(s, xin), soft_mask, logw)
+        return masked_leaf_select(layer, s, out, mask)
+
+    return cc.evaluate(store, x, module_fn=layer_fn)
+
+
+# --------------------------------------------------------------------------- #
+# IntegrateQuery
+# --------------------------------------------------------------------------- #
+
+
+class IntegrateQuery(Query):
+    """Per-sample marginalization: input layers select between their output
+    and their integral under a (B, D) boolean mask given at call time."""
+
+    def __init__(self, circuit: TorchCircuit) -> None:
+        if not (circuit.properties.smooth and circuit.properties.decomposable):
+            raise ValueError(
+                "The circuit to integrate must be smooth and decomposable, "
+                f"but found {circuit.properties}"
+            )
+        self._circuit = circuit
+
+    def __call__(
+        self,
+        x,
+        *,
+        integrate_vars: MaskSpec | None = None,
+        store: Store | None = None,
+        pad_batch_to: int | None = None,
+        soft_vars: MaskSpec | None = None,
+        soft_weights: torch.Tensor | np.ndarray | None = None,
+    ) -> torch.Tensor:
+        """(B, O, K) marginal log-likelihoods. ``integrate_vars`` is a (B, D)
+        or (D,) boolean mask (True = marginalized), a Scope, or a sequence of
+        Scopes of length 1 or B. ``pad_batch_to`` rounds a ragged batch up to
+        a multiple (the output is sliced back).
+
+        ``soft_vars`` and ``soft_weights`` add virtual evidence: each soft
+        variable contributes ``sum_s w(s) p(x=s)``. ``soft_vars`` takes the
+        same specs as ``integrate_vars``; ``soft_weights`` is a (B, D, S) or
+        (D, S) array of nonnegative linear-space weights. Soft variables must
+        have finite support and be disjoint from ``integrate_vars``."""
+        cc = self._circuit
+        if (soft_vars is None) != (soft_weights is None):
+            raise ValueError("soft_vars and soft_weights must be passed together")
+        if integrate_vars is None and soft_vars is None:
+            raise ValueError(
+                "Pass integrate_vars (marginalization) and/or "
+                "soft_vars + soft_weights (virtual evidence)"
+            )
+        with torch.inference_mode():
+            store = _bound_store(cc, store)
+            dev = _store_device(store)
+            if soft_vars is None:
+                x, integrate_vars, _b = _pad_rows(pad_batch_to, x, integrate_vars)
+            else:
+                # (B, D, S) before padding, so the padder treats the weights
+                # like any per-row mask
+                soft_weights = np.asarray(
+                    soft_weights.cpu() if isinstance(soft_weights, torch.Tensor)
+                    else soft_weights, dtype=np.float64,
+                )
+                if soft_weights.ndim == 2:
+                    soft_weights = np.broadcast_to(
+                        soft_weights[None], (len(x), *soft_weights.shape)
+                    )
+                x, integrate_vars, soft_vars, soft_weights, _b = _pad_rows(
+                    pad_batch_to, x, integrate_vars, soft_vars, soft_weights
+                )
+            x = _to_device(x, dev)
+            batch = x.shape[0]
+            if integrate_vars is None:
+                mask = torch.zeros((batch, _num_vars(cc)), dtype=torch.bool, device=dev)
+            else:
+                mask = self._as_mask(integrate_vars, batch, dev)
+            if soft_vars is None:
+                return _slice_rows(masked_evaluate(cc, store, x, mask), _b)
+
+            soft_mask = self._as_mask(soft_vars, batch, dev)
+            both = (mask & soft_mask).cpu().numpy()
+            if both.any():
+                raise ValueError(
+                    "A variable cannot be both marginalized and soft-observed: overlap at "
+                    f"variables {sorted(set(np.nonzero(both)[1].tolist()))}"
+                )
+            supports = _variable_supports(cc)
+            used = soft_mask.any(dim=0).cpu().numpy()
+            bad = [int(v) for v in np.nonzero(used)[0] if supports[v] <= 0]
+            if bad:
+                raise ValueError(
+                    "Soft evidence requires finite-support leaves; variables "
+                    f"{bad} are continuous or have no input layer"
+                )
+            w = np.asarray(soft_weights)
+            if w.ndim != 3 or w.shape[0] != batch or w.shape[1] != _num_vars(cc):
+                raise ValueError(
+                    f"soft_weights must be (B, D, S) or (D, S) with B={batch}, "
+                    f"D={_num_vars(cc)}; found {w.shape}"
+                )
+            if np.isnan(w).any() or (w < 0).any():
+                raise ValueError("soft_weights must be nonnegative (linear space)")
+            with np.errstate(divide="ignore"):
+                logw = torch.as_tensor(np.log(w), device=dev)
+            return _slice_rows(soft_evaluate(cc, store, x, mask, soft_mask, logw), _b)
+
+    def _as_mask(self, spec, batch: int, device: torch.device) -> torch.Tensor:
+        """A variable spec (mask, Scope or Scope list) as a (B, D) boolean
+        mask broadcast to the batch."""
+        cc = self._circuit
+        if isinstance(spec, (torch.Tensor, np.ndarray)):
+            mask = _to_device(spec, device)
+            if mask.dtype != torch.bool:
+                raise ValueError(f"Expected a boolean mask, found dtype {mask.dtype}")
+            if mask.ndim == 1:
+                mask = mask[None]
+            if mask.shape[1] != _num_vars(cc):
+                raise ValueError(
+                    f"The circuit scope has {_num_vars(cc)} variables, but the mask "
+                    f"covers {mask.shape[1]}"
+                )
+        else:
+            mask = torch.as_tensor(IntegrateQuery.scopes_to_mask(cc, spec), device=device)
+        if mask.shape[0] not in (1, batch):
+            raise ValueError(
+                "The number of integration scopes must be 1 (broadcast) or match the "
+                f"batch size: found {mask.shape[0]} != {batch}"
+            )
+        return mask.expand(batch, -1)
+
+    @staticmethod
+    def scopes_to_mask(circuit: TorchCircuit, batch_integrate_vars) -> np.ndarray:
+        """Scopes -> (B, num_vars) boolean mask."""
+        if isinstance(batch_integrate_vars, Scope):
+            batch_integrate_vars = [batch_integrate_vars]
+        mask = np.zeros((len(batch_integrate_vars), _num_vars(circuit)), dtype=bool)
+        for i, scope in enumerate(batch_integrate_vars):
+            invalid = Scope(scope) - circuit.scope
+            if invalid:
+                raise ValueError(
+                    "The variables to marginalize must be a subset of the circuit "
+                    f"scope; invalid variables: {list(invalid)}"
+                )
+            mask[i, list(scope)] = True
+        return mask
+
+
+def _evidence_to_mask(cc: TorchCircuit, spec, batch: int, device: torch.device) -> torch.Tensor:
+    """An evidence spec (boolean (B, D)/(D,) array, a Scope, or a sequence of
+    Scopes of length 1 or B) as a (B, D) mask."""
+    if isinstance(spec, (torch.Tensor, np.ndarray)):
+        mask = _to_device(spec, device)
+        if mask.dtype != torch.bool:
+            raise ValueError(f"Expected a boolean mask, found dtype {mask.dtype}")
+        if mask.ndim == 1:
+            mask = mask[None]
+    else:
+        mask = torch.as_tensor(IntegrateQuery.scopes_to_mask(cc, spec), device=device)
+    if mask.shape[0] == 1 and batch != 1:
+        mask = mask.expand(batch, -1)
+    if mask.shape[0] != batch:
+        raise ValueError(f"The evidence mask covers {mask.shape[0]} samples, expected {batch}")
+    return mask
+
+
+# --------------------------------------------------------------------------- #
+# MAP and sampling: the two-pass routing
+# --------------------------------------------------------------------------- #
+
+
+class MAPQuery(Query):
+    """Max-product MPE (most-probable-explanation) through the plan: sum
+    layers take the max over their mixture inputs, input layers contribute
+    their per-unit mode, and observed variables their data likelihood, so
+    the query completes partial assignments, ``argmax_{x_miss} p(x_miss,
+    x_obs)`` per sample. Exact on deterministic circuits; otherwise the
+    returned log-value is the weight of the best latent parse. Requires
+    normalized nonnegative sum weights and the ``lse-sum`` semiring.
+
+    The assignment maximizes ONE root output unit: flat output ``output``,
+    unit ``unit`` (defaults (0, 0)), and ``log_values`` is that unit's
+    max-product value."""
+
+    def __init__(self, circuit: TorchCircuit, *, mesh=None) -> None:
+        if not (circuit.properties.smooth and circuit.properties.decomposable):
+            raise ValueError(
+                "The circuit to maximize must be smooth and decomposable, "
+                f"but found {circuit.properties}"
+            )
+        if circuit.semiring is not LSESumSemiring:
+            raise ValueError(
+                "MAPQuery requires a circuit compiled under the 'lse-sum' semiring, "
+                f"found {circuit.semiring.__name__}"
+            )
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        self._circuit = circuit
+
+    def __call__(
+        self,
+        x=None,
+        *,
+        evidence_mask: MaskSpec | None = None,
+        marginalize_vars: MaskSpec | None = None,
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        top_k: int | None = None,
+        pad_batch_to: int | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """MPE states: ``(assignments (B, D), log_values (B,))``.
+        Unconditional when ``x`` is None (B=1); otherwise ``evidence_mask``
+        (a (B, D)/(D,) boolean mask, a Scope, or Scopes) marks the observed
+        entries of ``x`` and the free variables are maximized per sample.
+        ``marginalize_vars`` (same specs) makes it a marginal MAP query: those
+        variables are summed out at their input layers and come back as 0."""
+        if top_k is not None:
+            raise NotImplementedError(_TOPK)
+        cc = self._circuit
+        num_vars = _num_vars(cc)
+        with torch.inference_mode():
+            store = _bound_store(cc, store)
+            dev = _store_device(store)
+            if x is None:
+                if evidence_mask is not None:
+                    raise ValueError("evidence_mask requires an input batch x")
+                x = torch.zeros((1, num_vars), dtype=torch.int64, device=dev)
+                mask = torch.zeros((1, num_vars), dtype=torch.bool, device=dev)
+                _b = None
+            else:
+                if evidence_mask is None:
+                    raise ValueError(
+                        "Pass evidence_mask marking the observed entries of x "
+                        "(an all-False mask reproduces the unconditional query)"
+                    )
+                x, evidence_mask, marginalize_vars, _b = _pad_rows(
+                    pad_batch_to, x, evidence_mask, marginalize_vars
+                )
+                x = _to_device(x, dev)
+                mask = _evidence_to_mask(cc, evidence_mask, x.shape[0], dev)
+            mg = None
+            if marginalize_vars is not None:
+                mg = _evidence_to_mask(cc, marginalize_vars, x.shape[0], dev)
+                if bool((mask & mg).any()):
+                    raise ValueError(
+                        "A variable cannot be both observed (evidence_mask) and "
+                        "marginalized (marginalize_vars)"
+                    )
+            asg, vals, _ = _routing_run(cc, "max", output, unit)(store, x, mask, mg)
+            return _slice_rows((asg, vals[output, :, unit]), _b)
+
+
+class SamplingQuery(Query):
+    """Ancestral and posterior sampling of an lse-sum circuit through the
+    two-pass routing: the upward pass is the masked-integrate forward, and
+    the downward pass draws one latent mixture index per (entry, fold,
+    sample) at the selected unit only, and one state per selected input
+    unit. Memory stays activation-sized."""
+
+    def __init__(self, circuit: TorchCircuit, *, mesh=None) -> None:
+        if not (circuit.properties.smooth and circuit.properties.decomposable):
+            raise ValueError(
+                "The circuit to sample from must be smooth and decomposable, "
+                f"but found {circuit.properties}"
+            )
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        self._circuit = circuit
+
+    def __call__(
+        self,
+        num_samples: int = 1,
+        *,
+        generator: torch.Generator | None = None,
+        store: Store | None = None,
+    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """Draw ``num_samples`` samples: returns (samples (N, D), the
+        composite mixture index drawn at each sum-style entry, (F, N) with
+        -1 where the entry was not on the parse)."""
+        if num_samples <= 0:
+            raise ValueError("The number of samples must be a positive number")
+        cc = self._circuit
+        if cc.semiring is not LSESumSemiring:
+            raise NotImplementedError(_DENSE_SAMPLER)
+        with torch.inference_mode():
+            store = _bound_store(cc, store)
+            dev = _store_device(store)
+            shape = (num_samples, _num_vars(cc))
+            x = torch.zeros(shape, dtype=torch.int64, device=dev)
+            mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+            run = _routing_run(cc, "sample", 0, 0)
+            samples, _, mixtures = run(store, x, mask, None, _generator(generator))
+            return samples, list(mixtures)
+
+    def conditional(
+        self,
+        x,
+        *,
+        evidence_mask: MaskSpec,
+        generator: torch.Generator | None = None,
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        pad_batch_to: int | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Posterior sampling given evidence: one completion per row, the
+        free entries of ``x`` (where ``evidence_mask`` is False) drawn from
+        ``p(x_free | x_obs)`` of root output ``output``, unit ``unit``.
+        Returns ``(samples (B, D), log_evidence (B,))``, the value being
+        ``log p(x_obs)``. Requires normalized sum weights and the ``lse-sum``
+        semiring."""
+        cc = self._circuit
+        if cc.semiring is not LSESumSemiring:
+            raise ValueError(
+                "Conditional sampling requires a circuit compiled under the 'lse-sum' "
+                f"semiring, found {cc.semiring.__name__}"
+            )
+        num_vars = _num_vars(cc)
+        with torch.inference_mode():
+            store = _bound_store(cc, store)
+            dev = _store_device(store)
+            x, evidence_mask, _b = _pad_rows(pad_batch_to, x, evidence_mask)
+            x = _to_device(x, dev)
+            mask = _evidence_to_mask(cc, evidence_mask, x.shape[0], dev)
+            if mask.shape[1] != num_vars:
+                raise ValueError(
+                    f"The circuit scope has {num_vars} variables, but the mask "
+                    f"covers {mask.shape[1]}"
+                )
+            run = _routing_run(cc, "sample", output, unit)
+            asg, vals, _ = run(store, x, mask, None, _generator(generator))
+            return _slice_rows((asg, vals[output, :, unit]), _b)
+
+
+def _routing_run(cc: TorchCircuit, kind: str, root_output: int, root_unit: int) -> Callable:
+    """The routing closure for one (kind, root) choice, built once and kept
+    on the circuit."""
+    runs = cc.__dict__.setdefault("_routing_runs", {})
+    key = (kind, root_output, root_unit)
+    if key not in runs:
+        runs[key] = _build_routing_run(cc, kind, root_output=root_output, root_unit=root_unit)
+    return runs[key]
+
+
+def _max_weight(param: TorchParameter, st: Store) -> torch.Tensor:
+    """Evaluate a sum-layer weight plan under max-product semantics.
+
+    The sum-collapse fusion replaces two stacked dense sums by one whose
+    weight is ``MatMul(W1, W2)``, a SUM over the fused inner sum's latent
+    units: sound for the (+, *) forward and for sampling, but MPE maxes over
+    every latent, so the composite weight must be the tropical product
+    ``max_j W2[o, j] * W1[j, i]``. Every other node of a weight plan is
+    elementwise or layout-only over the unit axes and evaluates as usual,
+    but only while nothing sits between a MatMul and the plan output except
+    further MatMuls: a node applied to the maxed composite would see other
+    values than the forward's, so that shape raises."""
+
+    def tropical_matmul(plan, node, ins):
+        if not isinstance(node, TorchMatMulParameter):
+            return None
+        for user in plan.node_outputs(node):
+            if not isinstance(user, TorchMatMulParameter):
+                raise NotImplementedError(
+                    "MAP/MPE through a fused weight graph where a MatMul feeds "
+                    f"{type(user).__name__} is not supported"
+                )
+        w1, w2 = ins  # (F, j, i) inner, (F, o, j) outer
+        return (w2[:, :, :, None] * w1[:, None, :, :]).amax(dim=2)
+
+    return param(st, node_override=tropical_matmul)
+
+
+def _tucker_comb(v: torch.Tensor) -> torch.Tensor:
+    """The log-space Kronecker composite of a Tucker entry's child values:
+    (F, H, B, K) -> (F, B, K^H), row-major over the arity digits (the Tucker
+    core weight's layout)."""
+    comb = v[:, 0]
+    for hh in range(1, v.shape[1]):
+        comb = tucker_comb(comb, v[:, hh])
+    return comb
+
+
+def _comb(tag: str, v: torch.Tensor) -> torch.Tensor:
+    """The (F, B, M) mixture inputs of a sum-style entry from its (F, H, B,
+    K) child values."""
+    if tag == "tucker":
+        return _tucker_comb(v)
+    if tag == "cpt":
+        return v.sum(dim=1)
+    f, h, b, k = v.shape  # sum: the arity operands side by side
+    return v.transpose(1, 2).reshape(f, b, h * k)
+
+
+def _digits(m: torch.Tensor, active: torch.Tensor, h: int, k: int) -> list[torch.Tensor]:
+    """The H base-K digits of a row-major composite index, -1 where not
+    active."""
+    units = []
+    for _ in range(h):
+        units.append(torch.where(active, m % k, -1))
+        m = m // k
+    return units[::-1]
+
+
+def _record(layer: TorchLayer, name: str) -> tuple:
+    """The static routing record of an inner plan entry."""
+    if isinstance(layer, TorchHadamardLayer):
+        return ("hadamard",)
+    if isinstance(layer, TorchKroneckerLayer):
+        return ("kronecker", layer.arity, layer.num_input_units)
+    if isinstance(layer, TorchTuckerLayer):
+        return ("tucker", layer.arity, layer.num_input_units)
+    if isinstance(layer, TorchCPTLayer):
+        return ("cpt", layer.arity, layer.num_input_units)
+    if isinstance(layer, TorchSumLayer):
+        return ("sum", layer.arity, layer.num_input_units)
+    raise NotImplementedError(f"{name} is not supported for {type(layer).__name__}")
+
+
+def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
+                       root_unit: int = 0) -> Callable:
+    """The two-pass routing behind :class:`MAPQuery` (``kind="max"``) and
+    sampling (``kind="sample"``).
+
+    **Upward pass** over the plan: every entry produces log-space values (F,
+    B, K). Observed variables contribute their data likelihood, free ones
+    their mode (``max``) or their integral (``sample``); under ``max`` the
+    sum-style entries take the max over their mixture scores (a tropical
+    forward, the Tucker-2 entries through ``tropical_tucker2``), under
+    ``sample`` every entry runs its own forward (the lse kernels). Nothing is
+    chosen on the way up.
+
+    **Downward pass** over the reversed plan: decomposability makes a parse
+    visit each (entry, fold, sample) at most once, so the whole selection
+    state is one int64 unit index per (fold, sample), -1 where inactive,
+    combined across consumers by a scatter-max. At each sum-style entry the
+    choice is made at the selected output unit only: the scores ``lw[sel, m]
+    + comb[m]`` are recomputed from the child values and reduced to one
+    argmax or one Gumbel draw per (fold, sample) (``route_tucker2`` for the
+    Tucker-2 entries). The chosen index splits into per-operand units with
+    integer arithmetic and goes down through the plan's fold gathers; the
+    assignment takes the selected input units' states (the mode, or one
+    draw of ``sample_selected``) and scatters them to their variables.
+
+    The memory high-water mark is a few activation-sized tensors per entry.
+    """
+    name = "MAP" if kind == "max" else "Conditional sampling"
+    entries = cc._entries
+    num_vars = _num_vars(cc)
+    sum_style = (TorchSumLayer, TorchCPTLayer, TorchTuckerLayer)
+    recs_static = []
+    for entry in entries:
+        layer = entry.layer
+        if isinstance(layer, TorchInputLayer):
+            if layer.num_variables != 1:
+                raise NotImplementedError(f"{name} of multivariate input layers is not supported")
+            recs_static.append(("input",))
+        else:
+            recs_static.append(_record(layer, name))
+    folds = [entry.layer.num_folds for entry in entries]
+
+    # the root: flat output root_output, unit root_unit of the output stack
+    if not 0 <= root_output < cc.num_outputs:
+        raise ValueError(
+            f"root output {root_output} out of range for a circuit with {cc.num_outputs} outputs"
+        )
+    num_root_units = entries[cc._out_ids[0]].layer.num_output_units
+    if not 0 <= root_unit < num_root_units:
+        raise ValueError(
+            f"root unit {root_unit} out of range for {num_root_units} output units"
+        )
+    flat = root_output
+    if cc._out_gather is not None:
+        flat = int(getattr(cc, cc._out_gather)[root_output])
+    root_entry, root_fold, off = cc._out_ids[0], flat, 0
+    for i in cc._out_ids:
+        if flat < off + folds[i]:
+            root_entry, root_fold = i, flat - off
+            break
+        off += folds[i]
+
+    def run(st: Store, xx: torch.Tensor, mk: torch.Tensor, mg: torch.Tensor | None = None,
+            generator: torch.Generator | None = None):
+        dev = xx.device
+        bsz = xx.shape[0]
+        n = len(entries)
+        seeds = None
+        if kind == "sample":
+            # seeds[e]: the downward draw of entry e; seeds[n + e]: the input
+            # state draw of entry e
+            seeds = torch.randint(0, 2**62, (2 * n,), generator=generator,
+                                  device=generator.device).tolist()
+
+        # ---- upward pass: values (F, B, K), no choices ---------------------
+        vals: list[torch.Tensor] = []
+        inputs: dict[int, tuple] = {}
+        for e, entry in enumerate(entries):
+            layer = entry.layer
+            xin = cc.entry_input(entry, xx, vals)
+            if isinstance(layer, TorchInputLayer):
+                v = _scope_vars(layer, dev)
+                obs_val = layer(st, xin)  # (F, B, K)
+                mgrow = free_arg = None
+                if kind == "max":
+                    free_val, free_arg = layer.mpe(st)  # (F, K) each
+                    fv = free_val[:, None, :]
+                    if mg is not None:
+                        # marginal MAP: summed-out variables contribute their
+                        # integral instead of their mode
+                        mgrow = mg[:, v].t()  # (F, B)
+                        fv = torch.where(mgrow[:, :, None], layer.integrate(st)[:, None, :], fv)
+                else:
+                    fv = layer.integrate(st)[:, None, :]  # states are drawn at assembly
+                mrow = mk[:, v].t()  # (F, B)
+                vals.append(torch.where(mrow[:, :, None], obs_val, fv))
+                inputs[e] = (xin[..., 0], mrow, free_arg, mgrow, v)
+                continue
+            if kind == "max" and isinstance(layer, sum_style):
+                if isinstance(layer, TorchTuckerLayer) and layer.arity == 2:
+                    ls = layer._logits_slot
+                    th = st[ls] if ls is not None else _max_weight(layer.weight, st)
+                    vals.append(tropical_tucker2(
+                        xin[:, 0].contiguous(), xin[:, 1].contiguous(), th.contiguous(),
+                        log_weights=ls is not None,
+                    ))
+                else:
+                    w = _max_weight(layer.weight, st)
+                    vals.append(max_plus(safelog(w), _comb(recs_static[e][0], xin)))
+            else:
+                vals.append(layer(st, xin))
+        root_vals = cc.output_stack(vals)  # (O, B, K)
+
+        # ---- downward pass: the choice at the selected unit -----------------
+        sels = [torch.full((nf, bsz), -1, dtype=torch.int64, device=dev) for nf in folds]
+        sels[root_entry][root_fold] = root_unit
+
+        def push_to_children(e: int, units: list[torch.Tensor]) -> None:
+            """Push per-operand (F, B) unit choices through entry e's fold
+            gather into its producers' selections (a scatter-max)."""
+            entry = entries[e]
+            if entry.gather is None:
+                i = entry.in_ids[0]
+                sels[i] = torch.maximum(sels[i], units[0])
+                return
+            idx = getattr(cc, entry.gather)  # (F, H)
+            total = sum(folds[i] for i in entry.in_ids)
+            cat = torch.full((total, bsz), -1, dtype=torch.int64, device=dev)
+            for h, u in enumerate(units):
+                cat.scatter_reduce_(0, idx[:, h : h + 1].expand(-1, bsz), u, reduce="amax")
+            off = 0
+            for i in entry.in_ids:
+                sels[i] = torch.maximum(sels[i], cat[off : off + folds[i]])
+                off += folds[i]
+
+        draws: dict[int, torch.Tensor] = {}
+        for e in range(n - 1, -1, -1):
+            rec = recs_static[e]
+            if rec[0] == "input":
+                continue
+            sel = sels[e]
+            active = sel >= 0
+            safe = sel.clamp_min(0)
+            layer = entries[e].layer
+            if rec[0] == "hadamard":
+                push_to_children(e, [sel] * layer.arity)
+                continue
+            if rec[0] == "kronecker":
+                push_to_children(e, _digits(safe, active, rec[1], rec[2]))
+                continue
+            tag, h, k = rec
+            # max scores with the tropical weight of the upward pass; sampling
+            # with the summed weight, which is the marginalized draw's
+            xin = cc.entry_input(entries[e], xx, vals)
+            ls = getattr(layer, "_logits_slot", None)
+            if tag == "tucker" and h == 2 and ls is not None:
+                th = st[ls]  # raw logits: a row constant cannot change the choice
+            else:
+                th = _max_weight(layer.weight, st) if kind == "max" else layer.weight(st)
+            if tag == "tucker" and h == 2:
+                m = route_tucker2(
+                    xin[:, 0].contiguous(), xin[:, 1].contiguous(), th.contiguous(), safe,
+                    kind=kind, log_weights=ls is not None,
+                    seed=None if seeds is None else seeds[e],
+                )
+            else:
+                idx = safe[:, :, None].expand(-1, -1, th.shape[2])
+                scores = _comb(tag, xin) + safelog(torch.gather(th, 1, idx))
+                m = (scores.argmax(dim=-1) if kind == "max"
+                     else gumbel_argmax(scores, _device_generator(seeds[e], dev)))
+            draws[e] = torch.where(active, m, -1)
+            if tag == "sum":
+                op, unit = m // k, m % k
+                units = [torch.where(active & (op == hh), unit, -1) for hh in range(h)]
+            elif tag == "cpt":
+                units = [torch.where(active, m, -1)] * h
+            else:
+                units = _digits(m, active, h, k)
+            push_to_children(e, units)
+
+        # ---- assemble the assignment ---------------------------------------
+        dtype = root_vals.dtype
+        out_asg = torch.zeros((bsz, num_vars), dtype=dtype, device=dev)
+        for e, (xi, mrow, free_arg, mgrow, v) in inputs.items():
+            sel = sels[e]
+            safe = sel.clamp_min(0)
+            # the state of the SELECTED unit only: the mode for MAP, one draw
+            # of sample_selected for sampling
+            if kind == "max":
+                free = torch.gather(free_arg, 1, safe)
+                if mgrow is not None:
+                    free = torch.where(mgrow, 0, free)  # marginalized: no MPE state
+            else:
+                free = entries[e].layer.sample_selected(
+                    st, _device_generator(seeds[n + e], dev), safe
+                )
+            picked = torch.where(mrow, xi.to(dtype), free.to(dtype))
+            out_asg.index_add_(1, v, torch.where(sel >= 0, picked, 0).t())
+        out_asg = torch.where(mk, xx.to(dtype), out_asg)
+        mixtures = tuple(draws[e] for e in sorted(draws))
+        return out_asg, root_vals, mixtures
+
+    return run

@@ -10,13 +10,17 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     lse_tucker2,
     lse_tucker2_softmax,
 )
+from cirkit_tpu_torch.ops.routing import ROUTING_OPS, route_tucker2, tropical_tucker2
 
 __all__ = [
     "LAUNCHES",
     "OPS",
+    "ROUTING_OPS",
     "backward",
     "lse_matmul",
     "lse_matmul_softmax",
     "lse_tucker2",
     "lse_tucker2_softmax",
+    "route_tucker2",
+    "tropical_tucker2",
 ]

@@ -20,7 +20,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = (_PKG / "csrc" / "lse_einsum.cu", _PKG / "csrc" / "lse_einsum_bwd.cu")
+_SOURCES = tuple(
+    _PKG / "csrc" / name for name in ("lse_einsum.cu", "lse_einsum_bwd.cu", "tucker_route.cu")
+)
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "cirkit_tpu_torch"
 NVCC_FLAGS = (
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 # entry point -> (argument types, return type). Arguments are the inputs,
 # the output, the sizes, the device and the stream; every pointer and the
 # stream pass as c_void_p, so ctypes never cuts them to 32 bits.
@@ -44,6 +47,10 @@ _SIGNATURES = {
     "lse_bwd_tucker": ((*(_P,) * 11, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_softmax": ((*(_P,) * 12, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_smem": ((_I, _I), ctypes.c_size_t),
+    # tucker_route.cu: inputs, output, F, B, K1, K2, O, log_weights (and
+    # for the route: sample, seed), device, stream
+    "tropical_tucker": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "route_tucker": ((*(_P,) * 5, _I, _I, _I, _I, _I, _I, _I, _U64, _I, _P), ctypes.c_int),
     "cirkit_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

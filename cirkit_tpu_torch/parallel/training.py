@@ -6,10 +6,10 @@ the SIGTERM guard, ``data_parallel_step``, ``evaluate_ll``,
 the plan, with the log-einsum-exp backward kernels on CUDA tensors, then a
 ``torch.optim.Optimizer`` step that updates the trainable tensors in place.
 
-Distribution over several devices (``mesh``, ``zero1``, ``axis``) waits for
-ROADMAP module queue item 12, and missing-data training (``missing``,
-``marginalize_missing``) for the port of ``masked_evaluate`` in item 6:
-those arguments raise ``NotImplementedError``.
+Missing-data training (``missing``, ``marginalize_missing``) marginalizes
+the missing entries through ``queries.masked_evaluate``. Distribution over
+several devices (``mesh``, ``zero1``, ``axis``) waits for ROADMAP module
+queue item 12: those arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit
+from cirkit_tpu_torch.backend.torch.queries import masked_evaluate
 from cirkit_tpu_torch.utils.checkpoint import (
     data_fingerprint,
     load_training_state,
@@ -32,7 +33,6 @@ Store = Mapping[str, torch.Tensor]
 OptimizerFactory = Callable[[list[torch.Tensor]], torch.optim.Optimizer]
 
 _DISTRIBUTED = "training over a device mesh (mesh, zero1, axis) waits for ROADMAP item 12"
-_MISSING = "missing-data training waits for masked_evaluate (ROADMAP item 6)"
 
 
 def _single_device(mesh: Any, axis: str, zero1: bool = False) -> None:
@@ -97,8 +97,9 @@ def data_parallel_step(
 ) -> Callable:
     """Build a training step on one device.
 
-    The step takes ``(trainable, frozen, batch)``, and a per-sample weight
-    vector ``(B,)`` after the batch when ``weighted=True``. ``trainable`` are
+    The step takes ``(trainable, frozen, batch)``, then a per-sample weight
+    vector ``(B,)`` when ``weighted=True``, then a (B, D) boolean mask of
+    MISSING entries when ``marginalize_missing=True``. ``trainable`` are
     the tensors ``optimizer`` holds: the step evaluates the circuit on
     ``{**trainable, **frozen}``, back-propagates the loss, runs the
     optimizer (which updates ``trainable`` in place) and returns the loss as
@@ -108,20 +109,29 @@ def data_parallel_step(
     The default loss is the mean negative log-likelihood of the circuit's
     (B, O, K) output; with ``weighted=True`` it is the weighted NLL
     ``-sum(w ll) / sum(w)``, which is how :func:`fit` trains a zero-padded
-    final partial batch. ``loss_fn`` maps the output to a scalar instead.
+    final partial batch. With ``marginalize_missing=True`` the loss is the
+    marginal NLL: the masked variables are summed out at their input layers
+    (``masked_evaluate``), so an incomplete row trains on exactly its
+    observed margin. ``loss_fn`` maps the output to a scalar instead.
     """
     _single_device(mesh, axis, zero1)
-    if marginalize_missing:
-        raise NotImplementedError(_MISSING)
     if weighted and loss_fn is not None:
         raise ValueError("weighted=True supports only the default NLL loss")
+    if marginalize_missing and loss_fn is not None:
+        raise ValueError("marginalize_missing=True supports only the default NLL loss")
 
-    def step(trainable: Store, frozen: Store, batch: torch.Tensor,
-             weights: torch.Tensor | None = None) -> torch.Tensor:
-        if (weights is not None) != weighted:
-            raise TypeError("pass per-sample weights exactly when the step is weighted")
+    def step(trainable: Store, frozen: Store, batch: torch.Tensor, *args) -> torch.Tensor:
+        if len(args) != int(weighted) + int(marginalize_missing):
+            raise TypeError("pass per-sample weights exactly when the step is weighted, "
+                            "then the missing mask exactly when it marginalizes")
+        weights = args[0] if weighted else None
+        missing = args[-1] if marginalize_missing else None
         optimizer.zero_grad(set_to_none=True)
-        ll = circuit.evaluate({**trainable, **frozen}, batch)
+        store = {**trainable, **frozen}
+        if missing is None:
+            ll = circuit.evaluate(store, batch)
+        else:
+            ll = masked_evaluate(circuit, store, batch, missing)
         if loss_fn is not None:
             loss = loss_fn(ll)
         elif weights is None:
@@ -256,6 +266,12 @@ def fit(
     ``sum_i w_i log p(x_i)``: each step's loss is ``sum w ll / sum w`` over
     its batch. One batch is prefetched to the device while a step runs.
 
+    ``missing`` trains on incomplete data by missing-data MLE: ``"nan"``
+    (float data, NaN entries are missing) or a sentinel value (e.g. ``-1``
+    for categorical data). Missing entries are marginalized out of each
+    sample's likelihood at its input layers, with no imputation; the losses
+    are then mean marginal NLLs.
+
     Shuffling draws one permutation per epoch with ``torch.randperm`` from
     a ``torch.Generator`` seeded with ``seed``; the permutations differ from
     the JAX package's, which draws them from ``key``.
@@ -269,8 +285,6 @@ def fit(
     checkpointing run writes a checkpoint and raises :class:`Preempted`.
     """
     _single_device(mesh, axis)
-    if missing is not None:
-        raise NotImplementedError(_MISSING)
     if (checkpoint_every is not None or resume) and checkpoint_path is None:
         raise ValueError("checkpoint_every/resume require checkpoint_path")
     if checkpoint_every is not None and checkpoint_every < 1:
@@ -327,7 +341,20 @@ def fit(
     # weight it like a trailing one instead of silently training zero steps.
     remainder = len(data) % batch_size
     weighted = remainder != 0 or sample_weight is not None
-    step = data_parallel_step(circuit, opt, weighted=weighted)
+    if isinstance(missing, float) and np.isnan(missing):
+        missing = "nan"  # the float spelling of NaN
+    if isinstance(missing, str) and missing == "nan":
+        if not np.issubdtype(data.dtype, np.floating):
+            raise ValueError('missing="nan" requires floating-point data')
+        miss_all = np.isnan(data)
+        data = np.nan_to_num(data, nan=0.0)
+    elif missing is not None:
+        miss_all = data == missing
+        data = np.where(miss_all, np.zeros((), data.dtype), data)
+    else:
+        miss_all = None
+    step = data_parallel_step(circuit, opt, weighted=weighted,
+                              marginalize_missing=miss_all is not None)
     ones = np.ones(batch_size, dtype=np.float32)
     num_batches = -(-len(data) // batch_size) if weighted else len(data) // batch_size
     if start_step > num_epochs * num_batches:
@@ -339,9 +366,9 @@ def fit(
     gen = torch.Generator().manual_seed(seed)
 
     def host_batches(skip: int = 0):
-        """Yield (epoch, host batch, host weights or None). The first ``skip``
-        batches (a resume's completed steps) are not materialized; the
-        permutations still replay."""
+        """Yield (epoch, host batch, host weights or None, host missing mask
+        or None). The first ``skip`` batches (a resume's completed steps) are
+        not materialized; the permutations still replay."""
         seen = 0
         for epoch in range(num_epochs):
             if shuffle:
@@ -359,7 +386,8 @@ def fit(
                     pad = batch_size - len(idx)
                     weights = np.concatenate([weights[: len(idx)], np.zeros(pad, np.float32)])
                     idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
-                yield epoch, data[idx], (weights if weighted else None)
+                miss = None if miss_all is None else miss_all[idx]
+                yield epoch, data[idx], (weights if weighted else None), miss
 
     def to_device(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -370,8 +398,8 @@ def fit(
     def prefetch(item):
         if item is None:
             return None
-        epoch, batch, weights = item
-        return epoch, to_device(batch), None if weights is None else to_device(weights)
+        extra = [to_device(a) for a in item[2:] if a is not None]
+        return item[0], to_device(item[1]), extra
 
     device_losses: list[torch.Tensor] = []
     step_idx = start_step
@@ -395,9 +423,9 @@ def fit(
     pending = prefetch(next(it, None))
     with _PreemptionGuard(checkpoint_every is not None) as guard:
         while pending is not None:
-            epoch, batch, weights = pending
+            epoch, batch, extra = pending
             pending = prefetch(next(it, None))
-            loss = step(trainable, frozen, batch, weights)
+            loss = step(trainable, frozen, batch, *extra)
             if callback is not None:
                 loss = float(loss)
                 losses.append(loss)

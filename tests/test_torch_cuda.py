@@ -8,9 +8,12 @@ Each forward entry is held against its plain PyTorch version on the same
 CUDA tensors, to ``1e-4 + 1e-5 |plain|`` in log space (f32 FMAs sum in
 another order than cuBLAS); each backward entry against its plain version
 (``*_bwd_ref``) to ``1e-4 max|plain| + 1e-4 |plain|`` per gradient (linear
-sums of up to B or O*K2 terms). A small circuit's forward and its
-gradients through the kernels are held against the same store evaluated
-in float64 on the CPU.
+sums of up to B or O*K2 terms). The max-product Tucker kernel is held
+against its plain version to ``1e-5 |plain| + 1e-5``, the routing choice
+by the plain score of the index it picks, and the routing draws by their
+frequencies against ``softmax(scores)``. A small circuit's forward, its
+gradients and its queries through the kernels are held against the same
+store evaluated in float64 on the CPU.
 """
 
 import numpy as np
@@ -201,3 +204,135 @@ def test_small_circuit_through_the_kernels(spl):
     with torch.inference_mode():
         ref = cc_cpu(torch.as_tensor(x))
     np.testing.assert_allclose(out.double().cpu().numpy(), ref.numpy(), rtol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# The routing kernels (csrc/tucker_route.cu) and the queries
+# --------------------------------------------------------------------------- #
+
+
+def _route_inputs(f, b, k1, k2, o, log_weights, seed=0, edges=True):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x1 = torch.randn((f, b, k1), generator=gen, device="cuda") * 3.0 - 2.0
+    x2 = torch.randn((f, b, k2), generator=gen, device="cuda") * 3.0 - 2.0
+    th = (torch.randn((f, o, k1 * k2), generator=gen, device="cuda") if log_weights
+          else torch.rand((f, o, k1 * k2), generator=gen, device="cuda") * 0.99 + 0.01)
+    if edges:
+        x1[0, 1] = float("-inf")  # a row of -inf children
+        if not log_weights:
+            th[:, :, 3] = 0.0  # zero weights never win
+    sel = torch.randint(-1, o, (f, b), generator=gen, device="cuda")
+    return x1, x2, th, sel
+
+
+ROUTE_SHAPES = [(3, 8, 16, 16, 16), (3, 13, 8, 16, 1), (2, 130, 16, 8, 70), (2, 5, 3, 5, 3)]
+
+
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+@pytest.mark.parametrize("f,b,k1,k2,o", ROUTE_SHAPES)
+def test_tropical_kernel_matches_plain(f, b, k1, k2, o, log_weights):
+    """``|kernel - plain| <= 1e-5 |plain| + 1e-5`` (the kernel subtracts the
+    softmax normalizer after the max, the plain version before)."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, _ = _route_inputs(f, b, k1, k2, o, log_weights)
+    out = R.tropical_tucker2(x1, x2, th, log_weights=log_weights)
+    ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=log_weights)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["tropical_tucker2"] == 1
+    assert not torch.isnan(out).any()
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    assert torch.isneginf(out[0, 1]).all()
+    finite = torch.isfinite(ref)
+    err = (out[finite] - ref[finite]).abs()
+    assert bool((err <= 1e-5 + 1e-5 * ref[finite].abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+@pytest.mark.parametrize("f,b,k1,k2,o", ROUTE_SHAPES)
+def test_route_kernel_matches_plain_by_score(f, b, k1, k2, o, log_weights):
+    """The plain scores at the kernel's index lie within ``1e-5 |max| + 1e-5``
+    of the plain maximum (f32 rounding may flip a near-tie)."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, sel = _route_inputs(f, b, k1, k2, o, log_weights)
+    idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=log_weights)
+    scores = R.route_scores(x1, x2, th, sel, log_weights=log_weights)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["route_tucker2"] == 1
+    assert idx.dtype == torch.int64 and idx.shape == (f, b)
+    best = scores.amax(dim=-1)
+    at = torch.gather(scores, -1, idx[..., None])[..., 0]
+    assert bool(((at >= best - (1e-5 * best.abs() + 1e-5)) | torch.isneginf(best)).all())
+    if not log_weights:
+        assert bool((idx != 3).all())
+
+
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+def test_route_kernel_sample_frequencies(log_weights):
+    """Gumbel draws over 65,536 identical rows against ``softmax(scores)``,
+    each frequency within ``5 sqrt(p (1 - p) / N) + 1e-3``; one seed gives
+    the same draws, another seed others."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    n = 65536
+    x1, x2, th, _ = _route_inputs(2, 1, 4, 4, 8, log_weights, seed=3, edges=False)
+    sel = torch.tensor([[3], [6]], device="cuda")
+    p = torch.softmax(R.route_scores(x1.double(), x2.double(), th.double(), sel,
+                                     log_weights=log_weights)[:, 0], dim=-1)
+    rows = [t.expand(-1, n, -1).contiguous() for t in (x1, x2)]
+    sel_rows = sel.expand(-1, n).contiguous()
+    idx = R.route_tucker2(*rows, th, sel_rows, kind="sample", log_weights=log_weights, seed=99)
+    again = R.route_tucker2(*rows, th, sel_rows, kind="sample", log_weights=log_weights, seed=99)
+    other = R.route_tucker2(*rows, th, sel_rows, kind="sample", log_weights=log_weights, seed=98)
+    assert torch.equal(idx, again) and not torch.equal(idx, other)
+    for ff in range(2):
+        freq = torch.bincount(idx[ff], minlength=16).double() / n
+        bound = 5 * torch.sqrt(p[ff] * (1 - p[ff]) / n) + 1e-3
+        assert bool(((freq - p[ff]).abs() <= bound).all()), (freq, p[ff])
+
+
+def test_route_wrapper_refuses_what_the_kernel_does_not_take():
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, sel = _route_inputs(2, 8, 4, 4, 4, True)
+    with pytest.raises(TypeError, match="int64"):
+        R.route_tucker2(x1, x2, th, sel.int(), kind="max", log_weights=True)
+    with pytest.raises(TypeError, match="float32"):
+        R.tropical_tucker2(x1.double(), x2.double(), th.double(), log_weights=True)
+    assert T.LAUNCHES["route_tucker2"] == T.LAUNCHES["tropical_tucker2"] == 0
+
+
+def test_small_circuit_queries_through_the_kernels():
+    """MAP, marginals and conditional sampling of a small Tucker circuit on
+    the card against the same store in float64 on the CPU (rtol 1e-5), with
+    one tropical and one route launch per Tucker entry for MAP."""
+    from cirkit_tpu_torch.backend.torch import IntegrateQuery, MAPQuery, SamplingQuery
+
+    ctx, cc = _flagship_like("tucker", "cuda")
+    ctx_cpu, cc_cpu = _flagship_like("tucker", "cpu")
+    ctx_cpu.load_parameters(
+        {s: v.detach().cpu().numpy() for s, v in ctx.parameters.items()}, dtype=torch.float64
+    )
+    n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc.layers)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (16, 64))
+    mask = rng.random((16, 64)) < 0.5
+    xc, mc = torch.as_tensor(x, device="cuda"), torch.as_tensor(mask, device="cuda")
+    asg, val = MAPQuery(cc)(xc, evidence_mask=mc)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["tropical_tucker2"] == T.LAUNCHES["route_tucker2"] == n_tucker
+    want_asg, want_val = MAPQuery(cc_cpu)(x, evidence_mask=mask)
+    np.testing.assert_allclose(val.double().cpu().numpy(), want_val.numpy(), rtol=1e-5)
+    np.testing.assert_array_equal(asg.cpu().numpy()[mask], x[mask])
+    got = IntegrateQuery(cc)(xc, integrate_vars=mc)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               IntegrateQuery(cc_cpu)(x, integrate_vars=mask).numpy(), rtol=1e-5)
+    gen = torch.Generator().manual_seed(0)
+    samples, log_ev = SamplingQuery(cc).conditional(xc, evidence_mask=mc, generator=gen)
+    _, want_ev = SamplingQuery(cc_cpu).conditional(x, evidence_mask=mask, generator=gen)
+    np.testing.assert_allclose(log_ev.double().cpu().numpy(), want_ev.numpy(), rtol=1e-5)
+    s = samples.cpu().numpy()
+    np.testing.assert_array_equal(s[mask], x[mask])
+    assert ((s >= 0) & (s <= 255)).all()
+    assert T.LAUNCHES["route_tucker2"] == 2 * n_tucker
