@@ -9,15 +9,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device: requires CUDA, prints the card's name and power limit as
    ``nvidia-smi`` reports them, and turns TF32 off for the plain versions;
 2. build: compiles ``cirkit_tpu_torch/csrc`` with ``nvcc`` into ``build/``;
-3. kernel against plain: every forward entry of the log-einsum-exp kernel
+3. kernel against plain: every forward entry of the log-einsum-exp kernels
    against its plain PyTorch version on the card, at the flagship circuits'
    shapes and at edge shapes (O=1, a ragged batch, a row that is all -inf),
-   with ``|kernel - plain| <= 1e-4 + 1e-5 |plain|`` in log space;
+   with ``|kernel - plain| <= 1e-4 + 1e-5 |plain|`` in log space; the wide
+   kernels (the K1-chunked Tucker forward with logits and with plain
+   weights, the blocked dense forward and its row max) at the K=128 entries
+   (F=784, B=128, K1=K2=O=128; dense I=16384) and at edge shapes (ragged B,
+   O=1, K1 != K2, a K1 that the chunk rows do not divide, a weight row wider
+   than a chunk, I not a multiple of the chunk, a row that is all -inf, a
+   chunk of logits or of inputs that is all -inf); kernel 1 timed beside
+   kernel 5 at the K=128 Tucker shapes;
 3b. backward against plain: every backward entry against its plain version
-   (``*_bwd_ref``) on the same cases, with a random cotangent that is 0 on
-   some rows, each gradient to ``|kernel - plain| <= 1e-4 max|plain| +
-   1e-4 |plain|`` (linear sums of up to B or O*K2 terms), no NaN, and input
-   gradients that are 0 where the plain version's are;
+   (``*_bwd_ref``) on the same cases (the Tucker backward kernel at the
+   K=128 Tucker shape among them, the blocked backward on the dense ones),
+   with a random cotangent that is 0 on some rows, each gradient to
+   ``|kernel - plain| <= 1e-4 max|plain| + 1e-4 |plain|`` (linear sums of
+   up to B or O*K2 terms), no NaN, and input gradients that are 0 where the
+   plain version's are;
 3c. routing against plain: the max-product Tucker kernel
    (``tropical_tucker2``) and the routing choice (``route_tucker2``) against
    their plain versions at the flagship's largest Tucker entry (F=784,
@@ -47,9 +56,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    for each run, 10 steps on a fixed batch with one forward and one
    backward kernel call per kernel-bearing plan entry per step, finite
    losses and the last below the first; the median step time (CUDA events
-   around forward, backward and optimizer, 10 steps after 3 warm-ups); and
-   ``fit`` over 3 batches with ``checkpoint_every=2``, interrupted after its
-   checkpoint and resumed to the end. The EM-ready Tucker store takes the
+   around forward, backward and optimizer, 10 steps after 3 warm-ups); and,
+   for the ``adam_lowmem`` and CP runs, ``fit`` over 3 batches with
+   ``checkpoint_every=2``, interrupted after its checkpoint and resumed to
+   the end. The EM-ready Tucker store takes the
    gradient of its log-likelihood (the E-step's expected counts that
    ``fit_em`` reads): the same gradient check, one counted call at batch
    128 and its median time;
@@ -66,16 +76,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MAP log-values and of the conditional log-evidence against a float64
    CPU run of the same store (rtol 1e-5), evidence returned unchanged, the
    assignments that differ from float64 counted; the median ms of each
-   query, and the device time of MAP and sampling by kernel category.
+   query, and the device time of MAP and sampling by kernel category;
+8. wide: the Tucker flagship at K=128 (3.30 G parameters), where the wide
+   kernels run, at batch 128: with ``optimize=True`` the forward, the
+   EM-ready store's forward, ``IntegrateQuery`` with the 50% mask,
+   ``MAPQuery``, ``SamplingQuery`` of 128 samples and ``.conditional``, and
+   10 Adam steps; with ``optimize=False`` the forward and 10 SGD steps.
+   Every call's launches are counted per kernel: one K1-chunked launch per
+   wide Tucker entry and one blocked launch per wide sum a forward, no
+   single-pass launch on them, one Tucker or blocked backward launch per
+   entry a step. 8 rows of each forward, of the marginals and of the MAP
+   value against the same store in float64 on the CPU (rtol 1e-5), finite
+   and decreasing losses, the median ms of each call and the peak device
+   memory of each run.
 
 The line before the last is a JSON object with each kernel's launches on
-its main path (the forward ops in phase 4, the backward ops in phase 5,
-the routing ops in phase 7), its worst error and its median time beside
-the plain version's; the last line is ``{"ok": true, "device": {...}}``.
+its main paths (the forward ops in phases 4 and 8, the backward ops in
+phases 5 and 8, the routing ops in phase 7), its worst error, its median
+time beside the plain version's and its bound: the larger of its FMA work
+(or, for the routing kernels, its add and max operations) over the card's
+f32 peak and the bytes it must move over its memory rate, at the shape
+timed. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import statistics
@@ -85,21 +111,37 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SOURCE = "cirkit_tpu_torch/csrc/lse_einsum.cu"
-REPLACES = "cirkit_tpu/ops/lse_einsum.py:335"
-BWD_SOURCE = "cirkit_tpu_torch/csrc/lse_einsum_bwd.cu"
-BWD_REPLACES = "cirkit_tpu/ops/lse_einsum.py:350"
-ROUTE_SOURCE = "cirkit_tpu_torch/csrc/tucker_route.cu"
-ROUTE_REPLACES = {  # the Pallas kernel each routing op replaces
-    "tropical_tucker2": "cirkit_tpu/ops/lse_einsum.py:1334",
-    "route_tucker2": "cirkit_tpu/ops/lse_einsum.py:1176",
+FWD_OPS = ("lse_matmul", "lse_matmul_softmax", "lse_tucker2", "lse_tucker2_softmax")
+ROUTE_OPS = ("tropical_tucker2", "route_tucker2")
+_CSRC, _PALLAS = "cirkit_tpu_torch/csrc/", "cirkit_tpu/ops/lse_einsum.py:"
+KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
+    **{op: (_CSRC + "lse_einsum.cu", _PALLAS + "335") for op in FWD_OPS},
+    **{f"{op}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350") for op in FWD_OPS},
+    "lse_tucker2_chunked": (_CSRC + "lse_wide.cu", _PALLAS + "738"),
+    "lse_tucker2_softmax_chunked": (_CSRC + "lse_wide.cu", _PALLAS + "738"),
+    "lse_matmul_blocked": (_CSRC + "lse_wide.cu", _PALLAS + "548"),
+    "lse_matmul_blocked_bwd": (_CSRC + "lse_wide.cu", _PALLAS + "572"),
+    "tropical_tucker2": (_CSRC + "tucker_route.cu", _PALLAS + "1334"),
+    "route_tucker2": (_CSRC + "tucker_route.cu", _PALLAS + "1176"),
 }
-DEV = "cuda"  # the device of phases 3c and 7
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
+# f32 outside the tensor cores, and device memory.
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
+DEV = "cuda"  # the device of phases 3, 3b, 3c, 7 and 8
 ROUTE_FLAGSHIP = (784, 128, 64, 64, 64)  # F, B, K1, K2, O of the largest Tucker entry
 TROP_ATOL = TROP_RTOL = 1e-5  # tropical bound: TROP_RTOL |plain| + TROP_ATOL
 SCORE_REL = SCORE_ABS = 1e-5  # route bound on the chosen score
 FREQ_ROWS = 65536  # identical rows of the sample-kind frequency check
 FLAGSHIP_K = 64
+WIDE_K = 128  # the K=128 Tucker flagship of phase 8 and the wide kernels' entry shapes
+WIDE_RUNS = (  # (optimize, em_ready, optimizer of the training steps or None)
+    (True, False, "adam"),
+    (True, True, None),
+    (False, False, "sgd"),
+)
+# Plain SGD for the unoptimized circuit: Adam's moments (26.4 GB) do not fit
+# beside its saved Kronecker outputs and normalized weights on an 80 GB card.
+SGD_LR = 10.0
 QUERY_ROWS = 8  # rows held against the float64 CPU queries
 ATOL, RTOL = 1e-4, 1e-5
 BWD_REL = 1e-4  # backward bound: BWD_REL * (max|plain| + |plain|)
@@ -115,6 +157,9 @@ TRAIN_RUNS = (  # (sum_product_layer, batch, optimizer)
     ("cp", 256, "adam"),
 )
 STEPS = 10  # counted training steps of each run
+# the runs whose `fit` is interrupted and resumed: a torch optimizer's and
+# adam_lowmem's checkpointed state (the Tucker Adam run would repeat the CP one)
+RESUMED = (("tucker", "adam_lowmem"), ("cp", "adam"))
 # Gradient check on GRAD_ROWS rows: |f32 - f64| <= GRAD_REL max|slot| +
 # GRAD_ABS per slot. In f32, log-values near the flagship's log-likelihood
 # of -4.4e3 carry an ulp of 4.9e-4, which every layer's exp(x - shift)
@@ -180,14 +225,42 @@ def phase_build() -> None:
     )
 
 
+def _bound(key: str, ins) -> tuple[float, str]:
+    """The least ms the card could take for the function of kernel ``key`` on
+    ``ins`` (its inputs, weight last): the larger of its FMA work over the f32
+    peak and its bytes over the memory rate, each input read once and each
+    output written once, and which of the two binds."""
+    *xs, w = ins
+    f, b = xs[0].shape[:2]
+    o, i = w.shape[1:]
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    out = 4 * f * b * o
+    flops = 2 * f * b * i * o
+    moved = nbytes + out
+    if key.endswith("_bwd"):  # two contractions; out and g read, a gradient per input
+        flops, moved = 2 * flops, 2 * nbytes + 2 * out
+    if key.startswith("lse_matmul_blocked"):
+        moved += 4 * f * b  # the row max, written or read
+    return _bound_of(flops, moved)
+
+
+def _bound_of(ops: float, moved: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / F32_PEAK * 1e3, moved / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _cases(gen):
-    """(op, kernel wrapper, plain version, inputs, label) at the flagship
-    shapes first, then the edge shapes."""
+    """(key, op, kernel wrapper, plain version, make inputs, label) at the
+    flagship shapes first, then the K=128 entries and the edge shapes; key
+    names the LAUNCHES entry of the forward kernel under test, and each
+    case's inputs are made when it runs, so one case at a time holds the
+    card's memory."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
 
-    dev = "cuda"
+    dev = DEV
+    inf = float("-inf")
 
     def logx(*shape):
         return torch.randn(shape, generator=gen, device=dev) * 3.0 - 2.0
@@ -198,81 +271,144 @@ def _cases(gen):
     def logits(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    dense = (L.lse_matmul, L.lse_matmul_ref)
-    dense_sm = (L.lse_matmul_softmax, L.lse_matmul_softmax_ref)
-    tucker = (L.lse_tucker2, L.lse_tucker2_ref)
-    tucker_sm = (L.lse_tucker2_softmax, L.lse_tucker2_softmax_ref)
-    b = BATCH
+    def single(op):  # the single-pass kernel, through its public op
+        return (op, op, getattr(L, op), getattr(L, f"{op}_ref"))
+
+    def chunked(op):  # the K1-chunked kernel at any width
+        key = f"{op}_chunked"
+        return (key, op, lambda *ins: L._launch_fwd(key, ins), getattr(L, f"{op}_ref"))
+
+    def tucker(op, f, b, k1, k2, o, *edits):
+        def make():
+            ins = (logx(f, b, k1), logx(f, b, k2),
+                   (logits if "softmax" in op else weights)(f, o, k1 * k2))
+            for t, idx, v in edits:
+                ins[t][idx] = v
+            return ins
+        return make
+
+    blocked = ("lse_matmul_blocked", "lse_matmul", L._launch_blocked_fwd, L.lse_matmul_blocked_ref)
+
+    def dense(f, b, i, o, *edits, softmax=False):
+        def make():
+            ins = (logx(f, b, i), (logits if softmax else weights)(f, o, i))
+            for t, idx, v in edits:
+                ins[t][idx] = v
+            return ins
+        return make
+
+    b, k = BATCH, WIDE_K
     cases = [
-        ("lse_matmul_softmax", *dense_sm, (logx(1568, b, 64), logits(1568, 64, 64)),
+        (*single("lse_matmul_softmax"), dense(1568, b, 64, 64, softmax=True),
          "F=1568 B=128 I=64 O=64"),
-        ("lse_matmul", *dense, (logx(196, b, 128), weights(196, 64, 128)),
+        (*single("lse_matmul"), dense(196, b, 128, 64),
          "F=196 B=128 I=128 O=64"),
-        ("lse_tucker2_softmax", *tucker_sm,
-         (logx(784, b, 64), logx(784, b, 64), logits(784, 64, 4096)),
+        (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 784, b, 64, 64, 64),
          "F=784 B=128 K1=K2=64 O=64"),
-        ("lse_tucker2", *tucker,
-         (logx(784, b, 64), logx(784, b, 64), weights(784, 64, 4096)),
+        (*single("lse_tucker2"), tucker("lse_tucker2", 784, b, 64, 64, 64),
          "F=784 B=128 K1=K2=64 O=64"),
-        ("lse_matmul_softmax", *dense_sm, (logx(2, b, 64), logits(2, 1, 64)), "O=1"),
-        ("lse_matmul", *dense, (logx(1, b, 2), weights(1, 1, 2)), "O=1 I=2"),
-        ("lse_tucker2_softmax", *tucker_sm,
-         (logx(2, b, 64), logx(2, b, 64), logits(2, 1, 4096)), "O=1"),
-        ("lse_tucker2", *tucker, (logx(2, b, 64), logx(2, b, 64), weights(2, 1, 4096)), "O=1"),
-        ("lse_matmul", *dense, (logx(5, 13, 64), weights(5, 64, 64)), "ragged B=13"),
-        ("lse_matmul_softmax", *dense_sm, (logx(5, 13, 128), logits(5, 64, 128)),
+        # the K=128 entries, through the public ops where their width routes them
+        ("lse_tucker2_softmax_chunked", *single("lse_tucker2_softmax")[1:],
+         tucker("lse_tucker2_softmax", 784, b, k, k, k), f"F=784 B=128 K1=K2=O={k}"),
+        ("lse_tucker2_chunked", *single("lse_tucker2")[1:],
+         tucker("lse_tucker2", 784, b, k, k, k), f"F=784 B=128 K1=K2=O={k}"),
+        (*blocked, dense(784, b, k * k, k), f"F=784 B=128 I={k * k} O={k}"),
+        (*single("lse_matmul_softmax"), dense(2, b, 64, 1, softmax=True), "O=1"),
+        (*single("lse_matmul"), dense(1, b, 2, 1), "O=1 I=2"),
+        (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 2, b, 64, 64, 1), "O=1"),
+        (*single("lse_tucker2"), tucker("lse_tucker2", 2, b, 64, 64, 1), "O=1"),
+        (*single("lse_matmul"), dense(5, 13, 64, 64), "ragged B=13"),
+        (*single("lse_matmul_softmax"), dense(5, 13, 128, 64, softmax=True),
          "ragged B=13"),
-        ("lse_tucker2", *tucker, (logx(5, 13, 8), logx(5, 13, 16), weights(5, 16, 128)),
+        (*single("lse_tucker2"), tucker("lse_tucker2", 5, 13, 8, 16, 16),
          "ragged B=13 K1=8 K2=16"),
-        ("lse_tucker2_softmax", *tucker_sm,
-         (logx(5, 13, 64), logx(5, 13, 64), logits(5, 64, 4096)), "ragged B=13"),
+        (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 5, 13, 64, 64, 64),
+         "ragged B=13"),
+    ]
+    # the wide kernels' edges: chunks of 512 columns (KC = 512 // K2 rows of
+    # K1, at least one), the dense online max in chunks of 256 columns
+    for op in ("lse_tucker2_softmax", "lse_tucker2"):
+        zero = inf if "softmax" in op else 0.0
+        cases += [
+            (*chunked(op), tucker(op, 5, 13, 40, 24, 1), "B=13 O=1 K1=40 K2=24 (21+19 rows)"),
+            (*chunked(op), tucker(op, 3, 16, 99, 128, 70), "O=70 K1=99 K2=128 (24x4+3 rows)"),
+            (*chunked(op), tucker(op, 2, 130, 3, 600, 9), "B=130 K1=3 K2=600 (a row a chunk)"),
+            (*chunked(op), tucker(op, 3, 16, 64, 16, 64, (0, (1, 5), inf),
+                                  (2, (0, 3, slice(0, 512)), zero)),
+             "a row -inf, a chunk of logits -inf" if "softmax" in op else "a row -inf, a chunk 0"),
+        ]
+    cases += [
+        (*blocked, dense(5, 13, 10000, 1), "B=13 O=1 I=10000 (39x256+16)"),
+        (*blocked, dense(2, 130, 777, 70), "B=130 O=70 I=777"),
+        (*blocked, dense(3, 16, 1000, 64, (0, (1, 5), inf), (0, (2, 3, slice(256, 512)), inf)),
+         "a row -inf, a chunk of x -inf"),
     ]
     # rows that are all -inf must give -inf, never NaN
-    for op, kernel, plain, ins in (
-        ("lse_matmul", *dense, (logx(3, 16, 64), weights(3, 64, 64))),
-        ("lse_matmul_softmax", *dense_sm, (logx(3, 16, 64), logits(3, 64, 64))),
-        ("lse_tucker2", *tucker, (logx(3, 16, 64), logx(3, 16, 64), weights(3, 64, 4096))),
-        ("lse_tucker2_softmax", *tucker_sm,
-         (logx(3, 16, 64), logx(3, 16, 64), logits(3, 64, 4096))),
-    ):
-        ins[0][1, 5] = float("-inf")
-        cases.append((op, kernel, plain, ins, "row all -inf"))
+    for op in FWD_OPS:
+        row = (0, (1, 5), inf)
+        make = (tucker(op, 3, 16, 64, 64, 64, row) if "tucker" in op
+                else dense(3, 16, 64, 64, row, softmax="softmax" in op))
+        cases.append((*single(op), make, "row all -inf"))
     return cases
 
 
-def phase_kernels() -> dict[str, dict]:
-    """Each kernel entry against its plain version; returns per-op results
-    (the times are those of the first, flagship-shaped case)."""
+def _max_err(key: str, label: str, got, ref) -> float:
+    """``|kernel - plain| <= ATOL + RTOL |plain|`` in log space with the same
+    -inf pattern and no NaN; returns the worst error."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    if got.shape != ref.shape or torch.isnan(got).any():
+        raise AssertionError(f"{key} [{label}]: shape {tuple(got.shape)} or NaN")
+    same_inf = torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    finite = torch.isfinite(ref)
+    err = (got[finite] - ref[finite]).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if not same_inf or not bool((err <= ATOL + RTOL * ref[finite].abs()).all()):
+        raise AssertionError(f"{key} [{label}]: max |kernel - plain| = {max_err:.3e} "
+                             f"(bound {ATOL} + {RTOL}|ref|), -inf pattern equal: {same_inf}")
+    return max_err
+
+
+def phase_kernels() -> dict[str, dict]:
+    """Each forward kernel against its plain version; returns per-kernel
+    results (times and bound of the first case of each kernel)."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
     results: dict[str, dict] = {}
     with torch.inference_mode():
-        for op, kernel, plain, ins, label in _cases(gen):
+        for key, op, kernel, plain, make, label in _cases(gen):
+            ins = make()
             got = kernel(*ins)
             ref = plain(*ins)
             torch.cuda.synchronize()
-            if got.shape != ref.shape or torch.isnan(got).any():
-                raise AssertionError(f"{op} [{label}]: shape {tuple(got.shape)} or NaN")
-            same_inf = torch.equal(torch.isneginf(got), torch.isneginf(ref))
-            finite = torch.isfinite(ref)
-            err = (got[finite] - ref[finite]).abs()
-            bound = ATOL + RTOL * ref[finite].abs()
-            max_err = float(err.max()) if err.numel() else 0.0
-            if not same_inf or not bool((err <= bound).all()):
-                raise AssertionError(
-                    f"{op} [{label}]: max |kernel - plain| = {max_err:.3e} "
-                    f"(bound {ATOL} + {RTOL}|ref|), -inf pattern equal: {same_inf}"
-                )
-            entry = results.setdefault(op, {"max_abs_err": 0.0})
+            if isinstance(got, tuple):  # the blocked forward's row max: exact
+                if not torch.equal(got[1], ref[1]):
+                    raise AssertionError(f"{key} [{label}]: row max differs from the plain one")
+                got, ref = got[0], ref[0]
+            max_err = _max_err(key, label, got, ref)
+            entry = results.setdefault(key, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
-            line = f"[kernel] {op:20s} {label:28s} max|err|={max_err:.3e}"
+            line = f"[kernel] {key:27s} {label:36s} max|err|={max_err:.3e}"
             if "ms" not in entry:
                 entry["ms"] = _median_ms(lambda: kernel(*ins))
                 entry["plain_ms"] = _median_ms(lambda: plain(*ins))
+                entry["bound_ms"], entry["bound_by"] = _bound(key, ins)
                 entry["shape"] = label
-                line += f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms"
+                line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+            if key.endswith("_chunked") and f"K1=K2=O={WIDE_K}" in label:
+                # the single-pass kernel on the same inputs, checked and timed
+                def single_pass():
+                    return L._launch_fwd(op, ins)
+
+                _max_err(op, label, single_pass(), ref)
+                entry["single_pass_ms"] = _median_ms(single_pass)
+                line += f"; single-pass kernel {entry['single_pass_ms']:.3f} ms"
             print(line)
+            del ins, got, ref
     return results
 
 
@@ -394,6 +530,11 @@ def phase_routing() -> dict[str, dict]:
                 entry["plain_ms"] = _median_ms(
                     lambda: R.tropical_tucker2_ref(x1, x2, th, log_weights=lw), iters=5)
                 entry["shape"] = label
+                # one add and one max per (row, unit, composite index)
+                f, b, k1 = x1.shape
+                o, mm = th.shape[1:]
+                entry["bound_ms"], entry["bound_by"] = _bound_of(
+                    2 * f * b * o * mm, 4 * (x1.numel() + x2.numel() + th.numel() + f * b * o))
                 line += f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms"
             print(line)
 
@@ -422,6 +563,14 @@ def phase_routing() -> dict[str, dict]:
                 entry["sample_plain_ms"] = _median_ms(lambda: R.route_tucker2_ref(
                     x1, x2, th, sel, kind="sample", log_weights=lw, generator=plain_gen))
                 entry["shape"] = label
+                # two adds and a compare per (row, composite index), over the
+                # weight rows this run selects, each read once
+                f, b, k1 = x1.shape
+                o, mm = th.shape[1:]
+                rows = torch.unique(torch.arange(f, device=DEV)[:, None] * o
+                                    + sel.clamp(0, o - 1)).numel()
+                entry["bound_ms"], entry["bound_by"] = _bound_of(
+                    3 * f * b * mm, 4 * (x1.numel() + x2.numel() + rows * mm) + 16 * f * b)
                 line += (f"  max: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} "
                          f"ms; sample: kernel {entry['sample_ms']:.3f} ms, plain "
                          f"{entry['sample_plain_ms']:.3f} ms")
@@ -441,51 +590,84 @@ def _zero_launches() -> None:
 
 
 def phase_backward() -> dict[str, dict]:
-    """Each backward entry against its plain version on the cases of phase
-    3; returns per-op results (times of the flagship-shaped case)."""
+    """Each backward kernel against its plain version on the cases of phase
+    3 (the Tucker backward on the K1-chunked cases, the blocked backward on
+    the blocked ones); returns per-kernel results (times and bound of the
+    first case of each, and of the Tucker backward at the K=128 shape)."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device=DEV).manual_seed(1)
     results: dict[str, dict] = {}
     with torch.inference_mode():
-        for op, _, plain, ins, label in _cases(gen):
-            out = plain(*ins)
-            g = torch.randn(out.shape, generator=gen, device="cuda")
+        for key, op, _, plain, make, label in _cases(gen):
+            ins = make()
+            if key == "lse_matmul_blocked":
+                out, m = plain(*ins)
+                bkey = "lse_matmul_blocked_bwd"
+
+                def kernel(ins=ins, out=out, m=m):
+                    return L._launch_blocked_bwd(*ins, out, m, g, (True, True))
+
+                def plain_bwd(ins=ins, out=out, m=m):
+                    return L.lse_matmul_blocked_bwd_ref(*ins, out, m, g)
+            else:
+                out = plain(*ins)
+                bkey = f"{op}_bwd"
+                needs = (True,) * len(ins)
+                if len(ins) == 3 and L._build.library().lse_bwd_tucker_smem(
+                        ins[0].shape[2], ins[1].shape[2]) > L._MAX_SMEM:
+                    needs = (False, False, True)  # widths past the Tucker dx kernel's memory
+
+                def kernel(ins=ins, out=out, op=op, needs=needs):
+                    return L.backward(op, ins, out, g, needs)
+
+                def plain_bwd(ins=ins, out=out, op=op, needs=needs):
+                    return getattr(L, f"{op}_bwd_ref")(*ins, out, g, needs)
+            g = torch.randn(out.shape, generator=gen, device=DEV)
             g[0, : min(3, g.shape[1])] = 0.0  # rows whose upstream gradient is 0
-            got = L.backward(op, ins, out, g)
-            ref = getattr(L, f"{op}_bwd_ref")(*ins, out, g)
+            got = kernel()
+            ref = plain_bwd()
             torch.cuda.synchronize()
             max_err = 0.0
             names = ("dx1", "dx2", "dw") if len(ins) == 3 else ("dx", "dw")
             for name, k, p in zip(names, got, ref):
+                if k is None and p is None:
+                    continue
                 if k.shape != p.shape or torch.isnan(k).any():
-                    raise AssertionError(f"{op} [{label}] {name}: shape {tuple(k.shape)} or NaN")
+                    raise AssertionError(f"{bkey} [{label}] {name}: shape {tuple(k.shape)} or NaN")
                 # the input gradients' zeros are structural (rows of -inf, rows
                 # whose cotangent is 0); a weight gradient can be 0 by a tie
                 if name != "dw" and not bool((k[p == 0] == 0).all()):
-                    raise AssertionError(f"{op} [{label}] {name}: not 0 where the plain is 0")
+                    raise AssertionError(f"{bkey} [{label}] {name}: not 0 where the plain is 0")
                 err = (k - p).abs()
                 bound = BWD_REL * (p.abs().max() + p.abs())
                 if not bool((err <= bound).all()):
                     raise AssertionError(
-                        f"{op} [{label}] {name}: max |kernel - plain| = {float(err.max()):.3e} "
-                        f"(bound {BWD_REL} (max|plain| + |plain|), max|plain| "
-                        f"{float(p.abs().max()):.3e})"
+                        f"{bkey} [{label}] {name}: max |kernel - plain| = "
+                        f"{float(err.max()):.3e} (bound {BWD_REL} (max|plain| + |plain|), "
+                        f"max|plain| {float(p.abs().max()):.3e})"
                     )
                 max_err = max(max_err, float(err.max()))
-            entry = results.setdefault(f"{op}_bwd", {"max_abs_err": 0.0})
+            del got, ref
+            entry = results.setdefault(bkey, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
-            line = f"[backward] {op:20s} {label:28s} max|err|={max_err:.3e}"
-            if "ms" not in entry:
-                entry["ms"] = _median_ms(lambda: L.backward(op, ins, out, g))
-                entry["plain_ms"] = _median_ms(
-                    lambda: getattr(L, f"{op}_bwd_ref")(*ins, out, g)
-                )
-                entry["shape"] = label
-                line += f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms"
+            line = f"[backward] {bkey:27s} {label:36s} max|err|={max_err:.3e}"
+            wide_tucker = key.endswith("_chunked") and f"K1=K2=O={WIDE_K}" in label
+            if "ms" not in entry or wide_tucker:
+                ms, plain_ms = _median_ms(kernel), _median_ms(plain_bwd)
+                line += f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                if "ms" not in entry:
+                    entry.update(ms=ms, plain_ms=plain_ms, shape=label)
+                    entry["bound_ms"], entry["bound_by"] = _bound(bkey, ins)
+                    line += f", bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})"
+                else:  # the Tucker backward at the K=128 shape
+                    entry.update(k128_ms=ms, k128_plain_ms=plain_ms)
+                    entry["k128_bound_ms"] = _bound(bkey, ins)[0]
+                    line += f", bound {entry['k128_bound_ms']:.3f} ms"
             print(line)
+            del ins, out, g
     return results
 
 
@@ -496,21 +678,34 @@ def _kernel_layers():
     return (TorchSumLayer, TorchCPTLayer, TorchTuckerLayer)
 
 
-def _build_flagship(spl: str, em_ready: bool, device: str):
+def _flagship_circuit(spl: str, em_ready: bool, k: int):
     from cirkit_tpu_torch.models import image_data
+
+    return image_data((1, 28, 28), "quad-graph", input_layer="categorical", num_input_units=k,
+                      sum_product_layer=spl, num_sum_units=k, em_ready=em_ready)
+
+
+def _build_flagship(spl: str, em_ready: bool, device: str, *, k: int | None = None,
+                    optimize: bool = True):
     from cirkit_tpu_torch.pipeline import PipelineContext
 
-    sc = image_data(
-        (1, 28, 28),
-        "quad-graph",
-        input_layer="categorical",
-        num_input_units=FLAGSHIP_K,
-        sum_product_layer=spl,
-        num_sum_units=FLAGSHIP_K,
-        em_ready=em_ready,
-    )
-    ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=device, seed=0)
+    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k)
+    ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=optimize, device=device, seed=0)
     return sc, ctx, ctx.compile(sc)
+
+
+def _f64_reference(spl: str, em_ready: bool, store, *, k: int | None = None,
+                   optimize: bool = True):
+    """The flagship compiled on the CPU with no store of its own, and
+    ``store`` copied there in float64 one slot at a time: the reference the
+    checks against float64 evaluate, with no CPU initialization."""
+    import torch
+
+    from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
+
+    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k)
+    cc = TorchCompiler(semiring="lse-sum", fold=True, optimize=optimize, device="cpu").compile(sc)
+    return cc, {s: v.detach().cpu().double() for s, v in store.items()}
 
 
 def phase_slice(smi: str) -> tuple[list, dict[str, int]]:
@@ -559,18 +754,14 @@ def phase_slice(smi: str) -> tuple[list, dict[str, int]]:
         if out.shape != (BATCH, 1, 1) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{spl} em_ready={em}: output {tuple(out.shape)}, not finite")
         # the same store in float64 on the CPU, through the plain versions
-        _, ctx_cpu, cc_cpu = _build_flagship(spl, em, "cpu")
-        ctx_cpu.load_parameters(
-            {k: v.detach().cpu().numpy() for k, v in ctx.parameters.items()},
-            dtype=torch.float64,
-        )
+        cc64, st64 = _f64_reference(spl, em, ctx.parameters)
         with torch.inference_mode():
-            ref = cc_cpu(torch.as_tensor(x_np[:8])).numpy()
+            ref = cc64(st64, torch.as_tensor(x_np[:8])).numpy()
         got = out[:8].double().cpu().numpy()
         rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
         if not np.allclose(got, ref, rtol=1e-5, atol=0.0):
             raise AssertionError(f"{spl} em_ready={em}: max relative error {rel:.3e} > 1e-5")
-        del ctx_cpu, cc_cpu
+        del cc64, st64
         with torch.inference_mode():
             ms = _median_ms(lambda: cc(x))
         print(
@@ -594,12 +785,10 @@ def _check_gradients(label: str, spl: str, em: bool, ctx, cc, x_np) -> None:
     tr, fr = split_trainable(cc, ctx.parameters)
     x = torch.as_tensor(x_np[:GRAD_ROWS], device="cuda")
     got = torch.autograd.grad(-cc.evaluate({**tr, **fr}, x).mean(), list(tr.values()))
-    _, ctx_cpu, cc_cpu = _build_flagship(spl, em, "cpu")
-    ctx_cpu.load_parameters(
-        {k: v.detach().cpu().numpy() for k, v in ctx.parameters.items()}, dtype=torch.float64
-    )
-    tr_c, fr_c = split_trainable(cc_cpu, ctx_cpu.parameters)
-    loss_c = -cc_cpu.evaluate({**tr_c, **fr_c}, torch.as_tensor(x_np[:GRAD_ROWS])).mean()
+    cc64, st64 = _f64_reference(spl, em, ctx.parameters)
+    tr_c, fr_c = split_trainable(cc64, st64)
+    tr_c = {k: v.requires_grad_() for k, v in tr_c.items()}
+    loss_c = -cc64.evaluate({**tr_c, **fr_c}, torch.as_tensor(x_np[:GRAD_ROWS])).mean()
     refs = torch.autograd.grad(loss_c, [tr_c[k] for k in tr])
     worst = 0.0  # the largest error as a share of its bound
     for k, g, r in zip(tr, got, refs):
@@ -672,6 +861,8 @@ def _train_run(spl: str, batch: int, opt_name: str, ctx, cc, n_kernel: int, x_np
     print(f"[train] {label}: {STEPS} steps, NLL {losses[0]:.3f} -> {losses[-1]:.3f}; "
           f"step {ms:.3f} ms median of 10 = {batch / ms * 1e3:.1f} samples/s ({smi})")
     del step
+    if (spl, opt_name) not in RESUMED:
+        return
 
     # fit over 3 batches, interrupted after its checkpoint at step 2, resumed
     ck = REPO / "build" / "chip_smoke" / f"{spl}_{opt_name}"
@@ -738,7 +929,7 @@ def phase_train(smi: str, built: list) -> dict[str, int]:
     print(f"[train] tucker em_ready E-step gradient at batch {BATCH}: {ms:.3f} ms median of "
           f"10 ({smi})")
 
-    bwd = {op: launches[op] for op in L.LAUNCHES if op.endswith("_bwd")}
+    bwd = {f"{op}_bwd": launches[f"{op}_bwd"] for op in L.OPS}
     print(f"[train] backward launches on the main path: {bwd}")
     missing = [op for op, n in bwd.items() if n == 0]
     if missing:
@@ -750,6 +941,9 @@ PROFILE_STEPS = 5
 _KERNEL_CATEGORIES = (  # (category, substrings of kernel names), first match wins
     ("tropical kernel", ("tropical_tucker",)),
     ("route kernel", ("route_tucker",)),
+    ("wide forward kernel", ("ct_fwd", "blocked_fwd")),
+    ("wide backward kernel", ("blocked_gy", "blocked_bwd")),
+    ("torch softmax", ("softmaxforward", "softmaxbackward")),
     ("forward kernel", ("lse_fwd",)),
     ("backward kernel", ("bwd_prep", "softmax_weights", "lse_bwd_dx", "lse_bwd_dw",
                          "softmax_vjp")),
@@ -933,7 +1127,7 @@ def phase_queries(smi: str, built: list) -> dict[str, int]:
             for name, (fn, want) in calls.items()}
     from cirkit_tpu_torch.ops import lse_einsum as L
 
-    routed = {op: launches[op] for op in ROUTE_REPLACES}
+    routed = {op: launches[op] for op in ROUTE_OPS}
     print(f"[queries] Tucker flagship, batch {BATCH}, {n_tucker} Tucker entries of {n_kernel} "
           f"kernel-bearing: launches on the main path {routed}, forward "
           f"{sum(launches[op] for op in L.OPS)}")
@@ -963,18 +1157,15 @@ def phase_queries(smi: str, built: list) -> dict[str, int]:
 
     # QUERY_ROWS rows against the same store in float64 on the CPU
     t0 = time.perf_counter()
-    _, ctx_cpu, cc_cpu = _build_flagship("tucker", False, "cpu")
-    ctx_cpu.load_parameters(
-        {k: v.detach().cpu().numpy() for k, v in ctx.parameters.items()}, dtype=torch.float64
-    )
+    cc64, st64 = _f64_reference("tucker", False, ctx.parameters)
     r = QUERY_ROWS
     xr, mr, gr = (torch.as_tensor(a[:r]) for a in (x_np, mask_np, marg_np))
-    want_marg = IntegrateQuery(cc_cpu)(xr, integrate_vars=mr)
-    want_map = MAPQuery(cc_cpu)(xr, evidence_mask=mr)
-    want_map_m = MAPQuery(cc_cpu)(xr, evidence_mask=mr, marginalize_vars=gr)
-    _, want_ev = SamplingQuery(cc_cpu).conditional(xr, evidence_mask=mr,
+    want_marg = IntegrateQuery(cc64)(xr, integrate_vars=mr, store=st64)
+    want_map = MAPQuery(cc64)(xr, evidence_mask=mr, store=st64)
+    want_map_m = MAPQuery(cc64)(xr, evidence_mask=mr, marginalize_vars=gr, store=st64)
+    _, want_ev = SamplingQuery(cc64).conditional(xr, evidence_mask=mr, store=st64,
                                                    generator=torch.Generator().manual_seed(0))
-    del ctx_cpu, cc_cpu
+    del cc64, st64
     rels = {}
     for name, got, want in (("marginals", marginals[:r, 0, 0], want_marg[:, 0, 0]),
                             ("map", vals[:r], want_map[1]), ("map marginal", vals_m[:r],
@@ -1001,6 +1192,174 @@ def phase_queries(smi: str, built: list) -> dict[str, int]:
     return launches
 
 
+def _expected_launches(cc) -> tuple[dict[str, int], dict[str, int]]:
+    """The kernel launches of one forward and of one backward of ``cc``, per
+    LAUNCHES key: an entry of width WIDE_WIDTH or more takes the K1-chunked
+    (Tucker) or blocked (dense) kernels, a narrower one the single-pass
+    kernels; a wide Tucker entry's backward is the Tucker backward kernel."""
+    from cirkit_tpu_torch.backend.torch.layers import TorchSumLayer
+    from cirkit_tpu_torch.backend.torch.optimized import TorchCPTLayer, TorchTuckerLayer
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    fwd: dict[str, int] = {}
+    bwd: dict[str, int] = {}
+    for layer in cc.layers:
+        if isinstance(layer, TorchTuckerLayer) and layer.arity == 2:
+            op = "lse_tucker2" + ("_softmax" if layer._logits_slot is not None else "")
+            wide = layer.num_input_units**2 >= L.WIDE_WIDTH
+            keys = (f"{op}_chunked" if wide else op, f"{op}_bwd")
+        elif isinstance(layer, (TorchSumLayer, TorchCPTLayer)):
+            width = layer.num_input_units * (layer.arity if isinstance(layer, TorchSumLayer) else 1)
+            op = "lse_matmul" + ("_softmax" if layer._logits_slot is not None else "")
+            keys = (("lse_matmul_blocked", "lse_matmul_blocked_bwd") if width >= L.WIDE_WIDTH
+                    else (op, f"{op}_bwd"))
+        else:
+            continue
+        fwd[keys[0]] = fwd.get(keys[0], 0) + 1
+        bwd[keys[1]] = bwd.get(keys[1], 0) + 1
+    return fwd, bwd
+
+
+def phase_wide(smi: str) -> dict[str, int]:
+    """The K=128 Tucker flagship through the wide kernels, one WIDE_RUNS entry
+    at a time (each store is 13.2 GB); returns each kernel's launches over the
+    counted (main-path) calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import IntegrateQuery, MAPQuery, SamplingQuery
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTuckerLayer
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import data_parallel_step, split_trainable
+
+    rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
+    x_np = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
+    mask_np = rng.random((BATCH, 784)) < 0.5
+    x = torch.as_tensor(x_np, device=DEV)
+    mask = torch.as_tensor(mask_np, device=DEV)
+    r = QUERY_ROWS
+    xr, mr = torch.as_tensor(x_np[:r]), torch.as_tensor(mask_np[:r])
+    launches = dict.fromkeys(L.LAUNCHES, 0)
+
+    def counted(label, fn, want):
+        """Run ``fn`` once from zeroed counts; its launches must be ``want``."""
+        _zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {op: n for op, n in L.LAUNCHES.items() if n}
+        if got != want:
+            raise AssertionError(f"[wide] {label}: launches {got}, expected {want}")
+        for op, n in got.items():
+            launches[op] += n
+        return out
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    for optimize, em, opt_name in WIDE_RUNS:
+        label = f"K={WIDE_K} tucker optimize={optimize} em_ready={em}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, ctx, cc = _build_flagship("tucker", em, DEV, k=WIDE_K, optimize=optimize)
+        torch.cuda.synchronize()
+        fwd, bwd = _expected_launches(cc)
+        print(f"[wide] {label}: compiled in {time.perf_counter() - t0:.1f} s, "
+              f"{cc.num_parameters()} parameters, {len(cc.layers)} plan entries; launches a "
+              f"forward {fwd}, a backward {bwd}")
+        st = ctx.parameters
+        with torch.inference_mode():
+            out = counted(f"{label} forward", lambda: cc(x), fwd)
+            if out.shape != (BATCH, 1, 1) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"[wide] {label}: output {tuple(out.shape)}, not finite")
+            ms = _median_ms(lambda: cc(x), warmup=2, iters=10)
+            profile = _device_breakdown(lambda: cc(x), 3)
+        print(f"[wide] {label}: forward {ms:.3f} ms median of 10 = {BATCH / ms * 1e3:.1f} "
+              f"samples/s, mean log-likelihood {float(out.mean()):.3f}; peak memory "
+              f"{peak_gb():.2f} GB; profile: {profile} ({smi})")
+        got = {"forward": out[:r, 0, 0]}
+
+        if optimize and not em:  # the queries, counted and timed
+            n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc.layers)
+            route = {"route_tucker2": n_tucker}
+            iq, mq, sq = IntegrateQuery(cc), MAPQuery(cc), SamplingQuery(cc)
+            gen = torch.Generator().manual_seed(0)
+            calls = {
+                "integrate": (lambda: iq(x, integrate_vars=mask, store=st), fwd),
+                "map": (lambda: mq(x, evidence_mask=mask, store=st),
+                        {"tropical_tucker2": n_tucker, **route}),
+                "sample": (lambda: sq(BATCH, generator=gen, store=st), {**fwd, **route}),
+                "conditional": (lambda: sq.conditional(x, evidence_mask=mask, generator=gen,
+                                                       store=st), {**fwd, **route}),
+            }
+            outs = {name: counted(f"{label} {name}", fn, want)
+                    for name, (fn, want) in calls.items()}
+            asg, vals = outs["map"]
+            samples, _ = outs["sample"]
+            csamples, log_ev = outs["conditional"]
+            ok = (bool(outs["integrate"].isfinite().all()) and bool(vals.isfinite().all())
+                  and torch.equal(asg[mask], x[mask].to(asg.dtype))
+                  and torch.equal(csamples[mask], x[mask].to(csamples.dtype))
+                  and bool(log_ev.isfinite().all())
+                  and all(bool(((s_ >= 0) & (s_ <= 255)).all()) for s_ in (asg, samples,
+                                                                            csamples)))
+            if not ok:
+                raise AssertionError(f"[wide] {label}: query outputs wrong")
+            got.update(marginals=outs["integrate"][:r, 0, 0], map=vals[:r])
+            with torch.inference_mode():
+                times = {name: _median_ms(fn, warmup=1, iters=5) for name, (fn, _) in
+                         calls.items()}
+            print(f"[wide] {label}: queries at batch {BATCH}, " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in times.items()) + f" (median of 5); peak memory "
+                f"{peak_gb():.2f} GB ({smi})")
+            del calls, outs, asg, vals, samples, csamples, log_ev, iq, mq, sq
+
+        # QUERY_ROWS rows against the same store in float64 on the CPU
+        t0 = time.perf_counter()
+        cc64, st64 = _f64_reference("tucker", em, st, k=WIDE_K, optimize=optimize)
+        with torch.inference_mode():
+            want = {"forward": cc64(st64, xr)[:, 0, 0]}
+            if "map" in got:
+                want["marginals"] = IntegrateQuery(cc64)(xr, integrate_vars=mr, store=st64)[:, 0, 0]
+                want["map"] = MAPQuery(cc64)(xr, evidence_mask=mr, store=st64)[1]
+        del cc64, st64
+        gc.collect()
+        rels = {}
+        for name, g in got.items():
+            g = g.double().cpu()
+            rels[name] = float(((g - want[name]).abs() / want[name].abs()).max())
+            if not torch.allclose(g, want[name], rtol=1e-5, atol=0.0):
+                raise AssertionError(f"[wide] {label}: {name} off float64 by {rels[name]:.3e}")
+        print(f"[wide] {label}: {r} rows against float64 on the CPU "
+              f"({time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{k} max rel err {v:.2e}" for k, v in rels.items()))
+        del got, want, out
+
+        if opt_name is not None:  # training steps on the store itself
+            torch.cuda.reset_peak_memory_stats()
+            tr, fr = split_trainable(cc, st)
+            opt = (torch.optim.Adam(list(tr.values()), lr=1e-2) if opt_name == "adam"
+                   else torch.optim.SGD(list(tr.values()), lr=SGD_LR))
+            step = data_parallel_step(cc, opt)
+            losses = [float(counted(f"{label} step", lambda: step(tr, fr, x), {**fwd, **bwd}))
+                      for _ in range(STEPS)]
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"[wide] {label}: losses {losses} not finite and decreasing")
+            ms = _median_ms(lambda: step(tr, fr, x), warmup=1, iters=5)
+            print(f"[wide] {label}: {STEPS} {opt_name} steps, NLL {losses[0]:.3f} -> "
+                  f"{losses[-1]:.3f}; step {ms:.3f} ms median of 5 = {BATCH / ms * 1e3:.1f} "
+                  f"samples/s; peak memory {peak_gb():.2f} GB; profile: "
+                  f"{_device_breakdown(lambda: step(tr, fr, x), 2)} ({smi})")
+            del tr, fr, opt, step
+        del ctx, cc, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    used = {op: n for op, n in launches.items() if n}
+    print(f"[wide] launches on the K={WIDE_K} main path: {used}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1012,29 +1371,38 @@ def main() -> int:
     results = phase_kernels()
     results.update(phase_backward())
     results.update(phase_routing())
-    built, launches = phase_slice(smi)
-    launches.update(phase_train(smi, built))
+    # each kernel's launches, summed over the main-path runs of phases 4-8
+    launches = dict.fromkeys(KERNELS, 0)
+    built, fwd = phase_slice(smi)
+    train = phase_train(smi, built)
     phase_profile(smi, built)
-    query_launches = phase_queries(smi, built)
-    launches.update({op: query_launches[op] for op in ROUTE_REPLACES})
-
-    def source(op: str) -> tuple[str, str]:
-        if op in ROUTE_REPLACES:
-            return ROUTE_SOURCE, ROUTE_REPLACES[op]
-        return (BWD_SOURCE, BWD_REPLACES) if op.endswith("_bwd") else (SOURCE, REPLACES)
+    queries = phase_queries(smi, built)
+    del built
+    wide = phase_wide(smi)
+    for counts in (fwd, train, {op: queries[op] for op in ROUTE_OPS}, wide):
+        for op, n in counts.items():
+            launches[op] += n
+    missing = [op for op, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on their main paths: {missing}")
 
     kernels = [
         {
             "name": op,
             "route": "cuda",
-            "source": source(op)[0],
-            "replaces": source(op)[1],
+            "source": source,
+            "replaces": replaces,
             "launches": launches[op],
             "max_abs_err": results[op]["max_abs_err"],
             "ms": results[op]["ms"],
             "plain_ms": results[op]["plain_ms"],
+            "bound_ms": results[op]["bound_ms"],
+            "bound_by": results[op]["bound_by"],
+            # no single PyTorch call computes a log-einsum-exp with linear
+            # weights, a max-plus Tucker or a routing choice
+            "library_ms": None,
         }
-        for op in launches
+        for op, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(

@@ -139,7 +139,7 @@ class TorchCircuit(nn.Module):
         *,
         properties: StructuralProperties,
         semiring: Semiring,
-        device: torch.device | str = "cpu",
+        device: torch.device | str,
     ):
         super().__init__()
         self.scope = scope

@@ -104,7 +104,8 @@ class TorchCompiler(AbstractCompiler):
         semiring: str = "sum-product",
         fold: bool = False,
         optimize: bool = False,
-        device: torch.device | str = "cpu",
+        *,
+        device: torch.device | str,
     ):
         layer_registry = CompilerLayerRegistry()
         for f in DEFAULT_LAYER_COMPILATION_RULES:

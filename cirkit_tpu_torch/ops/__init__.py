@@ -4,6 +4,7 @@ plain PyTorch versions."""
 from cirkit_tpu_torch.ops.lse_einsum import (
     LAUNCHES,
     OPS,
+    WIDE_OPS,
     backward,
     lse_matmul,
     lse_matmul_softmax,
@@ -16,6 +17,7 @@ __all__ = [
     "LAUNCHES",
     "OPS",
     "ROUTING_OPS",
+    "WIDE_OPS",
     "backward",
     "lse_matmul",
     "lse_matmul_softmax",

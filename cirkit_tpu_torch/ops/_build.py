@@ -21,7 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = tuple(
-    _PKG / "csrc" / name for name in ("lse_einsum.cu", "lse_einsum_bwd.cu", "tucker_route.cu")
+    _PKG / "csrc" / name
+    for name in ("lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu")
 )
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "cirkit_tpu_torch"
@@ -47,6 +48,13 @@ _SIGNATURES = {
     "lse_bwd_tucker": ((*(_P,) * 11, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_softmax": ((*(_P,) * 12, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_smem": ((_I, _I), ctypes.c_size_t),
+    # lse_wide.cu: the K1-chunked Tucker forward (as lse_fwd_tucker); the
+    # blocked dense forward (x, w, out, m) and backward (x, w, out, m, g,
+    # dx, dw, gy scratch)
+    "lse_fwd_ct": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "lse_fwd_ct_softmax": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "lse_fwd_blocked": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "lse_bwd_blocked": ((*(_P,) * 8, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     # tucker_route.cu: inputs, output, F, B, K1, K2, O, log_weights (and
     # for the route: sample, seed), device, stream
     "tropical_tucker": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),

@@ -16,12 +16,26 @@ Each op is a ``torch.autograd.Function`` (the counterpart of the JAX
 package's custom VJP ``_fused_p``, ``cirkit_tpu/ops/lse_einsum.py:447-463``)
 around two entries of the hand-written CUDA kernels: the forward in
 ``csrc/lse_einsum.cu`` and the backward in ``csrc/lse_einsum_bwd.cu``.
-Beside each stands a plain PyTorch version: ``*_ref`` for the forward,
-mirroring the JAX package's XLA fallbacks, and ``*_bwd_ref`` for the
-backward, computing exactly the backward kernel's math. An op takes the
+Contractions of width ``WIDE_WIDTH`` or more (I, or K1*K2 for Tucker: the
+K=128 circuits) take the wide kernels of ``csrc/lse_wide.cu`` instead, as
+the JAX package takes its chunked and blocked kernels there:
+
+- the Tucker ops launch the K1-chunked forward (``_ct_fwd_kernel``'s
+  counterpart, with the online softmax) and the backward kernel above;
+- :func:`lse_matmul` launches the blocked forward, which also returns the
+  row max, and the blocked backward that reads it (``_blocked_*``);
+- :func:`lse_matmul_softmax` normalizes the logits with ``torch.softmax``
+  and calls the blocked :func:`lse_matmul`, as the JAX package does
+  (``cirkit_tpu/ops/lse_einsum.py:1620-1622``); autograd takes the
+  softmax's VJP.
+
+Beside each kernel stands a plain PyTorch version: ``*_ref`` for the
+forward, mirroring the JAX package's XLA fallbacks, and ``*_bwd_ref`` for
+the backward, computing exactly the backward kernel's math. An op takes the
 plain versions only for tensors on the CPU; a CUDA tensor gets the kernel
 or an exception. ``LAUNCHES`` counts the op calls that launched a kernel,
-one key per op and one per op's backward (``lse_matmul_bwd``, ...).
+one key per op and one per op's backward (``lse_matmul_bwd``, ...), and one
+per wide forward entry (``WIDE_OPS``) and the blocked backward.
 """
 
 from __future__ import annotations
@@ -31,9 +45,21 @@ import torch
 from cirkit_tpu_torch.ops import _build
 
 OPS = ("lse_matmul", "lse_matmul_softmax", "lse_tucker2", "lse_tucker2_softmax")
-LAUNCHES: dict[str, int] = {name: 0 for op in OPS for name in (op, f"{op}_bwd")}
+WIDE_OPS = ("lse_tucker2_chunked", "lse_tucker2_softmax_chunked", "lse_matmul_blocked")
+"""The forward entries of the wide kernels (the blocked one also has a
+backward, ``lse_matmul_blocked_bwd``)."""
+LAUNCHES: dict[str, int] = {
+    **{name: 0 for op in OPS for name in (op, f"{op}_bwd")},
+    **{op: 0 for op in WIDE_OPS},
+    "lse_matmul_blocked_bwd": 0,
+}
 """Kernel launches per op and per op's backward; a count rises by one only
 where its op launches its kernel."""
+
+WIDE_WIDTH = 8192
+"""The contraction width (I, or K1*K2 for Tucker) from which the ops take the
+wide kernels: the K=128 circuits' 16384 does, the K=64 flagship's 4096 keeps
+the single-pass kernels, as the JAX package chooses on both."""
 
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 _BN, _BM = 64, 128  # the forward kernel's output-unit and batch-row tiles
@@ -83,6 +109,13 @@ def lse_tucker2_softmax_ref(
     return lse_tucker2_ref(x1, x2, torch.softmax(theta, dim=-1))
 
 
+def lse_matmul_blocked_ref(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the blocked forward: :func:`lse_matmul_ref` and
+    the (F, B, 1) clamped row max of ``x`` that the blocked backward reads."""
+    m = _clamp_max(x)
+    return torch.log(torch.bmm(torch.exp(x - m), w.transpose(1, 2))) + m, m
+
+
 # The plain backward versions: the math of the backward kernel (and of the
 # JAX package's ``_bwd_kernel``, ``cirkit_tpu/ops/lse_einsum.py:350-396``).
 # ``needs`` says which gradients to compute, in argument order; the others
@@ -129,6 +162,24 @@ def lse_matmul_softmax_bwd_ref(
     w = torch.softmax(theta, dim=-1)
     dx, dw = lse_matmul_bwd_ref(x, w, out, g, needs)
     return dx, None if dw is None else _softmax_vjp(w, dw)
+
+
+def lse_matmul_blocked_bwd_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    out: torch.Tensor,
+    m: torch.Tensor,
+    g: torch.Tensor,
+    needs: tuple[bool, bool] = (True, True),
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """``(dx, dw)`` of the blocked :func:`lse_matmul` (the math of the JAX
+    package's ``_blocked_bwd_kernel``, ``cirkit_tpu/ops/lse_einsum.py:572``),
+    with the forward's row max ``m`` as the shift."""
+    e = torch.exp(x - m)
+    gy = _gy(g, out, m)
+    dx = e * torch.bmm(gy, w) if needs[0] else None
+    dw = torch.bmm(gy.transpose(1, 2), e) if needs[1] else None
+    return dx, dw
 
 
 def lse_tucker2_bwd_ref(
@@ -241,7 +292,8 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
     dev = _check_cuda(op, ins)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
-    if max(sizes) >= 2**31 or -(-o // _BN) > _MAX_GRID_YZ or -(-b // _BM) > _MAX_GRID_YZ:
+    width = ins[-1].shape[2]  # the kernels index a weight row with an int
+    if max(*sizes, width) >= 2**31 or -(-o // _BN) > _MAX_GRID_YZ or -(-b // _BM) > _MAX_GRID_YZ:
         raise ValueError(f"{op}: sizes {sizes} exceed the kernel's launch grid")
     out = torch.empty((f, b, o), device=dev, dtype=torch.float32)
     if out.numel() == 0:
@@ -273,7 +325,7 @@ def _launch_bwd(
     if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    if tucker and lib.lse_bwd_tucker_smem(*sizes[2:4]) > _MAX_SMEM:
+    if tucker and (needs[0] or needs[1]) and lib.lse_bwd_tucker_smem(*sizes[2:4]) > _MAX_SMEM:
         raise ValueError(f"{op} backward: K1, K2 = {sizes[2:4]} exceed the dx kernel's "
                          "shared memory")
     # scratch: the row shifts, gy, and for softmax the (F, O, I) weights
@@ -296,7 +348,60 @@ def _launch_bwd(
     return grads
 
 
-# op -> (forward entry, backward entry, forward plain version, backward plain version)
+def _launch_blocked_fwd(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the blocked dense forward: the output and the (F, B, 1) row max."""
+    op = "lse_matmul_blocked"
+    dev = _check_cuda(op, (x, w))
+    f, b, i = x.shape
+    o = w.shape[1]
+    # one block per (fold, batch tile, unit tile), counted in one grid axis
+    if max(f, b, i, o) >= 2**31 or f * -(-b // _BM) * -(-o // _BN) >= 2**31:
+        raise ValueError(f"{op}: sizes {(f, b, i, o)} exceed the kernel's launch grid")
+    out = torch.empty((f, b, o), device=dev, dtype=torch.float32)
+    m = torch.empty((f, b, 1), device=dev, dtype=torch.float32)
+    if out.numel() == 0:
+        return out, m
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m.data_ptr(), f, b, i, o, dev.index,
+            stream)
+    _call(_build.library(), "lse_fwd_blocked", op, args)
+    LAUNCHES[op] += 1
+    return out, m
+
+
+def _launch_blocked_bwd(
+    x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+    needs: tuple[bool, bool],
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Allocate the requested gradients and the gy scratch, and launch the
+    blocked dense backward."""
+    op = "lse_matmul_blocked"
+    dev = _check_cuda(f"{op} backward", (x, w, out, m, g))
+    dx, dw = (torch.empty_like(t) if need else None for t, need in zip((x, w), needs))
+    if not any(needs):
+        return dx, dw
+    if out.numel() == 0 or x.numel() == 0:
+        return tuple(None if d is None else d.zero_() for d in (dx, dw))
+    f, b, i = x.shape
+    o = w.shape[1]
+    # gy: one block per (fold, 8 rows); the rest: one per (fold, 64 columns)
+    if (max(f, b, i, o) >= 2**31 or -(-b // _BWD_ROWS) > _MAX_GRID_YZ
+            or f * -(-i // _BWD_DX_COLS) >= 2**31):
+        raise ValueError(f"{op} backward: sizes {(f, b, i, o)} exceed the kernel's launch grid")
+    gy = torch.empty((f, b, o), device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (
+        *(t.data_ptr() for t in (x, w, out, m, g)),
+        *(None if d is None else d.data_ptr() for d in (dx, dw)),
+        gy.data_ptr(), f, b, i, o, dev.index, stream,
+    )
+    _call(_build.library(), "lse_bwd_blocked", f"{op} backward", args)
+    LAUNCHES[f"{op}_bwd"] += 1
+    return dx, dw
+
+
+# op -> (forward entry, backward entry, forward plain version, backward plain
+# version); the K1-chunked Tucker forwards share their op's backward
 _ENTRIES = {
     "lse_matmul": ("lse_fwd_dense", "lse_bwd_dense", lse_matmul_ref, lse_matmul_bwd_ref),
     "lse_matmul_softmax": ("lse_fwd_dense_softmax", "lse_bwd_dense_softmax",
@@ -304,6 +409,8 @@ _ENTRIES = {
     "lse_tucker2": ("lse_fwd_tucker", "lse_bwd_tucker", lse_tucker2_ref, lse_tucker2_bwd_ref),
     "lse_tucker2_softmax": ("lse_fwd_tucker_softmax", "lse_bwd_tucker_softmax",
                             lse_tucker2_softmax_ref, lse_tucker2_softmax_bwd_ref),
+    "lse_tucker2_chunked": ("lse_fwd_ct", None, lse_tucker2_ref, None),
+    "lse_tucker2_softmax_chunked": ("lse_fwd_ct_softmax", None, lse_tucker2_softmax_ref, None),
 }
 
 
@@ -388,19 +495,75 @@ class LseTucker2Softmax(torch.autograd.Function):
         return _backward(ctx, "lse_tucker2_softmax", g)
 
 
+class LseTucker2Chunked(torch.autograd.Function):
+    """The wide :func:`lse_tucker2`: the K1-chunked forward kernel, the
+    backward kernel of :class:`LseTucker2` (the same gradient as the JAX
+    package's ``_ct_p_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, w):
+        return _forward(ctx, "lse_tucker2_chunked", x1, x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, "lse_tucker2", g)
+
+
+class LseTucker2SoftmaxChunked(torch.autograd.Function):
+    """The wide :func:`lse_tucker2_softmax`: the K1-chunked forward kernel
+    with its online softmax, the backward kernel of :class:`LseTucker2Softmax`."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, theta):
+        return _forward(ctx, "lse_tucker2_softmax_chunked", x1, x2, theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, "lse_tucker2_softmax", g)
+
+
+class LseMatmulBlocked(torch.autograd.Function):
+    """The wide :func:`lse_matmul`: the blocked forward saves the row max it
+    returns for the blocked backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        out, m = lse_matmul_blocked_ref(x, w) if _on_cpu(x, w) else _launch_blocked_fwd(x, w)
+        ctx.save_for_backward(x, w, out, m)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out, m = ctx.saved_tensors
+        g = g.contiguous()
+        needs = tuple(ctx.needs_input_grad)
+        if _on_cpu(x, w, out, m, g):
+            return lse_matmul_blocked_bwd_ref(x, w, out, m, g, needs)
+        return _launch_blocked_bwd(x, w, out, m, g, needs)
+
+
+def _wide(width: int) -> bool:
+    return width >= WIDE_WIDTH
+
+
 def lse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Fused ``log(exp(x - max) @ w^T) + max`` over the trailing axis.
 
     ``x``: (F, B, I) log-space values; ``w``: (F, O, I) linear-space weights.
     Returns (F, B, O) log-space values."""
     _check_dense(x, w)
+    if _wide(x.shape[2]):
+        return LseMatmulBlocked.apply(x, w)
     return LseMatmul.apply(x, w)
 
 
 def lse_matmul_softmax(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """:func:`lse_matmul` with ``w = softmax(theta, axis=-1)`` fused into the
-    kernel: the normalized weights are never stored."""
+    kernel: the normalized weights are never stored. At wide I the weights
+    are normalized first and go through the blocked kernels."""
     _check_dense(x, theta)
+    if _wide(x.shape[2]):
+        return lse_matmul(x, torch.softmax(theta, dim=-1))
     return LseMatmulSoftmax.apply(x, theta)
 
 
@@ -411,6 +574,8 @@ def lse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Te
     (F, O, K1*K2) linear-space core weight, flattened row-major over (K1, K2).
     Returns (F, B, O) log-space values."""
     _check_tucker(x1, x2, w)
+    if _wide(w.shape[2]):
+        return LseTucker2Chunked.apply(x1, x2, w)
     return LseTucker2.apply(x1, x2, w)
 
 
@@ -420,4 +585,6 @@ def lse_tucker2_softmax(
     """:func:`lse_tucker2` with ``w = softmax(theta, axis=-1)`` fused into
     the kernel (see :func:`lse_matmul_softmax`)."""
     _check_tucker(x1, x2, theta)
+    if _wide(theta.shape[2]):
+        return LseTucker2SoftmaxChunked.apply(x1, x2, theta)
     return LseTucker2Softmax.apply(x1, x2, theta)

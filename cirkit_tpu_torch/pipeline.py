@@ -25,7 +25,10 @@ from cirkit_tpu_torch.utils.checkpoint import store_from_numpy
 
 class PipelineContext:
     """Compilation context: backend flags, the device, and the shared
-    parameter store, initialized on the device from a seeded generator."""
+    parameter store, initialized on the device from a seeded generator.
+
+    The device is the CUDA card unless ``device`` says otherwise; without a
+    card, construction raises unless ``device="cpu"`` is passed."""
 
     def __init__(
         self,
@@ -33,10 +36,15 @@ class PipelineContext:
         semiring: str = "sum-product",
         fold: bool = False,
         optimize: bool = False,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         seed: int = 42,
     ) -> None:
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PipelineContext: no CUDA device is available; pass device=\"cpu\" to run "
+                "on the CPU"
+            )
         self._compiler = TorchCompiler(
             semiring=semiring, fold=fold, optimize=optimize, device=self.device
         )

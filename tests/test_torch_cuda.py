@@ -11,9 +11,12 @@ another order than cuBLAS); each backward entry against its plain version
 sums of up to B or O*K2 terms). The max-product Tucker kernel is held
 against its plain version to ``1e-5 |plain| + 1e-5``, the routing choice
 by the plain score of the index it picks, and the routing draws by their
-frequencies against ``softmax(scores)``. A small circuit's forward, its
-gradients and its queries through the kernels are held against the same
-store evaluated in float64 on the CPU.
+frequencies against ``softmax(scores)``. The wide kernels (the K1-chunked
+Tucker forward, the blocked dense forward and backward) are held against
+their plain versions with the same bounds, at small widths with
+``WIDE_WIDTH`` patched down and at the K=128 entry shapes. A small
+circuit's forward, its gradients and its queries through the kernels are
+held against the same store evaluated in float64 on the CPU.
 """
 
 import numpy as np
@@ -336,3 +339,133 @@ def test_small_circuit_queries_through_the_kernels():
     np.testing.assert_array_equal(s[mask], x[mask])
     assert ((s >= 0) & (s <= 255)).all()
     assert T.LAUNCHES["route_tucker2"] == 2 * n_tucker
+
+
+# --------------------------------------------------------------------------- #
+# The wide kernels (csrc/lse_wide.cu)
+# --------------------------------------------------------------------------- #
+
+
+def _fwd_close(out, ref):
+    """The forward bound, with the same -inf pattern and no NaN."""
+    assert out.shape == ref.shape and not torch.isnan(out).any()
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    finite = torch.isfinite(ref)
+    err = (out[finite] - ref[finite]).abs()
+    assert bool((err <= 1e-4 + 1e-5 * ref[finite].abs()).all()), float(err.max())
+
+
+# (F, B, K1, K2, O): one K1-chunk of 512 columns or several (K2=16: two of
+# 32 rows; K2=24: 21 rows and a ragged 19; K2=600: one row a chunk)
+CHUNKED_CASES = [(3, 8, 64, 16, 16), (3, 13, 9, 5, 1), (2, 130, 40, 24, 70), (1, 8, 3, 600, 9)]
+
+
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+@pytest.mark.parametrize("f,b,k1,k2,o", CHUNKED_CASES)
+def test_chunked_tucker_kernel_matches_plain(op, f, b, k1, k2, o, monkeypatch):
+    """The K1-chunked Tucker forward against its plain version, with a row
+    that is all -inf and a first chunk of logits that is all -inf (zero
+    weights without softmax); the backward is the Tucker backward kernel,
+    whose dx kernel takes K1 + K2 up to about 400 (beyond, only dw)."""
+    monkeypatch.setattr(T, "WIDE_WIDTH", 1)
+    ins = _inputs(op, f, b, o, k1=k1, k2=k2)
+    ins[0][0, 2] = float("-inf")
+    chunk = max(1, 512 // k2) * k2
+    if chunk < k1 * k2:  # not the whole row: its softmax would be NaN
+        ins[-1][0, 0, :chunk] = float("-inf") if "softmax" in op else 0.0
+    dx = k1 + k2 < 400
+    ins = [t.requires_grad_(dx or k == 2) for k, t in enumerate(ins)]
+    out = getattr(T, op)(*ins)
+    with torch.no_grad():
+        ref = getattr(T, f"{op}_ref")(*ins)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}_chunked"] == 1 and T.LAUNCHES[op] == 0
+    _fwd_close(out.detach(), ref)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    needs = (dx, dx, True)
+    grads = torch.autograd.grad(out, [t for t in ins if t.requires_grad], g)
+    with torch.no_grad():
+        refs = [r for r in getattr(T, f"{op}_bwd_ref")(*ins, out, g, needs) if r is not None]
+    assert T.LAUNCHES[f"{op}_bwd"] == 1
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        _close(got, r, zeros=k < len(refs) - 1)
+
+
+# (F, B, I, O): I a multiple of the 256-column chunk or not, ragged B, O=1
+BLOCKED_CASES = [(3, 8, 1000, 16), (3, 13, 300, 1), (2, 130, 777, 70), (1, 5, 512, 64)]
+
+
+@pytest.mark.parametrize("f,b,i,o", BLOCKED_CASES)
+def test_blocked_kernels_match_plain(f, b, i, o, monkeypatch):
+    """The blocked forward (out and its row max) and backward against their
+    plain versions, with a row that is all -inf, a row whose first chunk is
+    all -inf and a row whose cotangent is 0; the backward twice, equal."""
+    monkeypatch.setattr(T, "WIDE_WIDTH", 1)
+    x, w = _inputs("lse_matmul", f, b, o, i=i)
+    x[0, 2] = float("-inf")
+    x[-1, 1, :256] = float("-inf")
+    with torch.no_grad():
+        ref, ref_m = T.lse_matmul_blocked_ref(x, w)
+        got, got_m = T._launch_blocked_fwd(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, ref_m)
+    _fwd_close(got, ref)
+    x, w = x.requires_grad_(), w.requires_grad_()
+    out = T.lse_matmul(x, w)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[0, 1] = 0.0
+    grads = torch.autograd.grad(out, [x, w], g, retain_graph=True)
+    again = torch.autograd.grad(out, [x, w], g)
+    with torch.no_grad():
+        refs = T.lse_matmul_blocked_bwd_ref(x, w, out, ref_m, g)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["lse_matmul_blocked"] == 2 and T.LAUNCHES["lse_matmul"] == 0
+    assert T.LAUNCHES["lse_matmul_blocked_bwd"] == 2
+    for k, (a, r) in enumerate(zip(grads, refs)):
+        _close(a, r, zeros=k == 0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    assert (grads[0][0, 2] == 0).all() and (grads[0][0, 1] == 0).all()
+
+
+def test_wide_softmax_matmul_normalizes_then_takes_the_blocked_kernels(monkeypatch):
+    monkeypatch.setattr(T, "WIDE_WIDTH", 1)
+    x, th = [t.requires_grad_() for t in _inputs("lse_matmul_softmax", 2, 8, 16, i=300)]
+    out = T.lse_matmul_softmax(x, th)
+    _fwd_close(out.detach(), T.lse_matmul_softmax_ref(x, th).detach())
+    out.sum().backward()
+    assert T.LAUNCHES["lse_matmul_blocked"] == T.LAUNCHES["lse_matmul_blocked_bwd"] == 1
+    assert T.LAUNCHES["lse_matmul_softmax"] == T.LAUNCHES["lse_matmul_softmax_bwd"] == 0
+    with torch.no_grad():
+        ref = T.lse_matmul_softmax_bwd_ref(x, th, out, torch.ones_like(out))
+    _close(x.grad, ref[0], zeros=True)
+    _close(th.grad, ref[1])
+
+
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax", "lse_matmul"])
+def test_wide_kernels_at_the_k128_entry_shapes(op):
+    """Once at the K=128 entries (F=784, B=128, K1=K2=O=128; dense I=16384),
+    where WIDE_WIDTH routes them unpatched: the wide forward and its
+    backward (the Tucker backward kernel, or the blocked one) against
+    their plain versions."""
+    f, b, k = 784, 128, 128
+    ins = _inputs(op, f, b, k, k1=k, k2=k, i=k * k)
+    out = getattr(T, op)(*ins)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    if op == "lse_matmul":
+        ref, m = T.lse_matmul_blocked_ref(*ins)
+        _fwd_close(out, ref)
+        del ref
+        grads = T._launch_blocked_bwd(*ins, out, m, g, (True, True))
+        refs = T.lse_matmul_blocked_bwd_ref(*ins, out, m, g)
+    else:
+        _fwd_close(out, getattr(T, f"{op}_ref")(*ins))
+        grads = T.backward(op, tuple(ins), out, g)
+        refs = getattr(T, f"{op}_bwd_ref")(*ins, out, g)
+    torch.cuda.synchronize()
+    fwd_key = "lse_matmul_blocked" if op == "lse_matmul" else f"{op}_chunked"
+    assert T.LAUNCHES[fwd_key] == 1 and T.LAUNCHES[op] == 0
+    for a, r in zip(grads, refs):
+        _close(a, r)
