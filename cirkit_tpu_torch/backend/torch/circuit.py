@@ -9,6 +9,12 @@ buffers of the module, so ``.to(device)`` moves them.
 Parameters live in a *store*, a mapping from slot name to an ``(F, ...)``
 tensor (the pipeline context keeps it as an ``nn.ParameterDict``), with the
 same slot names as the JAX package's store.
+
+A value of the plan is a tensor, or under the signed semiring a
+``(log|f|, sign)`` pair of tensors: every gather, concatenation and
+transpose maps over the pair (:func:`tmap`), and the outputs are pairs too.
+Constant input layers (the integrals of a circuit's leaves) take the batch
+size instead of a data slice.
 """
 
 from __future__ import annotations
@@ -20,7 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from cirkit_tpu_torch.backend.torch.layers import TorchInputLayer, TorchLayer
+from cirkit_tpu_torch.backend.torch.layers import (
+    TorchConstantInputLayer,
+    TorchInputLayer,
+    TorchLayer,
+    tmap,
+)
 from cirkit_tpu_torch.backend.torch.parameters import (
     Store,
     TorchPointerSlot,
@@ -35,6 +46,8 @@ from cirkit_tpu_torch.utils.scope import Scope
 FoldInputs = list[list[tuple[int, int]]]
 # A per-layer evaluation override: (layer, store, layer input) -> output.
 ModuleFn = Callable[[TorchLayer, Store, torch.Tensor], torch.Tensor]
+# A plan value: a tensor, or the signed semiring's (log|f|, sign) pair.
+Value = torch.Tensor | tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclass
@@ -44,12 +57,14 @@ class PlanEntry:
     Inner layers read the fold-concatenation of their producers' outputs
     (``in_ids``) through the (F, H) gather buffer ``gather`` (None for the
     identity unsqueeze). Input layers read the data columns through the
-    (F, D) buffer ``gather`` (None when the layer takes every variable in
-    order, a plain transpose)."""
+    (F, D) buffer ``gather``, or with a plain transpose when ``identity``
+    (the layer takes variable f at fold f) and the data has F columns;
+    constant input layers read the batch size."""
 
     layer: TorchLayer
     in_ids: list[int]
     gather: str | None
+    identity: bool = False
 
 
 def _build_gather(
@@ -157,13 +172,13 @@ class TorchCircuit(nn.Module):
         layer_folds = {i: l.num_folds for i, l in enumerate(self.layers)}
         self._entries: list[PlanEntry] = []
         for i, layer in enumerate(self.layers):
+            if isinstance(layer, TorchConstantInputLayer):
+                self._entries.append(PlanEntry(layer, [], None))
+                continue
             if isinstance(layer, TorchInputLayer):
                 si = layer.scope_idx
-                identity = si.shape[1] == 1 and np.array_equal(
-                    si[:, 0], np.arange(num_variables)
-                )
-                gather = None if identity else buffer(f"_scope_idx_{i}", si)
-                self._entries.append(PlanEntry(layer, [], gather))
+                identity = si.shape[1] == 1 and np.array_equal(si[:, 0], np.arange(len(si)))
+                self._entries.append(PlanEntry(layer, [], buffer(f"_scope_idx_{i}", si), identity))
                 continue
             in_ids, fold_idx = _build_gather(fold_inputs[i], layer_folds)
             gather = None if fold_idx is None else buffer(f"_fold_idx_{i}", fold_idx)
@@ -241,43 +256,55 @@ class TorchCircuit(nn.Module):
     # -- evaluation --------------------------------------------------------------
     def evaluate(
         self, store: Store, x: torch.Tensor, *, module_fn: ModuleFn | None = None
-    ) -> torch.Tensor:
-        """Run the plan: (B, D) inputs -> (B, O, K) outputs. ``module_fn(layer,
-        store, xin)`` overrides per-layer evaluation (the hook of the
-        queries)."""
-        return self.evaluate_raw(store, x, module_fn=module_fn).transpose(0, 1)
+    ) -> Value:
+        """Run the plan: (B, D) inputs -> (B, O, K) outputs (a pair of them
+        under the signed semiring). ``module_fn(layer, store, xin)``
+        overrides per-layer evaluation (the hook of the queries)."""
+        return tmap(lambda o: o.transpose(0, 1), self.evaluate_raw(store, x, module_fn=module_fn))
 
-    def entry_input(self, entry: PlanEntry, x: torch.Tensor, outs: Sequence[torch.Tensor]):
-        """What the plan hands ``entry``'s layer: the (F, B, D) data slice of
-        an input layer, or the (F, H, B, K) gather of an inner layer's
-        producers from the outputs ``outs`` of the entries before it."""
+    def entry_input(self, entry: PlanEntry, x: torch.Tensor, outs: Sequence[Value]):
+        """What the plan hands ``entry``'s layer: the batch size for a
+        constant input layer, the (F, B, D) data slice of an input layer, or
+        the (F, H, B, K) gather of an inner layer's producers from the
+        outputs ``outs`` of the entries before it."""
+        if isinstance(entry.layer, TorchConstantInputLayer):
+            return x.shape[0]
         if isinstance(entry.layer, TorchInputLayer):
-            # (B, D_total) -> (F, B, D) via the static scope gather
-            if entry.gather is None:
+            # (B, D_total) -> (F, B, D) via the static scope gather; a
+            # plain transpose when the layer takes every column in order
+            if entry.identity and x.shape[1] == entry.layer.num_folds:
                 return x.t()[:, :, None]
             return x[:, getattr(self, entry.gather)].permute(1, 0, 2)
-        ins = [outs[i] for i in entry.in_ids]
-        cat = ins[0] if len(ins) == 1 else torch.cat(ins, dim=0)
-        return cat[:, None] if entry.gather is None else cat[getattr(self, entry.gather)]
+        cat = self._concat([outs[i] for i in entry.in_ids])
+        if entry.gather is None:
+            return tmap(lambda c: c[:, None], cat)
+        idx = getattr(self, entry.gather)
+        return tmap(lambda c: c[idx], cat)
 
-    def output_stack(self, outs: Sequence[torch.Tensor]) -> torch.Tensor:
+    @staticmethod
+    def _concat(ins: Sequence[Value]) -> Value:
+        return ins[0] if len(ins) == 1 else tmap(lambda *a: torch.cat(a, dim=0), *ins)
+
+    def output_stack(self, outs: Sequence[Value]) -> Value:
         """The (O, B, K) output stack from the entries' outputs."""
-        ins = [outs[i] for i in self._out_ids]
-        cat = ins[0] if len(ins) == 1 else torch.cat(ins, dim=0)
-        return cat if self._out_gather is None else cat[getattr(self, self._out_gather)]
+        cat = self._concat([outs[i] for i in self._out_ids])
+        if self._out_gather is None:
+            return cat
+        idx = getattr(self, self._out_gather)
+        return tmap(lambda c: c[idx], cat)
 
     def evaluate_raw(
         self, store: Store, x: torch.Tensor, *, module_fn: ModuleFn | None = None
-    ) -> torch.Tensor:
+    ) -> Value:
         """Run the plan returning the raw output stack (O, B, K)."""
-        outs: list[torch.Tensor] = []
+        outs: list[Value] = []
         for entry in self._entries:
             xin = self.entry_input(entry, x, outs)
             layer = entry.layer
             outs.append(layer(store, xin) if module_fn is None else module_fn(layer, store, xin))
         return self.output_stack(outs)
 
-    def forward(self, *args) -> torch.Tensor:
+    def forward(self, *args) -> Value:
         """``cc(store, x)``, or ``cc(x)`` using the pipeline context's store."""
         if len(args) == 2:
             store, x = args

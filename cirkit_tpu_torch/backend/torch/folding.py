@@ -19,7 +19,11 @@ from collections.abc import Callable, Mapping, Sequence
 
 import numpy as np
 
-from cirkit_tpu_torch.backend.torch.layers import TorchInputLayer, TorchLayer
+from cirkit_tpu_torch.backend.torch.layers import (
+    TorchConstantInputLayer,
+    TorchInputLayer,
+    TorchLayer,
+)
 from cirkit_tpu_torch.backend.torch.parameters import (
     TorchParameter,
     TorchParameterNode,
@@ -94,6 +98,9 @@ def _fold_layer_group(
         kwargs[name] = fold_parameters(
             [l.params[name] for l in group], alloc_slot, slot_remap
         )
+    if isinstance(proto, TorchConstantInputLayer):
+        # constant input layers construct their own empty scope index
+        return type(proto)(**kwargs, num_folds=num_folds, semiring=proto.semiring)
     if isinstance(proto, TorchInputLayer):
         scope_idx = np.concatenate([l.scope_idx for l in group], axis=0)
         return type(proto)(scope_idx, **kwargs, num_folds=num_folds, semiring=proto.semiring)

@@ -1,13 +1,18 @@
 """Compiled layers for the PyTorch backend.
 
-The counterpart of ``cirkit_tpu/backend/jax/layers.py:45-283, 416-504``:
-layers are ``nn.Module``s whose forward reads parameters from the store.
+The counterpart of ``cirkit_tpu/backend/jax/layers.py:45-283, 395-504,
+880-908``: layers are ``nn.Module``s whose forward reads parameters from the
+store.
 
 - inner layers:  ``forward(store, x)`` with ``x: (F, H, B, Ki) -> (F, B, Ko)``
 - input layers:  ``forward(store, x)`` with ``x: (F, B, D)  -> (F, B, K)``
+- constant layers: ``forward(store, batch_size)``
 
 F is the fold axis (homogeneous layers vectorized into one kernel launch),
-H the arity, B the batch.
+H the arity, B the batch. A semiring value is a tensor, or under the signed
+semiring a ``(log|f|, sign)`` pair of tensors; shape operations go through
+:func:`tmap`. The evidence and polynomial layers and the other input
+layers are not ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +37,14 @@ from cirkit_tpu_torch.backend.torch.semiring import (
     SumProductSemiring,
 )
 from cirkit_tpu_torch.ops.routing import gumbel_argmax
+
+
+def tmap(fn, *vs):
+    """``fn`` applied to semiring values: to the tensors themselves, or to
+    each component of the signed semiring's (log-magnitude, sign) pairs."""
+    if isinstance(vs[0], torch.Tensor):
+        return fn(*vs)
+    return tuple(fn(*parts) for parts in zip(*vs))
 
 
 def softmax_logits_slot(param: TorchParameter) -> str | None:
@@ -138,10 +151,13 @@ class TorchKroneckerLayer(TorchInnerLayer):
         return {"num_input_units": self.num_input_units, "arity": self.arity}
 
     def forward(self, store: Store, x) -> torch.Tensor:
-        out = x[:, 0]  # (F, B, Ki)
+        out = tmap(lambda a: a[:, 0], x)  # (F, B, Ki)
         for h in range(1, self.arity):
-            out = self.semiring.mul(out[..., :, None], x[:, h][..., None, :])
-            out = out.reshape(out.shape[0], out.shape[1], -1)
+            out = self.semiring.mul(
+                tmap(lambda a: a[..., :, None], out),
+                tmap(lambda a: a[:, h][..., None, :], x),
+            )
+            out = tmap(lambda a: a.reshape(a.shape[0], a.shape[1], -1), out)
         return out
 
 
@@ -183,8 +199,11 @@ class TorchSumLayer(TorchInnerLayer):
         return {"weight": self.weight}
 
     def forward(self, store: Store, x) -> torch.Tensor:
-        f, h, b, ki = x.shape
-        x = x.transpose(1, 2).reshape(f, b, h * ki)
+        def flat(a):
+            f, h, b, ki = a.shape
+            return a.transpose(1, 2).reshape(f, b, h * ki)
+
+        x = tmap(flat, x)
         if self._logits_slot is not None:
             # Softmax-parameterized weights: the normalization runs inside
             # the contraction kernel; (F, Ko, H*Ki) is never materialized.
@@ -248,6 +267,49 @@ class TorchInputLayer(TorchLayer, ABC):
         conditional sampling's downward pass: one unit per (fold, sample) is
         on the parse, so the other K - 1 units are never drawn."""
         raise TypeError(f"Sampling is not supported for {type(self).__name__}")
+
+
+class TorchConstantInputLayer(TorchInputLayer, ABC):
+    """An input layer over the empty scope: forward takes the batch size."""
+
+    def __init__(self, num_output_units: int, *, num_folds: int = 1, semiring=None):
+        super().__init__(
+            np.empty((num_folds, 0), dtype=np.int64),
+            num_output_units,
+            num_folds=num_folds,
+            semiring=semiring,
+        )
+
+
+class TorchConstantValueLayer(TorchConstantInputLayer):
+    """A constant vector, possibly encoded in log-space."""
+
+    def __init__(
+        self,
+        num_output_units: int,
+        *,
+        log_space: bool = False,
+        value: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(num_output_units, num_folds=num_folds, semiring=semiring)
+        self.value = value
+        self.log_space = log_space
+        self._source = LSESumSemiring if log_space else SumProductSemiring
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_output_units": self.num_output_units, "log_space": self.log_space}
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"value": self.value}
+
+    def forward(self, store: Store, batch_size: int) -> torch.Tensor:
+        v = self.value(store)  # (F, K)
+        v = v[:, None, :].expand(v.shape[0], batch_size, v.shape[1])
+        return self.semiring.map_from(v, self._source)
 
 
 class TorchExpFamilyLayer(TorchInputLayer, ABC):

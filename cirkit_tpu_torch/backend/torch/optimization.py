@@ -6,11 +6,11 @@ run before folding.
 
 - fuse rules: sum-collapse (sum of sum -> one sum with matmul'd weights),
   Tucker (sum of Kronecker -> one einsum), CP-T (sum of Hadamard).
+- shatter rules: a dense sum (or tensor-dot) whose weight graph outputs a
+  Kronecker product splits into two tensor-dot layers, reducing O(K^2)
+  contractions to O(K sqrt(K)) (the sum layers of a squared circuit).
 - parameter rules: log(softmax(x)) -> log_softmax(x); reduce-sum of an
   outer product -> a single einsum (never materializing the outer tensor).
-- shatter rules (Kronecker-parameterized dense sums split into two
-  tensor-dot layers) are not ported yet: the registry starts empty, and
-  the Kronecker parameter they match on does not compile yet.
 
 Patterns are linear chains matched root-to-input on layer types with config
 constraints and optional per-parameter sub-patterns; registries make the
@@ -31,7 +31,11 @@ from cirkit_tpu_torch.backend.torch.layers import (
     TorchLayer,
     TorchSumLayer,
 )
-from cirkit_tpu_torch.backend.torch.optimized import TorchCPTLayer, TorchTuckerLayer
+from cirkit_tpu_torch.backend.torch.optimized import (
+    TorchCPTLayer,
+    TorchTensorDotLayer,
+    TorchTuckerLayer,
+)
 from cirkit_tpu_torch.backend.torch.parameters import TorchParameter, TorchParameterNode
 from cirkit_tpu_torch.utils.algorithms import topological_ordering
 
@@ -88,6 +92,9 @@ ParameterOptApplyFunc = Callable[
 ]
 
 
+KroneckerOutParameterPattern = ParameterOptPattern(
+    entries=(tp.TorchKroneckerParameter,), output_only=True
+)
 LogSoftmaxPattern = ParameterOptPattern(
     entries=(tp.TorchLogParameter, tp.TorchSoftmaxParameter)
 )
@@ -104,6 +111,17 @@ TuckerPattern = LayerOptPattern(
 CandecompPattern = LayerOptPattern(
     entries=(TorchSumLayer, TorchHadamardLayer), configs=({"arity": 1}, {})
 )
+DenseKroneckerPattern = LayerOptPattern(
+    entries=(TorchSumLayer,),
+    configs=({"arity": 1},),
+    param_patterns=({"weight": KroneckerOutParameterPattern},),
+)
+TensorDotKroneckerPattern = LayerOptPattern(
+    entries=(TorchTensorDotLayer,),
+    configs=({},),
+    param_patterns=({"weight": KroneckerOutParameterPattern},),
+)
+
 # --------------------------------------------------------------------------- #
 # Matching
 # --------------------------------------------------------------------------- #
@@ -230,6 +248,52 @@ def apply_candecomp(compiler: "TorchCompiler", match: LayerOptMatch) -> tuple[To
     )
 
 
+def _apply_tensordot_rule(
+    compiler: "TorchCompiler",
+    num_input_units: int,
+    num_output_units: int,
+    weight: TorchParameter,
+    kronecker: tp.TorchKroneckerParameter,
+) -> tuple[TorchLayer, ...]:
+    """Shatter W = A (x) B into two tensor-dot contractions."""
+    in1, in2 = weight.node_inputs(kronecker)
+    weight1 = _parameter_subgraph(weight, in1)
+    weight2 = _parameter_subgraph(weight, in2)
+    num_inner = weight1.shape[0] * (num_input_units // weight1.shape[1])
+    tdot1 = TorchTensorDotLayer(
+        num_input_units, num_inner, weight=weight1, semiring=compiler.semiring
+    )
+    tdot2 = TorchTensorDotLayer(
+        num_inner, num_output_units, weight=weight2, semiring=compiler.semiring
+    )
+    return tdot1, tdot2
+
+
+def _parameter_subgraph(graph: TorchParameter, root: TorchParameterNode) -> TorchParameter:
+    sub = graph.subgraph(root)
+    return TorchParameter(sub.nodes, sub.nodes_inputs, [root])
+
+
+def apply_dense_tensordot(
+    compiler: "TorchCompiler", match: LayerOptMatch
+) -> tuple[TorchLayer, ...]:
+    dense = match.entries[0]
+    kron = match.sub_entries[0]["weight"].entries[0]
+    return _apply_tensordot_rule(
+        compiler, dense.num_input_units, dense.num_output_units, dense.weight, kron
+    )
+
+
+def apply_tensordot_tensordot(
+    compiler: "TorchCompiler", match: LayerOptMatch
+) -> tuple[TorchLayer, ...]:
+    tdot = match.entries[0]
+    kron = match.sub_entries[0]["weight"].entries[0]
+    return _apply_tensordot_rule(
+        compiler, tdot.num_input_units, tdot.num_output_units, tdot.weight, kron
+    )
+
+
 def apply_log_softmax(
     compiler: "TorchCompiler", match: ParameterOptMatch
 ) -> tuple[TorchParameterNode, ...]:
@@ -289,7 +353,10 @@ DEFAULT_LAYER_FUSE_OPT_RULES: dict[LayerOptPattern, LayerOptApplyFunc] = {
     TuckerPattern: apply_tucker,
     CandecompPattern: apply_candecomp,
 }
-DEFAULT_LAYER_SHATTER_OPT_RULES: dict[LayerOptPattern, LayerOptApplyFunc] = {}
+DEFAULT_LAYER_SHATTER_OPT_RULES: dict[LayerOptPattern, LayerOptApplyFunc] = {
+    DenseKroneckerPattern: apply_dense_tensordot,
+    TensorDotKroneckerPattern: apply_tensordot_tensordot,
+}
 
 
 class OptimizationRuleRegistry:

@@ -1,10 +1,11 @@
-"""Fusion-target layers: Tucker and CP-transposed.
+"""Fusion-target layers: Tucker, CP-transposed and TensorDot.
 
-The counterpart of ``cirkit_tpu/backend/jax/optimized.py:23-141``: the
+The counterpart of ``cirkit_tpu/backend/jax/optimized.py:23-211``: the
 layers the optimizer rewrites into. Tucker contracts the arity inputs
 against the core weight in one semiring einsum (never materializing the
-Kronecker product); CP-T Hadamard-reduces then contracts. The TensorDot
-layer of the shatter rewrites is not ported yet.
+Kronecker product); CP-T Hadamard-reduces then contracts; TensorDot is one
+side of the two-sided contraction that the shatter rewrites split a
+Kronecker-parameterized dense sum into (a squared circuit's sum layers).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any
 
 import torch
 
-from cirkit_tpu_torch.backend.torch.layers import TorchInnerLayer, softmax_logits_slot
+from cirkit_tpu_torch.backend.torch.layers import TorchInnerLayer, softmax_logits_slot, tmap
 from cirkit_tpu_torch.backend.torch.parameters import Store, TorchParameter
 
 
@@ -63,13 +64,14 @@ class TorchTuckerLayer(TorchInnerLayer):
         if self.arity == 2:
             # The hot configuration: the fused contraction kernel, with the
             # softmax reparameterization folded into it.
-            x1, x2 = x[:, 0], x[:, 1]
+            x1 = tmap(lambda a: a[:, 0], x)
+            x2 = tmap(lambda a: a[:, 1], x)
             if self._logits_slot is not None:
                 return self.semiring.tucker2_softmax(x1, x2, store[self._logits_slot])
             return self.semiring.tucker2(x1, x2, self.weight(store))
         w = self.weight(store)  # (F, Ko, Ki^arity)
         w = w.reshape(-1, self.num_output_units, *(self.num_input_units,) * self.arity)
-        inputs = tuple(x[:, h] for h in range(self.arity))
+        inputs = tuple(tmap(lambda a, hh=h: a[:, hh], x) for h in range(self.arity))
         return self.semiring.einsum(
             self._einsum, inputs=inputs, operands=(w,), dim=-1, keepdim=True
         )
@@ -113,3 +115,57 @@ class TorchCPTLayer(TorchInnerLayer):
         if self._logits_slot is not None:
             return self.semiring.matmul_softmax(x, store[self._logits_slot])
         return self.semiring.matmul(x, self.weight(store))
+
+
+class TorchTensorDotLayer(TorchInnerLayer):
+    """One side of the two-sided contraction: reshape (B, Ki) into (B, Kj,
+    Kq) and contract Kj against a (F, Kk, Kj) weight, flattening (Kq, Kk)
+    back into the unit axis."""
+
+    def __init__(
+        self,
+        num_input_units: int,
+        num_output_units: int,
+        *,
+        weight: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(
+            num_input_units, num_output_units, arity=1, num_folds=num_folds, semiring=semiring
+        )
+        kk, kj = weight.shape
+        if num_input_units % kj or num_output_units != kk * (num_input_units // kj):
+            raise ValueError(
+                f"Invalid TensorDot weight shape {weight.shape} for "
+                f"Ki={num_input_units}, Ko={num_output_units}"
+            )
+        self.weight = weight
+        self._num_contract_units = kj
+        self._num_batch_units = num_input_units // kj
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {
+            "num_input_units": self.num_input_units,
+            "num_output_units": self.num_output_units,
+        }
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"weight": self.weight}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        kq = self._num_batch_units
+
+        def fold_in(a):
+            a = a[:, 0]  # (F, B, Ki)
+            f, b, _ = a.shape
+            a = a.reshape(f, b, self._num_contract_units, kq).transpose(2, 3)  # (F, B, Kq, Kj)
+            return a.reshape(f, b * kq, -1)
+
+        b = (x if isinstance(x, torch.Tensor) else x[0]).shape[2]
+        # Fold the Kq axis into the batch so the contraction is the fused
+        # semiring matmul: (F, B*Kq, Kj) x (F, Kk, Kj) -> (F, B*Kq, Kk).
+        y = self.semiring.matmul(tmap(fold_in, x), self.weight(store))
+        return tmap(lambda a: a.reshape(a.shape[0], b, self.num_output_units), y)

@@ -9,8 +9,10 @@ a group of structurally-identical graphs concatenates along F (see
 
 This module carries the nodes the flagship circuits build (tensor and
 pointer slots, softmax, log-softmax, mixing weights, and the matmul, einsum
-and flatten nodes the graph rewrites emit) plus the log, reduce-sum and
-outer-product nodes the parameter rewrites match on. The compiler rules
+and flatten nodes the graph rewrites emit), the log, reduce-sum and
+outer-product nodes the parameter rewrites match on, and the nodes the
+circuit operators emit for squared circuits and their integrals (Kronecker,
+conjugate, outer-sum, reduce-log-sum-exp and index). The compiler rules
 raise ``NotImplementedError`` for the other symbolic parameter nodes.
 """
 
@@ -237,6 +239,59 @@ class _AxisOp(TorchParameterOp, ABC):
         return {**super().config, "axis": self.axis}
 
 
+class TorchIndexParameter(_AxisOp):
+    """A selection (with repeats or reordering) of entries along an axis."""
+
+    def __init__(self, *in_shapes, indices: Sequence[int], axis: int = -1, num_folds: int = 1):
+        super().__init__(*in_shapes, axis=axis, num_folds=num_folds)
+        self.indices = tuple(indices)
+
+    @property
+    def shape(self) -> Shape:
+        s = self.in_shapes[0]
+        return s[: self.axis] + (len(self.indices),) + s[self.axis + 1 :]
+
+    @property
+    def config(self) -> dict[str, Any]:
+        return {**super().config, "indices": self.indices}
+
+    def _eval(self, x):
+        idx = torch.as_tensor(self.indices, dtype=torch.int64, device=x.device)
+        return x.index_select(self.axis + 1, idx)
+
+
+class TorchKroneckerParameter(TorchParameterOp):
+    """The fold-wise Kronecker product of two parameter tensors of one rank."""
+
+    @property
+    def shape(self) -> Shape:
+        return tuple(a * b for a, b in zip(*self.in_shapes))
+
+    def _eval(self, a, b):
+        # interleave every axis pair: a's axes at even, b's at odd positions
+        rank = len(self.in_shapes[0])
+        out = a
+        for ax in range(rank):
+            out = out.unsqueeze(2 + 2 * ax)
+        other = b
+        for ax in range(rank):
+            other = other.unsqueeze(1 + 2 * ax)
+        out = out * other
+        return out.reshape((out.shape[0], *self.shape))
+
+
+class TorchConjugateParameter(TorchParameterOp):
+    """Complex conjugation: the identity on the real tensors the port carries
+    (complex parameters are not ported)."""
+
+    @property
+    def shape(self) -> Shape:
+        return self.in_shapes[0]
+
+    def _eval(self, x):
+        return x
+
+
 class TorchLogParameter(TorchParameterOp):
     @property
     def shape(self) -> Shape:
@@ -246,27 +301,44 @@ class TorchLogParameter(TorchParameterOp):
         return safelog(x)
 
 
-class TorchOuterProductParameter(_AxisOp):
+class _OuterOp(_AxisOp, ABC):
     @property
     def shape(self) -> Shape:
         s1, s2 = self.in_shapes
         a = self.axis
         return s1[:a] + (s1[a] * s2[a],) + s1[a + 1 :]
 
-    def _eval(self, a, b):
+    def _outer(self, a, b, combine):
         ax = self.axis + 1  # account for the fold axis
-        out = a.unsqueeze(ax + 1) * b.unsqueeze(ax)
+        out = combine(a.unsqueeze(ax + 1), b.unsqueeze(ax))
         return out.reshape((out.shape[0], *self.shape))
 
 
-class TorchReduceSumParameter(_AxisOp):
+class TorchOuterProductParameter(_OuterOp):
+    def _eval(self, a, b):
+        return self._outer(a, b, torch.mul)
+
+
+class TorchOuterSumParameter(_OuterOp):
+    def _eval(self, a, b):
+        return self._outer(a, b, torch.add)
+
+
+class _ReduceOp(_AxisOp, ABC):
     @property
     def shape(self) -> Shape:
         s = self.in_shapes[0]
         return s[: self.axis] + s[self.axis + 1 :]
 
+
+class TorchReduceSumParameter(_ReduceOp):
     def _eval(self, x):
         return x.sum(dim=self.axis + 1)
+
+
+class TorchReduceLSEParameter(_ReduceOp):
+    def _eval(self, x):
+        return torch.logsumexp(x, dim=self.axis + 1)
 
 
 class TorchSoftmaxParameter(_AxisOp):

@@ -1,4 +1,4 @@
-"""Queries over compiled lse-sum circuits: marginals, MAP and sampling.
+"""Queries over compiled circuits: marginals, MAP and sampling.
 
 The counterpart of ``cirkit_tpu/backend/jax/queries.py`` (``:30-470``,
 ``:723``, ``:939``, ``:1065-1240`` and ``:1382-1911``). Every query is a
@@ -6,7 +6,8 @@ variant of the circuit's evaluation plan:
 
 - :class:`IntegrateQuery` and :func:`masked_evaluate`: per-sample
   marginals, with input layers selecting their integral under a (B, D)
-  mask (and :func:`soft_evaluate` for virtual evidence);
+  mask (and :func:`soft_evaluate` for virtual evidence), under any ported
+  semiring (under the signed one every value is a (log|f|, sign) pair);
 - :class:`MAPQuery` and :class:`SamplingQuery`: the two-pass routing of
   :func:`_build_routing_run`, an upward pass of values and a downward pass
   that picks one composite index per (entry, fold, sample) at the selected
@@ -40,6 +41,7 @@ from cirkit_tpu_torch.backend.torch.layers import (
     TorchKroneckerLayer,
     TorchLayer,
     TorchSumLayer,
+    tmap,
 )
 from cirkit_tpu_torch.backend.torch.optimized import TorchCPTLayer, TorchTuckerLayer
 from cirkit_tpu_torch.backend.torch.parameters import (
@@ -129,7 +131,8 @@ def masked_leaf_select(layer: TorchLayer, store: Store, out: torch.Tensor, mask:
     if layer.num_variables > 1:
         raise NotImplementedError("Integration of multivariate input layers is not supported")
     m = mask[:, _scope_vars(layer, mask.device)].t()[:, :, None]  # (F, B, 1)
-    return torch.where(m, layer.integrate(store)[:, None, :], out)
+    # a tensor, or the signed semiring's (log|f|, sign) pair
+    return tmap(lambda iz, o: torch.where(m, iz[:, None, :], o), layer.integrate(store), out)
 
 
 def masked_evaluate(
@@ -160,7 +163,7 @@ def _variable_supports(cc: TorchCircuit) -> np.ndarray:
     supports = np.full(_num_vars(cc), -2, dtype=np.int64)
     for entry in cc._entries:
         layer = entry.layer
-        if not isinstance(layer, TorchInputLayer):
+        if not isinstance(layer, TorchInputLayer) or layer.num_variables == 0:
             continue
         s = _leaf_support_size(layer)
         for v in layer.scope_idx[:, 0]:
@@ -201,8 +204,8 @@ def soft_leaf_select(
     val = torch.einsum("fbs,fks->fbk", torch.exp(lw - m[:, :, None]), sd)
     logv = safelog(val) + m[:, :, None]
     sem = layer.semiring
-    weighted = sem.mul(sem.map_from(logv, LSESumSemiring), iz[:, None, :])
-    return torch.where(sm, weighted, out)
+    weighted = sem.mul(sem.map_from(logv, LSESumSemiring), tmap(lambda t: t[:, None, :], iz))
+    return tmap(lambda w, o: torch.where(sm, w, o), weighted, out)
 
 
 def soft_evaluate(

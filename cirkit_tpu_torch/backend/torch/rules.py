@@ -30,14 +30,22 @@ def compiled_dtype(dtype: DataType) -> torch.dtype:
     if dtype == DataType.INTEGER:
         return default_int_dtype()
     if dtype == DataType.COMPLEX:
-        raise NotImplementedError("Complex parameters are not ported to the PyTorch backend yet")
+        raise NotImplementedError(
+            "Complex parameters are not ported to the PyTorch backend yet (ROADMAP.md item 9)"
+        )
     return default_real_dtype()
 
 
+# The item of ROADMAP.md's module queue that brings a symbolic type the port
+# does not carry yet, where one names it.
+_ROADMAP_ITEMS = {"PolynomialLayer": 9, "EvidenceLayer": 2}
+
+
 def _not_ported(kind: str, obj) -> NotImplementedError:
+    item = _ROADMAP_ITEMS.get(type(obj).__name__)
+    where = f"ROADMAP.md item {item}" if item else "see the module queue of ROADMAP.md"
     return NotImplementedError(
-        f"The {kind} {type(obj).__name__} is not ported to the PyTorch backend yet "
-        "(see the module queue of ROADMAP.md)"
+        f"The {kind} {type(obj).__name__} is not ported to the PyTorch backend yet ({where})"
     )
 
 
@@ -172,14 +180,24 @@ def compile_unported_parameter(compiler: "TorchCompiler", p: syp.ParameterNode):
     raise _not_ported("parameter node", p)
 
 
+def compile_index_parameter(
+    compiler: "TorchCompiler", p: syp.IndexParameter
+) -> tp.TorchParameterNode:
+    return tp.TorchIndexParameter(*p.in_shapes, indices=p.indices, axis=p.axis)
+
+
 _SIMPLE_PARAM_RULES: dict[type, type] = {
+    syp.KroneckerParameter: tp.TorchKroneckerParameter,
     syp.LogParameter: tp.TorchLogParameter,
+    syp.ConjugateParameter: tp.TorchConjugateParameter,
     syp.MixingWeightParameter: tp.TorchMixingWeightParameter,
 }
 
 _AXIS_PARAM_RULES: dict[type, type] = {
     syp.OuterProductParameter: tp.TorchOuterProductParameter,
+    syp.OuterSumParameter: tp.TorchOuterSumParameter,
     syp.ReduceSumParameter: tp.TorchReduceSumParameter,
+    syp.ReduceLSEParameter: tp.TorchReduceLSEParameter,
     syp.SoftmaxParameter: tp.TorchSoftmaxParameter,
     syp.LogSoftmaxParameter: tp.TorchLogSoftmaxParameter,
 }
@@ -191,6 +209,7 @@ def default_parameter_rules() -> dict[type, object]:
         syp.TensorParameter: compile_tensor_parameter,
         syp.ConstantParameter: compile_tensor_parameter,
         syp.ReferenceParameter: compile_reference_parameter,
+        syp.IndexParameter: compile_index_parameter,
     }
     for sym_cls, torch_cls in _SIMPLE_PARAM_RULES.items():
         rules[sym_cls] = lambda compiler, p, _cls=torch_cls: _cls(*p.in_shapes)
@@ -227,6 +246,17 @@ def compile_categorical_layer(
     )
 
 
+def compile_constant_value_layer(
+    compiler: "TorchCompiler", sl: syl.ConstantValueLayer
+) -> tl.TorchLayer:
+    return tl.TorchConstantValueLayer(
+        sl.num_output_units,
+        log_space=sl.log_space,
+        value=compiler.compile_parameter(sl.value),
+        semiring=compiler.semiring,
+    )
+
+
 def compile_hadamard_layer(compiler: "TorchCompiler", sl: syl.HadamardLayer) -> tl.TorchLayer:
     return tl.TorchHadamardLayer(sl.num_input_units, arity=sl.arity, semiring=compiler.semiring)
 
@@ -250,6 +280,7 @@ def compile_sum_layer(compiler: "TorchCompiler", sl: syl.SumLayer) -> tl.TorchLa
 DEFAULT_LAYER_COMPILATION_RULES = [
     compile_unported_layer,
     compile_categorical_layer,
+    compile_constant_value_layer,
     compile_hadamard_layer,
     compile_kronecker_layer,
     compile_sum_layer,

@@ -1,12 +1,15 @@
 """Pluggable evaluation semirings.
 
-The counterpart of ``cirkit_tpu/backend/jax/semiring.py:51-305``: a
-(⊕, ⊗) algebra the compiled plan evaluates under, with a string registry
+The counterpart of ``cirkit_tpu/backend/jax/semiring.py:51-305, 381-561``:
+a (⊕, ⊗) algebra the compiled plan evaluates under, with a string registry
 and cross-semiring morphisms. The log-space semiring implements the
 numerically-stable max-shift log-einsum-exp; its four fused hooks (dense or
 Tucker, with or without a softmax of the weights) go to the ops of
 ``cirkit_tpu_torch/ops/lse_einsum.py``, which launch the CUDA kernel on
-CUDA tensors.
+CUDA tensors. The signed log semiring (values are ``(log|f|, sign)`` pairs)
+sends the same four hooks to the ops of ``cirkit_tpu_torch/ops/slse_einsum.py``.
+The complex log semiring is not ported (ROADMAP item 9): naming it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,12 +21,18 @@ from typing import ClassVar, Protocol
 
 import torch
 
-from cirkit_tpu_torch.backend.torch.utils import default_real_dtype
+from cirkit_tpu_torch.backend.torch.utils import default_real_dtype, safelog
 from cirkit_tpu_torch.ops.lse_einsum import (
     lse_matmul,
     lse_matmul_softmax,
     lse_tucker2,
     lse_tucker2_softmax,
+)
+from cirkit_tpu_torch.ops.slse_einsum import (
+    slse_matmul,
+    slse_matmul_softmax,
+    slse_tucker2,
+    slse_tucker2_softmax,
 )
 
 Semiring = type["SemiringImpl"]
@@ -66,6 +75,11 @@ class SemiringImpl(ABC):
 
     @staticmethod
     def from_name(name: str) -> Semiring:
+        if name == "complex-lse-sum":
+            raise NotImplementedError(
+                "The complex log semiring is not ported to the PyTorch backend yet "
+                "(ROADMAP.md item 9)"
+            )
         if name not in SemiringImpl._registry:
             raise IndexError(
                 f"Unknown semiring '{name}'; register one with "
@@ -283,6 +297,104 @@ class LSESumSemiring(SemiringImpl):
         )
 
 
+@SemiringImpl.register("signed-lse-sum")
+class SignedLSESemiring(SemiringImpl):
+    """Signed log-space evaluation: values are ``(log|f|, sign)`` pairs of
+    real tensors (sign in {-1, 0, +1}).
+
+    For circuits whose parameters are real but whose values may go
+    negative (squared / sum-of-squares circuits): with real parameters the
+    phase of any value is 0 or pi, so carrying a sign is exact and the whole
+    program stays real. Gradients of the sign component are zero (it is
+    piecewise constant); magnitudes use :func:`safelog`, so an exact
+    cancellation to 0 gives zeroed gradients."""
+
+    @classmethod
+    def cast(cls, x):
+        if x.dtype.is_complex:
+            raise ValueError(
+                "The signed semiring supports only real parameters; complex-parameterized "
+                "circuits need the complex semiring, which is not ported yet"
+            )
+        if x.dtype.is_floating_point:
+            return x
+        return x.to(default_real_dtype())
+
+    @staticmethod
+    def _from_linear(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return safelog(v.abs()), torch.sign(v)
+
+    @classmethod
+    def sum(cls, x, dim, *, keepdim=False):
+        a, s = x
+        m = _finfo_clamp(a.amax(dim=dim, keepdim=True))
+        v = torch.sum(s * torch.exp(a - m), dim=dim, keepdim=keepdim)
+        a_out, s_out = cls._from_linear(v)
+        return a_out + (m if keepdim else m.squeeze(dim)), s_out
+
+    @classmethod
+    def add(cls, *xs):
+        def _signed_logaddexp(x, y):
+            (a1, s1), (a2, s2) = x, y
+            m = _finfo_clamp(torch.maximum(a1, a2))
+            v = s1 * torch.exp(a1 - m) + s2 * torch.exp(a2 - m)
+            a_out, s_out = cls._from_linear(v)
+            return a_out + m, s_out
+
+        return reduce(_signed_logaddexp, xs)
+
+    @classmethod
+    def prod(cls, x, dim, *, keepdim=False):
+        a, s = x
+        return a.sum(dim=dim, keepdim=keepdim), s.prod(dim=dim, keepdim=keepdim)
+
+    @classmethod
+    def mul(cls, *xs):
+        return (
+            reduce(torch.add, (a for a, _ in xs)),
+            reduce(torch.mul, (s for _, s in xs)),
+        )
+
+    @classmethod
+    def apply_reduce(cls, func, *xs, dim, keepdim):
+        maxs = [_finfo_clamp(a.amax(dim=dim, keepdim=True)) for a, _ in xs]
+        exps = [s * torch.exp(a - m) for (a, s), m in zip(xs, maxs)]
+        out = func(*exps)
+        shift = reduce(torch.add, maxs)
+        if not keepdim:
+            shift = shift.squeeze(dim)
+        a_out, s_out = cls._from_linear(out)
+        return a_out + shift, s_out
+
+    # The fused ops launch the signed CUDA kernels on CUDA tensors (which
+    # take contiguous operands) and run their plain versions on the CPU.
+    @classmethod
+    def matmul(cls, x, w):
+        a, s = x
+        return slse_matmul(a.contiguous(), s.contiguous(), cls.cast(w).contiguous())
+
+    @classmethod
+    def matmul_softmax(cls, x, theta):
+        a, s = x
+        return slse_matmul_softmax(a.contiguous(), s.contiguous(), cls.cast(theta).contiguous())
+
+    @classmethod
+    def tucker2(cls, x1, x2, w):
+        (a1, s1), (a2, s2) = x1, x2
+        return slse_tucker2(
+            a1.contiguous(), s1.contiguous(), a2.contiguous(), s2.contiguous(),
+            cls.cast(w).contiguous(),
+        )
+
+    @classmethod
+    def tucker2_softmax(cls, x1, x2, theta):
+        (a1, s1), (a2, s2) = x1, x2
+        return slse_tucker2_softmax(
+            a1.contiguous(), s1.contiguous(), a2.contiguous(), s2.contiguous(),
+            cls.cast(theta).contiguous(),
+        )
+
+
 @SumProductSemiring.register_map_from(LSESumSemiring)
 def _lse_to_sum_product(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(x)
@@ -291,3 +403,24 @@ def _lse_to_sum_product(x: torch.Tensor) -> torch.Tensor:
 @LSESumSemiring.register_map_from(SumProductSemiring)
 def _sum_product_to_lse(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x)
+
+
+@SignedLSESemiring.register_map_from(LSESumSemiring)
+def _lse_to_signed(x: torch.Tensor):
+    return x, torch.ones_like(x)
+
+
+@SignedLSESemiring.register_map_from(SumProductSemiring)
+def _sum_product_to_signed(x: torch.Tensor):
+    return SignedLSESemiring._from_linear(SignedLSESemiring.cast(x))
+
+
+@LSESumSemiring.register_map_from(SignedLSESemiring)
+def _signed_to_lse(x) -> torch.Tensor:
+    # the sign is assumed non-negative at the conversion point
+    return x[0]
+
+
+@SumProductSemiring.register_map_from(SignedLSESemiring)
+def _signed_to_sum_product(x) -> torch.Tensor:
+    return x[1] * torch.exp(x[0])

@@ -20,6 +20,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The exponential of a staged element: the fast approximation (2 + 1.2|x|
+// ulps) where the contraction sums positive terms (lse), the accurate expf
+// where it sums terms of both signs (signed): a sum that cancels amplifies
+// each term's error by its cancellation ratio, and squared circuits square
+// that ratio.
+template <bool ACCURATE>
+__device__ __forceinline__ float staged_exp(float x) {
+  return ACCURATE ? expf(x) : __expf(x);
+}
+
 // The row max clamped to the finite range, so a row that is all -inf
 // shifts by -FLT_MAX and yields log(0) = -inf instead of NaN.
 __device__ __forceinline__ float clamp_max(float m) {

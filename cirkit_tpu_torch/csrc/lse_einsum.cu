@@ -1,10 +1,12 @@
 // Fused log-einsum-exp forward for Hopper (sm_90a): the folded sum-layer
 // contraction of the lse-sum semiring, dense or arity-2 Tucker, with an
-// optional softmax of the weight rows.
+// optional softmax of the weight rows, and its signed variant.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // cirkit_tpu/ops/lse_einsum.py (dispatched by `_call_fwd`), in its four
-// configurations. Per fold f, with m the clamped row max of each input:
+// configurations, and with SIGNED the kernel `_s_fwd_kernel` of the same
+// file (dispatched by `_s_call_fwd` / `slse_dispatch`), in its four. Per
+// fold f, with m the clamped row max of each input:
 //
 //   dense:   out[b,o] = log sum_i exp(x[b,i] - m[b]) * w[o,i] + m[b]
 //   tucker:  out[b,o] = log sum_{i,j} e1[b,i] * e2[b,j] * w[o,i*K2+j]
@@ -12,6 +14,16 @@
 //   softmax: w = softmax(theta, axis=-1), computed on the fly from the
 //            per-row max and sum of theta; the normalized table is never
 //            stored.
+//   signed:  the signed log semiring's values are (log|v|, sign v) pairs,
+//            so each input x comes with its sign s (f32 in {-1, 0, +1}), the
+//            staged value is e = s * exp(x - m) (for Tucker the product of
+//            both factors' signs), the weights may be negative, and the
+//            epilogue writes log|y| + shift and sign(y) to two outputs. An
+//            exact cancellation y = 0 gives log 0 = -inf and sign 0, never
+//            NaN. The rest of the kernel is the lse-sum one: the signs cost
+//            one extra load and multiply per staged element, and the staged
+//            exponentials use the accurate expf (staged_exp), since a sum
+//            that cancels amplifies each term's error.
 //
 // The (B, K1*K2) Tucker outer product is formed chunk by chunk in shared
 // memory inside the contraction loop and never written to device memory,
@@ -30,6 +42,9 @@
 // Accumulation is f32 FMA, at least as accurate as the TPU's bf16x3 dots.
 // Any O >= 1 is taken (the Ko=1 root layers included) and the ragged batch
 // edge is masked, with no padding. wgmma, TMA and TF32x3 are left for later.
+// The signed squared circuits' TensorDot entries (I = O = 32, B*Kq = 4096
+// rows) do 8 FLOP per element read, so there the kernel is bound by memory:
+// it reads each (a, s) element about twice (the row max, then the chunk).
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream and returns cudaGetLastError() of the launch (0 on success).
@@ -44,6 +59,7 @@
 namespace {
 
 using cirkit::clamp_max;
+using cirkit::staged_exp;
 using cirkit::warp_max;
 
 constexpr int BM = 128;  // batch rows per block
@@ -56,12 +72,15 @@ constexpr int WARPS = THREADS / 32;
 constexpr int AS = BM + 4;  // padded strides keep float4 reads aligned
 constexpr int BS = BN + 4;
 
-template <bool TUCKER, bool SOFTMAX>
+template <bool TUCKER, bool SOFTMAX, bool SIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
         const float* __restrict__ xb,  // tucker: x2 (F,B,K2); dense: unused
         const float* __restrict__ w,   // w or theta (F,O,I), I = K1*K2 for tucker
-        float* __restrict__ out,       // (F,B,O)
+        float* __restrict__ out,       // (F,B,O); signed: log|y|
+        const float* __restrict__ sa,  // signed: the sign of xa; else unused
+        const float* __restrict__ sb,  // signed tucker: the sign of xb
+        float* __restrict__ out_sign,  // signed: sign(y) (F,B,O)
         int B, int I, int K1, int K2, int O) {
   __shared__ __align__(16) float As[BK][AS];  // exponentials, k-major
   __shared__ __align__(16) float Bs[BK][BS];  // weights, k-major
@@ -80,6 +99,8 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   const int KA = TUCKER ? K1 : I;
   const float* xaf = xa + (size_t)f * B * KA;
   const float* xbf = TUCKER ? xb + (size_t)f * B * K2 : nullptr;
+  const float* saf = SIGNED ? sa + (size_t)f * B * KA : nullptr;
+  const float* sbf = SIGNED && TUCKER ? sb + (size_t)f * B * K2 : nullptr;
   const float* wf = w + (size_t)f * O * I;
   float* outf = out + (size_t)f * B * O;
 
@@ -125,8 +146,9 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   const float inv_k2 = TUCKER ? 1.f / (float)K2 : 0.f;
 
   // The next chunk's operands, loaded into registers while the current
-  // chunk is contracted: the exponent of each A element and the raw W.
-  float pa[A_PER], pw[W_PER];
+  // chunk is contracted: the exponent of each A element (and its sign) and
+  // the raw W.
+  float pa[A_PER], ps[A_PER], pw[W_PER];
   auto load_chunk = [&](int k0) {
     const int k = k0 + skk;
     int i = 0, j = 0;
@@ -145,12 +167,16 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     for (int n = 0; n < A_PER; ++n) {
       const int r = srow + n * RSTEP;
       const int b = b0 + r;
-      float v = -INFINITY;
+      float v = -INFINITY, sg = 0.f;
       if (b < B && k < I) {
         v = TUCKER ? (xaf[(size_t)b * K1 + i] - ma[r]) + (xbf[(size_t)b * K2 + j] - mb[r])
                    : xaf[(size_t)b * I + k] - ma[r];
+        if (SIGNED)
+          sg = TUCKER ? saf[(size_t)b * K1 + i] * sbf[(size_t)b * K2 + j]
+                      : saf[(size_t)b * I + k];
       }
       pa[n] = v;
+      if (SIGNED) ps[n] = sg;
     }
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
@@ -174,11 +200,12 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     // product e1[b,i] * e2[b,j], formed one chunk at a time) and the
     // weights (unnormalized softmax numerators).
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = __expf(pa[n]);
+    for (int n = 0; n < A_PER; ++n)
+      As[skk][srow + n * RSTEP] = SIGNED ? ps[n] * staged_exp<true>(pa[n]) : __expf(pa[n]);
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int c = srow + n * RSTEP;
-      Bs[skk][c] = SOFTMAX ? __expf(pw[n] - mw[c]) : pw[n];
+      Bs[skk][c] = SOFTMAX ? staged_exp<SIGNED>(pw[n] - mw[c]) : pw[n];
     }
     __syncthreads();
     if (k0 + BK < I) load_chunk(k0 + BK);
@@ -209,21 +236,24 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
       const int c = tx * TN + j;
       const int o = o0 + c;
       if (o >= O) continue;
-      float y = logf(acc[i][j]);
+      const float v = acc[i][j];
+      float y = logf(SIGNED ? fabsf(v) : v);
       if (SOFTMAX) y -= lsw[c];
       outf[(size_t)b * O + o] = y + shift;
+      if (SIGNED) out_sign[(size_t)f * B * O + (size_t)b * O + o] = (v > 0.f) - (v < 0.f);
     }
   }
 }
 
-template <bool TUCKER, bool SOFTMAX>
+template <bool TUCKER, bool SOFTMAX, bool SIGNED = false>
 int launch(const float* xa, const float* xb, const float* w, float* out, int F, int B,
-           int I, int K1, int K2, int O, int device, void* stream) {
+           int I, int K1, int K2, int O, int device, void* stream,
+           const float* sa = nullptr, const float* sb = nullptr, float* out_sign = nullptr) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
-  lse_fwd<TUCKER, SOFTMAX><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      xa, xb, w, out, B, I, K1, K2, O);
+  lse_fwd<TUCKER, SOFTMAX, SIGNED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      xa, xb, w, out, sa, sb, out_sign, B, I, K1, K2, O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -254,6 +284,33 @@ int lse_fwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
                            float* out, int F, int B, int K1, int K2, int O, int device,
                            void* stream) {
   return launch<true, true>(x1, x2, theta, out, F, B, K1 * K2, K1, K2, O, device, stream);
+}
+
+// The signed entries: (log-magnitude, sign) inputs, (log|y|, sign y) outputs.
+int slse_fwd_dense(const float* a, const float* s, const float* w, float* oa, float* os, int F,
+                   int B, int I, int O, int device, void* stream) {
+  return launch<false, false, true>(a, nullptr, w, oa, F, B, I, 0, 1, O, device, stream, s,
+                                    nullptr, os);
+}
+
+int slse_fwd_dense_softmax(const float* a, const float* s, const float* theta, float* oa,
+                           float* os, int F, int B, int I, int O, int device, void* stream) {
+  return launch<false, true, true>(a, nullptr, theta, oa, F, B, I, 0, 1, O, device, stream, s,
+                                   nullptr, os);
+}
+
+int slse_fwd_tucker(const float* a1, const float* s1, const float* a2, const float* s2,
+                    const float* w, float* oa, float* os, int F, int B, int K1, int K2, int O,
+                    int device, void* stream) {
+  return launch<true, false, true>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O, device, stream, s1,
+                                   s2, os);
+}
+
+int slse_fwd_tucker_softmax(const float* a1, const float* s1, const float* a2, const float* s2,
+                            const float* theta, float* oa, float* os, int F, int B, int K1,
+                            int K2, int O, int device, void* stream) {
+  return launch<true, true, true>(a1, a2, theta, oa, F, B, K1 * K2, K1, K2, O, device, stream,
+                                  s1, s2, os);
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 // Log-einsum-exp backward for Hopper (sm_90a): the gradients of the folded
 // sum-layer contraction of the lse-sum semiring, dense or arity-2 Tucker,
-// with an optional softmax of the weight rows.
+// with an optional softmax of the weight rows, and its signed variant.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of
 // cirkit_tpu/ops/lse_einsum.py (dispatched by `_call_bwd`, wired in as the
-// custom VJP of `_fused_p`), in its four configurations. Per fold f, with
+// custom VJP of `_fused_p`), in its four configurations, and with SIGNED
+// the kernel `_s_bwd_kernel` of the same file (`_s_call_bwd`, the custom
+// VJP of `_sfused_p`), in its four. Per fold f, with
 // out the forward's output, g its cotangent, shift the summed clamped row
 // maxes of the inputs and e the shifted exponentials (for Tucker
 // e[b, i*K2+j] = e1[b,i] * e2[b,j]):
@@ -16,6 +18,15 @@
 //            dx2[b,j] = e2[b,j] * sum_i s[b,i*K2+j] * e1[b,i]
 //   dw[o,c] = sum_b gy[b,o] * e[b,c]       summed over the whole batch
 //   softmax: dtheta = w * (dw - sum_c w_c dw_c) per row, w = softmax(theta)
+//   signed:  out is log|y| with sign(y) beside it, each input has its sign
+//            s, and e = s * exp(x - m) throughout (dx is then the gradient
+//            of the log-magnitude input): gy = g * sign(y) * exp(shift -
+//            out), zeroed where not finite (an exact cancellation y = 0 has
+//            sign 0 and out = -inf, so its gy is 0 * inf = NaN -> 0). The
+//            sign output's cotangent is dropped, and no gradient of the sign
+//            inputs is computed: the TPU kernel's ds output only ever
+//            reaches jnp.sign, a dropped sign output or a constant, so it
+//            never reaches a parameter.
 //
 // The work is two contractions of the forward's size (s and dw), so like the
 // forward it is bound by f32 arithmetic on the CUDA cores, not by memory.
@@ -74,6 +85,7 @@
 namespace {
 
 using cirkit::clamp_max;
+using cirkit::staged_exp;
 using cirkit::warp_max;
 using cirkit::warp_sum;
 
@@ -85,10 +97,11 @@ constexpr int BK = 16;  // contraction chunk staged in shared memory
 // 1. Row shifts and gy
 // --------------------------------------------------------------------------
 
-template <bool TUCKER>
+template <bool TUCKER, bool SIGNED>
 __global__ void __launch_bounds__(THREADS)
 bwd_prep(const float* __restrict__ xa, const float* __restrict__ xb,
          const float* __restrict__ out, const float* __restrict__ g,
+         const float* __restrict__ out_sign,  // signed: sign(y); else unused
          float* __restrict__ sa, float* __restrict__ sb, float* __restrict__ gy,
          int B, int KA, int K2, int O) {
   const int lane = threadIdx.x & 31;
@@ -108,7 +121,8 @@ bwd_prep(const float* __restrict__ xa, const float* __restrict__ xb,
   const float shift = TUCKER ? m1 + m2 : m1;
   for (int o = lane; o < O; o += 32) {
     const size_t idx = row * O + o;
-    const float v = g[idx] * expf(shift - out[idx]);
+    float v = g[idx] * expf(shift - out[idx]);
+    if (SIGNED) v *= out_sign[idx];
     gy[idx] = isfinite(v) ? v : 0.f;
   }
 }
@@ -146,9 +160,11 @@ constexpr int WSTEP = THREADS / BN;       // w staging: units per pass
 constexpr int W_PER = BK / WSTEP;         // 4
 }  // namespace dense_dx
 
+template <bool SIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 lse_bwd_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ sa, const float* __restrict__ gy,
+                 const float* __restrict__ sx,  // signed: the sign of x
                  float* __restrict__ dx, int B, int I, int O) {
   using namespace dense_dx;
   __shared__ __align__(16) float As[BK][AS];  // gy, unit-major
@@ -226,7 +242,8 @@ lse_bwd_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
       const int c = i0 + tx * TN + j;
       if (c >= I) continue;
       const size_t idx = (size_t)b * I + c;
-      dxf[idx] = expf(xf[idx] - m) * acc[i][j];
+      const float e = expf(xf[idx] - m);
+      dxf[idx] = (SIGNED ? sx[(size_t)f * B * I + idx] * e : e) * acc[i][j];
     }
   }
 }
@@ -255,11 +272,15 @@ inline size_t tucker_dx_smem(int K1, int K2) {
   return sizeof(float) * BM * (2 * (K1 + 1) + 2 * (K2 + 1) + SS);
 }
 
+template <bool SIGNED>
 __global__ void __launch_bounds__(THREADS)
 lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
                   const float* __restrict__ w, const float* __restrict__ sa,
                   const float* __restrict__ sb,
-                  const float* __restrict__ gy, float* __restrict__ dx1,
+                  const float* __restrict__ gy,
+                  const float* __restrict__ s1,  // signed: the signs of x1, x2
+                  const float* __restrict__ s2,
+                  float* __restrict__ dx1,
                   float* __restrict__ dx2, int B, int K1, int K2, int O) {
   using namespace tucker_dx;
   __shared__ __align__(16) float As[BK][AS];  // gy, unit-major
@@ -279,19 +300,29 @@ lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
   const float* gyf = gy + (size_t)f * B * O;
   const float* wf = w + (size_t)f * O * I;
 
-  // Prologue: the block's exponentials and zeroed accumulators.
+  // Prologue: the block's (signed) exponentials and zeroed accumulators.
   for (int t = tid; t < BM * K1; t += THREADS) {
     const int r = t / K1, k = t - r * K1;
     const int b = b0 + r;
-    E1[r * E1S + k] = b < B ? expf(x1[((size_t)f * B + b) * K1 + k] - sa[(size_t)f * B + b])
-                            : 0.f;
+    float e = 0.f;
+    if (b < B) {
+      const size_t idx = ((size_t)f * B + b) * K1 + k;
+      e = expf(x1[idx] - sa[(size_t)f * B + b]);
+      if (SIGNED) e *= s1[idx];
+    }
+    E1[r * E1S + k] = e;
     A1[r * E1S + k] = 0.f;
   }
   for (int t = tid; t < BM * K2; t += THREADS) {
     const int r = t / K2, k = t - r * K2;
     const int b = b0 + r;
-    E2[r * E2S + k] = b < B ? expf(x2[((size_t)f * B + b) * K2 + k] - sb[(size_t)f * B + b])
-                            : 0.f;
+    float e = 0.f;
+    if (b < B) {
+      const size_t idx = ((size_t)f * B + b) * K2 + k;
+      e = expf(x2[idx] - sb[(size_t)f * B + b]);
+      if (SIGNED) e *= s2[idx];
+    }
+    E2[r * E2S + k] = e;
     A2[r * E2S + k] = 0.f;
   }
 
@@ -460,11 +491,14 @@ constexpr int GSTEP = THREADS / BN;   // gy staging: batch rows per pass (4)
 constexpr int G_PER = BK / GSTEP;     // 4
 }  // namespace dw_tile
 
-template <bool TUCKER>
+template <bool TUCKER, bool SIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
            const float* __restrict__ sa, const float* __restrict__ sb,
-           const float* __restrict__ gy, float* __restrict__ dw, int B, int I, int K1,
+           const float* __restrict__ gy,
+           const float* __restrict__ sga,  // signed: the signs of xa, xb
+           const float* __restrict__ sgb,
+           float* __restrict__ dw, int B, int I, int K1,
            int K2, int O) {
   using namespace dw_tile;
   __shared__ __align__(16) float As[BK][AS];  // e, batch-major
@@ -483,6 +517,8 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
   const float* saf = sa + (size_t)f * B;
   const float* sbf = TUCKER ? sb + (size_t)f * B : nullptr;
   const float* gyf = gy + (size_t)f * B * O;
+  const float* sgaf = SIGNED ? sga + (size_t)f * B * KA : nullptr;
+  const float* sgbf = SIGNED && TUCKER ? sgb + (size_t)f * B * K2 : nullptr;
 
   // e staging: column ec = tid % BM of the tile, batch rows tid / BM + n *
   // ESTEP; gy staging: unit tid % BN, batch rows tid / BN + n * GSTEP.
@@ -490,7 +526,7 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
   const int eb = tid / BM;
   const int go = tid % BN;
   const int gb = tid / BN;
-  float pe[E_PER], pg[G_PER];
+  float pe[E_PER], ps[E_PER], pg[G_PER];
   // One step of the flattened (column tile, batch chunk) loop.
   auto load_chunk = [&](int step) {
     const int tile = step / n_chunks;
@@ -501,12 +537,16 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
 #pragma unroll
     for (int n = 0; n < E_PER; ++n) {
       const int b = k0 + eb + n * ESTEP;
-      float v = -INFINITY;
+      float v = -INFINITY, sg = 0.f;
       if (b < B && c < I) {
         v = TUCKER ? (xaf[(size_t)b * K1 + ci] - saf[b]) + (xbf[(size_t)b * K2 + cj] - sbf[b])
                    : xaf[(size_t)b * I + c] - saf[b];
+        if (SIGNED)
+          sg = TUCKER ? sgaf[(size_t)b * K1 + ci] * sgbf[(size_t)b * K2 + cj]
+                      : sgaf[(size_t)b * I + c];
       }
       pe[n] = v;
+      if (SIGNED) ps[n] = sg;
     }
 #pragma unroll
     for (int n = 0; n < G_PER; ++n) {
@@ -532,7 +572,8 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
     }
 #pragma unroll
-    for (int n = 0; n < E_PER; ++n) As[eb + n * ESTEP][ec] = __expf(pe[n]);
+    for (int n = 0; n < E_PER; ++n)
+      As[eb + n * ESTEP][ec] = SIGNED ? ps[n] * staged_exp<true>(pe[n]) : __expf(pe[n]);
 #pragma unroll
     for (int n = 0; n < G_PER; ++n) Bs[gb + n * GSTEP][go] = pg[n];
     __syncthreads();
@@ -600,20 +641,22 @@ softmax_vjp(const float* __restrict__ w, float* __restrict__ dw, int O, int I) {
 inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
 // ``w`` is the weight, or for SOFTMAX the logits and ``ws`` the (F, O, I)
-// scratch that receives their softmax.
-template <bool TUCKER, bool SOFTMAX>
+// scratch that receives their softmax. SIGNED takes the inputs' signs
+// ``sga``/``sgb`` and the forward's sign output ``out_sign``.
+template <bool TUCKER, bool SOFTMAX, bool SIGNED = false>
 int launch_bwd(const float* xa, const float* xb, const float* w, const float* out,
                const float* g, float* dxa, float* dxb, float* dw, float* sa, float* sb,
                float* gy, float* ws, int F, int B, int I, int K1, int K2, int O, int device,
-               void* stream) {
+               void* stream, const float* sga = nullptr, const float* sgb = nullptr,
+               const float* out_sign = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool need_dx = dxa != nullptr || dxb != nullptr;
   const int KA = TUCKER ? K1 : I;
 
-  bwd_prep<TUCKER><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(xa, xb, out, g, sa, sb, gy, B,
-                                                                KA, K2, O);
+  bwd_prep<TUCKER, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+      xa, xb, out, g, out_sign, sa, sb, gy, B, KA, K2, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (SOFTMAX) {
     softmax_weights<<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, ws, O, I);
@@ -623,20 +666,23 @@ int launch_bwd(const float* xa, const float* xb, const float* w, const float* ou
   if (need_dx) {
     if (TUCKER) {
       const size_t smem = tucker_dx_smem(K1, K2);
-      err = cudaFuncSetAttribute(lse_bwd_dx_tucker, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(lse_bwd_dx_tucker<SIGNED>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      lse_bwd_dx_tucker<<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
-          xa, xb, w, sa, sb, gy, dxa, dxb, B, K1, K2, O);
+      lse_bwd_dx_tucker<SIGNED><<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
+          xa, xb, w, sa, sb, gy, sga, sgb, dxa, dxb, B, K1, K2, O);
     } else {
-      lse_bwd_dx_dense<<<dim3(F, cdiv(I, dense_dx::BN), cdiv(B, dense_dx::BM)), THREADS, 0, s>>>(
-          xa, w, sa, gy, dxa, B, I, O);
+      lse_bwd_dx_dense<SIGNED>
+          <<<dim3(F, cdiv(I, dense_dx::BN), cdiv(B, dense_dx::BM)), THREADS, 0, s>>>(
+              xa, w, sa, gy, sga, dxa, B, I, O);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dw != nullptr) {
     const dim3 grid(F, cdiv(O, dw_tile::BN), cdiv(I, dw_tile::BM * dw_tile::TILES));
-    lse_bwd_dw<TUCKER><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, dw, B, I, K1, K2, O);
+    lse_bwd_dw<TUCKER, SIGNED><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, sga, sgb, dw, B, I,
+                                                        K1, K2, O);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     if (SOFTMAX) {
       softmax_vjp<<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
@@ -684,6 +730,43 @@ int lse_bwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
                            int B, int K1, int K2, int O, int device, void* stream) {
   return launch_bwd<true, true>(x1, x2, theta, out, g, dx1, dx2, dtheta, sa, sb, gy, ws, F, B,
                                 K1 * K2, K1, K2, O, device, stream);
+}
+
+// The signed entries: the (log-magnitude, sign) inputs and the forward's
+// (log|y|, sign y) outputs; the gradients of the log-magnitude inputs and
+// of the weight (a null pointer skips one).
+int slse_bwd_dense(const float* a, const float* s, const float* w, const float* oa,
+                   const float* os, const float* g, float* da, float* dw, float* sa, float* gy,
+                   int F, int B, int I, int O, int device, void* stream) {
+  return launch_bwd<false, false, true>(a, nullptr, w, oa, g, da, nullptr, dw, sa, nullptr, gy,
+                                        nullptr, F, B, I, I, 1, O, device, stream, s, nullptr,
+                                        os);
+}
+
+int slse_bwd_dense_softmax(const float* a, const float* s, const float* theta, const float* oa,
+                           const float* os, const float* g, float* da, float* dtheta, float* sa,
+                           float* gy, float* ws, int F, int B, int I, int O, int device,
+                           void* stream) {
+  return launch_bwd<false, true, true>(a, nullptr, theta, oa, g, da, nullptr, dtheta, sa,
+                                       nullptr, gy, ws, F, B, I, I, 1, O, device, stream, s,
+                                       nullptr, os);
+}
+
+int slse_bwd_tucker(const float* a1, const float* s1, const float* a2, const float* s2,
+                    const float* w, const float* oa, const float* os, const float* g, float* da1,
+                    float* da2, float* dw, float* sa, float* sb, float* gy, int F, int B, int K1,
+                    int K2, int O, int device, void* stream) {
+  return launch_bwd<true, false, true>(a1, a2, w, oa, g, da1, da2, dw, sa, sb, gy, nullptr, F,
+                                       B, K1 * K2, K1, K2, O, device, stream, s1, s2, os);
+}
+
+int slse_bwd_tucker_softmax(const float* a1, const float* s1, const float* a2, const float* s2,
+                            const float* theta, const float* oa, const float* os,
+                            const float* g, float* da1, float* da2, float* dtheta, float* sa,
+                            float* sb, float* gy, float* ws, int F, int B, int K1, int K2, int O,
+                            int device, void* stream) {
+  return launch_bwd<true, true, true>(a1, a2, theta, oa, g, da1, da2, dtheta, sa, sb, gy, ws, F,
+                                      B, K1 * K2, K1, K2, O, device, stream, s1, s2, os);
 }
 
 }  // extern "C"

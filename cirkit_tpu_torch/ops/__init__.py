@@ -12,11 +12,19 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     lse_tucker2_softmax,
 )
 from cirkit_tpu_torch.ops.routing import ROUTING_OPS, route_tucker2, tropical_tucker2
+from cirkit_tpu_torch.ops.slse_einsum import (
+    SIGNED_OPS,
+    slse_matmul,
+    slse_matmul_softmax,
+    slse_tucker2,
+    slse_tucker2_softmax,
+)
 
 __all__ = [
     "LAUNCHES",
     "OPS",
     "ROUTING_OPS",
+    "SIGNED_OPS",
     "WIDE_OPS",
     "backward",
     "lse_matmul",
@@ -24,5 +32,9 @@ __all__ = [
     "lse_tucker2",
     "lse_tucker2_softmax",
     "route_tucker2",
+    "slse_matmul",
+    "slse_matmul_softmax",
+    "slse_tucker2",
+    "slse_tucker2_softmax",
     "tropical_tucker2",
 ]

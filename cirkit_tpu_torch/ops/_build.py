@@ -3,7 +3,8 @@
 The sources are compiled at first use by ``nvcc``, one process per source
 started together, and linked into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``. The library goes to ``build/cirkit_tpu_torch/``
+``ctypes``; the signed log-einsum-exp kernels are template instances in
+the lse kernels' two sources. The library goes to ``build/cirkit_tpu_torch/``
 at the root of the checkout, under a name keyed on a hash of the sources
 and the flags, so an edit rebuilds and an unchanged tree reuses the build.
 Nothing here runs when the module is imported.
@@ -48,6 +49,17 @@ _SIGNATURES = {
     "lse_bwd_tucker": ((*(_P,) * 11, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_softmax": ((*(_P,) * 12, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_smem": ((_I, _I), ctypes.c_size_t),
+    # the signed entries of the same two sources: each input is a
+    # (log-magnitude, sign) pair, the forward writes (log|y|, sign y), and
+    # the backward reads both outputs beside g
+    "slse_fwd_dense": ((*(_P,) * 5, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_fwd_dense_softmax": ((*(_P,) * 5, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_fwd_tucker": ((*(_P,) * 7, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_fwd_tucker_softmax": ((*(_P,) * 7, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_bwd_dense": ((*(_P,) * 10, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_bwd_dense_softmax": ((*(_P,) * 11, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_bwd_tucker": ((*(_P,) * 14, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    "slse_bwd_tucker_softmax": ((*(_P,) * 15, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     # lse_wide.cu: the K1-chunked Tucker forward (as lse_fwd_tucker); the
     # blocked dense forward (x, w, out, m) and backward (x, w, out, m, g,
     # dx, dw, gy scratch)

@@ -1,31 +1,45 @@
-"""The pipeline API: a compilation context that owns the parameter store.
+"""The pipeline API: compilation contexts and compiled-circuit operators.
 
-The counterpart of ``cirkit_tpu/pipeline.py:34-153``. A context binds a
-backend compiler to a device and a seeded ``torch.Generator``;
-``ctx.parameters`` is the ``nn.ParameterDict`` holding every compiled
-circuit's parameters by slot name, so a derived circuit evaluates against
-the same store as its operands. The circuit operators (integrate,
-multiply and the rest) are not ported yet.
+The counterpart of ``cirkit_tpu/pipeline.py:34-248``. A context binds a
+backend compiler to a device, a seeded ``torch.Generator`` and an operator
+registry; ``ctx.parameters`` is the ``nn.ParameterDict`` holding every
+compiled circuit's parameters by slot name, so a derived circuit evaluates
+against the same store as its operands. The compiled-circuit operators
+(integrate, multiply, conjugate, differentiate, concatenate, mixture) apply
+the symbolic operator and compile the result; it reads its operands'
+parameters through pointer slots into the same store.
+
+The module-level functions take ``ctx=`` or use the ambient context: the
+innermost ``with PipelineContext(...)`` block, else a default context
+(lse-sum, folded, optimized, on the CUDA card) created at first use, so
+importing this module opens no CUDA context.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+from contextvars import ContextVar, Token
+from types import TracebackType
 
 import numpy as np
 import torch
 from torch import nn
 
+import cirkit_tpu_torch.symbolic.functional as SF
 from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit
 from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
 from cirkit_tpu_torch.backend.torch.parameters import TorchTensorSlot
 from cirkit_tpu_torch.symbolic.circuit import Circuit
+from cirkit_tpu_torch.symbolic.registry import OperatorRegistry
 from cirkit_tpu_torch.utils.checkpoint import store_from_numpy
+from cirkit_tpu_torch.utils.scope import Scope
 
 
 class PipelineContext:
-    """Compilation context: backend flags, the device, and the shared
-    parameter store, initialized on the device from a seeded generator.
+    """Compilation context: backend flags, the device, the operator
+    registry, and the shared parameter store, initialized on the device
+    from a seeded generator. Entering it (``with ctx:``) makes it the
+    ambient context of the module-level functions.
 
     The device is the CUDA card unless ``device`` says otherwise; without a
     card, construction raises unless ``device="cpu"`` is passed."""
@@ -50,6 +64,25 @@ class PipelineContext:
         )
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._parameters = nn.ParameterDict()
+        self._op_registry = OperatorRegistry.from_default_rules()
+        self._token: Token[PipelineContext | None] | None = None
+
+    # -- context management ----------------------------------------------------
+    def __enter__(self) -> "PipelineContext":
+        self._op_registry.__enter__()
+        self._token = _PIPELINE_CONTEXT.set(self)
+        return self
+
+    def __exit__(
+        self,
+        exc_type: type[BaseException] | None,
+        exc_value: BaseException | None,
+        traceback: TracebackType | None,
+    ) -> None:
+        self._op_registry.__exit__(exc_type, exc_value, traceback)
+        assert self._token is not None
+        _PIPELINE_CONTEXT.reset(self._token)
+        self._token = None
 
     def _circuits(self) -> list[TorchCircuit]:
         return list(self._compiler._compiled_circuits._fwd.values())
@@ -105,3 +138,109 @@ class PipelineContext:
             del self._parameters[s]
         for cc in self._circuits():
             self._materialize(cc)
+
+    def get_symbolic_circuit(self, cc: TorchCircuit) -> Circuit:
+        """The symbolic circuit ``cc`` was compiled from."""
+        return self._compiler.get_symbolic_circuit(cc)
+
+    # -- compiled-circuit operators ---------------------------------------------
+    def _symbolic_operand(self, cc: TorchCircuit, which: str = "The given") -> Circuit:
+        if not self._compiler.has_symbolic(cc):
+            raise ValueError(f"{which} compiled circuit is not known in this pipeline")
+        return self._compiler.get_symbolic_circuit(cc)
+
+    def concatenate(self, *cc: TorchCircuit) -> TorchCircuit:
+        scs = [self._symbolic_operand(c, f"The {i}-th") for i, c in enumerate(cc)]
+        return self.compile(SF.concatenate(scs, registry=self._op_registry))
+
+    def integrate(self, cc: TorchCircuit, scope: Scope | None = None) -> TorchCircuit:
+        sc = self._symbolic_operand(cc)
+        return self.compile(SF.integrate(sc, scope=scope, registry=self._op_registry))
+
+    def mixture(self, *cc: TorchCircuit, weights=None, weight_factory=None,
+                em_ready: bool = False) -> TorchCircuit:
+        scs = [self._symbolic_operand(c, f"The {i}-th") for i, c in enumerate(cc)]
+        return self.compile(
+            SF.mixture(
+                scs,
+                weights=weights,
+                weight_factory=weight_factory,
+                em_ready=em_ready,
+                registry=self._op_registry,
+            )
+        )
+
+    def multiply(self, cc1: TorchCircuit, cc2: TorchCircuit) -> TorchCircuit:
+        sc1 = self._symbolic_operand(cc1, "The first")
+        sc2 = self._symbolic_operand(cc2, "The second")
+        return self.compile(SF.multiply(sc1, sc2, registry=self._op_registry))
+
+    def differentiate(self, cc: TorchCircuit, *, order: int = 1) -> TorchCircuit:
+        """The differential circuit; the Polynomial layers it needs are not
+        ported yet, so compiling one raises ``NotImplementedError``."""
+        if order <= 0:
+            raise ValueError("The order of differentiation must be positive")
+        sc = self._symbolic_operand(cc)
+        return self.compile(SF.differentiate(sc, order=order, registry=self._op_registry))
+
+    def conjugate(self, cc: TorchCircuit) -> TorchCircuit:
+        sc = self._symbolic_operand(cc)
+        return self.compile(SF.conjugate(sc, registry=self._op_registry))
+
+
+# -- module-level functional API with an ambient context ---------------------------
+
+_PIPELINE_CONTEXT: ContextVar[PipelineContext | None] = ContextVar(
+    "_PIPELINE_CONTEXT", default=None
+)
+"""The context of the innermost ``with PipelineContext(...)`` block."""
+_DEFAULT_CONTEXT: PipelineContext | None = None
+
+
+def _ambient(ctx: PipelineContext | None) -> PipelineContext:
+    """``ctx``, else the entered context, else the default one (lse-sum,
+    folded, optimized, on the CUDA card), created at the first call."""
+    global _DEFAULT_CONTEXT
+    if ctx is not None:
+        return ctx
+    ctx = _PIPELINE_CONTEXT.get()
+    if ctx is not None:
+        return ctx
+    if _DEFAULT_CONTEXT is None:
+        _DEFAULT_CONTEXT = PipelineContext(semiring="lse-sum", fold=True, optimize=True)
+    return _DEFAULT_CONTEXT
+
+
+# pylint: disable-next=redefined-builtin
+def compile(sc: Circuit, ctx: PipelineContext | None = None) -> TorchCircuit:
+    return _ambient(ctx).compile(sc)
+
+
+def concatenate(*cc: TorchCircuit, ctx: PipelineContext | None = None) -> TorchCircuit:
+    return _ambient(ctx).concatenate(*cc)
+
+
+def integrate(cc: TorchCircuit, scope: Scope | None = None,
+              ctx: PipelineContext | None = None) -> TorchCircuit:
+    return _ambient(ctx).integrate(cc, scope=scope)
+
+
+def multiply(cc1: TorchCircuit, cc2: TorchCircuit,
+             ctx: PipelineContext | None = None) -> TorchCircuit:
+    return _ambient(ctx).multiply(cc1, cc2)
+
+
+def mixture(*cc: TorchCircuit, weights=None, weight_factory=None, em_ready: bool = False,
+            ctx: PipelineContext | None = None) -> TorchCircuit:
+    return _ambient(ctx).mixture(
+        *cc, weights=weights, weight_factory=weight_factory, em_ready=em_ready
+    )
+
+
+def differentiate(cc: TorchCircuit, ctx: PipelineContext | None = None, *,
+                  order: int = 1) -> TorchCircuit:
+    return _ambient(ctx).differentiate(cc, order=order)
+
+
+def conjugate(cc: TorchCircuit, ctx: PipelineContext | None = None) -> TorchCircuit:
+    return _ambient(ctx).conjugate(cc)

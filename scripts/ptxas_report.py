@@ -1,0 +1,118 @@
+"""Registers, spills and shared memory of every CUDA kernel of the port, as
+``ptxas -v`` reports them, for one or more source trees side by side.
+
+Run on a machine with the CUDA toolkit, from the root of a checkout:
+
+    python3 scripts/ptxas_report.py cirkit_tpu_torch/csrc [OTHER_CSRC ...]
+
+Each ``*.cu`` of each directory is compiled for sm_90a with the flags of
+``cirkit_tpu_torch/ops/_build.py`` (to an object that is thrown away). The
+report has one line per kernel (demangled, with the template arguments
+that turn a variant off, ``false``, dropped from the end, so a kernel keeps
+its name when a later tree adds such an argument) and one column per tree:
+``registers/spill stores/spill loads/static shared bytes/SASS digest``. The
+digest is the first 10 hex digits of the SHA-256 of the kernel's machine
+code as ``cuobjdump -sass`` lists it, without addresses and encodings and
+with the offsets into the kernel-parameter bank masked (a template flag's
+added parameters move the others): two trees give one digest for a kernel
+when they compile it to the same instructions.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from cirkit_tpu_torch.ops._build import NVCC_FLAGS, _nvcc  # noqa: E402
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_FUNCTION = re.compile(r"Function : (\S+)")
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
+
+
+def _sass_digests(obj: Path) -> dict[str, str]:
+    """mangled kernel name -> digest of its instructions in ``obj``."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True,
+                         check=True).stdout
+    digests: dict[str, str] = {}
+    name, body = None, []
+    for line in [*out.splitlines(), "Function : <end>"]:
+        if m := _FUNCTION.search(line):
+            if name is not None:
+                digests[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:10]
+            name, body = m.group(1), []
+        elif name is not None and (m := _INSTR.search(line)):
+            body.append(_PARAM.sub("c[0x0][.]", m.group(1)))
+    return digests
+
+
+def _demangle(names: list[str]) -> list[str]:
+    tool = shutil.which("cu++filt") or str(Path(_nvcc()).parent / "cu++filt")
+    if not Path(tool).exists():
+        return names
+    out = subprocess.run([tool, *names], capture_output=True, text=True, check=True).stdout
+    return out.splitlines()
+
+
+def _key(name: str) -> str:
+    """The kernel's name without its trailing ``false`` template arguments
+    and without its parameter list (``cu++filt`` writes a bool template
+    argument as ``(bool)0`` or ``(bool)1``)."""
+    name = name.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+    name = name.removeprefix("void ")
+    name = name.replace("(bool)0", "false").replace("(bool)1", "true").split("(")[0]
+    while name.endswith(", false>"):
+        name = name[: -len(", false>")] + ">"
+    return name.removesuffix("<false>")
+
+
+def report(csrc: Path) -> dict[str, str]:
+    """kernel -> "registers/spill stores/spill loads/smem" for one tree."""
+    rows: dict[str, str] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(csrc.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+            sass = _sass_digests(obj)
+            entry, spill = None, ("0", "0")
+            mangled, stats = [], []
+            for line in log.splitlines():
+                if m := _ENTRY.search(line):
+                    entry = m.group(1)
+                elif m := _SPILL.search(line):
+                    spill = m.groups()
+                elif (m := _USED.search(line)) and entry is not None:
+                    mangled.append(entry)
+                    stats.append(f"{m.group(1)}/{spill[0]}/{spill[1]}/{m.group(2) or 0}/"
+                                 f"{sass.get(entry, '?')}")
+                    entry = None
+            for name, stat in zip(_demangle(mangled), stats):
+                rows[f"{src.name}: {_key(name)}"] = stat
+    return rows
+
+
+def main() -> int:
+    trees = [Path(p) for p in sys.argv[1:]] or [REPO / "cirkit_tpu_torch" / "csrc"]
+    reports = [report(t) for t in trees]
+    names = sorted(set().union(*reports))
+    print("kernel | " + " | ".join(str(t) for t in trees))
+    for name in names:
+        print(f"{name} | " + " | ".join(r.get(name, "-") for r in reports))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,9 +14,13 @@ by the plain score of the index it picks, and the routing draws by their
 frequencies against ``softmax(scores)``. The wide kernels (the K1-chunked
 Tucker forward, the blocked dense forward and backward) are held against
 their plain versions with the same bounds, at small widths with
-``WIDE_WIDTH`` patched down and at the K=128 entry shapes. A small
-circuit's forward, its gradients and its queries through the kernels are
-held against the same store evaluated in float64 on the CPU.
+``WIDE_WIDTH`` patched down and at the K=128 entry shapes. The signed
+kernels are held against their plain versions in linear space scaled by
+each row's absolute mass (a sum that nearly cancels has no accurate
+log-magnitude in f32), at small widths and at the SoS TensorDot entry. A
+small circuit's forward, its gradients and its queries through the
+kernels, and a small squared circuit's, are held against the same store
+evaluated in float64 on the CPU.
 """
 
 import numpy as np
@@ -469,3 +473,133 @@ def test_wide_kernels_at_the_k128_entry_shapes(op):
     assert T.LAUNCHES[fwd_key] == 1 and T.LAUNCHES[op] == 0
     for a, r in zip(grads, refs):
         _close(a, r)
+
+
+# --------------------------------------------------------------------------- #
+# The signed kernels (the SIGNED instances of csrc/lse_einsum*.cu)
+# --------------------------------------------------------------------------- #
+
+SIGNED_OPS = ["slse_matmul", "slse_matmul_softmax", "slse_tucker2", "slse_tucker2_softmax"]
+
+
+def _signed_inputs(op, f, b, o, k1=8, k2=16, i=32):
+    """(log-magnitude, sign) inputs with signs in {-1, 0, +1} and weights of
+    both signs (or logits)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ins = []
+    for k in ((k1, k2) if "tucker" in op else (i,)):
+        ins += [torch.randn((f, b, k), generator=gen, device="cuda") * 3.0 - 2.0,
+                torch.randint(-1, 2, (f, b, k), generator=gen, device="cuda").float()]
+    width = k1 * k2 if "tucker" in op else i
+    ins.append(torch.randn((f, o, width), generator=gen, device="cuda"))
+    return ins
+
+
+def _signed_close(op, ins, got, ref, tol=1e-5):
+    """The forward bound of chip_smoke's phase 3d: in linear space scaled by
+    the row's absolute mass A, ``|s exp(a - A) - s' exp(a' - A)| <= tol``;
+    signs equal above the bound; (-inf, 0) where the mass is 0."""
+    (ga, gs), (pa, ps) = got, ref
+    *xs, w = ins
+    wabs = torch.softmax(w, dim=-1) if "softmax" in op else w.abs()
+    mass = (T.lse_tucker2_ref(xs[0], xs[2], wabs) if "tucker" in op
+            else T.lse_matmul_ref(xs[0], wabs))
+    assert not torch.isnan(ga).any() and not torch.isnan(gs).any()
+    empty = torch.isneginf(mass)
+    assert torch.isneginf(ga[empty]).all() and (gs[empty] == 0).all()
+    lin_k = torch.where(empty, 0.0, gs * torch.exp(ga - mass))
+    lin_p = torch.where(empty, 0.0, ps * torch.exp(pa - mass))
+    assert float((lin_k - lin_p).abs().max()) <= tol
+    assert not bool(((gs != ps) & (lin_p.abs() > tol)).any())
+
+
+@pytest.mark.parametrize("f,b,o", [(3, 8, 16), (3, 13, 1), (2, 130, 70), (144, 4096, 32)])
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_kernels_match_plain(op, f, b, o):
+    """Forward and backward of each signed entry against its plain versions,
+    with a row that is all -inf and a cotangent that is 0 on some rows; the
+    last shape is the SoS TensorDot entry (B*Kq = 4096, I = O = 32)."""
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    if "tucker" in op and f == 144:
+        f, b, o = 8, 512, 64  # the Tucker configurations at a larger batch instead
+    ins = _signed_inputs(op, f, b, o)
+    ins[0][0, 2] = float("-inf")
+    ins = [t.requires_grad_(k % 2 == 0 or k == len(ins) - 1) for k, t in enumerate(ins)]
+    oa, os_ = getattr(S, op)(*ins)
+    assert not os_.requires_grad
+    with torch.no_grad():
+        ref = getattr(S, f"{op}_ref")(*ins)
+    _signed_close(op, [t.detach() for t in ins], (oa.detach(), os_), ref)
+    assert torch.isneginf(oa[0, 2]).all() and (os_[0, 2] == 0).all()
+    g = torch.randn(oa.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[1, :3] = 0.0
+    diff = [t for t in ins if t.requires_grad]
+    grads = torch.autograd.grad(oa, diff, g)
+    with torch.no_grad():  # on the kernel's own outputs: g / y is ill-conditioned near y = 0
+        refs = [r for r in getattr(S, f"{op}_bwd_ref")(*ins, oa.detach(), os_, g)
+                if r is not None]
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op] == 1 and T.LAUNCHES[f"{op}_bwd"] == 1
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        _close(got, r, zeros=k < len(refs) - 1)
+    assert (grads[0][0, 2] == 0).all()
+
+
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_exact_cancellation(op):
+    """Equal magnitudes with alternating signs against equal weights: y = 0
+    exactly gives (-inf, sign 0) and zero gradients, never NaN."""
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    alt = torch.tensor([1.0, -1.0], device="cuda").repeat(8)
+    if "tucker" in op:
+        ins = [torch.zeros(1, 8, 4, device="cuda"), alt[:4].expand(1, 8, 4).contiguous(),
+               torch.zeros(1, 8, 4, device="cuda"), torch.ones(1, 8, 4, device="cuda")]
+    else:
+        ins = [torch.zeros(1, 8, 16, device="cuda"), alt.expand(1, 8, 16).contiguous()]
+    ins.append((torch.zeros if "softmax" in op else torch.ones)(1, 8, 16, device="cuda"))
+    ins = [t.requires_grad_(k % 2 == 0 or k == len(ins) - 1) for k, t in enumerate(ins)]
+    oa, os_ = getattr(S, op)(*ins)
+    assert torch.isneginf(oa).all() and (os_ == 0).all()
+    grads = torch.autograd.grad(oa, [t for t in ins if t.requires_grad], torch.ones_like(oa))
+    assert all(bool((gr == 0).all()) for gr in grads)
+
+
+def test_small_squared_circuit_through_the_kernels():
+    """bench.py's SoS circuit at 6x6, K=8 on the card: one slse_matmul launch
+    per TensorDot entry, and the forward of sq and zc against the same
+    store in float64 on the CPU: zc to rtol 1e-5, sq to 1e-3 (its f32
+    evaluation squares each sum's cancellation: the plain f32 composition
+    on the CPU is off float64 by 1e-4 here; see chip_smoke's SOS_SQ_RTOL)."""
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTensorDotLayer
+    from cirkit_tpu_torch.models.utils import Parameterization
+
+    def build(device):
+        sc = image_data((1, 6, 6), "quad-tree-2", input_layer="categorical", num_input_units=8,
+                        sum_product_layer="cp", num_sum_units=8,
+                        sum_weight_param=Parameterization(activation="none",
+                                                          initialization="normal"))
+        ctx = PipelineContext(semiring="signed-lse-sum", fold=True, optimize=True, seed=0,
+                              device=device)
+        cc = ctx.compile(sc)
+        sq = ctx.multiply(ctx.conjugate(cc), cc)
+        return ctx, sq, ctx.integrate(sq)
+
+    ctx, sq, zc = build("cuda")
+    ctx_cpu, sq_cpu, zc_cpu = build("cpu")
+    ctx_cpu.load_parameters(
+        {s: v.detach().cpu().numpy() for s, v in ctx.parameters.items()}, dtype=torch.float64
+    )
+    x = np.random.default_rng(0).integers(0, 256, (16, 36))
+    for circuit, ref_circuit, rtol in ((sq, sq_cpu, 1e-3), (zc, zc_cpu, 1e-5)):
+        for op in T.LAUNCHES:
+            T.LAUNCHES[op] = 0
+        with torch.inference_mode():
+            a, s = circuit(torch.as_tensor(x, device="cuda"))
+            ra, rs = ref_circuit(torch.as_tensor(x))
+        assert T.LAUNCHES["slse_matmul"] == sum(isinstance(l, TorchTensorDotLayer)
+                                                for l in circuit.layers)
+        np.testing.assert_allclose(a.double().cpu().numpy(), ra.numpy(), rtol=rtol)
+        assert (rs == 1).all() and (s != 0).all()
