@@ -50,6 +50,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``|s_k exp(a_k - A) - s_p exp(a_p - A)| <= 1e-5``, a sign differing only
    below that bound (counted), an exact cancellation giving (-inf, 0); the
    backward with phase 3b's bound;
+3e. complex against plain: ``clse_matmul`` and ``clse_tucker2``, forward
+   and backward, against their plain versions at the SoS TensorDot entry,
+   the K=64 Tucker entry (with the real weights the flagship gives it, and
+   with complex ones), a dense mixing entry and edge shapes (O=1, O=70,
+   B=13, K1 != K2, a row whose real parts are all -inf, an exact
+   cancellation, real weights), in complex64 and complex128: the forward in
+   linear space scaled by the row's absolute mass as phase 3d, on the real
+   and the imaginary part (1e-5; 1e-12 in complex128), the backward to
+   phase 3b's bound on every plane of every gradient (1e-9 in complex128);
+   an exact cancellation gives a real part of -inf and zero gradients;
+3f. float64 against plain: the ``double`` instances of the single-pass lse
+   kernels and of the signed kernels, forward and backward, at their
+   flagship and SoS entries and at an edge shape (``F64_*`` below); a
+   float64 Tucker backward too wide for a block's shared memory raises;
 4. slice: the MNIST QuadGraph flagship forward (K=64, 784 variables, batch
    128) for the Tucker circuit, the CP circuit and the Tucker circuit with
    plain (EM-ready) weights, through ``PipelineContext.compile`` and
@@ -117,17 +131,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 4's stores loaded by slot name: forwards equal to the lse-sum ones
    (rtol 1e-5) with every sign +1, one backward's gradients within the
    ``GRAD_*`` bound of the lse-sum ones, the launches of each signed
-   kernel, and the forward's median ms beside the lse-sum one's. Phases 9
-   and 9b run after phase 7; phase 4's stores are freed before phase 8.
+   kernel, and the forward's median ms beside the lse-sum one's;
+10. complex SoS: phase 9's circuit under the complex semiring at 12x12 and
+   28x28, batch 128. (a) Phase 9's store loaded by slot name: sq's real
+   part within ``SOS_SQ_RTOL`` and log Z within 1e-5 of the signed run's,
+   phases 0 or pi. (b) Complex normal sum weights (``dtype="complex"``),
+   seed 0: one ``clse_matmul`` launch per TensorDot entry a forward of
+   ``sq`` and of ``zc``; 8 rows of sq, log Z and the marginals against
+   complex128 on the CPU; Im(log Z) a multiple of 2 pi; every normalized
+   log-likelihood at most 1e-4; the gradients of cc's slots on 8 rows
+   against complex128 (held at 12x12, measured at 28x28); 10 Adam steps on
+   the SoS loss with one backward launch per entry a step; the median ms
+   of each, peak memory, device time by kernel category;
+10b. the K=64 Tucker flagship of phase 4 under the complex semiring with
+   phase 4's store (softmaxed, real weights): the real part equal to the
+   lse-sum forward (rtol 1e-5), phases 0, 10 ``clse_tucker2`` and 5
+   ``clse_matmul`` launches a forward, one backward's gradients within the
+   ``GRAD_*`` bound of the lse-sum ones, the median ms beside lse-sum's and
+   signed's. Phases 9 to 10b run after phase 7; phase 4's stores are freed
+   before phase 8.
 
 The line before the last is a JSON object with each kernel's launches on
 its main paths (the forward ops in phases 4 and 8, the backward ops in
 phases 5 and 8, the routing ops in phase 7, the signed ops in phases 9 and
-9b), its worst error (for the signed forward, phase 3d's linear one), its
+9b, the complex ops in phases 10 and 10b), its worst error (for the signed
+and complex forwards, the linear one of phases 3d and 3e), its
 median time beside the plain version's and its bound: the larger of its FMA work
-(or, for the routing kernels, its add and max operations) over the card's
+(or, for the routing kernels, its add and max operations; 4 FMAs per complex
+multiply-add, 2 against a real weight) over the card's
 f32 peak and the bytes it must move over its memory rate, at the shape
-timed. The last line is ``{"ok": true, "device": {...}}``.
+timed. Before it, the run's total seconds. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -145,6 +179,7 @@ REPO = Path(__file__).resolve().parent
 FWD_OPS = ("lse_matmul", "lse_matmul_softmax", "lse_tucker2", "lse_tucker2_softmax")
 ROUTE_OPS = ("tropical_tucker2", "route_tucker2")
 SIGNED_OPS = ("slse_matmul", "slse_matmul_softmax", "slse_tucker2", "slse_tucker2_softmax")
+COMPLEX_OPS = ("clse_matmul", "clse_tucker2")
 _CSRC, _PALLAS = "cirkit_tpu_torch/csrc/", "cirkit_tpu/ops/lse_einsum.py:"
 KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     **{op: (_CSRC + "lse_einsum.cu", _PALLAS + "335") for op in FWD_OPS},
@@ -157,10 +192,13 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     "route_tucker2": (_CSRC + "tucker_route.cu", _PALLAS + "1176"),
     **{op: (_CSRC + "lse_einsum.cu", _PALLAS + "938") for op in SIGNED_OPS},
     **{f"{op}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "957") for op in SIGNED_OPS},
+    **{op: (_CSRC + "clse_einsum.cu", _PALLAS + "1424") for op in COMPLEX_OPS},
+    **{f"{op}_bwd": (_CSRC + "clse_einsum.cu", _PALLAS + "1439") for op in COMPLEX_OPS},
 }
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
 # f32 outside the tensor cores, and device memory.
 F32_PEAK, HBM_RATE = 67e12, 3.35e12
+F64_PEAK = 34e12  # the same data sheet's FP64 rate outside the tensor cores
 DEV = "cuda"  # the device of phases 3, 3b, 3c, 7 and 8
 ROUTE_FLAGSHIP = (784, 128, 64, 64, 64)  # F, B, K1, K2, O of the largest Tucker entry
 TROP_ATOL = TROP_RTOL = 1e-5  # tropical bound: TROP_RTOL |plain| + TROP_ATOL
@@ -228,6 +266,21 @@ SOS_SQ_RTOL = 1e-3
 # composition on the CPU alike (the same script). So at 28x28 the error is
 # measured and printed, not held to a bound.
 SOS_GRAD_SIDE = 12
+# Phase 3e's bounds on the complex kernels by value type: the forward in linear
+# space scaled by the row's absolute mass, on the real and the imaginary part
+# (as SIGNED_TOL), and the backward on each plane of each gradient (as BWD_REL).
+COMPLEX_TOL = {"complex64": (SIGNED_TOL, BWD_REL), "complex128": (1e-12, 1e-9)}
+# Phase 3f's bounds on the float64 instances of the lse and signed kernels:
+# |kernel - plain| <= F64_TOL (1 + |plain|) in log space (the signed ones:
+# F64_SIGNED_TOL of the row's absolute mass, in linear space), and F64_BWD_REL
+# (max|plain| + |plain|) on each gradient.
+F64_TOL, F64_SIGNED_TOL, F64_BWD_REL = 1e-10, 1e-12, 1e-9
+# Phase 10: Im(log Z) is a multiple of 2 pi (Z is real and positive), and the
+# phase of |c(x)|^2 is 0, or pi where f32 cancellation leaves it negative. A
+# phase off by d radians is the same linear error as a log-magnitude off by d,
+# and a sum that cancels amplifies both alike (the f32 pi of a negative weight
+# is 8.7e-8 off, times a cancellation ratio of up to 1e8): so each phase is
+# held to the absolute error its log-magnitude is allowed, rtol |Re value|.
 
 
 def _median_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
@@ -836,10 +889,13 @@ def _check_grads(label: str, got, want, *, strict: bool = True) -> float:
     """Each slot's gradient within GRAD_REL max|want| + GRAD_ABS of ``want``
     (``strict``; else only finite); returns the worst error as a share of
     that bound."""
+    import torch
+
     worst = 0.0
     for k, r in want.items():
-        g = got[k].double().cpu()
-        r = r.double().cpu()
+        wide = torch.complex128 if r.is_complex() else torch.float64
+        g = got[k].to(wide).cpu()
+        r = r.to(wide).cpu()
         err = float((g - r).abs().max())
         share = err / (GRAD_REL * float(r.abs().max()) + GRAD_ABS)
         if not bool(g.isfinite().all()) or (strict and not share <= 1.0):
@@ -1323,9 +1379,10 @@ def _signed_cases(gen):
     return cases
 
 
-def _signed_check(op: str, label: str, got, ref, ins) -> tuple[float, int]:
+def _signed_check(op: str, label: str, got, ref, ins,
+                  tol: float = SIGNED_TOL) -> tuple[float, int]:
     """Phase 3d's forward bound: ``|s_k exp(a_k - A) - s_p exp(a_p - A)| <=
-    SIGNED_TOL`` with A the row's absolute mass, no NaN, -inf with sign 0
+    tol`` with A the row's absolute mass, no NaN, -inf with sign 0
     where the mass is 0, and a sign that differs from the plain one only
     where ``|y| / Y_abs`` is under the bound. Returns the worst error and the
     number of signs that differ."""
@@ -1348,8 +1405,8 @@ def _signed_check(op: str, label: str, got, ref, ins) -> tuple[float, int]:
     lin_p = torch.where(empty, 0.0, ps * torch.exp(pa - mass))
     max_err = float((lin_k - lin_p).abs().max())
     flips = gs != ps
-    if not max_err <= SIGNED_TOL or bool((flips & (lin_p.abs() > SIGNED_TOL)).any()):
-        raise AssertionError(f"{op} [{label}]: linear error {max_err:.3e} (bound {SIGNED_TOL} "
+    if not max_err <= tol or bool((flips & (lin_p.abs() > tol)).any()):
+        raise AssertionError(f"{op} [{label}]: linear error {max_err:.3e} (bound {tol} "
                              f"of the row's absolute mass) or a sign differs above it")
     return max_err, int(flips.sum())
 
@@ -1476,12 +1533,13 @@ def _counted_launches(label: str, fn, want: dict[str, int], launches: dict[str, 
     return out
 
 
-def phase_sos(smi: str) -> dict[str, int]:
+def phase_sos(smi: str) -> tuple[dict[str, int], dict]:
     """Phase 9: bench_sos's squared circuit under the signed semiring at each
     of SOS_SIDES, K=32, batch 128: the forwards of ``cc``, ``sq`` and
     ``zc``, the normalized log-likelihood, ``IntegrateQuery`` marginals and
     Adam steps on the SoS loss; returns each kernel's launches over the
-    counted (main-path) calls."""
+    counted (main-path) calls, and per side the store, sq's log-magnitudes and
+    log Z (phase 10 evaluates the same store under the complex semiring)."""
     import numpy as np
     import torch
 
@@ -1492,6 +1550,7 @@ def phase_sos(smi: str) -> dict[str, int]:
     from cirkit_tpu_torch.pipeline import PipelineContext
 
     launches: dict[str, int] = {}
+    runs: dict[int, tuple] = {}
     for side in SOS_SIDES:
         label = f"[sos] {side}x{side} K={SOS_K}"
         gc.collect()
@@ -1534,6 +1593,7 @@ def phase_sos(smi: str) -> dict[str, int]:
                                       lambda: iq(x, integrate_vars=mask, store=st),
                                       {"slse_matmul": n_sq}, launches)
         (ca, cs), (sa, ss), (za, zs), (ma, ms_) = c_out, s_out, z_out, m_out
+        runs[side] = ({k: v.detach().clone() for k, v in st.items()}, sa, za)
         nll = sa[:, 0, 0] - za[0, 0, 0]
         id_rel = float(((sa - 2 * ca).abs() / sa.abs()).max())
         flips = int((ss != 1).sum())  # |c|^2 computed below 0 (see SOS_SQ_RTOL)
@@ -1636,15 +1696,16 @@ def phase_sos(smi: str) -> dict[str, int]:
               f"{BATCH / ms * 1e3:.1f} samples/s; peak memory "
               f"{peak_gb():.2f} GB; step profile: {profile} ({smi})")
         del ctx, cc, sq, zc, st, tr, fr, opt, iq
-    return launches
+    return launches, runs
 
 
-def phase_signed_flagships(smi: str, built: list) -> dict[str, int]:
+def phase_signed_flagships(smi: str, built: list) -> tuple[dict[str, int], dict]:
     """Phase 9b: phase 4's K=64 flagships (Tucker, CP and the EM-ready
     Tucker store) compiled under the signed semiring from the same symbolic
     circuits, with phase 4's lse-sum stores loaded by slot name: the forward
     against the lse-sum one, every sign +1, and one backward's gradients;
-    returns each kernel's launches over the counted calls. The Tucker
+    returns each kernel's launches over the counted calls and each signed
+    forward's median ms. The Tucker
     circuits run the Tucker configurations of the signed kernels, the CP
     circuit the softmax dense one."""
     import numpy as np
@@ -1654,13 +1715,14 @@ def phase_signed_flagships(smi: str, built: list) -> dict[str, int]:
 
     x = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (BATCH, 784)), device=DEV)
     launches: dict[str, int] = {}
+    times: dict[tuple, float] = {}
     for spl, em, sc, ctx, cc, _ in built:
         label = f"[signed flagship] {spl} em_ready={em}"
         sctx = PipelineContext(semiring="signed-lse-sum", fold=True, optimize=True, device=DEV,
                                seed=0)
         scc = sctx.compile(sc)
         sctx.update_parameters(ctx.parameters)  # by slot name, sharing the tensors
-        fwd, bwd = _expected_launches(scc, signed=True)
+        fwd, bwd = _expected_launches(scc, values="signed")
         st, sst = ctx.parameters, sctx.parameters
         with torch.inference_mode():
             ref = cc.evaluate(st, x)
@@ -1682,21 +1744,641 @@ def phase_signed_flagships(smi: str, built: list) -> dict[str, int]:
         with torch.inference_mode():
             ms = _median_ms(lambda: scc.evaluate(sst, x))
             ms_lse = _median_ms(lambda: cc.evaluate(st, x))
+        times[spl, em] = ms
         print(f"{label}: launches a forward {fwd}, a backward {bwd}; forward equals lse-sum "
               f"(max rel err {rel:.2e}), signs +1; gradients of {len(want)} slots within "
               f"{worst:.3f} of the bound; forward {ms:.3f} ms signed, {ms_lse:.3f} ms lse-sum "
               f"(median of 20, batch {BATCH}) ({smi})")
         del sctx, scc, got, want, sst
+    return launches, times
+
+
+# --------------------------------------------------------------------------- #
+# The complex kernels (phase 3e), the float64 instances (phase 3f), squared
+# circuits under the complex semiring (phase 10) and the Tucker flagship
+# under it (phase 10b)
+# --------------------------------------------------------------------------- #
+
+
+def _complex_cases(gen):
+    """(op, make inputs, label, timed) of phase 3e: the SoS TensorDot entry,
+    the K=64 Tucker entry with the real weights the flagship gives it and with
+    complex ones, a dense mixing entry, the two largest in complex128, then
+    the edge shapes in both types. Real parts are drawn as the lse cases',
+    phases uniform in (-pi, pi], weights normal (complex, or real); inputs are
+    made when their case runs."""
+    import math
+
+    import torch
+
+    dev = DEV
+    c64, c128 = torch.complex64, torch.complex128
+
+    def make(op, f, b, widths, o, ctype, *edits, real_w=False):
+        def build():
+            real = torch.float64 if ctype == c128 else torch.float32
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=dev, dtype=real)
+
+            def value(*shape):
+                phase = (torch.rand(shape, generator=gen, device=dev, dtype=real) * 2 - 1) * math.pi
+                return torch.complex(randn(*shape) * 3.0 - 2.0, phase)
+
+            ins = [value(f, b, k) for k in widths]
+            shape = (f, o, widths[0] * widths[-1] if "tucker" in op else widths[0])
+            ins.append(randn(*shape) if real_w else torch.complex(randn(*shape), randn(*shape)))
+            for t, idx, v in edits:
+                ins[t][idx] = v
+            return ins
+        return build
+
+    def cancel(op, ctype):
+        """Equal magnitudes of phase 0 against weights +1 and -1: y is exactly
+        0, so the real part is -inf."""
+        def build():
+            n = 2 if "tucker" in op else 1
+            ins = [torch.zeros(1, 8, 4 if n == 2 else 16, device=dev, dtype=ctype)
+                   for _ in range(n)]
+            alt = torch.tensor([1.0, -1.0], device=dev).repeat(8).to(ctype)
+            return [*ins, alt.expand(1, 8, 16).contiguous()]
+        return build
+
+    b, row = BATCH, (0, (1, 5), complex(float("-inf"), 0.5))
+    cases = [
+        ("clse_matmul", make("clse_matmul", 144, 32 * b, (32,), 32, c64),
+         "SoS entry F=144 B*Kq=4096 I=O=32", True),
+        ("clse_tucker2", make("clse_tucker2", 784, b, (64, 64), 64, c64, real_w=True),
+         "F=784 B=128 K1=K2=O=64, real w", True),
+        ("clse_tucker2", make("clse_tucker2", 784, b, (64, 64), 64, c64),
+         "F=784 B=128 K1=K2=O=64, complex w", True),
+        ("clse_matmul", make("clse_matmul", 196, b, (128,), 64, c64, real_w=True),
+         "mixing F=196 B=128 I=128 O=64, real w", True),
+        ("clse_matmul", make("clse_matmul", 144, 32 * b, (32,), 32, c128),
+         "SoS entry, complex128", True),
+        ("clse_tucker2", make("clse_tucker2", 784, b, (64, 64), 64, c128, real_w=True),
+         "F=784 B=128 K1=K2=O=64, real w, complex128", True),
+    ]
+    for ctype, tag in ((c64, ""), (c128, ", complex128")):
+        for op in COMPLEX_OPS:
+            tucker = "tucker" in op
+            ws = (64, 64) if tucker else (64,)
+            small = (8, 16) if tucker else (64,)
+            cases += [
+                (op, make(op, 2, b, ws, 1, ctype), "O=1" + tag, False),
+                (op, make(op, 5, 13, small, 70, ctype),
+                 "B=13 O=70" + (" K1=8 K2=16" if tucker else "") + tag, False),
+                (op, make(op, 3, 16, ws, 64, ctype, row), "a row -inf" + tag, False),
+                (op, make(op, 3, 16, small, 16, ctype, real_w=True), "real w" + tag, False),
+                (op, cancel(op, ctype), "exact cancellation" + tag, False),
+            ]
+    return cases
+
+
+def _complex_mass(ins):
+    """The log of each output row's absolute mass: the lse of the inputs' real
+    parts against ``|w|``, the scale of the linear-space comparison."""
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    *xs, w = ins
+    res = [x.real.contiguous() for x in xs]
+    return (L.lse_tucker2_ref if len(xs) == 2 else L.lse_matmul_ref)(*res, w.abs())
+
+
+def _complex_check(op: str, label: str, got, ref, ins, tol: float) -> float:
+    """Phase 3e's forward bound: ``|exp(out_k - A) - exp(out_p - A)| <= tol``
+    on the real and on the imaginary part, with A the row's absolute mass; no
+    NaN, and a real part of -inf where the mass is 0. Returns the worst error."""
+    import torch
+
+    mass = _complex_mass(ins)
+    if got.shape != ref.shape or got.dtype != ref.dtype or torch.isnan(got.real).any() \
+            or torch.isnan(got.imag).any():
+        raise AssertionError(f"{op} [{label}]: shape {tuple(got.shape)}, {got.dtype} or NaN")
+    empty = torch.isneginf(mass)
+    if not bool(torch.isneginf(got.real[empty]).all()):
+        raise AssertionError(f"{op} [{label}]: a row of zero mass is not -inf")
+    diff = torch.where(empty, 0.0, torch.exp(got - mass) - torch.exp(ref - mass))
+    max_err = float(torch.maximum(diff.real.abs(), diff.imag.abs()).max())
+    if not max_err <= tol:
+        raise AssertionError(f"{op} [{label}]: linear error {max_err:.3e} (bound {tol} of the "
+                             "row's absolute mass)")
+    return max_err
+
+
+def _complex_bound(key: str, ins, peak: float = F32_PEAK) -> tuple[float, str]:
+    """``_bound`` for the complex ops: a complex multiply-add is 4 real FMAs,
+    2 against a real weight; the forward reads the inputs and writes the
+    complex output, the backward also reads the output and g, writes a
+    gradient per input and does two contractions."""
+    *xs, w = ins
+    f, b = xs[0].shape[:2]
+    o, i = w.shape[1:]
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    out = xs[0].element_size() * f * b * o
+    flops = (8 if w.is_complex() else 4) * f * b * i * o
+    if key.endswith("_bwd"):
+        flops, moved = 2 * flops, 2 * nbytes + 2 * out
+    else:
+        moved = nbytes + out
+    t_ops, t_bytes = flops / peak * 1e3, moved / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _planes(t):
+    """The real tensors a gradient is made of: itself, or its two planes."""
+    return ((t.real, "re"), (t.imag, "im")) if t.is_complex() else ((t, ""),)
+
+
+def _check_backward(bkey: str, label: str, names, got, ref, rel: float) -> float:
+    """Each gradient (each plane of a complex one) within ``rel (max|plain| +
+    |plain|)`` of the plain version's, no NaN, and the input gradients 0
+    where the plain ones are; returns the worst absolute error."""
+    import torch
+
+    worst = 0.0
+    for name, k, p in zip(names, got, ref):
+        if k.shape != p.shape or k.dtype != p.dtype:
+            raise AssertionError(f"{bkey} [{label}] {name}: {tuple(k.shape)} {k.dtype}")
+        scale = p.abs().max()
+        for (kp, tag), (pp, _) in zip(_planes(k), _planes(p)):
+            if torch.isnan(kp).any():
+                raise AssertionError(f"{bkey} [{label}] {name}{tag}: NaN")
+            if name != "dw" and not bool((kp[pp == 0] == 0).all()):
+                raise AssertionError(f"{bkey} [{label}] {name}{tag}: not 0 where the plain is 0")
+            err = (kp - pp).abs()
+            if not bool((err <= rel * (scale + pp.abs())).all()):
+                raise AssertionError(
+                    f"{bkey} [{label}] {name}{tag}: max |kernel - plain| = {float(err.max()):.3e} "
+                    f"(bound {rel} (max|plain| + |plain|), max|plain| {float(scale):.3e})")
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_complex() -> dict[str, dict]:
+    """Phase 3e: the complex kernels, forward and backward, against their
+    plain versions; returns per-kernel results (times and bound of the first
+    case of each: the SoS entry for ``clse_matmul``, the K=64 Tucker entry
+    with real weights, as the flagship gives it, for ``clse_tucker2``)."""
+    import torch
+
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    results: dict[str, dict] = {}
+    with torch.inference_mode():
+        for op, make, label, timed in _complex_cases(gen):
+            ins = make()
+            ctype = str(ins[0].dtype).removeprefix("torch.")
+            tol, rel = COMPLEX_TOL[ctype]
+            peak = F64_PEAK if ctype == "complex128" else F32_PEAK
+            plain, plain_bwd = C._ENTRIES[op]
+            got = getattr(C, op)(*ins)
+            ref = plain(*ins)
+            torch.cuda.synchronize()
+            max_err = _complex_check(op, label, got, ref, ins, tol)
+            if label.startswith("exact cancellation") and not bool(
+                    torch.isneginf(got.real).all() & torch.isneginf(ref.real).all()):
+                raise AssertionError(f"{op} [{label}]: real part not -inf")
+            entry = results.setdefault(op, {"max_abs_err": 0.0})
+            if ctype == "complex64":
+                entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+            line = f"[complex] {op:16s} {label:44s} linear err {max_err:.3e}"
+            if timed:
+                ms = _median_ms(lambda: getattr(C, op)(*ins))
+                plain_ms = _median_ms(lambda: plain(*ins))
+                bound_ms, bound_by = _complex_bound(op, ins, peak)
+                if "ms" not in entry:
+                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                line += (f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+                         f"ms ({bound_by})")
+            print(line)
+
+            # the backward on the plain forward's output, with a cotangent that
+            # is 0 on some rows
+            real = ref.real.dtype
+            g = torch.complex(*(torch.randn(ref.shape, generator=gen, device=DEV, dtype=real)
+                                for _ in range(2)))
+            g[0, : min(3, g.shape[1])] = 0.0
+            bkey = f"{op}_bwd"
+
+            def kernel(ins=ins, ref=ref, g=g, op=op):
+                return C.backward(op, tuple(ins), ref, g)
+
+            def plain_b(ins=ins, ref=ref, g=g, plain_bwd=plain_bwd):
+                return plain_bwd(*ins, ref, g)
+
+            got_b, ref_b = kernel(), plain_b()
+            torch.cuda.synchronize()
+            names = ("dx1", "dx2", "dw") if len(ins) == 3 else ("dx", "dw")
+            max_err = _check_backward(bkey, label, names, got_b, ref_b, rel)
+            if label.startswith("exact cancellation") and not all(
+                    bool((k == 0).all()) for k in got_b):
+                raise AssertionError(f"{bkey} [{label}]: gradients not 0")
+            entry = results.setdefault(bkey, {"max_abs_err": 0.0})
+            if ctype == "complex64":
+                entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+            line = f"[complex] {bkey:16s} {label:44s} max|err|={max_err:.3e}"
+            if timed:
+                ms, plain_ms = _median_ms(kernel), _median_ms(plain_b)
+                bound_ms, bound_by = _complex_bound(bkey, ins, peak)
+                if "ms" not in entry:
+                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                line += (f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+                         f"ms ({bound_by})")
+            print(line)
+            del ins, got, ref, got_b, ref_b, g
+    return results
+
+
+def _float64_cases(gen):
+    """(module, op, make inputs, label, timed) of phase 3f: each lse op at its
+    flagship entry and each signed op at the SoS entry (dense) or the K=64
+    Tucker entry, then a ragged edge shape with O=1 and a row that is all -inf
+    for every op, all in float64."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    def make(op, f, b, widths, o, *edits):
+        def build():
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=DEV, dtype=torch.float64)
+
+            ins = []
+            for k in widths:
+                ins.append(randn(f, b, k) * 3.0 - 2.0)
+                if op.startswith("slse"):
+                    ins.append(torch.randint(-1, 2, (f, b, k), generator=gen, device=DEV).double())
+            width = widths[0] * widths[-1] if "tucker" in op else widths[0]
+            if op.startswith("slse") or "softmax" in op:
+                ins.append(randn(f, o, width))
+            else:
+                ins.append(torch.rand((f, o, width), generator=gen, device=DEV,
+                                      dtype=torch.float64) * 0.99 + 0.01)
+            for t, idx, v in edits:
+                ins[t][idx] = v
+            return ins
+        return build
+
+    b, row = BATCH, (0, (1, 5), float("-inf"))
+    cases = []
+    for mod, ops in ((L, FWD_OPS), (S, SIGNED_OPS)):
+        for op in ops:
+            if "tucker" in op:
+                shape, label = (784, b, (64, 64), 64), "F=784 B=128 K1=K2=O=64"
+            elif mod is S:
+                shape, label = (144, 32 * b, (32,), 32), "SoS entry F=144 B*Kq=4096 I=O=32"
+            elif "softmax" in op:
+                shape, label = (1568, b, (64,), 64), "F=1568 B=128 I=64 O=64"
+            else:
+                shape, label = (196, b, (128,), 64), "F=196 B=128 I=128 O=64"
+            cases.append((mod, op, make(op, *shape), label, True))
+    for mod, ops in ((L, FWD_OPS), (S, SIGNED_OPS)):
+        for op in ops:
+            widths = (8, 16) if "tucker" in op else (64,)
+            cases.append((mod, op, make(op, 5, 13, widths, 1, row), "B=13 O=1, a row -inf", False))
+    return cases
+
+
+def phase_float64() -> None:
+    """Phase 3f: the float64 instances of the single-pass lse kernels and of
+    the signed kernels, forward and backward, against their plain versions on
+    the card, each timed at its first shape."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    with torch.inference_mode():
+        for mod, op, make, label, timed in _float64_cases(gen):
+            ins = make()
+            signed = op.startswith("slse")
+            plain, plain_bwd = mod._ENTRIES[op][2:4]
+            got = getattr(mod, op)(*ins)
+            ref = plain(*ins)
+            torch.cuda.synchronize()
+            if signed:
+                if got[0].dtype != torch.float64 or got[1].dtype != torch.float64:
+                    raise AssertionError(f"{op} [{label}]: outputs not float64")
+                max_err, _ = _signed_check(op, label, got, ref, ins, F64_SIGNED_TOL)
+                outs = ref
+            else:
+                if got.dtype != torch.float64 or got.shape != ref.shape or torch.isnan(got).any():
+                    raise AssertionError(f"{op} [{label}]: {got.dtype} {tuple(got.shape)} or NaN")
+                finite = torch.isfinite(ref)
+                err = (got[finite] - ref[finite]).abs()
+                max_err = float(err.max())
+                if not torch.equal(torch.isneginf(got), torch.isneginf(ref)) or not bool(
+                        (err <= F64_TOL * (1 + ref[finite].abs())).all()):
+                    raise AssertionError(f"{op} [{label}]: max |kernel - plain| = {max_err:.3e} "
+                                         f"(bound {F64_TOL} (1 + |plain|)) or -inf pattern")
+                outs = (ref,)
+            line = f"[float64] {op:22s} {label:34s} err {max_err:.3e}"
+            if timed:
+                line += (f"  kernel {_median_ms(lambda: getattr(mod, op)(*ins), iters=10):.3f} ms, "
+                         f"plain {_median_ms(lambda: plain(*ins), iters=10):.3f} ms")
+            g = torch.randn(outs[0].shape, generator=gen, device=DEV, dtype=torch.float64)
+            g[0, : min(3, g.shape[1])] = 0.0
+
+            def kernel(ins=ins, outs=outs, g=g, op=op, mod=mod):
+                return mod.backward(op, tuple(ins), *outs, g)
+
+            def plain_b(ins=ins, outs=outs, g=g, plain_bwd=plain_bwd):
+                return plain_bwd(*ins, *outs, g, (True,) * len(ins))
+
+            got_b, ref_b = kernel(), plain_b()
+            torch.cuda.synchronize()
+            pairs = [(k, p) for k, p in zip(got_b, ref_b) if p is not None]
+            names = [f"d{n}" for n in range(len(pairs) - 1)] + ["dw"]
+            max_err = _check_backward(f"{op}_bwd", label, names, *zip(*pairs), F64_BWD_REL)
+            line += f"; backward max|err|={max_err:.3e}"
+            if timed:
+                line += (f"  kernel {_median_ms(kernel, iters=10):.3f} ms, plain "
+                         f"{_median_ms(plain_b, iters=10):.3f} ms")
+            print(line)
+            del ins, got, ref, got_b, ref_b, g, outs, pairs
+    # what the double instances do not take raises, with no plain fallback
+    x1, x2 = (torch.zeros(1, 8, 90, device=DEV, dtype=torch.float64) for _ in range(2))
+    w = torch.ones(1, 16, 8100, device=DEV, dtype=torch.float64, requires_grad=True)
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    out = L.lse_tucker2(x1.requires_grad_(), x2, w)
+    try:
+        out.sum().backward()
+    except ValueError as exc:
+        print(f"[float64] a Tucker backward wider than a block's shared memory raises: {exc}")
+    else:
+        raise AssertionError("[float64] K1=K2=90 in float64: the dx kernel's refusal did not raise")
+
+
+def _complex_sos_circuit(side: int):
+    """``_sos_circuit`` with complex normal sum weights (``dtype="complex"``)."""
+    from cirkit_tpu_torch.models import image_data
+    from cirkit_tpu_torch.models.utils import Parameterization
+
+    return image_data((1, side, side), "quad-tree-2", input_layer="categorical",
+                      num_input_units=SOS_K, sum_product_layer="cp", num_sum_units=SOS_K,
+                      sum_weight_param=Parameterization(activation="none",
+                                                        initialization="normal", dtype="complex"))
+
+
+def _phase_off(t, rtol: float, period: float) -> tuple[float, float]:
+    """The largest distance of the phases of the complex log-values ``t``
+    from a multiple of ``period``, and the largest share it takes of its
+    bound ``rtol |Re t|`` (at most 1 where the phases hold)."""
+    import torch
+
+    off = (t.imag - period * torch.round(t.imag / period)).abs()
+    return float(off.max()), float((off / (rtol * t.real.abs())).max())
+
+
+def phase_complex_sos(smi: str, signed_runs: dict) -> dict[str, int]:
+    """Phase 10: bench_sos's squared circuit under the complex semiring at
+    each of SOS_SIDES, K=32, batch 128. (a) With phase 9's real store loaded
+    by slot name: sq's real part and log Z against the signed run's, phases 0
+    or pi. (b) With complex sum weights from seed 0: the forwards of ``cc``,
+    ``sq`` and ``zc``, the normalized log-likelihood, ``IntegrateQuery``
+    marginals, the gradients of cc's slots against complex128 on the CPU and
+    Adam steps on the SoS loss. Returns each kernel's launches over the
+    counted (main-path) calls."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import IntegrateQuery
+    from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTensorDotLayer
+    from cirkit_tpu_torch.parallel import split_trainable
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    launches: dict[str, int] = {}
+
+    def build(sc):
+        ctx = PipelineContext(semiring="complex-lse-sum", fold=True, optimize=True, device=DEV,
+                              seed=0)
+        cc = ctx.compile(sc)
+        sq = ctx.multiply(ctx.conjugate(cc), cc)
+        return ctx, cc, sq, ctx.integrate(sq)
+
+    for side in SOS_SIDES:
+        label = f"[complex sos] {side}x{side} K={SOS_K}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
+        d = side * side
+        x_np = rng.integers(0, 256, size=(BATCH, d), dtype=np.int32).astype(np.int64)
+        mask_np = rng.random((BATCH, d)) < 0.5
+        x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
+
+        # (a) the signed run's store under the complex semiring
+        store, sq_signed, logz_signed = signed_runs[side]
+        ctx, cc, sq, zc = build(_sos_circuit(side))
+        ctx.update_parameters(store)  # by slot name
+        n_sq, n_zc = (sum(isinstance(l, TorchTensorDotLayer) for l in c.layers) for c in (sq, zc))
+        with torch.inference_mode():
+            s_out = _counted_launches(f"{label} (a) sq", lambda: sq(x), {"clse_matmul": n_sq},
+                                      launches)
+            z_out = _counted_launches(f"{label} (a) zc", lambda: zc(x[:1]),
+                                      {"clse_matmul": n_zc}, launches)
+        rel_sq = float(((s_out.real - sq_signed).abs() / sq_signed.abs()).max())
+        rel_z = float(((z_out.real - logz_signed).abs() / logz_signed.abs()).max())
+        (off_s, share_s), (off_z, share_z) = (_phase_off(s_out, SOS_SQ_RTOL, math.pi),
+                                              _phase_off(z_out, 1e-5, math.pi))
+        if not (rel_sq <= SOS_SQ_RTOL and rel_z <= 1e-5 and share_s <= 1 and share_z <= 1):
+            raise AssertionError(f"{label} (a): sq off the signed run by {rel_sq:.3e} (rtol "
+                                 f"{SOS_SQ_RTOL}), log Z by {rel_z:.3e} (1e-5), phases of sq "
+                                 f"{off_s:.3e} and of log Z {off_z:.3e} from a multiple of pi "
+                                 f"({share_s:.3f} and {share_z:.3f} of their bounds)")
+        print(f"{label} (a): the signed run's store under complex-lse-sum: sq's real part within "
+              f"{rel_sq:.2e} relative of the signed log|c|^2, log Z within {rel_z:.2e}; phases "
+              f"of sq within {off_s:.2e} of 0 or pi ({share_s:.3f} of {SOS_SQ_RTOL} |Re sq|), of "
+              f"log Z within {off_z:.2e} ({share_z:.3f} of 1e-5 |Re log Z|)")
+        del ctx, cc, sq, zc, s_out, z_out
+
+        # (b) complex sum weights
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def peak_gb():
+            return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        t0 = time.perf_counter()
+        ctx, cc, sq, zc = build(_complex_sos_circuit(side))
+        torch.cuda.synchronize()
+        st = ctx.parameters
+        n_cc = sum(isinstance(l, _kernel_layers()) for l in cc.layers)
+        n_complex = sum(v.is_complex() for v in st.values())
+        print(f"{label} (b): compiled cc, sq, zc in {time.perf_counter() - t0:.1f} s; "
+              f"{cc.num_parameters()} parameters, {n_complex} of {len(st)} slots complex; plan "
+              f"entries {len(cc.layers)}, {len(sq.layers)} ({n_sq} TensorDot), {len(zc.layers)} "
+              f"({n_zc} TensorDot)")
+        iq = IntegrateQuery(sq)
+        with torch.inference_mode():
+            c_out = _counted_launches(f"{label} cc", lambda: cc(x), {"clse_matmul": n_cc},
+                                      launches)
+            s_out = _counted_launches(f"{label} sq", lambda: sq(x), {"clse_matmul": n_sq},
+                                      launches)
+            z_out = _counted_launches(f"{label} zc", lambda: zc(x[:1]), {"clse_matmul": n_zc},
+                                      launches)
+            m_out = _counted_launches(f"{label} marginals",
+                                      lambda: iq(x, integrate_vars=mask, store=st),
+                                      {"clse_matmul": n_sq}, launches)
+        nll = s_out.real[:, 0, 0] - z_out.real[0, 0, 0]
+        id_rel = float(((s_out.real - 2 * c_out.real).abs() / s_out.real.abs()).max())
+        z_phase = float(z_out.imag[0, 0, 0])
+        z_off, z_share = _phase_off(z_out, 1e-5, 2 * math.pi)
+        checks = {
+            "sq complex64, finite, (B, 1, 1)": s_out.dtype == torch.complex64
+            and s_out.shape == (BATCH, 1, 1) and bool(s_out.real.isfinite().all()),
+            f"Re sq = 2 Re cc (rel {SOS_SQ_RTOL})": id_rel <= SOS_SQ_RTOL,
+            "Im log Z a multiple of 2 pi (1e-5 |Re log Z|)": z_share <= 1,
+            "marginals finite": bool(m_out.real.isfinite().all()),
+            "normalized log-likelihood <= 1e-4": bool((nll <= 1e-4).all()),
+        }
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"{label}: failed {bad} (Im log Z {z_phase:.3e}, {z_off:.3e} from a "
+                                 "multiple of 2 pi)")
+
+        # QUERY_ROWS rows against the same store in complex128 on the CPU
+        t0 = time.perf_counter()
+        comp = TorchCompiler(semiring="complex-lse-sum", fold=True, optimize=True, device="cpu")
+        cc128, sq128, zc128 = (comp.compile(ctx.get_symbolic_circuit(c)) for c in (cc, sq, zc))
+        st128 = {s: v.detach().cpu().to(torch.complex128 if v.is_complex() else torch.float64)
+                 for s, v in st.items()}
+        r = QUERY_ROWS
+        xr, mr = torch.as_tensor(x_np[:r]), torch.as_tensor(mask_np[:r])
+        with torch.inference_mode():
+            want = {"sq": sq128(st128, xr), "log Z": zc128(st128, xr[:1]),
+                    "marginals": IntegrateQuery(sq128)(xr, integrate_vars=mr, store=st128)}
+        got = {"sq": s_out[:r], "log Z": z_out, "marginals": m_out[:r]}
+        rels = {}
+        for name, w_ in want.items():
+            g_ = got[name].real.double().cpu()
+            rels[name] = float(((g_ - w_.real).abs() / w_.real.abs()).max())
+            rtol = SOS_SQ_RTOL if name == "sq" else 1e-5
+            if not rels[name] <= rtol:
+                raise AssertionError(f"{label}: {name} off complex128 by {rels[name]:.3e} (rtol "
+                                     f"{rtol})")
+        print(f"{label}: Re sq = 2 Re cc to {id_rel:.2e} relative; normalized log-likelihood "
+              f"{float(nll.mean()):.3f} mean (max {float(nll.max()):.3e}), log Z "
+              f"{float(z_out.real[0, 0, 0]):.3f} + {z_phase:.2e}i; {r} rows against complex128 "
+              f"on the CPU ({time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{k} max rel err {v:.2e}" for k, v in rels.items()))
+
+        with torch.inference_mode():
+            times = {"sq forward": _median_ms(lambda: sq(x)),
+                     "normalized log-likelihood": _median_ms(
+                         lambda: sq(x).real - zc(x[:1]).real[0, 0, 0]),
+                     "marginals": _median_ms(lambda: iq(x, integrate_vars=mask, store=st),
+                                             iters=10)}
+            profile = _device_breakdown(lambda: sq(x), 3)
+        print(f"{label}: batch {BATCH}, " + ", ".join(
+            f"{k} {v:.3f} ms ({BATCH / v * 1e3:.1f} rows/s)" for k, v in times.items())
+            + f" (median of 20, 10 for the marginals); peak memory {peak_gb():.2f} GB; sq "
+              f"forward profile: {profile} ({smi})")
+
+        # The SoS loss -mean(Re log|c(x)|^2) + Re log Z: the gradients of cc's
+        # learnable slots against complex128, then Adam steps
+        def loss_fn(sq, zc, store, xb):
+            return -sq.evaluate(store, xb).real.mean() + zc.evaluate(store, xb[:1]).real[0, 0, 0]
+
+        tr, _ = split_trainable(cc, st)
+        fr = {k: v.detach() for k, v in st.items() if k not in tr}
+        got = dict(zip(tr, torch.autograd.grad(loss_fn(sq, zc, {**tr, **fr}, x[:GRAD_ROWS]),
+                                               list(tr.values()))))
+        tr128 = {k: st128[k].clone().requires_grad_() for k in tr}
+        fr128 = {k: v for k, v in st128.items() if k not in tr}
+        want = dict(zip(tr128, torch.autograd.grad(
+            loss_fn(sq128, zc128, {**tr128, **fr128}, xr[:GRAD_ROWS]), list(tr128.values()))))
+        worst = _check_grads(f"{label} gradients", got, want, strict=side == SOS_GRAD_SIDE)
+        del cc128, sq128, zc128, st128, tr128, fr128, want, got
+
+        torch.cuda.reset_peak_memory_stats()
+        tr = {k: v.detach().clone().requires_grad_() for k, v in sorted(tr.items())}
+        opt = torch.optim.Adam(list(tr.values()), lr=SOS_LR)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(sq, zc, {**tr, **fr}, x)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        want_step = {"clse_matmul": n_sq + n_zc, "clse_matmul_bwd": n_sq + n_zc}
+        losses = [float(_counted_launches(f"{label} step", step, want_step, launches))
+                  for _ in range(STEPS)]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: losses {losses} not finite and decreasing")
+        ms = _median_ms(step, warmup=3, iters=10)
+        profile = _device_breakdown(step, 2)
+        held = "held to" if side == SOS_GRAD_SIDE else "measured against"
+        print(f"{label}: gradients of {len(tr)} learnable slots of cc on {GRAD_ROWS} rows "
+              f"{held} complex128, worst error {worst:.3f} of the bound {GRAD_REL} max|slot| + "
+              f"{GRAD_ABS}; {STEPS} Adam({SOS_LR}) steps, loss {losses[0]:.3f} -> "
+              f"{losses[-1]:.3f}; step {ms:.3f} ms median of 10 = {BATCH / ms * 1e3:.1f} "
+              f"samples/s; peak memory {peak_gb():.2f} GB; step profile: {profile} ({smi})")
+        del ctx, cc, sq, zc, st, tr, fr, opt, iq
     return launches
 
 
-def _expected_launches(cc, *, signed: bool = False) -> tuple[dict[str, int], dict[str, int]]:
+def phase_complex_flagship(smi: str, built: list, signed_ms: dict) -> dict[str, int]:
+    """Phase 10b: phase 4's K=64 Tucker flagship compiled under the complex
+    semiring with phase 4's store loaded by slot name (its softmaxed weights
+    stay real): the forward's real part against the lse-sum forward, phases
+    0, one backward's gradients against the lse-sum ones, and the launches of
+    the Tucker and dense routes of the complex kernels."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    x = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (BATCH, 784)), device=DEV)
+    spl, em, sc, ctx, cc, _ = built[0]
+    label = f"[complex flagship] {spl} em_ready={em}"
+    cctx = PipelineContext(semiring="complex-lse-sum", fold=True, optimize=True, device=DEV,
+                           seed=0)
+    ccc = cctx.compile(sc)
+    cctx.update_parameters(ctx.parameters)  # by slot name, sharing the tensors
+    fwd, bwd = _expected_launches(ccc, values="complex")
+    st, cst = ctx.parameters, cctx.parameters
+    launches: dict[str, int] = {}
+    with torch.inference_mode():
+        ref = cc.evaluate(st, x)
+        out = _counted_launches(f"{label} forward", lambda: ccc.evaluate(cst, x), fwd, launches)
+    rel = float(((out.real - ref).abs() / ref.abs()).max())
+    if not (bool((out.imag == 0).all()) and torch.allclose(out.real, ref, rtol=1e-5, atol=0.0)):
+        raise AssertionError(f"{label}: forward off the lse-sum one by {rel:.3e}, or a phase "
+                             "not 0")
+    want = dict(zip(st.keys(), torch.autograd.grad(-cc.evaluate(st, x).mean(),
+                                                   list(st.values()))))
+
+    def backward():
+        loss = -ccc.evaluate(cst, x).real.mean()
+        return dict(zip(cst.keys(), torch.autograd.grad(loss, list(cst.values()))))
+
+    got = _counted_launches(f"{label} backward", backward, {**fwd, **bwd}, launches)
+    worst = _check_grads(f"{label} gradients", got, want)
+    with torch.inference_mode():
+        ms = _median_ms(lambda: ccc.evaluate(cst, x))
+        ms_lse = _median_ms(lambda: cc.evaluate(st, x))
+    print(f"{label}: launches a forward {fwd}, a backward {bwd}; the real part equals lse-sum "
+          f"(max rel err {rel:.2e}), phases 0; gradients of {len(want)} slots within "
+          f"{worst:.3f} of the bound; forward {ms:.3f} ms complex, {ms_lse:.3f} ms lse-sum, "
+          f"{signed_ms[(spl, em)]:.3f} ms signed (median of 20, batch {BATCH}) ({smi})")
+    return launches
+
+
+def _expected_launches(cc, *, values: str = "real") -> tuple[dict[str, int], dict[str, int]]:
     """The kernel launches of one forward and of one backward of ``cc``, per
     LAUNCHES key: an entry of width WIDE_WIDTH or more takes the K1-chunked
     (Tucker) or blocked (dense) kernels, a narrower one the single-pass
     kernels; a wide Tucker entry's backward is the Tucker backward kernel.
-    With ``signed`` (a circuit under the signed semiring) every entry takes
-    the signed op of its configuration, which has no wide variant."""
+    With ``values="signed"`` (a circuit under the signed semiring) every
+    entry takes the signed op of its configuration, which has no wide variant;
+    with ``values="complex"`` the complex op of its route, dense or Tucker
+    (the complex semiring normalizes logits before it contracts)."""
     from cirkit_tpu_torch.backend.torch.layers import TorchSumLayer
     from cirkit_tpu_torch.backend.torch.optimized import TorchCPTLayer, TorchTuckerLayer
     from cirkit_tpu_torch.ops import lse_einsum as L
@@ -1715,8 +2397,11 @@ def _expected_launches(cc, *, signed: bool = False) -> tuple[dict[str, int], dic
                     else (op, f"{op}_bwd"))
         else:
             continue
-        if signed:
+        if values == "signed":
             keys = (f"s{op}", f"s{op}_bwd")
+        elif values == "complex":
+            op = "c" + op.removesuffix("_softmax")
+            keys = (op, f"{op}_bwd")
         fwd[keys[0]] = fwd.get(keys[0], 0) + 1
         bwd[keys[1]] = bwd.get(keys[1], 0) + 1
     return fwd, bwd
@@ -1859,23 +2544,32 @@ def main() -> int:
     if not (REPO / "cirkit_tpu_torch").is_dir():
         raise RuntimeError(f"no cirkit_tpu_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO))
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     results = phase_kernels()
     results.update(phase_backward())
     results.update(phase_routing())
     results.update(phase_signed())
+    results.update(phase_complex())
+    phase_float64()
+    print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
     # each kernel's launches, summed over the main-path runs of phases 4-9b
     launches = dict.fromkeys(KERNELS, 0)
     built, fwd = phase_slice(smi)
     train = phase_train(smi, built)
     phase_profile(smi, built)
     queries = phase_queries(smi, built)
-    sos = phase_sos(smi)
-    signed = phase_signed_flagships(smi, built)  # reads phase 4's stores
-    del built
+    print(f"[time] phases 4-7 done at {time.perf_counter() - t_start:.0f} s")
+    sos, signed_runs = phase_sos(smi)
+    signed, signed_ms = phase_signed_flagships(smi, built)  # reads phase 4's stores
+    csos = phase_complex_sos(smi, signed_runs)
+    cflag = phase_complex_flagship(smi, built, signed_ms)
+    del built, signed_runs
+    print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
-    for counts in (fwd, train, {op: queries[op] for op in ROUTE_OPS}, wide, sos, signed):
+    for counts in (fwd, train, {op: queries[op] for op in ROUTE_OPS}, wide, sos, signed, csos,
+                   cflag):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]
@@ -1895,11 +2589,14 @@ def main() -> int:
             "bound_ms": results[op]["bound_ms"],
             "bound_by": results[op]["bound_by"],
             # no single PyTorch call computes a log-einsum-exp with linear
-            # weights, its signed variant, a max-plus Tucker or a routing choice
+            # weights, its signed variant, a max-plus Tucker or a routing choice;
+            # torch.bmm on complex tensors contracts, but computes neither the
+            # shifted exponentials nor the logarithm of the complex ops
             "library_ms": None,
         }
         for op, (source, replaces) in KERNELS.items()
     ]
+    print(f"[time] chip_smoke took {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -9,10 +9,10 @@ store.
 - constant layers: ``forward(store, batch_size)``
 
 F is the fold axis (homogeneous layers vectorized into one kernel launch),
-H the arity, B the batch. A semiring value is a tensor, or under the signed
-semiring a ``(log|f|, sign)`` pair of tensors; shape operations go through
-:func:`tmap`. The evidence and polynomial layers and the other input
-layers are not ported (see ROADMAP.md).
+H the arity, B the batch. A semiring value is a tensor (a complex one under
+the complex log semiring), or under the signed semiring a ``(log|f|, sign)``
+pair of tensors; shape operations go through :func:`tmap`. The evidence
+layer and the other input layers are not ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -312,6 +312,42 @@ class TorchConstantValueLayer(TorchConstantInputLayer):
         return self.semiring.map_from(v, self._source)
 
 
+class TorchPolynomialLayer(TorchInputLayer):
+    """Univariate polynomials evaluated by Horner's method."""
+
+    def __init__(
+        self,
+        scope_idx: np.ndarray,
+        num_output_units: int,
+        *,
+        degree: int,
+        coeff: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(scope_idx, num_output_units, num_folds=num_folds, semiring=semiring)
+        self.degree = degree
+        self.coeff = coeff
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_output_units": self.num_output_units, "degree": self.degree}
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"coeff": self.coeff}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        coeff = self.coeff(store)  # (F, K, deg+1)
+        xi = x[..., :1].to(coeff.dtype)  # (F, B, 1)
+        out = torch.zeros(
+            (xi.shape[0], xi.shape[1], coeff.shape[1]), dtype=coeff.dtype, device=coeff.device
+        )
+        for d in range(coeff.shape[-1] - 1, -1, -1):
+            out = out * xi + coeff[:, None, :, d]
+        return self.semiring.map_from(out, SumProductSemiring)
+
+
 class TorchExpFamilyLayer(TorchInputLayer, ABC):
     """Exponential-family input layers: define the (possibly unnormalized)
     log likelihood and log partition function."""
@@ -381,8 +417,12 @@ class TorchCategoricalLayer(TorchExpFamilyLayer):
         # finite minimum.
         logits = logits.clamp_min(torch.finfo(logits.dtype).min)
         xi = x[..., 0].long().clamp(0, logits.shape[2] - 1)  # (F, B)
-        idx = xi[:, :, None].expand(-1, -1, logits.shape[1])  # (F, B, K)
-        return torch.gather(logits.transpose(1, 2), 1, idx)
+        # Advanced indexing, not torch.gather: its backward (index_put_ with
+        # accumulate) sorts the indices and sums the rows that share a
+        # category in a fixed order, where gather's scatter_add_ uses atomic
+        # adds in whatever order they land, so training would not repeat.
+        folds = torch.arange(logits.shape[0], device=logits.device)[:, None]
+        return logits.transpose(1, 2)[folds, xi]  # (F, B, K)
 
     def log_partition_function(self, store):
         if self.logits is None:

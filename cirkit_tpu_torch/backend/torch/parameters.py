@@ -11,8 +11,10 @@ This module carries the nodes the flagship circuits build (tensor and
 pointer slots, softmax, log-softmax, mixing weights, and the matmul, einsum
 and flatten nodes the graph rewrites emit), the log, reduce-sum and
 outer-product nodes the parameter rewrites match on, and the nodes the
-circuit operators emit for squared circuits and their integrals (Kronecker,
-conjugate, outer-sum, reduce-log-sum-exp and index). The compiler rules
+circuit operators emit for squared circuits, their integrals and their
+differentials (Kronecker, conjugate, outer-sum, reduce-log-sum-exp, index,
+and the polynomial product and differential), on real and on complex
+tensors. The compiler rules
 raise ``NotImplementedError`` for the other symbolic parameter nodes.
 """
 
@@ -25,7 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from cirkit_tpu_torch.backend.torch.utils import safelog
+from cirkit_tpu_torch.backend.torch.utils import csafelog, safelog
 from cirkit_tpu_torch.utils.algorithms import RootedDiAcyclicGraph
 
 Shape = tuple[int, ...]
@@ -281,15 +283,15 @@ class TorchKroneckerParameter(TorchParameterOp):
 
 
 class TorchConjugateParameter(TorchParameterOp):
-    """Complex conjugation: the identity on the real tensors the port carries
-    (complex parameters are not ported)."""
+    """Complex conjugation; the identity on real tensors."""
 
     @property
     def shape(self) -> Shape:
         return self.in_shapes[0]
 
     def _eval(self, x):
-        return x
+        # written out: torch.conj alone returns a lazily conjugated view
+        return x.conj().resolve_conj() if x.dtype.is_complex else x
 
 
 class TorchLogParameter(TorchParameterOp):
@@ -298,7 +300,8 @@ class TorchLogParameter(TorchParameterOp):
         return self.in_shapes[0]
 
     def _eval(self, x):
-        return safelog(x)
+        # complex inputs take the complex safe log (phases kept)
+        return csafelog(x) if x.dtype.is_complex else safelog(x)
 
 
 class _OuterOp(_AxisOp, ABC):
@@ -338,6 +341,10 @@ class TorchReduceSumParameter(_ReduceOp):
 
 class TorchReduceLSEParameter(_ReduceOp):
     def _eval(self, x):
+        if x.dtype.is_complex:  # torch.logsumexp takes real tensors only
+            info = torch.finfo(x.real.dtype)
+            m = x.real.amax(dim=self.axis + 1, keepdim=True).clamp(info.min, info.max)
+            return torch.log(torch.exp(x - m).sum(dim=self.axis + 1)) + m.squeeze(self.axis + 1)
         return torch.logsumexp(x, dim=self.axis + 1)
 
 
@@ -373,6 +380,55 @@ class TorchMixingWeightParameter(TorchParameterOp):
         eye = torch.eye(k, dtype=x.dtype, device=x.device)
         blocks = eye[None, :, :, None] * x[:, None, :, :]  # (F, K, K, H)
         return blocks.permute(0, 1, 3, 2).reshape(x.shape[0], k, k * h)
+
+
+class TorchPolynomialProduct(TorchParameterOp):
+    """The coefficients of every pairwise product of two families of
+    polynomials: a convolution along the degree axis, through the FFT."""
+
+    @property
+    def shape(self) -> Shape:
+        return (
+            self.in_shapes[0][0] * self.in_shapes[1][0],
+            self.in_shapes[0][1] + self.in_shapes[1][1] - 1,
+        )
+
+    def _eval(self, c1, c2):
+        deg = self.shape[-1]
+        if c1.dtype.is_complex or c2.dtype.is_complex:
+            fft, ifft = torch.fft.fft, torch.fft.ifft
+        else:
+            fft, ifft = torch.fft.rfft, torch.fft.irfft
+        f1 = fft(c1, n=deg, dim=-1)  # (F, K1, deg)
+        f2 = fft(c2, n=deg, dim=-1)  # (F, K2, deg)
+        out = ifft(f1[:, :, None, :] * f2[:, None, :, :], n=deg, dim=-1)  # (F, K1, K2, deg)
+        return out.reshape(c1.shape[0], -1, deg)
+
+
+class TorchPolynomialDifferential(TorchParameterOp):
+    """The coefficients of the ``order``-th derivative of a family of
+    polynomials (the zero polynomial once the degree is exhausted)."""
+
+    def __init__(self, *in_shapes: Shape, order: int = 1, num_folds: int = 1):
+        super().__init__(*in_shapes, num_folds=num_folds)
+        self.order = order
+
+    @property
+    def config(self) -> dict[str, Any]:
+        return {**super().config, "order": self.order}
+
+    @property
+    def shape(self) -> Shape:
+        k, dp1 = self.in_shapes[0]
+        return (k, dp1 - self.order if dp1 > self.order else 1)
+
+    def _eval(self, c):
+        if c.shape[-1] <= self.order:
+            return torch.zeros((c.shape[0], c.shape[1], 1), dtype=c.dtype, device=c.device)
+        for _ in range(self.order):
+            powers = torch.arange(1, c.shape[-1], dtype=c.real.dtype, device=c.device)
+            c = c[..., 1:] * powers
+        return c
 
 
 class TorchEinsumParameter(TorchParameterOp):

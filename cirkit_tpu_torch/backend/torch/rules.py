@@ -16,7 +16,12 @@ import torch
 
 from cirkit_tpu_torch.backend.torch import layers as tl
 from cirkit_tpu_torch.backend.torch import parameters as tp
-from cirkit_tpu_torch.backend.torch.utils import default_int_dtype, default_real_dtype
+from cirkit_tpu_torch.backend.torch.utils import (
+    default_complex_dtype,
+    default_int_dtype,
+    default_real_dtype,
+    to_real_dtype,
+)
 from cirkit_tpu_torch.symbolic import initializers as syi
 from cirkit_tpu_torch.symbolic import layers as syl
 from cirkit_tpu_torch.symbolic import parameters as syp
@@ -30,15 +35,13 @@ def compiled_dtype(dtype: DataType) -> torch.dtype:
     if dtype == DataType.INTEGER:
         return default_int_dtype()
     if dtype == DataType.COMPLEX:
-        raise NotImplementedError(
-            "Complex parameters are not ported to the PyTorch backend yet (ROADMAP.md item 9)"
-        )
+        return default_complex_dtype()
     return default_real_dtype()
 
 
 # The item of ROADMAP.md's module queue that brings a symbolic type the port
 # does not carry yet, where one names it.
-_ROADMAP_ITEMS = {"PolynomialLayer": 9, "EvidenceLayer": 2}
+_ROADMAP_ITEMS = {"EvidenceLayer": 14}
 
 
 def _not_ported(kind: str, obj) -> NotImplementedError:
@@ -85,6 +88,12 @@ def compile_normal_initializer(
     mean, stddev = init.mean, init.stddev
 
     def _init(generator, shape, dtype, device):
+        if dtype.is_complex:
+            # independent real and imaginary parts, each of the given spread
+            real = to_real_dtype(dtype)
+            re = torch.randn(shape, generator=generator, dtype=real, device=device)
+            im = torch.randn(shape, generator=generator, dtype=real, device=device)
+            return torch.complex(re, im) * stddev + mean
         return torch.randn(shape, generator=generator, dtype=dtype, device=device) * stddev + mean
 
     _init.batch_key = ("normal", mean, stddev)
@@ -186,8 +195,15 @@ def compile_index_parameter(
     return tp.TorchIndexParameter(*p.in_shapes, indices=p.indices, axis=p.axis)
 
 
+def compile_polynomial_differential(
+    compiler: "TorchCompiler", p: syp.PolynomialDifferential
+) -> tp.TorchParameterNode:
+    return tp.TorchPolynomialDifferential(*p.in_shapes, order=p.order)
+
+
 _SIMPLE_PARAM_RULES: dict[type, type] = {
     syp.KroneckerParameter: tp.TorchKroneckerParameter,
+    syp.PolynomialProduct: tp.TorchPolynomialProduct,
     syp.LogParameter: tp.TorchLogParameter,
     syp.ConjugateParameter: tp.TorchConjugateParameter,
     syp.MixingWeightParameter: tp.TorchMixingWeightParameter,
@@ -210,6 +226,7 @@ def default_parameter_rules() -> dict[type, object]:
         syp.ConstantParameter: compile_tensor_parameter,
         syp.ReferenceParameter: compile_reference_parameter,
         syp.IndexParameter: compile_index_parameter,
+        syp.PolynomialDifferential: compile_polynomial_differential,
     }
     for sym_cls, torch_cls in _SIMPLE_PARAM_RULES.items():
         rules[sym_cls] = lambda compiler, p, _cls=torch_cls: _cls(*p.in_shapes)
@@ -242,6 +259,18 @@ def compile_categorical_layer(
         num_categories=sl.num_categories,
         probs=probs,
         logits=logits,
+        semiring=compiler.semiring,
+    )
+
+
+def compile_polynomial_layer(
+    compiler: "TorchCompiler", sl: syl.PolynomialLayer
+) -> tl.TorchLayer:
+    return tl.TorchPolynomialLayer(
+        _scope_idx(sl),
+        sl.num_output_units,
+        degree=sl.degree,
+        coeff=compiler.compile_parameter(sl.coeff),
         semiring=compiler.semiring,
     )
 
@@ -280,6 +309,7 @@ def compile_sum_layer(compiler: "TorchCompiler", sl: syl.SumLayer) -> tl.TorchLa
 DEFAULT_LAYER_COMPILATION_RULES = [
     compile_unported_layer,
     compile_categorical_layer,
+    compile_polynomial_layer,
     compile_constant_value_layer,
     compile_hadamard_layer,
     compile_kronecker_layer,

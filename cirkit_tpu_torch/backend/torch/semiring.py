@@ -8,8 +8,10 @@ Tucker, with or without a softmax of the weights) go to the ops of
 ``cirkit_tpu_torch/ops/lse_einsum.py``, which launch the CUDA kernel on
 CUDA tensors. The signed log semiring (values are ``(log|f|, sign)`` pairs)
 sends the same four hooks to the ops of ``cirkit_tpu_torch/ops/slse_einsum.py``.
-The complex log semiring is not ported (ROADMAP item 9): naming it raises
-``NotImplementedError``.
+The complex log semiring (values are single complex tensors ``log|f| + i
+arg f``) sends its dense and Tucker hooks to the ops of
+``cirkit_tpu_torch/ops/clse_einsum.py``; its softmax hooks normalize the
+logits first and contract against the real weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +23,14 @@ from typing import ClassVar, Protocol
 
 import torch
 
-from cirkit_tpu_torch.backend.torch.utils import default_real_dtype, safelog
+from cirkit_tpu_torch.backend.torch.utils import (
+    csafelog,
+    default_real_dtype,
+    safelog,
+    to_complex_dtype,
+    to_real_dtype,
+)
+from cirkit_tpu_torch.ops.clse_einsum import clse_matmul, clse_tucker2
 from cirkit_tpu_torch.ops.lse_einsum import (
     lse_matmul,
     lse_matmul_softmax,
@@ -75,11 +84,6 @@ class SemiringImpl(ABC):
 
     @staticmethod
     def from_name(name: str) -> Semiring:
-        if name == "complex-lse-sum":
-            raise NotImplementedError(
-                "The complex log semiring is not ported to the PyTorch backend yet "
-                "(ROADMAP.md item 9)"
-            )
         if name not in SemiringImpl._registry:
             raise IndexError(
                 f"Unknown semiring '{name}'; register one with "
@@ -297,6 +301,76 @@ class LSESumSemiring(SemiringImpl):
         )
 
 
+@SemiringImpl.register("complex-lse-sum")
+class ComplexLSESumSemiring(SemiringImpl):
+    """Complex log-space evaluation (for squared / sum-of-squares circuits
+    with complex parameters): a value is one complex tensor ``log|f| + i arg
+    f``, so shape operations apply to it as to a real one."""
+
+    @classmethod
+    def cast(cls, x):
+        if x.dtype.is_complex:
+            return x
+        if x.dtype.is_floating_point:
+            return x.to(to_complex_dtype(x.dtype))
+        return x.to(to_complex_dtype(default_real_dtype()))
+
+    @classmethod
+    def _weight(cls, w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """The weight as the fused ops take it: complex, or real at the
+        values' precision (a real weight is never widened to a complex copy)."""
+        if w.dtype.is_complex:
+            return w.to(like.dtype)
+        if w.dtype.is_floating_point:
+            return w.to(to_real_dtype(like.dtype))
+        return w.to(like.dtype)
+
+    @classmethod
+    def sum(cls, x, dim, *, keepdim=False):
+        m = _finfo_clamp(x.real.amax(dim=dim, keepdim=True))
+        out = csafelog(torch.sum(torch.exp(x - m), dim=dim, keepdim=keepdim))
+        return out + (m if keepdim else m.squeeze(dim))
+
+    @classmethod
+    def add(cls, *xs):
+        def _logaddexp(a, b):
+            m = _finfo_clamp(torch.maximum(a.real, b.real))
+            return csafelog(torch.exp(a - m) + torch.exp(b - m)) + m
+
+        return reduce(_logaddexp, (cls.cast(x) for x in xs))
+
+    @classmethod
+    def prod(cls, x, dim, *, keepdim=False):
+        return x.sum(dim=dim, keepdim=keepdim)
+
+    @classmethod
+    def mul(cls, *xs):
+        return reduce(torch.add, xs)
+
+    @classmethod
+    def apply_reduce(cls, func, *xs, dim, keepdim):
+        xs = tuple(cls.cast(x) for x in xs)
+        maxs = [_finfo_clamp(x.real.amax(dim=dim, keepdim=True)) for x in xs]
+        exps = [torch.exp(x - m) for x, m in zip(xs, maxs)]
+        out = func(*exps)
+        shift = reduce(torch.add, maxs)
+        if not keepdim:
+            shift = shift.squeeze(dim)
+        return csafelog(out) + shift
+
+    # The fused ops launch the complex CUDA kernels on CUDA tensors and run
+    # their plain versions on the CPU; the logarithm is part of the op.
+    @classmethod
+    def matmul(cls, x, w):
+        x = cls.cast(x)
+        return clse_matmul(x, cls._weight(w, x))
+
+    @classmethod
+    def tucker2(cls, x1, x2, w):
+        x1, x2 = cls.cast(x1), cls.cast(x2)
+        return clse_tucker2(x1, x2, cls._weight(w, x1))
+
+
 @SemiringImpl.register("signed-lse-sum")
 class SignedLSESemiring(SemiringImpl):
     """Signed log-space evaluation: values are ``(log|f|, sign)`` pairs of
@@ -313,8 +387,8 @@ class SignedLSESemiring(SemiringImpl):
     def cast(cls, x):
         if x.dtype.is_complex:
             raise ValueError(
-                "The signed semiring supports only real parameters; complex-parameterized "
-                "circuits need the complex semiring, which is not ported yet"
+                "The signed semiring supports only real parameters; compile "
+                "complex-parameterized circuits under 'complex-lse-sum'"
             )
         if x.dtype.is_floating_point:
             return x
@@ -424,3 +498,37 @@ def _signed_to_lse(x) -> torch.Tensor:
 @SumProductSemiring.register_map_from(SignedLSESemiring)
 def _signed_to_sum_product(x) -> torch.Tensor:
     return x[1] * torch.exp(x[0])
+
+
+@SumProductSemiring.register_map_from(ComplexLSESumSemiring)
+def _complex_to_sum_product(x: torch.Tensor) -> torch.Tensor:
+    # imaginary parts are assumed to cancel; keep the real exponential
+    return torch.exp(x).real
+
+
+@LSESumSemiring.register_map_from(ComplexLSESumSemiring)
+def _complex_to_lse(x: torch.Tensor) -> torch.Tensor:
+    return x.real
+
+
+@ComplexLSESumSemiring.register_map_from(SumProductSemiring)
+def _sum_product_to_complex(x: torch.Tensor) -> torch.Tensor:
+    return csafelog(ComplexLSESumSemiring.cast(x))
+
+
+@ComplexLSESumSemiring.register_map_from(LSESumSemiring)
+def _lse_to_complex(x: torch.Tensor) -> torch.Tensor:
+    return ComplexLSESumSemiring.cast(x)
+
+
+@ComplexLSESumSemiring.register_map_from(SignedLSESemiring)
+def _signed_to_complex(x) -> torch.Tensor:
+    a, s = x
+    # phase 0 for non-negative values, pi for negative ones
+    return torch.complex(a, torch.pi * (s < 0).to(a.dtype))
+
+
+@SignedLSESemiring.register_map_from(ComplexLSESumSemiring)
+def _complex_to_signed(x: torch.Tensor):
+    # valid when the phase is (numerically) 0 or pi: real-valued circuits
+    return x.real, torch.sign(torch.cos(x.imag))

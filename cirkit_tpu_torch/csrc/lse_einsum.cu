@@ -58,7 +58,13 @@
 
 namespace {
 
+using cirkit::abs_t;
 using cirkit::clamp_max;
+using cirkit::fast_exp;
+using cirkit::fma_t;
+using cirkit::load4;
+using cirkit::log_t;
+using cirkit::max_t;
 using cirkit::staged_exp;
 using cirkit::warp_max;
 
@@ -69,25 +75,27 @@ constexpr int TM = 8;    // batch rows per thread
 constexpr int TN = 4;    // output units per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int WARPS = THREADS / 32;
-constexpr int AS = BM + 4;  // padded strides keep float4 reads aligned
+constexpr int AS = BM + 4;  // padded strides keep 16-byte reads aligned
 constexpr int BS = BN + 4;
 
-template <bool TUCKER, bool SOFTMAX, bool SIGNED>
-__global__ void __launch_bounds__(THREADS, 2)
-lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
-        const float* __restrict__ xb,  // tucker: x2 (F,B,K2); dense: unused
-        const float* __restrict__ w,   // w or theta (F,O,I), I = K1*K2 for tucker
-        float* __restrict__ out,       // (F,B,O); signed: log|y|
-        const float* __restrict__ sa,  // signed: the sign of xa; else unused
-        const float* __restrict__ sb,  // signed tucker: the sign of xb
-        float* __restrict__ out_sign,  // signed: sign(y) (F,B,O)
+// T is float or double; the double instances hold twice the registers for
+// their accumulators, so one block of them is resident on an SM, not two.
+template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
+lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
+        const T* __restrict__ xb,  // tucker: x2 (F,B,K2); dense: unused
+        const T* __restrict__ w,   // w or theta (F,O,I), I = K1*K2 for tucker
+        T* __restrict__ out,       // (F,B,O); signed: log|y|
+        const T* __restrict__ sa,  // signed: the sign of xa; else unused
+        const T* __restrict__ sb,  // signed tucker: the sign of xb
+        T* __restrict__ out_sign,  // signed: sign(y) (F,B,O)
         int B, int I, int K1, int K2, int O) {
-  __shared__ __align__(16) float As[BK][AS];  // exponentials, k-major
-  __shared__ __align__(16) float Bs[BK][BS];  // weights, k-major
-  __shared__ float ma[BM];   // shift of x (x1 for tucker)
-  __shared__ float mb[BM];   // shift of x2 (tucker)
-  __shared__ float mw[BN];   // softmax: row max of theta
-  __shared__ float lsw[BN];  // softmax: log of the row sum of exp(theta - mw)
+  __shared__ __align__(16) T As[BK][AS];  // exponentials, k-major
+  __shared__ __align__(16) T Bs[BK][BS];  // weights, k-major
+  __shared__ T ma[BM];   // shift of x (x1 for tucker)
+  __shared__ T mb[BM];   // shift of x2 (tucker)
+  __shared__ T mw[BN];   // softmax: row max of theta
+  __shared__ T lsw[BN];  // softmax: log of the row sum of exp(theta - mw)
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -97,21 +105,21 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   const int warp = tid >> 5;
 
   const int KA = TUCKER ? K1 : I;
-  const float* xaf = xa + (size_t)f * B * KA;
-  const float* xbf = TUCKER ? xb + (size_t)f * B * K2 : nullptr;
-  const float* saf = SIGNED ? sa + (size_t)f * B * KA : nullptr;
-  const float* sbf = SIGNED && TUCKER ? sb + (size_t)f * B * K2 : nullptr;
-  const float* wf = w + (size_t)f * O * I;
-  float* outf = out + (size_t)f * B * O;
+  const T* xaf = xa + (size_t)f * B * KA;
+  const T* xbf = TUCKER ? xb + (size_t)f * B * K2 : nullptr;
+  const T* saf = SIGNED ? sa + (size_t)f * B * KA : nullptr;
+  const T* sbf = SIGNED && TUCKER ? sb + (size_t)f * B * K2 : nullptr;
+  const T* wf = w + (size_t)f * O * I;
+  T* outf = out + (size_t)f * B * O;
 
   // Prologue: the clamped row max of every batch row of this tile.
   for (int r = warp; r < BM; r += WARPS) {
     const int b = b0 + r;
-    float m1 = -INFINITY, m2 = -INFINITY;
+    T m1 = -INFINITY, m2 = -INFINITY;
     if (b < B) {
-      for (int k = lane; k < KA; k += 32) m1 = fmaxf(m1, xaf[(size_t)b * KA + k]);
+      for (int k = lane; k < KA; k += 32) m1 = max_t(m1, xaf[(size_t)b * KA + k]);
       if (TUCKER)
-        for (int k = lane; k < K2; k += 32) m2 = fmaxf(m2, xbf[(size_t)b * K2 + k]);
+        for (int k = lane; k < K2; k += 32) m2 = max_t(m2, xbf[(size_t)b * K2 + k]);
     }
     m1 = warp_max(m1);
     m2 = warp_max(m2);
@@ -125,11 +133,11 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   if (SOFTMAX) {
     for (int r = warp; r < BN; r += WARPS) {
       const int o = o0 + r;
-      float m = 0.f, s = 0.f;
+      T m = T(0), s = T(0);
       if (o < O) cirkit::softmax_row_stats(wf + (size_t)o * I, I, lane, &m, &s);
       if (lane == 0) {
         mw[r] = m;  // units past O stage exp(-inf) = 0
-        lsw[r] = logf(s);
+        lsw[r] = log_t(s);
       }
     }
   }
@@ -148,7 +156,7 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   // The next chunk's operands, loaded into registers while the current
   // chunk is contracted: the exponent of each A element (and its sign) and
   // the raw W.
-  float pa[A_PER], ps[A_PER], pw[W_PER];
+  T pa[A_PER], ps[A_PER], pw[W_PER];
   auto load_chunk = [&](int k0) {
     const int k = k0 + skk;
     int i = 0, j = 0;
@@ -167,7 +175,7 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     for (int n = 0; n < A_PER; ++n) {
       const int r = srow + n * RSTEP;
       const int b = b0 + r;
-      float v = -INFINITY, sg = 0.f;
+      T v = -INFINITY, sg = T(0);
       if (b < B && k < I) {
         v = TUCKER ? (xaf[(size_t)b * K1 + i] - ma[r]) + (xbf[(size_t)b * K2 + j] - mb[r])
                    : xaf[(size_t)b * I + k] - ma[r];
@@ -182,17 +190,17 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     for (int n = 0; n < W_PER; ++n) {
       const int c = srow + n * RSTEP;
       const int o = o0 + c;
-      pw[n] = (o < O && k < I) ? wf[(size_t)o * I + k] : (SOFTMAX ? -INFINITY : 0.f);
+      pw[n] = (o < O && k < I) ? wf[(size_t)o * I + k] : T(SOFTMAX ? -INFINITY : 0.f);
     }
   };
 
   const int tx = tid % (BN / TN);  // output-unit group
   const int ty = tid / (BN / TN);  // batch-row group
-  float acc[TM][TN];
+  T acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
 
   load_chunk(0);
   for (int k0 = 0; k0 < I; k0 += BK) {
@@ -201,7 +209,7 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     // weights (unnormalized softmax numerators).
 #pragma unroll
     for (int n = 0; n < A_PER; ++n)
-      As[skk][srow + n * RSTEP] = SIGNED ? ps[n] * staged_exp<true>(pa[n]) : __expf(pa[n]);
+      As[skk][srow + n * RSTEP] = SIGNED ? ps[n] * staged_exp<true>(pa[n]) : fast_exp(pa[n]);
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int c = srow + n * RSTEP;
@@ -211,15 +219,14 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     if (k0 + BK < I) load_chunk(k0 + BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
+      T a[TM], bb[TN];
+      load4(&As[kk][ty * TM], a);
+      load4(&As[kk][ty * TM + 4], a + 4);
+      load4(&Bs[kk][tx * TN], bb);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fma_t(a[i], bb[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -230,29 +237,29 @@ lse_fwd(const float* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     const int r = ty * TM + i;
     const int b = b0 + r;
     if (b >= B) continue;
-    const float shift = TUCKER ? ma[r] + mb[r] : ma[r];
+    const T shift = TUCKER ? ma[r] + mb[r] : ma[r];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = tx * TN + j;
       const int o = o0 + c;
       if (o >= O) continue;
-      const float v = acc[i][j];
-      float y = logf(SIGNED ? fabsf(v) : v);
+      const T v = acc[i][j];
+      T y = log_t(SIGNED ? abs_t(v) : v);
       if (SOFTMAX) y -= lsw[c];
       outf[(size_t)b * O + o] = y + shift;
-      if (SIGNED) out_sign[(size_t)f * B * O + (size_t)b * O + o] = (v > 0.f) - (v < 0.f);
+      if (SIGNED) out_sign[(size_t)f * B * O + (size_t)b * O + o] = T((v > T(0)) - (v < T(0)));
     }
   }
 }
 
-template <bool TUCKER, bool SOFTMAX, bool SIGNED = false>
-int launch(const float* xa, const float* xb, const float* w, float* out, int F, int B,
-           int I, int K1, int K2, int O, int device, void* stream,
-           const float* sa = nullptr, const float* sb = nullptr, float* out_sign = nullptr) {
+template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
+int launch(const T* xa, const T* xb, const T* w, T* out, int F, int B, int I, int K1, int K2,
+           int O, int device, void* stream, const T* sa = nullptr, const T* sb = nullptr,
+           T* out_sign = nullptr) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
-  lse_fwd<TUCKER, SOFTMAX, SIGNED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  lse_fwd<T, TUCKER, SOFTMAX, SIGNED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       xa, xb, w, out, sa, sb, out_sign, B, I, K1, K2, O);
   return static_cast<int>(cudaGetLastError());
 }
@@ -265,52 +272,52 @@ const char* cirkit_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int lse_fwd_dense(const float* x, const float* w, float* out, int F, int B, int I, int O,
-                  int device, void* stream) {
-  return launch<false, false>(x, nullptr, w, out, F, B, I, 0, 1, O, device, stream);
-}
+// Every entry exists for float (the plain name) and for double (the name with
+// _f64). The signed entries take (log-magnitude, sign) inputs and write
+// (log|y|, sign y).
+#define LSE_FWD_ENTRIES(SUFFIX, T)                                                              \
+  int lse_fwd_dense##SUFFIX(const T* x, const T* w, T* out, int F, int B, int I, int O,         \
+                            int device, void* stream) {                                         \
+    return launch<T, false, false>(x, nullptr, w, out, F, B, I, 0, 1, O, device, stream);       \
+  }                                                                                             \
+  int lse_fwd_dense_softmax##SUFFIX(const T* x, const T* theta, T* out, int F, int B, int I,    \
+                                    int O, int device, void* stream) {                          \
+    return launch<T, false, true>(x, nullptr, theta, out, F, B, I, 0, 1, O, device, stream);    \
+  }                                                                                             \
+  int lse_fwd_tucker##SUFFIX(const T* x1, const T* x2, const T* w, T* out, int F, int B,        \
+                             int K1, int K2, int O, int device, void* stream) {                 \
+    return launch<T, true, false>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);    \
+  }                                                                                             \
+  int lse_fwd_tucker_softmax##SUFFIX(const T* x1, const T* x2, const T* theta, T* out, int F,   \
+                                     int B, int K1, int K2, int O, int device, void* stream) {  \
+    return launch<T, true, true>(x1, x2, theta, out, F, B, K1 * K2, K1, K2, O, device,          \
+                                 stream);                                                       \
+  }                                                                                             \
+  int slse_fwd_dense##SUFFIX(const T* a, const T* s, const T* w, T* oa, T* os, int F, int B,    \
+                             int I, int O, int device, void* stream) {                          \
+    return launch<T, false, false, true>(a, nullptr, w, oa, F, B, I, 0, 1, O, device, stream,   \
+                                         s, nullptr, os);                                       \
+  }                                                                                             \
+  int slse_fwd_dense_softmax##SUFFIX(const T* a, const T* s, const T* theta, T* oa, T* os,      \
+                                     int F, int B, int I, int O, int device, void* stream) {    \
+    return launch<T, false, true, true>(a, nullptr, theta, oa, F, B, I, 0, 1, O, device,        \
+                                        stream, s, nullptr, os);                                \
+  }                                                                                             \
+  int slse_fwd_tucker##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2, const T* w,   \
+                              T* oa, T* os, int F, int B, int K1, int K2, int O, int device,    \
+                              void* stream) {                                                   \
+    return launch<T, true, false, true>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O, device,        \
+                                        stream, s1, s2, os);                                    \
+  }                                                                                             \
+  int slse_fwd_tucker_softmax##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2,       \
+                                      const T* theta, T* oa, T* os, int F, int B, int K1,       \
+                                      int K2, int O, int device, void* stream) {                \
+    return launch<T, true, true, true>(a1, a2, theta, oa, F, B, K1 * K2, K1, K2, O, device,     \
+                                       stream, s1, s2, os);                                     \
+  }
 
-int lse_fwd_dense_softmax(const float* x, const float* theta, float* out, int F, int B,
-                          int I, int O, int device, void* stream) {
-  return launch<false, true>(x, nullptr, theta, out, F, B, I, 0, 1, O, device, stream);
-}
-
-int lse_fwd_tucker(const float* x1, const float* x2, const float* w, float* out, int F,
-                   int B, int K1, int K2, int O, int device, void* stream) {
-  return launch<true, false>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);
-}
-
-int lse_fwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
-                           float* out, int F, int B, int K1, int K2, int O, int device,
-                           void* stream) {
-  return launch<true, true>(x1, x2, theta, out, F, B, K1 * K2, K1, K2, O, device, stream);
-}
-
-// The signed entries: (log-magnitude, sign) inputs, (log|y|, sign y) outputs.
-int slse_fwd_dense(const float* a, const float* s, const float* w, float* oa, float* os, int F,
-                   int B, int I, int O, int device, void* stream) {
-  return launch<false, false, true>(a, nullptr, w, oa, F, B, I, 0, 1, O, device, stream, s,
-                                    nullptr, os);
-}
-
-int slse_fwd_dense_softmax(const float* a, const float* s, const float* theta, float* oa,
-                           float* os, int F, int B, int I, int O, int device, void* stream) {
-  return launch<false, true, true>(a, nullptr, theta, oa, F, B, I, 0, 1, O, device, stream, s,
-                                   nullptr, os);
-}
-
-int slse_fwd_tucker(const float* a1, const float* s1, const float* a2, const float* s2,
-                    const float* w, float* oa, float* os, int F, int B, int K1, int K2, int O,
-                    int device, void* stream) {
-  return launch<true, false, true>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O, device, stream, s1,
-                                   s2, os);
-}
-
-int slse_fwd_tucker_softmax(const float* a1, const float* s1, const float* a2, const float* s2,
-                            const float* theta, float* oa, float* os, int F, int B, int K1,
-                            int K2, int O, int device, void* stream) {
-  return launch<true, true, true>(a1, a2, theta, oa, F, B, K1 * K2, K1, K2, O, device, stream,
-                                  s1, s2, os);
-}
+LSE_FWD_ENTRIES(, float)
+LSE_FWD_ENTRIES(_f64, double)
+#undef LSE_FWD_ENTRIES
 
 }  // extern "C"

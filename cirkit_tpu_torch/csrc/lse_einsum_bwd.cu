@@ -85,45 +85,55 @@
 namespace {
 
 using cirkit::clamp_max;
+using cirkit::exp_t;
+using cirkit::fast_exp;
+using cirkit::fma_t;
+using cirkit::load4;
+using cirkit::max_t;
 using cirkit::staged_exp;
+using cirkit::store4;
 using cirkit::warp_max;
 using cirkit::warp_sum;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BK = 16;  // contraction chunk staged in shared memory
+// Every kernel is a template over its scalar type T, float or double. The
+// double instances hold twice the registers for their accumulators, so one
+// block of the register-tiled kernels is resident on an SM, not two.
+template <typename T> constexpr int RESIDENT = sizeof(T) == 4 ? 2 : 1;
 
 // --------------------------------------------------------------------------
 // 1. Row shifts and gy
 // --------------------------------------------------------------------------
 
-template <bool TUCKER, bool SIGNED>
+template <typename T, bool TUCKER, bool SIGNED>
 __global__ void __launch_bounds__(THREADS)
-bwd_prep(const float* __restrict__ xa, const float* __restrict__ xb,
-         const float* __restrict__ out, const float* __restrict__ g,
-         const float* __restrict__ out_sign,  // signed: sign(y); else unused
-         float* __restrict__ sa, float* __restrict__ sb, float* __restrict__ gy,
+bwd_prep(const T* __restrict__ xa, const T* __restrict__ xb,
+         const T* __restrict__ out, const T* __restrict__ g,
+         const T* __restrict__ out_sign,  // signed: sign(y); else unused
+         T* __restrict__ sa, T* __restrict__ sb, T* __restrict__ gy,
          int B, int KA, int K2, int O) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y * WARPS + (threadIdx.x >> 5);
   if (b >= B) return;  // warp-uniform
   const size_t row = (size_t)blockIdx.x * B + b;
-  float m1 = -INFINITY, m2 = -INFINITY;
-  for (int k = lane; k < KA; k += 32) m1 = fmaxf(m1, xa[row * KA + k]);
+  T m1 = -INFINITY, m2 = -INFINITY;
+  for (int k = lane; k < KA; k += 32) m1 = max_t(m1, xa[row * KA + k]);
   if (TUCKER)
-    for (int k = lane; k < K2; k += 32) m2 = fmaxf(m2, xb[row * K2 + k]);
+    for (int k = lane; k < K2; k += 32) m2 = max_t(m2, xb[row * K2 + k]);
   m1 = clamp_max(warp_max(m1));
   m2 = clamp_max(warp_max(m2));
   if (lane == 0) {
     sa[row] = m1;
     if (TUCKER) sb[row] = m2;
   }
-  const float shift = TUCKER ? m1 + m2 : m1;
+  const T shift = TUCKER ? m1 + m2 : m1;
   for (int o = lane; o < O; o += 32) {
     const size_t idx = row * O + o;
-    float v = g[idx] * expf(shift - out[idx]);
+    T v = g[idx] * exp_t(shift - out[idx]);
     if (SIGNED) v *= out_sign[idx];
-    gy[idx] = isfinite(v) ? v : 0.f;
+    gy[idx] = isfinite(v) ? v : T(0);
   }
 }
 
@@ -131,16 +141,17 @@ bwd_prep(const float* __restrict__ xa, const float* __restrict__ xb,
 // 2. Softmax weights: w[o, :] = softmax(theta[o, :])
 // --------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-softmax_weights(const float* __restrict__ theta, float* __restrict__ w, int O, int I) {
+softmax_weights(const T* __restrict__ theta, T* __restrict__ w, int O, int I) {
   const int lane = threadIdx.x & 31;
   const int o = blockIdx.y * WARPS + (threadIdx.x >> 5);
   if (o >= O) return;
   const size_t row = ((size_t)blockIdx.x * O + o) * I;
-  float m, s;
+  T m, s;
   cirkit::softmax_row_stats(theta + row, I, lane, &m, &s);
-  const float inv = 1.f / s;
-  for (int k = lane; k < I; k += 32) w[row + k] = expf(theta[row + k] - m) * inv;
+  const T inv = T(1) / s;
+  for (int k = lane; k < I; k += 32) w[row + k] = exp_t(theta[row + k] - m) * inv;
 }
 
 // --------------------------------------------------------------------------
@@ -160,22 +171,22 @@ constexpr int WSTEP = THREADS / BN;       // w staging: units per pass
 constexpr int W_PER = BK / WSTEP;         // 4
 }  // namespace dense_dx
 
-template <bool SIGNED>
-__global__ void __launch_bounds__(THREADS, 2)
-lse_bwd_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ sa, const float* __restrict__ gy,
-                 const float* __restrict__ sx,  // signed: the sign of x
-                 float* __restrict__ dx, int B, int I, int O) {
+template <typename T, bool SIGNED>
+__global__ void __launch_bounds__(THREADS, RESIDENT<T>)
+lse_bwd_dx_dense(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ sa, const T* __restrict__ gy,
+                 const T* __restrict__ sx,  // signed: the sign of x
+                 T* __restrict__ dx, int B, int I, int O) {
   using namespace dense_dx;
-  __shared__ __align__(16) float As[BK][AS];  // gy, unit-major
-  __shared__ __align__(16) float Bs[BK][BS];  // w, unit-major
+  __shared__ __align__(16) T As[BK][AS];  // gy, unit-major
+  __shared__ __align__(16) T Bs[BK][BS];  // w, unit-major
 
   const int f = blockIdx.x;
   const int i0 = blockIdx.y * BN;
   const int b0 = blockIdx.z * BM;
   const int tid = threadIdx.x;
-  const float* gyf = gy + (size_t)f * B * O;
-  const float* wf = w + (size_t)f * O * I;
+  const T* gyf = gy + (size_t)f * B * O;
+  const T* wf = w + (size_t)f * O * I;
 
   // gy staging: unit kk = tid % BK of each chunk, rows tid / BK + n * RSTEP;
   // w staging: column tid % BN, units tid / BN + n * WSTEP.
@@ -183,29 +194,29 @@ lse_bwd_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
   const int srow = tid / BK;
   const int wcol = tid % BN;
   const int wk = tid / BN;
-  float pa[A_PER], pw[W_PER];
+  T pa[A_PER], pw[W_PER];
   auto load_chunk = [&](int o0) {
 #pragma unroll
     for (int n = 0; n < A_PER; ++n) {
       const int b = b0 + srow + n * RSTEP;
       const int o = o0 + skk;
-      pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : 0.f;
+      pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : T(0);
     }
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + wk + n * WSTEP;
       const int i = i0 + wcol;
-      pw[n] = (o < O && i < I) ? wf[(size_t)o * I + i] : 0.f;
+      pw[n] = (o < O && i < I) ? wf[(size_t)o * I + i] : T(0);
     }
   };
 
   const int tx = tid % (BN / TN);  // column group
   const int ty = tid / (BN / TN);  // batch-row group
-  float acc[TM][TN];
+  T acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
 
   load_chunk(0);
   for (int o0 = 0; o0 < O; o0 += BK) {
@@ -217,32 +228,31 @@ lse_bwd_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
     if (o0 + BK < O) load_chunk(o0 + BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
+      T a[TM], bb[TN];
+      load4(&As[kk][ty * TM], a);
+      load4(&As[kk][ty * TM + 4], a + 4);
+      load4(&Bs[kk][tx * TN], bb);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fma_t(a[i], bb[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  const float* xf = x + (size_t)f * B * I;
-  float* dxf = dx + (size_t)f * B * I;
+  const T* xf = x + (size_t)f * B * I;
+  T* dxf = dx + (size_t)f * B * I;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int b = b0 + ty * TM + i;
     if (b >= B) continue;
-    const float m = sa[(size_t)f * B + b];
+    const T m = sa[(size_t)f * B + b];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = i0 + tx * TN + j;
       if (c >= I) continue;
       const size_t idx = (size_t)b * I + c;
-      const float e = expf(xf[idx] - m);
+      const T e = exp_t(xf[idx] - m);
       dxf[idx] = (SIGNED ? sx[(size_t)f * B * I + idx] * e : e) * acc[i][j];
     }
   }
@@ -267,83 +277,93 @@ constexpr int W_PER = BK / WSTEP;      // 4
 }  // namespace tucker_dx
 
 // Dynamic shared memory of the Tucker dx kernel, in bytes.
+template <typename T>
 inline size_t tucker_dx_smem(int K1, int K2) {
   using namespace tucker_dx;
-  return sizeof(float) * BM * (2 * (K1 + 1) + 2 * (K2 + 1) + SS);
+  return sizeof(T) * BM * (2 * (K1 + 1) + 2 * (K2 + 1) + SS);
 }
 
-template <bool SIGNED>
+template <typename T, bool SIGNED>
 __global__ void __launch_bounds__(THREADS)
-lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
-                  const float* __restrict__ w, const float* __restrict__ sa,
-                  const float* __restrict__ sb,
-                  const float* __restrict__ gy,
-                  const float* __restrict__ s1,  // signed: the signs of x1, x2
-                  const float* __restrict__ s2,
-                  float* __restrict__ dx1,
-                  float* __restrict__ dx2, int B, int K1, int K2, int O) {
+lse_bwd_dx_tucker(const T* __restrict__ x1, const T* __restrict__ x2,
+                  const T* __restrict__ w, const T* __restrict__ sa,
+                  const T* __restrict__ sb,
+                  const T* __restrict__ gy,
+                  const T* __restrict__ s1,  // signed: the signs of x1, x2
+                  const T* __restrict__ s2,
+                  T* __restrict__ dx1,
+                  T* __restrict__ dx2, int B, int K1, int K2, int O) {
   using namespace tucker_dx;
-  __shared__ __align__(16) float As[BK][AS];  // gy, unit-major
-  __shared__ __align__(16) float Bs[BK][BS];  // w, unit-major
-  extern __shared__ float smem[];
+  __shared__ __align__(16) T As[BK][AS];  // gy, unit-major
+  __shared__ __align__(16) T Bs[BK][BS];  // w, unit-major
+  // one extern array per type: two declarations of one name with different
+  // types conflict (and a helper function that returns it costs registers)
+  T* smem;
+  if constexpr (sizeof(T) == 4) {
+    extern __shared__ float smem_f32[];
+    smem = smem_f32;
+  } else {
+    extern __shared__ double smem_f64[];
+    smem = smem_f64;
+  }
   const int E1S = K1 + 1, E2S = K2 + 1;
-  float* E1 = smem;               // [BM][K1+1] e1 of the block's rows
-  float* E2 = E1 + BM * E1S;      // [BM][K2+1] e2
-  float* A1 = E2 + BM * E2S;      // [BM][K1+1] sum_j s e2
-  float* A2 = A1 + BM * E1S;      // [BM][K2+1] sum_i s e1
-  float* S = A2 + BM * E2S;       // [BM][BN+1] the current s tile
+  T* E1 = smem;               // [BM][K1+1] e1 of the block's rows
+  T* E2 = E1 + BM * E1S;      // [BM][K2+1] e2
+  T* A1 = E2 + BM * E2S;      // [BM][K1+1] sum_j s e2
+  T* A2 = A1 + BM * E1S;      // [BM][K2+1] sum_i s e1
+  T* S = A2 + BM * E2S;       // [BM][BN+1] the current s tile
 
   const int f = blockIdx.x;
   const int b0 = blockIdx.y * BM;
   const int tid = threadIdx.x;
   const int I = K1 * K2;
-  const float* gyf = gy + (size_t)f * B * O;
-  const float* wf = w + (size_t)f * O * I;
+  const T* gyf = gy + (size_t)f * B * O;
+  const T* wf = w + (size_t)f * O * I;
 
   // Prologue: the block's (signed) exponentials and zeroed accumulators.
   for (int t = tid; t < BM * K1; t += THREADS) {
     const int r = t / K1, k = t - r * K1;
     const int b = b0 + r;
-    float e = 0.f;
+    T e = T(0);
     if (b < B) {
       const size_t idx = ((size_t)f * B + b) * K1 + k;
-      e = expf(x1[idx] - sa[(size_t)f * B + b]);
+      e = exp_t(x1[idx] - sa[(size_t)f * B + b]);
       if (SIGNED) e *= s1[idx];
     }
     E1[r * E1S + k] = e;
-    A1[r * E1S + k] = 0.f;
+    A1[r * E1S + k] = T(0);
   }
   for (int t = tid; t < BM * K2; t += THREADS) {
     const int r = t / K2, k = t - r * K2;
     const int b = b0 + r;
-    float e = 0.f;
+    T e = T(0);
     if (b < B) {
       const size_t idx = ((size_t)f * B + b) * K2 + k;
-      e = expf(x2[idx] - sb[(size_t)f * B + b]);
+      e = exp_t(x2[idx] - sb[(size_t)f * B + b]);
       if (SIGNED) e *= s2[idx];
     }
     E2[r * E2S + k] = e;
-    A2[r * E2S + k] = 0.f;
+    A2[r * E2S + k] = T(0);
   }
 
   const int skk = tid % BK;
   const int srow = tid / BK;
   const int wcol = tid % BN;
   const int wk = tid / BN;
-  float pa[A_PER], pw[W_PER];
+  T pa[A_PER], pw[W_PER];
   // One step of the flattened (column tile, unit chunk) loop.
   auto load_chunk = [&](int c0, int o0) {
 #pragma unroll
     for (int n = 0; n < A_PER; ++n) {
       const int b = b0 + srow + n * RSTEP;
       const int o = o0 + skk;
-      pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : 0.f;
+      pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : T(0);
     }
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + wk + n * WSTEP;
       const int c = c0 + wcol;
-      pw[n] = (o < O && c < I) ? wf[(size_t)o * I + c] : 0.f;
+      pw[n] = (o < O && c < I) ? wf[(size_t)o * I + c] : T(0);
     }
   };
 
@@ -352,7 +372,7 @@ lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
   const bool aligned = K2 % BN == 0;
   const int n_chunks = (O + BK - 1) / BK;
   const int n_steps = ((I + BN - 1) / BN) * n_chunks;
-  float acc[TM][TN];
+  T acc[TM][TN];
   load_chunk(0, 0);
   for (int step = 0; step < n_steps; ++step) {
     const int tile = step / n_chunks;
@@ -362,7 +382,7 @@ lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
     }
 #pragma unroll
     for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
@@ -378,14 +398,13 @@ lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
     }
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {av.x, av.y, av.z, av.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
+      T a[TM], bb[TN];
+      load4(&As[kk][ty * TM], a);
+      load4(&Bs[kk][tx * TN], bb);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fma_t(a[i], bb[j], acc[i][j]);
     }
     __syncthreads();
     if (chunk != n_chunks - 1) continue;
@@ -400,14 +419,14 @@ lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
 #pragma unroll
       for (int ii = 0; ii < TM; ++ii) {
         const int r = ty * TM + ii;
-        const float e1 = E1[r * E1S + i];
-        float* a2 = A2 + r * E2S + j0;
-        const float* e2 = E2 + r * E2S + j0;
-        float p = 0.f;
+        const T e1 = E1[r * E1S + i];
+        T* a2 = A2 + r * E2S + j0;
+        const T* e2 = E2 + r * E2S + j0;
+        T p = T(0);
 #pragma unroll
         for (int jj = 0; jj < TN; ++jj) {
-          a2[jj] = fmaf(acc[ii][jj], e1, a2[jj]);
-          p = fmaf(acc[ii][jj], e2[jj], p);
+          a2[jj] = fma_t(acc[ii][jj], e1, a2[jj]);
+          p = fma_t(acc[ii][jj], e2[jj], p);
         }
 #pragma unroll
         for (int d = BN / TN / 2; d > 0; d >>= 1) p += __shfl_xor_sync(0xffffffffu, p, d);
@@ -430,22 +449,22 @@ lse_bwd_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
       const int r = tid % BM;
       int i = c0 / K2;
       int j = c0 - i * K2;
-      const float* srow_p = S + r * SS;
+      const T* srow_p = S + r * SS;
       if (first) {
-        float* a1 = A1 + r * E1S;
-        const float* e2 = E2 + r * E2S;
+        T* a1 = A1 + r * E1S;
+        const T* e2 = E2 + r * E2S;
         for (int cc = 0; cc < width; ++cc) {
-          a1[i] = fmaf(srow_p[cc], e2[j], a1[i]);
+          a1[i] = fma_t(srow_p[cc], e2[j], a1[i]);
           if (++j == K2) {
             j = 0;
             ++i;
           }
         }
       } else {
-        float* a2 = A2 + r * E2S;
-        const float* e1 = E1 + r * E1S;
+        T* a2 = A2 + r * E2S;
+        const T* e1 = E1 + r * E1S;
         for (int cc = 0; cc < width; ++cc) {
-          a2[j] = fmaf(srow_p[cc], e1[i], a2[j]);
+          a2[j] = fma_t(srow_p[cc], e1[i], a2[j]);
           if (++j == K2) {
             j = 0;
             ++i;
@@ -491,18 +510,18 @@ constexpr int GSTEP = THREADS / BN;   // gy staging: batch rows per pass (4)
 constexpr int G_PER = BK / GSTEP;     // 4
 }  // namespace dw_tile
 
-template <bool TUCKER, bool SIGNED>
-__global__ void __launch_bounds__(THREADS, 2)
-lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
-           const float* __restrict__ sa, const float* __restrict__ sb,
-           const float* __restrict__ gy,
-           const float* __restrict__ sga,  // signed: the signs of xa, xb
-           const float* __restrict__ sgb,
-           float* __restrict__ dw, int B, int I, int K1,
+template <typename T, bool TUCKER, bool SIGNED>
+__global__ void __launch_bounds__(THREADS, RESIDENT<T>)
+lse_bwd_dw(const T* __restrict__ xa, const T* __restrict__ xb,
+           const T* __restrict__ sa, const T* __restrict__ sb,
+           const T* __restrict__ gy,
+           const T* __restrict__ sga,  // signed: the signs of xa, xb
+           const T* __restrict__ sgb,
+           T* __restrict__ dw, int B, int I, int K1,
            int K2, int O) {
   using namespace dw_tile;
-  __shared__ __align__(16) float As[BK][AS];  // e, batch-major
-  __shared__ __align__(16) float Bs[BK][BS];  // gy, batch-major
+  __shared__ __align__(16) T As[BK][AS];  // e, batch-major
+  __shared__ __align__(16) T Bs[BK][BS];  // gy, batch-major
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -512,13 +531,13 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
   const int n_steps = n_tiles * n_chunks;
   const int tid = threadIdx.x;
   const int KA = TUCKER ? K1 : I;
-  const float* xaf = xa + (size_t)f * B * KA;
-  const float* xbf = TUCKER ? xb + (size_t)f * B * K2 : nullptr;
-  const float* saf = sa + (size_t)f * B;
-  const float* sbf = TUCKER ? sb + (size_t)f * B : nullptr;
-  const float* gyf = gy + (size_t)f * B * O;
-  const float* sgaf = SIGNED ? sga + (size_t)f * B * KA : nullptr;
-  const float* sgbf = SIGNED && TUCKER ? sgb + (size_t)f * B * K2 : nullptr;
+  const T* xaf = xa + (size_t)f * B * KA;
+  const T* xbf = TUCKER ? xb + (size_t)f * B * K2 : nullptr;
+  const T* saf = sa + (size_t)f * B;
+  const T* sbf = TUCKER ? sb + (size_t)f * B : nullptr;
+  const T* gyf = gy + (size_t)f * B * O;
+  const T* sgaf = SIGNED ? sga + (size_t)f * B * KA : nullptr;
+  const T* sgbf = SIGNED && TUCKER ? sgb + (size_t)f * B * K2 : nullptr;
 
   // e staging: column ec = tid % BM of the tile, batch rows tid / BM + n *
   // ESTEP; gy staging: unit tid % BN, batch rows tid / BN + n * GSTEP.
@@ -526,7 +545,7 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
   const int eb = tid / BM;
   const int go = tid % BN;
   const int gb = tid / BN;
-  float pe[E_PER], ps[E_PER], pg[G_PER];
+  T pe[E_PER], ps[E_PER], pg[G_PER];
   // One step of the flattened (column tile, batch chunk) loop.
   auto load_chunk = [&](int step) {
     const int tile = step / n_chunks;
@@ -537,7 +556,7 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
 #pragma unroll
     for (int n = 0; n < E_PER; ++n) {
       const int b = k0 + eb + n * ESTEP;
-      float v = -INFINITY, sg = 0.f;
+      T v = -INFINITY, sg = T(0);
       if (b < B && c < I) {
         v = TUCKER ? (xaf[(size_t)b * K1 + ci] - saf[b]) + (xbf[(size_t)b * K2 + cj] - sbf[b])
                    : xaf[(size_t)b * I + c] - saf[b];
@@ -552,15 +571,15 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
     for (int n = 0; n < G_PER; ++n) {
       const int b = k0 + gb + n * GSTEP;
       const int o = o0 + go;
-      pg[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : 0.f;
+      pg[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : T(0);
     }
   };
 
   const int tx = tid % (BN / TN);  // unit group
   const int ty = tid / (BN / TN);  // column group
-  float* dwf = dw + (size_t)f * O * I;
+  T* dwf = dw + (size_t)f * O * I;
   const bool vec_store = I % 4 == 0;  // dw rows start 16-byte aligned
-  float acc[TM][TN];
+  T acc[TM][TN];
   load_chunk(0);
   for (int step = 0; step < n_steps; ++step) {
     const int tile = step / n_chunks;
@@ -569,44 +588,41 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
     }
 #pragma unroll
     for (int n = 0; n < E_PER; ++n)
-      As[eb + n * ESTEP][ec] = SIGNED ? ps[n] * staged_exp<true>(pe[n]) : __expf(pe[n]);
+      As[eb + n * ESTEP][ec] = SIGNED ? ps[n] * staged_exp<true>(pe[n]) : fast_exp(pe[n]);
 #pragma unroll
     for (int n = 0; n < G_PER; ++n) Bs[gb + n * GSTEP][go] = pg[n];
     __syncthreads();
     if (step + 1 < n_steps) load_chunk(step + 1);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
+      T a[TM], bb[TN];
+      load4(&As[kk][ty * TM], a);
+      load4(&As[kk][ty * TM + 4], a + 4);
+      load4(&Bs[kk][tx * TN], bb);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fma_t(a[i], bb[j], acc[i][j]);
     }
     __syncthreads();
     if (chunk != n_chunks - 1) continue;
 
     // Tile epilogue: the finished dw tile, masking the ragged edges. A
-    // thread's TM columns of one unit are contiguous: two float4 stores fill
-    // one 32-byte sector where the row is 16-byte aligned.
+    // thread's TM columns of one unit are contiguous: two 16-byte stores fill
+    // one 32-byte sector (f32) where the row is 16-byte aligned.
     const int cc = (tile0 + tile) * BM + ty * TM;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int o = o0 + tx * TN + j;
       if (o >= O) continue;
-      float* dst = dwf + (size_t)o * I + cc;
+      T* dst = dwf + (size_t)o * I + cc;
       if (vec_store && cc + TM <= I) {
-        reinterpret_cast<float4*>(dst)[0] =
-            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-        reinterpret_cast<float4*>(dst)[1] =
-            make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+        store4(dst, acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+        store4(dst + 4, acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
       } else {
 #pragma unroll
         for (int i = 0; i < TM; ++i)
@@ -620,16 +636,17 @@ lse_bwd_dw(const float* __restrict__ xa, const float* __restrict__ xb,
 // 5. Softmax VJP, in place: dtheta = w * (dw - sum_c w_c dw_c)
 // --------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-softmax_vjp(const float* __restrict__ w, float* __restrict__ dw, int O, int I) {
+softmax_vjp(const T* __restrict__ w, T* __restrict__ dw, int O, int I) {
   const int lane = threadIdx.x & 31;
   const int o = blockIdx.y * WARPS + (threadIdx.x >> 5);
   if (o >= O) return;
   const size_t row = ((size_t)blockIdx.x * O + o) * I;
-  const float* wr = w + row;
-  float* d = dw + row;
-  float dot = 0.f;
-  for (int k = lane; k < I; k += 32) dot = fmaf(wr[k], d[k], dot);
+  const T* wr = w + row;
+  T* d = dw + row;
+  T dot = T(0);
+  for (int k = lane; k < I; k += 32) dot = fma_t(wr[k], d[k], dot);
   dot = warp_sum(dot);
   for (int k = lane; k < I; k += 32) d[k] = wr[k] * (d[k] - dot);
 }
@@ -643,37 +660,37 @@ inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / 
 // ``w`` is the weight, or for SOFTMAX the logits and ``ws`` the (F, O, I)
 // scratch that receives their softmax. SIGNED takes the inputs' signs
 // ``sga``/``sgb`` and the forward's sign output ``out_sign``.
-template <bool TUCKER, bool SOFTMAX, bool SIGNED = false>
-int launch_bwd(const float* xa, const float* xb, const float* w, const float* out,
-               const float* g, float* dxa, float* dxb, float* dw, float* sa, float* sb,
-               float* gy, float* ws, int F, int B, int I, int K1, int K2, int O, int device,
-               void* stream, const float* sga = nullptr, const float* sgb = nullptr,
-               const float* out_sign = nullptr) {
+template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
+int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
+               const T* g, T* dxa, T* dxb, T* dw, T* sa, T* sb,
+               T* gy, T* ws, int F, int B, int I, int K1, int K2, int O, int device,
+               void* stream, const T* sga = nullptr, const T* sgb = nullptr,
+               const T* out_sign = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool need_dx = dxa != nullptr || dxb != nullptr;
   const int KA = TUCKER ? K1 : I;
 
-  bwd_prep<TUCKER, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+  bwd_prep<T, TUCKER, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
       xa, xb, out, g, out_sign, sa, sb, gy, B, KA, K2, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (SOFTMAX) {
-    softmax_weights<<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, ws, O, I);
+    softmax_weights<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, ws, O, I);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     w = ws;
   }
   if (need_dx) {
     if (TUCKER) {
-      const size_t smem = tucker_dx_smem(K1, K2);
-      err = cudaFuncSetAttribute(lse_bwd_dx_tucker<SIGNED>,
+      const size_t smem = tucker_dx_smem<T>(K1, K2);
+      err = cudaFuncSetAttribute(lse_bwd_dx_tucker<T, SIGNED>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      lse_bwd_dx_tucker<SIGNED><<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
+      lse_bwd_dx_tucker<T, SIGNED><<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
           xa, xb, w, sa, sb, gy, sga, sgb, dxa, dxb, B, K1, K2, O);
     } else {
-      lse_bwd_dx_dense<SIGNED>
+      lse_bwd_dx_dense<T, SIGNED>
           <<<dim3(F, cdiv(I, dense_dx::BN), cdiv(B, dense_dx::BM)), THREADS, 0, s>>>(
               xa, w, sa, gy, sga, dxa, B, I, O);
     }
@@ -681,11 +698,11 @@ int launch_bwd(const float* xa, const float* xb, const float* w, const float* ou
   }
   if (dw != nullptr) {
     const dim3 grid(F, cdiv(O, dw_tile::BN), cdiv(I, dw_tile::BM * dw_tile::TILES));
-    lse_bwd_dw<TUCKER, SIGNED><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, sga, sgb, dw, B, I,
-                                                        K1, K2, O);
+    lse_bwd_dw<T, TUCKER, SIGNED><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, sga, sgb, dw, B,
+                                                           I, K1, K2, O);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     if (SOFTMAX) {
-      softmax_vjp<<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
+      softmax_vjp<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
   }
@@ -696,77 +713,77 @@ int launch_bwd(const float* xa, const float* xb, const float* w, const float* ou
 
 extern "C" {
 
-// Shared memory a block of the Tucker dx kernel uses at (K1, K2), static
-// staging tiles included, in bytes.
-size_t lse_bwd_tucker_smem(int K1, int K2) {
-  using namespace tucker_dx;
-  return tucker_dx_smem(K1, K2) + sizeof(float) * BK * (AS + BS);
-}
+// Every entry exists for float (the plain name) and for double (the name with
+// _f64). lse_bwd_tucker_smem: the shared memory a block of the Tucker dx
+// kernel uses at (K1, K2), static staging tiles included, in bytes. The
+// signed entries take the (log-magnitude, sign) inputs and the forward's
+// (log|y|, sign y) outputs, and write the gradients of the log-magnitude
+// inputs and of the weight (a null pointer skips one).
+#define LSE_BWD_ENTRIES(SUFFIX, T)                                                              \
+  size_t lse_bwd_tucker_smem##SUFFIX(int K1, int K2) {                                          \
+    using namespace tucker_dx;                                                                  \
+    return tucker_dx_smem<T>(K1, K2) + sizeof(T) * BK * (AS + BS);                              \
+  }                                                                                             \
+  int lse_bwd_dense##SUFFIX(const T* x, const T* w, const T* out, const T* g, T* dx, T* dw,     \
+                            T* sa, T* gy, int F, int B, int I, int O, int device,               \
+                            void* stream) {                                                     \
+    return launch_bwd<T, false, false>(x, nullptr, w, out, g, dx, nullptr, dw, sa, nullptr,     \
+                                       gy, nullptr, F, B, I, I, 1, O, device, stream);          \
+  }                                                                                             \
+  int lse_bwd_dense_softmax##SUFFIX(const T* x, const T* theta, const T* out, const T* g,       \
+                                    T* dx, T* dtheta, T* sa, T* gy, T* ws, int F, int B,        \
+                                    int I, int O, int device, void* stream) {                   \
+    return launch_bwd<T, false, true>(x, nullptr, theta, out, g, dx, nullptr, dtheta, sa,       \
+                                      nullptr, gy, ws, F, B, I, I, 1, O, device, stream);       \
+  }                                                                                             \
+  int lse_bwd_tucker##SUFFIX(const T* x1, const T* x2, const T* w, const T* out, const T* g,    \
+                             T* dx1, T* dx2, T* dw, T* sa, T* sb, T* gy, int F, int B, int K1,  \
+                             int K2, int O, int device, void* stream) {                         \
+    return launch_bwd<T, true, false>(x1, x2, w, out, g, dx1, dx2, dw, sa, sb, gy, nullptr, F,  \
+                                      B, K1 * K2, K1, K2, O, device, stream);                   \
+  }                                                                                             \
+  int lse_bwd_tucker_softmax##SUFFIX(const T* x1, const T* x2, const T* theta, const T* out,    \
+                                     const T* g, T* dx1, T* dx2, T* dtheta, T* sa, T* sb,       \
+                                     T* gy, T* ws, int F, int B, int K1, int K2, int O,         \
+                                     int device, void* stream) {                                \
+    return launch_bwd<T, true, true>(x1, x2, theta, out, g, dx1, dx2, dtheta, sa, sb, gy, ws,   \
+                                     F, B, K1 * K2, K1, K2, O, device, stream);                 \
+  }                                                                                             \
+  int slse_bwd_dense##SUFFIX(const T* a, const T* s, const T* w, const T* oa, const T* os,      \
+                             const T* g, T* da, T* dw, T* sa, T* gy, int F, int B, int I,       \
+                             int O, int device, void* stream) {                                 \
+    return launch_bwd<T, false, false, true>(a, nullptr, w, oa, g, da, nullptr, dw, sa,         \
+                                             nullptr, gy, nullptr, F, B, I, I, 1, O, device,    \
+                                             stream, s, nullptr, os);                           \
+  }                                                                                             \
+  int slse_bwd_dense_softmax##SUFFIX(const T* a, const T* s, const T* theta, const T* oa,       \
+                                     const T* os, const T* g, T* da, T* dtheta, T* sa, T* gy,   \
+                                     T* ws, int F, int B, int I, int O, int device,             \
+                                     void* stream) {                                            \
+    return launch_bwd<T, false, true, true>(a, nullptr, theta, oa, g, da, nullptr, dtheta, sa,  \
+                                            nullptr, gy, ws, F, B, I, I, 1, O, device, stream,  \
+                                            s, nullptr, os);                                    \
+  }                                                                                             \
+  int slse_bwd_tucker##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2, const T* w,   \
+                              const T* oa, const T* os, const T* g, T* da1, T* da2, T* dw,      \
+                              T* sa, T* sb, T* gy, int F, int B, int K1, int K2, int O,         \
+                              int device, void* stream) {                                       \
+    return launch_bwd<T, true, false, true>(a1, a2, w, oa, g, da1, da2, dw, sa, sb, gy,         \
+                                            nullptr, F, B, K1 * K2, K1, K2, O, device, stream,  \
+                                            s1, s2, os);                                        \
+  }                                                                                             \
+  int slse_bwd_tucker_softmax##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2,       \
+                                      const T* theta, const T* oa, const T* os, const T* g,     \
+                                      T* da1, T* da2, T* dtheta, T* sa, T* sb, T* gy, T* ws,    \
+                                      int F, int B, int K1, int K2, int O, int device,          \
+                                      void* stream) {                                           \
+    return launch_bwd<T, true, true, true>(a1, a2, theta, oa, g, da1, da2, dtheta, sa, sb, gy,  \
+                                           ws, F, B, K1 * K2, K1, K2, O, device, stream, s1,    \
+                                           s2, os);                                             \
+  }
 
-int lse_bwd_dense(const float* x, const float* w, const float* out, const float* g, float* dx,
-                  float* dw, float* sa, float* gy, int F, int B, int I, int O, int device,
-                  void* stream) {
-  return launch_bwd<false, false>(x, nullptr, w, out, g, dx, nullptr, dw, sa, nullptr, gy,
-                                  nullptr, F, B, I, I, 1, O, device, stream);
-}
-
-int lse_bwd_dense_softmax(const float* x, const float* theta, const float* out, const float* g,
-                          float* dx, float* dtheta, float* sa, float* gy, float* ws, int F,
-                          int B, int I, int O, int device, void* stream) {
-  return launch_bwd<false, true>(x, nullptr, theta, out, g, dx, nullptr, dtheta, sa, nullptr,
-                                 gy, ws, F, B, I, I, 1, O, device, stream);
-}
-
-int lse_bwd_tucker(const float* x1, const float* x2, const float* w, const float* out,
-                   const float* g, float* dx1, float* dx2, float* dw, float* sa, float* sb,
-                   float* gy, int F, int B, int K1, int K2, int O, int device, void* stream) {
-  return launch_bwd<true, false>(x1, x2, w, out, g, dx1, dx2, dw, sa, sb, gy, nullptr, F, B,
-                                 K1 * K2, K1, K2, O, device, stream);
-}
-
-int lse_bwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
-                           const float* out, const float* g, float* dx1, float* dx2,
-                           float* dtheta, float* sa, float* sb, float* gy, float* ws, int F,
-                           int B, int K1, int K2, int O, int device, void* stream) {
-  return launch_bwd<true, true>(x1, x2, theta, out, g, dx1, dx2, dtheta, sa, sb, gy, ws, F, B,
-                                K1 * K2, K1, K2, O, device, stream);
-}
-
-// The signed entries: the (log-magnitude, sign) inputs and the forward's
-// (log|y|, sign y) outputs; the gradients of the log-magnitude inputs and
-// of the weight (a null pointer skips one).
-int slse_bwd_dense(const float* a, const float* s, const float* w, const float* oa,
-                   const float* os, const float* g, float* da, float* dw, float* sa, float* gy,
-                   int F, int B, int I, int O, int device, void* stream) {
-  return launch_bwd<false, false, true>(a, nullptr, w, oa, g, da, nullptr, dw, sa, nullptr, gy,
-                                        nullptr, F, B, I, I, 1, O, device, stream, s, nullptr,
-                                        os);
-}
-
-int slse_bwd_dense_softmax(const float* a, const float* s, const float* theta, const float* oa,
-                           const float* os, const float* g, float* da, float* dtheta, float* sa,
-                           float* gy, float* ws, int F, int B, int I, int O, int device,
-                           void* stream) {
-  return launch_bwd<false, true, true>(a, nullptr, theta, oa, g, da, nullptr, dtheta, sa,
-                                       nullptr, gy, ws, F, B, I, I, 1, O, device, stream, s,
-                                       nullptr, os);
-}
-
-int slse_bwd_tucker(const float* a1, const float* s1, const float* a2, const float* s2,
-                    const float* w, const float* oa, const float* os, const float* g, float* da1,
-                    float* da2, float* dw, float* sa, float* sb, float* gy, int F, int B, int K1,
-                    int K2, int O, int device, void* stream) {
-  return launch_bwd<true, false, true>(a1, a2, w, oa, g, da1, da2, dw, sa, sb, gy, nullptr, F,
-                                       B, K1 * K2, K1, K2, O, device, stream, s1, s2, os);
-}
-
-int slse_bwd_tucker_softmax(const float* a1, const float* s1, const float* a2, const float* s2,
-                            const float* theta, const float* oa, const float* os,
-                            const float* g, float* da1, float* da2, float* dtheta, float* sa,
-                            float* sb, float* gy, float* ws, int F, int B, int K1, int K2, int O,
-                            int device, void* stream) {
-  return launch_bwd<true, true, true>(a1, a2, theta, oa, g, da1, da2, dtheta, sa, sb, gy, ws, F,
-                                      B, K1 * K2, K1, K2, O, device, stream, s1, s2, os);
-}
+LSE_BWD_ENTRIES(, float)
+LSE_BWD_ENTRIES(_f64, double)
+#undef LSE_BWD_ENTRIES
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the hot circuit contractions, with their
 plain PyTorch versions."""
 
+from cirkit_tpu_torch.ops.clse_einsum import COMPLEX_OPS, clse_matmul, clse_tucker2
 from cirkit_tpu_torch.ops.lse_einsum import (
     LAUNCHES,
     OPS,
@@ -21,12 +22,15 @@ from cirkit_tpu_torch.ops.slse_einsum import (
 )
 
 __all__ = [
+    "COMPLEX_OPS",
     "LAUNCHES",
     "OPS",
     "ROUTING_OPS",
     "SIGNED_OPS",
     "WIDE_OPS",
     "backward",
+    "clse_matmul",
+    "clse_tucker2",
     "lse_matmul",
     "lse_matmul_softmax",
     "lse_tucker2",

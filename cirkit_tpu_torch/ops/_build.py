@@ -4,9 +4,10 @@ The sources are compiled at first use by ``nvcc``, one process per source
 started together, and linked into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``; the signed log-einsum-exp kernels are template instances in
-the lse kernels' two sources. The library goes to ``build/cirkit_tpu_torch/``
-at the root of the checkout, under a name keyed on a hash of the sources
-and the flags, so an edit rebuilds and an unchanged tree reuses the build.
+the lse kernels' two sources, and the complex ones have a source of their
+own. The library goes to ``build/cirkit_tpu_torch/`` at the root of the
+checkout, under a name keyed on a hash of the sources and the flags, so an
+edit rebuilds and an unchanged tree reuses the build.
 Nothing here runs when the module is imported.
 """
 
@@ -23,7 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = tuple(
     _PKG / "csrc" / name
-    for name in ("lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu")
+    for name in (
+        "lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu", "clse_einsum.cu"
+    )
 )
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "cirkit_tpu_torch"
@@ -71,8 +74,21 @@ _SIGNATURES = {
     # for the route: sample, seed), device, stream
     "tropical_tucker": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "route_tucker": ((*(_P,) * 5, _I, _I, _I, _I, _I, _I, _I, _U64, _I, _P), ctypes.c_int),
+    # clse_einsum.cu: (xa, xb, w, out), F, B, K1, K2, O, then the flags
+    # tucker, complex weight, complex128; the backward adds g, the gradients
+    # (dxa, dxb, dw) and the scratch (sa, sb, gy) after out
+    "clse_fwd": ((*(_P,) * 4, *(_I,) * 9, _P), ctypes.c_int),
+    "clse_bwd": ((*(_P,) * 11, *(_I,) * 9, _P), ctypes.c_int),
+    "clse_bwd_tucker_smem": ((_I, _I, _I), ctypes.c_size_t),
     "cirkit_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
+# lse_einsum.cu and lse_einsum_bwd.cu build every entry for float (the plain
+# name) and for double (the name with _f64), with the same signature
+_SIGNATURES.update({
+    f"{name}_f64": sig for name, sig in list(_SIGNATURES.items())
+    if name.startswith(("lse_fwd_dense", "lse_fwd_tucker", "lse_bwd_dense", "lse_bwd_tucker",
+                        "slse_"))
+})
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None

@@ -258,19 +258,32 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(op: str, ts: tuple[torch.Tensor, ...]) -> torch.device:
-    """The common device of a CUDA launch's operands, checked."""
+def _check_cuda(
+    op: str, ts: tuple[torch.Tensor, ...], dtypes: tuple[torch.dtype, ...] = (torch.float32,)
+) -> torch.device:
+    """The common device of a CUDA launch's operands, checked: one device,
+    contiguous, each of a type in ``dtypes``."""
     dev = ts[0].device
     if dev.type != "cuda":
         raise ValueError(f"{op}: tensors on {dev}; the op runs on CPU or CUDA tensors")
     for t in ts:
         if t.device != dev:
             raise ValueError(f"{op}: operands on {dev} and {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: the CUDA kernel takes float32 operands, found {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{op}: the CUDA kernel takes {names} operands, found {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: the CUDA kernel takes contiguous operands")
     return dev
+
+
+def _check_single_pass(op: str, ts: tuple[torch.Tensor, ...]) -> tuple[torch.device, str]:
+    """The device of a single-pass launch's operands and the suffix of its
+    entries: the kernels are built for float32 (no suffix) and float64
+    (``_f64``), and every operand has the type of the first."""
+    double = ts[0].dtype == torch.float64
+    dev = _check_cuda(op, ts, (torch.float64 if double else torch.float32,))
+    return dev, "_f64" if double else ""
 
 
 def _call(lib, entry: str, op: str, args) -> None:
@@ -289,21 +302,34 @@ def _sizes(ins: tuple[torch.Tensor, ...]) -> tuple[int, ...]:
 def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
     """Check the operands, allocate the output and launch the forward entry
     of ``op`` on the current stream."""
-    dev = _check_cuda(op, ins)
+    entry = _ENTRIES[op][0]
+    if op.endswith("chunked"):  # the wide kernels are built for float32 only
+        dev, suffix = _check_cuda(op, ins), ""
+    else:
+        dev, suffix = _check_single_pass(op, ins)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
     width = ins[-1].shape[2]  # the kernels index a weight row with an int
     if max(*sizes, width) >= 2**31 or -(-o // _BN) > _MAX_GRID_YZ or -(-b // _BM) > _MAX_GRID_YZ:
         raise ValueError(f"{op}: sizes {sizes} exceed the kernel's launch grid")
-    out = torch.empty((f, b, o), device=dev, dtype=torch.float32)
+    out = torch.empty((f, b, o), device=dev, dtype=ins[0].dtype)
     if out.numel() == 0:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (*(t.data_ptr() for t in ins), out.data_ptr(), *sizes, dev.index, stream)
-    _call(lib, _ENTRIES[op][0], op, args)
+    _call(lib, entry + suffix, op, args)
     LAUNCHES[op] += 1
     return out
+
+
+def _check_tucker_smem(lib, op: str, widths: tuple[int, int], dtype: torch.dtype,
+                       suffix: str) -> None:
+    """Raise where the Tucker dx kernel's accumulators (rows of K1 + K2
+    sums, twice as large in float64) do not fit a block's shared memory."""
+    if getattr(lib, "lse_bwd_tucker_smem" + suffix)(*widths) > _MAX_SMEM:
+        raise ValueError(f"{op}: K1, K2 = {tuple(widths)} in {dtype} exceed the dx kernel's "
+                         "shared memory")
 
 
 def _launch_bwd(
@@ -312,7 +338,7 @@ def _launch_bwd(
 ) -> tuple[torch.Tensor | None, ...]:
     """Allocate the requested gradients and the scratch, and launch the
     backward entry of ``op`` on the current stream."""
-    dev = _check_cuda(f"{op} backward", (*ins, out, g))
+    dev, suffix = _check_single_pass(f"{op} backward", (*ins, out, g))
     grads = tuple(torch.empty_like(t) if need else None for t, need in zip(ins, needs))
     if not any(needs):
         return grads
@@ -325,13 +351,12 @@ def _launch_bwd(
     if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    if tucker and (needs[0] or needs[1]) and lib.lse_bwd_tucker_smem(*sizes[2:4]) > _MAX_SMEM:
-        raise ValueError(f"{op} backward: K1, K2 = {sizes[2:4]} exceed the dx kernel's "
-                         "shared memory")
+    if tucker and (needs[0] or needs[1]):
+        _check_tucker_smem(lib, f"{op} backward", sizes[2:4], ins[0].dtype, suffix)
     # scratch: the row shifts, gy, and for softmax the (F, O, I) weights
-    scratch = [torch.empty((f, b), device=dev, dtype=torch.float32)
+    scratch = [torch.empty((f, b), device=dev, dtype=ins[0].dtype)
                for _ in range(2 if tucker else 1)]
-    scratch.append(torch.empty((f, b, o), device=dev, dtype=torch.float32))
+    scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
     if op.endswith("softmax"):
         scratch.append(torch.empty_like(ins[-1]))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -343,7 +368,7 @@ def _launch_bwd(
         dev.index,
         stream,
     )
-    _call(lib, _ENTRIES[op][1], f"{op} backward", args)
+    _call(lib, _ENTRIES[op][1] + suffix, f"{op} backward", args)
     LAUNCHES[f"{op}_bwd"] += 1
     return grads
 

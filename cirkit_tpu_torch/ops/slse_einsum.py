@@ -45,13 +45,13 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _BWD_DX_COLS,
     _BWD_ROWS,
     _MAX_GRID_YZ,
-    _MAX_SMEM,
     _BM,
     _BN,
     _call,
-    _check_cuda,
     _check_dense,
+    _check_single_pass,
     _check_tucker,
+    _check_tucker_smem,
     _clamp_max,
     _on_cpu,
     _softmax_vjp,
@@ -199,19 +199,19 @@ def _sizes(ins: tuple[torch.Tensor, ...]) -> tuple[int, ...]:
 def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> Pair:
     """Check the operands, allocate both outputs and launch the forward entry
     of ``op`` on the current stream."""
-    dev = _check_cuda(op, ins)
+    dev, suffix = _check_single_pass(op, ins)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
     width = ins[-1].shape[2]
     if max(*sizes, width) >= 2**31 or -(-o // _BN) > _MAX_GRID_YZ or -(-b // _BM) > _MAX_GRID_YZ:
         raise ValueError(f"{op}: sizes {sizes} exceed the kernel's launch grid")
-    oa = torch.empty((f, b, o), device=dev, dtype=torch.float32)
+    oa = torch.empty((f, b, o), device=dev, dtype=ins[0].dtype)
     os = torch.empty_like(oa)
     if oa.numel() == 0:
         return oa, os
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (*(t.data_ptr() for t in (*ins, oa, os)), *sizes, dev.index, stream)
-    _call(_build.library(), _ENTRIES[op][0], op, args)
+    _call(_build.library(), _ENTRIES[op][0] + suffix, op, args)
     LAUNCHES[op] += 1
     return oa, os
 
@@ -223,7 +223,7 @@ def _launch_bwd(
     """Allocate the requested gradients (log-magnitude inputs and weight; the
     sign inputs' stay None) and the scratch, and launch the backward entry
     of ``op`` on the current stream."""
-    dev = _check_cuda(f"{op} backward", (*ins, oa, os, g))
+    dev, suffix = _check_single_pass(f"{op} backward", (*ins, oa, os, g))
     # the log-magnitudes and the weight sit at the even positions of ``ins``
     needs = tuple(need and i % 2 == 0 for i, need in enumerate(needs))
     grads = tuple(torch.empty_like(t) if need else None for t, need in zip(ins, needs))
@@ -238,13 +238,12 @@ def _launch_bwd(
     if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    if tucker and (needs[0] or needs[2]) and lib.lse_bwd_tucker_smem(*sizes[2:4]) > _MAX_SMEM:
-        raise ValueError(f"{op} backward: K1, K2 = {sizes[2:4]} exceed the dx kernel's "
-                         "shared memory")
+    if tucker and (needs[0] or needs[2]):
+        _check_tucker_smem(lib, f"{op} backward", sizes[2:4], ins[0].dtype, suffix)
     # scratch: the row shifts, gy, and for softmax the (F, O, I) weights
-    scratch = [torch.empty((f, b), device=dev, dtype=torch.float32)
+    scratch = [torch.empty((f, b), device=dev, dtype=ins[0].dtype)
                for _ in range(2 if tucker else 1)]
-    scratch.append(torch.empty((f, b, o), device=dev, dtype=torch.float32))
+    scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
     if op.endswith("softmax"):
         scratch.append(torch.empty_like(ins[-1]))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -256,7 +255,7 @@ def _launch_bwd(
         dev.index,
         stream,
     )
-    _call(lib, _ENTRIES[op][1], f"{op} backward", args)
+    _call(lib, _ENTRIES[op][1] + suffix, f"{op} backward", args)
     LAUNCHES[f"{op}_bwd"] += 1
     return grads
 

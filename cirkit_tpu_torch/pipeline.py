@@ -176,8 +176,8 @@ class PipelineContext:
         return self.compile(SF.multiply(sc1, sc2, registry=self._op_registry))
 
     def differentiate(self, cc: TorchCircuit, *, order: int = 1) -> TorchCircuit:
-        """The differential circuit; the Polynomial layers it needs are not
-        ported yet, so compiling one raises ``NotImplementedError``."""
+        """The circuit of the ``order``-th partial derivatives (of circuits
+        whose input layers are polynomials)."""
         if order <= 0:
             raise ValueError("The order of differentiation must be positive")
         sc = self._symbolic_operand(cc)

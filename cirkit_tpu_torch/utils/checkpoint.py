@@ -31,6 +31,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from cirkit_tpu_torch.backend.torch.utils import to_complex_dtype
+
 
 def store_from_numpy(
     arrays: Mapping[str, np.ndarray],
@@ -41,7 +43,9 @@ def store_from_numpy(
 ) -> dict[str, torch.Tensor]:
     """Tensors on ``device`` copied from a mapping of slot name to array.
 
-    ``dtype`` casts every array (default: keep each array's dtype). With
+    ``dtype`` casts every array (default: keep each array's dtype); a complex
+    array takes the complex type of ``dtype``'s precision, never losing its
+    imaginary part. With
     ``slots`` (slot name -> compiled tensor slot, e.g. ``cc.slots``), the
     names must be exactly the slots' names and every array must have its
     slot's ``(F, *shape)``; anything else raises.
@@ -58,8 +62,13 @@ def store_from_numpy(
                 raise ValueError(
                     f"Slot {name} has shape {expected}, the array {np.shape(arrays[name])}"
                 )
+    def target(a: np.ndarray) -> torch.dtype | None:
+        if dtype is not None and np.iscomplexobj(a):
+            return to_complex_dtype(dtype)
+        return dtype
+
     return {
-        name: torch.tensor(np.asarray(a), device=device, dtype=dtype)
+        name: torch.tensor(np.asarray(a), device=device, dtype=target(np.asarray(a)))
         for name, a in arrays.items()
     }
 

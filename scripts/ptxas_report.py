@@ -8,8 +8,9 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 Each ``*.cu`` of each directory is compiled for sm_90a with the flags of
 ``cirkit_tpu_torch/ops/_build.py`` (to an object that is thrown away). The
 report has one line per kernel (demangled, with the template arguments
-that turn a variant off, ``false``, dropped from the end, so a kernel keeps
-its name when a later tree adds such an argument) and one column per tree:
+that turn a variant off, ``false``, dropped from the end, and the scalar
+type ``float`` dropped from the front, so a kernel keeps its name when a
+later tree adds such an argument) and one column per tree:
 ``registers/spill stores/spill loads/static shared bytes/SASS digest``. The
 digest is the first 10 hex digits of the SHA-256 of the kernel's machine
 code as ``cuobjdump -sass`` lists it, without addresses and encodings and
@@ -73,6 +74,9 @@ def _key(name: str) -> str:
     name = name.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
     name = name.removeprefix("void ")
     name = name.replace("(bool)0", "false").replace("(bool)1", "true").split("(")[0]
+    # the scalar type leads the arguments: a float instance keeps the name it
+    # had before the kernels became templates over their scalar type
+    name = name.replace("<float, ", "<").replace("<float>", "")
     while name.endswith(", false>"):
         name = name[: -len(", false>")] + ">"
     return name.removesuffix("<false>")

@@ -7,8 +7,9 @@ on ``--device`` from seed 0 (on ``cuda``, the store and batch of phase 9 of
 multiply(conjugate(cc), cc)``, the integral ``zc = integrate(sq)`` and
 ``IntegrateQuery`` marginals (50% mask) on a random batch in float32 on that
 device (on a card through the signed kernels; on the CPU through their plain
-versions) and, when the device is a card, in float32 on the CPU too, each
-against float64 on the CPU. Prints, per output and float32 path, the
+versions) and, when the device is a card, in float32 on the CPU and in
+float64 on the card too (the kernels' double instances), each against
+float64 on the CPU. Prints, per output and path, the
 relative error of the log-values over the rows (max, 90th percentile,
 median) and the signs that differ from float64; then the largest
 cancellation ratio of a TensorDot entry (its absolute mass, the same
@@ -86,11 +87,13 @@ def main() -> int:
 
     store = {k: v.detach() for k, v in ctx.parameters.items()}
     st64 = {k: v.cpu().double() for k, v in store.items()}
-    # each float32 path: (circuits, store, batch, mask)
+    # each path held against float64 on the CPU: (circuits, store, batch, mask)
     paths = {f"float32 on {args.device}": ((cc, sq, zc), store, x.to(ctx.device),
                                            mask.to(ctx.device))}
     if ctx.device.type != "cpu":
         paths["float32 on cpu"] = (on_cpu, {k: v.cpu() for k, v in store.items()}, x, mask)
+        paths[f"float64 on {args.device}"] = ((cc, sq, zc), {k: v.double() for k, v in store.items()},
+                                              x.to(ctx.device), mask.to(ctx.device))
 
     want = _outputs(on_cpu, st64, x, mask)
     for label, (circuits, st, xs, ms) in paths.items():

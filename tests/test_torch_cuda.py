@@ -17,7 +17,11 @@ their plain versions with the same bounds, at small widths with
 ``WIDE_WIDTH`` patched down and at the K=128 entry shapes. The signed
 kernels are held against their plain versions in linear space scaled by
 each row's absolute mass (a sum that nearly cancels has no accurate
-log-magnitude in f32), at small widths and at the SoS TensorDot entry. A
+log-magnitude in f32), at small widths and at the SoS TensorDot entry. The
+complex kernels are held the same way on the real and imaginary parts, in
+complex64 and complex128, and the float64 instances of the single-pass lse
+and signed kernels to 1e-10 in log space (1e-12 of the row's mass) and
+``1e-9 (max|plain| + |plain|)`` backward. A
 small circuit's forward, its gradients and its queries through the
 kernels, and a small squared circuit's, are held against the same store
 evaluated in float64 on the CPU.
@@ -136,8 +140,10 @@ def test_backward_is_deterministic():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     x, w = _inputs("lse_matmul", 2, 8, 16)
+    with pytest.raises(TypeError, match="float64"):  # one type for every operand
+        T.lse_matmul(x.double(), w)
     with pytest.raises(TypeError, match="float32"):
-        T.lse_matmul(x.double(), w.double())
+        T.lse_matmul(x, w.double())
     with pytest.raises(ValueError, match="contiguous"):
         T.lse_matmul(x.transpose(1, 2).contiguous().transpose(1, 2), w)
     with pytest.raises(ValueError, match="operands on"):
@@ -603,3 +609,236 @@ def test_small_squared_circuit_through_the_kernels():
                                                 for l in circuit.layers)
         np.testing.assert_allclose(a.double().cpu().numpy(), ra.numpy(), rtol=rtol)
         assert (rs == 1).all() and (s != 0).all()
+
+
+# --------------------------------------------------------------------------- #
+# The complex kernels (csrc/clse_einsum.cu)
+# --------------------------------------------------------------------------- #
+
+COMPLEX_OPS = ["clse_matmul", "clse_tucker2"]
+_COMPLEX_TOL = {torch.complex64: (1e-5, 1e-4), torch.complex128: (1e-12, 1e-9)}
+
+
+def _complex_inputs(op, f, b, o, dtype, *, real_w=False, k1=8, k2=16, i=32):
+    """Complex log-space inputs (real parts as the lse tests', phases uniform
+    in (-pi, pi]) and normal weights, complex or real."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=real)
+
+    def value(*shape):
+        phase = (torch.rand(shape, generator=gen, device="cuda", dtype=real) * 2 - 1) * torch.pi
+        return torch.complex(randn(*shape) * 3.0 - 2.0, phase)
+
+    tucker = "tucker" in op
+    xs = [value(f, b, k1), value(f, b, k2)] if tucker else [value(f, b, i)]
+    width = k1 * k2 if tucker else i
+    w = randn(f, o, width) if real_w else torch.complex(randn(f, o, width), randn(f, o, width))
+    return [*xs, w]
+
+
+def _complex_close(ins, got, ref, tol):
+    """The forward bound of chip_smoke's phase 3e: in linear space scaled by
+    the row's absolute mass A (the lse of the real parts against ``|w|``),
+    ``|exp(out_k - A) - exp(out_p - A)| <= tol`` on the real and imaginary
+    parts; real part -inf where the mass is 0; no NaN."""
+    *xs, w = ins
+    res = [x.real.contiguous() for x in xs]
+    mass = (T.lse_tucker2_ref(*res, w.abs()) if len(xs) == 2 else T.lse_matmul_ref(*res, w.abs()))
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert not torch.isnan(got.real).any() and not torch.isnan(got.imag).any()
+    empty = torch.isneginf(mass)
+    assert torch.isneginf(got.real[empty]).all()
+    lin_k = torch.where(empty, 0.0, torch.exp(got - mass))
+    lin_p = torch.where(empty, 0.0, torch.exp(ref - mass))
+    assert float((lin_k - lin_p).abs().max()) <= tol
+
+
+def _complex_bwd_close(got, ref, rel, *, zeros=False):
+    """The backward bound on each plane: ``|kernel - plain| <= rel (max|plain|
+    + |plain|)``."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    planes = [(got.real, ref.real), (got.imag, ref.imag)] if got.dtype.is_complex else [(got, ref)]
+    scale = ref.abs().max()
+    for k, p in planes:
+        assert not torch.isnan(k).any()
+        assert not zeros or bool((k[ref == 0] == 0).all())
+        assert bool(((k - p).abs() <= rel * (scale + p.abs())).all()), float((k - p).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
+@pytest.mark.parametrize("real_w", [False, True], ids=["complex-w", "real-w"])
+@pytest.mark.parametrize("f,b,o,k1,k2", [(3, 8, 16, 8, 16), (3, 13, 1, 8, 16), (2, 130, 70, 5, 9),
+                                         (2, 70, 64, 4, 64), (144, 4096, 32, 8, 16)])
+@pytest.mark.parametrize("op", COMPLEX_OPS)
+def test_complex_kernels_match_plain(op, f, b, o, k1, k2, real_w, dtype):
+    """Forward and backward of the complex ops against their plain versions,
+    with a row that is all -inf and a cotangent that is 0 on some rows; the
+    last shape is the SoS TensorDot entry (B*Kq = 4096, I = O = 32)."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    if f == 144 and ("tucker" in op or dtype == torch.complex128):
+        f, b, o = 8, 512, 64
+    tol, rel = _COMPLEX_TOL[dtype]
+    ins = _complex_inputs(op, f, b, o, dtype, real_w=real_w, k1=k1, k2=k2)
+    ins[0][0, 2] = complex(float("-inf"), 0.5)
+    ins = [t.requires_grad_() for t in ins]
+    out = getattr(C, op)(*ins)
+    with torch.no_grad():
+        ref = getattr(C, f"{op}_ref")(*ins)
+    _complex_close([t.detach() for t in ins], out.detach(), ref, tol)
+    assert torch.isneginf(out.real[0, 2]).all()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.complex(*(torch.randn(out.shape, generator=gen, device="cuda", dtype=out.real.dtype)
+                        for _ in range(2)))
+    g[1, :3] = 0.0
+    grads = torch.autograd.grad(out, ins, g)
+    with torch.no_grad():  # on the kernel's own output: g / conj(y) is ill-conditioned near 0
+        refs = getattr(C, f"{op}_bwd_ref")(*ins, out.detach(), g)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op] == 1 and T.LAUNCHES[f"{op}_bwd"] == 1
+    assert grads[-1].dtype == ins[-1].dtype
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        _complex_bwd_close(got, r, rel, zeros=k < len(refs) - 1)
+    assert (grads[0][0, 2] == 0).all() and (grads[0][1, :3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
+@pytest.mark.parametrize("op", COMPLEX_OPS)
+def test_complex_exact_cancellation(op, dtype):
+    """Equal magnitudes of opposite phase (0 and pi would round: the phases
+    are 0 with weights +1 and -1) sum to exactly 0: real part -inf, zero
+    gradients, never NaN."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    alt = torch.tensor([1.0, -1.0], device="cuda").repeat(8).to(dtype)
+    if "tucker" in op:
+        ins = [torch.zeros(1, 8, 4, device="cuda", dtype=dtype) for _ in range(2)]
+    else:
+        ins = [torch.zeros(1, 8, 16, device="cuda", dtype=dtype)]
+    ins.append(alt.expand(1, 8, 16).contiguous())
+    ins = [t.requires_grad_() for t in ins]
+    out = getattr(C, op)(*ins)
+    assert torch.isneginf(out.real).all() and not torch.isnan(out.imag).any()
+    grads = torch.autograd.grad(out, ins, torch.ones_like(out))
+    assert all(bool((gr == 0).all()) for gr in grads)
+
+
+def test_complex_backward_skips_and_repeats():
+    """Only the requested gradients are computed, and two backward calls give
+    the same bits (every sum runs in a fixed order)."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    x1, x2, w = _complex_inputs("clse_tucker2", 3, 130, 70, torch.complex64)
+    w.requires_grad_()
+    out = C.clse_tucker2(x1, x2, w)
+    (dw,) = torch.autograd.grad(out, [w], torch.ones_like(out), retain_graph=True)
+    (again,) = torch.autograd.grad(out, [w], torch.ones_like(out))
+    assert torch.equal(dw, again) and T.LAUNCHES["clse_tucker2_bwd"] == 2
+    with torch.no_grad():
+        ref = C.clse_tucker2_bwd_ref(x1, x2, w, out.detach(), torch.ones_like(out),
+                                     (False, False, True))[-1]
+    _complex_bwd_close(dw, ref, 1e-4)
+
+
+def test_complex_wrapper_refuses_what_the_kernel_does_not_take():
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    x, w = _complex_inputs("clse_matmul", 2, 8, 16, torch.complex64)
+    with pytest.raises(TypeError, match="complex"):
+        C.clse_matmul(x.real.contiguous(), w)
+    with pytest.raises(TypeError, match="operands of"):
+        C.clse_matmul(x, w.to(torch.complex128))
+    with pytest.raises(ValueError, match="operands on"):
+        C.clse_matmul(x, w.cpu())
+    assert T.LAUNCHES["clse_matmul"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# The float64 instances of the single-pass lse and signed kernels
+# --------------------------------------------------------------------------- #
+
+
+def _bwd_close_f64(got, ref, *, zeros=False):
+    assert got.shape == ref.shape and got.dtype == torch.float64
+    assert not torch.isnan(got).any()
+    assert not zeros or bool((got[ref == 0] == 0).all())
+    bound = 1e-9 * (ref.abs().max() + ref.abs())
+    assert bool(((got - ref).abs() <= bound).all()), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("f,b,o,k1,k2", [(3, 8, 16, 8, 16), (3, 13, 1, 8, 16), (2, 130, 70, 4, 64),
+                                         (4, 128, 64, 64, 64)])
+@pytest.mark.parametrize("op", OPS)
+def test_float64_kernels_match_plain(op, f, b, o, k1, k2):
+    """Forward (1e-10 relative in log space) and backward of the double
+    instances of the lse kernels; the last shape is the K=64 Tucker entry's
+    widths, whose dx accumulators fill most of a block's shared memory."""
+    ins = [t.double() for t in _inputs(op, f, b, o, k1=k1, k2=k2)]
+    ins[0][0, 2] = float("-inf")
+    ins = [t.requires_grad_() for t in ins]
+    out = getattr(T, op)(*ins)
+    assert out.dtype == torch.float64
+    with torch.no_grad():
+        ref = getattr(T, f"{op}_ref")(*ins)
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    finite = torch.isfinite(ref)
+    err = (out.detach()[finite] - ref[finite]).abs()
+    assert bool((err <= 1e-10 * (1 + ref[finite].abs())).all()), float(err.max())
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda", dtype=torch.float64)
+    g[1, 3:5] = 0.0
+    grads = torch.autograd.grad(out, ins, g)
+    with torch.no_grad():
+        refs = getattr(T, f"{op}_bwd_ref")(*ins, out.detach(), g)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op] == 1 and T.LAUNCHES[f"{op}_bwd"] == 1
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        _bwd_close_f64(got, r, zeros=k < len(ins) - 1)
+    assert (grads[0][0, 2] == 0).all() and (grads[0][1, 3:5] == 0).all()
+
+
+@pytest.mark.parametrize("f,b,o", [(3, 8, 16), (3, 13, 1), (2, 130, 70), (144, 4096, 32)])
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_float64_signed_kernels_match_plain(op, f, b, o):
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    if "tucker" in op and f == 144:
+        f, b, o = 8, 512, 64
+    ins = [t.double() for t in _signed_inputs(op, f, b, o)]
+    ins[0][0, 2] = float("-inf")
+    ins = [t.requires_grad_(k % 2 == 0 or k == len(ins) - 1) for k, t in enumerate(ins)]
+    oa, os_ = getattr(S, op)(*ins)
+    assert oa.dtype == os_.dtype == torch.float64
+    with torch.no_grad():
+        ref = getattr(S, f"{op}_ref")(*ins)
+    _signed_close(op, [t.detach() for t in ins], (oa.detach(), os_), ref, tol=1e-12)
+    g = torch.randn(oa.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda", dtype=torch.float64)
+    g[1, :3] = 0.0
+    diff = [t for t in ins if t.requires_grad]
+    grads = torch.autograd.grad(oa, diff, g)
+    with torch.no_grad():
+        refs = [r for r in getattr(S, f"{op}_bwd_ref")(*ins, oa.detach(), os_, g)
+                if r is not None]
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op] == 1 and T.LAUNCHES[f"{op}_bwd"] == 1
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        _bwd_close_f64(got, r, zeros=k < len(refs) - 1)
+
+
+def test_float64_refusals_name_the_shape():
+    """The Tucker dx kernel's float64 accumulators do not fit a block's
+    shared memory at K1 = K2 = 128, and the wide kernels are float32 only:
+    both raise, neither falls back to the plain version."""
+    x1, x2, w = (t.double() for t in _inputs("lse_tucker2", 1, 8, 16, k1=128, k2=128))
+    with pytest.raises(TypeError, match="float32"):  # width 16384: the K1-chunked kernel
+        T.lse_tucker2(x1, x2, w)
+    x1, x2, w = (t.double().requires_grad_() for t in _inputs("lse_tucker2", 1, 8, 16, k1=90,
+                                                               k2=90))
+    out = T.lse_tucker2(x1, x2, w)
+    with pytest.raises(ValueError, match=r"\(90, 90\) in torch.float64"):
+        out.sum().backward()
+    assert T.LAUNCHES["lse_tucker2"] == 1 and T.LAUNCHES["lse_tucker2_bwd"] == 0

@@ -51,6 +51,22 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("module", ["ops.clse_einsum", "ops.slse_einsum", "ops.routing",
+                                    "backend.torch.semiring", "backend.torch.parameters",
+                                    "utils.checkpoint"])
+def test_port_module_alone_imports_no_jax(module):
+    """Each module that launches kernels or carries stores across imports on
+    its own without JAX and without the JAX package."""
+    code = (
+        f"import sys, cirkit_tpu_torch.{module}; "
+        "assert 'jax' not in sys.modules and 'cirkit_tpu' not in sys.modules"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_sources_name_no_jax_import():
     pattern = re.compile(r"^\s*(import jax|from jax|import cirkit_tpu\b|from cirkit_tpu[ .])",
                          re.MULTILINE)

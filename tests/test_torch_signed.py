@@ -594,6 +594,10 @@ def test_operators_of_compiled_circuits_match_jax(op, semiring):
 
 
 def test_polynomial_layer_and_complex_semiring_are_not_ported():
+    """Both are ported (the name dates from when neither was): the
+    differential of a polynomial circuit compiles under the signed semiring
+    and equals its derivative, the complex semiring builds a context, and a
+    non-positive order still raises."""
     c = _const(TS, np.array([[1.0, 2.0, 1.0], [0.5, 0.0, 1.0]]))
     x0 = TS.PolynomialLayer(Scope([0]), 2, degree=2, coeff=c)
     x1 = TS.PolynomialLayer(Scope([1]), 2, degree=2, coeff=_const(TS, np.ones((2, 3))))
@@ -601,10 +605,22 @@ def test_polynomial_layer_and_complex_semiring_are_not_ported():
     s = TS.SumLayer(2, 1, weight=_const(TS, [[1.0, 0.5]]))
     sc = TS.Circuit([x0, x1, h, s], {h: [x0, x1], s: [h]}, [s])
     ctx = PipelineContext(semiring="signed-lse-sum", fold=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="PolynomialLayer .* item 9"):
-        ctx.compile(TSF.differentiate(sc))
-    with pytest.raises(NotImplementedError, match="complex log semiring .* item 9"):
-        PipelineContext(semiring="complex-lse-sum", device="cpu")
+    dcc = ctx.compile(TSF.differentiate(sc))
+    x = torch.tensor([[0.5, -1.0], [2.0, 0.25]], dtype=torch.float64)
+    a, sg = dcc(x)
+    # c(x) = p0(x0) q0(x1) + 0.5 p1(x0) q1(x1), q = 1 + t + t^2
+    p = lambda t, k: [1 + 2 * t + t**2, 0.5 + t**2][k]  # noqa: E731
+    dp = lambda t, k: [2 + 2 * t, 2 * t][k]  # noqa: E731
+    q, dq = (lambda t: 1 + t + t**2), (lambda t: 1 + 2 * t)  # noqa: E731
+    x0v, x1v = x[:, 0].numpy(), x[:, 1].numpy()
+    want = np.stack([dp(x0v, 0) * q(x1v) + 0.5 * dp(x0v, 1) * q(x1v),
+                     p(x0v, 0) * dq(x1v) + 0.5 * p(x0v, 1) * dq(x1v),
+                     p(x0v, 0) * q(x1v) + 0.5 * p(x0v, 1) * q(x1v)], axis=1)
+    # one output per variable, then the circuit itself
+    np.testing.assert_allclose(_linear((a, sg))[:, :, 0], want, rtol=1e-6)
+    cctx = PipelineContext(semiring="complex-lse-sum", device="cpu")
+    out = cctx.compile(_nonmonotonic_pc(*PORT))(torch.as_tensor(enumerate_worlds(2, 3)))
+    assert out.is_complex()
     with pytest.raises(ValueError, match="positive"):
         ctx.differentiate(ctx.compile(_nonmonotonic_pc(*PORT)), order=0)
 
