@@ -25,8 +25,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    K=128 Tucker shape among them, the blocked backward on the dense ones),
    with a random cotangent that is 0 on some rows, each gradient to
    ``|kernel - plain| <= 1e-4 max|plain| + 1e-4 |plain|`` (linear sums of
-   up to B or O*K2 terms), no NaN, and input gradients that are 0 where the
-   plain version's are;
+   up to B or O*K2 terms), no NaN, input gradients that are 0 where the
+   plain version's are, and a second call equal to the bit; ragged cases
+   (B=100, O=33, K1=13 and K2=21, I=273) that no tile of the float32 lse
+   backward's tensor-core path divides;
 3c. routing against plain: the max-product Tucker kernel
    (``tropical_tucker2``) and the routing choice (``route_tucker2``) against
    their plain versions at the flagship's largest Tucker entry (F=784,
@@ -64,6 +66,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernels and of the signed kernels, forward and backward, at their
    flagship and SoS entries and at an edge shape (``F64_*`` below); a
    float64 Tucker backward too wide for a block's shared memory raises;
+   then the ``double`` instances of the wide kernels (the K1-chunked Tucker
+   forward, the blocked dense forward, its row max and its backward) at the
+   K=128 entries with F cut to ``F64_WIDE_F``, and of the routing kernels
+   (the tropical Tucker to ``F64_TOL``; the argmax at the float64 maximum,
+   the draws reproducible by seed and never a zero weight) at the flagship's
+   largest Tucker entry, each timed, and at an edge shape;
 4. slice: the MNIST QuadGraph flagship forward (K=64, 784 variables, batch
    128) for the Tucker circuit, the CP circuit and the Tucker circuit with
    plain (EM-ready) weights, through ``PipelineContext.compile`` and
@@ -150,17 +158,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``GRAD_*`` bound of the lse-sum ones, the median ms beside lse-sum's and
    signed's. Phases 9 to 10b run after phase 7; phase 4's stores are freed
    before phase 8.
+11. float64 circuits: the K=64 Tucker flagship compiled in float64 (the
+   default dtype float64) through ``MAPQuery``, ``SamplingQuery`` and
+   ``.conditional`` (the double routing kernels), and the K=128 Tucker
+   circuit on an 8x8 image (Tucker entries of width 16384: the wide route)
+   through the ``optimize=True`` forward (the double K1-chunked kernel) and
+   the ``optimize=False`` forward and 3 SGD steps (the double blocked
+   kernels), each call's launches counted; 8 rows of each forward, MAP
+   value and log-evidence, and the SGD loss's gradients, against the same
+   store in float64 on the CPU (``F64_RTOL``, ``F64_BWD_REL``, ``F64_GRAD_ABS``).
 
 The line before the last is a JSON object with each kernel's launches on
 its main paths (the forward ops in phases 4 and 8, the backward ops in
 phases 5 and 8, the routing ops in phase 7, the signed ops in phases 9 and
-9b, the complex ops in phases 10 and 10b), its worst error (for the signed
-and complex forwards, the linear one of phases 3d and 3e), its
-median time beside the plain version's and its bound: the larger of its FMA work
+9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
+11), its worst error (for the signed and complex forwards, the linear one of
+phases 3d and 3e), its median time beside the plain version's and its
+bound: the larger of its FMA work
 (or, for the routing kernels, its add and max operations; 4 FMAs per complex
 multiply-add, 2 against a real weight) over the card's
 f32 peak and the bytes it must move over its memory rate, at the shape
-timed. Before it, the run's total seconds. The last line is
+timed, and (``tc_bound_ms``) the same with the sums of products on the
+tensor cores in 3xTF32. Before it, the run's total seconds. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -199,6 +218,9 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
 # f32 outside the tensor cores, and device memory.
 F32_PEAK, HBM_RATE = 67e12, 3.35e12
 F64_PEAK = 34e12  # the same data sheet's FP64 rate outside the tensor cores
+# dense TF32 on the tensor cores (the same data sheet): a float32 sum of
+# products there takes three TF32 products (3xTF32) for f32 accuracy
+TF32_PEAK = 495e12
 DEV = "cuda"  # the device of phases 3, 3b, 3c, 7 and 8
 ROUTE_FLAGSHIP = (784, 128, 64, 64, 64)  # F, B, K1, K2, O of the largest Tucker entry
 TROP_ATOL = TROP_RTOL = 1e-5  # tropical bound: TROP_RTOL |plain| + TROP_ATOL
@@ -275,6 +297,17 @@ COMPLEX_TOL = {"complex64": (SIGNED_TOL, BWD_REL), "complex128": (1e-12, 1e-9)}
 # F64_SIGNED_TOL of the row's absolute mass, in linear space), and F64_BWD_REL
 # (max|plain| + |plain|) on each gradient.
 F64_TOL, F64_SIGNED_TOL, F64_BWD_REL = 1e-10, 1e-12, 1e-9
+# Phase 3f's K=128 entries in float64 keep B, K1, K2 and O and take 98 of the
+# 784 folds, so each plain version's (F, B, 16384) operands stay at 1.6 GB.
+F64_WIDE_F = 98
+# Phase 11, circuits compiled in float64: the K=64 Tucker flagship (MAP and
+# sampling), and the K=128 Tucker circuit on a F64_SIDE x F64_SIDE image, its
+# Tucker entries of width 16384 as at 28x28 (the wide route), with a
+# twelfth of the 28x28 circuit's parameters. 8 rows are held to float64 on the CPU within
+# F64_RTOL, the card's float64 against the CPU's, and the gradients of the SGD
+# step within F64_BWD_REL (max|slot| + |slot|) + F64_GRAD_ABS: a slot whose
+# gradient on those rows is 0 gets float64 rounding of the flows' sums there.
+F64_SIDE, F64_RTOL, F64_GRAD_ABS = 8, 1e-9, 1e-12
 # Phase 10: Im(log Z) is a multiple of 2 pi (Z is real and positive), and the
 # phase of |c(x)|^2 is 0, or pi where f32 cancellation leaves it negative. A
 # phase off by d radians is the same linear error as a log-magnitude off by d,
@@ -337,11 +370,12 @@ def phase_build() -> None:
     )
 
 
-def _bound(key: str, ins) -> tuple[float, str]:
+def _bound(key: str, ins) -> tuple[float, str, float]:
     """The least ms the card could take for the function of kernel ``key`` on
     ``ins`` (its inputs, weight last): the larger of its FMA work over the f32
     peak and its bytes over the memory rate, each input read once and each
-    output written once, and which of the two binds."""
+    output written once, and which of the two binds; then the same with the
+    FMA work on the tensor cores in 3xTF32 (``_tc_bound``)."""
     *xs, w = ins
     f, b = xs[0].shape[:2]
     o, i = w.shape[1:]
@@ -353,12 +387,18 @@ def _bound(key: str, ins) -> tuple[float, str]:
         flops, moved = 2 * flops, 2 * nbytes + 2 * out
     if key.startswith("lse_matmul_blocked"):
         moved += 4 * f * b  # the row max, written or read
-    return _bound_of(flops, moved)
+    return (*_bound_of(flops, moved), _tc_bound(flops, moved))
 
 
 def _bound_of(ops: float, moved: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / F32_PEAK * 1e3, moved / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _tc_bound(flops: float, moved: float) -> float:
+    """The bound in ms of a float32 sum of products on the tensor cores: its
+    FLOPs three times (3xTF32) over the TF32 peak, or its bytes if larger."""
+    return max(3 * flops / TF32_PEAK, moved / HBM_RATE) * 1e3
 
 
 def _cases(gen):
@@ -436,6 +476,14 @@ def _cases(gen):
          "ragged B=13 K1=8 K2=16"),
         (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 5, 13, 64, 64, 64),
          "ragged B=13"),
+        # O, B, I, K1 and K2 that no tile of the backward's tensor-core path divides
+        (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 3, 100, 13, 21, 33),
+         "ragged B=100 O=33 K1=13 K2=21"),
+        (*single("lse_tucker2"), tucker("lse_tucker2", 2, 100, 21, 13, 33),
+         "ragged B=100 O=33 K1=21 K2=13"),
+        (*single("lse_matmul_softmax"), dense(3, 100, 273, 33, softmax=True),
+         "ragged B=100 O=33 I=273"),
+        (*single("lse_matmul"), dense(2, 100, 130, 33), "ragged B=100 O=33 I=130"),
     ]
     # the wide kernels' edges: chunks of 512 columns (KC = 512 // K2 rows of
     # K1, at least one), the dense online max in chunks of 256 columns
@@ -507,10 +555,11 @@ def phase_kernels() -> dict[str, dict]:
             if "ms" not in entry:
                 entry["ms"] = _median_ms(lambda: kernel(*ins))
                 entry["plain_ms"] = _median_ms(lambda: plain(*ins))
-                entry["bound_ms"], entry["bound_by"] = _bound(key, ins)
+                entry["bound_ms"], entry["bound_by"], entry["tc_bound_ms"] = _bound(key, ins)
                 entry["shape"] = label
                 line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), tensor-core "
+                         f"bound {entry['tc_bound_ms']:.3f} ms")
             if key.endswith("_chunked") and f"K1=K2=O={WIDE_K}" in label:
                 # the single-pass kernel on the same inputs, checked and timed
                 def single_pass():
@@ -727,10 +776,7 @@ def phase_backward() -> dict[str, dict]:
             else:
                 out = plain(*ins)
                 bkey = f"{op}_bwd"
-                needs = (True,) * len(ins)
-                if len(ins) == 3 and L._build.library().lse_bwd_tucker_smem(
-                        ins[0].shape[2], ins[1].shape[2]) > L._MAX_SMEM:
-                    needs = (False, False, True)  # widths past the Tucker dx kernel's memory
+                needs = (True,) * len(ins)  # the float32 Tucker dx takes any K1 and K2
 
                 def kernel(ins=ins, out=out, op=op, needs=needs):
                     return L.backward(op, ins, out, g, needs)
@@ -740,6 +786,10 @@ def phase_backward() -> dict[str, dict]:
             g = torch.randn(out.shape, generator=gen, device=DEV)
             g[0, : min(3, g.shape[1])] = 0.0  # rows whose upstream gradient is 0
             got = kernel()
+            again = kernel()  # every sum in a fixed order: equal to the bit
+            if not all(a is None or torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{bkey} [{label}]: two calls differ")
+            del again
             ref = plain_bwd()
             torch.cuda.synchronize()
             max_err = 0.0
@@ -772,12 +822,13 @@ def phase_backward() -> dict[str, dict]:
                 line += f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
                 if "ms" not in entry:
                     entry.update(ms=ms, plain_ms=plain_ms, shape=label)
-                    entry["bound_ms"], entry["bound_by"] = _bound(bkey, ins)
-                    line += f", bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})"
+                    entry["bound_ms"], entry["bound_by"], entry["tc_bound_ms"] = _bound(bkey, ins)
+                    line += (f", bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                             f"tensor-core bound {entry['tc_bound_ms']:.3f} ms")
                 else:  # the Tucker backward at the K=128 shape
                     entry.update(k128_ms=ms, k128_plain_ms=plain_ms)
-                    entry["k128_bound_ms"] = _bound(bkey, ins)[0]
-                    line += f", bound {entry['k128_bound_ms']:.3f} ms"
+                    entry["k128_bound_ms"], _, tc = _bound(bkey, ins)
+                    line += f", bound {entry['k128_bound_ms']:.3f} ms, tensor-core bound {tc:.3f} ms"
             print(line)
             del ins, out, g
     return results
@@ -790,24 +841,24 @@ def _kernel_layers():
     return (TorchSumLayer, TorchCPTLayer, TorchTuckerLayer)
 
 
-def _flagship_circuit(spl: str, em_ready: bool, k: int):
+def _flagship_circuit(spl: str, em_ready: bool, k: int, side: int = 28):
     from cirkit_tpu_torch.models import image_data
 
-    return image_data((1, 28, 28), "quad-graph", input_layer="categorical", num_input_units=k,
+    return image_data((1, side, side), "quad-graph", input_layer="categorical", num_input_units=k,
                       sum_product_layer=spl, num_sum_units=k, em_ready=em_ready)
 
 
 def _build_flagship(spl: str, em_ready: bool, device: str, *, k: int | None = None,
-                    optimize: bool = True):
+                    optimize: bool = True, side: int = 28):
     from cirkit_tpu_torch.pipeline import PipelineContext
 
-    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k)
+    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k, side)
     ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=optimize, device=device, seed=0)
     return sc, ctx, ctx.compile(sc)
 
 
 def _f64_reference(spl: str, em_ready: bool, store, *, k: int | None = None,
-                   optimize: bool = True):
+                   optimize: bool = True, side: int = 28):
     """The flagship compiled on the CPU with no store of its own, and
     ``store`` copied there in float64 one slot at a time: the reference the
     checks against float64 evaluate, with no CPU initialization."""
@@ -815,7 +866,7 @@ def _f64_reference(spl: str, em_ready: bool, store, *, k: int | None = None,
 
     from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
 
-    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k)
+    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k, side)
     cc = TorchCompiler(semiring="lse-sum", fold=True, optimize=optimize, device="cpu").compile(sc)
     return cc, {s: v.detach().cpu().double() for s, v in store.items()}
 
@@ -1068,7 +1119,7 @@ _KERNEL_CATEGORIES = (  # (category, substrings of kernel names), first match wi
     ("torch softmax", ("softmaxforward", "softmaxbackward")),
     ("forward kernel", ("lse_fwd",)),
     ("backward kernel", ("bwd_prep", "softmax_weights", "lse_bwd_dx", "lse_bwd_dw",
-                         "softmax_vjp")),
+                         "softmax_vjp", "tc_softmax_stats", "tc_dx", "tc_dw", "tucker_dx_finish")),
     ("foreach optimizer", ("multi_tensor_apply",)),
     ("copies and gathers", ("copy", "cat", "index", "gather", "scatter")),
 )
@@ -1411,7 +1462,7 @@ def _signed_check(op: str, label: str, got, ref, ins,
     return max_err, int(flips.sum())
 
 
-def _signed_bound(key: str, ins) -> tuple[float, str]:
+def _signed_bound(key: str, ins) -> tuple[float, str, float]:
     """``_bound`` for the signed ops: the forward reads the (log-magnitude,
     sign) inputs and the weight and writes two outputs; the backward reads
     those, both outputs and g, and writes a gradient per log-magnitude input
@@ -1424,8 +1475,10 @@ def _signed_bound(key: str, ins) -> tuple[float, str]:
     flops = 2 * f * b * i * o
     if key.endswith("_bwd"):
         grads = sum(t.numel() * t.element_size() for t in (*xs[::2], w))
-        return _bound_of(2 * flops, nbytes + 3 * out + grads)
-    return _bound_of(flops, nbytes + 2 * out)
+        ops, moved = 2 * flops, nbytes + 3 * out + grads
+    else:
+        ops, moved = flops, nbytes + 2 * out
+    return (*_bound_of(ops, moved), _tc_bound(ops, moved))
 
 
 def phase_signed() -> dict[str, dict]:
@@ -1456,9 +1509,10 @@ def phase_signed() -> dict[str, dict]:
             if "ms" not in entry:
                 entry["ms"] = _median_ms(lambda: getattr(S, op)(*ins))
                 entry["plain_ms"] = _median_ms(lambda: plain(*ins))
-                entry["bound_ms"], entry["bound_by"] = _signed_bound(op, ins)
+                entry["bound_ms"], entry["bound_by"], entry["tc_bound_ms"] = _signed_bound(op, ins)
                 line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                         f"tensor-core bound {entry['tc_bound_ms']:.3f} ms")
             print(line)
 
             # the backward on the plain forward's outputs, with a cotangent
@@ -1497,9 +1551,10 @@ def phase_signed() -> dict[str, dict]:
             line = f"[signed] {bkey:22s} {label:36s} max|err|={max_err:.3e}"
             if "ms" not in entry:
                 entry.update(ms=_median_ms(kernel), plain_ms=_median_ms(plain_b))
-                entry["bound_ms"], entry["bound_by"] = _signed_bound(bkey, ins)
+                entry["bound_ms"], entry["bound_by"], entry["tc_bound_ms"] = _signed_bound(bkey, ins)
                 line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                         f"tensor-core bound {entry['tc_bound_ms']:.3f} ms")
             print(line)
             del ins, got, ref, got_b, ref_b, g
     return results
@@ -1866,11 +1921,12 @@ def _complex_check(op: str, label: str, got, ref, ins, tol: float) -> float:
     return max_err
 
 
-def _complex_bound(key: str, ins, peak: float = F32_PEAK) -> tuple[float, str]:
+def _complex_bound(key: str, ins, peak: float = F32_PEAK) -> tuple[float, str, float | None]:
     """``_bound`` for the complex ops: a complex multiply-add is 4 real FMAs,
     2 against a real weight; the forward reads the inputs and writes the
     complex output, the backward also reads the output and g, writes a
-    gradient per input and does two contractions."""
+    gradient per input and does two contractions. The tensor-core bound is
+    None in complex128."""
     *xs, w = ins
     f, b = xs[0].shape[:2]
     o, i = w.shape[1:]
@@ -1882,7 +1938,8 @@ def _complex_bound(key: str, ins, peak: float = F32_PEAK) -> tuple[float, str]:
     else:
         moved = nbytes + out
     t_ops, t_bytes = flops / peak * 1e3, moved / HBM_RATE * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    tc = _tc_bound(flops, moved) if peak == F32_PEAK else None
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (tc,)
 
 
 def _planes(t):
@@ -1947,11 +2004,13 @@ def phase_complex() -> dict[str, dict]:
             if timed:
                 ms = _median_ms(lambda: getattr(C, op)(*ins))
                 plain_ms = _median_ms(lambda: plain(*ins))
-                bound_ms, bound_by = _complex_bound(op, ins, peak)
+                bound_ms, bound_by, tc_ms = _complex_bound(op, ins, peak)
                 if "ms" not in entry:
-                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 tc_bound_ms=tc_ms)
                 line += (f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
-                         f"ms ({bound_by})")
+                         f"ms ({bound_by})"
+                         + ("" if tc_ms is None else f", tensor-core bound {tc_ms:.3f} ms"))
             print(line)
 
             # the backward on the plain forward's output, with a cotangent that
@@ -1981,11 +2040,13 @@ def phase_complex() -> dict[str, dict]:
             line = f"[complex] {bkey:16s} {label:44s} max|err|={max_err:.3e}"
             if timed:
                 ms, plain_ms = _median_ms(kernel), _median_ms(plain_b)
-                bound_ms, bound_by = _complex_bound(bkey, ins, peak)
+                bound_ms, bound_by, tc_ms = _complex_bound(bkey, ins, peak)
                 if "ms" not in entry:
-                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 tc_bound_ms=tc_ms)
                 line += (f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
-                         f"ms ({bound_by})")
+                         f"ms ({bound_by})"
+                         + ("" if tc_ms is None else f", tensor-core bound {tc_ms:.3f} ms"))
             print(line)
             del ins, got, ref, got_b, ref_b, g
     return results
@@ -2042,6 +2103,23 @@ def _float64_cases(gen):
     return cases
 
 
+def _f64_close(label: str, got, ref) -> float:
+    """A float64 output within ``F64_TOL (1 + |plain|)`` of the plain one in log
+    space, with its -inf pattern and no NaN; returns the worst error."""
+    import torch
+
+    if got.dtype != torch.float64 or got.shape != ref.shape or torch.isnan(got).any():
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} or NaN")
+    finite = torch.isfinite(ref)
+    err = (got[finite] - ref[finite]).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if not torch.equal(torch.isneginf(got), torch.isneginf(ref)) or not bool(
+            (err <= F64_TOL * (1 + ref[finite].abs())).all()):
+        raise AssertionError(f"{label}: max |kernel - plain| = {max_err:.3e} "
+                             f"(bound {F64_TOL} (1 + |plain|)) or -inf pattern")
+    return max_err
+
+
 def phase_float64() -> None:
     """Phase 3f: the float64 instances of the single-pass lse kernels and of
     the signed kernels, forward and backward, against their plain versions on
@@ -2063,15 +2141,7 @@ def phase_float64() -> None:
                 max_err, _ = _signed_check(op, label, got, ref, ins, F64_SIGNED_TOL)
                 outs = ref
             else:
-                if got.dtype != torch.float64 or got.shape != ref.shape or torch.isnan(got).any():
-                    raise AssertionError(f"{op} [{label}]: {got.dtype} {tuple(got.shape)} or NaN")
-                finite = torch.isfinite(ref)
-                err = (got[finite] - ref[finite]).abs()
-                max_err = float(err.max())
-                if not torch.equal(torch.isneginf(got), torch.isneginf(ref)) or not bool(
-                        (err <= F64_TOL * (1 + ref[finite].abs())).all()):
-                    raise AssertionError(f"{op} [{label}]: max |kernel - plain| = {max_err:.3e} "
-                                         f"(bound {F64_TOL} (1 + |plain|)) or -inf pattern")
+                max_err = _f64_close(f"{op} [{label}]", got, ref)
                 outs = (ref,)
             line = f"[float64] {op:22s} {label:34s} err {max_err:.3e}"
             if timed:
@@ -2109,6 +2179,118 @@ def phase_float64() -> None:
         print(f"[float64] a Tucker backward wider than a block's shared memory raises: {exc}")
     else:
         raise AssertionError("[float64] K1=K2=90 in float64: the dx kernel's refusal did not raise")
+
+
+def phase_float64_wide() -> None:
+    """Phase 3f, continued: the double instances of the wide kernels (rows 3,
+    4, 5) at the K=128 entries with F cut to F64_WIDE_F, and of the routing
+    kernels (rows 8, 9) at the flagship's largest Tucker entry, against their
+    plain float64 versions, each timed; then an edge shape of each (ragged
+    B, O=1, a row that is all -inf, K1 != K2)."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.ops import routing as R
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    inf = float("-inf")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV, dtype=torch.float64)
+
+    def weights(*shape):
+        return torch.rand(shape, generator=gen, device=DEV, dtype=torch.float64) * 0.99 + 0.01
+
+    def timed(kernel, plain):
+        return (f"  kernel {_median_ms(kernel, iters=10):.3f} ms, plain "
+                f"{_median_ms(plain, iters=10):.3f} ms")
+
+    f, k = F64_WIDE_F, WIDE_K
+    with torch.inference_mode():
+        for (fw, b, k1, k2, o), label in (((f, BATCH, k, k, k), f"F={f} B=128 K1=K2=O={k}"),
+                                          ((5, 13, 40, 24, 1), "B=13 O=1 K1=40 K2=24, a row -inf")):
+            for op in ("lse_tucker2_softmax", "lse_tucker2"):
+                key = f"{op}_chunked"
+                ins = [randn(fw, b, k1) * 3.0 - 2.0, randn(fw, b, k2) * 3.0 - 2.0,
+                       (randn if "softmax" in op else weights)(fw, o, k1 * k2)]
+                ins[0][0, 2] = inf
+                plain = L._ENTRIES[op][2]
+                err = _f64_close(f"{key} [{label}]", L._launch_fwd(key, ins), plain(*ins))
+                line = f"[float64] {key:28s} {label:34s} err {err:.3e}"
+                if fw == f:
+                    line += timed(lambda: L._launch_fwd(key, ins), lambda: plain(*ins))
+                print(line)
+                del ins
+        for (fw, b, i, o), label in (((f, BATCH, k * k, k), f"F={f} B=128 I={k * k} O={k}"),
+                                     ((5, 13, 1000, 1), "B=13 O=1 I=1000, a row -inf")):
+            x, w = randn(fw, b, i) * 3.0 - 2.0, weights(fw, o, i)
+            x[0, 2] = inf
+            out, m = L._launch_blocked_fwd(x, w)
+            ref, ref_m = L.lse_matmul_blocked_ref(x, w)
+            if not torch.equal(m, ref_m):
+                raise AssertionError(f"lse_matmul_blocked [{label}]: float64 row max differs")
+            err = _f64_close(f"lse_matmul_blocked [{label}]", out, ref)
+            g = randn(*out.shape)
+            g[0, :3] = 0.0
+            got = L._launch_blocked_bwd(x, w, ref, ref_m, g, (True, True))
+            want = L.lse_matmul_blocked_bwd_ref(x, w, ref, ref_m, g)
+            torch.cuda.synchronize()
+            berr = _check_backward("lse_matmul_blocked_bwd", label, ("dx", "dw"), got, want,
+                                   F64_BWD_REL)
+            line = f"[float64] {'lse_matmul_blocked':28s} {label:34s} err {err:.3e}"
+            if fw == f:
+                line += timed(lambda: L._launch_blocked_fwd(x, w),
+                              lambda: L.lse_matmul_blocked_ref(x, w))
+            line += f"; backward max|err|={berr:.3e}"
+            if fw == f:
+                line += timed(lambda: L._launch_blocked_bwd(x, w, ref, ref_m, g, (True, True)),
+                              lambda: L.lse_matmul_blocked_bwd_ref(x, w, ref, ref_m, g))
+            print(line)
+            del x, w, out, m, ref, ref_m, g, got, want
+
+        fr, br, k1r, k2r, orr = ROUTE_FLAGSHIP
+        for (fw, b, k1, k2, o), lw in (((fr, br, k1r, k2r, orr), True),
+                                       ((fr, br, k1r, k2r, orr), False),
+                                       ((3, 13, 16, 8, 70), False)):
+            label = f"F={fw} B={b} K1={k1} K2={k2} O={o} " + ("logits" if lw else "linear")
+            x1, x2 = randn(fw, b, k1) * 3.0 - 2.0, randn(fw, b, k2) * 3.0 - 2.0
+            th = randn(fw, o, k1 * k2) if lw else weights(fw, o, k1 * k2)
+            x1[0, 2] = inf
+            if not lw:
+                th[:, :, 3] = 0.0  # a zero weight never wins
+            sel = torch.randint(-1, o, (fw, b), generator=gen, device=DEV)
+            err = _f64_close(f"tropical_tucker2 [{label}]",
+                             R.tropical_tucker2(x1, x2, th, log_weights=lw),
+                             R.tropical_tucker2_ref(x1, x2, th, log_weights=lw))
+            idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw)
+            scores = R.route_scores(x1, x2, th, sel, log_weights=lw)
+            best = scores.amax(dim=-1)
+            at = torch.gather(scores, -1, idx[..., None])[..., 0]
+            if not bool(((at >= best - F64_TOL * (1 + best.abs())) | torch.isneginf(best)).all()):
+                raise AssertionError(f"route_tucker2 [{label}]: a float64 choice below the max")
+            draw = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw, seed=7)
+            again = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw, seed=7)
+            if (not torch.equal(draw, again) or not bool(((draw >= 0) & (draw < k1 * k2)).all())
+                    or (not lw and bool((draw == 3).any() | (idx == 3).any()))):
+                raise AssertionError(f"route_tucker2 [{label}]: float64 draws wrong")
+            line = (f"[float64] tropical_tucker2 {label:40s} err {err:.3e}; route_tucker2 "
+                    f"{int((idx != scores.argmax(dim=-1)).sum())} of {idx.numel()} choices "
+                    "differ from plain, each at the max")
+            if fw == fr and lw:
+                plain_gen = torch.Generator(device=DEV).manual_seed(7)
+                line += ("; tropical" + timed(
+                    lambda: R.tropical_tucker2(x1, x2, th, log_weights=lw),
+                    lambda: R.tropical_tucker2_ref(x1, x2, th, log_weights=lw))
+                    + "; route max" + timed(
+                    lambda: R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw),
+                    lambda: R.route_tucker2_ref(x1, x2, th, sel, kind="max", log_weights=lw))
+                    + "; route sample" + timed(
+                    lambda: R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw,
+                                            seed=7),
+                    lambda: R.route_tucker2_ref(x1, x2, th, sel, kind="sample",
+                                                log_weights=lw, generator=plain_gen)))
+            print(line)
+            del x1, x2, th, sel, idx, scores, draw, again
 
 
 def _complex_sos_circuit(side: int):
@@ -2538,6 +2720,156 @@ def phase_wide(smi: str) -> dict[str, int]:
     return launches
 
 
+def _f64_rows(label: str, got, want) -> float:
+    """QUERY_ROWS values of a float64 run on the card within F64_RTOL of the
+    float64 CPU run's; returns the worst relative error."""
+    import torch
+
+    got = got.cpu()
+    if got.dtype != torch.float64:
+        raise AssertionError(f"[float64] {label}: {got.dtype}, not float64")
+    rel = float(((got - want).abs() / want.abs()).max())
+    if not torch.allclose(got, want, rtol=F64_RTOL, atol=0.0):
+        raise AssertionError(f"[float64] {label}: off the float64 CPU run by {rel:.3e}")
+    return rel
+
+
+def phase_float64_circuits(smi: str) -> dict[str, int]:
+    """Phase 11: circuits compiled in float64 (the default dtype float64) on
+    the card. The K=64 Tucker flagship: ``MAPQuery`` with phase 7's 50% mask,
+    ``SamplingQuery`` of 128 samples and ``.conditional``, each counted (the
+    double routing kernels, rows 8 and 9); the MAP values and the
+    log-evidence of QUERY_ROWS rows against float64 on the CPU. The K=128
+    Tucker circuit on an F64_SIDE image: with ``optimize=True`` the forward
+    (the double K1-chunked kernel, row 5), with ``optimize=False`` the
+    forward and 3 SGD steps (the double blocked kernels, rows 3 and 4), each
+    counted; QUERY_ROWS rows of each forward, and of the SGD loss's
+    gradients, against float64 on the CPU. Returns the launches of the
+    counted calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import MAPQuery, SamplingQuery
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTuckerLayer
+    from cirkit_tpu_torch.parallel import data_parallel_step, split_trainable
+
+    launches: dict[str, int] = {}
+    r = QUERY_ROWS
+    rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
+    x_np = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
+    mask_np = rng.random((BATCH, 784)) < 0.5
+    xs_np = np.random.default_rng(1).integers(0, 256, (BATCH, F64_SIDE**2))
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
+        t0 = time.perf_counter()
+        _, ctx, cc = _build_flagship("tucker", False, DEV)
+        st = ctx.parameters
+        if any(v.dtype != torch.float64 for v in st.values()):
+            raise AssertionError("[float64] the K=64 flagship's store is not float64")
+        fwd, _ = _expected_launches(cc)
+        n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc.layers)
+        route = {"route_tucker2": n_tucker}
+        mq, sq = MAPQuery(cc), SamplingQuery(cc)
+        gen = torch.Generator().manual_seed(0)
+        calls = {
+            "map": (lambda: mq(x, evidence_mask=mask, store=st),
+                    {"tropical_tucker2": n_tucker, **route}),
+            "sample": (lambda: sq(BATCH, generator=gen, store=st), {**fwd, **route}),
+            "conditional": (lambda: sq.conditional(x, evidence_mask=mask, generator=gen,
+                                                   store=st), {**fwd, **route}),
+        }
+        outs = {name: _counted_launches(f"[float64] K=64 tucker {name}", fn, want, launches)
+                for name, (fn, want) in calls.items()}
+        (asg, vals), (samples, _), (csamples, log_ev) = (outs[n] for n in calls)
+        ok = (vals.dtype == log_ev.dtype == torch.float64 and bool(vals.isfinite().all())
+              and bool(log_ev.isfinite().all())
+              and torch.equal(asg[mask], x[mask].to(asg.dtype))
+              and torch.equal(csamples[mask], x[mask].to(csamples.dtype))
+              and all(bool(((s_ >= 0) & (s_ <= 255)).all()) for s_ in (asg, samples, csamples)))
+        if not ok:
+            raise AssertionError("[float64] K=64 tucker: query outputs wrong")
+        cc64, st64 = _f64_reference("tucker", False, st)
+        xr, mr = torch.as_tensor(x_np[:r]), torch.as_tensor(mask_np[:r])
+        want_map = MAPQuery(cc64)(xr, evidence_mask=mr, store=st64)
+        _, want_ev = SamplingQuery(cc64).conditional(xr, evidence_mask=mr, store=st64,
+                                                       generator=torch.Generator().manual_seed(0))
+        rels = {"map": _f64_rows("K=64 map", vals[:r], want_map[1]),
+                "log-evidence": _f64_rows("K=64 log-evidence", log_ev[:r], want_ev)}
+        differ = int((asg[:r].cpu() != want_map[0]).sum())
+        with torch.inference_mode():
+            times = {name: _median_ms(fn, warmup=1, iters=5) for name, (fn, _) in calls.items()}
+        print(f"[float64] K=64 tucker in float64 ({time.perf_counter() - t0:.1f} s): {r} rows "
+              "against float64 on the CPU, " + ", ".join(f"{k} max rel err {v:.2e}" for k, v
+                                                          in rels.items())
+              + f", MAP assignments differing {differ} of {r * 784}; queries at batch {BATCH} "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f" (median of 5) ({smi})")
+        del ctx, cc, st, mq, sq, calls, outs, asg, vals, samples, csamples, log_ev, cc64, st64
+
+        xs = torch.as_tensor(xs_np, device=DEV)
+        xsr = torch.as_tensor(xs_np[:r])
+        for optimize in (True, False):
+            label = f"K={WIDE_K} tucker {F64_SIDE}x{F64_SIDE} optimize={optimize}"
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            _, ctx, cc = _build_flagship("tucker", False, DEV, k=WIDE_K, optimize=optimize,
+                                         side=F64_SIDE)
+            st = ctx.parameters
+            fwd, bwd = _expected_launches(cc)
+            wide = "lse_tucker2_softmax_chunked" if optimize else "lse_matmul_blocked"
+            if wide not in fwd:
+                raise AssertionError(f"[float64] {label}: no wide entry in {fwd}")
+            with torch.inference_mode():
+                out = _counted_launches(f"[float64] {label} forward", lambda: cc(xs), fwd,
+                                        launches)
+                ms = _median_ms(lambda: cc(xs), warmup=1, iters=5)
+            cc64, st64 = _f64_reference("tucker", False, st, k=WIDE_K, optimize=optimize,
+                                        side=F64_SIDE)
+            with torch.inference_mode():
+                rel = _f64_rows(f"{label} forward", out[:r, 0, 0], cc64(st64, xsr)[:, 0, 0])
+            line = (f"[float64] {label}: {cc.num_parameters()} parameters, forward max rel err "
+                    f"{rel:.2e} against the CPU, {ms:.3f} ms median of 5 at batch {BATCH}")
+            if not optimize:  # the SGD loss's gradients, then counted SGD steps
+                tr, fr = split_trainable(cc, st)
+                got = torch.autograd.grad(-cc.evaluate({**tr, **fr}, xs[:r]).mean(),
+                                          list(tr.values()))
+                tr_c, fr_c = split_trainable(cc64, st64)
+                tr_c = {k: v.requires_grad_() for k, v in tr_c.items()}
+                refs = torch.autograd.grad(-cc64.evaluate({**tr_c, **fr_c}, xsr).mean(),
+                                           [tr_c[k] for k in tr])
+                worst = 0.0
+                for name, g, ref in zip(tr, got, refs):
+                    err = (g.cpu() - ref).abs()
+                    bound = F64_BWD_REL * (ref.abs().max() + ref.abs()) + F64_GRAD_ABS
+                    if not bool(g.isfinite().all()) or not bool((err <= bound).all()):
+                        raise AssertionError(f"[float64] {label}: gradient of {name} off by "
+                                             f"{float(err.max()):.3e}")
+                    worst = max(worst, float((err / bound).max()))
+                opt = torch.optim.SGD(list(tr.values()), lr=SGD_LR)
+                step = data_parallel_step(cc, opt)
+                losses = [float(_counted_launches(f"[float64] {label} step",
+                                                  lambda: step(tr, fr, xs), {**fwd, **bwd},
+                                                  launches)) for _ in range(3)]
+                if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                    raise AssertionError(f"[float64] {label}: losses {losses}")
+                step_ms = _median_ms(lambda: step(tr, fr, xs), warmup=1, iters=3)
+                line += (f"; gradients of {len(tr)} slots on {r} rows within {worst:.3f} of "
+                         f"{F64_BWD_REL} (max|slot| + |slot|) + {F64_GRAD_ABS}; 3 SGD steps, NLL "
+                         f"{losses[0]:.3f} "
+                         f"-> {losses[-1]:.3f}, step {step_ms:.3f} ms median of 3")
+                del tr, fr, got, tr_c, fr_c, refs, opt, step
+            print(f"{line} ({time.perf_counter() - t0:.1f} s) ({smi})")
+            del ctx, cc, st, out, cc64, st64
+    finally:
+        torch.set_default_dtype(old)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[float64] launches on the float64 paths: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2553,6 +2885,7 @@ def main() -> int:
     results.update(phase_signed())
     results.update(phase_complex())
     phase_float64()
+    phase_float64_wide()
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
     # each kernel's launches, summed over the main-path runs of phases 4-9b
     launches = dict.fromkeys(KERNELS, 0)
@@ -2568,8 +2901,9 @@ def main() -> int:
     del built, signed_runs
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
+    f64 = phase_float64_circuits(smi)
     for counts in (fwd, train, {op: queries[op] for op in ROUTE_OPS}, wide, sos, signed, csos,
-                   cflag):
+                   cflag, f64):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]
@@ -2588,6 +2922,9 @@ def main() -> int:
             "plain_ms": results[op]["plain_ms"],
             "bound_ms": results[op]["bound_ms"],
             "bound_by": results[op]["bound_by"],
+            # the same work's bound with its sums of products on the tensor
+            # cores in 3xTF32 (None for the routing kernels, which have none)
+            "tc_bound_ms": results[op].get("tc_bound_ms"),
             # no single PyTorch call computes a log-einsum-exp with linear
             # weights, its signed variant, a max-plus Tucker or a routing choice;
             # torch.bmm on complex tensors contracts, but computes neither the

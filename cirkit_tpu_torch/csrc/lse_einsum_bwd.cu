@@ -28,11 +28,13 @@
 //            reaches jnp.sign, a dropped sign output or a constant, so it
 //            never reaches a parameter.
 //
-// The work is two contractions of the forward's size (s and dw), so like the
-// forward it is bound by f32 arithmetic on the CUDA cores, not by memory.
-// Each contraction runs the forward's register-tiled FMA loop (16-wide
-// chunks staged in shared memory, the next chunk loaded into registers
-// while the current one is contracted). The launches of one call:
+// The work is two contractions of the forward's size (s and dw). The float
+// instances of the lse backward (unsigned: the flagship's training) run both
+// on the tensor cores, section 6 below. The double instances and every
+// signed one run each contraction on the CUDA cores in the forward's
+// register-tiled FMA loop (16-wide chunks staged in shared memory, the next
+// chunk loaded into registers while the current one is contracted), in
+// these launches:
 //
 //   1. bwd_prep: per batch row, the clamped maxes (kept for the other
 //      kernels) and the gy row, zeroed where not finite, so a row that is
@@ -60,16 +62,14 @@
 //   5. softmax_vjp (softmax only): one warp per weight row rewrites the
 //      finished dw row into dtheta in place.
 //
-// Measured on an H100 (700 W) at the Tucker softmax flagship shape (F=784,
-// B=128, K1=K2=O=64): 8.45 ms against 10.24 ms for the plain PyTorch
-// version; dw alone 3.3 ms, 16 TFLOP/s. Softmax adds two memory-bound
-// passes over the weights (2.3 ms); see PERF.md for the history.
+// PERF.md has the times of both paths against the plain PyTorch version.
 //
 // Every sum runs in an order fixed by the code (no atomics), so a call is
 // deterministic from run to run. Any O >= 1 and any batch are taken, the
-// ragged edges masked. The Tucker dx kernel keeps (64 x (K1+K2+2)) * 2 +
-// 64 x 65 floats of dynamic shared memory (83 KB at K1=K2=64); the wrapper
-// refuses widths past the card's 227 KB.
+// ragged edges masked. The Tucker dx kernel of sections 1-5 keeps (64 x
+// (K1+K2+2)) * 2 + 64 x 65 floats of dynamic shared memory (83 KB at
+// K1=K2=64); the wrapper refuses widths past the card's 227 KB (in double
+// from K1 = K2 = 90). Section 6 takes any K1 and K2.
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream, checks cudaGetLastError() after each launch and returns the first
@@ -78,6 +78,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lse_common.cuh"
@@ -652,6 +653,611 @@ softmax_vjp(const T* __restrict__ w, T* __restrict__ dw, int O, int I) {
 }
 
 // --------------------------------------------------------------------------
+// 6. The tensor-core path of the float, unsigned instances
+// --------------------------------------------------------------------------
+//
+// Both contractions run on the tensor cores as warp-level
+// mma.sync.m16n8k8 TF32 products in 3xTF32: each operand is split into a
+// TF32 high part and a TF32 remainder, and hi*hi + hi*lo + lo*hi is summed
+// in f32 registers (the counterpart of the TPU kernel's three-pass `_dot3`;
+// one TF32 pass keeps 11 bits, too few for the gradients' bound). Operands
+// are staged in shared memory as f32 and split as the warps read their
+// fragments; each warp holds a 32x32 tile of the block's output. The Tucker
+// dx kernel streams its operand chunks through a cp.async ring; the dw
+// kernel stages a whole batch chunk once and contracts it for each of its
+// rows i; the dense dx kernel prefetches the next chunk into registers.
+// Softmax needs no (F, O, I) copy of the weights and no VJP pass: a prep
+// kernel writes each row's log-normalizer, the dx kernels form w =
+// exp(theta - lse) as they read theta, and the dw kernel's epilogue writes
+// dtheta = w * (dw - r_o) with r_o = sum_c w_oc dw_oc = sum_b g_bo over the
+// rows whose gy is finite (as sum_c w_oc e_bc = exp(out_bo - shift_b), gy_bo
+// exp(out_bo - shift_b) = g_bo).
+
+namespace tc {
+constexpr int BK = 16;   // contraction chunk staged in shared memory (two k-steps of 8)
+constexpr int PAD = 8;   // row strides of 8 mod 32 words: a fragment load hits 32 banks
+constexpr int WT = 32;   // a warp's output tile, WT x WT: 2 x 4 mma tiles of 16 x 8
+constexpr int MT = WT / 16;
+constexpr int NT = WT / 8;
+}  // namespace tc
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (lo the rounded remainder).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A B over the 8 contraction rows k..k+7 of a staged chunk, 3xTF32:
+// As[k][m] holds A (rows m), k-major, or with AROW As[m][k], row-major, and
+// Bs[k][n] holds B, k-major; the warp's tile starts at row wm, column wn.
+// B's rows k + t and k + t + 4 (t = lane % 4) are read as they are (BMODE
+// 0), scaled by s0 and s1 (1), or as exp(B - s0) and exp(B - s1) (2).
+// Fragment (mt, nt, r) holds row wm + 16 mt + g + 8 (r >> 1), column wn +
+// 8 nt + 2 t + (r & 1), with g = lane / 4.
+template <int AS, int BS, int BMODE = 0, bool AROW = false>
+__device__ __forceinline__ void mma_k8(const float (*As)[AS], const float (*Bs)[BS], int k,
+                                       int wm, int wn, int lane, float s0, float s1,
+                                       float (&acc)[tc::MT][tc::NT][4]) {
+  constexpr int MT = tc::MT, NT = tc::NT;
+  const int g = lane >> 2, t = lane & 3;
+  auto a = [&](int m, int kk) { return AROW ? As[m][kk] : As[kk][m]; };
+  auto b = [&](int kk, int c, float sh) {
+    const float v = Bs[kk][c];
+    return BMODE == 1 ? v * sh : BMODE == 2 ? fast_exp(v - sh) : v;
+  };
+  uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = wm + mt * 16 + g;
+    split_tf32(a(r, k + t), ahi[mt][0], alo[mt][0]);
+    split_tf32(a(r + 8, k + t), ahi[mt][1], alo[mt][1]);
+    split_tf32(a(r, k + t + 4), ahi[mt][2], alo[mt][2]);
+    split_tf32(a(r + 8, k + t + 4), ahi[mt][3], alo[mt][3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uint32_t bhi[2], blo[2];
+    const int c = wn + nt * 8 + g;
+    split_tf32(b(k + t, c, s0), bhi[0], blo[0]);
+    split_tf32(b(k + t + 4, c, s1), bhi[1], blo[1]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {  // the small products first
+      mma_tf32(acc[mt][nt], alo[mt], bhi);
+      mma_tf32(acc[mt][nt], ahi[mt], blo);
+      mma_tf32(acc[mt][nt], ahi[mt], bhi);
+    }
+  }
+}
+
+// Asynchronous copies global -> shared (cp.async) of one float or of four
+// (16-byte aligned at both ends), zero-filled where ``pred`` is false (``src``
+// must still be a valid address), committed in groups and waited for by
+// group.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[tc::MT][tc::NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+}
+
+// Per weight row of the softmax: its log-normalizer lse_o and r_o = sum_b
+// g_bo over the rows whose gy_bo is finite and nonzero (gy is zeroed where
+// not finite; where it is 0 otherwise, g is 0). One warp per row.
+__global__ void __launch_bounds__(THREADS)
+tc_softmax_stats(const float* __restrict__ theta, const float* __restrict__ g,
+                 const float* __restrict__ gy, float* __restrict__ lse, float* __restrict__ rsum,
+                 int B, int O, int I) {
+  const int lane = threadIdx.x & 31;
+  const int o = blockIdx.y * WARPS + (threadIdx.x >> 5);
+  if (o >= O) return;  // warp-uniform
+  const size_t row = (size_t)blockIdx.x * O + o;
+  float m, s;
+  cirkit::softmax_row_stats(theta + row * I, I, lane, &m, &s);
+  const float* gf = g + (size_t)blockIdx.x * B * O + o;
+  const float* gyf = gy + (size_t)blockIdx.x * B * O + o;
+  float r = 0.f;
+  for (int b = lane; b < B; b += 32) r += gyf[(size_t)b * O] != 0.f ? gf[(size_t)b * O] : 0.f;
+  r = warp_sum(r);
+  if (lane == 0) {
+    lse[row] = m + logf(s);
+    rsum[row] = r;
+  }
+}
+
+// The dx kernels' operands: A = gy (batch rows x units), B = the weight
+// chunk (units x columns); a block has 128 batch rows and 64 columns, its
+// warps 4 x 2.
+namespace tc_dx {
+constexpr int BM = 128;
+constexpr int BN = 64;
+constexpr int AS = BM + tc::PAD;
+constexpr int BS = BN + tc::PAD;
+constexpr int A_PER = BM * tc::BK / THREADS;  // 8
+constexpr int W_PER = BN * tc::BK / THREADS;  // 4
+constexpr int RSTEP = THREADS / tc::BK;       // gy staging: rows per pass (16)
+constexpr int WSTEP = THREADS / BN;           // w staging: units per pass (4)
+}  // namespace tc_dx
+
+// Registers of one dx chunk: gy[b0 + m][o0 + k] at k = tid % BK, m = tid /
+// BK + n RSTEP; and w[o0 + k][c0 + n] at n = tid % BN, k = tid / BN + q
+// WSTEP, for n < ncols (softmax: theta and the row's lse, staged as
+// exp(theta - lse), 0 outside).
+template <bool SOFTMAX>
+struct DxChunk {
+  float pa[tc_dx::A_PER], pw[tc_dx::W_PER], pl[tc_dx::W_PER];
+
+  __device__ __forceinline__ void load(const float* gyf, const float* wf, const float* lsef,
+                                       int b0, int o0, int c0, int ncols, int B, int O, int I,
+                                       int tid) {
+    using namespace tc_dx;
+    const int k = tid % tc::BK, m = tid / tc::BK;
+#pragma unroll
+    for (int n = 0; n < A_PER; ++n) {
+      const int b = b0 + m + n * RSTEP;
+      pa[n] = (b < B && o0 + k < O) ? gyf[(size_t)b * O + o0 + k] : 0.f;
+    }
+    const int c = tid % BN, kw = tid / BN;
+#pragma unroll
+    for (int q = 0; q < W_PER; ++q) {
+      const int o = o0 + kw + q * WSTEP;
+      const bool in = o < O && c < ncols;
+      pw[q] = in ? wf[(size_t)o * I + c0 + c] : (SOFTMAX ? -INFINITY : 0.f);
+      if (SOFTMAX) pl[q] = in ? lsef[o] : 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void store(float (*As)[tc_dx::AS], float (*Bs)[tc_dx::BS],
+                                        int tid) const {
+    using namespace tc_dx;
+    const int k = tid % tc::BK, m = tid / tc::BK;
+#pragma unroll
+    for (int n = 0; n < A_PER; ++n) As[k][m + n * RSTEP] = pa[n];
+    const int c = tid % BN, kw = tid / BN;
+#pragma unroll
+    for (int q = 0; q < W_PER; ++q)
+      Bs[kw + q * WSTEP][c] = SOFTMAX ? fast_exp(pw[q] - pl[q]) : pw[q];
+  }
+};
+
+// dx, dense: dx = e * (gy @ w), one block per (fold, 64 columns, 128 rows).
+template <bool SOFTMAX>
+__global__ void __launch_bounds__(THREADS, 2)
+tc_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ lse, const float* __restrict__ sa,
+            const float* __restrict__ gy, float* __restrict__ dx, int B, int I, int O) {
+  using namespace tc_dx;
+  __shared__ __align__(16) float As[tc::BK][AS];
+  __shared__ __align__(16) float Bs[tc::BK][BS];
+  const int f = blockIdx.x;
+  const int c0 = blockIdx.y * BN;
+  const int b0 = blockIdx.z * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * tc::WT, wn = (warp & 1) * tc::WT;
+  const float* gyf = gy + (size_t)f * B * O;
+  const float* wf = w + (size_t)f * O * I;
+  const float* lsef = SOFTMAX ? lse + (size_t)f * O : nullptr;
+
+  float acc[tc::MT][tc::NT][4];
+  zero_acc(acc);
+  DxChunk<SOFTMAX> chunk;
+  chunk.load(gyf, wf, lsef, b0, 0, c0, I - c0, B, O, I, tid);
+  for (int o0 = 0; o0 < O; o0 += tc::BK) {
+    chunk.store(As, Bs, tid);
+    __syncthreads();
+    if (o0 + tc::BK < O) chunk.load(gyf, wf, lsef, b0, o0 + tc::BK, c0, I - c0, B, O, I, tid);
+#pragma unroll
+    for (int k = 0; k < tc::BK; k += 8) mma_k8<AS, BS>(As, Bs, k, wm, wn, lane, 0.f, 0.f, acc);
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const float* xf = x + (size_t)f * B * I;
+  float* dxf = dx + (size_t)f * B * I;
+#pragma unroll
+  for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + wm + mt * 16 + g + 8 * h;
+      if (b >= B) continue;
+      const float m = sa[(size_t)f * B + b];
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + wn + nt * 8 + 2 * t + e;
+          if (c >= I) continue;
+          const size_t idx = (size_t)b * I + c;
+          dxf[idx] = expf(xf[idx] - m) * acc[mt][nt][2 * h + e];
+        }
+    }
+}
+
+// dx, Tucker: one block per (fold and 128 batch rows, 64 columns j of the
+// K2 segment, I_PER rows i of K1). For each of its i it contracts the s
+// tile s[b, i*K2 + j] = sum_o gy[b,o] w[o, i*K2 + j] over the units, then
+// folds it: the dx2 sums sum_i s e1[b,i] accumulate in the warps' registers
+// (the same fragment layout as s), and the dx1 sums sum_j s e2[b,j] reduce
+// over a quad of lanes and the block's two warp columns. The block writes
+// both as partials (dx1 over its j tile, dx2 over its i rows), and
+// tucker_dx_finish adds them in a fixed order and multiplies by e. The
+// operand chunks (gy over 16 units, row-major, and the weights or logits of
+// those units over the 64 columns, with their rows' lse) arrive by cp.async
+// in a ring of STAGES, two chunks ahead of the one contracted (16-byte
+// copies where ``vec``: O and K2 multiples of 4); softmax weights are formed
+// as exp(theta - lse) as the warps read them. Shared memory stays at 100 KB
+// whatever K1 and K2, so two blocks share an SM.
+namespace tc_tucker {
+constexpr int I_PER = 16;
+constexpr int STAGES = 3;
+constexpr int AK = tc::BK + 4;     // row stride of a staged gy chunk [BM][AK]
+constexpr int ES = tc_dx::BN + 1;  // E2 row stride
+// one stage: the gy chunk [BM][AK], the weight chunk [BK][BS], its lse [BK]
+constexpr int STAGE = tc_dx::BM * AK + tc::BK * tc_dx::BS + tc::BK;
+// dynamic shared memory: the stages, E1 [I_PER][BM], E2 [BM][ES], P1 [2][BM][I_PER]
+constexpr size_t SMEM = sizeof(float) * (STAGES * STAGE + I_PER * tc_dx::BM +
+                                         tc_dx::BM * ES + 2 * tc_dx::BM * I_PER);
+}  // namespace tc_tucker
+
+template <bool SOFTMAX>
+__global__ void __launch_bounds__(THREADS, 2)
+tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
+             const float* __restrict__ w, const float* __restrict__ lse,
+             const float* __restrict__ sa, const float* __restrict__ sb,
+             const float* __restrict__ gy, float* __restrict__ part1,
+             float* __restrict__ part2, int F, int B, int K1, int K2, int O, int n_bt,
+             bool vec) {
+  using tc_dx::BM;
+  using tc_dx::BN;
+  using tc_dx::BS;
+  using namespace tc_tucker;
+  extern __shared__ float smem[];
+  float* E1 = smem + STAGES * STAGE;  // [I_PER][BM]: e1 of the block's rows i
+  float* E2 = E1 + I_PER * BM;        // [BM][ES]: e2 of the block's columns j
+  float* P1 = E2 + BM * ES;           // [2][BM][I_PER]: dx1 sums of each warp column
+
+  const int f = blockIdx.x / n_bt;
+  const int b0 = (blockIdx.x - f * n_bt) * BM;
+  const int j0 = blockIdx.y * BN;
+  const int i0 = blockIdx.z * I_PER;
+  const int n_i = min(I_PER, K1 - i0);
+  const int I = K1 * K2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * tc::WT, wn = (warp & 1) * tc::WT;
+  const float* gyf = gy + (size_t)f * B * O;
+  const float* wf = w + (size_t)f * O * I;
+  const float* lsef = SOFTMAX ? lse + (size_t)f * O : nullptr;
+  const int n_chunks = (O + tc::BK - 1) / tc::BK;
+  const int n_steps = n_i * n_chunks;
+  const int ncols = K2 - j0;
+
+  // the copies of step's chunks into its slot of the ring
+  auto fetch = [&](int step) {
+    const int il = step / n_chunks;
+    const int o0 = (step - il * n_chunks) * tc::BK;
+    const float* wc = wf + (size_t)(i0 + il) * K2 + j0;
+    float* As = smem + (step % STAGES) * STAGE;
+    float* Bs = As + BM * AK;
+    if (vec) {
+      for (int e = tid; e < BM * tc::BK / 4; e += THREADS) {
+        const int r = e >> 2, k = 4 * (e & 3), b = b0 + r;
+        const bool in = b < B && o0 + k < O;
+        cp_async_f32x4(As + r * AK + k, in ? gyf + (size_t)b * O + o0 + k : gyf, in);
+      }
+      for (int e = tid; e < tc::BK * BN / 4; e += THREADS) {
+        const int k = e / (BN / 4), c = 4 * (e - k * (BN / 4));
+        const bool in = o0 + k < O && c < ncols;
+        cp_async_f32x4(Bs + k * BS + c, in ? wc + (size_t)(o0 + k) * I + c : wf, in);
+      }
+    } else {
+      for (int e = tid; e < BM * tc::BK; e += THREADS) {
+        const int r = e / tc::BK, k = e - r * tc::BK, b = b0 + r;
+        const bool in = b < B && o0 + k < O;
+        cp_async_f32(As + r * AK + k, in ? gyf + (size_t)b * O + o0 + k : gyf, in);
+      }
+      for (int e = tid; e < tc::BK * BN; e += THREADS) {
+        const int k = e / BN, c = e - k * BN;
+        const bool in = o0 + k < O && c < ncols;
+        cp_async_f32(Bs + k * BS + c, in ? wc + (size_t)(o0 + k) * I + c : wf, in);
+      }
+    }
+    // the rows' lse (0 past O, whose gy is 0)
+    if (SOFTMAX && tid < tc::BK)
+      cp_async_f32(Bs + tc::BK * BS + tid, o0 + tid < O ? lsef + o0 + tid : lsef, o0 + tid < O);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) fetch(s);
+    cp_async_commit();
+  }
+
+  for (int e = tid; e < I_PER * BM; e += THREADS) {
+    const int il = e / BM, r = e - il * BM, b = b0 + r;
+    E1[e] = (b < B && il < n_i)
+                ? expf(x1[((size_t)f * B + b) * K1 + i0 + il] - sa[(size_t)f * B + b]) : 0.f;
+  }
+  for (int e = tid; e < BM * BN; e += THREADS) {
+    const int r = e / BN, c = e - r * BN, b = b0 + r;
+    E2[r * ES + c] = (b < B && j0 + c < K2)
+                         ? expf(x2[((size_t)f * B + b) * K2 + j0 + c] - sb[(size_t)f * B + b])
+                         : 0.f;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float acc[tc::MT][tc::NT][4], a2[tc::MT][tc::NT][4];
+  zero_acc(a2);
+  for (int step = 0; step < n_steps; ++step) {
+    const int il = step / n_chunks;
+    const int ck = step - il * n_chunks;
+    if (ck == 0) zero_acc(acc);
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step have landed
+    __syncthreads();              // everyone's, and step - 1's slot is free
+    if (step + STAGES - 1 < n_steps) fetch(step + STAGES - 1);
+    cp_async_commit();
+    const float* st = smem + (step % STAGES) * STAGE;
+    const auto As = reinterpret_cast<const float(*)[AK]>(st);
+    const auto Bs = reinterpret_cast<const float(*)[BS]>(st + BM * AK);
+    const float* Ls = st + BM * AK + tc::BK * BS;
+#pragma unroll
+    for (int k = 0; k < tc::BK; k += 8)
+      mma_k8<AK, BS, SOFTMAX ? 2 : 0, true>(As, Bs, k, wm, wn, lane,
+                                            SOFTMAX ? Ls[k + t] : 0.f,
+                                            SOFTMAX ? Ls[k + t + 4] : 0.f, acc);
+    if (ck != n_chunks - 1) continue;
+#pragma unroll
+    for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm + mt * 16 + g + 8 * h;
+        const float e1 = E1[il * BM + row];
+        const float* e2 = E2 + row * ES + wn + 2 * t;
+        float p = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float s = acc[mt][nt][2 * h + e];
+            a2[mt][nt][2 * h + e] = fmaf(s, e1, a2[mt][nt][2 * h + e]);
+            p = fmaf(s, e2[nt * 8 + e], p);
+          }
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        if (t == 0) P1[((warp & 1) * BM + row) * I_PER + il] = p;
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // part1[jt][f][b][i] over this block's j tile; part2[it][f][b][j] over
+  // its rows i
+  for (int e = tid; e < BM * I_PER; e += THREADS) {
+    const int r = e / I_PER, il = e - r * I_PER, b = b0 + r;
+    if (b < B && il < n_i)
+      part1[(((size_t)blockIdx.y * F + f) * B + b) * K1 + i0 + il] =
+          P1[r * I_PER + il] + P1[(BM + r) * I_PER + il];
+  }
+#pragma unroll
+  for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + wm + mt * 16 + g + 8 * h;
+      if (b >= B) continue;
+      float* dst = part2 + (((size_t)blockIdx.z * F + f) * B + b) * K2;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + wn + nt * 8 + 2 * t + e;
+          if (j < K2) dst[j] = a2[mt][nt][2 * h + e];
+        }
+    }
+}
+
+// dx1 = e1 * (sum of the n1 dx1 partials), dx2 = e2 * (sum of the n2 dx2
+// partials), added in partial order; one warp per (fold, batch row).
+__global__ void __launch_bounds__(THREADS)
+tucker_dx_finish(const float* __restrict__ x1, const float* __restrict__ x2,
+                 const float* __restrict__ sa, const float* __restrict__ sb,
+                 const float* __restrict__ part1, const float* __restrict__ part2,
+                 float* __restrict__ dx1, float* __restrict__ dx2, int F, int B, int K1, int K2,
+                 int n1, int n2) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const size_t row = (size_t)blockIdx.x * B + b;
+  const size_t plane = (size_t)F * B;
+  if (dx1 != nullptr)
+    for (int k = lane; k < K1; k += 32) {
+      float s = 0.f;
+      for (int p = 0; p < n1; ++p) s += part1[(p * plane + row) * K1 + k];
+      dx1[row * K1 + k] = expf(x1[row * K1 + k] - sa[row]) * s;
+    }
+  if (dx2 != nullptr)
+    for (int k = lane; k < K2; k += 32) {
+      float s = 0.f;
+      for (int p = 0; p < n2; ++p) s += part2[(p * plane + row) * K2 + k];
+      dx2[row * K2 + k] = expf(x2[row * K2 + k] - sb[row]) * s;
+    }
+}
+
+// dw = gy^T e summed over the batch, one block per (fold and NI rows i of
+// K1, 64 columns j of K2, BO units); dense is the case K1 = 1, K2 = I with
+// no e1. The block stages a chunk of up to 128 batch rows once: gy^T, e2 =
+// exp(x2 - shift) over its columns and e1 over its rows i. It then contracts
+// the chunk for each row i in turn, the B operand e2[b, j] scaled by e1[b, i]
+// as the warps read it, so the operands are read from device memory once a
+// block and not once a row i (a batch of more than 128 rows is staged again
+// for each row i). The warps tile BO x 64 in 32 x 32 tiles; with BO = 64 the
+// two halves of the warps take alternate rows i. Softmax: the epilogue writes
+// dtheta = w * (dw - r_o) with w = exp(theta - lse_o), two neighbouring
+// columns a thread where the rows allow 8-byte accesses (``pair``).
+namespace tc_dw {
+constexpr int BB = 128;  // batch rows staged at once
+constexpr int BJ = 64;   // columns j
+constexpr int NI = 8;    // rows i per block (Tucker)
+constexpr int BS = BJ + tc::PAD;
+constexpr size_t smem_bytes(int bo) {
+  return sizeof(float) * (BB * (bo + tc::PAD) + BB * BS + NI * BB);
+}
+}  // namespace tc_dw
+
+template <bool TUCKER, bool SOFTMAX, int BO>
+__global__ void __launch_bounds__(THREADS, 2)
+tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
+             const float* __restrict__ sa, const float* __restrict__ sb,
+             const float* __restrict__ gy, const float* __restrict__ theta,
+             const float* __restrict__ lse, const float* __restrict__ rsum,
+             float* __restrict__ dw, int B, int K1, int K2, int O, int n_it, bool pair) {
+  using namespace tc_dw;
+  constexpr int AS = BO + tc::PAD;
+  constexpr int WO = BO / tc::WT;  // warps along the units in a group of 2 WO
+  extern __shared__ float smem[];
+  float(*Gs)[AS] = reinterpret_cast<float(*)[AS]>(smem);           // [BB][AS]: gy^T
+  float(*Es)[BS] = reinterpret_cast<float(*)[BS]>(smem + BB * AS);  // [BB][BS]: e2
+  float* E1s = smem + BB * (AS + BS);                               // [NI][BB]: e1
+
+  const int I = K1 * K2;
+  const int f = blockIdx.x / n_it;
+  const int i0 = (blockIdx.x - f * n_it) * NI;
+  const int j0 = blockIdx.y * BJ;
+  const int o0 = blockIdx.z * BO;
+  const int n_i = min(NI, K1 - i0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ig = warp / (2 * WO);  // this warp's group: rows i ig, ig + IG, ...
+  const int wq = warp - ig * 2 * WO;
+  const int wm = (wq >> 1) * tc::WT, wn = (wq & 1) * tc::WT;
+  const int g = lane >> 2, t = lane & 3;
+  const float* xef = (TUCKER ? xb : xa) + (size_t)f * B * K2;  // the operand of e2
+  const float* sef = (TUCKER ? sb : sa) + (size_t)f * B;
+  const float* x1f = xa + (size_t)f * B * K1;
+  const float* s1f = sa + (size_t)f * B;
+  const float* gyf = gy + (size_t)f * B * O;
+
+  auto stage = [&](int b0) {
+    const int nb = min(BB, B - b0);
+    for (int e = tid; e < BB * BO; e += THREADS) {
+      const int k = e / BO, o = e - k * BO;
+      Gs[k][o] = (k < nb && o0 + o < O) ? gyf[(size_t)(b0 + k) * O + o0 + o] : 0.f;
+    }
+    for (int e = tid; e < BB * BJ; e += THREADS) {
+      const int k = e / BJ, j = e - k * BJ;
+      Es[k][j] = (k < nb && j0 + j < K2)
+                     ? fast_exp(xef[(size_t)(b0 + k) * K2 + j0 + j] - sef[b0 + k]) : 0.f;
+    }
+    if (TUCKER)
+      for (int e = tid; e < NI * BB; e += THREADS) {
+        const int il = e / BB, k = e - il * BB;
+        E1s[e] = (k < nb && il < n_i)
+                     ? fast_exp(x1f[(size_t)(b0 + k) * K1 + i0 + il] - s1f[b0 + k]) : 0.f;
+      }
+  };
+
+  const bool multi = B > BB;
+  if (!multi) {
+    stage(0);
+    __syncthreads();
+  }
+  float* dwf = dw + (size_t)f * O * I;
+  const float* thf = SOFTMAX ? theta + (size_t)f * O * I : nullptr;
+  for (int base = 0; base < n_i; base += 128 / BO) {
+    const int il = base + ig;
+    const size_t col0 = (size_t)(min(il, n_i - 1) + i0) * K2;
+    // softmax: the tile's logits, loaded ahead of the contraction they wait for
+    float2 th[tc::MT][2][tc::NT];
+    if (SOFTMAX && pair)
+#pragma unroll
+      for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < tc::NT; ++nt) {
+            const int o = o0 + wm + mt * 16 + g + 8 * h;
+            const int j = j0 + wn + nt * 8 + 2 * t;
+            th[mt][h][nt] = il < n_i && o < O && j < K2
+                                ? *reinterpret_cast<const float2*>(thf + (size_t)o * I + col0 + j)
+                                : make_float2(0.f, 0.f);
+          }
+    float acc[tc::MT][tc::NT][4];
+    zero_acc(acc);
+    for (int b0 = 0; b0 < B; b0 += BB) {
+      if (multi) {
+        __syncthreads();
+        stage(b0);
+        __syncthreads();
+      }
+      if (il >= n_i) continue;
+      const int nk = min(BB, (B - b0 + 7) & ~7);
+      const float* e1 = E1s + il * BB;
+      for (int k = 0; k < nk; k += 8)
+        mma_k8<AS, BS, TUCKER ? 1 : 0>(Gs, Es, k, wm, wn, lane, TUCKER ? e1[k + t] : 1.f,
+                               TUCKER ? e1[k + t + 4] : 1.f, acc);
+    }
+    if (il >= n_i) continue;
+
+#pragma unroll
+    for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = o0 + wm + mt * 16 + g + 8 * h;
+        if (o >= O) continue;
+        float l = 0.f, r = 0.f;
+        if (SOFTMAX) {
+          l = lse[(size_t)f * O + o];
+          r = rsum[(size_t)f * O + o];
+        }
+        float* drow = dwf + (size_t)o * I + col0;
+        const float* trow = SOFTMAX ? thf + (size_t)o * I + col0 : nullptr;
+#pragma unroll
+        for (int nt = 0; nt < tc::NT; ++nt) {
+          const int j = j0 + wn + nt * 8 + 2 * t;
+          const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+          if (pair && j < K2) {  // K2 even: j + 1 < K2 too
+            float2 d = make_float2(v0, v1);
+            if (SOFTMAX) {
+              const float2 tv = th[mt][h][nt];
+              d = make_float2(expf(tv.x - l) * (v0 - r), expf(tv.y - l) * (v1 - r));
+            }
+            *reinterpret_cast<float2*>(drow + j) = d;
+          } else {
+            if (j < K2) drow[j] = SOFTMAX ? expf(trow[j] - l) * (v0 - r) : v0;
+            if (j + 1 < K2) drow[j + 1] = SOFTMAX ? expf(trow[j + 1] - l) * (v1 - r) : v1;
+          }
+        }
+      }
+  }
+}
+
+// --------------------------------------------------------------------------
 // Launch
 // --------------------------------------------------------------------------
 
@@ -709,21 +1315,123 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
   return 0;
 }
 
+// The number of floats of the tensor-core path's scratch ``ws``: for softmax
+// the (F, O) log-normalizers and row dots, then for Tucker the dx partials,
+// (ceil(K2 / 64), F, B, K1) for dx1 and (ceil(K1 / I_PER), F, B, K2) for dx2.
+inline size_t tc_scratch(bool tucker, bool softmax, int F, int B, int K1, int K2, int O) {
+  size_t n = softmax ? 2 * (size_t)F * O : 0;
+  if (tucker)
+    n += (size_t)F * B * ((size_t)cdiv(K2, tc_dx::BN) * K1 +
+                          (size_t)cdiv(K1, tc_tucker::I_PER) * K2);
+  return n;
+}
+
+// The dw kernel with BO units a block: two blocks of 108 KB (BO = 128) share
+// an SM, so the launch asks for the largest shared-memory carveout.
+template <bool TUCKER, bool SOFTMAX, int BO>
+cudaError_t launch_tc_dw(const float* xa, const float* xb, const float* sa, const float* sb,
+                         const float* gy, const float* theta, const float* lse,
+                         const float* rsum, float* dw, int F, int B, int K1, int K2, int O,
+                         bool pair, cudaStream_t s) {
+  constexpr size_t smem = tc_dw::smem_bytes(BO);
+  auto kernel = tc_dw_kernel<TUCKER, SOFTMAX, BO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int n_it = static_cast<int>(cdiv(K1, tc_dw::NI));
+  const dim3 grid(F * n_it, cdiv(K2, tc_dw::BJ), cdiv(O, BO));
+  kernel<<<grid, THREADS, smem, s>>>(xa, xb, sa, sb, gy, theta, lse, rsum, dw, B, K1, K2, O,
+                                     n_it, pair);
+  return cudaGetLastError();
+}
+
+// The float, unsigned instances: bwd_prep, the softmax statistics, the dx
+// kernel (Tucker: and its finish), the dw kernel, on the tensor cores.
+template <bool TUCKER, bool SOFTMAX>
+int launch_bwd_tc(const float* xa, const float* xb, const float* w, const float* out,
+                  const float* g, float* dxa, float* dxb, float* dw, float* sa, float* sb,
+                  float* gy, float* ws, int F, int B, int I, int K1, int K2, int O, int device,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int KA = TUCKER ? K1 : I;
+
+  bwd_prep<float, TUCKER, false><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+      xa, xb, out, g, nullptr, sa, sb, gy, B, KA, K2, O);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  float* lse = nullptr;
+  float* rsum = nullptr;
+  float* part = ws;
+  if (SOFTMAX) {
+    lse = ws;
+    rsum = ws + (size_t)F * O;
+    part = ws + 2 * (size_t)F * O;
+    tc_softmax_stats<<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, g, gy, lse, rsum, B, O, I);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dxa != nullptr || dxb != nullptr) {
+    if (TUCKER) {
+      const int n_bt = static_cast<int>(cdiv(B, tc_dx::BM));
+      const int n_jt = static_cast<int>(cdiv(K2, tc_dx::BN));
+      const int n_it = static_cast<int>(cdiv(K1, tc_tucker::I_PER));
+      float* part1 = part;
+      float* part2 = part + (size_t)n_jt * F * B * K1;
+      // 16-byte copies where every gy row and weight row segment starts
+      // 16-byte aligned
+      const bool vec = O % 4 == 0 && K2 % 4 == 0 && reinterpret_cast<uintptr_t>(gy) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+      err = cudaFuncSetAttribute(tc_dx_tucker<SOFTMAX>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(tc_tucker::SMEM));
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(tc_dx_tucker<SOFTMAX>,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tc_dx_tucker<SOFTMAX><<<dim3(F * n_bt, n_jt, n_it), THREADS, tc_tucker::SMEM, s>>>(
+          xa, xb, w, lse, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt, vec);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      tucker_dx_finish<<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+          xa, xb, sa, sb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+    } else {
+      tc_dx_dense<SOFTMAX><<<dim3(F, cdiv(I, tc_dx::BN), cdiv(B, tc_dx::BM)), THREADS, 0, s>>>(
+          xa, w, lse, sa, gy, dxa, B, I, O);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dw != nullptr) {
+    // dense: one row i of K1 = 1, K2 = I columns
+    const int k1 = TUCKER ? K1 : 1, k2 = TUCKER ? K2 : I;
+    const bool pair = k2 % 2 == 0 && reinterpret_cast<uintptr_t>(dw) % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(w) % 8 == 0;
+    err = O <= 64 ? launch_tc_dw<TUCKER, SOFTMAX, 64>(xa, xb, sa, sb, gy, w, lse, rsum, dw, F, B,
+                                                       k1, k2, O, pair, s)
+                  : launch_tc_dw<TUCKER, SOFTMAX, 128>(xa, xb, sa, sb, gy, w, lse, rsum, dw, F,
+                                                        B, k1, k2, O, pair, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every entry exists for float (the plain name) and for double (the name with
-// _f64). lse_bwd_tucker_smem: the shared memory a block of the Tucker dx
-// kernel uses at (K1, K2), static staging tiles included, in bytes. The
+// _f64). The float lse entries take the tensor-core path (section 6), with
+// the scratch ws of lse_bwd_scratch floats (its Tucker entries gain that
+// argument); the double ones and every signed entry the kernels of sections
+// 1-5, the softmax with an (F, O, I) scratch ws. lse_bwd_tucker_smem: the
+// shared memory a block of those sections' Tucker dx kernel uses at (K1,
+// K2), static staging tiles included, in bytes. The
 // signed entries take the (log-magnitude, sign) inputs and the forward's
 // (log|y|, sign y) outputs, and write the gradients of the log-magnitude
 // inputs and of the weight (a null pointer skips one).
-#define LSE_BWD_ENTRIES(SUFFIX, T)                                                              \
-  size_t lse_bwd_tucker_smem##SUFFIX(int K1, int K2) {                                          \
-    using namespace tucker_dx;                                                                  \
-    return tucker_dx_smem<T>(K1, K2) + sizeof(T) * BK * (AS + BS);                              \
-  }                                                                                             \
+#define LSE_BWD_ENTRIES(SUFFIX, T)                                                                  \
   int lse_bwd_dense##SUFFIX(const T* x, const T* w, const T* out, const T* g, T* dx, T* dw,     \
                             T* sa, T* gy, int F, int B, int I, int O, int device,               \
                             void* stream) {                                                     \
@@ -748,6 +1456,12 @@ extern "C" {
                                      int device, void* stream) {                                \
     return launch_bwd<T, true, true>(x1, x2, theta, out, g, dx1, dx2, dtheta, sa, sb, gy, ws,   \
                                      F, B, K1 * K2, K1, K2, O, device, stream);                 \
+  }
+
+#define SLSE_BWD_ENTRIES(SUFFIX, T)                                                                 \
+  size_t lse_bwd_tucker_smem##SUFFIX(int K1, int K2) {                                          \
+    using namespace tucker_dx;                                                                  \
+    return tucker_dx_smem<T>(K1, K2) + sizeof(T) * BK * (AS + BS);                              \
   }                                                                                             \
   int slse_bwd_dense##SUFFIX(const T* a, const T* s, const T* w, const T* oa, const T* os,      \
                              const T* g, T* da, T* dw, T* sa, T* gy, int F, int B, int I,       \
@@ -782,8 +1496,39 @@ extern "C" {
                                            s2, os);                                             \
   }
 
-LSE_BWD_ENTRIES(, float)
+size_t lse_bwd_scratch(int tucker, int softmax, int F, int B, int K1, int K2, int O) {
+  return tc_scratch(tucker != 0, softmax != 0, F, B, K1, K2, O);
+}
+int lse_bwd_dense(const float* x, const float* w, const float* out, const float* g, float* dx,
+                  float* dw, float* sa, float* gy, int F, int B, int I, int O, int device,
+                  void* stream) {
+  return launch_bwd_tc<false, false>(x, nullptr, w, out, g, dx, nullptr, dw, sa, nullptr, gy,
+                                     nullptr, F, B, I, I, 1, O, device, stream);
+}
+int lse_bwd_dense_softmax(const float* x, const float* theta, const float* out, const float* g,
+                          float* dx, float* dtheta, float* sa, float* gy, float* ws, int F, int B,
+                          int I, int O, int device, void* stream) {
+  return launch_bwd_tc<false, true>(x, nullptr, theta, out, g, dx, nullptr, dtheta, sa, nullptr,
+                                    gy, ws, F, B, I, I, 1, O, device, stream);
+}
+int lse_bwd_tucker(const float* x1, const float* x2, const float* w, const float* out,
+                   const float* g, float* dx1, float* dx2, float* dw, float* sa, float* sb,
+                   float* gy, float* ws, int F, int B, int K1, int K2, int O, int device,
+                   void* stream) {
+  return launch_bwd_tc<true, false>(x1, x2, w, out, g, dx1, dx2, dw, sa, sb, gy, ws, F, B,
+                                    K1 * K2, K1, K2, O, device, stream);
+}
+int lse_bwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
+                           const float* out, const float* g, float* dx1, float* dx2,
+                           float* dtheta, float* sa, float* sb, float* gy, float* ws, int F,
+                           int B, int K1, int K2, int O, int device, void* stream) {
+  return launch_bwd_tc<true, true>(x1, x2, theta, out, g, dx1, dx2, dtheta, sa, sb, gy, ws, F,
+                                   B, K1 * K2, K1, K2, O, device, stream);
+}
 LSE_BWD_ENTRIES(_f64, double)
+SLSE_BWD_ENTRIES(, float)
+SLSE_BWD_ENTRIES(_f64, double)
 #undef LSE_BWD_ENTRIES
+#undef SLSE_BWD_ENTRIES
 
 }  // extern "C"

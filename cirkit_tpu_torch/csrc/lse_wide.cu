@@ -44,6 +44,10 @@
 // call is deterministic. Any B, O >= 1 and K1, K2 are taken, the ragged
 // edges masked. wgmma, TMA and TF32x3 are left for later.
 //
+// Every kernel is a template over its scalar type T, float or double (the
+// entries with _f64), as in lse_einsum.cu: a double block holds twice the
+// registers for its accumulators, so one is resident on an SM, not two.
+//
 // Offsets into the operands are size_t; the sizes, I and the block counts
 // must stay below 2^31, which the Python wrappers check. Each extern "C"
 // entry selects the given device, launches on the given stream, checks
@@ -60,34 +64,41 @@
 namespace {
 
 using cirkit::clamp_max;
+using cirkit::exp_t;
+using cirkit::fast_exp;
+using cirkit::fma_t;
+using cirkit::load4;
+using cirkit::log_t;
+using cirkit::max_t;
+using cirkit::store4;
 using cirkit::warp_max;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BK = 16;  // contraction chunk staged in shared memory
+template <typename T> constexpr int RESIDENT = sizeof(T) == 4 ? 2 : 1;
+// The lowest finite value, the clamped max of an empty prefix.
+template <typename T>
+__device__ __forceinline__ T lowest() {
+  return sizeof(T) == 4 ? -FLT_MAX : -DBL_MAX;
+}
 
 // acc[i][j] += sum_kk As[kk][ty*TM + i] * Bs[kk][tx*TN + j] over one staged
 // chunk; rows of As and Bs are 16-byte aligned, TM and TN multiples of 4.
-template <int TM, int TN, int AS, int BS>
-__device__ __forceinline__ void fma_chunk(const float (*As)[AS], const float (*Bs)[BS], int ty,
-                                          int tx, float (&acc)[TM][TN]) {
+template <int TM, int TN, int AS, int BS, typename T>
+__device__ __forceinline__ void fma_chunk(const T (*As)[AS], const T (*Bs)[BS], int ty, int tx,
+                                          T (&acc)[TM][TN]) {
 #pragma unroll
   for (int kk = 0; kk < BK; ++kk) {
-    float a[TM], b[TN];
+    T a[TM], b[TN];
 #pragma unroll
-    for (int i = 0; i < TM; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(&As[kk][ty * TM + i]);
-      a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
-    }
+    for (int i = 0; i < TM; i += 4) load4(&As[kk][ty * TM + i], a + i);
 #pragma unroll
-    for (int j = 0; j < TN; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN + j]);
-      b[j] = v.x, b[j + 1] = v.y, b[j + 2] = v.z, b[j + 3] = v.w;
-    }
+    for (int j = 0; j < TN; j += 4) load4(&Bs[kk][tx * TN + j], b + j);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < TN; ++j) acc[i][j] = fma_t(a[i], b[j], acc[i][j]);
   }
 }
 
@@ -112,20 +123,20 @@ constexpr int W_PER = BN / RSTEP;    // 4
 
 constexpr int CT_CHUNK = 512;  // target columns of a K1-chunk (KC = CT_CHUNK / K2 rows)
 
-template <bool SOFTMAX>
-__global__ void __launch_bounds__(THREADS, 2)
-ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
-       const float* __restrict__ x2,  // (F, B, K2)
-       const float* __restrict__ w,   // (F, O, K1*K2): weights, or logits for SOFTMAX
-       float* __restrict__ out,       // (F, B, O)
+template <typename T, bool SOFTMAX>
+__global__ void __launch_bounds__(THREADS, RESIDENT<T>)
+ct_fwd(const T* __restrict__ x1,  // (F, B, K1)
+       const T* __restrict__ x2,  // (F, B, K2)
+       const T* __restrict__ w,   // (F, O, K1*K2): weights, or logits for SOFTMAX
+       T* __restrict__ out,       // (F, B, O)
        int B, int K1, int K2, int O, int KC) {
   using namespace fwd;
-  __shared__ __align__(16) float As[BK][AS];  // e1 * e2, k-major
-  __shared__ __align__(16) float Bs[BK][BS];  // weights, k-major
-  __shared__ float m1s[BM], m2s[BM];          // the global shifts of x1 and x2
-  __shared__ float wmax[BN];  // softmax: each unit's running logit max
-  __shared__ float wscl[BN];  // softmax: this chunk's rescale factor
-  __shared__ float lsum[BN];  // softmax: log of each unit's normalizer
+  __shared__ __align__(16) T As[BK][AS];  // e1 * e2, k-major
+  __shared__ __align__(16) T Bs[BK][BS];  // weights, k-major
+  __shared__ T m1s[BM], m2s[BM];          // the global shifts of x1 and x2
+  __shared__ T wmax[BN];  // softmax: each unit's running logit max
+  __shared__ T wscl[BN];  // softmax: this chunk's rescale factor
+  __shared__ T lsum[BN];  // softmax: log of each unit's normalizer
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -134,18 +145,18 @@ ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int I = K1 * K2;
-  const float* x1f = x1 + (size_t)f * B * K1;
-  const float* x2f = x2 + (size_t)f * B * K2;
-  const float* wf = w + (size_t)f * O * I;
+  const T* x1f = x1 + (size_t)f * B * K1;
+  const T* x2f = x2 + (size_t)f * B * K2;
+  const T* wf = w + (size_t)f * O * I;
 
   // Prologue: the clamped max of every batch row of x1 and of x2, the shifts
   // of the whole contraction, so the chunks add up with no rescaling.
   for (int r = warp; r < BM; r += WARPS) {
     const int b = b0 + r;
-    float a = -INFINITY, c = -INFINITY;
+    T a = -INFINITY, c = -INFINITY;
     if (b < B) {
-      for (int k = lane; k < K1; k += 32) a = fmaxf(a, x1f[(size_t)b * K1 + k]);
-      for (int k = lane; k < K2; k += 32) c = fmaxf(c, x2f[(size_t)b * K2 + k]);
+      for (int k = lane; k < K1; k += 32) a = max_t(a, x1f[(size_t)b * K1 + k]);
+      for (int k = lane; k < K2; k += 32) c = max_t(c, x2f[(size_t)b * K2 + k]);
     }
     a = warp_max(a);
     c = warp_max(c);
@@ -162,15 +173,15 @@ ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
   const int srow = tid / BK;
   const int tx = tid % (BN / TN);  // output-unit group
   const int ty = tid / (BN / TN);  // batch-row group
-  float acc[TM][TN];
+  T acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float part[W_PER];  // softmax: this thread's share of its staged units' normalizers
+    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
+  T part[W_PER];  // softmax: this thread's share of its staged units' normalizers
 #pragma unroll
-  for (int n = 0; n < W_PER; ++n) part[n] = 0.f;
-  float pa[A_PER], pw[W_PER];
+  for (int n = 0; n < W_PER; ++n) part[n] = T(0);
+  T pa[A_PER], pw[W_PER];
 
   for (int i0 = 0; i0 < K1; i0 += KC) {
     const int c0 = i0 * K2;                // first column of the chunk
@@ -182,14 +193,14 @@ ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
       // staging below shifts by 0 so exp(-inf) = 0, never NaN.
       for (int r = warp; r < BN; r += WARPS) {
         const int o = o0 + r;
-        float cm = -INFINITY;
+        T cm = -INFINITY;
         if (o < O)
-          for (int k = c0 + lane; k < c1; k += 32) cm = fmaxf(cm, wf[(size_t)o * I + k]);
+          for (int k = c0 + lane; k < c1; k += 32) cm = max_t(cm, wf[(size_t)o * I + k]);
         cm = warp_max(cm);
         if (lane == 0) {
-          const float mo = wmax[r];
-          const float mn = fmaxf(mo, cm);
-          wscl[r] = mn == -INFINITY ? 1.f : __expf(mo - mn);
+          const T mo = wmax[r];
+          const T mn = max_t(mo, cm);
+          wscl[r] = mn == -INFINITY ? T(1) : fast_exp(mo - mn);
           wmax[r] = mn;
         }
       }
@@ -218,21 +229,21 @@ ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
 #pragma unroll
       for (int n = 0; n < W_PER; ++n) {
         const int o = o0 + srow + n * RSTEP;
-        pw[n] = (o < O && k < c1) ? wf[(size_t)o * I + k] : (SOFTMAX ? -INFINITY : 0.f);
+        pw[n] = (o < O && k < c1) ? wf[(size_t)o * I + k] : (SOFTMAX ? -INFINITY : T(0));
       }
     };
 
     load_chunk(c0 + skk);
     for (int k0 = c0; k0 < c1; k0 += BK) {
 #pragma unroll
-      for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = __expf(pa[n]);
+      for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = fast_exp(pa[n]);
 #pragma unroll
       for (int n = 0; n < W_PER; ++n) {
         const int c = srow + n * RSTEP;
-        float v = pw[n];
+        T v = pw[n];
         if (SOFTMAX) {
-          const float mx = wmax[c];
-          v = __expf(v - (mx == -INFINITY ? 0.f : mx));
+          const T mx = wmax[c];
+          v = fast_exp(v - (mx == -INFINITY ? T(0) : mx));
           part[n] += v;
         }
         Bs[skk][c] = v;
@@ -252,28 +263,28 @@ ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
     // a warp) add their shares by a fixed butterfly.
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
-      float s = part[n];
+      T s = part[n];
 #pragma unroll
       for (int d = BK / 2; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
-      if (skk == 0) lsum[srow + n * RSTEP] = logf(s);
+      if (skk == 0) lsum[srow + n * RSTEP] = log_t(s);
     }
     __syncthreads();
   }
 
   // Epilogue: back to log space, masking the ragged batch and unit edges.
-  float* outf = out + (size_t)f * B * O;
+  T* outf = out + (size_t)f * B * O;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty * TM + i;
     const int b = b0 + r;
     if (b >= B) continue;
-    const float shift = m1s[r] + m2s[r];
+    const T shift = m1s[r] + m2s[r];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = tx * TN + j;
       const int o = o0 + c;
       if (o >= O) continue;
-      float y = logf(acc[i][j]);
+      T y = log_t(acc[i][j]);
       if (SOFTMAX) y -= lsum[c];
       outf[(size_t)b * O + o] = y + shift;
     }
@@ -286,17 +297,18 @@ ct_fwd(const float* __restrict__ x1,  // (F, B, K1)
 
 constexpr int BLK_CHUNK = 256;  // columns per step of the online row max
 
-__global__ void __launch_bounds__(THREADS, 2)
-blocked_fwd(const float* __restrict__ x,  // (F, B, I)
-            const float* __restrict__ w,  // (F, O, I)
-            float* __restrict__ out,      // (F, B, O)
-            float* __restrict__ m_out,    // (F, B): the clamped row max of x
+template <typename T>
+__global__ void __launch_bounds__(THREADS, RESIDENT<T>)
+blocked_fwd(const T* __restrict__ x,  // (F, B, I)
+            const T* __restrict__ w,  // (F, O, I)
+            T* __restrict__ out,      // (F, B, O)
+            T* __restrict__ m_out,    // (F, B): the clamped row max of x
             int B, int I, int O, int n_ot, int n_bt) {
   using namespace fwd;
-  __shared__ __align__(16) float As[BK][AS];  // e, k-major
-  __shared__ __align__(16) float Bs[BK][BS];  // w, k-major
-  __shared__ float rmax[BM];  // running clamped max of each batch row
-  __shared__ float rscl[BM];  // this chunk's rescale factor
+  __shared__ __align__(16) T As[BK][AS];  // e, k-major
+  __shared__ __align__(16) T Bs[BK][BS];  // w, k-major
+  __shared__ T rmax[BM];  // running clamped max of each batch row
+  __shared__ T rscl[BM];  // this chunk's rescale factor
 
   // Unit tile fastest: the blocks that share one x tile run side by side.
   const int ot = blockIdx.x % n_ot;
@@ -308,24 +320,24 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* xf = x + (size_t)f * B * I;
-  const float* wf = w + (size_t)f * O * I;
+  const T* xf = x + (size_t)f * B * I;
+  const T* wf = w + (size_t)f * O * I;
 
   // The clamped max of an empty prefix: a row of -inf keeps it, shifts by
-  // -FLT_MAX and gives log(0) = -inf, never NaN.
-  for (int r = tid; r < BM; r += THREADS) rmax[r] = -FLT_MAX;
+  // the lowest finite value and gives log(0) = -inf, never NaN.
+  for (int r = tid; r < BM; r += THREADS) rmax[r] = lowest<T>();
   __syncthreads();
 
   const int skk = tid % BK;
   const int srow = tid / BK;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
-  float acc[TM][TN];
+  T acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float pa[A_PER], pw[W_PER];
+    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
+  T pa[A_PER], pw[W_PER];
   int c1 = 0;
   auto load_chunk = [&](int k) {
 #pragma unroll
@@ -336,7 +348,7 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + srow + n * RSTEP;
-      pw[n] = (o < O && k < c1) ? wf[(size_t)o * I + k] : 0.f;
+      pw[n] = (o < O && k < c1) ? wf[(size_t)o * I + k] : T(0);
     }
   };
 
@@ -346,21 +358,21 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
     // accumulators shrink by exp(old - new) (both finite: no NaN).
     for (int r = warp; r < BM; r += WARPS) {
       const int b = b0 + r;
-      float cm = -INFINITY;
+      T cm = -INFINITY;
       if (b < B)
-        for (int k = c0 + lane; k < c1; k += 32) cm = fmaxf(cm, xf[(size_t)b * I + k]);
+        for (int k = c0 + lane; k < c1; k += 32) cm = max_t(cm, xf[(size_t)b * I + k]);
       cm = clamp_max(warp_max(cm));
       if (lane == 0) {
-        const float mo = rmax[r];
-        const float mn = fmaxf(mo, cm);
-        rscl[r] = __expf(mo - mn);
+        const T mo = rmax[r];
+        const T mn = max_t(mo, cm);
+        rscl[r] = fast_exp(mo - mn);
         rmax[r] = mn;
       }
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const float s = rscl[ty * TM + i];
+      const T s = rscl[ty * TM + i];
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] *= s;
     }
@@ -370,7 +382,7 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
 #pragma unroll
       for (int n = 0; n < A_PER; ++n) {
         const int r = srow + n * RSTEP;
-        As[skk][r] = __expf(pa[n] - rmax[r]);
+        As[skk][r] = fast_exp(pa[n] - rmax[r]);
       }
 #pragma unroll
       for (int n = 0; n < W_PER; ++n) Bs[skk][srow + n * RSTEP] = pw[n];
@@ -381,7 +393,7 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
     }
   }
 
-  float* outf = out + (size_t)f * B * O;
+  T* outf = out + (size_t)f * B * O;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty * TM + i;
@@ -390,7 +402,7 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int o = o0 + tx * TN + j;
-      if (o < O) outf[(size_t)b * O + o] = logf(acc[i][j]) + rmax[r];
+      if (o < O) outf[(size_t)b * O + o] = log_t(acc[i][j]) + rmax[r];
     }
   }
   if (ot == 0 && tid < BM && b0 + tid < B) m_out[(size_t)f * B + b0 + tid] = rmax[tid];
@@ -402,18 +414,19 @@ blocked_fwd(const float* __restrict__ x,  // (F, B, I)
 
 // gy = g * exp(m - out), 0 where not finite (a row that is all -inf, a
 // cotangent of 0 against out = -inf): one warp per batch row.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-blocked_gy(const float* __restrict__ out, const float* __restrict__ m,
-           const float* __restrict__ g, float* __restrict__ gy, int B, int O) {
+blocked_gy(const T* __restrict__ out, const T* __restrict__ m,
+           const T* __restrict__ g, T* __restrict__ gy, int B, int O) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y * WARPS + (threadIdx.x >> 5);
   if (b >= B) return;  // warp-uniform
   const size_t row = (size_t)blockIdx.x * B + b;
-  const float mb = m[row];
+  const T mb = m[row];
   for (int o = lane; o < O; o += 32) {
     const size_t idx = row * O + o;
-    const float v = g[idx] * expf(mb - out[idx]);
-    gy[idx] = isfinite(v) ? v : 0.f;
+    const T v = g[idx] * exp_t(mb - out[idx]);
+    gy[idx] = isfinite(v) ? v : T(0);
   }
 }
 
@@ -433,25 +446,28 @@ constexpr int C_PER = BK / CSTEP;    // 4
 static_assert(R_PER == C_PER, "the dw loop stages gy^T into the dx loop's registers");
 }  // namespace bwd
 
+// No residency bound: the float instance needs 77 registers, and either
+// instance takes what it needs.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-blocked_bwd(const float* __restrict__ x,   // (F, B, I)
-            const float* __restrict__ w,   // (F, O, I)
-            const float* __restrict__ m,   // (F, B) from blocked_fwd
-            const float* __restrict__ gy,  // (F, B, O) from blocked_gy
-            float* __restrict__ dx,        // (F, B, I), or null
-            float* __restrict__ dw,        // (F, O, I), or null
+blocked_bwd(const T* __restrict__ x,   // (F, B, I)
+            const T* __restrict__ w,   // (F, O, I)
+            const T* __restrict__ m,   // (F, B) from blocked_fwd
+            const T* __restrict__ gy,  // (F, B, O) from blocked_gy
+            T* __restrict__ dx,        // (F, B, I), or null
+            T* __restrict__ dw,        // (F, O, I), or null
             int B, int I, int O, int n_strips) {
   using namespace bwd;
-  __shared__ __align__(16) float As[BK][AS];
-  __shared__ __align__(16) float Bs[BK][BS];
+  __shared__ __align__(16) T As[BK][AS];
+  __shared__ __align__(16) T Bs[BK][BS];
 
   const int f = blockIdx.x / n_strips;
   const int i0 = (blockIdx.x % n_strips) * BN;
   const int tid = threadIdx.x;
-  const float* xf = x + (size_t)f * B * I;
-  const float* wf = w + (size_t)f * O * I;
-  const float* mf = m + (size_t)f * B;
-  const float* gyf = gy + (size_t)f * B * O;
+  const T* xf = x + (size_t)f * B * I;
+  const T* wf = w + (size_t)f * O * I;
+  const T* mf = m + (size_t)f * B;
+  const T* gyf = gy + (size_t)f * B * O;
 
   // Row-major staging (gy rows for dx): k = tid % BK, rows tid / BK + n *
   // RSTEP. Strip-major staging (w and e of the strip, gy^T for dw): column
@@ -464,13 +480,13 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
   const int c = i0 + scol;  // this thread's staged strip column
-  float pa[R_PER], pb[C_PER];
-  float acc[TM][TN];
+  T pa[R_PER], pb[C_PER];
+  T acc[TM][TN];
   auto zero = [&] {
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
   };
 
   if (dx != nullptr) {
@@ -481,12 +497,12 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
         for (int n = 0; n < R_PER; ++n) {
           const int b = b0 + srow + n * RSTEP;
           const int o = k0 + skk;
-          pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : 0.f;
+          pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : T(0);
         }
 #pragma unroll
         for (int n = 0; n < C_PER; ++n) {
           const int o = k0 + sk + n * CSTEP;
-          pb[n] = (o < O && c < I) ? wf[(size_t)o * I + c] : 0.f;
+          pb[n] = (o < O && c < I) ? wf[(size_t)o * I + c] : T(0);
         }
       };
       zero();
@@ -501,18 +517,18 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
         fma_chunk<TM, TN, AS, BS>(As, Bs, ty, tx, acc);
         __syncthreads();
       }
-      float* dxf = dx + (size_t)f * B * I;
+      T* dxf = dx + (size_t)f * B * I;
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const int b = b0 + ty * TM + i;
         if (b >= B) continue;
-        const float mb = mf[b];
+        const T mb = mf[b];
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int cc = i0 + tx * TN + j;
           if (cc >= I) continue;
           const size_t idx = (size_t)b * I + cc;
-          dxf[idx] = expf(xf[idx] - mb) * acc[i][j];
+          dxf[idx] = exp_t(xf[idx] - mb) * acc[i][j];
         }
       }
     }
@@ -521,7 +537,7 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
   if (dw != nullptr) {
     // dw of the strip, one unit tile at a time: gy^T e over the whole batch,
     // summed in batch order.
-    float* dwf = dw + (size_t)f * O * I;
+    T* dwf = dw + (size_t)f * O * I;
     const bool vec_store = I % 4 == 0;  // dw rows start 16-byte aligned
     for (int u0 = 0; u0 < O; u0 += BM) {
       auto load_chunk = [&](int k0) {
@@ -529,7 +545,7 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
         for (int n = 0; n < C_PER; ++n) {
           const int b = k0 + sk + n * CSTEP;
           const int o = u0 + scol;
-          pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : 0.f;
+          pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : T(0);
           pb[n] = (b < B && c < I) ? xf[(size_t)b * I + c] - mf[b] : -INFINITY;
         }
       };
@@ -539,7 +555,7 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
 #pragma unroll
         for (int n = 0; n < C_PER; ++n) {
           As[sk + n * CSTEP][scol] = pa[n];
-          Bs[sk + n * CSTEP][scol] = __expf(pb[n]);
+          Bs[sk + n * CSTEP][scol] = fast_exp(pb[n]);
         }
         __syncthreads();
         if (k0 + BK < B) load_chunk(k0 + BK);
@@ -551,9 +567,9 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
       for (int i = 0; i < TM; ++i) {
         const int o = u0 + ty * TM + i;
         if (o >= O) continue;
-        float* dst = dwf + (size_t)o * I + cc;
+        T* dst = dwf + (size_t)o * I + cc;
         if (vec_store && cc + TN <= I) {
-          *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          store4(dst, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
         } else {
 #pragma unroll
           for (int j = 0; j < TN; ++j)
@@ -566,15 +582,40 @@ blocked_bwd(const float* __restrict__ x,   // (F, B, I)
 
 inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
-template <bool SOFTMAX>
-int launch_ct(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-              int K1, int K2, int O, int device, void* stream) {
+template <typename T, bool SOFTMAX>
+int launch_ct(const T* x1, const T* x2, const T* w, T* out, int F, int B, int K1, int K2, int O,
+              int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int kc = K2 >= CT_CHUNK ? 1 : CT_CHUNK / K2;
   const dim3 grid(F, cdiv(O, fwd::BN), cdiv(B, fwd::BM));
-  ct_fwd<SOFTMAX><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x1, x2, w, out, B,
-                                                                           K1, K2, O, kc);
+  ct_fwd<T, SOFTMAX><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x1, x2, w, out, B,
+                                                                              K1, K2, O, kc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_blocked_fwd(const T* x, const T* w, T* out, T* m, int F, int B, int I, int O,
+                       int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int n_ot = static_cast<int>(cdiv(O, fwd::BN));
+  const int n_bt = static_cast<int>(cdiv(B, fwd::BM));
+  blocked_fwd<T><<<F * n_ot * n_bt, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, out, m, B, I, O, n_ot, n_bt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_blocked_bwd(const T* x, const T* w, const T* out, const T* m, const T* g, T* dx,
+                       T* dw, T* gy, int F, int B, int I, int O, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  blocked_gy<T><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(out, m, g, gy, B, O);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int n_strips = static_cast<int>(cdiv(I, bwd::BN));
+  blocked_bwd<T><<<F * n_strips, THREADS, 0, s>>>(x, w, m, gy, dx, dw, B, I, O, n_strips);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,38 +623,28 @@ int launch_ct(const float* x1, const float* x2, const float* w, float* out, int 
 
 extern "C" {
 
-int lse_fwd_ct(const float* x1, const float* x2, const float* w, float* out, int F, int B, int K1,
-               int K2, int O, int device, void* stream) {
-  return launch_ct<false>(x1, x2, w, out, F, B, K1, K2, O, device, stream);
-}
+// Every entry exists for float (the plain name) and for double (_f64).
+#define LSE_WIDE_ENTRIES(SUFFIX, T)                                                            \
+  int lse_fwd_ct##SUFFIX(const T* x1, const T* x2, const T* w, T* out, int F, int B, int K1,   \
+                         int K2, int O, int device, void* stream) {                            \
+    return launch_ct<T, false>(x1, x2, w, out, F, B, K1, K2, O, device, stream);               \
+  }                                                                                            \
+  int lse_fwd_ct_softmax##SUFFIX(const T* x1, const T* x2, const T* theta, T* out, int F,      \
+                                 int B, int K1, int K2, int O, int device, void* stream) {     \
+    return launch_ct<T, true>(x1, x2, theta, out, F, B, K1, K2, O, device, stream);            \
+  }                                                                                            \
+  int lse_fwd_blocked##SUFFIX(const T* x, const T* w, T* out, T* m, int F, int B, int I,       \
+                              int O, int device, void* stream) {                               \
+    return launch_blocked_fwd<T>(x, w, out, m, F, B, I, O, device, stream);                    \
+  }                                                                                            \
+  int lse_bwd_blocked##SUFFIX(const T* x, const T* w, const T* out, const T* m, const T* g,    \
+                              T* dx, T* dw, T* gy, int F, int B, int I, int O, int device,     \
+                              void* stream) {                                                  \
+    return launch_blocked_bwd<T>(x, w, out, m, g, dx, dw, gy, F, B, I, O, device, stream);     \
+  }
 
-int lse_fwd_ct_softmax(const float* x1, const float* x2, const float* theta, float* out, int F,
-                       int B, int K1, int K2, int O, int device, void* stream) {
-  return launch_ct<true>(x1, x2, theta, out, F, B, K1, K2, O, device, stream);
-}
-
-int lse_fwd_blocked(const float* x, const float* w, float* out, float* m, int F, int B, int I,
-                    int O, int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int n_ot = static_cast<int>(cdiv(O, fwd::BN));
-  const int n_bt = static_cast<int>(cdiv(B, fwd::BM));
-  blocked_fwd<<<F * n_ot * n_bt, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, out, m, B, I, O, n_ot, n_bt);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int lse_bwd_blocked(const float* x, const float* w, const float* out, const float* m,
-                    const float* g, float* dx, float* dw, float* gy, int F, int B, int I, int O,
-                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  blocked_gy<<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(out, m, g, gy, B, O);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int n_strips = static_cast<int>(cdiv(I, bwd::BN));
-  blocked_bwd<<<F * n_strips, THREADS, 0, s>>>(x, w, m, gy, dx, dw, B, I, O, n_strips);
-  return static_cast<int>(cudaGetLastError());
-}
+LSE_WIDE_ENTRIES(, float)
+LSE_WIDE_ENTRIES(_f64, double)
+#undef LSE_WIDE_ENTRIES
 
 }  // extern "C"

@@ -39,6 +39,11 @@
 // 16 KB at the flagship, from L2 (a fold's 64 rows fit), so it is bound by
 // load and issue latency; at the flagship 100K warps keep the card full.
 //
+// Both kernels are templates over their scalar type T, float or double (the
+// entries with _f64); a double block of the tropical kernel is alone on its SM.
+// The Gumbel draw keeps its Philox key and bits in either type and forms the
+// uniform, its logarithms and the score in T.
+//
 // Each extern "C" entry selects the given device, launches on the given
 // stream and returns cudaGetLastError() of the launch (0 on success).
 
@@ -63,16 +68,16 @@ constexpr int WARPS = THREADS / 32;
 constexpr int AS = BM + 4;  // padded strides keep float4 reads aligned
 constexpr int BS = BN + 4;
 
-template <bool LOGW>
-__global__ void __launch_bounds__(THREADS, 2)
-tropical_tucker_kernel(const float* __restrict__ x1,  // (F,B,K1)
-                       const float* __restrict__ x2,  // (F,B,K2)
-                       const float* __restrict__ th,  // (F,O,K1*K2) logits or weights
-                       float* __restrict__ out,       // (F,B,O)
+template <typename T, bool LOGW>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
+tropical_tucker_kernel(const T* __restrict__ x1,  // (F,B,K1)
+                       const T* __restrict__ x2,  // (F,B,K2)
+                       const T* __restrict__ th,  // (F,O,K1*K2) logits or weights
+                       T* __restrict__ out,       // (F,B,O)
                        int B, int K1, int K2, int O) {
-  __shared__ __align__(16) float As[BK][AS];  // composite x1[i] + x2[j], k-major
-  __shared__ __align__(16) float Bs[BK][BS];  // logits or log weights, k-major
-  __shared__ float lse[BN];                   // log_weights: row normalizers
+  __shared__ __align__(16) T As[BK][AS];  // composite x1[i] + x2[j], k-major
+  __shared__ __align__(16) T Bs[BK][BS];  // logits or log weights, k-major
+  __shared__ T lse[BN];                   // log_weights: row normalizers
 
   const int M = K1 * K2;
   const int f = blockIdx.x;
@@ -82,17 +87,17 @@ tropical_tucker_kernel(const float* __restrict__ x1,  // (F,B,K1)
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const float* x1f = x1 + (size_t)f * B * K1;
-  const float* x2f = x2 + (size_t)f * B * K2;
-  const float* thf = th + (size_t)f * O * M;
-  float* outf = out + (size_t)f * B * O;
+  const T* x1f = x1 + (size_t)f * B * K1;
+  const T* x2f = x2 + (size_t)f * B * K2;
+  const T* thf = th + (size_t)f * O * M;
+  T* outf = out + (size_t)f * B * O;
 
   if (LOGW) {
     for (int r = warp; r < BN; r += WARPS) {
       const int o = o0 + r;
-      float m = 0.f, s = 1.f;
+      T s = T(1), m = T(0);
       if (o < O) cirkit::softmax_row_stats(thf + (size_t)o * M, M, lane, &m, &s);
-      if (lane == 0) lse[r] = m + logf(s);
+      if (lane == 0) lse[r] = m + cirkit::log_t(s);
     }
     __syncthreads();
   }
@@ -106,7 +111,7 @@ tropical_tucker_kernel(const float* __restrict__ x1,  // (F,B,K1)
   constexpr int A_PER = BM / RSTEP;
   constexpr int W_PER = BN / RSTEP;
 
-  float pa[A_PER], pw[W_PER];
+  T pa[A_PER], pw[W_PER];
   auto load_chunk = [&](int k0) {
     const int k = k0 + skk;
     const int i = k / K2;
@@ -119,10 +124,10 @@ tropical_tucker_kernel(const float* __restrict__ x1,  // (F,B,K1)
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + srow + n * RSTEP;
-      float w = -INFINITY;
+      T w = -INFINITY;
       if (o < O && k < M) {
         w = thf[(size_t)o * M + k];
-        if (!LOGW) w = logf(w);  // log(0) = -inf: a zero weight never wins
+        if (!LOGW) w = cirkit::log_t(w);  // log(0) = -inf: a zero weight never wins
       }
       pw[n] = w;
     }
@@ -130,7 +135,7 @@ tropical_tucker_kernel(const float* __restrict__ x1,  // (F,B,K1)
 
   const int tx = tid % (BN / TN);  // output-unit group
   const int ty = tid / (BN / TN);  // batch-row group
-  float acc[TM][TN];
+  T acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -146,15 +151,14 @@ tropical_tucker_kernel(const float* __restrict__ x1,  // (F,B,K1)
     if (k0 + BK < M) load_chunk(k0 + BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
+      T a[TM], bb[TN];
+      cirkit::load4(&As[kk][ty * TM], a);
+      cirkit::load4(&As[kk][ty * TM + 4], a + 4);
+      cirkit::load4(&Bs[kk][tx * TN], bb);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaxf(acc[i][j], a[i] + bb[j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = cirkit::max_t(acc[i][j], a[i] + bb[j]);
     }
     __syncthreads();
   }
@@ -189,24 +193,26 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
 
 // Gumbel noise -log(-log(u)) for u = (bits >> 9) * 2^-23 + 2^-24, in
 // [2^-24, 1 - 2^-24]: finite, so a -inf score still loses.
-__device__ __forceinline__ float gumbel(uint32_t bits) {
-  const float u = (float)(bits >> 9) * 1.1920928955078125e-07f + 5.9604644775390625e-08f;
-  return -logf(-logf(u));
+template <typename T>
+__device__ __forceinline__ T gumbel(uint32_t bits) {
+  const T u = (T)(bits >> 9) * T(1.1920928955078125e-07) + T(5.9604644775390625e-08);
+  return -cirkit::log_t(-cirkit::log_t(u));
 }
 
 // The better of two (score, index) pairs: the larger score, the lower index
 // on a tie.
-__device__ __forceinline__ bool better(float s, int m, float best, int bi) {
+template <typename T>
+__device__ __forceinline__ bool better(T s, int m, T best, int bi) {
   return s > best || (s == best && m < bi);
 }
 
 constexpr int ROUTE_WARPS = 8;  // warps (one (fold, row) each) per block
 
-template <bool LOGW, bool SAMPLE>
+template <typename T, bool LOGW, bool SAMPLE>
 __global__ void __launch_bounds__(ROUTE_WARPS * 32)
-route_tucker_kernel(const float* __restrict__ x1,       // (F,B,K1)
-                    const float* __restrict__ x2,       // (F,B,K2)
-                    const float* __restrict__ th,       // (F,O,K1*K2)
+route_tucker_kernel(const T* __restrict__ x1,       // (F,B,K1)
+                    const T* __restrict__ x2,       // (F,B,K2)
+                    const T* __restrict__ th,       // (F,O,K1*K2)
                     const int64_t* __restrict__ sel,    // (F,B) selected unit
                     int64_t* __restrict__ out,          // (F,B) composite index
                     int F, int B, int K1, int K2, int O, uint32_t seed_lo,
@@ -219,11 +225,11 @@ route_tucker_kernel(const float* __restrict__ x1,       // (F,B,K1)
   const int M = K1 * K2;
   long long o = sel[row];
   o = o < 0 ? 0 : (o >= O ? O - 1 : o);  // the caller masks rows with sel < 0
-  const float* w = th + ((size_t)f * O + (size_t)o) * M;
-  const float* xa = x1 + (size_t)row * K1;
-  const float* xb = x2 + (size_t)row * K2;
+  const T* w = th + ((size_t)f * O + (size_t)o) * M;
+  const T* xa = x1 + (size_t)row * K1;
+  const T* xb = x2 + (size_t)row * K2;
 
-  float best = -INFINITY;
+  T best = -INFINITY;
   int bi = INT_MAX;
   for (int g = lane; 4 * g < M; g += 32) {
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
@@ -237,9 +243,9 @@ route_tucker_kernel(const float* __restrict__ x1,       // (F,B,K1)
     for (int r = 0; r < 4; ++r) {
       const int m = m0 + r;
       if (m >= M) break;
-      const float lw = LOGW ? w[m] : logf(w[m]);
-      float s = (xa[i] + xb[j]) + lw;
-      if (SAMPLE) s += gumbel(words[r]);
+      const T lw = LOGW ? w[m] : cirkit::log_t(w[m]);
+      T s = (xa[i] + xb[j]) + lw;
+      if (SAMPLE) s += gumbel<T>(words[r]);
       if (better(s, m, best, bi)) {
         best = s;
         bi = m;
@@ -252,7 +258,7 @@ route_tucker_kernel(const float* __restrict__ x1,       // (F,B,K1)
   }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
-    const float os = __shfl_xor_sync(0xffffffffu, best, d);
+    const T os = __shfl_xor_sync(0xffffffffu, best, d);
     const int oi = __shfl_xor_sync(0xffffffffu, bi, d);
     if (better(os, oi, best, bi)) {
       best = os;
@@ -262,26 +268,26 @@ route_tucker_kernel(const float* __restrict__ x1,       // (F,B,K1)
   if (lane == 0) out[row] = bi == INT_MAX ? 0 : bi;  // INT_MAX: every score NaN
 }
 
-template <bool LOGW>
-int launch_tropical(const float* x1, const float* x2, const float* th, float* out, int F,
+template <typename T, bool LOGW>
+int launch_tropical(const T* x1, const T* x2, const T* th, T* out, int F,
                     int B, int K1, int K2, int O, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
-  tropical_tucker_kernel<LOGW><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  tropical_tucker_kernel<T, LOGW><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x1, x2, th, out, B, K1, K2, O);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool LOGW, bool SAMPLE>
-int launch_route(const float* x1, const float* x2, const float* th, const int64_t* sel,
+template <typename T, bool LOGW, bool SAMPLE>
+int launch_route(const T* x1, const T* x2, const T* th, const int64_t* sel,
                  int64_t* out, int F, int B, int K1, int K2, int O, unsigned long long seed,
                  int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const long long rows = (long long)F * B;
   const unsigned blocks = (unsigned)((rows + ROUTE_WARPS - 1) / ROUTE_WARPS);
-  route_tucker_kernel<LOGW, SAMPLE>
+  route_tucker_kernel<T, LOGW, SAMPLE>
       <<<blocks, ROUTE_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
           x1, x2, th, sel, out, F, B, K1, K2, O, (uint32_t)(seed & 0xffffffffull),
           (uint32_t)(seed >> 32));
@@ -292,25 +298,31 @@ int launch_route(const float* x1, const float* x2, const float* th, const int64_
 
 extern "C" {
 
-int tropical_tucker(const float* x1, const float* x2, const float* th, float* out, int F,
-                    int B, int K1, int K2, int O, int log_weights, int device, void* stream) {
-  return log_weights
-             ? launch_tropical<true>(x1, x2, th, out, F, B, K1, K2, O, device, stream)
-             : launch_tropical<false>(x1, x2, th, out, F, B, K1, K2, O, device, stream);
-}
+// Both entries exist for float (the plain name) and for double (_f64).
+#define TUCKER_ROUTE_ENTRIES(SUFFIX, T)                                                          \
+  int tropical_tucker##SUFFIX(const T* x1, const T* x2, const T* th, T* out, int F, int B,       \
+                              int K1, int K2, int O, int log_weights, int device,                \
+                              void* stream) {                                                    \
+    return log_weights                                                                           \
+               ? launch_tropical<T, true>(x1, x2, th, out, F, B, K1, K2, O, device, stream)      \
+               : launch_tropical<T, false>(x1, x2, th, out, F, B, K1, K2, O, device, stream);    \
+  }                                                                                              \
+  int route_tucker##SUFFIX(const T* x1, const T* x2, const T* th, const int64_t* sel,            \
+                           int64_t* out, int F, int B, int K1, int K2, int O, int log_weights,   \
+                           int sample, unsigned long long seed, int device, void* stream) {      \
+    if (log_weights)                                                                             \
+      return sample ? launch_route<T, true, true>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,   \
+                                                  device, stream)                                \
+                    : launch_route<T, true, false>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,  \
+                                                   device, stream);                              \
+    return sample ? launch_route<T, false, true>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,    \
+                                                 device, stream)                                 \
+                  : launch_route<T, false, false>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,   \
+                                                  device, stream);                               \
+  }
 
-int route_tucker(const float* x1, const float* x2, const float* th, const int64_t* sel,
-                 int64_t* out, int F, int B, int K1, int K2, int O, int log_weights,
-                 int sample, unsigned long long seed, int device, void* stream) {
-  if (log_weights)
-    return sample ? launch_route<true, true>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,
-                                             device, stream)
-                  : launch_route<true, false>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,
-                                              device, stream);
-  return sample ? launch_route<false, true>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,
-                                            device, stream)
-                : launch_route<false, false>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,
-                                             device, stream);
-}
+TUCKER_ROUTE_ENTRIES(, float)
+TUCKER_ROUTE_ENTRIES(_f64, double)
+#undef TUCKER_ROUTE_ENTRIES
 
 }  // extern "C"

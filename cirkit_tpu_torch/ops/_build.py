@@ -82,13 +82,16 @@ _SIGNATURES = {
     "clse_bwd_tucker_smem": ((_I, _I, _I), ctypes.c_size_t),
     "cirkit_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
-# lse_einsum.cu and lse_einsum_bwd.cu build every entry for float (the plain
-# name) and for double (the name with _f64), with the same signature
+# every source but clse_einsum.cu builds each entry for float (the plain
+# name) and for double (the name with _f64), with the same signature, but
+# for the float Tucker lse backward, whose tensor-core path takes a scratch
+# (``lse_bwd_scratch`` floats) as its softmax entry does
 _SIGNATURES.update({
     f"{name}_f64": sig for name, sig in list(_SIGNATURES.items())
-    if name.startswith(("lse_fwd_dense", "lse_fwd_tucker", "lse_bwd_dense", "lse_bwd_tucker",
-                        "slse_"))
+    if not name.startswith(("clse_", "cirkit_"))
 })
+_SIGNATURES["lse_bwd_tucker"] = _SIGNATURES["lse_bwd_tucker_softmax"]
+_SIGNATURES["lse_bwd_scratch"] = ((_I,) * 7, ctypes.c_size_t)
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None

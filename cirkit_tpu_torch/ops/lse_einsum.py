@@ -134,6 +134,18 @@ def _softmax_vjp(w: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
     return w * (dw - (w * dw).sum(dim=-1, keepdim=True))
 
 
+def softmax_vjp_from_g(
+    w: torch.Tensor, dw: torch.Tensor, g: torch.Tensor, gy: torch.Tensor
+) -> torch.Tensor:
+    """The softmax VJP as the float32 backward kernel's dw epilogue forms it:
+    ``w * (dw - r)`` with the row dot ``r_o = sum_c w_oc dw_oc`` taken as
+    ``sum_b g_bo`` over the rows whose ``gy`` (:func:`_gy`) is nonzero. Since
+    ``sum_c w_oc e_bc = exp(out_bo - shift_b)``, ``gy_bo`` times it is
+    ``g_bo``; where gy was zeroed, or g is 0, the row adds nothing."""
+    r = torch.where(gy != 0, g, torch.zeros_like(g)).sum(dim=1)[..., None]
+    return w * (dw - r)
+
+
 def lse_matmul_bwd_ref(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -278,9 +290,10 @@ def _check_cuda(
 
 
 def _check_single_pass(op: str, ts: tuple[torch.Tensor, ...]) -> tuple[torch.device, str]:
-    """The device of a single-pass launch's operands and the suffix of its
-    entries: the kernels are built for float32 (no suffix) and float64
-    (``_f64``), and every operand has the type of the first."""
+    """The device of a launch's real operands and the suffix of its entries:
+    the real kernels (single-pass, wide and routing) are built for float32
+    (no suffix) and float64 (``_f64``), and every operand has the type of
+    the first."""
     double = ts[0].dtype == torch.float64
     dev = _check_cuda(op, ts, (torch.float64 if double else torch.float32,))
     return dev, "_f64" if double else ""
@@ -303,10 +316,7 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
     """Check the operands, allocate the output and launch the forward entry
     of ``op`` on the current stream."""
     entry = _ENTRIES[op][0]
-    if op.endswith("chunked"):  # the wide kernels are built for float32 only
-        dev, suffix = _check_cuda(op, ins), ""
-    else:
-        dev, suffix = _check_single_pass(op, ins)
+    dev, suffix = _check_single_pass(op, ins)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
     width = ins[-1].shape[2]  # the kernels index a weight row with an int
@@ -351,14 +361,23 @@ def _launch_bwd(
     if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    if tucker and (needs[0] or needs[1]):
-        _check_tucker_smem(lib, f"{op} backward", sizes[2:4], ins[0].dtype, suffix)
-    # scratch: the row shifts, gy, and for softmax the (F, O, I) weights
+    softmax = op.endswith("softmax")
+    # scratch: the row shifts and gy; in float64 for softmax the (F, O, I)
+    # weights, in float32 what the tensor-core path asks for (the softmax
+    # statistics, the Tucker dx partials)
     scratch = [torch.empty((f, b), device=dev, dtype=ins[0].dtype)
                for _ in range(2 if tucker else 1)]
     scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
-    if op.endswith("softmax"):
-        scratch.append(torch.empty_like(ins[-1]))
+    if suffix:
+        if tucker and (needs[0] or needs[1]):
+            _check_tucker_smem(lib, f"{op} backward", sizes[2:4], ins[0].dtype, suffix)
+        if softmax:
+            scratch.append(torch.empty_like(ins[-1]))
+    else:
+        k1, k2 = sizes[2:4] if tucker else (i, 1)
+        n = lib.lse_bwd_scratch(int(tucker), int(softmax), f, b, k1, k2, o)
+        if n:
+            scratch.append(torch.empty(n, device=dev, dtype=torch.float32))
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (*ins, out, g)),
@@ -376,20 +395,20 @@ def _launch_bwd(
 def _launch_blocked_fwd(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the blocked dense forward: the output and the (F, B, 1) row max."""
     op = "lse_matmul_blocked"
-    dev = _check_cuda(op, (x, w))
+    dev, suffix = _check_single_pass(op, (x, w))
     f, b, i = x.shape
     o = w.shape[1]
     # one block per (fold, batch tile, unit tile), counted in one grid axis
     if max(f, b, i, o) >= 2**31 or f * -(-b // _BM) * -(-o // _BN) >= 2**31:
         raise ValueError(f"{op}: sizes {(f, b, i, o)} exceed the kernel's launch grid")
-    out = torch.empty((f, b, o), device=dev, dtype=torch.float32)
-    m = torch.empty((f, b, 1), device=dev, dtype=torch.float32)
+    out = torch.empty((f, b, o), device=dev, dtype=x.dtype)
+    m = torch.empty((f, b, 1), device=dev, dtype=x.dtype)
     if out.numel() == 0:
         return out, m
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m.data_ptr(), f, b, i, o, dev.index,
             stream)
-    _call(_build.library(), "lse_fwd_blocked", op, args)
+    _call(_build.library(), "lse_fwd_blocked" + suffix, op, args)
     LAUNCHES[op] += 1
     return out, m
 
@@ -401,7 +420,7 @@ def _launch_blocked_bwd(
     """Allocate the requested gradients and the gy scratch, and launch the
     blocked dense backward."""
     op = "lse_matmul_blocked"
-    dev = _check_cuda(f"{op} backward", (x, w, out, m, g))
+    dev, suffix = _check_single_pass(f"{op} backward", (x, w, out, m, g))
     dx, dw = (torch.empty_like(t) if need else None for t, need in zip((x, w), needs))
     if not any(needs):
         return dx, dw
@@ -413,14 +432,14 @@ def _launch_blocked_bwd(
     if (max(f, b, i, o) >= 2**31 or -(-b // _BWD_ROWS) > _MAX_GRID_YZ
             or f * -(-i // _BWD_DX_COLS) >= 2**31):
         raise ValueError(f"{op} backward: sizes {(f, b, i, o)} exceed the kernel's launch grid")
-    gy = torch.empty((f, b, o), device=dev, dtype=torch.float32)
+    gy = torch.empty((f, b, o), device=dev, dtype=x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (x, w, out, m, g)),
         *(None if d is None else d.data_ptr() for d in (dx, dw)),
         gy.data_ptr(), f, b, i, o, dev.index, stream,
     )
-    _call(_build.library(), "lse_bwd_blocked", f"{op} backward", args)
+    _call(_build.library(), "lse_bwd_blocked" + suffix, f"{op} backward", args)
     LAUNCHES[f"{op}_bwd"] += 1
     return dx, dw
 

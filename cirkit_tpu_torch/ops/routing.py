@@ -28,7 +28,7 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _MAX_GRID_YZ,
     LAUNCHES,
     _call,
-    _check_cuda,
+    _check_single_pass,
     _check_tucker,
     _on_cpu,
 )
@@ -133,19 +133,19 @@ def tropical_tucker2(
     _check(op, x1, x2, th)
     if _on_cpu(x1, x2, th):
         return tropical_tucker2_ref(x1, x2, th, log_weights=log_weights)
-    dev = _check_cuda(op, (x1, x2, th))
+    dev, suffix = _check_single_pass(op, (x1, x2, th))
     f, b, k1 = x1.shape
     k2 = x2.shape[2]
     o = th.shape[1]
     if max(f, b, k1 * k2, o) >= 2**31 or -(-o // _BN) > _MAX_GRID_YZ or \
             -(-b // _BM) > _MAX_GRID_YZ:
         raise ValueError(f"{op}: sizes {(f, b, k1, k2, o)} exceed the kernel's launch grid")
-    out = torch.empty((f, b, o), device=dev, dtype=torch.float32)
+    out = torch.empty((f, b, o), device=dev, dtype=x1.dtype)
     if out.numel() == 0:
         return out
     args = (x1.data_ptr(), x2.data_ptr(), th.data_ptr(), out.data_ptr(), f, b, k1, k2, o,
             int(log_weights), dev.index, _stream(dev))
-    _call(_build.library(), "tropical_tucker", op, args)
+    _call(_build.library(), "tropical_tucker" + suffix, op, args)
     LAUNCHES[op] += 1
     return out
 
@@ -178,7 +178,7 @@ def route_tucker2(
         gen = torch.Generator().manual_seed(int(seed)) if sample else None
         return route_tucker2_ref(x1, x2, th, sel, kind=kind, log_weights=log_weights,
                                  generator=gen)
-    dev = _check_cuda(op, (x1, x2, th))
+    dev, suffix = _check_single_pass(op, (x1, x2, th))
     if sel.device != dev or sel.dtype != torch.int64 or not sel.is_contiguous():
         raise TypeError(f"{op}: the CUDA kernel takes a contiguous int64 sel on {dev}, found "
                         f"{sel.dtype} on {sel.device}")
@@ -193,6 +193,6 @@ def route_tucker2(
     args = (x1.data_ptr(), x2.data_ptr(), th.data_ptr(), sel.data_ptr(), out.data_ptr(),
             f, b, k1, k2, o, int(log_weights), int(sample),
             int(seed) % 2**64 if sample else 0, dev.index, _stream(dev))
-    _call(_build.library(), "route_tucker", op, args)
+    _call(_build.library(), "route_tucker" + suffix, op, args)
     LAUNCHES[op] += 1
     return out

@@ -11,12 +11,13 @@ report has one line per kernel (demangled, with the template arguments
 that turn a variant off, ``false``, dropped from the end, and the scalar
 type ``float`` dropped from the front, so a kernel keeps its name when a
 later tree adds such an argument) and one column per tree:
-``registers/spill stores/spill loads/static shared bytes/SASS digest``. The
+``registers/spill stores/spill loads/static shared bytes/SASS digest/HMMA``. The
 digest is the first 10 hex digits of the SHA-256 of the kernel's machine
 code as ``cuobjdump -sass`` lists it, without addresses and encodings and
 with the offsets into the kernel-parameter bank masked (a template flag's
 added parameters move the others): two trees give one digest for a kernel
-when they compile it to the same instructions.
+when they compile it to the same instructions. HMMA counts the kernel's
+tensor-core instructions (``HMMA``, which a TF32 ``mma.sync`` compiles to).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
 
 def _sass_digests(obj: Path) -> dict[str, str]:
-    """mangled kernel name -> digest of its instructions in ``obj``."""
+    """mangled kernel name -> digest of its instructions in ``obj`` and the
+    number of its HMMA instructions, as ``digest/count``."""
     tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
     out = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True,
                          check=True).stdout
@@ -52,7 +54,9 @@ def _sass_digests(obj: Path) -> dict[str, str]:
     for line in [*out.splitlines(), "Function : <end>"]:
         if m := _FUNCTION.search(line):
             if name is not None:
-                digests[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:10]
+                hmma = sum(op.startswith("HMMA") for op in body)
+                digests[name] = (hashlib.sha256("\n".join(body).encode()).hexdigest()[:10]
+                                 + f"/{hmma}")
             name, body = m.group(1), []
         elif name is not None and (m := _INSTR.search(line)):
             body.append(_PARAM.sub("c[0x0][.]", m.group(1)))
@@ -73,7 +77,8 @@ def _key(name: str) -> str:
     argument as ``(bool)0`` or ``(bool)1``)."""
     name = name.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
     name = name.removeprefix("void ")
-    name = name.replace("(bool)0", "false").replace("(bool)1", "true").split("(")[0]
+    name = name.replace("(bool)0", "false").replace("(bool)1", "true").replace("(int)", "")
+    name = name.split("(")[0]
     # the scalar type leads the arguments: a float instance keeps the name it
     # had before the kernels became templates over their scalar type
     name = name.replace("<float, ", "<").replace("<float>", "")

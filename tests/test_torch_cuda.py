@@ -311,8 +311,8 @@ def test_route_wrapper_refuses_what_the_kernel_does_not_take():
     x1, x2, th, sel = _route_inputs(2, 8, 4, 4, 4, True)
     with pytest.raises(TypeError, match="int64"):
         R.route_tucker2(x1, x2, th, sel.int(), kind="max", log_weights=True)
-    with pytest.raises(TypeError, match="float32"):
-        R.tropical_tucker2(x1.double(), x2.double(), th.double(), log_weights=True)
+    with pytest.raises(TypeError, match="float64"):  # one type for every operand
+        R.tropical_tucker2(x1.double(), x2, th, log_weights=True)
     assert T.LAUNCHES["route_tucker2"] == T.LAUNCHES["tropical_tucker2"] == 0
 
 
@@ -376,15 +376,14 @@ def test_chunked_tucker_kernel_matches_plain(op, f, b, k1, k2, o, monkeypatch):
     """The K1-chunked Tucker forward against its plain version, with a row
     that is all -inf and a first chunk of logits that is all -inf (zero
     weights without softmax); the backward is the Tucker backward kernel,
-    whose dx kernel takes K1 + K2 up to about 400 (beyond, only dw)."""
+    whose float32 dx kernel takes any K1 and K2 (K2=600: ten column tiles)."""
     monkeypatch.setattr(T, "WIDE_WIDTH", 1)
     ins = _inputs(op, f, b, o, k1=k1, k2=k2)
     ins[0][0, 2] = float("-inf")
     chunk = max(1, 512 // k2) * k2
     if chunk < k1 * k2:  # not the whole row: its softmax would be NaN
         ins[-1][0, 0, :chunk] = float("-inf") if "softmax" in op else 0.0
-    dx = k1 + k2 < 400
-    ins = [t.requires_grad_(dx or k == 2) for k, t in enumerate(ins)]
+    ins = [t.requires_grad_() for t in ins]
     out = getattr(T, op)(*ins)
     with torch.no_grad():
         ref = getattr(T, f"{op}_ref")(*ins)
@@ -393,10 +392,9 @@ def test_chunked_tucker_kernel_matches_plain(op, f, b, k1, k2, o, monkeypatch):
     _fwd_close(out.detach(), ref)
     g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
                     device="cuda")
-    needs = (dx, dx, True)
-    grads = torch.autograd.grad(out, [t for t in ins if t.requires_grad], g)
+    grads = torch.autograd.grad(out, ins, g)
     with torch.no_grad():
-        refs = [r for r in getattr(T, f"{op}_bwd_ref")(*ins, out, g, needs) if r is not None]
+        refs = getattr(T, f"{op}_bwd_ref")(*ins, out, g)
     assert T.LAUNCHES[f"{op}_bwd"] == 1
     for k, (got, r) in enumerate(zip(grads, refs)):
         _close(got, r, zeros=k < len(refs) - 1)
@@ -830,15 +828,194 @@ def test_float64_signed_kernels_match_plain(op, f, b, o):
 
 
 def test_float64_refusals_name_the_shape():
-    """The Tucker dx kernel's float64 accumulators do not fit a block's
-    shared memory at K1 = K2 = 128, and the wide kernels are float32 only:
-    both raise, neither falls back to the plain version."""
-    x1, x2, w = (t.double() for t in _inputs("lse_tucker2", 1, 8, 16, k1=128, k2=128))
-    with pytest.raises(TypeError, match="float32"):  # width 16384: the K1-chunked kernel
-        T.lse_tucker2(x1, x2, w)
+    """The float64 Tucker dx kernel's accumulators do not fit a block's
+    shared memory at K1 = K2 = 128 (and from 90): the float64 backward
+    raises and names the shape, with no plain fallback, while the float64
+    forward there takes the K1-chunked kernel."""
+    x1, x2, w = (t.double().requires_grad_() for t in _inputs("lse_tucker2", 1, 8, 16, k1=128,
+                                                               k2=128))
+    out = T.lse_tucker2(x1, x2, w)
+    assert out.dtype == torch.float64 and T.LAUNCHES["lse_tucker2_chunked"] == 1
+    with pytest.raises(ValueError, match=r"\(128, 128\) in torch.float64"):
+        out.sum().backward()
     x1, x2, w = (t.double().requires_grad_() for t in _inputs("lse_tucker2", 1, 8, 16, k1=90,
                                                                k2=90))
     out = T.lse_tucker2(x1, x2, w)
     with pytest.raises(ValueError, match=r"\(90, 90\) in torch.float64"):
         out.sum().backward()
     assert T.LAUNCHES["lse_tucker2"] == 1 and T.LAUNCHES["lse_tucker2_bwd"] == 0
+
+
+def _fwd_close_f64(out, ref):
+    assert out.dtype == torch.float64 and out.shape == ref.shape and not torch.isnan(out).any()
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    finite = torch.isfinite(ref)
+    err = (out[finite] - ref[finite]).abs()
+    assert bool((err <= 1e-10 * (1 + ref[finite].abs())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+@pytest.mark.parametrize("f,b,k1,k2,o", CHUNKED_CASES)
+def test_float64_chunked_tucker_kernel_matches_plain(op, f, b, k1, k2, o, monkeypatch):
+    """The double instances of the K1-chunked Tucker forward (row 5) against
+    the plain float64 version, with a row that is all -inf and a first chunk
+    of logits that is all -inf; the backward through the float64 Tucker
+    backward kernel where its dx accumulators fit (else dw only)."""
+    monkeypatch.setattr(T, "WIDE_WIDTH", 1)
+    ins = [t.double() for t in _inputs(op, f, b, o, k1=k1, k2=k2)]
+    ins[0][0, 2] = float("-inf")
+    chunk = max(1, 512 // k2) * k2
+    if chunk < k1 * k2:
+        ins[-1][0, 0, :chunk] = float("-inf") if "softmax" in op else 0.0
+    dx = k1 + k2 < 150
+    ins = [t.requires_grad_(dx or k == 2) for k, t in enumerate(ins)]
+    out = getattr(T, op)(*ins)
+    with torch.no_grad():
+        ref = getattr(T, f"{op}_ref")(*ins)
+    assert T.LAUNCHES[f"{op}_chunked"] == 1 and T.LAUNCHES[op] == 0
+    _fwd_close_f64(out.detach(), ref)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda", dtype=torch.float64)
+    grads = torch.autograd.grad(out, [t for t in ins if t.requires_grad], g)
+    with torch.no_grad():
+        refs = [r for r in getattr(T, f"{op}_bwd_ref")(*ins, out, g, (dx, dx, True))
+                if r is not None]
+    torch.cuda.synchronize()
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        _bwd_close_f64(got, r, zeros=k < len(refs) - 1)
+
+
+@pytest.mark.parametrize("f,b,i,o", BLOCKED_CASES)
+def test_float64_blocked_kernels_match_plain(f, b, i, o, monkeypatch):
+    """The double instances of the blocked dense forward and backward (rows
+    3 and 4) against the plain float64 versions; the row max exactly."""
+    monkeypatch.setattr(T, "WIDE_WIDTH", 1)
+    x, w = (t.double() for t in _inputs("lse_matmul", f, b, o, i=i))
+    x[0, 2] = float("-inf")
+    x[-1, 1, :256] = float("-inf")
+    with torch.no_grad():
+        ref, ref_m = T.lse_matmul_blocked_ref(x, w)
+        got, got_m = T._launch_blocked_fwd(x, w)
+    torch.cuda.synchronize()
+    assert got_m.dtype == torch.float64 and torch.equal(got_m, ref_m)
+    _fwd_close_f64(got, ref)
+    x, w = x.requires_grad_(), w.requires_grad_()
+    out = T.lse_matmul(x, w)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda", dtype=torch.float64)
+    g[0, 1] = 0.0
+    grads = torch.autograd.grad(out, [x, w], g)
+    with torch.no_grad():
+        refs = T.lse_matmul_blocked_bwd_ref(x, w, out, ref_m, g)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["lse_matmul_blocked"] == 2 and T.LAUNCHES["lse_matmul_blocked_bwd"] == 1
+    for k, (a, r) in enumerate(zip(grads, refs)):
+        _bwd_close_f64(a, r, zeros=k == 0)
+
+
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+@pytest.mark.parametrize("f,b,k1,k2,o", ROUTE_SHAPES)
+def test_float64_routing_kernels_match_plain(f, b, k1, k2, o, log_weights):
+    """The double instances of the tropical Tucker (row 9; 1e-12 (1 +
+    |plain|)) and of the routing choice (row 8): the argmax by its score
+    (within 1e-12 of the plain maximum), and the sample kind's draws
+    reproducible by seed, in range, never a zero weight."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, sel = (t.double() if t.is_floating_point() else t
+                       for t in _route_inputs(f, b, k1, k2, o, log_weights))
+    out = R.tropical_tucker2(x1, x2, th, log_weights=log_weights)
+    ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=log_weights)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float64 and torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    finite = torch.isfinite(ref)
+    assert bool(((out[finite] - ref[finite]).abs() <= 1e-12 * (1 + ref[finite].abs())).all())
+    idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=log_weights)
+    scores = R.route_scores(x1, x2, th, sel, log_weights=log_weights)
+    best = scores.amax(dim=-1)
+    at = torch.gather(scores, -1, idx[..., None])[..., 0]
+    assert bool(((at >= best - 1e-12 * (1 + best.abs())) | torch.isneginf(best)).all())
+    draw = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=log_weights, seed=7)
+    again = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=log_weights, seed=7)
+    assert torch.equal(draw, again) and bool(((draw >= 0) & (draw < k1 * k2)).all())
+    if not log_weights:
+        assert bool((idx != 3).all()) and bool((draw != 3).all())
+    assert T.LAUNCHES["tropical_tucker2"] == 1 and T.LAUNCHES["route_tucker2"] == 3
+
+
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+def test_float64_route_sample_frequencies(log_weights):
+    """The double instance's Gumbel draws over 65,536 identical rows against
+    ``softmax(scores)``, as for float32."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    n = 65536
+    x1, x2, th, _ = (t.double() for t in _route_inputs(2, 1, 4, 4, 8, log_weights, seed=3,
+                                                       edges=False))
+    sel = torch.tensor([[3], [6]], device="cuda")
+    p = torch.softmax(R.route_scores(x1, x2, th, sel, log_weights=log_weights)[:, 0], dim=-1)
+    rows = [t.expand(-1, n, -1).contiguous() for t in (x1, x2)]
+    idx = R.route_tucker2(*rows, th, sel.expand(-1, n).contiguous(), kind="sample",
+                          log_weights=log_weights, seed=99)
+    for ff in range(2):
+        freq = torch.bincount(idx[ff], minlength=16).double() / n
+        bound = 5 * torch.sqrt(p[ff] * (1 - p[ff]) / n) + 1e-3
+        assert bool(((freq - p[ff]).abs() <= bound).all()), (freq, p[ff])
+
+
+# --------------------------------------------------------------------------- #
+# The float32 backward on the tensor cores (csrc/lse_einsum_bwd.cu, section 6)
+# --------------------------------------------------------------------------- #
+
+# (F, B, O, K1, K2): O, B, K1 and K2 that no tile divides, K1 != K2; the
+# dense ops take I = K1 * K2
+RAGGED = [(3, 100, 33, 13, 21), (2, 100, 33, 21, 13), (1, 37, 70, 70, 130), (2, 130, 17, 3, 600)]
+
+
+def _tc_case(op, f, b, o, k1, k2):
+    ins = _inputs(op, f, b, o, k1=k1, k2=k2, i=k1 * k2)
+    ins[0][0, 2] = float("-inf")  # a row that is all -inf
+    g = torch.randn((f, b, o), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[-1, 3:5] = 0.0  # rows whose upstream gradient is 0
+    return ins, g
+
+
+@pytest.mark.parametrize("f,b,o,k1,k2", RAGGED)
+@pytest.mark.parametrize("op", OPS)
+def test_tensor_core_backward_ragged(op, f, b, o, k1, k2):
+    """Every gradient of the tensor-core path against the plain version on
+    ragged shapes, zero gradients at the -inf row and at rows of zero
+    cotangent, and a second call equal to the bit."""
+    ins, g = _tc_case(op, f, b, o, k1, k2)
+    with torch.no_grad():
+        out = getattr(T, f"{op}_ref")(*ins)
+    grads = T.backward(op, tuple(ins), out, g)
+    again = T.backward(op, tuple(ins), out, g)
+    refs = getattr(T, f"{op}_bwd_ref")(*ins, out, g)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}_bwd"] == 2
+    for k, (a, r) in enumerate(zip(grads, refs)):
+        _close(a, r, zeros=k < len(ins) - 1)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    assert (grads[0][0, 2] == 0).all() and (grads[0][-1, 3:5] == 0).all()
+
+
+@pytest.mark.parametrize("which", ["dx", "dw", "dx1", "dx2"])
+@pytest.mark.parametrize("op", OPS)
+def test_tensor_core_backward_skips(op, which):
+    """A call that asks for some gradients only: each one equal to the bit
+    to the full call's, the others None."""
+    if which in ("dx1", "dx2") and "tucker" not in op:
+        which = "dx"
+    ins, g = _tc_case(op, 2, 100, 33, 13, 21)
+    with torch.no_grad():
+        out = getattr(T, f"{op}_ref")(*ins)
+    full = T.backward(op, tuple(ins), out, g)
+    names = ("dx1", "dx2", "dw") if "tucker" in op else ("dx", "dw")
+    needs = tuple(n == which or (which == "dx" and n.startswith("dx")) for n in names)
+    part = T.backward(op, tuple(ins), out, g, needs)
+    torch.cuda.synchronize()
+    for need, p_, f_ in zip(needs, part, full):
+        assert (p_ is None) == (not need)
+        assert p_ is None or torch.equal(p_, f_)

@@ -123,3 +123,35 @@ def test_zero_upstream_gradient_gives_zero_input_gradient():
     out = T.lse_tucker2_softmax(*ins)
     dx1, dx2, _ = T.lse_tucker2_softmax_bwd_ref(*ins, out, g)
     assert (dx1[0, 2] == 0).all() and (dx2[0, 2] == 0).all()
+
+
+@pytest.mark.parametrize("op", ["lse_matmul_softmax", "lse_tucker2_softmax"])
+def test_softmax_vjp_from_g_matches_jax_float64(op):
+    """The row dot of the float32 backward kernel's dw epilogue: the logits'
+    gradient formed as ``w * (dw - sum_b g)`` (:func:`softmax_vjp_from_g`,
+    with ``sum_c w dw`` replaced by the cotangents of the rows whose g / y is
+    finite) against JAX's gradient, beside the port's plain ``dtheta``, in
+    float64, with a row that is all -inf and rows of zero cotangent. JAX's
+    float64 route (its XLA composition) gives NaN for the weights of a row
+    that is all -inf, which adds nothing here: its gradient is taken on the
+    batch without that row."""
+    *ins, g = _inputs(op, 13, 16, np.float64, seed=3)
+    ins[0][:, 4] = -np.inf  # a row that is all -inf in every fold
+    g[0, 2:5] = 0.0  # rows whose cotangent is 0
+    kept = [np.delete(a, 4, axis=1) for a in ins[:-1]]
+    ref = _jax_vjp(op, [*kept, ins[-1]], np.delete(g, 4, axis=1))[-1]
+    ts = [torch.as_tensor(a) for a in ins]
+    gt = torch.as_tensor(g)
+    out = getattr(T, op)(*ts)
+    plain = getattr(T, f"{op}_bwd_ref")(*ts, out, gt)[-1]
+    w = torch.softmax(ts[-1], dim=-1)
+    if "tucker" in op:
+        shift = T._clamp_max(ts[0]) + T._clamp_max(ts[1])
+        dw = T.lse_tucker2_bwd_ref(*ts[:-1], w, out, gt, (False, False, True))[-1]
+    else:
+        shift = T._clamp_max(ts[0])
+        dw = T.lse_matmul_bwd_ref(ts[0], w, out, gt, (False, True))[-1]
+    fused = T.softmax_vjp_from_g(w, dw, gt, T._gy(gt, out, shift))
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(plain.numpy(), ref, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(fused.numpy(), ref, rtol=1e-9, atol=1e-12)
