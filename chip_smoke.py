@@ -17,7 +17,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    weights, the blocked dense forward and its row max) at the K=128 entries
    (F=784, B=128, K1=K2=O=128; dense I=16384) and at edge shapes (ragged B,
    O=1, K1 != K2, a K1 that the chunk rows do not divide, a weight row wider
-   than a chunk, I not a multiple of the chunk, a row that is all -inf, a
+   than a chunk, an odd K2 or I (no 16-byte loads), I not a multiple of the
+   chunk, a row that is all -inf, a
    chunk of logits or of inputs that is all -inf); kernel 1 timed beside
    kernel 5 at the K=128 Tucker shapes;
 3b. backward against plain: every backward entry against its plain version
@@ -493,6 +494,7 @@ def _cases(gen):
             (*chunked(op), tucker(op, 5, 13, 40, 24, 1), "B=13 O=1 K1=40 K2=24 (21+19 rows)"),
             (*chunked(op), tucker(op, 3, 16, 99, 128, 70), "O=70 K1=99 K2=128 (24x4+3 rows)"),
             (*chunked(op), tucker(op, 2, 130, 3, 600, 9), "B=130 K1=3 K2=600 (a row a chunk)"),
+            (*chunked(op), tucker(op, 1, 37, 7, 129, 33), "B=37 O=33 K1=7 K2=129 (K2 odd)"),
             (*chunked(op), tucker(op, 3, 16, 64, 16, 64, (0, (1, 5), inf),
                                   (2, (0, 3, slice(0, 512)), zero)),
              "a row -inf, a chunk of logits -inf" if "softmax" in op else "a row -inf, a chunk 0"),
@@ -1111,7 +1113,10 @@ def phase_train(smi: str, built: list) -> dict[str, int]:
 
 
 PROFILE_STEPS = 5
-_KERNEL_CATEGORIES = (  # (category, substrings of kernel names), first match wins
+# (category, substrings of kernel names), first match wins: the float32 wide
+# kernels on the tensor cores (ct_fwd_tc, blocked_gy_tc, blocked_bwd_tc) are
+# wide kernels, not kernel 2's tc_ ones
+_KERNEL_CATEGORIES = (
     ("tropical kernel", ("tropical_tucker",)),
     ("route kernel", ("route_tucker",)),
     ("wide forward kernel", ("ct_fwd", "blocked_fwd")),

@@ -82,6 +82,7 @@
 #include <cuda_runtime.h>
 
 #include "lse_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -673,104 +674,16 @@ softmax_vjp(const T* __restrict__ w, T* __restrict__ dw, int O, int I) {
 // rows whose gy is finite (as sum_c w_oc e_bc = exp(out_bo - shift_b), gy_bo
 // exp(out_bo - shift_b) = g_bo).
 
-namespace tc {
-constexpr int BK = 16;   // contraction chunk staged in shared memory (two k-steps of 8)
-constexpr int PAD = 8;   // row strides of 8 mod 32 words: a fragment load hits 32 banks
-constexpr int WT = 32;   // a warp's output tile, WT x WT: 2 x 4 mma tiles of 16 x 8
-constexpr int MT = WT / 16;
-constexpr int NT = WT / 8;
-}  // namespace tc
+// The primitives (the TF32 split, the mma, the fragment loop mma_k8, the
+// cp.async copies) are in tc_common.cuh.
+namespace tc = cirkit::tc;
+using cirkit::cp_async_commit;
+using cirkit::cp_async_f32;
+using cirkit::cp_async_f32x4;
+using cirkit::cp_async_wait;
+using cirkit::mma_k8;
+using cirkit::zero_acc;
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (lo the rounded remainder).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += A B over the 8 contraction rows k..k+7 of a staged chunk, 3xTF32:
-// As[k][m] holds A (rows m), k-major, or with AROW As[m][k], row-major, and
-// Bs[k][n] holds B, k-major; the warp's tile starts at row wm, column wn.
-// B's rows k + t and k + t + 4 (t = lane % 4) are read as they are (BMODE
-// 0), scaled by s0 and s1 (1), or as exp(B - s0) and exp(B - s1) (2).
-// Fragment (mt, nt, r) holds row wm + 16 mt + g + 8 (r >> 1), column wn +
-// 8 nt + 2 t + (r & 1), with g = lane / 4.
-template <int AS, int BS, int BMODE = 0, bool AROW = false>
-__device__ __forceinline__ void mma_k8(const float (*As)[AS], const float (*Bs)[BS], int k,
-                                       int wm, int wn, int lane, float s0, float s1,
-                                       float (&acc)[tc::MT][tc::NT][4]) {
-  constexpr int MT = tc::MT, NT = tc::NT;
-  const int g = lane >> 2, t = lane & 3;
-  auto a = [&](int m, int kk) { return AROW ? As[m][kk] : As[kk][m]; };
-  auto b = [&](int kk, int c, float sh) {
-    const float v = Bs[kk][c];
-    return BMODE == 1 ? v * sh : BMODE == 2 ? fast_exp(v - sh) : v;
-  };
-  uint32_t ahi[MT][4], alo[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r = wm + mt * 16 + g;
-    split_tf32(a(r, k + t), ahi[mt][0], alo[mt][0]);
-    split_tf32(a(r + 8, k + t), ahi[mt][1], alo[mt][1]);
-    split_tf32(a(r, k + t + 4), ahi[mt][2], alo[mt][2]);
-    split_tf32(a(r + 8, k + t + 4), ahi[mt][3], alo[mt][3]);
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    uint32_t bhi[2], blo[2];
-    const int c = wn + nt * 8 + g;
-    split_tf32(b(k + t, c, s0), bhi[0], blo[0]);
-    split_tf32(b(k + t + 4, c, s1), bhi[1], blo[1]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {  // the small products first
-      mma_tf32(acc[mt][nt], alo[mt], bhi);
-      mma_tf32(acc[mt][nt], ahi[mt], blo);
-      mma_tf32(acc[mt][nt], ahi[mt], bhi);
-    }
-  }
-}
-
-// Asynchronous copies global -> shared (cp.async) of one float or of four
-// (16-byte aligned at both ends), zero-filled where ``pred`` is false (``src``
-// must still be a valid address), committed in groups and waited for by
-// group.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[tc::MT][tc::NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < tc::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < tc::NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
-}
 
 // Per weight row of the softmax: its log-normalizer lse_o and r_o = sum_b
 // g_bo over the rows whose gy_bo is finite and nonzero (gy is zeroed where

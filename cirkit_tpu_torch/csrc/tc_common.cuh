@@ -1,0 +1,144 @@
+// Tensor-core primitives shared by the float32 kernels that run their sums
+// of products as 3xTF32 warp-level mma.sync.m16n8k8 (csrc/lse_einsum_bwd.cu
+// section 6, csrc/lse_wide.cu): the TF32 split of an f32 operand into a
+// high part and its rounded remainder, the mma itself, the fragment loop of
+// section 6 (operands staged as f32, split as the warps read them), the
+// 3xTF32 product of fragments split once when they were staged (high and low
+// parts in planes of their own, so each fragment register is loaded where
+// the mma reads it, with no moves between registers), asynchronous copies
+// to shared memory, and accumulator zeroing.
+//
+// A fragment of m16n8k8 with g = lane / 4, t = lane % 4: A (16 x 8, rows
+// m, columns k) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B
+// (8 x 8, rows k, columns n) holds (t, g), (t + 4, g); the accumulator
+// (16 x 8) holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "lse_common.cuh"
+
+namespace cirkit {
+
+namespace tc {
+constexpr int BK = 16;   // contraction chunk staged in shared memory (two k-steps of 8)
+constexpr int PAD = 8;   // row strides of 8 mod 32 words: a fragment load hits 32 banks
+constexpr int WT = 32;   // a warp's output tile, WT x WT: 2 x 4 mma tiles of 16 x 8
+constexpr int MT = WT / 16;
+constexpr int NT = WT / 8;
+}  // namespace tc
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (lo the rounded remainder).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A B over the 8 contraction rows k..k+7 of a staged chunk, 3xTF32:
+// As[k][m] holds A (rows m), k-major, or with AROW As[m][k], row-major, and
+// Bs[k][n] holds B, k-major; the warp's tile starts at row wm, column wn.
+// B's rows k + t and k + t + 4 (t = lane % 4) are read as they are (BMODE
+// 0), scaled by s0 and s1 (1), or as exp(B - s0) and exp(B - s1) (2).
+// Fragment (mt, nt, r) holds row wm + 16 mt + g + 8 (r >> 1), column wn +
+// 8 nt + 2 t + (r & 1), with g = lane / 4.
+template <int AS, int BS, int BMODE = 0, bool AROW = false>
+__device__ __forceinline__ void mma_k8(const float (*As)[AS], const float (*Bs)[BS], int k,
+                                       int wm, int wn, int lane, float s0, float s1,
+                                       float (&acc)[tc::MT][tc::NT][4]) {
+  constexpr int MT = tc::MT, NT = tc::NT;
+  const int g = lane >> 2, t = lane & 3;
+  auto a = [&](int m, int kk) { return AROW ? As[m][kk] : As[kk][m]; };
+  auto b = [&](int kk, int c, float sh) {
+    const float v = Bs[kk][c];
+    return BMODE == 1 ? v * sh : BMODE == 2 ? fast_exp(v - sh) : v;
+  };
+  uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = wm + mt * 16 + g;
+    split_tf32(a(r, k + t), ahi[mt][0], alo[mt][0]);
+    split_tf32(a(r + 8, k + t), ahi[mt][1], alo[mt][1]);
+    split_tf32(a(r, k + t + 4), ahi[mt][2], alo[mt][2]);
+    split_tf32(a(r + 8, k + t + 4), ahi[mt][3], alo[mt][3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uint32_t bhi[2], blo[2];
+    const int c = wn + nt * 8 + g;
+    split_tf32(b(k + t, c, s0), bhi[0], blo[0]);
+    split_tf32(b(k + t + 4, c, s1), bhi[1], blo[1]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {  // the small products first
+      mma_tf32(acc[mt][nt], alo[mt], bhi);
+      mma_tf32(acc[mt][nt], ahi[mt], blo);
+      mma_tf32(acc[mt][nt], ahi[mt], bhi);
+    }
+  }
+}
+
+// Asynchronous copies global -> shared (cp.async) of one float or of four
+// (16-byte aligned at both ends), zero-filled where ``pred`` is false (``src``
+// must still be a valid address), committed in groups and waited for by
+// group.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[tc::MT][tc::NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < tc::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+}
+
+// d += a b in 3xTF32 from split fragments, the small products first. The
+// high and low parts of each operand come from separate planes in shared
+// memory, so every fragment register is loaded where the mma reads it.
+__device__ __forceinline__ void mma3_tf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                          const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+}
+
+// The four values of v split as split_tf32 does: their high parts and their
+// low parts, each as four 32-bit words.
+__device__ __forceinline__ void split_tf32x4(const float4& v, uint4& hi, uint4& lo) {
+  split_tf32(v.x, hi.x, lo.x);
+  split_tf32(v.y, hi.y, lo.y);
+  split_tf32(v.z, hi.z, lo.z);
+  split_tf32(v.w, hi.w, lo.w);
+}
+
+}  // namespace cirkit

@@ -28,7 +28,7 @@ _SOURCES = tuple(
         "lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu", "clse_einsum.cu"
     )
 )
-_HEADERS = (_PKG / "csrc" / "lse_common.cuh",)
+_HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
 BUILD_DIR = _PKG.parent / "build" / "cirkit_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -413,6 +413,13 @@ def _launch_blocked_fwd(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor,
     return out, m
 
 
+def _blocked_gy_shape(f: int, b: int, o: int, suffix: str) -> tuple[int, ...]:
+    """The shape of the blocked backward's gy scratch: (F, B, O), or for the
+    float32 kernel, which keeps a plane of TF32 high parts and one of low
+    parts, room for 2 F B O floats."""
+    return (f, b, o) if suffix else (f, b, o, 2)
+
+
 def _launch_blocked_bwd(
     x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
     needs: tuple[bool, bool],
@@ -432,7 +439,7 @@ def _launch_blocked_bwd(
     if (max(f, b, i, o) >= 2**31 or -(-b // _BWD_ROWS) > _MAX_GRID_YZ
             or f * -(-i // _BWD_DX_COLS) >= 2**31):
         raise ValueError(f"{op} backward: sizes {(f, b, i, o)} exceed the kernel's launch grid")
-    gy = torch.empty((f, b, o), device=dev, dtype=x.dtype)
+    gy = torch.empty(_blocked_gy_shape(f, b, o, suffix), device=dev, dtype=x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (x, w, out, m, g)),

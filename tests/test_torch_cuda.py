@@ -1019,3 +1019,91 @@ def test_tensor_core_backward_skips(op, which):
     for need, p_, f_ in zip(needs, part, full):
         assert (p_ is None) == (not need)
         assert p_ is None or torch.equal(p_, f_)
+
+
+# --------------------------------------------------------------------------- #
+# The float32 wide kernels on the tensor cores (csrc/lse_wide.cu: ct_fwd_tc,
+# blocked_gy_tc + blocked_bwd_tc)
+# --------------------------------------------------------------------------- #
+
+
+def _offset(t):
+    """``t`` copied into a buffer one float past an aligned start: contiguous,
+    but its rows' 16-byte copies are off."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
+# (F, B, I, O): no tile of the kernel (64 strip columns, 128 batch rows, 64
+# units) divides them; I odd (777) or past one strip row of 256 chunks (10000)
+TC_BLOCKED = [(2, 130, 777, 70), (1, 13, 10000, 1), (3, 37, 1000, 33), (1, 257, 130, 128)]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("f,b,i,o", TC_BLOCKED)
+def test_tensor_core_blocked_backward(f, b, i, o, offset):
+    """The blocked backward against its plain version with a row of x that is
+    all -inf, a strip of a row that is -inf and a row whose cotangent is 0;
+    a second call equal to the bit, and dx-only and dw-only calls equal to
+    the bit to the full call's."""
+    x, w = _inputs("lse_matmul", f, b, o, i=i)
+    x[0, 2] = float("-inf")
+    x[-1, 1, 64:128] = float("-inf")
+    if offset:
+        x, w = _offset(x), _offset(w)
+    with torch.no_grad():
+        out, m = T.lse_matmul_blocked_ref(x, w)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[0, 1] = 0.0
+    full = T._launch_blocked_bwd(x, w, out, m, g, (True, True))
+    again = T._launch_blocked_bwd(x, w, out, m, g, (True, True))
+    dx_only = T._launch_blocked_bwd(x, w, out, m, g, (True, False))
+    dw_only = T._launch_blocked_bwd(x, w, out, m, g, (False, True))
+    refs = T.lse_matmul_blocked_bwd_ref(x, w, out, m, g)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["lse_matmul_blocked_bwd"] == 4
+    _close(full[0], refs[0], zeros=True)
+    _close(full[1], refs[1])
+    assert all(torch.equal(a, b_) for a, b_ in zip(full, again))
+    assert dx_only[1] is None and torch.equal(dx_only[0], full[0])
+    assert dw_only[0] is None and torch.equal(dw_only[1], full[1])
+    assert (full[0][0, 2] == 0).all() and (full[0][0, 1] == 0).all()
+
+
+# (F, B, K1, K2, O): K1 != K2, K2 odd (no 16-byte copies) or past the
+# 32-column chunk, O and B that no tile (128 units, 128 rows) divides
+TC_CHUNKED = [(2, 130, 99, 600, 70), (3, 13, 40, 24, 1), (1, 37, 7, 129, 33),
+              (1, 128, 128, 128, 128)]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("f,b,k1,k2,o", TC_CHUNKED)
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+def test_tensor_core_chunked_tucker(op, f, b, k1, k2, o, offset):
+    """The K1-chunked Tucker forward against its plain version, with rows of
+    x1 and of x2 that are all -inf and a unit whose logits (weights) over
+    one row i, and over a 32-column chunk of another, are -inf (0); a
+    second call equal to the bit. The plain version runs on the inputs cast
+    to float64: at I = 59400 its float32 composition is itself off float64
+    by up to 1.9e-4 (cuBLAS's float32 sums), past the bound, where the
+    kernel stays within 1e-5."""
+    ins = _inputs(op, f, b, o, k1=k1, k2=k2)
+    ins[0][0, 2] = float("-inf")
+    ins[1][-1, 1] = float("-inf")
+    zero = float("-inf") if "softmax" in op else 0.0
+    ins[2][0, 0, :k2] = zero
+    ins[2][-1, -1, k2 + 32:k2 + 64] = zero
+    if offset:
+        ins[2] = _offset(ins[2])
+    key = f"{op}_chunked"
+    got = T._launch_fwd(key, tuple(ins))
+    again = T._launch_fwd(key, tuple(ins))
+    ref = getattr(T, f"{op}_ref")(*(t.double() for t in ins))
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[key] == 2
+    _fwd_close(got.double(), ref)
+    assert torch.equal(got, again)
+    assert torch.isneginf(got[0, 2]).all() and torch.isneginf(got[-1, 1]).all()

@@ -79,7 +79,13 @@ def _pad(x, w, bp, ip):
     return x, jnp.pad(w, ((0, 0), (0, 0), (0, ip - i)))
 
 
-@pytest.mark.parametrize("shape", [(2, 9, 1000, 16), (1, 8, 512, 8), (3, 13, 300, 1)])
+# (F, B, I, O) that no tile of the float32 kernels divides (strips of 64
+# columns, 128 batch rows, chunks of 64 units), I odd among them
+RAGGED_BLOCKED = [(1, 130, 777, 70), (1, 13, 1000, 1)]
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 1000, 16), (1, 8, 512, 8), (3, 13, 300, 1),
+                                   *RAGGED_BLOCKED])
 def test_blocked_forward_matches_pallas_kernel_float32(shape):
     """The port's blocked forward (out and the row max m) against
     ``_blocked_fwd_call`` in interpret mode, ragged batch and width padded
@@ -122,14 +128,50 @@ def test_blocked_backward_matches_pallas_kernel_float32(shape):
     assert skip_dx[0] is None and torch.equal(skip_dx[1], got[1])
 
 
+@pytest.mark.parametrize("shape", RAGGED_BLOCKED)
+def test_ragged_blocked_backward_matches_pallas_kernel_float32(shape):
+    """``lse_matmul_blocked_bwd_ref`` at shapes that no tile divides against
+    ``jax.vjp`` through ``_blocked_p`` (``_blocked_bwd_kernel`` in interpret
+    mode), the batch and width padded as ``_dispatch_blocked`` pads them."""
+    f, b, i, o = shape
+    rng = np.random.default_rng(22)
+    x, w = _logx(rng, (f, b, i)), _weights(rng, (f, o, i))
+    x[0, 3] = -np.inf
+    g = rng.normal(size=(f, b, o)).astype(np.float32)
+    g[0, 5] = 0.0
+    cfg, bp, ip = _blocked_cfg(b, i, bt=16 if b > 8 else 8)
+    xp, wp = _pad(jnp.asarray(x), jnp.asarray(w), bp, ip)
+    gp = jnp.pad(jnp.asarray(g), ((0, 0), (0, bp - b), (0, 0)))
+    _, vjp = jax.vjp(lambda x, w: J._blocked_p(cfg, x, w), xp, wp)
+    refs = [np.asarray(d) for d in vjp(gp)]
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    out, m = T.lse_matmul_blocked_ref(xt, wt)
+    got = T.lse_matmul_blocked_bwd_ref(xt, wt, out, m, torch.as_tensor(g))
+    for name, a, r in zip(("dx", "dw"), got, (refs[0][:, :b, :i], refs[1][:, :, :i])):
+        assert not np.isnan(a.numpy()).any() and not np.isnan(r).any(), name
+        np.testing.assert_allclose(a.numpy(), r, rtol=5e-3, atol=5e-3, err_msg=name)
+    assert (got[0][0, 3] == 0).all() and (got[0][0, 5] == 0).all()
+
+
 @pytest.mark.parametrize("op", ["lse_matmul", "lse_matmul_softmax"])
 def test_wide_dense_route_matches_jax_fallback_float64(op, monkeypatch):
     """At wide I the port's ``lse_matmul`` takes the blocked route (and
     ``lse_matmul_softmax`` normalizes, then takes it): forward and backward
     against the JAX XLA fallback in float64."""
+    _dense_route_matches_jax_float64(op, (2, 13, 96, 5), monkeypatch)
+
+
+@pytest.mark.parametrize("shape", RAGGED_BLOCKED)
+@pytest.mark.parametrize("op", ["lse_matmul", "lse_matmul_softmax"])
+def test_ragged_wide_dense_route_matches_jax_fallback_float64(op, shape, monkeypatch):
+    """The same at shapes that no tile of the float32 kernels divides."""
+    _dense_route_matches_jax_float64(op, shape, monkeypatch)
+
+
+def _dense_route_matches_jax_float64(op, shape, monkeypatch):
     monkeypatch.setattr(T, "WIDE_WIDTH", 64)
     rng = np.random.default_rng(13)
-    f, b, i, o = 2, 13, 96, 5
+    f, b, i, o = shape
     w = _logits if "softmax" in op else _weights
     ins = [_logx(rng, (f, b, i), np.float64), w(rng, (f, o, i), np.float64)]
     g = rng.normal(size=(f, b, o))
@@ -166,7 +208,7 @@ def _tucker_op(softmax):
 @pytest.mark.parametrize("softmax", [False, True], ids=["plain", "softmax"])
 @pytest.mark.parametrize(
     "shape", [(2, 8, 16, 16, 8), (2, 16, 128, 128, 64), (1, 13, 128, 64, 16),
-              (1, 8, 256, 128, 32)]
+              (1, 8, 256, 128, 32), (1, 13, 48, 16, 70)]
 )
 def test_chunked_tucker_matches_pallas_kernel_float32(shape, softmax, monkeypatch):
     """The port's wide Tucker route against ``_dispatch_tucker_chunked`` in
@@ -216,9 +258,21 @@ def test_chunked_tucker_matches_jax_fallback_float64(softmax, monkeypatch):
     """The wide Tucker route, forward and backward, against the JAX XLA
     fallback (``lse_tucker2[_softmax]`` with Pallas off) in float64, at
     K1 != K2 with a K1 that the JAX chunk sizes do not divide."""
+    _tucker_route_matches_jax_float64(softmax, (2, 5, 13, 6, 3), monkeypatch)
+
+
+@pytest.mark.parametrize("shape", [(1, 130, 99, 600, 70), (2, 13, 7, 129, 1)])
+@pytest.mark.parametrize("softmax", [False, True], ids=["plain", "softmax"])
+def test_ragged_chunked_tucker_matches_jax_fallback_float64(softmax, shape, monkeypatch):
+    """The same at shapes that no tile of the float32 kernel divides (128
+    batch rows and units, chunks of 32 columns j): K2 = 600, an odd K2."""
+    _tucker_route_matches_jax_float64(softmax, shape, monkeypatch)
+
+
+def _tucker_route_matches_jax_float64(softmax, shape, monkeypatch):
     monkeypatch.setattr(T, "WIDE_WIDTH", 64)
-    ins = _tucker_inputs((2, 5, 13, 6, 3), softmax, seed=10, dtype=np.float64)
-    g = np.random.default_rng(11).normal(size=(2, 5, 3))
+    ins = _tucker_inputs(shape, softmax, seed=10, dtype=np.float64)
+    g = np.random.default_rng(11).normal(size=(*shape[:2], shape[4]))
     jop = J.lse_tucker2_softmax if softmax else J.lse_tucker2
     ref, vjp = jax.vjp(jop, *(jnp.asarray(a) for a in ins))
     refs = [np.asarray(d) for d in vjp(jnp.asarray(g))]
@@ -246,6 +300,19 @@ def test_chunked_tucker_neg_inf_rows_and_chunks_give_no_nan(softmax, monkeypatch
     finite = np.isfinite(ref)
     assert np.array_equal(finite, np.isfinite(out))
     np.testing.assert_allclose(out[finite], ref[finite], rtol=5e-4, atol=5e-4)
+
+
+# --------------------------------------------------------------------------- #
+# The float32 blocked backward's scratch
+# --------------------------------------------------------------------------- #
+
+
+def test_blocked_gy_scratch_holds_the_tf32_planes_in_float32():
+    """The blocked backward's gy scratch: (F, B, O) for the float64 kernel,
+    twice that (a plane of TF32 high parts and one of low parts) for the
+    float32 one."""
+    assert T._blocked_gy_shape(3, 130, 70, "_f64") == (3, 130, 70)
+    assert T._blocked_gy_shape(3, 130, 70, "") == (3, 130, 70, 2)
 
 
 # --------------------------------------------------------------------------- #
