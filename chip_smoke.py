@@ -19,7 +19,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    O=1, K1 != K2, a K1 that the chunk rows do not divide, a weight row wider
    than a chunk, an odd K2 or I (no 16-byte loads), I not a multiple of the
    chunk, a row that is all -inf, a
-   chunk of logits or of inputs that is all -inf); kernel 1 timed beside
+   chunk of logits or of inputs that is all -inf); the edges of the two
+   forwards on the tensor cores: the blocked one at B=100, O=1 and 129,
+   I=8200 (not a multiple of its 32-column chunk), a row of -inf and rows
+   whose max sits in the last chunk, the single-pass Tucker one at K1 != K2,
+   K2=30 (no 16-byte loads), O=1 and 65, rows of x1 and of x2 that are
+   -inf, a unit's logits (weights) -inf (0) over a row i or all but the
+   last, and K1 K2 = 8100, just under ``WIDE_WIDTH``; kernel 1 timed beside
    kernel 5 at the K=128 Tucker shapes;
 3b. backward against plain: every backward entry against its plain version
    (``*_bwd_ref``) on the same cases (the Tucker backward kernel at the
@@ -505,6 +511,28 @@ def _cases(gen):
         (*blocked, dense(3, 16, 1000, 64, (0, (1, 5), inf), (0, (2, 3, slice(256, 512)), inf)),
          "a row -inf, a chunk of x -inf"),
     ]
+    # the tensor-core blocked forward's edges (tiles of 128 rows and 128 units,
+    # chunks of 32 columns): a row of -inf, rows whose max sits in the last
+    # chunk, so the online rescale runs on their accumulators
+    for o in (1, 129):
+        cases.append((*blocked, dense(2, 100, 8200, o, (0, (0, 5), inf), (0, (1, 7, -3), 40.0),
+                                      (0, (0, 99, -8), 40.0)),
+                      f"B=100 O={o} I=8200 (256x32+8), a row -inf, maxes in the last chunk"))
+    # the tensor-core single-pass Tucker forward's edges (tiles of 128 rows and
+    # 64 units, chunks of 32 columns j): K1 != K2, K2 % 4 != 0, O = 1 and 65,
+    # rows of x1 and x2 that are -inf, a unit's logits (weights) -inf (0) over
+    # a row i, a unit whose logits are all -inf but the last (whose weights
+    # are all 0), and K1 K2 = 8100, just under WIDE_WIDTH
+    for op in ("lse_tucker2_softmax", "lse_tucker2"):
+        zero = inf if "softmax" in op else 0.0
+        last = slice(0, -1) if "softmax" in op else slice(None)
+        cases += [
+            (*single(op), tucker(op, 3, 37, 21, 30, 1, (0, (1, 2), inf), (1, (2, 4), inf)),
+             "B=37 O=1 K1=21 K2=30, x1 and x2 rows -inf"),
+            (*single(op), tucker(op, 2, 100, 90, 90, 65, (1, (1, 3), inf),
+                                 (2, (0, 5, slice(0, 90)), zero), (2, (1, 64, last), zero)),
+             "B=100 O=65 K1=K2=90 (8100), edges"),
+        ]
     # rows that are all -inf must give -inf, never NaN
     for op in FWD_OPS:
         row = (0, (1, 5), inf)
@@ -1114,15 +1142,16 @@ def phase_train(smi: str, built: list) -> dict[str, int]:
 
 PROFILE_STEPS = 5
 # (category, substrings of kernel names), first match wins: the float32 wide
-# kernels on the tensor cores (ct_fwd_tc, blocked_gy_tc, blocked_bwd_tc) are
-# wide kernels, not kernel 2's tc_ ones
+# kernels on the tensor cores (ct_fwd_tc, blocked_fwd_tc, blocked_gy_tc,
+# blocked_bwd_tc) are wide kernels, not kernel 2's tc_ ones, and the float32
+# single-pass Tucker forward (tucker_fwd_tc) is a forward kernel
 _KERNEL_CATEGORIES = (
     ("tropical kernel", ("tropical_tucker",)),
     ("route kernel", ("route_tucker",)),
     ("wide forward kernel", ("ct_fwd", "blocked_fwd")),
     ("wide backward kernel", ("blocked_gy", "blocked_bwd")),
     ("torch softmax", ("softmaxforward", "softmaxbackward")),
-    ("forward kernel", ("lse_fwd",)),
+    ("forward kernel", ("lse_fwd", "tucker_fwd")),
     ("backward kernel", ("bwd_prep", "softmax_weights", "lse_bwd_dx", "lse_bwd_dw",
                          "softmax_vjp", "tc_softmax_stats", "tc_dx", "tc_dw", "tucker_dx_finish")),
     ("foreach optimizer", ("multi_tensor_apply",)),

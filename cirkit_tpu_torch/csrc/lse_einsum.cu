@@ -41,7 +41,13 @@
 // chunk is contracted, and staging costs one exponential per element.
 // Accumulation is f32 FMA, at least as accurate as the TPU's bf16x3 dots.
 // Any O >= 1 is taken (the Ko=1 root layers included) and the ragged batch
-// edge is masked, with no padding. wgmma, TMA and TF32x3 are left for later.
+// edge is masked, with no padding. That loop runs the dense, signed and
+// double instances. The float unsigned Tucker instances, the K=64
+// flagship's forward, run on the tensor cores instead (tucker_fwd_tc, in
+// 3xTF32 mma.sync: on the f32 CUDA cores the Tucker entry's 52.6 GFLOP take
+// 0.785 ms, in 3xTF32 on the tensor cores 0.319 ms, against 0.245 ms of
+// weight bytes); its design is described above it. wgmma and TMA are left
+// for later.
 // The signed squared circuits' TensorDot entries (I = O = 32, B*Kq = 4096
 // rows) do 8 FLOP per element read, so there the kernel is bound by memory:
 // it reads each (a, s) element about twice (the row max, then the chunk).
@@ -52,9 +58,11 @@
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lse_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -65,6 +73,8 @@ using cirkit::fma_t;
 using cirkit::load4;
 using cirkit::log_t;
 using cirkit::max_t;
+using cirkit::mma3_tf32;
+using cirkit::split_tf32x4;
 using cirkit::staged_exp;
 using cirkit::warp_max;
 
@@ -252,6 +262,277 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   }
 }
 
+// The float unsigned Tucker instances on the tensor cores (the double and
+// signed ones are lse_fwd above). The fold of the K1-chunked kernel
+// (ct_fwd_tc in csrc/lse_wide.cu) with its tile sized for O = 64, the K=64
+// circuits' width: for a fixed row i the operand is diag(e1[:, i]) E2, so a
+// block (fold, 128 batch rows, 64 units) stages E2 = exp(x2 - m2) of its
+// rows once, chunk by chunk of JC columns j, split into TF32 high and low
+// parts as it is staged; for each row i it contracts S = E2 W_i^T over the
+// chunk's j on the tensor cores (3xTF32 mma.sync, each of the 8 warps a 32
+// x 32 tile), W_i the chunk's weights w[o, i*K2 + j] of the block's units,
+// streamed through registers into a ring of two split buffers (the next
+// row's loads in flight while the current one is contracted), and folds
+// acc += e1[b, i] * S in f32 registers. Two blocks are resident on an SM,
+// so four warps issue on each sub-partition. Softmax, in one pass over
+// theta: the eight threads that stage a unit's segment (its 32 logits of
+// row i) raise the unit's running max to the segment's max, held in their
+// registers, and stage w = exp(theta - max); the fold first scales the
+// unit's accumulators by exp(old max - new max), and the stagers'
+// normalizer partials shrink by the same factor. A unit whose logits have
+// all been -inf so far keeps max -inf, scale 1 and shift 0, so exp(-inf) =
+// 0 and no NaN. Ragged B, O, K1 and K2 are masked; a K2 that is not a
+// multiple of 4, or a weight that is not 16-byte aligned, takes 4-byte
+// loads. It is a kernel of its own, not an instance of a template shared
+// with ct_fwd_tc, whose machine code stays as it was: one template for both
+// reorders ct_fwd_tc's instructions.
+namespace tk_tc {
+constexpr int BM = 128;    // batch rows a block
+constexpr int BN = 64;     // units a block
+constexpr int JC = 32;     // columns j a chunk
+constexpr int IC = 32;     // rows i whose e1 is staged at once
+constexpr int S = JC + 4;  // plane row stride in words, 4 mod 32: fragment loads hit 32 banks
+constexpr int NT_ = 256;   // threads a block, two blocks an SM
+constexpr int NW = NT_ / 32;
+constexpr int RS = NT_ / 8;           // staging rows a pass
+constexpr int Q = BN * JC / 4 / NT_;  // float4 slots a thread stages of a weight chunk (2)
+constexpr int EQ = BM * JC / 4 / NT_; // float4 slots a thread stages of an E2 chunk (4)
+// E2's two planes, the ring's two buffers of two planes, e1, the shifts and
+// the softmax's factors and normalizers: 90 KB
+constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 3 * BN);
+}  // namespace tk_tc
+
+template <bool SOFTMAX>
+__global__ void __launch_bounds__(tk_tc::NT_, 2)
+tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
+              const float* __restrict__ x2,  // (F, B, K2)
+              const float* __restrict__ w,   // (F, O, K1*K2): weights, or logits for SOFTMAX
+              float* __restrict__ out,       // (F, B, O)
+              int B, int K1, int K2, int O, bool vec) {
+  // the tile (the file's own BM and BN are the FMA kernel's)
+  constexpr int BM = tk_tc::BM, BN = tk_tc::BN, JC = tk_tc::JC, IC = tk_tc::IC, S = tk_tc::S;
+  constexpr int NT_ = tk_tc::NT_, NW = tk_tc::NW, RS = tk_tc::RS, Q = tk_tc::Q, EQ = tk_tc::EQ;
+  extern __shared__ __align__(16) uint32_t tk_smem[];
+  uint32_t* E2h = tk_smem;  // [BM][S]: E2's high parts, then its low parts
+  uint32_t* E2l = E2h + BM * S;
+  uint32_t* Wsm = E2l + BM * S;  // [2][2][BN][S]: the ring, each buffer high then low
+  float* E1s = reinterpret_cast<float*>(Wsm + 4 * BN * S);  // [IC][BM]
+  float* m1s = E1s + IC * BM;
+  float* m2s = m1s + BM;
+  float* wscl = m2s + BM;       // softmax: [2][BN], each staged segment's rescale factors
+  float* lsum = wscl + 2 * BN;  // softmax: each unit's log-normalizer
+
+  const int f = blockIdx.x;
+  const int o0 = blockIdx.y * BN;
+  const int b0 = blockIdx.z * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;  // the warp's 32 x 32 tile
+  const int I = K1 * K2;
+  const float* x1f = x1 + (size_t)f * B * K1;
+  const float* x2f = x2 + (size_t)f * B * K2;
+  const float* wf = w + (size_t)f * O * I;
+
+  // Prologue: the clamped row maxes of x1 and x2, the shifts of the whole
+  // contraction.
+  for (int r = warp; r < BM; r += NW) {
+    const int b = b0 + r;
+    float a = -INFINITY, c = -INFINITY;
+    if (b < B) {
+      for (int k = lane; k < K1; k += 32) a = fmaxf(a, x1f[(size_t)b * K1 + k]);
+      for (int k = lane; k < K2; k += 32) c = fmaxf(c, x2f[(size_t)b * K2 + k]);
+    }
+    a = warp_max(a);
+    c = warp_max(c);
+    if (lane == 0) {
+      m1s[r] = clamp_max(a);
+      m2s[r] = clamp_max(c);
+    }
+  }
+  __syncthreads();
+
+  // Staging map of a chunk (E2 and W alike): row tid / 8 + RS q, columns
+  // 4 (tid % 8) .. + 3 of the chunk.
+  const int sr = tid >> 3, sc = 4 * (tid & 7);
+  float4 pw[Q];
+  float rmax[Q], part[Q];  // softmax: the running max and normalizer share of rows sr + RS q
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    rmax[q] = -INFINITY;
+    part[q] = 0.f;
+  }
+  auto load_w = [&](int i, int j0) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int o = o0 + sr + RS * q;
+      const int j = j0 + sc;
+      const float* src = wf + (size_t)o * I + (size_t)i * K2 + j;
+      const float pad = SOFTMAX ? -INFINITY : 0.f;
+      if (vec) {  // K2 % 4 == 0: the four columns are in or out together
+        pw[q] = o < O && j < K2 ? *reinterpret_cast<const float4*>(src)
+                                : make_float4(pad, pad, pad, pad);
+      } else {
+        const bool in = o < O;
+        pw[q] = make_float4(in && j < K2 ? src[0] : pad, in && j + 1 < K2 ? src[1] : pad,
+                            in && j + 2 < K2 ? src[2] : pad, in && j + 3 < K2 ? src[3] : pad);
+      }
+    }
+  };
+  auto store_w = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = sr + RS * q;
+      float4 v = pw[q];
+      if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
+        float cm = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+#pragma unroll
+        for (int d = 1; d < 8; d <<= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, d));
+        const float mn = fmaxf(rmax[q], cm);
+        const float scl = mn == -INFINITY ? 1.f : fast_exp(rmax[q] - mn);
+        const float sh = mn == -INFINITY ? 0.f : mn;
+        rmax[q] = mn;
+        v = make_float4(fast_exp(v.x - sh), fast_exp(v.y - sh), fast_exp(v.z - sh),
+                        fast_exp(v.w - sh));
+        part[q] = fmaf(part[q], scl, (v.x + v.y) + (v.z + v.w));
+        if (sc == 0) wscl[buf * BN + r] = scl;
+      }
+      uint4 hi, lo;
+      split_tf32x4(v, hi, lo);
+      uint32_t* wh = Wsm + 2 * buf * BN * S;
+      *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
+      *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
+    }
+  };
+
+  float acc[2][4][4], s[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int j0 = 0; j0 < K2; j0 += JC) {
+    const int nk = (min(JC, K2 - j0) + 7) / 8;  // k-steps of 8 columns holding data
+    for (int i0 = 0; i0 < K1; i0 += IC) {
+      const int n_i = min(IC, K1 - i0);
+      __syncthreads();  // every warp is done with the buffers of the last chunk
+      load_w(i0, j0);
+      if (i0 == 0) {  // E2 of the chunk's columns
+#pragma unroll
+        for (int q = 0; q < EQ; ++q) {
+          const int r = sr + RS * q, b = b0 + r;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = j0 + sc + e;
+            v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+          }
+          uint4 hi, lo;
+          split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
+          *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
+          *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+        }
+      }
+      for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
+        const int il = e / BM, r = e - il * BM, b = b0 + r;
+        E1s[e] = b < B && il < n_i ? expf(x1f[(size_t)b * K1 + i0 + il] - m1s[r]) : 0.f;
+      }
+      store_w(0);
+      __syncthreads();
+
+      for (int il = 0; il < n_i; ++il) {
+        const int cur = il & 1;
+        const bool more = il + 1 < n_i;
+        if (more) load_w(i0 + il + 1, j0);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+        const uint32_t* wh = Wsm + 2 * cur * BN * S;
+        const uint32_t* wl = wh + BN * S;
+        for (int k8 = 0; k8 < nk; ++k8) {
+          const int kk = 8 * k8 + t;
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int o = (wn + 8 * nt + g) * S + kk;
+            bh[nt][0] = wh[o];
+            bh[nt][1] = wh[o + 4];
+            bl[nt][0] = wl[o];
+            bl[nt][1] = wl[o + 4];
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int o = (wm + 16 * mt + g) * S + kk;
+            const uint32_t ah[4] = {E2h[o], E2h[o + 8 * S], E2h[o + 4], E2h[o + 8 * S + 4]};
+            const uint32_t al[4] = {E2l[o], E2l[o + 8 * S], E2l[o + 4], E2l[o + 8 * S + 4]};
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma3_tf32(s[mt][nt], ah, al, bh[nt], bl[nt]);
+          }
+        }
+        // acc += e1[b, i] * S, softmax: acc scaled by its unit's factor first
+        const float* e1 = E1s + il * BM;
+        float2 scl[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          scl[nt] = SOFTMAX ? *reinterpret_cast<const float2*>(&wscl[cur * BN + wn + 8 * nt + 2 * t])
+                            : make_float2(1.f, 1.f);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float e = e1[wm + 16 * mt + g + 8 * h];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              float* a = acc[mt][nt] + 2 * h;
+              const float* sv = s[mt][nt] + 2 * h;
+              a[0] = fmaf(e, sv[0], SOFTMAX ? a[0] * scl[nt].x : a[0]);
+              a[1] = fmaf(e, sv[1], SOFTMAX ? a[1] * scl[nt].y : a[1]);
+            }
+          }
+        if (more) store_w(cur ^ 1);
+        __syncthreads();
+      }
+    }
+  }
+
+  if (SOFTMAX) {
+    // The normalizer of each unit: the eight threads that staged it add
+    // their shares by a fixed butterfly.
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float p = part[q];
+#pragma unroll
+      for (int d = 1; d < 8; d <<= 1) p += __shfl_xor_sync(0xffffffffu, p, d);
+      if (sc == 0) lsum[sr + RS * q] = logf(p);
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: back to log space, masking the ragged batch and unit edges.
+  float* outf = out + (size_t)f * B * O;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + 16 * mt + g + 8 * h, b = b0 + r;
+      if (b >= B) continue;
+      const float shift = m1s[r] + m2s[r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = wn + 8 * nt + 2 * t + e, o = o0 + c;
+          float y = logf(acc[mt][nt][2 * h + e]);
+          if (SOFTMAX) y -= lsum[c];
+          if (o < O) outf[(size_t)b * O + o] = y + shift;
+        }
+    }
+}
+
 template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
 int launch(const T* xa, const T* xb, const T* w, T* out, int F, int B, int I, int K1, int K2,
            int O, int device, void* stream, const T* sa = nullptr, const T* sb = nullptr,
@@ -261,6 +542,31 @@ int launch(const T* xa, const T* xb, const T* w, T* out, int F, int B, int I, in
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
   lse_fwd<T, TUCKER, SOFTMAX, SIGNED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       xa, xb, w, out, sa, sb, out_sign, B, I, K1, K2, O);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The unsigned Tucker entries: the double instances of lse_fwd, or the
+// float kernel on the tensor cores.
+template <typename T, bool SOFTMAX>
+int launch_tucker(const T* x1, const T* x2, const T* w, T* out, int F, int B, int K1, int K2,
+                  int O, int device, void* stream) {
+  return launch<T, true, SOFTMAX>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);
+}
+
+template <bool SOFTMAX>
+int launch_tucker_tc(const float* x1, const float* x2, const float* w, float* out, int F, int B,
+                     int K1, int K2, int O, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = tucker_fwd_tc<SOFTMAX>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(tk_tc::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte weight loads where every row segment starts 16-byte aligned
+  const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid(F, (O + tk_tc::BN - 1) / tk_tc::BN, (B + tk_tc::BM - 1) / tk_tc::BM);
+  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, static_cast<cudaStream_t>(stream)>>>(x1, x2, w, out, B,
+                                                                               K1, K2, O, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -274,8 +580,8 @@ const char* cirkit_cuda_error_string(int err) {
 
 // Every entry exists for float (the plain name) and for double (the name with
 // _f64). The signed entries take (log-magnitude, sign) inputs and write
-// (log|y|, sign y).
-#define LSE_FWD_ENTRIES(SUFFIX, T)                                                              \
+// (log|y|, sign y). The float unsigned Tucker entries run tucker_fwd_tc.
+#define LSE_FWD_ENTRIES(SUFFIX, T, TK, TK_SOFTMAX)                                              \
   int lse_fwd_dense##SUFFIX(const T* x, const T* w, T* out, int F, int B, int I, int O,         \
                             int device, void* stream) {                                         \
     return launch<T, false, false>(x, nullptr, w, out, F, B, I, 0, 1, O, device, stream);       \
@@ -286,12 +592,11 @@ const char* cirkit_cuda_error_string(int err) {
   }                                                                                             \
   int lse_fwd_tucker##SUFFIX(const T* x1, const T* x2, const T* w, T* out, int F, int B,        \
                              int K1, int K2, int O, int device, void* stream) {                 \
-    return launch<T, true, false>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);    \
+    return TK(x1, x2, w, out, F, B, K1, K2, O, device, stream);                                 \
   }                                                                                             \
   int lse_fwd_tucker_softmax##SUFFIX(const T* x1, const T* x2, const T* theta, T* out, int F,   \
                                      int B, int K1, int K2, int O, int device, void* stream) {  \
-    return launch<T, true, true>(x1, x2, theta, out, F, B, K1 * K2, K1, K2, O, device,          \
-                                 stream);                                                       \
+    return TK_SOFTMAX(x1, x2, theta, out, F, B, K1, K2, O, device, stream);                     \
   }                                                                                             \
   int slse_fwd_dense##SUFFIX(const T* a, const T* s, const T* w, T* oa, T* os, int F, int B,    \
                              int I, int O, int device, void* stream) {                          \
@@ -316,8 +621,8 @@ const char* cirkit_cuda_error_string(int err) {
                                        stream, s1, s2, os);                                     \
   }
 
-LSE_FWD_ENTRIES(, float)
-LSE_FWD_ENTRIES(_f64, double)
+LSE_FWD_ENTRIES(, float, launch_tucker_tc<false>, launch_tucker_tc<true>)
+LSE_FWD_ENTRIES(_f64, double, (launch_tucker<double, false>), (launch_tucker<double, true>))
 #undef LSE_FWD_ENTRIES
 
 }  // extern "C"

@@ -33,26 +33,26 @@
 // one) the Tucker forward still is (2.6 ms against 2.0 ms of bytes), while
 // the dense backward is bound by its bytes (7.9 ms at 3.35 TB/s).
 //
-// The float K1-chunked Tucker forward (ct_fwd_tc) and the float dense
-// backward (blocked_gy_tc + blocked_bwd_tc) run on the tensor cores: warp
-// mma.sync.m16n8k8 in 3xTF32 with f32 accumulators (tc_common.cuh), each
-// operand split into its TF32 high and low parts once, as it is staged in
-// shared memory (a plane of each), so the warps only load fragments and
-// issue mma instructions; sixteen warps a block, four on each SM
-// sub-partition, since one warp issues TF32 mma.sync at a fraction of the
-// tensor core's rate. Their designs are described above each kernel.
-// The dense forward and the double instances run the register-tiled FMA
-// loop of the single-pass kernels (csrc/lse_einsum.cu) on the CUDA cores:
-// 16-wide chunks staged in shared memory, each thread accumulating a TMxTN
-// tile, the next chunk loaded into registers while the current one is
-// contracted. The chunk-max passes read a chunk that the contraction then
-// reads again from L2, so the weights (and for the dense forward the
-// inputs) stream from device memory once. The dense forward orders its
-// blocks so the two unit tiles of one batch tile run side by side and share
-// the input tile through L2. Both backwards give each block one 64-column
-// strip of a fold, so the strip's x and w come from device memory once;
-// the batch sum runs in a fixed order with no atomics, so a call is
-// deterministic. Any B, O >= 1 and K1, K2 are taken, the ragged edges
+// The float K1-chunked Tucker forward (ct_fwd_tc), the float dense forward
+// (blocked_fwd_tc) and the float dense backward (blocked_gy_tc +
+// blocked_bwd_tc) run on the tensor cores: warp mma.sync.m16n8k8 in 3xTF32
+// with f32 accumulators (tc_common.cuh), each operand split into its TF32
+// high and low parts once, as it is staged in shared memory (a plane of
+// each), so the warps only load fragments and issue mma instructions;
+// sixteen warps a block, four on each SM sub-partition, since one warp
+// issues TF32 mma.sync at a fraction of the tensor core's rate. Their
+// designs are described above each kernel.
+// The double instances run the register-tiled FMA loop of
+// csrc/lse_einsum.cu on the CUDA cores: 16-wide chunks staged in shared
+// memory, each thread accumulating a TMxTN tile, the next chunk loaded into
+// registers while the current one is contracted. The chunk-max passes read
+// a chunk that the contraction then reads again from L2, so the weights
+// (and for the dense forward the inputs) stream from device memory once.
+// The double dense forward orders its blocks so the two unit tiles of one
+// batch tile run side by side and share the input tile through L2. Both
+// backwards give each block one 64-column strip of a fold, so the strip's x
+// and w come from device memory once; the batch sum runs in a fixed order
+// with no atomics, so a call is deterministic. Any B, O >= 1 and K1, K2 are taken, the ragged edges
 // masked. wgmma and TMA are left for later.
 //
 // Every kernel but the tensor-core ones is a template over its scalar type
@@ -575,6 +575,7 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
 // The blocked dense forward (`_blocked_fwd_kernel`)
 // --------------------------------------------------------------------------
 
+// The double instance on the CUDA cores; the float one is blocked_fwd_tc below.
 constexpr int BLK_CHUNK = 256;  // columns per step of the online row max
 
 template <typename T>
@@ -686,6 +687,222 @@ blocked_fwd(const T* __restrict__ x,  // (F, B, I)
     }
   }
   if (ot == 0 && tid < BM && b0 + tid < B) m_out[(size_t)f * B + b0 + tid] = rmax[tid];
+}
+
+// The float instance on the tensor cores. A block owns one fold, BM batch
+// rows and BN units (all 128 of the K=128 circuits), so x streams from
+// device memory once a fold and each weight element once a batch tile. It
+// walks I in chunks of KC columns: the chunk's x rows and w rows are copied
+// by cp.async into a ring of STAGES raw buffers (two chunks in flight while
+// one is staged and contracted). The four threads that stage a row of x
+// take the chunk's max from the staged chunk (two shuffles), raise the
+// row's running clamped max, which they hold in a register, write the
+// row's factor exp(old - new) and stage e = exp(x - new); w is staged as it
+// is; each split into a plane of TF32 high parts and one of low parts. The
+// 16 warps (each a 32 x 32 tile, four on each SM sub-partition) contract the
+// chunk in 3xTF32 mma.sync from zero, then scale their rows' accumulators
+// by the factors and add the chunk's sums in f32 FMAs: the tensor core's
+// own f32 accumulation drifts over long sums (accumulated there over all
+// 16384 columns of the K=128 entry, the sum is off float64 by 2.7e-4 in log
+// space), over 32 columns it does not. So x is read once, the row max from
+// the chunk already in shared memory. The clamped max of an empty prefix is the lowest finite value:
+// a row of -inf keeps it, scales by exp(0) = 1, stages exp(-inf) = 0 and
+// gives log(0) = -inf, never NaN; columns past I and rows past B stage as
+// -inf and 0. Plane rows of S = KC + 4 words (4 mod 32) let every fragment
+// load hit 32 banks. Ragged I or unaligned operands take 4-byte copies.
+namespace blk_tc {
+constexpr int BM = 128;          // batch rows a block
+constexpr int BN = 128;          // units a block
+constexpr int KC = 32;           // columns a chunk
+constexpr int S = KC + 4;        // plane and ring row stride in words
+constexpr int STAGES = 3;        // the cp.async ring
+constexpr int NT_ = 512;         // threads a block: four warps on each SM sub-partition
+constexpr int ROWS = BM + BN;    // a chunk's rows: x's, then w's
+constexpr int CQ = ROWS * KC / 4 / NT_;  // float4 copies a thread issues a chunk (4)
+// the ring, the two planes and the row factors: 185 KB, one block an SM
+constexpr size_t SMEM = sizeof(float) * ((STAGES + 2) * ROWS * S + BM);
+}  // namespace blk_tc
+
+__global__ void __launch_bounds__(blk_tc::NT_, 1)
+blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
+               const float* __restrict__ w,  // (F, O, I)
+               float* __restrict__ out,      // (F, B, O)
+               float* __restrict__ m_out,    // (F, B): the clamped row max of x
+               int B, int I, int O, int n_ot, int n_bt, bool vec) {
+  using namespace blk_tc;
+  extern __shared__ __align__(16) float blk_smem[];
+  float* ring = blk_smem;  // [STAGES][ROWS][S]
+  uint32_t* Ph = reinterpret_cast<uint32_t*>(ring + STAGES * ROWS * S);  // [ROWS][S] high parts
+  uint32_t* Pl = Ph + ROWS * S;                                          //           low parts
+  float* rscl = reinterpret_cast<float*>(Pl + ROWS * S);  // [BM] this chunk's row factors
+
+  // Unit tile fastest: the blocks that share one x tile run side by side.
+  const int ot = blockIdx.x % n_ot;
+  const int rest = blockIdx.x / n_ot;
+  const int bt = rest % n_bt;
+  const int f = rest / n_bt;
+  const int o0 = ot * BN, b0 = bt * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;  // the warp's 32 x 32 tile
+  const float* xf = x + (size_t)f * B * I;
+  const float* wf = w + (size_t)f * O * I;
+  const int n_ch = (I + KC - 1) / KC;
+
+  // Copy map: ring rows tid / 8 + 64 q (x rows b0 + r, then w rows o0 + r -
+  // BM), columns 4 (tid % 8) .. + 3 of the chunk.
+  const int cr = tid >> 3, cc = 4 * (tid & 7);
+  auto fetch = [&](int ch) {
+    float* dst = ring + (ch % STAGES) * ROWS * S;
+    const int c = ch * KC + cc;
+#pragma unroll
+    for (int q = 0; q < CQ; ++q) {
+      const int r = cr + 64 * q;
+      const bool xrow = r < BM;
+      const int gr = xrow ? b0 + r : o0 + r - BM;
+      const bool in_row = gr < (xrow ? B : O);
+      const float* src = (xrow ? xf : wf) + (size_t)gr * I + c;
+      float* d = dst + r * S + cc;
+      if (vec) {  // I % 4 == 0: the four columns are in or out together
+        const bool in = in_row && c < I;
+        cirkit::cp_async_f32x4(d, in ? src : x, in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = in_row && c + e < I;
+          cirkit::cp_async_f32(d + e, in ? src + e : x, in);
+        }
+      }
+    }
+  };
+
+  // Staging map: row tid / 4 of x and of w, columns 8 (tid % 4) .. + 7; the
+  // four threads of a row are neighbouring lanes.
+  const int sr = tid >> 2, sc = 8 * (tid & 3);
+  const bool row_in = b0 + sr < B;
+  float rm = -FLT_MAX;  // the running clamped max of x's row b0 + sr
+  auto store_split = [&](uint32_t* hi, uint32_t* lo, const float4& v) {
+    uint4 h, l;
+    split_tf32x4(v, h, l);
+    *reinterpret_cast<uint4*>(hi) = h;
+    *reinterpret_cast<uint4*>(lo) = l;
+  };
+
+  float acc[2][4][4], part[2][4][4];  // the sums so far, and the chunk's
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int ch = 0; ch < STAGES - 1; ++ch) {
+    if (ch < n_ch) fetch(ch);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_ch; ++ch) {
+    cp_async_wait<STAGES - 2>();
+    // the chunk has landed for every thread; every warp is done with the
+    // planes and with the ring buffer refilled next
+    __syncthreads();
+    if (ch + STAGES - 1 < n_ch) fetch(ch + STAGES - 1);
+    cp_async_commit();
+    {
+      const float* src = ring + (ch % STAGES) * ROWS * S;
+      const int c0 = ch * KC + sc;
+      const float4 x0 = *reinterpret_cast<const float4*>(src + sr * S + sc);
+      const float4 x1 = *reinterpret_cast<const float4*>(src + sr * S + sc + 4);
+      float v[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      float cm = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (!row_in || c0 + e >= I) v[e] = -INFINITY;
+        cm = fmaxf(cm, v[e]);
+      }
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+      const float mn = fmaxf(rm, clamp_max(cm));
+      if ((tid & 3) == 0) rscl[sr] = expf(rm - mn);
+      rm = mn;
+      store_split(Ph + sr * S + sc, Pl + sr * S + sc,
+                  make_float4(expf(v[0] - mn), expf(v[1] - mn), expf(v[2] - mn), expf(v[3] - mn)));
+      store_split(Ph + sr * S + sc + 4, Pl + sr * S + sc + 4,
+                  make_float4(expf(v[4] - mn), expf(v[5] - mn), expf(v[6] - mn), expf(v[7] - mn)));
+      const float* wr = src + (BM + sr) * S + sc;
+      store_split(Ph + (BM + sr) * S + sc, Pl + (BM + sr) * S + sc,
+                  *reinterpret_cast<const float4*>(wr));
+      store_split(Ph + (BM + sr) * S + sc + 4, Pl + (BM + sr) * S + sc + 4,
+                  *reinterpret_cast<const float4*>(wr + 4));
+    }
+    __syncthreads();  // the chunk's planes and row factors are staged
+
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+    const uint32_t* Wh = Ph + BM * S;
+    const uint32_t* Wl = Pl + BM * S;
+#pragma unroll
+    for (int k8 = 0; k8 < KC / 8; ++k8) {
+      const int kk = 8 * k8 + t;
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int o = (wn + 8 * nt + g) * S + kk;
+        bh[nt][0] = Wh[o];
+        bh[nt][1] = Wh[o + 4];
+        bl[nt][0] = Wl[o];
+        bl[nt][1] = Wl[o + 4];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int o = (wm + 16 * mt + g) * S + kk;
+        const uint32_t ah[4] = {Ph[o], Ph[o + 8 * S], Ph[o + 4], Ph[o + 8 * S + 4]};
+        const uint32_t al[4] = {Pl[o], Pl[o + 8 * S], Pl[o + 4], Pl[o + 8 * S + 4]};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma3_tf32(part[mt][nt], ah, al, bh[nt], bl[nt]);
+      }
+    }
+    // acc = acc * exp(old max - new max) + the chunk's products, in f32 FMAs
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float scl = rscl[wm + 16 * mt + g + 8 * h];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          acc[mt][nt][2 * h] = fmaf(acc[mt][nt][2 * h], scl, part[mt][nt][2 * h]);
+          acc[mt][nt][2 * h + 1] = fmaf(acc[mt][nt][2 * h + 1], scl, part[mt][nt][2 * h + 1]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: each row's final max, from its stagers, then back to log
+  // space, masking the ragged batch and unit edges.
+  __syncthreads();  // every warp is done with the row factors
+  if ((tid & 3) == 0) rscl[sr] = rm;
+  __syncthreads();
+  float* outf = out + (size_t)f * B * O;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + 16 * mt + g + 8 * h, b = b0 + r;
+      if (b >= B) continue;
+      const float mb = rscl[r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = o0 + wn + 8 * nt + 2 * t + e;
+          if (o < O) outf[(size_t)b * O + o] = logf(acc[mt][nt][2 * h + e]) + mb;
+        }
+    }
+  if (ot == 0 && (tid & 3) == 0 && row_in) m_out[(size_t)f * B + b0 + sr] = rm;
 }
 
 // --------------------------------------------------------------------------
@@ -1243,6 +1460,23 @@ int launch_ct_tc(const float* x1, const float* x2, const float* w, float* out, i
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_blocked_fwd_tc(const float* x, const float* w, float* out, float* m, int F, int B,
+                          int I, int O, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(blocked_fwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(blk_tc::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte copies where every row starts 16-byte aligned
+  const bool vec = I % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int n_ot = static_cast<int>(cdiv(O, blk_tc::BN));
+  const int n_bt = static_cast<int>(cdiv(B, blk_tc::BM));
+  blocked_fwd_tc<<<F * n_ot * n_bt, blk_tc::NT_, blk_tc::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      x, w, out, m, B, I, O, n_ot, n_bt, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ``gy`` is the wrapper's scratch of 2 F B O floats: the high and low planes.
 int launch_blocked_bwd_tc(const float* x, const float* w, const float* out, const float* m,
                           const float* g, float* dx, float* dw, float* gy, int F, int B, int I,
@@ -1280,10 +1514,11 @@ int launch_blocked_bwd_tc(const float* x, const float* w, const float* out, cons
 extern "C" {
 
 // Every entry exists for float (the plain name) and for double (_f64). The
-// float K1-chunked Tucker forward and blocked backward run on the tensor
-// cores (ct_fwd_tc, blocked_gy_tc + blocked_bwd_tc; the backward's gy scratch
-// then holds 2 F B O floats), the double ones on the CUDA cores.
-#define LSE_WIDE_ENTRIES(SUFFIX, T, CT, CT_SOFTMAX, BWD)                                        \
+// float K1-chunked Tucker forward and blocked forward and backward run on the
+// tensor cores (ct_fwd_tc, blocked_fwd_tc, blocked_gy_tc + blocked_bwd_tc;
+// the backward's gy scratch then holds 2 F B O floats), the double ones on
+// the CUDA cores.
+#define LSE_WIDE_ENTRIES(SUFFIX, T, CT, CT_SOFTMAX, BLK, BWD)                                   \
   int lse_fwd_ct##SUFFIX(const T* x1, const T* x2, const T* w, T* out, int F, int B, int K1,   \
                          int K2, int O, int device, void* stream) {                            \
     return CT(x1, x2, w, out, F, B, K1, K2, O, device, stream);                                \
@@ -1294,7 +1529,7 @@ extern "C" {
   }                                                                                            \
   int lse_fwd_blocked##SUFFIX(const T* x, const T* w, T* out, T* m, int F, int B, int I,       \
                               int O, int device, void* stream) {                               \
-    return launch_blocked_fwd<T>(x, w, out, m, F, B, I, O, device, stream);                    \
+    return BLK(x, w, out, m, F, B, I, O, device, stream);                                      \
   }                                                                                            \
   int lse_bwd_blocked##SUFFIX(const T* x, const T* w, const T* out, const T* m, const T* g,    \
                               T* dx, T* dw, T* gy, int F, int B, int I, int O, int device,     \
@@ -1302,9 +1537,10 @@ extern "C" {
     return BWD(x, w, out, m, g, dx, dw, gy, F, B, I, O, device, stream);                       \
   }
 
-LSE_WIDE_ENTRIES(, float, launch_ct_tc<false>, launch_ct_tc<true>, launch_blocked_bwd_tc)
+LSE_WIDE_ENTRIES(, float, launch_ct_tc<false>, launch_ct_tc<true>, launch_blocked_fwd_tc,
+                 launch_blocked_bwd_tc)
 LSE_WIDE_ENTRIES(_f64, double, (launch_ct<double, false>), (launch_ct<double, true>),
-                 launch_blocked_bwd<double>)
+                 launch_blocked_fwd<double>, launch_blocked_bwd<double>)
 #undef LSE_WIDE_ENTRIES
 
 }  // extern "C"

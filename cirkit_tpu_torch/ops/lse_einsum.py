@@ -62,7 +62,12 @@ wide kernels: the K=128 circuits' 16384 does, the K=64 flagship's 4096 keeps
 the single-pass kernels, as the JAX package chooses on both."""
 
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-_BN, _BM = 64, 128  # the forward kernel's output-unit and batch-row tiles
+# the single-pass forward kernels' output-unit and batch-row tiles (the FMA
+# kernel's and the float32 Tucker kernel's on the tensor cores)
+_BN, _BM = 64, 128
+# the blocked forward's (batch-row, output-unit) tiles by entry suffix: the
+# float32 kernel on the tensor cores covers 128 units, the float64 one 64
+_BLOCKED_TILES = {"": (128, 128), "_f64": (128, 64)}
 # the backward kernels' grid tiles (csrc/lse_einsum_bwd.cu): rows per warp
 # pass, and input columns of the dense dx kernel (the other grids are smaller)
 _BWD_ROWS, _BWD_DX_COLS = 8, 64
@@ -399,7 +404,8 @@ def _launch_blocked_fwd(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor,
     f, b, i = x.shape
     o = w.shape[1]
     # one block per (fold, batch tile, unit tile), counted in one grid axis
-    if max(f, b, i, o) >= 2**31 or f * -(-b // _BM) * -(-o // _BN) >= 2**31:
+    tile_b, tile_o = _BLOCKED_TILES[suffix]
+    if max(f, b, i, o) >= 2**31 or f * -(-b // tile_b) * -(-o // tile_o) >= 2**31:
         raise ValueError(f"{op}: sizes {(f, b, i, o)} exceed the kernel's launch grid")
     out = torch.empty((f, b, o), device=dev, dtype=x.dtype)
     m = torch.empty((f, b, 1), device=dev, dtype=x.dtype)

@@ -1107,3 +1107,122 @@ def test_tensor_core_chunked_tucker(op, f, b, k1, k2, o, offset):
     _fwd_close(got.double(), ref)
     assert torch.equal(got, again)
     assert torch.isneginf(got[0, 2]).all() and torch.isneginf(got[-1, 1]).all()
+
+
+# --------------------------------------------------------------------------- #
+# The float32 forwards redesigned for the tensor cores: the blocked dense
+# forward (csrc/lse_wide.cu blocked_fwd_tc) and the single-pass Tucker
+# forward (csrc/lse_einsum.cu tucker_fwd_tc)
+# --------------------------------------------------------------------------- #
+
+# (F, B, I, O): ragged B, O = 1 and 129 (two unit tiles of 128), I = 8200
+# (not a multiple of the 32-column chunk), I odd (4-byte copies)
+TC_BLOCKED_FWD = [(2, 100, 8200, 1), (2, 100, 8200, 129), (3, 13, 777, 70), (1, 130, 1000, 128)]
+
+
+def _blocked_fwd_edges(x):
+    """A row of x that is all -inf, one whose max sits in the last chunk and
+    one that rises along the row (every chunk raises its max, so the
+    accumulators are rescaled on every chunk)."""
+    i = x.shape[2]
+    x[0, 2] = float("-inf")
+    x[-1, 1, -3] = 40.0
+    x[-1, 0] = torch.linspace(-30.0, 30.0, i, device=x.device) + x[-1, 0] * 0.1
+    return x
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("f,b,i,o", TC_BLOCKED_FWD)
+def test_tensor_core_blocked_fwd_edges(f, b, i, o, offset):
+    """The blocked forward against its plain version at the edges, its row
+    max equal to the clamped max of x, and a second call equal to the bit."""
+    x, w = _inputs("lse_matmul", f, b, o, i=i)
+    x = _blocked_fwd_edges(x)
+    if offset:
+        x, w = _offset(x), _offset(w)
+    got, m = T._launch_blocked_fwd(x, w)
+    again, m_again = T._launch_blocked_fwd(x, w)
+    ref, ref_m = T.lse_matmul_blocked_ref(x, w)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["lse_matmul_blocked"] == 2
+    _fwd_close(got, ref)
+    assert torch.equal(m, ref_m)
+    assert torch.equal(got, again) and torch.equal(m, m_again)
+    assert torch.isneginf(got[0, 2]).all()
+
+
+def test_tensor_core_blocked_fwd_row_max_is_the_clamped_max():
+    """The row max the blocked forward writes is ``_clamp_max(x)`` to the bit
+    (the blocked backward shifts by it), at I = 16384 with rows of -inf,
+    rows whose max is in the last chunk and a rising row."""
+    x, w = _inputs("lse_matmul", 8, 128, 128, i=128 * 128)
+    x = _blocked_fwd_edges(x)
+    x[3, 7, :100] = float("-inf")
+    _, m = T._launch_blocked_fwd(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(m, T._clamp_max(x))
+
+
+def test_tensor_core_blocked_fwd_against_float64_at_i16384():
+    """The blocked forward at the dense K=128 entry's width (I = 16384, B = O
+    = 128; 98 of the 784 folds) against the plain version run in float64."""
+    x, w = _inputs("lse_matmul", 98, 128, 128, i=128 * 128)
+    got, _ = T._launch_blocked_fwd(x, w)
+    ref = T.lse_matmul_ref(x.double(), w.double())
+    torch.cuda.synchronize()
+    _fwd_close(got.double(), ref)
+
+
+# (F, B, K1, K2, O): K1 != K2, K2 % 4 != 0 (4-byte loads), O = 1 and 65 (two
+# unit tiles of 64), ragged B, K1 K2 = 8100 (just under WIDE_WIDTH), and the
+# K=64 flagship's tile
+TC_SINGLE = [(2, 100, 13, 21, 65), (3, 13, 8, 30, 1), (1, 130, 90, 90, 64), (2, 128, 64, 64, 64),
+             (1, 37, 7, 129, 33)]
+
+
+def _single_edges(op, ins):
+    """Rows of x1 and of x2 that are all -inf; a unit whose logits are -inf
+    over the first row i and over a 32-column chunk of another (weights 0),
+    and, with logits, a unit whose logits are all -inf but the last one
+    (its running max stays -inf to the last segment), without, a unit
+    whose weights are all 0 (out -inf)."""
+    k2 = ins[1].shape[2]
+    ins[0][0, 2] = float("-inf")
+    ins[1][-1, 1] = float("-inf")
+    zero = float("-inf") if "softmax" in op else 0.0
+    ins[2][0, 0, :k2] = zero
+    ins[2][-1, -1, k2 + 32:k2 + 64] = zero
+    ins[2][-1, 0, :-1 if "softmax" in op else None] = zero
+    return ins
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("f,b,k1,k2,o", TC_SINGLE)
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+def test_tensor_core_single_pass_tucker_edges(op, f, b, k1, k2, o, offset):
+    """The single-pass Tucker forward against its plain version at the edges,
+    -inf rows giving -inf and no NaN, and a second call equal to the bit."""
+    ins = _single_edges(op, _inputs(op, f, b, o, k1=k1, k2=k2))
+    if offset:
+        ins[2] = _offset(ins[2])
+    got = T._launch_fwd(op, tuple(ins))
+    again = T._launch_fwd(op, tuple(ins))
+    ref = getattr(T, f"{op}_ref")(*ins)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op] == 2
+    _fwd_close(got, ref)
+    assert torch.equal(got, again)
+    assert torch.isneginf(got[0, 2]).all() and torch.isneginf(got[-1, 1]).all()
+
+
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+def test_tensor_core_single_pass_tucker_against_float64_at_k64(op):
+    """The single-pass Tucker forward at the K=64 flagship's entry (F=784,
+    B=128, K1=K2=O=64), through the public op, against the plain version
+    run in float64."""
+    ins = _inputs(op, 784, 128, 64, k1=64, k2=64)
+    got = getattr(T, op)(*ins)
+    ref = getattr(T, f"{op}_ref")(*(t.double() for t in ins))
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op] == 1
+    _fwd_close(got.double(), ref)
