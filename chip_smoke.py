@@ -58,7 +58,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    row's absolute mass A (the lse of the inputs against ``|w|``),
    ``|s_k exp(a_k - A) - s_p exp(a_p - A)| <= 1e-5``, a sign differing only
    below that bound (counted), an exact cancellation giving (-inf, 0); the
-   backward with phase 3b's bound;
+   backward with phase 3b's bound and a second call equal to the bit; the
+   SoS entry's edges (a ragged B*Kq of 4000, I = 33 with O = 1) and a
+   Tucker width past one block of the dx kernel (K1 = K2 = 208, the K1
+   split); the backward's launches split one by one (``torch.profiler``) at
+   the SoS and K=64 Tucker entries;
 3e. complex against plain: ``clse_matmul`` and ``clse_tucker2``, forward
    and backward, against their plain versions at the SoS TensorDot entry,
    the K=64 Tucker entry (with the real weights the flagship gives it, and
@@ -67,13 +71,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cancellation, real weights), in complex64 and complex128: the forward in
    linear space scaled by the row's absolute mass as phase 3d, on the real
    and the imaginary part (1e-5; 1e-12 in complex128), the backward to
-   phase 3b's bound on every plane of every gradient (1e-9 in complex128);
-   an exact cancellation gives a real part of -inf and zero gradients;
+   phase 3b's bound on every plane of every gradient (1e-9 in complex128)
+   and a second call equal to the bit; an exact cancellation gives a real
+   part of -inf and zero gradients; the SoS entry with real weights, its
+   edges (a ragged B*Kq of 4000, I = 33 with O = 1) and K1 = K2 = 128 (past
+   one block of the Tucker dx: the K1 split) in complex64 and, with real
+   weights, complex128; the backward's launches split one by one at every
+   timed shape;
 3f. float64 against plain: the ``double`` instances of the single-pass lse
    kernels and of the signed kernels, forward and backward, at their
-   flagship and SoS entries and at an edge shape (``F64_*`` below); a
-   float64 Tucker backward too wide for a block's shared memory raises;
-   then the ``double`` instances of the wide kernels (the K1-chunked Tucker
+   flagship and SoS entries and at an edge shape (``F64_*`` below), and the
+   Tucker backwards at K1 = K2 = O = 128 (past one block of the dx kernel:
+   the K1 split), the lse ones timed; then the ``double`` instances of the wide kernels (the K1-chunked Tucker
    forward, the blocked dense forward, its row max and its backward) at the
    K=128 entries with F cut to ``F64_WIDE_F``, and of the routing kernels
    (the tropical Tucker to ``F64_TOL``; the argmax at the float64 maximum,
@@ -169,11 +178,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    default dtype float64) through ``MAPQuery``, ``SamplingQuery`` and
    ``.conditional`` (the double routing kernels), and the K=128 Tucker
    circuit on an 8x8 image (Tucker entries of width 16384: the wide route)
-   through the ``optimize=True`` forward (the double K1-chunked kernel) and
-   the ``optimize=False`` forward and 3 SGD steps (the double blocked
-   kernels), each call's launches counted; 8 rows of each forward, MAP
-   value and log-evidence, and the SGD loss's gradients, against the same
-   store in float64 on the CPU (``F64_RTOL``, ``F64_BWD_REL``, ``F64_GRAD_ABS``).
+   through the ``optimize=True`` forward and 3 SGD steps (the double
+   K1-chunked kernel; the Tucker backward at K1 = K2 = 128, whose dx splits
+   K1) and the ``optimize=False`` forward and 3 SGD steps (the double
+   blocked kernels), each call's launches counted; 8 rows of each forward,
+   MAP value and log-evidence, and the SGD loss's gradients, against the
+   same store in float64 on the CPU (``F64_RTOL``, ``F64_BWD_REL``,
+   ``F64_GRAD_ABS``).
 
 The line before the last is a JSON object with each kernel's launches on
 its main paths (the forward ops in phases 4 and 8, the backward ops in
@@ -1153,7 +1164,8 @@ _KERNEL_CATEGORIES = (
     ("torch softmax", ("softmaxforward", "softmaxbackward")),
     ("forward kernel", ("lse_fwd", "tucker_fwd")),
     ("backward kernel", ("bwd_prep", "softmax_weights", "lse_bwd_dx", "lse_bwd_dw",
-                         "softmax_vjp", "tc_softmax_stats", "tc_dx", "tc_dw", "tucker_dx_finish")),
+                         "softmax_vjp", "tc_softmax_stats", "tc_dx", "tc_dw", "tucker_dx_finish",
+                         "bwd_narrow", "sum_partials", "split_finish")),
     ("foreach optimizer", ("multi_tensor_apply",)),
     ("copies and gathers", ("copy", "cat", "index", "gather", "scatter")),
 )
@@ -1242,9 +1254,9 @@ def phase_profile(smi: str, built: list) -> None:
         del step, store, opt
 
 
-def _device_breakdown(fn, calls: int) -> str:
+def _profile(fn, calls: int) -> tuple[float, dict[str, float]]:
     """``torch.profiler`` over ``calls`` calls of ``fn`` (after a warm-up):
-    device ms a call by kernel category, and the device's idle share."""
+    the wall ms a call and the device ms a call of each kernel, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1257,15 +1269,36 @@ def _device_breakdown(fn, calls: int) -> str:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    cats: dict[str, float] = {}
+    kernels: dict[str, float] = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            cat = _kernel_category(e.key)
-            cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total / 1e3 / calls
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3 / calls
+    return wall, kernels
+
+
+def _device_breakdown(fn, calls: int) -> str:
+    """Device ms a call of ``fn`` by kernel category, and the device's idle
+    share (``_profile``)."""
+    wall, kernels = _profile(fn, calls)
+    cats: dict[str, float] = {}
+    for key, ms in kernels.items():
+        cat = _kernel_category(key)
+        cats[cat] = cats.get(cat, 0.0) + ms
     device = sum(cats.values())
     return (f"{wall:.3f} ms a call under the profiler, device busy {device:.3f} ms "
             f"(idle {1 - device / wall:.1%}): "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(cats.items(), key=lambda i: -i[1])))
+
+
+def _kernel_split(fn, calls: int = 10) -> str:
+    """Device ms a call of ``fn`` by kernel (its name without namespace and
+    parameters): the per-launch split of a backward."""
+    parts: dict[str, float] = {}
+    for key, ms in _profile(fn, calls)[1].items():
+        name = key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+        parts[name] = parts.get(name, 0.0) + ms
+    return f"device {sum(parts.values()):.4f} ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(parts.items(), key=lambda i: -i[1]))
 
 
 def _query_counted(label: str, fn, want: dict[str, int], launches: dict[str, int]):
@@ -1451,6 +1484,15 @@ def _signed_cases(gen):
                "mixing F=1568 B=128 I=O=64"),
               ("slse_matmul", make("slse_matmul", 196, b, (128,), 64),
                "mixing F=196 B=128 I=128 O=64")]
+    # the SoS entry's edges for the dense dx tile and the batch-split dw (a
+    # ragged batch, O = 1, I = 33), and a Tucker width past one block of the
+    # dx kernel (the K1 split, from 202 in float32)
+    cases += [("slse_matmul", make("slse_matmul", 144, 4000, (32,), 32, row),
+               "SoS ragged B*Kq=4000, a row -inf"),
+              ("slse_matmul_softmax", make("slse_matmul_softmax", 16, 32 * b, (33,), 1),
+               "B*Kq=4096 I=33 O=1"),
+              ("slse_tucker2", make("slse_tucker2", 2, 70, (208, 208), 5, row),
+               "K1=K2=208 (the split dx), a row -inf")]
     for op in SIGNED_OPS:
         tucker = "tucker" in op
         ws = (64, 64) if tucker else (64,)
@@ -1580,6 +1622,10 @@ def phase_signed() -> dict[str, dict]:
                         f"(bound {BWD_REL} (max|plain| + |plain|), max|plain| "
                         f"{float(p.abs().max()):.3e})")
                 max_err = max(max_err, float(err.max()))
+            again = kernel()
+            torch.cuda.synchronize()
+            if not all(k is None or torch.equal(k, a) for k, a in zip(got_b, again)):
+                raise AssertionError(f"{bkey} [{label}]: two calls differ")
             entry = results.setdefault(bkey, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[signed] {bkey:22s} {label:36s} max|err|={max_err:.3e}"
@@ -1590,6 +1636,9 @@ def phase_signed() -> dict[str, dict]:
                          f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
                          f"tensor-core bound {entry['tc_bound_ms']:.3f} ms")
             print(line)
+            if label.startswith(("SoS entry", "F=784")):  # kernel 7's launches, one by one
+                print(f"[signed] {bkey} split [{label}]: {_kernel_split(kernel)}")
+            del again
             del ins, got, ref, got_b, ref_b, g
     return results
 
@@ -1907,6 +1956,18 @@ def _complex_cases(gen):
          "SoS entry, complex128", True),
         ("clse_tucker2", make("clse_tucker2", 784, b, (64, 64), 64, c128, real_w=True),
          "F=784 B=128 K1=K2=O=64, real w, complex128", True),
+        ("clse_matmul", make("clse_matmul", 144, 32 * b, (32,), 32, c64, real_w=True),
+         "SoS entry, real w", True),
+        # the SoS entry's edges for the dense dx tile and the batch-split dw,
+        # and K1 = K2 = 128, past one block of the Tucker dx (the K1 split)
+        ("clse_matmul", make("clse_matmul", 144, 4000, (32,), 32, c64, row),
+         "SoS ragged B*Kq=4000, a row -inf", False),
+        ("clse_matmul", make("clse_matmul", 16, 32 * b, (33,), 1, c64), "B*Kq=4096 I=33 O=1",
+         False),
+        ("clse_tucker2", make("clse_tucker2", 4, b, (128, 128), 32, c64, row),
+         "K1=K2=128 (the split dx), a row -inf", False),
+        ("clse_tucker2", make("clse_tucker2", 4, b, (128, 128), 32, c128, real_w=True),
+         "K1=K2=128 (the split dx), real w, complex128", False),
     ]
     for ctype, tag in ((c64, ""), (c128, ", complex128")):
         for op in COMPLEX_OPS:
@@ -2065,6 +2126,11 @@ def phase_complex() -> dict[str, dict]:
             torch.cuda.synchronize()
             names = ("dx1", "dx2", "dw") if len(ins) == 3 else ("dx", "dw")
             max_err = _check_backward(bkey, label, names, got_b, ref_b, rel)
+            again = kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(k, a) for k, a in zip(got_b, again)):
+                raise AssertionError(f"{bkey} [{label}]: two calls differ")
+            del again
             if label.startswith("exact cancellation") and not all(
                     bool((k == 0).all()) for k in got_b):
                 raise AssertionError(f"{bkey} [{label}]: gradients not 0")
@@ -2082,6 +2148,8 @@ def phase_complex() -> dict[str, dict]:
                          f"ms ({bound_by})"
                          + ("" if tc_ms is None else f", tensor-core bound {tc_ms:.3f} ms"))
             print(line)
+            if timed:  # kernel 11's launches, one by one
+                print(f"[complex] {bkey} split [{label}]: {_kernel_split(kernel)}")
             del ins, got, ref, got_b, ref_b, g
     return results
 
@@ -2134,6 +2202,11 @@ def _float64_cases(gen):
         for op in ops:
             widths = (8, 16) if "tucker" in op else (64,)
             cases.append((mod, op, make(op, 5, 13, widths, 1, row), "B=13 O=1, a row -inf", False))
+    # Tucker backwards past one block of the dx kernel (from 88 in double):
+    # the K1 split, at K1 = K2 = O = 128 (the K=128 circuit's entry widths)
+    for mod, op in ((L, "lse_tucker2"), (L, "lse_tucker2_softmax"), (S, "slse_tucker2")):
+        cases.append((mod, op, make(op, 4, b, (128, 128), 128, row),
+                      "F=4 B=128 K1=K2=O=128 (the split dx), a row -inf", mod is L))
     return cases
 
 
@@ -2201,18 +2274,6 @@ def phase_float64() -> None:
                          f"{_median_ms(plain_b, iters=10):.3f} ms")
             print(line)
             del ins, got, ref, got_b, ref_b, g, outs, pairs
-    # what the double instances do not take raises, with no plain fallback
-    x1, x2 = (torch.zeros(1, 8, 90, device=DEV, dtype=torch.float64) for _ in range(2))
-    w = torch.ones(1, 16, 8100, device=DEV, dtype=torch.float64, requires_grad=True)
-    from cirkit_tpu_torch.ops import lse_einsum as L
-
-    out = L.lse_tucker2(x1.requires_grad_(), x2, w)
-    try:
-        out.sum().backward()
-    except ValueError as exc:
-        print(f"[float64] a Tucker backward wider than a block's shared memory raises: {exc}")
-    else:
-        raise AssertionError("[float64] K1=K2=90 in float64: the dx kernel's refusal did not raise")
 
 
 def phase_float64_wide() -> None:
@@ -2775,9 +2836,10 @@ def phase_float64_circuits(smi: str) -> dict[str, int]:
     double routing kernels, rows 8 and 9); the MAP values and the
     log-evidence of QUERY_ROWS rows against float64 on the CPU. The K=128
     Tucker circuit on an F64_SIDE image: with ``optimize=True`` the forward
-    (the double K1-chunked kernel, row 5), with ``optimize=False`` the
-    forward and 3 SGD steps (the double blocked kernels, rows 3 and 4), each
-    counted; QUERY_ROWS rows of each forward, and of the SGD loss's
+    and 3 SGD steps (the double K1-chunked kernel, row 5, and the Tucker
+    backward at K1 = K2 = 128, row 2's K1 split), with ``optimize=False``
+    the forward and 3 SGD steps (the double blocked kernels, rows 3 and 4),
+    each counted; QUERY_ROWS rows of each forward, and of the SGD loss's
     gradients, against float64 on the CPU. Returns the launches of the
     counted calls."""
     import numpy as np
@@ -2865,35 +2927,36 @@ def phase_float64_circuits(smi: str) -> dict[str, int]:
                 rel = _f64_rows(f"{label} forward", out[:r, 0, 0], cc64(st64, xsr)[:, 0, 0])
             line = (f"[float64] {label}: {cc.num_parameters()} parameters, forward max rel err "
                     f"{rel:.2e} against the CPU, {ms:.3f} ms median of 5 at batch {BATCH}")
-            if not optimize:  # the SGD loss's gradients, then counted SGD steps
-                tr, fr = split_trainable(cc, st)
-                got = torch.autograd.grad(-cc.evaluate({**tr, **fr}, xs[:r]).mean(),
-                                          list(tr.values()))
-                tr_c, fr_c = split_trainable(cc64, st64)
-                tr_c = {k: v.requires_grad_() for k, v in tr_c.items()}
-                refs = torch.autograd.grad(-cc64.evaluate({**tr_c, **fr_c}, xsr).mean(),
-                                           [tr_c[k] for k in tr])
-                worst = 0.0
-                for name, g, ref in zip(tr, got, refs):
-                    err = (g.cpu() - ref).abs()
-                    bound = F64_BWD_REL * (ref.abs().max() + ref.abs()) + F64_GRAD_ABS
-                    if not bool(g.isfinite().all()) or not bool((err <= bound).all()):
-                        raise AssertionError(f"[float64] {label}: gradient of {name} off by "
-                                             f"{float(err.max()):.3e}")
-                    worst = max(worst, float((err / bound).max()))
-                opt = torch.optim.SGD(list(tr.values()), lr=SGD_LR)
-                step = data_parallel_step(cc, opt)
-                losses = [float(_counted_launches(f"[float64] {label} step",
-                                                  lambda: step(tr, fr, xs), {**fwd, **bwd},
-                                                  launches)) for _ in range(3)]
-                if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-                    raise AssertionError(f"[float64] {label}: losses {losses}")
-                step_ms = _median_ms(lambda: step(tr, fr, xs), warmup=1, iters=3)
-                line += (f"; gradients of {len(tr)} slots on {r} rows within {worst:.3f} of "
-                         f"{F64_BWD_REL} (max|slot| + |slot|) + {F64_GRAD_ABS}; 3 SGD steps, NLL "
-                         f"{losses[0]:.3f} "
-                         f"-> {losses[-1]:.3f}, step {step_ms:.3f} ms median of 3")
-                del tr, fr, got, tr_c, fr_c, refs, opt, step
+            # the SGD loss's gradients, then counted SGD steps (optimize=True: the
+            # float64 Tucker backward at K1 = K2 = 128, past one block of its dx)
+            tr, fr = split_trainable(cc, st)
+            got = torch.autograd.grad(-cc.evaluate({**tr, **fr}, xs[:r]).mean(),
+                                      list(tr.values()))
+            tr_c, fr_c = split_trainable(cc64, st64)
+            tr_c = {k: v.requires_grad_() for k, v in tr_c.items()}
+            refs = torch.autograd.grad(-cc64.evaluate({**tr_c, **fr_c}, xsr).mean(),
+                                       [tr_c[k] for k in tr])
+            worst = 0.0
+            for name, g, ref in zip(tr, got, refs):
+                err = (g.cpu() - ref).abs()
+                bound = F64_BWD_REL * (ref.abs().max() + ref.abs()) + F64_GRAD_ABS
+                if not bool(g.isfinite().all()) or not bool((err <= bound).all()):
+                    raise AssertionError(f"[float64] {label}: gradient of {name} off by "
+                                         f"{float(err.max()):.3e}")
+                worst = max(worst, float((err / bound).max()))
+            opt = torch.optim.SGD(list(tr.values()), lr=SGD_LR)
+            step = data_parallel_step(cc, opt)
+            losses = [float(_counted_launches(f"[float64] {label} step",
+                                              lambda: step(tr, fr, xs), {**fwd, **bwd},
+                                              launches)) for _ in range(3)]
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"[float64] {label}: losses {losses}")
+            step_ms = _median_ms(lambda: step(tr, fr, xs), warmup=1, iters=3)
+            line += (f"; gradients of {len(tr)} slots on {r} rows within {worst:.3f} of "
+                     f"{F64_BWD_REL} (max|slot| + |slot|) + {F64_GRAD_ABS}; 3 SGD steps, NLL "
+                     f"{losses[0]:.3f} "
+                     f"-> {losses[-1]:.3f}, step {step_ms:.3f} ms median of 3")
+            del tr, fr, got, tr_c, fr_c, refs, opt, step
             print(f"{line} ({time.perf_counter() - t0:.1f} s) ({smi})")
             del ctx, cc, st, out, cc64, st64
     finally:

@@ -44,18 +44,23 @@
 // shared memory: a block of 256 threads per 64 x 64 output tile, each thread
 // a 4 x 4 complex tile, 16-wide chunks whose operands are loaded into
 // registers while the previous chunk is contracted. Every sum runs in an
-// order fixed by the code (no atomics): dw loops over the whole batch inside
-// one block. Any O >= 1, any batch and K1 != K2 are taken, ragged edges
-// masked. wgmma, TMA and a dw split over the batch are left for later.
+// order fixed by the code (no atomics). Any O >= 1, any batch and any K1, K2
+// are taken, ragged edges masked. wgmma and TMA are left for later.
 //
 // The launches of one backward call: clse_bwd_prep (row shifts and gy), the
 // dx kernel (dense: a de tile per block, times conj(e) in the epilogue;
 // Tucker: one block per (fold, 64 batch rows; 32 in complex128) walks K1
 // segments in tiles of 64 columns of K2 and folds each de tile into the
 // block's dx1 and dx2 accumulators in shared memory, (rows x (K1 + K2 + 2))
-// x 2 complex numbers, 133 KB at K1 = K2 = 64; the wrapper refuses widths
-// past the card's 227 KB), and clse_bwd_dw. A null dx or dw pointer skips
-// that gradient.
+// x 2 complex numbers, 133 KB at K1 = K2 = 64; where those do not fit the
+// card's 227 KB, from K1 = K2 = 105 in complex64 and 100 in complex128, the
+// blocks split K1 and K2, write partial sums and ctucker_split_finish adds
+// them in a fixed order), and the dw kernel, whose blocks split the batch
+// into chunks and write one plane of partial sums a chunk that sum_partials
+// adds in chunk order. A dense layer with I and O at most 32 (the squared
+// circuits' TensorDot entries) takes one pass instead, clse_bwd_narrow, whose
+// blocks split the batch and keep the row shifts, gy and e on chip, then
+// sum_partials. A null dx or dw pointer skips that gradient.
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream, checks cudaGetLastError() after each launch and returns the first
@@ -69,6 +74,10 @@
 
 namespace {
 
+using cirkit::batch_chunks;
+using cirkit::GyPlan;
+using cirkit::MAX_SMEM;
+using cirkit::tucker_split_size;
 using cirkit::clamp_max;
 using cirkit::exp_t;
 using cirkit::fma_t;
@@ -676,110 +685,556 @@ clse_bwd_dx_tucker(const void* __restrict__ x1_, const void* __restrict__ x2_,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward 3. dw = sum_b gy^T conj(e), summed over the whole batch in order
-// ---------------------------------------------------------------------------
+// dx, Tucker, split over K1 and K2: one block per (fold and BM batch rows, 64
+// columns j of K2, I_PER rows i of K1), for the widths at which the
+// accumulators of clse_bwd_dx_tucker (a block's rows x (K1 + K2) complex sums)
+// do not fit a block's shared memory. For each of its rows i the block
+// contracts the de tile over the units (the loop above), then folds it in
+// registers: the dx2 sums sum_i de conj(e1[b,i]) stay in each thread's tile,
+// the dx1 sums sum_j de conj(e2[b,j]) (conj(e2) held in registers too) reduce
+// over the 16 threads of a row. The block writes both as partials, dx1 over
+// its j tile and dx2 over its rows i; ctucker_split_finish adds them in a
+// fixed order and multiplies by conj(e).
+constexpr int I_PER = 16;  // rows i of K1 per block of the split Tucker dx
 
-template <typename T, bool TUCKER, bool WCPLX>
+template <typename T, bool WCPLX>
 __global__ void __launch_bounds__(THREADS)
-clse_bwd_dw(const void* __restrict__ xa_, const void* __restrict__ xb_,
-            const T* __restrict__ sa, const T* __restrict__ sb,
-            const void* __restrict__ gy_, void* __restrict__ dw_, int B, int I, int K1, int K2,
-            int O) {
-  using namespace fwd;  // a 64 x 64 tile: weight columns by output units
+clse_bwd_dx_tucker_split(const void* __restrict__ x1_, const void* __restrict__ x2_,
+                         const void* __restrict__ w_, const T* __restrict__ sa,
+                         const T* __restrict__ sb, const void* __restrict__ gy_,
+                         void* __restrict__ part1_, void* __restrict__ part2_, int F, int B,
+                         int K1, int K2, int O, int n_bt) {
   using C = typename Cplx<T>::type;
-  __shared__ __align__(16) T Ar[BK][AS];  // conj(e), batch-major
+  constexpr int BM = TuckerDx<T>::BM, TM = TuckerDx<T>::TM, AS = TuckerDx<T>::AS;
+  constexpr int A_PER = TuckerDx<T>::A_PER;
+  __shared__ __align__(16) T Ar[BK][AS];  // gy, unit-major
   __shared__ __align__(16) T Ai[BK][AS];
-  __shared__ __align__(16) T Gr[BK][BS];  // gy, batch-major
-  __shared__ __align__(16) T Gi[BK][BS];
+  __shared__ __align__(16) T Wr[BK][BS];  // conj(w), unit-major
+  __shared__ __align__(16) T Wi[WCPLX ? BK : 1][BS];
+  __shared__ C E1[I_PER][BM];             // conj(e1) of the block's rows i
 
-  const int f = blockIdx.x;
-  const int o0 = blockIdx.y * BN;
-  const int c0 = blockIdx.z * BM;
+  const int f = blockIdx.x / n_bt;
+  const int b0 = (blockIdx.x - f * n_bt) * BM;
+  const int j0 = blockIdx.y * BN;
+  const int i0 = blockIdx.z * I_PER;
+  const int n_i = min(I_PER, K1 - i0);
+  const int I = K1 * K2;
   const int tid = threadIdx.x;
-  const int KA = TUCKER ? K1 : I;
-  const C* xaf = static_cast<const C*>(xa_) + (size_t)f * B * KA;
-  const C* xbf = TUCKER ? static_cast<const C*>(xb_) + (size_t)f * B * K2 : nullptr;
-  const T* saf = sa + (size_t)f * B;
-  const T* sbf = TUCKER ? sb + (size_t)f * B : nullptr;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const C* x1 = static_cast<const C*>(x1_);
+  const C* x2 = static_cast<const C*>(x2_);
   const C* gyf = static_cast<const C*>(gy_) + (size_t)f * B * O;
+  const C* wcf = WCPLX ? static_cast<const C*>(w_) + (size_t)f * O * I : nullptr;
+  const T* wrf = WCPLX ? nullptr : static_cast<const T*>(w_) + (size_t)f * O * I;
+  C* part1 = static_cast<C*>(part1_);
+  C* part2 = static_cast<C*>(part2_);
 
-  // Both operands stage column tid % 64 (a weight column of e, a unit of gy)
-  // for the batch rows tid / 64 + n * CSTEP of each chunk.
-  const int col = tid % BN;
-  const int brow = tid / BN;
-  const int c = c0 + col;
-  const int ci = TUCKER ? c / K2 : c;
-  const int cj = TUCKER ? c - ci * K2 : 0;
-  const int o = o0 + col;
-  T pre[C_PER], pim[C_PER], pgr[C_PER], pgi[C_PER];
-  auto load_chunk = [&](int k0) {
+  for (int e = tid; e < I_PER * BM; e += THREADS) {
+    const int il = e / BM, r = e - il * BM, b = b0 + r;
+    C v;
+    v.x = v.y = T(0);
+    if (b < B && il < n_i) {
+      const C xv = x1[((size_t)f * B + b) * K1 + i0 + il];
+      cexp_t(xv.x - sa[(size_t)f * B + b], -xv.y, &v.x, &v.y);
+    }
+    E1[il][r] = v;
+  }
+  T e2r[TM][TN], e2i[TM][TN], a2r[TM][TN], a2i[TM][TN];
+#pragma unroll
+  for (int ii = 0; ii < TM; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int b = b0 + ty * TM + ii, j = j0 + tx * TN + jj;
+      T er = T(0), ei = T(0);
+      if (b < B && j < K2) {
+        const C xv = x2[((size_t)f * B + b) * K2 + j];
+        cexp_t(xv.x - sb[(size_t)f * B + b], -xv.y, &er, &ei);
+      }
+      e2r[ii][jj] = er, e2i[ii][jj] = ei;
+      a2r[ii][jj] = a2i[ii][jj] = T(0);
+    }
+
+  const int skk = tid % BK, srow = tid / BK;
+  const int wcol = tid % BN, wk = tid / BN;
+  T par[A_PER], pai[A_PER], pwr[C_PER], pwi[C_PER];
+  auto load_chunk = [&](int il, int o0) {
+    load_gy<T, A_PER>(gyf, b0, o0, B, O, tid, par, pai);
+    const size_t col = (size_t)(i0 + il) * K2 + j0 + wcol;
 #pragma unroll
     for (int n = 0; n < C_PER; ++n) {
-      const int b = k0 + brow + n * CSTEP;
-      T re = -INFINITY, im = T(0), gr = T(0), gi = T(0);
-      if (b < B && c < I) {
-        if (TUCKER) {
-          const C v1 = xaf[(size_t)b * K1 + ci], v2 = xbf[(size_t)b * K2 + cj];
-          re = (v1.x - saf[b]) + (v2.x - sbf[b]);
-          im = v1.y + v2.y;
+      const int o = o0 + wk + n * CSTEP;
+      T wr = T(0), wi = T(0);
+      if (o < O && j0 + wcol < K2) {
+        if (WCPLX) {
+          const C v = wcf[(size_t)o * I + col];
+          wr = v.x, wi = -v.y;
         } else {
-          const C v = xaf[(size_t)b * I + c];
-          re = v.x - saf[b];
-          im = v.y;
+          wr = wrf[(size_t)o * I + col];
         }
       }
-      if (b < B && o < O) {
-        const C v = gyf[(size_t)b * O + o];
-        gr = v.x, gi = v.y;
-      }
-      pre[n] = re;
-      pim[n] = -im;  // the conjugate
-      pgr[n] = gr;
-      pgi[n] = gi;
+      pwr[n] = wr;
+      pwi[n] = wi;
     }
   };
 
-  const int tx = tid % (BN / TN);  // unit group
-  const int ty = tid / (BN / TN);  // column group
   T accr[TM][TN], acci[TM][TN];
-  zero_acc<T, TM>(accr, acci);
-
-  load_chunk(0);
-  for (int k0 = 0; k0 < B; k0 += BK) {
+  const int n_chunks = (O + BK - 1) / BK;
+  const int n_steps = n_i * n_chunks;
+  load_chunk(0, 0);
+  for (int step = 0; step < n_steps; ++step) {
+    const int il = step / n_chunks;
+    const int chunk = step - il * n_chunks;
+    if (chunk == 0) zero_acc<T, TM>(accr, acci);
+#pragma unroll
+    for (int n = 0; n < A_PER; ++n) {
+      Ar[skk][srow + n * RSTEP] = par[n];
+      Ai[skk][srow + n * RSTEP] = pai[n];
+    }
 #pragma unroll
     for (int n = 0; n < C_PER; ++n) {
-      const int kk = brow + n * CSTEP;
-      cexp_t(pre[n], pim[n], &Ar[kk][col], &Ai[kk][col]);
-      Gr[kk][col] = pgr[n];
-      Gi[kk][col] = pgi[n];
+      Wr[wk + n * CSTEP][wcol] = pwr[n];
+      if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
     }
+    __syncthreads();  // (the first one also orders the prologue's E1)
+    if (step + 1 < n_steps) {
+      const int nl = (step + 1) / n_chunks;
+      load_chunk(nl, (step + 1 - nl * n_chunks) * BK);
+    }
+    cmac_chunk<T, TM, AS, WCPLX, false>(Ar, Ai, Wr, Wi, ty, tx, accr, acci);
     __syncthreads();
-    if (k0 + BK < B) load_chunk(k0 + BK);
-    cmac_chunk<T, TM, AS, true, !WCPLX>(Ar, Ai, Gr, Gi, ty, tx, accr, acci);
-    __syncthreads();
+    if (chunk != n_chunks - 1) continue;
+#pragma unroll
+    for (int ii = 0; ii < TM; ++ii) {
+      const int r = ty * TM + ii;
+      const C e1 = E1[il][r];
+      T pr = T(0), pi = T(0);
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) {
+        const T dr = accr[ii][jj], di = acci[ii][jj];
+        a2r[ii][jj] += dr * e1.x - di * e1.y;
+        a2i[ii][jj] += dr * e1.y + di * e1.x;
+        pr += dr * e2r[ii][jj] - di * e2i[ii][jj];
+        pi += dr * e2i[ii][jj] + di * e2r[ii][jj];
+      }
+#pragma unroll
+      for (int d = BN / TN / 2; d > 0; d >>= 1) {
+        pr += __shfl_xor_sync(0xffffffffu, pr, d);
+        pi += __shfl_xor_sync(0xffffffffu, pi, d);
+      }
+      if (tx == 0 && b0 + r < B) {
+        C v;
+        v.x = pr, v.y = pi;
+        part1[(((size_t)blockIdx.y * F + f) * B + b0 + r) * K1 + i0 + il] = v;
+      }
+    }
   }
 
-  // The finished tile, masking the ragged edges.
+  // part2[it][f][b][j] over this block's rows i
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int oo = o0 + tx * TN + j;
-    if (oo >= O) continue;
+  for (int ii = 0; ii < TM; ++ii) {
+    const int b = b0 + ty * TM + ii;
+    if (b >= B) continue;
+    C* dst = part2 + (((size_t)blockIdx.z * F + f) * B + b) * K2;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int cc = c0 + ty * TM + i;
-      if (cc >= I) continue;
-      const size_t idx = (size_t)f * O * I + (size_t)oo * I + cc;
-      if (WCPLX) {
+    for (int jj = 0; jj < TN; ++jj) {
+      const int j = j0 + tx * TN + jj;
+      if (j < K2) {
         C v;
-        v.x = accr[i][j], v.y = acci[i][j];
-        static_cast<C*>(dw_)[idx] = v;
-      } else {
-        static_cast<T*>(dw_)[idx] = accr[i][j];
+        v.x = a2r[ii][jj], v.y = a2i[ii][jj];
+        dst[j] = v;
       }
     }
   }
 }
+
+// dx1 = conj(e1) * (sum of the n1 dx1 partials), dx2 = conj(e2) * (sum of
+// the n2 dx2 partials), added in partial order; one warp per (fold, row).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ctucker_split_finish(const void* __restrict__ x1_, const void* __restrict__ x2_,
+                     const T* __restrict__ sa, const T* __restrict__ sb,
+                     const void* __restrict__ part1_, const void* __restrict__ part2_,
+                     void* __restrict__ dx1_, void* __restrict__ dx2_, int F, int B, int K1,
+                     int K2, int n1, int n2) {
+  using C = typename Cplx<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const size_t row = (size_t)blockIdx.x * B + b;
+  const size_t plane = (size_t)F * B;
+  const C* xs[2] = {static_cast<const C*>(x1_), static_cast<const C*>(x2_)};
+  const C* parts[2] = {static_cast<const C*>(part1_), static_cast<const C*>(part2_)};
+  C* dxs[2] = {static_cast<C*>(dx1_), static_cast<C*>(dx2_)};
+  const T shifts[2] = {sa[row], sb[row]};
+  const int ks[2] = {K1, K2}, ns[2] = {n1, n2};
+  for (int h = 0; h < 2; ++h) {
+    if (dxs[h] == nullptr) continue;
+    const int K = ks[h];
+    for (int k = lane; k < K; k += 32) {
+      T sr = T(0), si = T(0);
+      for (int p = 0; p < ns[h]; ++p) {
+        const C v = parts[h][(p * plane + row) * K + k];
+        sr += v.x, si += v.y;
+      }
+      const C xv = xs[h][row * K + k];
+      T er, ei;  // conj(e)
+      cexp_t(xv.x - shifts[h], -xv.y, &er, &ei);
+      C d;
+      d.x = er * sr - ei * si;
+      d.y = er * si + ei * sr;
+      dxs[h][row * K + k] = d;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward 3. dw = sum_b gy^T conj(e), split over the batch
+// ---------------------------------------------------------------------------
+
+// One block per (fold, NI rows i of K1, a chunk of the batch, BJ columns j of
+// K2, BO units); dense is K1 = 1, K2 = I with no e1. The block stages BB rows
+// of its chunk at a time (gy over its units, conj(e2) over its columns,
+// conj(e1) over its rows i: one complex exponential per staged value, not one
+// per product) and contracts them for each row i in turn, conj(e2[b, j])
+// against gy[b, o] conj(e1[b, i]), each thread a 4-unit x TM-column complex
+// tile (its real part alone against a real weight). With one row i the sums
+// stay in registers over the whole chunk; with several they go to the output
+// tile between staged rows and come back (the same thread writes and reads
+// them). A chunk's sums go to its own plane of partials, or straight to dw
+// when the batch is one chunk; sum_partials then adds the planes in chunk
+// order, so every call gives the same bits with no atomics.
+namespace cdw {
+constexpr int NI = 8;   // rows i per block (Tucker)
+constexpr int BO = 64;  // units per block
+constexpr int BJ = 64;  // columns j per block
+constexpr int TM = 4;   // columns per thread (TN units)
+static_assert((BO / TN) * (BJ / TM) == THREADS, "a thread per 4 x 4 tile");
+template <typename T> constexpr int BB = sizeof(T) == 4 ? 64 : 32;  // rows staged at once
+template <typename T>
+constexpr size_t smem() {
+  return 2 * sizeof(T) * ((size_t)BB<T> * (BO + 4) + (size_t)BB<T> * (BJ + 4) + (size_t)NI * BB<T>);
+}
+}  // namespace cdw
+
+
+template <typename T, bool TUCKER, bool WCPLX>
+__global__ void __launch_bounds__(THREADS)
+clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
+                 const T* __restrict__ sa, const T* __restrict__ sb,
+                 const void* __restrict__ gy_, void* __restrict__ out_, int F, int B, int K1,
+                 int K2, int O, int n_it, int n_bc, int rows) {
+  using C = typename Cplx<T>::type;
+  constexpr int BB = cdw::BB<T>, NI = cdw::NI, BO = cdw::BO, BJ = cdw::BJ, TM = cdw::TM;
+  constexpr int NT = THREADS;
+  constexpr int GS = BO + 4, ES = BJ + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T(*Gr)[GS] = reinterpret_cast<T(*)[GS]>(smem_raw);  // [BB][GS]: gy
+  T(*Gi)[GS] = Gr + BB;
+  T(*Er)[ES] = reinterpret_cast<T(*)[ES]>(Gi + BB);    // [BB][ES]: conj(e2)
+  T(*Ei)[ES] = Er + BB;
+  T* E1r = reinterpret_cast<T*>(Ei + BB);              // [NI][BB]: conj(e1)
+  T* E1i = E1r + NI * BB;
+
+  const int I = K1 * K2;
+  const int bc = blockIdx.x % n_bc;
+  const int fi = blockIdx.x / n_bc;
+  const int f = fi / n_it;
+  const int i0 = (fi - f * n_it) * NI;
+  const int n_i = TUCKER ? min(NI, K1 - i0) : 1;
+  const int j0 = blockIdx.y * BJ;
+  const int o0 = blockIdx.z * BO;
+  const int b_begin = bc * rows, b_end = min(B, b_begin + rows);
+  const int tid = threadIdx.x;
+  const int tx = tid % (BO / TN), ty = tid / (BO / TN);  // unit group, column group
+  const C* xef = static_cast<const C*>(TUCKER ? xb_ : xa_) + (size_t)f * B * K2;
+  const T* sef = (TUCKER ? sb : sa) + (size_t)f * B;
+  const C* x1f = static_cast<const C*>(xa_) + (size_t)f * B * K1;
+  const T* s1f = sa + (size_t)f * B;
+  const C* gyf = static_cast<const C*>(gy_) + (size_t)f * B * O;
+  const size_t off = ((size_t)bc * F + f) * O * I;
+  C* dstc = WCPLX ? static_cast<C*>(out_) + off : nullptr;
+  T* dstr = WCPLX ? nullptr : static_cast<T*>(out_) + off;
+
+  auto stage = [&](int b0) {
+    const int nb = min(BB, b_end - b0);
+#pragma unroll 4
+    for (int e = tid; e < BB * BO; e += NT) {
+      const int k = e / BO, o = e - k * BO;
+      T r = T(0), i = T(0);
+      if (k < nb && o0 + o < O) {
+        const C v = gyf[(size_t)(b0 + k) * O + o0 + o];
+        r = v.x, i = v.y;
+      }
+      Gr[k][o] = r, Gi[k][o] = i;
+    }
+#pragma unroll 4
+    for (int e = tid; e < BB * BJ; e += NT) {
+      const int k = e / BJ, j = e - k * BJ;
+      T r = T(0), i = T(0);
+      if (k < nb && j0 + j < K2) {
+        const C v = xef[(size_t)(b0 + k) * K2 + j0 + j];
+        cexp_t(v.x - sef[b0 + k], -v.y, &r, &i);
+      }
+      Er[k][j] = r, Ei[k][j] = i;
+    }
+    if (TUCKER)
+      for (int e = tid; e < NI * BB; e += NT) {
+        const int il = e / BB, k = e - il * BB;
+        T r = T(0), i = T(0);
+        if (k < nb && il < n_i) {
+          const C v = x1f[(size_t)(b0 + k) * K1 + i0 + il];
+          cexp_t(v.x - s1f[b0 + k], -v.y, &r, &i);
+        }
+        E1r[e] = r, E1i[e] = i;
+      }
+  };
+
+  T accr[TN][TM], acci[TN][TM];
+  auto zero = [&]() {
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+#pragma unroll
+      for (int m = 0; m < TM; ++m) accr[n][m] = acci[n][m] = T(0);
+  };
+  // the thread's tile of the output row il: fn(offset, unit n, column m)
+  auto tile = [&](int il, auto&& fn) {
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      const int o = o0 + tx * TN + n;
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const int j = j0 + ty * TM + m;
+        if (o < O && j < K2) fn((size_t)o * I + (size_t)(i0 + il) * K2 + j, n, m);
+      }
+    }
+  };
+  zero();
+  for (int b0 = b_begin; b0 < b_end; b0 += BB) {
+    __syncthreads();  // the previous rows' contraction is done with the tiles
+    stage(b0);
+    __syncthreads();
+    const int nk = (min(BB, b_end - b0) + 3) & ~3;  // rows past the chunk staged as 0
+    const bool first = b0 == b_begin, last = b0 + BB >= b_end;
+    for (int il = 0; il < n_i; ++il) {
+      if (n_i > 1) {
+        if (first) {
+          zero();
+        } else if (WCPLX) {
+          tile(il, [&](size_t p, int n, int m) { accr[n][m] = dstc[p].x, acci[n][m] = dstc[p].y; });
+        } else {
+          tile(il, [&](size_t p, int n, int m) { accr[n][m] = dstr[p]; });
+        }
+      }
+#pragma unroll 4
+      for (int k = 0; k < nk; ++k) {
+        T ar[TN], ai[TN], br[TM], bi[TM];
+        load_n<TN>(&Gr[k][tx * TN], ar);
+        load_n<TN>(&Gi[k][tx * TN], ai);
+        if (TUCKER) {  // gy conj(e1)
+          const T cr = E1r[il * BB + k], ci = E1i[il * BB + k];
+#pragma unroll
+          for (int n = 0; n < TN; ++n) {
+            const T r = ar[n] * cr - ai[n] * ci;
+            ai[n] = ar[n] * ci + ai[n] * cr;
+            ar[n] = r;
+          }
+        }
+        load_n<TM>(&Er[k][ty * TM], br);
+        load_n<TM>(&Ei[k][ty * TM], bi);
+#pragma unroll
+        for (int n = 0; n < TN; ++n)
+#pragma unroll
+          for (int m = 0; m < TM; ++m) {
+            accr[n][m] = fma_t(ar[n], br[m], accr[n][m]);
+            accr[n][m] = fma_t(-ai[n], bi[m], accr[n][m]);
+            if (WCPLX) {
+              acci[n][m] = fma_t(ai[n], br[m], acci[n][m]);
+              acci[n][m] = fma_t(ar[n], bi[m], acci[n][m]);
+            }
+          }
+      }
+      if (n_i > 1 || last) {
+        if (WCPLX) {
+          tile(il, [&](size_t p, int n, int m) {
+            C v;
+            v.x = accr[n][m], v.y = acci[n][m];
+            dstc[p] = v;
+          });
+        } else {
+          tile(il, [&](size_t p, int n, int m) { dstr[p] = accr[n][m]; });
+        }
+      }
+    }
+  }
+}
+
+// The whole complex backward of a narrow dense layer (I, O <= 32: the squared
+// circuits' TensorDot entries) in one pass over its rows: one block per (fold,
+// chunk of the batch) stages conj(w) once, then takes RT rows at a time, each
+// row held by TPR threads of V neighbouring columns: it reads x, out and g
+// once (the next rows' while the current ones are contracted), takes the
+// row's clamped max of Re x by shuffles, forms conj(e) = exp(conj(x) - m) and
+// gy = g / conj(y) (zeroed where not finite) in registers, writes dx =
+// conj(e) (gy @ conj(w)) for its columns, and adds gy^T conj(e) into the
+// block's dw tile (a thread's 4 columns of one unit; the real part alone
+// against a real weight). No row shift, gy or e reaches device memory. The
+// chunk's dw goes to its plane of partials (sum_partials adds them in chunk
+// order) or straight to dw when the batch is one chunk.
+namespace narrow {
+constexpr int W = 32;  // the widest I and O
+template <typename T> constexpr int V = sizeof(T) == 4 ? 4 : 2;  // columns a thread of a row
+template <typename T> constexpr int TPR = W / V<T>;               // threads a row
+template <typename T> constexpr int RT = THREADS / TPR<T>;        // rows a pass
+}  // namespace narrow
+
+template <typename T, bool WCPLX>
+__global__ void __launch_bounds__(THREADS, 2)
+clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
+                const void* __restrict__ out_, const void* __restrict__ g_,
+                void* __restrict__ dx_, void* __restrict__ dw_, int F, int B, int I, int O,
+                int n_bc, int rows) {
+  using C = typename Cplx<T>::type;
+  using narrow::W;
+  constexpr int V = narrow::V<T>, TPR = narrow::TPR<T>, RT = narrow::RT<T>;
+  __shared__ __align__(16) T Wr[W][W + 4];  // conj(w)[o][i], 0 outside O x I
+  __shared__ __align__(16) T Wi[WCPLX ? W : 1][W + 4];
+  __shared__ __align__(16) T Er[RT][W + 4];  // conj(e) of the pass's rows
+  __shared__ __align__(16) T Ei[RT][W + 4];
+  __shared__ T Gr[RT][W + 1];                // gy of the pass's rows
+  __shared__ T Gi[RT][W + 1];
+
+  const int f = blockIdx.x / n_bc, bc = blockIdx.x - f * n_bc;
+  const int b_begin = bc * rows, b_end = min(B, b_begin + rows);
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, c0 = (tid % TPR) * V;         // row of the pass, first column
+  const int wo = tid / (W / 4), wi = (tid % (W / 4)) * 4;  // the thread's dw tile
+  const C* x = static_cast<const C*>(x_) + (size_t)f * B * I;
+  const C* out = static_cast<const C*>(out_) + (size_t)f * B * O;
+  const C* g = static_cast<const C*>(g_) + (size_t)f * B * O;
+  for (int e = tid; e < W * W; e += THREADS) {
+    const int o = e / W, i = e - o * W;
+    T wr = T(0), wi_ = T(0);
+    if (o < O && i < I) {
+      const size_t idx = ((size_t)f * O + o) * I + i;
+      if (WCPLX) {
+        const C v = static_cast<const C*>(w_)[idx];
+        wr = v.x, wi_ = -v.y;
+      } else {
+        wr = static_cast<const T*>(w_)[idx];
+      }
+    }
+    Wr[o][i] = wr;
+    if (WCPLX) Wi[o][i] = wi_;
+  }
+  // the pass's raw values: x over the row's V columns of I, out and g over
+  // its V columns of O
+  C px[V], po[V], pg[V];
+  auto load = [&](int b0) {
+    const int b = b0 + r;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = c0 + v;
+      C xv, ov, gv;
+      xv.x = -INFINITY, xv.y = T(0);
+      ov.x = ov.y = gv.x = gv.y = T(0);
+      if (b < b_end && c < I) xv = x[(size_t)b * I + c];
+      if (b < b_end && c < O) {
+        ov = out[(size_t)b * O + c];
+        gv = g[(size_t)b * O + c];
+      }
+      px[v] = xv, po[v] = ov, pg[v] = gv;
+    }
+  };
+  T dwr[4] = {T(0), T(0), T(0), T(0)}, dwi[4] = {T(0), T(0), T(0), T(0)};
+  load(b_begin);
+  for (int b0 = b_begin; b0 < b_end; b0 += RT) {
+    T m = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < V; ++v) m = max_t(m, px[v].x);
+#pragma unroll
+    for (int d = TPR / 2; d > 0; d >>= 1) m = max_t(m, __shfl_xor_sync(0xffffffffu, m, d));
+    m = clamp_max(m);
+    T cr[V], ci[V];  // conj(e)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      cexp_t(px[v].x - m, -px[v].y, &cr[v], &ci[v]);
+      Er[r][c0 + v] = cr[v], Ei[r][c0 + v] = ci[v];
+      T ur, ui;  // 1 / conj(y)
+      cexp_t(m - po[v].x, po[v].y, &ur, &ui);
+      T gr = pg[v].x * ur - pg[v].y * ui, gi = pg[v].x * ui + pg[v].y * ur;
+      if (!(isfinite(gr) && isfinite(gi))) gr = gi = T(0);
+      Gr[r][c0 + v] = gr, Gi[r][c0 + v] = gi;  // (after the previous pass's barrier)
+    }
+    __syncthreads();
+    const int b = b0 + r;
+    if (b0 + RT < b_end) load(b0 + RT);
+    if (dx_ != nullptr) {
+      T ar[V], ai[V];  // de = gy @ conj(w)
+#pragma unroll
+      for (int v = 0; v < V; ++v) ar[v] = ai[v] = T(0);
+#pragma unroll 8
+      for (int o = 0; o < W; ++o) {
+        const T gr = Gr[r][o], gi = Gi[r][o];
+        T br[V], bi[V];
+        load_n<V>(&Wr[o][c0], br);
+        if (WCPLX) load_n<V>(&Wi[o][c0], bi);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          ar[v] = fma_t(gr, br[v], ar[v]);
+          ai[v] = fma_t(gi, br[v], ai[v]);
+          if (WCPLX) {
+            ar[v] = fma_t(-gi, bi[v], ar[v]);
+            ai[v] = fma_t(gr, bi[v], ai[v]);
+          }
+        }
+      }
+      if (b < b_end) {
+        C* drow = static_cast<C*>(dx_) + (size_t)f * B * I + (size_t)b * I;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (c0 + v < I) {
+            C d;  // conj(e) * de
+            d.x = cr[v] * ar[v] - ci[v] * ai[v];
+            d.y = cr[v] * ai[v] + ci[v] * ar[v];
+            drow[c0 + v] = d;
+          }
+      }
+    }
+    if (dw_ != nullptr)
+#pragma unroll 8
+      for (int rr = 0; rr < RT; ++rr) {
+        const T gr = Gr[rr][wo], gi = Gi[rr][wo];
+        T er[4], ei[4];
+        load_n<4>(&Er[rr][wi], er);
+        load_n<4>(&Ei[rr][wi], ei);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dwr[j] = fma_t(gr, er[j], dwr[j]);
+          dwr[j] = fma_t(-gi, ei[j], dwr[j]);
+          if (WCPLX) {
+            dwi[j] = fma_t(gr, ei[j], dwi[j]);
+            dwi[j] = fma_t(gi, er[j], dwi[j]);
+          }
+        }
+      }
+    __syncthreads();  // the pass's tiles are read before the next one rewrites them
+  }
+  if (dw_ != nullptr && wo < O) {
+    const size_t row = (((size_t)bc * F + f) * O + wo) * I;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (wi + j >= I) continue;
+      if (WCPLX) {
+        C v;
+        v.x = dwr[j], v.y = dwi[j];
+        static_cast<C*>(dw_)[row + wi + j] = v;
+      } else {
+        static_cast<T*>(dw_)[row + wi + j] = dwr[j];
+      }
+    }
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // Launch
@@ -795,18 +1250,91 @@ int launch_fwd(const void* xa, const void* xb, const void* w, void* out, int F, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether a block of clse_bwd_dx_tucker (its accumulators and the static
+// staging tiles) fits the card's shared memory; wider layers take the K1
+// split.
+template <typename T>
+inline bool tucker_dx_fits(int K1, int K2) {
+  return tucker_dx_smem<T>(K1, K2) + sizeof(T) * BK * 2 * (TuckerDx<T>::AS + BS) <= MAX_SMEM;
+}
+
+// The gy scratch, in complex values (GyPlan's layout): the narrow route is
+// clse_bwd_narrow's, a real weight's dw partials are real (two to a complex
+// value), and the K1 split is taken at widths past tucker_dx_fits.
+template <typename T>
+inline GyPlan gy_plan(bool tucker, bool w_complex, int F, int B, int K1, int K2, int O) {
+  GyPlan p;
+  const int k1 = tucker ? K1 : 1, k2 = tucker ? K2 : K1;  // dense: K1 = I
+  const size_t I = (size_t)k1 * k2;
+  p.narrow = !tucker && k2 <= narrow::W && O <= narrow::W;
+  const long long tiles =
+      (long long)F * cdiv(k1, cdw::NI) * cdiv(k2, cdw::BJ) * cdiv(O, cdw::BO);
+  p.n_bc = p.narrow ? batch_chunks(F, B, narrow::RT<T>, 4 * narrow::RT<T>, 1024, &p.rows)
+                    : batch_chunks(tiles, B, cdw::BB<T>, 2 * cdw::BB<T>, 2048, &p.rows);
+  p.dw_part = p.narrow ? 0 : (size_t)F * B * O;
+  const size_t dw_vals = (size_t)p.n_bc * F * O * I;
+  p.dx_part = p.dw_part + (p.n_bc > 1 ? (w_complex ? dw_vals : (dw_vals + 1) / 2) : 0);
+  p.split = tucker && !tucker_dx_fits<T>(K1, K2);
+  p.total = p.dx_part + (p.split ? tucker_split_size(F, B, K1, K2, BN, I_PER) : 0);
+  return p;
+}
+
+// The complex dw in the batch chunks of the plan (to ``out``: dw, or the
+// chunks' planes when there are several).
+template <typename T, bool TUCKER, bool WCPLX>
+cudaError_t launch_dw(const void* xa, const void* xb, const T* sa, const T* sb, const void* gy,
+                      void* out, int F, int B, int K1, int K2, int O, const GyPlan& p,
+                      cudaStream_t s) {
+  constexpr size_t smem = cdw::smem<T>();
+  auto kernel = clse_bwd_dw_part<T, TUCKER, WCPLX>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_it = TUCKER ? static_cast<int>(cdiv(K1, cdw::NI)) : 1;
+  const dim3 grid(F * n_it * p.n_bc, cdiv(K2, cdw::BJ), cdiv(O, cdw::BO));
+  kernel<<<grid, THREADS, smem, s>>>(xa, xb, sa, sb, gy, out, F, B, TUCKER ? K1 : 1, K2, O, n_it,
+                                     p.n_bc, p.rows);
+  return cudaGetLastError();
+}
+
 template <typename T, bool TUCKER, bool WCPLX>
 int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, const void* g,
-               void* dxa, void* dxb, void* dw, void* sa_, void* sb_, void* gy, int F, int B,
+               void* dxa, void* dxb, void* dw, void* sa_, void* sb_, void* gy_, int F, int B,
                int I, int K1, int K2, int O, cudaStream_t s) {
+  using C = typename Cplx<T>::type;
   T* sa = static_cast<T*>(sa_);
   T* sb = static_cast<T*>(sb_);
+  C* gy = static_cast<C*>(gy_);
+  const GyPlan plan = gy_plan<T>(TUCKER, WCPLX, F, B, K1, K2, O);
   cudaError_t err;
+  if (plan.narrow) {
+    void* dwo = dw == nullptr ? nullptr : plan.n_bc > 1 ? static_cast<void*>(gy) : dw;
+    clse_bwd_narrow<T, WCPLX><<<F * plan.n_bc, THREADS, 0, s>>>(xa, w, out, g, dxa, dwo, F, B,
+                                                                  I, O, plan.n_bc, plan.rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (dw != nullptr && plan.n_bc > 1)  // real values, two to a complex one
+      return static_cast<int>(cirkit::launch_sum_partials<T>(
+          static_cast<const T*>(dwo), static_cast<T*>(dw), (size_t)F * O * I * (WCPLX ? 2 : 1),
+          plan.n_bc, s));
+    return 0;
+  }
   clse_bwd_prep<T, TUCKER><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
       xa, xb, out, g, sa, sb, gy, B, TUCKER ? K1 : I, K2, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (dxa != nullptr || dxb != nullptr) {
-    if (TUCKER) {
+    if (TUCKER && plan.split) {
+      const int n_bt = static_cast<int>(cdiv(B, TuckerDx<T>::BM));
+      const int n_jt = static_cast<int>(cdiv(K2, BN));
+      const int n_it = static_cast<int>(cdiv(K1, I_PER));
+      C* part1 = gy + plan.dx_part;
+      C* part2 = part1 + (size_t)n_jt * F * B * K1;
+      clse_bwd_dx_tucker_split<T, WCPLX><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
+          xa, xb, w, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      ctucker_split_finish<T><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+          xa, xb, sa, sb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+    } else if (TUCKER) {
       const size_t smem = tucker_dx_smem<T>(K1, K2);
       err = cudaFuncSetAttribute(clse_bwd_dx_tucker<T, WCPLX>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -821,9 +1349,15 @@ int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, c
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dw != nullptr) {
-    clse_bwd_dw<T, TUCKER, WCPLX><<<dim3(F, cdiv(O, BN), cdiv(I, fwd::BM)), THREADS, 0, s>>>(
-        xa, xb, sa, sb, gy, dw, B, I, K1, K2, O);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const int k2 = TUCKER ? K2 : I;
+    void* dst = plan.n_bc > 1 ? static_cast<void*>(gy + plan.dw_part) : dw;
+    err = launch_dw<T, TUCKER, WCPLX>(xa, xb, sa, sb, gy, dst, F, B, K1, k2, O, plan, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (plan.n_bc > 1 &&  // the chunks' planes, real values (two to a complex one)
+        (err = cirkit::launch_sum_partials<T>(static_cast<const T*>(dst), static_cast<T*>(dw),
+                                              (size_t)F * O * I * (WCPLX ? 2 : 1), plan.n_bc,
+                                              s)) != cudaSuccess)
+      return static_cast<int>(err);
   }
   return 0;
 }
@@ -876,13 +1410,12 @@ struct BwdCall {
 
 extern "C" {
 
-// Shared memory a block of the Tucker dx kernel uses at (K1, K2), static
-// staging tiles included, in bytes.
-size_t clse_bwd_tucker_smem(int K1, int K2, int is_double) {
-  if (is_double)
-    return tucker_dx_smem<double>(K1, K2)
-           + sizeof(double) * BK * 2 * (TuckerDx<double>::AS + BS);
-  return tucker_dx_smem<float>(K1, K2) + sizeof(float) * BK * 2 * (TuckerDx<float>::AS + BS);
+// The complex values the backward's gy scratch holds (gy and the partial
+// sums of the batch-split dw and the K1-split Tucker dx) at these sizes.
+size_t clse_bwd_gy_size(int F, int B, int K1, int K2, int O, int tucker, int w_complex,
+                        int is_double) {
+  return is_double ? gy_plan<double>(tucker != 0, w_complex != 0, F, B, K1, K2, O).total
+                   : gy_plan<float>(tucker != 0, w_complex != 0, F, B, K1, K2, O).total;
 }
 
 // Forward. Dense: xa = x (F,B,K1), xb null, K2 = 1; Tucker: xa = x1, xb = x2.
@@ -899,7 +1432,7 @@ int clse_fwd(const void* xa, const void* xb, const void* w, void* out, int F, in
 
 // Backward: the forward's operands and output, the cotangent g; the gradients
 // (a null pointer skips one; dw is real for a real w); scratch: the row shifts
-// sa (F,B) and, for Tucker, sb, and gy (F,B,O) complex.
+// sa (F,B) and, for Tucker, sb, and gy, clse_bwd_gy_size complex values.
 int clse_bwd(const void* xa, const void* xb, const void* w, const void* out, const void* g,
              void* dxa, void* dxb, void* dw, void* sa, void* sb, void* gy, int F, int B, int K1,
              int K2, int O, int tucker, int w_complex, int is_double, int device,

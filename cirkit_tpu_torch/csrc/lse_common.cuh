@@ -96,4 +96,62 @@ __device__ __forceinline__ void softmax_row_stats(const T* row, int n, int lane,
   *sum_out = s;
 }
 
+// The batch chunks of a launch whose blocks split the batch, with ``tiles``
+// blocks a chunk: enough chunks for about ``target`` blocks in all, at least
+// ``least`` rows a chunk; ``rows`` gets a chunk's rows, a multiple of
+// ``step``.
+inline int batch_chunks(long long tiles, int B, int step, int least, long long target,
+                        int* rows) {
+  const long long want = (target + tiles - 1) / tiles;
+  const int most = (B + least - 1) / least;
+  const int n = want < most ? static_cast<int>(want) : most;
+  *rows = (B + n - 1) / n;
+  *rows = (*rows + step - 1) / step * step;
+  return (B + *rows - 1) / *rows;
+}
+
+// The shared memory one block may take on the card (227 KB on the H100).
+constexpr size_t MAX_SMEM = 232448;
+
+// The layout of a CUDA-core backward's gy scratch, in the values it holds:
+// gy (F, B, O) (none on the narrow route, which keeps gy on chip), then the
+// dw partials (n_bc, F, O, I) of a batch split into n_bc > 1 chunks, then
+// for a Tucker dx too wide for one block the K1 split's partials.
+struct GyPlan {
+  int n_bc = 1, rows = 0;   // dw: batch chunks and their rows
+  bool narrow = false;      // dense, I and O <= 32: the one-pass kernel, no gy
+  bool split = false;       // Tucker dx: the K1 split
+  size_t dw_part = 0, dx_part = 0, total = 0;  // offsets of the parts, size
+};
+
+// The values of a K1-split Tucker dx's partials: (ceil(K2 / bn), F, B, K1)
+// for dx1, then (ceil(K1 / i_per), F, B, K2) for dx2.
+inline size_t tucker_split_size(int F, int B, int K1, int K2, int bn, int i_per) {
+  return (size_t)F * B *
+         ((size_t)((K2 + bn - 1) / bn) * K1 + (size_t)((K1 + i_per - 1) / i_per) * K2);
+}
+
+// out[e] = sum_p part[p][e] over n_parts planes of n values, in plane order:
+// the second pass of a reduction split across blocks, so every call adds in
+// the same order and gives the same bits.
+template <typename T>
+__global__ void __launch_bounds__(256)
+sum_partials(const T* __restrict__ part, T* __restrict__ out, size_t n, int n_parts) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    T s = part[e];
+    for (int p = 1; p < n_parts; ++p) s += part[p * n + e];
+    out[e] = s;
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_sum_partials(const T* part, T* out, size_t n, int n_parts,
+                                       cudaStream_t s) {
+  const size_t blocks = (n + 255) / 256;
+  sum_partials<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      part, out, n, n_parts);
+  return cudaGetLastError();
+}
+
 }  // namespace cirkit

@@ -45,31 +45,38 @@
 //      backward allocates dw of that size anyway);
 //   3. the dx kernel (skipped when no input needs a gradient):
 //      dense: one block per (fold, 64 input columns, 128 batch rows), the
-//        s tile contracted over O, times e in the epilogue;
+//        s tile contracted over O, times e in the epilogue (section 3a);
 //      tucker: one block per (fold, 64 batch rows) that walks all K1*K2
 //        columns in tiles of 64 and folds each s tile into the block's own
 //        dx1 (K1-segment sums) and dx2 (sums mod K2) accumulators in shared
 //        memory, so s never reaches device memory. When K2 is a multiple of
 //        64 (the flagship's K=64) a tile lies in one K1 segment: dx2 adds
 //        elementwise and dx1 reduces by warp shuffles; otherwise the tile
-//        goes through shared memory and one thread per row folds it;
-//   4. lse_bwd_dw (skipped when the weight needs no gradient): one block per
-//      (fold, 64 output units, 8 tiles of 128 weight columns); for each tile
-//      it loops over the whole batch, the TPU kernel's sequential batch-tile
-//      accumulation. The batch is short (128 at the flagship), so the block
-//      walks its tiles in one prefetched loop rather than a block per tile,
-//      and writes each finished tile as whole 32-byte sectors;
+//        goes through shared memory and one thread per row folds it (section
+//        3b). Where those accumulators do not fit a block's shared memory
+//        (from K1 = K2 = 88 in double, 202 in float), the blocks split K1 and
+//        K2 instead and write partial sums that a finish kernel adds in a
+//        fixed order (section 7);
+//   4. dw (skipped when the weight needs no gradient): for the double lse
+//      instances lse_bwd_dw, one block per (fold, 64 output units, 8 tiles of
+//      128 weight columns) that loops over the whole batch for each tile,
+//      the TPU kernel's sequential batch-tile accumulation, and writes each
+//      finished tile as whole 32-byte sectors (section 4); for the signed
+//      ones slse_bwd_dw_part, whose blocks split the batch too and write
+//      partial sums that sum_partials adds in chunk order (section 7);
 //   5. softmax_vjp (softmax only): one warp per weight row rewrites the
 //      finished dw row into dtheta in place.
+//
+// A signed dense layer with I and O at most 32 (the squared circuits'
+// TensorDot entries) takes one pass instead of launches 1, 3 and 4:
+// slse_bwd_narrow, whose blocks split the batch and keep the row shifts, gy
+// and e in registers and shared memory, then sum_partials (section 7).
 //
 // PERF.md has the times of both paths against the plain PyTorch version.
 //
 // Every sum runs in an order fixed by the code (no atomics), so a call is
-// deterministic from run to run. Any O >= 1 and any batch are taken, the
-// ragged edges masked. The Tucker dx kernel of sections 1-5 keeps (64 x
-// (K1+K2+2)) * 2 + 64 x 65 floats of dynamic shared memory (83 KB at
-// K1=K2=64); the wrapper refuses widths past the card's 227 KB (in double
-// from K1 = K2 = 90). Section 6 takes any K1 and K2.
+// deterministic from run to run. Any O >= 1, any batch and any K1, K2 are
+// taken, the ragged edges masked.
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream, checks cudaGetLastError() after each launch and returns the first
@@ -86,13 +93,16 @@
 
 namespace {
 
+using cirkit::batch_chunks;
+using cirkit::GyPlan;
+using cirkit::MAX_SMEM;
+using cirkit::tucker_split_size;
 using cirkit::clamp_max;
 using cirkit::exp_t;
 using cirkit::fast_exp;
 using cirkit::fma_t;
 using cirkit::load4;
 using cirkit::max_t;
-using cirkit::staged_exp;
 using cirkit::store4;
 using cirkit::warp_max;
 using cirkit::warp_sum;
@@ -512,14 +522,11 @@ constexpr int GSTEP = THREADS / BN;   // gy staging: batch rows per pass (4)
 constexpr int G_PER = BK / GSTEP;     // 4
 }  // namespace dw_tile
 
-template <typename T, bool TUCKER, bool SIGNED>
+template <typename T, bool TUCKER>
 __global__ void __launch_bounds__(THREADS, RESIDENT<T>)
 lse_bwd_dw(const T* __restrict__ xa, const T* __restrict__ xb,
            const T* __restrict__ sa, const T* __restrict__ sb,
-           const T* __restrict__ gy,
-           const T* __restrict__ sga,  // signed: the signs of xa, xb
-           const T* __restrict__ sgb,
-           T* __restrict__ dw, int B, int I, int K1,
+           const T* __restrict__ gy, T* __restrict__ dw, int B, int I, int K1,
            int K2, int O) {
   using namespace dw_tile;
   __shared__ __align__(16) T As[BK][AS];  // e, batch-major
@@ -538,8 +545,6 @@ lse_bwd_dw(const T* __restrict__ xa, const T* __restrict__ xb,
   const T* saf = sa + (size_t)f * B;
   const T* sbf = TUCKER ? sb + (size_t)f * B : nullptr;
   const T* gyf = gy + (size_t)f * B * O;
-  const T* sgaf = SIGNED ? sga + (size_t)f * B * KA : nullptr;
-  const T* sgbf = SIGNED && TUCKER ? sgb + (size_t)f * B * K2 : nullptr;
 
   // e staging: column ec = tid % BM of the tile, batch rows tid / BM + n *
   // ESTEP; gy staging: unit tid % BN, batch rows tid / BN + n * GSTEP.
@@ -547,7 +552,7 @@ lse_bwd_dw(const T* __restrict__ xa, const T* __restrict__ xb,
   const int eb = tid / BM;
   const int go = tid % BN;
   const int gb = tid / BN;
-  T pe[E_PER], ps[E_PER], pg[G_PER];
+  T pe[E_PER], pg[G_PER];
   // One step of the flattened (column tile, batch chunk) loop.
   auto load_chunk = [&](int step) {
     const int tile = step / n_chunks;
@@ -558,16 +563,11 @@ lse_bwd_dw(const T* __restrict__ xa, const T* __restrict__ xb,
 #pragma unroll
     for (int n = 0; n < E_PER; ++n) {
       const int b = k0 + eb + n * ESTEP;
-      T v = -INFINITY, sg = T(0);
-      if (b < B && c < I) {
+      T v = -INFINITY;
+      if (b < B && c < I)
         v = TUCKER ? (xaf[(size_t)b * K1 + ci] - saf[b]) + (xbf[(size_t)b * K2 + cj] - sbf[b])
                    : xaf[(size_t)b * I + c] - saf[b];
-        if (SIGNED)
-          sg = TUCKER ? sgaf[(size_t)b * K1 + ci] * sgbf[(size_t)b * K2 + cj]
-                      : sgaf[(size_t)b * I + c];
-      }
       pe[n] = v;
-      if (SIGNED) ps[n] = sg;
     }
 #pragma unroll
     for (int n = 0; n < G_PER; ++n) {
@@ -594,7 +594,7 @@ lse_bwd_dw(const T* __restrict__ xa, const T* __restrict__ xb,
     }
 #pragma unroll
     for (int n = 0; n < E_PER; ++n)
-      As[eb + n * ESTEP][ec] = SIGNED ? ps[n] * staged_exp<true>(pe[n]) : fast_exp(pe[n]);
+      As[eb + n * ESTEP][ec] = fast_exp(pe[n]);
 #pragma unroll
     for (int n = 0; n < G_PER; ++n) Bs[gb + n * GSTEP][go] = pg[n];
     __syncthreads();
@@ -996,33 +996,6 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
     }
 }
 
-// dx1 = e1 * (sum of the n1 dx1 partials), dx2 = e2 * (sum of the n2 dx2
-// partials), added in partial order; one warp per (fold, batch row).
-__global__ void __launch_bounds__(THREADS)
-tucker_dx_finish(const float* __restrict__ x1, const float* __restrict__ x2,
-                 const float* __restrict__ sa, const float* __restrict__ sb,
-                 const float* __restrict__ part1, const float* __restrict__ part2,
-                 float* __restrict__ dx1, float* __restrict__ dx2, int F, int B, int K1, int K2,
-                 int n1, int n2) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y * WARPS + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const size_t row = (size_t)blockIdx.x * B + b;
-  const size_t plane = (size_t)F * B;
-  if (dx1 != nullptr)
-    for (int k = lane; k < K1; k += 32) {
-      float s = 0.f;
-      for (int p = 0; p < n1; ++p) s += part1[(p * plane + row) * K1 + k];
-      dx1[row * K1 + k] = expf(x1[row * K1 + k] - sa[row]) * s;
-    }
-  if (dx2 != nullptr)
-    for (int k = lane; k < K2; k += 32) {
-      float s = 0.f;
-      for (int p = 0; p < n2; ++p) s += part2[(p * plane + row) * K2 + k];
-      dx2[row * K2 + k] = expf(x2[row * K2 + k] - sb[row]) * s;
-    }
-}
-
 // dw = gy^T e summed over the batch, one block per (fold and NI rows i of
 // K1, 64 columns j of K2, BO units); dense is the case K1 = 1, K2 = I with
 // no e1. The block stages a chunk of up to 128 batch rows once: gy^T, e2 =
@@ -1171,14 +1144,593 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 }
 
 // --------------------------------------------------------------------------
-// Launch
+// 7. The signed instances' one-pass narrow backward and batch-split dw, and
+//    the K1-split Tucker dx of the CUDA-core instances
 // --------------------------------------------------------------------------
+//
+// At the squared circuits' TensorDot entries (F = 144 folds, B = 4096 rows,
+// I = O = 32) the signed backward moves bytes, not arithmetic: its bound is
+// the a, s, out, sign(out), g reads and the dx write. slse_bwd_narrow meets
+// it with one pass over the rows whose blocks split the batch (section 4
+// gives each fold one block that walks the whole batch); wider signed layers
+// keep prep and section 3's dx, and take a dw that splits the batch too.
 
 inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
+// dw = sum_b gy^T e, signed, split over the batch: one block per (fold, NI
+// rows i of K1, a chunk of the batch, BJ columns j of K2, BO units); dense is
+// K1 = 1, K2 = I with no e1. The block stages BB rows of its chunk at a time
+// (gy over its units, e2 = s2 exp(x2 - shift) over its columns, e1 over its
+// rows i: one exponential per staged value, not one per product) and
+// contracts them for each row i in turn, e2[b, j] against gy[b, o] e1[b, i],
+// each thread a 4-unit x TM-column tile. With one row i the sums stay in
+// registers over the whole chunk; with several they go to the output tile
+// between staged rows and come back (the same thread writes and reads them,
+// so no order changes). A chunk's sums go to its own plane of partials, or
+// straight to dw when the batch is one chunk; sum_partials then adds the
+// planes in chunk order, so every call gives the same bits with no atomics.
+namespace sdw {
+constexpr int BB = 64;  // batch rows staged at once
+constexpr int NI = 8;   // rows i per block (Tucker)
+constexpr int BO = 64;  // units per block
+constexpr int BJ = 64;  // columns j per block
+constexpr int TN = 4;   // units per thread
+constexpr int TM = 4;   // columns per thread
+static_assert((BO / TN) * (BJ / TM) == THREADS, "a thread per 4 x 4 tile");
+template <typename T>
+constexpr size_t smem() {
+  return sizeof(T) * ((size_t)BB * (BO + 4) + (size_t)BB * (BJ + 4) + (size_t)NI * BB);
+}
+}  // namespace sdw
+
+
+template <typename T, bool TUCKER>
+__global__ void __launch_bounds__(THREADS)
+slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __restrict__ sa,
+                 const T* __restrict__ sb, const T* __restrict__ gy,
+                 const T* __restrict__ sga, const T* __restrict__ sgb, T* __restrict__ out,
+                 int F, int B, int K1, int K2, int O, int n_it, int n_bc, int rows) {
+  using sdw::BB;
+  using sdw::BJ;
+  using sdw::BO;
+  using sdw::NI;
+  using sdw::TM;
+  using sdw::TN;
+  constexpr int NT = THREADS;
+  constexpr int GS = BO + 4, ES = BJ + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T(*Gs)[GS] = reinterpret_cast<T(*)[GS]>(smem_raw);                 // [BB][GS]: gy
+  T(*Es)[ES] = reinterpret_cast<T(*)[ES]>(smem_raw + sizeof(T) * BB * GS);  // [BB][ES]: e2
+  T* E1s = reinterpret_cast<T*>(smem_raw + sizeof(T) * BB * (GS + ES));     // [NI][BB]: e1
+
+  const int I = K1 * K2;
+  const int bc = blockIdx.x % n_bc;
+  const int fi = blockIdx.x / n_bc;
+  const int f = fi / n_it;
+  const int i0 = (fi - f * n_it) * NI;
+  const int n_i = TUCKER ? min(NI, K1 - i0) : 1;
+  const int j0 = blockIdx.y * BJ;
+  const int o0 = blockIdx.z * BO;
+  const int b_begin = bc * rows, b_end = min(B, b_begin + rows);
+  const int tid = threadIdx.x;
+  const int tx = tid % (BO / TN), ty = tid / (BO / TN);  // unit group, column group
+  const T* xef = (TUCKER ? xb : xa) + (size_t)f * B * K2;  // the operand of e2
+  const T* sef = (TUCKER ? sb : sa) + (size_t)f * B;
+  const T* gef = (TUCKER ? sgb : sga) + (size_t)f * B * K2;
+  const T* x1f = xa + (size_t)f * B * K1;
+  const T* s1f = sa + (size_t)f * B;
+  const T* g1f = sga + (size_t)f * B * K1;
+  const T* gyf = gy + (size_t)f * B * O;
+  T* dst = out + ((size_t)bc * F + f) * O * I;
+
+  auto stage = [&](int b0) {
+    const int nb = min(BB, b_end - b0);
+#pragma unroll 4
+    for (int e = tid; e < BB * BO; e += NT) {
+      const int k = e / BO, o = e - k * BO;
+      Gs[k][o] = (k < nb && o0 + o < O) ? gyf[(size_t)(b0 + k) * O + o0 + o] : T(0);
+    }
+#pragma unroll 4
+    for (int e = tid; e < BB * BJ; e += NT) {
+      const int k = e / BJ, j = e - k * BJ;
+      T v = T(0);
+      if (k < nb && j0 + j < K2) {
+        const size_t idx = (size_t)(b0 + k) * K2 + j0 + j;
+        v = gef[idx] * exp_t(xef[idx] - sef[b0 + k]);
+      }
+      Es[k][j] = v;
+    }
+    if (TUCKER)
+      for (int e = tid; e < NI * BB; e += NT) {
+        const int il = e / BB, k = e - il * BB;
+        T v = T(0);
+        if (k < nb && il < n_i) {
+          const size_t idx = (size_t)(b0 + k) * K1 + i0 + il;
+          v = g1f[idx] * exp_t(x1f[idx] - s1f[b0 + k]);
+        }
+        E1s[e] = v;
+      }
+  };
+
+  T acc[TN][TM];
+  auto tile = [&](int il, auto&& fn) {  // fn(element pointer, unit n, column m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      const int o = o0 + tx * TN + n;
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const int j = j0 + ty * TM + m;
+        if (o < O && j < K2) fn(dst + (size_t)o * I + (size_t)(i0 + il) * K2 + j, n, m);
+      }
+    }
+  };
+#pragma unroll
+  for (int n = 0; n < TN; ++n)
+#pragma unroll
+    for (int m = 0; m < TM; ++m) acc[n][m] = T(0);
+  for (int b0 = b_begin; b0 < b_end; b0 += BB) {
+    __syncthreads();  // the previous rows' contraction is done with the tiles
+    stage(b0);
+    __syncthreads();
+    const int nk = (min(BB, b_end - b0) + 3) & ~3;  // rows past the chunk staged as 0
+    const bool first = b0 == b_begin, last = b0 + BB >= b_end;
+    for (int il = 0; il < n_i; ++il) {
+      if (n_i > 1) {
+        if (first) {
+#pragma unroll
+          for (int n = 0; n < TN; ++n)
+#pragma unroll
+            for (int m = 0; m < TM; ++m) acc[n][m] = T(0);
+        } else {
+          tile(il, [&](T* p, int n, int m) { acc[n][m] = *p; });
+        }
+      }
+#pragma unroll 4
+      for (int k = 0; k < nk; ++k) {
+        T a[TN], bv[TM];
+        load4(&Gs[k][tx * TN], a);
+        if (TUCKER) {
+          const T e1 = E1s[il * BB + k];
+#pragma unroll
+          for (int n = 0; n < TN; ++n) a[n] *= e1;
+        }
+        load4(&Es[k][ty * TM], bv);
+#pragma unroll
+        for (int n = 0; n < TN; ++n)
+#pragma unroll
+          for (int m = 0; m < TM; ++m) acc[n][m] = fma_t(a[n], bv[m], acc[n][m]);
+      }
+      if (n_i > 1 || last) tile(il, [&](T* p, int n, int m) { *p = acc[n][m]; });
+    }
+  }
+}
+
+
+// The whole signed backward of a narrow dense layer (I, O <= 32: the squared
+// circuits' TensorDot entries) in one pass over its rows: one block per (fold,
+// chunk of the batch) stages the fold's weight once, then takes RT rows at a
+// time, each row held by TPR threads of V neighbouring columns: it reads x,
+// its sign, out, sign(out) and g once (the next rows' while the current ones
+// are contracted), takes the row's clamped max by shuffles, forms e = s exp(x
+// - m) and gy = g sign(y) exp(m - out) (zeroed where not finite) in registers,
+// writes dx = e (gy @ w) for its columns, and adds gy^T e into the block's dw
+// tile (a thread's 4 columns of one unit). No row shift, gy or e reaches
+// device memory: the bytes are the inputs read once and dx written once. The
+// chunk's dw goes to its plane of partials (sum_partials adds them in chunk
+// order) or straight to dw when the batch is one chunk.
+namespace narrow {
+constexpr int W = 32;  // the widest I and O
+template <typename T> constexpr int V = sizeof(T) == 4 ? 8 : 4;  // columns a thread of a row
+template <typename T> constexpr int TPR = W / V<T>;               // threads a row
+template <typename T> constexpr int RT = THREADS / TPR<T>;        // rows a pass
+}  // namespace narrow
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+slse_bwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __restrict__ w,
+                const T* __restrict__ out, const T* __restrict__ out_sign,
+                const T* __restrict__ g, T* __restrict__ dx, T* __restrict__ dwo, int F, int B,
+                int I, int O, int n_bc, int rows, bool vec) {
+  using narrow::W;
+  constexpr int V = narrow::V<T>, TPR = narrow::TPR<T>, RT = narrow::RT<T>;
+  __shared__ __align__(16) T Ws[W][W + 4];  // w[o][i], 0 outside O x I
+  __shared__ __align__(16) T Es[RT][W + 4];  // e of the pass's rows
+  __shared__ T Gs[RT][W + 1];                // gy of the pass's rows
+
+  const int f = blockIdx.x / n_bc, bc = blockIdx.x - f * n_bc;
+  const int b_begin = bc * rows, b_end = min(B, b_begin + rows);
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, c0 = (tid % TPR) * V;         // row of the pass, first column
+  const int wo = tid / (W / 4), wi = (tid % (W / 4)) * 4;  // the thread's dw tile
+  const size_t xoff = (size_t)f * B * I, ooff = (size_t)f * B * O;
+  for (int e = tid; e < W * W; e += THREADS) {
+    const int o = e / W, i = e - o * W;
+    Ws[o][i] = (o < O && i < I) ? w[((size_t)f * O + o) * I + i] : T(0);
+  }
+  // the pass's raw values: x and its sign over the row's V columns of I; out,
+  // sign(out) and g over its V columns of O; 16 bytes at a time where ``vec``
+  // (I and O multiples of 4, 16-byte aligned tensors)
+  T px[V], ps[V], po[V], pn[V], pg[V];
+  auto load = [&](int b0) {
+    const int b = b0 + r;
+    const size_t xr = xoff + (size_t)b * I, orow = ooff + (size_t)b * O;
+#pragma unroll
+    for (int v = 0; v < V; v += 4) {
+      const int c = c0 + v;
+      if (vec && b < b_end && c + 4 <= I) {
+        load4(x + xr + c, px + v);
+        load4(sx + xr + c, ps + v);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = b < b_end && c + u < I;
+          px[v + u] = in ? x[xr + c + u] : -INFINITY;
+          ps[v + u] = in ? sx[xr + c + u] : T(0);
+        }
+      }
+      if (vec && b < b_end && c + 4 <= O) {
+        load4(out + orow + c, po + v);
+        load4(out_sign + orow + c, pn + v);
+        load4(g + orow + c, pg + v);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = b < b_end && c + u < O;
+          po[v + u] = in ? out[orow + c + u] : T(0);
+          pn[v + u] = in ? out_sign[orow + c + u] : T(0);
+          pg[v + u] = in ? g[orow + c + u] : T(0);
+        }
+      }
+    }
+  };
+  T dwa[4] = {T(0), T(0), T(0), T(0)};
+  load(b_begin);
+  for (int b0 = b_begin; b0 < b_end; b0 += RT) {
+    T m = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < V; ++v) m = max_t(m, px[v]);
+#pragma unroll
+    for (int d = TPR / 2; d > 0; d >>= 1) m = max_t(m, __shfl_xor_sync(0xffffffffu, m, d));
+    m = clamp_max(m);
+    T e[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      e[v] = ps[v] * exp_t(px[v] - m);
+      T gy = pg[v] * exp_t(m - po[v]);
+      gy *= pn[v];
+      Gs[r][c0 + v] = isfinite(gy) ? gy : T(0);  // (after the previous pass's barrier)
+    }
+#pragma unroll
+    for (int v = 0; v < V; v += 4) store4(&Es[r][c0 + v], e[v], e[v + 1], e[v + 2], e[v + 3]);
+    __syncthreads();
+    const int b = b0 + r;
+    if (b0 + RT < b_end) load(b0 + RT);
+    if (dx != nullptr) {
+      T acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = T(0);
+#pragma unroll 8
+      for (int o = 0; o < W; ++o) {
+        const T gv = Gs[r][o];
+        T wv[V];
+#pragma unroll
+        for (int v = 0; v < V; v += 4) load4(&Ws[o][c0 + v], wv + v);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = fma_t(gv, wv[v], acc[v]);
+      }
+      if (b < b_end) {
+        T* drow = dx + xoff + (size_t)b * I + c0;
+#pragma unroll
+        for (int v = 0; v < V; v += 4) {
+          if (vec && c0 + v + 4 <= I) {
+            store4(drow + v, e[v] * acc[v], e[v + 1] * acc[v + 1], e[v + 2] * acc[v + 2],
+                   e[v + 3] * acc[v + 3]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (c0 + v + u < I) drow[v + u] = e[v + u] * acc[v + u];
+          }
+        }
+      }
+    }
+    if (dwo != nullptr)
+#pragma unroll 8
+      for (int rr = 0; rr < RT; ++rr) {
+        const T gv = Gs[rr][wo];
+        T ev[4];
+        load4(&Es[rr][wi], ev);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dwa[j] = fma_t(gv, ev[j], dwa[j]);
+      }
+    __syncthreads();  // the pass's tiles are read before the next one rewrites them
+  }
+  if (dwo != nullptr && wo < O) {
+    T* dst = dwo + (((size_t)bc * F + f) * O + wo) * I;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (wi + j < I) dst[wi + j] = dwa[j];
+  }
+}
+
+// dx, Tucker, split over K1 and K2: one block per (fold and 64 batch rows, 64
+// columns j of K2, I_PER rows i of K1), for the widths at which the
+// accumulators of lse_bwd_dx_tucker (a block's rows x (K1 + K2)) do not fit a
+// block's shared memory. For each of its rows i the block contracts the s
+// tile s[b, i*K2 + j] = sum_o gy[b,o] w[o, i*K2 + j] over the units (section
+// 3b's loop), then folds it in registers: the dx2 sums sum_i s e1[b,i] stay in
+// each thread's 4 x 4 tile, the dx1 sums sum_j s e2[b,j] (e2 held in
+// registers too) reduce over the 16 threads of a row. The block writes both
+// as partials, dx1 over its j tile and dx2 over its rows i, and
+// tucker_dx_finish adds them in a fixed order and multiplies by e.
+namespace tucker_split {
+constexpr int I_PER = 16;
+}  // namespace tucker_split
+
+template <typename T, bool SIGNED>
+__global__ void __launch_bounds__(THREADS)
+lse_bwd_dx_tucker_split(const T* __restrict__ x1, const T* __restrict__ x2,
+                        const T* __restrict__ w, const T* __restrict__ sa,
+                        const T* __restrict__ sb, const T* __restrict__ gy,
+                        const T* __restrict__ s1, const T* __restrict__ s2,
+                        T* __restrict__ part1, T* __restrict__ part2, int F, int B, int K1,
+                        int K2, int O, int n_bt) {
+  using namespace tucker_dx;
+  using tucker_split::I_PER;
+  __shared__ __align__(16) T As[BK][AS];  // gy, unit-major
+  __shared__ __align__(16) T Bs[BK][BS];  // w, unit-major
+  __shared__ T E1[I_PER][BM];             // e1 of the block's rows i
+
+  const int f = blockIdx.x / n_bt;
+  const int b0 = (blockIdx.x - f * n_bt) * BM;
+  const int j0 = blockIdx.y * BN;
+  const int i0 = blockIdx.z * I_PER;
+  const int n_i = min(I_PER, K1 - i0);
+  const int I = K1 * K2;
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const T* gyf = gy + (size_t)f * B * O;
+  const T* wf = w + (size_t)f * O * I;
+
+  for (int e = tid; e < I_PER * BM; e += THREADS) {
+    const int il = e / BM, r = e - il * BM, b = b0 + r;
+    T v = T(0);
+    if (b < B && il < n_i) {
+      const size_t idx = ((size_t)f * B + b) * K1 + i0 + il;
+      v = exp_t(x1[idx] - sa[(size_t)f * B + b]);
+      if (SIGNED) v *= s1[idx];
+    }
+    E1[il][r] = v;
+  }
+  T e2[TM][TN], a2[TM][TN], acc[TM][TN];
+#pragma unroll
+  for (int ii = 0; ii < TM; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int b = b0 + ty * TM + ii, j = j0 + tx * TN + jj;
+      T v = T(0);
+      if (b < B && j < K2) {
+        const size_t idx = ((size_t)f * B + b) * K2 + j;
+        v = exp_t(x2[idx] - sb[(size_t)f * B + b]);
+        if (SIGNED) v *= s2[idx];
+      }
+      e2[ii][jj] = v;
+      a2[ii][jj] = T(0);
+    }
+
+  const int skk = tid % BK, srow = tid / BK;
+  const int wcol = tid % BN, wk = tid / BN;
+  T pa[A_PER], pw[W_PER];
+  auto load_chunk = [&](int il, int o0) {
+#pragma unroll
+    for (int n = 0; n < A_PER; ++n) {
+      const int b = b0 + srow + n * RSTEP, o = o0 + skk;
+      pa[n] = (b < B && o < O) ? gyf[(size_t)b * O + o] : T(0);
+    }
+    const size_t col = (size_t)(i0 + il) * K2 + j0 + wcol;
+#pragma unroll
+    for (int n = 0; n < W_PER; ++n) {
+      const int o = o0 + wk + n * WSTEP;
+      pw[n] = (o < O && j0 + wcol < K2) ? wf[(size_t)o * I + col] : T(0);
+    }
+  };
+
+  const int n_chunks = (O + BK - 1) / BK;
+  const int n_steps = n_i * n_chunks;
+  load_chunk(0, 0);
+  for (int step = 0; step < n_steps; ++step) {
+    const int il = step / n_chunks;
+    const int chunk = step - il * n_chunks;
+    if (chunk == 0) {
+#pragma unroll
+      for (int ii = 0; ii < TM; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) acc[ii][jj] = T(0);
+    }
+#pragma unroll
+    for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+#pragma unroll
+    for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+    __syncthreads();  // (the first one also orders the prologue's E1)
+    if (step + 1 < n_steps) {
+      const int nl = (step + 1) / n_chunks;
+      load_chunk(nl, (step + 1 - nl * n_chunks) * BK);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      T a[TM], bb[TN];
+      load4(&As[kk][ty * TM], a);
+      load4(&Bs[kk][tx * TN], bb);
+#pragma unroll
+      for (int ii = 0; ii < TM; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) acc[ii][jj] = fma_t(a[ii], bb[jj], acc[ii][jj]);
+    }
+    __syncthreads();
+    if (chunk != n_chunks - 1) continue;
+#pragma unroll
+    for (int ii = 0; ii < TM; ++ii) {
+      const int r = ty * TM + ii;
+      const T e1 = E1[il][r];
+      T p = T(0);
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) {
+        a2[ii][jj] = fma_t(acc[ii][jj], e1, a2[ii][jj]);
+        p = fma_t(acc[ii][jj], e2[ii][jj], p);
+      }
+#pragma unroll
+      for (int d = BN / TN / 2; d > 0; d >>= 1) p += __shfl_xor_sync(0xffffffffu, p, d);
+      if (tx == 0 && b0 + r < B)
+        part1[(((size_t)blockIdx.y * F + f) * B + b0 + r) * K1 + i0 + il] = p;
+    }
+  }
+
+  // part2[it][f][b][j] over this block's rows i
+#pragma unroll
+  for (int ii = 0; ii < TM; ++ii) {
+    const int b = b0 + ty * TM + ii;
+    if (b >= B) continue;
+    T* dst = part2 + (((size_t)blockIdx.z * F + f) * B + b) * K2;
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int j = j0 + tx * TN + jj;
+      if (j < K2) dst[j] = a2[ii][jj];
+    }
+  }
+}
+
+// dx1 = e1 * (sum of the n1 dx1 partials), dx2 = e2 * (sum of the n2 dx2
+// partials), added in partial order, with e = s exp(x - shift) for SIGNED;
+// one warp per (fold, batch row). The finish of both K1-split Tucker dx
+// kernels, tc_dx_tucker's (section 6) and lse_bwd_dx_tucker_split's.
+template <typename T, bool SIGNED>
+__global__ void __launch_bounds__(THREADS)
+tucker_dx_finish(const T* __restrict__ x1, const T* __restrict__ x2,
+                 const T* __restrict__ sa, const T* __restrict__ sb,
+                 const T* __restrict__ s1, const T* __restrict__ s2,
+                 const T* __restrict__ part1, const T* __restrict__ part2,
+                 T* __restrict__ dx1, T* __restrict__ dx2, int F, int B, int K1, int K2,
+                 int n1, int n2) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const size_t row = (size_t)blockIdx.x * B + b;
+  const size_t plane = (size_t)F * B;
+  if (dx1 != nullptr)
+    for (int k = lane; k < K1; k += 32) {
+      T s = T(0);
+      for (int p = 0; p < n1; ++p) s += part1[(p * plane + row) * K1 + k];
+      T e = exp_t(x1[row * K1 + k] - sa[row]);
+      if (SIGNED) e *= s1[row * K1 + k];
+      dx1[row * K1 + k] = e * s;
+    }
+  if (dx2 != nullptr)
+    for (int k = lane; k < K2; k += 32) {
+      T s = T(0);
+      for (int p = 0; p < n2; ++p) s += part2[(p * plane + row) * K2 + k];
+      T e = exp_t(x2[row * K2 + k] - sb[row]);
+      if (SIGNED) e *= s2[row * K2 + k];
+      dx2[row * K2 + k] = e * s;
+    }
+}
+
+// --------------------------------------------------------------------------
+// Launch
+// --------------------------------------------------------------------------
+
+// Whether a block of section 3b's Tucker dx kernel (its accumulators and the
+// static staging tiles) fits the card's shared memory; wider layers take the
+// K1 split of section 7.
+template <typename T>
+inline bool tucker_dx_fits(int K1, int K2) {
+  using namespace tucker_dx;
+  return tucker_dx_smem<T>(K1, K2) + sizeof(T) * BK * (AS + BS) <= MAX_SMEM;
+}
+
+// The CUDA-core instances' gy scratch (T values, GyPlan's layout): the
+// narrow route (slse_bwd_narrow) and the batch-split dw are SIGNED's; the
+// K1 split is taken at widths past tucker_dx_fits.
+template <typename T>
+inline GyPlan gy_plan(bool is_signed, bool tucker, int F, int B, int K1, int K2, int O) {
+  GyPlan p;
+  const int k1 = tucker ? K1 : 1, k2 = tucker ? K2 : K1;  // dense: K1 = I
+  const size_t I = (size_t)k1 * k2;
+  p.narrow = is_signed && !tucker && k2 <= narrow::W && O <= narrow::W;
+  p.dw_part = p.narrow ? 0 : (size_t)F * B * O;
+  if (p.narrow) {
+    p.n_bc = batch_chunks(F, B, narrow::RT<T>, 4 * narrow::RT<T>, 1024, &p.rows);
+  } else if (is_signed) {
+    const long long tiles =
+        (long long)F * cdiv(k1, sdw::NI) * cdiv(k2, sdw::BJ) * cdiv(O, sdw::BO);
+    p.n_bc = batch_chunks(tiles, B, sdw::BB, 2 * sdw::BB, 2048, &p.rows);
+  }
+  p.dx_part = p.dw_part + (p.n_bc > 1 ? (size_t)p.n_bc * F * O * I : 0);
+  p.split = tucker && !tucker_dx_fits<T>(K1, K2);
+  p.total = p.dx_part +
+            (p.split ? tucker_split_size(F, B, K1, K2, tucker_dx::BN, tucker_split::I_PER) : 0);
+  return p;
+}
+
+// The signed dw in the batch chunks of the plan, then their planes added.
+template <typename T, bool TUCKER>
+cudaError_t launch_sdw(const T* xa, const T* xb, const T* sa, const T* sb, const T* gy,
+                       const T* sga, const T* sgb, T* dw, T* part, int F, int B, int I, int K1,
+                       int K2, int O, const GyPlan& p, cudaStream_t s) {
+  const int k2 = TUCKER ? K2 : I;
+  T* out = p.n_bc > 1 ? part : dw;
+  constexpr size_t smem = sdw::smem<T>();
+  auto kernel = slse_bwd_dw_part<T, TUCKER>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_it = TUCKER ? static_cast<int>(cdiv(K1, sdw::NI)) : 1;
+  const dim3 grid(F * n_it * p.n_bc, cdiv(k2, sdw::BJ), cdiv(O, sdw::BO));
+  kernel<<<grid, THREADS, smem, s>>>(xa, xb, sa, sb, gy, sga, sgb, out, F, B, TUCKER ? K1 : 1,
+                                     k2, O, n_it, p.n_bc, p.rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_bc == 1) return err;
+  return cirkit::launch_sum_partials<T>(part, dw, (size_t)F * O * I, p.n_bc, s);
+}
+
+// The signed dense backward of a narrow layer: the softmax weights where
+// there are logits, slse_bwd_narrow, the chunks' dw planes added, the
+// softmax VJP.
+template <typename T, bool SOFTMAX>
+int launch_narrow(const T* x, const T* w, const T* out, const T* g, T* dx, T* dw, T* gy, T* ws,
+                  int F, int B, int I, int O, cudaStream_t s, const T* sx, const T* out_sign,
+                  const GyPlan& p) {
+  cudaError_t err;
+  if (SOFTMAX) {
+    softmax_weights<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, ws, O, I);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    w = ws;
+  }
+  auto aligned = [](const void* q) {
+    return q == nullptr || reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const bool vec = I % 4 == 0 && O % 4 == 0 && aligned(x) && aligned(sx) && aligned(out) &&
+                   aligned(out_sign) && aligned(g) && aligned(dx);
+  T* dwo = dw == nullptr ? nullptr : p.n_bc > 1 ? gy + p.dw_part : dw;
+  slse_bwd_narrow<T><<<F * p.n_bc, THREADS, 0, s>>>(x, sx, w, out, out_sign, g, dx, dwo, F, B, I,
+                                                     O, p.n_bc, p.rows, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (dw == nullptr) return 0;
+  if (p.n_bc > 1 &&
+      (err = cirkit::launch_sum_partials<T>(dwo, dw, (size_t)F * O * I, p.n_bc, s)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  if (SOFTMAX) {
+    softmax_vjp<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 // ``w`` is the weight, or for SOFTMAX the logits and ``ws`` the (F, O, I)
-// scratch that receives their softmax. SIGNED takes the inputs' signs
-// ``sga``/``sgb`` and the forward's sign output ``out_sign``.
+// scratch that receives their softmax; ``gy`` holds gy_plan's total. SIGNED
+// takes the inputs' signs ``sga``/``sgb`` and the forward's sign output
+// ``out_sign``, and the dense dx and batch-split dw of section 7; the double
+// lse instances keep those of sections 3a and 4. A Tucker dx too wide for
+// one block takes section 7's K1 split.
 template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
 int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
                const T* g, T* dxa, T* dxb, T* dw, T* sa, T* sb,
@@ -1190,6 +1742,10 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool need_dx = dxa != nullptr || dxb != nullptr;
   const int KA = TUCKER ? K1 : I;
+  const GyPlan plan = gy_plan<T>(SIGNED, TUCKER, F, B, K1, K2, O);
+  if constexpr (SIGNED && !TUCKER)
+    if (plan.narrow) return launch_narrow<T, SOFTMAX>(xa, w, out, g, dxa, dw, gy, ws, F, B, I, O,
+                                                      s, sga, out_sign, plan);
 
   bwd_prep<T, TUCKER, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
       xa, xb, out, g, out_sign, sa, sb, gy, B, KA, K2, O);
@@ -1200,7 +1756,18 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
     w = ws;
   }
   if (need_dx) {
-    if (TUCKER) {
+    if (TUCKER && plan.split) {
+      const int n_bt = static_cast<int>(cdiv(B, tucker_dx::BM));
+      const int n_jt = static_cast<int>(cdiv(K2, tucker_dx::BN));
+      const int n_it = static_cast<int>(cdiv(K1, tucker_split::I_PER));
+      T* part1 = gy + plan.dx_part;
+      T* part2 = part1 + (size_t)n_jt * F * B * K1;
+      lse_bwd_dx_tucker_split<T, SIGNED><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
+          xa, xb, w, sa, sb, gy, sga, sgb, part1, part2, F, B, K1, K2, O, n_bt);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      tucker_dx_finish<T, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+          xa, xb, sa, sb, sga, sgb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+    } else if (TUCKER) {
       const size_t smem = tucker_dx_smem<T>(K1, K2);
       err = cudaFuncSetAttribute(lse_bwd_dx_tucker<T, SIGNED>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1216,10 +1783,15 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dw != nullptr) {
-    const dim3 grid(F, cdiv(O, dw_tile::BN), cdiv(I, dw_tile::BM * dw_tile::TILES));
-    lse_bwd_dw<T, TUCKER, SIGNED><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, sga, sgb, dw, B,
-                                                           I, K1, K2, O);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if constexpr (SIGNED) {
+      err = launch_sdw<T, TUCKER>(xa, xb, sa, sb, gy, sga, sgb, dw, gy + plan.dw_part, F, B, I,
+                                  K1, K2, O, plan, s);
+    } else {
+      const dim3 grid(F, cdiv(O, dw_tile::BN), cdiv(I, dw_tile::BM * dw_tile::TILES));
+      lse_bwd_dw<T, TUCKER><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, dw, B, I, K1, K2, O);
+      err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (SOFTMAX) {
       softmax_vjp<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -1233,9 +1805,7 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
 // (ceil(K2 / 64), F, B, K1) for dx1 and (ceil(K1 / I_PER), F, B, K2) for dx2.
 inline size_t tc_scratch(bool tucker, bool softmax, int F, int B, int K1, int K2, int O) {
   size_t n = softmax ? 2 * (size_t)F * O : 0;
-  if (tucker)
-    n += (size_t)F * B * ((size_t)cdiv(K2, tc_dx::BN) * K1 +
-                          (size_t)cdiv(K1, tc_tucker::I_PER) * K2);
+  if (tucker) n += tucker_split_size(F, B, K1, K2, tc_dx::BN, tc_tucker::I_PER);
   return n;
 }
 
@@ -1308,8 +1878,8 @@ int launch_bwd_tc(const float* xa, const float* xb, const float* w, const float*
       tc_dx_tucker<SOFTMAX><<<dim3(F * n_bt, n_jt, n_it), THREADS, tc_tucker::SMEM, s>>>(
           xa, xb, w, lse, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt, vec);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      tucker_dx_finish<<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
-          xa, xb, sa, sb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+      tucker_dx_finish<float, false><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+          xa, xb, sa, sb, nullptr, nullptr, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
     } else {
       tc_dx_dense<SOFTMAX><<<dim3(F, cdiv(I, tc_dx::BN), cdiv(B, tc_dx::BM)), THREADS, 0, s>>>(
           xa, w, lse, sa, gy, dxa, B, I, O);
@@ -1338,10 +1908,9 @@ extern "C" {
 // _f64). The float lse entries take the tensor-core path (section 6), with
 // the scratch ws of lse_bwd_scratch floats (its Tucker entries gain that
 // argument); the double ones and every signed entry the kernels of sections
-// 1-5, the softmax with an (F, O, I) scratch ws. lse_bwd_tucker_smem: the
-// shared memory a block of those sections' Tucker dx kernel uses at (K1,
-// K2), static staging tiles included, in bytes. The
-// signed entries take the (log-magnitude, sign) inputs and the forward's
+// 1-5 and 7, the softmax with an (F, O, I) scratch ws, and a gy scratch of
+// lse_bwd_gy_size values (dense: K1 = I, K2 = 1), which holds gy and the
+// partial sums of section 7. The signed entries take the (log-magnitude, sign) inputs and the forward's
 // (log|y|, sign y) outputs, and write the gradients of the log-magnitude
 // inputs and of the weight (a null pointer skips one).
 #define LSE_BWD_ENTRIES(SUFFIX, T)                                                                  \
@@ -1372,9 +1941,9 @@ extern "C" {
   }
 
 #define SLSE_BWD_ENTRIES(SUFFIX, T)                                                                 \
-  size_t lse_bwd_tucker_smem##SUFFIX(int K1, int K2) {                                          \
-    using namespace tucker_dx;                                                                  \
-    return tucker_dx_smem<T>(K1, K2) + sizeof(T) * BK * (AS + BS);                              \
+  size_t lse_bwd_gy_size##SUFFIX(int is_signed, int tucker, int F, int B, int K1, int K2,       \
+                                 int O) {                                                       \
+    return gy_plan<T>(is_signed != 0, tucker != 0, F, B, K1, K2, O).total;                      \
   }                                                                                             \
   int slse_bwd_dense##SUFFIX(const T* a, const T* s, const T* w, const T* oa, const T* os,      \
                              const T* g, T* da, T* dw, T* sa, T* gy, int F, int B, int I,       \

@@ -51,7 +51,9 @@ _SIGNATURES = {
     "lse_bwd_dense_softmax": ((*(_P,) * 9, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker": ((*(_P,) * 11, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_tucker_softmax": ((*(_P,) * 12, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
-    "lse_bwd_tucker_smem": ((_I, _I), ctypes.c_size_t),
+    # the values of the CUDA-core instances' gy scratch (gy and their
+    # partial sums): signed, tucker, F, B, K1, K2, O (dense: K1 = I, K2 = 1)
+    "lse_bwd_gy_size": ((_I,) * 7, ctypes.c_size_t),
     # the signed entries of the same two sources: each input is a
     # (log-magnitude, sign) pair, the forward writes (log|y|, sign y), and
     # the backward reads both outputs beside g
@@ -79,7 +81,9 @@ _SIGNATURES = {
     # (dxa, dxb, dw) and the scratch (sa, sb, gy) after out
     "clse_fwd": ((*(_P,) * 4, *(_I,) * 9, _P), ctypes.c_int),
     "clse_bwd": ((*(_P,) * 11, *(_I,) * 9, _P), ctypes.c_int),
-    "clse_bwd_tucker_smem": ((_I, _I, _I), ctypes.c_size_t),
+    # the complex values of the backward's gy scratch: F, B, K1, K2, O and
+    # the three flags
+    "clse_bwd_gy_size": ((_I,) * 8, ctypes.c_size_t),
     "cirkit_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 # every source but clse_einsum.cu builds each entry for float (the plain

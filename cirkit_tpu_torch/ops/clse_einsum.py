@@ -49,7 +49,6 @@ from cirkit_tpu_torch.ops import _build
 from cirkit_tpu_torch.ops.lse_einsum import (
     LAUNCHES,
     _MAX_GRID_YZ,
-    _MAX_SMEM,
     _call,
     _check_cuda,
     _check_dense,
@@ -241,12 +240,12 @@ def _launch_bwd(
     if max(-(-b // _PREP_ROWS), -(-o // _TILE), -(-width // _TILE)) > _MAX_GRID_YZ:
         raise ValueError(f"{name}: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    if tucker and (needs[0] or needs[1]) and lib.clse_bwd_tucker_smem(k1, k2, double) > _MAX_SMEM:
-        raise ValueError(f"{name}: K1, K2 = {(k1, k2)} in {ins[0].dtype} exceed the dx "
-                         "kernel's shared memory")
     real = _REAL_OF[ins[0].dtype]
     shifts = [torch.empty((f, b), device=dev, dtype=real) for _ in range(2 if tucker else 1)]
-    gy = torch.empty_like(out)
+    # gy, with room for the partial sums of the batch-split dw and of a
+    # Tucker dx split over K1
+    gy = torch.empty(lib.clse_bwd_gy_size(f, b, k1, k2, o, tucker, w_complex, double),
+                     device=dev, dtype=out.dtype)
     dxs = [None if d is None else d.data_ptr() for d in grads[:-1]]
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (

@@ -71,7 +71,6 @@ _BLOCKED_TILES = {"": (128, 128), "_f64": (128, 64)}
 # the backward kernels' grid tiles (csrc/lse_einsum_bwd.cu): rows per warp
 # pass, and input columns of the dense dx kernel (the other grids are smaller)
 _BWD_ROWS, _BWD_DX_COLS = 8, 64
-_MAX_SMEM = 232_448  # shared memory a block can use on sm_90
 
 
 def _clamp_max(x: torch.Tensor) -> torch.Tensor:
@@ -338,15 +337,6 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
     return out
 
 
-def _check_tucker_smem(lib, op: str, widths: tuple[int, int], dtype: torch.dtype,
-                       suffix: str) -> None:
-    """Raise where the Tucker dx kernel's accumulators (rows of K1 + K2
-    sums, twice as large in float64) do not fit a block's shared memory."""
-    if getattr(lib, "lse_bwd_tucker_smem" + suffix)(*widths) > _MAX_SMEM:
-        raise ValueError(f"{op}: K1, K2 = {tuple(widths)} in {dtype} exceed the dx kernel's "
-                         "shared memory")
-
-
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], out: torch.Tensor, g: torch.Tensor,
     needs: tuple[bool, ...],
@@ -367,19 +357,20 @@ def _launch_bwd(
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
     softmax = op.endswith("softmax")
-    # scratch: the row shifts and gy; in float64 for softmax the (F, O, I)
-    # weights, in float32 what the tensor-core path asks for (the softmax
-    # statistics, the Tucker dx partials)
+    # scratch: the row shifts and gy; in float64 gy's buffer also holds the
+    # partial sums of a Tucker dx split over K1 (lse_bwd_gy_size), and for
+    # softmax the (F, O, I) weights follow; in float32 what the tensor-core
+    # path asks for (the softmax statistics, the Tucker dx partials)
+    k1, k2 = sizes[2:4] if tucker else (i, 1)
     scratch = [torch.empty((f, b), device=dev, dtype=ins[0].dtype)
                for _ in range(2 if tucker else 1)]
-    scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
     if suffix:
-        if tucker and (needs[0] or needs[1]):
-            _check_tucker_smem(lib, f"{op} backward", sizes[2:4], ins[0].dtype, suffix)
+        n = lib.lse_bwd_gy_size_f64(0, int(tucker), f, b, k1, k2, o)
+        scratch.append(torch.empty(n, device=dev, dtype=ins[0].dtype))
         if softmax:
             scratch.append(torch.empty_like(ins[-1]))
     else:
-        k1, k2 = sizes[2:4] if tucker else (i, 1)
+        scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
         n = lib.lse_bwd_scratch(int(tucker), int(softmax), f, b, k1, k2, o)
         if n:
             scratch.append(torch.empty(n, device=dev, dtype=torch.float32))

@@ -51,7 +51,6 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _check_dense,
     _check_single_pass,
     _check_tucker,
-    _check_tucker_smem,
     _clamp_max,
     _on_cpu,
     _softmax_vjp,
@@ -238,12 +237,14 @@ def _launch_bwd(
     if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    if tucker and (needs[0] or needs[2]):
-        _check_tucker_smem(lib, f"{op} backward", sizes[2:4], ins[0].dtype, suffix)
-    # scratch: the row shifts, gy, and for softmax the (F, O, I) weights
+    # scratch: the row shifts, gy with room for the partial sums of the
+    # batch-split dw and of a Tucker dx split over K1 (lse_bwd_gy_size), and
+    # for softmax the (F, O, I) weights
+    k1, k2 = sizes[2:4] if tucker else (i, 1)
     scratch = [torch.empty((f, b), device=dev, dtype=ins[0].dtype)
                for _ in range(2 if tucker else 1)]
-    scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
+    n = getattr(lib, "lse_bwd_gy_size" + suffix)(1, int(tucker), f, b, k1, k2, o)
+    scratch.append(torch.empty(n, device=dev, dtype=ins[0].dtype))
     if op.endswith("softmax"):
         scratch.append(torch.empty_like(ins[-1]))
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -828,22 +828,29 @@ def test_float64_signed_kernels_match_plain(op, f, b, o):
 
 
 def test_float64_refusals_name_the_shape():
-    """The float64 Tucker dx kernel's accumulators do not fit a block's
-    shared memory at K1 = K2 = 128 (and from 90): the float64 backward
-    raises and names the shape, with no plain fallback, while the float64
-    forward there takes the K1-chunked kernel."""
-    x1, x2, w = (t.double().requires_grad_() for t in _inputs("lse_tucker2", 1, 8, 16, k1=128,
-                                                               k2=128))
-    out = T.lse_tucker2(x1, x2, w)
-    assert out.dtype == torch.float64 and T.LAUNCHES["lse_tucker2_chunked"] == 1
-    with pytest.raises(ValueError, match=r"\(128, 128\) in torch.float64"):
-        out.sum().backward()
-    x1, x2, w = (t.double().requires_grad_() for t in _inputs("lse_tucker2", 1, 8, 16, k1=90,
-                                                               k2=90))
-    out = T.lse_tucker2(x1, x2, w)
-    with pytest.raises(ValueError, match=r"\(90, 90\) in torch.float64"):
-        out.sum().backward()
-    assert T.LAUNCHES["lse_tucker2"] == 1 and T.LAUNCHES["lse_tucker2_bwd"] == 0
+    """The float64 Tucker backward at widths whose dx accumulators do not fit
+    a block's shared memory (from K1 = K2 = 88): the K1-split dx kernel and
+    its finish, against the plain float64 backward, at (90, 90), where the
+    forward takes the single-pass kernel, and at (128, 128), where it takes
+    the K1-chunked one. (Such widths raised until the split existed; the
+    test keeps its name.)"""
+    for k, fwd in ((90, "lse_tucker2"), (128, "lse_tucker2_chunked")):
+        ins = [t.double() for t in _inputs("lse_tucker2", 2, 70, 5, k1=k, k2=k)]
+        ins[0][0, 2] = float("-inf")
+        ins = [t.requires_grad_() for t in ins]
+        out = T.lse_tucker2(*ins)
+        assert out.dtype == torch.float64 and T.LAUNCHES[fwd] == 1
+        g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda", dtype=torch.float64)
+        g[1, 3:5] = 0.0
+        grads = torch.autograd.grad(out, ins, g)
+        with torch.no_grad():
+            refs = T.lse_tucker2_bwd_ref(*ins, out.detach(), g)
+        torch.cuda.synchronize()
+        for n, (got, r) in enumerate(zip(grads, refs)):
+            _bwd_close_f64(got, r, zeros=n < 2)
+        assert (grads[0][0, 2] == 0).all() and (grads[0][1, 3:5] == 0).all()
+    assert T.LAUNCHES["lse_tucker2_bwd"] == 2
 
 
 def _fwd_close_f64(out, ref):
@@ -1226,3 +1233,154 @@ def test_tensor_core_single_pass_tucker_against_float64_at_k64(op):
     torch.cuda.synchronize()
     assert T.LAUNCHES[op] == 1
     _fwd_close(got.double(), ref)
+
+
+# --------------------------------------------------------------------------- #
+# Every Tucker backward at widths past one block, and the signed and complex
+# backwards (kernels 7 and 11) at the SoS entry and its edges
+# --------------------------------------------------------------------------- #
+
+# (op, dtype, K1, K2): each width past the single-block Tucker dx kernel's
+# shared memory for its type (float32 signed from 202, float64 from 88,
+# complex64 from 105, complex128 from 100), K1 = K2 = 128 and K1 != K2, and
+# float32 signed at 128 (one block) beside 208 (the split)
+WIDE_TUCKER = [
+    ("slse_tucker2", torch.float32, 128, 128),
+    ("slse_tucker2", torch.float32, 208, 208),
+    ("slse_tucker2_softmax", torch.float32, 100, 120),
+    ("slse_tucker2", torch.float64, 128, 128),
+    ("slse_tucker2_softmax", torch.float64, 100, 120),
+    *(("clse_tucker2", dtype, k1, k2, real_w) for dtype in (torch.complex64, torch.complex128)
+      for k1, k2 in ((128, 128), (100, 120)) for real_w in (False, True)),
+]
+
+
+def _grads_twice(out, diff, g):
+    first = torch.autograd.grad(out, diff, g, retain_graph=True)
+    again = torch.autograd.grad(out, diff, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), "two calls differ"
+    return first
+
+
+@pytest.mark.parametrize("case", WIDE_TUCKER, ids=lambda c: "-".join(map(str, c)).replace(
+    "torch.", ""))
+def test_tucker_backward_past_one_block_matches_plain(case):
+    """The signed and complex Tucker backwards where their dx accumulators do
+    not fit one block (and float32 signed at 128, where they do): F = 2, a
+    ragged batch of 70, O = 5, a row that is all -inf and a cotangent that
+    is 0 on some rows, against the plain version in the op's type; two
+    calls give the same bits."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    op, dtype, k1, k2 = case[:4]
+    f, b, o = 2, 70, 5
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if op.startswith("clse"):
+        tol, rel = _COMPLEX_TOL[dtype]
+        ins = _complex_inputs(op, f, b, o, dtype, real_w=case[4], k1=k1, k2=k2)
+        ins[0][0, 2] = complex(float("-inf"), 0.5)
+        ins = [t.requires_grad_() for t in ins]
+        out = C.clse_tucker2(*ins)
+        real = out.real.dtype
+        g = torch.complex(*(torch.randn(out.shape, generator=gen, device="cuda", dtype=real)
+                            for _ in range(2)))
+        g[1, :3] = 0.0
+        grads = _grads_twice(out, ins, g)
+        with torch.no_grad():
+            refs = C.clse_tucker2_bwd_ref(*ins, out.detach(), g)
+        torch.cuda.synchronize()
+        for n, (got, r) in enumerate(zip(grads, refs)):
+            _complex_bwd_close(got, r, rel, zeros=n < 2)
+    else:
+        ins = [t.to(dtype) for t in _signed_inputs(op, f, b, o, k1=k1, k2=k2)]
+        ins[0][0, 2] = float("-inf")
+        ins = [t.requires_grad_(n % 2 == 0 or n == 4) for n, t in enumerate(ins)]
+        oa, os_ = getattr(S, op)(*ins)
+        g = torch.randn(oa.shape, generator=gen, device="cuda", dtype=dtype)
+        g[1, :3] = 0.0
+        diff = [t for t in ins if t.requires_grad]
+        grads = _grads_twice(oa, diff, g)
+        with torch.no_grad():
+            refs = [r for r in getattr(S, f"{op}_bwd_ref")(*ins, oa.detach(), os_, g)
+                    if r is not None]
+        torch.cuda.synchronize()
+        for n, (got, r) in enumerate(zip(grads, refs)):
+            if dtype == torch.float64:
+                _bwd_close_f64(got, r, zeros=n < 2)
+            else:
+                _close(got, r, zeros=n < 2)
+    assert (grads[0][0, 2] == 0).all() and (grads[0][1, :3] == 0).all()
+    assert T.LAUNCHES[f"{op}_bwd"] == 2
+
+
+# (f, B, I, O): the SoS entry, a ragged batch of 4000, O = 1, I = 33 (no
+# 16-byte rows) and both at once
+SOS_EDGES = [(144, 4096, 32, 32), (144, 4000, 32, 32), (16, 4096, 32, 1), (16, 4096, 33, 32),
+             (16, 4000, 33, 33)]
+SOS_OPS = [("slse_matmul", torch.float32), ("slse_matmul_softmax", torch.float32),
+           ("slse_matmul", torch.float64), ("clse_matmul", torch.complex64, False),
+           ("clse_matmul", torch.complex64, True), ("clse_matmul", torch.complex128, False),
+           ("clse_matmul", torch.complex128, True)]
+
+
+@pytest.mark.parametrize("opcase", SOS_OPS, ids=lambda c: "-".join(map(str, c)).replace(
+    "torch.", ""))
+@pytest.mark.parametrize("f,b,i,o", SOS_EDGES)
+def test_sos_backward_edges_match_plain(f, b, i, o, opcase):
+    """The dense signed and complex backwards (kernels 7 and 11: a dx tile
+    that fits I, a dw split over the batch) against their plain versions at
+    the SoS entry and its edges, with a row that is all -inf, rows of fold 0
+    whose sum cancels exactly (gradient 0, no NaN) and a cotangent that is 0
+    on some rows; two calls give the same bits."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    op, dtype = opcase[:2]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = slice(9, 12)  # the rows of fold 0 that cancel
+    if op.startswith("clse"):
+        tol, rel = _COMPLEX_TOL[dtype]
+        x, w = _complex_inputs(op, f, b, o, dtype, real_w=opcase[2], i=i)
+        x[0, 2] = complex(float("-inf"), 0.5)
+        # phase 0, magnitude 1 against weights +1, -1, ...: y = 0 exactly
+        x[0, rows] = 0.0
+        x[0, rows, 32:] = complex(float("-inf"), 0.0)
+        w[0] = torch.tensor([1.0, -1.0], device="cuda").repeat(i)[:i].to(w.dtype)
+        ins = [x.requires_grad_(), w.requires_grad_()]
+        out = C.clse_matmul(*ins)
+        real = out.real.dtype
+        g = torch.complex(*(torch.randn(out.shape, generator=gen, device="cuda", dtype=real)
+                            for _ in range(2)))
+        g[1, :3] = 0.0
+        assert torch.isneginf(out.real[0, rows]).all()
+        grads = _grads_twice(out, ins, g)
+        with torch.no_grad():
+            refs = C.clse_matmul_bwd_ref(*ins, out.detach(), g)
+        torch.cuda.synchronize()
+        _complex_bwd_close(grads[0], refs[0], rel, zeros=True)
+        _complex_bwd_close(grads[1], refs[1], rel)
+    else:
+        a, s, w = (t.to(dtype) for t in _signed_inputs(op, f, b, o, i=i))
+        a[0, 2] = float("-inf")
+        # equal magnitudes, alternating signs against equal weights: y = 0
+        a[0, rows] = 0.0
+        s[0, rows] = torch.tensor([1.0, -1.0], device="cuda").repeat(i)[:i].to(dtype)
+        s[0, rows, 32:] = 0.0
+        w[0] = 0.0 if "softmax" in op else 1.0
+        ins = [a.requires_grad_(), s, w.requires_grad_()]
+        oa, os_ = getattr(S, op)(*ins)
+        assert torch.isneginf(oa[0, rows]).all() and (os_[0, rows] == 0).all()
+        g = torch.randn(oa.shape, generator=gen, device="cuda", dtype=dtype)
+        g[1, :3] = 0.0
+        grads = _grads_twice(oa, [ins[0], ins[2]], g)
+        with torch.no_grad():
+            refs = [r for r in getattr(S, f"{op}_bwd_ref")(*ins, oa.detach(), os_, g)
+                    if r is not None]
+        torch.cuda.synchronize()
+        close = _bwd_close_f64 if dtype == torch.float64 else _close
+        close(grads[0], refs[0], zeros=True)
+        close(grads[1], refs[1])
+    assert (grads[0][0, 2] == 0).all() and (grads[0][0, rows] == 0).all()
+    assert (grads[0][1, :3] == 0).all()
+    assert T.LAUNCHES[f"{op}_bwd"] == 2
