@@ -62,7 +62,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    SoS entry's edges (a ragged B*Kq of 4000, I = 33 with O = 1) and a
    Tucker width past one block of the dx kernel (K1 = K2 = 208, the K1
    split); the backward's launches split one by one (``torch.profiler``) at
-   the SoS and K=64 Tucker entries;
+   the SoS and K=64 Tucker entries; the narrow forward's route edges
+   (``NARROW_EDGES``: I and O of 1, 7, 32 and 33, B of 1, 33 and 4096, a row
+   that is all -inf) with plain weights and logits in float32 and float64
+   (``F64_*`` bounds), the forward's kernel named by ``torch.profiler`` there
+   and at the SoS entry (``slse_fwd_narrow`` exactly where I and O are at
+   most 32), and every forward twice, equal to the bit;
 3e. complex against plain: ``clse_matmul`` and ``clse_tucker2``, forward
    and backward, against their plain versions at the SoS TensorDot entry,
    the K=64 Tucker entry (with the real weights the flagship gives it, and
@@ -77,7 +82,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    edges (a ragged B*Kq of 4000, I = 33 with O = 1) and K1 = K2 = 128 (past
    one block of the Tucker dx: the K1 split) in complex64 and, with real
    weights, complex128; the backward's launches split one by one at every
-   timed shape;
+   timed shape; the narrow forward's route edges (``NARROW_EDGES``) with
+   complex and real weights in both types, the forward's kernel named by
+   ``torch.profiler`` there and at the SoS entry (``clse_fwd_narrow``
+   exactly where I and O are at most 32), and every forward twice, equal to
+   the bit;
 3f. float64 against plain: the ``double`` instances of the single-pass lse
    kernels and of the signed kernels, forward and backward, at their
    flagship and SoS entries and at an edge shape (``F64_*`` below), and the
@@ -192,12 +201,14 @@ phases 5 and 8, the routing ops in phase 7, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
-bound: the larger of its FMA work
-(or, for the routing kernels, its add and max operations; 4 FMAs per complex
-multiply-add, 2 against a real weight) over the card's
-f32 peak and the bytes it must move over its memory rate, at the shape
-timed, and (``tc_bound_ms``) the same with the sums of products on the
-tensor cores in 3xTF32. Before it, the run's total seconds. The last line is
+bound: the larger of its FMA work (4 FMAs per complex multiply-add, 2
+against a real weight) over the card's f32 peak, or for the routing kernels
+their adds, maxes and compares counted as f32 instructions at half that peak
+(the FMA rate: an FMA counts as two FLOPs, and an add-max pair is an FADD
+and an FMNMX, with no fused form on sm_90), and the bytes it must move over
+its memory rate, at the shape timed, and (``tc_bound_ms``) the same with the
+sums of products on the tensor cores in 3xTF32. Before it, the run's total
+seconds. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -285,6 +296,12 @@ GRAD_ROWS, GRAD_REL, GRAD_ABS = 8, 2e-3, 1e-4
 # absolute mass A (the lse of the inputs against |w|): a signed sum that
 # nearly cancels has a log-magnitude no f32 kernel gets to any bound.
 SIGNED_TOL = 1e-5
+# (F, B, I, O): the edges of the narrow forwards' route (phases 3d and 3e). I
+# and O of 1, 7 and 32 and B of 1, 33 and 4096 take slse_fwd_narrow /
+# clse_fwd_narrow; I = 33 or O = 33 the tiled kernels (the route is checked by
+# the launched kernel's name)
+NARROW_EDGES = ((3, 1, 1, 1), (3, 33, 7, 32), (2, 4096, 32, 7), (3, 33, 32, 1),
+                (2, 4096, 1, 32), (2, 33, 33, 32), (2, 4096, 32, 33), (2, 1, 33, 33))
 SOS_SIDES = (12, 28)  # bench.py's SoS image side (bench_sos) and the MNIST one
 SOS_K = 32  # bench_sos's K
 SOS_LR = 5e-2  # the Adam rate of tests/backend/test_signed.py's SoS training
@@ -732,11 +749,13 @@ def phase_routing() -> dict[str, dict]:
                 entry["plain_ms"] = _median_ms(
                     lambda: R.tropical_tucker2_ref(x1, x2, th, log_weights=lw), iters=5)
                 entry["shape"] = label
-                # one add and one max per (row, unit, composite index)
+                # an add and a max per (row, unit, composite index): two f32
+                # instructions, each at the FMA rate (F32_PEAK / 2)
                 f, b, k1 = x1.shape
                 o, mm = th.shape[1:]
                 entry["bound_ms"], entry["bound_by"] = _bound_of(
-                    2 * f * b * o * mm, 4 * (x1.numel() + x2.numel() + th.numel() + f * b * o))
+                    2 * (2 * f * b * o * mm),
+                    4 * (x1.numel() + x2.numel() + th.numel() + f * b * o))
                 line += f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms"
             print(line)
 
@@ -765,14 +784,15 @@ def phase_routing() -> dict[str, dict]:
                 entry["sample_plain_ms"] = _median_ms(lambda: R.route_tucker2_ref(
                     x1, x2, th, sel, kind="sample", log_weights=lw, generator=plain_gen))
                 entry["shape"] = label
-                # two adds and a compare per (row, composite index), over the
-                # weight rows this run selects, each read once
+                # two adds and a compare per (row, composite index), three f32
+                # instructions at the FMA rate (F32_PEAK / 2), over the weight
+                # rows this run selects, each read once
                 f, b, k1 = x1.shape
                 o, mm = th.shape[1:]
                 rows = torch.unique(torch.arange(f, device=DEV)[:, None] * o
                                     + sel.clamp(0, o - 1)).numel()
                 entry["bound_ms"], entry["bound_by"] = _bound_of(
-                    3 * f * b * mm, 4 * (x1.numel() + x2.numel() + rows * mm) + 16 * f * b)
+                    2 * (3 * f * b * mm), 4 * (x1.numel() + x2.numel() + rows * mm) + 16 * f * b)
                 line += (f"  max: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} "
                          f"ms; sample: kernel {entry['sample_ms']:.3f} ms, plain "
                          f"{entry['sample_plain_ms']:.3f} ms")
@@ -1448,7 +1468,7 @@ def _signed_cases(gen):
     dev = DEV
     inf = float("-inf")
 
-    def make(op, f, b, widths, o, *edits):
+    def make(op, f, b, widths, o, *edits, dtype=torch.float32):
         def build():
             ins = []
             for k in widths:
@@ -1456,6 +1476,7 @@ def _signed_cases(gen):
                         torch.randint(-1, 2, (f, b, k), generator=gen, device=dev).float()]
             width = widths[0] * widths[-1] if "tucker" in op else widths[0]
             ins.append(torch.randn((f, o, width), generator=gen, device=dev))
+            ins = [t.to(dtype) for t in ins]
             for t, idx, v in edits:
                 ins[t][idx] = v
             return ins
@@ -1493,6 +1514,11 @@ def _signed_cases(gen):
                "B*Kq=4096 I=33 O=1"),
               ("slse_tucker2", make("slse_tucker2", 2, 70, (208, 208), 5, row),
                "K1=K2=208 (the split dx), a row -inf")]
+    # the narrow forward's route edges in both types, a row of fold 0 -inf
+    for op in ("slse_matmul", "slse_matmul_softmax"):
+        for dtype, tag in ((torch.float32, ""), (torch.float64, ", float64")):
+            cases += [(op, make(op, f, bb, (i,), o, (0, (0, min(2, bb - 1)), inf), dtype=dtype),
+                       f"narrow edge B={bb} I={i} O={o}{tag}") for f, bb, i, o in NARROW_EDGES]
     for op in SIGNED_OPS:
         tucker = "tucker" in op
         ws = (64, 64) if tucker else (64,)
@@ -1538,6 +1564,19 @@ def _signed_check(op: str, label: str, got, ref, ins,
     return max_err, int(flips.sum())
 
 
+def _check_route(op: str, label: str, fn, i: int, o: int) -> str:
+    """The forward kernel that ``fn`` launches (``torch.profiler``): the
+    narrow one (``*_fwd_narrow``) exactly where I and O are at most 32.
+    Returns its name."""
+    names = [key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+             for key in _profile(fn, 1)[1]]
+    narrow = i <= 32 and o <= 32
+    if len(names) != 1 or ("fwd_narrow" in names[0]) != narrow:
+        raise AssertionError(f"{op} [{label}]: launched {names}, expected the "
+                             f"{'narrow' if narrow else 'tiled'} kernel")
+    return f"kernel {names[0]}"
+
+
 def _signed_bound(key: str, ins) -> tuple[float, str, float]:
     """``_bound`` for the signed ops: the forward reads the (log-magnitude,
     sign) inputs and the weight and writes two outputs; the backward reads
@@ -1570,18 +1609,27 @@ def phase_signed() -> dict[str, dict]:
     with torch.inference_mode():
         for op, make, label in _signed_cases(gen):
             ins = make()
+            double = ins[0].dtype == torch.float64
             _, _, plain, plain_bwd = S._ENTRIES[op]
             got = getattr(S, op)(*ins)
             ref = plain(*ins)
             torch.cuda.synchronize()
-            max_err, flips = _signed_check(op, label, got, ref, ins)
+            max_err, flips = _signed_check(op, label, got, ref, ins,
+                                           F64_SIGNED_TOL if double else SIGNED_TOL)
             if label == "exact cancellation" and not all(
                     bool(torch.isneginf(a).all()) and bool((s_ == 0).all()) for a, s_ in (got, ref)):
                 raise AssertionError(f"{op} [{label}]: not (-inf, sign 0)")
+            again = getattr(S, op)(*ins)
+            if not all(torch.equal(k, a) for k, a in zip(got, again)):
+                raise AssertionError(f"{op} [{label}]: two calls differ")
             entry = results.setdefault(op, {"max_abs_err": 0.0, "sign_flips": 0})
-            entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
-            entry["sign_flips"] += flips
+            if not double:
+                entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+                entry["sign_flips"] += flips
             line = f"[signed] {op:22s} {label:36s} linear err {max_err:.3e}, {flips} signs differ"
+            if label.startswith(("SoS entry", "narrow edge")):
+                line += "; " + _check_route(op, label, lambda: getattr(S, op)(*ins),
+                                            ins[0].shape[2], ins[-1].shape[1])
             if "ms" not in entry:
                 entry["ms"] = _median_ms(lambda: getattr(S, op)(*ins))
                 entry["plain_ms"] = _median_ms(lambda: plain(*ins))
@@ -1594,9 +1642,10 @@ def phase_signed() -> dict[str, dict]:
             # the backward on the plain forward's outputs, with a cotangent
             # that is 0 on some rows
             oa, os_ = ref
-            g = torch.randn(oa.shape, generator=gen, device=DEV)
+            g = torch.randn(oa.shape, generator=gen, device=DEV, dtype=oa.dtype)
             g[0, : min(3, g.shape[1])] = 0.0
             bkey = f"{op}_bwd"
+            rel = F64_BWD_REL if double else BWD_REL
 
             def kernel(ins=ins, oa=oa, os_=os_, g=g, op=op):
                 return S.backward(op, tuple(ins), oa, os_, g)
@@ -1616,10 +1665,10 @@ def phase_signed() -> dict[str, dict]:
                 if name != "dw" and not bool((k[p == 0] == 0).all()):
                     raise AssertionError(f"{bkey} [{label}] {name}: not 0 where the plain is 0")
                 err = (k - p).abs()
-                if not bool((err <= BWD_REL * (p.abs().max() + p.abs())).all()):
+                if not bool((err <= rel * (p.abs().max() + p.abs())).all()):
                     raise AssertionError(
                         f"{bkey} [{label}] {name}: max |kernel - plain| = {float(err.max()):.3e} "
-                        f"(bound {BWD_REL} (max|plain| + |plain|), max|plain| "
+                        f"(bound {rel} (max|plain| + |plain|), max|plain| "
                         f"{float(p.abs().max()):.3e})")
                 max_err = max(max_err, float(err.max()))
             again = kernel()
@@ -1627,7 +1676,8 @@ def phase_signed() -> dict[str, dict]:
             if not all(k is None or torch.equal(k, a) for k, a in zip(got_b, again)):
                 raise AssertionError(f"{bkey} [{label}]: two calls differ")
             entry = results.setdefault(bkey, {"max_abs_err": 0.0})
-            entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+            if not double:
+                entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[signed] {bkey:22s} {label:36s} max|err|={max_err:.3e}"
             if "ms" not in entry:
                 entry.update(ms=_median_ms(kernel), plain_ms=_median_ms(plain_b))
@@ -1969,6 +2019,14 @@ def _complex_cases(gen):
         ("clse_tucker2", make("clse_tucker2", 4, b, (128, 128), 32, c128, real_w=True),
          "K1=K2=128 (the split dx), real w, complex128", False),
     ]
+    # the narrow forward's route edges, a row of fold 0 -inf
+    for ctype, tag in ((c64, ""), (c128, ", complex128")):
+        for real_w in (False, True):
+            cases += [("clse_matmul",
+                       make("clse_matmul", f, bb, (i,), o, ctype,
+                            (0, (0, min(2, bb - 1)), complex(float("-inf"), 0.5)), real_w=real_w),
+                       f"narrow edge B={bb} I={i} O={o}" + (", real w" if real_w else "") + tag,
+                       False) for f, bb, i, o in NARROW_EDGES]
     for ctype, tag in ((c64, ""), (c128, ", complex128")):
         for op in COMPLEX_OPS:
             tucker = "tucker" in op
@@ -2092,10 +2150,15 @@ def phase_complex() -> dict[str, dict]:
             if label.startswith("exact cancellation") and not bool(
                     torch.isneginf(got.real).all() & torch.isneginf(ref.real).all()):
                 raise AssertionError(f"{op} [{label}]: real part not -inf")
+            if not torch.equal(got, getattr(C, op)(*ins)):
+                raise AssertionError(f"{op} [{label}]: two calls differ")
             entry = results.setdefault(op, {"max_abs_err": 0.0})
             if ctype == "complex64":
                 entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[complex] {op:16s} {label:44s} linear err {max_err:.3e}"
+            if op == "clse_matmul" and label.startswith(("SoS entry", "narrow edge")):
+                line += "; " + _check_route(op, label, lambda: getattr(C, op)(*ins),
+                                            ins[0].shape[2], ins[-1].shape[1])
             if timed:
                 ms = _median_ms(lambda: getattr(C, op)(*ins))
                 plain_ms = _median_ms(lambda: plain(*ins))

@@ -39,8 +39,12 @@
 // (F=144, B*Kq=4096, I=O=32) the 4 FMAs per complex product against 16 bytes
 // read put the bytes' time (0.09 ms) just above the FMAs' (0.07 ms); at the
 // K=64 Tucker entry (F=784, B=128, K1=K2=O=64) 2.63e10 complex multiply-adds
-// bind it to f32 arithmetic (3.1 ms with a complex weight). The design is the
-// lse kernels' register-tiled FMA loop on split real and imaginary planes in
+// bind it to f32 arithmetic (3.1 ms with a complex weight). The forward of a
+// dense layer with I and O at most 32 (those TensorDot entries) is
+// clse_fwd_narrow, described above it: one pass over the rows, each row read
+// once, its exponentials formed once and kept on chip, no masked half tile.
+// Every other forward, and the backward's dx and dw kernels, are the lse
+// kernels' register-tiled FMA loop on split real and imaginary planes in
 // shared memory: a block of 256 threads per 64 x 64 output tile, each thread
 // a 4 x 4 complex tile, 16-wide chunks whose operands are loaded into
 // registers while the previous chunk is contracted. Every sum runs in an
@@ -68,6 +72,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "lse_common.cuh"
@@ -1235,6 +1240,144 @@ clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
   }
 }
 
+// The complex forward of a narrow dense layer (I, O <= 32), clse_bwd_narrow's
+// twin: one block per (fold, chunk of the batch) stages w once as real and
+// imaginary planes, transposed so that a thread's V neighbouring units are
+// one 16-byte read, then takes RT rows at a time, each row held by TPR
+// threads of V neighbouring columns (32 bytes of x a thread, read coalesced,
+// the next rows' while the current ones are contracted): the row's clamped
+// max of Re x by shuffles among its threads, e = exp(x - m) (the accurate exp
+// and sincos) once per element into the row's line of a shared tile, and
+// each thread's V outputs y[o] = sum_i e[i] w[o,i], summed over i in order in
+// f32 (f64) FMAs, 4 a term (2 against a real weight). The epilogue writes
+// log|y| + m + i atan2(Im y, Re y); an exact cancellation or a row that is
+// all -inf gives a real part of -inf and a finite phase. A row lives in one
+// warp, so the passes need no block barrier.
+template <typename T> constexpr int FWD_RESIDENT = sizeof(T) == 4 ? 4 : 3;  // blocks an SM
+
+template <typename T, bool WCPLX>
+__global__ void __launch_bounds__(THREADS, FWD_RESIDENT<T>)
+clse_fwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_, void* __restrict__ out_,
+                int B, int I, int O, int n_bc, int rows, bool vec) {
+  using C = typename Cplx<T>::type;
+  using narrow::W;
+  constexpr int V = narrow::V<T>, TPR = narrow::TPR<T>, RT = narrow::RT<T>;
+  constexpr int PAIR = 16 / sizeof(C);  // complex values a 16-byte access moves
+  __shared__ __align__(16) T Wr[W][W + 4];  // w[o][i] at [i][o], 0 outside I x O
+  __shared__ __align__(16) T Wi[WCPLX ? W : 1][W + 4];
+  __shared__ __align__(16) T Er[RT][W + 4];  // e of the pass's rows
+  __shared__ __align__(16) T Ei[RT][W + 4];
+
+  const int f = blockIdx.x / n_bc, bc = blockIdx.x - f * n_bc;
+  const int b_begin = bc * rows, b_end = min(B, b_begin + rows);
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, c0 = (tid % TPR) * V;  // row of the pass, first column
+  const C* x = static_cast<const C*>(x_) + (size_t)f * B * I;
+  C* out = static_cast<C*>(out_) + (size_t)f * B * O;
+  for (int e = tid; e < W * W; e += THREADS) {
+    const int o = e / W, i = e - o * W;
+    T wr = T(0), wi = T(0);
+    if (o < O && i < I) {
+      const size_t idx = ((size_t)f * O + o) * I + i;
+      if (WCPLX) {
+        const C v = static_cast<const C*>(w_)[idx];
+        wr = v.x, wi = v.y;
+      } else {
+        wr = static_cast<const T*>(w_)[idx];
+      }
+    }
+    Wr[i][o] = wr;
+    if (WCPLX) Wi[i][o] = wi;
+  }
+  __syncthreads();
+
+  // the pass's raw values over the row's V columns, 16 bytes at a time where
+  // ``vec`` (complex64: I and O even, 16-byte aligned tensors)
+  C px[V];
+  auto load = [&](int b0) {
+    const int b = b0 + r;
+    const C* row = x + (size_t)b * I;
+#pragma unroll
+    for (int v = 0; v < V; v += PAIR) {
+      const int c = c0 + v;
+      if constexpr (PAIR == 2) {
+        if (vec && b < b_end && c + 2 <= I) {
+          const float4 t = *reinterpret_cast<const float4*>(row + c);
+          px[v].x = t.x, px[v].y = t.y, px[v + 1].x = t.z, px[v + 1].y = t.w;
+          continue;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < PAIR; ++u) {
+        C xv;
+        xv.x = -INFINITY, xv.y = T(0);
+        if (b < b_end && c + u < I) xv = row[c + u];
+        px[v + u] = xv;
+      }
+    }
+  };
+  load(b_begin);
+  for (int b0 = b_begin; b0 < b_end; b0 += RT) {
+    T m = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < V; ++v) m = max_t(m, px[v].x);
+#pragma unroll
+    for (int d = TPR / 2; d > 0; d >>= 1) m = max_t(m, __shfl_xor_sync(0xffffffffu, m, d));
+    m = clamp_max(m);
+#pragma unroll
+    for (int v = 0; v < V; ++v) cexp_t(px[v].x - m, px[v].y, &Er[r][c0 + v], &Ei[r][c0 + v]);
+    __syncwarp();  // the row's threads are one warp's
+    const int b = b0 + r;
+    if (b0 + RT < b_end) load(b0 + RT);
+    T accr[V], acci[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) accr[v] = acci[v] = T(0);
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      T er[4], ei[4];
+      load_n<4>(&Er[r][i], er);
+      load_n<4>(&Ei[r][i], ei);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        T wr[V], wi[V];
+        load_n<V>(&Wr[i + u][c0], wr);
+        if (WCPLX) load_n<V>(&Wi[i + u][c0], wi);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          accr[v] = fma_t(er[u], wr[v], accr[v]);
+          if (WCPLX) accr[v] = fma_t(-ei[u], wi[v], accr[v]);
+          acci[v] = fma_t(ei[u], wr[v], acci[v]);
+          if (WCPLX) acci[v] = fma_t(er[u], wi[v], acci[v]);
+        }
+      }
+    }
+    __syncwarp();  // the row's e is read before the next pass rewrites it
+    if (b < b_end) {
+      C y[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        y[v].x = log_t(hypot_t(accr[v], acci[v])) + m;
+        y[v].y = atan2_t(acci[v], accr[v]);
+      }
+      C* orow = out + (size_t)b * O;
+#pragma unroll
+      for (int v = 0; v < V; v += PAIR) {
+        const int c = c0 + v;
+        if constexpr (PAIR == 2) {
+          if (vec && c + 2 <= O) {
+            *reinterpret_cast<float4*>(orow + c) =
+                make_float4(y[v].x, y[v].y, y[v + 1].x, y[v + 1].y);
+            continue;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PAIR; ++u)
+          if (c + u < O) orow[c + u] = y[v + u];
+      }
+    }
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // Launch
@@ -1242,9 +1385,22 @@ clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
 
 inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
+// A dense layer with I and O at most 32 takes clse_fwd_narrow, over enough
+// batch chunks for about 2048 blocks (F = 144 fills the 132 SMs several
+// times; the rows are independent, so a chunk may be a single pass and a
+// few folds, the root's F = 1, still fill the card); every other layer
+// clse_fwd_kernel.
 template <typename T, bool TUCKER, bool WCPLX>
 int launch_fwd(const void* xa, const void* xb, const void* w, void* out, int F, int B, int I,
                int K1, int K2, int O, cudaStream_t s) {
+  if (!TUCKER && I <= narrow::W && O <= narrow::W) {
+    int rows;
+    const int n_bc = batch_chunks(F, B, narrow::RT<T>, narrow::RT<T>, 2048, &rows);
+    auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+    const bool vec = I % 2 == 0 && O % 2 == 0 && aligned(xa) && aligned(out);
+    clse_fwd_narrow<T, WCPLX><<<F * n_bc, THREADS, 0, s>>>(xa, w, out, B, I, O, n_bc, rows, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid(F, cdiv(O, BN), cdiv(B, fwd::BM));
   clse_fwd_kernel<T, TUCKER, WCPLX><<<grid, THREADS, 0, s>>>(xa, xb, w, out, B, I, K1, K2, O);
   return static_cast<int>(cudaGetLastError());

@@ -48,9 +48,13 @@
 // 0.785 ms, in 3xTF32 on the tensor cores 0.319 ms, against 0.245 ms of
 // weight bytes); its design is described above it. wgmma and TMA are left
 // for later.
-// The signed squared circuits' TensorDot entries (I = O = 32, B*Kq = 4096
-// rows) do 8 FLOP per element read, so there the kernel is bound by memory:
-// it reads each (a, s) element about twice (the row max, then the chunk).
+// The signed squared circuits' TensorDot entries (F = 144, I = O = 32,
+// B*Kq = 4096 rows) do 8 FLOP per element read, so there the work is bound
+// by memory: 302 MB of (a, s) read and (log|y|, sign y) written, 0.090 ms.
+// A 64 x 64 tile of the loop above would be half masked there and read each
+// row twice (the row max, then the chunk), so every signed dense layer with
+// I and O at most 32 takes a kernel of its own, slse_fwd_narrow (described
+// above it): one pass over the rows, each row read once and kept on chip.
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream and returns cudaGetLastError() of the launch (0 on success).
@@ -67,7 +71,9 @@
 namespace {
 
 using cirkit::abs_t;
+using cirkit::batch_chunks;
 using cirkit::clamp_max;
+using cirkit::exp_t;
 using cirkit::fast_exp;
 using cirkit::fma_t;
 using cirkit::load4;
@@ -76,7 +82,9 @@ using cirkit::max_t;
 using cirkit::mma3_tf32;
 using cirkit::split_tf32x4;
 using cirkit::staged_exp;
+using cirkit::store4;
 using cirkit::warp_max;
+using cirkit::warp_sum;
 
 constexpr int BM = 128;  // batch rows per block
 constexpr int BN = 64;   // output units per block
@@ -258,6 +266,139 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
       if (SOFTMAX) y -= lsw[c];
       outf[(size_t)b * O + o] = y + shift;
       if (SIGNED) out_sign[(size_t)f * B * O + (size_t)b * O + o] = T((v > T(0)) - (v < T(0)));
+    }
+  }
+}
+
+// The signed forward of a narrow dense layer (I, O <= 32: the squared
+// circuits' TensorDot entries) in one pass over its rows. One block per
+// (fold, chunk of the batch) stages the fold's weight once, transposed so
+// that a thread's V neighbouring units are one 16-byte read (with logits:
+// each unit's softmax from its 32 logits, one warp a unit, stored as
+// exp(theta - max) beside the log of its normalizer). Then it takes RT rows
+// at a time, each row held by TPR threads of V neighbouring columns (32
+// bytes of a and 32 of s a thread, read coalesced, the next rows' while the
+// current ones are contracted): the row's clamped max by shuffles among its
+// threads, e = s exp(a - m) (the accurate exp) once per element into the
+// row's line of a shared tile, and each thread's V outputs y[o] = sum_i e[i]
+// w[o,i], summed over i in order in f32 (f64) FMAs. The epilogue writes
+// log|y| + m (minus the normalizer's log) and sign y, an exact cancellation
+// giving (-inf, 0). A row lives in one warp, so the passes need no block
+// barrier. Nothing but the inputs read once and the outputs written once
+// reaches device memory.
+namespace narrow {
+constexpr int W = 32;                                              // the widest I and O
+template <typename T> constexpr int V = 32 / sizeof(T);            // columns a thread of a row
+template <typename T> constexpr int TPR = W / V<T>;                // threads a row
+template <typename T> constexpr int RT = THREADS / TPR<T>;         // rows a pass
+template <typename T> constexpr int RESIDENT = sizeof(T) == 4 ? 4 : 3;  // blocks an SM
+}  // namespace narrow
+
+template <typename T, bool SOFTMAX>
+__global__ void __launch_bounds__(THREADS, narrow::RESIDENT<T>)
+slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __restrict__ w,
+                T* __restrict__ out, T* __restrict__ out_sign, int B, int I, int O, int n_bc,
+                int rows, bool vec) {
+  using narrow::W;
+  constexpr int V = narrow::V<T>, TPR = narrow::TPR<T>, RT = narrow::RT<T>;
+  __shared__ __align__(16) T Wt[W][W + 4];   // w[o][i] at [i][o], 0 outside I x O
+  __shared__ __align__(16) T Es[RT][W + 4];  // e of the pass's rows
+  __shared__ T lsw[W];                       // softmax: log of each unit's normalizer
+
+  const int f = blockIdx.x / n_bc, bc = blockIdx.x - f * n_bc;
+  const int b_begin = bc * rows, b_end = min(B, b_begin + rows);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int r = tid / TPR, c0 = (tid % TPR) * V;  // row of the pass, first column
+  const size_t xoff = (size_t)f * B * I, ooff = (size_t)f * B * O;
+  for (int o = tid >> 5; o < W; o += WARPS) {  // one warp a unit, lane i its column i
+    const T pad = SOFTMAX ? -INFINITY : T(0);
+    T v = o < O && lane < I ? w[((size_t)f * O + o) * I + lane] : pad;
+    if (SOFTMAX) {  // a unit whose logits are all -inf (or past O) stages 0
+      T m = warp_max(v);
+      m = m == -INFINITY ? T(0) : m;
+      v = exp_t(v - m);
+      const T s = warp_sum(v);
+      if (lane == 0) lsw[o] = log_t(s);
+    }
+    Wt[lane][o] = v;
+  }
+  __syncthreads();
+
+  // the pass's raw values: a and its sign over the row's V columns, 16 bytes
+  // at a time where ``vec`` (I and O multiples of 4, 16-byte aligned tensors)
+  T px[V], ps[V];
+  auto load = [&](int b0) {
+    const int b = b0 + r;
+    const size_t xr = xoff + (size_t)b * I;
+#pragma unroll
+    for (int v = 0; v < V; v += 4) {
+      const int c = c0 + v;
+      if (vec && b < b_end && c + 4 <= I) {
+        load4(x + xr + c, px + v);
+        load4(sx + xr + c, ps + v);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = b < b_end && c + u < I;
+          px[v + u] = in ? x[xr + c + u] : -INFINITY;
+          ps[v + u] = in ? sx[xr + c + u] : T(0);
+        }
+      }
+    }
+  };
+  load(b_begin);
+  for (int b0 = b_begin; b0 < b_end; b0 += RT) {
+    T m = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < V; ++v) m = max_t(m, px[v]);
+#pragma unroll
+    for (int d = TPR / 2; d > 0; d >>= 1) m = max_t(m, __shfl_xor_sync(0xffffffffu, m, d));
+    m = clamp_max(m);
+#pragma unroll
+    for (int v = 0; v < V; v += 4)
+      store4(&Es[r][c0 + v], ps[v] * exp_t(px[v] - m), ps[v + 1] * exp_t(px[v + 1] - m),
+             ps[v + 2] * exp_t(px[v + 2] - m), ps[v + 3] * exp_t(px[v + 3] - m));
+    __syncwarp();  // the row's threads are one warp's
+    const int b = b0 + r;
+    if (b0 + RT < b_end) load(b0 + RT);
+    T acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = T(0);
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      T ev[4];
+      load4(&Es[r][i], ev);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        T wv[V];
+#pragma unroll
+        for (int v = 0; v < V; v += 4) load4(&Wt[i + u][c0 + v], wv + v);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = fma_t(ev[u], wv[v], acc[v]);
+      }
+    }
+    __syncwarp();  // the row's e is read before the next pass rewrites it
+    if (b < b_end) {
+      T ya[V], ys[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        ya[v] = log_t(abs_t(acc[v])) + m;
+        if (SOFTMAX) ya[v] -= lsw[c0 + v];
+        ys[v] = T((acc[v] > T(0)) - (acc[v] < T(0)));
+      }
+      T* oa = out + ooff + (size_t)b * O + c0;
+      T* os = out_sign + ooff + (size_t)b * O + c0;
+#pragma unroll
+      for (int v = 0; v < V; v += 4) {
+        if (vec && c0 + v + 4 <= O) {
+          store4(oa + v, ya[v], ya[v + 1], ya[v + 2], ya[v + 3]);
+          store4(os + v, ys[v], ys[v + 1], ys[v + 2], ys[v + 3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (c0 + v + u < O) oa[v + u] = ya[v + u], os[v + u] = ys[v + u];
+        }
+      }
     }
   }
 }
@@ -533,12 +674,36 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
     }
 }
 
+// The signed dense forward of a narrow layer: slse_fwd_narrow over enough
+// batch chunks for about 2048 blocks (F = 144 fills the 132 SMs several
+// times). The rows are independent, so a chunk may be a single pass: a few
+// folds (the root, F = 1) still fill the card.
+template <typename T, bool SOFTMAX>
+int launch_narrow(const T* x, const T* sx, const T* w, T* out, T* out_sign, int F, int B, int I,
+                  int O, cudaStream_t s) {
+  constexpr int RT = narrow::RT<T>;
+  int rows;
+  const int n_bc = batch_chunks(F, B, RT, RT, 2048, &rows);
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const bool vec = I % 4 == 0 && O % 4 == 0 && aligned(x) && aligned(sx) && aligned(out) &&
+                   aligned(out_sign);
+  slse_fwd_narrow<T, SOFTMAX><<<F * n_bc, THREADS, 0, s>>>(x, sx, w, out, out_sign, B, I, O,
+                                                            n_bc, rows, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A signed dense layer with I and O at most 32 takes slse_fwd_narrow, every
+// other layer lse_fwd.
 template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
 int launch(const T* xa, const T* xb, const T* w, T* out, int F, int B, int I, int K1, int K2,
            int O, int device, void* stream, const T* sa = nullptr, const T* sb = nullptr,
            T* out_sign = nullptr) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  if constexpr (SIGNED && !TUCKER)
+    if (I <= narrow::W && O <= narrow::W)
+      return launch_narrow<T, SOFTMAX>(xa, sa, w, out, out_sign, F, B, I, O,
+                                       static_cast<cudaStream_t>(stream));
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
   lse_fwd<T, TUCKER, SOFTMAX, SIGNED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       xa, xb, w, out, sa, sb, out_sign, B, I, K1, K2, O);

@@ -60,7 +60,7 @@ from cirkit_tpu_torch.ops.lse_einsum import (
 COMPLEX_OPS = ("clse_matmul", "clse_tucker2")
 LAUNCHES.update({name: 0 for op in COMPLEX_OPS for name in (op, f"{op}_bwd")})
 
-_TILE = 64  # rows and columns of a block's tile, in every kernel of the source
+_TILE = 64  # rows and columns of a block's tile, in the tiled kernels of the source
 _PREP_ROWS = 8  # batch rows per block of the backward's first pass
 _REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 

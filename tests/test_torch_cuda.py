@@ -21,7 +21,10 @@ log-magnitude in f32), at small widths and at the SoS TensorDot entry. The
 complex kernels are held the same way on the real and imaginary parts, in
 complex64 and complex128, and the float64 instances of the single-pass lse
 and signed kernels to 1e-10 in log space (1e-12 of the row's mass) and
-``1e-9 (max|plain| + |plain|)`` backward. A
+``1e-9 (max|plain| + |plain|)`` backward. The signed and complex forwards
+are also held at the edges of their narrow route (I and O of 1, 7, 32 and
+33, B of 1, 33 and 4096), where ``torch.profiler`` names the kernel that
+runs. A
 small circuit's forward, its gradients and its queries through the
 kernels, and a small squared circuit's, are held against the same store
 evaluated in float64 on the CPU.
@@ -1384,3 +1387,93 @@ def test_sos_backward_edges_match_plain(f, b, i, o, opcase):
     assert (grads[0][0, 2] == 0).all() and (grads[0][0, rows] == 0).all()
     assert (grads[0][1, :3] == 0).all()
     assert T.LAUNCHES[f"{op}_bwd"] == 2
+
+
+# (F, B, I, O): the narrow forwards' route edges. I and O of 1, 7 and 32 and
+# B of 1, 33 and 4096 take slse_fwd_narrow / clse_fwd_narrow; I = 33 or
+# O = 33 the tiled kernels (lse_fwd, clse_fwd_kernel)
+NARROW_FWD = [(3, 1, 1, 1), (3, 33, 7, 32), (2, 4096, 32, 7), (144, 4096, 32, 32),
+              (5, 33, 32, 1), (3, 4096, 1, 32), (2, 33, 33, 32), (2, 4096, 32, 33),
+              (2, 1, 33, 33)]
+NARROW_OPS = [("slse_matmul", torch.float32), ("slse_matmul_softmax", torch.float32),
+              ("slse_matmul", torch.float64), ("slse_matmul_softmax", torch.float64),
+              ("clse_matmul", torch.complex64, False), ("clse_matmul", torch.complex64, True),
+              ("clse_matmul", torch.complex128, False), ("clse_matmul", torch.complex128, True)]
+
+
+def _narrow_inputs(op, f, b, i, o, dtype, real_w):
+    """The op's inputs with fold 0's row 2 (the last row, for B < 3) all -inf
+    and, where B > 11 and I > 1, rows 9-11 of fold 0 summing to exactly 0:
+    equal magnitudes against weights of equal size and alternating sign (the
+    signs alternate in the signed op, the weights in the complex one), over
+    an even number of columns."""
+    rows, row, even = slice(9, 12), min(2, b - 1), i - i % 2
+    cancel = b > 11 and i > 1
+    if op.startswith("clse"):
+        x, w = _complex_inputs(op, f, b, o, dtype, real_w=real_w, i=i)
+        x[0, row] = complex(float("-inf"), 0.5)
+        if cancel:
+            x[0, rows] = 0.0
+            w[0] = 0.0
+            w[0, :, :even] = torch.tensor([1.0, -1.0], device="cuda").repeat(i)[:even].to(w.dtype)
+        return [x, w], cancel
+    a, s, w = (t.to(dtype) for t in _signed_inputs(op, f, b, o, i=i))
+    a[0, row] = float("-inf")
+    if cancel:
+        a[0, rows] = 0.0
+        s[0, rows] = 0.0
+        s[0, rows, :even] = torch.tensor([1.0, -1.0], device="cuda", dtype=dtype).repeat(i)[:even]
+        w[0] = 0.0 if "softmax" in op else 1.0
+    return [a, s, w], cancel
+
+
+def _fwd_kernel_names(fn):
+    """The names of the CUDA kernels that ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("opcase", NARROW_OPS, ids=lambda c: "-".join(map(str, c)).replace(
+    "torch.", ""))
+@pytest.mark.parametrize("f,b,i,o", NARROW_FWD)
+def test_narrow_forward_edges_match_plain(f, b, i, o, opcase):
+    """The signed and complex forwards (kernels 6 and 10) at the narrow route's
+    edges against their plain versions, in linear space scaled by the row's
+    absolute mass (1e-5 in float32 and complex64, 1e-12 in float64 and
+    complex128): a row that is all -inf and an exact cancellation give
+    -inf (with sign 0, or a finite phase); two calls give the same bits; the
+    launch takes the narrow kernel exactly where I and O are at most 32."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    op, dtype = opcase[:2]
+    ins, cancel = _narrow_inputs(op, f, b, i, o, dtype, opcase[2] if len(opcase) > 2 else False)
+    row = min(2, b - 1)
+    if op.startswith("clse"):
+        tol = _COMPLEX_TOL[dtype][0]
+        out = C.clse_matmul(*ins)
+        _complex_close(ins, out, C.clse_matmul_ref(*ins), tol)
+        assert torch.isfinite(out.imag).all() and torch.isneginf(out.real[0, row]).all()
+        if cancel:
+            assert torch.isneginf(out.real[0, 9:12]).all()
+        again = C.clse_matmul(*ins)
+        assert torch.equal(out, again)
+    else:
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        out = getattr(S, op)(*ins)
+        _signed_close(op, ins, out, getattr(S, f"{op}_ref")(*ins), tol=tol)
+        assert torch.isneginf(out[0][0, row]).all() and (out[1][0, row] == 0).all()
+        if cancel:
+            assert torch.isneginf(out[0][0, 9:12]).all() and (out[1][0, 9:12] == 0).all()
+        again = getattr(S, op)(*ins)
+        assert all(torch.equal(a, b_) for a, b_ in zip(out, again))
+    assert T.LAUNCHES[op] == 2
+    names = _fwd_kernel_names(lambda: C.clse_matmul(*ins) if op.startswith("clse")
+                              else getattr(S, op)(*ins))
+    narrow = [n for n in names if "fwd_narrow" in n]
+    assert len(names) == 1 and bool(narrow) == (i <= 32 and o <= 32), names
