@@ -39,16 +39,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3c. routing against plain: the max-product Tucker kernel
    (``tropical_tucker2``) and the routing choice (``route_tucker2``) against
    their plain versions at the flagship's largest Tucker entry (F=784,
-   B=128, K1=K2=O=64) with logits and with linear weights, and at edge
-   shapes (B=13, O=1, O=70, K1 != K2, -inf children, zero weights, -inf
-   logits): tropical values to ``|kernel - plain| <= 1e-5 |plain| + 1e-5``
-   with the same -inf pattern; each argmax by the score of its choice, the
-   plain scores at the kernel's index within ``1e-5 |max| + 1e-5`` of the
-   plain maximum (f32 rounding may flip near-ties; the indices that differ
-   are counted); the Gumbel draws of the ``"sample"`` kind over 65,536
-   identical rows against the exact ``softmax(scores)``, every frequency
-   within ``5 sqrt(p(1-p)/N) + 1e-3``, and the same draws from the same
-   seed;
+   B=128, K1=K2=O=64) with logits and with linear weights, at its other
+   nine Tucker entries (``ROUTE_FOLDS``: F=392 down to 2, where the tropical
+   kernel splits the composite index and few rows take a team of warps)
+   with logits, each timed, and at edge shapes (B=13, O=1, O=70, K1 != K2,
+   -inf children, zero weights, -inf logits; the tropical kernel there also
+   split in 3 ranges of m): tropical values to ``|kernel - plain| <= 1e-5
+   |plain| + 1e-5`` with the same -inf pattern; each argmax by the score of
+   its choice, the plain scores at the kernel's index within ``1e-5 |max| +
+   1e-5`` of the plain maximum (f32 rounding may flip near-ties; the
+   indices that differ are counted); the ``"sample"`` kind's inverse-CDF
+   draws at every case the same from the same seed, in range and never of
+   zero mass, and over 65,536 identical rows against the exact
+   ``softmax(scores)``, every frequency within ``5 sqrt(p(1-p)/N) + 1e-3``;
 3d. signed against plain: every entry of the signed log-einsum-exp kernels
    (``slse_*``, forward and backward) against its plain version at the SoS
    TensorDot entry (F=144, B*Kq=4096, I=O=32), the K=64 Tucker entry, dense
@@ -94,9 +97,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the K1 split), the lse ones timed; then the ``double`` instances of the wide kernels (the K1-chunked Tucker
    forward, the blocked dense forward, its row max and its backward) at the
    K=128 entries with F cut to ``F64_WIDE_F``, and of the routing kernels
-   (the tropical Tucker to ``F64_TOL``; the argmax at the float64 maximum,
-   the draws reproducible by seed and never a zero weight) at the flagship's
-   largest Tucker entry, each timed, and at an edge shape;
+   (the tropical Tucker to ``F64_TROP_TOL``; the argmax at the float64
+   maximum, the draws reproducible by seed and never a zero weight) at the
+   flagship's ten Tucker entries, the largest timed, and at an edge shape
+   (the tropical kernel also split in 3 ranges of m);
 4. slice: the MNIST QuadGraph flagship forward (K=64, 784 variables, batch
    128) for the Tucker circuit, the CP circuit and the Tucker circuit with
    plain (EM-ready) weights, through ``PipelineContext.compile`` and
@@ -206,7 +210,9 @@ against a real weight) over the card's f32 peak, or for the routing kernels
 their adds, maxes and compares counted as f32 instructions at half that peak
 (the FMA rate: an FMA counts as two FLOPs, and an add-max pair is an FADD
 and an FMNMX, with no fused form on sm_90), and the bytes it must move over
-its memory rate, at the shape timed, and (``tc_bound_ms``) the same with the
+its memory rate, at the shape timed (the route kernel's is its max kind's;
+phase 3c prints the sample kind's beside it: the same bytes, or one
+exponential per column at the MUFU rate), and (``tc_bound_ms``) the same with the
 sums of products on the tensor cores in 3xTF32. Before it, the run's total
 seconds. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -252,6 +258,14 @@ F64_PEAK = 34e12  # the same data sheet's FP64 rate outside the tensor cores
 TF32_PEAK = 495e12
 DEV = "cuda"  # the device of phases 3, 3b, 3c, 7 and 8
 ROUTE_FLAGSHIP = (784, 128, 64, 64, 64)  # F, B, K1, K2, O of the largest Tucker entry
+# the folds of the K=64 Tucker flagship's other nine Tucker entries (B, K1,
+# K2 and O as the largest): the tropical kernel splits the composite index
+# there, and the route kernel gives their rows teams of warps from F=12 down
+ROUTE_FOLDS = (392, 196, 98, 42, 22, 12, 8, 4, 2)
+# exponentials a second of the card's special-function units (16 an SM a
+# clock, the CUDA guide's throughput table for compute capability 9.0) at
+# the clock of the f32 peak (1.98 GHz): the sample kind's bound
+MUFU_RATE = 132 * 16 * 1.98e9
 TROP_ATOL = TROP_RTOL = 1e-5  # tropical bound: TROP_RTOL |plain| + TROP_ATOL
 SCORE_REL = SCORE_ABS = 1e-5  # route bound on the chosen score
 FREQ_ROWS = 65536  # identical rows of the sample-kind frequency check
@@ -332,6 +346,9 @@ COMPLEX_TOL = {"complex64": (SIGNED_TOL, BWD_REL), "complex128": (1e-12, 1e-9)}
 # F64_SIGNED_TOL of the row's absolute mass, in linear space), and F64_BWD_REL
 # (max|plain| + |plain|) on each gradient.
 F64_TOL, F64_SIGNED_TOL, F64_BWD_REL = 1e-10, 1e-12, 1e-9
+# the float64 max-plus Tucker: a max of sums of three terms, and the softmax
+# normalizer, to F64_TROP_TOL (1 + |plain|)
+F64_TROP_TOL = 1e-12
 # Phase 3f's K=128 entries in float64 keep B, K1, K2 and O and take 98 of the
 # 784 folds, so each plain version's (F, B, 16384) operands stay at 1.6 GB.
 F64_WIDE_F = 98
@@ -633,7 +650,8 @@ def phase_kernels() -> dict[str, dict]:
 
 def _route_cases(gen):
     """(label, x1, x2, th, log_weights, sel) at the flagship's largest Tucker
-    entry first, then the edge shapes; sel has some -1 rows (clamped)."""
+    entry first, then at its other Tucker entries (``ROUTE_FOLDS``), then
+    the edge shapes; sel has some -1 rows (clamped)."""
     import torch
 
     def logx(*shape):
@@ -650,6 +668,8 @@ def _route_cases(gen):
     cases = [
         case(f"{shape} logits", f, b, k1, k2, o, True),
         case(f"{shape} linear", f, b, k1, k2, o, False),
+        *(case(f"F={ff} B={b} K1={k1} K2={k2} O={o} logits", ff, b, k1, k2, o, True)
+          for ff in ROUTE_FOLDS),
         case("B=13 O=1 K1=8 K2=16 logits", 5, 13, 8, 16, 1, True),
         case("B=13 O=70 K1=16 K2=8 linear", 3, 13, 16, 8, 70, False),
         case("B=130 O=3 K1=3 K2=5 logits", 2, 130, 3, 5, 3, True),
@@ -718,6 +738,39 @@ def _sample_frequencies(R, log_weights: bool) -> float:
     return worst
 
 
+def _trop_check(label, got, ref) -> float:
+    """``|kernel - plain| <= TROP_RTOL |plain| + TROP_ATOL`` with the same
+    -inf pattern and no NaN; returns the worst error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or torch.isnan(got).any():
+        raise AssertionError(f"tropical_tucker2 [{label}]: shape or NaN")
+    same_inf = torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    finite = torch.isfinite(ref)
+    err = (got[finite] - ref[finite]).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if not same_inf or not bool((err <= TROP_ATOL + TROP_RTOL * ref[finite].abs()).all()):
+        raise AssertionError(f"tropical_tucker2 [{label}]: max |kernel - plain| = "
+                             f"{max_err:.3e}, -inf pattern equal: {same_inf}")
+    return max_err
+
+
+def _check_draws(R, label, x1, x2, th, sel, lw, scores) -> None:
+    """The sample kind's draws: the same from one seed, in range, and never
+    a column of zero mass (a -inf score where the row has a finite one)."""
+    import torch
+
+    draw = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw, seed=7)
+    again = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw, seed=7)
+    at = torch.gather(scores, -1, draw[..., None].clamp(0, scores.shape[-1] - 1))[..., 0]
+    massless = torch.isneginf(at) & ~torch.isneginf(scores.amax(dim=-1))
+    if (not torch.equal(draw, again) or not bool(((draw >= 0) & (draw < scores.shape[-1])).all())
+            or bool(massless.any())):
+        raise AssertionError(f"route_tucker2 sample [{label}]: draws not reproducible, out of "
+                             f"range or of zero mass")
+
+
 def phase_routing() -> dict[str, dict]:
     """Both routing kernels against their plain versions; returns per-op
     results (times of the flagship-shaped case with logits)."""
@@ -729,18 +782,12 @@ def phase_routing() -> dict[str, dict]:
     results = {op: {"max_abs_err": 0.0} for op in R.ROUTING_OPS}
     with torch.inference_mode():
         for label, x1, x2, th, lw, sel in _route_cases(gen):
-            got = R.tropical_tucker2(x1, x2, th, log_weights=lw)
             ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=lw)
-            torch.cuda.synchronize()
-            if got.shape != ref.shape or torch.isnan(got).any():
-                raise AssertionError(f"tropical_tucker2 [{label}]: shape or NaN")
-            same_inf = torch.equal(torch.isneginf(got), torch.isneginf(ref))
-            finite = torch.isfinite(ref)
-            err = (got[finite] - ref[finite]).abs()
-            max_err = float(err.max()) if err.numel() else 0.0
-            if not same_inf or not bool((err <= TROP_ATOL + TROP_RTOL * ref[finite].abs()).all()):
-                raise AssertionError(f"tropical_tucker2 [{label}]: max |kernel - plain| = "
-                                     f"{max_err:.3e}, -inf pattern equal: {same_inf}")
+            max_err = _trop_check(label, R.tropical_tucker2(x1, x2, th, log_weights=lw), ref)
+            if not label.startswith("F="):  # the edges also split in 3 ranges of m
+                max_err = max(max_err, _trop_check(
+                    label + ", 3 ranges", R.tropical_tucker2(x1, x2, th, log_weights=lw,
+                                                             splits=3), ref))
             entry = results["tropical_tucker2"]
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[routing] tropical_tucker2 {label:36s} max|err|={max_err:.3e}"
@@ -757,6 +804,9 @@ def phase_routing() -> dict[str, dict]:
                     2 * (2 * f * b * o * mm),
                     4 * (x1.numel() + x2.numel() + th.numel() + f * b * o))
                 line += f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms"
+            elif label.startswith("F="):  # the flagship's other Tucker entries: the kernel's time
+                ms = _median_ms(lambda: R.tropical_tucker2(x1, x2, th, log_weights=lw))
+                line += f"  kernel {ms:.3f} ms"
             print(line)
 
             idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw)
@@ -791,12 +841,22 @@ def phase_routing() -> dict[str, dict]:
                 o, mm = th.shape[1:]
                 rows = torch.unique(torch.arange(f, device=DEV)[:, None] * o
                                     + sel.clamp(0, o - 1)).numel()
-                entry["bound_ms"], entry["bound_by"] = _bound_of(
-                    2 * (3 * f * b * mm), 4 * (x1.numel() + x2.numel() + rows * mm) + 16 * f * b)
+                moved = 4 * (x1.numel() + x2.numel() + rows * mm) + 16 * f * b
+                entry["bound_ms"], entry["bound_by"] = _bound_of(2 * (3 * f * b * mm), moved)
+                # the sample kind's inverse-CDF draw: the same bytes, or one
+                # exponential per (row, composite index) at the MUFU rate
+                entry["sample_bound_ms"] = max(moved / HBM_RATE, f * b * mm / MUFU_RATE) * 1e3
                 line += (f"  max: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} "
-                         f"ms; sample: kernel {entry['sample_ms']:.3f} ms, plain "
-                         f"{entry['sample_plain_ms']:.3f} ms")
+                         f"ms, bound {entry['bound_ms']:.3f} ms; sample: kernel "
+                         f"{entry['sample_ms']:.3f} ms, plain {entry['sample_plain_ms']:.3f} "
+                         f"ms, bound {entry['sample_bound_ms']:.3f} ms")
+            elif label.startswith("F="):
+                ms = [_median_ms(lambda kind=kind: R.route_tucker2(
+                    x1, x2, th, sel, kind=kind, log_weights=lw, seed=12345))
+                    for kind in R.KINDS]
+                line += f"  max: kernel {ms[0]:.3f} ms; sample: kernel {ms[1]:.3f} ms"
             print(line)
+            _check_draws(R, label, x1, x2, th, sel, lw, scores)
         for lw in (True, False):
             share = _sample_frequencies(R, lw)
             print(f"[routing] route_tucker2 sample, log_weights={lw}: frequencies over "
@@ -1177,7 +1237,7 @@ PROFILE_STEPS = 5
 # blocked_bwd_tc) are wide kernels, not kernel 2's tc_ ones, and the float32
 # single-pass Tucker forward (tucker_fwd_tc) is a forward kernel
 _KERNEL_CATEGORIES = (
-    ("tropical kernel", ("tropical_tucker",)),
+    ("tropical kernel", ("tropical_tucker", "tropical_lse", "tropical_finish")),
     ("route kernel", ("route_tucker",)),
     ("wide forward kernel", ("ct_fwd", "blocked_fwd")),
     ("wide backward kernel", ("blocked_gy", "blocked_bwd")),
@@ -2273,8 +2333,8 @@ def _float64_cases(gen):
     return cases
 
 
-def _f64_close(label: str, got, ref) -> float:
-    """A float64 output within ``F64_TOL (1 + |plain|)`` of the plain one in log
+def _f64_close(label: str, got, ref, tol: float = F64_TOL) -> float:
+    """A float64 output within ``tol (1 + |plain|)`` of the plain one in log
     space, with its -inf pattern and no NaN; returns the worst error."""
     import torch
 
@@ -2284,9 +2344,9 @@ def _f64_close(label: str, got, ref) -> float:
     err = (got[finite] - ref[finite]).abs()
     max_err = float(err.max()) if err.numel() else 0.0
     if not torch.equal(torch.isneginf(got), torch.isneginf(ref)) or not bool(
-            (err <= F64_TOL * (1 + ref[finite].abs())).all()):
+            (err <= tol * (1 + ref[finite].abs())).all()):
         raise AssertionError(f"{label}: max |kernel - plain| = {max_err:.3e} "
-                             f"(bound {F64_TOL} (1 + |plain|)) or -inf pattern")
+                             f"(bound {tol} (1 + |plain|)) or -inf pattern")
     return max_err
 
 
@@ -2409,6 +2469,7 @@ def phase_float64_wide() -> None:
         fr, br, k1r, k2r, orr = ROUTE_FLAGSHIP
         for (fw, b, k1, k2, o), lw in (((fr, br, k1r, k2r, orr), True),
                                        ((fr, br, k1r, k2r, orr), False),
+                                       *(((ff, br, k1r, k2r, orr), True) for ff in ROUTE_FOLDS),
                                        ((3, 13, 16, 8, 70), False)):
             label = f"F={fw} B={b} K1={k1} K2={k2} O={o} " + ("logits" if lw else "linear")
             x1, x2 = randn(fw, b, k1) * 3.0 - 2.0, randn(fw, b, k2) * 3.0 - 2.0
@@ -2417,9 +2478,14 @@ def phase_float64_wide() -> None:
             if not lw:
                 th[:, :, 3] = 0.0  # a zero weight never wins
             sel = torch.randint(-1, o, (fw, b), generator=gen, device=DEV)
+            ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=lw)
             err = _f64_close(f"tropical_tucker2 [{label}]",
-                             R.tropical_tucker2(x1, x2, th, log_weights=lw),
-                             R.tropical_tucker2_ref(x1, x2, th, log_weights=lw))
+                             R.tropical_tucker2(x1, x2, th, log_weights=lw), ref, F64_TROP_TOL)
+            if b == 13:  # the edge also split in 3 ranges of m, the last ragged
+                err = max(err, _f64_close(f"tropical_tucker2 [{label}, 3 ranges]",
+                                          R.tropical_tucker2(x1, x2, th, log_weights=lw,
+                                                             splits=3), ref, F64_TROP_TOL))
+            del ref
             idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw)
             scores = R.route_scores(x1, x2, th, sel, log_weights=lw)
             best = scores.amax(dim=-1)

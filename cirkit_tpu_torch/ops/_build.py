@@ -72,10 +72,12 @@ _SIGNATURES = {
     "lse_fwd_ct_softmax": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_fwd_blocked": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_bwd_blocked": ((*(_P,) * 8, _I, _I, _I, _I, _I, _P), ctypes.c_int),
-    # tucker_route.cu: inputs, output, F, B, K1, K2, O, log_weights (and
-    # for the route: sample, seed), device, stream
-    "tropical_tucker": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
-    "route_tucker": ((*(_P,) * 5, _I, _I, _I, _I, _I, _I, _I, _U64, _I, _P), ctypes.c_int),
+    # tucker_route.cu: inputs, output (the tropical kernel: then its split
+    # scratch, part and stats), F, B, K1, K2, O (the tropical kernel: then
+    # its split count), log_weights (the route: then sample, seed and the
+    # warps a row), device, stream
+    "tropical_tucker": ((*(_P,) * 6, *(_I,) * 8, _P), ctypes.c_int),
+    "route_tucker": ((*(_P,) * 5, *(_I,) * 7, _U64, _I, _I, _P), ctypes.c_int),
     # clse_einsum.cu: (xa, xb, w, out), F, B, K1, K2, O, then the flags
     # tucker, complex weight, complex128; the backward adds g, the gradients
     # (dxa, dxb, dw) and the scratch (sa, sb, gy) after out

@@ -308,6 +308,163 @@ def test_route_kernel_sample_frequencies(log_weights):
         assert bool(((freq - p[ff]).abs() <= bound).all()), (freq, p[ff])
 
 
+# (F) of the K=64 Tucker flagship's ten Tucker entries (B=128, K1=K2=O=64):
+# the tropical kernel splits m below F=784, the route kernel gives few rows
+# a team of warps
+FLAGSHIP_F = [784, 392, 196, 98, 42, 22, 12, 8, 4, 2]
+
+
+def _flagship_route_inputs(f, dtype, log_weights, seed=0):
+    x1, x2, th, sel = _route_inputs(f, 128, 64, 64, 64, log_weights, seed=seed)
+    x2[-1, 5, 1:] = float("-inf")  # a row of x2 -inf but one
+    if log_weights:
+        th[0, :, 7] = float("-inf")
+        th[-1, 4, 20:] = float("-inf")  # a unit's logits -inf over most of m
+    return [t.to(dtype) if t.is_floating_point() else t for t in (x1, x2, th, sel)]
+
+
+def _tropical_close(out, ref, dtype):
+    """f32: ``1e-5 |plain| + 1e-5``; f64: ``1e-12 (1 + |plain|)``; the same
+    -inf pattern and no NaN."""
+    assert out.dtype == dtype and not torch.isnan(out).any()
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    err = (out[fin] - ref[fin]).abs()
+    rel, floor = (1e-12, 1e-12) if dtype == torch.float64 else (1e-5, 1e-5)
+    assert bool((err <= floor + rel * ref[fin].abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("f", FLAGSHIP_F)
+def test_tropical_kernel_at_the_flagship_entries(f, dtype):
+    """The tropical kernel (split below F=784 by ``_trop_splits``) against
+    its plain version at each flagship entry, logits, with -inf children and
+    logits."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, _ = _flagship_route_inputs(f, dtype, True)
+    out = R.tropical_tucker2(x1, x2, th, log_weights=True)
+    ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=True)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["tropical_tucker2"] == 1
+    _tropical_close(out, ref, dtype)
+    assert torch.isneginf(out[0, 1]).all()
+
+
+# (F, B, K1, K2, O, splits): M = 104 is 6.5 float32 chunks (13 in float64),
+# so the last range is ragged; O = 70 and B = 130 ragged tiles
+SPLIT_CASES = [(3, 13, 8, 13, 70, 4), (2, 130, 16, 8, 5, 3), (1, 8, 64, 64, 64, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+@pytest.mark.parametrize("f,b,k1,k2,o,splits", SPLIT_CASES)
+def test_tropical_kernel_forced_split(f, b, k1, k2, o, splits, log_weights, dtype):
+    """A forced split with a ragged last range against the plain version and
+    the plain split version; with linear weights equal to the unsplit kernel
+    bit for bit."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, _ = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _route_inputs(f, b, k1, k2, o, log_weights))
+    out = R.tropical_tucker2(x1, x2, th, log_weights=log_weights, splits=splits)
+    whole = R.tropical_tucker2(x1, x2, th, log_weights=log_weights, splits=1)
+    ref = R.tropical_tucker2_ref(x1, x2, th, log_weights=log_weights)
+    torch.cuda.synchronize()
+    _tropical_close(out, ref, dtype)
+    _tropical_close(out, R.tropical_tucker2_split_ref(x1, x2, th, log_weights=log_weights,
+                                                      splits=splits), dtype)
+    if not log_weights:
+        assert torch.equal(out, whole)
+    assert T.LAUNCHES["tropical_tucker2"] == 2
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+def test_tropical_kernel_gives_minus_inf_for_a_unit_without_mass(splits):
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, _ = _route_inputs(2, 13, 8, 12, 6, True)
+    th[1, 2] = float("-inf")
+    out = R.tropical_tucker2(x1, x2, th, log_weights=True, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.isneginf(out[1, :, 2]).all() and not torch.isnan(out).any()
+    assert torch.isfinite(out[1, 2:, :2]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("f", FLAGSHIP_F)
+def test_route_kernel_at_the_flagship_entries(f, dtype):
+    """The max kind by the score of its choice (within ``1e-5 |max| + 1e-5``,
+    1e-12 in float64) and the sample kind reproducible by seed, in range,
+    never a zero weight, at each flagship entry (rows of few folds take a
+    team of warps)."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for lw in (True, False):
+        x1, x2, th, sel = _flagship_route_inputs(f, dtype, lw, seed=1)
+        idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw)
+        scores = R.route_scores(x1, x2, th, sel, log_weights=lw)
+        best = scores.amax(dim=-1)
+        at = torch.gather(scores, -1, idx[..., None])[..., 0]
+        assert bool(((at >= best - tol * (1 + best.abs())) | torch.isneginf(best)).all())
+        draw = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw, seed=7)
+        again = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=lw, seed=7)
+        torch.cuda.synchronize()
+        assert torch.equal(draw, again) and bool(((draw >= 0) & (draw < 4096)).all())
+        drawn = torch.gather(scores, -1, draw[..., None])[..., 0]
+        assert not bool((torch.isneginf(drawn) & ~torch.isneginf(best)).any())
+        if not lw:
+            assert bool((idx != 3).all()) and bool((draw != 3).all())
+    assert T.LAUNCHES["route_tucker2"] == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("f,b", [(3, 13), (2, 128)])
+def test_route_kernel_ties_and_lone_mass(f, b, dtype):
+    """The max kind takes the lower index of two equal best scores; a row
+    whose scores are all -inf but one draws that one; a row all -inf gives 0."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, sel = (t.to(dtype) if t.is_floating_point() else t
+                       for t in _route_inputs(f, b, 64, 64, 8, True, edges=False))
+    x1.zero_()
+    x2.zero_()
+    th.fill_(-5.0)
+    th[..., 1234] = th[..., 777] = 2.0  # a tie at the maximum
+    idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=True)
+    assert bool((idx == 777).all())
+    th.fill_(float("-inf"))
+    th[..., 3001] = 0.5
+    x1[0, 0] = float("-inf")  # a row all -inf
+    for seed in (1, 2, 3):
+        draw = R.route_tucker2(x1, x2, th, sel, kind="sample", log_weights=True, seed=seed)
+        assert draw[0, 0] == 0 and bool((draw.flatten()[1:] == 3001).all())
+    idx = R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=True)
+    assert idx[0, 0] == 0 and bool((idx.flatten()[1:] == 3001).all())
+
+
+def test_route_kernel_sample_frequencies_with_a_team_of_warps():
+    """Few rows (a team of 8 warps a row) of 4096 columns: the draws of 256
+    seeds over 64 identical rows against ``softmax(scores)``, each
+    frequency within ``5 sqrt(p (1 - p) / N) + 1e-3``."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, _ = _route_inputs(1, 1, 64, 64, 4, True, seed=4, edges=False)
+    th = th * 3.0
+    sel = torch.tensor([[2]], device="cuda")
+    p = torch.softmax(R.route_scores(x1.double(), x2.double(), th.double(), sel,
+                                     log_weights=True)[0, 0], dim=-1)
+    rows = [t.expand(-1, 64, -1).contiguous() for t in (x1, x2)]
+    sel_rows = sel.expand(-1, 64).contiguous()
+    idx = torch.cat([R.route_tucker2(*rows, th, sel_rows, kind="sample", log_weights=True,
+                                     seed=s).flatten() for s in range(256)])
+    n = idx.numel()
+    freq = torch.bincount(idx, minlength=4096).double() / n
+    bound = 5 * torch.sqrt(p * (1 - p) / n) + 1e-3
+    assert bool(((freq - p).abs() <= bound).all())
+
+
 def test_route_wrapper_refuses_what_the_kernel_does_not_take():
     from cirkit_tpu_torch.ops import routing as R
 

@@ -5,7 +5,8 @@ The plain versions ``tropical_tucker2_ref`` and ``route_tucker2_ref`` (what
 the ops run on CPU tensors) take the same float32 inputs, made with numpy,
 as ``cirkit_tpu.ops.lse_einsum.tropical_tucker2`` and ``route_tucker2`` in
 interpret mode (``CIRKIT_TPU_FORCE_PALLAS=1``), at F=3, K=O=16 (the
-smallest shape the JAX kernels take: M % 128 == 0) and B in {8, 13}:
+smallest shape the JAX kernels take: M % 128 == 0) and B in {8, 13}, the
+tropical one also taken in 3 ranges of m as the kernel's split path:
 
 - tropical values to rtol = atol = 1e-5 (the two add the three terms in
   different orders, and JAX splits them into bf16 thirds);
@@ -70,13 +71,17 @@ def _check_choice(idx, x1, x2, th, sel, log_weights):
     return scores
 
 
+@pytest.mark.parametrize("splits", [None, 3], ids=["whole", "split3"])
 @pytest.mark.parametrize("b", [8, 13])
 @pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
-def test_tropical_ref_matches_jax_kernel(b, log_weights):
+def test_tropical_ref_matches_jax_kernel(b, log_weights, splits):
+    """The plain max-plus, whole and taken in 3 ranges of m combined by max
+    (the kernel's split path, ``tropical_tucker2_split_ref``), against the
+    Pallas kernel."""
     x1, x2, th, _ = _inputs(72, b, log_weights)
     want = L.tropical_tucker2(*map(np.asarray, (x1, x2, th)), log_weights=log_weights)
     assert want is not None  # the Pallas kernel ran (interpret mode)
-    got = R.tropical_tucker2(*_t(x1, x2, th), log_weights=log_weights)
+    got = R.tropical_tucker2(*_t(x1, x2, th), log_weights=log_weights, splits=splits)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, R.tropical_tucker2_ref(*_t(x1, x2, th),
                                                            log_weights=log_weights))
