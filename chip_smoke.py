@@ -124,6 +124,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    gradient of its log-likelihood (the E-step's expected counts that
    ``fit_em`` reads): the same gradient check, one counted call at batch
    128 and its median time;
+5b. EM (``parallel.em``), the EM main path: (a) the EM-ready Tucker
+   flagship's ``em_programs`` flow step at batch 128, counted (one forward
+   and one backward launch per kernel-bearing entry) and timed as
+   ``bench_em`` times it (median of 10 into one accumulator), its mean flows
+   a row on 8 rows within the ``GRAD_*`` bound of a float64 CPU flow step of
+   the same store, and one M-step at step size 1 (every sum and categorical
+   slot nonnegative, its rows summing to 1 within 1e-5); (b) ``fit_em`` over
+   ``EM_ROWS`` rows from seed 0 at batch 128 for ``EM_EPOCHS`` epochs, every
+   launch counted, the loss non-increasing within ``EM_MONO_REL`` of its
+   size, a run checkpointed every epoch, interrupted after epoch 1 and
+   resumed, equal to the uninterrupted one to the bit, and 2 epochs with the
+   50% mask of ``bench.py:222-224`` missing (``missing=-1``), finite and
+   decreasing; (c) the same flagship with Gaussian and with Binomial leaves
+   (``EM_LEAVES``, ``em_ready=True``): the compile time, 8 forward rows
+   against float64 on the CPU (rtol 1e-5), a counted flow step and its
+   median ms, and ``fit_em`` for ``EM_LEAF_EPOCHS`` epochs on synthetic rows
+   of the leaf's type, monotone, every leaf slot moved, every stddev
+   positive and every success probability inside (0, 1);
 6. profile: the forward, backward and optimizer of each training run timed
    apart, and 5 steps traced with ``torch.profiler`` for the device time by
    kernel category and the device's idle share;
@@ -140,7 +158,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    query, and the device time of MAP and sampling by kernel category;
 8. wide: the Tucker flagship at K=128 (3.30 G parameters), where the wide
    kernels run, at batch 128: with ``optimize=True`` the forward, the
-   EM-ready store's forward, ``IntegrateQuery`` with the 50% mask,
+   EM-ready store's forward and one EM flow step and M-step (counted and
+   timed, the M-step's rows summing to 1, the peak memory of each),
+   ``IntegrateQuery`` with the 50% mask,
    ``MAPQuery``, ``SamplingQuery`` of 128 samples and ``.conditional``, and
    10 Adam steps; with ``optimize=False`` the forward and 10 SGD steps.
    Every call's launches are counted per kernel: one K1-chunked launch per
@@ -200,8 +220,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``F64_GRAD_ABS``).
 
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4 and 8, the backward ops in
-phases 5 and 8, the routing ops in phase 7, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b and 8, the backward ops in
+phases 5, 5b and 8, the routing ops in phase 7, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -962,24 +982,25 @@ def _kernel_layers():
     return (TorchSumLayer, TorchCPTLayer, TorchTuckerLayer)
 
 
-def _flagship_circuit(spl: str, em_ready: bool, k: int, side: int = 28):
+def _flagship_circuit(spl: str, em_ready: bool, k: int, side: int = 28,
+                      input_layer: str = "categorical"):
     from cirkit_tpu_torch.models import image_data
 
-    return image_data((1, side, side), "quad-graph", input_layer="categorical", num_input_units=k,
+    return image_data((1, side, side), "quad-graph", input_layer=input_layer, num_input_units=k,
                       sum_product_layer=spl, num_sum_units=k, em_ready=em_ready)
 
 
 def _build_flagship(spl: str, em_ready: bool, device: str, *, k: int | None = None,
-                    optimize: bool = True, side: int = 28):
+                    optimize: bool = True, side: int = 28, input_layer: str = "categorical"):
     from cirkit_tpu_torch.pipeline import PipelineContext
 
-    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k, side)
+    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k, side, input_layer)
     ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=optimize, device=device, seed=0)
     return sc, ctx, ctx.compile(sc)
 
 
 def _f64_reference(spl: str, em_ready: bool, store, *, k: int | None = None,
-                   optimize: bool = True, side: int = 28):
+                   optimize: bool = True, side: int = 28, input_layer: str = "categorical"):
     """The flagship compiled on the CPU with no store of its own, and
     ``store`` copied there in float64 one slot at a time: the reference the
     checks against float64 evaluate, with no CPU initialization."""
@@ -987,7 +1008,7 @@ def _f64_reference(spl: str, em_ready: bool, store, *, k: int | None = None,
 
     from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
 
-    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k, side)
+    sc = _flagship_circuit(spl, em_ready, FLAGSHIP_K if k is None else k, side, input_layer)
     cc = TorchCompiler(semiring="lse-sum", fold=True, optimize=optimize, device="cpu").compile(sc)
     return cc, {s: v.detach().cpu().double() for s, v in store.items()}
 
@@ -1229,6 +1250,210 @@ def phase_train(smi: str, built: list) -> dict[str, int]:
     if missing:
         raise AssertionError(f"backward kernels not launched on the main path: {missing}")
     return bwd
+
+
+# Phase 5b, EM. fit_em trains on EM_ROWS fixed rows in batches of BATCH (4
+# batches an epoch) for EM_EPOCHS epochs; the Gaussian and Binomial
+# flagships (EM_LEAVES) train EM_LEAF_EPOCHS epochs on synthetic rows of their
+# type. Full-batch EM is monotone, but a float32 loss near the flagship's
+# 4.4e3 carries an ulp of 5e-4: each epoch's loss may exceed the one before
+# by EM_MONO_REL of its size.
+EM_ROWS, EM_EPOCHS, EM_LEAF_EPOCHS = 512, 3, 3
+EM_LEAVES = ("gaussian", "binomial")
+EM_MONO_REL = 1e-5
+
+
+def _em_rows(kind: str):
+    """EM_ROWS rows of the 28x28 image from seed 0: pixel states 0..255 (the
+    categorical flagship; the binomial one's counts), or pixel values scaled
+    to [0, 1] plus noise (the Gaussian one); with the categorical rows, the
+    50% missing mask of ``bench.py:222-224`` drawn after them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, size=(EM_ROWS, 784))
+    if kind == "gaussian":
+        return (x / 255.0 + rng.normal(0.0, 0.05, size=x.shape)).astype(np.float32), None
+    return x, rng.random((EM_ROWS, 784)) < 0.5
+
+
+def _em_monotone(label: str, losses: list[float]) -> None:
+    import numpy as np
+
+    if not all(np.isfinite(losses)) or any(b > a + EM_MONO_REL * abs(a)
+                                           for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{label}: losses {losses} not finite and non-increasing "
+                             f"(within {EM_MONO_REL} |loss|)")
+
+
+def _em_step(cc, store, x, rows: int | None = None):
+    """``em_programs``' flow step on ``store`` and its update: a function
+    running one flow step on the first ``rows`` rows of ``x`` (all, if None)
+    with unit weights into fresh accumulators, and the programs' parts."""
+    import torch
+
+    from cirkit_tpu_torch.parallel import em_programs
+
+    flow_step, em_update, state = em_programs(cc, store)
+    ref = next(iter(state["store"].values()))
+    x = x if rows is None else x[:rows]
+    w = torch.ones(x.shape[0], device=ref.device)
+
+    def step(acc=None):
+        acc = state["zero_acc"]() if acc is None else acc
+        zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
+        return flow_step(state["em_params"], state["gauss_params"], acc, zero, x, w)
+
+    return step, em_update, state
+
+
+def phase_em(smi: str, built: list) -> dict[str, int]:
+    """Phase 5b: EM through the kernels. (a) The EM-ready K=64 Tucker
+    flagship's flow step at batch 128, counted and timed, its flows on
+    GRAD_ROWS rows against float64 on the CPU, one M-step at step size 1;
+    (b) ``fit_em`` on EM_ROWS rows, monotone, resumed from a checkpoint to
+    the bit, and with missing entries; (c) the Gaussian and Binomial K=64
+    flagships: compiled, 8 forward rows against float64, a counted and timed
+    flow step, ``fit_em`` monotone with the leaves moved. Returns each
+    kernel's launches over the counted (main-path) runs."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.parallel import fit_em
+    from cirkit_tpu_torch.parallel.em import binomial_em_layers, em_slots, gaussian_em_layers
+
+    launches: dict[str, int] = {}
+    ctx, cc = next((ctx, cc) for spl, em, _, ctx, cc, _ in built if spl == "tucker" and em)
+    fwd, bwd = _expected_launches(cc)
+    per_step = {op: fwd.get(op, 0) + bwd.get(op, 0) for op in {*fwd, *bwd}}
+
+    def times(n):
+        return {op: k * n for op, k in per_step.items()}
+
+    data, mask = _em_rows("categorical")
+    x = torch.as_tensor(data[:BATCH], device=DEV)
+    label = f"[em] tucker K={FLAGSHIP_K}"
+
+    # (a) the flow step, counted; its flows against float64; one M-step
+    step, em_update, state = _em_step(cc, ctx.parameters, x)
+    acc, ll = _counted_launches(f"{label} flow step", step, times(1), launches)
+    if not bool(torch.isfinite(ll)):
+        raise AssertionError(f"{label}: flow step log-likelihood {float(ll)}")
+    new_em, _ = em_update(state["em_params"], state["gauss_params"], acc, 1.0)
+    kinds = em_slots(cc)
+    worst_sum = 0.0
+    for slot, w in new_em.items():
+        worst_sum = max(worst_sum, float((w.sum(dim=-1).double() - 1.0).abs().max()))
+        if not bool((w >= 0).all()) or worst_sum > 1e-5:
+            raise AssertionError(f"{label}: M-step {kinds[slot]} slot {slot} negative, or rows "
+                                 f"off 1 by {worst_sum:.3e} (1e-5)")
+    del new_em
+    # timed as bench_em times it: the steps add into one accumulator
+    ms = _median_ms(lambda: step(acc), warmup=3, iters=10)
+    del acc
+    step8, _, _ = _em_step(cc, ctx.parameters, x, GRAD_ROWS)
+    cc64, st64 = _f64_reference("tucker", True, ctx.parameters)
+    step64, _, _ = _em_step(cc64, st64, torch.as_tensor(data[:GRAD_ROWS]))
+    (flows, _, _), _ = step8()
+    (want, _, _), _ = step64()
+    # mean flows a row, the scale of phase 5's mean-NLL gradients
+    worst = _check_grads(f"{label} flows", {k: v / GRAD_ROWS for k, v in flows.items()},
+                         {k: v / GRAD_ROWS for k, v in want.items()})
+    del cc64, st64, step64, flows, want
+    gc.collect()
+    print(f"{label}: flow step at batch {BATCH} {ms:.3f} ms median of 10, one forward and one "
+          f"backward launch per kernel-bearing entry {per_step}; flows of {len(kinds)} slots "
+          f"on {GRAD_ROWS} rows within {worst:.3f} of the GRAD bound of float64; M-step at "
+          f"step size 1: every slot nonnegative, rows within {worst_sum:.1e} of 1 ({smi})")
+
+    # (b) fit_em: monotone; resumed from a checkpoint to the bit; missing entries
+    nb = -(-EM_ROWS // BATCH)
+    kw = dict(store=ctx.parameters, batch_size=BATCH)
+    t0 = time.perf_counter()
+    store_a, losses_a = _counted_launches(
+        f"{label} fit_em", lambda: fit_em(cc, data, num_epochs=EM_EPOCHS, **kw),
+        times(nb * EM_EPOCHS), launches)
+    fit_s = time.perf_counter() - t0
+    _em_monotone(f"{label} fit_em", losses_a)
+    ck = REPO / "build" / "chip_smoke" / "em"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    ckw = dict(checkpoint_every=1, checkpoint_path=str(ck), **kw)
+    fit_em(cc, data, num_epochs=1, **ckw)  # interrupted after epoch 1
+    store_b, losses_b = fit_em(cc, data, num_epochs=EM_EPOCHS, resume=True, **ckw)
+    shutil.rmtree(ck.parent)
+    if losses_b != losses_a or not all(torch.equal(store_a[k], store_b[k]) for k in store_a):
+        raise AssertionError(f"{label}: resumed fit_em differs from the uninterrupted run "
+                             f"(losses {losses_b} against {losses_a})")
+    del store_a, store_b
+    data_m = np.where(mask, -1, data)
+    _, losses_m = _counted_launches(
+        f"{label} fit_em missing", lambda: fit_em(cc, data_m, num_epochs=2, missing=-1, **kw),
+        times(2 * nb), launches)
+    if not all(np.isfinite(losses_m)) or not losses_m[1] < losses_m[0]:
+        raise AssertionError(f"{label}: missing-data losses {losses_m} not finite and "
+                             "decreasing")
+    print(f"{label}: fit_em over {EM_ROWS} rows at batch {BATCH}, {EM_EPOCHS} epochs in "
+          f"{fit_s:.1f} s, NLL {[round(v, 3) for v in losses_a]}; interrupted after epoch 1 "
+          f"and resumed: equal to the bit; 2 epochs with the 50% mask missing: "
+          f"{[round(v, 3) for v in losses_m]} ({smi})")
+
+    # (c) the Gaussian and Binomial flagships
+    for kind in EM_LEAVES:
+        label = f"[em] {kind} tucker K={FLAGSHIP_K}"
+        gc.collect()
+        t0 = time.perf_counter()
+        _, lctx, lcc = _build_flagship("tucker", True, DEV, input_layer=kind)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        lfwd, lbwd = _expected_launches(lcc)
+        lstep = {op: lfwd.get(op, 0) + lbwd.get(op, 0) for op in {*lfwd, *lbwd}}
+        rows, _ = _em_rows(kind)
+        lx = torch.as_tensor(rows[:BATCH], device=DEV)
+        with torch.inference_mode():
+            out = lcc(lx)
+        if out.shape != (BATCH, 1, 1) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: output {tuple(out.shape)}, not finite")
+        cc64, st64 = _f64_reference("tucker", True, lctx.parameters, input_layer=kind)
+        with torch.inference_mode():
+            ref = cc64(st64, torch.as_tensor(rows[:QUERY_ROWS]))
+        got = out[:QUERY_ROWS].double().cpu()
+        rel = float(((got - ref).abs() / ref.abs()).max())
+        if not torch.allclose(got, ref, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"{label}: forward off float64 by {rel:.3e} (1e-5)")
+        del cc64, st64
+        lstep_fn, _, _ = _em_step(lcc, lctx.parameters, lx)
+        lacc, _ = _counted_launches(f"{label} flow step", lstep_fn, lstep, launches)
+        lms = _median_ms(lambda: lstep_fn(lacc), warmup=3, iters=10)
+        new, losses = _counted_launches(
+            f"{label} fit_em",
+            lambda: fit_em(lcc, rows, store=lctx.parameters, num_epochs=EM_LEAF_EPOCHS,
+                           batch_size=BATCH),
+            {op: n * nb * EM_LEAF_EPOCHS for op, n in lstep.items()}, launches)
+        _em_monotone(f"{label} fit_em", losses)
+        if kind == "gaussian":
+            leaves = [(ms_, ss) for _, _, ms_, ss in gaussian_em_layers(lcc)]
+            moved = all(not torch.equal(new[s_], lctx.parameters[s_]) for p in leaves for s_ in p)
+            ok = moved and all(bool((new[ss] > 0).all()) for _, ss in leaves)
+        else:
+            leaves = [s_ for _, _, s_, _ in binomial_em_layers(lcc)]
+            moved = all(not torch.equal(new[s_], lctx.parameters[s_]) for s_ in leaves)
+            ok = moved and all(bool(((new[s_] > 0) & (new[s_] < 1)).all()) for s_ in leaves)
+        if not leaves or not ok:
+            raise AssertionError(f"{label}: leaf slots {leaves} did not move, or left their "
+                                 "domain")
+        print(f"{label}: compiled in {compile_s:.1f} s, {lcc.num_parameters()} parameters; "
+              f"forward of {QUERY_ROWS} rows within {rel:.2e} of float64; flow step at batch "
+              f"{BATCH} {lms:.3f} ms median of 10; fit_em {EM_LEAF_EPOCHS} epochs over "
+              f"{EM_ROWS} rows, NLL {[round(v, 3) for v in losses]}, {len(leaves)} leaf "
+              f"layers moved ({smi})")
+        del lctx, lcc, new, lstep_fn, lacc, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    missing = [op for op in per_step if not launches.get(op)]
+    if missing:
+        raise AssertionError(f"kernels of the EM path not launched: {missing}")
+    print(f"[em] launches on the EM main path: {launches}")
+    return launches
 
 
 PROFILE_STEPS = 5
@@ -2920,6 +3145,28 @@ def phase_wide(smi: str) -> dict[str, int]:
               + ", ".join(f"{k} max rel err {v:.2e}" for k, v in rels.items()))
         del got, want, out
 
+        if em:  # EM's flow step and M-step on the store itself
+            torch.cuda.reset_peak_memory_stats()
+            em_step, em_update, em_state = _em_step(cc, st, x)
+            acc, ll = counted(f"{label} EM flow step", em_step, {**fwd, **bwd})
+            flow_gb = peak_gb()
+            new_em, _ = em_update(em_state["em_params"], em_state["gauss_params"], acc, 1.0)
+            off = max(float((w.sum(dim=-1).double() - 1.0).abs().max()) for w in new_em.values())
+            if not (bool(torch.isfinite(ll)) and off <= 1e-5
+                    and all(bool((w >= 0).all()) for w in new_em.values())):
+                raise AssertionError(f"[wide] {label}: EM log-likelihood {float(ll)}, or an "
+                                     f"M-step row negative or off 1 by {off:.3e}")
+            del new_em
+            flow_ms = _median_ms(lambda: em_step(acc), warmup=1, iters=5)
+            upd_ms = _median_ms(lambda: em_update(em_state["em_params"],
+                                                  em_state["gauss_params"], acc, 1.0),
+                                warmup=1, iters=3)
+            print(f"[wide] {label}: EM flow step {flow_ms:.3f} ms median of 5 (peak memory "
+                  f"{flow_gb:.2f} GB: store, gradients, flow accumulator), M-step {upd_ms:.3f} ms "
+                  f"median of 3 (rows within {off:.1e} of 1; peak memory {peak_gb():.2f} GB) "
+                  f"({smi})")
+            del acc, ll, em_step, em_update, em_state
+
         if opt_name is not None:  # training steps on the store itself
             torch.cuda.reset_peak_memory_stats()
             tr, fr = split_trainable(cc, st)
@@ -3113,10 +3360,11 @@ def main() -> int:
     phase_float64()
     phase_float64_wide()
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
-    # each kernel's launches, summed over the main-path runs of phases 4-9b
+    # each kernel's launches, summed over the main-path runs of phases 4-11
     launches = dict.fromkeys(KERNELS, 0)
     built, fwd = phase_slice(smi)
     train = phase_train(smi, built)
+    em = phase_em(smi, built)
     phase_profile(smi, built)
     queries = phase_queries(smi, built)
     print(f"[time] phases 4-7 done at {time.perf_counter() - t_start:.0f} s")
@@ -3128,8 +3376,8 @@ def main() -> int:
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
-    for counts in (fwd, train, {op: queries[op] for op in ROUTE_OPS}, wide, sos, signed, csos,
-                   cflag, f64):
+    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, wide, sos, signed,
+                   csos, cflag, f64):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]

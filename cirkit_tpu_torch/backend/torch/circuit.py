@@ -136,6 +136,15 @@ def _slice_rows(out, b: int | None):
     return out[:b]
 
 
+def _iter_param_nodes(layer: TorchLayer):
+    """Every parameter node of a layer and of its nested layers (the leaves
+    an evidence layer wraps)."""
+    for p in layer.params.values():
+        yield from p.nodes
+    for sub in layer.sub_modules.values():
+        yield from _iter_param_nodes(sub)
+
+
 class TorchCircuit(nn.Module):
     """A compiled circuit: layers + static plan.
 
@@ -196,15 +205,14 @@ class TorchCircuit(nn.Module):
         used: set[str] = set()
         ptr_learnable: set[str] = set()
         for layer in self.layers:
-            for p in layer.params.values():
-                for node in p.nodes:
-                    if isinstance(node, TorchTensorSlot):
-                        self._slots.setdefault(node.slot, node)
-                        used.add(node.slot)
-                    elif isinstance(node, TorchPointerSlot):
-                        used.add(node.slot)
-                        if node.learnable:
-                            ptr_learnable.add(node.slot)
+            for node in _iter_param_nodes(layer):
+                if isinstance(node, TorchTensorSlot):
+                    self._slots.setdefault(node.slot, node)
+                    used.add(node.slot)
+                elif isinstance(node, TorchPointerSlot):
+                    used.add(node.slot)
+                    if node.learnable:
+                        ptr_learnable.add(node.slot)
         self._used_slots: tuple[str, ...] = tuple(sorted(used))
         # learnable slots this circuit only POINTS at (parameter sharing with
         # operand circuits): fit() on a derived circuit trains them

@@ -21,6 +21,7 @@ import numpy as np
 
 from cirkit_tpu_torch.backend.torch.layers import (
     TorchConstantInputLayer,
+    TorchEvidenceLayer,
     TorchInputLayer,
     TorchLayer,
 )
@@ -98,6 +99,13 @@ def _fold_layer_group(
         kwargs[name] = fold_parameters(
             [l.params[name] for l in group], alloc_slot, slot_remap
         )
+    if isinstance(proto, TorchEvidenceLayer):
+        # the inner layers fold recursively, after the observation
+        inner = _fold_layer_group([l.layer for l in group], alloc_slot, slot_remap)
+        return TorchEvidenceLayer(
+            inner, observation=kwargs["observation"], num_folds=num_folds,
+            semiring=proto.semiring,
+        )
     if isinstance(proto, TorchConstantInputLayer):
         # constant input layers construct their own empty scope index
         return type(proto)(**kwargs, num_folds=num_folds, semiring=proto.semiring)
@@ -126,6 +134,8 @@ def retarget_pointers(
                     node.fold_idx = np.asarray(
                         [positions[i] for i in old_idx], dtype=np.int64
                     )
+        for sub in layer.sub_modules.values():
+            fix(sub)
 
     for layer in layers:
         fix(layer)
@@ -145,6 +155,8 @@ def simplify_pointers(layers: Sequence[TorchLayer], slot_folds: Mapping[str, int
                     and np.array_equal(node.fold_idx, np.arange(node.num_folds))
                 ):
                     node.fold_idx = None
+        for sub in layer.sub_modules.values():
+            fix(sub)
 
     for layer in layers:
         fix(layer)

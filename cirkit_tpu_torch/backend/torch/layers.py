@@ -1,8 +1,7 @@
 """Compiled layers for the PyTorch backend.
 
-The counterpart of ``cirkit_tpu/backend/jax/layers.py:45-283, 395-504,
-880-908``: layers are ``nn.Module``s whose forward reads parameters from the
-store.
+The counterpart of ``cirkit_tpu/backend/jax/layers.py``: layers are
+``nn.Module``s whose forward reads parameters from the store.
 
 - inner layers:  ``forward(store, x)`` with ``x: (F, H, B, Ki) -> (F, B, Ko)``
 - input layers:  ``forward(store, x)`` with ``x: (F, B, D)  -> (F, B, K)``
@@ -11,12 +10,18 @@ store.
 F is the fold axis (homogeneous layers vectorized into one kernel launch),
 H the arity, B the batch. A semiring value is a tensor (a complex one under
 the complex log semiring), or under the signed semiring a ``(log|f|, sign)``
-pair of tensors; shape operations go through :func:`tmap`. The evidence
-layer and the other input layers are not ported (see ROADMAP.md).
+pair of tensors; shape operations go through :func:`tmap`.
+
+Input layers carry the hooks the queries and EM call: ``integrate``,
+``mpe``, ``state_distribution`` and ``sample_selected``. The hooks of the
+expectation, top-k and entropy queries (``mean_state``,
+``second_moment_state``, ``cdf_state``, ``topk_modes``, ``unit_entropy``,
+``unit_kl``) wait for ROADMAP.md items 7 and 10.
 """
 
 from __future__ import annotations
 
+import math
 from abc import ABC, abstractmethod
 from collections.abc import Mapping
 from typing import Any
@@ -36,6 +41,7 @@ from cirkit_tpu_torch.backend.torch.semiring import (
     Semiring,
     SumProductSemiring,
 )
+from cirkit_tpu_torch.backend.torch.utils import safelog, softplus
 from cirkit_tpu_torch.ops.routing import gumbel_argmax
 
 
@@ -93,10 +99,16 @@ class TorchLayer(nn.Module, ABC):
         return {}
 
     @property
+    def sub_modules(self) -> Mapping[str, "TorchLayer"]:
+        """Nested layers (the inner layer of an evidence layer)."""
+        return {}
+
+    @property
     def fold_settings(self) -> tuple[Any, ...]:
         """Hashable key: layers fold together iff these match."""
         psig = tuple((n, p.fold_settings) for n, p in self.params.items())
-        return (type(self).__name__, *sorted(self.config.items()), psig)
+        msig = tuple((n, m.fold_settings) for n, m in self.sub_modules.items())
+        return (type(self).__name__, *sorted(self.config.items()), psig, msig)
 
     @abstractmethod
     def forward(self, store: Store, x) -> torch.Tensor: ...
@@ -445,3 +457,228 @@ class TorchCategoricalLayer(TorchExpFamilyLayer):
         c = logits.shape[2]
         lsel = torch.gather(logits, 1, sel[:, :, None].expand(-1, -1, c))  # (F, B, C)
         return gumbel_argmax(lsel, generator)  # -inf logits (zero probability) never win
+
+
+class TorchEmbeddingLayer(TorchInputLayer):
+    """Embedding units: one weight column per observed state."""
+
+    def __init__(
+        self,
+        scope_idx: np.ndarray,
+        num_output_units: int,
+        *,
+        num_states: int = 2,
+        weight: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(scope_idx, num_output_units, num_folds=num_folds, semiring=semiring)
+        self.num_states = num_states
+        self.weight = weight
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_output_units": self.num_output_units, "num_states": self.num_states}
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"weight": self.weight}
+
+    def forward(self, store: Store, x) -> torch.Tensor:
+        w = self.weight(store)  # (F, K, N)
+        # states clip to the range, as the JAX package's one-hot matmul does;
+        # indexed as the categorical layer is, so the backward sums in a
+        # fixed order
+        xi = x[..., 0].long().clamp(0, w.shape[2] - 1)  # (F, B)
+        folds = torch.arange(w.shape[0], device=w.device)[:, None]
+        return self.semiring.map_from(w.transpose(1, 2)[folds, xi], SumProductSemiring)
+
+    def integrate(self, store):
+        return self.semiring.map_from(self.weight(store).sum(dim=2), SumProductSemiring)
+
+    def mpe(self, store):
+        lw = safelog(self.weight(store))  # (F, K, S)
+        return lw.amax(dim=2), lw.argmax(dim=2)
+
+    def state_distribution(self, store):
+        # the unit's weights normalized over the states (nonnegative weights)
+        w = self.weight(store)  # (F, K, S)
+        return w / w.sum(dim=2, keepdim=True).clamp_min(torch.finfo(w.dtype).tiny)
+
+
+def _log_comb(n: int, k: torch.Tensor) -> torch.Tensor:
+    """log C(n, k) for counts ``k`` of a float dtype."""
+    return math.lgamma(n + 1.0) - torch.lgamma(k + 1.0) - torch.lgamma(n - k + 1.0)
+
+
+class TorchBinomialLayer(TorchExpFamilyLayer):
+    """Binomial units (always normalized)."""
+
+    def __init__(
+        self,
+        scope_idx: np.ndarray,
+        num_output_units: int,
+        *,
+        total_count: int = 1,
+        probs: TorchParameter | None = None,
+        logits: TorchParameter | None = None,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(scope_idx, num_output_units, num_folds=num_folds, semiring=semiring)
+        if (logits is None) == (probs is None):
+            raise ValueError("Exactly one of 'logits' and 'probs' must be given")
+        self.total_count = total_count
+        self.probs = probs
+        self.logits = logits
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_output_units": self.num_output_units, "total_count": self.total_count}
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        if self.logits is None:
+            return {"probs": self.probs}
+        return {"logits": self.logits}
+
+    def _logits(self, store) -> torch.Tensor:
+        if self.logits is None:
+            p = self.probs(store)
+            return torch.log(p) - torch.log1p(-p)
+        return self.logits(store)
+
+    def log_unnormalized_likelihood(self, store, x):
+        n = self.total_count
+        logits = self._logits(store)[:, None, :]  # (F, 1, K)
+        k = x[..., :1].to(logits.dtype)  # (F, B, 1) counts
+        return _log_comb(n, k) + k * logits - n * softplus(logits)
+
+    def log_partition_function(self, store):
+        ref = self._logits(store)
+        return torch.zeros((self.num_folds, self.num_output_units), dtype=ref.dtype,
+                           device=ref.device)
+
+    def _log_pmf_table(self, store) -> torch.Tensor:
+        """The (F, K, n+1) log-pmf table over the counts 0..n."""
+        logits = self._logits(store)[:, :, None]  # (F, K, 1)
+        n = self.total_count
+        counts = torch.arange(n + 1, dtype=logits.dtype, device=logits.device)
+        return _log_comb(n, counts) + counts * logits - n * softplus(logits)
+
+    def mpe(self, store):
+        logits = self._logits(store)  # (F, K)
+        n = self.total_count
+        mode = torch.floor((n + 1) * torch.sigmoid(logits)).clamp(0, n)  # the binomial mode
+        return _log_comb(n, mode) + mode * logits - n * softplus(logits), mode.long()
+
+    def state_distribution(self, store):
+        return torch.exp(self._log_pmf_table(store))  # (F, K, n+1)
+
+    def sample_selected(self, store, generator, sel):
+        p = torch.sigmoid(self._logits(store))  # (F, K)
+        psel = torch.gather(p, 1, sel)  # (F, B)
+        u = torch.rand((self.total_count, *psel.shape), generator=generator, dtype=p.dtype,
+                       device=p.device)
+        return (u < psel[None]).sum(dim=0).to(p.dtype)
+
+
+class TorchGaussianLayer(TorchExpFamilyLayer):
+    """Gaussian units, unnormalized by an optional log-partition parameter."""
+
+    def __init__(
+        self,
+        scope_idx: np.ndarray,
+        num_output_units: int,
+        *,
+        mean: TorchParameter,
+        stddev: TorchParameter,
+        log_partition: TorchParameter | None = None,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(scope_idx, num_output_units, num_folds=num_folds, semiring=semiring)
+        self.mean = mean
+        self.stddev = stddev
+        self.log_partition = log_partition
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {"num_output_units": self.num_output_units}
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        p = {"mean": self.mean, "stddev": self.stddev}
+        if self.log_partition is not None:
+            p["log_partition"] = self.log_partition
+        return p
+
+    def log_unnormalized_likelihood(self, store, x):
+        mean = self.mean(store)[:, None, :]  # (F, 1, K)
+        stddev = self.stddev(store)[:, None, :]
+        z = (x[..., :1].to(mean.dtype) - mean) / stddev  # (F, B, K)
+        ll = -0.5 * torch.square(z) - torch.log(stddev) - 0.5 * math.log(2.0 * math.pi)
+        if self.log_partition is not None:
+            ll = ll + self.log_partition(store)[:, None, :]
+        return ll
+
+    def log_partition_function(self, store):
+        if self.log_partition is None:
+            ref = self.mean(store)
+            return torch.zeros((self.num_folds, self.num_output_units), dtype=ref.dtype,
+                               device=ref.device)
+        return self.log_partition(store)
+
+    def mpe(self, store):
+        mean = self.mean(store)  # (F, K)
+        val = -torch.log(self.stddev(store)) - 0.5 * math.log(2.0 * math.pi)  # density at mean
+        if self.log_partition is not None:
+            val = val + self.log_partition(store)
+        return val, mean
+
+    def sample_selected(self, store, generator, sel):
+        mean = torch.gather(self.mean(store), 1, sel)  # (F, B)
+        stddev = torch.gather(self.stddev(store), 1, sel)
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=mean.device)
+        return mean + stddev * eps
+
+
+class TorchEvidenceLayer(TorchConstantInputLayer):
+    """A wrapped input layer evaluated on a stored observation."""
+
+    def __init__(
+        self,
+        layer: TorchInputLayer,
+        *,
+        observation: TorchParameter,
+        num_folds: int = 1,
+        semiring=None,
+    ):
+        super().__init__(layer.num_output_units, num_folds=num_folds, semiring=semiring)
+        self.layer = layer
+        self.observation = observation
+
+    @property
+    def config(self) -> Mapping[str, Any]:
+        return {}
+
+    @property
+    def params(self) -> Mapping[str, TorchParameter]:
+        return {"observation": self.observation}
+
+    @property
+    def sub_modules(self) -> Mapping[str, TorchLayer]:
+        return {"layer": self.layer}
+
+    def forward(self, store: Store, batch_size: int) -> torch.Tensor:
+        obs = self.observation(store)[:, None, :]  # (F, 1, D)
+        out = self.layer(store, obs)  # (F, 1, K)
+        return tmap(lambda o: o.expand(o.shape[0], batch_size, o.shape[2]), out)
+
+    def sample(self, store: Store, generator, num_samples: int) -> torch.Tensor:
+        """The observation, repeated: (F, K, N)."""
+        obs = self.observation(store)  # (F, 1)
+        return obs[:, :, None].expand(self.num_folds, self.num_output_units, num_samples)
+
+    def sample_selected(self, store, generator, sel):
+        return self.sample(store, generator, sel.shape[1])[:, 0, :]  # every unit alike

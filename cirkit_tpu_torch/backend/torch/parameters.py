@@ -7,15 +7,14 @@ slot name to an ``(F, ...)`` tensor) and its compiled inputs to an
 a group of structurally-identical graphs concatenates along F (see
 ``folding.py``).
 
-This module carries the nodes the flagship circuits build (tensor and
-pointer slots, softmax, log-softmax, mixing weights, and the matmul, einsum
-and flatten nodes the graph rewrites emit), the log, reduce-sum and
-outer-product nodes the parameter rewrites match on, and the nodes the
-circuit operators emit for squared circuits, their integrals and their
-differentials (Kronecker, conjugate, outer-sum, reduce-log-sum-exp, index,
-and the polynomial product and differential), on real and on complex
-tensors. The compiler rules
-raise ``NotImplementedError`` for the other symbolic parameter nodes.
+This module carries every node of the JAX package: tensor and pointer
+slots; the entrywise ops (sum, Hadamard, exp, log, square, softplus,
+sigmoid, scaled sigmoid, clamp, conjugate) that leaf parameterizations
+build; the axis ops (softmax, log-softmax, reduce sum, product and
+log-sum-exp, outer product and sum, index); mixing weights; the Kronecker,
+Gaussian-product and polynomial nodes the circuit operators emit; and the
+matmul, einsum and flatten nodes the graph rewrites emit, on real and on
+complex tensors.
 """
 
 from __future__ import annotations
@@ -24,10 +23,12 @@ from abc import ABC, abstractmethod
 from collections.abc import Callable, Mapping, Sequence
 from typing import Any
 
+import math
+
 import numpy as np
 import torch
 
-from cirkit_tpu_torch.backend.torch.utils import csafelog, safelog
+from cirkit_tpu_torch.backend.torch.utils import csafelog, safelog, softplus
 from cirkit_tpu_torch.utils.algorithms import RootedDiAcyclicGraph
 
 Shape = tuple[int, ...]
@@ -282,26 +283,90 @@ class TorchKroneckerParameter(TorchParameterOp):
         return out.reshape((out.shape[0], *self.shape))
 
 
-class TorchConjugateParameter(TorchParameterOp):
-    """Complex conjugation; the identity on real tensors."""
+class _EntrywiseOp(TorchParameterOp, ABC):
+    """An op whose output has its (first) input's shape."""
 
     @property
     def shape(self) -> Shape:
         return self.in_shapes[0]
+
+
+class TorchSumParameter(_EntrywiseOp):
+    def _eval(self, a, b):
+        return a + b
+
+
+class TorchHadamardParameter(_EntrywiseOp):
+    def _eval(self, a, b):
+        return a * b
+
+
+class TorchConjugateParameter(_EntrywiseOp):
+    """Complex conjugation; the identity on real tensors."""
 
     def _eval(self, x):
         # written out: torch.conj alone returns a lazily conjugated view
         return x.conj().resolve_conj() if x.dtype.is_complex else x
 
 
-class TorchLogParameter(TorchParameterOp):
-    @property
-    def shape(self) -> Shape:
-        return self.in_shapes[0]
+class TorchExpParameter(_EntrywiseOp):
+    def _eval(self, x):
+        return torch.exp(x)
 
+
+class TorchLogParameter(_EntrywiseOp):
     def _eval(self, x):
         # complex inputs take the complex safe log (phases kept)
         return csafelog(x) if x.dtype.is_complex else safelog(x)
+
+
+class TorchSquareParameter(_EntrywiseOp):
+    def _eval(self, x):
+        return torch.square(x)
+
+
+class TorchSoftplusParameter(_EntrywiseOp):
+    def _eval(self, x):
+        return softplus(x)
+
+
+class TorchSigmoidParameter(_EntrywiseOp):
+    def _eval(self, x):
+        return torch.sigmoid(x)
+
+
+class TorchScaledSigmoidParameter(_EntrywiseOp):
+    """A sigmoid scaled into ``(vmin, vmax)``."""
+
+    def __init__(self, *in_shapes, vmin: float, vmax: float, num_folds: int = 1):
+        super().__init__(*in_shapes, num_folds=num_folds)
+        self.vmin = vmin
+        self.vmax = vmax
+
+    @property
+    def config(self) -> dict[str, Any]:
+        return {**super().config, "vmin": self.vmin, "vmax": self.vmax}
+
+    def _eval(self, x):
+        return torch.sigmoid(x) * (self.vmax - self.vmin) + self.vmin
+
+
+class TorchClampParameter(_EntrywiseOp):
+    """Entries clipped into ``[vmin, vmax]`` (a bound of None is open)."""
+
+    def __init__(self, *in_shapes, vmin=None, vmax=None, num_folds: int = 1):
+        super().__init__(*in_shapes, num_folds=num_folds)
+        self.vmin = vmin
+        self.vmax = vmax
+
+    @property
+    def config(self) -> dict[str, Any]:
+        return {**super().config, "vmin": self.vmin, "vmax": self.vmax}
+
+    def _eval(self, x):
+        if self.vmin is None and self.vmax is None:
+            return x
+        return torch.clamp(x, self.vmin, self.vmax)
 
 
 class _OuterOp(_AxisOp, ABC):
@@ -337,6 +402,11 @@ class _ReduceOp(_AxisOp, ABC):
 class TorchReduceSumParameter(_ReduceOp):
     def _eval(self, x):
         return x.sum(dim=self.axis + 1)
+
+
+class TorchReduceProductParameter(_ReduceOp):
+    def _eval(self, x):
+        return x.prod(dim=self.axis + 1)
 
 
 class TorchReduceLSEParameter(_ReduceOp):
@@ -380,6 +450,51 @@ class TorchMixingWeightParameter(TorchParameterOp):
         eye = torch.eye(k, dtype=x.dtype, device=x.device)
         blocks = eye[None, :, :, None] * x[:, None, :, :]  # (F, K, K, H)
         return blocks.permute(0, 1, 3, 2).reshape(x.shape[0], k, k * h)
+
+
+class TorchGaussianProductMean(TorchParameterOp):
+    """The means of every pairwise product of two families of Gaussians
+    (inputs: mean 1, stddev 1, mean 2, stddev 2)."""
+
+    @property
+    def shape(self) -> Shape:
+        return (self.in_shapes[0][-1] * self.in_shapes[2][-1],)
+
+    def _eval(self, m1, s1, m2, s2):
+        v1, v2 = torch.square(s1), torch.square(s2)
+        num = m1[:, :, None] * v2[:, None, :] + v1[:, :, None] * m2[:, None, :]
+        den = v1[:, :, None] + v2[:, None, :]
+        return (num / den).reshape(m1.shape[0], -1)
+
+
+class TorchGaussianProductStddev(TorchParameterOp):
+    """The standard deviations of every pairwise product of two families of
+    Gaussians (inputs: stddev 1, stddev 2)."""
+
+    @property
+    def shape(self) -> Shape:
+        return (self.in_shapes[0][-1] * self.in_shapes[1][-1],)
+
+    def _eval(self, s1, s2):
+        v1, v2 = torch.square(s1), torch.square(s2)
+        var = (v1[:, :, None] * v2[:, None, :]) / (v1[:, :, None] + v2[:, None, :])
+        return torch.sqrt(var).reshape(s1.shape[0], -1)
+
+
+class TorchGaussianProductLogPartition(TorchParameterOp):
+    """The log-normalizers of every pairwise product of two families of
+    Gaussians (inputs: mean 1, stddev 1, mean 2, stddev 2)."""
+
+    @property
+    def shape(self) -> Shape:
+        return (self.in_shapes[0][-1] * self.in_shapes[2][-1],)
+
+    def _eval(self, m1, s1, m2, s2):
+        v1, v2 = torch.square(s1), torch.square(s2)
+        var = v1[:, :, None] + v2[:, None, :]
+        diff = m1[:, :, None] - m2[:, None, :]
+        logz = -0.5 * torch.square(diff) / var - 0.5 * torch.log(2.0 * math.pi * var)
+        return logz.reshape(m1.shape[0], -1)
 
 
 class TorchPolynomialProduct(TorchParameterOp):

@@ -35,7 +35,9 @@ import torch
 
 from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit, _pad_rows, _slice_rows
 from cirkit_tpu_torch.backend.torch.layers import (
+    TorchBinomialLayer,
     TorchCategoricalLayer,
+    TorchEmbeddingLayer,
     TorchHadamardLayer,
     TorchInputLayer,
     TorchKroneckerLayer,
@@ -154,6 +156,10 @@ def _leaf_support_size(layer: TorchLayer) -> int | None:
     """Finite-support size of an input layer, None if continuous."""
     if isinstance(layer, TorchCategoricalLayer):
         return layer.num_categories
+    if isinstance(layer, TorchBinomialLayer):
+        return layer.total_count + 1
+    if isinstance(layer, TorchEmbeddingLayer):
+        return layer.num_states
     return None
 
 

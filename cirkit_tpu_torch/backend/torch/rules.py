@@ -2,9 +2,7 @@
 
 The counterpart of ``cirkit_tpu/backend/jax/rules.py``: three type-keyed
 tables mapping symbolic layers, parameter nodes and initializers to their
-compiled forms. Symbolic types the port does not carry yet compile to a
-rule that raises ``NotImplementedError`` (see the module queue of
-``ROADMAP.md``).
+compiled forms, one rule for every symbolic type of the JAX package.
 """
 
 from __future__ import annotations
@@ -37,19 +35,6 @@ def compiled_dtype(dtype: DataType) -> torch.dtype:
     if dtype == DataType.COMPLEX:
         return default_complex_dtype()
     return default_real_dtype()
-
-
-# The item of ROADMAP.md's module queue that brings a symbolic type the port
-# does not carry yet, where one names it.
-_ROADMAP_ITEMS = {"EvidenceLayer": 14}
-
-
-def _not_ported(kind: str, obj) -> NotImplementedError:
-    item = _ROADMAP_ITEMS.get(type(obj).__name__)
-    where = f"ROADMAP.md item {item}" if item else "see the module queue of ROADMAP.md"
-    return NotImplementedError(
-        f"The {kind} {type(obj).__name__} is not ported to the PyTorch backend yet ({where})"
-    )
 
 
 # --------------------------------------------------------------------------- #
@@ -131,12 +116,7 @@ def compile_dirichlet_initializer(
     return _init
 
 
-def compile_unported_initializer(compiler: "TorchCompiler", init: syi.Initializer):
-    raise _not_ported("initializer", init)
-
-
 DEFAULT_INITIALIZER_COMPILATION_RULES = [
-    compile_unported_initializer,
     compile_constant_tensor_initializer,
     compile_uniform_initializer,
     compile_normal_initializer,
@@ -185,14 +165,22 @@ def compile_reference_parameter(
     )
 
 
-def compile_unported_parameter(compiler: "TorchCompiler", p: syp.ParameterNode):
-    raise _not_ported("parameter node", p)
-
-
 def compile_index_parameter(
     compiler: "TorchCompiler", p: syp.IndexParameter
 ) -> tp.TorchParameterNode:
     return tp.TorchIndexParameter(*p.in_shapes, indices=p.indices, axis=p.axis)
+
+
+def compile_scaled_sigmoid_parameter(
+    compiler: "TorchCompiler", p: syp.ScaledSigmoidParameter
+) -> tp.TorchParameterNode:
+    return tp.TorchScaledSigmoidParameter(*p.in_shapes, vmin=p.vmin, vmax=p.vmax)
+
+
+def compile_clamp_parameter(
+    compiler: "TorchCompiler", p: syp.ClampParameter
+) -> tp.TorchParameterNode:
+    return tp.TorchClampParameter(*p.in_shapes, vmin=p.vmin, vmax=p.vmax)
 
 
 def compile_polynomial_differential(
@@ -202,17 +190,27 @@ def compile_polynomial_differential(
 
 
 _SIMPLE_PARAM_RULES: dict[type, type] = {
+    syp.SumParameter: tp.TorchSumParameter,
+    syp.HadamardParameter: tp.TorchHadamardParameter,
     syp.KroneckerParameter: tp.TorchKroneckerParameter,
-    syp.PolynomialProduct: tp.TorchPolynomialProduct,
+    syp.ExpParameter: tp.TorchExpParameter,
     syp.LogParameter: tp.TorchLogParameter,
+    syp.SquareParameter: tp.TorchSquareParameter,
+    syp.SoftplusParameter: tp.TorchSoftplusParameter,
+    syp.SigmoidParameter: tp.TorchSigmoidParameter,
     syp.ConjugateParameter: tp.TorchConjugateParameter,
     syp.MixingWeightParameter: tp.TorchMixingWeightParameter,
+    syp.GaussianProductMean: tp.TorchGaussianProductMean,
+    syp.GaussianProductStddev: tp.TorchGaussianProductStddev,
+    syp.GaussianProductLogPartition: tp.TorchGaussianProductLogPartition,
+    syp.PolynomialProduct: tp.TorchPolynomialProduct,
 }
 
 _AXIS_PARAM_RULES: dict[type, type] = {
     syp.OuterProductParameter: tp.TorchOuterProductParameter,
     syp.OuterSumParameter: tp.TorchOuterSumParameter,
     syp.ReduceSumParameter: tp.TorchReduceSumParameter,
+    syp.ReduceProductParameter: tp.TorchReduceProductParameter,
     syp.ReduceLSEParameter: tp.TorchReduceLSEParameter,
     syp.SoftmaxParameter: tp.TorchSoftmaxParameter,
     syp.LogSoftmaxParameter: tp.TorchLogSoftmaxParameter,
@@ -221,11 +219,12 @@ _AXIS_PARAM_RULES: dict[type, type] = {
 
 def default_parameter_rules() -> dict[type, object]:
     rules: dict[type, object] = {
-        syp.ParameterNode: compile_unported_parameter,
         syp.TensorParameter: compile_tensor_parameter,
         syp.ConstantParameter: compile_tensor_parameter,
         syp.ReferenceParameter: compile_reference_parameter,
         syp.IndexParameter: compile_index_parameter,
+        syp.ScaledSigmoidParameter: compile_scaled_sigmoid_parameter,
+        syp.ClampParameter: compile_clamp_parameter,
         syp.PolynomialDifferential: compile_polynomial_differential,
     }
     for sym_cls, torch_cls in _SIMPLE_PARAM_RULES.items():
@@ -244,10 +243,6 @@ def _scope_idx(sl: syl.InputLayer) -> np.ndarray:
     return np.asarray([sorted(sl.scope)], dtype=np.int64)
 
 
-def compile_unported_layer(compiler: "TorchCompiler", sl: syl.Layer) -> tl.TorchLayer:
-    raise _not_ported("layer", sl)
-
-
 def compile_categorical_layer(
     compiler: "TorchCompiler", sl: syl.CategoricalLayer
 ) -> tl.TorchLayer:
@@ -259,6 +254,43 @@ def compile_categorical_layer(
         num_categories=sl.num_categories,
         probs=probs,
         logits=logits,
+        semiring=compiler.semiring,
+    )
+
+
+def compile_embedding_layer(compiler: "TorchCompiler", sl: syl.EmbeddingLayer) -> tl.TorchLayer:
+    return tl.TorchEmbeddingLayer(
+        _scope_idx(sl),
+        sl.num_output_units,
+        num_states=sl.num_states,
+        weight=compiler.compile_parameter(sl.weight),
+        semiring=compiler.semiring,
+    )
+
+
+def compile_binomial_layer(compiler: "TorchCompiler", sl: syl.BinomialLayer) -> tl.TorchLayer:
+    probs = None if sl.probs is None else compiler.compile_parameter(sl.probs)
+    logits = None if sl.logits is None else compiler.compile_parameter(sl.logits)
+    return tl.TorchBinomialLayer(
+        _scope_idx(sl),
+        sl.num_output_units,
+        total_count=sl.total_count,
+        probs=probs,
+        logits=logits,
+        semiring=compiler.semiring,
+    )
+
+
+def compile_gaussian_layer(compiler: "TorchCompiler", sl: syl.GaussianLayer) -> tl.TorchLayer:
+    log_partition = (
+        None if sl.log_partition is None else compiler.compile_parameter(sl.log_partition)
+    )
+    return tl.TorchGaussianLayer(
+        _scope_idx(sl),
+        sl.num_output_units,
+        mean=compiler.compile_parameter(sl.mean),
+        stddev=compiler.compile_parameter(sl.stddev),
+        log_partition=log_partition,
         semiring=compiler.semiring,
     )
 
@@ -286,6 +318,16 @@ def compile_constant_value_layer(
     )
 
 
+def compile_evidence_layer(compiler: "TorchCompiler", sl: syl.EvidenceLayer) -> tl.TorchLayer:
+    # the inner layer first, then the observation: the JAX compiler's slot order
+    inner = compiler.compile_layer_node(sl.layer)
+    return tl.TorchEvidenceLayer(
+        inner,
+        observation=compiler.compile_parameter(sl.observation),
+        semiring=compiler.semiring,
+    )
+
+
 def compile_hadamard_layer(compiler: "TorchCompiler", sl: syl.HadamardLayer) -> tl.TorchLayer:
     return tl.TorchHadamardLayer(sl.num_input_units, arity=sl.arity, semiring=compiler.semiring)
 
@@ -307,10 +349,13 @@ def compile_sum_layer(compiler: "TorchCompiler", sl: syl.SumLayer) -> tl.TorchLa
 
 
 DEFAULT_LAYER_COMPILATION_RULES = [
-    compile_unported_layer,
     compile_categorical_layer,
+    compile_embedding_layer,
+    compile_binomial_layer,
+    compile_gaussian_layer,
     compile_polynomial_layer,
     compile_constant_value_layer,
+    compile_evidence_layer,
     compile_hadamard_layer,
     compile_kronecker_layer,
     compile_sum_layer,

@@ -3,7 +3,7 @@
 The counterpart of ``cirkit_tpu/backend/jax/utils.py``: safe logarithms
 whose gradient is 0 where ``1/x`` is not finite (the reference's
 ``SafeLog`` and ``ComplexSafeLog``, ``cirkit/backend/torch/utils.py:10-50``),
-and the ambient dtypes the compiler materializes parameters in.
+``jax.nn.softplus``'s softplus, and the ambient dtypes the compiler materializes parameters in.
 """
 
 from __future__ import annotations
@@ -80,3 +80,10 @@ def csafelog(x: torch.Tensor) -> torch.Tensor:
     """Complex log(x) whose gradient is zeroed where it is not finite (an
     exact cancellation to 0 + 0j); ``log 0`` is ``-inf + 0j``."""
     return _ComplexSafeLog.apply(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``): exact at every x, where ``F.softplus`` returns x itself above its
+    threshold."""
+    return torch.logaddexp(x, x.new_zeros(()))
