@@ -36,6 +36,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain version's are, and a second call equal to the bit; ragged cases
    (B=100, O=33, K1=13 and K2=21, I=273) that no tile of the float32 lse
    backward's tensor-core path divides;
+   the ``DX_ONLY`` cases (the K=64 and K=128 Tucker softmax entries and a
+   dense mixing entry) also with the input gradients only (``needs`` with
+   the weight False, the expectation queries' route): no weight gradient,
+   the same bound against the plain version with the same ``needs``, a
+   second call equal to the bit, timed;
 3c. routing against plain: the max-product Tucker kernel
    (``tropical_tucker2``) and the routing choice (``route_tucker2``) against
    their plain versions at the flagship's largest Tucker entry (F=784,
@@ -156,11 +161,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CPU run of the same store (rtol 1e-5), evidence returned unchanged, the
    assignments that differ from float64 counted; the median ms of each
    query, and the device time of MAP and sampling by kernel category;
+7b. expectation and information queries (``bench.py:255-316``'s
+   ``bench_queries`` workload) on the same flagship, batch and mask:
+   ``ExpectationQuery`` mean, mean and variance, ``marginals`` (float32 and
+   bfloat16), ``cdf(t=127)``, ``quantile(q=0.5)`` and ``covariance`` over
+   ``COV_VARS``, ``EntropyQuery`` without and with the evidence, and
+   ``mutual_information`` over anchors 6-21 (each a batch of 256 anchor
+   states): each call counted from zeroed counts (one forward and one
+   dx-only backward launch per kernel-bearing entry, every backward launch
+   recorded and none asking for the weight's gradient; a covariance row and
+   the entropies launch nothing: the rows are plain compositions), 8 rows of
+   the means, variances, marginals and CDFs within the ``GRAD_*`` bound of
+   float64 on the CPU (they are sums of responsibilities, gradients) and
+   the entropies within ``INFO_RTOL``; MI held to its identities (symmetric
+   within 1e-4 of its largest entry, the diagonal the marginals' entropies,
+   no entry below -1e-6); ``KLDivergenceQuery`` of the store against itself
+   (0) and against a seed-1 store (>= 0, and with its posterior form on 8
+   rows within ``INFO_RTOL`` of float64); ``MAPQuery(top_k=4)`` at batch 4
+   (top-1 equal to ``MAPQuery`` in value and assignment, the scores
+   descending, each assignment's log p(x) at least its score - 1e-4
+   |score|); ``renyi2_entropy`` of a 12x12 CP circuit at K=32 (its launches,
+   float64, at most the ``EntropyQuery`` value + 1e-4); the median ms of 10
+   calls of each, the peak memory of ``marginals`` and of top-k, and the
+   mean's device time by kernel category;
 8. wide: the Tucker flagship at K=128 (3.30 G parameters), where the wide
    kernels run, at batch 128: with ``optimize=True`` the forward, the
    EM-ready store's forward and one EM flow step and M-step (counted and
    timed, the M-step's rows summing to 1, the peak memory of each),
-   ``IntegrateQuery`` with the 50% mask,
+   ``IntegrateQuery`` and the ``ExpectationQuery`` mean (kernel 5's forward,
+   the Tucker backward dx-only, in range) with the 50% mask,
    ``MAPQuery``, ``SamplingQuery`` of 128 samples and ``.conditional``, and
    10 Adam steps; with ``optimize=False`` the forward and 10 SGD steps.
    Every call's launches are counted per kernel: one K1-chunked launch per
@@ -220,8 +249,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``F64_GRAD_ABS``).
 
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4, 5b and 8, the backward ops in
-phases 5, 5b and 8, the routing ops in phase 7, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b, 7b and 8, the backward ops
+in phases 5, 5b, 7b and 8, the routing ops in phase 7, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -891,11 +920,51 @@ def _zero_launches() -> None:
         L.LAUNCHES[op] = 0
 
 
+# The cases of phase 3b whose backward also runs dx-only (``needs`` with the
+# weight False), the route of the expectation queries, whose store is not
+# differentiated: the K=64 Tucker softmax entry, the K=128 one (kernel 5's
+# backward) and a dense mixing entry, each (forward key, case label).
+DX_ONLY = (("lse_tucker2_softmax", "F=784 B=128 K1=K2=64 O=64"),
+           ("lse_tucker2_softmax_chunked", f"F=784 B=128 K1=K2=O={WIDE_K}"),
+           ("lse_matmul_softmax", "F=1568 B=128 I=64 O=64"))
+
+
+def _dx_only_case(op: str, bkey: str, label: str, ins, out, g, entry: dict) -> str:
+    """The backward of ``op`` with the input gradients only, against its
+    plain version with the same ``needs``: the weight's gradient None, a
+    second call equal to the bit, phase 3b's bound; timed beside the full
+    backward. Returns the line to print."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    needs = (True,) * (len(ins) - 1) + (False,)
+
+    def kernel():
+        return L.backward(op, ins, out, g, needs)
+
+    def plain():
+        return getattr(L, f"{op}_bwd_ref")(*ins, out, g, needs)
+
+    got, again = kernel(), kernel()
+    if got[-1] is not None or not all(torch.equal(a, b) for a, b in zip(got[:-1], again[:-1])):
+        raise AssertionError(f"{bkey} dx-only [{label}]: a weight gradient, or two calls differ")
+    del again
+    names = ("dx1", "dx2") if len(ins) == 3 else ("dx",)
+    err = _check_backward(f"{bkey} dx-only", label, names, got[:-1], plain()[:-1], BWD_REL)
+    del got
+    ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+    entry.setdefault("dx_only", {})[label] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+    return (f"[backward] {bkey + ' dx-only':27s} {label:36s} max|err|={err:.3e}  kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+
 def phase_backward() -> dict[str, dict]:
     """Each backward kernel against its plain version on the cases of phase
     3 (the Tucker backward on the K1-chunked cases, the blocked backward on
-    the blocked ones); returns per-kernel results (times and bound of the
-    first case of each, and of the Tucker backward at the K=128 shape)."""
+    the blocked ones), and the ``DX_ONLY`` cases' input gradients alone;
+    returns per-kernel results (times and bound of the first case of each,
+    and of the Tucker backward at the K=128 shape)."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
@@ -971,6 +1040,8 @@ def phase_backward() -> dict[str, dict]:
                     entry["k128_bound_ms"], _, tc = _bound(bkey, ins)
                     line += f", bound {entry['k128_bound_ms']:.3f} ms, tensor-core bound {tc:.3f} ms"
             print(line)
+            if (key, label) in DX_ONLY:
+                print(_dx_only_case(op, bkey, label, ins, out, g, entry))
             del ins, out, g
     return results
 
@@ -1735,6 +1806,296 @@ def phase_queries(smi: str, built: list) -> dict[str, int]:
         for name in ("map", "sample"):
             print(f"[queries] {name} profile: {_device_breakdown(calls[name][0], 3)} ({smi})")
     return launches
+
+
+# The expectation and information queries of phase 7b on the K=64 Tucker
+# flagship at batch 128: the 16 anchors of bench.py's mi_per_anchor_ms
+# (6-21), the variables of the covariance, the top-k batch and slots, and
+# the Renyi-2 circuit (image_data at RENYI_SIDE x RENYI_SIDE, CP, K=RENYI_K).
+MI_ANCHORS = tuple(range(6, 22))
+COV_VARS = (100, 300, 500, 700)
+TOPK_BATCH, TOPK = 4, 4
+RENYI_SIDE, RENYI_K = 12, 32
+# The entropies, KL divergences and Renyi-2 entropies of phase 7b against
+# float64: a forward-like pass whose log-measures cancel against each other
+# (H_o = sum pi H - sum pi log pi), held to INFO_RTOL of their size.
+INFO_RTOL = 1e-4
+
+
+def _dx_only(fn):
+    """Run ``fn`` with every backward kernel launch recorded; each must ask
+    for the input gradients only (the weight's ``needs`` False)."""
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    seen = []
+    launch = L._launch_bwd
+
+    def recorded(op, ins, out, g, needs):
+        seen.append((op, tuple(needs)))
+        return launch(op, ins, out, g, needs)
+
+    L._launch_bwd = recorded
+    try:
+        out = fn()
+    finally:
+        L._launch_bwd = launch
+    weight = [s for s in seen if s[1][-1]]
+    if not seen or weight:
+        raise AssertionError(f"backward launches {seen}: expected input gradients only")
+    return out
+
+
+def _held(label: str, got, want, bound) -> float:
+    """|got - want| <= bound elementwise (a tensor or a number), both finite;
+    returns the worst error."""
+    import torch
+
+    got = got.double().cpu()
+    want = want.double()
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or not bool((err <= bound).all()):
+        raise AssertionError(f"[expect] {label}: max |card - float64| = {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _grad_bound(want):
+    """The GRAD_* bound on a statistic computed from responsibilities:
+    GRAD_REL of the table's largest entry plus GRAD_ABS."""
+    return GRAD_REL * float(want.abs().max()) + GRAD_ABS
+
+
+def phase_expectation(smi: str, built: list) -> dict[str, int]:
+    """Phase 7b: the expectation and information queries on the K=64 Tucker
+    flagship; returns each kernel's launches over the counted calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import (
+        EntropyQuery,
+        ExpectationQuery,
+        KLDivergenceQuery,
+        MAPQuery,
+        mutual_information,
+    )
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    ctx, cc = next((ctx, cc) for spl, em, _, ctx, cc, _ in built if spl == "tucker" and not em)
+    st = ctx.parameters  # the compile's store (phase 5's fit bound another as default)
+    fwd, bwd = _expected_launches(cc)
+    step = {**fwd, **bwd}
+    rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
+    x_np = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
+    mask_np = rng.random((BATCH, 784)) < 0.5
+    x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
+    q, hq = ExpectationQuery(cc), EntropyQuery(cc)
+    kw = dict(evidence_mask=mask, store=st)
+    n_mi = len(MI_ANCHORS) + 1  # the base row's marginals, then one pass per anchor
+    calls = {
+        "mean": (lambda: q(x, **kw), step),
+        "mean+variance": (lambda: q(x, return_variance=True, **kw), step),
+        "marginals": (lambda: q.marginals(x, **kw), step),
+        "marginals bf16": (lambda: q.marginals(x, dtype=torch.bfloat16, **kw), step),
+        "cdf t=127": (lambda: q.cdf(x, t=127.0, **kw), step),
+        "quantile q=0.5": (lambda: q.quantile(x, q=0.5, **kw), step),
+        "covariance": (lambda: q.covariance(x, variables=COV_VARS, **kw), step),
+        "covariance row (plain)": (lambda: q._dispatch("cov_row", x, mask, st, 0, 0,
+                                                       extra=(COV_VARS[0],)), {}),
+        "entropy": (lambda: hq(store=st), {}),
+        "posterior entropy": (lambda: hq(x, **kw), {}),
+        "mutual information": (lambda: mutual_information(cc, store=st, variables=MI_ANCHORS),
+                          {k: n * n_mi for k, n in step.items()}),
+    }
+
+    # The main-path run: each call once from zeroed counts; a backward
+    # launch that asks for the weight's gradient fails the run.
+    launches: dict[str, int] = {}
+    outs = {}
+    for name, (fn, want) in calls.items():
+        run = fn if name in ("covariance row (plain)", "entropy", "posterior entropy") else (
+            lambda fn=fn: _dx_only(fn))
+        outs[name] = _counted_launches(f"[expect] {name}", run, want, launches)
+    print(f"[expect] Tucker flagship, batch {BATCH}: a forward and a dx-only backward launch "
+          f"per kernel-bearing entry a call ({step}); covariance rows and entropies plain "
+          f"(0 launches); launches on the main path {launches}")
+
+    mean, (mean2, var) = outs["mean"], outs["mean+variance"]
+    marg, marg16 = outs["marginals"], outs["marginals bf16"]
+    cdf, quant, cov = outs["cdf t=127"], outs["quantile q=0.5"], outs["covariance"]
+    h, hp, mi = outs["entropy"], outs["posterior entropy"], outs["mutual information"]
+    xf = x.to(mean.dtype)
+    free = ~mask
+    checks = {
+        "mean": torch.equal(mean, mean2) and torch.equal(mean[mask], xf[mask])
+        and bool(((mean >= 0) & (mean <= 255)).all()),
+        "variance": bool((var[mask] == 0).all()) and bool((var >= 0).all()),
+        # the rows of responsibilities sum to 1 within the GRAD_* bound of a
+        # probability
+        "marginals": marg.shape == (BATCH, 784, 256)
+        and bool(((marg.sum(dim=2) - 1).abs() <= GRAD_REL + GRAD_ABS).all()),
+        "marginals bf16": marg16.dtype == torch.bfloat16
+        and bool(((marg16.float() - marg).abs() <= 2.0**-8).all()),
+        "cdf": bool(((cdf >= -1e-6) & (cdf <= 1 + 1e-5)).all())
+        and torch.equal(cdf[mask], (xf[mask] <= 127.0).to(cdf.dtype)),
+        "quantile": torch.equal(quant[mask], xf[mask])
+        and bool(((quant[free] >= -1e-3) & (quant[free] <= 255 + 1e-3)).all()),
+        "covariance": cov.shape == (BATCH, 4, 4) and bool(cov.isfinite().all())
+        and bool(((cov - cov.transpose(1, 2)).abs() <= 1e-3 * cov.abs().amax() + 1e-6).all()),
+        "entropies": bool(h.isfinite().all()) and bool((hp >= -1e-3).all()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"[expect] outputs wrong: {bad}")
+
+    # mutual information, which has no CPU reference at this size: its
+    # identities (symmetric; the diagonal the marginals' entropies; >= 0)
+    scale = float(mi.abs().max())
+    base = q.marginals(np.zeros((1, 784), np.int64), evidence_mask=np.zeros((1, 784), bool),
+                       store=st)[0]  # (D, S)
+    p = base[list(MI_ANCHORS)]
+    h_marg = -torch.where(p > 0, p * torch.log(p), 0.0).sum(dim=1)
+    asym = float((mi - mi.t()).abs().max())
+    diag = float((torch.diagonal(mi) - h_marg).abs().max())
+    if not (asym <= 1e-4 * scale and diag <= 1e-4 * scale and float(mi.min()) >= -1e-6):
+        raise AssertionError(f"[expect] MI: asymmetry {asym:.3e}, diagonal off the marginal "
+                             f"entropies by {diag:.3e}, least entry {float(mi.min()):.3e}")
+    print(f"[expect] MI over anchors {MI_ANCHORS[0]}-{MI_ANCHORS[-1]}: symmetric within "
+          f"{asym:.2e}, diagonal within {diag:.2e} of the marginals' entropies, least entry "
+          f"{float(mi.min()):.2e}, largest {scale:.3f} nats")
+
+    # KL: the store against itself, and against a seed-1 store
+    ctx1 = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=DEV, seed=1)
+    cc1 = ctx1.compile(_flagship_circuit("tucker", False, FLAGSHIP_K))
+    st1 = cc1.restrict_store(ctx1.parameters)
+    kq = KLDivergenceQuery(cc)
+    kl_self = kq(st, st)
+    kl, kl_post = kq(st, st1), kq(st, st1, x, evidence_mask=mask)
+    if not (float(kl_self.abs().max()) <= 1e-3 and bool((kl >= 0).all())
+            and bool((kl_post >= -1e-3).all())):
+        raise AssertionError(f"[expect] KL(p||p) {float(kl_self.max()):.3e}, KL(p||q) "
+                             f"{float(kl.min()):.3e}, posterior {float(kl_post.min()):.3e}")
+
+    # QUERY_ROWS rows against the same stores in float64 on the CPU
+    t0 = time.perf_counter()
+    r = QUERY_ROWS
+    cc64, st64 = _f64_reference("tucker", False, st)
+    st1_64 = {k: v.detach().cpu().double() for k, v in st1.items()}
+    xr, mr = torch.as_tensor(x_np[:r]), torch.as_tensor(mask_np[:r])
+    q64, h64 = ExpectationQuery(cc64), EntropyQuery(cc64)
+    kw64 = dict(evidence_mask=mr, store=st64)
+    m64, v64 = q64(xr, return_variance=True, **kw64)
+    want = {"mean": m64, "variance": v64, "marginals": q64.marginals(xr, **kw64),
+            "cdf": q64.cdf(xr, t=127.0, **kw64)}
+    got = {"mean": mean[:r], "variance": var[:r], "marginals": marg[:r], "cdf": cdf[:r]}
+    errs = {k: _held(k, got[k], want[k], _grad_bound(want[k])) for k in want}
+    info = {"entropy": (h, h64(store=st64)), "posterior entropy": (hp[:r], h64(xr, **kw64)),
+            "KL": (kl, KLDivergenceQuery(cc64)(st64, st1_64)),
+            "posterior KL": (kl_post[:r], KLDivergenceQuery(cc64)(st64, st1_64, xr,
+                                                                  evidence_mask=mr))}
+    for k, (g, w) in info.items():
+        errs[k] = _held(k, g, w, INFO_RTOL * w.abs())
+    del cc64, st64, st1_64, cc1, ctx1, st1
+    gc.collect()
+    print(f"[expect] {r} rows against float64 on the CPU ({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} max |err| {v:.2e}" for k, v in errs.items())
+          + f" (responsibility statistics within {GRAD_REL} max + {GRAD_ABS}, the rest within "
+          f"{INFO_RTOL} relative); entropy {float(h[0, 0]):.3f} nats, KL(p||q) "
+          f"{float(kl[0, 0]):.3f} nats")
+
+    # top-k MPE at TOPK_BATCH rows: top-1 is MAP, the scores descend, and
+    # each assignment is at least as likely as its parse's score
+    xt, mt = x[:TOPK_BATCH], mask[:TOPK_BATCH]
+    mq = MAPQuery(cc)
+
+    def topk():
+        return mq(xt, evidence_mask=mt, top_k=TOPK, store=st)
+
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    asg, scores = _counted_launches("[expect] top-k", topk, {}, launches)
+    topk_gb = (torch.cuda.max_memory_allocated() - base_alloc) / 1e9
+    masg, mval = mq(xt, evidence_mask=mt, store=st)
+    with torch.inference_mode():
+        ll = cc(st, asg.reshape(-1, 784).round().long()).reshape(TOPK_BATCH, TOPK)
+    top1_rel = float(((scores[:, 0] - mval).abs() / mval.abs()).max())
+    top1_differ = int((asg[:, 0] != masg).sum())
+    if not (bool(scores.isfinite().all()) and top1_rel <= RTOL and top1_differ == 0
+            and bool((scores[:, 1:] <= scores[:, :-1]).all())
+            and bool((ll >= scores - 1e-4 * scores.abs()).all())):
+        raise AssertionError(f"[expect] top-k: top-1 off MAP by {top1_rel:.3e} with "
+                             f"{top1_differ} states differing; scores {scores.tolist()}; "
+                             f"log p(x) {ll.tolist()}")
+    print(f"[expect] top-{TOPK} MPE at batch {TOPK_BATCH}: top-1 equal to MAP (value within "
+          f"{top1_rel:.1e}, assignment equal), scores descending, log p(x) >= score; peak "
+          f"memory {topk_gb:.2f} GB above what was allocated")
+
+    # Renyi-2 on a 12x12 CP circuit with softmax weights: its product circuit's
+    # integral runs kernel 1
+    r2 = _phase_renyi(smi, launches)
+
+    with torch.inference_mode():
+        base_alloc = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls["marginals"][0]()
+        marg_gb = (torch.cuda.max_memory_allocated() - base_alloc) / 1e9
+    times = {name: _median_ms(fn, warmup=2, iters=10) for name, (fn, _) in calls.items()}
+    times["top-k"] = _median_ms(topk, warmup=1, iters=10)
+    times["renyi2"] = _median_ms(r2, warmup=1, iters=10)
+    print(f"[expect] median ms of 10 calls at batch {BATCH} (top-k at {TOPK_BATCH}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; MI {times['mutual information'] / len(MI_ANCHORS):.3f} ms an anchor; marginals peak "
+          f"memory {marg_gb:.2f} GB above the stores ({smi})")
+    print(f"[expect] mean profile: {_device_breakdown(calls['mean'][0], 3)} ({smi})")
+    return launches
+
+
+def _phase_renyi(smi: str, launches: dict[str, int]):
+    """``renyi2_entropy`` of image_data((1, RENYI_SIDE, RENYI_SIDE), CP,
+    K=RENYI_K, softmax weights): its launches (the forwards of the squared
+    and of the plain circuit's integrals), against float64 on the CPU, and
+    at most the EntropyQuery bound; returns the call, for timing."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import EntropyQuery, renyi2_entropy
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTensorDotLayer
+    from cirkit_tpu_torch.models import image_data
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    def circuit():
+        return image_data((1, RENYI_SIDE, RENYI_SIDE), "quad-tree-2", input_layer="categorical",
+                          num_input_units=RENYI_K, sum_product_layer="cp", num_sum_units=RENYI_K)
+
+    flags = dict(semiring="lse-sum", fold=True, optimize=True)
+    ctx = PipelineContext(**flags, device=DEV, seed=0)
+    cc = ctx.compile(circuit())
+    renyi2_entropy(cc, ctx=ctx)  # builds the product circuit
+    sq = cc.__dict__["_squared_cc"]
+    want = dict(_expected_launches(cc)[0])
+    for k, n in _expected_launches(sq)[0].items():
+        want[k] = want.get(k, 0) + n
+    n_td = sum(isinstance(l, TorchTensorDotLayer) for l in sq.layers)
+    if n_td:
+        want["lse_matmul"] = want.get("lse_matmul", 0) + n_td
+
+    def call():
+        return renyi2_entropy(cc, ctx=ctx)
+
+    h2 = _counted_launches("[expect] renyi2", call, want, launches)
+    h = EntropyQuery(cc)()
+    ctx64 = PipelineContext(**flags, device="cpu", seed=0)
+    cc64 = ctx64.compile(circuit())
+    renyi2_entropy(cc64, ctx=ctx64)
+    ctx64.load_parameters({k: v.detach().cpu().double().numpy()
+                           for k, v in ctx.parameters.items()})
+    h2_64 = renyi2_entropy(cc64, ctx=ctx64)
+    err = _held("renyi2", h2, h2_64, INFO_RTOL * h2_64.abs())
+    if not bool((h2 <= h + 1e-4).all()):
+        raise AssertionError(f"[expect] renyi2 {float(h2[0, 0]):.4f} above the entropy bound "
+                             f"{float(h[0, 0]):.4f}")
+    print(f"[expect] renyi2 at {RENYI_SIDE}x{RENYI_SIDE} CP K={RENYI_K}: launches {want} a call, "
+          f"H2 {float(h2[0, 0]):.4f} <= H bound {float(h[0, 0]):.4f} nats, |card - float64| "
+          f"{err:.2e}")
+    return call
 
 
 # --------------------------------------------------------------------------- #
@@ -3045,7 +3406,12 @@ def phase_wide(smi: str) -> dict[str, int]:
     import numpy as np
     import torch
 
-    from cirkit_tpu_torch.backend.torch import IntegrateQuery, MAPQuery, SamplingQuery
+    from cirkit_tpu_torch.backend.torch import (
+        ExpectationQuery,
+        IntegrateQuery,
+        MAPQuery,
+        SamplingQuery,
+    )
     from cirkit_tpu_torch.backend.torch.optimized import TorchTuckerLayer
     from cirkit_tpu_torch.ops import lse_einsum as L
     from cirkit_tpu_torch.parallel import data_parallel_step, split_trainable
@@ -3093,9 +3459,13 @@ def phase_wide(smi: str) -> dict[str, int]:
             n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc.layers)
             route = {"route_tucker2": n_tucker}
             iq, mq, sq = IntegrateQuery(cc), MAPQuery(cc), SamplingQuery(cc)
+            eq = ExpectationQuery(cc)
             gen = torch.Generator().manual_seed(0)
             calls = {
                 "integrate": (lambda: iq(x, integrate_vars=mask, store=st), fwd),
+                # kernel 5's forward and the Tucker backward kernel, dx-only
+                "expectation": (lambda: _dx_only(lambda: eq(x, evidence_mask=mask, store=st)),
+                                {**fwd, **bwd}),
                 "map": (lambda: mq(x, evidence_mask=mask, store=st),
                         {"tropical_tucker2": n_tucker, **route}),
                 "sample": (lambda: sq(BATCH, generator=gen, store=st), {**fwd, **route}),
@@ -3107,7 +3477,10 @@ def phase_wide(smi: str) -> dict[str, int]:
             asg, vals = outs["map"]
             samples, _ = outs["sample"]
             csamples, log_ev = outs["conditional"]
+            mean = outs["expectation"]
             ok = (bool(outs["integrate"].isfinite().all()) and bool(vals.isfinite().all())
+                  and torch.equal(mean[mask], x[mask].to(mean.dtype))
+                  and bool(((mean >= 0) & (mean <= 255)).all())
                   and torch.equal(asg[mask], x[mask].to(asg.dtype))
                   and torch.equal(csamples[mask], x[mask].to(csamples.dtype))
                   and bool(log_ev.isfinite().all())
@@ -3122,7 +3495,7 @@ def phase_wide(smi: str) -> dict[str, int]:
             print(f"[wide] {label}: queries at batch {BATCH}, " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in times.items()) + f" (median of 5); peak memory "
                 f"{peak_gb():.2f} GB ({smi})")
-            del calls, outs, asg, vals, samples, csamples, log_ev, iq, mq, sq
+            del calls, outs, asg, vals, samples, csamples, log_ev, iq, mq, sq, eq, mean
 
         # QUERY_ROWS rows against the same store in float64 on the CPU
         t0 = time.perf_counter()
@@ -3367,7 +3740,8 @@ def main() -> int:
     em = phase_em(smi, built)
     phase_profile(smi, built)
     queries = phase_queries(smi, built)
-    print(f"[time] phases 4-7 done at {time.perf_counter() - t_start:.0f} s")
+    expect = phase_expectation(smi, built)
+    print(f"[time] phases 4-7b done at {time.perf_counter() - t_start:.0f} s")
     sos, signed_runs = phase_sos(smi)
     signed, signed_ms = phase_signed_flagships(smi, built)  # reads phase 4's stores
     csos = phase_complex_sos(smi, signed_runs)
@@ -3376,8 +3750,8 @@ def main() -> int:
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
-    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, wide, sos, signed,
-                   csos, cflag, f64):
+    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, wide, sos,
+                   signed, csos, cflag, f64):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]

@@ -2,11 +2,28 @@
 graph rewrites, the evaluation plan and the queries (the counterpart of
 ``cirkit_tpu.backend.jax``)."""
 
+from cirkit_tpu_torch.backend.torch.entropy import (
+    EntropyQuery,
+    KLDivergenceQuery,
+    renyi2_entropy,
+)
 from cirkit_tpu_torch.backend.torch.queries import (
+    ExpectationQuery,
     IntegrateQuery,
     MAPQuery,
     SamplingQuery,
     masked_evaluate,
+    mutual_information,
 )
 
-__all__ = ["IntegrateQuery", "MAPQuery", "SamplingQuery", "masked_evaluate"]
+__all__ = [
+    "EntropyQuery",
+    "ExpectationQuery",
+    "IntegrateQuery",
+    "KLDivergenceQuery",
+    "MAPQuery",
+    "SamplingQuery",
+    "masked_evaluate",
+    "mutual_information",
+    "renyi2_entropy",
+]

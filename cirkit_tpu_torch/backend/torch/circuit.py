@@ -28,6 +28,7 @@ from torch import nn
 
 from cirkit_tpu_torch.backend.torch.layers import (
     TorchConstantInputLayer,
+    TorchInnerLayer,
     TorchInputLayer,
     TorchLayer,
     tmap,
@@ -263,12 +264,34 @@ class TorchCircuit(nn.Module):
 
     # -- evaluation --------------------------------------------------------------
     def evaluate(
-        self, store: Store, x: torch.Tensor, *, module_fn: ModuleFn | None = None
+        self,
+        store: Store,
+        x: torch.Tensor,
+        *,
+        module_fn: ModuleFn | None = None,
+        plain: bool = False,
     ) -> Value:
         """Run the plan: (B, D) inputs -> (B, O, K) outputs (a pair of them
         under the signed semiring). ``module_fn(layer, store, xin)``
-        overrides per-layer evaluation (the hook of the queries)."""
-        return tmap(lambda o: o.transpose(0, 1), self.evaluate_raw(store, x, module_fn=module_fn))
+        overrides per-layer evaluation (the hook of the queries).
+
+        ``plain=True`` contracts every sum-style layer through the semiring
+        ops' plain compositions instead of the kernels, on any device: they
+        are differentiable to any order, which the kernels are not (the
+        covariance rows of ``ExpectationQuery`` take a Hessian-vector product
+        this way). With ``module_fn`` the flag is passed on to it as
+        ``module_fn(layer, store, xin, plain=True)``, and it evaluates its
+        layers with :meth:`call_layer`."""
+        out = self.evaluate_raw(store, x, module_fn=module_fn, plain=plain)
+        return tmap(lambda o: o.transpose(0, 1), out)
+
+    @staticmethod
+    def call_layer(layer: TorchLayer, store: Store, xin, *, plain: bool = False) -> Value:
+        """A layer's own evaluation; with ``plain`` an inner layer contracts
+        through the plain compositions (see :meth:`evaluate`)."""
+        if plain and isinstance(layer, TorchInnerLayer):
+            return layer(store, xin, plain=True)
+        return layer(store, xin)
 
     def entry_input(self, entry: PlanEntry, x: torch.Tensor, outs: Sequence[Value]):
         """What the plan hands ``entry``'s layer: the batch size for a
@@ -302,14 +325,24 @@ class TorchCircuit(nn.Module):
         return tmap(lambda c: c[idx], cat)
 
     def evaluate_raw(
-        self, store: Store, x: torch.Tensor, *, module_fn: ModuleFn | None = None
+        self,
+        store: Store,
+        x: torch.Tensor,
+        *,
+        module_fn: ModuleFn | None = None,
+        plain: bool = False,
     ) -> Value:
         """Run the plan returning the raw output stack (O, B, K)."""
         outs: list[Value] = []
         for entry in self._entries:
             xin = self.entry_input(entry, x, outs)
             layer = entry.layer
-            outs.append(layer(store, xin) if module_fn is None else module_fn(layer, store, xin))
+            if module_fn is None:
+                outs.append(self.call_layer(layer, store, xin, plain=plain))
+            elif plain:
+                outs.append(module_fn(layer, store, xin, plain=True))
+            else:
+                outs.append(module_fn(layer, store, xin))
         return self.output_stack(outs)
 
     def forward(self, *args) -> Value:

@@ -13,10 +13,11 @@ the complex log semiring), or under the signed semiring a ``(log|f|, sign)``
 pair of tensors; shape operations go through :func:`tmap`.
 
 Input layers carry the hooks the queries and EM call: ``integrate``,
-``mpe``, ``state_distribution`` and ``sample_selected``. The hooks of the
-expectation, top-k and entropy queries (``mean_state``,
-``second_moment_state``, ``cdf_state``, ``topk_modes``, ``unit_entropy``,
-``unit_kl``) wait for ROADMAP.md items 7 and 10.
+``mpe``, ``state_distribution`` and ``sample_selected``, and those of the
+expectation, top-k and entropy queries, ``mean_state``,
+``second_moment_state``, ``cdf_state``, ``topk_modes``, ``unit_entropy`` and
+``unit_kl`` (``cirkit_tpu/backend/jax/layers.py:325-380``). A layer that
+does not define one raises ``TypeError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +52,43 @@ def tmap(fn, *vs):
     if isinstance(vs[0], torch.Tensor):
         return fn(*vs)
     return tuple(fn(*parts) for parts in zip(*vs))
+
+
+def _topk_states(lp: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-t over a per-state log-score table (F, K, S): (values
+    (F, K, t), states (F, K, t)), descending, ``-inf``-padded when t > S.
+    A stable descending sort keeps the lower state first among equal
+    scores, the tie rule of ``jax.lax.top_k``."""
+    tt = min(t, lp.shape[2])
+    vals, idx = torch.sort(lp, dim=2, descending=True, stable=True)
+    vals, idx = vals[..., :tt], idx[..., :tt]
+    if tt < t:
+        pad = torch.full((*vals.shape[:2], t - tt), -math.inf, dtype=vals.dtype,
+                         device=vals.device)
+        vals = torch.cat([vals, pad], dim=2)
+        idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:2], t - tt)], dim=2)
+    return vals, idx
+
+
+def _discrete_cdf(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """P(x <= t | unit) from a per-unit state table: ``p`` (F, K, S),
+    thresholds ``t`` (F, B) -> (F, B, K). Non-integer thresholds floor (a
+    step CDF); below the support gives 0, above it 1."""
+    states = torch.arange(p.shape[2], dtype=p.dtype, device=p.device)
+    mask = (states[None, None, :] <= t[:, :, None]).to(p.dtype)  # (F, B, S)
+    return torch.einsum("fks,fbs->fbk", p, mask)
+
+
+def _entropy(lp: torch.Tensor) -> torch.Tensor:
+    """The entropy of normalized log-probabilities over the last axis."""
+    p = torch.exp(lp)
+    return -torch.where(p > 0, p * lp, 0.0).sum(dim=2)
+
+
+def _moment(p: torch.Tensor, power: int) -> torch.Tensor:
+    """``sum_s p[..., s] s^power`` over a (F, K, S) state table."""
+    states = torch.arange(p.shape[2], dtype=p.dtype, device=p.device)
+    return torch.einsum("fks,s->fk", p, states**power)
 
 
 def softmax_logits_slot(param: TorchParameter) -> str | None:
@@ -126,7 +164,12 @@ class TorchLayer(nn.Module, ABC):
 
 
 class TorchInnerLayer(TorchLayer, ABC):
-    """A sum or product layer: (F, H, B, Ki) -> (F, B, Ko)."""
+    """A sum or product layer: (F, H, B, Ki) -> (F, B, Ko). ``forward``
+    takes ``plain``: True contracts through the semiring ops' plain
+    compositions instead of the kernels (see ``TorchCircuit.evaluate``)."""
+
+    @abstractmethod
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor: ...
 
 
 class TorchHadamardLayer(TorchInnerLayer):
@@ -141,7 +184,7 @@ class TorchHadamardLayer(TorchInnerLayer):
     def config(self) -> Mapping[str, Any]:
         return {"num_input_units": self.num_input_units, "arity": self.arity}
 
-    def forward(self, store: Store, x) -> torch.Tensor:
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         return self.semiring.prod(x, dim=1)
 
 
@@ -162,7 +205,7 @@ class TorchKroneckerLayer(TorchInnerLayer):
     def config(self) -> Mapping[str, Any]:
         return {"num_input_units": self.num_input_units, "arity": self.arity}
 
-    def forward(self, store: Store, x) -> torch.Tensor:
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         out = tmap(lambda a: a[:, 0], x)  # (F, B, Ki)
         for h in range(1, self.arity):
             out = self.semiring.mul(
@@ -210,7 +253,7 @@ class TorchSumLayer(TorchInnerLayer):
     def params(self) -> Mapping[str, TorchParameter]:
         return {"weight": self.weight}
 
-    def forward(self, store: Store, x) -> torch.Tensor:
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         def flat(a):
             f, h, b, ki = a.shape
             return a.transpose(1, 2).reshape(f, b, h * ki)
@@ -219,8 +262,8 @@ class TorchSumLayer(TorchInnerLayer):
         if self._logits_slot is not None:
             # Softmax-parameterized weights: the normalization runs inside
             # the contraction kernel; (F, Ko, H*Ki) is never materialized.
-            return self.semiring.matmul_softmax(x, store[self._logits_slot])
-        return self.semiring.matmul(x, self.weight(store))
+            return self.semiring.matmul_softmax(x, store[self._logits_slot], plain=plain)
+        return self.semiring.matmul(x, self.weight(store), plain=plain)
 
 
 # --------------------------------------------------------------------------- #
@@ -270,6 +313,39 @@ class TorchInputLayer(TorchLayer, ABC):
         """Per-unit normalized finite-support state distribution
         p(x = s | unit): (F, K, S). Continuous layers raise."""
         raise TypeError(f"State distributions are not defined for {type(self).__name__}")
+
+    def mean_state(self, store: Store) -> torch.Tensor:
+        """Per-unit expected state E[x | unit]: (F, K). Drives the posterior
+        expectations of :class:`~cirkit_tpu_torch.backend.torch.queries.ExpectationQuery`."""
+        raise TypeError(f"Expected states are not defined for {type(self).__name__}")
+
+    def second_moment_state(self, store: Store) -> torch.Tensor:
+        """Per-unit second moment E[x^2 | unit]: (F, K); with
+        :meth:`mean_state` it gives exact posterior variances."""
+        raise TypeError(f"Second moments are not defined for {type(self).__name__}")
+
+    def cdf_state(self, store: Store, t: torch.Tensor) -> torch.Tensor:
+        """Per-unit CDF P(x <= t | unit) at per-(fold, sample) thresholds
+        ``t`` (F, B): (F, B, K). Defined for continuous layers too."""
+        raise TypeError(f"CDFs are not defined for {type(self).__name__}")
+
+    def unit_entropy(self, store: Store) -> torch.Tensor:
+        """Entropy (nats) of each unit's normalized distribution: (F, K)."""
+        raise TypeError(f"Entropies are not defined for {type(self).__name__}")
+
+    def unit_kl(self, store_p: Store, store_q: Store) -> torch.Tensor:
+        """KL(p || q) (nats) between each unit's normalized distributions
+        under two parameter stores: (F, K)."""
+        raise TypeError(f"KL divergences are not defined for {type(self).__name__}")
+
+    def topk_modes(self, store: Store, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The ``t`` best states per unit, descending: (values (F, K, t),
+        states (F, K, t)). This base version is the mode followed by
+        ``-inf``: exact for a continuous layer, whose maximizer is one
+        point. Finite-support layers rank every state."""
+        val, arg = self.mpe(store)
+        pad = torch.full((*val.shape, t - 1), -math.inf, dtype=val.dtype, device=val.device)
+        return torch.cat([val[..., None], pad], dim=-1), arg[..., None].expand(*arg.shape, t)
 
     def sample_selected(
         self, store: Store, generator: torch.Generator, sel: torch.Tensor
@@ -452,6 +528,28 @@ class TorchCategoricalLayer(TorchExpFamilyLayer):
         # softmax normalizes the logits-parameterized (unnormalized) case
         return torch.softmax(self._log_probs(store), dim=2)  # (F, K, C)
 
+    def mean_state(self, store):
+        return _moment(self.state_distribution(store), 1)
+
+    def second_moment_state(self, store):
+        return _moment(self.state_distribution(store), 2)
+
+    def cdf_state(self, store, t):
+        return _discrete_cdf(self.state_distribution(store), t)
+
+    def unit_entropy(self, store):
+        return _entropy(torch.log_softmax(self._log_probs(store), dim=2))
+
+    def unit_kl(self, store_p, store_q):
+        lp = torch.log_softmax(self._log_probs(store_p), dim=2)
+        lq = torch.log_softmax(self._log_probs(store_q), dim=2)
+        p = torch.exp(lp)
+        # p > 0 where q = 0 gives +inf (a support violation)
+        return torch.where(p > 0, p * (lp - lq), 0.0).sum(dim=2)
+
+    def topk_modes(self, store, t):
+        return _topk_states(self._log_probs(store), t)
+
     def sample_selected(self, store, generator, sel):
         logits = self._log_probs(store)  # (F, K, C)
         c = logits.shape[2]
@@ -504,6 +602,27 @@ class TorchEmbeddingLayer(TorchInputLayer):
         # the unit's weights normalized over the states (nonnegative weights)
         w = self.weight(store)  # (F, K, S)
         return w / w.sum(dim=2, keepdim=True).clamp_min(torch.finfo(w.dtype).tiny)
+
+    def topk_modes(self, store, t):
+        return _topk_states(safelog(self.weight(store)), t)
+
+    def mean_state(self, store):
+        return _moment(self.state_distribution(store), 1)
+
+    def second_moment_state(self, store):
+        return _moment(self.state_distribution(store), 2)
+
+    def cdf_state(self, store, t):
+        return _discrete_cdf(self.state_distribution(store), t)
+
+    def unit_entropy(self, store):
+        p = self.state_distribution(store)
+        return -torch.where(p > 0, p * safelog(p), 0.0).sum(dim=2)
+
+    def unit_kl(self, store_p, store_q):
+        p = self.state_distribution(store_p)
+        q = self.state_distribution(store_q)
+        return torch.where(p > 0, p * (safelog(p) - safelog(q)), 0.0).sum(dim=2)
 
 
 def _log_comb(n: int, k: torch.Tensor) -> torch.Tensor:
@@ -575,6 +694,34 @@ class TorchBinomialLayer(TorchExpFamilyLayer):
     def state_distribution(self, store):
         return torch.exp(self._log_pmf_table(store))  # (F, K, n+1)
 
+    def mean_state(self, store):
+        return self.total_count * torch.sigmoid(self._logits(store))  # (F, K)
+
+    def second_moment_state(self, store):
+        n = self.total_count
+        p = torch.sigmoid(self._logits(store))
+        return n * p * (1.0 - p) + torch.square(n * p)
+
+    def cdf_state(self, store, t):
+        return _discrete_cdf(self.state_distribution(store), t)
+
+    def unit_entropy(self, store):
+        return _entropy(self._log_pmf_table(store))
+
+    def unit_kl(self, store_p, store_q):
+        # KL(Bin(n, p1) || Bin(n, p2)) = n KL(Bern(p1) || Bern(p2)), in log
+        # space through log sigmoid(l) = -softplus(-l)
+        l1 = self._logits(store_p)
+        l2 = self._logits(store_q)
+        p1 = torch.sigmoid(l1)
+        pos = -softplus(-l1) + softplus(-l2)  # log p1 - log p2
+        neg = -softplus(l1) + softplus(l2)  # log(1 - p1) - log(1 - p2)
+        return self.total_count * (p1 * pos + (1.0 - p1) * neg)
+
+    def topk_modes(self, store, t):
+        # the whole (n+1)-state log-pmf table, ranked exactly
+        return _topk_states(self._log_pmf_table(store), t)
+
     def sample_selected(self, store, generator, sel):
         p = torch.sigmoid(self._logits(store))  # (F, K)
         psel = torch.gather(p, 1, sel)  # (F, B)
@@ -635,6 +782,27 @@ class TorchGaussianLayer(TorchExpFamilyLayer):
         if self.log_partition is not None:
             val = val + self.log_partition(store)
         return val, mean
+
+    def mean_state(self, store):
+        return self.mean(store)  # (F, K)
+
+    def second_moment_state(self, store):
+        return torch.square(self.mean(store)) + torch.square(self.stddev(store))
+
+    def cdf_state(self, store, t):
+        z = (t[:, :, None] - self.mean(store)[:, None, :]) / self.stddev(store)[:, None, :]
+        return torch.special.ndtr(z)
+
+    def unit_entropy(self, store):
+        # the differential entropy of N(mu, sigma); a log_partition scaling
+        # leaves the normalized distribution unchanged
+        return 0.5 * (1.0 + math.log(2.0 * math.pi)) + torch.log(self.stddev(store))
+
+    def unit_kl(self, store_p, store_q):
+        mp, sp = self.mean(store_p), self.stddev(store_p)
+        mq, sq = self.mean(store_q), self.stddev(store_q)
+        return (torch.log(sq / sp) + (torch.square(sp) + torch.square(mp - mq))
+                / (2.0 * torch.square(sq)) - 0.5)
 
     def sample_selected(self, store, generator, sel):
         mean = torch.gather(self.mean(store), 1, sel)  # (F, B)

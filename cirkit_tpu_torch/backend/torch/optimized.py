@@ -60,15 +60,17 @@ class TorchTuckerLayer(TorchInnerLayer):
     def params(self) -> Mapping[str, TorchParameter]:
         return {"weight": self.weight}
 
-    def forward(self, store: Store, x) -> torch.Tensor:
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         if self.arity == 2:
             # The hot configuration: the fused contraction kernel, with the
             # softmax reparameterization folded into it.
             x1 = tmap(lambda a: a[:, 0], x)
             x2 = tmap(lambda a: a[:, 1], x)
             if self._logits_slot is not None:
-                return self.semiring.tucker2_softmax(x1, x2, store[self._logits_slot])
-            return self.semiring.tucker2(x1, x2, self.weight(store))
+                return self.semiring.tucker2_softmax(
+                    x1, x2, store[self._logits_slot], plain=plain
+                )
+            return self.semiring.tucker2(x1, x2, self.weight(store), plain=plain)
         w = self.weight(store)  # (F, Ko, Ki^arity)
         w = w.reshape(-1, self.num_output_units, *(self.num_input_units,) * self.arity)
         inputs = tuple(tmap(lambda a, hh=h: a[:, hh], x) for h in range(self.arity))
@@ -110,11 +112,11 @@ class TorchCPTLayer(TorchInnerLayer):
     def params(self) -> Mapping[str, TorchParameter]:
         return {"weight": self.weight}
 
-    def forward(self, store: Store, x) -> torch.Tensor:
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         x = self.semiring.prod(x, dim=1)  # (F, B, Ki)
         if self._logits_slot is not None:
-            return self.semiring.matmul_softmax(x, store[self._logits_slot])
-        return self.semiring.matmul(x, self.weight(store))
+            return self.semiring.matmul_softmax(x, store[self._logits_slot], plain=plain)
+        return self.semiring.matmul(x, self.weight(store), plain=plain)
 
 
 class TorchTensorDotLayer(TorchInnerLayer):
@@ -155,7 +157,7 @@ class TorchTensorDotLayer(TorchInnerLayer):
     def params(self) -> Mapping[str, TorchParameter]:
         return {"weight": self.weight}
 
-    def forward(self, store: Store, x) -> torch.Tensor:
+    def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         kq = self._num_batch_units
 
         def fold_in(a):
@@ -167,5 +169,5 @@ class TorchTensorDotLayer(TorchInnerLayer):
         b = (x if isinstance(x, torch.Tensor) else x[0]).shape[2]
         # Fold the Kq axis into the batch so the contraction is the fused
         # semiring matmul: (F, B*Kq, Kj) x (F, Kk, Kj) -> (F, B*Kq, Kk).
-        y = self.semiring.matmul(tmap(fold_in, x), self.weight(store))
+        y = self.semiring.matmul(tmap(fold_in, x), self.weight(store), plain=plain)
         return tmap(lambda a: a.reshape(a.shape[0], b, self.num_output_units), y)

@@ -1,8 +1,7 @@
-"""Queries over compiled circuits: marginals, MAP and sampling.
+"""Queries over compiled circuits: marginals, expectations, MAP and sampling.
 
-The counterpart of ``cirkit_tpu/backend/jax/queries.py`` (``:30-470``,
-``:723``, ``:939``, ``:1065-1240`` and ``:1382-1911``). Every query is a
-variant of the circuit's evaluation plan:
+The counterpart of ``cirkit_tpu/backend/jax/queries.py`` (``:30-1240`` and
+``:1382-1911``). Every query is a variant of the circuit's evaluation plan:
 
 - :class:`IntegrateQuery` and :func:`masked_evaluate`: per-sample
   marginals, with input layers selecting their integral under a (B, D)
@@ -14,15 +13,18 @@ variant of the circuit's evaluation plan:
   output unit only. The arity-2 Tucker entries go through the hand-written
   kernels of :mod:`cirkit_tpu_torch.ops.routing` (``tropical_tucker2`` up,
   ``route_tucker2`` down); the dense mixing sums and CP layers use torch
-  compositions.
+  compositions. ``MAPQuery(top_k=)`` takes the k-best pass of
+  :mod:`cirkit_tpu_torch.backend.torch.topk`;
+- :class:`ExpectationQuery` and :func:`mutual_information`: posterior
+  statistics from the offset-gradient responsibilities, one forward and one
+  backward through the kernels (the weights are not differentiated).
 
 Randomness comes from an explicit ``torch.Generator`` (``generator=``,
 where the JAX package takes ``key=``): a sampling call draws one int64 seed
 per plan entry from it, so one generator seed reproduces the same draws.
-The queries run under ``torch.inference_mode()``. Top-k MAP (ROADMAP item
-10), ``ExpectationQuery`` (item 7), the tensor-parallel ``mesh=`` (item 12)
-and the dense bottom-up sampler of non-lse-sum circuits (item 9) raise
-``NotImplementedError``.
+MAP and sampling run under ``torch.inference_mode()``. The tensor-parallel
+``mesh=`` (ROADMAP item 12) and the dense bottom-up sampler of non-lse-sum
+circuits (item 9) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,10 +35,16 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
-from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit, _pad_rows, _slice_rows
+from cirkit_tpu_torch.backend.torch.circuit import (
+    ModuleFn,
+    TorchCircuit,
+    _pad_rows,
+    _slice_rows,
+)
 from cirkit_tpu_torch.backend.torch.layers import (
     TorchBinomialLayer,
     TorchCategoricalLayer,
+    TorchConstantInputLayer,
     TorchEmbeddingLayer,
     TorchHadamardLayer,
     TorchInputLayer,
@@ -63,7 +71,6 @@ from cirkit_tpu_torch.ops.routing import (
 from cirkit_tpu_torch.utils.scope import Scope
 
 _MESH = "tensor-parallel queries (mesh=) wait for ROADMAP item 12"
-_TOPK = "top-k MAP (top_k=) waits for ROADMAP item 10"
 _DENSE_SAMPLER = (
     "sampling a circuit that is not under the 'lse-sum' semiring needs the dense "
     "bottom-up sampler, which waits for ROADMAP item 9"
@@ -117,6 +124,11 @@ def _device_generator(seed: int, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _store_dtype(store: Store) -> torch.dtype:
+    """The real dtype of a store's floating-point slots."""
+    return next(v.dtype for v in store.values() if v.dtype.is_floating_point)
+
+
 # --------------------------------------------------------------------------- #
 # Masked and soft evaluation
 # --------------------------------------------------------------------------- #
@@ -135,6 +147,26 @@ def masked_leaf_select(layer: TorchLayer, store: Store, out: torch.Tensor, mask:
     m = mask[:, _scope_vars(layer, mask.device)].t()[:, :, None]  # (F, B, 1)
     # a tensor, or the signed semiring's (log|f|, sign) pair
     return tmap(lambda iz, o: torch.where(m, iz[:, None, :], o), layer.integrate(store), out)
+
+
+def offset_module_fn(
+    offsets: dict[int, torch.Tensor], missing: torch.Tensor | None = None
+) -> ModuleFn:
+    """The per-layer evaluation of the offset trick behind EM's E-step and
+    :class:`ExpectationQuery`: each input layer's log-output, marginalized
+    where ``missing`` (B, D) is True (:func:`masked_leaf_select`), plus the
+    zero offset ``offsets[id(layer)]`` of that layer. The gradient of the
+    root log-likelihood with respect to an offset is the posterior
+    responsibility of each unit (its expected flow)."""
+
+    def module_fn(layer: TorchLayer, st: Store, xin, *, plain: bool = False):
+        out = TorchCircuit.call_layer(layer, st, xin, plain=plain)
+        if missing is not None:
+            out = masked_leaf_select(layer, st, out, missing)
+        off = offsets.get(id(layer))
+        return out if off is None else out + off
+
+    return module_fn
 
 
 def masked_evaluate(
@@ -393,6 +425,418 @@ def _evidence_to_mask(cc: TorchCircuit, spec, batch: int, device: torch.device) 
 
 
 # --------------------------------------------------------------------------- #
+# Posterior expectations: ExpectationQuery and mutual_information
+# --------------------------------------------------------------------------- #
+
+
+class ExpectationQuery(Query):
+    """Posterior expected states (soft imputation): ``E[x_v | x_obs]`` for
+    every free variable, per sample, in one forward and one backward pass.
+
+    The gradient of the root log-likelihood with respect to a zero offset on
+    each input unit's log-output is that unit's posterior responsibility
+    ``p(unit used | x_obs)`` (:func:`offset_module_fn`, the mechanism of
+    EM's E-step), so a posterior statistic is the responsibility-weighted sum
+    of the units' own (``mean_state``, ``second_moment_state``,
+    ``state_distribution``, ``cdf_state``). The store is not differentiated:
+    the backward of every kernel-bearing entry computes the input gradients
+    only. Observed entries return their ``x`` value. Requires the
+    ``lse-sum`` semiring."""
+
+    def __init__(self, circuit: TorchCircuit) -> None:
+        if not (circuit.properties.smooth and circuit.properties.decomposable):
+            raise ValueError(
+                "The circuit must be smooth and decomposable, "
+                f"but found {circuit.properties}"
+            )
+        if circuit.semiring is not LSESumSemiring:
+            raise ValueError(
+                "ExpectationQuery requires a circuit compiled under the 'lse-sum' semiring, "
+                f"found {circuit.semiring.__name__}"
+            )
+        self._circuit = circuit
+
+    def __call__(
+        self,
+        x,
+        *,
+        evidence_mask: MaskSpec,
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        return_variance: bool = False,
+        pad_batch_to: int | None = None,
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+        """(B, D) expected states: ``x`` where ``evidence_mask`` is True, the
+        posterior mean of head (``output``, ``unit``) elsewhere. With
+        ``return_variance=True`` also the (B, D) exact posterior variances
+        (0 at observed entries), by the law of total variance over units."""
+        mode = "mean_var" if return_variance else "mean"
+        return self._dispatch(mode, x, evidence_mask, store, output, unit, pad=pad_batch_to)
+
+    def marginals(
+        self,
+        x,
+        *,
+        evidence_mask: MaskSpec,
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        dtype: torch.dtype | None = None,
+        pad_batch_to: int | None = None,
+    ) -> torch.Tensor:
+        """Full posterior state distributions: (B, D, S) with ``out[b, v, s]
+        = p(x_v = s | x_obs)``, S the largest leaf support (smaller supports
+        pad with 0). Observed variables return the one-hot of their state.
+        Every input layer must have finite support. ``dtype`` (e.g.
+        ``torch.bfloat16``) is the type of the returned table; the
+        responsibilities reduce in the store's type."""
+        mode = "marginals" if dtype is None else ("marginals", dtype)
+        return self._dispatch(mode, x, evidence_mask, store, output, unit, pad=pad_batch_to)
+
+    def cdf(
+        self,
+        x,
+        *,
+        t,
+        evidence_mask: MaskSpec,
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        pad_batch_to: int | None = None,
+    ) -> torch.Tensor:
+        """Exact posterior CDFs: (B, D) with ``out[b, v] = p(x_v <= t_v |
+        x_obs)``, ``t`` a scalar, (D,) or (B, D). The responsibilities
+        contract with the leaves' per-unit CDFs (``cdf_state``), so
+        continuous leaves work too. Observed entries return ``x_v <= t_v``."""
+        tt = self._targets(x, t)
+        return self._dispatch("cdf", x, evidence_mask, store, output, unit, extra=(tt,),
+                              pad=pad_batch_to)
+
+    def quantile(
+        self,
+        x,
+        *,
+        q,
+        evidence_mask: MaskSpec,
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        pad_batch_to: int | None = None,
+    ) -> torch.Tensor:
+        """Exact posterior quantiles: (B, D) with ``out[b, v] = inf{t :
+        p(x_v <= t | x_obs) >= q_v}`` (the generalized inverse: a discrete
+        leaf lands on the quantile state). ``q`` is a scalar, (D,) or (B, D)
+        in (0, 1). The responsibilities are computed once; the inversion
+        brackets the mean by 12 doublings and bisects 60 times through the
+        leaf-CDF contraction. Observed entries return their ``x`` value."""
+        qv = np.asarray(q.cpu() if isinstance(q, torch.Tensor) else q, dtype=np.float64)
+        if ((qv <= 0.0) | (qv >= 1.0)).any():
+            raise ValueError("Quantile targets must lie strictly in (0, 1)")
+        qq = self._targets(x, qv)
+        return self._dispatch("quantile", x, evidence_mask, store, output, unit, extra=(qq,),
+                              pad=pad_batch_to)
+
+    def covariance(
+        self,
+        x,
+        *,
+        evidence_mask: MaskSpec,
+        variables: Sequence[int],
+        store: Store | None = None,
+        output: int = 0,
+        unit: int = 0,
+        pad_batch_to: int | None = None,
+    ) -> torch.Tensor:
+        """Exact posterior covariances ``Cov[x_u, x_v | x_obs]`` of the
+        queried ``variables``: (B, k, k).
+
+        Row u is ``m_u^T H m`` with H the Hessian of the evidence
+        log-likelihood with respect to the per-unit offsets and m the
+        leaves' mean states: one Hessian-vector product per queried
+        variable, a double backward. The kernels' backward is not
+        differentiable, so these rows evaluate the circuit through the
+        semiring ops' plain compositions (``TorchCircuit.evaluate(...,
+        plain=True)``) on any device, as the JAX package traces this one
+        program on its XLA path; the diagonal (the variances) and every
+        other statistic run the kernels. Rows and columns of observed
+        variables are 0."""
+        cc = self._circuit
+        variables = tuple(int(v) for v in variables)
+        num_vars = _num_vars(cc)
+        for v in variables:
+            if not 0 <= v < num_vars:
+                raise ValueError(f"variable {v} out of range for {num_vars} variables")
+        _, var = self._dispatch("mean_var", x, evidence_mask, store, output, unit,
+                                pad=pad_batch_to)
+        rows = torch.stack([
+            self._dispatch("cov_row", x, evidence_mask, store, output, unit, extra=(u,),
+                           pad=pad_batch_to)
+            for u in variables
+        ], dim=1)  # (B, k, D)
+        vidx = torch.as_tensor(variables, device=rows.device)
+        cov = rows[:, :, vidx]
+        eye = torch.eye(len(variables), dtype=torch.bool, device=rows.device)
+        cov = torch.where(eye[None], var[:, vidx][:, :, None], cov)
+        mask = _evidence_to_mask(cc, evidence_mask, cov.shape[0], rows.device)
+        free = (~mask[:, vidx]).to(cov.dtype)  # observed variables are constants
+        return cov * free[:, :, None] * free[:, None, :]
+
+    def _targets(self, x, t) -> torch.Tensor:
+        """Per-(sample, variable) thresholds or targets (B, D) in float64."""
+        t = t.cpu() if isinstance(t, torch.Tensor) else t
+        b = len(x)
+        return torch.as_tensor(np.broadcast_to(np.asarray(t, dtype=np.float64),
+                                               (b, _num_vars(self._circuit))).copy())
+
+    def _dispatch(self, mode, x, evidence_mask, store, output, unit, extra=(), pad=None):
+        cc = self._circuit
+        padded = _pad_rows(pad, x, evidence_mask, *extra)
+        x, evidence_mask, extra, _b = padded[0], padded[1], padded[2:-1], padded[-1]
+        store = {k: v.detach() for k, v in _bound_store(cc, store).items()}
+        dev = _store_device(store)
+        # the responsibilities are gradients: autograd must record, also
+        # under a caller's inference mode
+        with torch.inference_mode(False), torch.no_grad():
+            x = _to_device(x, dev)
+            mask = _evidence_to_mask(cc, evidence_mask, x.shape[0], dev)
+            num_vars = _num_vars(cc)
+            if mask.shape[1] != num_vars:
+                raise ValueError(
+                    f"The circuit scope has {num_vars} variables, but the mask "
+                    f"covers {mask.shape[1]}"
+                )
+            extra = tuple(_to_device(e, dev) if isinstance(e, torch.Tensor) else e
+                          for e in extra)
+            runs = cc.__dict__.setdefault("_expect_runs", {})
+            key = (output, unit, mode)
+            if key not in runs:
+                runs[key] = _build_expectation_run(cc, output, unit, mode)
+            return _slice_rows(runs[key](store, x, mask, *extra), _b)
+
+
+def _build_expectation_run(cc: TorchCircuit, output: int, unit: int, mode) -> Callable:
+    """The expectation program of one mode: "mean" -> (B, D) posterior
+    means; "mean_var" -> the (means, variances) pair; "marginals" (or
+    ("marginals", dtype)) -> (B, D, S) posterior state distributions;
+    "cdf" and "quantile" -> (B, D) at the (B, D) thresholds or targets of
+    the extra argument; "cov_row" -> the (B, D) covariance row of the
+    variable given as the extra argument; "mi_row" -> one anchor's (D,)
+    mutual-information row (extra arguments: the anchor and the (D, S)
+    marginals of the base row). Every mode shares the responsibility pass
+    and differs in the per-leaf statistic (and, for covariance rows, the
+    second backward). ``run`` is called under ``torch.no_grad()``; its
+    backward passes turn grad mode on for themselves."""
+    num_vars = _num_vars(cc)
+    inputs = [
+        entry.layer for entry in cc._entries
+        if isinstance(entry.layer, TorchInputLayer)
+        and not isinstance(entry.layer, TorchConstantInputLayer)
+    ]
+    for layer in inputs:
+        if layer.num_variables != 1:
+            raise NotImplementedError("Expectations of multivariate input layers are not supported")
+    out_dtype = None
+    if isinstance(mode, tuple):
+        mode, out_dtype = mode
+    supp = 0
+    if mode in ("marginals", "mi_row"):
+        for layer in inputs:
+            s = _leaf_support_size(layer)
+            if s is None:
+                raise NotImplementedError(
+                    "Posterior marginals need finite-support input layers; "
+                    f"{type(layer).__name__} is continuous"
+                )
+            supp = max(supp, s)
+    plain = mode == "cov_row"
+
+    def run(st: Store, xx: torch.Tensor, mk: torch.Tensor, uu=None, vv=None):
+        dev = xx.device
+        dt = _store_dtype(st)
+        if mode == "mi_row":
+            # one anchor's row: the (S, D) anchor-state evidence is built on
+            # the device from the base row, and the KL reduce below runs
+            # there too, so only the (D,) row is left to read
+            colb = torch.arange(num_vars, device=dev) == uu
+            states = torch.arange(supp, dtype=xx.dtype, device=dev)
+            xx = torch.where(colb[None, :], states[:, None], xx[0][None, :])
+            mk = mk[0][None, :] | colb[None, :]
+        bsz = xx.shape[0]
+        svars = [_scope_vars(layer, dev) for layer in inputs]
+        offs = {
+            id(layer): torch.zeros((layer.num_folds, bsz, layer.num_output_units), dtype=dt,
+                                   device=dev, requires_grad=True)
+            for layer in inputs
+        }
+        with torch.enable_grad():
+            ll = cc.evaluate(st, xx, module_fn=offset_module_fn(offs, ~mk), plain=plain)
+            total = ll[:, output, unit].sum()
+            grads = torch.autograd.grad(total, list(offs.values()), create_graph=plain,
+                                        allow_unused=True)
+        # an offset the root does not reach has responsibility 0
+        resp = [torch.zeros_like(o) if g is None else g for o, g in zip(offs.values(), grads)]
+
+        def contract(rd, stat) -> torch.Tensor:
+            """Scatter the ``rd``-weighted per-unit statistic (F, K) into (B,
+            D) at each layer's variables."""
+            acc = torch.zeros((bsz, num_vars), dtype=dt, device=dev)
+            for layer, v, r in zip(inputs, svars, rd):
+                val = torch.einsum("fbk,fk->fb", r, stat(layer).to(dt))
+                acc.index_add_(1, v, val.t())
+            return acc
+
+        def cdf_at(tt: torch.Tensor) -> torch.Tensor:
+            """The posterior CDF (B, D) at thresholds ``tt`` (B, D): the
+            responsibilities sum to 1 per variable by smoothness, so the
+            weighted per-unit CDFs are normalized."""
+            acc = torch.zeros((bsz, num_vars), dtype=dt, device=dev)
+            for layer, v, r in zip(inputs, svars, resp):
+                c = layer.cdf_state(st, tt[:, v].t()).to(dt)  # (F, B, K)
+                acc.index_add_(1, v, torch.einsum("fbk,fbk->fb", r, c).t())
+            return acc
+
+        if mode == "cov_row":
+            # Cov(x_u, x_v | e) = m_u^T H_uv m_v: the second backward of the
+            # responsibilities against the tangent of u's mean states gives
+            # the whole row
+            tang = []
+            for layer, v in zip(inputs, svars):
+                m = layer.mean_state(st).to(dt) * (v == uu).to(dt)[:, None]  # (F, K)
+                tang.append(m[:, None, :].expand(-1, bsz, -1))
+            with torch.enable_grad():
+                live = [(o, g, t) for o, g, t in zip(offs.values(), grads, tang)
+                        if g is not None and g.requires_grad]
+                hv = torch.autograd.grad([g for _, g, _ in live], [o for o, _, _ in live],
+                                         grad_outputs=[t for _, _, t in live],
+                                         allow_unused=True)
+            hvs = {id(o): h for (o, _, _), h in zip(live, hv) if h is not None}
+            hvp = [hvs.get(id(o), torch.zeros_like(o)) for o in offs.values()]
+            return contract(hvp, lambda l: l.mean_state(st))
+
+        if mode in ("marginals", "mi_row"):
+            out = torch.zeros((bsz, num_vars, supp), dtype=dt, device=dev)
+            for layer, v, r in zip(inputs, svars, resp):
+                pm = torch.einsum("fbk,fks->fbs", r, layer.state_distribution(st).to(dt))
+                if pm.shape[2] < supp:
+                    pm = torch.nn.functional.pad(pm, (0, supp - pm.shape[2]))
+                out.index_add_(1, v, pm.transpose(0, 1))
+            obs = torch.nn.functional.one_hot(
+                xx.long().clamp(0, supp - 1), supp
+            ).to(dt)
+            res = torch.where(mk[:, :, None], obs, out)
+            if mode == "mi_row":
+                # anchor states with p(s) = 0 (impossible evidence, or
+                # support padding past this anchor's state count) give
+                # NaN rows: masked after nan_to_num, they add nothing
+                marg = vv.to(dt)
+                p_u = marg[uu]  # (S,)
+                lcond = torch.where(res > 0, torch.log(res), 0.0)
+                lmarg = torch.where(marg > 0, torch.log(marg), 0.0)
+                kl = (res * (lcond - lmarg[None])).sum(dim=2)  # (S, D)
+                kl = torch.where((p_u > 0)[:, None], torch.nan_to_num(kl), 0.0)
+                return p_u @ kl
+            return res if out_dtype is None else res.to(out_dtype)
+
+        if mode == "cdf":
+            tt = uu.to(dt)  # thresholds (B, D)
+            obs = (xx.to(dt) <= tt).to(dt)
+            return torch.where(mk, obs, cdf_at(tt))
+
+        m1 = contract(resp, lambda l: l.mean_state(st))
+        if mode == "quantile":
+            qq = uu.to(dt)  # targets (B, D)
+            m2 = contract(resp, lambda l: l.second_moment_state(st))
+            sd = torch.sqrt(torch.clamp_min(m2 - torch.square(m1), 0.0))
+            # bracket the generalized inverse around the mean: start at
+            # +-(4 sd + 1) and double where q is still outside
+            c = 4.0 * sd + 1.0
+            for _ in range(12):
+                outside = (cdf_at(m1 - c) > qq) | (cdf_at(m1 + c) < qq)
+                c = torch.where(outside, 2.0 * c, c)
+            lo, hi = m1 - c, m1 + c
+            for _ in range(60):
+                mid = 0.5 * (lo + hi)
+                below = cdf_at(mid) < qq
+                lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+            # hi converges from above: inf{t : F(t) >= q}, on the jump of
+            # a step CDF
+            return torch.where(mk, xx.to(dt), hi)
+        mean = torch.where(mk, xx.to(dt), m1)
+        if mode == "mean":
+            return mean
+        m2 = contract(resp, lambda l: l.second_moment_state(st))
+        # the law of total variance over the leaf units; cancellation can
+        # leave tiny negative residuals
+        var = torch.clamp_min(m2 - torch.square(m1), 0.0)
+        return mean, torch.where(mk, torch.zeros((), dtype=dt, device=dev), var)
+
+    return run
+
+
+def mutual_information(
+    circuit: TorchCircuit,
+    *,
+    store: Store | None = None,
+    variables: Sequence[int] | None = None,
+    x=None,
+    evidence_mask=None,
+    output: int = 0,
+    unit: int = 0,
+) -> torch.Tensor:
+    """Exact pairwise mutual information under the circuit distribution: a
+    (k, k) matrix over ``variables`` (default: every variable of the scope)
+    with ``out[i, j] = I(x_ui ; x_uj)`` in nats and the marginal entropies
+    on the diagonal. With ``x`` and ``evidence_mask`` (one assignment) every
+    term conditions on the evidence, and rows and columns of observed
+    variables are 0.
+
+    One :meth:`ExpectationQuery.marginals` pass per anchor u whose batch
+    enumerates u's states as evidence, so one backward gives ``p(x_v = t |
+    x_u = s)`` for every v and t, reduced on the device with the
+    unconditional marginals to ``I(u, v) = sum_s p(s) KL(p(x_v | s) ||
+    p(x_v))``; only each anchor's (D,) row leaves the device. Requires
+    finite-support leaves at the queried variables."""
+    q = ExpectationQuery(circuit)
+    supports = _variable_supports(circuit)
+    num_vars = supports.shape[0]
+    if variables is None:
+        variables = [v for v in range(num_vars) if supports[v] != -2]
+    variables = tuple(int(v) for v in variables)
+    for v in variables:
+        if not 0 <= v < num_vars or supports[v] == -2:
+            raise ValueError(f"Variable {v} is outside the circuit scope")
+        if supports[v] == -1:
+            raise NotImplementedError(
+                f"Mutual information needs finite-support leaves; variable {v} has a "
+                "continuous input layer"
+            )
+    if x is None:
+        x0 = np.zeros(num_vars, dtype=np.int64)
+        m0 = np.zeros(num_vars, dtype=bool)
+    else:
+        if evidence_mask is None:
+            raise ValueError("Passing x requires evidence_mask")
+        x0 = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                        dtype=np.int64).reshape(num_vars)
+        m0 = np.asarray(evidence_mask.cpu() if isinstance(evidence_mask, torch.Tensor)
+                        else evidence_mask, dtype=bool).reshape(num_vars)
+    marg = q.marginals(x0[None], evidence_mask=m0[None], store=store, output=output,
+                       unit=unit)[0]  # (D, S)
+    rows = [
+        q._dispatch("mi_row", x0[None], m0[None], store, output, unit, extra=(u, marg))
+        for u in variables if not m0[u]
+    ]
+    mat = np.zeros((len(variables), num_vars))
+    if rows:
+        mat[~m0[list(variables)]] = torch.stack(rows).cpu().double().numpy()
+    cols = np.asarray(variables)
+    mat = mat[:, cols]
+    mat[:, m0[cols]] = 0.0  # observed columns: conditioning makes them constants
+    return torch.as_tensor(mat, dtype=marg.dtype, device=marg.device)
+
+
+# --------------------------------------------------------------------------- #
 # MAP and sampling: the two-pass routing
 # --------------------------------------------------------------------------- #
 
@@ -442,9 +886,14 @@ class MAPQuery(Query):
         (a (B, D)/(D,) boolean mask, a Scope, or Scopes) marks the observed
         entries of ``x`` and the free variables are maximized per sample.
         ``marginalize_vars`` (same specs) makes it a marginal MAP query: those
-        variables are summed out at their input layers and come back as 0."""
-        if top_k is not None:
-            raise NotImplementedError(_TOPK)
+        variables are summed out at their input layers and come back as 0.
+
+        ``top_k=T`` returns the T best parses instead, ``(assignments (B, T,
+        D), log_values (B, T))`` with descending scores (the k-best pass of
+        :mod:`cirkit_tpu_torch.backend.torch.topk`): the exact top-T
+        assignments on deterministic circuits, the T best latent parses
+        otherwise. Slots past the number of parses score ``-inf``. It cannot
+        be combined with ``marginalize_vars``."""
         cc = self._circuit
         num_vars = _num_vars(cc)
         with torch.inference_mode():
@@ -475,6 +924,18 @@ class MAPQuery(Query):
                         "A variable cannot be both observed (evidence_mask) and "
                         "marginalized (marginalize_vars)"
                     )
+            if top_k is not None:
+                if top_k < 1:
+                    raise ValueError(f"top_k must be >= 1, found {top_k}")
+                if mg is not None:
+                    raise NotImplementedError("top_k cannot be combined with marginalize_vars")
+                runs = cc.__dict__.setdefault("_topk_runs", {})
+                key = (top_k, output, unit)
+                if key not in runs:
+                    from cirkit_tpu_torch.backend.torch.topk import build_topk_run
+
+                    runs[key] = build_topk_run(cc, top_k, root_output=output, root_unit=unit)
+                return _slice_rows(runs[key](store, x, mask), _b)  # (B, T, D), (B, T)
             asg, vals, _ = _routing_run(cc, "max", output, unit)(store, x, mask, mg)
             return _slice_rows((asg, vals[output, :, unit]), _b)
 
@@ -645,6 +1106,30 @@ def _record(layer: TorchLayer, name: str) -> tuple:
     raise NotImplementedError(f"{name} is not supported for {type(layer).__name__}")
 
 
+def _root_position(cc: TorchCircuit, root_output: int, root_unit: int) -> tuple[int, int]:
+    """The (plan entry, fold) of flat root output ``root_output``, checked
+    with the unit ``root_unit`` against the circuit's outputs."""
+    if not 0 <= root_output < cc.num_outputs:
+        raise ValueError(
+            f"root output {root_output} out of range for a circuit with {cc.num_outputs} outputs"
+        )
+    num_root_units = cc._entries[cc._out_ids[0]].layer.num_output_units
+    if not 0 <= root_unit < num_root_units:
+        raise ValueError(
+            f"root unit {root_unit} out of range for {num_root_units} output units"
+        )
+    flat = root_output
+    if cc._out_gather is not None:
+        flat = int(getattr(cc, cc._out_gather)[root_output])
+    off = 0
+    for i in cc._out_ids:
+        nf = cc._entries[i].layer.num_folds
+        if flat < off + nf:
+            return i, flat - off
+        off += nf
+    return cc._out_ids[0], flat
+
+
 def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
                        root_unit: int = 0) -> Callable:
     """The two-pass routing behind :class:`MAPQuery` (``kind="max"``) and
@@ -687,25 +1172,7 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
             recs_static.append(_record(layer, name))
     folds = [entry.layer.num_folds for entry in entries]
 
-    # the root: flat output root_output, unit root_unit of the output stack
-    if not 0 <= root_output < cc.num_outputs:
-        raise ValueError(
-            f"root output {root_output} out of range for a circuit with {cc.num_outputs} outputs"
-        )
-    num_root_units = entries[cc._out_ids[0]].layer.num_output_units
-    if not 0 <= root_unit < num_root_units:
-        raise ValueError(
-            f"root unit {root_unit} out of range for {num_root_units} output units"
-        )
-    flat = root_output
-    if cc._out_gather is not None:
-        flat = int(getattr(cc, cc._out_gather)[root_output])
-    root_entry, root_fold, off = cc._out_ids[0], flat, 0
-    for i in cc._out_ids:
-        if flat < off + folds[i]:
-            root_entry, root_fold = i, flat - off
-            break
-        off += folds[i]
+    root_entry, root_fold = _root_position(cc, root_output, root_unit)
 
     def run(st: Store, xx: torch.Tensor, mk: torch.Tensor, mg: torch.Tensor | None = None,
             generator: torch.Generator | None = None):

@@ -12,6 +12,12 @@ The complex log semiring (values are single complex tensors ``log|f| + i
 arg f``) sends its dense and Tucker hooks to the ops of
 ``cirkit_tpu_torch/ops/clse_einsum.py``; its softmax hooks normalize the
 logits first and contract against the real weights, as in the JAX package.
+
+Every fused hook takes ``plain``: True runs the op's plain composition of
+PyTorch ops (its ``*_ref`` function) on any device instead of the kernel.
+Those compositions are differentiable to any order and ``torch.func`` can
+transform them, which the kernels' ``autograd.Function``s cannot; the
+circuit threads the flag down from ``TorchCircuit.evaluate(..., plain=True)``.
 """
 
 from __future__ import annotations
@@ -30,18 +36,31 @@ from cirkit_tpu_torch.backend.torch.utils import (
     to_complex_dtype,
     to_real_dtype,
 )
-from cirkit_tpu_torch.ops.clse_einsum import clse_matmul, clse_tucker2
+from cirkit_tpu_torch.ops.clse_einsum import (
+    clse_matmul,
+    clse_matmul_ref,
+    clse_tucker2,
+    clse_tucker2_ref,
+)
 from cirkit_tpu_torch.ops.lse_einsum import (
     lse_matmul,
+    lse_matmul_ref,
     lse_matmul_softmax,
+    lse_matmul_softmax_ref,
     lse_tucker2,
+    lse_tucker2_ref,
     lse_tucker2_softmax,
+    lse_tucker2_softmax_ref,
 )
 from cirkit_tpu_torch.ops.slse_einsum import (
     slse_matmul,
+    slse_matmul_ref,
     slse_matmul_softmax,
+    slse_matmul_softmax_ref,
     slse_tucker2,
+    slse_tucker2_ref,
     slse_tucker2_softmax,
+    slse_tucker2_softmax_ref,
 )
 
 Semiring = type["SemiringImpl"]
@@ -138,15 +157,18 @@ class SemiringImpl(ABC):
 
         return cls.apply_reduce(func, *inputs, dim=dim, keepdim=keepdim)
 
-    # -- fused contractions (overridden with CUDA kernels where available) ---
+    # -- fused contractions (overridden with CUDA kernels where available;
+    # the generic versions are plain compositions whatever ``plain`` says) --
     @classmethod
-    def matmul(cls, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def matmul(cls, x: torch.Tensor, w: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         """The dense sum-layer contraction: semiring values ``x`` (F, B, I)
         against linear-space weights ``w`` (F, O, I) -> (F, B, O)."""
         return cls.einsum("fbi,foi->fbo", inputs=(x,), operands=(w,), dim=-1, keepdim=True)
 
     @classmethod
-    def tucker2(cls, x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def tucker2(
+        cls, x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, *, plain: bool = False
+    ) -> torch.Tensor:
         """The arity-2 Tucker contraction: semiring values ``x1`` (F, B, K1)
         and ``x2`` (F, B, K2) against the linear-space core ``w``
         (F, O, K1*K2), flattened row-major -> (F, B, O)."""
@@ -158,17 +180,19 @@ class SemiringImpl(ABC):
         )
 
     @classmethod
-    def matmul_softmax(cls, x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    def matmul_softmax(
+        cls, x: torch.Tensor, theta: torch.Tensor, *, plain: bool = False
+    ) -> torch.Tensor:
         """:meth:`matmul` with weights ``softmax(theta, axis=-1)``; the
         lse-sum override fuses the normalization into the kernel."""
-        return cls.matmul(x, torch.softmax(theta, dim=-1))
+        return cls.matmul(x, torch.softmax(theta, dim=-1), plain=plain)
 
     @classmethod
     def tucker2_softmax(
-        cls, x1: torch.Tensor, x2: torch.Tensor, theta: torch.Tensor
+        cls, x1: torch.Tensor, x2: torch.Tensor, theta: torch.Tensor, *, plain: bool = False
     ) -> torch.Tensor:
         """:meth:`tucker2` with core weights ``softmax(theta, axis=-1)``."""
-        return cls.tucker2(x1, x2, torch.softmax(theta, dim=-1))
+        return cls.tucker2(x1, x2, torch.softmax(theta, dim=-1), plain=plain)
 
     # -- abstract algebra ------------------------------------------------------
     @classmethod
@@ -283,22 +307,24 @@ class LSESumSemiring(SemiringImpl):
     # The fused ops launch the CUDA kernel on CUDA tensors (which takes
     # contiguous operands) and run their plain versions on the CPU.
     @classmethod
-    def matmul(cls, x, w):
-        return lse_matmul(x.contiguous(), cls.cast(w).contiguous())
+    def matmul(cls, x, w, *, plain=False):
+        op = lse_matmul_ref if plain else lse_matmul
+        return op(x.contiguous(), cls.cast(w).contiguous())
 
     @classmethod
-    def tucker2(cls, x1, x2, w):
-        return lse_tucker2(x1.contiguous(), x2.contiguous(), cls.cast(w).contiguous())
+    def tucker2(cls, x1, x2, w, *, plain=False):
+        op = lse_tucker2_ref if plain else lse_tucker2
+        return op(x1.contiguous(), x2.contiguous(), cls.cast(w).contiguous())
 
     @classmethod
-    def matmul_softmax(cls, x, theta):
-        return lse_matmul_softmax(x.contiguous(), cls.cast(theta).contiguous())
+    def matmul_softmax(cls, x, theta, *, plain=False):
+        op = lse_matmul_softmax_ref if plain else lse_matmul_softmax
+        return op(x.contiguous(), cls.cast(theta).contiguous())
 
     @classmethod
-    def tucker2_softmax(cls, x1, x2, theta):
-        return lse_tucker2_softmax(
-            x1.contiguous(), x2.contiguous(), cls.cast(theta).contiguous()
-        )
+    def tucker2_softmax(cls, x1, x2, theta, *, plain=False):
+        op = lse_tucker2_softmax_ref if plain else lse_tucker2_softmax
+        return op(x1.contiguous(), x2.contiguous(), cls.cast(theta).contiguous())
 
 
 @SemiringImpl.register("complex-lse-sum")
@@ -361,14 +387,14 @@ class ComplexLSESumSemiring(SemiringImpl):
     # The fused ops launch the complex CUDA kernels on CUDA tensors and run
     # their plain versions on the CPU; the logarithm is part of the op.
     @classmethod
-    def matmul(cls, x, w):
+    def matmul(cls, x, w, *, plain=False):
         x = cls.cast(x)
-        return clse_matmul(x, cls._weight(w, x))
+        return (clse_matmul_ref if plain else clse_matmul)(x, cls._weight(w, x))
 
     @classmethod
-    def tucker2(cls, x1, x2, w):
+    def tucker2(cls, x1, x2, w, *, plain=False):
         x1, x2 = cls.cast(x1), cls.cast(x2)
-        return clse_tucker2(x1, x2, cls._weight(w, x1))
+        return (clse_tucker2_ref if plain else clse_tucker2)(x1, x2, cls._weight(w, x1))
 
 
 @SemiringImpl.register("signed-lse-sum")
@@ -443,30 +469,30 @@ class SignedLSESemiring(SemiringImpl):
     # The fused ops launch the signed CUDA kernels on CUDA tensors (which
     # take contiguous operands) and run their plain versions on the CPU.
     @classmethod
-    def matmul(cls, x, w):
+    def matmul(cls, x, w, *, plain=False):
         a, s = x
-        return slse_matmul(a.contiguous(), s.contiguous(), cls.cast(w).contiguous())
+        op = slse_matmul_ref if plain else slse_matmul
+        return op(a.contiguous(), s.contiguous(), cls.cast(w).contiguous())
 
     @classmethod
-    def matmul_softmax(cls, x, theta):
+    def matmul_softmax(cls, x, theta, *, plain=False):
         a, s = x
-        return slse_matmul_softmax(a.contiguous(), s.contiguous(), cls.cast(theta).contiguous())
+        op = slse_matmul_softmax_ref if plain else slse_matmul_softmax
+        return op(a.contiguous(), s.contiguous(), cls.cast(theta).contiguous())
 
     @classmethod
-    def tucker2(cls, x1, x2, w):
+    def tucker2(cls, x1, x2, w, *, plain=False):
         (a1, s1), (a2, s2) = x1, x2
-        return slse_tucker2(
-            a1.contiguous(), s1.contiguous(), a2.contiguous(), s2.contiguous(),
-            cls.cast(w).contiguous(),
-        )
+        op = slse_tucker2_ref if plain else slse_tucker2
+        return op(a1.contiguous(), s1.contiguous(), a2.contiguous(), s2.contiguous(),
+                  cls.cast(w).contiguous())
 
     @classmethod
-    def tucker2_softmax(cls, x1, x2, theta):
+    def tucker2_softmax(cls, x1, x2, theta, *, plain=False):
         (a1, s1), (a2, s2) = x1, x2
-        return slse_tucker2_softmax(
-            a1.contiguous(), s1.contiguous(), a2.contiguous(), s2.contiguous(),
-            cls.cast(theta).contiguous(),
-        )
+        op = slse_tucker2_softmax_ref if plain else slse_tucker2_softmax
+        return op(a1.contiguous(), s1.contiguous(), a2.contiguous(), s2.contiguous(),
+                  cls.cast(theta).contiguous())
 
 
 @SumProductSemiring.register_map_from(LSESumSemiring)

@@ -54,6 +54,7 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _check_dense,
     _check_tucker,
     _clamp_max,
+    _no_graph_through_kernel,
     _on_cpu,
 )
 
@@ -292,6 +293,7 @@ def _forward(ctx, op: str, *ins: torch.Tensor) -> torch.Tensor:
 
 def _backward(ctx, op: str, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
     *ins, out = ctx.saved_tensors
+    _no_graph_through_kernel(op, *ins)
     return backward(op, tuple(ins), out, _resolved(g), ctx.needs_input_grad)
 
 

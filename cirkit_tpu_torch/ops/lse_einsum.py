@@ -274,6 +274,20 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+def _no_graph_through_kernel(op: str, *ts: torch.Tensor) -> None:
+    """Refuse a graph of the backward (``create_graph=True``, under which
+    autograd runs ``backward`` with grad mode on) on CUDA tensors: the
+    backward kernel's outputs carry no graph, so a second derivative through
+    it would lose every term that passes through the kernel. The plain
+    versions on the CPU stay differentiable; a caller that needs a second
+    derivative on the card evaluates the circuit with ``plain=True``."""
+    if torch.is_grad_enabled() and not _on_cpu(*ts):
+        raise RuntimeError(
+            f"{op}: the CUDA backward kernel is not differentiable; a second derivative "
+            "(create_graph=True) needs the plain compositions (evaluate with plain=True)"
+        )
+
+
 def _check_cuda(
     op: str, ts: tuple[torch.Tensor, ...], dtypes: tuple[torch.dtype, ...] = (torch.float32,)
 ) -> torch.device:
@@ -487,6 +501,7 @@ def backward(
 
 def _backward(ctx, op: str, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
     *ins, out = ctx.saved_tensors
+    _no_graph_through_kernel(op, *ins)
     return backward(op, tuple(ins), out, g.contiguous(), ctx.needs_input_grad)
 
 
@@ -583,6 +598,7 @@ class LseMatmulBlocked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, out, m = ctx.saved_tensors
+        _no_graph_through_kernel("lse_matmul_blocked", x, w)
         g = g.contiguous()
         needs = tuple(ctx.needs_input_grad)
         if _on_cpu(x, w, out, m, g):

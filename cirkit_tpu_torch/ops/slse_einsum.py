@@ -52,6 +52,7 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _check_single_pass,
     _check_tucker,
     _clamp_max,
+    _no_graph_through_kernel,
     _on_cpu,
     _softmax_vjp,
 )
@@ -302,6 +303,7 @@ def _forward(ctx, op: str, *ins: torch.Tensor) -> Pair:
 def _backward(ctx, op: str, g: torch.Tensor, _g_sign) -> tuple[torch.Tensor | None, ...]:
     # the sign output is piecewise constant: its cotangent is dropped
     *ins, oa, os = ctx.saved_tensors
+    _no_graph_through_kernel(op, *ins)
     return backward(op, tuple(ins), oa, os, g.contiguous(), ctx.needs_input_grad)
 
 

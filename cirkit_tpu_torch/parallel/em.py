@@ -63,7 +63,7 @@ from cirkit_tpu_torch.backend.torch.parameters import (
     TorchPointerSlot,
     TorchTensorSlot,
 )
-from cirkit_tpu_torch.backend.torch.queries import masked_leaf_select
+from cirkit_tpu_torch.backend.torch.queries import offset_module_fn
 from cirkit_tpu_torch.parallel.training import (
     Preempted,
     _bound_store,
@@ -349,13 +349,7 @@ def em_programs(
             miss = torch.as_tensor(miss, device=ref.device)
         module_fn = None
         if off or miss is not None:
-            def module_fn(layer, st, xin):
-                out = layer(st, xin)
-                if miss is not None:
-                    out = masked_leaf_select(layer, st, out, miss)
-                name = off_name.get(id(layer))
-                return out if name is None else out + off[name]
-
+            module_fn = offset_module_fn({i: off[name] for i, name in off_name.items()}, miss)
         ll = circuit.evaluate({**p, **gp, **frozen}, batch, module_fn=module_fn)
         total = (ll.reshape(ll.shape[0], -1).sum(dim=1) * weights).sum()
         inputs = [*p.values(), *gp.values(), *off.values()]

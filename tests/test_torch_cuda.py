@@ -1634,3 +1634,153 @@ def test_narrow_forward_edges_match_plain(f, b, i, o, opcase):
                               else getattr(S, op)(*ins))
     narrow = [n for n in names if "fwd_narrow" in n]
     assert len(names) == 1 and bool(narrow) == (i <= 32 and o <= 32), names
+
+
+# --------------------------------------------------------------------------- #
+# Second derivatives, the dx-only backward and the expectation queries
+# --------------------------------------------------------------------------- #
+
+
+def _second_derivative_cases():
+    from cirkit_tpu_torch.ops import clse_einsum as C
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    def lse(op):
+        return lambda: (getattr(T, op), _inputs(op, 2, 8, 16))
+
+    def signed(op):
+        def make():
+            xs = _inputs(op.removeprefix("s"), 2, 8, 16)
+            ins = [xs[0], torch.ones_like(xs[0])] + (
+                [xs[1], torch.ones_like(xs[1])] if "tucker" in op else []) + [xs[-1]]
+            return (lambda *a: getattr(S, op)(*a)[0]), ins
+        return make
+
+    def complex_(op):
+        def make():
+            xs = _inputs(op.removeprefix("c"), 2, 8, 16)
+            return getattr(C, op), [x.to(torch.complex64) for x in xs[:-1]] + [xs[-1]]
+        return make
+
+    def blocked(monkeypatch_width=8):
+        def make():
+            return T.lse_matmul, _inputs("lse_matmul", 2, 8, 16, i=monkeypatch_width)
+        return make
+
+    return {**{op: lse(op) for op in OPS}, **{op: signed(op) for op in SIGNED_OPS},
+            **{op: complex_(op) for op in COMPLEX_OPS}, "lse_matmul_blocked": blocked()}
+
+
+@pytest.mark.parametrize("op", list(_second_derivative_cases()))
+def test_second_derivative_through_a_kernel_raises(op, monkeypatch):
+    """A graph of the backward (``create_graph=True``) through a CUDA kernel
+    raises instead of returning a second derivative that lacks the kernel's
+    terms; the first derivative still runs."""
+    if op == "lse_matmul_blocked":
+        monkeypatch.setattr(T, "WIDE_WIDTH", 8)
+    fn, ins = _second_derivative_cases()[op]()
+    x = ins[0].requires_grad_()
+    out = fn(*ins)
+    (g,) = torch.autograd.grad(out.real.sum(), [x], retain_graph=True)
+    assert torch.isfinite(g).all()
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        torch.autograd.grad(out.real.sum(), [x], create_graph=True)
+
+
+# (op, F, B, K1, K2, O) or (op, F, B, I, O): the K=64 Tucker softmax entry,
+# the K=128 one (F cut to 98: the plain version's (F, B, 16384) operands)
+# and a dense mixing entry
+DX_ONLY_CASES = [("lse_tucker2_softmax", 784, 128, 64, 64, 64),
+                 ("lse_tucker2_softmax", 98, 128, 128, 128, 128),
+                 ("lse_matmul_softmax", 1568, 128, 64, 64)]
+
+
+@pytest.mark.parametrize("case", DX_ONLY_CASES, ids=["k64-tucker", "k128-tucker", "mixing"])
+def test_dx_only_backward_matches_plain(case):
+    """The backward with the weight not differentiated (the expectation
+    queries' route): input gradients only, one backward launch, within the
+    backward bound of the plain version with the same ``needs``, and a
+    second call equal to the bit."""
+    op, f, b, *rest = case
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    if "tucker" in op:
+        k1, k2, o = rest
+        xs = [torch.randn((f, b, k), generator=gen, device="cuda") * 3 - 2 for k in (k1, k2)]
+        theta = torch.randn((f, o, k1 * k2), generator=gen, device="cuda")
+    else:
+        i, o = rest
+        xs = [torch.randn((f, b, i), generator=gen, device="cuda") * 3 - 2]
+        theta = torch.randn((f, o, i), generator=gen, device="cuda")
+    xs = [x.requires_grad_() for x in xs]
+    out = getattr(T, op)(*xs, theta)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    first = torch.autograd.grad(out, xs, g, retain_graph=True)
+    again = torch.autograd.grad(out, xs, g)
+    assert T.LAUNCHES[f"{op}_bwd"] == 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    needs = (True,) * len(xs) + (False,)
+    with torch.no_grad():
+        refs = getattr(T, f"{op}_bwd_ref")(*xs, theta, out, g, needs)
+    assert refs[-1] is None
+    for got, ref in zip(first, refs[:-1]):
+        _close(got, ref, zeros=True)
+
+
+def test_small_circuit_expectation_through_the_kernels():
+    """``ExpectationQuery`` on a small Tucker circuit on the card: the means,
+    variances and marginals against the same store in float64 on the CPU
+    (to ``2e-3 max + 1e-4``, the gradient bound, since they are sums of
+    responsibilities), one forward and one dx-only backward launch per
+    kernel-bearing entry, and the covariance rows through the plain
+    compositions on the card (no launch) against the CPU's."""
+    from cirkit_tpu_torch.backend.torch import ExpectationQuery, mutual_information
+
+    ctx, cc = _flagship_like("tucker", "cuda")
+    ctx_cpu, cc_cpu = _flagship_like("tucker", "cpu")
+    ctx_cpu.load_parameters(
+        {s: v.detach().cpu().numpy() for s, v in ctx.parameters.items()}, dtype=torch.float64
+    )
+    n_kernel = sum(isinstance(l, (TorchSumLayer, TorchCPTLayer, TorchTuckerLayer))
+                   for l in cc.layers)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (16, 64))
+    mask = rng.random((16, 64)) < 0.5
+    q, q_cpu = ExpectationQuery(cc), ExpectationQuery(cc_cpu)
+
+    def held(got, want):
+        want = want.numpy()
+        bound = 2e-3 * np.abs(want).max() + 1e-4
+        assert np.abs(got.double().cpu().numpy() - want).max() <= bound
+
+    mean, var = q(x, evidence_mask=mask, return_variance=True)
+    torch.cuda.synchronize()
+    fwd = sum(T.LAUNCHES[op] for op in OPS)
+    bwd = sum(T.LAUNCHES[f"{op}_bwd"] for op in OPS)
+    assert fwd == bwd == n_kernel
+    want_mean, want_var = q_cpu(x, evidence_mask=mask, return_variance=True)
+    held(mean, want_mean)
+    held(var, want_var)
+    held(q.marginals(x, evidence_mask=mask), q_cpu.marginals(x, evidence_mask=mask))
+    before = dict(T.LAUNCHES)
+    row = q._dispatch("cov_row", x, mask, None, 0, 0, extra=(5,))
+    torch.cuda.synchronize()
+    assert T.LAUNCHES == before  # the plain compositions
+    held(row, q_cpu._dispatch("cov_row", x, mask, None, 0, 0, extra=(5,)))
+    mi = mutual_information(cc, variables=(0, 9, 30))
+    held(mi, mutual_information(cc_cpu, variables=(0, 9, 30)))
+
+
+@pytest.mark.parametrize("rows,width", [(64, 16384), (4096, 16)])
+def test_top_selection_on_the_card_is_the_stable_sort(rows, width):
+    """``topk._top`` on CUDA picks what a stable descending sort on the CPU
+    picks, to the bit, on float32 scores with many ties of both signs and
+    rows of -inf, through ``torch.topk`` (wide rows) and a sort (narrow)."""
+    from cirkit_tpu_torch.backend.torch.topk import _top
+
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randint(0, 7, (rows, width), generator=g) - 3).float() * 0.5
+    x[0] = -torch.inf
+    x[1, ::3] = -torch.inf
+    vals, idx = _top(x.cuda(), 4)
+    want_vals, want_idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    assert torch.equal(vals.cpu(), want_vals[:, :4]) and torch.equal(idx.cpu(), want_idx[:, :4])

@@ -24,8 +24,16 @@ COPIED = [
     "models/region_graph/io.py",
     "models/utils.py",
     "models/data_modalities.py",
+    "models/pgms.py",
+    "models/tensor_factorizations.py",
+    "models/structure_learning.py",
+    "models/logic/__init__.py",
+    "models/logic/graph.py",
+    "models/logic/psdd.py",
+    "models/logic/sdd.py",
     "utils/__init__.py",
     "utils/algorithms.py",
+    "utils/lazy.py",
     "utils/scope.py",
     "backend/base.py",
 ]
@@ -53,7 +61,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("module", ["ops.clse_einsum", "ops.slse_einsum", "ops.routing",
                                     "backend.torch.semiring", "backend.torch.parameters",
-                                    "utils.checkpoint"])
+                                    "utils.checkpoint", "backend.torch.entropy",
+                                    "backend.torch.topk", "models.logic"])
 def test_port_module_alone_imports_no_jax(module):
     """Each module that launches kernels or carries stores across imports on
     its own without JAX and without the JAX package."""

@@ -453,8 +453,12 @@ def test_query_errors_and_left_out_options():
         q(unit=1)
     with pytest.raises(ValueError, match="root output"):
         q(output=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        q(top_k=2)
+    # top_k is supported (tests/test_torch_topk.py); its own errors remain
+    with pytest.raises(ValueError, match="top_k"):
+        q(top_k=0)
+    with pytest.raises(NotImplementedError, match="marginalize_vars"):
+        q(np.zeros((1, 16), np.int64), evidence_mask=Scope([0]), marginalize_vars=Scope([1]),
+          top_k=2)
     with pytest.raises(NotImplementedError, match="item 12"):
         MAPQuery(cc, mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
