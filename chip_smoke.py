@@ -247,10 +247,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MAP value and log-evidence, and the SGD loss's gradients, against the
    same store in float64 on the CPU (``F64_RTOL``, ``F64_BWD_REL``,
    ``F64_GRAD_ABS``).
+12. cross-circuit queries and the dense sampler, after phase 7b on phase 4's
+   stores: (a) ``kl_monte_carlo`` and ``expected_loglikelihood_mc`` with p
+   the K=64 Tucker flagship and q the K=64 CP one, ``MC_SAMPLES`` samples in
+   rounds of ``MC_BATCH``, each call counted (a round: one forward launch per
+   kernel-bearing entry of p for the draw, one route launch per Tucker entry,
+   the forwards of p and q; then the two log Z probes), finite estimates and
+   standard errors, KL(p || q) not below 0 by more than 4 standard errors,
+   KL(p || p) exactly (0.0, 0.0), log p and log q on 8 drawn rows against
+   float64 on the CPU (rtol 1e-5), the median ms of 5 calls of each; (b)
+   ``cross_circuit_kl`` and ``expected_loglikelihood`` between two
+   weightings of one deterministic logic circuit over ``LOGIC_VARS``
+   variables (``_logic_chain``), on the host (float64) and with
+   ``device=True`` (float32 on the card): both deterministic, the two paths
+   within ``CROSS_REL`` of the value's size, KL(p || p) within ``CROSS_REL``
+   times H(p) of 0 on both, the median ms of each path; (c) ``SamplingQuery``
+   of ``DENSE_SAMPLES`` samples from the K=64 Tucker flagship compiled under
+   ``sum-product`` (the dense bottom-up sampler) with phase 4's store: states
+   in range, one mixture draw per sum-style entry, the median ms of 5 and
+   the peak memory, and the mean log-likelihood of its samples under the
+   lse-sum flagship within 4 combined standard errors of that of as many
+   samples of the routing sampler (kernel 8).
 
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4, 5b, 7b and 8, the backward ops
-in phases 5, 5b, 7b and 8, the routing ops in phase 7, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b, 7b, 8 and 12, the backward ops
+in phases 5, 5b, 7b and 8, the routing ops in phases 7 and 12, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -2099,6 +2120,224 @@ def _phase_renyi(smi: str, launches: dict[str, int]):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 12: cross-circuit queries and the dense sampler
+# --------------------------------------------------------------------------- #
+
+# 12a: kl_monte_carlo's and expected_loglikelihood_mc's defaults (JAX's)
+MC_SAMPLES, MC_BATCH = 4096, 1024
+# 12b: the chained logic circuit's variables, and the bound of the card's
+# float32 carriers against the float64 host walk, of the value's size
+LOGIC_VARS, CROSS_REL = 128, 1e-4
+# 12c: samples of the dense sampler (kept if the peak stays under 60 GB)
+DENSE_SAMPLES = 128
+
+
+def _logic_chain(n: int, seed: int):
+    """A deterministic, structured-decomposable logic circuit over ``n``
+    variables, lowered with literal weights drawn from ``seed``: the
+    multiplexer ``(x_k and A) or (not x_k and B)`` of
+    ``tests/backend/test_cross.py:258-270`` chained down the variables, A
+    and B each level's two functions of the rest (the parity of x_k..x_n-1
+    and its negation), so every conjunction splits {k} from {k+1..n-1}.
+    Its weighted-model-count distribution is a PSDD's."""
+    import numpy as np
+
+    import cirkit_tpu_torch.models.logic as L
+    import cirkit_tpu_torch.symbolic as S
+
+    lit = {}
+
+    def literal(v, negated=False):
+        if (v, negated) not in lit:
+            lit[v, negated] = L.NegatedLiteralNode(v) if negated else L.LiteralNode(v)
+        return lit[v, negated]
+
+    ins = {}
+    a, b = literal(n - 1), literal(n - 1, True)
+    for k in range(n - 2, -1, -1):
+        level = []
+        for yes, no in ((a, b), (b, a)):
+            c1, c2, d = L.ConjunctionNode(), L.ConjunctionNode(), L.DisjunctionNode()
+            ins[c1], ins[c2], ins[d] = [literal(k), yes], [literal(k, True), no], [c1, c2]
+            level.append(d)
+        a, b = level
+    nodes = list(set(ins) | {c for cs in ins.values() for c in cs})
+    weights = np.random.default_rng(seed).uniform(0.1, 1.0, (n, 2))
+
+    def factory(negated):
+        def make(scope, num_units):
+            (var,) = tuple(scope)
+            w = weights[var, 1 - int(negated)]
+            with np.errstate(divide="ignore"):
+                logits = np.log(np.array([w, 0.0]) if negated else np.array([0.0, w]))
+            return S.CategoricalLayer(scope, num_units, num_categories=2, logits=(
+                S.Parameter.from_input(S.TensorParameter(
+                    1, 2, initializer=S.ConstantTensorInitializer(logits), learnable=False))))
+
+        return make
+
+    return L.LogicalCircuit(nodes, ins, [a]).build_circuit(
+        literal_input_factory=factory(False), negated_literal_input_factory=factory(True))
+
+
+def _wall_ms(fn, iters: int = 3) -> float:
+    """Median host-clock ms of ``fn``, whose result is read back to the host."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_cross(smi: str, built: list) -> dict[str, int]:
+    """Phase 12: (a) Monte Carlo KL and E_p[log q] between the K=64 Tucker
+    (p) and CP (q) flagships of phase 4; (b) the exact cross-circuit KL of
+    two weightings of one logic circuit over ``LOGIC_VARS`` variables, on
+    the host and on the card; (c) the dense bottom-up sampler on the K=64
+    Tucker flagship under sum-product. Returns each kernel's launches over
+    12a's counted calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import (
+        SamplingQuery,
+        cross_circuit_kl,
+        expected_loglikelihood,
+        expected_loglikelihood_mc,
+        is_deterministic,
+        kl_monte_carlo,
+    )
+    from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTuckerLayer
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    (ctx_p, cc_p, n_p), (ctx_q, cc_q, n_q) = (
+        next((ctx, cc, n) for spl_, em, _, ctx, cc, n in built if spl_ == spl and not em)
+        for spl in ("tucker", "cp"))
+    st_p, st_q = ctx_p.parameters, ctx_q.parameters
+    n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc_p.layers)
+
+    # ---- 12a: Monte Carlo KL and E_p[log q], counted --------------------
+    rounds = -(-MC_SAMPLES // MC_BATCH)
+    mc = {
+        "kl_monte_carlo": kl_monte_carlo,
+        "expected_loglikelihood_mc": expected_loglikelihood_mc,
+    }
+
+    def call(fn, q=cc_q, sq=st_q, seed=0):
+        return fn(cc_p, q, num_samples=MC_SAMPLES, batch_size=MC_BATCH, store_p=st_p,
+                  store_q=sq, generator=torch.Generator().manual_seed(seed))
+
+    # a round: the draw (a forward and the routing), log p and log q; then
+    # the two log Z probes
+    want = {"forward": rounds * (2 * n_p + n_q) + n_p + n_q, "tropical_tucker2": 0,
+            "route_tucker2": rounds * n_tucker}
+    _zero_launches()
+    launches: dict[str, int] = {}
+    est = {name: _query_counted(f"[cross] {name}", lambda fn=fn: call(fn), want, launches)
+           for name, fn in mc.items()}
+    print(f"[cross] 12a: p = Tucker K={FLAGSHIP_K}, q = CP K={FLAGSHIP_K}, {MC_SAMPLES} samples "
+          f"in {rounds} rounds of {MC_BATCH}: launches a call {want}; over both calls kernel 1 "
+          f"{sum(launches[op] for op in L.OPS)}, kernel 8 (sample kind) "
+          f"{launches['route_tucker2']}")
+    for name, (value, se) in est.items():
+        if not (np.isfinite(value) and np.isfinite(se) and se > 0):
+            raise AssertionError(f"[cross] {name}: ({value}, {se}) not finite")
+    kl, se = est["kl_monte_carlo"]
+    if kl + 4 * se < 0:
+        raise AssertionError(f"[cross] KL(p || q) = {kl} +- {se} below 0")
+    self_kl = call(kl_monte_carlo, cc_p, st_p)
+    if self_kl != (0.0, 0.0):
+        raise AssertionError(f"[cross] KL(p || p) = {self_kl}, not exactly (0.0, 0.0)")
+    gen = torch.Generator().manual_seed(1)
+    with torch.inference_mode():
+        x8, _ = SamplingQuery(cc_p)(QUERY_ROWS, generator=gen, store=st_p)
+        got = [cc(st, x8)[:, 0, 0].double().cpu() for cc, st in ((cc_p, st_p), (cc_q, st_q))]
+    rels = []
+    for (spl, st), g in zip((("tucker", st_p), ("cp", st_q)), got):
+        cc64, st64 = _f64_reference(spl, False, st)
+        with torch.inference_mode():
+            ref = cc64(st64, x8.cpu())[:, 0, 0]
+        rels.append(float(((g - ref).abs() / ref.abs()).max()))
+        if not torch.allclose(g, ref, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"[cross] log {spl} on drawn rows off float64 by {rels[-1]:.3e}")
+        del cc64, st64
+    times = {name: _median_ms(lambda fn=fn: call(fn), warmup=1, iters=5) for name, fn in mc.items()}
+    print(f"[cross] 12a: KL(p || q) = {kl:.3f} +- {se:.3f} nats, E_p[log q] = "
+          f"{est['expected_loglikelihood_mc'][0]:.3f} +- {est['expected_loglikelihood_mc'][1]:.3f}; "
+          f"KL(p || p) = {self_kl}; {QUERY_ROWS} drawn rows against float64 on the CPU: log p "
+          f"max rel err {rels[0]:.2e}, log q {rels[1]:.2e}; median ms of 5: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" ({smi})")
+
+    # ---- 12b: the exact cross-circuit KL of two logic weightings --------
+    ctx = PipelineContext(semiring="lse-sum", fold=True, device=DEV, seed=0)
+    sc_p, sc_q = _logic_chain(LOGIC_VARS, 0), _logic_chain(LOGIC_VARS, 1)
+    ctx.compile(sc_p)
+    ctx.compile(sc_q)
+    if not (is_deterministic(sc_p, ctx=ctx) and is_deterministic(sc_q, ctx=ctx)):
+        raise AssertionError("[cross] the logic circuits are not deterministic")
+    queries = (("KL", cross_circuit_kl, sc_q), ("E_p[log q]", expected_loglikelihood, sc_q),
+               ("KL(p || p)", cross_circuit_kl, sc_p))
+    vals, ms = {}, {}
+    for device in (False, True):
+        for name, fn, q in queries:
+            vals[name, device] = float(fn(sc_p, q, ctx=ctx, device=device)[0, 0])
+        ms[device] = _wall_ms(lambda d=device: cross_circuit_kl(sc_p, sc_q, ctx=ctx, device=d))
+    entropy = -vals["E_p[log q]", False] - vals["KL", False]  # H(p)
+    for name in ("KL", "E_p[log q]"):
+        host, dev = vals[name, False], vals[name, True]
+        if not abs(dev - host) <= CROSS_REL * max(1.0, abs(host)):
+            raise AssertionError(f"[cross] {name}: card {dev} against host {host}")
+    for device in (False, True):
+        if not abs(vals["KL(p || p)", device]) <= CROSS_REL * max(1.0, abs(entropy)):
+            raise AssertionError(f"[cross] KL(p || p) = {vals['KL(p || p)', device]}, "
+                                 f"device={device}")
+    print(f"[cross] 12b: logic chain over {LOGIC_VARS} variables ({len(list(sc_p.layers))} "
+          f"layers), two weightings: KL {vals['KL', False]:.6f} host, {vals['KL', True]:.6f} "
+          f"card; E_p[log q] {vals['E_p[log q]', False]:.6f}, {vals['E_p[log q]', True]:.6f}; "
+          f"KL(p || p) {vals['KL(p || p)', False]:.2e}, {vals['KL(p || p)', True]:.2e} "
+          f"(H(p) {entropy:.3f}); cross_circuit_kl median ms of 3: host {ms[False]:.1f}, "
+          f"device=True {ms[True]:.1f} ({smi})")
+
+    # ---- 12c: the dense sampler under sum-product ------------------------
+    sc = _flagship_circuit("tucker", False, FLAGSHIP_K)
+    cc_sp = TorchCompiler(semiring="sum-product", fold=True, optimize=True, device=DEV).compile(sc)
+    if not set(cc_sp.used_slots) <= set(st_p):
+        raise AssertionError("[cross] the sum-product flagship's slots are not phase 4's")
+    dense = SamplingQuery(cc_sp)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xd, mixtures = dense(DENSE_SAMPLES, generator=torch.Generator().manual_seed(2), store=st_p)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n_sum = sum(type(l).__name__ in ("TorchSumLayer", "TorchTuckerLayer", "TorchCPTLayer")
+                for l in cc_sp.layers)
+    if (xd.shape != (DENSE_SAMPLES, 784) or len(mixtures) != n_sum
+            or not bool(((xd >= 0) & (xd <= 255) & (xd == xd.round())).all())):
+        raise AssertionError(f"[cross] dense samples {tuple(xd.shape)}, {len(mixtures)} "
+                             f"mixtures of {n_sum} sum-style entries")
+    dense_ms = _median_ms(lambda: dense(DENSE_SAMPLES, generator=gen, store=st_p), warmup=1,
+                          iters=5)
+    with torch.inference_mode():
+        xr, _ = SamplingQuery(cc_p)(DENSE_SAMPLES, generator=torch.Generator().manual_seed(3),
+                                    store=st_p)
+        lls = [cc_p(st_p, x)[:, 0, 0].double().cpu() for x in (xd, xr)]
+    means = [float(v.mean()) for v in lls]
+    se = float(np.sqrt(sum(float(v.var()) / len(v) for v in lls)))
+    if not abs(means[0] - means[1]) <= 4 * se:
+        raise AssertionError(f"[cross] mean log-likelihood of dense samples {means[0]:.3f} and "
+                             f"of routed ones {means[1]:.3f} differ by more than 4 x {se:.3f}")
+    print(f"[cross] 12c: dense sampler, Tucker K={FLAGSHIP_K} under sum-product, "
+          f"{DENSE_SAMPLES} samples: {dense_ms:.3f} ms median of 5, peak {peak:.2f} GB above "
+          f"the stores; mean log-likelihood under lse-sum {means[0]:.3f} against the routing "
+          f"sampler's {means[1]:.3f} (combined SE {se:.3f}) ({smi})")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
 # The signed kernels (phase 3d), squared circuits (phase 9) and the
 # flagships under the signed semiring (phase 9b)
 # --------------------------------------------------------------------------- #
@@ -2213,9 +2452,10 @@ def _signed_check(op: str, label: str, got, ref, ins,
 def _check_route(op: str, label: str, fn, i: int, o: int) -> str:
     """The forward kernel that ``fn`` launches (``torch.profiler``): the
     narrow one (``*_fwd_narrow``) exactly where I and O are at most 32.
-    Returns its name."""
+    Returns its name. The trace spans 5 calls: a one-call trace of a
+    microsecond kernel has come back empty on the card."""
     names = [key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
-             for key in _profile(fn, 1)[1]]
+             for key in _profile(fn, 5)[1]]
     narrow = i <= 32 and o <= 32
     if len(names) != 1 or ("fwd_narrow" in names[0]) != narrow:
         raise AssertionError(f"{op} [{label}]: launched {names}, expected the "
@@ -3733,7 +3973,7 @@ def main() -> int:
     phase_float64()
     phase_float64_wide()
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
-    # each kernel's launches, summed over the main-path runs of phases 4-11
+    # each kernel's launches, summed over the main-path runs of phases 4-12
     launches = dict.fromkeys(KERNELS, 0)
     built, fwd = phase_slice(smi)
     train = phase_train(smi, built)
@@ -3741,7 +3981,8 @@ def main() -> int:
     phase_profile(smi, built)
     queries = phase_queries(smi, built)
     expect = phase_expectation(smi, built)
-    print(f"[time] phases 4-7b done at {time.perf_counter() - t_start:.0f} s")
+    cross = phase_cross(smi, built)
+    print(f"[time] phases 4-7b and 12 done at {time.perf_counter() - t_start:.0f} s")
     sos, signed_runs = phase_sos(smi)
     signed, signed_ms = phase_signed_flagships(smi, built)  # reads phase 4's stores
     csos = phase_complex_sos(smi, signed_runs)
@@ -3750,8 +3991,8 @@ def main() -> int:
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
-    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, wide, sos,
-                   signed, csos, cflag, f64):
+    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, wide,
+                   sos, signed, csos, cflag, f64):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]

@@ -1,7 +1,14 @@
 """The PyTorch backend: compiled layers, parameter graphs, folding,
-graph rewrites, the evaluation plan and the queries (the counterpart of
-``cirkit_tpu.backend.jax``)."""
+graph rewrites, the evaluation plan, the queries and the cross-circuit
+queries (the counterpart of ``cirkit_tpu.backend.jax``)."""
 
+from cirkit_tpu_torch.backend.torch.cross import (
+    cross_circuit_kl,
+    expected_loglikelihood,
+    expected_loglikelihood_mc,
+    is_deterministic,
+    kl_monte_carlo,
+)
 from cirkit_tpu_torch.backend.torch.entropy import (
     EntropyQuery,
     KLDivergenceQuery,
@@ -23,6 +30,11 @@ __all__ = [
     "KLDivergenceQuery",
     "MAPQuery",
     "SamplingQuery",
+    "cross_circuit_kl",
+    "expected_loglikelihood",
+    "expected_loglikelihood_mc",
+    "is_deterministic",
+    "kl_monte_carlo",
     "masked_evaluate",
     "mutual_information",
     "renyi2_entropy",

@@ -173,6 +173,9 @@ class TorchCircuit(nn.Module):
         self.properties = properties
         self.semiring = semiring
         self.default_store: nn.ParameterDict | None = None
+        # symbolic layer -> (plan entry, fold), set by the compiler when it
+        # did not optimize (``TorchCompiler._compile_circuit``)
+        self._symbolic_fold: dict | None = None
 
         # -- build the plan ----------------------------------------------------
         def buffer(name: str, idx: np.ndarray) -> str:
@@ -259,21 +262,30 @@ class TorchCircuit(nn.Module):
         names = sorted(self._slots) if slots is None else sorted(slots)
         return {s: self._slots[s].initialize(generator, torch.device(device)) for s in names}
 
-    def num_parameters(self) -> int:
-        return sum(node.num_folds * int(np.prod(node.shape)) for node in self._slots.values())
+    def num_parameters(self, store: Store | None = None, *, learnable_only: bool = False) -> int:
+        """The number of scalars in this circuit's own slots (``store`` is
+        accepted for the JAX package's signature and not read)."""
+        return sum(
+            node.num_folds * int(np.prod(node.shape))
+            for node in self._slots.values()
+            if node.learnable or not learnable_only
+        )
 
     # -- evaluation --------------------------------------------------------------
     def evaluate(
         self,
         store: Store,
-        x: torch.Tensor,
+        x: torch.Tensor | None = None,
         *,
+        batch_size: int | None = None,
         module_fn: ModuleFn | None = None,
         plain: bool = False,
     ) -> Value:
         """Run the plan: (B, D) inputs -> (B, O, K) outputs (a pair of them
         under the signed semiring). ``module_fn(layer, store, xin)``
-        overrides per-layer evaluation (the hook of the queries).
+        overrides per-layer evaluation (the hook of the queries). A circuit
+        with no variables (an integral) takes ``batch_size`` in place of
+        ``x``; see :meth:`evaluate_raw`.
 
         ``plain=True`` contracts every sum-style layer through the semiring
         ops' plain compositions instead of the kernels, on any device: they
@@ -282,7 +294,8 @@ class TorchCircuit(nn.Module):
         this way). With ``module_fn`` the flag is passed on to it as
         ``module_fn(layer, store, xin, plain=True)``, and it evaluates its
         layers with :meth:`call_layer`."""
-        out = self.evaluate_raw(store, x, module_fn=module_fn, plain=plain)
+        out = self.evaluate_raw(store, x, batch_size=batch_size, module_fn=module_fn,
+                                plain=plain)
         return tmap(lambda o: o.transpose(0, 1), out)
 
     @staticmethod
@@ -293,14 +306,18 @@ class TorchCircuit(nn.Module):
             return layer(store, xin, plain=True)
         return layer(store, xin)
 
-    def entry_input(self, entry: PlanEntry, x: torch.Tensor, outs: Sequence[Value]):
+    def entry_input(self, entry: PlanEntry, x: torch.Tensor | None, outs: Sequence[Value],
+                    batch_size: int | None = None):
         """What the plan hands ``entry``'s layer: the batch size for a
-        constant input layer, the (F, B, D) data slice of an input layer, or
-        the (F, H, B, K) gather of an inner layer's producers from the
-        outputs ``outs`` of the entries before it."""
+        constant input layer (``x``'s, else ``batch_size``), the (F, B, D)
+        data slice of an input layer (None without ``x``), or the (F, H, B,
+        K) gather of an inner layer's producers from the outputs ``outs`` of
+        the entries before it."""
         if isinstance(entry.layer, TorchConstantInputLayer):
-            return x.shape[0]
+            return batch_size if x is None else x.shape[0]
         if isinstance(entry.layer, TorchInputLayer):
+            if x is None:
+                return None
             # (B, D_total) -> (F, B, D) via the static scope gather; a
             # plain transpose when the layer takes every column in order
             if entry.identity and x.shape[1] == entry.layer.num_folds:
@@ -327,15 +344,22 @@ class TorchCircuit(nn.Module):
     def evaluate_raw(
         self,
         store: Store,
-        x: torch.Tensor,
+        x: torch.Tensor | None = None,
         *,
+        batch_size: int | None = None,
         module_fn: ModuleFn | None = None,
         plain: bool = False,
     ) -> Value:
-        """Run the plan returning the raw output stack (O, B, K)."""
+        """Run the plan returning the raw output stack (O, B, K). The batch
+        size is ``x``'s if ``x`` is given, else ``batch_size``; with neither,
+        ``module_fn`` is required, and input layers receive None and constant
+        ones a batch size of None (the dense sampler's upward pass, which
+        needs no data batch)."""
+        if x is None and batch_size is None and module_fn is None:
+            raise ValueError("Either an input batch or a batch size is required")
         outs: list[Value] = []
         for entry in self._entries:
-            xin = self.entry_input(entry, x, outs)
+            xin = self.entry_input(entry, x, outs, batch_size)
             layer = entry.layer
             if module_fn is None:
                 outs.append(self.call_layer(layer, store, xin, plain=plain))
@@ -345,19 +369,21 @@ class TorchCircuit(nn.Module):
                 outs.append(module_fn(layer, store, xin))
         return self.output_stack(outs)
 
-    def forward(self, *args) -> Value:
-        """``cc(store, x)``, or ``cc(x)`` using the pipeline context's store."""
-        if len(args) == 2:
-            store, x = args
+    def forward(self, *args, batch_size: int | None = None) -> Value:
+        """``cc(store, x)``, or ``cc(x)`` using the pipeline context's store;
+        a circuit with no variables takes ``batch_size`` in place of ``x``:
+        ``cc(batch_size=1)`` or ``cc(store, batch_size=1)``."""
+        if args and isinstance(args[0], (Mapping, nn.ParameterDict)):
+            store, *rest = args
         else:
-            (x,) = args
-            store = self.default_store
+            store, rest = self.default_store, list(args)
             if store is None:
                 raise ValueError(
                     "No parameter store bound: call as cc(store, x) or compile "
                     "through a PipelineContext"
                 )
-        return self.evaluate(store, x)
+        x = rest[0] if rest else None
+        return self.evaluate(store, x, batch_size=batch_size)
 
     def extra_repr(self) -> str:
         return f"num_variables={self.num_variables}, semiring={self.semiring.__name__}"

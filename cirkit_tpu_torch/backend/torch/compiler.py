@@ -136,6 +136,17 @@ class TorchCompiler(AbstractCompiler):
     def is_optimize_enabled(self) -> bool:
         return bool(self._flags["optimize"])
 
+    # -- optimization-rule registration -------------------------------------------
+    def add_layer_optimization_rule(self, pattern, func, *, shatter: bool = False) -> None:
+        """Register a layer-graph rewrite; ``shatter=True`` runs it in the
+        shatter half of each optimization pass (before fusions)."""
+        registry = self.layer_shatter_opt_rules if shatter else self.layer_fuse_opt_rules
+        registry.add_rule(pattern, func)
+
+    def add_parameter_optimization_rule(self, pattern, func) -> None:
+        """Register a parameter-graph rewrite applied before layer rewrites."""
+        self.parameter_opt_rules.add_rule(pattern, func)
+
     # -- per-node compilation ----------------------------------------------------
     def compile_layer_node(self, sl: Layer) -> TorchLayer:
         rule = self.retrieve_layer_rule(type(sl))
@@ -181,7 +192,7 @@ class TorchCompiler(AbstractCompiler):
 
         # 3. Fold (or build the trivial F=1 plan).
         if self.is_fold_enabled:
-            folded, fold_inputs, fold_outputs, slot_remap, _ = fold_graph(
+            folded, fold_inputs, fold_outputs, slot_remap, fold_of = fold_graph(
                 layers, in_layers, outputs, self.state.alloc_slot
             )
             self.state.apply_remap(slot_remap)
@@ -195,6 +206,7 @@ class TorchCompiler(AbstractCompiler):
                 if not isinstance(l, TorchInputLayer)
             }
             fold_outputs = [(index[id(o)], 0) for o in outputs]
+            fold_of = {id(l): (index[id(l)], 0) for l in layers}
             plan_layers = layers
 
         cc = TorchCircuit(
@@ -206,6 +218,14 @@ class TorchCompiler(AbstractCompiler):
             properties=sc.properties,
             semiring=self.semiring,
             device=self.device,
+        )
+        # symbolic layer -> (plan entry, fold), for parameter readback; None
+        # when the optimizer rewrote the layer graph (fusions drop the 1:1
+        # correspondence)
+        cc._symbolic_fold = (
+            None
+            if self.is_optimize_enabled
+            else {sl: fold_of[id(tl)] for sl, tl in compiled.items()}
         )
         self.register_compiled_circuit(sc, cc)
         return cc

@@ -18,6 +18,15 @@ expectation, top-k and entropy queries, ``mean_state``,
 ``second_moment_state``, ``cdf_state``, ``topk_modes``, ``unit_entropy`` and
 ``unit_kl`` (``cirkit_tpu/backend/jax/layers.py:325-380``). A layer that
 does not define one raises ``TypeError``, as in the JAX package.
+
+The dense bottom-up sampler (``SamplingQuery`` off the lse-sum semiring)
+calls ``sample``: an input layer draws (F, K, N) states, an inner layer
+routes its inputs' (F, H, K, N, D) assignments to (F, Ko, N, D). A sum-style
+layer's ``sample`` is two steps, a draw of one mixture index per (fold,
+unit, sample) (``sample_mixture``, by the inverse CDF of each weight row:
+one uniform a draw and ``torch.searchsorted`` over the row's running sums,
+where the JAX package broadcasts the logits to (F, Ko, N, M)) and a
+deterministic gather (``route``).
 """
 
 from __future__ import annotations
@@ -68,6 +77,34 @@ def _topk_states(lp: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
         vals = torch.cat([vals, pad], dim=2)
         idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:2], t - tt)], dim=2)
     return vals, idx
+
+
+def draw_rows(w: torch.Tensor, generator: torch.Generator, num_samples: int) -> torch.Tensor:
+    """``num_samples`` draws from each row of the nonnegative (..., M)
+    table ``w``, each column with probability ``w / w.sum(-1)``: (..., N)
+    int64. The inverse CDF over the row's running sums with one uniform a
+    draw: the first column whose running sum exceeds ``u`` times the row's
+    total, so a column of zero weight is never drawn (where rounding leaves
+    ``u`` times the total at the total, the last column with weight).
+    Weights that are complex or negative are no probabilities and raise."""
+    if w.is_complex() or bool((w < 0).any()):
+        raise ValueError("Sampling reads the weights as probabilities: they must be real and "
+                         "nonnegative")
+    cw = w.cumsum(dim=-1)
+    u = torch.rand((*w.shape[:-1], num_samples), generator=generator, dtype=w.dtype,
+                   device=w.device)
+    idx = torch.searchsorted(cw, u * cw[..., -1:], right=True)
+    last = w.shape[-1] - 1 - (w > 0).flip(-1).to(torch.int8).argmax(dim=-1, keepdim=True)
+    return torch.minimum(idx, last)
+
+
+def gather_units(x: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """``x[f, mix[f, o, n], n]``: the (F, O, N, D) assignments of the units
+    ``mix`` (F, O, N) selects from ``x`` (F, M, N, D)."""
+    f, _, n = mix.shape
+    folds = torch.arange(f, device=x.device)[:, None, None]
+    rows = torch.arange(n, device=x.device)[None, None, :]
+    return x[folds, mix, rows]
 
 
 def _discrete_cdf(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -171,6 +208,24 @@ class TorchInnerLayer(TorchLayer, ABC):
     @abstractmethod
     def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor: ...
 
+    def sample(self, store: Store, generator: torch.Generator, x: torch.Tensor):
+        """Route samples upward: ``x`` (F, H, K, N, D) holds per-unit
+        variable assignments; returns ((F, Ko, N, D), the (F, Ko, N) mixture
+        indices drawn, or None for a product layer)."""
+        mix = self.sample_mixture(store, generator, x.shape[3])
+        return self.route(x, mix), mix
+
+    def sample_mixture(self, store: Store, generator: torch.Generator,
+                       num_samples: int) -> torch.Tensor | None:
+        """The draw of :meth:`sample`: one input index per (fold, output
+        unit, sample), (F, Ko, N); None where the layer draws nothing."""
+        return None
+
+    def route(self, x: torch.Tensor, mix: torch.Tensor | None = None) -> torch.Tensor:
+        """The deterministic half of :meth:`sample`: the (F, Ko, N, D)
+        assignments of the output units from ``x`` and the drawn ``mix``."""
+        raise TypeError(f"Sampling is not supported for {type(self).__name__}")
+
 
 class TorchHadamardLayer(TorchInnerLayer):
     """Elementwise semiring product over the arity axis."""
@@ -186,6 +241,10 @@ class TorchHadamardLayer(TorchInnerLayer):
 
     def forward(self, store: Store, x, *, plain: bool = False) -> torch.Tensor:
         return self.semiring.prod(x, dim=1)
+
+    def route(self, x, mix=None):
+        # disjoint scopes: add the zero-padded per-operand assignments
+        return x.sum(dim=1)
 
 
 class TorchKroneckerLayer(TorchInnerLayer):
@@ -213,6 +272,14 @@ class TorchKroneckerLayer(TorchInnerLayer):
                 tmap(lambda a: a[:, h][..., None, :], x),
             )
             out = tmap(lambda a: a.reshape(a.shape[0], a.shape[1], -1), out)
+        return out
+
+    def route(self, x, mix=None):
+        # every unit pairing, flattened row-major as the forward's
+        out = x[:, 0]
+        for h in range(1, self.arity):
+            f, k, n, d = out.shape
+            out = (out[:, :, None] + x[:, h][:, None]).reshape(f, k * x.shape[2], n, d)
         return out
 
 
@@ -265,6 +332,15 @@ class TorchSumLayer(TorchInnerLayer):
             return self.semiring.matmul_softmax(x, store[self._logits_slot], plain=plain)
         return self.semiring.matmul(x, self.weight(store), plain=plain)
 
+    def sample_mixture(self, store, generator, num_samples):
+        # latent-variable semantics: each output unit mixes over its H*Ki
+        # inputs with its (nonnegative) weight row
+        return draw_rows(self.weight(store), generator, num_samples)
+
+    def route(self, x, mix=None):
+        f, h, k, n, d = x.shape
+        return gather_units(x.reshape(f, h * k, n, d), mix)
+
 
 # --------------------------------------------------------------------------- #
 # Input layers
@@ -302,6 +378,10 @@ class TorchInputLayer(TorchLayer, ABC):
     def integrate(self, store: Store) -> torch.Tensor:
         """The layer's integral over its variables' domain: (F, K)."""
         raise TypeError(f"Integration is not supported for {type(self).__name__}")
+
+    def sample(self, store: Store, generator: torch.Generator, num_samples: int) -> torch.Tensor:
+        """``num_samples`` draws of each unit's distribution: (F, K, N)."""
+        raise TypeError(f"Sampling is not supported for {type(self).__name__}")
 
     def mpe(self, store: Store) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-unit mode: the (max log-value (F, K), argmax state (F, K))
@@ -520,6 +600,9 @@ class TorchCategoricalLayer(TorchExpFamilyLayer):
             )
         return torch.logsumexp(self.logits(store), dim=2)
 
+    def sample(self, store, generator, num_samples):
+        return draw_rows(self.state_distribution(store), generator, num_samples)
+
     def mpe(self, store):
         lp = self._log_probs(store)  # (F, K, C), the measure of forward
         return lp.amax(dim=2), lp.argmax(dim=2)
@@ -694,6 +777,11 @@ class TorchBinomialLayer(TorchExpFamilyLayer):
     def state_distribution(self, store):
         return torch.exp(self._log_pmf_table(store))  # (F, K, n+1)
 
+    def sample(self, store, generator, num_samples):
+        p = torch.sigmoid(self._logits(store))[:, :, None].expand(-1, -1, num_samples)
+        count = torch.full_like(p, float(self.total_count))
+        return torch.binomial(count, p.contiguous(), generator=generator)
+
     def mean_state(self, store):
         return self.total_count * torch.sigmoid(self._logits(store))  # (F, K)
 
@@ -782,6 +870,12 @@ class TorchGaussianLayer(TorchExpFamilyLayer):
         if self.log_partition is not None:
             val = val + self.log_partition(store)
         return val, mean
+
+    def sample(self, store, generator, num_samples):
+        mean = self.mean(store)[:, :, None]  # (F, K, 1)
+        eps = torch.randn((*mean.shape[:2], num_samples), generator=generator,
+                          dtype=mean.dtype, device=mean.device)
+        return mean + self.stddev(store)[:, :, None] * eps
 
     def mean_state(self, store):
         return self.mean(store)  # (F, K)

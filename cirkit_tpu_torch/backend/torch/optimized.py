@@ -15,7 +15,13 @@ from typing import Any
 
 import torch
 
-from cirkit_tpu_torch.backend.torch.layers import TorchInnerLayer, softmax_logits_slot, tmap
+from cirkit_tpu_torch.backend.torch.layers import (
+    TorchInnerLayer,
+    draw_rows,
+    gather_units,
+    softmax_logits_slot,
+    tmap,
+)
 from cirkit_tpu_torch.backend.torch.parameters import Store, TorchParameter
 
 
@@ -78,6 +84,22 @@ class TorchTuckerLayer(TorchInnerLayer):
             self._einsum, inputs=inputs, operands=(w,), dim=-1, keepdim=True
         )
 
+    def sample_mixture(self, store, generator, num_samples):
+        # one composite index over the Ki^arity Kronecker inputs per (fold,
+        # unit, sample), with the (normalized) core weight row
+        return draw_rows(self.weight(store), generator, num_samples)
+
+    def route(self, x, mix=None):
+        # unravel the composite index row-major (the Kronecker flatten) and
+        # add the chosen operands' assignments (disjoint scopes)
+        f, h, k, n, d = x.shape
+        out = x.new_zeros((f, mix.shape[1], n, d))
+        rem = mix
+        for hh in range(h - 1, -1, -1):
+            out = out + gather_units(x[:, hh], rem % k)
+            rem = rem // k
+        return out
+
 
 class TorchCPTLayer(TorchInnerLayer):
     """Fused sum-of-Hadamard (CP-transposed): semiring product over the arity
@@ -117,6 +139,13 @@ class TorchCPTLayer(TorchInnerLayer):
         if self._logits_slot is not None:
             return self.semiring.matmul_softmax(x, store[self._logits_slot], plain=plain)
         return self.semiring.matmul(x, self.weight(store), plain=plain)
+
+    def sample_mixture(self, store, generator, num_samples):
+        return draw_rows(self.weight(store), generator, num_samples)
+
+    def route(self, x, mix=None):
+        # a sum layer's routing over the Hadamard-combined inputs
+        return gather_units(x.sum(dim=1), mix)
 
 
 class TorchTensorDotLayer(TorchInnerLayer):

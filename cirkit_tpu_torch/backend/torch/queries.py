@@ -14,7 +14,10 @@ The counterpart of ``cirkit_tpu/backend/jax/queries.py`` (``:30-1240`` and
   kernels of :mod:`cirkit_tpu_torch.ops.routing` (``tropical_tucker2`` up,
   ``route_tucker2`` down); the dense mixing sums and CP layers use torch
   compositions. ``MAPQuery(top_k=)`` takes the k-best pass of
-  :mod:`cirkit_tpu_torch.backend.torch.topk`;
+  :mod:`cirkit_tpu_torch.backend.torch.topk`. Off the lse-sum semiring,
+  :class:`SamplingQuery` takes the dense bottom-up sampler
+  (:func:`_sample_dense`: every layer's ``sample`` hook up, the selected
+  rows down);
 - :class:`ExpectationQuery` and :func:`mutual_information`: posterior
   statistics from the offset-gradient responsibilities, one forward and one
   backward through the kernels (the weights are not differentiated).
@@ -23,8 +26,7 @@ Randomness comes from an explicit ``torch.Generator`` (``generator=``,
 where the JAX package takes ``key=``): a sampling call draws one int64 seed
 per plan entry from it, so one generator seed reproduces the same draws.
 MAP and sampling run under ``torch.inference_mode()``. The tensor-parallel
-``mesh=`` (ROADMAP item 12) and the dense bottom-up sampler of non-lse-sum
-circuits (item 9) raise ``NotImplementedError``.
+``mesh=`` (ROADMAP item 12) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,10 +73,6 @@ from cirkit_tpu_torch.ops.routing import (
 from cirkit_tpu_torch.utils.scope import Scope
 
 _MESH = "tensor-parallel queries (mesh=) wait for ROADMAP item 12"
-_DENSE_SAMPLER = (
-    "sampling a circuit that is not under the 'lse-sum' semiring needs the dense "
-    "bottom-up sampler, which waits for ROADMAP item 9"
-)
 
 MaskSpec = torch.Tensor | np.ndarray | Scope | Sequence[Scope]
 
@@ -941,11 +939,13 @@ class MAPQuery(Query):
 
 
 class SamplingQuery(Query):
-    """Ancestral and posterior sampling of an lse-sum circuit through the
+    """Ancestral and posterior sampling. An lse-sum circuit takes the
     two-pass routing: the upward pass is the masked-integrate forward, and
     the downward pass draws one latent mixture index per (entry, fold,
     sample) at the selected unit only, and one state per selected input
-    unit. Memory stays activation-sized."""
+    unit. Memory stays activation-sized. Any other semiring takes the dense
+    bottom-up sampler (:func:`_sample_dense`), which reads the weights as
+    probabilities and draws every unit's mixture index."""
 
     def __init__(self, circuit: TorchCircuit, *, mesh=None) -> None:
         if not (circuit.properties.smooth and circuit.properties.decomposable):
@@ -964,16 +964,19 @@ class SamplingQuery(Query):
         generator: torch.Generator | None = None,
         store: Store | None = None,
     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-        """Draw ``num_samples`` samples: returns (samples (N, D), the
-        composite mixture index drawn at each sum-style entry, (F, N) with
-        -1 where the entry was not on the parse)."""
+        """Draw ``num_samples`` samples: returns (samples (N, D) in the
+        store's float type, the composite mixture index drawn at each
+        sum-style entry). Under lse-sum an index is (F, N), -1 where the
+        entry was not on the parse; under another semiring it is the dense
+        sampler's (F, Ko, N), one per output unit, as the JAX package
+        returns it."""
         if num_samples <= 0:
             raise ValueError("The number of samples must be a positive number")
         cc = self._circuit
-        if cc.semiring is not LSESumSemiring:
-            raise NotImplementedError(_DENSE_SAMPLER)
         with torch.inference_mode():
             store = _bound_store(cc, store)
+            if cc.semiring is not LSESumSemiring:
+                return _sample_dense(cc, store, num_samples, _generator(generator))
             dev = _store_device(store)
             shape = (num_samples, _num_vars(cc))
             x = torch.zeros(shape, dtype=torch.int64, device=dev)
@@ -1130,6 +1133,113 @@ def _root_position(cc: TorchCircuit, root_output: int, root_unit: int) -> tuple[
     return cc._out_ids[0], flat
 
 
+def _push_to_children(cc: TorchCircuit, e: int, units: list[torch.Tensor],
+                      sels: list[torch.Tensor]) -> None:
+    """Push entry ``e``'s per-operand (F, B) unit choices (-1 where
+    inactive) through its fold gather into its producers' selections
+    ``sels``: a scatter-max, since decomposability puts each (fold, sample)
+    on at most one parse edge."""
+    entry = cc._entries[e]
+    if entry.gather is None:
+        i = entry.in_ids[0]
+        sels[i] = torch.maximum(sels[i], units[0])
+        return
+    idx = getattr(cc, entry.gather)  # (F, H)
+    bsz = units[0].shape[1]
+    folds = [sels[i].shape[0] for i in entry.in_ids]
+    cat = torch.full((sum(folds), bsz), -1, dtype=torch.int64, device=units[0].device)
+    for h, u in enumerate(units):
+        cat.scatter_reduce_(0, idx[:, h : h + 1].expand(-1, bsz), u, reduce="amax")
+    for i, part in zip(entry.in_ids, cat.split(folds)):
+        sels[i] = torch.maximum(sels[i], part)
+
+
+def _pad_samples(samples: torch.Tensor, scope_idx: np.ndarray, num_vars: int) -> torch.Tensor:
+    """Scatter univariate per-unit samples (F, K, N) into zero-padded
+    assignments (F, K, N, D) at the layer's variable positions (D =
+    ``num_vars``, which may be 0)."""
+    if scope_idx.shape[1] != 1:
+        raise NotImplementedError("Padding is only implemented for univariate samples")
+    var = torch.as_tensor(scope_idx[:, 0], device=samples.device)
+    one_hot = (var[:, None] == torch.arange(num_vars, device=samples.device)).to(samples.dtype)
+    return samples[:, :, :, None] * one_hot[:, None, None, :]
+
+
+def _sample_dense(cc: TorchCircuit, store: Store, num_samples: int,
+                  generator: torch.Generator) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The dense bottom-up sampler of ``cirkit_tpu/backend/jax/queries.py:
+    381-409`` for circuits off the lse-sum semiring: the samples of root
+    output 0, unit 0, and every sum-style entry's (F, Ko, N) mixture draw.
+
+    The upward pass is ``evaluate_raw(store, None, module_fn=...)``: input
+    layers draw (F, K, N) states (``sample``), inner layers draw their
+    mixture indices and route their inputs' assignments (``sample``). The
+    JAX package routes assignments padded to every variable, (F, K, N, D)
+    an entry: 20 GB at the K=64 flagship's leaves for N = 128. Here they are
+    routed with the variable axis cut to no column, which leaves the draws
+    and the routing's index arithmetic; the downward pass then follows the
+    drawn indices from the root unit to the leaves, as the lse-sum routing
+    does, and gathers only the selected units' states. A sample is the sum
+    of its parse's leaf states over disjoint variables, so it equals the
+    padded route's to the bit. One int64 seed per plan entry comes from
+    ``generator``."""
+    entries = cc._entries
+    dev = _store_device(store)
+    dtype = _store_dtype(store)
+    seeds = torch.randint(0, 2**62, (len(entries),), generator=generator,
+                          device=generator.device).tolist()
+    drawn: dict[int, torch.Tensor] = {}  # entry -> input states or mixture indices
+    step = iter(range(len(entries)))
+
+    def layer_fn(layer: TorchLayer, st: Store, xin):
+        e = next(step)
+        gen = _device_generator(seeds[e], dev)
+        if isinstance(layer, TorchInputLayer):
+            drawn[e] = layer.sample(st, gen, num_samples)  # (F, K, N)
+            # padded to no variable: the selected units' states are gathered below
+            return _pad_samples(drawn[e], layer.scope_idx, 0)
+        out, mix = layer.sample(st, gen, xin)
+        if mix is not None:
+            drawn[e] = mix
+        return out
+
+    cc.evaluate_raw(store, None, module_fn=layer_fn)
+
+    root_entry, root_fold = _root_position(cc, 0, 0)
+    sels = [torch.full((entry.layer.num_folds, num_samples), -1, dtype=torch.int64, device=dev)
+            for entry in entries]
+    sels[root_entry][root_fold] = 0
+    samples = torch.zeros((num_samples, _num_vars(cc)), dtype=dtype, device=dev)
+    for e in range(len(entries) - 1, -1, -1):
+        layer = entries[e].layer
+        sel = sels[e]
+        active = sel >= 0
+        safe = sel.clamp_min(0)
+        if isinstance(layer, TorchInputLayer):
+            picked = torch.gather(drawn[e], 1, safe[:, None, :])[:, 0]  # (F, N)
+            samples.index_add_(1, _scope_vars(layer, dev),
+                               torch.where(active, picked.to(dtype), 0).t())
+            continue
+        tag, *shape = _record(layer, "Sampling")
+        if tag == "hadamard":
+            units = [sel] * layer.arity
+        elif tag == "kronecker":
+            units = _digits(safe, active, *shape)
+        else:
+            m = torch.gather(drawn[e], 1, safe[:, None, :])[:, 0]  # the index at sel
+            h, k = shape
+            if tag == "sum":
+                units = [torch.where(active & (m // k == hh), m % k, -1) for hh in range(h)]
+            elif tag == "cpt":
+                units = [torch.where(active, m, -1)] * h
+            else:
+                units = _digits(m, active, h, k)
+        _push_to_children(cc, e, units, sels)
+    mixtures = [drawn[e] for e, entry in enumerate(entries)
+                if e in drawn and not isinstance(entry.layer, TorchInputLayer)]
+    return samples, mixtures
+
+
 def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
                        root_unit: int = 0) -> Callable:
     """The two-pass routing behind :class:`MAPQuery` (``kind="max"``) and
@@ -1230,22 +1340,7 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
         sels[root_entry][root_fold] = root_unit
 
         def push_to_children(e: int, units: list[torch.Tensor]) -> None:
-            """Push per-operand (F, B) unit choices through entry e's fold
-            gather into its producers' selections (a scatter-max)."""
-            entry = entries[e]
-            if entry.gather is None:
-                i = entry.in_ids[0]
-                sels[i] = torch.maximum(sels[i], units[0])
-                return
-            idx = getattr(cc, entry.gather)  # (F, H)
-            total = sum(folds[i] for i in entry.in_ids)
-            cat = torch.full((total, bsz), -1, dtype=torch.int64, device=dev)
-            for h, u in enumerate(units):
-                cat.scatter_reduce_(0, idx[:, h : h + 1].expand(-1, bsz), u, reduce="amax")
-            off = 0
-            for i in entry.in_ids:
-                sels[i] = torch.maximum(sels[i], cat[off : off + folds[i]])
-                off += folds[i]
+            _push_to_children(cc, e, units, sels)
 
         draws: dict[int, torch.Tensor] = {}
         for e in range(n - 1, -1, -1):

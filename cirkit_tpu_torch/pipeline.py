@@ -17,7 +17,7 @@ importing this module opens no CUDA context.
 
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping
 from contextvars import ContextVar, Token
 from types import TracebackType
 
@@ -30,6 +30,8 @@ from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit
 from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
 from cirkit_tpu_torch.backend.torch.parameters import TorchTensorSlot
 from cirkit_tpu_torch.symbolic.circuit import Circuit
+from cirkit_tpu_torch.symbolic.layers import LayerOperator
+from cirkit_tpu_torch.symbolic.operators import LayerOperatorFunc
 from cirkit_tpu_torch.symbolic.registry import OperatorRegistry
 from cirkit_tpu_torch.utils.checkpoint import store_from_numpy
 from cirkit_tpu_torch.utils.scope import Scope
@@ -67,6 +69,12 @@ class PipelineContext:
         self._op_registry = OperatorRegistry.from_default_rules()
         self._token: Token[PipelineContext | None] | None = None
 
+    @classmethod
+    def from_default_backend(cls) -> "PipelineContext":
+        """The default configuration: log-space, folded, optimized, on the
+        CUDA card."""
+        return cls(semiring="lse-sum", fold=True, optimize=True)
+
     # -- context management ----------------------------------------------------
     def __enter__(self) -> "PipelineContext":
         self._op_registry.__enter__()
@@ -84,6 +92,33 @@ class PipelineContext:
         _PIPELINE_CONTEXT.reset(self._token)
         self._token = None
 
+    def __getitem__(self, sc: Circuit) -> TorchCircuit:
+        return self._compiler.get_compiled_circuit(sc)
+
+    # -- extensibility hooks -----------------------------------------------------
+    def add_operator_rule(self, op: LayerOperator, func: LayerOperatorFunc) -> None:
+        self._op_registry.add_rule(op, func)
+
+    def add_layer_compilation_rule(self, func: Callable) -> None:
+        self._compiler.add_layer_rule(func)
+
+    def add_parameter_compilation_rule(self, func: Callable) -> None:
+        self._compiler.add_parameter_rule(func)
+
+    def add_initializer_compilation_rule(self, func: Callable) -> None:
+        self._compiler.add_initializer_rule(func)
+
+    def add_layer_optimization_rule(self, pattern, func: Callable, *,
+                                    shatter: bool = False) -> None:
+        """Register a layer-graph fusion (or, with ``shatter``, shatter)
+        rewrite with the backend compiler."""
+        self._compiler.add_layer_optimization_rule(pattern, func, shatter=shatter)
+
+    def add_parameter_optimization_rule(self, pattern, func: Callable) -> None:
+        """Register a parameter-graph rewrite with the backend compiler."""
+        self._compiler.add_parameter_optimization_rule(pattern, func)
+
+    # -- compilation + parameter store -------------------------------------------
     def _circuits(self) -> list[TorchCircuit]:
         return list(self._compiler._compiled_circuits._fwd.values())
 
@@ -138,6 +173,15 @@ class PipelineContext:
             del self._parameters[s]
         for cc in self._circuits():
             self._materialize(cc)
+
+    def is_compiled(self, sc: Circuit) -> bool:
+        return self._compiler.is_compiled(sc)
+
+    def has_symbolic(self, cc: TorchCircuit) -> bool:
+        return self._compiler.has_symbolic(cc)
+
+    def get_compiled_circuit(self, sc: Circuit) -> TorchCircuit:
+        return self._compiler.get_compiled_circuit(sc)
 
     def get_symbolic_circuit(self, cc: TorchCircuit) -> Circuit:
         """The symbolic circuit ``cc`` was compiled from."""
@@ -207,7 +251,7 @@ def _ambient(ctx: PipelineContext | None) -> PipelineContext:
     if ctx is not None:
         return ctx
     if _DEFAULT_CONTEXT is None:
-        _DEFAULT_CONTEXT = PipelineContext(semiring="lse-sum", fold=True, optimize=True)
+        _DEFAULT_CONTEXT = PipelineContext.from_default_backend()
     return _DEFAULT_CONTEXT
 
 

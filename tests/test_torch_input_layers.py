@@ -413,4 +413,4 @@ def test_product_of_gaussian_circuits_matches_jax(fold):
     _close(tp(torch.as_tensor(x)), jp(jnp.asarray(x)))
     _close(tp(torch.as_tensor(x)), (c1(torch.as_tensor(x)) + c2(torch.as_tensor(x))).detach()
            .numpy(), rtol=1e-9)
-    _close(tz(torch.as_tensor(x[:1])), jz(jnp.asarray(x[:1])))
+    _close(tz(batch_size=1), jz(batch_size=1))

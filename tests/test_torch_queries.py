@@ -482,8 +482,10 @@ def test_query_errors_and_left_out_options():
     sp = ctx.compile(image_data((1, 4, 4), "quad-tree-2", **kw))
     with pytest.raises(ValueError, match="lse-sum"):
         MAPQuery(sp)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SamplingQuery(sp)(2)
+    # the dense sampler serves sum-product (tests/test_torch_sampling_dense.py)
+    samples, mixtures = SamplingQuery(sp)(2, generator=torch.Generator().manual_seed(0))
+    assert samples.shape == (2, 16) and len(mixtures) == sum(
+        type(l).__name__ in ("TorchSumLayer", "TorchTuckerLayer") for l in sp.layers)
     with pytest.raises(ValueError, match="lse-sum"):
         SamplingQuery(sp).conditional(x, evidence_mask=Scope([0]))
 

@@ -339,7 +339,7 @@ def _sos_loss_grads_both(jaxs, ports, x):
     ttr, tfr = split_trainable(cc, ctx.parameters)
     st = {**ttr, **tfr}
     xt = torch.as_tensor(np.array(x))
-    loss = -sq.evaluate(st, xt)[0].mean() + zc.evaluate(st, xt[:1])[0][0, 0, 0]
+    loss = -sq.evaluate(st, xt)[0].mean() + zc.evaluate(st, batch_size=1)[0][0, 0, 0]
     got = dict(zip(ttr, torch.autograd.grad(loss, list(ttr.values()))))
     assert set(got) == set(want) and got
     return got, want
@@ -395,9 +395,10 @@ def test_bench_sos_plan_matches_jax(which):
 def test_bench_sos_values_and_gradients_match_jax():
     jaxs, ports = _bench_sos_both()
     x = np.random.default_rng(0).integers(0, 256, (8, 36))
-    for jc, tc, rows in ((jaxs[2], ports[2], x), (jaxs[3], ports[3], x[:1])):
-        ja, js = jc(jnp.asarray(rows))
-        ta, ts = tc(torch.as_tensor(rows))
+    for jc, tc, rows in ((jaxs[2], ports[2], x), (jaxs[3], ports[3], None)):
+        # zc, an integral, takes no data
+        ja, js = jc(batch_size=1) if rows is None else jc(jnp.asarray(rows))
+        ta, ts = tc(batch_size=1) if rows is None else tc(torch.as_tensor(rows))
         np.testing.assert_allclose(ta.detach().numpy(), np.asarray(ja), rtol=1e-9)
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
         assert (ts == 1).all()
@@ -543,7 +544,7 @@ def test_multiply_of_compiled_circuits_matches_jax_and_enumeration(name):
     out = tp(torch.as_tensor(worlds))
     _assert_same(jp(jnp.asarray(worlds)), out)
     np.testing.assert_allclose(np.exp(out.detach().numpy()[:, 0, 0]), want, rtol=1e-9)
-    z = tz(torch.as_tensor(worlds[:1]))
+    z = tz(batch_size=1)
     _assert_same(jz(jnp.asarray(worlds[:1])), z)
     np.testing.assert_allclose(np.exp(float(z.detach()[0, 0, 0])), want.sum(), rtol=1e-9)
 
@@ -637,7 +638,7 @@ def test_module_level_operators_use_the_ambient_context():
     zc = P.integrate(sq, ctx=ctx)
     assert sq in ctx._circuits() and zc in ctx._circuits()
     worlds = torch.as_tensor(enumerate_worlds(2, 3))
-    za = float(zc(worlds[:1])[0].detach()[0, 0, 0])
+    za = float(zc(batch_size=1)[0].detach()[0, 0, 0])
     np.testing.assert_allclose(za, float(torch.logsumexp(sq(worlds)[0].detach()[:, 0, 0], 0)),
                                rtol=1e-6)
     assert P._DEFAULT_CONTEXT is None and not torch.cuda.is_initialized()
