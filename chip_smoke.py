@@ -268,10 +268,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the peak memory, and the mean log-likelihood of its samples under the
    lse-sum flagship within 4 combined standard errors of that of as many
    samples of the routing sampler (kernel 8).
+13. structure search (``backend/torch/pruning.py``, ``distill.py``), after
+   phase 12 on phase 4's K=64 Tucker store: the readback of the unoptimized
+   sibling alone (its bytes and seconds); ``prune_circuit(threshold=0)`` and
+   ``grow_circuit(noise=0, fraction=0.5)`` (K=64 to 96: kernel 5 with plain
+   weights, counted), each recompiled in a fresh context, their
+   log-likelihoods at batch 128 within rtol 1e-5 of the flagship's;
+   README's ``fraction=0.5`` prune data-free and by the usage flows of
+   ``STRUCT_ROWS`` seeded rows at ``STRUCT_BATCH`` (the sibling's dense
+   I=4096 sums, forward and dx-only backward, counted), the pruned forward's
+   8 rows within rtol 1e-5 of float64 on the CPU, and a ``save_circuit`` /
+   ``load_circuit`` round trip of it equal to the bit; ``distill_tree`` over
+   all 784 variables, its edges a spanning tree, its log Z within 1e-5 of 0
+   and its univariate marginals within ``DISTILL_TOL`` of the flagship's;
+   ``grow_prune_loop`` at ``bench.py:440-455``'s mid-size configuration with
+   a checkpoint directory, and the same loop stopped after its grow stage and
+   resumed, its history and best store equal to the uninterrupted run's to
+   the bit. Each step prints its seconds, its launches, the device peak above
+   the stores and the host's peak resident memory. Phases 3 and 3b hold and
+   time the kernels at its shapes (``STRUCT_SHAPES``): the dense I=4096 sums
+   (plain weights and logits, also dx-only) and kernel 5 at K1=K2=O=96.
 
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4, 5b, 7b, 8 and 12, the backward ops
-in phases 5, 5b, 7b and 8, the routing ops in phases 7 and 12, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b, 7b, 8, 12 and 13, the backward ops
+in phases 5, 5b, 7b, 8 and 13, the routing ops in phases 7 and 12, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -340,6 +360,10 @@ TROP_ATOL = TROP_RTOL = 1e-5  # tropical bound: TROP_RTOL |plain| + TROP_ATOL
 SCORE_REL = SCORE_ABS = 1e-5  # route bound on the chosen score
 FREQ_ROWS = 65536  # identical rows of the sample-kind frequency check
 FLAGSHIP_K = 64
+# phase 13's kernel shapes, timed in phases 3 and 3b beside each kernel's
+# first case: the dense sums of the unoptimized K=64 flagship (the usage
+# flows' forward and dx-only backward) and the grown flagship's Tucker entry
+STRUCT_SHAPES = ("F=784 B=128 I=4096 O=64", "F=784 B=128 K1=K2=O=96")
 WIDE_K = 128  # the K=128 Tucker flagship of phase 8 and the wide kernels' entry shapes
 WIDE_RUNS = (  # (optimize, em_ready, optimizer of the training steps or None)
     (True, False, "adam"),
@@ -587,6 +611,16 @@ def _cases(gen):
         ("lse_tucker2_chunked", *single("lse_tucker2")[1:],
          tucker("lse_tucker2", 784, b, k, k, k), f"F=784 B=128 K1=K2=O={k}"),
         (*blocked, dense(784, b, k * k, k), f"F=784 B=128 I={k * k} O={k}"),
+        # phase 13's shapes: the dense sums over Kronecker composites of the
+        # unoptimized K=64 flagship, with plain weights as the readback's
+        # sibling compile runs them (the usage flows: its weights are
+        # pointers into the optimized store, so it takes them materialized)
+        # and with logits as a fresh unoptimized compile does; and the grown
+        # K=64 flagship's Tucker entries (K=96, plain weights: kernel 5)
+        (*single("lse_matmul"), dense(784, b, 4096, 64), STRUCT_SHAPES[0]),
+        (*single("lse_matmul_softmax"), dense(784, b, 4096, 64, softmax=True), STRUCT_SHAPES[0]),
+        ("lse_tucker2_chunked", *single("lse_tucker2")[1:],
+         tucker("lse_tucker2", 784, b, 96, 96, 96), STRUCT_SHAPES[1]),
         (*single("lse_matmul_softmax"), dense(2, b, 64, 1, softmax=True), "O=1"),
         (*single("lse_matmul"), dense(1, b, 2, 1), "O=1 I=2"),
         (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 2, b, 64, 64, 1), "O=1"),
@@ -705,6 +739,13 @@ def phase_kernels() -> dict[str, dict]:
                 line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
                          f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), tensor-core "
                          f"bound {entry['tc_bound_ms']:.3f} ms")
+            elif label in STRUCT_SHAPES:
+                ms, plain_ms = _median_ms(lambda: kernel(*ins)), _median_ms(lambda: plain(*ins))
+                bound, by, tc = _bound(key, ins)
+                entry.setdefault("structure", {})[label] = {"ms": ms, "plain_ms": plain_ms,
+                                                            "bound_ms": bound}
+                line += (f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+                         f"({by}), tensor-core bound {tc:.3f} ms")
             if key.endswith("_chunked") and f"K1=K2=O={WIDE_K}" in label:
                 # the single-pass kernel on the same inputs, checked and timed
                 def single_pass():
@@ -942,12 +983,16 @@ def _zero_launches() -> None:
 
 
 # The cases of phase 3b whose backward also runs dx-only (``needs`` with the
-# weight False), the route of the expectation queries, whose store is not
-# differentiated: the K=64 Tucker softmax entry, the K=128 one (kernel 5's
-# backward) and a dense mixing entry, each (forward key, case label).
+# weight False), the route of the expectation queries and of phase 13's usage
+# flows, whose store is not differentiated: the K=64 Tucker softmax entry, the
+# K=128 one (kernel 5's backward), a dense mixing entry and the unoptimized
+# K=64 flagship's dense entry (plain weights and logits), each (forward key,
+# case label).
 DX_ONLY = (("lse_tucker2_softmax", "F=784 B=128 K1=K2=64 O=64"),
            ("lse_tucker2_softmax_chunked", f"F=784 B=128 K1=K2=O={WIDE_K}"),
-           ("lse_matmul_softmax", "F=1568 B=128 I=64 O=64"))
+           ("lse_matmul_softmax", "F=1568 B=128 I=64 O=64"),
+           ("lse_matmul", STRUCT_SHAPES[0]),
+           ("lse_matmul_softmax", STRUCT_SHAPES[0]))
 
 
 def _dx_only_case(op: str, bkey: str, label: str, ins, out, g, entry: dict) -> str:
@@ -1048,7 +1093,14 @@ def phase_backward() -> dict[str, dict]:
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[backward] {bkey:27s} {label:36s} max|err|={max_err:.3e}"
             wide_tucker = key.endswith("_chunked") and f"K1=K2=O={WIDE_K}" in label
-            if "ms" not in entry or wide_tucker:
+            if label in STRUCT_SHAPES:
+                ms, plain_ms = _median_ms(kernel), _median_ms(plain_bwd)
+                bound, by, tc = _bound(bkey, ins)
+                entry.setdefault("structure", {})[label] = {"ms": ms, "plain_ms": plain_ms,
+                                                            "bound_ms": bound}
+                line += (f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+                         f"({by}), tensor-core bound {tc:.3f} ms")
+            elif "ms" not in entry or wide_tucker:
                 ms, plain_ms = _median_ms(kernel), _median_ms(plain_bwd)
                 line += f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
                 if "ms" not in entry:
@@ -2334,6 +2386,313 @@ def phase_cross(smi: str, built: list) -> dict[str, int]:
           f"{DENSE_SAMPLES} samples: {dense_ms:.3f} ms median of 5, peak {peak:.2f} GB above "
           f"the stores; mean log-likelihood under lse-sum {means[0]:.3f} against the routing "
           f"sampler's {means[1]:.3f} (combined SE {se:.3f}) ({smi})")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Structure search (phase 13): pruning, growing, distillation, the loop
+# --------------------------------------------------------------------------- #
+
+STRUCT_ROWS = 512  # the seeded rows of the data-aware prune
+STRUCT_BATCH = 128  # its flow batches (the default 1024 would not fit beside the stores)
+LOOP_SIDE, LOOP_K = 8, 16  # bench.py:440-455's mid-size grow/prune loop
+LOOP_ROWS, LOOP_BATCH = 512, 256
+DISTILL_TOL = 1e-4  # the tree's univariate marginals against the flagship's
+
+
+def _host_peak_gb() -> float:
+    """This process's peak resident host memory so far, in GB (Linux gives
+    ``ru_maxrss`` in KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _structure_step(label: str, fn, launches: dict[str, int]):
+    """Run ``fn`` once from zeroed counts, adding its launches into
+    ``launches``; returns (result, seconds, device peak GB above the memory
+    in use before, the launches of this step)."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    step = {op: n for op, n in L.LAUNCHES.items() if n}
+    for op, n in step.items():
+        launches[op] = launches.get(op, 0) + n
+    print(f"[structure] {label}: {sec:.2f} s, device peak {peak:.2f} GB above the stores, "
+          f"host peak RSS so far {_host_peak_gb():.1f} GB, launches {step}")
+    return out, sec, peak, step
+
+
+def _fresh_forward(sc, x, *, optimize: bool = True):
+    """``sc`` compiled in a new context on the card (its constants become
+    the store) and evaluated on ``x``: (ctx, cc, out)."""
+    import torch
+
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=optimize, device=DEV)
+    cc = ctx.compile(sc)
+    with torch.inference_mode():
+        out = cc(x)
+    return ctx, cc, out
+
+
+def _held_rtol(label: str, got, want, rtol: float) -> float:
+    """``got`` finite, of ``want``'s shape and within ``rtol`` of it
+    elementwise; returns the worst relative error."""
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[structure] {label}: {tuple(got.shape)} or not finite")
+    rel = float(((got - want).abs() / want.abs()).max())
+    if not rel <= rtol:
+        raise AssertionError(f"[structure] {label}: max relative error {rel:.3e} > {rtol}")
+    return rel
+
+
+def _spanning_tree(edges, variables) -> bool:
+    parent = {v: v for v in variables}
+
+    def find(v):
+        while parent[v] != v:
+            parent[v] = parent[parent[v]]
+            v = parent[v]
+        return v
+
+    for u, v in edges:
+        ru, rv = find(u), find(v)
+        if ru == rv:
+            return False
+        parent[ru] = rv
+    return len(edges) == len(variables) - 1
+
+
+def phase_structure(smi: str, built: list) -> dict[str, int]:
+    """Phase 13: structure search on phase 4's K=64 Tucker flagship (softmax
+    weights, lse-sum, folded, optimized): (1) the lossless rebuilds
+    (``prune_circuit(threshold=0)``, ``grow_circuit(noise=0,
+    fraction=0.5)``) recompiled in fresh contexts against the original's
+    log-likelihood at batch 128; (2) README's ``fraction=0.5`` prune
+    data-free and by the usage flows of ``STRUCT_ROWS`` seeded rows, the
+    pruned forward against float64 on the CPU; (3) ``distill_tree`` over all
+    784 variables, its log Z, univariate marginals and edges; (4)
+    ``grow_prune_loop`` at ``bench.py:440-455``'s mid-size configuration
+    with a checkpoint directory, resumed from its stage-2 checkpoint to the
+    uninterrupted history, and a ``save_circuit``/``load_circuit`` round
+    trip of the pruned flagship. Returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import (
+        ExpectationQuery,
+        distill_tree,
+        grow_circuit,
+        grow_prune_loop,
+        prune_circuit,
+    )
+    from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
+    from cirkit_tpu_torch.backend.torch.pruning import (
+        _flow_importance,
+        _materialize,
+        _sibling_compile,
+    )
+    from cirkit_tpu_torch.pipeline import PipelineContext
+    from cirkit_tpu_torch.utils.checkpoint import load_circuit, save_circuit
+
+    _, _, sc, ctx, cc, n_kernel = next(b for b in built if b[:2] == ("tucker", False))
+    store = ctx.parameters
+    x_np = np.random.default_rng(0).integers(0, 256, (BATCH, 784))
+    x = torch.as_tensor(x_np, device=DEV)
+    with torch.inference_mode():
+        base = cc(store, x)
+    launches: dict[str, int] = {}
+    work = REPO / "build" / "chip_smoke" / "structure"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # ---- the readback alone: bytes and seconds ---------------------------
+    values, rb_s, rb_peak, _ = _structure_step(
+        "readback (_materialize, the unoptimized sibling)",
+        lambda: _materialize(sc, ctx, dict(store)), launches)
+    arrays = {}
+    for v in values.values():
+        for a in (v if isinstance(v, tuple) else (v,)):
+            root = a if a.base is None else a.base
+            arrays[id(root)] = root
+    rb_bytes = sum(a.nbytes for a in arrays.values())
+    del values, arrays
+    print(f"[structure] readback: {rb_bytes / 1e9:.3f} GB in {rb_s:.2f} s "
+          f"({rb_bytes / 1e9 / rb_s:.2f} GB/s) ({smi})")
+
+    # ---- (1) lossless rebuilds -------------------------------------------
+    (lossless, rep), t_p0, _, _ = _structure_step(
+        "prune_circuit(threshold=0.0)", lambda: prune_circuit(sc, ctx=ctx, threshold=0.0),
+        launches)
+    if rep["units_after"] != rep["units_before"]:
+        raise AssertionError(f"[structure] threshold 0 kept {rep['units_after']} of "
+                             f"{rep['units_before']} units")
+    (_, cc0, out0), _, _, step = _structure_step(
+        "threshold-0 prune compiled fresh, forward", lambda: _fresh_forward(lossless, x),
+        launches)
+    rel0 = _held_rtol("threshold-0 prune", out0, base, RTOL)
+    del lossless, cc0, out0
+    (grown, grep), t_g, _, _ = _structure_step(
+        "grow_circuit(noise=0.0, fraction=0.5)",
+        lambda: grow_circuit(sc, ctx=ctx, noise=0.0, fraction=0.5), launches)
+    (_, ccg, outg), _, g_peak, step = _structure_step(
+        "grown circuit compiled fresh, forward", lambda: _fresh_forward(grown, x), launches)
+    relg = _held_rtol("noise-0 grow", outg, base, RTOL)
+    if not step.get("lse_tucker2_chunked"):
+        raise AssertionError(f"[structure] the grown forward launched no kernel 5: {step}")
+    widths = sorted({l.num_input_units for l in grown.layers
+                     if type(l).__name__ == "KroneckerLayer"})
+    with torch.inference_mode():
+        g_ms = _median_ms(lambda: ccg(x), warmup=2, iters=10)
+    del grown, ccg, outg
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[structure] (1) lossless: threshold-0 prune {t_p0:.2f} s, forward max rel err "
+          f"{rel0:.2e}; noise-0 grow {t_g:.2f} s, {grep['units_before']} -> "
+          f"{grep['units_after']} units, Kronecker digit widths {widths}, forward max rel err "
+          f"{relg:.2e}, {g_ms:.3f} ms median of 10 ({smi})")
+
+    # ---- (2) README's fraction=0.5 prune, both ways ---------------------
+    (pruned, prep), t_pf, _, _ = _structure_step(
+        "prune_circuit(fraction=0.5), data-free",
+        lambda: prune_circuit(sc, ctx=ctx, fraction=0.5), launches)
+    rows = np.random.default_rng(1).integers(0, 256, (STRUCT_ROWS, 784))
+    (pruned_d, drep), t_pd, d_peak, step = _structure_step(
+        f"prune_circuit(fraction=0.5, data={STRUCT_ROWS} rows, batch_size={STRUCT_BATCH})",
+        lambda: prune_circuit(sc, ctx=ctx, fraction=0.5, data=rows, batch_size=STRUCT_BATCH),
+        launches)
+    if not (step.get("lse_matmul") and step.get("lse_matmul_bwd")):
+        raise AssertionError(f"[structure] the flows launched no dense kernel 1 and 2: {step}")
+    sib = _sibling_compile(sc, ctx)
+    _, t_fl, fl_peak, _ = _structure_step(
+        "the usage flows alone (_flow_importance, sibling compiled)",
+        lambda: _flow_importance(sc, ctx, dict(store), rows, STRUCT_BATCH, sib=sib), launches)
+    del sib
+    n_batches = -(-STRUCT_ROWS // STRUCT_BATCH)
+    print(f"[structure] usage flows: {n_batches} batches of {STRUCT_BATCH} in {t_fl:.3f} s = "
+          f"{t_fl / n_batches * 1e3:.1f} ms a batch (a forward and a dx-only backward of the "
+          f"unoptimized flagship), device peak {fl_peak:.2f} GB ({smi})")
+    for label, r in (("data-free", prep), ("data", drep)):
+        if not r["units_after"] < r["units_before"]:
+            raise AssertionError(f"[structure] the {label} prune kept every unit")
+    ctxp, ccp, outp = _fresh_forward(pruned, x)
+    cc64 = TorchCompiler(semiring="lse-sum", fold=True, optimize=True,
+                         device="cpu").compile(pruned)
+    st64 = {s: v.detach().cpu().double() for s, v in ctxp.parameters.items()}
+    with torch.inference_mode():
+        ref = cc64(st64, torch.as_tensor(x_np[:QUERY_ROWS]))
+    relp = _held_rtol("pruned forward against float64", outp[:QUERY_ROWS], ref, RTOL)
+    with torch.inference_mode():
+        p_ms = _median_ms(lambda: ccp(x))
+    del cc64, st64
+    print(f"[structure] (2) fraction 0.5: data-free {prep['units_before']} -> "
+          f"{prep['units_after']} units in {t_pf:.2f} s; by the flows of {STRUCT_ROWS} rows "
+          f"{drep['units_before']} -> {drep['units_after']} units in {t_pd:.2f} s (peak "
+          f"{d_peak:.2f} GB); pruned forward {p_ms:.3f} ms median of 20 (the flagship's in "
+          f"phase 4), 8 rows against float64 max rel err {relp:.2e}, mean log-likelihood "
+          f"{float(outp.mean()):.3f} against {float(base.mean()):.3f} ({smi})")
+    # the pruned flagship through save_circuit / load_circuit
+    save_circuit(work / "pruned.ckpt", pruned)
+    _, _, outl = _fresh_forward(load_circuit(work / "pruned.ckpt"), x)
+    if not torch.equal(outl, outp):
+        raise AssertionError("[structure] the reloaded pruned circuit's forward differs")
+    size = (work / "pruned.ckpt").stat().st_size / 1e6
+    print(f"[structure] save_circuit/load_circuit of the pruned flagship: {size:.1f} MB, "
+          f"forward equal to the bit")
+    del pruned, pruned_d, ctxp, ccp, outp, outl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (3) distill_tree over all 784 variables ---------------------------
+    (tree, trep), t_d, t_peak, step = _structure_step(
+        "distill_tree (784 variables, 256 states)", lambda: distill_tree(cc, store=store),
+        launches)
+    if not _spanning_tree(trep["edges"], range(784)):
+        raise AssertionError("[structure] the distilled edges are not a spanning tree")
+    ctxt = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=DEV)
+    cct = ctxt.compile(tree)
+    ccz = ctxt.integrate(cct)
+    with torch.inference_mode():
+        logz = float(ccz(batch_size=1)[0, 0, 0])
+    if not abs(logz) <= RTOL:
+        raise AssertionError(f"[structure] the tree's log Z = {logz:.3e}, not within {RTOL} of 0")
+    zero = np.zeros((1, 784), dtype=np.int64)
+    mask = np.zeros((1, 784), dtype=bool)
+    m_tree = ExpectationQuery(cct).marginals(zero, evidence_mask=mask)[0]
+    m_src = ExpectationQuery(cc).marginals(zero, evidence_mask=mask, store=store)[0]
+    m_err = float((m_tree - m_src).abs().max())
+    if not m_err <= DISTILL_TOL:
+        raise AssertionError(f"[structure] tree marginals off the flagship's by {m_err:.3e}")
+    depth = {0: 0}
+    kids: dict[int, list[int]] = {}
+    for p, c in trep["edges"]:
+        kids.setdefault(p, []).append(c)
+    stack = [trep["root"]]
+    while stack:
+        v = stack.pop()
+        for c in kids.get(v, []):
+            depth[c] = depth[v] + 1
+            stack.append(c)
+    print(f"[structure] (3) distill_tree: {t_d:.2f} s (peak {t_peak:.2f} GB), 783 edges "
+          f"spanning 784 variables, depth {max(depth.values())}, {len(kids)} parents, "
+          f"mi_objective {trep['mi_objective']:.4f} nats, tree {trep['units']} units; log Z "
+          f"{logz:.2e}; univariate marginals max |tree - flagship| {m_err:.2e} ({smi})")
+    del tree, ctxt, cct, ccz, m_tree, m_src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (4) the grow/prune loop at bench.py's mid-size configuration -----
+    lsc = _flagship_circuit("tucker", True, LOOP_K, side=LOOP_SIDE)
+    data = np.random.default_rng(0).integers(0, 256, size=(LOOP_ROWS, LOOP_SIDE ** 2))
+    kw = dict(rounds=1, grow_fraction=0.25, prune_fraction=0.25, em_epochs=2,
+              batch_size=LOOP_BATCH)
+
+    def loop(checkpoint_dir, **extra):
+        lctx = PipelineContext(semiring="lse-sum", fold=True, device=DEV)
+        lctx.compile(lsc)
+        return grow_prune_loop(lsc, data, ctx=lctx, checkpoint_dir=str(checkpoint_dir),
+                               **{**kw, **extra})
+
+    (_, best_store, history), t_loop, l_peak, _ = _structure_step(
+        "grow_prune_loop (1,8,8) K=16, one round", lambda: loop(work / "loop"), launches)
+    if [h[0] for h in history] != ["init", "grow@0", "prune@0"]:
+        raise AssertionError(f"[structure] loop history {history}")
+    if not all(np.isfinite(h[2]) for h in history):
+        raise AssertionError(f"[structure] loop log-likelihoods not finite: {history}")
+    # stopped after its grow stage: the skipped prune stage writes no checkpoint
+    loop(work / "resume", prune_fraction=0.0)
+    if (work / "resume" / "LATEST").read_text() != "2":
+        raise AssertionError("[structure] the interrupted loop did not stop at stage 2")
+    (_, res_store, resumed), t_res, _, _ = _structure_step(
+        "grow_prune_loop resumed from its stage-2 checkpoint",
+        lambda: loop(work / "resume", resume=True), launches)
+    same = resumed == history and set(res_store) == set(best_store) and all(
+        torch.equal(res_store[s], best_store[s]) for s in best_store)
+    if not same:
+        raise AssertionError(f"[structure] resumed history {resumed} against {history}")
+    print(f"[structure] (4) grow_prune_loop: {t_loop:.2f} s (peak {l_peak:.2f} GB), history "
+          + ", ".join(f"{s} {u} units LL {ll:.4f}" for s, u, ll in history)
+          + f"; resumed from stage 2 in {t_res:.2f} s, history and best store equal to the bit "
+          f"({smi})")
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[structure] launches of phase 13: {launches}")
     return launches
 
 
@@ -3973,7 +4332,7 @@ def main() -> int:
     phase_float64()
     phase_float64_wide()
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
-    # each kernel's launches, summed over the main-path runs of phases 4-12
+    # each kernel's launches, summed over the main-path runs of phases 4-13
     launches = dict.fromkeys(KERNELS, 0)
     built, fwd = phase_slice(smi)
     train = phase_train(smi, built)
@@ -3983,6 +4342,8 @@ def main() -> int:
     expect = phase_expectation(smi, built)
     cross = phase_cross(smi, built)
     print(f"[time] phases 4-7b and 12 done at {time.perf_counter() - t_start:.0f} s")
+    struct = phase_structure(smi, built)
+    print(f"[time] phase 13 done at {time.perf_counter() - t_start:.0f} s")
     sos, signed_runs = phase_sos(smi)
     signed, signed_ms = phase_signed_flagships(smi, built)  # reads phase 4's stores
     csos = phase_complex_sos(smi, signed_runs)
@@ -3991,8 +4352,8 @@ def main() -> int:
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
-    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, wide,
-                   sos, signed, csos, cflag, f64):
+    for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, struct,
+                   wide, sos, signed, csos, cflag, f64):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]

@@ -17,12 +17,20 @@ float32 on save and cast back to ``like``'s dtype on load.
 
 The orbax directory checkpoints of the JAX package (``save_checkpoint`` /
 ``load_checkpoint``) are not ported.
+
+:func:`save_circuit` / :func:`load_circuit` persist a symbolic circuit in the
+JAX package's format, a versioned pickle. The port's symbolic classes are
+copies of the JAX package's under the ``cirkit_tpu_torch.`` prefix, so the
+loader reads a file written by either package: it maps the classes a JAX
+file names (``cirkit_tpu.symbolic.*``, ``cirkit_tpu.utils.scope``) onto the
+port's, and never imports ``cirkit_tpu`` or JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import zlib
 from collections.abc import Mapping
 from os import PathLike
@@ -206,3 +214,42 @@ def data_fingerprint(data: np.ndarray) -> np.uint64:
     tail = raw[-(1 << 20):].tobytes()
     meta = f"{data.shape}{data.dtype}".encode()
     return np.uint64(zlib.crc32(tail, zlib.crc32(head, zlib.crc32(meta))))
+
+
+_CIRCUIT_FORMAT = "cirkit-tpu-circuit"
+
+
+def save_circuit(path: str | PathLike[str], sc: Any) -> None:
+    """Persist a symbolic circuit's structure and (constant) parameters: a
+    versioned pickle of the layer graph, the format of the JAX package's
+    ``save_circuit``. For circuits no template rebuilds (pruned, grown,
+    distilled or hand-built ones); a template's trained parameters live in
+    the store, persisted beside it with :func:`save_store`. Slot names are
+    allocated in a fixed order per compile, so a reloaded circuit compiled
+    first in a fresh context takes the saved store's slots.
+
+    The usual pickle caveat holds: only load circuit files you trust."""
+    with open(path, "wb") as f:
+        pickle.dump({"format": _CIRCUIT_FORMAT, "version": 1, "circuit": sc}, f)
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Reads the JAX package's classes as the port's copies of them."""
+
+    def find_class(self, module: str, name: str) -> Any:
+        if module == "cirkit_tpu" or module.startswith("cirkit_tpu."):
+            module = "cirkit_tpu_torch" + module[len("cirkit_tpu"):]
+        return super().find_class(module, name)
+
+
+def load_circuit(path: str | PathLike[str]) -> Any:
+    """Load a symbolic circuit saved by :func:`save_circuit`, or by the JAX
+    package's, as the port's symbolic classes."""
+    try:
+        with open(path, "rb") as f:
+            blob = _PortUnpickler(f).load()
+    except pickle.UnpicklingError as exc:
+        raise ValueError(f"{path} is not a cirkit-tpu circuit file") from exc
+    if not (isinstance(blob, dict) and blob.get("format") == _CIRCUIT_FORMAT):
+        raise ValueError(f"{path} is not a cirkit-tpu circuit file")
+    return blob["circuit"]

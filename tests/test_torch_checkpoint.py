@@ -1,7 +1,12 @@
 """The port's npz checkpoints (``cirkit_tpu_torch.utils.checkpoint``)
 against the JAX package's (``cirkit_tpu.utils.checkpoint``), on the CPU:
 a store saved by either loads in the other by slot name, the data
-fingerprints agree, and bfloat16 leaves round-trip."""
+fingerprints agree, and bfloat16 leaves round-trip. The port's
+``save_circuit``/``load_circuit`` round-trip learned, pruned and
+operator-derived circuits, and read a circuit file the JAX package wrote
+without importing JAX."""
+
+import pickle
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,3 +86,147 @@ def test_training_state_is_atomic_and_optional(tmp_path):
     state = T.load_training_state(path)
     assert int(state["step"]) == 4 and np.array_equal(state["w"], np.ones(2))
     assert J.load_training_state(path, like={"step": np.int64(0), "w": jnp.zeros(2)}) is not None
+
+
+# --------------------------------------------------------------------------- #
+# save_circuit / load_circuit (tests/test_serialization_io.py:155-234)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def float64_default():
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(torch.float32)
+
+
+def _forward(sc, x, **flags):
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    ctx = PipelineContext(semiring="lse-sum", fold=True, device="cpu", **flags)
+    with torch.no_grad():
+        return ctx.compile(sc)(torch.as_tensor(x)).numpy()
+
+
+def test_circuit_roundtrip_learned_structures(tmp_path, float64_default):
+    """A LearnSPN circuit and a pruned one reload in the port and compile to
+    the same distribution; a file that is not a circuit raises JAX's error."""
+    import itertools
+
+    from cirkit_tpu_torch.backend.torch import prune_circuit
+    from cirkit_tpu_torch.models import learn_spn
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    data = np.random.default_rng(5).integers(0, 3, size=(300, 4))
+    sc = learn_spn(data, input_type="categorical", min_instances=50, seed=0)
+    T.save_circuit(tmp_path / "spn.ckt", sc)
+    worlds = np.array(list(itertools.product(range(3), repeat=4)))
+    np.testing.assert_allclose(_forward(T.load_circuit(tmp_path / "spn.ckt"), worlds),
+                               _forward(sc, worlds), rtol=1e-12)
+
+    ctx = PipelineContext(semiring="lse-sum", fold=True, device="cpu")
+    ctx.compile(sc)
+    pruned, _ = prune_circuit(sc, ctx=ctx, threshold=1e-4)
+    T.save_circuit(tmp_path / "pruned.ckt", pruned)
+    np.testing.assert_allclose(_forward(T.load_circuit(tmp_path / "pruned.ckt"), worlds),
+                               _forward(pruned, worlds), rtol=1e-12)
+
+    T.save_store(tmp_path / "x.npz", {"a": np.zeros(2)})
+    for load in (T.load_circuit, J.load_circuit):
+        with pytest.raises(ValueError, match="not a cirkit-tpu circuit"):
+            load(tmp_path / "x.npz")
+    with open(tmp_path / "d.pkl", "wb") as fh:
+        pickle.dump({"format": "other"}, fh)
+    with pytest.raises(ValueError, match="not a cirkit-tpu circuit"):
+        T.load_circuit(tmp_path / "d.pkl")
+
+
+def test_circuit_roundtrip_partial_overlap_product(tmp_path, float64_default):
+    """An operator-derived partial-overlap product reloads and compiles, in
+    the port, to the JAX reference evaluator's distribution."""
+    import itertools
+
+    import cirkit_tpu.symbolic.functional as JSF
+    import cirkit_tpu_torch.symbolic.functional as TSF
+    from tests.reference_eval import eval_circuit
+    from tests.test_fuzz_circuits import _restrict_tree, _tree_pc
+
+    tree = ((0, 1), (2, (3, 4)))
+    jsc1 = _tree_pc(_restrict_tree(tree, {0, 1, 2, 3}), 2, 31, 41)
+    jsc2 = _tree_pc(_restrict_tree(tree, {2, 3, 4}), 3, 51, 61)
+    worlds = np.array(list(itertools.product(range(2), repeat=5)), dtype=np.int64)
+    want = eval_circuit(JSF.multiply(jsc1, jsc2), worlds)[:, 0, 0]
+    # the operands cross by a JAX-written file, the product is the port's
+    J.save_circuit(tmp_path / "ops.ckt", (jsc1, jsc2))
+    psc = TSF.multiply(*T.load_circuit(tmp_path / "ops.ckt"))
+    T.save_circuit(tmp_path / "prod.ckt", psc)
+    got = np.exp(_forward(T.load_circuit(tmp_path / "prod.ckt"), worlds, optimize=True))
+    np.testing.assert_allclose(got[:, 0, 0], want, rtol=1e-9)
+
+
+def test_full_persistence_flow_template_circuit(tmp_path):
+    """A template circuit and its store saved by the port reload in a fresh
+    context (slot names allocate in a fixed order) with the same forward."""
+    from cirkit_tpu_torch.models import image_data
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    sc = image_data((1, 4, 4), "quad-tree-2", input_layer="categorical", num_input_units=3,
+                    sum_product_layer="cp", num_sum_units=3)
+    ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device="cpu")
+    cc = ctx.compile(sc)
+    x = torch.as_tensor(np.random.default_rng(1).integers(0, 256, size=(5, 16)))
+    with torch.no_grad():
+        before = cc(x)
+    T.save_circuit(tmp_path / "c.ckt", sc)
+    T.save_store(tmp_path / "s.npz", dict(ctx.parameters))
+    ctx2 = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device="cpu")
+    cc2 = ctx2.compile(T.load_circuit(tmp_path / "c.ckt"))
+    store = T.store_from_numpy(T.load_store(tmp_path / "s.npz"), device="cpu")
+    with torch.no_grad():
+        after = cc2(cc2.restrict_store(store), x)
+    assert torch.equal(before, after)
+
+
+def test_jax_written_circuit_loads_without_jax(tmp_path):
+    """A circuit file the JAX package wrote (it names ``cirkit_tpu.symbolic``
+    and ``cirkit_tpu.utils.scope`` classes) loads in the port in a process
+    where neither ``jax`` nor ``cirkit_tpu`` is ever imported, and compiles
+    to JAX's forward."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from cirkit_tpu.models import image_data
+    from cirkit_tpu.pipeline import PipelineContext as JaxPipelineContext
+
+    sc = image_data((1, 4, 4), "quad-tree-2", input_layer="categorical", num_input_units=3,
+                    sum_product_layer="tucker", num_sum_units=3)
+    jctx = JaxPipelineContext(semiring="lse-sum", fold=True, optimize=True, seed=4)
+    jcc = jctx.compile(sc)
+    x = np.random.default_rng(2).integers(0, 256, size=(6, 16))
+    want = np.asarray(jcc(jctx.parameters, jnp.asarray(x)))
+    J.save_circuit(tmp_path / "c.ckt", sc)
+    J.save_store(tmp_path / "s.npz", dict(jctx.parameters))
+    np.save(tmp_path / "x.npy", x)
+    assert b"cirkit_tpu.symbolic" in (tmp_path / "c.ckt").read_bytes()
+    code = f"""
+import sys, numpy as np, torch
+torch.set_default_dtype(torch.float64)
+from cirkit_tpu_torch.pipeline import PipelineContext
+from cirkit_tpu_torch.utils.checkpoint import load_circuit, load_store
+d = {str(tmp_path)!r}
+sc = load_circuit(d + "/c.ckt")
+assert type(sc).__module__ == "cirkit_tpu_torch.symbolic.circuit", type(sc)
+ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device="cpu")
+cc = ctx.compile(sc)
+ctx.load_parameters({{k: np.asarray(v, np.float64) for k, v in load_store(d + "/s.npz").items()}})
+with torch.no_grad():
+    np.save(d + "/got.npy", cc(torch.as_tensor(np.load(d + "/x.npy"))).numpy())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "cirkit_tpu.")))
+assert not bad, bad
+"""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    np.testing.assert_allclose(np.load(tmp_path / "got.npy"), want, rtol=1e-9)

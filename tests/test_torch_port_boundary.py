@@ -62,7 +62,8 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("module", ["ops.clse_einsum", "ops.slse_einsum", "ops.routing",
                                     "backend.torch.semiring", "backend.torch.parameters",
                                     "utils.checkpoint", "backend.torch.entropy",
-                                    "backend.torch.topk", "models.logic", "backend.torch.cross"])
+                                    "backend.torch.topk", "models.logic", "backend.torch.cross",
+                                    "backend.torch.pruning", "backend.torch.distill"])
 def test_port_module_alone_imports_no_jax(module):
     """Each module that launches kernels or carries stores across imports on
     its own without JAX and without the JAX package."""
