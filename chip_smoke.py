@@ -288,10 +288,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the stores and the host's peak resident memory. Phases 3 and 3b hold and
    time the kernels at its shapes (``STRUCT_SHAPES``): the dense I=4096 sums
    (plain weights and logits, also dx-only) and kernel 5 at K1=K2=O=96.
+14. quadrature PCs, ensembles and interop (``backend/torch/pic.py``,
+   ``models/ensembles.py``, ``models/interop.py``), after phase 13 on phase
+   4's K=64 Tucker store: (a) ``pc2qpc`` at ``bench_qpc``'s configuration
+   (``bench.py:566-626``: leggauss, ``net_dim=64``, batch 128): the convert
+   seconds and the networks' parameter count, every generated weight >= 0
+   with each (fold, unit) row summing to 1 within ``QPC_NORM_TOL``, log Z
+   within ``LOGZ_TOL`` of 0, 8 rows of the forward against float64 on the
+   CPU (rtol 1e-5), the original flagship's forward unchanged to the bit,
+   the materialize ms; ``QPC_STEPS`` Adam(5e-3) steps into the integral
+   networks, each counted (10 plain ``lse_tucker2`` and 5 ``lse_matmul``
+   launches a forward, as many backward), finite and decreasing losses, the
+   networks' gradients on 8 rows within the ``GRAD_*`` bound of float64 on
+   the CPU, the median step ms (``qpc_samples_per_sec``), the peak and the
+   step's device split by kernel; (b) 2048 + 512 rows drawn by
+   ``SamplingQuery`` from the flagship, ``boost_mixture`` of three K=64 CP
+   flagships (Adam, 2 epochs, batch 256, the 512 rows as validation) and
+   ``bag_mixture`` of two EM-ready K=64 Tucker flagships (EM, 1 epoch,
+   batch 128): ``stage_lls`` non-decreasing, the served circuit's
+   log-likelihood of 128 validation rows the blend of the components'
+   within rtol 1e-5, its log Z within ``LOGZ_TOL`` of 0, bagging's bootstrap
+   counts ``default_rng([0, seed]).multinomial``'s; each stage's seconds,
+   the accepted stages, the mixture's forward ms; (c) ``save_jpc`` and
+   ``load_jpc`` of a binary 64-feature CP circuit (K=16) after ``fit_em`` on
+   the card, the reloaded circuit's forward on 128 rows within rtol 1e-5 of
+   the original's, and ``load_uai`` of a seeded 24-variable Markov network,
+   its 128 rows and log Z within rtol 1e-5 of float64 on the CPU. Each step
+   prints its seconds, launches and device peak.
 
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4, 5b, 7b, 8, 12 and 13, the backward ops
-in phases 5, 5b, 7b, 8 and 13, the routing ops in phases 7 and 12, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b, 7b, 8, 12, 13 and 14, the backward ops
+in phases 5, 5b, 7b, 8, 13 and 14, the routing ops in phases 7, 12 and 14, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -2408,10 +2435,10 @@ def _host_peak_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
-def _structure_step(label: str, fn, launches: dict[str, int]):
+def _structure_step(label: str, fn, launches: dict[str, int], tag: str = "structure"):
     """Run ``fn`` once from zeroed counts, adding its launches into
     ``launches``; returns (result, seconds, device peak GB above the memory
-    in use before, the launches of this step)."""
+    in use before, the launches of this step). ``tag`` heads the line."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
@@ -2428,7 +2455,7 @@ def _structure_step(label: str, fn, launches: dict[str, int]):
     step = {op: n for op, n in L.LAUNCHES.items() if n}
     for op, n in step.items():
         launches[op] = launches.get(op, 0) + n
-    print(f"[structure] {label}: {sec:.2f} s, device peak {peak:.2f} GB above the stores, "
+    print(f"[{tag}] {label}: {sec:.2f} s, device peak {peak:.2f} GB above the stores, "
           f"host peak RSS so far {_host_peak_gb():.1f} GB, launches {step}")
     return out, sec, peak, step
 
@@ -2447,17 +2474,17 @@ def _fresh_forward(sc, x, *, optimize: bool = True):
     return ctx, cc, out
 
 
-def _held_rtol(label: str, got, want, rtol: float) -> float:
+def _held_rtol(label: str, got, want, rtol: float, tag: str = "structure") -> float:
     """``got`` finite, of ``want``'s shape and within ``rtol`` of it
     elementwise; returns the worst relative error."""
     import torch
 
     got, want = got.double().cpu(), want.double().cpu()
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"[structure] {label}: {tuple(got.shape)} or not finite")
+        raise AssertionError(f"[{tag}] {label}: {tuple(got.shape)} or not finite")
     rel = float(((got - want).abs() / want.abs()).max())
     if not rel <= rtol:
-        raise AssertionError(f"[structure] {label}: max relative error {rel:.3e} > {rtol}")
+        raise AssertionError(f"[{tag}] {label}: max relative error {rel:.3e} > {rtol}")
     return rel
 
 
@@ -2693,6 +2720,347 @@ def phase_structure(smi: str, built: list) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[structure] launches of phase 13: {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Quadrature PCs, ensembles and the interop formats (phase 14)
+# --------------------------------------------------------------------------- #
+
+QPC_NET_DIM = 64  # bench_qpc's integral networks (bench.py:581-626), leggauss
+QPC_LR = 5e-3  # optax.adam(5e-3) of tests/backend/test_pic.py
+QPC_STEPS = 10
+# Each generated weight row's sum against 1: the quadrature normalizer is an
+# f32 sum over the row's 4096 (Tucker) or 64 (sum) mesh points.
+QPC_NORM_TOL = 1e-5
+# log Z against 0, of the QPC and of the ensembles' mixtures: every unit of
+# these circuits is normalized, so log Z is 0 up to the f32 rounding of the
+# leaves' softmax and of each of the 15 sum entries' sums of exponentials
+# (4096 terms at a Tucker entry), some 1e-6 an entry.
+LOGZ_TOL = 1e-4
+ENS_TRAIN, ENS_VALID, ENS_DRAW = 2048, 512, 512  # rows of phase 4's sampler, drawn 512 a call
+ENS_SEED = 0
+ENS_ROWS = 128  # the validation rows of the served-blend check and the forward's time
+JPC_FEATURES, JPC_K = 64, 16  # the binary tabular circuit of the .jpc round trip
+UAI_VARS = 24  # the seeded Markov network of load_uai
+
+
+def _uai_network(seed: int, n: int, max_card: int = 3):
+    """A seeded Markov network as ``tests/models/test_interop.py``'s
+    ``_uai_case`` draws it (n factors over 1-3 variables, tables uniform on
+    [0.05, 2]), and its UAI text."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cards = list(rng.integers(2, max_card + 1, size=n))
+    scopes = [tuple(rng.choice(n, size=int(rng.integers(1, 4)), replace=False))
+              for _ in range(n)]
+    tables = [rng.uniform(0.05, 2.0, size=[cards[v] for v in sc]) for sc in scopes]
+    parts = ["MARKOV", str(n), " ".join(map(str, cards)), str(len(scopes))]
+    parts += [f"{len(s)} " + " ".join(map(str, s)) for s in scopes]
+    for t in tables:
+        parts += [str(t.size), " ".join(repr(float(v)) for v in t.reshape(-1))]
+    return cards, "\n".join(parts) + "\n"
+
+
+def _ensemble_checks(label: str, res, valid, smi: str, stage_s: list[float]) -> None:
+    """``stage_lls`` non-decreasing; the served circuit's log-likelihood of
+    ENS_ROWS validation rows the blend (the logaddexp of the components'
+    normalized log-likelihoods with the returned weights) within RTOL, and
+    its log Z within LOGZ_TOL of 0; prints the stages and the forward's ms."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.models import ensembles as E
+
+    lls = res.stage_lls
+    if not all(np.isfinite(lls)) or any(b < a for a, b in zip(lls, lls[1:])):
+        raise AssertionError(f"[ensembles] {label}: stage_lls {lls}")
+    rows = valid[:ENS_ROWS]
+    per = np.stack([E._per_sample_ll(c, res.store, rows, ENS_ROWS) for c in res.components])
+    want = np.logaddexp.reduce(per + np.log(res.weights)[:, None], axis=0)
+    xv = torch.as_tensor(rows, device=DEV)
+    logz = E._component_log_z(res.circuit, res.store, rows)
+    with torch.inference_mode():
+        got = res.circuit(res.store, xv)[:, 0, 0].double().cpu().numpy()
+        ms = _median_ms(lambda: res.circuit(res.store, xv), warmup=2, iters=10)
+    rel = float(np.max(np.abs(got - logz - want) / np.abs(want)))
+    if not rel <= RTOL or not abs(logz) <= LOGZ_TOL:
+        raise AssertionError(f"[ensembles] {label}: served circuit off the blend by {rel:.3e} "
+                             f"(bound {RTOL}), log Z {logz:.3e} (bound {LOGZ_TOL})")
+    print(f"[ensembles] {label}: {len(stage_s)} stages in "
+          + ", ".join(f"{s:.2f}" for s in stage_s) + f" s, {len(res.components)} accepted, "
+          f"weights {np.round(res.weights, 4).tolist()}, stage LLs "
+          f"{[round(v, 3) for v in lls]}; served circuit on {ENS_ROWS} validation rows within "
+          f"{rel:.2e} of the blend, log Z {logz:.2e}; forward {ms:.3f} ms median of 10 at "
+          f"batch {ENS_ROWS} ({smi})")
+
+
+def phase_qpc(smi: str, built: list) -> dict[str, int]:
+    """Phase 14, on phase 4's K=64 Tucker flagship (softmax weights,
+    lse-sum, folded, optimized): (1) ``pc2qpc`` at ``bench_qpc``'s
+    configuration, its generated weights normalized, log Z, 8 rows against
+    float64 on the CPU, the original's forward unchanged, QPC_STEPS counted
+    Adam steps into the integral networks (their gradients on 8 rows against
+    float64), the step's time, peak and device split; (2) ``boost_mixture``
+    of three K=64 CP flagships (Adam) and ``bag_mixture`` of two EM-ready
+    K=64 Tucker flagships (EM) on rows drawn from the flagship, each serving
+    its exact blend; (3) a ``.jpc`` round trip of a binary tabular circuit
+    after ``fit_em`` and ``load_uai`` of a seeded Markov network, against the
+    original and float64 on the CPU. Returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import IntegrateQuery, SamplingQuery
+    from cirkit_tpu_torch.backend.torch.pic import load_net_params, pc2qpc
+    from cirkit_tpu_torch.models import (
+        bag_mixture,
+        boost_mixture,
+        load_jpc,
+        load_uai,
+        save_jpc,
+        tabular_data,
+    )
+    from cirkit_tpu_torch.models import ensembles as E
+    from cirkit_tpu_torch.parallel import fit_em
+    from cirkit_tpu_torch.pipeline import PipelineContext
+    from cirkit_tpu_torch.utils import Scope
+
+    _, _, sc, ctx, cc, _ = next(b for b in built if b[:2] == ("tucker", False))
+    st = ctx.parameters
+    x_np = np.random.default_rng(0).integers(0, 256, (BATCH, 784))  # bench_qpc's rows
+    x = torch.as_tensor(x_np, device=DEV)
+    r = QUERY_ROWS
+    launches: dict[str, int] = {}
+    work = REPO / "build" / "chip_smoke" / "interop"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # ---- (1) the quadrature PC at bench_qpc's configuration -----------------
+    with torch.inference_mode():
+        base = cc(st, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qpc, qp = pc2qpc(cc, st, integration_method="leggauss", seed=0, net_dim=QPC_NET_DIM)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        if not torch.equal(cc(st, x), base):
+            raise AssertionError("[qpc] pc2qpc changed the original flagship's forward")
+        store = qp.materialize()
+        mat_ms = _median_ms(qp.materialize, warmup=1, iters=5)
+    n_net = sum(p.numel() for p in qp.parameters())
+    norm_err = 0.0
+    for s in qp.nets:
+        if s.endswith("_qpc"):
+            w = store[s]
+            if not bool((w >= 0).all()):
+                raise AssertionError(f"[qpc] generated weight {s} has negative entries")
+            norm_err = max(norm_err, float((w.double().sum(dim=-1) - 1).abs().max()))
+    if not norm_err <= QPC_NORM_TOL:
+        raise AssertionError(f"[qpc] generated rows sum to 1 within {norm_err:.3e}, "
+                             f"not {QPC_NORM_TOL}")
+    logz = float(IntegrateQuery(qpc)(x_np[:1], integrate_vars=Scope(qpc.scope),
+                                     store=store).reshape(-1)[0])
+    if not abs(logz) <= LOGZ_TOL:
+        raise AssertionError(f"[qpc] log Z {logz:.3e}, not within {LOGZ_TOL} of 0")
+    with torch.inference_mode():
+        out = qpc(store, x)
+    if out.shape != (BATCH, 1, 1) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[qpc] forward {tuple(out.shape)} or not finite")
+    # float64 on the CPU: the flagship compiled there, converted there, and
+    # the card's materialized store and networks copied over
+    t0 = time.perf_counter()
+    cc64, st64 = _f64_reference("tucker", False, store)
+    del store
+    qpc64, qp64 = pc2qpc(cc64, st64, integration_method="leggauss", net_dim=QPC_NET_DIM)
+    load_net_params(qp64, {s: {n: p.detach().cpu().numpy() for n, p in net.named_parameters()}
+                           for s, net in qp.nets.items()})
+    with torch.inference_mode():
+        ref = qpc64(st64, torch.as_tensor(x_np[:r]))
+    rel = _held_rtol("QPC forward against float64", out[:r], ref, RTOL, tag="qpc")
+    named = dict(qp.named_parameters())
+    got = torch.autograd.grad(-qpc.evaluate(qp.materialize(), x[:r])[:, 0, 0].mean(),
+                              list(named.values()))
+    named64 = dict(qp64.named_parameters())
+    refs = torch.autograd.grad(
+        -qpc64.evaluate(qp64.materialize(), torch.as_tensor(x_np[:r]))[:, 0, 0].mean(),
+        [named64[k] for k in named])
+    worst = _check_grads("[qpc] the networks' gradients", dict(zip(named, got)),
+                         dict(zip(named, refs)))
+    f64_s = time.perf_counter() - t0
+    del cc64, st64, qpc64, qp64, ref, got, refs, named64
+    gc.collect()
+    print(f"[qpc] pc2qpc(leggauss, net_dim={QPC_NET_DIM}) in {convert_s:.2f} s: {n_net} network "
+          f"parameters for the flagship's {cc.num_parameters()}, {len(qp.nets)} networks; "
+          f"materialize {mat_ms:.3f} ms median of 5; generated rows sum to 1 within "
+          f"{norm_err:.2e}, log Z {logz:.2e}; {r} rows against float64 max rel err {rel:.2e}, "
+          f"the networks' gradients within {worst:.3f} of the GRAD_* bound ({f64_s:.1f} s of "
+          f"float64 on the CPU); the original flagship's forward unchanged to the bit ({smi})")
+
+    fwd, bwd = _expected_launches(qpc)
+    opt = torch.optim.Adam(qp.parameters(), lr=QPC_LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = -qpc.evaluate(qp.materialize(), x)[:, 0, 0].mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(_counted_launches(f"[qpc] Adam step {i}", step, {**fwd, **bwd}, launches))
+              for i in range(QPC_STEPS)]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[qpc] losses {losses} not finite and decreasing")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_ms(step, warmup=3, iters=10)
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    split = _kernel_split(step, calls=3)
+    print(f"[qpc] {QPC_STEPS} Adam(lr={QPC_LR}) steps at batch {BATCH}, launches a step "
+          f"{fwd} forward and {bwd} backward; NLL {losses[0]:.3f} -> {losses[-1]:.3f}; step "
+          f"{step_ms:.3f} ms median of 10 = qpc_samples_per_sec {BATCH / step_ms * 1e3:.1f}, "
+          f"device peak {peak:.2f} GB above the stores; a step's {split} ({smi})")
+    del qpc, qp, opt, step, out, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (2) boosted and bagged ensembles of K=64 flagships ----------------
+    sq = SamplingQuery(cc)
+    gen = torch.Generator(device=DEV).manual_seed(ENS_SEED)
+
+    def draw():
+        parts = [sq(ENS_DRAW, generator=gen, store=st)[0]
+                 for _ in range((ENS_TRAIN + ENS_VALID) // ENS_DRAW)]
+        return torch.cat(parts).long().cpu().numpy()
+
+    rows, t_draw, _, _ = _structure_step(
+        f"{ENS_TRAIN + ENS_VALID} rows drawn by SamplingQuery from the Tucker flagship", draw,
+        launches, tag="ensembles")
+    if rows.min() < 0 or rows.max() > 255:
+        raise AssertionError("[ensembles] drawn states out of range")
+    train, valid = rows[:ENS_TRAIN], rows[ENS_TRAIN:]
+
+    def staged(spl: str, em: bool, marks: list):
+        def make(t):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return _flagship_circuit(spl, em, FLAGSHIP_K)
+        return make
+
+    def seconds(marks: list) -> list[float]:
+        torch.cuda.synchronize()
+        ends = marks[1:] + [time.perf_counter()]
+        return [b - a for a, b in zip(marks, ends)]
+
+    def boost(marks):
+        bctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=DEV, seed=0)
+        res = boost_mixture(staged("cp", False, marks), train, ctx=bctx, num_stages=3,
+                            method="adam", num_epochs=2, batch_size=256, valid_data=valid,
+                            seed=ENS_SEED)
+        return res, seconds(marks)
+
+    (res, stage_s), _, b_peak, _ = _structure_step(
+        "boost_mixture of 3 K=64 CP flagships (adam, 2 epochs, batch 256)",
+        lambda: boost([]), launches, tag="ensembles")
+    _ensemble_checks("boosting", res, valid, smi, stage_s)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts: list[np.ndarray] = []
+    train_component = E._train_component
+
+    def spy(cc_, ctx_, data, sample_weight, *args, **kw):
+        counts.append(np.asarray(sample_weight))
+        return train_component(cc_, ctx_, data, sample_weight, *args, **kw)
+
+    def bag(marks):
+        gctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=DEV, seed=0)
+        E._train_component = spy
+        try:
+            res = bag_mixture(staged("tucker", True, marks), train, ctx=gctx, num_components=2,
+                              method="em", num_epochs=1, batch_size=128, seed=ENS_SEED)
+        finally:
+            E._train_component = train_component
+        return res, seconds(marks)
+
+    (res, stage_s), _, g_peak, _ = _structure_step(
+        "bag_mixture of 2 EM-ready K=64 Tucker flagships (em, 1 epoch, batch 128)",
+        lambda: bag([]), launches, tag="ensembles")
+    rng = np.random.default_rng([0, ENS_SEED])
+    want = [rng.multinomial(ENS_TRAIN, np.full(ENS_TRAIN, 1.0 / ENS_TRAIN)) for _ in counts]
+    if len(counts) != 2 or not all(np.array_equal(c, w) for c, w in zip(counts, want)):
+        raise AssertionError("[ensembles] bagging's bootstrap counts are not "
+                             "default_rng([0, seed]).multinomial's")
+    _ensemble_checks("bagging", res, valid, smi, stage_s)
+    print(f"[ensembles] bootstrap counts equal default_rng([0, {ENS_SEED}]).multinomial's; "
+          f"device peaks above the stores: boosting {b_peak:.2f} GB, bagging {g_peak:.2f} GB")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (3) interop: a .jpc round trip and load_uai -------------------------
+    bsc = tabular_data("random-binary-tree", num_features=JPC_FEATURES,
+                       input_layers={"name": "categorical", "args": {"num_categories": 2}},
+                       num_input_units=JPC_K, sum_product_layer="cp", num_sum_units=JPC_K,
+                       em_ready=True)
+    bctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, device=DEV, seed=0)
+    bcc = bctx.compile(bsc)
+    bin_rows = (train[:, :JPC_FEATURES] > 127).astype(np.int64)  # the drawn rows, binarized
+    (trained, em_losses), t_em, _, _ = _structure_step(
+        f"fit_em of the binary {JPC_FEATURES}-feature CP circuit (K={JPC_K}, 2 epochs)",
+        lambda: fit_em(bcc, bin_rows, store=bctx.parameters, num_epochs=2, batch_size=256),
+        launches, tag="interop")
+    path = work / "binary.jpc"
+    t0 = time.perf_counter()
+    save_jpc(str(path), bsc, bctx, store=trained)
+    back = load_jpc(str(path))
+    t_io = time.perf_counter() - t0
+    xb = torch.as_tensor(bin_rows[:ENS_ROWS], device=DEV)
+    (_, _, got), _, _, _ = _structure_step(
+        "the reloaded .jpc circuit compiled on the card, forward",
+        lambda: _fresh_forward(back, xb), launches, tag="interop")
+    with torch.inference_mode():
+        want = bcc(trained, xb)
+    rel_j = _held_rtol(".jpc round trip", got, want, RTOL, tag="interop")
+    print(f"[interop] save_jpc + load_jpc of the fit_em-trained circuit ({em_losses[-1]:.4f} "
+          f"NLL): {path.stat().st_size / 1e3:.1f} kB, {len(back.layers)} scalar layers, "
+          f"{t_io:.2f} s; the reloaded forward on {ENS_ROWS} rows within {rel_j:.2e} of the "
+          f"original ({smi})")
+    del bcc, bctx, trained, back, got, want
+
+    cards, text = _uai_network(UAI_VARS, UAI_VARS)
+    upath = work / "markov.uai"
+    upath.write_text(text)
+    xu = np.stack([np.random.default_rng(3).integers(0, c, ENS_ROWS) for c in cards], axis=1)
+
+    def uai_run(device: str):
+        uctx = PipelineContext(semiring="lse-sum", fold=True, device=device)
+        ucc = uctx.compile(load_uai(str(upath)))
+        with torch.inference_mode():
+            vals = ucc(torch.as_tensor(xu, device=device))[:, 0, 0]
+        z = IntegrateQuery(ucc)(xu[:1], integrate_vars=Scope(ucc.scope)).reshape(-1)
+        return ucc, vals, z
+
+    (ucc, vals, z), t_u, _, _ = _structure_step(
+        f"load_uai of a seeded {UAI_VARS}-variable Markov network, compiled on the card, "
+        f"{ENS_ROWS} rows and log Z", lambda: uai_run(DEV), launches, tag="interop")
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        _, vals64, z64 = uai_run("cpu")
+    finally:
+        torch.set_default_dtype(old)
+    rel_u = max(_held_rtol("load_uai rows against float64", vals, vals64, RTOL, tag="interop"),
+                _held_rtol("load_uai log Z against float64", z, z64, RTOL, tag="interop"))
+    print(f"[interop] load_uai: {len(ucc.layers)} plan entries, log Z {float(z[0]):.4f}; rows and "
+          f"log Z within {rel_u:.2e} of float64 on the CPU ({smi})")
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[qpc] launches of phase 14: {launches}")
     return launches
 
 
@@ -4332,7 +4700,7 @@ def main() -> int:
     phase_float64()
     phase_float64_wide()
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
-    # each kernel's launches, summed over the main-path runs of phases 4-13
+    # each kernel's launches, summed over the main-path runs of phases 4-14
     launches = dict.fromkeys(KERNELS, 0)
     built, fwd = phase_slice(smi)
     train = phase_train(smi, built)
@@ -4344,6 +4712,8 @@ def main() -> int:
     print(f"[time] phases 4-7b and 12 done at {time.perf_counter() - t_start:.0f} s")
     struct = phase_structure(smi, built)
     print(f"[time] phase 13 done at {time.perf_counter() - t_start:.0f} s")
+    qpc = phase_qpc(smi, built)
+    print(f"[time] phase 14 done at {time.perf_counter() - t_start:.0f} s")
     sos, signed_runs = phase_sos(smi)
     signed, signed_ms = phase_signed_flagships(smi, built)  # reads phase 4's stores
     csos = phase_complex_sos(smi, signed_runs)
@@ -4353,7 +4723,7 @@ def main() -> int:
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
     for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, struct,
-                   wide, sos, signed, csos, cflag, f64):
+                   qpc, wide, sos, signed, csos, cflag, f64):
         for op, n in counts.items():
             launches[op] += n
     missing = [op for op, n in launches.items() if n == 0]

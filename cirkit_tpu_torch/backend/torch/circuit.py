@@ -172,6 +172,8 @@ class TorchCircuit(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.properties = properties
         self.semiring = semiring
+        self._fold_inputs = dict(fold_inputs)
+        self._fold_outputs = fold_outputs
         self.default_store: nn.ParameterDict | None = None
         # symbolic layer -> (plan entry, fold), set by the compiler when it
         # did not optimize (``TorchCompiler._compile_circuit``)
