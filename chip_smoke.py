@@ -316,9 +316,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
    its 128 rows and log Z within rtol 1e-5 of float64 on the CPU. Each step
    prints its seconds, launches and device peak.
 
+15. serving (``backend/torch/serving.py``, ``warmstart.py``; ``bench.py:362-420``'s
+   ``bench_serving``), after phase 11: (a) every bf16-weight and fast-mode
+   instance of kernels 1, 2 and 5 (``_w16``, ``_fast``, ``_sr``,
+   ``_w16_fast``, ``_w16_sr``; kernel 5 forward only, its backward is kernel
+   2's) against its plain version in the same mode, which rounds at the
+   kernel's points with the same bits (forward: the phase 3 bound; backward:
+   phase 3b's), at the K=64 Tucker entry, a mixing sum (F=196, I=128, O=64),
+   the dense I=4096 sum, the K=128 entry and edge shapes; each timed at its
+   first shape beside its plain version and its bound (2-byte weights over
+   the memory rate, a fast mode's products once at the bf16 rate); at the K=64
+   Tucker entry each mode's max and mean signed error against float64; (b)
+   the K=64 Tucker and CP flagships at batch 512 and 2048 and the K=128 Tucker
+   flagship at 512 in ``f32_grade`` (float32 store, ``CIRKIT_TPU_FAST``
+   unset) and ``bf16_fast`` (``bf16_weight_store``, ``CIRKIT_TPU_FAST=1``),
+   and the Tucker flagships at 512 also with a bf16 store unset, a float32
+   store under ``1`` and under ``sr`` and a bf16 store under ``sr``: each
+   call counted (one launch per kernel-bearing entry, every one the mode's
+   instance), the median ms of 10, samples/s, the store's GB, the peak, 8
+   rows against the same store in float64 on the CPU (rtol 1e-5, the fast
+   modes ``SERVE_FAST_RTOL``; the K=128 float32 store is phase 8's), the
+   K=64 Tucker's device split; (c) one backward of the K=64 Tucker's mean
+   NLL through the bf16 store under ``1`` and ``sr``: the gradients in the
+   slots' types within ``FAST_GRAD_REL`` max(1, max|slot|) of float64, ``sr``
+   repeating to the bit; (d) ``export_circuit`` of the K=64 Tucker forward
+   on the card (bf16 store, ``1``), loaded in a fresh process, equal to the
+   eager forward to the bit on that store and a second one, with the
+   kernels launched; (e) a warm bundle of the K=64 Tucker flagship at batch
+   512 and two fresh processes timed to their first batch: cold with the
+   library built and warm (``load_bundle``, ``init``), beside phase 1's
+   ``nvcc`` seconds, which a cold process with no library pays besides; the
+   warm store and first batch equal the cold ones to the bit.
+
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4, 5b, 7b, 8, 12, 13 and 14, the backward ops
-in phases 5, 5b, 7b, 8, 13 and 14, the routing ops in phases 7, 12 and 14, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b, 7b, 8, 12, 13, 14 and 15 (the
+instances), the backward ops in phases 5, 5b, 7b, 8, 13, 14 and 15, the routing ops in phases 7, 12 and 14, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -365,6 +397,20 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     **{f"{op}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "957") for op in SIGNED_OPS},
     **{op: (_CSRC + "clse_einsum.cu", _PALLAS + "1424") for op in COMPLEX_OPS},
     **{f"{op}_bwd": (_CSRC + "clse_einsum.cu", _PALLAS + "1439") for op in COMPLEX_OPS},
+    # phase 15's serving path: the bf16-weight (_w16) and fast-mode (_fast,
+    # _sr) instances of kernels 1 and 5 that the flagships' forwards launch
+    # (the Tucker logits and the CP flagship's are bf16 in a bf16 store; the
+    # Tucker flagship's mixing weights are computed from it in float32), and
+    # of kernel 2 that the backward through a bf16 store launches
+    **{f"lse_tucker2_softmax{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "335")
+       for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    **{f"lse_matmul{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "335") for sfx in ("_fast", "_sr")},
+    "lse_matmul_softmax_w16_fast": (_CSRC + "lse_einsum.cu", _PALLAS + "335"),
+    **{f"lse_tucker2_softmax_chunked{sfx}": (_CSRC + "lse_wide.cu", _PALLAS + "738")
+       for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    **{key: (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
+       for key in ("lse_tucker2_softmax_w16_fast_bwd", "lse_tucker2_softmax_w16_sr_bwd",
+                   "lse_matmul_fast_bwd", "lse_matmul_sr_bwd")},
 }
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
 # f32 outside the tensor cores, and device memory.
@@ -373,6 +419,7 @@ F64_PEAK = 34e12  # the same data sheet's FP64 rate outside the tensor cores
 # dense TF32 on the tensor cores (the same data sheet): a float32 sum of
 # products there takes three TF32 products (3xTF32) for f32 accuracy
 TF32_PEAK = 495e12
+BF16_PEAK = 989e12  # dense bf16 on the tensor cores (the same data sheet)
 DEV = "cuda"  # the device of phases 3, 3b, 3c, 7 and 8
 ROUTE_FLAGSHIP = (784, 128, 64, 64, 64)  # F, B, K1, K2, O of the largest Tucker entry
 # the folds of the K=64 Tucker flagship's other nine Tucker entries (B, K1,
@@ -539,7 +586,8 @@ def phase_build() -> None:
     _build.library()
     print(
         f"[build] {path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.BUILD_SECONDS if _build.BUILD_SECONDS is not None else 'reused'})"
+        f"(nvcc {_build.BUILD_SECONDS if _build.BUILD_SECONDS is not None else 'reused'}; by "
+        f"source {_build.SOURCE_SECONDS})"
     )
 
 
@@ -1930,9 +1978,9 @@ def _dx_only(fn):
     seen = []
     launch = L._launch_bwd
 
-    def recorded(op, ins, out, g, needs):
+    def recorded(op, ins, out, g, needs, mode=""):
         seen.append((op, tuple(needs)))
-        return launch(op, ins, out, g, needs)
+        return launch(op, ins, out, g, needs, mode)
 
     L._launch_bwd = recorded
     try:
@@ -4683,6 +4731,533 @@ def phase_float64_circuits(smi: str) -> dict[str, int]:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 15: serving (bf16 weight stores, the fast modes, export, warm start)
+# --------------------------------------------------------------------------- #
+
+# The speed modes' instances (LAUNCHES suffix, CIRKIT_TPU_FAST mode)
+SERVE_INSTANCES = (("_w16", ""), ("_fast", "bf16"), ("_sr", "sr"), ("_w16_fast", "bf16"),
+                   ("_w16_sr", "sr"))
+# phase 15a's shapes: (label, kind, F, B, dims) with dims (K1, K2, O) for the
+# Tucker kinds and (I, O) for the dense one; the flagship's largest Tucker
+# entry, a mixing sum, the dense I=4096 sum, kernel 5 at K=128, then edges
+# (ragged B, O of 1 and 65, K2 of 30 and 36: no 16-byte loads of f32 or bf16
+# rows in the dx kernel, a K1 the chunk rows do not divide)
+SERVE_SHAPES = (
+    ("F=784 B=128 K1=K2=O=64", "tucker", 784, 128, (64, 64, 64)),
+    ("F=196 B=128 I=128 O=64", "dense", 196, 128, (128, 64)),
+    ("F=784 B=128 I=4096 O=64", "dense", 784, 128, (4096, 64)),
+    (f"F=784 B=128 K1=K2=O={WIDE_K}", "chunked", 784, 128, (WIDE_K, WIDE_K, WIDE_K)),
+    ("F=3 B=130 K1=5 K2=30 O=65", "tucker", 3, 130, (5, 30, 65)),
+    ("F=2 B=33 K1=8 K2=36 O=1", "tucker", 2, 33, (8, 36, 1)),
+    ("F=3 B=13 I=37 O=1", "dense", 3, 13, (37, 1)),
+    ("F=2 B=130 K1=40 K2=24 O=70", "chunked", 2, 130, (40, 24, 70)),
+)
+# the serving runs (bench_serving, bench.py:362-420): the flagships by K and
+# sum-product layer at these batches, in the two modes of record; and the
+# store and mode of each (bf16 store, CIRKIT_TPU_FAST). The other instances'
+# modes run the K=64 Tucker flagship and K=128 at batch 512 once each.
+SERVE_RUNS = (("tucker", 64, (512, 2048)), ("cp", 64, (512, 2048)), ("tucker", WIDE_K, (512,)))
+SERVE_MODES = {"f32_grade": (False, ""), "bf16_fast": (True, "1")}
+SERVE_EXTRA_MODES = {"bf16_store": (True, ""), "fast": (False, "1"), "sr": (False, "sr"),
+                     "bf16_sr": (True, "sr")}
+# The fast modes against float64 on the CPU. One op (JAX's documented bound,
+# tests/ops/test_lse_einsum.py's _BOUNDS): 8e-3 in log space forward, and
+# gradients within 4e-2 max(1, max|gradient|). A flagship log-likelihood
+# (near -4.4e3) sums the rounding of some 800 Tucker entries over the
+# pixels, so the fast modes' forward is held relative, to SERVE_FAST_RTOL
+# (phase 15b prints the error it measures), and the f32-grade mode on a bf16
+# store to phase 4's 1e-5. The slots near the root have gradients near 0, so
+# no relative bound holds for them: the mean NLL's gradients are held to
+# JAX's op bound, FAST_GRAD_REL max(1, max|slot|) per slot.
+FAST_FWD_TOL, FAST_GRAD_REL = 8e-3, 4e-2
+SERVE_FAST_RTOL = 1e-4
+SERVE_SEED = 3  # the warm bundle's cold and warm stores
+
+
+def _serve_inputs(kind: str, op: str, f: int, b: int, dims, w16: bool):
+    """Seeded inputs of a phase 15a case (the phase 3 distributions), the
+    weight bf16 for ``w16``."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(f * 1009 + b)
+
+    def logx(*shape):
+        return torch.randn(shape, generator=gen, device=DEV) * 3.0 - 2.0
+
+    if kind == "dense":
+        (i, o), xs = dims, [logx(f, b, dims[0])]
+    else:
+        k1, k2, o = dims
+        i, xs = k1 * k2, [logx(f, b, k1), logx(f, b, k2)]
+    xs[0][0, min(2, b - 1)] = float("-inf")  # a row that is all -inf
+    if op.endswith("softmax"):
+        w = torch.randn((f, o, i), generator=gen, device=DEV)
+    else:
+        w = torch.rand((f, o, i), generator=gen, device=DEV) * 0.99 + 0.01
+    return [*xs, w.to(torch.bfloat16) if w16 else w]
+
+
+def _serve_bound(key: str, ins, mode: str) -> tuple[float, str]:
+    """The least ms of an instance's work: its bytes (2-byte bf16 weights,
+    each input read once, each output written once) over the memory rate,
+    or its sums of products on the tensor cores: in a fast mode products of
+    bf16 values, once at the bf16 rate (the kernels deliberately run them as
+    one TF32 pass, which is exact for them, at half that rate); otherwise at
+    the TF32 rate, two passes where a bf16 weight drops its low part, three
+    (3xTF32) where it does not."""
+    *xs, w = ins
+    f, b = xs[0].shape[:2]
+    o, i = w.shape[1:]
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    out = 4 * f * b * o
+    flops, moved = 2 * f * b * i * o, nbytes + out
+    if key.endswith("_bwd"):
+        flops, moved = 2 * flops, 2 * nbytes + 2 * out
+    if mode:
+        t_ops = flops / BF16_PEAK * 1e3
+    else:
+        passes = 2 if (w.dtype.itemsize == 2 and "softmax" not in key) else 3
+        t_ops = passes * flops / TF32_PEAK * 1e3
+    t_bytes = moved / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_serving_kernels() -> dict[str, dict]:
+    """15a: each bf16-weight and fast-mode instance of kernels 1, 2 and 5
+    against its plain version in its mode on the same card inputs (forward:
+    the phase 3 bound in log space; backward: phase 3b's), timed at its
+    first shape; at the flagship's Tucker entry each mode's max and mean
+    signed error of the forward against float64."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    results: dict[str, dict] = {}
+    for label, kind, f, b, dims in SERVE_SHAPES:
+        base = ("lse_tucker2", "lse_tucker2_softmax") if kind != "dense" else (
+            "lse_matmul", "lse_matmul_softmax")
+        for op in base:
+            f64_ref = None
+            for sfx, mode in SERVE_INSTANCES:
+                ins = _serve_inputs(kind, op, f, b, dims, sfx.startswith("_w16"))
+                fwd = f"{op}_chunked" if kind == "chunked" else op
+                key = fwd + sfx
+                with torch.inference_mode():
+                    got = L._launch_fwd(fwd, tuple(ins), mode)
+                    ref = L._ENTRIES[op][2](*ins, mode=mode)
+                    torch.cuda.synchronize()
+                    err = _max_err(key, label, got, ref)
+                entry = results.setdefault(key, {"max_abs_err": 0.0})
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                line = f"[serve] {key:36s} {label:28s} max|err|={err:.3e}"
+                if "ms" not in entry:
+                    with torch.inference_mode():
+                        entry["ms"] = _median_ms(lambda: L._launch_fwd(fwd, tuple(ins), mode))
+                        entry["plain_ms"] = _median_ms(
+                            lambda: L._ENTRIES[op][2](*ins, mode=mode), warmup=1, iters=3)
+                    entry["bound_ms"], entry["bound_by"] = _serve_bound(key, ins, mode)
+                    entry["tc_bound_ms"] = entry["bound_ms"]
+                    entry["shape"] = label
+                    line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+                             f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+                if label == SERVE_SHAPES[0][0]:
+                    if f64_ref is None:
+                        with torch.inference_mode():
+                            f64_ref = L._ENTRIES[op][2](*(t.double() for t in ins[:-1]),
+                                                        ins[-1].double())
+                    fin = torch.isfinite(f64_ref)
+                    d = (got.double() - f64_ref)[fin]
+                    line += (f"; against float64: max {float(d.abs().max()):.3e}, mean signed "
+                             f"{float(d.mean()):.3e}")
+                print(line)
+                if kind != "chunked":  # kernel 5's backward is kernel 2's
+                    g = torch.randn(got.shape, generator=torch.Generator(device=DEV).manual_seed(1),
+                                    device=DEV)
+                    needs = (True,) * len(ins)
+                    with torch.inference_mode():
+                        grads = L._launch_bwd(op, tuple(ins), got, g, needs, mode)
+                        refs = L._ENTRIES[op][3](*ins, got, g, needs, mode)
+                        torch.cuda.synchronize()
+                    bkey = f"{op}{sfx}_bwd"
+                    worst = 0.0
+                    for name, d, r in zip(("dx1", "dx2", "dw") if len(ins) == 3 else ("dx", "dw"),
+                                          grads, refs):
+                        err = (d - r).abs()
+                        bound = BWD_REL * (float(r.abs().max()) + r.abs())
+                        if not bool((err <= bound).all()) or bool(torch.isnan(d).any()):
+                            raise AssertionError(f"{bkey} [{label}] {name}: max|err| "
+                                                 f"{float(err.max()):.3e} over the bound")
+                        worst = max(worst, float(err.max()))
+                    entry = results.setdefault(bkey, {"max_abs_err": 0.0})
+                    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+                    line = f"[serve] {bkey:36s} {label:28s} max|err|={worst:.3e}"
+                    if "ms" not in entry:
+                        with torch.inference_mode():
+                            entry["ms"] = _median_ms(
+                                lambda: L._launch_bwd(op, tuple(ins), got, g, needs, mode))
+                            entry["plain_ms"] = _median_ms(
+                                lambda: L._ENTRIES[op][3](*ins, got, g, needs, mode), warmup=1,
+                                iters=3)
+                        entry["bound_ms"], entry["bound_by"] = _serve_bound(bkey, ins, mode)
+                        entry["tc_bound_ms"] = entry["bound_ms"]
+                        entry["shape"] = label
+                        line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} "
+                                 f"ms, bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+                    print(line)
+                    del grads, refs, g
+                del ins, got, ref
+            del f64_ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    return results
+
+
+def _store_gb(store) -> float:
+    return sum(v.numel() * v.element_size() for v in store.values()) / 1e9
+
+
+def _fast_env(value: str):
+    """A context setting ``CIRKIT_TPU_FAST`` (unset for "") and restoring it."""
+    import contextlib
+    import os
+
+    @contextlib.contextmanager
+    def env():
+        old = os.environ.pop("CIRKIT_TPU_FAST", None)
+        if value:
+            os.environ["CIRKIT_TPU_FAST"] = value
+        try:
+            yield
+        finally:
+            os.environ.pop("CIRKIT_TPU_FAST", None)
+            if old is not None:
+                os.environ["CIRKIT_TPU_FAST"] = old
+
+    return env()
+
+
+def phase_serving(smi: str) -> dict[str, int]:
+    """15b-15e: the serving path of the flagships; returns each kernel's
+    launches over the counted (main-path) calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import bf16_weight_store
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import split_trainable
+
+    launches = dict.fromkeys(L.LAUNCHES, 0)
+    rng = np.random.default_rng(0)
+    x_all = rng.integers(0, 256, size=(max(b for *_, bs in SERVE_RUNS for b in bs), 784))
+    for spl, k, batches in SERVE_RUNS:
+        t0 = time.perf_counter()
+        sc, ctx, cc = _build_flagship(spl, False, DEV, k=k)
+        st32 = {s: v.detach() for s, v in cc.restrict_store(ctx.parameters).items()}
+        stores = {False: st32, True: bf16_weight_store(cc, st32)}
+        n_kernel = sum(isinstance(l, _kernel_layers()) for l in cc.layers)
+        torch.cuda.synchronize()
+        print(f"[serve] {spl} K={k}: compiled in {time.perf_counter() - t0:.1f} s; store "
+              f"{_store_gb(st32):.3f} GB f32, {_store_gb(stores[True]):.3f} GB with the bf16 "
+              f"weight store")
+        refs = {}  # float64 CPU forward of 8 rows, per store
+        modes = dict(SERVE_MODES)
+        if spl == "tucker":
+            modes.update(SERVE_EXTRA_MODES)
+        for batch in batches:
+            x = torch.as_tensor(x_all[:batch], device=DEV)
+            for name, (bf, env) in modes.items():
+                if batch != batches[0] and name in SERVE_EXTRA_MODES:
+                    continue
+                store = stores[bf]
+                with _fast_env(env), torch.inference_mode():
+                    before = dict(L.LAUNCHES)
+                    out = cc.evaluate(store, x)
+                    torch.cuda.synchronize()
+                    per_call = {op: L.LAUNCHES[op] - before[op] for op in L.LAUNCHES
+                                if L.LAUNCHES[op] != before[op]}
+                    for op, n in per_call.items():
+                        launches[op] += n
+                    if sum(per_call.values()) != n_kernel:
+                        raise AssertionError(f"[serve] {spl} K={k} {name}: {per_call}, "
+                                             f"{n_kernel} launches expected")
+                    # every launch of kernels 1 and 5 the mode's instance, on the
+                    # store's weight type or, for weights a parameter graph
+                    # computes from the store (the mixing sums), on float32; the
+                    # blocked dense kernels have none and take the weights widened
+                    mode_sfx = L.MODE_SUFFIX[L.fast_mode()]
+                    kinds = {mode_sfx, "_w16" + mode_sfx} if bf else {mode_sfx}
+                    if any(not any(op in (b + sfx for b in L.INSTANCE_OPS) for sfx in kinds)
+                           for op in per_call if "blocked" not in op):
+                        raise AssertionError(f"[serve] {spl} K={k} {name}: {per_call} are not "
+                                             f"all instances of {sorted(kinds)}")
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = _median_ms(lambda: cc.evaluate(store, x), warmup=2, iters=10)
+                    peak = torch.cuda.max_memory_allocated() / 1e9
+                if out.shape != (batch, 1, 1) or not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"[serve] {spl} K={k} {name}: output not finite")
+                if k == WIDE_K and not bf:  # phase 8 holds the f32 store at K=128
+                    print(f"[serve] {spl} K={k} batch {batch} {name}: {ms:.3f} ms median of 10 "
+                          f"= {batch / ms * 1e3:.1f} samples/s, peak {peak:.2f} GB, launches a "
+                          f"call {per_call} ({smi})")
+                    continue
+                if bf not in refs:
+                    cc64, st64 = _f64_reference(spl, False, store, k=k)
+                    with torch.inference_mode():
+                        refs[bf] = cc64(st64, torch.as_tensor(x_all[:8])).numpy()
+                    del cc64, st64
+                got = out[:8].double().cpu().numpy()
+                rel = float(np.max(np.abs(got - refs[bf]) / np.abs(refs[bf])))
+                rtol = SERVE_FAST_RTOL if env else 1e-5
+                if not rel <= rtol:
+                    raise AssertionError(f"[serve] {spl} K={k} {name}: max relative error "
+                                         f"{rel:.3e} against float64 > {rtol}")
+                print(f"[serve] {spl} K={k} batch {batch} {name}: {ms:.3f} ms median of 10 = "
+                      f"{batch / ms * 1e3:.1f} samples/s, peak {peak:.2f} GB, launches a call "
+                      f"{per_call}, max rel err vs CPU float64 {rel:.2e} ({smi})")
+                if spl == "tucker" and k == FLAGSHIP_K and name in SERVE_MODES:
+                    with _fast_env(env), torch.inference_mode():
+                        print(f"[serve] {spl} K={k} batch {batch} {name} split: "
+                              + _device_breakdown(lambda: cc.evaluate(store, x), 5))
+                del out
+        if spl == "tucker" and k == FLAGSHIP_K:
+            _serving_backward(cc, ctx, stores[True], x_all, launches, smi)
+            _serving_export(cc, stores, x_all, smi)
+        del sc, ctx, cc, st32, stores
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[serve] {spl} K={k} done in {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    _serving_warm_start(smi)
+    print(f"[serve] warm start done in {time.perf_counter() - t0:.0f} s")
+    return launches
+
+
+def _serving_backward(cc, ctx, store, x_all, launches, smi) -> None:
+    """15c: one backward of the K=64 Tucker flagship's mean NLL through the
+    bf16 store under ``bf16`` and ``sr``, its gradients against float64 on the
+    CPU within FAST_GRAD_REL max(1, max|slot|), and (sr) repeating to the
+    bit."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import split_trainable
+
+    x = torch.as_tensor(x_all[:GRAD_ROWS], device=DEV)
+    tr, fr = split_trainable(cc, store)
+    cc64, st64 = _f64_reference("tucker", False, store)
+    tr_c, fr_c = split_trainable(cc64, st64)
+    tr_c = {k: v.requires_grad_() for k, v in tr_c.items()}
+    loss_c = -cc64.evaluate({**tr_c, **fr_c}, torch.as_tensor(x_all[:GRAD_ROWS])).mean()
+    want = dict(zip(tr, torch.autograd.grad(loss_c, [tr_c[k] for k in tr])))
+    del cc64, st64, tr_c, fr_c
+    for env in ("1", "sr"):
+        with _fast_env(env):
+            grads = []
+            for _ in range(2):
+                t = {k: v.detach().clone().requires_grad_() for k, v in tr.items()}
+                before = dict(L.LAUNCHES)
+                loss = -cc.evaluate({**t, **fr}, x).mean()
+                grads.append(dict(zip(t, torch.autograd.grad(loss, list(t.values())))))
+                torch.cuda.synchronize()
+                if len(grads) == 1:
+                    for op in L.LAUNCHES:
+                        launches[op] += L.LAUNCHES[op] - before[op]
+        worst = 0.0
+        for k, r in want.items():
+            g = grads[0][k]
+            if g.dtype != store[k].dtype:
+                raise AssertionError(f"[serve] backward {env}: {k} gradient {g.dtype}")
+            err = float((g.double().cpu() - r).abs().max())
+            share = err / (FAST_GRAD_REL * max(1.0, float(r.abs().max())))
+            if not share <= 1.0:
+                raise AssertionError(f"[serve] backward {env}: {k} off by {err:.3e}, max|slot| "
+                                     f"{float(r.abs().max()):.3e}, shape {tuple(r.shape)}")
+            worst = max(worst, share)
+        same = all(torch.equal(grads[0][k], grads[1][k]) for k in want)
+        if env == "sr" and not same:
+            raise AssertionError("[serve] backward sr: two calls differ")
+        print(f"[serve] backward through the bf16 store, CIRKIT_TPU_FAST={env}: {len(want)} "
+              f"slots' gradients (dtype {grads[0][next(iter(want))].dtype}) on {GRAD_ROWS} rows, "
+              f"worst error {worst:.3f} of {FAST_GRAD_REL} max(1, max|slot|); repeats "
+              f"to the bit: {same} ({smi})")
+
+
+_EXPORT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+import cirkit_tpu_torch.ops  # registers the kernel ops the artifact calls
+from cirkit_tpu_torch.backend.torch import load_exported
+from cirkit_tpu_torch.ops import lse_einsum as L
+fn = load_exported(open(sys.argv[2], "rb").read())
+res = {"load_s": time.perf_counter() - t0}
+for name in sys.argv[3:]:
+    ins = torch.load(name)
+    for op in L.LAUNCHES:
+        L.LAUNCHES[op] = 0
+    out = fn(ins["store"], ins["x"])
+    if sys.argv[1] == "cuda":
+        torch.cuda.synchronize()
+    res[name] = {"equal": bool(torch.equal(out, ins["want"])),
+                 "launches": {k: v for k, v in L.LAUNCHES.items() if v}}
+print(json.dumps(res))
+"""
+
+
+def _run_child(code: str, *args: str, cwd: Path, timeout: int = 300) -> tuple[dict, float]:
+    """A fresh Python process running ``code``; its last line as JSON and
+    the seconds it took."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=cwd, capture_output=True,
+                          text=True, timeout=timeout, env={**__import__("os").environ,
+                                                           "PYTHONPATH": str(REPO)})
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"child process failed: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+
+def _serving_export(cc, stores, x_all, smi) -> None:
+    """15d: the K=64 Tucker forward on the bf16 store exported on the card
+    in the bf16 mode, loaded in a fresh process: its output equal to the
+    eager forward's to the bit with the kernels launched, and again on a
+    second store of the same shapes."""
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import bf16_weight_store, export_circuit
+
+    work = REPO / "build" / "chip_smoke" / "serving"
+    work.mkdir(parents=True, exist_ok=True)
+    x = torch.as_tensor(x_all[:512], device=DEV)
+    second = bf16_weight_store(cc, {k: v * 1.01 if v.is_floating_point() else v
+                                    for k, v in stores[False].items()})
+    with _fast_env("1"):
+        t0 = time.perf_counter()
+        blob = export_circuit(cc, x, store=stores[True], platforms=DEV)
+        export_s = time.perf_counter() - t0
+        names = []
+        for i, st in enumerate((stores[True], second)):
+            with torch.inference_mode():
+                want = cc.evaluate(st, x)
+            torch.save({"store": st, "x": x, "want": want}, work / f"ins{i}.pt")
+            names.append(f"ins{i}.pt")
+        (work / "fwd.pt2").write_bytes(blob)
+        res, secs = _run_child(_EXPORT_CHILD, DEV, "fwd.pt2", *names, cwd=work)
+    for name in names:
+        if not res[name]["equal"] or (DEV == "cuda" and not res[name]["launches"]):
+            raise AssertionError(f"[serve] export: {name}: {res[name]}")
+    print(f"[serve] export_circuit on the card (bf16 store, CIRKIT_TPU_FAST=1): "
+          f"{len(blob) / 1e6:.2f} MB in {export_s:.1f} s; a fresh process loads it in "
+          f"{res['load_s']:.1f} s ({secs:.1f} s in all) and replays two stores equal to the "
+          f"eager forward, launches {res[names[0]]['launches']} ({smi})")
+    shutil.rmtree(work)
+
+
+_COLD_CHILD = r"""
+import hashlib, json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+from cirkit_tpu_torch.ops import _build
+dev, k = sys.argv[1], int(sys.argv[3])
+from cirkit_tpu_torch.models import image_data
+from cirkit_tpu_torch.pipeline import PipelineContext
+marks = {"import": time.perf_counter() - t0}
+ctx = PipelineContext(semiring="lse-sum", fold=True, optimize=True, seed=int(sys.argv[2]),
+                      device=dev)
+cc = ctx.compile(image_data((1, 28, 28), "quad-graph", input_layer="categorical",
+                            num_input_units=k, sum_product_layer="tucker", num_sum_units=k))
+if dev == "cuda":
+    torch.cuda.synchronize()
+marks["compile and init"] = time.perf_counter() - t0
+if dev == "cuda":
+    _build.library()
+marks["kernel library"] = time.perf_counter() - t0
+x = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (512, 784)), device=dev)
+with torch.inference_mode():
+    out = cc(x)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+t = time.perf_counter() - t0
+digest = {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+          for k, v in cc.restrict_store(ctx.parameters).items()}
+print(json.dumps({"s": t, "marks": marks, "store": digest, "out": float(out.double().sum())}))
+"""
+
+_WARM_CHILD = r"""
+import hashlib, json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+from cirkit_tpu_torch.backend.torch import load_bundle
+dev = sys.argv[1]
+marks = {"import": time.perf_counter() - t0}
+b = load_bundle(sys.argv[2])
+t_load = time.perf_counter() - t0
+store = b.init(int(sys.argv[3]))
+if dev == "cuda":
+    torch.cuda.synchronize()
+marks["load_bundle and init"] = time.perf_counter() - t0
+if dev == "cuda":
+    from cirkit_tpu_torch.ops import _build
+    _build.library()
+marks["kernel library"] = time.perf_counter() - t0
+x = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (512, 784)), device=dev)
+with torch.inference_mode():
+    out = b.evaluate(store, x)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+t = time.perf_counter() - t0
+digest = {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+          for k, v in store.items()}
+print(json.dumps({"s": t, "load_s": t_load, "marks": marks, "store": digest,
+                  "out": float(out.double().sum())}))
+"""
+
+
+def _serving_warm_start(smi: str) -> None:
+    """15e: a warm bundle of the K=64 Tucker flagship at batch 512, then
+    two fresh processes timed to their first batch: cold with the kernel
+    library built (compile, init, forward: what a cache of compiled
+    programs, the JAX package's warmcache, would buy) and warm (load_bundle,
+    init, forward). A cold process with no library built pays besides the
+    nvcc seconds that phase 1 measured, which are printed beside them. The
+    warm store equals the cold one to the bit and so does the first batch's
+    sum."""
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import save_bundle
+    from cirkit_tpu_torch.ops import _build
+
+    work = REPO / "build" / "chip_smoke" / "warm"
+    work.mkdir(parents=True, exist_ok=True)
+    sc, ctx, cc = _build_flagship("tucker", False, DEV)
+    t0 = time.perf_counter()
+    manifest = save_bundle(work / "bundle", cc, store=dict(ctx.parameters), batch=512)
+    save_s = time.perf_counter() - t0
+    size = sum(p.stat().st_size for p in (work / "bundle").iterdir()) / 1e6
+    del sc, ctx, cc
+    gc.collect()
+    torch.cuda.empty_cache()
+    k = str(FLAGSHIP_K)
+    cold, s2 = _run_child(_COLD_CHILD, DEV, str(SERVE_SEED), k, cwd=work)
+    warm, s3 = _run_child(_WARM_CHILD, DEV, str(work / "bundle"), str(SERVE_SEED), cwd=work)
+    nvcc = (f"{_build.BUILD_SECONDS:.1f} s" if _build.BUILD_SECONDS is not None
+            else "not measured (the library was reused)")
+    if warm["store"] != cold["store"] or warm["out"] != cold["out"]:
+        raise AssertionError("[serve] warm start: the warm store or first batch differs from "
+                             "the cold one")
+    print(f"[serve] warm bundle: saved in {save_s:.1f} s, {size:.2f} MB, programs "
+          f"{manifest['programs']}; to the first batch of 512 (inside the process / with the "
+          f"interpreter's start): cold with the library built {cold['s']:.2f} / {s2:.2f} s, "
+          f"warm {warm['s']:.2f} / {s3:.2f} s, and a cold one with no library pays besides "
+          f"phase 1's nvcc, {nvcc}; cumulative seconds inside: cold "
+          + ", ".join(f"{m} {v:.2f}" for m, v in cold["marks"].items()) + "; warm "
+          + ", ".join(f"{m} {v:.2f}" for m, v in warm["marks"].items())
+          + f"; init({SERVE_SEED}) equals the cold store to "
+          f"the bit ({smi})")
+    shutil.rmtree(work)
+
+
 def main() -> int:
     import torch
 
@@ -4699,6 +5274,7 @@ def main() -> int:
     results.update(phase_complex())
     phase_float64()
     phase_float64_wide()
+    results.update(phase_serving_kernels())
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
     # each kernel's launches, summed over the main-path runs of phases 4-14
     launches = dict.fromkeys(KERNELS, 0)
@@ -4722,13 +5298,21 @@ def main() -> int:
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
+    t_serve = time.perf_counter()
+    serve = phase_serving(smi)
+    print(f"[time] phase 15 took {time.perf_counter() - t_serve:.0f} s, done at "
+          f"{time.perf_counter() - t_start:.0f} s")
     for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, struct,
-                   qpc, wide, sos, signed, csos, cflag, f64):
+                   qpc, wide, sos, signed, csos, cflag, f64, serve):
         for op, n in counts.items():
-            launches[op] += n
+            if n:  # the phases count every LAUNCHES key, most at 0
+                launches[op] = launches.get(op, 0) + n
     missing = [op for op, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")
+    unlisted = sorted(set(launches) - set(KERNELS))
+    if unlisted:
+        raise AssertionError(f"kernels launched on their main paths but not listed: {unlisted}")
 
     kernels = [
         {

@@ -6,9 +6,16 @@
 
 #include <cfloat>
 #include <cmath>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cirkit {
+
+// A weight as the kernels compute with it: float32 and float64 as they are,
+// a bf16 store (the serving store) widened, exactly, to float32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
@@ -77,12 +84,13 @@ __device__ __forceinline__ void store4(double* p, double a, double b, double c, 
 // -inf, so padding units stage exp(-inf) = 0) and the sum of exp(row - max),
 // in one pass (a running max that rescales the running sum). Every lane
 // returns the same pair.
-template <typename T>
-__device__ __forceinline__ void softmax_row_stats(const T* row, int n, int lane, T* max_out,
+// The row may be stored as bf16 (RT), read widened.
+template <typename T, typename RT>
+__device__ __forceinline__ void softmax_row_stats(const RT* row, int n, int lane, T* max_out,
                                                   T* sum_out) {
   T mx = -INFINITY, s = T(0);
   for (int k = lane; k < n; k += 32) {
-    const T v = row[k];
+    const T v = widen(row[k]);
     if (v == -INFINITY) continue;
     if (v > mx) {
       s *= fast_exp(mx - v);
@@ -94,6 +102,40 @@ __device__ __forceinline__ void softmax_row_stats(const T* row, int n, int lane,
   s = warp_sum(mx == -INFINITY ? T(0) : s * fast_exp(mx - m));
   *max_out = m == -INFINITY ? T(0) : m;
   *sum_out = s;
+}
+
+// out[r] = the max of row r of the (rows, n) table w (0 for a row that is
+// all -inf, as softmax_row_stats), one warp a row: the fast modes' global
+// softmax shift of the Tucker forwards, whose one pass over the logits
+// otherwise rescales by a running max.
+template <typename WT>
+__global__ void __launch_bounds__(256)
+row_max(const WT* __restrict__ w, float* __restrict__ out, long long rows, int n) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (r >= rows) return;  // warp-uniform
+  float m = -INFINITY;
+  for (int k = lane; k < n; k += 32) m = fmaxf(m, widen(w[r * n + k]));
+  m = warp_max(m);
+  if (lane == 0) out[r] = m == -INFINITY ? 0.f : m;
+}
+
+template <typename WT>
+inline cudaError_t launch_row_max(const WT* w, float* out, long long rows, int n,
+                                  cudaStream_t s) {
+  row_max<WT><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(w, out, rows, n);
+  return cudaGetLastError();
+}
+
+// Four neighbouring weights, as float: one 16-byte (float) or 8-byte (bf16)
+// load, aligned to it.
+__device__ __forceinline__ float4 load_w4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_w4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
 }
 
 // The batch chunks of a launch whose blocks split the batch, with ``tiles``

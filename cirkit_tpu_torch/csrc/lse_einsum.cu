@@ -72,6 +72,9 @@ namespace {
 
 using cirkit::abs_t;
 using cirkit::batch_chunks;
+using cirkit::load_w4;
+using cirkit::round_op;
+using cirkit::widen;
 using cirkit::clamp_max;
 using cirkit::exp_t;
 using cirkit::fast_exp;
@@ -98,11 +101,16 @@ constexpr int BS = BN + 4;
 
 // T is float or double; the double instances hold twice the registers for
 // their accumulators, so one block of them is resident on an SM, not two.
-template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED>
+// WT is the weight's storage type (T, or bf16 beside float: read widened).
+// The fast modes (MODE, tc_common.cuh; the float unsigned dense instances,
+// the mixing sums) stage each exponential and weight (softmax: exp(theta -
+// row max), the normalizer kept in f32) rounded to bf16 and FMA in f32.
+template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED, typename WT = T,
+          int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
 lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
         const T* __restrict__ xb,  // tucker: x2 (F,B,K2); dense: unused
-        const T* __restrict__ w,   // w or theta (F,O,I), I = K1*K2 for tucker
+        const WT* __restrict__ w,  // w or theta (F,O,I), I = K1*K2 for tucker
         T* __restrict__ out,       // (F,B,O); signed: log|y|
         const T* __restrict__ sa,  // signed: the sign of xa; else unused
         const T* __restrict__ sb,  // signed tucker: the sign of xb
@@ -127,7 +135,7 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
   const T* xbf = TUCKER ? xb + (size_t)f * B * K2 : nullptr;
   const T* saf = SIGNED ? sa + (size_t)f * B * KA : nullptr;
   const T* sbf = SIGNED && TUCKER ? sb + (size_t)f * B * K2 : nullptr;
-  const T* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
   T* outf = out + (size_t)f * B * O;
 
   // Prologue: the clamped row max of every batch row of this tile.
@@ -208,7 +216,7 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     for (int n = 0; n < W_PER; ++n) {
       const int c = srow + n * RSTEP;
       const int o = o0 + c;
-      pw[n] = (o < O && k < I) ? wf[(size_t)o * I + k] : T(SOFTMAX ? -INFINITY : 0.f);
+      pw[n] = (o < O && k < I) ? T(widen(wf[(size_t)o * I + k])) : T(SOFTMAX ? -INFINITY : 0.f);
     }
   };
 
@@ -225,13 +233,28 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     // Stage this chunk: the shifted exponentials (for tucker the outer
     // product e1[b,i] * e2[b,j], formed one chunk at a time) and the
     // weights (unnormalized softmax numerators).
+    if constexpr (MODE != cirkit::F32) {  // float, unsigned, dense
+      const int k = k0 + skk;
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n)
-      As[skk][srow + n * RSTEP] = SIGNED ? ps[n] * staged_exp<true>(pa[n]) : fast_exp(pa[n]);
+      for (int n = 0; n < A_PER; ++n) {
+        const int r = srow + n * RSTEP;
+        As[skk][r] = round_op<MODE>(expf(pa[n]), ((size_t)f * B + b0 + r) * I + k, cirkit::ROLE_E);
+      }
 #pragma unroll
-    for (int n = 0; n < W_PER; ++n) {
-      const int c = srow + n * RSTEP;
-      Bs[skk][c] = SOFTMAX ? staged_exp<SIGNED>(pw[n] - mw[c]) : pw[n];
+      for (int n = 0; n < W_PER; ++n) {
+        const int c = srow + n * RSTEP;
+        Bs[skk][c] = round_op<MODE>(SOFTMAX ? expf(pw[n] - mw[c]) : pw[n],
+                                    ((size_t)f * O + o0 + c) * I + k, cirkit::ROLE_W);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < A_PER; ++n)
+        As[skk][srow + n * RSTEP] = SIGNED ? ps[n] * staged_exp<true>(pa[n]) : fast_exp(pa[n]);
+#pragma unroll
+      for (int n = 0; n < W_PER; ++n) {
+        const int c = srow + n * RSTEP;
+        Bs[skk][c] = SOFTMAX ? staged_exp<SIGNED>(pw[n] - mw[c]) : pw[n];
+      }
     }
     __syncthreads();
     if (k0 + BK < I) load_chunk(k0 + BK);
@@ -427,6 +450,17 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __re
 // loads. It is a kernel of its own, not an instance of a template shared
 // with ct_fwd_tc, whose machine code stays as it was: one template for both
 // reorders ct_fwd_tc's instructions.
+//
+// WT is the weight's storage type: float, or bf16 (the serving store), read
+// 8 bytes for four weights and widened as staged. A bf16 weight is exact in
+// TF32, so its low plane is 0 and its product is dropped: two mma.sync where
+// three ran (logits are not: exp(theta - max) is a full f32). The fast modes
+// (MODE) round E2 and the staged weights to bf16 as they are staged (SR
+// with the bits of their flat indices in x2 and w) and run one mma.sync;
+// e1 multiplies in f32 as before. With logits they take each unit's global
+// row max from ``wmax`` (row_max, launched before) instead of the running
+// max, so each staged exp(theta - max) is the plain version's before it is
+// rounded; the normalizer sums the unrounded values in f32.
 namespace tk_tc {
 constexpr int BM = 128;    // batch rows a block
 constexpr int BN = 64;     // units a block
@@ -440,16 +474,22 @@ constexpr int Q = BN * JC / 4 / NT_;  // float4 slots a thread stages of a weigh
 constexpr int EQ = BM * JC / 4 / NT_; // float4 slots a thread stages of an E2 chunk (4)
 // E2's two planes, the ring's two buffers of two planes, e1, the shifts and
 // the softmax's factors and normalizers: 90 KB
-constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 3 * BN);
+// (and the fast modes' row maxes)
+constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 4 * BN);
 }  // namespace tk_tc
 
-template <bool SOFTMAX>
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(tk_tc::NT_, 2)
 tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
               const float* __restrict__ x2,  // (F, B, K2)
-              const float* __restrict__ w,   // (F, O, K1*K2): weights, or logits for SOFTMAX
+              const WT* __restrict__ w,      // (F, O, K1*K2): weights, or logits for SOFTMAX
               float* __restrict__ out,       // (F, B, O)
+              const float* __restrict__ wmax,  // fast modes with SOFTMAX: (F, O) row maxes
               int B, int K1, int K2, int O, bool vec) {
+  constexpr bool FAST = MODE != cirkit::F32;
+  // which operands keep a low plane: E2 in the f32-grade mode, the staged
+  // weights there too unless they are bf16 weights (exact in TF32)
+  constexpr bool W_SPLIT = !FAST && (SOFTMAX || sizeof(WT) == 4);
   // the tile (the file's own BM and BN are the FMA kernel's)
   constexpr int BM = tk_tc::BM, BN = tk_tc::BN, JC = tk_tc::JC, IC = tk_tc::IC, S = tk_tc::S;
   constexpr int NT_ = tk_tc::NT_, NW = tk_tc::NW, RS = tk_tc::RS, Q = tk_tc::Q, EQ = tk_tc::EQ;
@@ -462,6 +502,7 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   float* m2s = m1s + BM;
   float* wscl = m2s + BM;       // softmax: [2][BN], each staged segment's rescale factors
   float* lsum = wscl + 2 * BN;  // softmax: each unit's log-normalizer
+  float* gmax = lsum + BN;      // fast softmax: each unit's row max
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -472,7 +513,9 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   const int I = K1 * K2;
   const float* x1f = x1 + (size_t)f * B * K1;
   const float* x2f = x2 + (size_t)f * B * K2;
-  const float* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
+  if (SOFTMAX && FAST)
+    for (int r = tid; r < BN; r += NT_) gmax[r] = o0 + r < O ? wmax[(size_t)f * O + o0 + r] : 0.f;
 
   // Prologue: the clamped row maxes of x1 and x2, the shifts of the whole
   // contraction.
@@ -507,24 +550,37 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
     for (int q = 0; q < Q; ++q) {
       const int o = o0 + sr + RS * q;
       const int j = j0 + sc;
-      const float* src = wf + (size_t)o * I + (size_t)i * K2 + j;
+      const WT* src = wf + (size_t)o * I + (size_t)i * K2 + j;
       const float pad = SOFTMAX ? -INFINITY : 0.f;
       if (vec) {  // K2 % 4 == 0: the four columns are in or out together
-        pw[q] = o < O && j < K2 ? *reinterpret_cast<const float4*>(src)
-                                : make_float4(pad, pad, pad, pad);
+        pw[q] = o < O && j < K2 ? load_w4(src) : make_float4(pad, pad, pad, pad);
       } else {
         const bool in = o < O;
-        pw[q] = make_float4(in && j < K2 ? src[0] : pad, in && j + 1 < K2 ? src[1] : pad,
-                            in && j + 2 < K2 ? src[2] : pad, in && j + 3 < K2 ? src[3] : pad);
+        pw[q] = make_float4(in && j < K2 ? widen(src[0]) : pad,
+                            in && j + 1 < K2 ? widen(src[1]) : pad,
+                            in && j + 2 < K2 ? widen(src[2]) : pad,
+                            in && j + 3 < K2 ? widen(src[3]) : pad);
       }
     }
   };
-  auto store_w = [&](int buf) {
+  auto store_w = [&](int buf, int i, int j0) {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int r = sr + RS * q;
       float4 v = pw[q];
-      if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
+      if (FAST) {  // the plain version's staged values, rounded (module note above)
+        if (SOFTMAX) {
+          const float sh = gmax[r];
+          v = make_float4(expf(v.x - sh), expf(v.y - sh), expf(v.z - sh), expf(v.w - sh));
+          part[q] += (v.x + v.y) + (v.z + v.w);
+          if (sc == 0) wscl[buf * BN + r] = 1.f;
+        }
+        const size_t idx = ((size_t)f * O + o0 + r) * I + (size_t)i * K2 + j0 + sc;
+        v = make_float4(round_op<MODE>(v.x, idx, cirkit::ROLE_W),
+                        round_op<MODE>(v.y, idx + 1, cirkit::ROLE_W),
+                        round_op<MODE>(v.z, idx + 2, cirkit::ROLE_W),
+                        round_op<MODE>(v.w, idx + 3, cirkit::ROLE_W));
+      } else if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
         float cm = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
 #pragma unroll
         for (int d = 1; d < 8; d <<= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, d));
@@ -537,11 +593,16 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
         part[q] = fmaf(part[q], scl, (v.x + v.y) + (v.z + v.w));
         if (sc == 0) wscl[buf * BN + r] = scl;
       }
-      uint4 hi, lo;
-      split_tf32x4(v, hi, lo);
       uint32_t* wh = Wsm + 2 * buf * BN * S;
-      *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
-      *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
+      if (W_SPLIT) {
+        uint4 hi, lo;
+        split_tf32x4(v, hi, lo);
+        *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
+        *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
+      } else {  // bf16-valued: exact in TF32
+        *reinterpret_cast<uint4*>(wh + r * S + sc) = make_uint4(
+            __float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z), __float_as_uint(v.w));
+      }
     }
   };
 
@@ -568,18 +629,20 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
           for (int e = 0; e < 4; ++e) {
             const int j = j0 + sc + e;
             v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+            if (FAST)
+              v[e] = round_op<MODE>(v[e], ((size_t)f * B + b) * K2 + j, cirkit::ROLE_E);
           }
           uint4 hi, lo;
           split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
           *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
-          *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+          if (!FAST) *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
         }
       }
       for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
         const int il = e / BM, r = e - il * BM, b = b0 + r;
         E1s[e] = b < B && il < n_i ? expf(x1f[(size_t)b * K1 + i0 + il] - m1s[r]) : 0.f;
       }
-      store_w(0);
+      store_w(0, i0, j0);
       __syncthreads();
 
       for (int il = 0; il < n_i; ++il) {
@@ -602,16 +665,30 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
             const int o = (wn + 8 * nt + g) * S + kk;
             bh[nt][0] = wh[o];
             bh[nt][1] = wh[o + 4];
-            bl[nt][0] = wl[o];
-            bl[nt][1] = wl[o + 4];
+            if (W_SPLIT) {
+              bl[nt][0] = wl[o];
+              bl[nt][1] = wl[o + 4];
+            }
           }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             const int o = (wm + 16 * mt + g) * S + kk;
             const uint32_t ah[4] = {E2h[o], E2h[o + 8 * S], E2h[o + 4], E2h[o + 8 * S + 4]};
+            if (FAST) {
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) cirkit::mma_tf32(s[mt][nt], ah, bh[nt]);
+              continue;
+            }
             const uint32_t al[4] = {E2l[o], E2l[o + 8 * S], E2l[o + 4], E2l[o + 8 * S + 4]};
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma3_tf32(s[mt][nt], ah, al, bh[nt], bl[nt]);
+            for (int nt = 0; nt < 4; ++nt) {
+              if (W_SPLIT) {
+                mma3_tf32(s[mt][nt], ah, al, bh[nt], bl[nt]);
+              } else {  // the weight's low plane is 0
+                cirkit::mma_tf32(s[mt][nt], al, bh[nt]);
+                cirkit::mma_tf32(s[mt][nt], ah, bh[nt]);
+              }
+            }
           }
         }
         // acc += e1[b, i] * S, softmax: acc scaled by its unit's factor first
@@ -634,7 +711,7 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
               a[1] = fmaf(e, sv[1], SOFTMAX ? a[1] * scl[nt].y : a[1]);
             }
           }
-        if (more) store_w(cur ^ 1);
+        if (more) store_w(cur ^ 1, i0 + il + 1, j0);
         __syncthreads();
       }
     }
@@ -694,8 +771,9 @@ int launch_narrow(const T* x, const T* sx, const T* w, T* out, T* out_sign, int 
 
 // A signed dense layer with I and O at most 32 takes slse_fwd_narrow, every
 // other layer lse_fwd.
-template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
-int launch(const T* xa, const T* xb, const T* w, T* out, int F, int B, int I, int K1, int K2,
+template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false, typename WT = T,
+          int MODE = cirkit::F32>
+int launch(const T* xa, const T* xb, const WT* w, T* out, int F, int B, int I, int K1, int K2,
            int O, int device, void* stream, const T* sa = nullptr, const T* sb = nullptr,
            T* out_sign = nullptr) {
   const cudaError_t set = cudaSetDevice(device);
@@ -705,8 +783,9 @@ int launch(const T* xa, const T* xb, const T* w, T* out, int F, int B, int I, in
       return launch_narrow<T, SOFTMAX>(xa, sa, w, out, out_sign, F, B, I, O,
                                        static_cast<cudaStream_t>(stream));
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
-  lse_fwd<T, TUCKER, SOFTMAX, SIGNED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      xa, xb, w, out, sa, sb, out_sign, B, I, K1, K2, O);
+  lse_fwd<T, TUCKER, SOFTMAX, SIGNED, WT, MODE>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(xa, xb, w, out, sa, sb, out_sign,
+                                                                B, I, K1, K2, O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,20 +797,26 @@ int launch_tucker(const T* x1, const T* x2, const T* w, T* out, int F, int B, in
   return launch<T, true, SOFTMAX>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);
 }
 
-template <bool SOFTMAX>
-int launch_tucker_tc(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-                     int K1, int K2, int O, int device, void* stream) {
+// ``wmax``: the fast modes' (F, O) scratch of the logits' row maxes (null
+// otherwise), written by row_max first.
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+int launch_tucker_tc(const float* x1, const float* x2, const WT* w, float* out, float* wmax,
+                     int F, int B, int K1, int K2, int O, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = tucker_fwd_tc<SOFTMAX>;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (SOFTMAX && MODE != cirkit::F32) {
+    err = cirkit::launch_row_max<WT>(w, wmax, (long long)F * O, K1 * K2, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = tucker_fwd_tc<SOFTMAX, WT, MODE>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(tk_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte weight loads where every row segment starts 16-byte aligned
-  const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // 16-byte (bf16: 8-byte) weight loads where every row segment starts aligned
+  const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(WT)) == 0;
   const dim3 grid(F, (O + tk_tc::BN - 1) / tk_tc::BN, (B + tk_tc::BM - 1) / tk_tc::BM);
-  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, static_cast<cudaStream_t>(stream)>>>(x1, x2, w, out, B,
-                                                                               K1, K2, O, vec);
+  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, s>>>(x1, x2, w, out, wmax, B, K1, K2, O, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -786,8 +871,51 @@ const char* cirkit_cuda_error_string(int err) {
                                        stream, s1, s2, os);                                     \
   }
 
-LSE_FWD_ENTRIES(, float, launch_tucker_tc<false>, launch_tucker_tc<true>)
+// the float entries' Tucker launchers, without the fast modes' scratch
+int tucker_tc_plain(const float* x1, const float* x2, const float* w, float* out, int F, int B,
+                    int K1, int K2, int O, int device, void* stream) {
+  return launch_tucker_tc<false>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
+}
+int tucker_tc_softmax(const float* x1, const float* x2, const float* w, float* out, int F, int B,
+                      int K1, int K2, int O, int device, void* stream) {
+  return launch_tucker_tc<true>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
+}
+LSE_FWD_ENTRIES(, float, tucker_tc_plain, tucker_tc_softmax)
 LSE_FWD_ENTRIES(_f64, double, (launch_tucker<double, false>), (launch_tucker<double, true>))
 #undef LSE_FWD_ENTRIES
+
+// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
+// lse forwards (ops/lse_einsum.py's INSTANCES): the dense ones, the mixing
+// sums, on the CUDA cores, the Tucker ones on the tensor cores; the Tucker
+// entry with logits takes the (F, O) row-max scratch after out.
+#define LSE_FWD_INSTANCES(SUFFIX, WT, MODE)                                                     \
+  int lse_fwd_dense##SUFFIX(const float* x, const WT* w, float* out, int F, int B, int I,       \
+                            int O, int device, void* stream) {                                  \
+    return launch<float, false, false, false, WT, MODE>(x, nullptr, w, out, F, B, I, 0, 1, O,   \
+                                                        device, stream);                        \
+  }                                                                                             \
+  int lse_fwd_dense_softmax##SUFFIX(const float* x, const WT* theta, float* out, int F, int B,  \
+                                    int I, int O, int device, void* stream) {                   \
+    return launch<float, false, true, false, WT, MODE>(x, nullptr, theta, out, F, B, I, 0, 1,   \
+                                                       O, device, stream);                      \
+  }                                                                                             \
+  int lse_fwd_tucker##SUFFIX(const float* x1, const float* x2, const WT* w, float* out, int F,  \
+                             int B, int K1, int K2, int O, int device, void* stream) {          \
+    return launch_tucker_tc<false, WT, MODE>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device,  \
+                                             stream);                                           \
+  }                                                                                             \
+  int lse_fwd_tucker_softmax##SUFFIX(const float* x1, const float* x2, const WT* theta,         \
+                                     float* out, float* wmax, int F, int B, int K1, int K2,     \
+                                     int O, int device, void* stream) {                         \
+    return launch_tucker_tc<true, WT, MODE>(x1, x2, theta, out, wmax, F, B, K1, K2, O, device,  \
+                                            stream);                                            \
+  }
+
+LSE_FWD_INSTANCES(_fast, float, cirkit::BF16)
+LSE_FWD_INSTANCES(_sr, float, cirkit::SR)
+LSE_FWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+LSE_FWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+LSE_FWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#undef LSE_FWD_INSTANCES
 
 }  // extern "C"

@@ -673,6 +673,20 @@ softmax_vjp(const T* __restrict__ w, T* __restrict__ dw, int O, int I) {
 // dtheta = w * (dw - r_o) with r_o = sum_c w_oc dw_oc = sum_b g_bo over the
 // rows whose gy is finite (as sum_c w_oc e_bc = exp(out_bo - shift_b), gy_bo
 // exp(out_bo - shift_b) = g_bo).
+//
+// Each kernel here is also a template over the weight's storage type WT
+// (float, or bf16, the serving store: read widened; a bf16 weight is exact
+// in TF32, so the dx products with it drop its zero low part, two mma.sync
+// where three ran) and the speed mode MODE (tc_common.cuh). The fast modes
+// round gy and the weights of s = gy @ w, and gy and e (Tucker: e1 * e2) of
+// dw = gy^T e, to bf16 where they are staged or read (SR with the bits of
+// their flat indices in gy, w and the (F, B, I) e), form every rounded
+// exponential with the accurate expf (the plain version's values), and run
+// one mma.sync; the Tucker dx folds and the softmax VJP stay f32. Softmax
+// weights are not rounded: exp(theta - lse) carries the row's normalizer,
+// whose last bits no plain version reproduces, so a rounding of them could
+// not be held to one; s takes them split, in two mma.sync. dw is written in
+// f32 whatever WT; the wrapper casts it to the weight's type.
 
 // The primitives (the TF32 split, the mma, the fragment loop mma_k8, the
 // cp.async copies) are in tc_common.cuh.
@@ -682,14 +696,25 @@ using cirkit::cp_async_f32;
 using cirkit::cp_async_f32x4;
 using cirkit::cp_async_wait;
 using cirkit::mma_k8;
+using cirkit::round_op;
+using cirkit::widen;
 using cirkit::zero_acc;
+
+// Whether s = gy @ w splits its weight operand: not where it is exact in
+// TF32 (a bf16 weight, or plain weights the fast modes round); softmax
+// weights are formed in f32 and always split.
+template <int MODE, typename WT, bool SOFTMAX>
+__host__ __device__ constexpr bool split_w() {
+  return SOFTMAX || (MODE == cirkit::F32 && sizeof(WT) == 4);
+}
 
 
 // Per weight row of the softmax: its log-normalizer lse_o and r_o = sum_b
 // g_bo over the rows whose gy_bo is finite and nonzero (gy is zeroed where
 // not finite; where it is 0 otherwise, g is 0). One warp per row.
+template <typename WT>
 __global__ void __launch_bounds__(THREADS)
-tc_softmax_stats(const float* __restrict__ theta, const float* __restrict__ g,
+tc_softmax_stats(const WT* __restrict__ theta, const float* __restrict__ g,
                  const float* __restrict__ gy, float* __restrict__ lse, float* __restrict__ rsum,
                  int B, int O, int I) {
   const int lane = threadIdx.x & 31;
@@ -727,11 +752,11 @@ constexpr int WSTEP = THREADS / BN;           // w staging: units per pass (4)
 // BK + n RSTEP; and w[o0 + k][c0 + n] at n = tid % BN, k = tid / BN + q
 // WSTEP, for n < ncols (softmax: theta and the row's lse, staged as
 // exp(theta - lse), 0 outside).
-template <bool SOFTMAX>
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
 struct DxChunk {
   float pa[tc_dx::A_PER], pw[tc_dx::W_PER], pl[tc_dx::W_PER];
 
-  __device__ __forceinline__ void load(const float* gyf, const float* wf, const float* lsef,
+  __device__ __forceinline__ void load(const float* gyf, const WT* wf, const float* lsef,
                                        int b0, int o0, int c0, int ncols, int B, int O, int I,
                                        int tid) {
     using namespace tc_dx;
@@ -746,28 +771,36 @@ struct DxChunk {
     for (int q = 0; q < W_PER; ++q) {
       const int o = o0 + kw + q * WSTEP;
       const bool in = o < O && c < ncols;
-      pw[q] = in ? wf[(size_t)o * I + c0 + c] : (SOFTMAX ? -INFINITY : 0.f);
+      pw[q] = in ? widen(wf[(size_t)o * I + c0 + c]) : (SOFTMAX ? -INFINITY : 0.f);
       if (SOFTMAX) pl[q] = in ? lsef[o] : 0.f;
     }
   }
 
-  __device__ __forceinline__ void store(float (*As)[tc_dx::AS], float (*Bs)[tc_dx::BS],
-                                        int tid) const {
+  // The fast modes round gy (flat index in (F, B, O) from ``gy0``, the
+  // fold's offset) and the weights (in (F, O, I) from ``w0``).
+  __device__ __forceinline__ void store(float (*As)[tc_dx::AS], float (*Bs)[tc_dx::BS], int tid,
+                                        size_t gy0, size_t w0, int b0, int o0, int c0, int O,
+                                        int I) const {
     using namespace tc_dx;
     const int k = tid % tc::BK, m = tid / tc::BK;
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) As[k][m + n * RSTEP] = pa[n];
+    for (int n = 0; n < A_PER; ++n)
+      As[k][m + n * RSTEP] = round_op<MODE>(
+          pa[n], gy0 + (size_t)(b0 + m + n * RSTEP) * O + o0 + k, cirkit::ROLE_GY);
     const int c = tid % BN, kw = tid / BN;
 #pragma unroll
     for (int q = 0; q < W_PER; ++q)
-      Bs[kw + q * WSTEP][c] = SOFTMAX ? fast_exp(pw[q] - pl[q]) : pw[q];
+      Bs[kw + q * WSTEP][c] =
+          SOFTMAX ? fast_exp(pw[q] - pl[q])
+                  : round_op<MODE>(pw[q], w0 + (size_t)(o0 + kw + q * WSTEP) * I + c0 + c,
+                                   cirkit::ROLE_WB);
   }
 };
 
 // dx, dense: dx = e * (gy @ w), one block per (fold, 64 columns, 128 rows).
-template <bool SOFTMAX>
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, 2)
-tc_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
+tc_dx_dense(const float* __restrict__ x, const WT* __restrict__ w,
             const float* __restrict__ lse, const float* __restrict__ sa,
             const float* __restrict__ gy, float* __restrict__ dx, int B, int I, int O) {
   using namespace tc_dx;
@@ -779,19 +812,21 @@ tc_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * tc::WT, wn = (warp & 1) * tc::WT;
   const float* gyf = gy + (size_t)f * B * O;
-  const float* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
   const float* lsef = SOFTMAX ? lse + (size_t)f * O : nullptr;
+  constexpr bool A_SPLIT = MODE == cirkit::F32, B_SPLIT = split_w<MODE, WT, SOFTMAX>();
 
   float acc[tc::MT][tc::NT][4];
   zero_acc(acc);
-  DxChunk<SOFTMAX> chunk;
+  DxChunk<SOFTMAX, WT, MODE> chunk;
   chunk.load(gyf, wf, lsef, b0, 0, c0, I - c0, B, O, I, tid);
   for (int o0 = 0; o0 < O; o0 += tc::BK) {
-    chunk.store(As, Bs, tid);
+    chunk.store(As, Bs, tid, (size_t)f * B * O, (size_t)f * O * I, b0, o0, c0, O, I);
     __syncthreads();
     if (o0 + tc::BK < O) chunk.load(gyf, wf, lsef, b0, o0 + tc::BK, c0, I - c0, B, O, I, tid);
 #pragma unroll
-    for (int k = 0; k < tc::BK; k += 8) mma_k8<AS, BS>(As, Bs, k, wm, wn, lane, 0.f, 0.f, acc);
+    for (int k = 0; k < tc::BK; k += 8)
+      mma_k8<AS, BS, 0, false, A_SPLIT, B_SPLIT>(As, Bs, k, wm, wn, lane, 0.f, 0.f, acc);
     __syncthreads();
   }
 
@@ -830,7 +865,9 @@ tc_dx_dense(const float* __restrict__ x, const float* __restrict__ w,
 // in a ring of STAGES, two chunks ahead of the one contracted (16-byte
 // copies where ``vec``: O and K2 multiples of 4); softmax weights are formed
 // as exp(theta - lse) as the warps read them. Shared memory stays at 100 KB
-// whatever K1 and K2, so two blocks share an SM.
+// whatever K1 and K2, so two blocks share an SM. A bf16 weight chunk is
+// staged as bf16 in the weight chunk's room (16-byte copies of eight where
+// K2 is a multiple of 8, else plain loads) and widened as the warps read it.
 namespace tc_tucker {
 constexpr int I_PER = 16;
 constexpr int STAGES = 3;
@@ -843,10 +880,10 @@ constexpr size_t SMEM = sizeof(float) * (STAGES * STAGE + I_PER * tc_dx::BM +
                                          tc_dx::BM * ES + 2 * tc_dx::BM * I_PER);
 }  // namespace tc_tucker
 
-template <bool SOFTMAX>
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, 2)
 tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
-             const float* __restrict__ w, const float* __restrict__ lse,
+             const WT* __restrict__ w, const float* __restrict__ lse,
              const float* __restrict__ sa, const float* __restrict__ sb,
              const float* __restrict__ gy, float* __restrict__ part1,
              float* __restrict__ part2, int F, int B, int K1, int K2, int O, int n_bt,
@@ -869,8 +906,10 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * tc::WT, wn = (warp & 1) * tc::WT;
   const float* gyf = gy + (size_t)f * B * O;
-  const float* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
   const float* lsef = SOFTMAX ? lse + (size_t)f * O : nullptr;
+  constexpr bool W16 = sizeof(WT) == 2;
+  constexpr bool A_SPLIT = MODE == cirkit::F32, B_SPLIT = split_w<MODE, WT, SOFTMAX>();
   const int n_chunks = (O + tc::BK - 1) / tc::BK;
   const int n_steps = n_i * n_chunks;
   const int ncols = K2 - j0;
@@ -879,19 +918,38 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
   auto fetch = [&](int step) {
     const int il = step / n_chunks;
     const int o0 = (step - il * n_chunks) * tc::BK;
-    const float* wc = wf + (size_t)(i0 + il) * K2 + j0;
+    const WT* wc = wf + (size_t)(i0 + il) * K2 + j0;
     float* As = smem + (step % STAGES) * STAGE;
     float* Bs = As + BM * AK;
+    if (W16) {  // the weights, bf16, into the chunk's room
+      auto* Bh = reinterpret_cast<WT*>(Bs);
+      if (vec) {
+        for (int e = tid; e < tc::BK * BN / 8; e += THREADS) {
+          const int k = e / (BN / 8), c = 8 * (e - k * (BN / 8));
+          const bool in = o0 + k < O && c < ncols;
+          cp_async_f32x4(reinterpret_cast<float*>(Bh + k * BS + c),
+                         reinterpret_cast<const float*>(in ? wc + (size_t)(o0 + k) * I + c : wf),
+                         in);
+        }
+      } else {
+        for (int e = tid; e < tc::BK * BN; e += THREADS) {
+          const int k = e / BN, c = e - k * BN;
+          Bh[k * BS + c] = o0 + k < O && c < ncols ? wc[(size_t)(o0 + k) * I + c] : WT(0.f);
+        }
+      }
+    }
     if (vec) {
       for (int e = tid; e < BM * tc::BK / 4; e += THREADS) {
         const int r = e >> 2, k = 4 * (e & 3), b = b0 + r;
         const bool in = b < B && o0 + k < O;
         cp_async_f32x4(As + r * AK + k, in ? gyf + (size_t)b * O + o0 + k : gyf, in);
       }
-      for (int e = tid; e < tc::BK * BN / 4; e += THREADS) {
+      for (int e = tid; e < (W16 ? 0 : tc::BK * BN / 4); e += THREADS) {
         const int k = e / (BN / 4), c = 4 * (e - k * (BN / 4));
         const bool in = o0 + k < O && c < ncols;
-        cp_async_f32x4(Bs + k * BS + c, in ? wc + (size_t)(o0 + k) * I + c : wf, in);
+        cp_async_f32x4(Bs + k * BS + c,
+                       reinterpret_cast<const float*>(in ? wc + (size_t)(o0 + k) * I + c : wf),
+                       in);
       }
     } else {
       for (int e = tid; e < BM * tc::BK; e += THREADS) {
@@ -899,10 +957,11 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
         const bool in = b < B && o0 + k < O;
         cp_async_f32(As + r * AK + k, in ? gyf + (size_t)b * O + o0 + k : gyf, in);
       }
-      for (int e = tid; e < tc::BK * BN; e += THREADS) {
+      for (int e = tid; e < (W16 ? 0 : tc::BK * BN); e += THREADS) {
         const int k = e / BN, c = e - k * BN;
         const bool in = o0 + k < O && c < ncols;
-        cp_async_f32(Bs + k * BS + c, in ? wc + (size_t)(o0 + k) * I + c : wf, in);
+        cp_async_f32(Bs + k * BS + c,
+                     reinterpret_cast<const float*>(in ? wc + (size_t)(o0 + k) * I + c : wf), in);
       }
     }
     // the rows' lse (0 past O, whose gy is 0)
@@ -939,13 +998,24 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
     cp_async_commit();
     const float* st = smem + (step % STAGES) * STAGE;
     const auto As = reinterpret_cast<const float(*)[AK]>(st);
-    const auto Bs = reinterpret_cast<const float(*)[BS]>(st + BM * AK);
+    const auto Bs = reinterpret_cast<const WT(*)[BS]>(st + BM * AK);
     const float* Ls = st + BM * AK + tc::BK * BS;
+    // the fast modes' rounding of gy[b0 + m][o0 + k] and w[o0 + k][row i, column j0 + n]
+    const int o0 = ck * tc::BK;
+    const size_t wrow = (size_t)(i0 + il) * K2 + j0;
+    auto ra = [&](int m, int k, float v) {
+      return round_op<MODE>(v, ((size_t)f * B + b0 + m) * O + o0 + k, cirkit::ROLE_GY);
+    };
+    auto rb = [&](int k, int n, float v) {  // softmax weights stay f32 (above)
+      return SOFTMAX ? v
+                     : round_op<MODE>(v, ((size_t)f * O + o0 + k) * I + wrow + n,
+                                      cirkit::ROLE_WB);
+    };
 #pragma unroll
     for (int k = 0; k < tc::BK; k += 8)
-      mma_k8<AK, BS, SOFTMAX ? 2 : 0, true>(As, Bs, k, wm, wn, lane,
-                                            SOFTMAX ? Ls[k + t] : 0.f,
-                                            SOFTMAX ? Ls[k + t + 4] : 0.f, acc);
+      mma_k8<AK, BS, SOFTMAX ? 2 : 0, true, A_SPLIT, B_SPLIT>(
+          As, Bs, k, wm, wn, lane, SOFTMAX ? Ls[k + t] : 0.f, SOFTMAX ? Ls[k + t + 4] : 0.f, acc,
+          ra, rb);
     if (ck != n_chunks - 1) continue;
 #pragma unroll
     for (int mt = 0; mt < tc::MT; ++mt)
@@ -1017,11 +1087,11 @@ constexpr size_t smem_bytes(int bo) {
 }
 }  // namespace tc_dw
 
-template <bool TUCKER, bool SOFTMAX, int BO>
+template <bool TUCKER, bool SOFTMAX, int BO, typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, 2)
 tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
              const float* __restrict__ sa, const float* __restrict__ sb,
-             const float* __restrict__ gy, const float* __restrict__ theta,
+             const float* __restrict__ gy, const WT* __restrict__ theta,
              const float* __restrict__ lse, const float* __restrict__ rsum,
              float* __restrict__ dw, int B, int K1, int K2, int O, int n_it, bool pair) {
   using namespace tc_dw;
@@ -1049,22 +1119,32 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   const float* s1f = sa + (size_t)f * B;
   const float* gyf = gy + (size_t)f * B * O;
 
+  // the fast modes round gy and (dense) e as they are staged, and the
+  // Tucker e1 * e2 as the warps form it (rb below), each by its flat index
   auto stage = [&](int b0) {
     const int nb = min(BB, B - b0);
     for (int e = tid; e < BB * BO; e += THREADS) {
       const int k = e / BO, o = e - k * BO;
-      Gs[k][o] = (k < nb && o0 + o < O) ? gyf[(size_t)(b0 + k) * O + o0 + o] : 0.f;
+      const size_t idx = (size_t)(b0 + k) * O + o0 + o;
+      Gs[k][o] = (k < nb && o0 + o < O)
+                     ? round_op<MODE>(gyf[idx], (size_t)f * B * O + idx, cirkit::ROLE_GY) : 0.f;
     }
     for (int e = tid; e < BB * BJ; e += THREADS) {
       const int k = e / BJ, j = e - k * BJ;
-      Es[k][j] = (k < nb && j0 + j < K2)
-                     ? fast_exp(xef[(size_t)(b0 + k) * K2 + j0 + j] - sef[b0 + k]) : 0.f;
+      const size_t idx = (size_t)(b0 + k) * K2 + j0 + j;
+      float v = 0.f;
+      if (k < nb && j0 + j < K2) {
+        v = cirkit::mode_exp<MODE>(xef[idx] - sef[b0 + k]);
+        if (!TUCKER) v = round_op<MODE>(v, (size_t)f * B * K2 + idx, cirkit::ROLE_EB);
+      }
+      Es[k][j] = v;
     }
     if (TUCKER)
       for (int e = tid; e < NI * BB; e += THREADS) {
         const int il = e / BB, k = e - il * BB;
         E1s[e] = (k < nb && il < n_i)
-                     ? fast_exp(x1f[(size_t)(b0 + k) * K1 + i0 + il] - s1f[b0 + k]) : 0.f;
+                     ? cirkit::mode_exp<MODE>(x1f[(size_t)(b0 + k) * K1 + i0 + il] - s1f[b0 + k])
+                     : 0.f;
       }
   };
 
@@ -1074,7 +1154,7 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     __syncthreads();
   }
   float* dwf = dw + (size_t)f * O * I;
-  const float* thf = SOFTMAX ? theta + (size_t)f * O * I : nullptr;
+  const WT* thf = SOFTMAX ? theta + (size_t)f * O * I : nullptr;
   for (int base = 0; base < n_i; base += 128 / BO) {
     const int il = base + ig;
     const size_t col0 = (size_t)(min(il, n_i - 1) + i0) * K2;
@@ -1089,9 +1169,15 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
           for (int nt = 0; nt < tc::NT; ++nt) {
             const int o = o0 + wm + mt * 16 + g + 8 * h;
             const int j = j0 + wn + nt * 8 + 2 * t;
-            th[mt][h][nt] = il < n_i && o < O && j < K2
-                                ? *reinterpret_cast<const float2*>(thf + (size_t)o * I + col0 + j)
-                                : make_float2(0.f, 0.f);
+            float2 v = make_float2(0.f, 0.f);
+            if (il < n_i && o < O && j < K2) {
+              const WT* p = thf + (size_t)o * I + col0 + j;
+              if constexpr (sizeof(WT) == 4)
+                v = *reinterpret_cast<const float2*>(p);
+              else
+                v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+            }
+            th[mt][h][nt] = v;
           }
     float acc[tc::MT][tc::NT][4];
     zero_acc(acc);
@@ -1104,9 +1190,16 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
       if (il >= n_i) continue;
       const int nk = min(BB, (B - b0 + 7) & ~7);
       const float* e1 = E1s + il * BB;
+      const size_t erow = (size_t)(i0 + il) * K2 + j0;
+      auto rb = [&](int k, int n, float v) {  // e[b0 + k, row i, column j0 + n]
+        return TUCKER ? round_op<MODE>(v, ((size_t)f * B + b0 + k) * I + erow + n,
+                                       cirkit::ROLE_EB)
+                      : v;
+      };
       for (int k = 0; k < nk; k += 8)
-        mma_k8<AS, BS, TUCKER ? 1 : 0>(Gs, Es, k, wm, wn, lane, TUCKER ? e1[k + t] : 1.f,
-                               TUCKER ? e1[k + t + 4] : 1.f, acc);
+        mma_k8<AS, BS, TUCKER ? 1 : 0, false, MODE == cirkit::F32, MODE == cirkit::F32>(
+            Gs, Es, k, wm, wn, lane, TUCKER ? e1[k + t] : 1.f, TUCKER ? e1[k + t + 4] : 1.f, acc,
+            cirkit::Unrounded(), rb);
     }
     if (il >= n_i) continue;
 
@@ -1122,7 +1215,7 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
           r = rsum[(size_t)f * O + o];
         }
         float* drow = dwf + (size_t)o * I + col0;
-        const float* trow = SOFTMAX ? thf + (size_t)o * I + col0 : nullptr;
+        const WT* trow = SOFTMAX ? thf + (size_t)o * I + col0 : nullptr;
 #pragma unroll
         for (int nt = 0; nt < tc::NT; ++nt) {
           const int j = j0 + wn + nt * 8 + 2 * t;
@@ -1135,8 +1228,8 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
             }
             *reinterpret_cast<float2*>(drow + j) = d;
           } else {
-            if (j < K2) drow[j] = SOFTMAX ? expf(trow[j] - l) * (v0 - r) : v0;
-            if (j + 1 < K2) drow[j + 1] = SOFTMAX ? expf(trow[j + 1] - l) * (v1 - r) : v1;
+            if (j < K2) drow[j] = SOFTMAX ? expf(widen(trow[j]) - l) * (v0 - r) : v0;
+            if (j + 1 < K2) drow[j + 1] = SOFTMAX ? expf(widen(trow[j + 1]) - l) * (v1 - r) : v1;
           }
         }
       }
@@ -1811,13 +1904,13 @@ inline size_t tc_scratch(bool tucker, bool softmax, int F, int B, int K1, int K2
 
 // The dw kernel with BO units a block: two blocks of 108 KB (BO = 128) share
 // an SM, so the launch asks for the largest shared-memory carveout.
-template <bool TUCKER, bool SOFTMAX, int BO>
+template <bool TUCKER, bool SOFTMAX, int BO, typename WT, int MODE>
 cudaError_t launch_tc_dw(const float* xa, const float* xb, const float* sa, const float* sb,
-                         const float* gy, const float* theta, const float* lse,
+                         const float* gy, const WT* theta, const float* lse,
                          const float* rsum, float* dw, int F, int B, int K1, int K2, int O,
                          bool pair, cudaStream_t s) {
   constexpr size_t smem = tc_dw::smem_bytes(BO);
-  auto kernel = tc_dw_kernel<TUCKER, SOFTMAX, BO>;
+  auto kernel = tc_dw_kernel<TUCKER, SOFTMAX, BO, WT, MODE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err == cudaSuccess)
@@ -1833,8 +1926,8 @@ cudaError_t launch_tc_dw(const float* xa, const float* xb, const float* sa, cons
 
 // The float, unsigned instances: bwd_prep, the softmax statistics, the dx
 // kernel (Tucker: and its finish), the dw kernel, on the tensor cores.
-template <bool TUCKER, bool SOFTMAX>
-int launch_bwd_tc(const float* xa, const float* xb, const float* w, const float* out,
+template <bool TUCKER, bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* out,
                   const float* g, float* dxa, float* dxb, float* dw, float* sa, float* sb,
                   float* gy, float* ws, int F, int B, int I, int K1, int K2, int O, int device,
                   void* stream) {
@@ -1853,7 +1946,8 @@ int launch_bwd_tc(const float* xa, const float* xb, const float* w, const float*
     lse = ws;
     rsum = ws + (size_t)F * O;
     part = ws + 2 * (size_t)F * O;
-    tc_softmax_stats<<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, g, gy, lse, rsum, B, O, I);
+    tc_softmax_stats<WT><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, g, gy, lse, rsum, B, O,
+                                                                     I);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dxa != nullptr || dxb != nullptr) {
@@ -1864,25 +1958,26 @@ int launch_bwd_tc(const float* xa, const float* xb, const float* w, const float*
       float* part1 = part;
       float* part2 = part + (size_t)n_jt * F * B * K1;
       // 16-byte copies where every gy row and weight row segment starts
-      // 16-byte aligned
-      const bool vec = O % 4 == 0 && K2 % 4 == 0 && reinterpret_cast<uintptr_t>(gy) % 16 == 0 &&
+      // 16-byte aligned (a bf16 segment of 8 weights: K2 a multiple of 8)
+      const bool vec = O % 4 == 0 && K2 % (16 / sizeof(WT)) == 0 &&
+                       reinterpret_cast<uintptr_t>(gy) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
-      err = cudaFuncSetAttribute(tc_dx_tucker<SOFTMAX>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+      auto kernel = tc_dx_tucker<SOFTMAX, WT, MODE>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(tc_tucker::SMEM));
       if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(tc_dx_tucker<SOFTMAX>,
-                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                    cudaSharedmemCarveoutMaxShared);
       if (err != cudaSuccess) return static_cast<int>(err);
-      tc_dx_tucker<SOFTMAX><<<dim3(F * n_bt, n_jt, n_it), THREADS, tc_tucker::SMEM, s>>>(
+      kernel<<<dim3(F * n_bt, n_jt, n_it), THREADS, tc_tucker::SMEM, s>>>(
           xa, xb, w, lse, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt, vec);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
       tucker_dx_finish<float, false><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
           xa, xb, sa, sb, nullptr, nullptr, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
     } else {
-      tc_dx_dense<SOFTMAX><<<dim3(F, cdiv(I, tc_dx::BN), cdiv(B, tc_dx::BM)), THREADS, 0, s>>>(
-          xa, w, lse, sa, gy, dxa, B, I, O);
+      tc_dx_dense<SOFTMAX, WT, MODE>
+          <<<dim3(F, cdiv(I, tc_dx::BN), cdiv(B, tc_dx::BM)), THREADS, 0, s>>>(xa, w, lse, sa, gy,
+                                                                              dxa, B, I, O);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
@@ -1890,11 +1985,11 @@ int launch_bwd_tc(const float* xa, const float* xb, const float* w, const float*
     // dense: one row i of K1 = 1, K2 = I columns
     const int k1 = TUCKER ? K1 : 1, k2 = TUCKER ? K2 : I;
     const bool pair = k2 % 2 == 0 && reinterpret_cast<uintptr_t>(dw) % 8 == 0 &&
-                      reinterpret_cast<uintptr_t>(w) % 8 == 0;
-    err = O <= 64 ? launch_tc_dw<TUCKER, SOFTMAX, 64>(xa, xb, sa, sb, gy, w, lse, rsum, dw, F, B,
-                                                       k1, k2, O, pair, s)
-                  : launch_tc_dw<TUCKER, SOFTMAX, 128>(xa, xb, sa, sb, gy, w, lse, rsum, dw, F,
-                                                        B, k1, k2, O, pair, s);
+                      reinterpret_cast<uintptr_t>(w) % (2 * sizeof(WT)) == 0;
+    err = O <= 64 ? launch_tc_dw<TUCKER, SOFTMAX, 64, WT, MODE>(xa, xb, sa, sb, gy, w, lse, rsum,
+                                                                 dw, F, B, k1, k2, O, pair, s)
+                  : launch_tc_dw<TUCKER, SOFTMAX, 128, WT, MODE>(xa, xb, sa, sb, gy, w, lse, rsum,
+                                                                  dw, F, B, k1, k2, O, pair, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -1978,6 +2073,11 @@ extern "C" {
                                            s2, os);                                             \
   }
 
+// The build compiles this source once for each part (-DCIRKIT_BWD_PART=0,
+// 1, 2; ops/_build.py), the three side by side: part 0 holds the entries
+// above and below, parts 1 and 2 the float32-weight and bf16-weight
+// instances at the end. A build without the macro holds all of them.
+#if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 0
 size_t lse_bwd_scratch(int tucker, int softmax, int F, int B, int K1, int K2, int O) {
   return tc_scratch(tucker != 0, softmax != 0, F, B, K1, K2, O);
 }
@@ -2010,7 +2110,55 @@ int lse_bwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
 LSE_BWD_ENTRIES(_f64, double)
 SLSE_BWD_ENTRIES(, float)
 SLSE_BWD_ENTRIES(_f64, double)
+#endif
 #undef LSE_BWD_ENTRIES
 #undef SLSE_BWD_ENTRIES
+
+// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
+// lse backward (ops/lse_einsum.py's INSTANCES), with the float entries'
+// arguments; the weight's gradient is written in f32.
+#define LSE_BWD_INSTANCES(SUFFIX, WT, MODE)                                                     \
+  int lse_bwd_dense##SUFFIX(const float* x, const WT* w, const float* out, const float* g,      \
+                            float* dx, float* dw, float* sa, float* gy, int F, int B, int I,    \
+                            int O, int device, void* stream) {                                  \
+    return launch_bwd_tc<false, false, WT, MODE>(x, nullptr, w, out, g, dx, nullptr, dw, sa,    \
+                                                 nullptr, gy, nullptr, F, B, I, I, 1, O,        \
+                                                 device, stream);                               \
+  }                                                                                             \
+  int lse_bwd_dense_softmax##SUFFIX(const float* x, const WT* theta, const float* out,          \
+                                    const float* g, float* dx, float* dtheta, float* sa,        \
+                                    float* gy, float* ws, int F, int B, int I, int O,           \
+                                    int device, void* stream) {                                 \
+    return launch_bwd_tc<false, true, WT, MODE>(x, nullptr, theta, out, g, dx, nullptr,         \
+                                                dtheta, sa, nullptr, gy, ws, F, B, I, I, 1, O,  \
+                                                device, stream);                                \
+  }                                                                                             \
+  int lse_bwd_tucker##SUFFIX(const float* x1, const float* x2, const WT* w, const float* out,   \
+                             const float* g, float* dx1, float* dx2, float* dw, float* sa,      \
+                             float* sb, float* gy, float* ws, int F, int B, int K1, int K2,     \
+                             int O, int device, void* stream) {                                 \
+    return launch_bwd_tc<true, false, WT, MODE>(x1, x2, w, out, g, dx1, dx2, dw, sa, sb, gy,    \
+                                                ws, F, B, K1 * K2, K1, K2, O, device, stream);  \
+  }                                                                                             \
+  int lse_bwd_tucker_softmax##SUFFIX(const float* x1, const float* x2, const WT* theta,         \
+                                     const float* out, const float* g, float* dx1, float* dx2,  \
+                                     float* dtheta, float* sa, float* sb, float* gy, float* ws, \
+                                     int F, int B, int K1, int K2, int O, int device,           \
+                                     void* stream) {                                            \
+    return launch_bwd_tc<true, true, WT, MODE>(x1, x2, theta, out, g, dx1, dx2, dtheta, sa, sb, \
+                                               gy, ws, F, B, K1 * K2, K1, K2, O, device,        \
+                                               stream);                                         \
+  }
+
+#if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 1
+LSE_BWD_INSTANCES(_fast, float, cirkit::BF16)
+LSE_BWD_INSTANCES(_sr, float, cirkit::SR)
+#endif
+#if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 2
+LSE_BWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+LSE_BWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+LSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#endif
+#undef LSE_BWD_INSTANCES
 
 }  // extern "C"

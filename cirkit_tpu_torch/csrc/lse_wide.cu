@@ -79,6 +79,9 @@ namespace {
 
 using cirkit::clamp_max;
 using cirkit::exp_t;
+using cirkit::load_w4;
+using cirkit::round_op;
+using cirkit::widen;
 using cirkit::fast_exp;
 using cirkit::fma_t;
 using cirkit::load4;
@@ -327,6 +330,12 @@ ct_fwd(const T* __restrict__ x1,  // (F, B, K1)
 // stagers' normalizer partials shrink by the same factor. A unit whose
 // logits have all been -inf so far keeps max -inf, scale 1 and shift 0, so
 // exp(-inf) = 0 and no NaN.
+//
+// WT and MODE as in tucker_fwd_tc (csrc/lse_einsum.cu): a bf16 weight is
+// read 8 bytes for four and its zero low plane dropped (two mma.sync where
+// three ran); the fast modes round E2 and the staged weights to bf16 (SR with
+// the bits of their flat indices in x2 and w) and run one mma.sync, and
+// with logits take each unit's global row max from ``wmax`` (row_max).
 namespace ct_tc {
 constexpr int BM = 128;     // batch rows a block
 constexpr int BN = 128;     // units a block
@@ -339,17 +348,21 @@ constexpr int RS = NT_ / 8;                // staging rows a pass
 constexpr int Q = BN * JC / 4 / NT_;       // float4 slots a thread stages of a chunk (2)
 // E2's two planes, the ring's two buffers of two planes, e1, the shifts and
 // the softmax's factors and normalizers
-constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 3 * BN);
+// (and the fast modes' row maxes)
+constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 4 * BN);
 }  // namespace ct_tc
 
-template <bool SOFTMAX>
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(ct_tc::NT_, 1)
-ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
-          const float* __restrict__ x2,  // (F, B, K2)
-          const float* __restrict__ w,   // (F, O, K1*K2): weights, or logits for SOFTMAX
-          float* __restrict__ out,       // (F, B, O)
+ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
+          const float* __restrict__ x2,    // (F, B, K2)
+          const WT* __restrict__ w,        // (F, O, K1*K2): weights, or logits for SOFTMAX
+          float* __restrict__ out,         // (F, B, O)
+          const float* __restrict__ wmax,  // fast modes with SOFTMAX: (F, O) row maxes
           int B, int K1, int K2, int O, bool vec) {
   using namespace ct_tc;
+  constexpr bool FAST = MODE != cirkit::F32;
+  constexpr bool W_SPLIT = !FAST && (SOFTMAX || sizeof(WT) == 4);
   extern __shared__ __align__(16) uint32_t ct_smem[];
   uint32_t* E2h = ct_smem;     // [BM][S]: E2's high parts, then its low parts
   uint32_t* E2l = E2h + BM * S;
@@ -359,6 +372,7 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   float* m2s = m1s + BM;
   float* wscl = m2s + BM;    // softmax: [2][BN], each staged segment's rescale factors
   float* lsum = wscl + 2 * BN;  // softmax: each unit's log-normalizer
+  float* gmax = lsum + BN;      // fast softmax: each unit's row max
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -369,7 +383,9 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   const int I = K1 * K2;
   const float* x1f = x1 + (size_t)f * B * K1;
   const float* x2f = x2 + (size_t)f * B * K2;
-  const float* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
+  if (SOFTMAX && FAST)
+    for (int r = tid; r < BN; r += NT_) gmax[r] = o0 + r < O ? wmax[(size_t)f * O + o0 + r] : 0.f;
 
   // Prologue: the clamped row maxes of x1 and x2 (the shifts of the whole
   // contraction) and, for softmax, each unit's log-normalizer.
@@ -404,24 +420,37 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
     for (int q = 0; q < Q; ++q) {
       const int o = o0 + sr + RS * q;
       const int j = j0 + sc;
-      const float* src = wf + (size_t)o * I + (size_t)i * K2 + j;
+      const WT* src = wf + (size_t)o * I + (size_t)i * K2 + j;
       const float pad = SOFTMAX ? -INFINITY : 0.f;
       if (vec) {  // K2 % 4 == 0: the four columns are in or out together
-        pw[q] = o < O && j < K2 ? *reinterpret_cast<const float4*>(src)
-                                : make_float4(pad, pad, pad, pad);
+        pw[q] = o < O && j < K2 ? load_w4(src) : make_float4(pad, pad, pad, pad);
       } else {
         const bool in = o < O;
-        pw[q] = make_float4(in && j < K2 ? src[0] : pad, in && j + 1 < K2 ? src[1] : pad,
-                            in && j + 2 < K2 ? src[2] : pad, in && j + 3 < K2 ? src[3] : pad);
+        pw[q] = make_float4(in && j < K2 ? widen(src[0]) : pad,
+                            in && j + 1 < K2 ? widen(src[1]) : pad,
+                            in && j + 2 < K2 ? widen(src[2]) : pad,
+                            in && j + 3 < K2 ? widen(src[3]) : pad);
       }
     }
   };
-  auto store_w = [&](int buf) {
+  auto store_w = [&](int buf, int i, int j0) {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int r = sr + RS * q;
       float4 v = pw[q];
-      if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
+      if (FAST) {  // the plain version's staged values, rounded
+        if (SOFTMAX) {
+          const float sh = gmax[r];
+          v = make_float4(expf(v.x - sh), expf(v.y - sh), expf(v.z - sh), expf(v.w - sh));
+          part[q] += (v.x + v.y) + (v.z + v.w);
+          if (sc == 0) wscl[buf * BN + r] = 1.f;
+        }
+        const size_t idx = ((size_t)f * O + o0 + r) * I + (size_t)i * K2 + j0 + sc;
+        v = make_float4(round_op<MODE>(v.x, idx, cirkit::ROLE_W),
+                        round_op<MODE>(v.y, idx + 1, cirkit::ROLE_W),
+                        round_op<MODE>(v.z, idx + 2, cirkit::ROLE_W),
+                        round_op<MODE>(v.w, idx + 3, cirkit::ROLE_W));
+      } else if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
         float cm = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
 #pragma unroll
         for (int d = 1; d < 8; d <<= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, d));
@@ -434,11 +463,16 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
         part[q] = fmaf(part[q], scl, (v.x + v.y) + (v.z + v.w));
         if (sc == 0) wscl[buf * BN + r] = scl;
       }
-      uint4 hi, lo;
-      split_tf32x4(v, hi, lo);
       uint32_t* wh = Wsm + 2 * buf * BN * S;
-      *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
-      *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
+      if (W_SPLIT) {
+        uint4 hi, lo;
+        split_tf32x4(v, hi, lo);
+        *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
+        *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
+      } else {  // bf16-valued: exact in TF32
+        *reinterpret_cast<uint4*>(wh + r * S + sc) = make_uint4(
+            __float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z), __float_as_uint(v.w));
+      }
     }
   };
 
@@ -465,18 +499,20 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
           for (int e = 0; e < 4; ++e) {
             const int j = j0 + sc + e;
             v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+            if (FAST)
+              v[e] = round_op<MODE>(v[e], ((size_t)f * B + b) * K2 + j, cirkit::ROLE_E);
           }
           uint4 hi, lo;
           split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
           *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
-          *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+          if (!FAST) *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
         }
       }
       for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
         const int il = e / BM, r = e - il * BM, b = b0 + r;
         E1s[e] = b < B && il < n_i ? expf(x1f[(size_t)b * K1 + i0 + il] - m1s[r]) : 0.f;
       }
-      store_w(0);
+      store_w(0, i0, j0);
       __syncthreads();
 
       for (int il = 0; il < n_i; ++il) {
@@ -499,16 +535,30 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
             const int o = (wn + 8 * nt + g) * S + kk;
             bh[nt][0] = wh[o];
             bh[nt][1] = wh[o + 4];
-            bl[nt][0] = wl[o];
-            bl[nt][1] = wl[o + 4];
+            if (W_SPLIT) {
+              bl[nt][0] = wl[o];
+              bl[nt][1] = wl[o + 4];
+            }
           }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             const int o = (wm + 16 * mt + g) * S + kk;
             const uint32_t ah[4] = {E2h[o], E2h[o + 8 * S], E2h[o + 4], E2h[o + 8 * S + 4]};
+            if (FAST) {
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) cirkit::mma_tf32(s[mt][nt], ah, bh[nt]);
+              continue;
+            }
             const uint32_t al[4] = {E2l[o], E2l[o + 8 * S], E2l[o + 4], E2l[o + 8 * S + 4]};
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma3_tf32(s[mt][nt], ah, al, bh[nt], bl[nt]);
+            for (int nt = 0; nt < 4; ++nt) {
+              if (W_SPLIT) {
+                mma3_tf32(s[mt][nt], ah, al, bh[nt], bl[nt]);
+              } else {  // the weight's low plane is 0
+                cirkit::mma_tf32(s[mt][nt], al, bh[nt]);
+                cirkit::mma_tf32(s[mt][nt], ah, bh[nt]);
+              }
+            }
           }
         }
         // acc += e1[b, i] * S, softmax: acc scaled by its unit's factor first
@@ -531,7 +581,7 @@ ct_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
               a[1] = fmaf(e, sv[1], SOFTMAX ? a[1] * scl[nt].y : a[1]);
             }
           }
-        if (more) store_w(cur ^ 1);
+        if (more) store_w(cur ^ 1, i0 + il + 1, j0);
         __syncthreads();
       }
     }
@@ -1443,21 +1493,37 @@ int launch_blocked_bwd(const T* x, const T* w, const T* out, const T* m, const T
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool SOFTMAX>
-int launch_ct_tc(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-                 int K1, int K2, int O, int device, void* stream) {
+// ``wmax``: the fast modes' (F, O) scratch of the logits' row maxes (null
+// otherwise), written by row_max first.
+template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+int launch_ct_tc(const float* x1, const float* x2, const WT* w, float* out, float* wmax, int F,
+                 int B, int K1, int K2, int O, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = ct_fwd_tc<SOFTMAX>;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (SOFTMAX && MODE != cirkit::F32) {
+    err = cirkit::launch_row_max<WT>(w, wmax, (long long)F * O, K1 * K2, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = ct_fwd_tc<SOFTMAX, WT, MODE>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(ct_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte weight loads where every row segment starts 16-byte aligned
-  const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // 16-byte (bf16: 8-byte) weight loads where every row segment starts aligned
+  const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(WT)) == 0;
   const dim3 grid(F, cdiv(O, ct_tc::BN), cdiv(B, ct_tc::BM));
-  kernel<<<grid, ct_tc::NT_, ct_tc::SMEM, static_cast<cudaStream_t>(stream)>>>(x1, x2, w, out, B,
-                                                                               K1, K2, O, vec);
+  kernel<<<grid, ct_tc::NT_, ct_tc::SMEM, s>>>(x1, x2, w, out, wmax, B, K1, K2, O, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the float entries' launchers, without the fast modes' scratch
+int ct_tc_plain(const float* x1, const float* x2, const float* w, float* out, int F, int B,
+                int K1, int K2, int O, int device, void* stream) {
+  return launch_ct_tc<false>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
+}
+int ct_tc_softmax(const float* x1, const float* x2, const float* w, float* out, int F, int B,
+                  int K1, int K2, int O, int device, void* stream) {
+  return launch_ct_tc<true>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
 }
 
 int launch_blocked_fwd_tc(const float* x, const float* w, float* out, float* m, int F, int B,
@@ -1537,10 +1603,33 @@ extern "C" {
     return BWD(x, w, out, m, g, dx, dw, gy, F, B, I, O, device, stream);                       \
   }
 
-LSE_WIDE_ENTRIES(, float, launch_ct_tc<false>, launch_ct_tc<true>, launch_blocked_fwd_tc,
+LSE_WIDE_ENTRIES(, float, ct_tc_plain, ct_tc_softmax, launch_blocked_fwd_tc,
                  launch_blocked_bwd_tc)
 LSE_WIDE_ENTRIES(_f64, double, (launch_ct<double, false>), (launch_ct<double, true>),
                  launch_blocked_fwd<double>, launch_blocked_bwd<double>)
 #undef LSE_WIDE_ENTRIES
+
+// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
+// K1-chunked Tucker forward (ops/lse_einsum.py's INSTANCES); the entry with
+// logits takes the (F, O) row-max scratch after out.
+#define LSE_CT_INSTANCES(SUFFIX, WT, MODE)                                                      \
+  int lse_fwd_ct##SUFFIX(const float* x1, const float* x2, const WT* w, float* out, int F,      \
+                         int B, int K1, int K2, int O, int device, void* stream) {              \
+    return launch_ct_tc<false, WT, MODE>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device,      \
+                                         stream);                                               \
+  }                                                                                             \
+  int lse_fwd_ct_softmax##SUFFIX(const float* x1, const float* x2, const WT* theta, float* out, \
+                                 float* wmax, int F, int B, int K1, int K2, int O, int device,  \
+                                 void* stream) {                                                \
+    return launch_ct_tc<true, WT, MODE>(x1, x2, theta, out, wmax, F, B, K1, K2, O, device,      \
+                                        stream);                                                \
+  }
+
+LSE_CT_INSTANCES(_fast, float, cirkit::BF16)
+LSE_CT_INSTANCES(_sr, float, cirkit::SR)
+LSE_CT_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+LSE_CT_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+LSE_CT_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#undef LSE_CT_INSTANCES
 
 }  // extern "C"

@@ -22,6 +22,56 @@
 
 namespace cirkit {
 
+// The speed modes of the float32 kernels (CIRKIT_TPU_FAST, read by the
+// Python wrappers): f32-grade 3xTF32, or one TF32 pass over operands rounded
+// to bf16, to the nearest (BF16) or stochastically (SR). A product of two
+// bf16 values is exact in TF32, so that pass is bf16 x bf16 with f32
+// accumulation.
+enum Mode : int { F32 = 0, BF16 = 1, SR = 2 };
+// The operand roles of SR's bits (ops/lse_einsum.py's ROLE_*): the forward's
+// exponentials and weights, the backward's gy, weights and exponentials.
+enum Role : uint32_t { ROLE_E = 0, ROLE_W = 1, ROLE_GY = 2, ROLE_WB = 3, ROLE_EB = 4 };
+
+// SR's 16 random bits for the element at flat index ``idx`` of an operand of
+// ``role``: a murmur3 finalizer over both halves of the index and the role,
+// stateless, so a call repeats bit for bit (ops/lse_einsum.py's sr_bits).
+__device__ __forceinline__ uint32_t sr_bits(unsigned long long idx, uint32_t role) {
+  uint32_t h = static_cast<uint32_t>(idx) * 0x9E3779B1u +
+               static_cast<uint32_t>(idx >> 32) * 0x85EBCA77u + (role + 1u) * 0xC2B2AE3Du;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h >> 16;
+}
+
+// v rounded to bf16 as MODE rounds an operand, kept f32: to the nearest even
+// (BF16), or (SR) with sr_bits added below the bf16 cut of the f32 pattern
+// and the low 16 bits cut (Hopper has no cvt.rs to bf16).
+template <int MODE>
+__device__ __forceinline__ float round_op(float v, unsigned long long idx, uint32_t role) {
+  if constexpr (MODE == BF16) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else if constexpr (MODE == SR) {
+    return __uint_as_float((__float_as_uint(v) + sr_bits(idx, role)) & 0xFFFF0000u);
+  } else {
+    return v;
+  }
+}
+
+// The exponential of an operand a fast mode rounds: the accurate expf, so the
+// rounded value is the plain version's (torch.exp); the fast one elsewhere.
+template <int MODE>
+__device__ __forceinline__ float mode_exp(float x) {
+  return MODE == F32 ? fast_exp(x) : expf(x);
+}
+
+// An operand that mma_k8 reads as it is staged.
+struct Unrounded {
+  __device__ __forceinline__ float operator()(int, int, float v) const { return v; }
+};
+
 namespace tc {
 constexpr int BK = 16;   // contraction chunk staged in shared memory (two k-steps of 8)
 constexpr int PAD = 8;   // row strides of 8 mod 32 words: a fragment load hits 32 banks
@@ -57,36 +107,58 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // 0), scaled by s0 and s1 (1), or as exp(B - s0) and exp(B - s1) (2).
 // Fragment (mt, nt, r) holds row wm + 16 mt + g + 8 (r >> 1), column wn +
 // 8 nt + 2 t + (r & 1), with g = lane / 4.
-template <int AS, int BS, int BMODE = 0, bool AROW = false>
-__device__ __forceinline__ void mma_k8(const float (*As)[AS], const float (*Bs)[BS], int k,
+//
+// A_SPLIT and B_SPLIT say which operands are split: an operand exact in
+// TF32 (a bf16 weight, or one the fast modes rounded to bf16) has a low part
+// of 0, and the products with it are dropped: 3xTF32 where both are split,
+// two products where one is, one where neither is. B's elements may be
+// stored as BT (float, or bf16 widened as read). ``ra(m, k, v)`` and
+// ``rb(k, n, v)`` round the operands formed here (the fast modes; the
+// staging coordinates of the element) before the products.
+template <int AS, int BS, int BMODE = 0, bool AROW = false, bool A_SPLIT = true,
+          bool B_SPLIT = true, typename BT = float, class RA = Unrounded, class RB = Unrounded>
+__device__ __forceinline__ void mma_k8(const float (*As)[AS], const BT (*Bs)[BS], int k,
                                        int wm, int wn, int lane, float s0, float s1,
-                                       float (&acc)[tc::MT][tc::NT][4]) {
+                                       float (&acc)[tc::MT][tc::NT][4], RA ra = RA(),
+                                       RB rb = RB()) {
   constexpr int MT = tc::MT, NT = tc::NT;
   const int g = lane >> 2, t = lane & 3;
-  auto a = [&](int m, int kk) { return AROW ? As[m][kk] : As[kk][m]; };
+  auto a = [&](int m, int kk) { return ra(m, kk, AROW ? As[m][kk] : As[kk][m]); };
   auto b = [&](int kk, int c, float sh) {
-    const float v = Bs[kk][c];
-    return BMODE == 1 ? v * sh : BMODE == 2 ? fast_exp(v - sh) : v;
+    const float v = widen(Bs[kk][c]);
+    return rb(kk, c, BMODE == 1 ? v * sh : BMODE == 2 ? fast_exp(v - sh) : v);
   };
   uint32_t ahi[MT][4], alo[MT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int r = wm + mt * 16 + g;
-    split_tf32(a(r, k + t), ahi[mt][0], alo[mt][0]);
-    split_tf32(a(r + 8, k + t), ahi[mt][1], alo[mt][1]);
-    split_tf32(a(r, k + t + 4), ahi[mt][2], alo[mt][2]);
-    split_tf32(a(r + 8, k + t + 4), ahi[mt][3], alo[mt][3]);
+    if (!A_SPLIT) {
+      ahi[mt][0] = to_tf32(a(r, k + t));
+      ahi[mt][1] = to_tf32(a(r + 8, k + t));
+      ahi[mt][2] = to_tf32(a(r, k + t + 4));
+      ahi[mt][3] = to_tf32(a(r + 8, k + t + 4));
+    } else {
+      split_tf32(a(r, k + t), ahi[mt][0], alo[mt][0]);
+      split_tf32(a(r + 8, k + t), ahi[mt][1], alo[mt][1]);
+      split_tf32(a(r, k + t + 4), ahi[mt][2], alo[mt][2]);
+      split_tf32(a(r + 8, k + t + 4), ahi[mt][3], alo[mt][3]);
+    }
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     uint32_t bhi[2], blo[2];
     const int c = wn + nt * 8 + g;
-    split_tf32(b(k + t, c, s0), bhi[0], blo[0]);
-    split_tf32(b(k + t + 4, c, s1), bhi[1], blo[1]);
+    if (B_SPLIT) {
+      split_tf32(b(k + t, c, s0), bhi[0], blo[0]);
+      split_tf32(b(k + t + 4, c, s1), bhi[1], blo[1]);
+    } else {
+      bhi[0] = to_tf32(b(k + t, c, s0));
+      bhi[1] = to_tf32(b(k + t + 4, c, s1));
+    }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {  // the small products first
-      mma_tf32(acc[mt][nt], alo[mt], bhi);
-      mma_tf32(acc[mt][nt], ahi[mt], blo);
+      if (A_SPLIT) mma_tf32(acc[mt][nt], alo[mt], bhi);
+      if (B_SPLIT) mma_tf32(acc[mt][nt], ahi[mt], blo);
       mma_tf32(acc[mt][nt], ahi[mt], bhi);
     }
   }

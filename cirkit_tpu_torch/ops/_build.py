@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``cirkit_tpu_torch/csrc``.
 
 The sources are compiled at first use by ``nvcc``, one process per source
-started together, and linked into a shared library with a plain C
+(``lse_einsum_bwd.cu`` in three parts) started together, and linked into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``; the signed log-einsum-exp kernels are template instances in
 the lse kernels' two sources, and the complex ones have a source of their
@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -29,6 +30,16 @@ _SOURCES = tuple(
     )
 )
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
+# the compile units, (source, extra flags): lse_einsum_bwd.cu in three parts
+# that compile side by side (its CIRKIT_BWD_PART macro), the others whole
+_UNITS = tuple(
+    unit
+    for src in _SOURCES
+    for unit in (
+        [(src, (f"-DCIRKIT_BWD_PART={part}",)) for part in range(3)]
+        if src.name == "lse_einsum_bwd.cu" else [(src, ())]
+    )
+)
 BUILD_DIR = _PKG.parent / "build" / "cirkit_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -98,10 +109,29 @@ _SIGNATURES.update({
 })
 _SIGNATURES["lse_bwd_tucker"] = _SIGNATURES["lse_bwd_tucker_softmax"]
 _SIGNATURES["lse_bwd_scratch"] = ((_I,) * 7, ctypes.c_size_t)
+INSTANCES = ("_fast", "_sr", "_w16", "_w16_fast", "_w16_sr")
+"""The entry suffixes of the bf16-weight (``_w16``) and fast-mode (``_fast``,
+``_sr``) instances of kernels 1, 2 and 5 (float32 activations), which take
+the float entries' arguments, but for the Tucker and K1-chunked forwards
+with logits: they take the (F, O) scratch of the logits' row max after the
+output."""
+_SIGNATURES.update({
+    f"{name}{sfx}": _SIGNATURES[name]
+    for name in ("lse_fwd_dense", "lse_fwd_dense_softmax", "lse_fwd_tucker", "lse_fwd_ct",
+                 "lse_bwd_dense", "lse_bwd_dense_softmax", "lse_bwd_tucker",
+                 "lse_bwd_tucker_softmax")
+    for sfx in INSTANCES
+})
+_SIGNATURES.update({
+    f"{name}{sfx}": ((*(_P,) * 5, *(_I,) * 6, _P), ctypes.c_int)
+    for name in ("lse_fwd_tucker_softmax", "lse_fwd_ct_softmax") for sfx in INSTANCES
+})
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None
 """Seconds the last ``nvcc`` run of this process took (None if it reused a build)."""
+SOURCE_SECONDS: dict[str, float] = {}
+"""Seconds each unit's ``nvcc`` took in that run (they run side by side)."""
 
 
 def _nvcc() -> str:
@@ -132,19 +162,24 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _SOURCES]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}{k}.o") for k, (src, _) in enumerate(_UNITS)]
     t0 = time.perf_counter()
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(_SOURCES, objs)]
-    procs = [
-        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for cmd in compiles
-    ]
+    compiles = [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+                for (src, flags), obj in zip(_UNITS, objs)]
+
+    def compile_one(cmd):
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              check=False)
+        return proc, time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(compiles)) as pool:  # one nvcc a unit, all at once
+        done = list(pool.map(compile_one, compiles))
     failures = []
-    for cmd, proc in procs:
-        log, _ = proc.communicate()
+    for (src, flags), cmd, (proc, secs) in zip(_UNITS, compiles, done):
+        SOURCE_SECONDS[" ".join((src.name, *flags))] = secs
         if proc.returncode != 0:
-            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
     if not failures:
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)

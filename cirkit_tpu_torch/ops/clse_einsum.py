@@ -56,6 +56,8 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _clamp_max,
     _no_graph_through_kernel,
     _on_cpu,
+    _traced,
+    launch_op,
 )
 
 COMPLEX_OPS = ("clse_matmul", "clse_tucker2")
@@ -285,8 +287,22 @@ def backward(
     return _launch_bwd(op, tuple(ins), out, g, needs)
 
 
+def _fwd_op_fake(op: str, ins: list[torch.Tensor]) -> torch.Tensor:
+    f, b, _, _, o = _sizes(tuple(ins))
+    return ins[0].new_empty((f, b, o))
+
+
+# the forward launch as the operator ``cirkit_tpu_torch::clse_fwd``, which
+# ``torch.export`` records as one node (``lse_einsum.launch_op``)
+_fwd_op = launch_op("clse_fwd", "(str op, Tensor[] ins) -> Tensor",
+                    lambda op, ins: _launch_fwd(op, tuple(ins)), _fwd_op_fake)
+
+
 def _forward(ctx, op: str, *ins: torch.Tensor) -> torch.Tensor:
-    out = _ENTRIES[op][0](*ins) if _on_cpu(*ins) else _launch_fwd(op, ins)
+    if _on_cpu(*ins):
+        out = _ENTRIES[op][0](*ins)
+    else:
+        out = _fwd_op(op, list(ins)) if _traced(ins[0]) else _launch_fwd(op, ins)
     ctx.save_for_backward(*ins, out)
     return out
 
@@ -332,6 +348,12 @@ class ClseTucker2(torch.autograd.Function):
         return _backward(ctx, "clse_tucker2", g)
 
 
+def _real_weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A bf16 weight widened to the real type of ``x``: the kernel has no
+    bf16 instance."""
+    return w.to(_REAL_OF[x.dtype]) if w.dtype == torch.bfloat16 else w
+
+
 def _check_complex(op: str, *xs: torch.Tensor) -> None:
     for x in xs:
         if not x.dtype.is_complex:
@@ -346,7 +368,7 @@ def clse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     weights, complex or real. Returns (F, B, O) complex log-space values."""
     _check_complex("clse_matmul", x)
     _check_dense(x, w)
-    return ClseMatmul.apply(_resolved(x), _resolved(w))
+    return ClseMatmul.apply(_resolved(x), _resolved(_real_weight(w, x)))
 
 
 def clse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -357,4 +379,4 @@ def clse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.T
     flattened row-major over (K1, K2). Returns (F, B, O) complex values."""
     _check_complex("clse_tucker2", x1, x2)
     _check_tucker(x1, x2, w)
-    return ClseTucker2.apply(_resolved(x1), _resolved(x2), _resolved(w))
+    return ClseTucker2.apply(_resolved(x1), _resolved(x2), _resolved(_real_weight(w, x1)))

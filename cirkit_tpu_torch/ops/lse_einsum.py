@@ -36,9 +36,59 @@ plain versions only for tensors on the CPU; a CUDA tensor gets the kernel
 or an exception. ``LAUNCHES`` counts the op calls that launched a kernel,
 one key per op and one per op's backward (``lse_matmul_bwd``, ...), and one
 per wide forward entry (``WIDE_OPS``) and the blocked backward.
+
+Weight stores and speed modes (the counterpart of ``_fast_mode``,
+``_cfg_fast``, ``_fcast`` and the bf16 branches of ``_dispatch`` and
+``_dispatch_tucker_chunked``, ``cirkit_tpu/ops/lse_einsum.py:102-146,
+466-476, 865-875``):
+
+- the weight or logits operand of the single-pass, Tucker and K1-chunked
+  kernels (kernels 1, 2 and 5) may be ``torch.bfloat16`` beside float32
+  activations, the serving store of ``backend/torch/serving.py``: the
+  kernels read it as bf16 and widen it on chip; the weight's gradient is
+  accumulated in float32 and cast to the weight's type at the boundary, as
+  the JAX package's ``_fused_p_bwd`` does. Float64 activations take a bf16
+  weight widened to float64 here, and the other kernels (the blocked dense
+  ones, the signed, complex and routing ones) a bf16 weight widened to
+  float32 in their op wrappers before their float32 instance launches;
+- ``CIRKIT_TPU_FAST`` (:func:`fast_mode`, read at each call as in JAX):
+  unset runs the f32-grade instances (3xTF32); ``sr`` stochastically rounds
+  the contraction operands to bf16, any other value rounds them to the
+  nearest bf16; either runs one TF32 pass over bf16-valued operands,
+  which multiplies them exactly with float32 accumulation. A mode applies
+  to float32 activations only; the kernels without a fast instance (the
+  blocked dense ones) run their f32-grade instance.
+
+The rounding points are those of the port's kernels, where the JAX kernel's
+are partly artifacts of Mosaic's selector matmuls: the forward rounds the
+shifted exponentials of a dense input, and of a Tucker contraction only
+``e2 = exp(x2 - m2)``, since the kernels multiply by ``e1`` in float32 after
+the tensor-core product (JAX rounds ``e1`` for its repeat selector and then
+``e1 * e2``); logits round as ``exp(theta - max)`` over the row's global
+max, the normalizer summed unrounded in float32 (JAX rounds the normalized
+row). The backward rounds ``gy`` and the weights of ``s = gy @ w`` and
+``gy`` and ``e`` (for Tucker ``e1 * e2``) of ``dw = gy^T e``; the Tucker
+dx folds and the softmax VJP stay float32 (JAX rounds the folds' operands
+for its segment-sum selectors), and so do the softmax weights of ``s``,
+``exp(theta - lse)``: they carry the row's log-normalizer, whose last bits
+no plain version reproduces, so their rounding could not be held to one. ``sr`` adds 16 bits of a stateless hash of
+the element's flat index in its operand and of the operand's role
+(:func:`sr_bits`) below the bf16 cut and truncates, the counterpart of
+``pltpu.stochastic_round`` with a grid-seeded PRNG: a call repeats bit for
+bit. The plain versions round at the same points with the same bits, so a
+kernel is held against its plain version as in float32.
+
+Under a tracer the forward launches go through the operator
+``cirkit_tpu_torch::lse_fwd`` (:func:`launch_op`, ``torch.library``), so that
+``torch.export`` records them as one graph node each (``data_ptr()`` has no
+meaning on the fake tensors it traces with); eager CUDA tensors call the
+launcher directly (:func:`_traced`), and so does the operator when an exported
+program runs. The backward launches are not wrapped.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -48,10 +98,20 @@ OPS = ("lse_matmul", "lse_matmul_softmax", "lse_tucker2", "lse_tucker2_softmax")
 WIDE_OPS = ("lse_tucker2_chunked", "lse_tucker2_softmax_chunked", "lse_matmul_blocked")
 """The forward entries of the wide kernels (the blocked one also has a
 backward, ``lse_matmul_blocked_bwd``)."""
+MODE_SUFFIX = {"": "", "bf16": "_fast", "sr": "_sr"}
+"""The suffix of a speed mode's entries and ``LAUNCHES`` keys."""
+INSTANCES = _build.INSTANCES
+"""The suffixes of the bf16-weight (``_w16``) and fast-mode instances of the
+kernels 1, 2 and 5 beside their float32 ones (no suffix): ``lse_tucker2_w16``
+is the Tucker forward on a bf16 weight in the f32-grade mode,
+``lse_tucker2_softmax_w16_fast_bwd`` its softmax backward in the bf16 mode."""
+INSTANCE_OPS = (*OPS, "lse_tucker2_chunked", "lse_tucker2_softmax_chunked")
 LAUNCHES: dict[str, int] = {
     **{name: 0 for op in OPS for name in (op, f"{op}_bwd")},
     **{op: 0 for op in WIDE_OPS},
     "lse_matmul_blocked_bwd": 0,
+    **{f"{op}{sfx}": 0 for op in INSTANCE_OPS for sfx in INSTANCES},
+    **{f"{op}{sfx}_bwd": 0 for op in OPS for sfx in INSTANCES},
 }
 """Kernel launches per op and per op's backward; a count rises by one only
 where its op launches its kernel."""
@@ -80,37 +140,144 @@ def _clamp_max(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=-1, keepdim=True).clamp(info.min, info.max)
 
 
+def fast_mode() -> str:
+    """The speed mode from ``CIRKIT_TPU_FAST``, read at each call: ``""``
+    (unset: f32-grade), ``"sr"`` (stochastic rounding to bf16) or ``"bf16"``
+    (any other value: rounding to the nearest bf16)."""
+    v = os.environ.get("CIRKIT_TPU_FAST", "")
+    if not v:
+        return ""
+    return "sr" if v.lower() == "sr" else "bf16"
+
+
+def _op_mode(x: torch.Tensor) -> str:
+    """The mode of an op on activations ``x``: float64 runs no fast mode."""
+    return fast_mode() if x.dtype == torch.float32 else ""
+
+
+def _weight_for(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``w`` as a kernel with a bf16 instance takes it beside ``x``: a bf16
+    weight stays bf16 beside float32 activations and is widened to the
+    activations' type beside any other."""
+    if w.dtype == torch.bfloat16 and x.dtype != torch.float32:
+        return w.to(x.dtype)
+    return w
+
+
+def widened(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A bf16 weight widened (exactly) to the type of the activations ``x``:
+    the operand of a kernel that has no bf16 instance."""
+    return w.to(x.dtype) if w.dtype == torch.bfloat16 and x.dtype.is_floating_point else w
+
+
+# The operand roles of the stochastic rounding's bits: the forward's
+# exponentials and weights, the backward's gy, weights and exponentials.
+ROLE_E, ROLE_W, ROLE_GY, ROLE_WB, ROLE_EB = range(5)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` in [0, 2**32), in halves of ``c``
+    so that no product leaves int64."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def sr_bits(idx: torch.Tensor, role: int) -> torch.Tensor:
+    """The 16 random bits of stochastic rounding for the elements at flat
+    indices ``idx`` (int64) of an operand of ``role``: a murmur3 finalizer
+    over both halves of the index and the role, as ``sr_bits`` in
+    ``csrc/tc_common.cuh`` computes them."""
+    h = (_mul32(idx & _M32, 0x9E3779B1) + _mul32(idx >> 32, 0x85EBCA77)
+         + ((role + 1) * 0xC2B2AE3D & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h >> 16
+
+
+def round_bf16(v: torch.Tensor, mode: str, role: int) -> torch.Tensor:
+    """A float32 operand rounded as the kernels of ``mode`` round it, kept
+    float32: to the nearest bf16 (``"bf16"``), or (``"sr"``) by adding
+    :func:`sr_bits` of each element's flat index in ``v``, which must have
+    its operand's full shape, below the bf16 cut and truncating."""
+    if mode == "bf16":
+        return v.to(torch.bfloat16).to(v.dtype)
+    if mode != "sr":
+        return v
+    flat = v.contiguous().view(-1)
+    out = torch.empty_like(flat)
+    step = 1 << 24  # slices bound the int64 temporaries (K=128 weights: 1.6e9 elements)
+    for start in range(0, flat.numel(), step):
+        part = flat[start : start + step]
+        idx = torch.arange(start, start + part.numel(), device=v.device, dtype=torch.int64)
+        u = part.view(torch.int32).to(torch.int64) & _M32
+        u = (u + sr_bits(idx, role)) & 0xFFFF0000
+        out[start : start + step] = torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(
+            torch.float32)
+    return out.view(v.shape)
+
+
+def _softmax_parts(theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``exp(theta - max)`` over each row's max (0 for a row that is all
+    -inf) and the log of its row sum: the fast modes' rounded numerators and
+    their float32 normalizer."""
+    mx = theta.amax(dim=-1, keepdim=True)
+    mx = torch.where(mx == -torch.inf, torch.zeros_like(mx), mx)
+    num = torch.exp(theta - mx)
+    return num, torch.log(num.sum(dim=-1, keepdim=True))
+
+
 # --------------------------------------------------------------------------- #
 # Plain PyTorch versions
 # --------------------------------------------------------------------------- #
+# ``mode`` rounds the operands as the kernels of that mode do (module
+# docstring); a bf16 weight is widened to the activations' type, exactly.
 
 
-def lse_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def lse_matmul_ref(x: torch.Tensor, w: torch.Tensor, mode: str = "") -> torch.Tensor:
     """``log(exp(x - m) @ w^T) + m``, composed from PyTorch ops."""
     m = _clamp_max(x)
-    return torch.log(torch.bmm(torch.exp(x - m), w.transpose(1, 2))) + m
+    e, w = torch.exp(x - m), w.to(x.dtype)
+    if mode:
+        e, w = round_bf16(e, mode, ROLE_E), round_bf16(w, mode, ROLE_W)
+    return torch.log(torch.bmm(e, w.transpose(1, 2))) + m
 
 
-def lse_matmul_softmax_ref(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
-    return lse_matmul_ref(x, torch.softmax(theta, dim=-1))
+def lse_matmul_softmax_ref(x: torch.Tensor, theta: torch.Tensor, mode: str = "") -> torch.Tensor:
+    theta = theta.to(x.dtype)
+    if not mode:
+        return lse_matmul_ref(x, torch.softmax(theta, dim=-1))
+    num, lz = _softmax_parts(theta)
+    return lse_matmul_ref(x, num, mode) - lz.transpose(1, 2)
 
 
-def lse_tucker2_ref(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def lse_tucker2_ref(
+    x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, mode: str = ""
+) -> torch.Tensor:
     """The Tucker contraction with the (F, B, K1*K2) outer product
     materialized, composed from PyTorch ops."""
     f, b, k1 = x1.shape
     k2 = x2.shape[2]
     m1 = _clamp_max(x1)
     m2 = _clamp_max(x2)
-    e = torch.exp(x1 - m1)[..., :, None] * torch.exp(x2 - m2)[..., None, :]
+    e2, w = torch.exp(x2 - m2), w.to(x1.dtype)
+    if mode:
+        e2, w = round_bf16(e2, mode, ROLE_E), round_bf16(w, mode, ROLE_W)
+    e = torch.exp(x1 - m1)[..., :, None] * e2[..., None, :]
     y = torch.bmm(e.reshape(f, b, k1 * k2), w.transpose(1, 2))
     return torch.log(y) + m1 + m2
 
 
 def lse_tucker2_softmax_ref(
-    x1: torch.Tensor, x2: torch.Tensor, theta: torch.Tensor
+    x1: torch.Tensor, x2: torch.Tensor, theta: torch.Tensor, mode: str = ""
 ) -> torch.Tensor:
-    return lse_tucker2_ref(x1, x2, torch.softmax(theta, dim=-1))
+    theta = theta.to(x1.dtype)
+    if not mode:
+        return lse_tucker2_ref(x1, x2, torch.softmax(theta, dim=-1))
+    num, lz = _softmax_parts(theta)
+    return lse_tucker2_ref(x1, x2, num, mode) - lz.transpose(1, 2)
 
 
 def lse_matmul_blocked_ref(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -156,15 +323,33 @@ def lse_matmul_bwd_ref(
     out: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, bool] = (True, True),
+    mode: str = "",
+    *,
+    round_w: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """``(dx, dw)`` of :func:`lse_matmul`: ``dx = e * (gy @ w)`` and
-    ``dw = sum_b gy^T e`` with ``e = exp(x - m)``."""
+    ``dw = sum_b gy^T e`` with ``e = exp(x - m)``; ``dw`` has the
+    activations' type. ``round_w=False`` keeps the weights of ``gy @ w``
+    unrounded in a fast mode (the softmax weights, module docstring)."""
     m = _clamp_max(x)
     e = torch.exp(x - m)
     gy = _gy(g, out, m)
+    w = w.to(x.dtype)
+    if mode:
+        gy_r = round_bf16(gy, mode, ROLE_GY)
+        w = round_bf16(w, mode, ROLE_WB) if round_w else w
+        dx = e * torch.bmm(gy_r, w) if needs[0] else None
+        dw = torch.bmm(gy_r.transpose(1, 2), round_bf16(e, mode, ROLE_EB)) if needs[1] else None
+        return dx, dw
     dx = e * torch.bmm(gy, w) if needs[0] else None
     dw = torch.bmm(gy.transpose(1, 2), e) if needs[1] else None
     return dx, dw
+
+
+def _fast_softmax_weights(theta: torch.Tensor) -> torch.Tensor:
+    """The fast backward's weights ``exp(theta - lse)``, formed from the
+    row's log-normalizer as the backward kernel forms them."""
+    return torch.exp(theta - torch.logsumexp(theta, dim=-1, keepdim=True))
 
 
 def lse_matmul_softmax_bwd_ref(
@@ -173,8 +358,16 @@ def lse_matmul_softmax_bwd_ref(
     out: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, bool] = (True, True),
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """``(dx, dtheta)`` of :func:`lse_matmul_softmax`."""
+    theta = theta.to(x.dtype)
+    if mode:
+        w = _fast_softmax_weights(theta)
+        dx, dw = lse_matmul_bwd_ref(x, w, out, g, needs, mode, round_w=False)
+        if dw is not None:
+            dw = softmax_vjp_from_g(w, dw, g, _gy(g, out, _clamp_max(x)))
+        return dx, dw
     w = torch.softmax(theta, dim=-1)
     dx, dw = lse_matmul_bwd_ref(x, w, out, g, needs)
     return dx, None if dw is None else _softmax_vjp(w, dw)
@@ -205,6 +398,9 @@ def lse_tucker2_bwd_ref(
     out: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, bool, bool] = (True, True, True),
+    mode: str = "",
+    *,
+    round_w: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """``(dx1, dx2, dw)`` of :func:`lse_tucker2`, with ``s = gy @ w``:
     ``dx1[b,i] = e1[b,i] sum_j s[b,i*K2+j] e2[b,j]``,
@@ -217,6 +413,10 @@ def lse_tucker2_bwd_ref(
     e1 = torch.exp(x1 - m1)
     e2 = torch.exp(x2 - m2)
     gy = _gy(g, out, m1 + m2)
+    w = w.to(x1.dtype)
+    if mode:
+        gy = round_bf16(gy, mode, ROLE_GY)
+        w = round_bf16(w, mode, ROLE_WB) if round_w else w
     dx1 = dx2 = dw = None
     if needs[0] or needs[1]:
         s = torch.bmm(gy, w).reshape(f, b, k1, k2)
@@ -226,6 +426,8 @@ def lse_tucker2_bwd_ref(
             dx2 = e2 * (e1[..., None, :] @ s)[..., 0, :]
     if needs[2]:
         e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
+        if mode:
+            e = round_bf16(e, mode, ROLE_EB)
         dw = torch.bmm(gy.transpose(1, 2), e)
     return dx1, dx2, dw
 
@@ -237,8 +439,17 @@ def lse_tucker2_softmax_bwd_ref(
     out: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, bool, bool] = (True, True, True),
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """``(dx1, dx2, dtheta)`` of :func:`lse_tucker2_softmax`."""
+    theta = theta.to(x1.dtype)
+    if mode:
+        w = _fast_softmax_weights(theta)
+        dx1, dx2, dw = lse_tucker2_bwd_ref(x1, x2, w, out, g, needs, mode, round_w=False)
+        if dw is not None:
+            shift = _clamp_max(x1) + _clamp_max(x2)
+            dw = softmax_vjp_from_g(w, dw, g, _gy(g, out, shift))
+        return dx1, dx2, dw
     w = torch.softmax(theta, dim=-1)
     dx1, dx2, dw = lse_tucker2_bwd_ref(x1, x2, w, out, g, needs)
     return dx1, dx2, None if dw is None else _softmax_vjp(w, dw)
@@ -272,6 +483,19 @@ def _check_tucker(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> None:
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
+
+
+_EAGER_TYPES = (torch.Tensor, torch.nn.Parameter)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    """Whether a launch goes through its operator (:func:`launch_op`): only
+    under a tracer, whose tensors (``torch.export``'s fake and functional
+    ones) are subclasses, or under Dynamo. An eager tensor calls the launcher
+    itself, which checks its device: the operator's dispatch costs every
+    launch microseconds of host time, which the host-bound paths (the CP
+    flagship, the SoS circuits) pay end to end."""
+    return type(t) not in _EAGER_TYPES or torch.compiler.is_compiling()
 
 
 def _no_graph_through_kernel(op: str, *ts: torch.Tensor) -> None:
@@ -330,11 +554,32 @@ def _sizes(ins: tuple[torch.Tensor, ...]) -> tuple[int, ...]:
     return (*xs[0].shape[:2], *(x.shape[2] for x in xs), w.shape[1])
 
 
-def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
+def _check_weighted(
+    op: str, acts: tuple[torch.Tensor, ...], w: torch.Tensor, mode: str
+) -> tuple[torch.device, str, str]:
+    """The device, the type suffix and the instance suffix (:data:`INSTANCES`)
+    of a launch of kernels 1, 2 or 5: the activations all float32 or all
+    float64, the weight of their type or, beside float32, bf16; float64
+    runs no fast mode."""
+    dev, suffix = _check_single_pass(op, acts)
+    if w.device != dev:
+        raise ValueError(f"{op}: operands on {dev} and {w.device}")
+    _check_cuda(op, (w,), (torch.float64,) if suffix else (torch.float32, torch.bfloat16))
+    if suffix and mode:
+        raise ValueError(f"{op}: float64 runs no fast mode, found {mode!r}")
+    return dev, suffix, ("_w16" if w.dtype == torch.bfloat16 else "") + MODE_SUFFIX[mode]
+
+
+# the forward entries that take the (F, O) scratch of the weights' row max
+# in their instances (the fast modes' global softmax shift)
+_ROW_MAX_ENTRIES = ("lse_fwd_tucker_softmax", "lse_fwd_ct_softmax")
+
+
+def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch.Tensor:
     """Check the operands, allocate the output and launch the forward entry
-    of ``op`` on the current stream."""
+    of ``op`` (in ``mode``, on the weight's type) on the current stream."""
     entry = _ENTRIES[op][0]
-    dev, suffix = _check_single_pass(op, ins)
+    dev, suffix, inst = _check_weighted(op, ins[:-1], ins[-1], mode)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
     width = ins[-1].shape[2]  # the kernels index a weight row with an int
@@ -345,20 +590,53 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (*(t.data_ptr() for t in ins), out.data_ptr(), *sizes, dev.index, stream)
-    _call(lib, entry + suffix, op, args)
-    LAUNCHES[op] += 1
+    scratch = ()
+    if inst and entry in _ROW_MAX_ENTRIES:
+        scratch = (torch.empty((f, o), device=dev, dtype=torch.float32).data_ptr() if mode
+                   else None,)
+    args = (*(t.data_ptr() for t in ins), out.data_ptr(), *scratch, *sizes, dev.index, stream)
+    _call(lib, entry + suffix + inst, op, args)
+    LAUNCHES[op + inst] += 1
     return out
+
+
+_LIBRARY = torch.library.Library("cirkit_tpu_torch", "DEF")  # noqa: TOR901
+
+
+def launch_op(name: str, schema: str, launch, fake):
+    """``torch.ops.cirkit_tpu_torch.<name>``: a kernel launch as an operator
+    that ``torch.export`` records as one node, ``launch`` on CUDA tensors
+    and ``fake`` (the outputs' shapes and types) on the meta ones it traces
+    with. The library API's operators, unlike ``torch.library.custom_op``'s,
+    do not import ``torch._dynamo`` at their first call (seconds of every
+    process's first forward)."""
+    _LIBRARY.define(f"{name}{schema}")
+    _LIBRARY.impl(name, launch, "CUDA")
+    _LIBRARY.impl(name, fake, "Meta")
+    return getattr(torch.ops.cirkit_tpu_torch, name).default
+
+
+def _fwd_op_fake(op: str, mode: str, ins: list[torch.Tensor]) -> torch.Tensor:
+    sizes = _sizes(tuple(ins))
+    return ins[0].new_empty((sizes[0], sizes[1], sizes[-1]))
+
+
+_fwd_op = launch_op("lse_fwd", "(str op, str mode, Tensor[] ins) -> Tensor",
+                    lambda op, mode, ins: _launch_fwd(op, tuple(ins), mode), _fwd_op_fake)
 
 
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], out: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, ...],
+    needs: tuple[bool, ...], mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """Allocate the requested gradients and the scratch, and launch the
-    backward entry of ``op`` on the current stream."""
-    dev, suffix = _check_single_pass(f"{op} backward", (*ins, out, g))
-    grads = tuple(torch.empty_like(t) if need else None for t, need in zip(ins, needs))
+    backward entry of ``op`` (in ``mode``, on the weight's type) on the
+    current stream. The weight's gradient has the activations' type."""
+    dev, suffix, inst = _check_weighted(f"{op} backward", (*ins[:-1], out, g), ins[-1], mode)
+    grads = tuple(
+        torch.empty(t.shape, device=dev, dtype=ins[0].dtype) if need else None
+        for t, need in zip(ins, needs)
+    )
     if not any(needs):
         return grads
     if out.numel() == 0 or ins[0].numel() == 0:
@@ -397,8 +675,8 @@ def _launch_bwd(
         dev.index,
         stream,
     )
-    _call(lib, _ENTRIES[op][1] + suffix, f"{op} backward", args)
-    LAUNCHES[f"{op}_bwd"] += 1
+    _call(lib, _ENTRIES[op][1] + suffix + inst, f"{op} backward", args)
+    LAUNCHES[f"{op}{inst}_bwd"] += 1
     return grads
 
 
@@ -476,9 +754,14 @@ _ENTRIES = {
 }
 
 
-def _forward(ctx, op: str, *ins: torch.Tensor) -> torch.Tensor:
-    out = _ENTRIES[op][2](*ins) if _on_cpu(*ins) else _launch_fwd(op, ins)
+def _forward(ctx, op: str, mode: str, *ins: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(*ins):
+        # the plain version takes a mode only where one is set
+        out = _ENTRIES[op][2](*ins, mode=mode) if mode else _ENTRIES[op][2](*ins)
+    else:
+        out = _fwd_op(op, mode, list(ins)) if _traced(ins[0]) else _launch_fwd(op, ins, mode)
     ctx.save_for_backward(*ins, out)
+    ctx.mode = mode
     return out
 
 
@@ -488,34 +771,43 @@ def backward(
     out: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, ...] | None = None,
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """The gradients of ``op`` (one of :data:`OPS`) with respect to its
     arguments ``ins``, given its output ``out`` and the cotangent ``g``;
-    ``needs`` (default: all) selects which. The plain version on CPU
-    tensors, the backward kernel on CUDA tensors."""
+    ``needs`` (default: all) selects which, ``mode`` is the forward's speed
+    mode. The plain version on CPU tensors, the backward kernel on CUDA
+    tensors; the weight's gradient is accumulated in the activations' type
+    and cast to the weight's."""
     needs = (True,) * len(ins) if needs is None else tuple(needs)
     if _on_cpu(*ins, out, g):
-        return _ENTRIES[op][3](*ins, out, g, needs)
-    return _launch_bwd(op, tuple(ins), out, g, needs)
+        plain = _ENTRIES[op][3]
+        grads = plain(*ins, out, g, needs, mode) if mode else plain(*ins, out, g, needs)
+    else:
+        grads = _launch_bwd(op, tuple(ins), out, g, needs, mode)
+    dw = grads[-1]
+    return (*grads[:-1], None if dw is None else dw.to(ins[-1].dtype))
 
 
 def _backward(ctx, op: str, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
     *ins, out = ctx.saved_tensors
     _no_graph_through_kernel(op, *ins)
-    return backward(op, tuple(ins), out, g.contiguous(), ctx.needs_input_grad)
+    needs = ctx.needs_input_grad[: len(ins)]
+    return (*backward(op, tuple(ins), out, g.contiguous(), needs, ctx.mode), None)
 
 
 # --------------------------------------------------------------------------- #
 # The differentiable ops
 # --------------------------------------------------------------------------- #
+# Each takes its speed mode as a last, non-tensor argument.
 
 
 class LseMatmul(torch.autograd.Function):
     """:func:`lse_matmul` with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        return _forward(ctx, "lse_matmul", x, w)
+    def forward(ctx, x, w, mode):
+        return _forward(ctx, "lse_matmul", mode, x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -526,8 +818,8 @@ class LseMatmulSoftmax(torch.autograd.Function):
     """:func:`lse_matmul_softmax`; the backward returns the logits' gradient."""
 
     @staticmethod
-    def forward(ctx, x, theta):
-        return _forward(ctx, "lse_matmul_softmax", x, theta)
+    def forward(ctx, x, theta, mode):
+        return _forward(ctx, "lse_matmul_softmax", mode, x, theta)
 
     @staticmethod
     def backward(ctx, g):
@@ -538,8 +830,8 @@ class LseTucker2(torch.autograd.Function):
     """:func:`lse_tucker2` with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, x1, x2, w):
-        return _forward(ctx, "lse_tucker2", x1, x2, w)
+    def forward(ctx, x1, x2, w, mode):
+        return _forward(ctx, "lse_tucker2", mode, x1, x2, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -550,8 +842,8 @@ class LseTucker2Softmax(torch.autograd.Function):
     """:func:`lse_tucker2_softmax`; the backward returns the logits' gradient."""
 
     @staticmethod
-    def forward(ctx, x1, x2, theta):
-        return _forward(ctx, "lse_tucker2_softmax", x1, x2, theta)
+    def forward(ctx, x1, x2, theta, mode):
+        return _forward(ctx, "lse_tucker2_softmax", mode, x1, x2, theta)
 
     @staticmethod
     def backward(ctx, g):
@@ -564,8 +856,8 @@ class LseTucker2Chunked(torch.autograd.Function):
     package's ``_ct_p_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x1, x2, w):
-        return _forward(ctx, "lse_tucker2_chunked", x1, x2, w)
+    def forward(ctx, x1, x2, w, mode):
+        return _forward(ctx, "lse_tucker2_chunked", mode, x1, x2, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -577,12 +869,21 @@ class LseTucker2SoftmaxChunked(torch.autograd.Function):
     with its online softmax, the backward kernel of :class:`LseTucker2Softmax`."""
 
     @staticmethod
-    def forward(ctx, x1, x2, theta):
-        return _forward(ctx, "lse_tucker2_softmax_chunked", x1, x2, theta)
+    def forward(ctx, x1, x2, theta, mode):
+        return _forward(ctx, "lse_tucker2_softmax_chunked", mode, x1, x2, theta)
 
     @staticmethod
     def backward(ctx, g):
         return _backward(ctx, "lse_tucker2_softmax", g)
+
+
+def _blocked_fwd_op_fake(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    f, b, _ = x.shape
+    return x.new_empty((f, b, w.shape[1])), x.new_empty((f, b, 1))
+
+
+_blocked_fwd_op = launch_op("lse_fwd_blocked", "(Tensor x, Tensor w) -> (Tensor, Tensor)",
+                            lambda x, w: _launch_blocked_fwd(x, w), _blocked_fwd_op_fake)
 
 
 class LseMatmulBlocked(torch.autograd.Function):
@@ -591,7 +892,10 @@ class LseMatmulBlocked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        out, m = lse_matmul_blocked_ref(x, w) if _on_cpu(x, w) else _launch_blocked_fwd(x, w)
+        if _on_cpu(x, w):
+            out, m = lse_matmul_blocked_ref(x, w)
+        else:
+            out, m = (_blocked_fwd_op if _traced(x) else _launch_blocked_fwd)(x, w)
         ctx.save_for_backward(x, w, out, m)
         return out
 
@@ -613,12 +917,14 @@ def _wide(width: int) -> bool:
 def lse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Fused ``log(exp(x - max) @ w^T) + max`` over the trailing axis.
 
-    ``x``: (F, B, I) log-space values; ``w``: (F, O, I) linear-space weights.
-    Returns (F, B, O) log-space values."""
+    ``x``: (F, B, I) log-space values; ``w``: (F, O, I) linear-space weights
+    (bf16 beside float32 ``x``: the serving store). Returns (F, B, O)
+    log-space values. The blocked kernels of wide I have no bf16 or fast
+    instance: a bf16 weight is widened for them."""
     _check_dense(x, w)
     if _wide(x.shape[2]):
-        return LseMatmulBlocked.apply(x, w)
-    return LseMatmul.apply(x, w)
+        return LseMatmulBlocked.apply(x, widened(w, x))
+    return LseMatmul.apply(x, _weight_for(x, w), _op_mode(x))
 
 
 def lse_matmul_softmax(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -627,8 +933,8 @@ def lse_matmul_softmax(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     are normalized first and go through the blocked kernels."""
     _check_dense(x, theta)
     if _wide(x.shape[2]):
-        return lse_matmul(x, torch.softmax(theta, dim=-1))
-    return LseMatmulSoftmax.apply(x, theta)
+        return lse_matmul(x, torch.softmax(widened(theta, x), dim=-1))
+    return LseMatmulSoftmax.apply(x, _weight_for(x, theta), _op_mode(x))
 
 
 def lse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -638,9 +944,8 @@ def lse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Te
     (F, O, K1*K2) linear-space core weight, flattened row-major over (K1, K2).
     Returns (F, B, O) log-space values."""
     _check_tucker(x1, x2, w)
-    if _wide(w.shape[2]):
-        return LseTucker2Chunked.apply(x1, x2, w)
-    return LseTucker2.apply(x1, x2, w)
+    fn = LseTucker2Chunked if _wide(w.shape[2]) else LseTucker2
+    return fn.apply(x1, x2, _weight_for(x1, w), _op_mode(x1))
 
 
 def lse_tucker2_softmax(
@@ -649,6 +954,5 @@ def lse_tucker2_softmax(
     """:func:`lse_tucker2` with ``w = softmax(theta, axis=-1)`` fused into
     the kernel (see :func:`lse_matmul_softmax`)."""
     _check_tucker(x1, x2, theta)
-    if _wide(theta.shape[2]):
-        return LseTucker2SoftmaxChunked.apply(x1, x2, theta)
-    return LseTucker2Softmax.apply(x1, x2, theta)
+    fn = LseTucker2SoftmaxChunked if _wide(theta.shape[2]) else LseTucker2Softmax
+    return fn.apply(x1, x2, _weight_for(x1, theta), _op_mode(x1))

@@ -38,6 +38,7 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _check_single_pass,
     _check_tucker,
     _on_cpu,
+    widened,
 )
 
 ROUTING_OPS = ("tropical_tucker2", "route_tucker2")
@@ -277,6 +278,7 @@ def tropical_tucker2(
     On CPU tensors a given ``splits`` runs :func:`tropical_tucker2_split_ref`."""
     op = "tropical_tucker2"
     _check(op, x1, x2, th)
+    th = widened(th, x1)  # the kernel has no bf16 instance
     if splits is not None and splits < 1:
         raise ValueError(f"{op}: splits must be at least 1, found {splits}")
     if _on_cpu(x1, x2, th):
@@ -338,6 +340,7 @@ def route_tucker2(
     takes the lower index."""
     op = "route_tucker2"
     _check(op, x1, x2, th, sel, kind)
+    th = widened(th, x1)  # the kernel has no bf16 instance
     sample = kind == "sample"
     if sample and seed is None:
         raise ValueError(f"{op}: the sample kind needs a seed")

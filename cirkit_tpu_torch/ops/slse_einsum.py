@@ -27,8 +27,11 @@ constant, never a parameter.
 Beside each kernel stands its plain PyTorch version (``*_ref``, mirroring
 the JAX package's XLA composition, ``backend/jax/semiring.py:456-502``, and
 ``*_bwd_ref``, the backward kernel's math). An op takes the plain versions
-only for tensors on the CPU; a CUDA tensor gets the kernel or an exception.
-Launches count into :data:`cirkit_tpu_torch.ops.lse_einsum.LAUNCHES` under
+only for tensors on the CPU; a CUDA tensor gets the kernel or an exception
+(under a tracer the forward launch goes through the operator
+``cirkit_tpu_torch::slse_fwd``).
+A bf16 weight is widened to the activations' type before the kernel, which
+has no bf16 instance. Launches count into :data:`cirkit_tpu_torch.ops.lse_einsum.LAUNCHES` under
 the op names of :data:`SIGNED_OPS` and their ``_bwd``. The kernels take every
 O and batch (the JAX dispatcher declines O < 8 and falls back to XLA) and
 mask the ragged batch edge; the JAX dispatcher's padding (log-magnitudes
@@ -55,6 +58,9 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _no_graph_through_kernel,
     _on_cpu,
     _softmax_vjp,
+    _traced,
+    launch_op,
+    widened,
 )
 
 SIGNED_OPS = ("slse_matmul", "slse_matmul_softmax", "slse_tucker2", "slse_tucker2_softmax")
@@ -293,8 +299,23 @@ def backward(
     return _launch_bwd(op, tuple(ins), oa, os, g, needs)
 
 
+def _fwd_op_fake(op: str, ins: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    sizes = _sizes(tuple(ins))
+    shape = (sizes[0], sizes[1], sizes[-1])
+    return ins[0].new_empty(shape), ins[0].new_empty(shape)
+
+
+# the forward launch as the operator ``cirkit_tpu_torch::slse_fwd``, which
+# ``torch.export`` records as one node (``lse_einsum.launch_op``)
+_fwd_op = launch_op("slse_fwd", "(str op, Tensor[] ins) -> (Tensor, Tensor)",
+                    lambda op, ins: _launch_fwd(op, tuple(ins)), _fwd_op_fake)
+
+
 def _forward(ctx, op: str, *ins: torch.Tensor) -> Pair:
-    oa, os = _ENTRIES[op][2](*ins) if _on_cpu(*ins) else _launch_fwd(op, ins)
+    if _on_cpu(*ins):
+        oa, os = _ENTRIES[op][2](*ins)
+    else:
+        oa, os = _fwd_op(op, list(ins)) if _traced(ins[0]) else _launch_fwd(op, ins)
     ctx.save_for_backward(*ins, oa, os)
     ctx.mark_non_differentiable(os)
     return oa, os
@@ -374,7 +395,7 @@ def slse_matmul(a: torch.Tensor, s: torch.Tensor, w: torch.Tensor) -> Pair:
     weights, possibly negative. Returns two (F, B, O) tensors."""
     _check_pair(a, s)
     _check_dense(a, w)
-    return SlseMatmul.apply(a, s, w)
+    return SlseMatmul.apply(a, s, widened(w, a))
 
 
 def slse_matmul_softmax(a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor) -> Pair:
@@ -382,7 +403,7 @@ def slse_matmul_softmax(a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor) -
     the kernel: the normalized weights are never stored."""
     _check_pair(a, s)
     _check_dense(a, theta)
-    return SlseMatmulSoftmax.apply(a, s, theta)
+    return SlseMatmulSoftmax.apply(a, s, widened(theta, a))
 
 
 def slse_tucker2(
@@ -396,7 +417,7 @@ def slse_tucker2(
     _check_pair(a1, s1)
     _check_pair(a2, s2)
     _check_tucker(a1, a2, w)
-    return SlseTucker2.apply(a1, s1, a2, s2, w)
+    return SlseTucker2.apply(a1, s1, a2, s2, widened(w, a1))
 
 
 def slse_tucker2_softmax(
@@ -408,4 +429,4 @@ def slse_tucker2_softmax(
     _check_pair(a1, s1)
     _check_pair(a2, s2)
     _check_tucker(a1, a2, theta)
-    return SlseTucker2Softmax.apply(a1, s1, a2, s2, theta)
+    return SlseTucker2Softmax.apply(a1, s1, a2, s2, widened(theta, a1))

@@ -1784,3 +1784,93 @@ def test_top_selection_on_the_card_is_the_stable_sort(rows, width):
     vals, idx = _top(x.cuda(), 4)
     want_vals, want_idx = torch.sort(x, dim=-1, descending=True, stable=True)
     assert torch.equal(vals.cpu(), want_vals[:, :4]) and torch.equal(idx.cpu(), want_idx[:, :4])
+
+
+# The bf16-weight (``_w16``) and fast-mode (``_fast``, ``_sr``) instances of
+# kernels 1, 2 and 5, each held against its plain version in the same mode
+# (``*_ref(..., mode=)``, which rounds at the kernel's points with the same
+# bits), to the float32 bounds above.
+INSTANCES = [("_w16", ""), ("_fast", "bf16"), ("_sr", "sr"), ("_w16_fast", "bf16"),
+             ("_w16_sr", "sr")]
+
+
+def _instance_inputs(op, sfx, f, b, o, **kw):
+    ins = _inputs(op, f, b, o, **kw)
+    ins[0][0, 2] = float("-inf")  # a row that is all -inf
+    if sfx.startswith("_w16"):
+        ins[-1] = ins[-1].to(torch.bfloat16)
+    return ins
+
+
+@pytest.mark.parametrize("f,b,o,k1,k2", [(3, 8, 16, 8, 16), (3, 13, 1, 8, 16), (2, 130, 70, 4, 64),
+                                         (2, 33, 64, 5, 30)])
+@pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
+@pytest.mark.parametrize("op", OPS)
+def test_instance_kernels_match_plain(op, sfx, mode, f, b, o, k1, k2):
+    ins = _instance_inputs(op, sfx, f, b, o, k1=k1, k2=k2, i=k1 * k2)
+    out = T._launch_fwd(op, tuple(ins), mode)
+    ref = T._ENTRIES[op][2](*ins, mode=mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op + sfx] == 1
+    _fwd_close(out, ref)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[1, 3:5] = 0.0
+    needs = (True,) * len(ins)
+    grads = T._launch_bwd(op, tuple(ins), out, g, needs, mode)
+    refs = T._ENTRIES[op][3](*ins, out, g, needs, mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}{sfx}_bwd"] == 1
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        assert got.dtype == torch.float32
+        _close(got, r, zeros=k < len(ins) - 1)
+
+
+@pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+@pytest.mark.parametrize("f,b,k1,k2,o", CHUNKED_CASES)
+def test_chunked_instance_kernels_match_plain(op, sfx, mode, f, b, k1, k2, o):
+    ins = _instance_inputs(op, sfx, f, b, o, k1=k1, k2=k2)
+    out = T._launch_fwd(f"{op}_chunked", tuple(ins), mode)
+    ref = T._ENTRIES[op][2](*ins, mode=mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}_chunked{sfx}"] == 1
+    _fwd_close(out, ref)
+
+
+def test_fast_mode_and_bf16_store_through_the_ops(monkeypatch):
+    """The public ops read ``CIRKIT_TPU_FAST`` at each call and take a bf16
+    weight as it is; the weight's gradient comes back bf16; ``sr`` repeats
+    to the bit."""
+    ins = _inputs("lse_tucker2_softmax", 3, 130, 64, k1=8, k2=16)
+    ins[-1] = ins[-1].to(torch.bfloat16).requires_grad_()
+    for env, sfx in (("", "_w16"), ("1", "_w16_fast"), ("sr", "_w16_sr")):
+        monkeypatch.setenv("CIRKIT_TPU_FAST", env)
+        out = T.lse_tucker2_softmax(*ins)
+        (dw,) = torch.autograd.grad(out.sum(), [ins[-1]])
+        again = T.lse_tucker2_softmax(*ins)
+        torch.cuda.synchronize()
+        assert dw.dtype == torch.bfloat16 and torch.equal(out, again)
+        assert T.LAUNCHES[f"lse_tucker2_softmax{sfx}"] == 2
+        assert T.LAUNCHES[f"lse_tucker2_softmax{sfx}_bwd"] == 1
+
+
+def test_export_on_the_card_embeds_the_kernel_ops():
+    """``export_circuit`` traced on CUDA with a bf16 store: the artifact
+    holds the ``cirkit_tpu_torch::lse_fwd`` nodes, and its forward equals
+    the eager one to the bit, launching the same kernels."""
+    from cirkit_tpu_torch.backend.torch import bf16_weight_store, export_circuit, load_exported
+
+    ctx, cc = _flagship_like("tucker", "cuda")
+    store = bf16_weight_store(cc, cc.restrict_store(ctx.parameters))
+    x = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (16, 64)), device="cuda")
+    with torch.no_grad():
+        want = cc.evaluate(store, x)
+    blob = export_circuit(cc, x, store=store, platforms=("cuda",))
+    fn = load_exported(blob)
+    for op in T.LAUNCHES:
+        T.LAUNCHES[op] = 0
+    got = fn(store, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert T.LAUNCHES["lse_tucker2_softmax_w16"] > 0

@@ -75,7 +75,8 @@ def test_port_imports_no_jax():
                                     "backend.torch.topk", "models.logic", "backend.torch.cross",
                                     "backend.torch.pruning", "backend.torch.distill",
                                     "backend.torch.pic", "models.ensembles",
-                                    "models.interop"])
+                                    "models.interop", "backend.torch.serving",
+                                    "backend.torch.warmstart"])
 def test_port_module_alone_imports_no_jax(module):
     """Each module that launches kernels or carries stores across imports on
     its own without JAX and without the JAX package."""
