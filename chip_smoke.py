@@ -347,10 +347,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
    library built and warm (``load_bundle``, ``init``), beside phase 1's
    ``nvcc`` seconds, which a cold process with no library pays besides; the
    warm store and first batch equal the cold ones to the bit.
+16. distribution (``parallel/training.py``, ``em.py``, ``tensor.py``,
+   ``parallel/launch.py``, the ``mesh=`` routing of ``queries.py``,
+   ``utils/checkpoint.py``), after phase 12 on the K=64 Tucker flagship at
+   batch 128; the ranks are processes of ``parallel.launch.run_ranks``
+   (spawned after phase 1's build, so none runs nvcc) that rebuild the
+   flagship from seed 0 and show the parent's store: (a) one NCCL rank on a
+   (1,) and a (1, 1) mesh: ``data_parallel_step`` with Adam and with
+   ``zero1=True``, ``evaluate_ll``, ``tp_forward``, ``tp_train_step``,
+   ``fit_em`` (one flow step and M-step) and ``MAPQuery(mesh=)``, each
+   equal to the single-device run of the same store in that process, to
+   the bit or within phase 4's bound (printed which); (b) two gloo ranks on
+   CUDA tensors sharing the card (NCCL refuses two ranks on one card), 64
+   rows a rank: on (2,) ``data``, the DP Adam step (its averaged gradients
+   within phase 5's GRAD bound of one device's on the whole batch, its store
+   equal to the bit to Adam on those gradients), the ZeRO-1 Adam and
+   ``adam_lowmem`` steps (equal to the bit to the optimizer on one device on
+   the same gradients), ``evaluate_ll``, an EM flow step and M-step (the
+   GRAD bound); on (1, 2) ``data`` x ``model`` (the Tucker entries at 32 of
+   64 units a rank), ``tp_forward`` (phase 4's bound), the ``tp_train_step``
+   Adam step (its gradients within the GRAD bound), ``MAPQuery`` and
+   ``SamplingQuery.conditional`` at phase 7's 50% mask (the assignment and
+   the samples equal to one device's from the same seed, the values within
+   phase 4's bound), the losses, forwards, MAP and samples held to the
+   parent's single-device runs; each rank's launches of kernels 1, 2, 8 and
+   9 on that main path, the median ms of each step, its peak memory, the
+   collectives' ms a step by ``torch.profiler``, and the ZeRO-1 Adam state's
+   bytes a rank against the replicated Adam's, every number labelled two
+   ranks sharing one card; (c) the ZeRO-1 ``adam_lowmem`` state the two
+   ranks wrote with ``save_checkpoint`` (DCP), read here with
+   ``load_checkpoint`` at one rank and resumed by the same step: equal to
+   the bit to the ranks' uninterrupted step. A rank that fails fails the
+   phase.
 
 The line before the last is a JSON object with each kernel's launches on
-its main paths (the forward ops in phases 4, 5b, 7b, 8, 12, 13, 14 and 15 (the
-instances), the backward ops in phases 5, 5b, 7b, 8, 13, 14 and 15, the routing ops in phases 7, 12 and 14, the signed ops in phases 9 and
+its main paths (the forward ops in phases 4, 5b, 7b, 8, 12, 13, 14, 15 (the
+instances) and 16 (every rank's), the backward ops in phases 5, 5b, 7b, 8, 13, 14, 15 and 16, the routing ops in phases 7, 12, 14 and 16, the signed ops in phases 9 and
 9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
@@ -438,6 +470,9 @@ FLAGSHIP_K = 64
 # first case: the dense sums of the unoptimized K=64 flagship (the usage
 # flows' forward and dx-only backward) and the grown flagship's Tucker entry
 STRUCT_SHAPES = ("F=784 B=128 I=4096 O=64", "F=784 B=128 K1=K2=O=96")
+# phase 16's kernel shape, timed in phases 3 and 3b as STRUCT_SHAPES are: the
+# K=64 Tucker entry at the local width of two tensor-parallel ranks
+TP_SHAPE = "F=784 B=128 K1=K2=64 O=32 (a TP shard)"
 WIDE_K = 128  # the K=128 Tucker flagship of phase 8 and the wide kernels' entry shapes
 WIDE_RUNS = (  # (optimize, em_ready, optimizer of the training steps or None)
     (True, False, "adam"),
@@ -696,6 +731,9 @@ def _cases(gen):
         (*single("lse_matmul_softmax"), dense(784, b, 4096, 64, softmax=True), STRUCT_SHAPES[0]),
         ("lse_tucker2_chunked", *single("lse_tucker2")[1:],
          tucker("lse_tucker2", 784, b, 96, 96, 96), STRUCT_SHAPES[1]),
+        # the Tucker entry at two tensor-parallel ranks' local width (phase 16)
+        (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 784, b, 64, 64, 32),
+         TP_SHAPE),
         (*single("lse_matmul_softmax"), dense(2, b, 64, 1, softmax=True), "O=1"),
         (*single("lse_matmul"), dense(1, b, 2, 1), "O=1 I=2"),
         (*single("lse_tucker2_softmax"), tucker("lse_tucker2_softmax", 2, b, 64, 64, 1), "O=1"),
@@ -814,7 +852,7 @@ def phase_kernels() -> dict[str, dict]:
                 line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
                          f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), tensor-core "
                          f"bound {entry['tc_bound_ms']:.3f} ms")
-            elif label in STRUCT_SHAPES:
+            elif label in (*STRUCT_SHAPES, TP_SHAPE):
                 ms, plain_ms = _median_ms(lambda: kernel(*ins)), _median_ms(lambda: plain(*ins))
                 bound, by, tc = _bound(key, ins)
                 entry.setdefault("structure", {})[label] = {"ms": ms, "plain_ms": plain_ms,
@@ -856,6 +894,9 @@ def _route_cases(gen):
         case(f"{shape} linear", f, b, k1, k2, o, False),
         *(case(f"F={ff} B={b} K1={k1} K2={k2} O={o} logits", ff, b, k1, k2, o, True)
           for ff in ROUTE_FOLDS),
+        # two tensor-parallel ranks' local width (phase 16)
+        case(f"F={f} B={b} K1={k1} K2={k2} O={o // 2} logits (a TP shard)", f, b, k1, k2,
+             o // 2, True),
         case("B=13 O=1 K1=8 K2=16 logits", 5, 13, 8, 16, 1, True),
         case("B=13 O=70 K1=16 K2=8 linear", 3, 13, 16, 8, 70, False),
         case("B=130 O=3 K1=3 K2=5 logits", 2, 130, 3, 5, 3, True),
@@ -1168,7 +1209,7 @@ def phase_backward() -> dict[str, dict]:
             entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[backward] {bkey:27s} {label:36s} max|err|={max_err:.3e}"
             wide_tucker = key.endswith("_chunked") and f"K1=K2=O={WIDE_K}" in label
-            if label in STRUCT_SHAPES:
+            if label in (*STRUCT_SHAPES, TP_SHAPE):
                 ms, plain_ms = _median_ms(kernel), _median_ms(plain_bwd)
                 bound, by, tc = _bound(bkey, ins)
                 entry.setdefault("structure", {})[label] = {"ms": ms, "plain_ms": plain_ms,
@@ -3228,9 +3269,14 @@ def _check_route(op: str, label: str, fn, i: int, o: int) -> str:
     """The forward kernel that ``fn`` launches (``torch.profiler``): the
     narrow one (``*_fwd_narrow``) exactly where I and O are at most 32.
     Returns its name. The trace spans 5 calls: a one-call trace of a
-    microsecond kernel has come back empty on the card."""
-    names = [key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
-             for key in _profile(fn, 5)[1]]
+    microsecond kernel has come back empty on the card, and so, once, has a
+    5-call one (a float64 B=1 I=1 O=1 case), so an empty trace is taken
+    again, up to three times."""
+    for _ in range(3):  # an empty trace is a profiler miss: trace again
+        names = [key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+                 for key in _profile(fn, 5)[1]]
+        if names:
+            break
     narrow = i <= 32 and o <= 32
     if len(names) != 1 or ("fwd_narrow" in names[0]) != narrow:
         raise AssertionError(f"{op} [{label}]: launched {names}, expected the "
@@ -5258,6 +5304,528 @@ def _serving_warm_start(smi: str) -> None:
     shutil.rmtree(work)
 
 
+
+# Phase 16: the distributed path (``parallel/training.py``, ``em.py``,
+# ``tensor.py``, the ``mesh=`` routing of ``queries.py``,
+# ``utils/checkpoint.py``'s DCP checkpoints) on the K=64 Tucker flagship at
+# batch BATCH. NCCL refuses two ranks on one card, so (a) runs one NCCL
+# rank and (b) two gloo ranks on CUDA tensors sharing the card; every number
+# of (b) is two ranks sharing one card, and says nothing of two cards.
+DIST_ROWS = 2 * 128  # evaluate_ll's rows (two batches)
+# timed calls of each distributed step; of a gloo step, which moves its 1.69
+# GB of gradients through the host in seconds, DIST_TIMED_GLOO and no warm-up
+DIST_TIMED, DIST_TIMED_GLOO = 3, 2
+DIST_SEED = 7  # the conditional sampling's generator seed
+DIST_LR = 1e-2
+
+
+def _dist_batch():
+    """The batch and the 50% evidence mask of phase 7 (``bench.py:222-224``),
+    and evaluate_ll's rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
+    mask = rng.random((BATCH, 784)) < 0.5
+    return x, mask, np.random.default_rng(1).integers(0, 256, (DIST_ROWS, 784))
+
+
+def _store_hash(store) -> list:
+    """A digest of a store's bits, computed on its device: per slot the sum
+    of its elements' bit patterns and their sum weighted by position (a
+    flipped bit changes one of them), so stores on the card compare
+    without a copy to the host."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for k in sorted(store):
+        t = store[k].detach().contiguous().reshape(-1)
+        bits = t.view(ints[t.element_size()]).to(torch.int64)
+        pos = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+        out.append((k, int(bits.sum()), int((bits * pos).sum())))
+    return out
+
+
+def _fingerprint(store) -> dict[str, float]:
+    return {k: float(v.detach().double().sum()) for k, v in store.items()}
+
+
+def _rank_setup(cfg: dict):
+    """A rank's start: the card, phase 1's constants and its library (built
+    by the parent, so no rank runs nvcc)."""
+    import torch
+
+    global DEV, FLAGSHIP_K, BATCH
+    DEV, FLAGSHIP_K, BATCH = cfg["dev"], cfg["k"], cfg["batch"]
+    if cfg.get("setup") is not None:  # a CPU rehearsal's stand-ins
+        cfg["setup"]()
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from cirkit_tpu_torch.ops import _build
+
+        _build.library()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _dist_train(cc, ctx, mesh, zero1: bool, factory, x):
+    """One ``data_parallel_step`` on copies of the flagship's trainable slots
+    (replicated over ``mesh`` when given; ``x`` this rank's rows); returns
+    the loss, the trainable tensors and the step."""
+    from cirkit_tpu_torch.parallel import data_parallel_step, replicate_store, split_trainable
+
+    tr, fr = split_trainable(cc, ctx.parameters)
+    tr = dict(sorted(tr.items()))
+    if mesh is not None:
+        tr, fr = replicate_store(tr, mesh), replicate_store(fr, mesh)
+    tr = {k: v.detach().clone().requires_grad_() for k, v in tr.items()}
+    fr = {k: v.detach() for k, v in fr.items()}
+    step = data_parallel_step(cc, factory if zero1 else factory(list(tr.values())), mesh=mesh,
+                              zero1=zero1)
+    loss = step(tr, fr, x)
+    return loss, tr, lambda: step(tr, fr, x), step
+
+
+def _adam(ps):
+    import torch
+
+    return torch.optim.Adam(ps, lr=DIST_LR)
+
+
+def _same(label: str, got, want, rtol: float, notes: list) -> None:
+    """``got`` equal to ``want`` to the bit, or within ``rtol`` relative
+    (noted); else raise."""
+    import torch
+
+    got, want = torch.as_tensor(got).double().cpu(), torch.as_tensor(want).double().cpu()
+    if torch.equal(got, want):
+        notes.append(f"{label} equal to the bit")
+        return
+    err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not err <= rtol:
+        raise AssertionError(f"{label}: max relative error {err:.3e} > {rtol}")
+    notes.append(f"{label} within {err:.2e} relative ({rtol})")
+
+
+def _equal_stores(label: str, got, want) -> None:
+    import torch
+
+    bad = [k for k in want if not torch.equal(got[k].detach(), want[k].detach())]
+    if bad:
+        raise AssertionError(f"{label}: slots {bad} differ")
+
+
+def _collective_ms(fn, calls: int) -> dict[str, float]:
+    """ms a call of the collectives' ops (``gloo:*``/``nccl:*`` on the host,
+    their NCCL kernels and the copies between host and card on the device),
+    by ``torch.profiler`` over ``calls`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        name = e.key.lower()
+        if any(k in name for k in ("gloo:", "nccl:", "c10d::")):
+            out[f"host {e.key}"] = e.cpu_time_total / 1e3 / calls
+        elif "nccl" in name or "memcpy" in name:
+            dev_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            out[f"device {e.key}"] = dev_us / 1e3 / calls
+    return {k: round(v, 3) for k, v in sorted(out.items()) if v > 0}
+
+
+def _dist_nccl_rank(rank: int, cfg: dict) -> dict:
+    """Phase 16a: one NCCL rank on a (1,) and a (1, 1) mesh; every run held
+    to the single-device run of the same store in this process."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cirkit_tpu_torch.backend.torch import MAPQuery
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import (
+        evaluate_ll,
+        fit_em,
+        shard_store_tp,
+        split_trainable,
+        tp_forward,
+        tp_train_step,
+    )
+
+    _rank_setup(cfg)
+    mesh1 = init_device_mesh(DEV, (1,), mesh_dim_names=("data",))
+    mesh2 = init_device_mesh(DEV, (1, 1), mesh_dim_names=("data", "model"))
+    _, ctx, cc = _build_flagship("tucker", False, DEV)
+    _, ectx, ecc = _build_flagship("tucker", True, DEV)
+    x_np, mask_np, ev_np = _dist_batch()
+    x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
+
+    # the main-path run, counted
+    _zero_launches()
+    dp = _dist_train(cc, ctx, mesh1, False, _adam, x)
+    zero = _dist_train(cc, ctx, mesh1, True, _adam, x)
+    ll = evaluate_ll(cc, ev_np, store=ctx.parameters, batch_size=BATCH, mesh=mesh1)
+    st_tp, _ = shard_store_tp(cc, dict(cc.restrict_store(ctx.parameters)), mesh2)
+    with torch.inference_mode():
+        y_tp = tp_forward(cc, mesh2)(st_tp, x)
+    tr_tp, fr_tp = split_trainable(cc, st_tp)
+    tr_tp = {k: v.detach().clone().requires_grad_() for k, v in sorted(tr_tp.items())}
+    tp_step = tp_train_step(cc, _adam(list(tr_tp.values())), mesh2)
+    loss_tp = tp_step(tr_tp, fr_tp, x)
+    em_store, em_losses = fit_em(ecc, x_np, store=ectx.parameters, batch_size=BATCH, mesh=mesh1)
+    asg, vals = MAPQuery(cc, mesh=mesh2)(x, evidence_mask=mask, store=st_tp)
+    torch.cuda.synchronize()
+    launches = {op: n for op, n in L.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the single-device runs of the same store
+    notes: list[str] = []
+    sd = _dist_train(cc, ctx, None, False, _adam, x)
+    for label, run in (("DP Adam", dp), ("ZeRO-1 Adam", zero)):
+        _same(f"{label} loss", run[0], sd[0], RTOL, notes)
+        _equal_stores(f"{label} store", run[1], sd[1])
+    notes.append("DP and ZeRO-1 Adam stores equal to the bit")
+    _same("TP train-step loss", loss_tp, sd[0], RTOL, notes)
+    _equal_stores("TP Adam store", tr_tp, sd[1])
+    from cirkit_tpu_torch.parallel import evaluate_ll as ev
+
+    _same("evaluate_ll", ll, ev(cc, ev_np, store=ctx.parameters, batch_size=BATCH), RTOL, notes)
+    with torch.inference_mode():
+        _same("TP forward", y_tp, cc(ctx.parameters, x), RTOL, notes)
+        sd_asg, sd_vals = MAPQuery(cc)(x, evidence_mask=mask, store=ctx.parameters)
+    if not torch.equal(asg, sd_asg):
+        raise AssertionError(f"TP MAP: {int((asg != sd_asg).sum())} assignment entries differ")
+    _same("TP MAP values", vals, sd_vals, RTOL, notes)
+    sd_store, sd_losses = fit_em(ecc, x_np, store=ectx.parameters, batch_size=BATCH)
+    _same("fit_em loss", em_losses, sd_losses, RTOL, notes)
+    _equal_stores("fit_em store", em_store, sd_store)
+
+    times = {
+        "DP Adam step": _median_ms(dp[2], warmup=1, iters=DIST_TIMED),
+        "ZeRO-1 Adam step": _median_ms(zero[2], warmup=1, iters=DIST_TIMED),
+        "TP forward": _median_ms(lambda: tp_forward(cc, mesh2)(st_tp, x), warmup=1,
+                                 iters=DIST_TIMED),
+        "TP Adam step": _median_ms(lambda: tp_step(tr_tp, fr_tp, x), warmup=1,
+                                   iters=DIST_TIMED),
+    }
+    split = _collective_ms(dp[2], 2)
+    return {"rank": rank, "launches": launches, "peak_gb": round(peak, 3), "notes": notes,
+            "ms": {k: round(v, 3) for k, v in times.items()}, "collectives": split,
+            "fingerprint": _fingerprint(ctx.parameters), "loss": float(dp[0]),
+            "em_losses": em_losses}
+
+
+def _dist_gloo_rank(rank: int, cfg: dict) -> dict:
+    """Phase 16b: one of two gloo ranks sharing the card. Returns the
+    forwards, the MAP result and the samples for the parent's single-device
+    runs; holds the gradients, the updated stores and the EM flows to the
+    single-device ones computed here (GB-sized). Each run keeps only what
+    its check needs, so two ranks and the parent fit on the card."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cirkit_tpu_torch.backend.torch import MAPQuery, SamplingQuery
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import (
+        adam_lowmem,
+        em_programs,
+        evaluate_ll,
+        shard_batch,
+        shard_store_tp,
+        split_trainable,
+        tp_forward,
+        tp_train_step,
+    )
+    from cirkit_tpu_torch.utils.checkpoint import save_checkpoint
+
+    _rank_setup(cfg)
+    mesh1 = init_device_mesh(DEV, (2,), mesh_dim_names=("data",))
+    mesh2 = init_device_mesh(DEV, (1, 2), mesh_dim_names=("data", "model"))
+    _, ctx, cc = _build_flagship("tucker", False, DEV)
+    _, ectx, ecc = _build_flagship("tucker", True, DEV)
+    x_np, mask_np, ev_np = _dist_batch()
+    x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
+    xr = shard_batch(x, mesh1)  # this rank's 64 rows
+    ones = torch.ones(xr.shape[0], device=xr.device)
+    zero_ll = torch.zeros((), device=xr.device)
+
+    def em_flow(programs, rows):
+        flow_step, em_update, state = programs
+        acc, ll = flow_step(state["em_params"], state["gauss_params"], state["zero_acc"](),
+                            zero_ll, rows, torch.ones(rows.shape[0], device=rows.device))
+        return acc[0], ll, em_update(state["em_params"], state["gauss_params"], acc, 1.0)[0]
+
+    def tp_run():
+        st, specs = shard_store_tp(cc, dict(cc.restrict_store(ctx.parameters)), mesh2)
+        tr, fr = split_trainable(cc, st)
+        tr = {k: v.detach().clone().requires_grad_() for k, v in sorted(tr.items())}
+        step = tp_train_step(cc, _adam(list(tr.values())), mesh2)
+        return st, specs, lambda: step(tr, fr, x), tr
+
+    # the main-path run, counted
+    _zero_launches()
+    loss, tr, _, _ = _dist_train(cc, ctx, mesh1, False, _adam, xr)
+    grads = {k: v.grad for k, v in tr.items()}  # averaged over the ranks
+    out = {"loss": float(loss), "dp": _store_hash(tr)}
+    del tr
+    loss, tr, _, step = _dist_train(cc, ctx, mesh1, True, _adam, xr)
+    out.update(zero_loss=float(loss), zero=_store_hash(tr))
+    # Adam's moments a rank: ZeRO-1's slices against two of every slot
+    state_bytes = {
+        "ZeRO-1 Adam": sum(t.numel() * t.element_size()
+                           for st in step.zero1.optimizer.state.values()
+                           for key, t in st.items() if key != "step"),
+        "replicated Adam": 2 * sum(t.numel() * t.element_size() for t in tr.values()),
+    }
+    del tr, step
+    _, tr, low_step, step = _dist_train(cc, ctx, mesh1, True, adam_lowmem(DIST_LR), xr)
+    out["s1"] = _store_hash(tr)
+    # the ZeRO-1 adam_lowmem state after its step, written by both ranks (DCP),
+    # then the uninterrupted second step
+    save_checkpoint(cfg["dcp"], {"trainable": tr, "opt_state": step.zero1.sharded_state()})
+    low_step()
+    out["s2"] = _store_hash(tr)
+    del tr, low_step, step
+    out["evaluate_ll"] = evaluate_ll(cc, ev_np, store=ctx.parameters, batch_size=BATCH,
+                                     mesh=mesh1)
+    flows, em_ll, em_new = em_flow(em_programs(ecc, ectx.parameters, mesh=mesh1), xr)
+    st_tp, specs, tp_step, tr_tp = tp_run()
+    with torch.inference_mode():
+        out["forward"] = tp_forward(cc, mesh2)(st_tp, x).cpu()
+    out["tp_loss"] = float(tp_step())
+    tp_grads = {k: v.grad for k, v in tr_tp.items()}
+    del tp_step, tr_tp
+    asg, vals = MAPQuery(cc, mesh=mesh2)(x, evidence_mask=mask, store=st_tp)
+    cond, log_ev = SamplingQuery(cc, mesh=mesh2).conditional(
+        x, evidence_mask=mask, store=st_tp, generator=torch.Generator().manual_seed(DIST_SEED))
+    out.update(map=(asg.cpu(), vals.cpu()), conditional=(cond.cpu(), log_ev.cpu()))
+    torch.cuda.synchronize()
+    launches = {op: n for op, n in L.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the single-device runs of the same store, held here
+    notes: list[str] = []
+    tr, fr = split_trainable(cc, ctx.parameters)
+    tr = {k: v.detach().requires_grad_() for k, v in sorted(tr.items())}
+    sd_grads = dict(zip(tr, torch.autograd.grad(-cc.evaluate({**tr, **fr}, x).mean(),
+                                                list(tr.values()))))
+    worst = _check_grads("DP averaged gradients", grads, sd_grads)
+    tp_worst = _check_grads("TP gradients", tp_grads, {
+        k: (v.chunk(2, dim=1)[rank] if specs.get(k) == 1 else v) for k, v in sd_grads.items()})
+    notes.append(f"DP averaged gradients within {worst:.3f}, TP gradients within "
+                 f"{tp_worst:.3f} of the GRAD bound")
+    del sd_grads, tp_grads, tr
+    # the optimizers on one device, on the averaged gradients (two ranks: the
+    # reduce-scatter and the all-reduce add the same two terms)
+    for name, make, want in (("Adam", _adam, (out["dp"], out["zero"])),
+                             ("adam_lowmem", adam_lowmem(DIST_LR), (out["s1"],))):
+        ref = {k: v.detach().clone().requires_grad_()
+               for k, v in sorted(split_trainable(cc, ctx.parameters)[0].items())}
+        opt = make(list(ref.values()))
+        for k, t in ref.items():
+            t.grad = grads[k]
+        opt.step()
+        if any(_store_hash(ref) != h for h in want):
+            raise AssertionError(f"a distributed {name} store differs from {name} on one "
+                                 "device on the averaged gradients")
+        del ref, opt
+    notes.append("the DP and ZeRO-1 Adam stores and the ZeRO-1 adam_lowmem store equal to the "
+                 "bit to the optimizer on one device on the averaged gradients")
+    del grads
+    sd_flows, sd_ll, sd_new = em_flow(em_programs(ecc, ectx.parameters), x)
+    # mean flows a row, the scale of phase 5b's check
+    em_worst = _check_grads("EM flows", {k: v / BATCH for k, v in flows.items()},
+                            {k: v / BATCH for k, v in sd_flows.items()})
+    mstep_worst = _check_grads("EM M-step", em_new, sd_new)
+    _same("EM log-likelihood", em_ll, sd_ll, RTOL, notes)
+    notes.append(f"EM flows within {em_worst:.3f}, the M-step within {mstep_worst:.3f} of the "
+                 "GRAD bound")
+    del flows, em_new, sd_flows, sd_new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # timed, one run at a time (every rank times the same calls)
+    times, splits = {}, {}
+    for name, make in (("DP Adam step", lambda: _dist_train(cc, ctx, mesh1, False, _adam, xr)),
+                       ("ZeRO-1 Adam step", lambda: _dist_train(cc, ctx, mesh1, True, _adam, xr)),
+                       ("ZeRO-1 adam_lowmem step",
+                        lambda: _dist_train(cc, ctx, mesh1, True, adam_lowmem(DIST_LR), xr)),
+                       ("TP Adam step", tp_run)):
+        fn = make()[2]
+        tp = name.startswith("TP")
+        times[name] = _median_ms(fn, warmup=int(tp), iters=DIST_TIMED if tp
+                                 else DIST_TIMED_GLOO)
+        if name in ("DP Adam step", "TP Adam step"):
+            if rank == 0:
+                splits[name] = _collective_ms(fn, 1)
+            else:  # the same collectives as rank 0's profiled call
+                fn()
+        del fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    programs = em_programs(ecc, ectx.parameters, mesh=mesh1)
+    acc = programs[2]["zero_acc"]()
+    times["EM flow step"] = _median_ms(lambda: programs[0](
+        programs[2]["em_params"], programs[2]["gauss_params"], acc, zero_ll, xr, ones),
+        warmup=0, iters=DIST_TIMED_GLOO)
+    del programs, acc
+    times["TP forward"] = _median_ms(lambda: tp_forward(cc, mesh2)(st_tp, x), warmup=1,
+                                     iters=DIST_TIMED)
+    times["TP MAP"] = _median_ms(lambda: MAPQuery(cc, mesh=mesh2)(x, evidence_mask=mask,
+                                                                   store=st_tp),
+                                 warmup=1, iters=DIST_TIMED)
+    out.update(rank=rank, launches=launches, peak_gb=round(peak, 3), notes=notes,
+               ms={k: round(v, 3) for k, v in times.items()}, collectives=splits,
+               fingerprint=_fingerprint(ctx.parameters), state_bytes=state_bytes,
+               shapes={k: tuple(v.shape) for k, v in st_tp.items() if specs.get(k) == 1})
+    return out
+
+
+def phase_distributed(smi: str, built: list) -> dict[str, int]:
+    """Phase 16: (a) one NCCL rank, (b) two gloo ranks sharing the card, then
+    (c) the ZeRO-1 checkpoint the two ranks wrote, read here at one rank and
+    resumed to their uninterrupted step to the bit. Returns the ranks' kernel
+    launches on their main paths."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import MAPQuery, SamplingQuery
+    from cirkit_tpu_torch.parallel import evaluate_ll, split_trainable
+    from cirkit_tpu_torch.parallel.launch import run_ranks
+    from cirkit_tpu_torch.parallel.optimizers import AdamLowMem
+    from cirkit_tpu_torch.parallel.training import _load_optimizer_state
+    from cirkit_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    ctx, cc = next((ctx, cc) for spl, em, _, ctx, cc, _ in built if spl == "tucker" and not em)
+    ck = REPO / "build" / "chip_smoke" / "dcp"
+    if ck.parent.exists():
+        shutil.rmtree(ck.parent)
+    ck.parent.mkdir(parents=True)
+    cfg = dict(dev=DEV, k=FLAGSHIP_K, batch=BATCH, setup=DIST_SETUP, dcp=str(ck))
+    want_fp = _fingerprint(ctx.parameters)
+    launches: dict[str, int] = {}
+    # the ranks share the card: hand them what this process's allocator keeps
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dist] this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GB of the "
+          "card while the ranks run")
+
+    (a,) = run_ranks(_dist_nccl_rank, 1, cfg, backend="nccl" if DEV == "cuda" else "gloo",
+                     threads=None)
+    ta = time.perf_counter() - t0
+    b = run_ranks(_dist_gloo_rank, 2, cfg, backend="gloo", threads=None)
+    tb = time.perf_counter() - t0 - ta
+    for r in (a, *b):
+        if r["fingerprint"] != want_fp:
+            raise AssertionError(f"rank {r['rank']} built another store than the parent's")
+        for op, n in r["launches"].items():
+            launches[op] = launches.get(op, 0) + n
+    label = "[dist] (a) one NCCL rank"
+    print(f"{label}: {'; '.join(a['notes'])}; launches {a['launches']}; peak "
+          f"{a['peak_gb']} GB; ms median of {DIST_TIMED} {a['ms']}; collectives by the "
+          f"profiler (ms a DP step) {a['collectives']}; {ta:.1f} s ({smi})")
+
+    # (b) against the single-device runs here
+    x_np, mask_np, ev_np = _dist_batch()
+    x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
+    notes: list[str] = []
+    tr, fr = split_trainable(cc, ctx.parameters)
+    with torch.no_grad():
+        sd_loss = float(-cc.evaluate(ctx.parameters, x).mean())
+        y = cc(ctx.parameters, x)
+    sd_ll = evaluate_ll(cc, ev_np, store=ctx.parameters, batch_size=BATCH)
+    sd_asg, sd_vals = MAPQuery(cc)(x, evidence_mask=mask, store=ctx.parameters)
+    sd_cond, sd_ev = SamplingQuery(cc).conditional(
+        x, evidence_mask=mask, store=ctx.parameters,
+        generator=torch.Generator().manual_seed(DIST_SEED))
+    for r in b:
+        tag = f"rank {r['rank']}"
+        for key in ("loss", "zero_loss", "tp_loss"):
+            _same(f"{tag} {key}", r[key], sd_loss, RTOL, notes)
+        _same(f"{tag} evaluate_ll", r["evaluate_ll"], sd_ll, RTOL, notes)
+        _same(f"{tag} TP forward", r["forward"], y.cpu(), RTOL, notes)
+        asg, vals = r["map"]
+        if not torch.equal(asg, sd_asg.cpu()):
+            raise AssertionError(f"{tag} TP MAP: {int((asg != sd_asg.cpu()).sum())} "
+                                 "assignment entries differ from one device's")
+        _same(f"{tag} TP MAP values", vals, sd_vals.cpu(), RTOL, notes)
+        cond, log_ev = r["conditional"]
+        if not torch.equal(cond, sd_cond.cpu()):
+            raise AssertionError(f"{tag} TP conditional samples: "
+                                 f"{int((cond != sd_cond.cpu()).sum())} entries differ")
+        _same(f"{tag} TP log-evidence", log_ev, sd_ev.cpu(), RTOL, notes)
+    if b[0]["s2"] != b[1]["s2"]:
+        raise AssertionError("the two ranks' ZeRO-1 adam_lowmem stores differ")
+
+    # (c) the DCP checkpoint of the two ranks, read at one rank (no process
+    # group), resumed by the step both ranks took: the two halves' gradients
+    # averaged as the reduce-scatter does
+    t1 = time.perf_counter()
+    names = sorted(tr)
+    like = {"trainable": {k: torch.empty_like(tr[k]) for k in names},
+            "opt_state": {k: {"step": torch.zeros((), dtype=torch.int64),
+                              "exp_avg": torch.empty_like(tr[k], dtype=torch.bfloat16),
+                              "exp_avg_sq": torch.empty_like(tr[k], dtype=torch.bfloat16)}
+                          for k in names}}
+    got = load_checkpoint(ck, like)
+    if _store_hash(got["trainable"]) != b[0]["s1"]:
+        raise AssertionError("the checkpoint's parameters differ from the ranks'")
+    params = {k: got["trainable"][k].requires_grad_() for k in names}
+    opt = AdamLowMem(list(params.values()), lr=DIST_LR)
+    _load_optimizer_state(opt, names, got["opt_state"])
+    del got, like
+    half = BATCH // 2
+    total = None
+    for r in range(2):
+        rows = x[r * half : (r + 1) * half]
+        g = torch.autograd.grad(-cc.evaluate({**params, **fr}, rows).mean(),
+                                list(params.values()))
+        total = g if total is None else [u + v for u, v in zip(total, g)]
+    for t, g in zip(params.values(), total):
+        t.grad = g / 2
+    opt.step()
+    if _store_hash(params) != b[0]["s2"]:
+        raise AssertionError("the resumed ZeRO-1 adam_lowmem step differs from the ranks' "
+                             "uninterrupted one")
+    del params, opt, total
+    shutil.rmtree(ck.parent)
+    notes.append("the ZeRO-1 adam_lowmem state written at two ranks (DCP), read at one and "
+                 "resumed: equal to the bit to the uninterrupted step")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = "[dist] (b) two gloo ranks sharing one card"
+    for r in b:
+        print(f"{label}, rank {r['rank']}: {'; '.join(r['notes'])}; launches {r['launches']} "
+              f"(Tucker entries at {sorted(set(s[1] for s in r['shapes'].values()))} local "
+              f"units); peak {r['peak_gb']} GB; ms median of {DIST_TIMED} calls after one, of "
+              f"{DIST_TIMED_GLOO} for a data-parallel or EM step {r['ms']}; optimizer "
+              f"state bytes a rank {r['state_bytes']} ({smi})")
+    print(f"{label}: collectives by the profiler (rank 0, ms a step) {b[0]['collectives']}")
+    print(f"{label}: against one device here: {'; '.join(notes)}; (b) {tb:.1f} s, (c) "
+          f"{time.perf_counter() - t1:.1f} s ({smi})")
+    want = ("lse_tucker2_softmax", "lse_tucker2_softmax_bwd", "tropical_tucker2",
+            "route_tucker2")
+    for r in (a, *b):
+        missing = [op for op in want if not r["launches"].get(op)]
+        if missing:
+            raise AssertionError(f"rank {r['rank']}: {missing} not launched on the "
+                                 "distributed path")
+    print(f"[dist] launches on the distributed main paths (every rank): {launches}")
+    return launches
+
+
+# A CPU rehearsal sets this to a module-level function that each rank calls
+# first (its stand-ins for the kernels); None on the card.
+DIST_SETUP = None
+
+
 def main() -> int:
     import torch
 
@@ -5286,6 +5854,9 @@ def main() -> int:
     expect = phase_expectation(smi, built)
     cross = phase_cross(smi, built)
     print(f"[time] phases 4-7b and 12 done at {time.perf_counter() - t_start:.0f} s")
+    t_dist = time.perf_counter()
+    dist = phase_distributed(smi, built)
+    print(f"[time] phase 16 took {time.perf_counter() - t_dist:.0f} s")
     struct = phase_structure(smi, built)
     print(f"[time] phase 13 done at {time.perf_counter() - t_start:.0f} s")
     qpc = phase_qpc(smi, built)
@@ -5303,7 +5874,7 @@ def main() -> int:
     print(f"[time] phase 15 took {time.perf_counter() - t_serve:.0f} s, done at "
           f"{time.perf_counter() - t_start:.0f} s")
     for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, struct,
-                   qpc, wide, sos, signed, csos, cflag, f64, serve):
+                   qpc, wide, sos, signed, csos, cflag, f64, serve, dist):
         for op, n in counts.items():
             if n:  # the phases count every LAUNCHES key, most at 0
                 launches[op] = launches.get(op, 0) + n

@@ -25,17 +25,28 @@ The counterpart of ``cirkit_tpu/backend/jax/queries.py`` (``:30-1240`` and
 Randomness comes from an explicit ``torch.Generator`` (``generator=``,
 where the JAX package takes ``key=``): a sampling call draws one int64 seed
 per plan entry from it, so one generator seed reproduces the same draws.
-MAP and sampling run under ``torch.inference_mode()``. The tensor-parallel
-``mesh=`` (ROADMAP item 12) raises ``NotImplementedError``.
+MAP and sampling run under ``torch.inference_mode()``.
+
+With a ``mesh`` (a ``torch.distributed`` DeviceMesh with a ``model`` axis)
+MAP and the lse-sum sampling route on the ranks' unit shards of the store
+(:mod:`cirkit_tpu_torch.parallel.tensor`): the kernels run on local widths,
+each sharded entry's activations are all-gathered after it, and the
+downward choice at a sharded entry is made by the shard that owns the
+selected unit (a masked max of the choices, a masked sum of the selected
+weight rows, over the model axis). Only MAP splits its batch over the
+``data`` axis; sampling runs the whole batch on every rank, so its draws
+are the single-device draws from the same seed.
 """
 
 from __future__ import annotations
 
 from abc import ABC
 from collections.abc import Callable, Sequence
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from cirkit_tpu_torch.backend.torch.circuit import (
     ModuleFn,
@@ -71,8 +82,6 @@ from cirkit_tpu_torch.ops.routing import (
     tucker_comb,
 )
 from cirkit_tpu_torch.utils.scope import Scope
-
-_MESH = "tensor-parallel queries (mesh=) wait for ROADMAP item 12"
 
 MaskSpec = torch.Tensor | np.ndarray | Scope | Sequence[Scope]
 
@@ -850,9 +859,16 @@ class MAPQuery(Query):
 
     The assignment maximizes ONE root output unit: flat output ``output``,
     unit ``unit`` (defaults (0, 0)), and ``log_values`` is that unit's
-    max-product value."""
+    max-product value.
 
-    def __init__(self, circuit: TorchCircuit, *, mesh=None) -> None:
+    With a ``mesh`` the routing runs tensor-parallel over ``model_axis``:
+    pass the rank's store from ``parallel.shard_store_tp`` (a full store is
+    cut to the rank's shards), and every rank calls the query with the same
+    arguments. The batch splits over ``data_axis`` when the mesh has it and
+    it divides the batch; every rank returns the whole result."""
+
+    def __init__(self, circuit: TorchCircuit, *, mesh=None, model_axis: str = "model",
+                 data_axis: str | None = "data") -> None:
         if not (circuit.properties.smooth and circuit.properties.decomposable):
             raise ValueError(
                 "The circuit to maximize must be smooth and decomposable, "
@@ -863,9 +879,8 @@ class MAPQuery(Query):
                 "MAPQuery requires a circuit compiled under the 'lse-sum' semiring, "
                 f"found {circuit.semiring.__name__}"
             )
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self._circuit = circuit
+        self._tp = _TPQuery(circuit, mesh, model_axis, data_axis)
 
     def __call__(
         self,
@@ -927,6 +942,8 @@ class MAPQuery(Query):
                     raise ValueError(f"top_k must be >= 1, found {top_k}")
                 if mg is not None:
                     raise NotImplementedError("top_k cannot be combined with marginalize_vars")
+                if self._tp.mesh is not None:
+                    raise NotImplementedError("top_k is not supported on a tensor-parallel mesh")
                 runs = cc.__dict__.setdefault("_topk_runs", {})
                 key = (top_k, output, unit)
                 if key not in runs:
@@ -934,7 +951,7 @@ class MAPQuery(Query):
 
                     runs[key] = build_topk_run(cc, top_k, root_output=output, root_unit=unit)
                 return _slice_rows(runs[key](store, x, mask), _b)  # (B, T, D), (B, T)
-            asg, vals, _ = _routing_run(cc, "max", output, unit)(store, x, mask, mg)
+            asg, vals, _ = self._tp.run("max", output, unit, store, x, mask, mg)
             return _slice_rows((asg, vals[output, :, unit]), _b)
 
 
@@ -945,17 +962,23 @@ class SamplingQuery(Query):
     sample) at the selected unit only, and one state per selected input
     unit. Memory stays activation-sized. Any other semiring takes the dense
     bottom-up sampler (:func:`_sample_dense`), which reads the weights as
-    probabilities and draws every unit's mixture index."""
+    probabilities and draws every unit's mixture index.
 
-    def __init__(self, circuit: TorchCircuit, *, mesh=None) -> None:
+    With a ``mesh`` the lse-sum routing runs tensor-parallel over
+    ``model_axis``, as :class:`MAPQuery`'s, on the whole batch on every rank
+    (the batch is never split over ``data_axis``: the draws stay the
+    single-device draws from the same generator); the dense sampler of the
+    other semirings reads a full store and ignores the mesh."""
+
+    def __init__(self, circuit: TorchCircuit, *, mesh=None, model_axis: str = "model",
+                 data_axis: str | None = "data") -> None:
         if not (circuit.properties.smooth and circuit.properties.decomposable):
             raise ValueError(
                 "The circuit to sample from must be smooth and decomposable, "
                 f"but found {circuit.properties}"
             )
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self._circuit = circuit
+        self._tp = _TPQuery(circuit, mesh, model_axis, data_axis)
 
     def __call__(
         self,
@@ -981,8 +1004,8 @@ class SamplingQuery(Query):
             shape = (num_samples, _num_vars(cc))
             x = torch.zeros(shape, dtype=torch.int64, device=dev)
             mask = torch.zeros(shape, dtype=torch.bool, device=dev)
-            run = _routing_run(cc, "sample", 0, 0)
-            samples, _, mixtures = run(store, x, mask, None, _generator(generator))
+            samples, _, mixtures = self._tp.run("sample", 0, 0, store, x, mask, None,
+                                                _generator(generator))
             return samples, list(mixtures)
 
     def conditional(
@@ -1020,19 +1043,92 @@ class SamplingQuery(Query):
                     f"The circuit scope has {num_vars} variables, but the mask "
                     f"covers {mask.shape[1]}"
                 )
-            run = _routing_run(cc, "sample", output, unit)
-            asg, vals, _ = run(store, x, mask, None, _generator(generator))
+            asg, vals, _ = self._tp.run("sample", output, unit, store, x, mask, None,
+                                        _generator(generator))
             return _slice_rows((asg, vals[output, :, unit]), _b)
 
 
-def _routing_run(cc: TorchCircuit, kind: str, root_output: int, root_unit: int) -> Callable:
-    """The routing closure for one (kind, root) choice, built once and kept
-    on the circuit."""
+def _routing_run(cc: TorchCircuit, kind: str, root_output: int, root_unit: int,
+                 tp=None) -> Callable:
+    """The routing closure for one (kind, root) choice (and tensor-parallel
+    descriptor), built once and kept on the circuit."""
     runs = cc.__dict__.setdefault("_routing_runs", {})
-    key = (kind, root_output, root_unit)
+    key = (kind, root_output, root_unit, None if tp is None else (tp.mesh, tp.axis))
     if key not in runs:
-        runs[key] = _build_routing_run(cc, kind, root_output=root_output, root_unit=root_unit)
+        runs[key] = _build_routing_run(cc, kind, root_output=root_output, root_unit=root_unit,
+                                       tp=tp)
     return runs[key]
+
+
+class TPRouting(NamedTuple):
+    """What the routing passes need to run on one rank's unit shards (built
+    by ``parallel.tensor.tp_routing_descriptor``): the mesh, its model axis,
+    the shard count, this rank's shard index, and per plan entry whether
+    the entry's own parameters are unit-sharded. The cross-shard
+    combinations are explicit collectives outside the kernels: an
+    all-gather of the small activations upward, a masked max or sum of the
+    per-shard choices downward."""
+
+    mesh: Any
+    axis: str
+    size: int
+    rank: int
+    entry_sharded: tuple[bool, ...]
+
+    def gather(self, a: torch.Tensor, full: int | None = None) -> torch.Tensor:
+        """The full unit axis of a local-width ``a``; an ``a`` already of
+        width ``full`` (a hook that builds a full-width constant from static
+        metadata) is returned as it is."""
+        from cirkit_tpu_torch.parallel.mesh import gather_units
+
+        if full is not None and a.shape[-1] == full:
+            return a
+        return gather_units(a, self.mesh, self.axis)
+
+    def pmax(self, a: torch.Tensor) -> torch.Tensor:
+        from cirkit_tpu_torch.parallel.mesh import all_reduce
+
+        return all_reduce(a.contiguous(), self.mesh, self.axis, torch.distributed.ReduceOp.MAX)
+
+    def psum(self, a: torch.Tensor) -> torch.Tensor:
+        from cirkit_tpu_torch.parallel.mesh import all_reduce
+
+        return all_reduce(a.contiguous(), self.mesh, self.axis)
+
+
+class _TPQuery:
+    """The mesh of a routing query (or none): the tensor-parallel descriptor
+    over ``model_axis``, the store cut to the rank's shards, and MAP's batch
+    split over ``data_axis``."""
+
+    def __init__(self, cc: TorchCircuit, mesh, model_axis: str, data_axis: str | None):
+        self.cc, self.mesh, self.data_axis = cc, mesh, data_axis
+        self.model_axis = model_axis
+        self.tp = None
+        if mesh is not None:
+            from cirkit_tpu_torch.parallel.tensor import tp_routing_descriptor
+
+            self.tp = tp_routing_descriptor(cc, mesh, model_axis=model_axis)[0]
+
+    def run(self, kind: str, output: int, unit: int, store: Store, x, mask, mg,
+            generator=None):
+        run = _routing_run(self.cc, kind, output, unit, self.tp)
+        if self.mesh is None:
+            return run(store, x, mask, mg, generator)
+        from cirkit_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows
+        from cirkit_tpu_torch.parallel.tensor import localize_store
+
+        store = localize_store(self.cc, store, self.mesh, self.model_axis)
+        dsz = axis_size(self.mesh, self.data_axis)
+        if kind != "max" or dsz == 1 or x.shape[0] % dsz:
+            return run(store, x, mask, mg, generator)
+        # only the deterministic pass splits its batch over the data axis
+        x, mask, mg = (None if a is None else local_rows(a, self.mesh, self.data_axis)
+                       for a in (x, mask, mg))
+        asg, vals, mixtures = run(store, x, mask, mg, generator)
+        return (gather_rows(asg, self.mesh, self.data_axis),
+                gather_rows(vals, self.mesh, self.data_axis, dim=1),
+                tuple(gather_rows(m, self.mesh, self.data_axis, dim=1) for m in mixtures))
 
 
 def _max_weight(param: TorchParameter, st: Store) -> torch.Tensor:
@@ -1241,7 +1337,7 @@ def _sample_dense(cc: TorchCircuit, store: Store, num_samples: int,
 
 
 def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
-                       root_unit: int = 0) -> Callable:
+                       root_unit: int = 0, tp=None) -> Callable:
     """The two-pass routing behind :class:`MAPQuery` (``kind="max"``) and
     sampling (``kind="sample"``).
 
@@ -1266,6 +1362,18 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
     draw of ``sample_selected``) and scatters them to their variables.
 
     The memory high-water mark is a few activation-sized tensors per entry.
+
+    With ``tp`` (a ``parallel.tensor.TPRouting``) the run is one rank's part
+    of a tensor-parallel routing: the store holds the rank's unit shards of
+    the flagged entries' slots, so every kernel sees local widths. Each
+    flagged entry's values are gathered to full width right after it, and
+    the downward choice at a flagged sum-style entry is the owning shard's:
+    the selected unit is shifted into the rank's rows (``rank * O_local``),
+    the other ranks' choices are masked to -1 and the max over the model
+    axis keeps the owner's, a weight row is summed over the axis from the
+    owner's row and the others' zeros, and a flagged input layer's sampled
+    state likewise. A Tucker-2 draw is keyed by (seed, fold, row), never by
+    the unit, so the owner draws the single-device draw.
     """
     name = "MAP" if kind == "max" else "Conditional sampling"
     entries = cc._entries
@@ -1296,6 +1404,12 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
             seeds = torch.randint(0, 2**62, (2 * n,), generator=generator,
                                   device=generator.device).tolist()
 
+        def full(e: int, a: torch.Tensor) -> torch.Tensor:
+            """Entry ``e``'s values (or per-unit states) at full unit width."""
+            if tp is None or not tp.entry_sharded[e]:
+                return a
+            return tp.gather(a, entries[e].layer.num_output_units)
+
         # ---- upward pass: values (F, B, K), no choices ---------------------
         vals: list[torch.Tensor] = []
         inputs: dict[int, tuple] = {}
@@ -1304,18 +1418,19 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
             xin = cc.entry_input(entry, xx, vals)
             if isinstance(layer, TorchInputLayer):
                 v = _scope_vars(layer, dev)
-                obs_val = layer(st, xin)  # (F, B, K)
+                obs_val = full(e, layer(st, xin))  # (F, B, K)
                 mgrow = free_arg = None
                 if kind == "max":
                     free_val, free_arg = layer.mpe(st)  # (F, K) each
-                    fv = free_val[:, None, :]
+                    fv, free_arg = full(e, free_val)[:, None, :], full(e, free_arg)
                     if mg is not None:
                         # marginal MAP: summed-out variables contribute their
                         # integral instead of their mode
                         mgrow = mg[:, v].t()  # (F, B)
-                        fv = torch.where(mgrow[:, :, None], layer.integrate(st)[:, None, :], fv)
+                        fv = torch.where(mgrow[:, :, None],
+                                         full(e, layer.integrate(st))[:, None, :], fv)
                 else:
-                    fv = layer.integrate(st)[:, None, :]  # states are drawn at assembly
+                    fv = full(e, layer.integrate(st))[:, None, :]  # states drawn at assembly
                 mrow = mk[:, v].t()  # (F, B)
                 vals.append(torch.where(mrow[:, :, None], obs_val, fv))
                 inputs[e] = (xin[..., 0], mrow, free_arg, mgrow, v)
@@ -1324,15 +1439,15 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
                 if isinstance(layer, TorchTuckerLayer) and layer.arity == 2:
                     ls = layer._logits_slot
                     th = st[ls] if ls is not None else _max_weight(layer.weight, st)
-                    vals.append(tropical_tucker2(
+                    vals.append(full(e, tropical_tucker2(
                         xin[:, 0].contiguous(), xin[:, 1].contiguous(), th.contiguous(),
                         log_weights=ls is not None,
-                    ))
+                    )))
                 else:
                     w = _max_weight(layer.weight, st)
-                    vals.append(max_plus(safelog(w), _comb(recs_static[e][0], xin)))
+                    vals.append(full(e, max_plus(safelog(w), _comb(recs_static[e][0], xin))))
             else:
-                vals.append(layer(st, xin))
+                vals.append(full(e, layer(st, xin)))
         root_vals = cc.output_stack(vals)  # (O, B, K)
 
         # ---- downward pass: the choice at the selected unit -----------------
@@ -1366,15 +1481,28 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
                 th = st[ls]  # raw logits: a row constant cannot change the choice
             else:
                 th = _max_weight(layer.weight, st) if kind == "max" else layer.weight(st)
+            owned = None
+            if tp is not None and tp.entry_sharded[e]:
+                # the selected unit lives on one shard: shift it into this
+                # shard's rows and mark the rows this shard owns
+                o_loc = th.shape[1]
+                local = safe - tp.rank * o_loc
+                owned = active & (local >= 0) & (local < o_loc)
+                safe = local.clamp(0, o_loc - 1)
             if tag == "tucker" and h == 2:
                 m = route_tucker2(
                     xin[:, 0].contiguous(), xin[:, 1].contiguous(), th.contiguous(), safe,
                     kind=kind, log_weights=ls is not None,
                     seed=None if seeds is None else seeds[e],
                 )
+                if owned is not None:  # the owner's choice survives the max
+                    m = tp.pmax(torch.where(owned, m, -1))
             else:
                 idx = safe[:, :, None].expand(-1, -1, th.shape[2])
-                scores = _comb(tag, xin) + safelog(torch.gather(th, 1, idx))
+                row = torch.gather(th, 1, idx)  # (F, B, M)
+                if owned is not None:  # the owner's row plus the others' zeros
+                    row = tp.psum(torch.where(owned[:, :, None], row, 0))
+                scores = _comb(tag, xin) + safelog(row)
                 m = (scores.argmax(dim=-1) if kind == "max"
                      else gumbel_argmax(scores, _device_generator(seeds[e], dev)))
             draws[e] = torch.where(active, m, -1)
@@ -1399,6 +1527,16 @@ def _build_routing_run(cc: TorchCircuit, kind: str, *, root_output: int = 0,
                 free = torch.gather(free_arg, 1, safe)
                 if mgrow is not None:
                     free = torch.where(mgrow, 0, free)  # marginalized: no MPE state
+            elif tp is not None and tp.entry_sharded[e]:
+                # the selected unit's parameters live on one shard: it draws
+                # with the shifted index, the others add zeros
+                k_loc = vals[e].shape[2] // tp.size
+                local = safe - tp.rank * k_loc
+                owned = (sel >= 0) & (local >= 0) & (local < k_loc)
+                drawn = entries[e].layer.sample_selected(
+                    st, _device_generator(seeds[n + e], dev), local.clamp(0, k_loc - 1)
+                )
+                free = tp.psum(torch.where(owned, drawn.to(dtype), 0))
             else:
                 free = entries[e].layer.sample_selected(
                     st, _device_generator(seeds[n + e], dev), safe

@@ -32,8 +32,11 @@ Requirements, checked when the programs are built:
 - other input parameters (embeddings, polynomial coefficients, ...) stay
   fixed: combine EM for the rest with :func:`fit`.
 
-The programs run eagerly, with no compilation cache. Distribution over a
-device mesh (``mesh``, ``axis``) waits for ROADMAP item 12.
+The programs run eagerly, with no compilation cache. With a ``mesh`` (a
+``torch.distributed`` DeviceMesh) the parameters are replicated, every rank
+takes its rows of each batch, and the flow accumulators and the
+log-likelihood sums are reduced (summed) over the mesh ``axis`` in each
+flow step, so every rank runs the same M-step.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit, _iter_param_nodes
 from cirkit_tpu_torch.backend.torch.layers import (
@@ -64,16 +68,18 @@ from cirkit_tpu_torch.backend.torch.parameters import (
     TorchTensorSlot,
 )
 from cirkit_tpu_torch.backend.torch.queries import offset_module_fn
+from cirkit_tpu_torch.parallel.mesh import all_reduce_flat, check_mesh, local_rows
 from cirkit_tpu_torch.parallel.training import (
     Preempted,
     _bound_store,
     _device,
     _PreemptionGuard,
-    _single_device,
+    replicate_store,
 )
 from cirkit_tpu_torch.utils.checkpoint import (
     data_fingerprint,
     load_training_state,
+    place_replicated,
     save_training_state,
 )
 
@@ -289,9 +295,17 @@ def em_programs(
     the current moments with responsibility weight r, while a normalized
     categorical leaf contributes a constant: its update uses the observed
     entries only, and rows with no evidence keep their distribution.
+
+    With a ``mesh`` the parameters are replicated from the mesh's first rank,
+    ``batch``, ``weights`` and the mask are this rank's rows, and
+    ``flow_step`` sums the flows and the log-likelihood over the mesh
+    ``axis`` before it adds them, so the accumulators are the global ones on
+    every rank.
     """
-    _single_device(mesh, axis)
     store = dict(circuit.restrict_store(store))
+    if mesh is not None:
+        check_mesh(mesh)
+        store = replicate_store(store, mesh)
     slots = em_slots(circuit)
     gauss = gaussian_em_layers(circuit, store)
     binom = binomial_em_layers(circuit, store)
@@ -354,6 +368,12 @@ def em_programs(
         total = (ll.reshape(ll.shape[0], -1).sum(dim=1) * weights).sum()
         inputs = [*p.values(), *gp.values(), *off.values()]
         grads = torch.autograd.grad(total, inputs, allow_unused=True)
+        total = total.detach()
+        if mesh is not None:
+            # an input the graph does not reach is unused on every rank alike
+            total = total.reshape(1)
+            all_reduce_flat([g for g in grads if g is not None] + [total], mesh, axis)
+            total = total[0]
         flows, acc_g, acc_o = acc
         with torch.no_grad():
             # an input the graph does not reach has gradient 0, as in JAX
@@ -366,7 +386,7 @@ def em_programs(
                     acc_g[k].add_(g)
                 else:
                     acc_o[k].add_(g)
-        return acc, acc_ll + total.detach()
+        return acc, acc_ll + total
 
     if missing:
         flow_step = _flow_step
@@ -510,9 +530,19 @@ def fit_em(
     Returns the updated store and the mean train NLL per epoch, and binds
     the new store as ``circuit.default_store``. With ``update_every="epoch"``
     each loss is measured under the weights before that epoch's update.
+
+    With a ``mesh`` every rank calls ``fit_em`` with the same arguments: the
+    parameters are replicated, each rank takes its rows of every batch
+    (``batch_size`` must divide over the mesh's devices), and the flows are
+    summed over ``axis`` (:func:`em_programs`), so every rank holds the same
+    store. Only the mesh's first rank writes the checkpoint, then the ranks
+    meet at a barrier.
     """
-    _single_device(mesh, axis)
     store = _bound_store(circuit, store)
+    if mesh is not None:
+        check_mesh(mesh)
+        if batch_size % mesh.size() != 0:
+            raise ValueError("The batch size must divide evenly across the mesh devices")
     if update_every not in ("epoch", "batch"):
         raise ValueError(f"update_every must be 'epoch' or 'batch', got {update_every!r}")
     if (checkpoint_every is not None or resume) and checkpoint_path is None:
@@ -557,7 +587,8 @@ def fit_em(
         miss_all = None
 
     flow_step, em_update, state = em_programs(
-        circuit, store, pseudocount=pseudocount, strict=strict, missing=miss_all is not None
+        circuit, store, pseudocount=pseudocount, strict=strict, mesh=mesh, axis=axis,
+        missing=miss_all is not None,
     )
     em_params, gauss_params = state["em_params"], state["gauss_params"]
     store, zero_acc = state["store"], state["zero_acc"]
@@ -603,26 +634,32 @@ def fit_em(
                     f"Checkpoint at epoch {start_epoch} is beyond this run's "
                     f"{num_epochs} epochs — resume with the same (or more) epochs"
                 )
-            em_params, gauss_params = restored["em_params"], restored["gauss_params"]
+            em_params = place_replicated(restored["em_params"], mesh)
+            gauss_params = place_replicated(restored["gauss_params"], mesh)
 
     def current_step_size() -> float:
         return step_size if schedule is None else schedule(m_steps)
 
     def save_ck(done_epochs: int) -> None:
-        save_training_state(
-            checkpoint_path,
-            {
-                "em_params": em_params,
-                "gauss_params": gauss_params,
-                "epoch": np.int64(done_epochs),
-                "m_steps": np.int64(m_steps),
-                "losses": np.asarray(losses, np.float64),
-                "schedule": ck_schedule,
-                "data_fp": ck_data_fp,
-            },
-        )
+        if mesh is None or dist.get_rank() == 0:
+            save_training_state(
+                checkpoint_path,
+                {
+                    "em_params": em_params,
+                    "gauss_params": gauss_params,
+                    "epoch": np.int64(done_epochs),
+                    "m_steps": np.int64(m_steps),
+                    "losses": np.asarray(losses, np.float64),
+                    "schedule": ck_schedule,
+                    "data_fp": ck_data_fp,
+                },
+            )
+        if mesh is not None:
+            dist.barrier()
 
     def to_device(a: np.ndarray) -> torch.Tensor:
+        if mesh is not None:
+            a = local_rows(a, mesh, axis)  # this rank's rows of the global batch
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     gen = torch.Generator().manual_seed(seed)

@@ -17,6 +17,9 @@ streams stay uniform and each cast unbiased).
 
 The draws come from a ``torch.Generator`` seeded from ``(seed, leaf,
 step)``, so the state needs no generator and a resumed run replays them.
+Under ZeRO-1 a parameter is a fold slice of a slot (``zero1_rows``, set by
+``parallel.training.Zero1``): the full slot's bits are drawn and the slice's
+rows kept, so a sharded run rounds as the unsharded one does.
 Philox bits are not the TPU's rbg bits: the rounding matches the JAX
 package's in distribution, not bit for bit.
 """
@@ -53,13 +56,18 @@ def _scramble16(rnd16: torch.Tensor) -> torch.Tensor:
     return ((rnd16.long() * 0x9E37) & _LOW16).int()  # int64: no signed overflow
 
 
-def _bits16(seed: int, leaf: int, step: int, like: torch.Tensor) -> torch.Tensor:
+def _bits16(seed: int, leaf: int, step: int, like: torch.Tensor,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """One 16-bit draw per element of ``like`` (as int32), from a generator
-    seeded from ``(seed, leaf, step)`` on ``like``'s device."""
+    seeded from ``(seed, leaf, step)`` on ``like``'s device. With ``rows =
+    (full rows, first row)`` ``like`` is a slice of a slot of that many
+    rows: the slot's draws are made and the slice's rows returned."""
     digest = hashlib.blake2b(f"{seed},{leaf},{step}".encode(), digest_size=8).digest()
     gen = torch.Generator(device=like.device).manual_seed(int.from_bytes(digest, "little"))
-    return torch.randint(0, 1 << 16, like.shape, generator=gen, device=like.device,
+    shape = like.shape if rows is None else (rows[0], *like.shape[1:])
+    bits = torch.randint(0, 1 << 16, shape, generator=gen, device=like.device,
                          dtype=torch.int32)
+    return bits if rows is None else bits[rows[1] : rows[1] + like.shape[0]]
 
 
 class AdamLowMem(torch.optim.Optimizer):
@@ -117,7 +125,7 @@ class AdamLowMem(torch.optim.Optimizer):
                 denom = (nu.sqrt() / bc2_sqrt).add_(eps)
                 p.addcdiv_(mu.to(p.dtype), denom.to(p.dtype), value=-lr / bc1)
                 if self.state_dtype == torch.bfloat16:
-                    rnd = _bits16(self.seed, leaf - 1, t, g)
+                    rnd = _bits16(self.seed, leaf - 1, t, g, getattr(p, "zero1_rows", None))
                     state["exp_avg"] = _sr_to_bf16(mu, rnd)
                     state["exp_avg_sq"] = _sr_to_bf16(nu, _scramble16(rnd))
                 else:

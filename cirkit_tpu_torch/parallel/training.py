@@ -1,43 +1,211 @@
-"""Maximum-likelihood training of a compiled circuit on one device.
+"""Maximum-likelihood training of a compiled circuit, on one device or
+data-parallel over a ``torch.distributed`` device mesh.
 
-The counterpart of ``cirkit_tpu/parallel/training.py`` (``Preempted`` and
-the SIGTERM guard, ``data_parallel_step``, ``evaluate_ll``,
+The counterpart of ``cirkit_tpu/parallel/training.py`` (``default_mesh``,
+``replicate_store``, ``shard_batch``, the ZeRO-1 placements, ``Preempted``
+and the SIGTERM guard, ``data_parallel_step``, ``evaluate_ll``,
 ``split_trainable`` and ``fit``). The step runs eagerly: autograd through
 the plan, with the log-einsum-exp backward kernels on CUDA tensors, then a
 ``torch.optim.Optimizer`` step that updates the trainable tensors in place.
 
+With a ``mesh`` every rank holds the parameters replicated and its own rows
+of each batch (:func:`shard_batch`); the gradients are averaged over the
+mesh ``axis`` before the optimizer runs, so the ranks stay identical, and
+the loss returned is the global one. ``zero1=True`` shards the optimizer
+state instead: a slot whose leading (fold) axis divides the axis size is
+updated by each rank on its own fold slice (the gradients reduce-scattered
+onto the slices, the fresh slices all-gathered into the replicated slots);
+every other slot's state stays replicated. The collectives run on
+``mesh.get_group(axis)``: NCCL on a CUDA mesh from :func:`default_mesh`,
+gloo on the CPU meshes of the tests.
+
 Missing-data training (``missing``, ``marginalize_missing``) marginalizes
-the missing entries through ``queries.masked_evaluate``. Distribution over
-several devices (``mesh``, ``zero1``, ``axis``) waits for ROADMAP module
-queue item 12: those arguments raise ``NotImplementedError``.
+the missing entries through ``queries.masked_evaluate``, per rank.
 """
 
 from __future__ import annotations
 
+import os
 from collections.abc import Callable, Iterable, Mapping
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit
 from cirkit_tpu_torch.backend.torch.queries import masked_evaluate
+from cirkit_tpu_torch.parallel.mesh import (
+    all_reduce,
+    all_reduce_flat,
+    axis_rank,
+    axis_size,
+    check_mesh,
+    local_rows,
+    mesh_device,
+    tree_map,
+)
 from cirkit_tpu_torch.utils.checkpoint import (
     data_fingerprint,
     load_training_state,
+    place_replicated,
     save_training_state,
 )
 
 Store = Mapping[str, torch.Tensor]
 OptimizerFactory = Callable[[list[torch.Tensor]], torch.optim.Optimizer]
 
-_DISTRIBUTED = "training over a device mesh (mesh, zero1, axis) waits for ROADMAP item 12"
+
+def default_mesh(num_devices: int | None = None, axis: str = "data") -> Any:
+    """A 1-D CUDA device mesh over the process group's ranks, one card each
+    (the rank's ``LOCAL_RANK``), named ``axis``.
+
+    Under ``torchrun --nproc-per-node=N`` the process group is the launcher's;
+    with none up, one process gets a one-rank NCCL group of its own, and a
+    mesh of more than one device raises. ``num_devices`` must be the world
+    size when given. There is no CPU fallback: a CPU mesh is the caller's
+    ``init_device_mesh("cpu", ...)`` over a gloo group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "default_mesh builds a CUDA mesh and finds no CUDA device; build a CPU mesh "
+            'explicitly with init_device_mesh("cpu", ...) over a gloo process group'
+        )
+    if not dist.is_initialized():
+        if num_devices not in (None, 1):
+            raise RuntimeError(
+                f"No process group is up for a mesh of {num_devices} devices: launch with "
+                f"torchrun --nproc-per-node={num_devices}, or call "
+                "torch.distributed.init_process_group first"
+            )
+        dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    world = dist.get_world_size()
+    if num_devices is not None and num_devices != world:
+        raise ValueError(f"A mesh of {num_devices} devices needs a world of that size, "
+                         f"found {world} ranks")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank())) % torch.cuda.device_count()
+    torch.cuda.set_device(local)
+    return init_device_mesh("cuda", (world,), mesh_dim_names=(axis,))
 
 
-def _single_device(mesh: Any, axis: str, zero1: bool = False) -> None:
-    if mesh is not None or zero1 or axis != "data":
-        raise NotImplementedError(_DISTRIBUTED)
+def replicate_store(store: Store, mesh: Any) -> dict[str, torch.Tensor]:
+    """Copies of the store's tensors on the mesh's device, each holding the
+    values of the mesh's first rank (broadcast over every axis). Always
+    copies, so a training step's in-place update never writes the caller's
+    store."""
+    check_mesh(mesh)
+    dev = mesh_device(mesh)
+    out = {k: v.detach().to(dev, copy=True) for k, v in store.items()}
+    for axis in mesh.mesh_dim_names:
+        group = mesh.get_group(axis)
+        for t in out.values():
+            dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return out
+
+
+def shard_batch(x: Any, mesh: Any, axis: str = "data") -> torch.Tensor:
+    """This rank's rows of a global batch (the leading axis split in equal
+    contiguous blocks over the mesh ``axis``, in rank order), as a tensor on
+    the mesh's device."""
+    check_mesh(mesh)
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return local_rows(x, mesh, axis).to(mesh_device(mesh))
+
+
+def zero1_state_shardings(opt_state: Any, mesh: Any, *, axis: str = "data") -> Any:
+    """The ZeRO-1 placement of an optimizer-state tree (slot name -> state
+    name -> tensor): 0 (shard the leading, fold axis over the mesh ``axis``)
+    for every tensor leaf whose leading axis divides the axis size, None
+    (replicated) for the others and for scalars."""
+    check_mesh(mesh)
+    n = axis_size(mesh, axis)
+    return tree_map(
+        lambda leaf: 0 if getattr(leaf, "ndim", 0) >= 1 and leaf.shape[0] % n == 0 else None,
+        opt_state,
+    )
+
+
+def shard_opt_state_zero1(opt_state: Any, mesh: Any, *, axis: str = "data") -> Any:
+    """This rank's part of a full optimizer-state tree under the ZeRO-1
+    placement of :func:`zero1_state_shardings` (copies of the fold slices;
+    the replicated leaves as they are)."""
+    specs = zero1_state_shardings(opt_state, mesh, axis=axis)
+    return tree_map(
+        lambda leaf, spec: leaf if spec is None else local_rows(leaf, mesh, axis).clone(),
+        opt_state, specs,
+    )
+
+
+class Zero1:
+    """The ZeRO-1 half of a step over one set of trainable tensors: this
+    rank's fold slices of the slots whose leading axis divides the axis size
+    (tensors of their own, which the optimizer keys its state by), the
+    replicated tensors of the others, and the optimizer over both in the
+    trainable tensors' order (so ``adam_lowmem`` keeps the leaf numbering of
+    the unsharded parameter list). A slice carries ``zero1_rows = (rows of
+    the full slot, first row)``, by which ``adam_lowmem`` draws the full
+    slot's rounding bits and keeps its rows."""
+
+    def __init__(self, factory: OptimizerFactory, trainable: Mapping[str, torch.Tensor],
+                 mesh: Any, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.names = list(trainable)
+        self.trainable = dict(trainable)
+        n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+        self.sharded = {k for k, t in trainable.items() if t.dim() >= 1 and t.shape[0] % n == 0}
+        self.params: list[torch.Tensor] = []
+        for k in self.names:
+            t = trainable[k]
+            if k in self.sharded:
+                p = local_rows(t.detach(), mesh, axis).clone()
+                p.zero1_rows = (t.shape[0], r * p.shape[0])
+            else:
+                p = t
+            self.params.append(p)
+        self.optimizer = factory(self.params)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Average the trainable tensors' gradients over the axis onto the
+        slices (reduce-scatter) and the replicated slots (all-reduce), step
+        the optimizer, and all-gather the fresh slices into the slots."""
+        n = axis_size(self.mesh, self.axis)
+        group = self.mesh.get_group(self.axis)
+        replicated = []
+        for k, p in zip(self.names, self.params):
+            g = self.trainable[k].grad
+            if k in self.sharded:
+                out = torch.empty_like(p)
+                dist.reduce_scatter_tensor(out, g.contiguous(), group=group)
+                p.grad = out.div_(n)
+            elif g is not None:
+                replicated.append(g)
+        all_reduce_flat(replicated, self.mesh, self.axis)
+        for g in replicated:
+            g.div_(n)
+        self.optimizer.step()
+        for k, p in zip(self.names, self.params):
+            if k in self.sharded:
+                dist.all_gather_into_tensor(self.trainable[k], p, group=group)
+
+    def sharded_state(self) -> dict[str, dict]:
+        """The optimizer state by slot name, the slices' state wrapped as
+        ``DTensor``s sharded on dim 0 over the axis (replicated over the
+        other axes), for :func:`~cirkit_tpu_torch.utils.checkpoint.save_checkpoint`."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        placements = [Shard(0) if a == self.axis else Replicate()
+                      for a in self.mesh.mesh_dim_names]
+        state = _optimizer_state(self.optimizer, self.names)
+        return {
+            k: {key: DTensor.from_local(v, self.mesh, placements, run_check=False)
+                if k in self.sharded and v.dim() >= 1 else v
+                for key, v in st.items()}
+            for k, st in state.items()
+        }
 
 
 class Preempted(RuntimeError):
@@ -86,7 +254,7 @@ class _PreemptionGuard:
 
 def data_parallel_step(
     circuit: TorchCircuit,
-    optimizer: torch.optim.Optimizer,
+    optimizer: torch.optim.Optimizer | OptimizerFactory,
     *,
     mesh: Any = None,
     axis: str = "data",
@@ -95,7 +263,7 @@ def data_parallel_step(
     zero1: bool = False,
     marginalize_missing: bool = False,
 ) -> Callable:
-    """Build a training step on one device.
+    """Build a training step, on one device or data-parallel over ``mesh``.
 
     The step takes ``(trainable, frozen, batch)``, then a per-sample weight
     vector ``(B,)`` when ``weighted=True``, then a (B, D) boolean mask of
@@ -113,12 +281,35 @@ def data_parallel_step(
     marginal NLL: the masked variables are summed out at their input layers
     (``masked_evaluate``), so an incomplete row trains on exactly its
     observed margin. ``loss_fn`` maps the output to a scalar instead.
+
+    With a ``mesh`` the batch, the weights and the mask are this rank's rows
+    (:func:`shard_batch`) and the parameters are replicated
+    (:func:`replicate_store`). The step averages the gradients over the mesh
+    ``axis`` before the optimizer runs and returns the global loss: the mean
+    of the ranks' losses, or, weighted, ``-sum(w ll) / sum(w)`` over every
+    rank's rows (the weights' sum is reduced first, so padding that sits on
+    some ranks only weighs as on one device). A ``loss_fn`` is applied to
+    each rank's rows and averaged, which is the global loss for a mean over
+    rows.
+
+    ``zero1=True`` (requires a mesh) takes ``optimizer`` as a factory from a
+    list of tensors to a ``torch.optim.Optimizer`` and shards its state over
+    ``axis`` (ZeRO-1, :class:`Zero1`): at the first call it is built over
+    this rank's fold slices of the trainable tensors. The step's ``zero1``
+    attribute holds that state from then on.
     """
-    _single_device(mesh, axis, zero1)
     if weighted and loss_fn is not None:
         raise ValueError("weighted=True supports only the default NLL loss")
     if marginalize_missing and loss_fn is not None:
         raise ValueError("marginalize_missing=True supports only the default NLL loss")
+    if mesh is None and zero1:
+        raise ValueError("zero1=True requires a device mesh")
+    if mesh is not None:
+        check_mesh(mesh)
+    if zero1 and isinstance(optimizer, torch.optim.Optimizer):
+        raise TypeError("zero1=True builds the optimizer over this rank's slices: pass a "
+                        "factory from a list of tensors to a torch.optim.Optimizer")
+    n = 1 if mesh is None else axis_size(mesh, axis)
 
     def step(trainable: Store, frozen: Store, batch: torch.Tensor, *args) -> torch.Tensor:
         if len(args) != int(weighted) + int(marginalize_missing):
@@ -126,7 +317,13 @@ def data_parallel_step(
                             "then the missing mask exactly when it marginalizes")
         weights = args[0] if weighted else None
         missing = args[-1] if marginalize_missing else None
-        optimizer.zero_grad(set_to_none=True)
+        if zero1:
+            if step.zero1 is None:
+                step.zero1 = Zero1(optimizer, trainable, mesh, axis)
+            for t in trainable.values():  # the optimizer holds the slices
+                t.grad = None
+        else:
+            optimizer.zero_grad(set_to_none=True)
         store = {**trainable, **frozen}
         if missing is None:
             ll = circuit.evaluate(store, batch)
@@ -138,13 +335,29 @@ def data_parallel_step(
             loss = -ll.mean()
         else:
             per_sample = ll.reshape(ll.shape[0], -1).mean(dim=1)
+            total = weights.sum()
+            if mesh is not None:
+                total = all_reduce(total.detach().clone(), mesh, axis)
             # tiny epsilon (not 1.0): fractional weight sums < 1 must still
-            # give sum(w*ll)/sum(w); an all-padding batch stays 0
-            loss = -(per_sample * weights).sum() / weights.sum().clamp_min(1e-12)
+            # give sum(w*ll)/sum(w); an all-padding batch stays 0. On a mesh
+            # this rank's share of the global loss: the shares sum to it
+            loss = -(per_sample * weights).sum() / total.clamp_min(1e-12) * n
         loss.backward()
-        optimizer.step()
-        return loss.detach()
+        if zero1:
+            step.zero1.step()
+        else:
+            if mesh is not None:
+                grads = [t.grad for t in trainable.values() if t.grad is not None]
+                all_reduce_flat(grads, mesh, axis)
+                for g in grads:
+                    g.div_(n)
+            optimizer.step()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce(loss.clone(), mesh, axis).div_(n)
+        return loss
 
+    step.zero1 = None
     return step
 
 
@@ -170,17 +383,39 @@ def evaluate_ll(
     axis: str = "data",
 ) -> float:
     """Mean log-likelihood of a dataset, evaluated in batches of
-    ``batch_size`` (the last one partial) without gradients."""
-    _single_device(mesh, axis)
+    ``batch_size`` without gradients. On one device the last batch is
+    partial; with a ``mesh`` every batch is zero-padded to ``batch_size``
+    with zero weights, each rank evaluates its rows of it with the store of
+    the mesh's first rank, and the weighted sums are reduced over ``axis``."""
     store = circuit.restrict_store(_bound_store(circuit, store))
-    device = _device(store)
-    data = torch.as_tensor(np.asarray(data))
-    total = 0.0
+    data = np.asarray(data)
+    if mesh is None:
+        device = _device(store)
+        data = torch.as_tensor(data)
+        total = 0.0
+        with torch.no_grad():
+            for i in range(0, len(data), batch_size):
+                ll = circuit.evaluate(store, data[i : i + batch_size].to(device))
+                total += float(ll.reshape(ll.shape[0], -1).mean(dim=1).sum())
+        return total / len(data)
+    check_mesh(mesh)
+    if batch_size % mesh.size() != 0:
+        raise ValueError("The batch size must divide evenly across the mesh devices")
+    store = replicate_store(store, mesh)
+    dtype = next(iter(store.values())).dtype
+    total = torch.zeros((), dtype=torch.float64, device=mesh_device(mesh))
     with torch.no_grad():
         for i in range(0, len(data), batch_size):
-            ll = circuit.evaluate(store, data[i : i + batch_size].to(device))
-            total += float(ll.reshape(ll.shape[0], -1).mean(dim=1).sum())
-    return total / len(data)
+            batch = data[i : i + batch_size]
+            weights = np.ones(batch_size, np.float32)
+            if len(batch) < batch_size:
+                weights[len(batch) :] = 0.0
+                pad = np.zeros((batch_size - len(batch), *batch.shape[1:]), batch.dtype)
+                batch = np.concatenate([batch, pad])
+            ll = circuit.evaluate(store, shard_batch(batch, mesh, axis))
+            w = shard_batch(weights, mesh, axis).to(dtype)
+            total += (ll.reshape(ll.shape[0], -1).mean(dim=1) * w).sum().double()
+    return float(all_reduce(total, mesh, axis)) / len(data)
 
 
 def split_trainable(
@@ -283,8 +518,17 @@ def fit(
     ``seed``, so a resumed run reproduces the uninterrupted one (pass the
     same data, batch_size, seed and optimizer). SIGTERM or SIGINT during a
     checkpointing run writes a checkpoint and raises :class:`Preempted`.
+
+    With a ``mesh`` (a ``torch.distributed`` DeviceMesh: :func:`default_mesh`
+    under ``torchrun``) every rank calls ``fit`` with the same arguments: the
+    store is replicated from the mesh's first rank, every rank replays the
+    same batch schedule from ``seed`` and trains on its rows of each batch
+    (``batch_size`` must divide over the mesh's devices), and the gradients
+    are averaged over ``axis``, so every rank ends with the same store and
+    the losses are the global ones (:func:`data_parallel_step`). Only the
+    mesh's first rank writes the checkpoint, then the ranks meet at a
+    barrier; on resume every rank reads it (:func:`place_replicated`).
     """
-    _single_device(mesh, axis)
     if (checkpoint_every is not None or resume) and checkpoint_path is None:
         raise ValueError("checkpoint_every/resume require checkpoint_path")
     if checkpoint_every is not None and checkpoint_every < 1:
@@ -293,6 +537,10 @@ def fit(
         optimizer = lambda ps: torch.optim.Adam(ps, lr=1e-2)  # noqa: E731
     store = _bound_store(circuit, store)
     data = np.asarray(data)
+    if mesh is not None:
+        check_mesh(mesh)
+        if batch_size % mesh.size() != 0:
+            raise ValueError("The batch size must divide evenly across the mesh devices")
     if sample_weight is not None:
         sample_weight = np.asarray(sample_weight, np.float32).ravel()
         if sample_weight.shape[0] != len(data):
@@ -309,10 +557,17 @@ def fit(
             data_fp = data_fp ^ data_fingerprint(sample_weight)
 
     trainable, frozen = split_trainable(circuit, store, freeze)
-    device = _device(store)
     names = sorted(trainable)
-    trainable = {k: trainable[k].detach().clone().requires_grad_(True) for k in names}
-    frozen = {k: v.detach() for k, v in frozen.items()}
+    if mesh is None:  # copies: the step updates them in place
+        trainable = {k: trainable[k].detach().clone().requires_grad_(True) for k in names}
+        frozen = {k: v.detach() for k, v in frozen.items()}
+        device = _device(store)
+    else:
+        trainable = {k: v.requires_grad_(True)
+                     for k, v in replicate_store({k: trainable[k] for k in names}, mesh).items()}
+        frozen = replicate_store(frozen, mesh)
+        device = mesh_device(mesh)
+    writer = mesh is None or dist.get_rank() == 0
     opt = optimizer([trainable[k] for k in names])
 
     start_step = 0
@@ -332,9 +587,10 @@ def fit(
                 )
             start_step = int(restored["step"])
             losses = [float(v) for v in np.asarray(restored["losses"]).ravel()]
+            placed = place_replicated(restored["trainable"], mesh)
             with torch.no_grad():
                 for k in names:
-                    trainable[k].copy_(torch.as_tensor(restored["trainable"][k]))
+                    trainable[k].copy_(placed[k])
             _load_optimizer_state(opt, names, restored.get("opt_state", {}))
 
     # A dataset smaller than one batch is itself a "partial batch": pad and
@@ -353,7 +609,7 @@ def fit(
         data = np.where(miss_all, np.zeros((), data.dtype), data)
     else:
         miss_all = None
-    step = data_parallel_step(circuit, opt, weighted=weighted,
+    step = data_parallel_step(circuit, opt, mesh=mesh, axis=axis, weighted=weighted,
                               marginalize_missing=miss_all is not None)
     ones = np.ones(batch_size, dtype=np.float32)
     num_batches = -(-len(data) // batch_size) if weighted else len(data) // batch_size
@@ -390,6 +646,8 @@ def fit(
                 yield epoch, data[idx], (weights if weighted else None), miss
 
     def to_device(a: np.ndarray) -> torch.Tensor:
+        if mesh is not None:
+            a = local_rows(a, mesh, axis)  # this rank's rows of the global batch
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":  # pinned, so the copy overlaps the step
             return t.pin_memory().to(device, non_blocking=True)
@@ -407,17 +665,21 @@ def fit(
     def save_ck():
         losses.extend(float(l) for l in device_losses)
         device_losses.clear()
-        save_training_state(
-            checkpoint_path,
-            {
-                "trainable": trainable,
-                "opt_state": _optimizer_state(opt, names),
-                "step": np.int64(step_idx),
-                "losses": np.asarray(losses, np.float64),
-                "schedule": schedule,
-                "data_fp": data_fp,
-            },
-        )
+        state = _optimizer_state(opt, names)
+        if writer:
+            save_training_state(
+                checkpoint_path,
+                {
+                    "trainable": trainable,
+                    "opt_state": state,
+                    "step": np.int64(step_idx),
+                    "losses": np.asarray(losses, np.float64),
+                    "schedule": schedule,
+                    "data_fp": data_fp,
+                },
+            )
+        if mesh is not None:
+            dist.barrier()
 
     it = host_batches(skip=start_step)
     pending = prefetch(next(it, None))

@@ -15,8 +15,15 @@ sequence index. A flat store saved by either package therefore loads in the
 other by slot name. bfloat16 leaves, which npz cannot hold, are widened to
 float32 on save and cast back to ``like``'s dtype on load.
 
-The orbax directory checkpoints of the JAX package (``save_checkpoint`` /
-``load_checkpoint``) are not ported.
+:func:`save_checkpoint` / :func:`load_checkpoint` write and read a tree of
+tensors as a directory with ``torch.distributed.checkpoint`` (DCP), in place
+of the JAX package's orbax directories: a ``DTensor`` leaf (a ZeRO-1 slice or
+a tensor-parallel shard, wrapped by ``DTensor.from_local``) is written by
+each rank for its own part, a plain tensor once; ``load_checkpoint(path,
+like)`` reads into ``like``'s structure and placement, so a checkpoint
+written by 2 ranks loads on 1 or on 4. Both run in one process with no
+process group too. :func:`place_replicated` puts a restored tree on the
+mesh's device, replicated.
 
 :func:`save_circuit` / :func:`load_circuit` persist a symbolic circuit in the
 JAX package's format, a versioned pickle. The port's symbolic classes are
@@ -122,16 +129,15 @@ def _restore_like(value: np.ndarray, like: Any) -> Any:
     return value if dtype is None or value.dtype == dtype else value.astype(dtype)
 
 
-def _rebuild(like: Any, stored: dict[str, np.ndarray], path: tuple, file: str) -> Any:
+def _rebuild(like: Any, path: tuple, leaf_fn) -> Any:
+    """``like``'s structure with each leaf replaced by ``leaf_fn(key path,
+    leaf)``."""
     if isinstance(like, Mapping):
-        return {k: _rebuild(v, stored, (*path, ["d", k]), file) for k, v in like.items()}
+        return {k: _rebuild(v, (*path, ["d", k]), leaf_fn) for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        items = [_rebuild(v, stored, (*path, ["s", i]), file) for i, v in enumerate(like)]
-        return type(like)(items) if isinstance(like, list) else tuple(items)
-    key = json.dumps(list(path))
-    if key not in stored:
-        raise KeyError(f"Checkpoint {file} has no entry for path {key}")
-    return _restore_like(stored[key], like)
+        items = [_rebuild(v, (*path, ["s", i]), leaf_fn) for i, v in enumerate(like)]
+        return items if isinstance(like, list) else tuple(items)
+    return leaf_fn(path, like)
 
 
 def load_store(path: str | PathLike[str], like: Any | None = None) -> Any:
@@ -147,8 +153,19 @@ def load_store(path: str | PathLike[str], like: Any | None = None) -> Any:
 
     if like is not None:
         stored = {json.dumps(p): v for p, v in items}
-        return _rebuild(like, stored, (), str(path))
 
+        def leaf(p: tuple, v: Any) -> Any:
+            key = json.dumps(list(p))
+            if key not in stored:
+                raise KeyError(f"Checkpoint {path} has no entry for path {key}")
+            return _restore_like(stored[key], v)
+
+        return _rebuild(like, (), leaf)
+    return _unflatten(items)
+
+
+def _unflatten(items: list[tuple[list, Any]]) -> Any:
+    """The tree of (key path, leaf) pairs, as plain dicts and lists."""
     def insert(container, path, value):
         kind, key = path[0]
         if kind == "s":
@@ -214,6 +231,84 @@ def data_fingerprint(data: np.ndarray) -> np.uint64:
     tail = raw[-(1 << 20):].tobytes()
     meta = f"{data.shape}{data.dtype}".encode()
     return np.uint64(zlib.crc32(tail, zlib.crc32(head, zlib.crc32(meta))))
+
+
+def place_replicated(tree: Any, mesh: Any | None = None) -> Any:
+    """Every array or tensor leaf of ``tree`` as a tensor: on the mesh's
+    device when a ``mesh`` is given (each rank holds the whole leaf, the
+    placement trainer checkpoints restore with), else as it is or on the
+    CPU. Every rank reads the same file, so the leaves are already equal."""
+    from cirkit_tpu_torch.parallel.mesh import mesh_device, tree_map
+
+    dev = None if mesh is None else mesh_device(mesh)
+
+    def place(leaf: Any) -> Any:
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        return t if dev is None else t.to(dev)
+
+    return tree_map(place, tree)
+
+
+def _dcp_state(tree: Any) -> dict[str, Any]:
+    """The flat DCP state dict of a tree: the leaves by their JSON key path
+    (the npz files' encoding), arrays and numbers as tensors."""
+    def leaf(v: Any) -> Any:
+        return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+    return {json.dumps(path): leaf(v) for path, v in _leaves(tree)}
+
+
+def save_checkpoint(path: str | PathLike[str], tree: Any) -> None:
+    """Save a tree of tensors (nested dicts, lists and tuples; arrays and
+    numbers become tensors) as a ``torch.distributed.checkpoint`` directory.
+    With a process group every rank calls it: a ``DTensor`` leaf is written
+    in parts, each rank its own; a plain tensor, which every rank holds
+    whole, is written once."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_dcp_state(tree), checkpoint_id=os.fspath(path))
+
+
+def load_checkpoint(path: str | PathLike[str], like: Any | None = None) -> Any:
+    """Restore a :func:`save_checkpoint` directory.
+
+    With ``like`` (a tree of tensors, ``DTensor``s, arrays or numbers, as
+    saved) the leaves are read into fresh tensors of ``like``'s shapes,
+    types, devices and placements, and returned in its structure: a
+    ``DTensor`` leaf receives its local part of the saved leaf, whatever
+    the number of ranks that wrote it; an array or number leaf comes back as
+    an array or number of its type. Without ``like`` every leaf comes back
+    whole as a CPU tensor, the structure rebuilt from the key paths as plain
+    dicts and lists (one process, no process group)."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.fspath(path)
+    if like is None:
+        meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        state = {k: torch.empty(m.size, dtype=m.properties.dtype) for k, m in meta.items()}
+        dcp.load(state, checkpoint_id=path)
+        return _unflatten([(json.loads(k), v) for k, v in state.items()])
+
+    def fresh(v: Any) -> Any:
+        if isinstance(v, torch.Tensor):
+            from torch.distributed.tensor import DTensor
+
+            if isinstance(v, DTensor):
+                return DTensor.from_local(torch.empty_like(v.to_local()), v.device_mesh,
+                                          v.placements, run_check=False)
+            return torch.empty_like(v)
+        return torch.as_tensor(np.asarray(v)).clone()
+
+    template = {json.dumps(p): fresh(v) for p, v in _leaves(like)}
+    dcp.load(template, checkpoint_id=path)
+
+    def back(v: Any, loaded: torch.Tensor) -> Any:
+        if isinstance(v, torch.Tensor):
+            return loaded
+        arr = loaded.numpy()
+        return arr.astype(np.asarray(v).dtype) if np.ndim(v) else np.asarray(v).dtype.type(arr)
+
+    return _rebuild(like, (), lambda p, v: back(v, template[json.dumps(list(p))]))
 
 
 _CIRCUIT_FORMAT = "cirkit-tpu-circuit"

@@ -432,7 +432,7 @@ def test_fit_em_validates_its_arguments():
         (dict(resume=True), ValueError, "checkpoint_path"),
         (dict(checkpoint_every=0, checkpoint_path="x"), ValueError, ">= 1"),
         (dict(missing="nan"), ValueError, "floating-point"),
-        (dict(mesh=object()), NotImplementedError, "item 12"),
+        (dict(mesh=object()), TypeError, "DeviceMesh"),
     ]:
         with pytest.raises(err, match=match):
             fit_em(cc, data, batch_size=8, **kw)

@@ -183,17 +183,17 @@ def test_fit_validates_its_arguments():
         fit(cc, data, batch_size=8, sample_weight=-np.ones(8))
     with pytest.raises(ValueError, match="checkpoint_path"):
         fit(cc, data, batch_size=8, resume=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fit(cc, data, batch_size=8, mesh=object())
     with pytest.raises(ValueError, match="floating-point"):
         fit(cc, data, batch_size=8, missing="nan")
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="zero1=True requires a device mesh"):
         data_parallel_step(cc, opt, zero1=True)
     with pytest.raises(ValueError, match="default NLL"):
         data_parallel_step(cc, opt, marginalize_missing=True, loss_fn=torch.mean)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        evaluate_ll(cc, data, axis="model")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        evaluate_ll(cc, data, mesh=object())
 
 
 class _Killed(RuntimeError):
