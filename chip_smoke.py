@@ -438,11 +438,29 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
        for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
     **{f"lse_matmul{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "335") for sfx in ("_fast", "_sr")},
     "lse_matmul_softmax_w16_fast": (_CSRC + "lse_einsum.cu", _PALLAS + "335"),
+    # (and phase 17's: the EM-ready K=128 flagship's mixing sums on its bf16
+    # Dirichlet weights)
+    **{f"lse_matmul_w16{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "335")
+       for sfx in ("", "_fast", "_sr")},
+    **{f"lse_matmul_w16{sfx}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
+       for sfx in ("", "_fast", "_sr")},
     **{f"lse_tucker2_softmax_chunked{sfx}": (_CSRC + "lse_wide.cu", _PALLAS + "738")
        for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
     **{key: (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
        for key in ("lse_tucker2_softmax_w16_fast_bwd", "lse_tucker2_softmax_w16_sr_bwd",
                    "lse_matmul_fast_bwd", "lse_matmul_sr_bwd")},
+    # phase 17's paths: the bf16-weight and fast-mode instances of the blocked
+    # dense forward and backward (kernels 3' and 4') that the unoptimized
+    # K=128 flagships launch, from a bf16 store (its Dirichlet weights) and
+    # under CIRKIT_TPU_FAST (float32 weights, normalized from logits), and the
+    # bf16-th instances of the routing kernels (9' and 8') that MAP and
+    # sampling from the K=64 flagship's bf16 store launch
+    **{f"lse_matmul_blocked{sfx}": (_CSRC + "lse_wide.cu", _PALLAS + "548")
+       for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    **{f"lse_matmul_blocked{sfx}_bwd": (_CSRC + "lse_wide.cu", _PALLAS + "572")
+       for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    "tropical_tucker2_w16": (_CSRC + "tucker_route.cu", _PALLAS + "1334"),
+    "route_tucker2_w16": (_CSRC + "tucker_route.cu", _PALLAS + "1176"),
 }
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
 # f32 outside the tensor cores, and device memory.
@@ -4799,6 +4817,16 @@ SERVE_SHAPES = (
     ("F=3 B=13 I=37 O=1", "dense", 3, 13, (37, 1)),
     ("F=2 B=130 K1=40 K2=24 O=70", "chunked", 2, 130, (40, 24, 70)),
 )
+# phase 17a's other dense entries, the EM-ready K=128 flagship's mixing sums
+# (and its root) on bf16 Dirichlet weights: kernels 1 and 2's linear bf16
+# instances, held and timed here at the shapes that path gives them (phase
+# 17a checks that its circuit has just these)
+EM_MIX_SHAPES = (
+    *((f"F={f} B=128 I=256 O=128 (K=128 mixing)", "dense", f, 128, (256, 128))
+      for f in (196, 49, 9, 4)),
+    ("F=1 B=128 I=2 O=1 (K=128 root)", "dense", 1, 128, (2, 1)),
+)
+EM_MIX_INSTANCES = tuple((sfx, mode) for sfx, mode in SERVE_INSTANCES if sfx.startswith("_w16"))
 # the serving runs (bench_serving, bench.py:362-420): the flagships by K and
 # sum-product layer at these batches, in the two modes of record; and the
 # store and mode of each (bf16 store, CIRKIT_TPU_FAST). The other instances'
@@ -4844,9 +4872,10 @@ def _serve_inputs(kind: str, op: str, f: int, b: int, dims, w16: bool):
     return [*xs, w.to(torch.bfloat16) if w16 else w]
 
 
-def _serve_bound(key: str, ins, mode: str) -> tuple[float, str]:
+def _serve_bound(key: str, ins, mode: str, extra: int = 0) -> tuple[float, str]:
     """The least ms of an instance's work: its bytes (2-byte bf16 weights,
-    each input read once, each output written once) over the memory rate,
+    each input read once, each output written once, and ``extra`` bytes:
+    the blocked kernels' row max) over the memory rate,
     or its sums of products on the tensor cores: in a fast mode products of
     bf16 values, once at the bf16 rate (the kernels deliberately run them as
     one TF32 pass, which is exact for them, at half that rate); otherwise at
@@ -4857,9 +4886,9 @@ def _serve_bound(key: str, ins, mode: str) -> tuple[float, str]:
     o, i = w.shape[1:]
     nbytes = sum(t.numel() * t.element_size() for t in ins)
     out = 4 * f * b * o
-    flops, moved = 2 * f * b * i * o, nbytes + out
+    flops, moved = 2 * f * b * i * o, nbytes + out + extra
     if key.endswith("_bwd"):
-        flops, moved = 2 * flops, 2 * nbytes + 2 * out
+        flops, moved = 2 * flops, 2 * nbytes + 2 * out + extra
     if mode:
         t_ops = flops / BF16_PEAK * 1e3
     else:
@@ -4869,23 +4898,27 @@ def _serve_bound(key: str, ins, mode: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_serving_kernels() -> dict[str, dict]:
+def phase_serving_kernels(shapes=SERVE_SHAPES, instances=SERVE_INSTANCES, *,
+                          linear_only: bool = False,
+                          results: dict[str, dict] | None = None) -> dict[str, dict]:
     """15a: each bf16-weight and fast-mode instance of kernels 1, 2 and 5
     against its plain version in its mode on the same card inputs (forward:
     the phase 3 bound in log space; backward: phase 3b's), timed at its
     first shape; at the flagship's Tucker entry each mode's max and mean
-    signed error of the forward against float64."""
+    signed error of the forward against float64. ``linear_only`` skips the
+    softmax ops; ``results`` are rows to extend (an instance whose row has
+    no ``ms`` yet is timed at its first shape here)."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
 
-    results: dict[str, dict] = {}
-    for label, kind, f, b, dims in SERVE_SHAPES:
+    results = {} if results is None else results
+    for label, kind, f, b, dims in shapes:
         base = ("lse_tucker2", "lse_tucker2_softmax") if kind != "dense" else (
             "lse_matmul", "lse_matmul_softmax")
-        for op in base:
+        for op in base[:1] if linear_only else base:
             f64_ref = None
-            for sfx, mode in SERVE_INSTANCES:
+            for sfx, mode in instances:
                 ins = _serve_inputs(kind, op, f, b, dims, sfx.startswith("_w16"))
                 fwd = f"{op}_chunked" if kind == "chunked" else op
                 key = fwd + sfx
@@ -5029,12 +5062,11 @@ def phase_serving(smi: str) -> dict[str, int]:
                                              f"{n_kernel} launches expected")
                     # every launch of kernels 1 and 5 the mode's instance, on the
                     # store's weight type or, for weights a parameter graph
-                    # computes from the store (the mixing sums), on float32; the
-                    # blocked dense kernels have none and take the weights widened
+                    # computes from the store (the mixing sums), on float32
                     mode_sfx = L.MODE_SUFFIX[L.fast_mode()]
                     kinds = {mode_sfx, "_w16" + mode_sfx} if bf else {mode_sfx}
                     if any(not any(op in (b + sfx for b in L.INSTANCE_OPS) for sfx in kinds)
-                           for op in per_call if "blocked" not in op):
+                           for op in per_call):
                         raise AssertionError(f"[serve] {spl} K={k} {name}: {per_call} are not "
                                              f"all instances of {sorted(kinds)}")
                     torch.cuda.reset_peak_memory_stats()
@@ -5312,6 +5344,11 @@ def _serving_warm_start(smi: str) -> None:
 # rank and (b) two gloo ranks on CUDA tensors sharing the card; every number
 # of (b) is two ranks sharing one card, and says nothing of two cards.
 DIST_ROWS = 2 * 128  # evaluate_ll's rows (two batches)
+# phase 16's image side: the K=64 Tucker flagship of phase 4 on 14x14, one
+# level of its region graph fewer and a quarter of its variables and store,
+# so that the gloo ranks' steps, which move the whole store's gradients
+# through the host, fit the run's time limit; every distributed path runs
+DIST_SIDE = 14
 # timed calls of each distributed step; of a gloo step, which moves its 1.69
 # GB of gradients through the host in seconds, DIST_TIMED_GLOO and no warm-up
 DIST_TIMED, DIST_TIMED_GLOO = 3, 2
@@ -5325,9 +5362,10 @@ def _dist_batch():
     import numpy as np
 
     rng = np.random.default_rng(0)
-    x = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
-    mask = rng.random((BATCH, 784)) < 0.5
-    return x, mask, np.random.default_rng(1).integers(0, 256, (DIST_ROWS, 784))
+    d = DIST_SIDE * DIST_SIDE
+    x = rng.integers(0, 256, size=(BATCH, d), dtype=np.int32).astype(np.int64)
+    mask = rng.random((BATCH, d)) < 0.5
+    return x, mask, np.random.default_rng(1).integers(0, 256, (DIST_ROWS, d))
 
 
 def _store_hash(store) -> list:
@@ -5356,8 +5394,8 @@ def _rank_setup(cfg: dict):
     by the parent, so no rank runs nvcc)."""
     import torch
 
-    global DEV, FLAGSHIP_K, BATCH
-    DEV, FLAGSHIP_K, BATCH = cfg["dev"], cfg["k"], cfg["batch"]
+    global DEV, FLAGSHIP_K, BATCH, DIST_SIDE
+    DEV, FLAGSHIP_K, BATCH, DIST_SIDE = cfg["dev"], cfg["k"], cfg["batch"], cfg["side"]
     if cfg.get("setup") is not None:  # a CPU rehearsal's stand-ins
         cfg["setup"]()
     if DEV == "cuda":
@@ -5460,8 +5498,8 @@ def _dist_nccl_rank(rank: int, cfg: dict) -> dict:
     _rank_setup(cfg)
     mesh1 = init_device_mesh(DEV, (1,), mesh_dim_names=("data",))
     mesh2 = init_device_mesh(DEV, (1, 1), mesh_dim_names=("data", "model"))
-    _, ctx, cc = _build_flagship("tucker", False, DEV)
-    _, ectx, ecc = _build_flagship("tucker", True, DEV)
+    _, ctx, cc = _build_flagship("tucker", False, DEV, side=DIST_SIDE)
+    _, ectx, ecc = _build_flagship("tucker", True, DEV, side=DIST_SIDE)
     x_np, mask_np, ev_np = _dist_batch()
     x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
 
@@ -5546,8 +5584,8 @@ def _dist_gloo_rank(rank: int, cfg: dict) -> dict:
     _rank_setup(cfg)
     mesh1 = init_device_mesh(DEV, (2,), mesh_dim_names=("data",))
     mesh2 = init_device_mesh(DEV, (1, 2), mesh_dim_names=("data", "model"))
-    _, ctx, cc = _build_flagship("tucker", False, DEV)
-    _, ectx, ecc = _build_flagship("tucker", True, DEV)
+    _, ctx, cc = _build_flagship("tucker", False, DEV, side=DIST_SIDE)
+    _, ectx, ecc = _build_flagship("tucker", True, DEV, side=DIST_SIDE)
     x_np, mask_np, ev_np = _dist_batch()
     x, mask = torch.as_tensor(x_np, device=DEV), torch.as_tensor(mask_np, device=DEV)
     xr = shard_batch(x, mesh1)  # this rank's 64 rows
@@ -5686,11 +5724,11 @@ def _dist_gloo_rank(rank: int, cfg: dict) -> dict:
     return out
 
 
-def phase_distributed(smi: str, built: list) -> dict[str, int]:
-    """Phase 16: (a) one NCCL rank, (b) two gloo ranks sharing the card, then
-    (c) the ZeRO-1 checkpoint the two ranks wrote, read here at one rank and
-    resumed to their uninterrupted step to the bit. Returns the ranks' kernel
-    launches on their main paths."""
+def phase_distributed(smi: str) -> dict[str, int]:
+    """Phase 16, on the K=64 Tucker flagship at DIST_SIDE: (a) one NCCL rank,
+    (b) two gloo ranks sharing the card, then (c) the ZeRO-1 checkpoint the
+    two ranks wrote, read here at one rank and resumed to their uninterrupted
+    step to the bit. Returns the ranks' kernel launches on their main paths."""
     import numpy as np
     import torch
 
@@ -5702,12 +5740,13 @@ def phase_distributed(smi: str, built: list) -> dict[str, int]:
     from cirkit_tpu_torch.utils.checkpoint import load_checkpoint
 
     t0 = time.perf_counter()
-    ctx, cc = next((ctx, cc) for spl, em, _, ctx, cc, _ in built if spl == "tucker" and not em)
+    _, ctx, cc = _build_flagship("tucker", False, DEV, side=DIST_SIDE)
     ck = REPO / "build" / "chip_smoke" / "dcp"
     if ck.parent.exists():
         shutil.rmtree(ck.parent)
     ck.parent.mkdir(parents=True)
-    cfg = dict(dev=DEV, k=FLAGSHIP_K, batch=BATCH, setup=DIST_SETUP, dcp=str(ck))
+    cfg = dict(dev=DEV, k=FLAGSHIP_K, batch=BATCH, side=DIST_SIDE, setup=DIST_SETUP,
+               dcp=str(ck))
     want_fp = _fingerprint(ctx.parameters)
     launches: dict[str, int] = {}
     # the ranks share the card: hand them what this process's allocator keeps
@@ -5826,6 +5865,456 @@ def phase_distributed(smi: str, built: list) -> dict[str, int]:
 DIST_SETUP = None
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: the low-precision configurations of kernels 3, 4, 8 and 9
+# --------------------------------------------------------------------------- #
+
+# the blocked instances in an order that takes the float32-weight ones first,
+# so the float32 weight is freed before the bf16 ones run (the K=128 dense
+# entry's weight is 6.6 GB in float32)
+BLOCKED_INSTANCES = (("_fast", "bf16"), ("_sr", "sr"), ("_w16", ""), ("_w16_fast", "bf16"),
+                     ("_w16_sr", "sr"))
+LOWPREC_SEED = 0  # the random weights of phase 17's flagships
+LOWPREC_STEPS = 3  # the fast training run's SGD steps in each mode
+LOWPREC_MODES = {"f32_grade": "", "bf16_fast": "1", "sr": "sr"}
+
+
+def _grads_close(bkey: str, label: str, got, ref, x, g) -> float:
+    """Phase 3b's backward bound on each gradient, and the input gradient 0
+    where it is so by structure (x of -inf, a row whose cotangent is 0);
+    bf16-valued operands can also cancel to an exact 0 of the plain version,
+    which the bound covers. Returns the worst error."""
+    import torch
+
+    worst = 0.0
+    for name, k, p in zip(("dx", "dw"), got, ref):
+        if k.shape != p.shape or bool(torch.isnan(k).any()):
+            raise AssertionError(f"{bkey} [{label}] {name}: shape {tuple(k.shape)} or NaN")
+        zero = torch.isneginf(x) | (g == 0).all(dim=-1, keepdim=True)
+        if name == "dx" and not bool((k[zero] == 0).all()):
+            raise AssertionError(f"{bkey} [{label}] dx: not 0 at an x of -inf or a row of "
+                                 "zero cotangent")
+        err = (k - p).abs()
+        if not bool((err <= BWD_REL * (p.abs().max() + p.abs())).all()):
+            raise AssertionError(f"{bkey} [{label}] {name}: max |kernel - plain| = "
+                                 f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_lowprec_kernels() -> dict[str, dict]:
+    """Phases 3, 3b and 3c for kernels 3', 4', 8' and 9': each bf16-weight and
+    fast-mode instance of the blocked dense forward and backward at the K=128
+    dense entry against its plain version in its mode on the same card inputs
+    (phase 3's and 3b's bounds; the row max equal to the clamped max), and
+    against float64 on F64_WIDE_F of its folds (the f32-grade instance to
+    phase 3's bound, the fast ones to FAST_FWD_TOL); each routing kernel's
+    bf16-th instance at the K=64 flagship's Tucker entries against its plain
+    version (phase 3c's bounds) and equal to the float32 instance on the
+    widened th, to the bit. Returns per-instance results, timed at the first
+    shape."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.ops import routing as R
+
+    results: dict[str, dict] = {}
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    f, b, i, o = 784, BATCH, WIDE_K * WIDE_K, WIDE_K
+    label = f"F={f} B={b} I={i} O={o}"
+    with torch.inference_mode():
+        x = torch.randn((f, b, i), generator=gen, device=DEV) * 3.0 - 2.0
+        x[0, 5] = float("-inf")  # a row that is all -inf
+        w = torch.rand((f, o, i), generator=gen, device=DEV) * 0.99 + 0.01
+        g = torch.randn((f, b, o), generator=gen, device=DEV)
+        g[0, :3] = 0.0  # rows whose upstream gradient is 0
+    sl = slice(0, F64_WIDE_F)
+    for sfx, mode in BLOCKED_INSTANCES:
+        if sfx == "_w16":  # the bf16 instances from here on
+            w = w.to(torch.bfloat16)
+            gc.collect()
+            torch.cuda.empty_cache()
+        key, bkey = f"lse_matmul_blocked{sfx}", f"lse_matmul_blocked{sfx}_bwd"
+        with torch.inference_mode():
+            got, m = L._launch_blocked_fwd(x, w, mode)
+            ref, ref_m = L.lse_matmul_blocked_ref(x, w, mode)
+            torch.cuda.synchronize()
+            if not (torch.equal(m, ref_m) and torch.equal(m, L._clamp_max(x))):
+                raise AssertionError(f"{key} [{label}]: row max differs from the clamped max")
+            err = _max_err(key, label, got, ref)
+            del ref, ref_m
+            ref64 = L.lse_matmul_ref(x[sl].double(), w[sl].double())
+            if mode:
+                fin = torch.isfinite(ref64)
+                err64 = float((got[sl].double() - ref64)[fin].abs().max())
+                if not (torch.equal(torch.isneginf(got[sl]), torch.isneginf(ref64))
+                        and err64 <= FAST_FWD_TOL):
+                    raise AssertionError(f"{key} [{label}]: off float64 by {err64:.3e}")
+            else:
+                err64 = _max_err(f"{key} vs float64", label, got[sl].double(), ref64)
+            del ref64
+            ms = _median_ms(lambda: L._launch_blocked_fwd(x, w, mode))
+            # sr's plain version hashes 1.6e9 indices a call (about a second)
+            reps = {"warmup": 0, "iters": 1} if mode == "sr" else {"warmup": 1, "iters": 3}
+            plain_ms = _median_ms(lambda: L.lse_matmul_blocked_ref(x, w, mode), **reps)
+        bound, by = _serve_bound(key, (x, w), mode, extra=4 * f * b)
+        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "tc_bound_ms": bound, "shape": label}
+        print(f"[kernel] {key:27s} {label:36s} max|err|={err:.3e}, against float64 on "
+              f"{F64_WIDE_F} folds {err64:.3e}  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound:.3f} ms ({by})")
+        with torch.inference_mode():
+            grads = L._launch_blocked_bwd(x, w, got, m, g, (True, True), mode)
+            again = L._launch_blocked_bwd(x, w, got, m, g, (True, True), mode)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+                raise AssertionError(f"{bkey} [{label}]: two calls differ")
+            del again
+            refs = L.lse_matmul_blocked_bwd_ref(x, w, got, m, g, (True, True), mode)
+            torch.cuda.synchronize()
+            err = _grads_close(bkey, label, grads, refs, x, g)
+            del grads, refs
+            gc.collect()
+            torch.cuda.empty_cache()
+            ms = _median_ms(lambda: L._launch_blocked_bwd(x, w, got, m, g, (True, True), mode))
+            plain_ms = _median_ms(lambda: L.lse_matmul_blocked_bwd_ref(
+                x, w, got, m, g, (True, True), mode), **reps)
+        bound, by = _serve_bound(bkey, (x, w), mode, extra=4 * f * b)
+        results[bkey] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "tc_bound_ms": bound, "shape": label}
+        print(f"[backward] {bkey:27s} {label:36s} max|err|={err:.3e}  kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        del got, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x, w, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the routing kernels on a bf16 th, at phase 3c's K=64 rows
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    ff, b, k1, k2, o = ROUTE_FLAGSHIP
+    cases = [(f"F={ff} B={b} K1={k1} K2={k2} O={o} logits", ff, True),
+             (f"F={ff} B={b} K1={k1} K2={k2} O={o} linear", ff, False),
+             *((f"F={fo} B={b} K1={k1} K2={k2} O={o} logits", fo, True) for fo in ROUTE_FOLDS)]
+    trop, route = "tropical_tucker2_w16", "route_tucker2_w16"
+    results[trop] = {"max_abs_err": 0.0}
+    results[route] = {"max_abs_err": 0.0, "differ": 0}
+    with torch.inference_mode():
+        for label, fo, lw in cases:
+            x1 = torch.randn((fo, b, k1), generator=gen, device=DEV) * 3.0 - 2.0
+            x2 = torch.randn((fo, b, k2), generator=gen, device=DEV) * 3.0 - 2.0
+            th = (torch.randn((fo, o, k1 * k2), generator=gen, device=DEV) if lw
+                  else torch.rand((fo, o, k1 * k2), generator=gen, device=DEV) * 0.99 + 0.01)
+            th16 = th.to(torch.bfloat16)
+            th = th16.float()  # the widened th
+            sel = torch.randint(-1, o, (fo, b), generator=gen, device=DEV)
+            got = R.tropical_tucker2(x1, x2, th16, log_weights=lw)
+            if not torch.equal(got, R.tropical_tucker2(x1, x2, th, log_weights=lw)):
+                raise AssertionError(f"{trop} [{label}]: differs from the widened run")
+            err = _trop_check(label, got, R.tropical_tucker2_ref(x1, x2, th16, log_weights=lw))
+            entry = results[trop]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            line = f"[routing] {trop} {label:36s} max|err|={err:.3e}, equal to the widened run"
+            if "ms" not in entry:
+                entry["ms"] = _median_ms(lambda: R.tropical_tucker2(x1, x2, th16, log_weights=lw))
+                entry["plain_ms"] = _median_ms(
+                    lambda: R.tropical_tucker2_ref(x1, x2, th16, log_weights=lw), iters=5)
+                entry["shape"] = label
+                entry["bound_ms"], entry["bound_by"] = _bound_of(
+                    2 * (2 * fo * b * o * k1 * k2),
+                    4 * (x1.numel() + x2.numel() + fo * b * o) + 2 * th16.numel())
+                line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+            print(line)
+            scores = R.route_scores(x1, x2, th16, sel, log_weights=lw)
+            idx = R.route_tucker2(x1, x2, th16, sel, kind="max", log_weights=lw)
+            differ = _check_choice(label, idx, scores)
+            same = torch.equal(idx, R.route_tucker2(x1, x2, th, sel, kind="max", log_weights=lw))
+            draw = R.route_tucker2(x1, x2, th16, sel, kind="sample", log_weights=lw, seed=7)
+            same = same and torch.equal(draw, R.route_tucker2(x1, x2, th, sel, kind="sample",
+                                                              log_weights=lw, seed=7))
+            if not same:
+                raise AssertionError(f"{route} [{label}]: differs from the widened run")
+            _check_draws(R, label, x1, x2, th16, sel, lw, scores)
+            entry = results[route]
+            entry["differ"] += differ
+            line = (f"[routing] {route}    {label:36s} {differ} of {idx.numel()} indices "
+                    f"differ from plain, max and sample equal to the widened run")
+            if "ms" not in entry:
+                entry["ms"] = _median_ms(
+                    lambda: R.route_tucker2(x1, x2, th16, sel, kind="max", log_weights=lw))
+                entry["plain_ms"] = _median_ms(
+                    lambda: R.route_tucker2_ref(x1, x2, th16, sel, kind="max", log_weights=lw))
+                entry["sample_ms"] = _median_ms(lambda: R.route_tucker2(
+                    x1, x2, th16, sel, kind="sample", log_weights=lw, seed=12345))
+                entry["shape"] = label
+                # phase 3c's bound over the selected bf16 weight rows
+                rows = torch.unique(torch.arange(fo, device=DEV)[:, None] * o
+                                    + sel.clamp(0, o - 1)).numel()
+                moved = 4 * (x1.numel() + x2.numel()) + 2 * rows * k1 * k2 + 16 * fo * b
+                entry["bound_ms"], entry["bound_by"] = _bound_of(2 * (3 * fo * b * k1 * k2),
+                                                                 moved)
+                line += (f"  max: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+                         f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}); sample: "
+                         f"kernel {entry['sample_ms']:.3f} ms")
+            print(line)
+            del x1, x2, th, th16, sel, got, scores, idx, draw
+    return results
+
+
+def _bit_equal(a, b) -> bool:
+    """Two query results (tensors, or tuples and lists of them) equal to the bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_bit_equal(u, v) for u, v in zip(a, b))
+    return a == b
+
+
+def _instance_launches(label: str, per_call: dict[str, int], mode_sfx: str,
+                       w16_blocked: bool, n_wide: int) -> None:
+    """Every launch of a forward or backward of the unoptimized K=128
+    flagship is an instance of the mode ``mode_sfx``, and its wide entries
+    took the blocked instance (on a bf16 weight for ``w16_blocked``), once
+    each."""
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    kinds = {mode_sfx, "_w16" + mode_sfx}
+    names = {base + sfx + tail for base in L.INSTANCE_OPS for sfx in kinds for tail in ("", "_bwd")}
+    blocked = "lse_matmul_blocked" + ("_w16" if w16_blocked else "") + mode_sfx
+    n_blocked = per_call.get(blocked, 0) + per_call.get(blocked + "_bwd", 0)
+    if not set(per_call) <= names or n_blocked != n_wide:
+        raise AssertionError(f"[lowprec] {label}: launches {per_call}, {n_wide} of {blocked} "
+                             f"(forward or backward) expected, all of modes {sorted(kinds)}")
+
+
+def phase_lowprec(smi: str) -> dict[str, int]:
+    """Phase 17: (a) the EM-ready K=128 Tucker flagship compiled with
+    optimize=False served from its bf16 store at batch 128 in the three modes,
+    forward and one backward each (kernels 3' and 4' on bf16 Dirichlet
+    weights); (b) the K=128 softmax flagship with optimize=False, its forward
+    and LOWPREC_STEPS SGD steps under CIRKIT_TPU_FAST=1 and sr (kernels 3'
+    and 4' on float32 weights); (c) MAP, sampling and the conditional from the
+    K=64 Tucker flagship's bf16 store at batch 128 (kernels 9' and 8'), equal
+    to the bit to the same queries on the store widened to float32. Returns
+    each kernel's launches over the counted (main-path) calls."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import MAPQuery, SamplingQuery, bf16_weight_store
+    from cirkit_tpu_torch.backend.torch.layers import TorchSumLayer
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTuckerLayer
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import data_parallel_step, split_trainable
+
+    launches = dict.fromkeys(L.LAUNCHES, 0)
+    rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
+    x_np = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
+    mask = torch.as_tensor(rng.random((BATCH, 784)) < 0.5, device=DEV)
+    x = torch.as_tensor(x_np, device=DEV)
+    r = GRAD_ROWS
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    def count(per_call):
+        for op, n in per_call.items():
+            launches[op] += n
+
+    def run(fn):
+        _zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {op: n for op, n in L.LAUNCHES.items() if n}
+
+    # (a) serving the unoptimized EM-ready flagship from its bf16 store
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, ctx, cc = _build_flagship("tucker", True, DEV, k=WIDE_K, optimize=False)
+    n_wide = _expected_launches(cc)[0].get("lse_matmul_blocked", 0)
+    mixing = sorted((l.num_folds, l.num_input_units * l.arity, l.num_output_units)
+                    for l in cc.layers if isinstance(l, TorchSumLayer)
+                    and l.num_input_units * l.arity < L.WIDE_WIDTH)
+    if mixing != sorted((f, *dims) for _, _, f, _, dims in EM_MIX_SHAPES):
+        raise AssertionError(f"[lowprec] the EM-ready K={WIDE_K} flagship's narrow dense "
+                             f"entries (F, I, O) {mixing} are not EM_MIX_SHAPES, where kernels "
+                             "1 and 2's bf16 instances were held")
+    st32 = cc.restrict_store(ctx.parameters)
+    f32_gb = _store_gb(st32)
+    store = bf16_weight_store(cc, st32)
+    del st32
+    ctx.parameters.clear()  # the float32 store: only the bf16 one is served
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = f"(a) K={WIDE_K} tucker optimize=False em_ready=True, bf16 store"
+    print(f"[lowprec] {label}: compiled in {time.perf_counter() - t0:.1f} s; store "
+          f"{_store_gb(store):.3f} GB with the bf16 weights ({f32_gb:.3f} GB in float32); "
+          f"{n_wide} entries of width {WIDE_K * WIDE_K}")
+    lls = {}
+    for name, env in LOWPREC_MODES.items():
+        with _fast_env(env):
+            mode_sfx = L.MODE_SUFFIX[L.fast_mode()]
+            with torch.inference_mode():
+                torch.cuda.reset_peak_memory_stats()
+                out, per_call = run(lambda: cc.evaluate(store, x))
+                _instance_launches(f"{label} {name} forward", per_call, mode_sfx, True, n_wide)
+                count(per_call)
+                if out.shape != (BATCH, 1, 1) or not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"[lowprec] {label} {name}: output not finite")
+                lls[name] = out[:r, 0, 0].double().cpu()
+                ms = _median_ms(lambda: cc.evaluate(store, x), warmup=1, iters=5)
+                fwd_gb = peak_gb()
+            tr, fr = split_trainable(cc, store)
+            grads = []
+            for _ in range(2 if env == "sr" else 1):
+                t = {k: v.detach().requires_grad_() for k, v in tr.items()}
+                torch.cuda.reset_peak_memory_stats()
+                gd, per_call = run(lambda: dict(zip(t, torch.autograd.grad(
+                    -cc.evaluate({**t, **fr}, x).mean(), list(t.values())))))
+                grads.append(gd)
+                del t
+            _instance_launches(f"{label} {name} backward", per_call, mode_sfx, True,
+                               2 * n_wide)
+            count(per_call)
+            bad = [k for k, v in grads[0].items() if v.dtype != tr[k].dtype
+                   or not bool(torch.isfinite(v).all())]
+            if bad:
+                raise AssertionError(f"[lowprec] {label} {name}: gradients of {bad} not finite "
+                                     "or not of their slot's type")
+            w16 = sorted({str(v.dtype).removeprefix("torch.") for v in grads[0].values()})
+            same = len(grads) == 1 or all(torch.equal(grads[0][k], grads[1][k])
+                                          for k in grads[0])
+            if not same:
+                raise AssertionError(f"[lowprec] {label} {name}: two backwards differ")
+            del grads, tr, fr
+        rel = float((lls[name] - lls["f32_grade"]).abs().div(lls["f32_grade"].abs()).max())
+        if name != "f32_grade" and not rel <= SERVE_FAST_RTOL:
+            raise AssertionError(f"[lowprec] {label} {name}: {r} rows off the f32-grade run "
+                                 f"by {rel:.3e} > {SERVE_FAST_RTOL}")
+        print(f"[lowprec] {label} {name}: forward at batch {BATCH} {ms:.3f} ms median of 5, "
+              f"peak {fwd_gb:.2f} GB; backward peak {peak_gb():.2f} GB, gradients {w16}"
+              f"{', two equal to the bit' if env == 'sr' else ''}; {r} rows within {rel:.2e} "
+              f"of the f32-grade run; launches a backward {per_call} ({smi})")
+    del ctx, cc, store, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 17a took {time.perf_counter() - t0:.0f} s")
+
+    # (b) fast training of the unoptimized softmax flagship
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, ctx, cc = _build_flagship("tucker", False, DEV, k=WIDE_K, optimize=False)
+    label = f"(b) K={WIDE_K} tucker optimize=False, float32 store"
+    st = ctx.parameters
+    lls = {}
+    with torch.inference_mode():
+        for name, env in LOWPREC_MODES.items():
+            with _fast_env(env):
+                mode_sfx = L.MODE_SUFFIX[L.fast_mode()]
+                out, per_call = run(lambda: cc(x))
+                if env:
+                    _instance_launches(f"{label} {name} forward", per_call, mode_sfx, False,
+                                       n_wide)
+                    count(per_call)
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"[lowprec] {label} {name}: output not finite")
+                lls[name] = out[:r, 0, 0].double().cpu()
+                rel = float((lls[name] - lls["f32_grade"]).abs().div(
+                    lls["f32_grade"].abs()).max())
+                if not rel <= SERVE_FAST_RTOL:
+                    raise AssertionError(f"[lowprec] {label} {name}: {r} rows off the f32-grade "
+                                         f"run by {rel:.3e}")
+                if env:
+                    print(f"[lowprec] {label} {name}: forward {r} rows within {rel:.2e} of "
+                          "the f32-grade run")
+    del out
+    tr, fr = split_trainable(cc, st)
+    opt = torch.optim.SGD(list(tr.values()), lr=SGD_LR)
+    step = data_parallel_step(cc, opt)
+    for name in ("bf16_fast", "sr"):
+        with _fast_env(LOWPREC_MODES[name]):
+            mode_sfx = L.MODE_SUFFIX[L.fast_mode()]
+            losses = []
+            for _ in range(LOWPREC_STEPS):
+                loss, per_call = run(lambda: step(tr, fr, x))
+                _instance_launches(f"{label} {name} step", per_call, mode_sfx, False, 2 * n_wide)
+                count(per_call)
+                losses.append(float(loss))
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"[lowprec] {label} {name}: losses {losses} not finite "
+                                     "and falling")
+            ms = _median_ms(lambda: step(tr, fr, x), warmup=0, iters=2)
+        print(f"[lowprec] {label} {name}: {LOWPREC_STEPS} SGD steps, NLL "
+              + " -> ".join(f"{v:.3f}" for v in losses) + f"; step {ms:.3f} ms median of 2; "
+              f"peak {peak_gb():.2f} GB; launches a step {per_call} ({smi})")
+    del ctx, cc, st, tr, fr, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 17b took {time.perf_counter() - t0:.0f} s")
+
+    # (c) MAP and sampling from the K=64 flagship's bf16 store
+    t0 = time.perf_counter()
+    _, ctx, cc = _build_flagship("tucker", False, DEV)
+    st32 = {k: v.detach() for k, v in cc.restrict_store(ctx.parameters).items()}
+    stores = {"bf16": bf16_weight_store(cc, st32)}
+    stores["widened"] = {k: v.float() if v.dtype == torch.bfloat16 else v
+                         for k, v in stores["bf16"].items()}
+    del st32
+    n_tucker = sum(isinstance(l, TorchTuckerLayer) and l.arity == 2 for l in cc.layers)
+    label = "(c) K=64 tucker"
+    got, peaks, times = {}, {}, {}
+    with torch.inference_mode():
+        for name, st in stores.items():
+            mq, sq = MAPQuery(cc), SamplingQuery(cc)
+            calls = {
+                "map": lambda: mq(x, evidence_mask=mask, store=st),
+                "sample": lambda: sq(BATCH, generator=torch.Generator().manual_seed(3), store=st),
+                "conditional": lambda: sq.conditional(
+                    x, evidence_mask=mask, generator=torch.Generator().manual_seed(4), store=st),
+            }
+            for q, fn in calls.items():
+                torch.cuda.reset_peak_memory_stats()
+                out, per_call = run(fn)
+                peaks[name, q] = peak_gb()
+                got[name, q] = out
+                routing = {op: n for op, n in per_call.items() if "tucker2" in op
+                           and op.startswith(("tropical", "route"))}
+                sfx = "_w16" if name == "bf16" else ""
+                want = ({f"tropical_tucker2{sfx}": n_tucker, f"route_tucker2{sfx}": n_tucker}
+                        if q == "map" else {f"route_tucker2{sfx}": n_tucker})
+                if routing != want:
+                    raise AssertionError(f"[lowprec] {label} {q} from the {name} store: routing "
+                                         f"launches {routing}, expected {want}")
+                if name == "bf16":
+                    count(per_call)
+                times[name, q] = _median_ms(fn, warmup=1, iters=5)
+    for q in ("map", "sample", "conditional"):
+        if not _bit_equal(got["bf16", q], got["widened", q]):
+            raise AssertionError(f"[lowprec] {label} {q}: the bf16 store's result differs from "
+                                 "the widened store's")
+    asg, vals = got["bf16", "map"]
+    if not (torch.equal(asg[mask], x[mask].to(asg.dtype)) and bool(vals.isfinite().all())):
+        raise AssertionError(f"[lowprec] {label}: MAP keeps no evidence or is not finite")
+    print(f"[lowprec] {label}: MAP, sampling and the conditional at batch {BATCH} from the bf16 "
+          f"store ({_store_gb(stores['bf16']):.3f} GB) equal to the bit to the widened store's "
+          f"({_store_gb(stores['widened']):.3f} GB); " + ", ".join(
+              f"{q} {times['bf16', q]:.3f} ms (widened {times['widened', q]:.3f} ms), peak "
+              f"{peaks['bf16', q]:.2f} GB (widened {peaks['widened', q]:.2f} GB)"
+              for q in ("map", "sample", "conditional")) + f" ({smi})")
+    del ctx, cc, stores, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 17c took {time.perf_counter() - t0:.0f} s")
+    used = {op: n for op, n in launches.items() if n}
+    print(f"[lowprec] launches on phase 17's paths: {used}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5838,11 +6327,19 @@ def main() -> int:
     results = phase_kernels()
     results.update(phase_backward())
     results.update(phase_routing())
+    results.update(phase_lowprec_kernels())
     results.update(phase_signed())
     results.update(phase_complex())
     phase_float64()
     phase_float64_wide()
     results.update(phase_serving_kernels())
+    # phase 17a's mixing sums: their rows report the shapes of that path,
+    # their errors the largest over phase 15a's shapes and these
+    em_rows = {key: {"max_abs_err": results[key]["max_abs_err"]}
+               for key in (f"lse_matmul{sfx}{tail}" for sfx, _ in EM_MIX_INSTANCES
+                           for tail in ("", "_bwd"))}
+    results.update(phase_serving_kernels(EM_MIX_SHAPES, EM_MIX_INSTANCES, linear_only=True,
+                                         results=em_rows))
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
     # each kernel's launches, summed over the main-path runs of phases 4-14
     launches = dict.fromkeys(KERNELS, 0)
@@ -5855,7 +6352,7 @@ def main() -> int:
     cross = phase_cross(smi, built)
     print(f"[time] phases 4-7b and 12 done at {time.perf_counter() - t_start:.0f} s")
     t_dist = time.perf_counter()
-    dist = phase_distributed(smi, built)
+    dist = phase_distributed(smi)
     print(f"[time] phase 16 took {time.perf_counter() - t_dist:.0f} s")
     struct = phase_structure(smi, built)
     print(f"[time] phase 13 done at {time.perf_counter() - t_start:.0f} s")
@@ -5873,8 +6370,12 @@ def main() -> int:
     serve = phase_serving(smi)
     print(f"[time] phase 15 took {time.perf_counter() - t_serve:.0f} s, done at "
           f"{time.perf_counter() - t_start:.0f} s")
+    t_low = time.perf_counter()
+    low = phase_lowprec(smi)
+    print(f"[time] phase 17 took {time.perf_counter() - t_low:.0f} s, done at "
+          f"{time.perf_counter() - t_start:.0f} s")
     for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, struct,
-                   qpc, wide, sos, signed, csos, cflag, f64, serve, dist):
+                   qpc, wide, sos, signed, csos, cflag, f64, serve, dist, low):
         for op, n in counts.items():
             if n:  # the phases count every LAUNCHES key, most at 0
                 launches[op] = launches.get(op, 0) + n

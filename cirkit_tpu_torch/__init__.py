@@ -10,7 +10,30 @@ Importing this package never imports ``jax``.
 
 __version__ = "0.1.1"
 
-from cirkit_tpu_torch import models, symbolic, utils  # noqa: E402,F401
-from cirkit_tpu_torch.pipeline import PipelineContext  # noqa: E402,F401
+from cirkit_tpu_torch import models, ops, parallel, symbolic, utils  # noqa: E402,F401
+from cirkit_tpu_torch.pipeline import (  # noqa: E402,F401
+    PipelineContext,
+    compile,
+    concatenate,
+    conjugate,
+    differentiate,
+    integrate,
+    mixture,
+    multiply,
+)
 
-__all__ = ["PipelineContext", "models", "symbolic", "utils"]
+__all__ = [
+    "PipelineContext",
+    "compile",
+    "concatenate",
+    "conjugate",
+    "differentiate",
+    "integrate",
+    "mixture",
+    "multiply",
+    "models",
+    "ops",
+    "parallel",
+    "symbolic",
+    "utils",
+]

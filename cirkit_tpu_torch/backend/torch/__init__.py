@@ -4,6 +4,8 @@ queries, structural pruning and growing, tree distillation, and serving
 (bf16 weight stores, exported forwards, warm-start bundles) (the
 counterpart of ``cirkit_tpu.backend.jax``)."""
 
+from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit
+from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
 from cirkit_tpu_torch.backend.torch.cross import (
     cross_circuit_kl,
     expected_loglikelihood,
@@ -27,9 +29,17 @@ from cirkit_tpu_torch.backend.torch.queries import (
     ExpectationQuery,
     IntegrateQuery,
     MAPQuery,
+    Query,
     SamplingQuery,
     masked_evaluate,
     mutual_information,
+)
+from cirkit_tpu_torch.backend.torch.semiring import (
+    ComplexLSESumSemiring,
+    LSESumSemiring,
+    Semiring,
+    SemiringImpl,
+    SumProductSemiring,
 )
 from cirkit_tpu_torch.backend.torch.serving import (
     bf16_weight_store,
@@ -45,11 +55,19 @@ from cirkit_tpu_torch.backend.torch.warmstart import (
 )
 
 __all__ = [
+    "ComplexLSESumSemiring",
+    "TorchCircuit",
+    "TorchCompiler",
+    "LSESumSemiring",
+    "Semiring",
+    "SemiringImpl",
+    "SumProductSemiring",
     "EntropyQuery",
     "ExpectationQuery",
     "IntegrateQuery",
     "KLDivergenceQuery",
     "MAPQuery",
+    "Query",
     "SamplingQuery",
     "WarmBundle",
     "WarmStartError",

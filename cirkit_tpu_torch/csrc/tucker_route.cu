@@ -75,7 +75,14 @@
 // Both kernels are templates over their scalar type T, float or double (the
 // entries with _f64); a double tropical block is alone on its SM and stages
 // 8 columns a chunk. The route's Philox bits give 24 bits of uniform in
-// float, 53 in double.
+// float, 53 in double. Their weight type WT is T, or bf16 beside float (the
+// _w16 entries: the serving store's logits or weights, as the TPU kernels
+// take a bf16 th): the kernels read th as stored (8-byte loads of four
+// values where the float instance makes 16-byte ones) and widen each value
+// exactly before any arithmetic, so every sum, max and comparison is the
+// float instance's on the widened th, and the results equal its run on the
+// widened weights to the bit. There is no fast mode: the TPU kernels run
+// their three-term split in every mode.
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream and returns cudaGetLastError() of the launches (0 on success).
@@ -149,7 +156,7 @@ __device__ __forceinline__ void stats_add_n(const T* v, T& mx, T& sum) {
 }
 
 // N neighbouring values from 16-byte aligned device memory (N a multiple of
-// 16 bytes).
+// 16 bytes; bf16: four values a load, 8-byte aligned, widened).
 template <int N>
 __device__ __forceinline__ void load_n(const float* p, float* v) {
 #pragma unroll
@@ -161,6 +168,14 @@ __device__ __forceinline__ void load_n(const double* p, double* v) {
   for (int c = 0; c < N; c += 2) {
     const double2 t = *reinterpret_cast<const double2*>(p + c);
     v[c] = t.x, v[c + 1] = t.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* v) {
+#pragma unroll
+  for (int c = 0; c < N; c += 4) {
+    const float4 t = cirkit::load_w4(p + c);
+    v[c] = t.x, v[c + 1] = t.y, v[c + 2] = t.z, v[c + 3] = t.w;
   }
 }
 
@@ -177,11 +192,11 @@ __device__ __forceinline__ void load_n(const double* p, double* v) {
 // one or two 16-byte reads, whose running (max, sum) it keeps alone.
 // Otherwise thread tid stages column tid % BK of the rows and units
 // tid / BK + n * (THREADS / BK), element by element.
-template <typename T, bool LOGW, bool VEC>
+template <typename T, bool LOGW, bool VEC, typename WT = T>
 __global__ void __launch_bounds__(THREADS, Trop<T>::MIN_BLOCKS)
-tropical_tucker_kernel(const T* __restrict__ x1,  // (F,B,K1)
-                       const T* __restrict__ x2,  // (F,B,K2)
-                       const T* __restrict__ th,  // (F,O,K1*K2) logits or weights
+tropical_tucker_kernel(const T* __restrict__ x1,   // (F,B,K1)
+                       const T* __restrict__ x2,   // (F,B,K2)
+                       const WT* __restrict__ th,  // (F,O,K1*K2) logits or weights
                        T* __restrict__ out,       // (F,B,O)
                        T* __restrict__ part, T* __restrict__ stats, int F, int B, int K1,
                        int K2, int O, int S, int span) {
@@ -209,7 +224,7 @@ tropical_tucker_kernel(const T* __restrict__ x1,  // (F,B,K1)
 
   const T* x1f = x1 + (size_t)f * B * K1;
   const T* x2f = x2 + (size_t)f * B * K2;
-  const T* thf = th + (size_t)f * O * M;
+  const WT* thf = th + (size_t)f * O * M;
 
   // Staging coordinates: the first row (unit) and column this thread stages.
   const int arow = VEC ? tid / A_THR : tid / BK;
@@ -255,7 +270,7 @@ tropical_tucker_kernel(const T* __restrict__ x1,  // (F,B,K1)
 #pragma unroll
           for (int c = 0; c < W_COLS; ++c) rw[c] = LOGW ? -INFINITY : T(0);
       } else {
-        rw[n] = ok ? thf[(size_t)o * M + kw] : (LOGW ? -INFINITY : T(0));
+        rw[n] = ok ? cirkit::widen(thf[(size_t)o * M + kw]) : (LOGW ? -INFINITY : T(0));
       }
     }
   };
@@ -473,13 +488,13 @@ constexpr int ROUTE_WARPS = ROUTE_THREADS / 32;
 // aligned): the four columns share i, and the weights and x2[j .. j + 3]
 // are one aligned read each. Otherwise element by element, columns past M
 // scoring -inf.
-template <typename T, bool LOGW, bool QUAD>
-__device__ __forceinline__ void group_scores(const T* __restrict__ wg, const T* xa, const T* xb,
+template <typename T, bool LOGW, bool QUAD, typename WT = T>
+__device__ __forceinline__ void group_scores(const WT* __restrict__ wg, const T* xa, const T* xb,
                                              int m0, int M, int K1, int K2, int i, int j,
                                              T* s) {
   if (QUAD) {
     T wv[4], b4[4];
-    cirkit::load4(wg, wv);
+    load_n<4>(wg, wv);
     cirkit::load4(xb + j, b4);
     const T a = xa[i];
 #pragma unroll
@@ -490,7 +505,7 @@ __device__ __forceinline__ void group_scores(const T* __restrict__ wg, const T* 
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const bool in = m0 + r < M;
-    const T w = in ? wg[r] : T(0);
+    const T w = in ? cirkit::widen(wg[r]) : T(0);
     const T lw = LOGW ? w : cirkit::log_t(w);
     s[r] = in ? (a + xb[j]) + lw : -INFINITY;
     if (r < 3 && ++j == K2) {
@@ -523,11 +538,11 @@ __device__ __forceinline__ T warp_incl_scan(T v, int lane) {
 }
 
 // A block of 8 warps takes 8 / TW rows (f, b), a team of TW warps each.
-template <typename T, bool LOGW, bool SAMPLE, bool QUAD>
+template <typename T, bool LOGW, bool SAMPLE, bool QUAD, typename WT = T>
 __global__ void __launch_bounds__(ROUTE_THREADS)
 route_tucker_kernel(const T* __restrict__ x1,         // (F,B,K1)
                     const T* __restrict__ x2,         // (F,B,K2)
-                    const T* __restrict__ th,         // (F,O,K1*K2)
+                    const WT* __restrict__ th,        // (F,O,K1*K2)
                     const int64_t* __restrict__ sel,  // (F,B) selected unit
                     int64_t* __restrict__ out,        // (F,B) composite index
                     int F, int B, int K1, int K2, int O, int TW, uint32_t seed_lo,
@@ -550,7 +565,7 @@ route_tucker_kernel(const T* __restrict__ x1,         // (F,B,K1)
 
   T* xa = reinterpret_cast<T*>(route_smem) + (size_t)team * (K1 + K2);
   T* xb = xa + K1;
-  const T* w = th;
+  const WT* w = th;
   int f = 0, b = 0;
   if (live) {
     f = (int)(row / B);
@@ -574,10 +589,10 @@ route_tucker_kernel(const T* __restrict__ x1,         // (F,B,K1)
   int bi = INT_MAX;
   // sample: the running max (and its log2(e) multiple) and sum of exp
   T mx = lowest(T(0)), mxl = lowest(T(0)), sum = T(0);
-  const T* wg = w + 4 * tl;
+  const WT* wg = w + 4 * tl;
   for (int g = tl; g < g_end; g += NT, wg += 4 * NT) {
     T s[4];
-    group_scores<T, LOGW, QUAD>(wg, xa, xb, 4 * g, M, K1, K2, i, j, s);
+    group_scores<T, LOGW, QUAD, WT>(wg, xa, xb, 4 * g, M, K1, K2, i, j, s);
     if (SAMPLE) {
       T v[4];
 #pragma unroll
@@ -688,7 +703,8 @@ route_tucker_kernel(const T* __restrict__ x1,         // (F,B,K1)
       const int g = (int)gl;
       const int gi = (4 * g) / K2;
       T s[4];
-      group_scores<T, LOGW, QUAD>(w + 4 * g, xa, xb, 4 * g, M, K1, K2, gi, 4 * g - gi * K2, s);
+      group_scores<T, LOGW, QUAD, WT>(w + 4 * g, xa, xb, 4 * g, M, K1, K2, gi, 4 * g - gi * K2,
+                                      s);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         e[r] = exp_from(cirkit::max_t(s[r], T(-INFINITY)), pmx, pmxl);
@@ -732,17 +748,23 @@ constexpr int vec_cols() {
   return Trop<T>::BK * BM / THREADS;
 }
 
-template <typename T, bool LOGW, bool VEC>
-void launch_tropical_grid(const T* x1, const T* x2, const T* th, T* out, T* part, T* stats,
+template <typename T, bool LOGW, bool VEC, typename WT>
+void launch_tropical_grid(const T* x1, const T* x2, const WT* th, T* out, T* part, T* stats,
                           int F, int B, int K1, int K2, int O, int S, int span,
                           cudaStream_t st) {
   const dim3 grid((unsigned)F * S, (O + BN - 1) / BN, (B + BM - 1) / BM);
-  tropical_tucker_kernel<T, LOGW, VEC><<<grid, THREADS, 0, st>>>(x1, x2, th, out, part, stats,
-                                                                 F, B, K1, K2, O, S, span);
+  tropical_tucker_kernel<T, LOGW, VEC, WT><<<grid, THREADS, 0, st>>>(
+      x1, x2, th, out, part, stats, F, B, K1, K2, O, S, span);
 }
 
-template <typename T, bool LOGW>
-int launch_tropical(const T* x1, const T* x2, const T* th, T* out, T* part, T* stats, int F,
+// The alignment of th that the vector loads need: 16 bytes, 8 for bf16.
+template <typename WT>
+constexpr uintptr_t th_align() {
+  return sizeof(WT) == 2 ? 8 : 16;
+}
+
+template <typename T, bool LOGW, typename WT = T>
+int launch_tropical(const T* x1, const T* x2, const WT* th, T* out, T* part, T* stats, int F,
                     int B, int K1, int K2, int O, int S, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -752,13 +774,13 @@ int launch_tropical(const T* x1, const T* x2, const T* th, T* out, T* part, T* s
   const int chunks = (M + BK - 1) / BK;
   const int span = (chunks + S - 1) / S * BK;
   const bool vec = K2 % vec_cols<T>() == 0 && reinterpret_cast<uintptr_t>(x2) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(th) % 16 == 0;
+                   reinterpret_cast<uintptr_t>(th) % th_align<WT>() == 0;
   if (vec)
-    launch_tropical_grid<T, LOGW, true>(x1, x2, th, out, part, stats, F, B, K1, K2, O, S, span,
-                                        st);
+    launch_tropical_grid<T, LOGW, true, WT>(x1, x2, th, out, part, stats, F, B, K1, K2, O, S,
+                                            span, st);
   else
-    launch_tropical_grid<T, LOGW, false>(x1, x2, th, out, part, stats, F, B, K1, K2, O, S, span,
-                                         st);
+    launch_tropical_grid<T, LOGW, false, WT>(x1, x2, th, out, part, stats, F, B, K1, K2, O, S,
+                                             span, st);
   if (S > 1) {
     if (LOGW) {
       const long long n = (long long)F * O;
@@ -773,12 +795,12 @@ int launch_tropical(const T* x1, const T* x2, const T* th, T* out, T* part, T* s
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool LOGW, bool SAMPLE, bool QUAD>
-int launch_route_grid(const T* x1, const T* x2, const T* th, const int64_t* sel, int64_t* out,
+template <typename T, bool LOGW, bool SAMPLE, bool QUAD, typename WT>
+int launch_route_grid(const T* x1, const T* x2, const WT* th, const int64_t* sel, int64_t* out,
                       int F, int B, int K1, int K2, int O, unsigned long long seed, int TW,
                       size_t smem, cudaStream_t st) {
   if (smem > 48 * 1024) {
-    const cudaError_t attr = cudaFuncSetAttribute(route_tucker_kernel<T, LOGW, SAMPLE, QUAD>,
+    const cudaError_t attr = cudaFuncSetAttribute(route_tucker_kernel<T, LOGW, SAMPLE, QUAD, WT>,
                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                   static_cast<int>(smem));
     if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -786,14 +808,14 @@ int launch_route_grid(const T* x1, const T* x2, const T* th, const int64_t* sel,
   const long long rows = (long long)F * B;
   const int teams = ROUTE_WARPS / TW;
   const unsigned blocks = (unsigned)((rows + teams - 1) / teams);
-  route_tucker_kernel<T, LOGW, SAMPLE, QUAD><<<blocks, ROUTE_THREADS, smem, st>>>(
+  route_tucker_kernel<T, LOGW, SAMPLE, QUAD, WT><<<blocks, ROUTE_THREADS, smem, st>>>(
       x1, x2, th, sel, out, F, B, K1, K2, O, TW, (uint32_t)(seed & 0xffffffffull),
       (uint32_t)(seed >> 32));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool LOGW, bool SAMPLE>
-int launch_route(const T* x1, const T* x2, const T* th, const int64_t* sel, int64_t* out, int F,
+template <typename T, bool LOGW, bool SAMPLE, typename WT = T>
+int launch_route(const T* x1, const T* x2, const WT* th, const int64_t* sel, int64_t* out, int F,
                  int B, int K1, int K2, int O, unsigned long long seed, int TW, int device,
                  void* stream) {
   const cudaError_t set = cudaSetDevice(device);
@@ -802,47 +824,50 @@ int launch_route(const T* x1, const T* x2, const T* th, const int64_t* sel, int6
   const size_t smem = (size_t)(ROUTE_WARPS / TW) * (K1 + K2) * sizeof(T);
   if (smem > cirkit::MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool quad = K1 % 4 == 0 && K2 % 4 == 0 && reinterpret_cast<uintptr_t>(th) % 16 == 0;
-  return quad ? launch_route_grid<T, LOGW, SAMPLE, true>(x1, x2, th, sel, out, F, B, K1, K2, O,
-                                                         seed, TW, smem, st)
-              : launch_route_grid<T, LOGW, SAMPLE, false>(x1, x2, th, sel, out, F, B, K1, K2, O,
-                                                          seed, TW, smem, st);
+  const bool quad = K1 % 4 == 0 && K2 % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(th) % th_align<WT>() == 0;
+  return quad ? launch_route_grid<T, LOGW, SAMPLE, true, WT>(x1, x2, th, sel, out, F, B, K1, K2,
+                                                             O, seed, TW, smem, st)
+              : launch_route_grid<T, LOGW, SAMPLE, false, WT>(x1, x2, th, sel, out, F, B, K1, K2,
+                                                              O, seed, TW, smem, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each entry exists for float (the plain name) and for double (_f64).
+// Each entry exists for float (the plain name) and for double (_f64), and
+// for float activations beside a bf16 th (_w16).
 // tropical_tucker: part (S, F, B, O) and stats (2, S, F, O) are scratch for
 // S > 1 (stats only with logits), unused (may be null) for S = 1.
 // route_tucker: team = warps a row (1, 2, 4 or 8).
-#define TUCKER_ROUTE_ENTRIES(SUFFIX, T)                                                        \
-  int tropical_tucker##SUFFIX(const T* x1, const T* x2, const T* th, T* out, T* part,          \
+#define TUCKER_ROUTE_ENTRIES(SUFFIX, T, WT)                                                    \
+  int tropical_tucker##SUFFIX(const T* x1, const T* x2, const WT* th, T* out, T* part,         \
                               T* stats, int F, int B, int K1, int K2, int O, int S,            \
                               int log_weights, int device, void* stream) {                     \
-    return log_weights ? launch_tropical<T, true>(x1, x2, th, out, part, stats, F, B, K1, K2,  \
-                                                  O, S, device, stream)                        \
-                       : launch_tropical<T, false>(x1, x2, th, out, part, stats, F, B, K1, K2, \
-                                                   O, S, device, stream);                      \
+    return log_weights ? launch_tropical<T, true, WT>(x1, x2, th, out, part, stats, F, B, K1,  \
+                                                      K2, O, S, device, stream)                \
+                       : launch_tropical<T, false, WT>(x1, x2, th, out, part, stats, F, B, K1, \
+                                                       K2, O, S, device, stream);              \
   }                                                                                            \
-  int route_tucker##SUFFIX(const T* x1, const T* x2, const T* th, const int64_t* sel,          \
+  int route_tucker##SUFFIX(const T* x1, const T* x2, const WT* th, const int64_t* sel,         \
                            int64_t* out, int F, int B, int K1, int K2, int O, int log_weights, \
                            int sample, unsigned long long seed, int team, int device,          \
                            void* stream) {                                                     \
     if (log_weights)                                                                           \
-      return sample ? launch_route<T, true, true>(x1, x2, th, sel, out, F, B, K1, K2, O, seed, \
-                                                  team, device, stream)                        \
-                    : launch_route<T, true, false>(x1, x2, th, sel, out, F, B, K1, K2, O,      \
-                                                   seed, team, device, stream);                \
-    return sample ? launch_route<T, false, true>(x1, x2, th, sel, out, F, B, K1, K2, O, seed,  \
-                                                 team, device, stream)                         \
-                  : launch_route<T, false, false>(x1, x2, th, sel, out, F, B, K1, K2, O, seed, \
-                                                  team, device, stream);                       \
+      return sample ? launch_route<T, true, true, WT>(x1, x2, th, sel, out, F, B, K1, K2, O,   \
+                                                      seed, team, device, stream)              \
+                    : launch_route<T, true, false, WT>(x1, x2, th, sel, out, F, B, K1, K2, O,  \
+                                                       seed, team, device, stream);            \
+    return sample ? launch_route<T, false, true, WT>(x1, x2, th, sel, out, F, B, K1, K2, O,    \
+                                                     seed, team, device, stream)               \
+                  : launch_route<T, false, false, WT>(x1, x2, th, sel, out, F, B, K1, K2, O,   \
+                                                      seed, team, device, stream);             \
   }
 
-TUCKER_ROUTE_ENTRIES(, float)
-TUCKER_ROUTE_ENTRIES(_f64, double)
+TUCKER_ROUTE_ENTRIES(, float, float)
+TUCKER_ROUTE_ENTRIES(_f64, double, double)
+TUCKER_ROUTE_ENTRIES(_w16, float, __nv_bfloat16)
 #undef TUCKER_ROUTE_ENTRIES
 
 }  // extern "C"

@@ -42,22 +42,22 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
 ``_dispatch_tucker_chunked``, ``cirkit_tpu/ops/lse_einsum.py:102-146,
 466-476, 865-875``):
 
-- the weight or logits operand of the single-pass, Tucker and K1-chunked
-  kernels (kernels 1, 2 and 5) may be ``torch.bfloat16`` beside float32
-  activations, the serving store of ``backend/torch/serving.py``: the
-  kernels read it as bf16 and widen it on chip; the weight's gradient is
+- the weight or logits operand of the single-pass, Tucker, K1-chunked and
+  blocked dense kernels (kernels 1-5) may be ``torch.bfloat16`` beside
+  float32 activations, the serving store of ``backend/torch/serving.py``:
+  the kernels read it as bf16 and widen it on chip; the weight's gradient is
   accumulated in float32 and cast to the weight's type at the boundary, as
-  the JAX package's ``_fused_p_bwd`` does. Float64 activations take a bf16
-  weight widened to float64 here, and the other kernels (the blocked dense
-  ones, the signed, complex and routing ones) a bf16 weight widened to
-  float32 in their op wrappers before their float32 instance launches;
+  the JAX package's ``_fused_p_bwd`` and ``_blocked_p_bwd`` do. Float64
+  activations take a bf16 weight widened to float64 here, and the signed
+  and complex kernels a bf16 weight widened to float32 in their op wrappers
+  before their float32 instance launches (the routing kernels read it as
+  bf16: ``ops/routing.py``);
 - ``CIRKIT_TPU_FAST`` (:func:`fast_mode`, read at each call as in JAX):
   unset runs the f32-grade instances (3xTF32); ``sr`` stochastically rounds
   the contraction operands to bf16, any other value rounds them to the
   nearest bf16; either runs one TF32 pass over bf16-valued operands,
   which multiplies them exactly with float32 accumulation. A mode applies
-  to float32 activations only; the kernels without a fast instance (the
-  blocked dense ones) run their f32-grade instance.
+  to float32 activations only.
 
 The rounding points are those of the port's kernels, where the JAX kernel's
 are partly artifacts of Mosaic's selector matmuls: the forward rounds the
@@ -67,7 +67,10 @@ the tensor-core product (JAX rounds ``e1`` for its repeat selector and then
 ``e1 * e2``); logits round as ``exp(theta - max)`` over the row's global
 max, the normalizer summed unrounded in float32 (JAX rounds the normalized
 row). The backward rounds ``gy`` and the weights of ``s = gy @ w`` and
-``gy`` and ``e`` (for Tucker ``e1 * e2``) of ``dw = gy^T e``; the Tucker
+``gy`` and ``e`` (for Tucker ``e1 * e2``) of ``dw = gy^T e``, and the
+blocked dense kernels the same operands, the forward's ``e`` taken over
+the row's running max of the chunks of ``_BLOCKED_KC`` columns so far (the
+kernel rescales each chunk's sums to the final max after the products); the Tucker
 dx folds and the softmax VJP stay float32 (JAX rounds the folds' operands
 for its segment-sum selectors), and so do the softmax weights of ``s``,
 ``exp(theta - lse)``: they carry the row's log-normalizer, whose last bits
@@ -102,16 +105,18 @@ MODE_SUFFIX = {"": "", "bf16": "_fast", "sr": "_sr"}
 """The suffix of a speed mode's entries and ``LAUNCHES`` keys."""
 INSTANCES = _build.INSTANCES
 """The suffixes of the bf16-weight (``_w16``) and fast-mode instances of the
-kernels 1, 2 and 5 beside their float32 ones (no suffix): ``lse_tucker2_w16``
-is the Tucker forward on a bf16 weight in the f32-grade mode,
-``lse_tucker2_softmax_w16_fast_bwd`` its softmax backward in the bf16 mode."""
-INSTANCE_OPS = (*OPS, "lse_tucker2_chunked", "lse_tucker2_softmax_chunked")
+kernels 1-5 beside their float32 ones (no suffix): ``lse_tucker2_w16`` is
+the Tucker forward on a bf16 weight in the f32-grade mode,
+``lse_tucker2_softmax_w16_fast_bwd`` its softmax backward in the bf16 mode,
+``lse_matmul_blocked_w16_sr_bwd`` the blocked dense backward on a bf16
+weight in the ``sr`` mode."""
+INSTANCE_OPS = (*OPS, *WIDE_OPS)
 LAUNCHES: dict[str, int] = {
     **{name: 0 for op in OPS for name in (op, f"{op}_bwd")},
     **{op: 0 for op in WIDE_OPS},
     "lse_matmul_blocked_bwd": 0,
     **{f"{op}{sfx}": 0 for op in INSTANCE_OPS for sfx in INSTANCES},
-    **{f"{op}{sfx}_bwd": 0 for op in OPS for sfx in INSTANCES},
+    **{f"{op}{sfx}_bwd": 0 for op in (*OPS, "lse_matmul_blocked") for sfx in INSTANCES},
 }
 """Kernel launches per op and per op's backward; a count rises by one only
 where its op launches its kernel."""
@@ -128,6 +133,10 @@ _BN, _BM = 64, 128
 # the blocked forward's (batch-row, output-unit) tiles by entry suffix: the
 # float32 kernel on the tensor cores covers 128 units, the float64 one 64
 _BLOCKED_TILES = {"": (128, 128), "_f64": (128, 64)}
+_BLOCKED_KC = 32
+"""The columns of a chunk of the float32 blocked forward kernel, over whose
+running row max the fast modes round its exponentials: ``blk_tc::KC`` of
+``csrc/lse_wide.cu``, which must change with it (a test reads it there)."""
 # the backward kernels' grid tiles (csrc/lse_einsum_bwd.cu): rows per warp
 # pass, and input columns of the dense dx kernel (the other grids are smaller)
 _BWD_ROWS, _BWD_DX_COLS = 8, 64
@@ -280,11 +289,38 @@ def lse_tucker2_softmax_ref(
     return lse_tucker2_ref(x1, x2, num, mode) - lz.transpose(1, 2)
 
 
-def lse_matmul_blocked_ref(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _blocked_fast_e(x: torch.Tensor, m: torch.Tensor, mode: str) -> torch.Tensor:
+    """The fast blocked forward's exponentials: ``exp(x - r)`` over the
+    row's clamped running max ``r`` of the chunks of ``_BLOCKED_KC`` columns
+    up to each column's own, rounded (role ``ROLE_E``, the element's flat
+    index in ``x``), then scaled by ``exp(r - m)`` to the final max ``m``,
+    as the kernel rescales each chunk's sums."""
+    f, b, i = x.shape
+    kc = _BLOCKED_KC
+    n = -(-i // kc)
+    pad = n * kc - i
+    xp = (torch.nn.functional.pad(x, (0, pad), value=-torch.inf) if pad else x).view(f, b, n, kc)
+    info = torch.finfo(x.dtype)
+    run = torch.cummax(xp.amax(dim=-1), dim=-1).values.clamp(info.min, info.max)[..., None]
+    e = round_bf16(torch.exp(xp - run).view(f, b, n * kc)[..., :i], mode, ROLE_E)
+    e = (torch.nn.functional.pad(e, (0, pad)) if pad else e).view(f, b, n, kc)
+    e.mul_(torch.exp(run - m[..., None]))
+    return e.view(f, b, n * kc)[..., :i]
+
+
+def lse_matmul_blocked_ref(
+    x: torch.Tensor, w: torch.Tensor, mode: str = ""
+) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the blocked forward: :func:`lse_matmul_ref` and
-    the (F, B, 1) clamped row max of ``x`` that the blocked backward reads."""
+    the (F, B, 1) clamped row max of ``x`` that the blocked backward reads,
+    the same in every mode. ``mode`` rounds as the kernel of that mode does
+    (:func:`_blocked_fast_e`, the weight with role ``ROLE_W``)."""
     m = _clamp_max(x)
-    return torch.log(torch.bmm(torch.exp(x - m), w.transpose(1, 2))) + m, m
+    w = w.to(x.dtype)
+    if not mode:
+        return torch.log(torch.bmm(torch.exp(x - m), w.transpose(1, 2))) + m, m
+    e = _blocked_fast_e(x, m, mode)
+    return torch.log(torch.bmm(e, round_bf16(w, mode, ROLE_W).transpose(1, 2))) + m, m
 
 
 # The plain backward versions: the math of the backward kernel (and of the
@@ -326,12 +362,14 @@ def lse_matmul_bwd_ref(
     mode: str = "",
     *,
     round_w: bool = True,
+    m: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """``(dx, dw)`` of :func:`lse_matmul`: ``dx = e * (gy @ w)`` and
-    ``dw = sum_b gy^T e`` with ``e = exp(x - m)``; ``dw`` has the
-    activations' type. ``round_w=False`` keeps the weights of ``gy @ w``
-    unrounded in a fast mode (the softmax weights, module docstring)."""
-    m = _clamp_max(x)
+    ``dw = sum_b gy^T e`` with ``e = exp(x - m)``, ``m`` the clamped row max
+    of ``x`` unless given; ``dw`` has the activations' type.
+    ``round_w=False`` keeps the weights of ``gy @ w`` unrounded in a fast
+    mode (the softmax weights, module docstring)."""
+    m = _clamp_max(x) if m is None else m
     e = torch.exp(x - m)
     gy = _gy(g, out, m)
     w = w.to(x.dtype)
@@ -380,15 +418,13 @@ def lse_matmul_blocked_bwd_ref(
     m: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, bool] = (True, True),
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """``(dx, dw)`` of the blocked :func:`lse_matmul` (the math of the JAX
     package's ``_blocked_bwd_kernel``, ``cirkit_tpu/ops/lse_einsum.py:572``),
-    with the forward's row max ``m`` as the shift."""
-    e = torch.exp(x - m)
-    gy = _gy(g, out, m)
-    dx = e * torch.bmm(gy, w) if needs[0] else None
-    dw = torch.bmm(gy.transpose(1, 2), e) if needs[1] else None
-    return dx, dw
+    with the forward's row max ``m`` as the shift, rounded in ``mode`` as
+    :func:`lse_matmul_bwd_ref` rounds; ``dw`` has the activations' type."""
+    return lse_matmul_bwd_ref(x, w, out, g, needs, mode, m=m)
 
 
 def lse_tucker2_bwd_ref(
@@ -558,9 +594,9 @@ def _check_weighted(
     op: str, acts: tuple[torch.Tensor, ...], w: torch.Tensor, mode: str
 ) -> tuple[torch.device, str, str]:
     """The device, the type suffix and the instance suffix (:data:`INSTANCES`)
-    of a launch of kernels 1, 2 or 5: the activations all float32 or all
-    float64, the weight of their type or, beside float32, bf16; float64
-    runs no fast mode."""
+    of a launch of a kernel with bf16 or fast instances (kernels 1-5, 8 and
+    9): the activations all float32 or all float64, the weight of their type
+    or, beside float32, bf16; float64 runs no fast mode."""
     dev, suffix = _check_single_pass(op, acts)
     if w.device != dev:
         raise ValueError(f"{op}: operands on {dev} and {w.device}")
@@ -680,10 +716,13 @@ def _launch_bwd(
     return grads
 
 
-def _launch_blocked_fwd(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the blocked dense forward: the output and the (F, B, 1) row max."""
+def _launch_blocked_fwd(
+    x: torch.Tensor, w: torch.Tensor, mode: str = ""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the blocked dense forward (in ``mode``, on the weight's type):
+    the output and the (F, B, 1) row max."""
     op = "lse_matmul_blocked"
-    dev, suffix = _check_single_pass(op, (x, w))
+    dev, suffix, inst = _check_weighted(op, (x,), w, mode)
     f, b, i = x.shape
     o = w.shape[1]
     # one block per (fold, batch tile, unit tile), counted in one grid axis
@@ -697,27 +736,30 @@ def _launch_blocked_fwd(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m.data_ptr(), f, b, i, o, dev.index,
             stream)
-    _call(_build.library(), "lse_fwd_blocked" + suffix, op, args)
-    LAUNCHES[op] += 1
+    _call(_build.library(), "lse_fwd_blocked" + suffix + inst, op, args)
+    LAUNCHES[op + inst] += 1
     return out, m
 
 
-def _blocked_gy_shape(f: int, b: int, o: int, suffix: str) -> tuple[int, ...]:
+def _blocked_gy_shape(f: int, b: int, o: int, suffix: str, mode: str = "") -> tuple[int, ...]:
     """The shape of the blocked backward's gy scratch: (F, B, O), or for the
-    float32 kernel, which keeps a plane of TF32 high parts and one of low
-    parts, room for 2 F B O floats."""
-    return (f, b, o) if suffix else (f, b, o, 2)
+    float32 kernel in the f32-grade mode, which keeps a plane of TF32 high
+    parts and one of low parts, room for 2 F B O floats (a fast mode keeps
+    gy rounded to bf16, one plane)."""
+    return (f, b, o) if suffix or mode else (f, b, o, 2)
 
 
 def _launch_blocked_bwd(
     x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, bool],
+    needs: tuple[bool, bool], mode: str = "",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Allocate the requested gradients and the gy scratch, and launch the
-    blocked dense backward."""
+    blocked dense backward (in ``mode``, on the weight's type). The weight's
+    gradient has the activations' type."""
     op = "lse_matmul_blocked"
-    dev, suffix = _check_single_pass(f"{op} backward", (x, w, out, m, g))
-    dx, dw = (torch.empty_like(t) if need else None for t, need in zip((x, w), needs))
+    dev, suffix, inst = _check_weighted(f"{op} backward", (x, out, m, g), w, mode)
+    dx, dw = (torch.empty(t.shape, device=dev, dtype=x.dtype) if need else None
+              for t, need in zip((x, w), needs))
     if not any(needs):
         return dx, dw
     if out.numel() == 0 or x.numel() == 0:
@@ -728,15 +770,15 @@ def _launch_blocked_bwd(
     if (max(f, b, i, o) >= 2**31 or -(-b // _BWD_ROWS) > _MAX_GRID_YZ
             or f * -(-i // _BWD_DX_COLS) >= 2**31):
         raise ValueError(f"{op} backward: sizes {(f, b, i, o)} exceed the kernel's launch grid")
-    gy = torch.empty(_blocked_gy_shape(f, b, o, suffix), device=dev, dtype=x.dtype)
+    gy = torch.empty(_blocked_gy_shape(f, b, o, suffix, mode), device=dev, dtype=x.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (x, w, out, m, g)),
         *(None if d is None else d.data_ptr() for d in (dx, dw)),
         gy.data_ptr(), f, b, i, o, dev.index, stream,
     )
-    _call(_build.library(), "lse_bwd_blocked" + suffix, f"{op} backward", args)
-    LAUNCHES[f"{op}_bwd"] += 1
+    _call(_build.library(), "lse_bwd_blocked" + suffix + inst, f"{op} backward", args)
+    LAUNCHES[f"{op}{inst}_bwd"] += 1
     return dx, dw
 
 
@@ -877,26 +919,31 @@ class LseTucker2SoftmaxChunked(torch.autograd.Function):
         return _backward(ctx, "lse_tucker2_softmax", g)
 
 
-def _blocked_fwd_op_fake(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _blocked_fwd_op_fake(
+    x: torch.Tensor, w: torch.Tensor, mode: str = ""
+) -> tuple[torch.Tensor, torch.Tensor]:
     f, b, _ = x.shape
     return x.new_empty((f, b, w.shape[1])), x.new_empty((f, b, 1))
 
 
-_blocked_fwd_op = launch_op("lse_fwd_blocked", "(Tensor x, Tensor w) -> (Tensor, Tensor)",
-                            lambda x, w: _launch_blocked_fwd(x, w), _blocked_fwd_op_fake)
+_blocked_fwd_op = launch_op(
+    "lse_fwd_blocked", "(Tensor x, Tensor w, str mode=\"\") -> (Tensor, Tensor)",
+    lambda x, w, mode="": _launch_blocked_fwd(x, w, mode), _blocked_fwd_op_fake)
 
 
 class LseMatmulBlocked(torch.autograd.Function):
     """The wide :func:`lse_matmul`: the blocked forward saves the row max it
-    returns for the blocked backward."""
+    returns for the blocked backward; the weight's gradient is cast to its
+    type."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, mode):
         if _on_cpu(x, w):
-            out, m = lse_matmul_blocked_ref(x, w)
+            out, m = lse_matmul_blocked_ref(x, w, mode)
         else:
-            out, m = (_blocked_fwd_op if _traced(x) else _launch_blocked_fwd)(x, w)
+            out, m = (_blocked_fwd_op if _traced(x) else _launch_blocked_fwd)(x, w, mode)
         ctx.save_for_backward(x, w, out, m)
+        ctx.mode = mode
         return out
 
     @staticmethod
@@ -904,10 +951,12 @@ class LseMatmulBlocked(torch.autograd.Function):
         x, w, out, m = ctx.saved_tensors
         _no_graph_through_kernel("lse_matmul_blocked", x, w)
         g = g.contiguous()
-        needs = tuple(ctx.needs_input_grad)
+        needs = tuple(ctx.needs_input_grad[:2])
         if _on_cpu(x, w, out, m, g):
-            return lse_matmul_blocked_bwd_ref(x, w, out, m, g, needs)
-        return _launch_blocked_bwd(x, w, out, m, g, needs)
+            dx, dw = lse_matmul_blocked_bwd_ref(x, w, out, m, g, needs, ctx.mode)
+        else:
+            dx, dw = _launch_blocked_bwd(x, w, out, m, g, needs, ctx.mode)
+        return dx, None if dw is None else dw.to(w.dtype), None
 
 
 def _wide(width: int) -> bool:
@@ -919,18 +968,18 @@ def lse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     ``x``: (F, B, I) log-space values; ``w``: (F, O, I) linear-space weights
     (bf16 beside float32 ``x``: the serving store). Returns (F, B, O)
-    log-space values. The blocked kernels of wide I have no bf16 or fast
-    instance: a bf16 weight is widened for them."""
+    log-space values. Wide I takes the blocked kernels, in the same modes
+    and on the same weight types."""
     _check_dense(x, w)
-    if _wide(x.shape[2]):
-        return LseMatmulBlocked.apply(x, widened(w, x))
-    return LseMatmul.apply(x, _weight_for(x, w), _op_mode(x))
+    fn = LseMatmulBlocked if _wide(x.shape[2]) else LseMatmul
+    return fn.apply(x, _weight_for(x, w), _op_mode(x))
 
 
 def lse_matmul_softmax(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """:func:`lse_matmul` with ``w = softmax(theta, axis=-1)`` fused into the
     kernel: the normalized weights are never stored. At wide I the weights
-    are normalized first and go through the blocked kernels."""
+    are normalized first (a bf16 theta widened, as the JAX package does) and
+    go through the blocked kernels."""
     _check_dense(x, theta)
     if _wide(x.shape[2]):
         return lse_matmul(x, torch.softmax(widened(theta, x), dim=-1))

@@ -23,7 +23,13 @@ The counterparts of ``tropical_tucker2`` and ``route_tucker2`` in
 On CUDA tensors each launches its hand-written kernels in
 ``csrc/tucker_route.cu``; on CPU tensors it runs its plain PyTorch version
 (``*_ref``). ``LAUNCHES`` (shared with :mod:`.lse_einsum`) counts the
-launches under the op's name.
+launches under the op's name, and those of the ``_w16`` instances, which
+take a bf16 ``th`` beside float32 children (the serving store, as the JAX
+kernels take one) and widen it exactly on chip, under the op's name with
+``_w16``: their results equal the float32 instance's on the widened ``th``
+to the bit. Beside float64 children a bf16 ``th`` is widened to float64
+first; there is no fast mode. The plain versions widen a bf16 ``th`` to the
+children's type.
 """
 
 from __future__ import annotations
@@ -35,14 +41,14 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _MAX_GRID_YZ,
     LAUNCHES,
     _call,
-    _check_single_pass,
     _check_tucker,
+    _check_weighted,
     _on_cpu,
-    widened,
+    _weight_for,
 )
 
 ROUTING_OPS = ("tropical_tucker2", "route_tucker2")
-LAUNCHES.update({op: 0 for op in ROUTING_OPS})
+LAUNCHES.update({name: 0 for op in ROUTING_OPS for name in (op, f"{op}_w16")})
 KINDS = ("max", "sample")
 
 _BN, _BM = 64, 128  # the tropical kernel's output-unit and batch-row tiles
@@ -141,6 +147,7 @@ def tropical_tucker2_ref(
     x1: torch.Tensor, x2: torch.Tensor, th: torch.Tensor, *, log_weights: bool
 ) -> torch.Tensor:
     """The plain version of :func:`tropical_tucker2`."""
+    th = th.to(x1.dtype)
     lw = torch.log_softmax(th, dim=-1) if log_weights else torch.log(th)
     return max_plus(lw, tucker_comb(x1, x2))
 
@@ -163,6 +170,7 @@ def tropical_tucker2_split_ref(
     subtracted after the max. With linear weights every term is the unsplit
     version's, so the result equals :func:`tropical_tucker2_ref` bit for
     bit."""
+    th = th.to(x1.dtype)
     m = th.shape[2]
     chunk = _CHUNK_COLS.get(th.dtype, 16)
     chunks = -(-m // chunk)
@@ -222,7 +230,7 @@ def route_scores(
     to the unit range), without noise."""
     o, m = th.shape[1:]
     idx = sel.long().clamp(0, o - 1)[:, :, None].expand(-1, -1, m)
-    selw = torch.gather(th, 1, idx)
+    selw = torch.gather(th, 1, idx).to(x1.dtype)
     return tucker_comb(x1, x2) + (selw if log_weights else torch.log(selw))
 
 
@@ -256,6 +264,7 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+
 _SM_COUNT: dict[int, int] = {}
 
 
@@ -278,14 +287,14 @@ def tropical_tucker2(
     On CPU tensors a given ``splits`` runs :func:`tropical_tucker2_split_ref`."""
     op = "tropical_tucker2"
     _check(op, x1, x2, th)
-    th = widened(th, x1)  # the kernel has no bf16 instance
+    th = _weight_for(x1, th)
     if splits is not None and splits < 1:
         raise ValueError(f"{op}: splits must be at least 1, found {splits}")
     if _on_cpu(x1, x2, th):
         if splits is None:
             return tropical_tucker2_ref(x1, x2, th, log_weights=log_weights)
         return tropical_tucker2_split_ref(x1, x2, th, log_weights=log_weights, splits=splits)
-    dev, suffix = _check_single_pass(op, (x1, x2, th))
+    dev, suffix, inst = _check_weighted(op, (x1, x2), th, "")  # no fast mode
     f, b, k1 = x1.shape
     k2 = x2.shape[2]
     o = th.shape[1]
@@ -311,8 +320,8 @@ def tropical_tucker2(
             None if part is None else part.data_ptr(),
             None if stats is None else stats.data_ptr(), f, b, k1, k2, o, splits,
             int(log_weights), dev.index, _stream(dev))
-    _call(_build.library(), "tropical_tucker" + suffix, op, args)
-    LAUNCHES[op] += 1
+    _call(_build.library(), "tropical_tucker" + suffix + inst, op, args)
+    LAUNCHES[op + inst] += 1
     return out
 
 
@@ -340,7 +349,7 @@ def route_tucker2(
     takes the lower index."""
     op = "route_tucker2"
     _check(op, x1, x2, th, sel, kind)
-    th = widened(th, x1)  # the kernel has no bf16 instance
+    th = _weight_for(x1, th)
     sample = kind == "sample"
     if sample and seed is None:
         raise ValueError(f"{op}: the sample kind needs a seed")
@@ -348,7 +357,7 @@ def route_tucker2(
         gen = torch.Generator().manual_seed(int(seed)) if sample else None
         return route_tucker2_ref(x1, x2, th, sel, kind=kind, log_weights=log_weights,
                                  generator=gen)
-    dev, suffix = _check_single_pass(op, (x1, x2, th))
+    dev, suffix, inst = _check_weighted(op, (x1, x2), th, "")  # no fast mode
     if sel.device != dev or sel.dtype != torch.int64 or not sel.is_contiguous():
         raise TypeError(f"{op}: the CUDA kernel takes a contiguous int64 sel on {dev}, found "
                         f"{sel.dtype} on {sel.device}")
@@ -368,6 +377,6 @@ def route_tucker2(
     args = (x1.data_ptr(), x2.data_ptr(), th.data_ptr(), sel.data_ptr(), out.data_ptr(),
             f, b, k1, k2, o, int(log_weights), int(sample),
             int(seed) % 2**64 if sample else 0, team, dev.index, _stream(dev))
-    _call(_build.library(), "route_tucker" + suffix, op, args)
-    LAUNCHES[op] += 1
+    _call(_build.library(), "route_tucker" + suffix + inst, op, args)
+    LAUNCHES[op + inst] += 1
     return out

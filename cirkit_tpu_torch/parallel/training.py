@@ -262,6 +262,7 @@ def data_parallel_step(
     weighted: bool = False,
     zero1: bool = False,
     marginalize_missing: bool = False,
+    cache_token: str | None = None,
 ) -> Callable:
     """Build a training step, on one device or data-parallel over ``mesh``.
 
@@ -297,7 +298,13 @@ def data_parallel_step(
     ``axis`` (ZeRO-1, :class:`Zero1`): at the first call it is built over
     this rank's fold slices of the trainable tensors. The step's ``zero1``
     attribute holds that state from then on.
+
+    ``cache_token`` is accepted and ignored: in the JAX package it opts a
+    single-device step into the warm-compile cache, whose job (a second
+    process that pays no compile) the kernel library's build directory, keyed
+    on a hash of the sources, already does here; a step runs eagerly.
     """
+    del cache_token
     if weighted and loss_fn is not None:
         raise ValueError("weighted=True supports only the default NLL loss")
     if marginalize_missing and loss_fn is not None:

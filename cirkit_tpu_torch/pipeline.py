@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 import cirkit_tpu_torch.symbolic.functional as SF
+from cirkit_tpu_torch.backend.base import SUPPORTED_BACKENDS
 from cirkit_tpu_torch.backend.torch.circuit import TorchCircuit
 from cirkit_tpu_torch.backend.torch.compiler import TorchCompiler
 from cirkit_tpu_torch.backend.torch.parameters import TorchTensorSlot
@@ -37,17 +38,29 @@ from cirkit_tpu_torch.utils.checkpoint import store_from_numpy
 from cirkit_tpu_torch.utils.scope import Scope
 
 
+def retrieve_compiler(backend: str, **backend_kwargs) -> TorchCompiler:
+    """Instantiate a backend compiler by name: the PyTorch compiler under
+    the reference's one backend name, ``"jax"`` (``SUPPORTED_BACKENDS`` of
+    the copied ``backend/base.py``), so code written against the JAX
+    package runs unchanged."""
+    if backend not in SUPPORTED_BACKENDS:
+        raise NotImplementedError(f"Backend '{backend}' is not implemented")
+    return TorchCompiler(**backend_kwargs)
+
+
 class PipelineContext:
     """Compilation context: backend flags, the device, the operator
     registry, and the shared parameter store, initialized on the device
     from a seeded generator. Entering it (``with ctx:``) makes it the
     ambient context of the module-level functions.
 
+    ``backend`` takes the reference's name, ``"jax"`` (:func:`retrieve_compiler`).
     The device is the CUDA card unless ``device`` says otherwise; without a
     card, construction raises unless ``device="cpu"`` is passed."""
 
     def __init__(
         self,
+        backend: str = "jax",
         *,
         semiring: str = "sum-product",
         fold: bool = False,
@@ -61,8 +74,8 @@ class PipelineContext:
                 "PipelineContext: no CUDA device is available; pass device=\"cpu\" to run "
                 "on the CPU"
             )
-        self._compiler = TorchCompiler(
-            semiring=semiring, fold=fold, optimize=optimize, device=self.device
+        self._compiler = retrieve_compiler(
+            backend, semiring=semiring, fold=fold, optimize=optimize, device=self.device
         )
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._parameters = nn.ParameterDict()
@@ -73,7 +86,7 @@ class PipelineContext:
     def from_default_backend(cls) -> "PipelineContext":
         """The default configuration: log-space, folded, optimized, on the
         CUDA card."""
-        return cls(semiring="lse-sum", fold=True, optimize=True)
+        return cls(backend="jax", semiring="lse-sum", fold=True, optimize=True)
 
     # -- context management ----------------------------------------------------
     def __enter__(self) -> "PipelineContext":

@@ -14,7 +14,11 @@ by the plain score of the index it picks, and the routing draws by their
 frequencies against ``softmax(scores)``. The wide kernels (the K1-chunked
 Tucker forward, the blocked dense forward and backward) are held against
 their plain versions with the same bounds, at small widths with
-``WIDE_WIDTH`` patched down and at the K=128 entry shapes. The signed
+``WIDE_WIDTH`` patched down and at the K=128 entry shapes, and so are their
+bf16-weight and fast-mode instances (``INSTANCES``) in their modes, the
+fast ones also against float64 at I = 16384 to 8e-3; the routing kernels on
+a bf16 ``th`` equal their float32 instances on the widened ``th`` to the
+bit. The signed
 kernels are held against their plain versions in linear space scaled by
 each row's absolute mass (a sum that nearly cancels has no accurate
 log-magnitude in f32), at small widths and at the SoS TensorDot entry. The
@@ -1874,3 +1878,121 @@ def test_export_on_the_card_embeds_the_kernel_ops():
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert T.LAUNCHES["lse_tucker2_softmax_w16"] > 0
+
+
+# The bf16-weight and fast-mode instances of the blocked dense kernels (3'
+# and 4'), held against their plain versions in the same mode as kernels 1,
+# 2 and 5's are, at the float32 blocked forward's edges (and I = 260: I % 4
+# == 0 but not I % 8, so a bf16 weight takes no 16-byte copies), aligned and
+# one element off (4-byte copies and loads).
+BLOCKED_INSTANCE_CASES = [*TC_BLOCKED_FWD, (2, 16, 260, 16)]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("f,b,i,o", BLOCKED_INSTANCE_CASES)
+@pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
+def test_blocked_instance_kernels_match_plain(sfx, mode, f, b, i, o, offset):
+    x, w = _inputs("lse_matmul", f, b, o, i=i)
+    x = _blocked_fwd_edges(x)
+    if sfx.startswith("_w16"):
+        w = w.to(torch.bfloat16)
+    if offset:
+        x, w = _offset(x), _offset(w)
+    out, m = T._launch_blocked_fwd(x, w, mode)
+    ref, ref_m = T.lse_matmul_blocked_ref(x, w, mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"lse_matmul_blocked{sfx}"] == 1
+    _fwd_close(out, ref)
+    assert torch.equal(m, ref_m) and torch.equal(m, T._clamp_max(x))
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[0, 3:5] = 0.0
+    grads = T._launch_blocked_bwd(x, w, out, m, g, (True, True), mode)
+    again = T._launch_blocked_bwd(x, w, out, m, g, (True, True), mode)
+    refs = T.lse_matmul_blocked_bwd_ref(x, w, out, m, g, (True, True), mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"lse_matmul_blocked{sfx}_bwd"] == 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    for k, (got, r) in enumerate(zip(grads, refs)):
+        assert got.dtype == torch.float32
+        _close(got, r, zeros=k == 0 and not mode)  # bf16 operands may cancel to an exact 0
+    structural = torch.isneginf(x) | (g == 0).all(dim=-1, keepdim=True)
+    assert bool((grads[0][structural] == 0).all())
+
+
+@pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
+def test_blocked_instances_against_float64_at_i16384(sfx, mode):
+    """Each blocked instance at the dense K=128 entry's width (I = 16384, B =
+    O = 128; 8 of the 784 folds) against the plain version in float64 on the
+    (bf16-valued) weight: the f32-grade bf16-weight instance to the float32
+    bound, the fast ones to the JAX package's fast bound, 8e-3 in log space."""
+    x, w = _inputs("lse_matmul", 8, 128, 128, i=128 * 128)
+    if sfx.startswith("_w16"):
+        w = w.to(torch.bfloat16)
+    got, _ = T._launch_blocked_fwd(x, w, mode)
+    ref = T.lse_matmul_ref(x.double(), w.double())
+    torch.cuda.synchronize()
+    if mode:
+        assert float((got.double() - ref).abs().max()) < 8e-3
+    else:
+        _fwd_close(got.double(), ref)
+
+
+def test_blocked_fast_mode_and_bf16_store_through_the_ops(monkeypatch):
+    """The public ``lse_matmul`` at wide I reads ``CIRKIT_TPU_FAST`` at each
+    call and takes a bf16 weight as it is; the weight's gradient comes back
+    bf16; ``sr`` repeats to the bit; wide softmax normalizes a float32 weight
+    first and so runs the float32-weight instances."""
+    x, w = _inputs("lse_matmul", 2, 130, 70, i=T.WIDE_WIDTH)
+    w16 = w.to(torch.bfloat16).requires_grad_()
+    for env, sfx in (("", "_w16"), ("1", "_w16_fast"), ("sr", "_w16_sr")):
+        monkeypatch.setenv("CIRKIT_TPU_FAST", env)
+        out = T.lse_matmul(x, w16)
+        (dw,) = torch.autograd.grad(out.sum(), [w16])
+        again = T.lse_matmul(x, w16)
+        torch.cuda.synchronize()
+        assert dw.dtype == torch.bfloat16 and torch.equal(out, again)
+        assert T.LAUNCHES[f"lse_matmul_blocked{sfx}"] == 2
+        assert T.LAUNCHES[f"lse_matmul_blocked{sfx}_bwd"] == 1
+        theta = torch.randn(w.shape, device="cuda")
+        T.lse_matmul_softmax(x, theta.to(torch.bfloat16))
+        assert T.LAUNCHES[f"lse_matmul_blocked{sfx.removeprefix('_w16')}"] == 1
+        for op in T.LAUNCHES:
+            T.LAUNCHES[op] = 0
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("log_weights", [True, False], ids=["logits", "linear"])
+@pytest.mark.parametrize("f,b,k1,k2,o", ROUTE_SHAPES)
+def test_routing_bf16_th_equals_the_widened_run(f, b, k1, k2, o, log_weights, offset):
+    """The ``_w16`` instances of the routing kernels (8' and 9'): on a bf16
+    ``th`` (8-byte loads, or aligned to 2 bytes only) the max-plus Tucker,
+    whole and split in 3 ranges, and both routing kinds equal the float32
+    instances on the widened ``th`` taking the same loads (aligned, or
+    element by element, which sums a row's softmax normalizer in another
+    order) to the bit, and the max-plus its plain version to the bound
+    above; float64 children widen a bf16 ``th``."""
+    from cirkit_tpu_torch.ops import routing as R
+
+    x1, x2, th, sel = _route_inputs(f, b, k1, k2, o, log_weights)
+    t16 = th.to(torch.bfloat16)
+    t32 = t16.float()
+    if offset:
+        t16, t32 = _offset(t16), _offset(t32)
+    for splits in (None, 3):
+        got = R.tropical_tucker2(x1, x2, t16, log_weights=log_weights, splits=splits)
+        want = R.tropical_tucker2(x1, x2, t32, log_weights=log_weights, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    ref = R.tropical_tucker2_ref(x1, x2, t16, log_weights=log_weights)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    assert bool(((got - ref)[fin].abs() <= 1e-5 * ref[fin].abs() + 1e-5).all())
+    for kind in R.KINDS:
+        got = R.route_tucker2(x1, x2, t16, sel, kind=kind, log_weights=log_weights, seed=11)
+        want = R.route_tucker2(x1, x2, t32, sel, kind=kind, log_weights=log_weights, seed=11)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert T.LAUNCHES["tropical_tucker2_w16"] == 2 and T.LAUNCHES["route_tucker2_w16"] == 2
+    R.tropical_tucker2(x1.double(), x2.double(), t16, log_weights=log_weights)
+    assert T.LAUNCHES["tropical_tucker2_w16"] == 2  # widened: the float64 instance
