@@ -184,8 +184,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    float64, at most the ``EntropyQuery`` value + 1e-4); the median ms of 10
    calls of each, the peak memory of ``marginals`` and of top-k, and the
    mean's device time by kernel category;
-8. wide: the Tucker flagship at K=128 (3.30 G parameters), where the wide
-   kernels run, at batch 128: with ``optimize=True`` the forward, the
+8. wide: the Tucker flagship at K=128, where the wide kernels run, at batch
+   128, on a ``WIDE_SIDE`` x ``WIDE_SIDE`` = 14x14 image (its Tucker entries
+   of width 16384 as at 28x28, where it has 3.30 G parameters): with ``optimize=True`` the forward, the
    EM-ready store's forward and one EM flow step and M-step (counted and
    timed, the M-step's rows summing to 1, the peak memory of each),
    ``IntegrateQuery`` and the ``ExpectationQuery`` mean (kernel 5's forward,
@@ -335,7 +336,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    call counted (one launch per kernel-bearing entry, every one the mode's
    instance), the median ms of 10, samples/s, the store's GB, the peak, 8
    rows against the same store in float64 on the CPU (rtol 1e-5, the fast
-   modes ``SERVE_FAST_RTOL``; the K=128 float32 store is phase 8's), the
+   modes ``SERVE_FAST_RTOL``; phase 8 holds a K=128 float32 store), the
    K=64 Tucker's device split; (c) one backward of the K=64 Tucker's mean
    NLL through the bf16 store under ``1`` and ``sr``: the gradients in the
    slots' types within ``FAST_GRAD_REL`` max(1, max|slot|) of float64, ``sr``
@@ -379,11 +380,45 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``load_checkpoint`` at one rank and resumed by the same step: equal to
    the bit to the ranks' uninterrupted step. A rank that fails fails the
    phase.
+17. low precision of kernels 3, 4, 8 and 9 (``phase_lowprec_kernels``,
+   ``phase_lowprec``): the bf16-weight and fast-mode instances of the blocked
+   dense forward and backward at the K=128 dense entry, and the bf16-``th``
+   instances of the routing kernels at the K=64 Tucker entries, against
+   their plain versions; then the unoptimized K=128 flagships from a bf16
+   store and under ``CIRKIT_TPU_FAST``, and MAP, sampling and the
+   conditional from the K=64 flagship's bf16 store, equal to the widened
+   store's to the bit.
+18. low precision of the signed kernels 6 and 7 and the complex kernels 10
+   and 11 (``phase_lowprec_signed_kernels``, ``phase_lowprec_signed``):
+   (a) every ``_w16``, ``_fast``, ``_sr``, ``_w16_fast`` and ``_w16_sr``
+   instance of the signed ops and every ``_fast`` and ``_sr`` instance of
+   the complex ops (complex and real weights), forward and backward, against
+   its plain version in its mode at phases 3d's and 3e's shapes and at every
+   shape that (b)-(d) give it: the forward in linear space scaled by the
+   row's absolute mass (f32-grade to ``SIGNED_TOL``, the fast modes to
+   ``FAST_FWD_TOL``, the measured maximum printed), (-inf, 0) at a row of
+   zero mass, the backward to phase 3b's bound with its structural zeros,
+   both repeating to the bit; (b) phase 4's three K=64 flagships under
+   ``signed-lse-sum`` from the float32 store, its ``bf16_weight_store`` and
+   that store widened, a forward and one backward each in ``f32_grade``,
+   ``CIRKIT_TPU_FAST=1`` and ``sr``: every launch an instance of its mode at
+   a shape (a) held, the bf16 store's runs equal the widened store's to the
+   bit, the fast runs within ``SERVE_FAST_RTOL`` of the f32-grade run on 8
+   rows and their gradients within ``FAST_GRAD_REL``, signs +1, the Tucker
+   forward's device peak from each store; (c) bench_sos's squared circuit at
+   28x28 from the same stores in the same modes (sq, the normalized
+   log-likelihood, an Adam step), the outputs of the bf16 store equal to the
+   widened store's to the bit, its gradients within ``SOS_BF16_GRAD_REL``,
+   the fast modes' largest offset from the f32-grade run and their flipped
+   signs printed, losses finite; (d) phase 10's complex squared circuit and
+   phase 10b's complex flagship in the three modes, a forward and one
+   backward each (the flagship held as in (b), phases 0). Runs after phase
+   10b on phase 4's stores.
 
 The line before the last is a JSON object with each kernel's launches on
 its main paths (the forward ops in phases 4, 5b, 7b, 8, 12, 13, 14, 15 (the
-instances) and 16 (every rank's), the backward ops in phases 5, 5b, 7b, 8, 13, 14, 15 and 16, the routing ops in phases 7, 12, 14 and 16, the signed ops in phases 9 and
-9b, the complex ops in phases 10 and 10b, the float64 circuits of phase
+instances), 16 (every rank's) and 17, the backward ops in phases 5, 5b, 7b, 8, 13, 14, 15, 16 and 17, the routing ops in phases 7, 12, 14, 16 and 17, the signed ops in phases 9, 9b and
+18, the complex ops in phases 10, 10b and 18, the float64 circuits of phase
 11), its worst error (for the signed and complex forwards, the linear one of
 phases 3d and 3e), its median time beside the plain version's and its
 bound: the larger of its FMA work (4 FMAs per complex multiply-add, 2
@@ -461,6 +496,18 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
        for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
     "tropical_tucker2_w16": (_CSRC + "tucker_route.cu", _PALLAS + "1334"),
     "route_tucker2_w16": (_CSRC + "tucker_route.cu", _PALLAS + "1176"),
+    # phase 18's paths: every bf16-weight and fast-mode instance of the signed
+    # kernels (6' and 7') that the signed flagships and the squared circuit
+    # launch from their bf16 stores and under CIRKIT_TPU_FAST, and the
+    # fast-mode instances of the complex kernels (10' and 11')
+    **{f"{op}{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "938")
+       for op in SIGNED_OPS for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    **{f"{op}{sfx}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "957")
+       for op in SIGNED_OPS for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    **{f"{op}{sfx}": (_CSRC + "clse_einsum.cu", _PALLAS + "1424")
+       for op in COMPLEX_OPS for sfx in ("_fast", "_sr")},
+    **{f"{op}{sfx}_bwd": (_CSRC + "clse_einsum.cu", _PALLAS + "1439")
+       for op in COMPLEX_OPS for sfx in ("_fast", "_sr")},
 }
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
 # f32 outside the tensor cores, and device memory.
@@ -492,6 +539,13 @@ STRUCT_SHAPES = ("F=784 B=128 I=4096 O=64", "F=784 B=128 K1=K2=O=96")
 # K=64 Tucker entry at the local width of two tensor-parallel ranks
 TP_SHAPE = "F=784 B=128 K1=K2=64 O=32 (a TP shard)"
 WIDE_K = 128  # the K=128 Tucker flagship of phase 8 and the wide kernels' entry shapes
+# phase 8's image side: the K=128 Tucker flagship on 14x14, a quarter of its
+# variables and store, its entries of width 16384 as at 28x28 (the wide
+# kernels' route), so that the run keeps its margin under its time limit (its
+# float64 CPU references at 28x28 took 132 s of a 965 s run); phases 15 and 17
+# run the K=128 flagships at 28x28, and phases 3 and 3b hold the wide kernels at
+# the 28x28 entries' shapes
+WIDE_SIDE = 14
 WIDE_RUNS = (  # (optimize, em_ready, optimizer of the training steps or None)
     (True, False, "adam"),
     (True, True, None),
@@ -4496,8 +4550,9 @@ def phase_wide(smi: str) -> dict[str, int]:
     from cirkit_tpu_torch.parallel import data_parallel_step, split_trainable
 
     rng = np.random.default_rng(0)  # the batch and 50% mask of bench.py:222-224
-    x_np = rng.integers(0, 256, size=(BATCH, 784), dtype=np.int32).astype(np.int64)
-    mask_np = rng.random((BATCH, 784)) < 0.5
+    d = WIDE_SIDE * WIDE_SIDE
+    x_np = rng.integers(0, 256, size=(BATCH, d), dtype=np.int32).astype(np.int64)
+    mask_np = rng.random((BATCH, d)) < 0.5
     x = torch.as_tensor(x_np, device=DEV)
     mask = torch.as_tensor(mask_np, device=DEV)
     r = QUERY_ROWS
@@ -4511,12 +4566,13 @@ def phase_wide(smi: str) -> dict[str, int]:
         return torch.cuda.max_memory_allocated() / 1e9
 
     for optimize, em, opt_name in WIDE_RUNS:
-        label = f"K={WIDE_K} tucker optimize={optimize} em_ready={em}"
+        label = f"K={WIDE_K} {WIDE_SIDE}x{WIDE_SIDE} tucker optimize={optimize} em_ready={em}"
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        _, ctx, cc = _build_flagship("tucker", em, DEV, k=WIDE_K, optimize=optimize)
+        _, ctx, cc = _build_flagship("tucker", em, DEV, k=WIDE_K, optimize=optimize,
+                                     side=WIDE_SIDE)
         torch.cuda.synchronize()
         fwd, bwd = _expected_launches(cc)
         print(f"[wide] {label}: compiled in {time.perf_counter() - t0:.1f} s, "
@@ -4578,7 +4634,8 @@ def phase_wide(smi: str) -> dict[str, int]:
 
         # QUERY_ROWS rows against the same store in float64 on the CPU
         t0 = time.perf_counter()
-        cc64, st64 = _f64_reference("tucker", em, st, k=WIDE_K, optimize=optimize)
+        cc64, st64 = _f64_reference("tucker", em, st, k=WIDE_K, optimize=optimize,
+                                    side=WIDE_SIDE)
         with torch.inference_mode():
             want = {"forward": cc64(st64, xr)[:, 0, 0]}
             if "map" in got:
@@ -5074,7 +5131,7 @@ def phase_serving(smi: str) -> dict[str, int]:
                     peak = torch.cuda.max_memory_allocated() / 1e9
                 if out.shape != (batch, 1, 1) or not bool(torch.isfinite(out).all()):
                     raise AssertionError(f"[serve] {spl} K={k} {name}: output not finite")
-                if k == WIDE_K and not bf:  # phase 8 holds the f32 store at K=128
+                if k == WIDE_K and not bf:  # phase 8 holds a K=128 f32 store (14x14)
                     print(f"[serve] {spl} K={k} batch {batch} {name}: {ms:.3f} ms median of 10 "
                           f"= {batch / ms * 1e3:.1f} samples/s, peak {peak:.2f} GB, launches a "
                           f"call {per_call} ({smi})")
@@ -6315,6 +6372,679 @@ def phase_lowprec(smi: str) -> dict[str, int]:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 18: the low-precision configurations of kernels 6, 7, 10 and 11
+# --------------------------------------------------------------------------- #
+
+# the instances of kernels 6' and 7' (the signed ops) and of 10' and 11' (the
+# complex ops: the fast modes on complex64 alone), (suffix, mode)
+SIGNED_INSTANCES = SERVE_INSTANCES
+COMPLEX_INSTANCES = (("_fast", "bf16"), ("_sr", "sr"))
+# the folds of the K=64 flagships' ten Tucker entries (B=128, K1=K2=O=K, the
+# last O=1), and of the TensorDot entries of the 28x28 squared circuit's sq
+# and zc (B*Kq rows, I=O=SOS_K)
+FLAGSHIP_TUCKER_FOLDS = (784, 392, 196, 98, 42, 22, 12, 8, 4, 2)
+SOS_TD_FOLDS = (784, 392, 196, 98, 49, 24, 11, 6, 4, 2)
+LOWPREC_SOS_SIDE = 28
+# The squared circuit's weights are used on both sides of sq and again in zc:
+# through a bf16 store autograd sums those uses' gradients as bf16 tensors, so
+# they are held to the widened store's within this share of its largest
+# gradient of the slot (each use's gradient is the same to the bit before its
+# cast; a few bf16 roundings, 2^-8 each, apart)
+SOS_BF16_GRAD_REL = 2.0**-6
+# (LAUNCHES key, shape) of every instance held against its plain version in
+# 18a; phase 18's paths may launch an instance only at such a shape
+CHECKED_SHAPES: set = set()
+
+
+def _lowprec_path_shapes() -> dict[tuple[str, str], list[tuple]]:
+    """(op, weight kind) -> the shapes (F, B, I or K1 and K2, O) that phase
+    18's paths give the op: the K=64 flagships' Tucker entries, their dense
+    mixing sums and roots, the CP flagship's softmax sums (18b, 18d), and
+    the TensorDot entries of the squared circuits' sq (B*Kq rows) and zc (one
+    row's Kq), and their roots (18c, 18d). 18b-18d fail if a launch of
+    theirs is not at one of these."""
+    k, b, q = FLAGSHIP_K, BATCH, SOS_K
+    tucker = [(f, b, k, k, 1 if f == FLAGSHIP_TUCKER_FOLDS[-1] else k)
+              for f in FLAGSHIP_TUCKER_FOLDS]
+    mixing = [(f, b, 2 * k, k) for f in (196, 49, 37, 12, 9, 4)] + [(1, b, 2, 1)]
+    cpt = [(f, b, k, k) for f in (1568, 784, 392, 196, 74, 36, 18, 12, 8, 4)] + [(2, b, k, 1)]
+    sos = ([(f, r, q, q) for f in SOS_TD_FOLDS for r in (b * q, q)]
+           + [(1, r, q, 1) for r in (b * q, b, q, 1)])
+    return {("slse_tucker2", "real"): tucker, ("slse_tucker2_softmax", "real"): tucker,
+            ("slse_matmul", "real"): mixing + sos, ("slse_matmul_softmax", "real"): cpt,
+            ("clse_tucker2", "real"): tucker, ("clse_matmul", "real"): mixing,
+            ("clse_matmul", "complex"): sos}
+
+
+def _lowprec_inputs(gen, op: str, shape: tuple, wkind: str = "real"):
+    """Seeded inputs of an 18a case (phases 3d's and 3e's distributions), a
+    row of fold 0 all -inf: signed (log-magnitude, sign) pairs and normal
+    weights of both signs (or logits), or complex64 values and complex or
+    real normal weights."""
+    import math
+
+    import torch
+
+    f, b, *widths, o = shape
+    width = widths[0] * widths[-1] if len(widths) == 2 else widths[0]
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=DEV)
+
+    if op.startswith("slse"):
+        ins = []
+        for k in widths:
+            ins += [randn(f, b, k) * 3.0 - 2.0,
+                    torch.randint(-1, 2, (f, b, k), generator=gen, device=DEV).float()]
+        ins[0][0, min(2, b - 1)] = float("-inf")
+        return [*ins, randn(f, o, width)]
+    xs = []
+    for k in widths:
+        phase = (torch.rand((f, b, k), generator=gen, device=DEV) * 2 - 1) * math.pi
+        xs.append(torch.complex(randn(f, b, k) * 3.0 - 2.0, phase))
+    xs[0][0, min(2, b - 1)] = complex(float("-inf"), 0.5)
+    w = randn(f, o, width)
+    return [*xs, w if wkind == "real" else torch.complex(w, randn(f, o, width))]
+
+
+def _bwd_bound(bkey: str, label: str, name: str, got, ref) -> float:
+    """Phase 3b's bound on each plane of a gradient, ``BWD_REL (max|plain| +
+    |plain|)``, and no NaN; returns the worst error. (Its zeros are held
+    where they are structural: bf16-valued operands can also cancel to an
+    exact 0 of the plain version or of the kernel alone.)"""
+    import torch
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{bkey} [{label}] {name}: {tuple(got.shape)} {got.dtype}")
+    scale = ref.abs().max()
+    worst = 0.0
+    for (kp, tag), (pp, _) in zip(_planes(got), _planes(ref)):
+        err = (kp - pp).abs()
+        if bool(torch.isnan(kp).any()) or not bool((err <= BWD_REL * (scale + pp.abs())).all()):
+            raise AssertionError(f"{bkey} [{label}] {name}{tag}: max |kernel - plain| = "
+                                 f"{float(err.max()):.3e}, max|plain| {float(scale):.3e}, or NaN")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _lowprec_case(mod, op: str, sfx: str, mode: str, ins, label: str, shape: tuple, gen,
+                  results: dict) -> tuple[float, float]:
+    """One instance of kernels 6'/7' (``mod`` the signed module) or 10'/11'
+    (the complex one) at one shape against its plain versions in its mode:
+    the forward in linear space scaled by the row's absolute mass (f32-grade
+    to SIGNED_TOL, fast modes to FAST_FWD_TOL), (-inf, 0) at a row of zero
+    mass, no NaN, a second call equal to the bit; the backward on the plain
+    forward's outputs with a cotangent that is 0 on some rows, each gradient
+    (each plane) within phase 3b's bound, 0 where it is so by structure (a
+    sign of 0, an input of -inf, a row of zero cotangent), a second call
+    equal to the bit. Times the instance at its first shape. Returns the
+    forward's and the backward's worst errors."""
+    import torch
+
+    signed = op.startswith("slse")
+    key, bkey = op + sfx, f"{op}{sfx}_bwd"
+    fwd_plain, bwd_plain = ((mod._ENTRIES[op][2], mod._ENTRIES[op][3]) if signed
+                            else mod._ENTRIES[op])
+
+    def kernel():
+        return mod._launch_fwd(op, tuple(ins), mode)
+
+    def plain():
+        return fwd_plain(*ins, mode=mode) if mode else fwd_plain(*ins)
+
+    tol = FAST_FWD_TOL if mode else SIGNED_TOL
+    with torch.inference_mode():
+        got, ref, again = kernel(), plain(), kernel()
+        torch.cuda.synchronize()
+        if signed:
+            err, _ = _signed_check(key, label, got, ref, [*ins[:-1], ins[-1].float()], tol)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            outs = tuple(ref)
+        else:
+            err = _complex_check(key, label, got, ref, ins, tol)
+            same = torch.equal(got, again)
+            outs = (ref,)
+        if not same:
+            raise AssertionError(f"{key} [{label}]: two calls differ")
+        g = torch.randn(outs[0].shape, generator=gen, device=DEV)
+        if not signed:
+            g = torch.complex(g, torch.randn(outs[0].shape, generator=gen, device=DEV))
+        g[0, : min(3, g.shape[1])] = 0.0
+        needs = (True,) * len(ins)
+
+        def kernel_b():
+            return mod._launch_bwd(op, tuple(ins), *outs, g, needs, mode)
+
+        def plain_b():
+            return (bwd_plain(*ins, *outs, g, needs, mode) if mode
+                    else bwd_plain(*ins, *outs, g, needs))
+
+        grads, refs, again = kernel_b(), plain_b(), kernel_b()
+        torch.cuda.synchronize()
+        berr = 0.0
+        zero_row = (g == 0).all(dim=-1, keepdim=True)
+        for n, (d, r, d2) in enumerate(zip(grads, refs, again)):
+            if d is None and r is None:  # the sign inputs get no gradient
+                continue
+            berr = max(berr, _bwd_bound(bkey, label, f"grad {n}", d, r))
+            if not torch.equal(d, d2):
+                raise AssertionError(f"{bkey} [{label}] grad {n}: two calls differ")
+            if n < len(ins) - 1:  # an input's gradient: its structural zeros
+                x = ins[n]
+                zero = (torch.isneginf(x) if signed else torch.isneginf(x.real)) | zero_row
+                if signed:
+                    zero = zero | (ins[n + 1] == 0)
+                if not bool((d[zero] == 0).all()):
+                    raise AssertionError(f"{bkey} [{label}] grad {n}: not 0 where it is so "
+                                         "by structure")
+    bound = _signed_bound if signed else _complex_bound
+    for k, fn, pfn, e in ((key, kernel, plain, err), (bkey, kernel_b, plain_b, berr)):
+        entry = results.setdefault(k, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        CHECKED_SHAPES.add((k, shape))
+        if "ms" not in entry:
+            with torch.inference_mode():
+                entry["ms"] = _median_ms(fn)
+                entry["plain_ms"] = _median_ms(pfn, warmup=1, iters=3)
+            entry["bound_ms"], entry["bound_by"], entry["tc_bound_ms"] = bound(k, ins)
+            entry["shape"] = label
+    return err, berr
+
+
+def phase_lowprec_signed_kernels() -> dict[str, dict]:
+    """18a (phases 3d and 3e for kernels 6', 7', 10' and 11'): every
+    bf16-weight and fast-mode instance of the signed ops and every fast-mode
+    instance of the complex ops (complex and real weights), forward and
+    backward, against its plain version in its mode (``_lowprec_case``): at
+    phase 3d's and 3e's shapes (the SoS TensorDot entry, the K=64 Tucker
+    entry, the narrow route's edges ``NARROW_EDGES``), then at every shape
+    that phase 18's paths give it (``_lowprec_path_shapes``). Timed at the
+    first shape; returns per-instance results."""
+    import torch
+
+    from cirkit_tpu_torch.ops import clse_einsum as C
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    results: dict[str, dict] = {}
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    b, k = BATCH, FLAGSHIP_K
+    sos_entry, k64 = (144, 32 * b, 32, 32), (784, b, k, k, k)  # phase 3d's, at K=64
+    edges = [tuple(e) for e in NARROW_EDGES]
+    paths = _lowprec_path_shapes()
+    plan = []  # (module, op, weight kind, shapes, instances)
+    for op in SIGNED_OPS:
+        first = [k64] if "tucker" in op else [sos_entry, *edges]
+        plan.append((S, op, "real", first + paths.get((op, "real"), []), SIGNED_INSTANCES))
+    plan.append((C, "clse_matmul", "complex", [sos_entry, *edges, *paths["clse_matmul", "complex"]],
+                 COMPLEX_INSTANCES))
+    plan.append((C, "clse_matmul", "real", [*edges, *paths["clse_matmul", "real"]],
+                 COMPLEX_INSTANCES))
+    plan.append((C, "clse_tucker2", "real", [k64, *paths["clse_tucker2", "real"]],
+                 COMPLEX_INSTANCES))
+    plan.append((C, "clse_tucker2", "complex", [k64], COMPLEX_INSTANCES))
+    t0 = time.perf_counter()
+    n_cases = 0
+    for mod, op, wkind, shapes, instances in plan:
+        seen = set()
+        for shape in shapes:
+            if shape in seen:
+                continue
+            seen.add(shape)
+            f, bb, *dims, o = shape
+            label = f"F={f} B={bb} " + ("K1={} K2={}".format(*dims) if len(dims) == 2
+                                         else f"I={dims[0]}") + f" O={o}"
+            if mod is C:
+                label += f", {wkind} w"
+            key_shape = shape if mod is S else (*shape, wkind)
+            base = _lowprec_inputs(gen, op, shape, wkind)
+            errs = []
+            for sfx, mode in instances:
+                ins = list(base)
+                if sfx.startswith("_w16"):
+                    ins[-1] = ins[-1].to(torch.bfloat16)
+                errs.append(_lowprec_case(mod, op, sfx, mode, ins, label, key_shape, gen,
+                                          results))
+                n_cases += 1
+            print(f"[lowprec signed] {op:20s} {label:40s} " + ", ".join(
+                f"{sfx} {e:.2e}/{be:.2e}" for (sfx, _), (e, be) in zip(instances, errs))
+                + " (forward linear / backward errors)")
+            del base, ins
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, entry in results.items():
+        print(f"[lowprec signed] {key:32s} max|err| {entry['max_abs_err']:.3e}; at "
+              f"{entry['shape']}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+              f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+    print(f"[time] 18a: {n_cases} instance cases against plain in "
+          f"{time.perf_counter() - t0:.0f} s")
+    return results
+
+
+def _lowprec_counted(label: str, fn, want: dict[str, int], mode_sfx: str, w16: bool,
+                     launches: dict[str, int]):
+    """Run ``fn`` once from zeroed counts: each op's launches, summed over its
+    instances, must be ``want``'s, every one an instance of the mode
+    ``mode_sfx`` (on a bf16 weight only where ``w16``), at least one on a
+    bf16 weight where ``w16``; they add into ``launches``."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+
+    _zero_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {op: n for op, n in L.LAUNCHES.items() if n}
+    kinds = {mode_sfx, "_w16" + mode_sfx} if w16 else {mode_sfx}
+    totals: dict[str, int] = {}
+    for key, n in got.items():
+        tail = "_bwd" if key.endswith("_bwd") else ""
+        base = next((b for b in want for k in kinds
+                     if b.removesuffix("_bwd") + k + tail == key
+                     and b.endswith("_bwd") == bool(tail)), None)
+        if base is None:
+            raise AssertionError(f"{label}: launched {key}, not an instance of {sorted(kinds)} "
+                                 f"of {sorted(want)}")
+        totals[base] = totals.get(base, 0) + n
+    if totals != want or (w16 and not any("_w16" in key for key in got)):
+        raise AssertionError(f"{label}: launches {got}, expected {want} in the instances "
+                             f"{sorted(kinds)}")
+    for key, n in got.items():
+        launches[key] = launches.get(key, 0) + n
+    return out
+
+
+def _lowprec_stores(circuit, store):
+    """The float32 store, its bf16 weight store (``bf16_weight_store``) and
+    that store widened back to float32, exactly."""
+    import torch
+
+    from cirkit_tpu_torch.backend.torch import bf16_weight_store
+
+    st32 = {k: v.detach() for k, v in store.items()}
+    st16 = bf16_weight_store(circuit, st32)
+    wide = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in st16.items()}
+    return {"float32": st32, "widened": wide, "bf16": st16}
+
+
+def _same_run(label: str, got, want, grad_rel: float | None = None) -> float:
+    """A run from the bf16 store equal to the bit to the widened store's:
+    the outputs, and each gradient in the bf16 slot's type; with
+    ``grad_rel``, the gradients within ``grad_rel`` max|widened gradient| of
+    it instead (autograd sums a weight's uses as bf16 tensors). Returns the
+    worst gradient error as a share of that bound (0 when held to the bit)."""
+    import torch
+
+    outs_g, grads_g = got
+    outs_w, grads_w = want
+    if not all(torch.equal(a, b) for a, b in zip(outs_g, outs_w)):
+        raise AssertionError(f"{label}: output differs from the widened store's run")
+    worst = 0.0
+    for k, g in grads_g.items():
+        w = grads_w[k]
+        if grad_rel is None or g.dtype == w.dtype:
+            if not torch.equal(g, w.to(g.dtype)):
+                raise AssertionError(f"{label}: gradient of {k} differs from the widened "
+                                     "store's")
+            continue
+        share = float((g.float() - w).abs().max()) / (grad_rel * float(w.abs().max()))
+        if not share <= 1.0:
+            raise AssertionError(f"{label}: gradient of {k} off the widened store's by "
+                                 f"{share:.3f} of {grad_rel} max|gradient|")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_lowprec_signed(smi: str, built: list) -> dict[str, int]:
+    """18b-18d: the paths of kernels 6', 7', 10' and 11'. (b) Phase 4's K=64
+    flagships under the signed semiring with phase 4's lse-sum stores: from
+    the float32 store, its ``bf16_weight_store`` and that store widened, a
+    forward and one backward of the mean NLL in ``f32_grade``,
+    ``CIRKIT_TPU_FAST=1`` and ``sr``. (c) bench_sos's squared circuit at
+    28x28 (seed 0) from the same three stores in the same modes: the forward
+    of sq, the normalized log-likelihood and one Adam step on the SoS loss.
+    (d) Phase 10's complex squared circuit at 28x28 (complex weights, seed 0)
+    and phase 10b's complex K=64 Tucker flagship (phase 4's store, real
+    weights) in the three modes: a forward and one backward each. Every
+    call's launches counted (each op as many times as its entries, every
+    launch an instance of the mode, on a bf16 weight from the bf16 store),
+    every launch at a shape 18a held (``CHECKED_SHAPES``); the bf16 store's
+    runs equal the widened store's to the bit; the flagships' fast runs
+    within SERVE_FAST_RTOL of the f32-grade run on 8 rows, signs +1 and
+    phases 0, gradients within FAST_GRAD_REL max(1, max|slot|); the squared
+    circuits' largest offset from the f32-grade run and flipped signs or
+    phases printed, their losses finite. Returns each kernel's launches."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    launches: dict[str, int] = {}
+    ran: set = set()
+
+    def recording(mod, name, complex_):
+        orig = getattr(mod, name)
+
+        def wrapped(op, ins, *args):
+            before = dict(L.LAUNCHES)
+            out = orig(op, ins, *args)
+            *xs, w = ins
+            xs = xs if complex_ else xs[::2]
+            shape = (*xs[0].shape[:2], *(x.shape[2] for x in xs), w.shape[1])
+            if complex_:
+                shape = (*shape, "complex" if w.is_complex() else "real")
+            ran.update((key, shape) for key, n in L.LAUNCHES.items() if n != before[key])
+            return out
+
+        setattr(mod, name, wrapped)
+        return mod, name, orig
+
+    patched = [recording(S, "_launch_fwd", False), recording(S, "_launch_bwd", False),
+               recording(C, "_launch_fwd", True), recording(C, "_launch_bwd", True)]
+    try:
+        t0 = time.perf_counter()
+        _lowprec_flagships(smi, built, launches)
+        print(f"[time] 18b took {time.perf_counter() - t0:.0f} s")
+        t0 = time.perf_counter()
+        _lowprec_sos(smi, launches)
+        print(f"[time] 18c took {time.perf_counter() - t0:.0f} s")
+        t0 = time.perf_counter()
+        _lowprec_complex(smi, built, launches)
+        print(f"[time] 18d took {time.perf_counter() - t0:.0f} s")
+    finally:
+        for mod, name, orig in patched:
+            setattr(mod, name, orig)
+    # the f32-grade float32 instances are phases 3d's and 3e's
+    ran = {(key, shape) for key, shape in ran if any(s in key for s in ("_w16", "_fast", "_sr"))}
+    unchecked = sorted(ran - CHECKED_SHAPES, key=str)
+    if unchecked:
+        raise AssertionError(f"[lowprec signed] instances launched at shapes 18a did not hold "
+                             f"against plain: {unchecked}")
+    print(f"[lowprec signed] {len(ran)} (instance, shape) pairs launched, each held in 18a; "
+          f"launches on phase 18's paths: {launches}")
+    return launches
+
+
+def _flagship_x():
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(0).integers(0, 256, (BATCH, 784)), device=DEV)
+
+
+def _lowprec_flagships(smi: str, built: list, launches: dict[str, int]) -> None:
+    """18b (``phase_lowprec_signed``)."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import split_trainable
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    x = _flagship_x()
+    r = QUERY_ROWS
+    for spl, em, sc, ctx, _, _ in built:
+        label = f"[lowprec signed] (b) {spl} em_ready={em}"
+        sctx = PipelineContext(semiring="signed-lse-sum", fold=True, optimize=True, device=DEV,
+                               seed=0)
+        scc = sctx.compile(sc)
+        sctx.update_parameters(ctx.parameters)  # phase 4's lse-sum store, by slot name
+        stores = _lowprec_stores(scc, scc.restrict_store(sctx.parameters))
+        fwd, bwd = _expected_launches(scc, values="signed")
+        runs, peaks = {}, {}
+        for sname, st in stores.items():
+            tr, fr = split_trainable(scc, st)
+            for mname, env in LOWPREC_MODES.items():
+                with _fast_env(env):
+                    msfx = L.MODE_SUFFIX[L.fast_mode()]
+                    w16 = sname == "bf16"
+                    with torch.inference_mode():
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                        out = _lowprec_counted(f"{label} {sname} {mname} forward",
+                                               lambda: scc.evaluate(st, x), fwd, msfx, w16,
+                                               launches)
+                        peaks[sname, mname] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                    t = {k: v.detach().requires_grad_() for k, v in tr.items()}
+
+                    def backward():
+                        loss = -scc.evaluate({**t, **fr}, x)[0].mean()
+                        return dict(zip(t, torch.autograd.grad(loss, list(t.values()))))
+
+                    grads = _lowprec_counted(f"{label} {sname} {mname} backward", backward,
+                                             {**fwd, **bwd}, msfx, w16, launches)
+                if not bool((out[1] == 1).all()) or not bool(torch.isfinite(out[0]).all()):
+                    raise AssertionError(f"{label} {sname} {mname}: a sign not +1 or a value "
+                                         "not finite")
+                bad = [k for k, g in grads.items() if g.dtype != st[k].dtype
+                       or not bool(torch.isfinite(g).all())]
+                if bad:
+                    raise AssertionError(f"{label} {sname} {mname}: gradients of {bad} not "
+                                         "finite or not of their slot's type")
+                runs[sname, mname] = (out, grads)
+        for mname in LOWPREC_MODES:
+            _same_run(f"{label} bf16 {mname}", runs["bf16", mname], runs["widened", mname])
+        notes = []
+        for sname in ("float32", "widened"):
+            (ref, ref_g) = runs[sname, "f32_grade"]
+            for mname in ("bf16_fast", "sr"):
+                out, grads = runs[sname, mname]
+                rel = float(((out[0][:r] - ref[0][:r]).abs() / ref[0][:r].abs()).max())
+                share = max(float((grads[k].float() - g.float()).abs().max())
+                            / (FAST_GRAD_REL * max(1.0, float(g.abs().max())))
+                            for k, g in ref_g.items())
+                if not (rel <= SERVE_FAST_RTOL and share <= 1.0):
+                    raise AssertionError(f"{label} {sname} {mname}: {r} rows off the f32-grade "
+                                         f"run by {rel:.3e} (rtol {SERVE_FAST_RTOL}), gradients "
+                                         f"{share:.3f} of {FAST_GRAD_REL} max(1, max|slot|)")
+                notes.append(f"{sname} {mname} rows {rel:.2e}, gradients {share:.3f}")
+        print(f"{label}: launches a forward {fwd}, a backward {bwd}, each an instance of its "
+              f"mode; the bf16 store's runs equal the widened store's to the bit in every mode; "
+              f"signs +1; against the f32-grade run of the same store ({r} rows, rtol "
+              f"{SERVE_FAST_RTOL}; gradients, share of {FAST_GRAD_REL} max(1, max|slot|)): "
+              + "; ".join(notes) + "; forward peak above the stores " + ", ".join(
+                  f"{s} {m} {v:.3f} GB" for (s, m), v in peaks.items() if m == "f32_grade")
+              + f" ({smi})")
+        del sctx, scc, stores, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _offsets(label: str, runs: dict, ref_key, keys, signed: bool) -> str:
+    """The squared circuit's largest offset of sq's log-magnitude from the
+    f32-grade run (relative) and the count of flipped signs (phases off by
+    more than pi/2), for each run of ``keys``."""
+    import math
+
+    import torch
+
+    ref = runs[ref_key][0]
+    parts = []
+    for key in keys:
+        out = runs[key][0]
+        if signed:
+            mag, ref_mag = out[0], ref[0]
+            flips = int((out[1] != ref[1]).sum())
+        else:
+            mag, ref_mag = out.real, ref.real
+            d = torch.remainder(out.imag - ref.imag + math.pi, 2 * math.pi) - math.pi
+            flips = int((d.abs() > math.pi / 2).sum())
+        rel = float(((mag - ref_mag).abs() / ref_mag.abs()).max())
+        parts.append(f"{' '.join(key)}: offset {rel:.2e}, {flips} flipped")
+    return "; ".join(parts)
+
+
+def _lowprec_sos(smi: str, launches: dict[str, int]) -> None:
+    """18c (``phase_lowprec_signed``)."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTensorDotLayer
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import split_trainable
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    side = LOWPREC_SOS_SIDE
+    label = f"[lowprec signed] (c) sos {side}x{side} K={SOS_K}"
+    ctx = PipelineContext(semiring="signed-lse-sum", fold=True, optimize=True, device=DEV, seed=0)
+    cc = ctx.compile(_sos_circuit(side))
+    sq = ctx.multiply(ctx.conjugate(cc), cc)
+    zc = ctx.integrate(sq)
+    n_sq, n_zc = (sum(isinstance(l, TorchTensorDotLayer) for l in c.layers) for c in (sq, zc))
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, 256, size=(BATCH, side * side)), device=DEV)
+    stores = _lowprec_stores(cc, ctx.parameters)
+    runs = {}
+    for sname, st in stores.items():
+        tr, fr = split_trainable(cc, st)
+        for mname, env in LOWPREC_MODES.items():
+            with _fast_env(env):
+                msfx = L.MODE_SUFFIX[L.fast_mode()]
+                w16 = sname == "bf16"
+                with torch.inference_mode():
+                    s_out = _lowprec_counted(f"{label} {sname} {mname} sq",
+                                             lambda: sq.evaluate(st, x), {"slse_matmul": n_sq},
+                                             msfx, w16, launches)
+                    nll = _lowprec_counted(
+                        f"{label} {sname} {mname} normalized log-likelihood",
+                        lambda: sq.evaluate(st, x)[0] - zc.evaluate(st, x[:1])[0][0, 0, 0],
+                        {"slse_matmul": n_sq + n_zc}, msfx, w16, launches)
+                t = {k: v.detach().clone().requires_grad_() for k, v in tr.items()}
+                opt = torch.optim.Adam(list(t.values()), lr=SOS_LR)
+
+                def step():
+                    opt.zero_grad(set_to_none=True)
+                    loss = (-sq.evaluate({**t, **fr}, x)[0].mean()
+                            + zc.evaluate({**t, **fr}, x[:1])[0][0, 0, 0])
+                    loss.backward()
+                    grads = {k: v.grad.detach().clone() for k, v in t.items()}
+                    opt.step()
+                    return loss.detach(), grads
+
+                loss, grads = _lowprec_counted(
+                    f"{label} {sname} {mname} Adam step", step,
+                    {"slse_matmul": n_sq + n_zc, "slse_matmul_bwd": n_sq + n_zc}, msfx, w16,
+                    launches)
+            if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(nll).all())):
+                raise AssertionError(f"{label} {sname} {mname}: loss {float(loss)} or a "
+                                     "normalized log-likelihood not finite")
+            runs[sname, mname] = ((s_out[0], s_out[1], nll), grads)
+            del t, opt
+    # each weight reaches autograd as a bf16 gradient once per use (both sides
+    # of sq, and zc), which it sums in bf16: those gradients are held to the
+    # widened store's within a few bf16 roundings, the outputs to the bit
+    worst = max(_same_run(f"{label} bf16 {mname}", runs["bf16", mname], runs["widened", mname],
+                          SOS_BF16_GRAD_REL) for mname in LOWPREC_MODES)
+    print(f"{label}: sq, the normalized log-likelihood and an Adam step from the float32, "
+          f"bf16 and widened stores in three modes, losses finite; the bf16 store's outputs "
+          f"equal the widened store's to the bit, its gradients within {worst:.3f} of "
+          f"{SOS_BF16_GRAD_REL} max|gradient| of them; sq against the f32-grade run of the same "
+          f"store "
+          f"(it cancels up to 1e8 of an entry's mass, SOS_SQ_RTOL): "
+          + _offsets(label, runs, ("float32", "f32_grade"),
+                     [("float32", "bf16_fast"), ("float32", "sr")], True) + "; "
+          + _offsets(label, runs, ("widened", "f32_grade"),
+                     [("widened", "bf16_fast"), ("widened", "sr")], True) + f" ({smi})")
+    del ctx, cc, sq, zc, stores, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lowprec_complex(smi: str, built: list, launches: dict[str, int]) -> None:
+    """18d (``phase_lowprec_signed``)."""
+    import numpy as np
+    import torch
+
+    from cirkit_tpu_torch.backend.torch.optimized import TorchTensorDotLayer
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import split_trainable
+    from cirkit_tpu_torch.pipeline import PipelineContext
+
+    # the complex squared circuit: sq and zc forwards and one backward
+    side = LOWPREC_SOS_SIDE
+    label = f"[lowprec complex] (d) sos {side}x{side} K={SOS_K}, complex weights"
+    ctx = PipelineContext(semiring="complex-lse-sum", fold=True, optimize=True, device=DEV, seed=0)
+    cc = ctx.compile(_complex_sos_circuit(side))
+    sq = ctx.multiply(ctx.conjugate(cc), cc)
+    zc = ctx.integrate(sq)
+    n_sq, n_zc = (sum(isinstance(l, TorchTensorDotLayer) for l in c.layers) for c in (sq, zc))
+    x = torch.as_tensor(np.random.default_rng(0).integers(0, 256, size=(BATCH, side * side)),
+                        device=DEV)
+    st = {k: v.detach() for k, v in ctx.parameters.items()}
+    tr, fr = split_trainable(cc, st)
+    runs = {}
+    for mname, env in LOWPREC_MODES.items():
+        with _fast_env(env):
+            msfx = L.MODE_SUFFIX[L.fast_mode()]
+            t = {k: v.detach().requires_grad_() for k, v in tr.items()}
+
+            def run():
+                s_out = sq.evaluate({**t, **fr}, x)
+                loss = -s_out.real.mean() + zc.evaluate({**t, **fr}, x[:1]).real[0, 0, 0]
+                grads = dict(zip(t, torch.autograd.grad(loss, list(t.values()))))
+                return s_out.detach(), loss.detach(), grads
+
+            out, loss, grads = _lowprec_counted(
+                f"{label} {mname}", run,
+                {"clse_matmul": n_sq + n_zc, "clse_matmul_bwd": n_sq + n_zc}, msfx, False,
+                launches)
+        if not (bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                   for g in grads.values())):
+            raise AssertionError(f"{label} {mname}: loss or gradients not finite")
+        runs["complex64", mname] = (out, grads)
+    print(f"{label}: sq and zc forwards and one backward of the SoS loss in three modes, "
+          f"losses and gradients finite; sq against the f32-grade run: "
+          + _offsets(label, runs, ("complex64", "f32_grade"),
+                     [("complex64", "bf16_fast"), ("complex64", "sr")], False) + f" ({smi})")
+    del ctx, cc, sq, zc, st, tr, fr, runs
+
+    # the complex K=64 Tucker flagship (real weights) from phase 4's store
+    x = _flagship_x()
+    r = QUERY_ROWS
+    spl, em, sc, lctx, _, _ = built[0]
+    label = f"[lowprec complex] (d) {spl} em_ready={em}, real weights"
+    cctx = PipelineContext(semiring="complex-lse-sum", fold=True, optimize=True, device=DEV,
+                           seed=0)
+    ccc = cctx.compile(sc)
+    cctx.update_parameters(lctx.parameters)
+    st = {k: v.detach() for k, v in ccc.restrict_store(cctx.parameters).items()}
+    tr, fr = split_trainable(ccc, st)
+    fwd, bwd = _expected_launches(ccc, values="complex")
+    runs = {}
+    for mname, env in LOWPREC_MODES.items():
+        with _fast_env(env):
+            msfx = L.MODE_SUFFIX[L.fast_mode()]
+            with torch.inference_mode():
+                out = _lowprec_counted(f"{label} {mname} forward", lambda: ccc.evaluate(st, x),
+                                       fwd, msfx, False, launches)
+            t = {k: v.detach().requires_grad_() for k, v in tr.items()}
+
+            def backward():
+                loss = -ccc.evaluate({**t, **fr}, x).real.mean()
+                return dict(zip(t, torch.autograd.grad(loss, list(t.values()))))
+
+            grads = _lowprec_counted(f"{label} {mname} backward", backward, {**fwd, **bwd},
+                                     msfx, False, launches)
+        if not bool((out.imag == 0).all()) or not bool(torch.isfinite(out.real).all()):
+            raise AssertionError(f"{label} {mname}: a phase not 0 or a value not finite")
+        runs[mname] = (out, grads)
+    ref, ref_g = runs["f32_grade"]
+    notes = []
+    for mname in ("bf16_fast", "sr"):
+        out, grads = runs[mname]
+        rel = float(((out.real[:r] - ref.real[:r]).abs() / ref.real[:r].abs()).max())
+        share = max(float((grads[k] - g).abs().max())
+                    / (FAST_GRAD_REL * max(1.0, float(g.abs().max()))) for k, g in ref_g.items())
+        if not (rel <= SERVE_FAST_RTOL and share <= 1.0):
+            raise AssertionError(f"{label} {mname}: {r} rows off the f32-grade run by "
+                                 f"{rel:.3e}, gradients {share:.3f} of the bound")
+        notes.append(f"{mname} rows {rel:.2e}, gradients {share:.3f}")
+    print(f"{label}: launches a forward {fwd}, a backward {bwd}, each an instance of its mode; "
+          f"phases 0; against the f32-grade run ({r} rows, rtol {SERVE_FAST_RTOL}; gradients, "
+          f"share of {FAST_GRAD_REL} max(1, max|slot|)): " + "; ".join(notes) + f" ({smi})")
+    del cctx, ccc, st, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -6330,6 +7060,7 @@ def main() -> int:
     results.update(phase_lowprec_kernels())
     results.update(phase_signed())
     results.update(phase_complex())
+    results.update(phase_lowprec_signed_kernels())
     phase_float64()
     phase_float64_wide()
     results.update(phase_serving_kernels())
@@ -6362,8 +7093,12 @@ def main() -> int:
     signed, signed_ms = phase_signed_flagships(smi, built)  # reads phase 4's stores
     csos = phase_complex_sos(smi, signed_runs)
     cflag = phase_complex_flagship(smi, built, signed_ms)
-    del built, signed_runs
     print(f"[time] phases 9-10b done at {time.perf_counter() - t_start:.0f} s")
+    t_low18 = time.perf_counter()
+    low18 = phase_lowprec_signed(smi, built)  # reads phase 4's stores
+    del built, signed_runs
+    print(f"[time] phase 18 took {time.perf_counter() - t_low18:.0f} s, done at "
+          f"{time.perf_counter() - t_start:.0f} s")
     wide = phase_wide(smi)
     f64 = phase_float64_circuits(smi)
     t_serve = time.perf_counter()
@@ -6375,7 +7110,7 @@ def main() -> int:
     print(f"[time] phase 17 took {time.perf_counter() - t_low:.0f} s, done at "
           f"{time.perf_counter() - t_start:.0f} s")
     for counts in (fwd, train, em, {op: queries[op] for op in ROUTE_OPS}, expect, cross, struct,
-                   qpc, wide, sos, signed, csos, cflag, f64, serve, dist, low):
+                   qpc, wide, sos, signed, csos, cflag, low18, f64, serve, dist, low):
         for op, n in counts.items():
             if n:  # the phases count every LAUNCHES key, most at 0
                 launches[op] = launches.get(op, 0) + n

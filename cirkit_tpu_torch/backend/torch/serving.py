@@ -8,9 +8,10 @@ those weights in bfloat16 halves the dominant device-memory stream. The
 kernels of the Tucker and dense sum layers, the blocked ones of wide dense
 sums among them, read a bf16 weight or logits operand as it is and widen it
 on chip (``ops/lse_einsum.py``), normalizing softmax rows in float32, and so
-do MAP's and sampling's routing kernels (``ops/routing.py``); the signed and
-complex kernels, which have no bf16 instance, get the weight widened in
-their op wrappers.
+do the signed kernels of squared circuits (``ops/slse_einsum.py``) and MAP's
+and sampling's routing kernels (``ops/routing.py``); the complex kernels,
+which have no bf16 instance (nor does the JAX package), get a bf16 real
+weight widened in their op wrappers.
 
 This is an inference-oriented transform: keep training in float32 and cast
 a copy for serving. Gradients through a bf16 store work (the weight's

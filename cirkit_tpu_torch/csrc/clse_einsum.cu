@@ -76,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "lse_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -88,6 +89,7 @@ using cirkit::exp_t;
 using cirkit::fma_t;
 using cirkit::log_t;
 using cirkit::max_t;
+using cirkit::round_op;
 using cirkit::warp_max;
 
 constexpr int THREADS = 256;
@@ -177,6 +179,28 @@ __device__ __forceinline__ void cmac_chunk(const T (*ar)[ASTRIDE], const T (*ai)
   }
 }
 
+// The fast modes (MODE, tc_common.cuh; complex64 only) round each plane of a
+// staged operand to bf16: SR takes the bits of the plane's flat index in
+// torch.view_as_real's layout of its operand, 2 idx for the real plane and 2
+// idx + 1 for the imaginary one, with idx the complex value's flat index (a
+// real weight's plane has its own flat index).
+template <int MODE, typename T>
+__device__ __forceinline__ void round_planes(T& re, T& im, size_t idx, uint32_t role) {
+  re = round_op<MODE>(re, 2 * idx, role);
+  im = round_op<MODE>(im, 2 * idx + 1, role);
+}
+
+// A weight's planes staged in a fast mode: complex as round_planes, a real
+// weight at its own flat index.
+template <int MODE, bool WCPLX, typename T>
+__device__ __forceinline__ void round_weight(T& wr, T& wi, size_t idx, uint32_t role) {
+  if constexpr (WCPLX) {
+    round_planes<MODE>(wr, wi, idx, role);
+  } else {
+    wr = round_op<MODE>(wr, idx, role);
+  }
+}
+
 template <typename T, int TM>
 __device__ __forceinline__ void zero_acc(T (&accr)[TM][TN], T (&acci)[TM][TN]) {
 #pragma unroll
@@ -197,7 +221,7 @@ constexpr int A_PER = BM / RSTEP;  // 4
 constexpr int W_PER = BN / RSTEP;  // 4
 }  // namespace fwd
 
-template <typename T, bool TUCKER, bool WCPLX>
+template <typename T, bool TUCKER, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS)
 clse_fwd_kernel(const void* __restrict__ xa_,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
                 const void* __restrict__ xb_,  // tucker: x2 (F,B,K2)
@@ -298,13 +322,32 @@ clse_fwd_kernel(const void* __restrict__ xa_,  // dense: x (F,B,I); tucker: x1 (
 
   load_chunk(0);
   for (int k0 = 0; k0 < I; k0 += BK) {
+    if constexpr (MODE != cirkit::F32) {  // e's planes and w's rounded (the flat index of e[b, k])
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n)
-      cexp_t(pre[n], pim[n], &Ar[skk][srow + n * RSTEP], &Ai[skk][srow + n * RSTEP]);
+      for (int n = 0; n < A_PER; ++n) {
+        const int r = srow + n * RSTEP;
+        T er, ei;
+        cexp_t(pre[n], pim[n], &er, &ei);
+        round_planes<MODE>(er, ei, ((size_t)f * B + b0 + r) * I + k0 + skk, cirkit::ROLE_E);
+        Ar[skk][r] = er, Ai[skk][r] = ei;
+      }
 #pragma unroll
-    for (int n = 0; n < W_PER; ++n) {
-      Wr[skk][srow + n * RSTEP] = pwr[n];
-      if (WCPLX) Wi[skk][srow + n * RSTEP] = pwi[n];
+      for (int n = 0; n < W_PER; ++n) {
+        const int r = srow + n * RSTEP;
+        T wr = pwr[n], wi = pwi[n];
+        round_weight<MODE, WCPLX>(wr, wi, ((size_t)f * O + o0 + r) * I + k0 + skk, cirkit::ROLE_W);
+        Wr[skk][r] = wr;
+        if (WCPLX) Wi[skk][r] = wi;
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < A_PER; ++n)
+        cexp_t(pre[n], pim[n], &Ar[skk][srow + n * RSTEP], &Ai[skk][srow + n * RSTEP]);
+#pragma unroll
+      for (int n = 0; n < W_PER; ++n) {
+        Wr[skk][srow + n * RSTEP] = pwr[n];
+        if (WCPLX) Wi[skk][srow + n * RSTEP] = pwi[n];
+      }
     }
     __syncthreads();
     if (k0 + BK < I) load_chunk(k0 + BK);
@@ -394,11 +437,39 @@ __device__ __forceinline__ void load_gy(const typename Cplx<T>::type* gyf, int b
   }
 }
 
+// The fast modes' staging of one chunk of a dx kernel, each plane rounded:
+// gy chunk-major (row m, unit k at the flat index gy0 + m O + k of (F, B, O))
+// and conj(w) column-major (unit k, column c at w0 + k I + c of (F, O, I)),
+// with the staging maps of the f32-grade loops.
+template <int MODE, bool WCPLX, int AS, typename T, int PER>
+__device__ __forceinline__ void stage_rounded(T (*Ar)[AS], T (*Ai)[AS], T (*Wr)[BS],
+                                              T (*Wi)[BS], const T (&par)[PER],
+                                              const T (&pai)[PER], const T (&pwr)[C_PER],
+                                              const T (&pwi)[C_PER], int tid, size_t gy0, int O,
+                                              size_t w0, int I) {
+  const int skk = tid % BK, srow = tid / BK, wcol = tid % BN, wk = tid / BN;
+#pragma unroll
+  for (int n = 0; n < PER; ++n) {
+    const int m = srow + n * RSTEP;
+    T r = par[n], i = pai[n];
+    round_planes<MODE>(r, i, gy0 + (size_t)m * O + skk, cirkit::ROLE_GY);
+    Ar[skk][m] = r, Ai[skk][m] = i;
+  }
+#pragma unroll
+  for (int n = 0; n < C_PER; ++n) {
+    const int k = wk + n * CSTEP;
+    T r = pwr[n], i = pwi[n];
+    round_weight<MODE, WCPLX>(r, i, w0 + (size_t)k * I + wcol, cirkit::ROLE_WB);
+    Wr[k][wcol] = r;
+    if (WCPLX) Wi[k][wcol] = i;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Backward 2a. dx, dense: dx = conj(e) * (gy @ conj(w))
 // ---------------------------------------------------------------------------
 
-template <typename T, bool WCPLX>
+template <typename T, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS)
 clse_bwd_dx_dense(const void* __restrict__ x_, const void* __restrict__ w_,
                   const T* __restrict__ sa, const void* __restrict__ gy_,
@@ -451,15 +522,21 @@ clse_bwd_dx_dense(const void* __restrict__ x_, const void* __restrict__ w_,
 
   load_chunk(0);
   for (int o0 = 0; o0 < O; o0 += BK) {
+    if constexpr (MODE != cirkit::F32) {
+      stage_rounded<MODE, WCPLX, fwd::AS>(Ar, Ai, Wr, Wi, par, pai, pwr, pwi, tid,
+                                          ((size_t)f * B + b0) * O + o0, O,
+                                          ((size_t)f * O + o0) * I + i0, I);
+    } else {
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) {
-      Ar[skk][srow + n * RSTEP] = par[n];
-      Ai[skk][srow + n * RSTEP] = pai[n];
-    }
+      for (int n = 0; n < A_PER; ++n) {
+        Ar[skk][srow + n * RSTEP] = par[n];
+        Ai[skk][srow + n * RSTEP] = pai[n];
+      }
 #pragma unroll
-    for (int n = 0; n < C_PER; ++n) {
-      Wr[wk + n * CSTEP][wcol] = pwr[n];
-      if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
+      for (int n = 0; n < C_PER; ++n) {
+        Wr[wk + n * CSTEP][wcol] = pwr[n];
+        if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
+      }
     }
     __syncthreads();
     if (o0 + BK < O) load_chunk(o0 + BK);
@@ -510,7 +587,7 @@ inline size_t tucker_dx_smem(int K1, int K2) {
   return 2 * sizeof(T) * TuckerDx<T>::BM * (2 * (size_t)(K1 + 1) + 2 * (size_t)(K2 + 1));
 }
 
-template <typename T, bool WCPLX>
+template <typename T, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS)
 clse_bwd_dx_tucker(const void* __restrict__ x1_, const void* __restrict__ x2_,
                    const void* __restrict__ w_, const T* __restrict__ sa,
@@ -610,15 +687,24 @@ clse_bwd_dx_tucker(const void* __restrict__ x1_, const void* __restrict__ x2_,
     const int tile = step / n_chunks;
     const int chunk = step - tile * n_chunks;
     if (chunk == 0) zero_acc<T, TM>(accr, acci);
+    if constexpr (MODE != cirkit::F32) {
+      const int o0 = chunk * BK, i = tile / n_jt;
+      stage_rounded<MODE, WCPLX, AS>(Ar, Ai, Wr, Wi, par, pai, pwr, pwi, tid,
+                                     ((size_t)f * B + b0) * O + o0, O,
+                                     ((size_t)f * O + o0) * I + (size_t)i * K2 +
+                                         (tile - i * n_jt) * BN,
+                                     I);
+    } else {
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) {
-      Ar[skk][srow + n * RSTEP] = par[n];
-      Ai[skk][srow + n * RSTEP] = pai[n];
-    }
+      for (int n = 0; n < A_PER; ++n) {
+        Ar[skk][srow + n * RSTEP] = par[n];
+        Ai[skk][srow + n * RSTEP] = pai[n];
+      }
 #pragma unroll
-    for (int n = 0; n < C_PER; ++n) {
-      Wr[wk + n * CSTEP][wcol] = pwr[n];
-      if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
+      for (int n = 0; n < C_PER; ++n) {
+        Wr[wk + n * CSTEP][wcol] = pwr[n];
+        if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
+      }
     }
     __syncthreads();  // (the first one also orders the prologue's writes)
     if (step + 1 < n_steps) load_chunk(step + 1);
@@ -702,7 +788,7 @@ clse_bwd_dx_tucker(const void* __restrict__ x1_, const void* __restrict__ x2_,
 // fixed order and multiplies by conj(e).
 constexpr int I_PER = 16;  // rows i of K1 per block of the split Tucker dx
 
-template <typename T, bool WCPLX>
+template <typename T, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS)
 clse_bwd_dx_tucker_split(const void* __restrict__ x1_, const void* __restrict__ x2_,
                          const void* __restrict__ w_, const T* __restrict__ sa,
@@ -790,15 +876,22 @@ clse_bwd_dx_tucker_split(const void* __restrict__ x1_, const void* __restrict__ 
     const int il = step / n_chunks;
     const int chunk = step - il * n_chunks;
     if (chunk == 0) zero_acc<T, TM>(accr, acci);
+    if constexpr (MODE != cirkit::F32) {
+      const int o0 = chunk * BK;
+      stage_rounded<MODE, WCPLX, AS>(Ar, Ai, Wr, Wi, par, pai, pwr, pwi, tid,
+                                     ((size_t)f * B + b0) * O + o0, O,
+                                     ((size_t)f * O + o0) * I + (size_t)(i0 + il) * K2 + j0, I);
+    } else {
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) {
-      Ar[skk][srow + n * RSTEP] = par[n];
-      Ai[skk][srow + n * RSTEP] = pai[n];
-    }
+      for (int n = 0; n < A_PER; ++n) {
+        Ar[skk][srow + n * RSTEP] = par[n];
+        Ai[skk][srow + n * RSTEP] = pai[n];
+      }
 #pragma unroll
-    for (int n = 0; n < C_PER; ++n) {
-      Wr[wk + n * CSTEP][wcol] = pwr[n];
-      if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
+      for (int n = 0; n < C_PER; ++n) {
+        Wr[wk + n * CSTEP][wcol] = pwr[n];
+        if (WCPLX) Wi[wk + n * CSTEP][wcol] = pwi[n];
+      }
     }
     __syncthreads();  // (the first one also orders the prologue's E1)
     if (step + 1 < n_steps) {
@@ -907,7 +1000,10 @@ ctucker_split_finish(const void* __restrict__ x1_, const void* __restrict__ x2_,
 // tile between staged rows and come back (the same thread writes and reads
 // them). A chunk's sums go to its own plane of partials, or straight to dw
 // when the batch is one chunk; sum_partials then adds the planes in chunk
-// order, so every call gives the same bits with no atomics.
+// order, so every call gives the same bits with no atomics. The fast modes
+// round the planes of gy and of conj(e) as they are staged, e at its flat
+// index in (F, B, I); for Tucker that is the product conj(e1) conj(e2),
+// which a tile of its own stages for each row i in turn.
 namespace cdw {
 constexpr int NI = 8;   // rows i per block (Tucker)
 constexpr int BO = 64;  // units per block
@@ -915,14 +1011,16 @@ constexpr int BJ = 64;  // columns j per block
 constexpr int TM = 4;   // columns per thread (TN units)
 static_assert((BO / TN) * (BJ / TM) == THREADS, "a thread per 4 x 4 tile");
 template <typename T> constexpr int BB = sizeof(T) == 4 ? 64 : 32;  // rows staged at once
-template <typename T>
+// PROD: the fast Tucker instances' tile of the products of one row i
+template <typename T, bool PROD = false>
 constexpr size_t smem() {
-  return 2 * sizeof(T) * ((size_t)BB<T> * (BO + 4) + (size_t)BB<T> * (BJ + 4) + (size_t)NI * BB<T>);
+  return 2 * sizeof(T) * ((size_t)BB<T> * (BO + 4) + (size_t)BB<T> * (BJ + 4) + (size_t)NI * BB<T> +
+                          (PROD ? (size_t)BB<T> * (BJ + 4) : 0));
 }
 }  // namespace cdw
 
 
-template <typename T, bool TUCKER, bool WCPLX>
+template <typename T, bool TUCKER, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS)
 clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
                  const T* __restrict__ sa, const T* __restrict__ sb,
@@ -939,6 +1037,9 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
   T(*Ei)[ES] = Er + BB;
   T* E1r = reinterpret_cast<T*>(Ei + BB);              // [NI][BB]: conj(e1)
   T* E1i = E1r + NI * BB;
+  constexpr bool PROD = TUCKER && MODE != cirkit::F32;
+  T(*Pr)[ES] = reinterpret_cast<T(*)[ES]>(E1i + NI * BB);  // [BB][ES]: the row's products
+  T(*Pi)[ES] = Pr + BB;
 
   const int I = K1 * K2;
   const int bc = blockIdx.x % n_bc;
@@ -970,6 +1071,8 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
         const C v = gyf[(size_t)(b0 + k) * O + o0 + o];
         r = v.x, i = v.y;
       }
+      if constexpr (MODE != cirkit::F32)
+        round_planes<MODE>(r, i, ((size_t)f * B + b0 + k) * O + o0 + o, cirkit::ROLE_GY);
       Gr[k][o] = r, Gi[k][o] = i;
     }
 #pragma unroll 4
@@ -979,6 +1082,8 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
       if (k < nb && j0 + j < K2) {
         const C v = xef[(size_t)(b0 + k) * K2 + j0 + j];
         cexp_t(v.x - sef[b0 + k], -v.y, &r, &i);
+        if constexpr (MODE != cirkit::F32 && !TUCKER)  // dense: K2 = I
+          round_planes<MODE>(r, i, ((size_t)f * B + b0 + k) * K2 + j0 + j, cirkit::ROLE_EB);
       }
       Er[k][j] = r, Ei[k][j] = i;
     }
@@ -1021,6 +1126,18 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
     const int nk = (min(BB, b_end - b0) + 3) & ~3;  // rows past the chunk staged as 0
     const bool first = b0 == b_begin, last = b0 + BB >= b_end;
     for (int il = 0; il < n_i; ++il) {
+      if constexpr (PROD) {  // the row's products conj(e1) conj(e2), rounded
+        __syncthreads();  // the previous row's are read
+        const size_t e0 = (size_t)f * B * I + (size_t)(i0 + il) * K2 + j0;
+        for (int e = tid; e < BB * BJ; e += NT) {
+          const int k = e / BJ, j = e - k * BJ;
+          const T ar = E1r[il * BB + k], ai = E1i[il * BB + k], br = Er[k][j], bi = Ei[k][j];
+          T r = ar * br - ai * bi, i = ar * bi + ai * br;
+          round_planes<MODE>(r, i, e0 + (size_t)(b0 + k) * I + j, cirkit::ROLE_EB);
+          Pr[k][j] = r, Pi[k][j] = i;
+        }
+        __syncthreads();
+      }
       if (n_i > 1) {
         if (first) {
           zero();
@@ -1035,7 +1152,7 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
         T ar[TN], ai[TN], br[TM], bi[TM];
         load_n<TN>(&Gr[k][tx * TN], ar);
         load_n<TN>(&Gi[k][tx * TN], ai);
-        if (TUCKER) {  // gy conj(e1)
+        if (TUCKER && !PROD) {  // gy conj(e1)
           const T cr = E1r[il * BB + k], ci = E1i[il * BB + k];
 #pragma unroll
           for (int n = 0; n < TN; ++n) {
@@ -1044,8 +1161,8 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
             ar[n] = r;
           }
         }
-        load_n<TM>(&Er[k][ty * TM], br);
-        load_n<TM>(&Ei[k][ty * TM], bi);
+        load_n<TM>(PROD ? &Pr[k][ty * TM] : &Er[k][ty * TM], br);
+        load_n<TM>(PROD ? &Pi[k][ty * TM] : &Ei[k][ty * TM], bi);
 #pragma unroll
         for (int n = 0; n < TN; ++n)
 #pragma unroll
@@ -1084,7 +1201,9 @@ clse_bwd_dw_part(const void* __restrict__ xa_, const void* __restrict__ xb_,
 // block's dw tile (a thread's 4 columns of one unit; the real part alone
 // against a real weight). No row shift, gy or e reaches device memory. The
 // chunk's dw goes to its plane of partials (sum_partials adds them in chunk
-// order) or straight to dw when the batch is one chunk.
+// order) or straight to dw when the batch is one chunk. The fast modes round
+// the planes of conj(w), of gy (for both products) and of conj(e) for dw (dx
+// takes the unrounded e).
 namespace narrow {
 constexpr int W = 32;  // the widest I and O
 template <typename T> constexpr int V = sizeof(T) == 4 ? 4 : 2;  // columns a thread of a row
@@ -1092,7 +1211,7 @@ template <typename T> constexpr int TPR = W / V<T>;               // threads a r
 template <typename T> constexpr int RT = THREADS / TPR<T>;        // rows a pass
 }  // namespace narrow
 
-template <typename T, bool WCPLX>
+template <typename T, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, 2)
 clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
                 const void* __restrict__ out_, const void* __restrict__ g_,
@@ -1127,6 +1246,7 @@ clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
       } else {
         wr = static_cast<const T*>(w_)[idx];
       }
+      if constexpr (MODE != cirkit::F32) round_weight<MODE, WCPLX>(wr, wi_, idx, cirkit::ROLE_WB);
     }
     Wr[o][i] = wr;
     if (WCPLX) Wi[o][i] = wi_;
@@ -1163,11 +1283,16 @@ clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       cexp_t(px[v].x - m, -px[v].y, &cr[v], &ci[v]);
-      Er[r][c0 + v] = cr[v], Ei[r][c0 + v] = ci[v];
+      T er = cr[v], ei = ci[v];
+      if constexpr (MODE != cirkit::F32)
+        round_planes<MODE>(er, ei, ((size_t)f * B + b0 + r) * I + c0 + v, cirkit::ROLE_EB);
+      Er[r][c0 + v] = er, Ei[r][c0 + v] = ei;
       T ur, ui;  // 1 / conj(y)
       cexp_t(m - po[v].x, po[v].y, &ur, &ui);
       T gr = pg[v].x * ur - pg[v].y * ui, gi = pg[v].x * ui + pg[v].y * ur;
       if (!(isfinite(gr) && isfinite(gi))) gr = gi = T(0);
+      if constexpr (MODE != cirkit::F32)
+        round_planes<MODE>(gr, gi, ((size_t)f * B + b0 + r) * O + c0 + v, cirkit::ROLE_GY);
       Gr[r][c0 + v] = gr, Gi[r][c0 + v] = gi;  // (after the previous pass's barrier)
     }
     __syncthreads();
@@ -1252,10 +1377,11 @@ clse_bwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_,
 // f32 (f64) FMAs, 4 a term (2 against a real weight). The epilogue writes
 // log|y| + m + i atan2(Im y, Re y); an exact cancellation or a row that is
 // all -inf gives a real part of -inf and a finite phase. A row lives in one
-// warp, so the passes need no block barrier.
+// warp, so the passes need no block barrier. The fast modes round the planes
+// of the staged w and of each e as it is written to the row's line.
 template <typename T> constexpr int FWD_RESIDENT = sizeof(T) == 4 ? 4 : 3;  // blocks an SM
 
-template <typename T, bool WCPLX>
+template <typename T, bool WCPLX, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, FWD_RESIDENT<T>)
 clse_fwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_, void* __restrict__ out_,
                 int B, int I, int O, int n_bc, int rows, bool vec) {
@@ -1285,6 +1411,7 @@ clse_fwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_, void* 
       } else {
         wr = static_cast<const T*>(w_)[idx];
       }
+      if constexpr (MODE != cirkit::F32) round_weight<MODE, WCPLX>(wr, wi, idx, cirkit::ROLE_W);
     }
     Wr[i][o] = wr;
     if (WCPLX) Wi[i][o] = wi;
@@ -1324,8 +1451,18 @@ clse_fwd_narrow(const void* __restrict__ x_, const void* __restrict__ w_, void* 
 #pragma unroll
     for (int d = TPR / 2; d > 0; d >>= 1) m = max_t(m, __shfl_xor_sync(0xffffffffu, m, d));
     m = clamp_max(m);
+    if constexpr (MODE != cirkit::F32) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) cexp_t(px[v].x - m, px[v].y, &Er[r][c0 + v], &Ei[r][c0 + v]);
+      for (int v = 0; v < V; ++v) {
+        T er, ei;
+        cexp_t(px[v].x - m, px[v].y, &er, &ei);
+        round_planes<MODE>(er, ei, ((size_t)f * B + b0 + r) * I + c0 + v, cirkit::ROLE_E);
+        Er[r][c0 + v] = er, Ei[r][c0 + v] = ei;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) cexp_t(px[v].x - m, px[v].y, &Er[r][c0 + v], &Ei[r][c0 + v]);
+    }
     __syncwarp();  // the row's threads are one warp's
     const int b = b0 + r;
     if (b0 + RT < b_end) load(b0 + RT);
@@ -1390,7 +1527,7 @@ inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / 
 // times; the rows are independent, so a chunk may be a single pass and a
 // few folds, the root's F = 1, still fill the card); every other layer
 // clse_fwd_kernel.
-template <typename T, bool TUCKER, bool WCPLX>
+template <typename T, bool TUCKER, bool WCPLX, int MODE = cirkit::F32>
 int launch_fwd(const void* xa, const void* xb, const void* w, void* out, int F, int B, int I,
                int K1, int K2, int O, cudaStream_t s) {
   if (!TUCKER && I <= narrow::W && O <= narrow::W) {
@@ -1398,11 +1535,13 @@ int launch_fwd(const void* xa, const void* xb, const void* w, void* out, int F, 
     const int n_bc = batch_chunks(F, B, narrow::RT<T>, narrow::RT<T>, 2048, &rows);
     auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
     const bool vec = I % 2 == 0 && O % 2 == 0 && aligned(xa) && aligned(out);
-    clse_fwd_narrow<T, WCPLX><<<F * n_bc, THREADS, 0, s>>>(xa, w, out, B, I, O, n_bc, rows, vec);
+    clse_fwd_narrow<T, WCPLX, MODE><<<F * n_bc, THREADS, 0, s>>>(xa, w, out, B, I, O, n_bc, rows,
+                                                                 vec);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid(F, cdiv(O, BN), cdiv(B, fwd::BM));
-  clse_fwd_kernel<T, TUCKER, WCPLX><<<grid, THREADS, 0, s>>>(xa, xb, w, out, B, I, K1, K2, O);
+  clse_fwd_kernel<T, TUCKER, WCPLX, MODE><<<grid, THREADS, 0, s>>>(xa, xb, w, out, B, I, K1, K2,
+                                                                   O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1437,12 +1576,12 @@ inline GyPlan gy_plan(bool tucker, bool w_complex, int F, int B, int K1, int K2,
 
 // The complex dw in the batch chunks of the plan (to ``out``: dw, or the
 // chunks' planes when there are several).
-template <typename T, bool TUCKER, bool WCPLX>
+template <typename T, bool TUCKER, bool WCPLX, int MODE = cirkit::F32>
 cudaError_t launch_dw(const void* xa, const void* xb, const T* sa, const T* sb, const void* gy,
                       void* out, int F, int B, int K1, int K2, int O, const GyPlan& p,
                       cudaStream_t s) {
-  constexpr size_t smem = cdw::smem<T>();
-  auto kernel = clse_bwd_dw_part<T, TUCKER, WCPLX>;
+  constexpr size_t smem = cdw::smem<T, TUCKER && MODE != cirkit::F32>();
+  auto kernel = clse_bwd_dw_part<T, TUCKER, WCPLX, MODE>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
@@ -1454,7 +1593,7 @@ cudaError_t launch_dw(const void* xa, const void* xb, const T* sa, const T* sb, 
   return cudaGetLastError();
 }
 
-template <typename T, bool TUCKER, bool WCPLX>
+template <typename T, bool TUCKER, bool WCPLX, int MODE = cirkit::F32>
 int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, const void* g,
                void* dxa, void* dxb, void* dw, void* sa_, void* sb_, void* gy_, int F, int B,
                int I, int K1, int K2, int O, cudaStream_t s) {
@@ -1466,8 +1605,8 @@ int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, c
   cudaError_t err;
   if (plan.narrow) {
     void* dwo = dw == nullptr ? nullptr : plan.n_bc > 1 ? static_cast<void*>(gy) : dw;
-    clse_bwd_narrow<T, WCPLX><<<F * plan.n_bc, THREADS, 0, s>>>(xa, w, out, g, dxa, dwo, F, B,
-                                                                  I, O, plan.n_bc, plan.rows);
+    clse_bwd_narrow<T, WCPLX, MODE><<<F * plan.n_bc, THREADS, 0, s>>>(
+        xa, w, out, g, dxa, dwo, F, B, I, O, plan.n_bc, plan.rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     if (dw != nullptr && plan.n_bc > 1)  // real values, two to a complex one
       return static_cast<int>(cirkit::launch_sum_partials<T>(
@@ -1485,29 +1624,29 @@ int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, c
       const int n_it = static_cast<int>(cdiv(K1, I_PER));
       C* part1 = gy + plan.dx_part;
       C* part2 = part1 + (size_t)n_jt * F * B * K1;
-      clse_bwd_dx_tucker_split<T, WCPLX><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
+      clse_bwd_dx_tucker_split<T, WCPLX, MODE><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
           xa, xb, w, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
       ctucker_split_finish<T><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
           xa, xb, sa, sb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
     } else if (TUCKER) {
       const size_t smem = tucker_dx_smem<T>(K1, K2);
-      err = cudaFuncSetAttribute(clse_bwd_dx_tucker<T, WCPLX>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+      auto kernel = clse_bwd_dx_tucker<T, WCPLX, MODE>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      clse_bwd_dx_tucker<T, WCPLX><<<dim3(F, cdiv(B, TuckerDx<T>::BM)), THREADS, smem, s>>>(
-          xa, xb, w, sa, sb, gy, dxa, dxb, B, K1, K2, O);
+      kernel<<<dim3(F, cdiv(B, TuckerDx<T>::BM)), THREADS, smem, s>>>(xa, xb, w, sa, sb, gy, dxa,
+                                                                     dxb, B, K1, K2, O);
     } else {
-      clse_bwd_dx_dense<T, WCPLX><<<dim3(F, cdiv(I, BN), cdiv(B, fwd::BM)), THREADS, 0, s>>>(
-          xa, w, sa, gy, dxa, B, I, O);
+      clse_bwd_dx_dense<T, WCPLX, MODE>
+          <<<dim3(F, cdiv(I, BN), cdiv(B, fwd::BM)), THREADS, 0, s>>>(xa, w, sa, gy, dxa, B, I, O);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dw != nullptr) {
     const int k2 = TUCKER ? K2 : I;
     void* dst = plan.n_bc > 1 ? static_cast<void*>(gy + plan.dw_part) : dw;
-    err = launch_dw<T, TUCKER, WCPLX>(xa, xb, sa, sb, gy, dst, F, B, K1, k2, O, plan, s);
+    err = launch_dw<T, TUCKER, WCPLX, MODE>(xa, xb, sa, sb, gy, dst, F, B, K1, k2, O, plan, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (plan.n_bc > 1 &&  // the chunks' planes, real values (two to a complex one)
         (err = cirkit::launch_sum_partials<T>(static_cast<const T*>(dst), static_cast<T*>(dw),
@@ -1519,16 +1658,22 @@ int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, c
 }
 
 // Calls fn.template operator()<T, TUCKER, WCPLX>() for the run-time flags.
-template <typename Fn>
+// The fast modes (MODE) are complex64's alone: their entries refuse
+// complex128.
+template <int MODE = cirkit::F32, typename Fn>
 int dispatch(int tucker, int w_complex, int is_double, Fn fn) {
 #define CLSE_CASE(T, TU, WC) return fn.template operator()<T, TU, WC>()
-  if (is_double) {
-    if (tucker) {
-      if (w_complex) CLSE_CASE(double, true, true);
-      CLSE_CASE(double, true, false);
+  if constexpr (MODE == cirkit::F32) {
+    if (is_double) {
+      if (tucker) {
+        if (w_complex) CLSE_CASE(double, true, true);
+        CLSE_CASE(double, true, false);
+      }
+      if (w_complex) CLSE_CASE(double, false, true);
+      CLSE_CASE(double, false, false);
     }
-    if (w_complex) CLSE_CASE(double, false, true);
-    CLSE_CASE(double, false, false);
+  } else {
+    if (is_double) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tucker) {
     if (w_complex) CLSE_CASE(float, true, true);
@@ -1539,6 +1684,7 @@ int dispatch(int tucker, int w_complex, int is_double, Fn fn) {
 #undef CLSE_CASE
 }
 
+template <int MODE = cirkit::F32>
 struct FwdCall {
   const void *xa, *xb, *w;
   void* out;
@@ -1546,10 +1692,11 @@ struct FwdCall {
   cudaStream_t s;
   template <typename T, bool TUCKER, bool WCPLX>
   int operator()() const {
-    return launch_fwd<T, TUCKER, WCPLX>(xa, xb, w, out, F, B, I, K1, K2, O, s);
+    return launch_fwd<T, TUCKER, WCPLX, MODE>(xa, xb, w, out, F, B, I, K1, K2, O, s);
   }
 };
 
+template <int MODE = cirkit::F32>
 struct BwdCall {
   const void *xa, *xb, *w, *out, *g;
   void *dxa, *dxb, *dw, *sa, *sb, *gy;
@@ -1557,15 +1704,44 @@ struct BwdCall {
   cudaStream_t s;
   template <typename T, bool TUCKER, bool WCPLX>
   int operator()() const {
-    return launch_bwd<T, TUCKER, WCPLX>(xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, I, K1,
-                                        K2, O, s);
+    return launch_bwd<T, TUCKER, WCPLX, MODE>(xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, I,
+                                              K1, K2, O, s);
   }
 };
+
+template <int MODE>
+int clse_fwd_mode(const void* xa, const void* xb, const void* w, void* out, int F, int B, int K1,
+                  int K2, int O, int tucker, int w_complex, int is_double, int device,
+                  void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return dispatch<MODE>(tucker, w_complex, is_double,
+                        FwdCall<MODE>{xa, xb, w, out, F, B, K1 * K2, K1, K2, O,
+                                      static_cast<cudaStream_t>(stream)});
+}
+
+template <int MODE>
+int clse_bwd_mode(const void* xa, const void* xb, const void* w, const void* out, const void* g,
+                  void* dxa, void* dxb, void* dw, void* sa, void* sb, void* gy, int F, int B,
+                  int K1, int K2, int O, int tucker, int w_complex, int is_double, int device,
+                  void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return dispatch<MODE>(tucker, w_complex, is_double,
+                        BwdCall<MODE>{xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, K1 * K2,
+                                      K1, K2, O, static_cast<cudaStream_t>(stream)});
+}
 
 }  // namespace
 
 extern "C" {
 
+// The build compiles this source once for each part (-DCIRKIT_CLSE_PART=0,
+// 1, 2; ops/_build.py), the three side by side: part 0 holds the entries of
+// the f32-grade mode, parts 1 and 2 those of the fast modes (_fast, _sr:
+// complex64 alone), with the same arguments. A build without the macro holds
+// all of them.
+#if !defined(CIRKIT_CLSE_PART) || CIRKIT_CLSE_PART == 0
 // The complex values the backward's gy scratch holds (gy and the partial
 // sums of the batch-split dw and the K1-split Tucker dx) at these sizes.
 size_t clse_bwd_gy_size(int F, int B, int K1, int K2, int O, int tucker, int w_complex,
@@ -1579,11 +1755,8 @@ size_t clse_bwd_gy_size(int F, int B, int K1, int K2, int O, int tucker, int w_c
 int clse_fwd(const void* xa, const void* xb, const void* w, void* out, int F, int B, int K1,
              int K2, int O, int tucker, int w_complex, int is_double, int device,
              void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  return dispatch(tucker, w_complex, is_double,
-                  FwdCall{xa, xb, w, out, F, B, K1 * K2, K1, K2, O,
-                          static_cast<cudaStream_t>(stream)});
+  return clse_fwd_mode<cirkit::F32>(xa, xb, w, out, F, B, K1, K2, O, tucker, w_complex, is_double,
+                                    device, stream);
 }
 
 // Backward: the forward's operands and output, the cotangent g; the gradients
@@ -1593,11 +1766,33 @@ int clse_bwd(const void* xa, const void* xb, const void* w, const void* out, con
              void* dxa, void* dxb, void* dw, void* sa, void* sb, void* gy, int F, int B, int K1,
              int K2, int O, int tucker, int w_complex, int is_double, int device,
              void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  return dispatch(tucker, w_complex, is_double,
-                  BwdCall{xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, K1 * K2, K1, K2, O,
-                          static_cast<cudaStream_t>(stream)});
+  return clse_bwd_mode<cirkit::F32>(xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, K1, K2, O,
+                                    tucker, w_complex, is_double, device, stream);
 }
+#endif
+
+// The fast-mode instances (ops/clse_einsum.py's _fast, _sr), complex64 only.
+#define CLSE_INSTANCES(SUFFIX, MODE)                                                            \
+  int clse_fwd##SUFFIX(const void* xa, const void* xb, const void* w, void* out, int F, int B,  \
+                       int K1, int K2, int O, int tucker, int w_complex, int is_double,         \
+                       int device, void* stream) {                                              \
+    return clse_fwd_mode<MODE>(xa, xb, w, out, F, B, K1, K2, O, tucker, w_complex, is_double,   \
+                               device, stream);                                                 \
+  }                                                                                             \
+  int clse_bwd##SUFFIX(const void* xa, const void* xb, const void* w, const void* out,          \
+                       const void* g, void* dxa, void* dxb, void* dw, void* sa, void* sb,       \
+                       void* gy, int F, int B, int K1, int K2, int O, int tucker, int w_complex,\
+                       int is_double, int device, void* stream) {                               \
+    return clse_bwd_mode<MODE>(xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, K1, K2, O,    \
+                               tucker, w_complex, is_double, device, stream);                   \
+  }
+
+#if !defined(CIRKIT_CLSE_PART) || CIRKIT_CLSE_PART == 1
+CLSE_INSTANCES(_fast, cirkit::BF16)
+#endif
+#if !defined(CIRKIT_CLSE_PART) || CIRKIT_CLSE_PART == 2
+CLSE_INSTANCES(_sr, cirkit::SR)
+#endif
+#undef CLSE_INSTANCES
 
 }  // extern "C"

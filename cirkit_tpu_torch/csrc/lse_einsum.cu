@@ -103,8 +103,11 @@ constexpr int BS = BN + 4;
 // their accumulators, so one block of them is resident on an SM, not two.
 // WT is the weight's storage type (T, or bf16 beside float: read widened).
 // The fast modes (MODE, tc_common.cuh; the float unsigned dense instances,
-// the mixing sums) stage each exponential and weight (softmax: exp(theta -
-// row max), the normalizer kept in f32) rounded to bf16 and FMA in f32.
+// the mixing sums, and every float signed one) stage each exponential
+// (signed: s * exp(x - m), for Tucker the chunk's product e1 * e2 as
+// s1 s2 exp((x1 - m1) + (x2 - m2)), at its flat index in (F, B, I)) and
+// weight (softmax: exp(theta - row max), the normalizer kept in f32)
+// rounded to bf16 and FMA in f32.
 template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED, typename WT = T,
           int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
@@ -233,12 +236,14 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     // Stage this chunk: the shifted exponentials (for tucker the outer
     // product e1[b,i] * e2[b,j], formed one chunk at a time) and the
     // weights (unnormalized softmax numerators).
-    if constexpr (MODE != cirkit::F32) {  // float, unsigned, dense
+    if constexpr (MODE != cirkit::F32) {  // float: unsigned dense, or signed
       const int k = k0 + skk;
 #pragma unroll
       for (int n = 0; n < A_PER; ++n) {
         const int r = srow + n * RSTEP;
-        As[skk][r] = round_op<MODE>(expf(pa[n]), ((size_t)f * B + b0 + r) * I + k, cirkit::ROLE_E);
+        float e = expf(pa[n]);
+        if constexpr (SIGNED) e = ps[n] * e;
+        As[skk][r] = round_op<MODE>(e, ((size_t)f * B + b0 + r) * I + k, cirkit::ROLE_E);
       }
 #pragma unroll
       for (int n = 0; n < W_PER; ++n) {
@@ -308,7 +313,10 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
 // log|y| + m (minus the normalizer's log) and sign y, an exact cancellation
 // giving (-inf, 0). A row lives in one warp, so the passes need no block
 // barrier. Nothing but the inputs read once and the outputs written once
-// reaches device memory.
+// reaches device memory. WT is the weight's storage type (bf16 beside float:
+// read widened); the fast modes (MODE) round each e as it is written to the
+// row's line (at its flat index in (F, B, I)) and each staged weight (with
+// logits exp(theta - max), the normalizer summed unrounded).
 namespace narrow {
 constexpr int W = 32;                                              // the widest I and O
 template <typename T> constexpr int V = 32 / sizeof(T);            // columns a thread of a row
@@ -317,9 +325,9 @@ template <typename T> constexpr int RT = THREADS / TPR<T>;         // rows a pas
 template <typename T> constexpr int RESIDENT = sizeof(T) == 4 ? 4 : 3;  // blocks an SM
 }  // namespace narrow
 
-template <typename T, bool SOFTMAX>
+template <typename T, bool SOFTMAX, typename WT = T, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, narrow::RESIDENT<T>)
-slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __restrict__ w,
+slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const WT* __restrict__ w,
                 T* __restrict__ out, T* __restrict__ out_sign, int B, int I, int O, int n_bc,
                 int rows, bool vec) {
   using narrow::W;
@@ -335,7 +343,7 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __re
   const size_t xoff = (size_t)f * B * I, ooff = (size_t)f * B * O;
   for (int o = tid >> 5; o < W; o += WARPS) {  // one warp a unit, lane i its column i
     const T pad = SOFTMAX ? -INFINITY : T(0);
-    T v = o < O && lane < I ? w[((size_t)f * O + o) * I + lane] : pad;
+    T v = o < O && lane < I ? T(widen(w[((size_t)f * O + o) * I + lane])) : pad;
     if (SOFTMAX) {  // a unit whose logits are all -inf (or past O) stages 0
       T m = warp_max(v);
       m = m == -INFINITY ? T(0) : m;
@@ -343,6 +351,8 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __re
       const T s = warp_sum(v);
       if (lane == 0) lsw[o] = log_t(s);
     }
+    if constexpr (MODE != cirkit::F32) v = round_op<MODE>(v, ((size_t)f * O + o) * I + lane,
+                                                          cirkit::ROLE_W);
     Wt[lane][o] = v;
   }
   __syncthreads();
@@ -377,10 +387,17 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __re
 #pragma unroll
     for (int d = TPR / 2; d > 0; d >>= 1) m = max_t(m, __shfl_xor_sync(0xffffffffu, m, d));
     m = clamp_max(m);
+    if constexpr (MODE != cirkit::F32) {
+      const size_t e0 = ((size_t)f * B + b0 + r) * I + c0;
 #pragma unroll
-    for (int v = 0; v < V; v += 4)
-      store4(&Es[r][c0 + v], ps[v] * exp_t(px[v] - m), ps[v + 1] * exp_t(px[v + 1] - m),
-             ps[v + 2] * exp_t(px[v + 2] - m), ps[v + 3] * exp_t(px[v + 3] - m));
+      for (int v = 0; v < V; ++v)
+        Es[r][c0 + v] = round_op<MODE>(ps[v] * exp_t(px[v] - m), e0 + v, cirkit::ROLE_E);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; v += 4)
+        store4(&Es[r][c0 + v], ps[v] * exp_t(px[v] - m), ps[v + 1] * exp_t(px[v + 1] - m),
+               ps[v + 2] * exp_t(px[v + 2] - m), ps[v + 3] * exp_t(px[v + 3] - m));
+    }
     __syncwarp();  // the row's threads are one warp's
     const int b = b0 + r;
     if (b0 + RT < b_end) load(b0 + RT);
@@ -755,8 +772,8 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
 // batch chunks for about 2048 blocks (F = 144 fills the 132 SMs several
 // times). The rows are independent, so a chunk may be a single pass: a few
 // folds (the root, F = 1) still fill the card.
-template <typename T, bool SOFTMAX>
-int launch_narrow(const T* x, const T* sx, const T* w, T* out, T* out_sign, int F, int B, int I,
+template <typename T, bool SOFTMAX, typename WT = T, int MODE = cirkit::F32>
+int launch_narrow(const T* x, const T* sx, const WT* w, T* out, T* out_sign, int F, int B, int I,
                   int O, cudaStream_t s) {
   constexpr int RT = narrow::RT<T>;
   int rows;
@@ -764,8 +781,8 @@ int launch_narrow(const T* x, const T* sx, const T* w, T* out, T* out_sign, int 
   auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
   const bool vec = I % 4 == 0 && O % 4 == 0 && aligned(x) && aligned(sx) && aligned(out) &&
                    aligned(out_sign);
-  slse_fwd_narrow<T, SOFTMAX><<<F * n_bc, THREADS, 0, s>>>(x, sx, w, out, out_sign, B, I, O,
-                                                            n_bc, rows, vec);
+  slse_fwd_narrow<T, SOFTMAX, WT, MODE><<<F * n_bc, THREADS, 0, s>>>(x, sx, w, out, out_sign, B,
+                                                                      I, O, n_bc, rows, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -780,8 +797,8 @@ int launch(const T* xa, const T* xb, const WT* w, T* out, int F, int B, int I, i
   if (set != cudaSuccess) return static_cast<int>(set);
   if constexpr (SIGNED && !TUCKER)
     if (I <= narrow::W && O <= narrow::W)
-      return launch_narrow<T, SOFTMAX>(xa, sa, w, out, out_sign, F, B, I, O,
-                                       static_cast<cudaStream_t>(stream));
+      return launch_narrow<T, SOFTMAX, WT, MODE>(xa, sa, w, out, out_sign, F, B, I, O,
+                                                 static_cast<cudaStream_t>(stream));
   const dim3 grid(F, (O + BN - 1) / BN, (B + BM - 1) / BM);
   lse_fwd<T, TUCKER, SOFTMAX, SIGNED, WT, MODE>
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(xa, xb, w, out, sa, sb, out_sign,
@@ -824,6 +841,12 @@ int launch_tucker_tc(const float* x1, const float* x2, const WT* w, float* out, 
 
 extern "C" {
 
+// The build compiles this source once for each part (-DCIRKIT_FWD_PART=0, 1,
+// 2; ops/_build.py), the three side by side: part 0 holds the lse entries and
+// their instances and the float and double signed entries, parts 1 and 2 the
+// float32-weight and bf16-weight instances of the signed entries at the end.
+// A build without the macro holds all of them.
+#if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 0
 const char* cirkit_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -916,6 +939,48 @@ LSE_FWD_INSTANCES(_sr, float, cirkit::SR)
 LSE_FWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
 LSE_FWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 LSE_FWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#endif
 #undef LSE_FWD_INSTANCES
+
+// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
+// signed forwards (ops/slse_einsum.py), with the float signed entries'
+// arguments: lse_fwd's SIGNED instances, and slse_fwd_narrow where a dense
+// layer's I and O are at most 32.
+#define SLSE_FWD_INSTANCES(SUFFIX, WT, MODE)                                                    \
+  int slse_fwd_dense##SUFFIX(const float* a, const float* s, const WT* w, float* oa, float* os, \
+                             int F, int B, int I, int O, int device, void* stream) {            \
+    return launch<float, false, false, true, WT, MODE>(a, nullptr, w, oa, F, B, I, 0, 1, O,     \
+                                                       device, stream, s, nullptr, os);         \
+  }                                                                                             \
+  int slse_fwd_dense_softmax##SUFFIX(const float* a, const float* s, const WT* theta, float* oa,\
+                                     float* os, int F, int B, int I, int O, int device,         \
+                                     void* stream) {                                            \
+    return launch<float, false, true, true, WT, MODE>(a, nullptr, theta, oa, F, B, I, 0, 1, O,  \
+                                                      device, stream, s, nullptr, os);          \
+  }                                                                                             \
+  int slse_fwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
+                              const float* s2, const WT* w, float* oa, float* os, int F, int B, \
+                              int K1, int K2, int O, int device, void* stream) {                \
+    return launch<float, true, false, true, WT, MODE>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O,  \
+                                                      device, stream, s1, s2, os);              \
+  }                                                                                             \
+  int slse_fwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
+                                      const float* s2, const WT* theta, float* oa, float* os,   \
+                                      int F, int B, int K1, int K2, int O, int device,          \
+                                      void* stream) {                                           \
+    return launch<float, true, true, true, WT, MODE>(a1, a2, theta, oa, F, B, K1 * K2, K1, K2,  \
+                                                     O, device, stream, s1, s2, os);            \
+  }
+
+#if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 1
+SLSE_FWD_INSTANCES(_fast, float, cirkit::BF16)
+SLSE_FWD_INSTANCES(_sr, float, cirkit::SR)
+#endif
+#if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 2
+SLSE_FWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+SLSE_FWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+SLSE_FWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#endif
+#undef SLSE_FWD_INSTANCES
 
 }  // extern "C"

@@ -87,6 +87,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "lse_common.cuh"
 #include "tc_common.cuh"
@@ -103,9 +104,11 @@ using cirkit::fast_exp;
 using cirkit::fma_t;
 using cirkit::load4;
 using cirkit::max_t;
+using cirkit::round_op;
 using cirkit::store4;
 using cirkit::warp_max;
 using cirkit::warp_sum;
+using cirkit::widen;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -153,9 +156,9 @@ bwd_prep(const T* __restrict__ xa, const T* __restrict__ xb,
 // 2. Softmax weights: w[o, :] = softmax(theta[o, :])
 // --------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename WT = T>
 __global__ void __launch_bounds__(THREADS)
-softmax_weights(const T* __restrict__ theta, T* __restrict__ w, int O, int I) {
+softmax_weights(const WT* __restrict__ theta, T* __restrict__ w, int O, int I) {
   const int lane = threadIdx.x & 31;
   const int o = blockIdx.y * WARPS + (threadIdx.x >> 5);
   if (o >= O) return;
@@ -163,7 +166,7 @@ softmax_weights(const T* __restrict__ theta, T* __restrict__ w, int O, int I) {
   T m, s;
   cirkit::softmax_row_stats(theta + row, I, lane, &m, &s);
   const T inv = T(1) / s;
-  for (int k = lane; k < I; k += 32) w[row + k] = exp_t(theta[row + k] - m) * inv;
+  for (int k = lane; k < I; k += 32) w[row + k] = exp_t(T(widen(theta[row + k])) - m) * inv;
 }
 
 // --------------------------------------------------------------------------
@@ -183,9 +186,9 @@ constexpr int WSTEP = THREADS / BN;       // w staging: units per pass
 constexpr int W_PER = BK / WSTEP;         // 4
 }  // namespace dense_dx
 
-template <typename T, bool SIGNED>
+template <typename T, bool SIGNED, typename WT = T, int MODE = cirkit::F32, bool ROUND_W = false>
 __global__ void __launch_bounds__(THREADS, RESIDENT<T>)
-lse_bwd_dx_dense(const T* __restrict__ x, const T* __restrict__ w,
+lse_bwd_dx_dense(const T* __restrict__ x, const WT* __restrict__ w,
                  const T* __restrict__ sa, const T* __restrict__ gy,
                  const T* __restrict__ sx,  // signed: the sign of x
                  T* __restrict__ dx, int B, int I, int O) {
@@ -198,7 +201,7 @@ lse_bwd_dx_dense(const T* __restrict__ x, const T* __restrict__ w,
   const int b0 = blockIdx.z * BM;
   const int tid = threadIdx.x;
   const T* gyf = gy + (size_t)f * B * O;
-  const T* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
 
   // gy staging: unit kk = tid % BK of each chunk, rows tid / BK + n * RSTEP;
   // w staging: column tid % BN, units tid / BN + n * WSTEP.
@@ -218,7 +221,7 @@ lse_bwd_dx_dense(const T* __restrict__ x, const T* __restrict__ w,
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + wk + n * WSTEP;
       const int i = i0 + wcol;
-      pw[n] = (o < O && i < I) ? wf[(size_t)o * I + i] : T(0);
+      pw[n] = (o < O && i < I) ? T(widen(wf[(size_t)o * I + i])) : T(0);
     }
   };
 
@@ -232,10 +235,23 @@ lse_bwd_dx_dense(const T* __restrict__ x, const T* __restrict__ w,
 
   load_chunk(0);
   for (int o0 = 0; o0 < O; o0 += BK) {
+    if constexpr (MODE != cirkit::F32) {  // gy and (ROUND_W) w rounded as staged
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+      for (int n = 0; n < A_PER; ++n)
+        As[skk][srow + n * RSTEP] = round_op<MODE>(
+            pa[n], ((size_t)f * B + b0 + srow + n * RSTEP) * O + o0 + skk, cirkit::ROLE_GY);
 #pragma unroll
-    for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+      for (int n = 0; n < W_PER; ++n)
+        Bs[wk + n * WSTEP][wcol] =
+            ROUND_W ? round_op<MODE>(pw[n], ((size_t)f * O + o0 + wk + n * WSTEP) * I + i0 + wcol,
+                                     cirkit::ROLE_WB)
+                    : pw[n];
+    } else {
+#pragma unroll
+      for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+#pragma unroll
+      for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+    }
     __syncthreads();
     if (o0 + BK < O) load_chunk(o0 + BK);
 #pragma unroll
@@ -295,10 +311,10 @@ inline size_t tucker_dx_smem(int K1, int K2) {
   return sizeof(T) * BM * (2 * (K1 + 1) + 2 * (K2 + 1) + SS);
 }
 
-template <typename T, bool SIGNED>
+template <typename T, bool SIGNED, typename WT = T, int MODE = cirkit::F32, bool ROUND_W = false>
 __global__ void __launch_bounds__(THREADS)
 lse_bwd_dx_tucker(const T* __restrict__ x1, const T* __restrict__ x2,
-                  const T* __restrict__ w, const T* __restrict__ sa,
+                  const WT* __restrict__ w, const T* __restrict__ sa,
                   const T* __restrict__ sb,
                   const T* __restrict__ gy,
                   const T* __restrict__ s1,  // signed: the signs of x1, x2
@@ -330,7 +346,7 @@ lse_bwd_dx_tucker(const T* __restrict__ x1, const T* __restrict__ x2,
   const int tid = threadIdx.x;
   const int I = K1 * K2;
   const T* gyf = gy + (size_t)f * B * O;
-  const T* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
 
   // Prologue: the block's (signed) exponentials and zeroed accumulators.
   for (int t = tid; t < BM * K1; t += THREADS) {
@@ -375,7 +391,7 @@ lse_bwd_dx_tucker(const T* __restrict__ x1, const T* __restrict__ x2,
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + wk + n * WSTEP;
       const int c = c0 + wcol;
-      pw[n] = (o < O && c < I) ? wf[(size_t)o * I + c] : T(0);
+      pw[n] = (o < O && c < I) ? T(widen(wf[(size_t)o * I + c])) : T(0);
     }
   };
 
@@ -396,10 +412,24 @@ lse_bwd_dx_tucker(const T* __restrict__ x1, const T* __restrict__ x2,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
     }
+    if constexpr (MODE != cirkit::F32) {  // gy and (ROUND_W) w rounded as staged
+      const int o0 = chunk * BK;
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+      for (int n = 0; n < A_PER; ++n)
+        As[skk][srow + n * RSTEP] = round_op<MODE>(
+            pa[n], ((size_t)f * B + b0 + srow + n * RSTEP) * O + o0 + skk, cirkit::ROLE_GY);
 #pragma unroll
-    for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+      for (int n = 0; n < W_PER; ++n)
+        Bs[wk + n * WSTEP][wcol] =
+            ROUND_W ? round_op<MODE>(pw[n], ((size_t)f * O + o0 + wk + n * WSTEP) * I + c0 + wcol,
+                                     cirkit::ROLE_WB)
+                    : pw[n];
+    } else {
+#pragma unroll
+      for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+#pragma unroll
+      for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+    }
     // (this barrier also orders the previous tile's reduction, which reads
     // S, before this tile's epilogue rewrites it)
     __syncthreads();
@@ -696,8 +726,6 @@ using cirkit::cp_async_f32;
 using cirkit::cp_async_f32x4;
 using cirkit::cp_async_wait;
 using cirkit::mma_k8;
-using cirkit::round_op;
-using cirkit::widen;
 using cirkit::zero_acc;
 
 // Whether s = gy @ w splits its weight operand: not where it is exact in
@@ -1262,6 +1290,9 @@ inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / 
 // so no order changes). A chunk's sums go to its own plane of partials, or
 // straight to dw when the batch is one chunk; sum_partials then adds the
 // planes in chunk order, so every call gives the same bits with no atomics.
+// The fast modes (MODE) round gy and e to bf16 as they are staged, e at its
+// flat index in (F, B, I); for Tucker that is the product e1 e2, which a
+// tile of its own stages for each row i in turn.
 namespace sdw {
 constexpr int BB = 64;  // batch rows staged at once
 constexpr int NI = 8;   // rows i per block (Tucker)
@@ -1270,14 +1301,16 @@ constexpr int BJ = 64;  // columns j per block
 constexpr int TN = 4;   // units per thread
 constexpr int TM = 4;   // columns per thread
 static_assert((BO / TN) * (BJ / TM) == THREADS, "a thread per 4 x 4 tile");
-template <typename T>
+// PROD: the fast Tucker instances' tile of the products e1 e2 of one row i
+template <typename T, bool PROD = false>
 constexpr size_t smem() {
-  return sizeof(T) * ((size_t)BB * (BO + 4) + (size_t)BB * (BJ + 4) + (size_t)NI * BB);
+  return sizeof(T) * ((size_t)BB * (BO + 4) + (size_t)BB * (BJ + 4) + (size_t)NI * BB +
+                      (PROD ? (size_t)BB * (BJ + 4) : 0));
 }
 }  // namespace sdw
 
 
-template <typename T, bool TUCKER>
+template <typename T, bool TUCKER, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS)
 slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __restrict__ sa,
                  const T* __restrict__ sb, const T* __restrict__ gy,
@@ -1295,6 +1328,8 @@ slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __
   T(*Gs)[GS] = reinterpret_cast<T(*)[GS]>(smem_raw);                 // [BB][GS]: gy
   T(*Es)[ES] = reinterpret_cast<T(*)[ES]>(smem_raw + sizeof(T) * BB * GS);  // [BB][ES]: e2
   T* E1s = reinterpret_cast<T*>(smem_raw + sizeof(T) * BB * (GS + ES));     // [NI][BB]: e1
+  constexpr bool PROD = TUCKER && MODE != cirkit::F32;
+  T(*Ps)[ES] = reinterpret_cast<T(*)[ES]>(smem_raw + sizeof(T) * (BB * (GS + ES) + NI * BB));
 
   const int I = K1 * K2;
   const int bc = blockIdx.x % n_bc;
@@ -1321,7 +1356,10 @@ slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __
 #pragma unroll 4
     for (int e = tid; e < BB * BO; e += NT) {
       const int k = e / BO, o = e - k * BO;
-      Gs[k][o] = (k < nb && o0 + o < O) ? gyf[(size_t)(b0 + k) * O + o0 + o] : T(0);
+      T v = (k < nb && o0 + o < O) ? gyf[(size_t)(b0 + k) * O + o0 + o] : T(0);
+      if constexpr (MODE != cirkit::F32)
+        v = round_op<MODE>(v, ((size_t)f * B + b0 + k) * O + o0 + o, cirkit::ROLE_GY);
+      Gs[k][o] = v;
     }
 #pragma unroll 4
     for (int e = tid; e < BB * BJ; e += NT) {
@@ -1330,6 +1368,8 @@ slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __
       if (k < nb && j0 + j < K2) {
         const size_t idx = (size_t)(b0 + k) * K2 + j0 + j;
         v = gef[idx] * exp_t(xef[idx] - sef[b0 + k]);
+        if constexpr (MODE != cirkit::F32 && !TUCKER)  // dense: K2 = I
+          v = round_op<MODE>(v, (size_t)f * B * K2 + idx, cirkit::ROLE_EB);
       }
       Es[k][j] = v;
     }
@@ -1368,6 +1408,16 @@ slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __
     const int nk = (min(BB, b_end - b0) + 3) & ~3;  // rows past the chunk staged as 0
     const bool first = b0 == b_begin, last = b0 + BB >= b_end;
     for (int il = 0; il < n_i; ++il) {
+      if constexpr (PROD) {  // the row's products e1 e2, rounded
+        __syncthreads();  // the previous row's are read
+        const size_t e0 = (size_t)f * B * I + (size_t)(i0 + il) * K2 + j0;
+        for (int e = tid; e < BB * BJ; e += NT) {
+          const int k = e / BJ, j = e - k * BJ;
+          Ps[k][j] = round_op<MODE>(E1s[il * BB + k] * Es[k][j], e0 + (size_t)(b0 + k) * I + j,
+                                    cirkit::ROLE_EB);
+        }
+        __syncthreads();
+      }
       if (n_i > 1) {
         if (first) {
 #pragma unroll
@@ -1382,12 +1432,12 @@ slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __
       for (int k = 0; k < nk; ++k) {
         T a[TN], bv[TM];
         load4(&Gs[k][tx * TN], a);
-        if (TUCKER) {
+        if (TUCKER && !PROD) {
           const T e1 = E1s[il * BB + k];
 #pragma unroll
           for (int n = 0; n < TN; ++n) a[n] *= e1;
         }
-        load4(&Es[k][ty * TM], bv);
+        load4(PROD ? &Ps[k][ty * TM] : &Es[k][ty * TM], bv);
 #pragma unroll
         for (int n = 0; n < TN; ++n)
 #pragma unroll
@@ -1410,7 +1460,9 @@ slse_bwd_dw_part(const T* __restrict__ xa, const T* __restrict__ xb, const T* __
 // tile (a thread's 4 columns of one unit). No row shift, gy or e reaches
 // device memory: the bytes are the inputs read once and dx written once. The
 // chunk's dw goes to its plane of partials (sum_partials adds them in chunk
-// order) or straight to dw when the batch is one chunk.
+// order) or straight to dw when the batch is one chunk. The fast modes (MODE)
+// round gy (for both products), e for dw (dx takes the unrounded e) and,
+// with ROUND_W, the staged weights, each at its flat index.
 namespace narrow {
 constexpr int W = 32;  // the widest I and O
 template <typename T> constexpr int V = sizeof(T) == 4 ? 8 : 4;  // columns a thread of a row
@@ -1418,9 +1470,9 @@ template <typename T> constexpr int TPR = W / V<T>;               // threads a r
 template <typename T> constexpr int RT = THREADS / TPR<T>;        // rows a pass
 }  // namespace narrow
 
-template <typename T>
+template <typename T, typename WT = T, int MODE = cirkit::F32, bool ROUND_W = false>
 __global__ void __launch_bounds__(THREADS, 2)
-slse_bwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __restrict__ w,
+slse_bwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const WT* __restrict__ w,
                 const T* __restrict__ out, const T* __restrict__ out_sign,
                 const T* __restrict__ g, T* __restrict__ dx, T* __restrict__ dwo, int F, int B,
                 int I, int O, int n_bc, int rows, bool vec) {
@@ -1438,7 +1490,10 @@ slse_bwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __re
   const size_t xoff = (size_t)f * B * I, ooff = (size_t)f * B * O;
   for (int e = tid; e < W * W; e += THREADS) {
     const int o = e / W, i = e - o * W;
-    Ws[o][i] = (o < O && i < I) ? w[((size_t)f * O + o) * I + i] : T(0);
+    T v = (o < O && i < I) ? T(widen(w[((size_t)f * O + o) * I + i])) : T(0);
+    if constexpr (MODE != cirkit::F32 && ROUND_W)
+      v = round_op<MODE>(v, ((size_t)f * O + o) * I + i, cirkit::ROLE_WB);
+    Ws[o][i] = v;
   }
   // the pass's raw values: x and its sign over the row's V columns of I; out,
   // sign(out) and g over its V columns of O; 16 bytes at a time where ``vec``
@@ -1491,10 +1546,19 @@ slse_bwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const T* __re
       e[v] = ps[v] * exp_t(px[v] - m);
       T gy = pg[v] * exp_t(m - po[v]);
       gy *= pn[v];
-      Gs[r][c0 + v] = isfinite(gy) ? gy : T(0);  // (after the previous pass's barrier)
+      gy = isfinite(gy) ? gy : T(0);
+      if constexpr (MODE != cirkit::F32)
+        gy = round_op<MODE>(gy, ((size_t)f * B + b0 + r) * O + c0 + v, cirkit::ROLE_GY);
+      Gs[r][c0 + v] = gy;  // (after the previous pass's barrier)
     }
+    if constexpr (MODE != cirkit::F32) {  // dw's e rounded; dx keeps e
+      const size_t e0 = xoff + (size_t)(b0 + r) * I + c0;
 #pragma unroll
-    for (int v = 0; v < V; v += 4) store4(&Es[r][c0 + v], e[v], e[v + 1], e[v + 2], e[v + 3]);
+      for (int v = 0; v < V; ++v) Es[r][c0 + v] = round_op<MODE>(e[v], e0 + v, cirkit::ROLE_EB);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; v += 4) store4(&Es[r][c0 + v], e[v], e[v + 1], e[v + 2], e[v + 3]);
+    }
     __syncthreads();
     const int b = b0 + r;
     if (b0 + RT < b_end) load(b0 + RT);
@@ -1559,10 +1623,10 @@ namespace tucker_split {
 constexpr int I_PER = 16;
 }  // namespace tucker_split
 
-template <typename T, bool SIGNED>
+template <typename T, bool SIGNED, typename WT = T, int MODE = cirkit::F32, bool ROUND_W = false>
 __global__ void __launch_bounds__(THREADS)
 lse_bwd_dx_tucker_split(const T* __restrict__ x1, const T* __restrict__ x2,
-                        const T* __restrict__ w, const T* __restrict__ sa,
+                        const WT* __restrict__ w, const T* __restrict__ sa,
                         const T* __restrict__ sb, const T* __restrict__ gy,
                         const T* __restrict__ s1, const T* __restrict__ s2,
                         T* __restrict__ part1, T* __restrict__ part2, int F, int B, int K1,
@@ -1582,7 +1646,7 @@ lse_bwd_dx_tucker_split(const T* __restrict__ x1, const T* __restrict__ x2,
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
   const T* gyf = gy + (size_t)f * B * O;
-  const T* wf = w + (size_t)f * O * I;
+  const WT* wf = w + (size_t)f * O * I;
 
   for (int e = tid; e < I_PER * BM; e += THREADS) {
     const int il = e / BM, r = e - il * BM, b = b0 + r;
@@ -1623,7 +1687,7 @@ lse_bwd_dx_tucker_split(const T* __restrict__ x1, const T* __restrict__ x2,
 #pragma unroll
     for (int n = 0; n < W_PER; ++n) {
       const int o = o0 + wk + n * WSTEP;
-      pw[n] = (o < O && j0 + wcol < K2) ? wf[(size_t)o * I + col] : T(0);
+      pw[n] = (o < O && j0 + wcol < K2) ? T(widen(wf[(size_t)o * I + col])) : T(0);
     }
   };
 
@@ -1639,10 +1703,25 @@ lse_bwd_dx_tucker_split(const T* __restrict__ x1, const T* __restrict__ x2,
 #pragma unroll
         for (int jj = 0; jj < TN; ++jj) acc[ii][jj] = T(0);
     }
+    if constexpr (MODE != cirkit::F32) {  // gy and (ROUND_W) w rounded as staged
+      const int o0 = chunk * BK;
+      const size_t col = (size_t)(i0 + il) * K2 + j0 + wcol;
 #pragma unroll
-    for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+      for (int n = 0; n < A_PER; ++n)
+        As[skk][srow + n * RSTEP] = round_op<MODE>(
+            pa[n], ((size_t)f * B + b0 + srow + n * RSTEP) * O + o0 + skk, cirkit::ROLE_GY);
 #pragma unroll
-    for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+      for (int n = 0; n < W_PER; ++n)
+        Bs[wk + n * WSTEP][wcol] =
+            ROUND_W ? round_op<MODE>(pw[n], ((size_t)f * O + o0 + wk + n * WSTEP) * I + col,
+                                     cirkit::ROLE_WB)
+                    : pw[n];
+    } else {
+#pragma unroll
+      for (int n = 0; n < A_PER; ++n) As[skk][srow + n * RSTEP] = pa[n];
+#pragma unroll
+      for (int n = 0; n < W_PER; ++n) Bs[wk + n * WSTEP][wcol] = pw[n];
+    }
     __syncthreads();  // (the first one also orders the prologue's E1)
     if (step + 1 < n_steps) {
       const int nl = (step + 1) / n_chunks;
@@ -1764,14 +1843,14 @@ inline GyPlan gy_plan(bool is_signed, bool tucker, int F, int B, int K1, int K2,
 }
 
 // The signed dw in the batch chunks of the plan, then their planes added.
-template <typename T, bool TUCKER>
+template <typename T, bool TUCKER, int MODE = cirkit::F32>
 cudaError_t launch_sdw(const T* xa, const T* xb, const T* sa, const T* sb, const T* gy,
                        const T* sga, const T* sgb, T* dw, T* part, int F, int B, int I, int K1,
                        int K2, int O, const GyPlan& p, cudaStream_t s) {
   const int k2 = TUCKER ? K2 : I;
   T* out = p.n_bc > 1 ? part : dw;
-  constexpr size_t smem = sdw::smem<T>();
-  auto kernel = slse_bwd_dw_part<T, TUCKER>;
+  constexpr size_t smem = sdw::smem<T, TUCKER && MODE != cirkit::F32>();
+  auto kernel = slse_bwd_dw_part<T, TUCKER, MODE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1786,16 +1865,22 @@ cudaError_t launch_sdw(const T* xa, const T* xb, const T* sa, const T* sb, const
 
 // The signed dense backward of a narrow layer: the softmax weights where
 // there are logits, slse_bwd_narrow, the chunks' dw planes added, the
-// softmax VJP.
-template <typename T, bool SOFTMAX>
-int launch_narrow(const T* x, const T* w, const T* out, const T* g, T* dx, T* dw, T* gy, T* ws,
-                  int F, int B, int I, int O, cudaStream_t s, const T* sx, const T* out_sign,
-                  const GyPlan& p) {
+// softmax VJP. The kernel reads the weights as stored (WT), or the softmax
+// weights in T, which the fast modes do not round (ROUND_W false).
+template <typename T, bool SOFTMAX, typename WT = T, int MODE = cirkit::F32>
+int launch_narrow(const WT* w_in, const T* x, const T* out, const T* g, T* dx, T* dw, T* gy,
+                  T* ws, int F, int B, int I, int O, cudaStream_t s, const T* sx,
+                  const T* out_sign, const GyPlan& p) {
+  using KW = std::conditional_t<SOFTMAX, T, WT>;
+  constexpr bool ROUND_W = !SOFTMAX && MODE != cirkit::F32;
   cudaError_t err;
-  if (SOFTMAX) {
-    softmax_weights<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, ws, O, I);
+  const KW* w;
+  if constexpr (SOFTMAX) {
+    softmax_weights<T, WT><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w_in, ws, O, I);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     w = ws;
+  } else {
+    w = w_in;
   }
   auto aligned = [](const void* q) {
     return q == nullptr || reinterpret_cast<uintptr_t>(q) % 16 == 0;
@@ -1803,15 +1888,15 @@ int launch_narrow(const T* x, const T* w, const T* out, const T* g, T* dx, T* dw
   const bool vec = I % 4 == 0 && O % 4 == 0 && aligned(x) && aligned(sx) && aligned(out) &&
                    aligned(out_sign) && aligned(g) && aligned(dx);
   T* dwo = dw == nullptr ? nullptr : p.n_bc > 1 ? gy + p.dw_part : dw;
-  slse_bwd_narrow<T><<<F * p.n_bc, THREADS, 0, s>>>(x, sx, w, out, out_sign, g, dx, dwo, F, B, I,
-                                                     O, p.n_bc, p.rows, vec);
+  slse_bwd_narrow<T, KW, MODE, ROUND_W><<<F * p.n_bc, THREADS, 0, s>>>(
+      x, sx, w, out, out_sign, g, dx, dwo, F, B, I, O, p.n_bc, p.rows, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (dw == nullptr) return 0;
   if (p.n_bc > 1 &&
       (err = cirkit::launch_sum_partials<T>(dwo, dw, (size_t)F * O * I, p.n_bc, s)) !=
           cudaSuccess)
     return static_cast<int>(err);
-  if (SOFTMAX) {
+  if constexpr (SOFTMAX) {
     softmax_vjp<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
@@ -1823,13 +1908,19 @@ int launch_narrow(const T* x, const T* w, const T* out, const T* g, T* dx, T* dw
 // takes the inputs' signs ``sga``/``sgb`` and the forward's sign output
 // ``out_sign``, and the dense dx and batch-split dw of section 7; the double
 // lse instances keep those of sections 3a and 4. A Tucker dx too wide for
-// one block takes section 7's K1 split.
-template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false>
-int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
+// one block takes section 7's K1 split. WT is the weight's storage type and
+// MODE the speed mode (the float signed instances): the kernels read the
+// weights as stored, or the softmax weights in T, which the fast modes do not
+// round.
+template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED = false, typename WT = T,
+          int MODE = cirkit::F32>
+int launch_bwd(const T* xa, const T* xb, const WT* w_in, const T* out,
                const T* g, T* dxa, T* dxb, T* dw, T* sa, T* sb,
                T* gy, T* ws, int F, int B, int I, int K1, int K2, int O, int device,
                void* stream, const T* sga = nullptr, const T* sgb = nullptr,
                const T* out_sign = nullptr) {
+  using KW = std::conditional_t<SOFTMAX, T, WT>;
+  constexpr bool ROUND_W = !SOFTMAX && MODE != cirkit::F32;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1837,16 +1928,20 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
   const int KA = TUCKER ? K1 : I;
   const GyPlan plan = gy_plan<T>(SIGNED, TUCKER, F, B, K1, K2, O);
   if constexpr (SIGNED && !TUCKER)
-    if (plan.narrow) return launch_narrow<T, SOFTMAX>(xa, w, out, g, dxa, dw, gy, ws, F, B, I, O,
-                                                      s, sga, out_sign, plan);
+    if (plan.narrow)
+      return launch_narrow<T, SOFTMAX, WT, MODE>(w_in, xa, out, g, dxa, dw, gy, ws, F, B, I, O,
+                                                 s, sga, out_sign, plan);
 
   bwd_prep<T, TUCKER, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
       xa, xb, out, g, out_sign, sa, sb, gy, B, KA, K2, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (SOFTMAX) {
-    softmax_weights<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, ws, O, I);
+  const KW* w;
+  if constexpr (SOFTMAX) {
+    softmax_weights<T, WT><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w_in, ws, O, I);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     w = ws;
+  } else {
+    w = w_in;
   }
   if (need_dx) {
     if (TUCKER && plan.split) {
@@ -1855,21 +1950,22 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
       const int n_it = static_cast<int>(cdiv(K1, tucker_split::I_PER));
       T* part1 = gy + plan.dx_part;
       T* part2 = part1 + (size_t)n_jt * F * B * K1;
-      lse_bwd_dx_tucker_split<T, SIGNED><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
+      lse_bwd_dx_tucker_split<T, SIGNED, KW, MODE, ROUND_W>
+          <<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
           xa, xb, w, sa, sb, gy, sga, sgb, part1, part2, F, B, K1, K2, O, n_bt);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
       tucker_dx_finish<T, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
           xa, xb, sa, sb, sga, sgb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
     } else if (TUCKER) {
       const size_t smem = tucker_dx_smem<T>(K1, K2);
-      err = cudaFuncSetAttribute(lse_bwd_dx_tucker<T, SIGNED>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+      auto kernel = lse_bwd_dx_tucker<T, SIGNED, KW, MODE, ROUND_W>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      lse_bwd_dx_tucker<T, SIGNED><<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
+      kernel<<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
           xa, xb, w, sa, sb, gy, sga, sgb, dxa, dxb, B, K1, K2, O);
     } else {
-      lse_bwd_dx_dense<T, SIGNED>
+      lse_bwd_dx_dense<T, SIGNED, KW, MODE, ROUND_W>
           <<<dim3(F, cdiv(I, dense_dx::BN), cdiv(B, dense_dx::BM)), THREADS, 0, s>>>(
               xa, w, sa, gy, sga, dxa, B, I, O);
     }
@@ -1877,15 +1973,15 @@ int launch_bwd(const T* xa, const T* xb, const T* w, const T* out,
   }
   if (dw != nullptr) {
     if constexpr (SIGNED) {
-      err = launch_sdw<T, TUCKER>(xa, xb, sa, sb, gy, sga, sgb, dw, gy + plan.dw_part, F, B, I,
-                                  K1, K2, O, plan, s);
+      err = launch_sdw<T, TUCKER, MODE>(xa, xb, sa, sb, gy, sga, sgb, dw, gy + plan.dw_part, F, B,
+                                        I, K1, K2, O, plan, s);
     } else {
       const dim3 grid(F, cdiv(O, dw_tile::BN), cdiv(I, dw_tile::BM * dw_tile::TILES));
       lse_bwd_dw<T, TUCKER><<<grid, THREADS, 0, s>>>(xa, xb, sa, sb, gy, dw, B, I, K1, K2, O);
       err = cudaGetLastError();
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (SOFTMAX) {
+    if constexpr (SOFTMAX) {
       softmax_vjp<T><<<dim3(F, cdiv(O, WARPS)), THREADS, 0, s>>>(w, dw, O, I);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
@@ -2073,10 +2169,11 @@ extern "C" {
                                            s2, os);                                             \
   }
 
-// The build compiles this source once for each part (-DCIRKIT_BWD_PART=0,
-// 1, 2; ops/_build.py), the three side by side: part 0 holds the entries
-// above and below, parts 1 and 2 the float32-weight and bf16-weight
-// instances at the end. A build without the macro holds all of them.
+// The build compiles this source once for each part (-DCIRKIT_BWD_PART=0 to
+// 4; ops/_build.py), the five side by side: part 0 holds the entries above
+// and below, parts 1 and 2 the float32-weight and bf16-weight instances of
+// the lse entries, parts 3 and 4 those of the signed entries, at the end. A
+// build without the macro holds all of them.
 #if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 0
 size_t lse_bwd_scratch(int tucker, int softmax, int F, int B, int K1, int K2, int O) {
   return tc_scratch(tucker != 0, softmax != 0, F, B, K1, K2, O);
@@ -2160,5 +2257,57 @@ LSE_BWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 LSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
 #endif
 #undef LSE_BWD_INSTANCES
+
+// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
+// signed backward (ops/slse_einsum.py), with the float signed entries'
+// arguments; the weight's gradient is written in f32.
+#define SLSE_BWD_INSTANCES(SUFFIX, WT, MODE)                                                    \
+  int slse_bwd_dense##SUFFIX(const float* a, const float* s, const WT* w, const float* oa,      \
+                             const float* os, const float* g, float* da, float* dw, float* sa,  \
+                             float* gy, int F, int B, int I, int O, int device, void* stream) { \
+    return launch_bwd<float, false, false, true, WT, MODE>(a, nullptr, w, oa, g, da, nullptr,   \
+                                                           dw, sa, nullptr, gy, nullptr, F, B,  \
+                                                           I, I, 1, O, device, stream, s,       \
+                                                           nullptr, os);                        \
+  }                                                                                             \
+  int slse_bwd_dense_softmax##SUFFIX(const float* a, const float* s, const WT* theta,           \
+                                     const float* oa, const float* os, const float* g,          \
+                                     float* da, float* dtheta, float* sa, float* gy, float* ws, \
+                                     int F, int B, int I, int O, int device, void* stream) {    \
+    return launch_bwd<float, false, true, true, WT, MODE>(a, nullptr, theta, oa, g, da, nullptr,\
+                                                          dtheta, sa, nullptr, gy, ws, F, B, I, \
+                                                          I, 1, O, device, stream, s, nullptr,  \
+                                                          os);                                  \
+  }                                                                                             \
+  int slse_bwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
+                              const float* s2, const WT* w, const float* oa, const float* os,   \
+                              const float* g, float* da1, float* da2, float* dw, float* sa,     \
+                              float* sb, float* gy, int F, int B, int K1, int K2, int O,        \
+                              int device, void* stream) {                                       \
+    return launch_bwd<float, true, false, true, WT, MODE>(a1, a2, w, oa, g, da1, da2, dw, sa,   \
+                                                          sb, gy, nullptr, F, B, K1 * K2, K1,   \
+                                                          K2, O, device, stream, s1, s2, os);   \
+  }                                                                                             \
+  int slse_bwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
+                                      const float* s2, const WT* theta, const float* oa,        \
+                                      const float* os, const float* g, float* da1, float* da2,  \
+                                      float* dtheta, float* sa, float* sb, float* gy, float* ws,\
+                                      int F, int B, int K1, int K2, int O, int device,          \
+                                      void* stream) {                                           \
+    return launch_bwd<float, true, true, true, WT, MODE>(a1, a2, theta, oa, g, da1, da2, dtheta,\
+                                                         sa, sb, gy, ws, F, B, K1 * K2, K1, K2, \
+                                                         O, device, stream, s1, s2, os);        \
+  }
+
+#if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 3
+SLSE_BWD_INSTANCES(_fast, float, cirkit::BF16)
+SLSE_BWD_INSTANCES(_sr, float, cirkit::SR)
+#endif
+#if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 4
+SLSE_BWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+SLSE_BWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+SLSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#endif
+#undef SLSE_BWD_INSTANCES
 
 }  // extern "C"

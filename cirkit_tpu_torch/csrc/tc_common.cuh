@@ -60,6 +60,17 @@ __device__ __forceinline__ float round_op(float v, unsigned long long idx, uint3
   }
 }
 
+// round_op for a kernel's scalar type T: the f32-grade mode (the only one of
+// the double instances) leaves v as it is, with no use of the index.
+template <int MODE, typename T>
+__device__ __forceinline__ T round_t(T v, unsigned long long idx, uint32_t role) {
+  if constexpr (MODE == F32) {
+    return v;
+  } else {
+    return round_op<MODE>(v, idx, role);
+  }
+}
+
 // The exponential of an operand a fast mode rounds: the accurate expf, so the
 // rounded value is the plain version's (torch.exp); the fast one elsewhere.
 template <int MODE>

@@ -36,9 +36,33 @@ JAX package's ``ComplexLSESumSemiring.apply_reduce``, and ``*_bwd_ref``, the
 backward kernel's math). An op takes the plain versions only for tensors on
 the CPU; a CUDA tensor gets the kernel or an exception. Launches count into
 :data:`cirkit_tpu_torch.ops.lse_einsum.LAUNCHES` under the op names of
-:data:`COMPLEX_OPS` and their ``_bwd``. The kernels take every O, batch and
+:data:`COMPLEX_OPS` and their ``_bwd``, a fast instance's with its suffix
+between (``clse_tucker2_sr_bwd``). The kernels take every O, batch and
 K1 != K2 in complex64 and complex128 (the JAX dispatcher declines O < 8,
 complex128 and large shapes and falls back to XLA).
+
+Speed modes, as for kernels 1-7 (``ops/lse_einsum.py``; the JAX package's
+``clse_matmul_parts``, ``cirkit_tpu/ops/lse_einsum.py:1570``):
+``CIRKIT_TPU_FAST`` picks the ``_fast`` (round to the nearest bf16) or
+``_sr`` (stochastic rounding) instances on complex64 values, which round
+each real plane of the contraction operands to bf16 and sum their products
+in float32; complex128 runs no fast mode. There is no bf16-weight instance:
+the JAX package turns a bf16 real weight into complex64 before its kernel
+(``ComplexLSESumSemiring.cast``, ``cirkit_tpu/backend/jax/semiring.py:312-317``),
+and the port widens it to the real type of the values (:func:`_real_weight`).
+The rounding points, which the plain versions share, with the bits of
+:func:`~cirkit_tpu_torch.ops.lse_einsum.sr_bits` at each plane's flat index
+in ``torch.view_as_real``'s layout of its operand (``2 k`` and ``2 k + 1``
+for the value at flat index ``k``; a real weight's own flat index):
+
+- forward: the real and imaginary planes of ``e = exp(x - m)``, after the
+  ``sincos``, at their flat index in (F, B, I) (role ``ROLE_E``; for Tucker
+  the product ``e1 e2``, which the kernel forms one chunk at a time as
+  ``exp((x1 - m1) + (x2 - m2))``), and the weight's planes (``ROLE_W``);
+- backward: the planes of ``gy`` (``ROLE_GY``) and of the weights
+  (``ROLE_WB``) of ``de = gy @ conj(w)``, and of ``gy`` and ``e``
+  (``ROLE_EB``; for Tucker ``e1 e2``) of ``dw``; ``dx = conj(e) de`` and the
+  Tucker dx folds stay float32.
 """
 
 from __future__ import annotations
@@ -48,6 +72,12 @@ import torch
 from cirkit_tpu_torch.ops import _build
 from cirkit_tpu_torch.ops.lse_einsum import (
     LAUNCHES,
+    MODE_SUFFIX,
+    ROLE_E,
+    ROLE_EB,
+    ROLE_GY,
+    ROLE_W,
+    ROLE_WB,
     _MAX_GRID_YZ,
     _call,
     _check_cuda,
@@ -57,11 +87,18 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _no_graph_through_kernel,
     _on_cpu,
     _traced,
+    fast_mode,
     launch_op,
+    round_bf16,
 )
 
 COMPLEX_OPS = ("clse_matmul", "clse_tucker2")
-LAUNCHES.update({name: 0 for op in COMPLEX_OPS for name in (op, f"{op}_bwd")})
+INSTANCES = _build.COMPLEX_INSTANCES
+"""The suffixes of the fast-mode instances (complex64) beside the f32-grade
+ones (no suffix): ``clse_tucker2_sr_bwd`` is the Tucker backward in the
+``sr`` mode."""
+LAUNCHES.update({f"{op}{sfx}{tail}": 0 for op in COMPLEX_OPS for sfx in ("", *INSTANCES)
+                 for tail in ("", "_bwd")})
 
 _TILE = 64  # rows and columns of a block's tile, in the tiled kernels of the source
 _PREP_ROWS = 8  # batch rows per block of the backward's first pass
@@ -91,18 +128,45 @@ def _as(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w if w.dtype == dtype else w.to(dtype)
 
 
-def clse_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def round_planes(t: torch.Tensor, mode: str, role: int) -> torch.Tensor:
+    """``t`` rounded as the kernels of ``mode`` round an operand of ``role``
+    (:func:`~cirkit_tpu_torch.ops.lse_einsum.round_bf16`): a complex tensor
+    plane by plane, at each plane's flat index in ``torch.view_as_real``'s
+    layout, a real one at its own flat index."""
+    if not mode:
+        return t
+    if not t.is_complex():
+        return round_bf16(t, mode, role)
+    return torch.view_as_complex(round_bf16(torch.view_as_real(t.contiguous()), mode, role))
+
+
+# ``mode`` rounds the operands as the kernels of that mode do (module
+# docstring).
+
+
+def clse_matmul_ref(x: torch.Tensor, w: torch.Tensor, mode: str = "") -> torch.Tensor:
     """``log(exp(x - m) @ w^T) + m`` over complex values, composed from
     PyTorch ops."""
     e, m = _complex_exp(x)
+    e, w = round_planes(e, mode, ROLE_E), round_planes(w, mode, ROLE_W)
     return _from_linear(torch.bmm(e, _as(w, e.dtype).transpose(1, 2)), m)
 
 
-def clse_tucker2_ref(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def clse_tucker2_ref(
+    x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, mode: str = ""
+) -> torch.Tensor:
     """The complex Tucker contraction with the (F, B, K1*K2) outer product
-    materialized."""
+    materialized; in a fast mode each of its elements formed as the kernel
+    forms it, ``exp((x1 - m1) + (x2 - m2))``, and rounded."""
     f, b, k1 = x1.shape
     k2 = x2.shape[2]
+    if mode:
+        m1, m2 = _clamp_max(x1.real), _clamp_max(x2.real)
+        re = (x1.real - m1)[..., :, None] + (x2.real - m2)[..., None, :]
+        e = _cis(torch.exp(re), x1.imag[..., :, None] + x2.imag[..., None, :])
+        e = round_planes(e.reshape(f, b, k1 * k2), mode, ROLE_E)
+        w = round_planes(w, mode, ROLE_W)
+        return _from_linear(torch.bmm(e, _as(w, e.dtype).transpose(1, 2)), m1 + m2)
     e1, m1 = _complex_exp(x1)
     e2, m2 = _complex_exp(x2)
     e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
@@ -132,19 +196,20 @@ def _weight_grad(gy: torch.Tensor, e: torch.Tensor, w: torch.Tensor) -> torch.Te
 
 def clse_matmul_bwd_ref(
     x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, bool] = (True, True),
+    needs: tuple[bool, bool] = (True, True), mode: str = "",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """``(dx, dw)`` of :func:`clse_matmul`."""
     e, m = _complex_exp(x)
-    gy = _complex_gy(g, out, m)
-    dx = e.conj() * torch.bmm(gy, _as(w, e.dtype).conj()) if needs[0] else None
-    dw = _weight_grad(gy, e, w) if needs[1] else None
+    gy = round_planes(_complex_gy(g, out, m), mode, ROLE_GY)
+    wr = round_planes(w, mode, ROLE_WB)
+    dx = e.conj() * torch.bmm(gy, _as(wr, e.dtype).conj()) if needs[0] else None
+    dw = _weight_grad(gy, round_planes(e, mode, ROLE_EB), w) if needs[1] else None
     return dx, dw
 
 
 def clse_tucker2_bwd_ref(
     x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, bool, bool] = (True, True, True),
+    needs: tuple[bool, bool, bool] = (True, True, True), mode: str = "",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """``(dx1, dx2, dw)`` of :func:`clse_tucker2`, with ``t = gy @ conj(w)``:
     ``dx1[b,i] = conj(e1[b,i]) sum_j t[b,i*K2+j] conj(e2[b,j])``,
@@ -153,17 +218,18 @@ def clse_tucker2_bwd_ref(
     k2 = x2.shape[2]
     e1, m1 = _complex_exp(x1)
     e2, m2 = _complex_exp(x2)
-    gy = _complex_gy(g, out, m1 + m2)
+    gy = round_planes(_complex_gy(g, out, m1 + m2), mode, ROLE_GY)
     dx1 = dx2 = dw = None
     if needs[0] or needs[1]:
-        t = torch.bmm(gy, _as(w, e1.dtype).conj()).reshape(f, b, k1, k2)
+        wr = round_planes(w, mode, ROLE_WB)
+        t = torch.bmm(gy, _as(wr, e1.dtype).conj()).reshape(f, b, k1, k2)
         if needs[0]:
             dx1 = e1.conj() * (t @ e2.conj()[..., None])[..., 0]
         if needs[1]:
             dx2 = e2.conj() * (e1.conj()[..., None, :] @ t)[..., 0, :]
     if needs[2]:
         e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
-        dw = _weight_grad(gy, e, w)
+        dw = _weight_grad(gy, round_planes(e, mode, ROLE_EB), w)
     return dx1, dx2, dw
 
 
@@ -201,10 +267,18 @@ def _flags(ins: tuple[torch.Tensor, ...]) -> tuple[int, int, int]:
     return int(len(ins) == 3), int(ins[-1].dtype.is_complex), int(ins[0].dtype == torch.complex128)
 
 
-def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
+def _instance(op: str, ins: tuple[torch.Tensor, ...], mode: str) -> str:
+    """The suffix of the entries of ``mode``: complex128 runs no fast mode."""
+    if mode and ins[0].dtype != torch.complex64:
+        raise ValueError(f"{op}: {ins[0].dtype} runs no fast mode, found {mode!r}")
+    return MODE_SUFFIX[mode]
+
+
+def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch.Tensor:
     """Check the operands, allocate the output and launch the forward entry
-    on the current stream."""
+    (in ``mode``) on the current stream."""
     dev = _check_operands(op, ins, len(ins) - 1)
+    inst = _instance(op, ins, mode)
     sizes = _sizes(ins)
     f, b, _, _, o = sizes
     width = ins[-1].shape[2]
@@ -218,19 +292,20 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (ins[0].data_ptr(), xb, ins[-1].data_ptr(), out.data_ptr(), *sizes, *_flags(ins),
             dev.index, stream)
-    _call(_build.library(), "clse_fwd", op, args)
-    LAUNCHES[op] += 1
+    _call(_build.library(), "clse_fwd" + inst, op, args)
+    LAUNCHES[op + inst] += 1
     return out
 
 
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], out: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, ...],
+    needs: tuple[bool, ...], mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """Allocate the requested gradients and the scratch (the row shifts and
-    gy), and launch the backward entry on the current stream."""
+    gy), and launch the backward entry (in ``mode``) on the current stream."""
     name = f"{op} backward"
     dev = _check_operands(name, (*ins[:-1], out, g, ins[-1]), len(ins) + 1)
+    inst = _instance(name, ins, mode)
     grads = tuple(torch.empty_like(t) if need else None for t, need in zip(ins, needs))
     if not any(needs):
         return grads
@@ -258,8 +333,8 @@ def _launch_bwd(
         shifts[0].data_ptr(), shifts[1].data_ptr() if tucker else None, gy.data_ptr(),
         *sizes, tucker, w_complex, double, dev.index, stream,
     )
-    _call(lib, "clse_bwd", name, args)
-    LAUNCHES[f"{op}_bwd"] += 1
+    _call(lib, "clse_bwd" + inst, name, args)
+    LAUNCHES[f"{op}{inst}_bwd"] += 1
     return grads
 
 
@@ -276,41 +351,47 @@ def backward(
     out: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, ...] | None = None,
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """The gradients of ``op`` (one of :data:`COMPLEX_OPS`) with respect to
     its arguments ``ins``, given its output ``out`` and the cotangent ``g``;
-    ``needs`` (default: all) selects which. The plain version on CPU
-    tensors, the backward kernel on CUDA tensors."""
+    ``needs`` (default: all) selects which, ``mode`` is the forward's speed
+    mode. The plain version on CPU tensors, the backward kernel on CUDA
+    tensors."""
     needs = (True,) * len(ins) if needs is None else tuple(needs)
     if _on_cpu(*ins, out, g):
-        return _ENTRIES[op][1](*ins, out, g, needs)
-    return _launch_bwd(op, tuple(ins), out, g, needs)
+        plain = _ENTRIES[op][1]
+        return plain(*ins, out, g, needs, mode) if mode else plain(*ins, out, g, needs)
+    return _launch_bwd(op, tuple(ins), out, g, needs, mode)
 
 
-def _fwd_op_fake(op: str, ins: list[torch.Tensor]) -> torch.Tensor:
+def _fwd_op_fake(op: str, mode: str, ins: list[torch.Tensor]) -> torch.Tensor:
     f, b, _, _, o = _sizes(tuple(ins))
     return ins[0].new_empty((f, b, o))
 
 
 # the forward launch as the operator ``cirkit_tpu_torch::clse_fwd``, which
 # ``torch.export`` records as one node (``lse_einsum.launch_op``)
-_fwd_op = launch_op("clse_fwd", "(str op, Tensor[] ins) -> Tensor",
-                    lambda op, ins: _launch_fwd(op, tuple(ins)), _fwd_op_fake)
+_fwd_op = launch_op("clse_fwd", "(str op, str mode, Tensor[] ins) -> Tensor",
+                    lambda op, mode, ins: _launch_fwd(op, tuple(ins), mode), _fwd_op_fake)
 
 
-def _forward(ctx, op: str, *ins: torch.Tensor) -> torch.Tensor:
+def _forward(ctx, op: str, mode: str, *ins: torch.Tensor) -> torch.Tensor:
     if _on_cpu(*ins):
-        out = _ENTRIES[op][0](*ins)
+        # the plain version takes a mode only where one is set
+        out = _ENTRIES[op][0](*ins, mode=mode) if mode else _ENTRIES[op][0](*ins)
     else:
-        out = _fwd_op(op, list(ins)) if _traced(ins[0]) else _launch_fwd(op, ins)
+        out = _fwd_op(op, mode, list(ins)) if _traced(ins[0]) else _launch_fwd(op, ins, mode)
     ctx.save_for_backward(*ins, out)
+    ctx.mode = mode
     return out
 
 
 def _backward(ctx, op: str, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
     *ins, out = ctx.saved_tensors
     _no_graph_through_kernel(op, *ins)
-    return backward(op, tuple(ins), out, _resolved(g), ctx.needs_input_grad)
+    needs = ctx.needs_input_grad[: len(ins)]
+    return (*backward(op, tuple(ins), out, _resolved(g), needs, ctx.mode), None)
 
 
 def _resolved(t: torch.Tensor) -> torch.Tensor:
@@ -322,14 +403,15 @@ def _resolved(t: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # The differentiable ops
 # --------------------------------------------------------------------------- #
+# Each takes its speed mode as a last, non-tensor argument.
 
 
 class ClseMatmul(torch.autograd.Function):
     """:func:`clse_matmul` with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        return _forward(ctx, "clse_matmul", x, w)
+    def forward(ctx, x, w, mode):
+        return _forward(ctx, "clse_matmul", mode, x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -340,8 +422,8 @@ class ClseTucker2(torch.autograd.Function):
     """:func:`clse_tucker2` with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, x1, x2, w):
-        return _forward(ctx, "clse_tucker2", x1, x2, w)
+    def forward(ctx, x1, x2, w, mode):
+        return _forward(ctx, "clse_tucker2", mode, x1, x2, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -349,9 +431,16 @@ class ClseTucker2(torch.autograd.Function):
 
 
 def _real_weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A bf16 weight widened to the real type of ``x``: the kernel has no
-    bf16 instance."""
+    """A bf16 weight widened to the real type of ``x``: the kernels have no
+    bf16 instance, as the JAX package's have none (its semiring turns a bf16
+    real weight into complex64 before the kernel,
+    ``cirkit_tpu/backend/jax/semiring.py:312-317``)."""
     return w.to(_REAL_OF[x.dtype]) if w.dtype == torch.bfloat16 else w
+
+
+def _op_mode(x: torch.Tensor) -> str:
+    """The mode of an op on values ``x``: complex128 runs no fast mode."""
+    return fast_mode() if x.dtype == torch.complex64 else ""
 
 
 def _check_complex(op: str, *xs: torch.Tensor) -> None:
@@ -368,7 +457,7 @@ def clse_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     weights, complex or real. Returns (F, B, O) complex log-space values."""
     _check_complex("clse_matmul", x)
     _check_dense(x, w)
-    return ClseMatmul.apply(_resolved(x), _resolved(_real_weight(w, x)))
+    return ClseMatmul.apply(_resolved(x), _resolved(_real_weight(w, x)), _op_mode(x))
 
 
 def clse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -379,4 +468,5 @@ def clse_tucker2(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.T
     flattened row-major over (K1, K2). Returns (F, B, O) complex values."""
     _check_complex("clse_tucker2", x1, x2)
     _check_tucker(x1, x2, w)
-    return ClseTucker2.apply(_resolved(x1), _resolved(x2), _resolved(_real_weight(w, x1)))
+    return ClseTucker2.apply(_resolved(x1), _resolved(x2), _resolved(_real_weight(w, x1)),
+                             _op_mode(x1))

@@ -43,24 +43,28 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
 466-476, 865-875``):
 
 - the weight or logits operand of the single-pass, Tucker, K1-chunked and
-  blocked dense kernels (kernels 1-5) may be ``torch.bfloat16`` beside
-  float32 activations, the serving store of ``backend/torch/serving.py``:
-  the kernels read it as bf16 and widen it on chip; the weight's gradient is
+  blocked dense kernels (kernels 1-5) and of the signed kernels 6 and 7
+  (``ops/slse_einsum.py``) may be ``torch.bfloat16`` beside float32
+  activations, the serving store of ``backend/torch/serving.py``: the
+  kernels read it as bf16 and widen it on chip; the weight's gradient is
   accumulated in float32 and cast to the weight's type at the boundary, as
-  the JAX package's ``_fused_p_bwd`` and ``_blocked_p_bwd`` do. Float64
-  activations take a bf16 weight widened to float64 here, and the signed
-  and complex kernels a bf16 weight widened to float32 in their op wrappers
-  before their float32 instance launches (the routing kernels read it as
-  bf16: ``ops/routing.py``);
+  the JAX package's ``_fused_p_bwd``, ``_blocked_p_bwd`` and
+  ``_sfused_p_bwd`` do. Float64 activations take a bf16 weight widened to
+  float64 here, and the complex kernels a bf16 real weight widened to
+  float32 in their op wrappers, as the JAX package widens it to complex64
+  (the routing kernels read it as bf16: ``ops/routing.py``);
 - ``CIRKIT_TPU_FAST`` (:func:`fast_mode`, read at each call as in JAX):
-  unset runs the f32-grade instances (3xTF32); ``sr`` stochastically rounds
-  the contraction operands to bf16, any other value rounds them to the
-  nearest bf16; either runs one TF32 pass over bf16-valued operands,
-  which multiplies them exactly with float32 accumulation. A mode applies
-  to float32 activations only.
+  unset runs the f32-grade instances (3xTF32 here; float32 FMAs in the
+  signed and complex kernels 6, 7, 10 and 11, which run on the CUDA cores);
+  ``sr`` stochastically rounds the contraction operands to bf16, any other
+  value rounds them to the nearest bf16; here either runs one TF32 pass
+  over bf16-valued operands, which multiplies them exactly with float32
+  accumulation, and the CUDA-core kernels the same FMAs on bf16-valued
+  operands. A mode applies to float32 (complex64) values only.
 
-The rounding points are those of the port's kernels, where the JAX kernel's
-are partly artifacts of Mosaic's selector matmuls: the forward rounds the
+The rounding points are those of the port's kernels (kernels 6, 7, 10 and
+11: ``ops/slse_einsum.py`` and ``ops/clse_einsum.py``), where the JAX
+kernel's are partly artifacts of Mosaic's selector matmuls: the forward rounds the
 shifted exponentials of a dense input, and of a Tucker contraction only
 ``e2 = exp(x2 - m2)``, since the kernels multiply by ``e1`` in float32 after
 the tensor-core product (JAX rounds ``e1`` for its repeat selector and then
@@ -105,7 +109,7 @@ MODE_SUFFIX = {"": "", "bf16": "_fast", "sr": "_sr"}
 """The suffix of a speed mode's entries and ``LAUNCHES`` keys."""
 INSTANCES = _build.INSTANCES
 """The suffixes of the bf16-weight (``_w16``) and fast-mode instances of the
-kernels 1-5 beside their float32 ones (no suffix): ``lse_tucker2_w16`` is
+kernels 1-7 beside their float32 ones (no suffix): ``lse_tucker2_w16`` is
 the Tucker forward on a bf16 weight in the f32-grade mode,
 ``lse_tucker2_softmax_w16_fast_bwd`` its softmax backward in the bf16 mode,
 ``lse_matmul_blocked_w16_sr_bwd`` the blocked dense backward on a bf16
@@ -594,9 +598,9 @@ def _check_weighted(
     op: str, acts: tuple[torch.Tensor, ...], w: torch.Tensor, mode: str
 ) -> tuple[torch.device, str, str]:
     """The device, the type suffix and the instance suffix (:data:`INSTANCES`)
-    of a launch of a kernel with bf16 or fast instances (kernels 1-5, 8 and
-    9): the activations all float32 or all float64, the weight of their type
-    or, beside float32, bf16; float64 runs no fast mode."""
+    of a launch of a kernel with bf16 or fast instances (kernels 1-9): the
+    activations all float32 or all float64, the weight of their type or,
+    beside float32, bf16; float64 runs no fast mode."""
     dev, suffix = _check_single_pass(op, acts)
     if w.device != dev:
         raise ValueError(f"{op}: operands on {dev} and {w.device}")

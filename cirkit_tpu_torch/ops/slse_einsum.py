@@ -29,13 +29,38 @@ the JAX package's XLA composition, ``backend/jax/semiring.py:456-502``, and
 ``*_bwd_ref``, the backward kernel's math). An op takes the plain versions
 only for tensors on the CPU; a CUDA tensor gets the kernel or an exception
 (under a tracer the forward launch goes through the operator
-``cirkit_tpu_torch::slse_fwd``).
-A bf16 weight is widened to the activations' type before the kernel, which
-has no bf16 instance. Launches count into :data:`cirkit_tpu_torch.ops.lse_einsum.LAUNCHES` under
-the op names of :data:`SIGNED_OPS` and their ``_bwd``. The kernels take every
-O and batch (the JAX dispatcher declines O < 8 and falls back to XLA) and
-mask the ragged batch edge; the JAX dispatcher's padding (log-magnitudes
-with -FLT_MAX, signs with +1) is not needed.
+``cirkit_tpu_torch::slse_fwd``). Launches count into
+:data:`cirkit_tpu_torch.ops.lse_einsum.LAUNCHES` under the op names of
+:data:`SIGNED_OPS` and their ``_bwd``, an instance's with its suffix between
+(``slse_tucker2_softmax_w16_fast_bwd``). The kernels take every O and batch
+(the JAX dispatcher declines O < 8 and falls back to XLA) and mask the
+ragged batch edge; the JAX dispatcher's padding (log-magnitudes with
+-FLT_MAX, signs with +1) is not needed.
+
+Weight stores and speed modes, as for kernels 1-5 (``ops/lse_einsum.py``;
+the JAX package's ``slse_dispatch``, ``cirkit_tpu/ops/lse_einsum.py:1063-1098``):
+a bf16 weight or logits operand beside float32 activations is read as it is
+by the ``_w16`` instances and widened on chip, and its gradient is
+accumulated in float32 and cast to bf16 at the boundary (``_sfused_p_bwd``);
+``CIRKIT_TPU_FAST`` picks the ``_fast`` (round to the nearest bf16) or
+``_sr`` (stochastic rounding) instances, which round the contraction
+operands to bf16 and sum their products in float32. Float64 runs no fast
+mode and takes a bf16 weight widened. The rounding points, which the plain
+versions share, with the bits of :func:`~cirkit_tpu_torch.ops.lse_einsum.sr_bits`:
+
+- forward: the staged signed exponentials ``e = s * exp(a - m)``, each at
+  its flat index in (F, B, I) (role ``ROLE_E``), for Tucker the product
+  ``e1 * e2``, which the kernel forms one chunk at a time as ``s1 s2 exp((a1
+  - m1) + (a2 - m2))``; and the weights (``ROLE_W``), with logits ``exp(theta
+  - row max)``, the normalizer summed unrounded in float32. The narrow dense
+  kernel rounds each row's ``e`` as it writes it to shared memory and its
+  staged weight tile;
+- backward: ``gy`` (``ROLE_GY``, the flat index in (F, B, O)) and the
+  weights (``ROLE_WB``) of ``t = gy @ w``, ``gy`` and ``e`` (``ROLE_EB``; for
+  Tucker ``e1 * e2``) of ``dw = gy^T e``, as in kernel 2; ``dx = e * t``, the
+  Tucker dx folds and the softmax VJP stay float32, and so do the softmax
+  weights of ``t`` (kernel 2's reason: their last bits carry the row's
+  normalizer).
 """
 
 from __future__ import annotations
@@ -44,7 +69,13 @@ import torch
 
 from cirkit_tpu_torch.ops import _build
 from cirkit_tpu_torch.ops.lse_einsum import (
+    INSTANCES,
     LAUNCHES,
+    ROLE_E,
+    ROLE_EB,
+    ROLE_GY,
+    ROLE_W,
+    ROLE_WB,
     _BWD_DX_COLS,
     _BWD_ROWS,
     _MAX_GRID_YZ,
@@ -52,19 +83,23 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _BN,
     _call,
     _check_dense,
-    _check_single_pass,
     _check_tucker,
+    _check_weighted,
     _clamp_max,
     _no_graph_through_kernel,
     _on_cpu,
+    _op_mode,
+    _softmax_parts,
     _softmax_vjp,
     _traced,
+    _weight_for,
     launch_op,
-    widened,
+    round_bf16,
 )
 
 SIGNED_OPS = ("slse_matmul", "slse_matmul_softmax", "slse_tucker2", "slse_tucker2_softmax")
-LAUNCHES.update({name: 0 for op in SIGNED_OPS for name in (op, f"{op}_bwd")})
+LAUNCHES.update({f"{op}{sfx}{tail}": 0 for op in SIGNED_OPS for sfx in ("", *INSTANCES)
+                 for tail in ("", "_bwd")})
 
 Pair = tuple[torch.Tensor, torch.Tensor]
 
@@ -84,23 +119,52 @@ def _from_linear(y: torch.Tensor, shift: torch.Tensor) -> Pair:
     return torch.log(y.abs()) + shift, torch.sign(y)
 
 
-def slse_matmul_ref(a: torch.Tensor, s: torch.Tensor, w: torch.Tensor) -> Pair:
+# ``mode`` rounds the operands as the kernels of that mode do (module
+# docstring); a bf16 weight is widened to the activations' type, exactly.
+
+
+def slse_matmul_ref(a: torch.Tensor, s: torch.Tensor, w: torch.Tensor, mode: str = "") -> Pair:
     """``(log|e @ w^T| + m, sign(e @ w^T))`` with ``e = s * exp(a - m)``."""
     e, m = _signed_exp(a, s)
+    w = w.to(a.dtype)
+    if mode:
+        e, w = round_bf16(e, mode, ROLE_E), round_bf16(w, mode, ROLE_W)
     return _from_linear(torch.bmm(e, w.transpose(1, 2)), m)
 
 
-def slse_matmul_softmax_ref(a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor) -> Pair:
-    return slse_matmul_ref(a, s, torch.softmax(theta, dim=-1))
+def _softmax_ref(fn, theta: torch.Tensor, mode: str, *xs: torch.Tensor) -> Pair:
+    """``fn`` on ``softmax(theta)``; in a fast mode on the rounded numerators
+    ``exp(theta - row max)``, the log of their float32 normalizer subtracted."""
+    theta = theta.to(xs[0].dtype)
+    if not mode:
+        return fn(*xs, torch.softmax(theta, dim=-1))
+    num, lz = _softmax_parts(theta)
+    la, sg = fn(*xs, num, mode)
+    return la - lz.transpose(1, 2), sg
+
+
+def slse_matmul_softmax_ref(
+    a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor, mode: str = ""
+) -> Pair:
+    return _softmax_ref(slse_matmul_ref, theta, mode, a, s)
 
 
 def slse_tucker2_ref(
-    a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor, w: torch.Tensor
+    a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor, w: torch.Tensor,
+    mode: str = "",
 ) -> Pair:
     """The signed Tucker contraction with the (F, B, K1*K2) outer product
-    materialized."""
+    materialized; in a fast mode each of its elements formed as the kernel
+    forms it, ``s1 s2 exp((a1 - m1) + (a2 - m2))``, and rounded."""
     f, b, k1 = a1.shape
     k2 = a2.shape[2]
+    w = w.to(a1.dtype)
+    if mode:
+        m1, m2 = _clamp_max(a1), _clamp_max(a2)
+        v = (a1 - m1)[..., :, None] + (a2 - m2)[..., None, :]
+        e = (s1[..., :, None] * s2[..., None, :]) * torch.exp(v)
+        e = round_bf16(e.reshape(f, b, k1 * k2), mode, ROLE_E)
+        return _from_linear(torch.bmm(e, round_bf16(w, mode, ROLE_W).transpose(1, 2)), m1 + m2)
     e1, m1 = _signed_exp(a1, s1)
     e2, m2 = _signed_exp(a2, s2)
     e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
@@ -109,9 +173,9 @@ def slse_tucker2_ref(
 
 def slse_tucker2_softmax_ref(
     a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor,
-    theta: torch.Tensor,
+    theta: torch.Tensor, mode: str = "",
 ) -> Pair:
-    return slse_tucker2_ref(a1, s1, a2, s2, torch.softmax(theta, dim=-1))
+    return _softmax_ref(slse_tucker2_ref, theta, mode, a1, s1, a2, s2)
 
 
 # The plain backward versions: the math of the backward kernel (and of the
@@ -129,43 +193,58 @@ def _signed_gy(g: torch.Tensor, oa: torch.Tensor, os: torch.Tensor,
     return torch.where(torch.isfinite(gy), gy, torch.zeros_like(gy))
 
 
+def _rounded(gy: torch.Tensor, w: torch.Tensor, mode: str, round_w: bool):
+    """``gy`` and the weights of ``t = gy @ w`` as the backward of ``mode``
+    rounds them (``round_w=False``: the softmax weights, left float32)."""
+    if not mode:
+        return gy, w
+    return round_bf16(gy, mode, ROLE_GY), round_bf16(w, mode, ROLE_WB) if round_w else w
+
+
 def slse_matmul_bwd_ref(
     a: torch.Tensor, s: torch.Tensor, w: torch.Tensor, oa: torch.Tensor, os: torch.Tensor,
-    g: torch.Tensor, needs: tuple[bool, ...] = (True, False, True),
+    g: torch.Tensor, needs: tuple[bool, ...] = (True, False, True), mode: str = "",
+    *, round_w: bool = True,
 ) -> tuple[torch.Tensor | None, None, torch.Tensor | None]:
     """``(da, None, dw)`` of :func:`slse_matmul`: ``da = e * (gy @ w)`` and
-    ``dw = sum_b gy^T e`` with ``e = s * exp(a - m)``."""
+    ``dw = sum_b gy^T e`` with ``e = s * exp(a - m)``; ``dw`` has the
+    activations' type."""
     e, m = _signed_exp(a, s)
-    gy = _signed_gy(g, oa, os, m)
+    gy, w = _rounded(_signed_gy(g, oa, os, m), w.to(a.dtype), mode, round_w)
     da = e * torch.bmm(gy, w) if needs[0] else None
-    dw = torch.bmm(gy.transpose(1, 2), e) if needs[2] else None
+    if needs[2]:
+        dw = torch.bmm(gy.transpose(1, 2), round_bf16(e, mode, ROLE_EB) if mode else e)
+    else:
+        dw = None
     return da, None, dw
 
 
 def slse_matmul_softmax_bwd_ref(
     a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor, oa: torch.Tensor,
     os: torch.Tensor, g: torch.Tensor, needs: tuple[bool, ...] = (True, False, True),
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, None, torch.Tensor | None]:
     """``(da, None, dtheta)`` of :func:`slse_matmul_softmax`."""
-    w = torch.softmax(theta, dim=-1)
-    da, _, dw = slse_matmul_bwd_ref(a, s, w, oa, os, g, needs)
+    w = torch.softmax(theta.to(a.dtype), dim=-1)
+    da, _, dw = slse_matmul_bwd_ref(a, s, w, oa, os, g, needs, mode, round_w=False)
     return da, None, None if dw is None else _softmax_vjp(w, dw)
 
 
 def slse_tucker2_bwd_ref(
     a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor, w: torch.Tensor,
     oa: torch.Tensor, os: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, ...] = (True, False, True, False, True),
+    needs: tuple[bool, ...] = (True, False, True, False, True), mode: str = "",
+    *, round_w: bool = True,
 ) -> tuple[torch.Tensor | None, None, torch.Tensor | None, None, torch.Tensor | None]:
     """``(da1, None, da2, None, dw)`` of :func:`slse_tucker2`, with
     ``t = gy @ w``: ``da1[b,i] = e1[b,i] sum_j t[b,i*K2+j] e2[b,j]``,
     ``da2[b,j] = e2[b,j] sum_i t[b,i*K2+j] e1[b,i]`` and ``dw = sum_b gy^T e``
-    over the signed exponentials."""
+    over the signed exponentials; ``dw`` has the activations' type."""
     f, b, k1 = a1.shape
     k2 = a2.shape[2]
     e1, m1 = _signed_exp(a1, s1)
     e2, m2 = _signed_exp(a2, s2)
-    gy = _signed_gy(g, oa, os, m1 + m2)
+    gy, w = _rounded(_signed_gy(g, oa, os, m1 + m2), w.to(a1.dtype), mode, round_w)
     da1 = da2 = dw = None
     if needs[0] or needs[2]:
         t = torch.bmm(gy, w).reshape(f, b, k1, k2)
@@ -175,18 +254,19 @@ def slse_tucker2_bwd_ref(
             da2 = e2 * (e1[..., None, :] @ t)[..., 0, :]
     if needs[4]:
         e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
-        dw = torch.bmm(gy.transpose(1, 2), e)
+        dw = torch.bmm(gy.transpose(1, 2), round_bf16(e, mode, ROLE_EB) if mode else e)
     return da1, None, da2, None, dw
 
 
 def slse_tucker2_softmax_bwd_ref(
     a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor,
     theta: torch.Tensor, oa: torch.Tensor, os: torch.Tensor, g: torch.Tensor,
-    needs: tuple[bool, ...] = (True, False, True, False, True),
+    needs: tuple[bool, ...] = (True, False, True, False, True), mode: str = "",
 ) -> tuple[torch.Tensor | None, None, torch.Tensor | None, None, torch.Tensor | None]:
     """``(da1, None, da2, None, dtheta)`` of :func:`slse_tucker2_softmax`."""
-    w = torch.softmax(theta, dim=-1)
-    da1, _, da2, _, dw = slse_tucker2_bwd_ref(a1, s1, a2, s2, w, oa, os, g, needs)
+    w = torch.softmax(theta.to(a1.dtype), dim=-1)
+    da1, _, da2, _, dw = slse_tucker2_bwd_ref(a1, s1, a2, s2, w, oa, os, g, needs, mode,
+                                              round_w=False)
     return da1, None, da2, None, None if dw is None else _softmax_vjp(w, dw)
 
 
@@ -202,10 +282,10 @@ def _sizes(ins: tuple[torch.Tensor, ...]) -> tuple[int, ...]:
     return (*xs[0].shape[:2], *(x.shape[2] for x in xs[::2]), w.shape[1])
 
 
-def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> Pair:
+def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> Pair:
     """Check the operands, allocate both outputs and launch the forward entry
-    of ``op`` on the current stream."""
-    dev, suffix = _check_single_pass(op, ins)
+    of ``op`` (in ``mode``, on the weight's type) on the current stream."""
+    dev, suffix, inst = _check_weighted(op, ins[:-1], ins[-1], mode)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
     width = ins[-1].shape[2]
@@ -217,22 +297,24 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...]) -> Pair:
         return oa, os
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (*(t.data_ptr() for t in (*ins, oa, os)), *sizes, dev.index, stream)
-    _call(_build.library(), _ENTRIES[op][0] + suffix, op, args)
-    LAUNCHES[op] += 1
+    _call(_build.library(), _ENTRIES[op][0] + suffix + inst, op, args)
+    LAUNCHES[op + inst] += 1
     return oa, os
 
 
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], oa: torch.Tensor, os: torch.Tensor,
-    g: torch.Tensor, needs: tuple[bool, ...],
+    g: torch.Tensor, needs: tuple[bool, ...], mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """Allocate the requested gradients (log-magnitude inputs and weight; the
     sign inputs' stay None) and the scratch, and launch the backward entry
-    of ``op`` on the current stream."""
-    dev, suffix = _check_single_pass(f"{op} backward", (*ins, oa, os, g))
+    of ``op`` (in ``mode``, on the weight's type) on the current stream. The
+    weight's gradient has the activations' type."""
+    dev, suffix, inst = _check_weighted(f"{op} backward", (*ins[:-1], oa, os, g), ins[-1], mode)
     # the log-magnitudes and the weight sit at the even positions of ``ins``
     needs = tuple(need and i % 2 == 0 for i, need in enumerate(needs))
-    grads = tuple(torch.empty_like(t) if need else None for t, need in zip(ins, needs))
+    grads = tuple(torch.empty(t.shape, device=dev, dtype=ins[0].dtype) if need else None
+                  for t, need in zip(ins, needs))
     if not any(needs):
         return grads
     if oa.numel() == 0 or ins[0].numel() == 0:
@@ -252,8 +334,8 @@ def _launch_bwd(
                for _ in range(2 if tucker else 1)]
     n = getattr(lib, "lse_bwd_gy_size" + suffix)(1, int(tucker), f, b, k1, k2, o)
     scratch.append(torch.empty(n, device=dev, dtype=ins[0].dtype))
-    if op.endswith("softmax"):
-        scratch.append(torch.empty_like(ins[-1]))
+    if op.endswith("softmax"):  # the softmax weights, in the activations' type
+        scratch.append(torch.empty(ins[-1].shape, device=dev, dtype=ins[0].dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (*ins, oa, os, g)),
@@ -263,8 +345,8 @@ def _launch_bwd(
         dev.index,
         stream,
     )
-    _call(lib, _ENTRIES[op][1] + suffix, f"{op} backward", args)
-    LAUNCHES[f"{op}_bwd"] += 1
+    _call(lib, _ENTRIES[op][1] + suffix + inst, f"{op} backward", args)
+    LAUNCHES[f"{op}{inst}_bwd"] += 1
     return grads
 
 
@@ -287,19 +369,26 @@ def backward(
     os: torch.Tensor,
     g: torch.Tensor,
     needs: tuple[bool, ...] | None = None,
+    mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """The gradients of ``op`` (one of :data:`SIGNED_OPS`) with respect to
     its arguments ``ins`` (log-magnitudes, signs, weight), given its outputs
     ``(oa, os)`` and the cotangent ``g`` of ``oa``; ``needs`` (default: all)
-    selects which. The sign inputs' gradients are always None. The plain
-    version on CPU tensors, the backward kernel on CUDA tensors."""
+    selects which, ``mode`` is the forward's speed mode. The sign inputs'
+    gradients are always None. The plain version on CPU tensors, the
+    backward kernel on CUDA tensors; the weight's gradient is accumulated in
+    the activations' type and cast to the weight's."""
     needs = (True,) * len(ins) if needs is None else tuple(needs)
     if _on_cpu(*ins, oa, os, g):
-        return _ENTRIES[op][3](*ins, oa, os, g, needs)
-    return _launch_bwd(op, tuple(ins), oa, os, g, needs)
+        plain = _ENTRIES[op][3]
+        grads = plain(*ins, oa, os, g, needs, mode) if mode else plain(*ins, oa, os, g, needs)
+    else:
+        grads = _launch_bwd(op, tuple(ins), oa, os, g, needs, mode)
+    dw = grads[-1]
+    return (*grads[:-1], None if dw is None else dw.to(ins[-1].dtype))
 
 
-def _fwd_op_fake(op: str, ins: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+def _fwd_op_fake(op: str, mode: str, ins: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
     sizes = _sizes(tuple(ins))
     shape = (sizes[0], sizes[1], sizes[-1])
     return ins[0].new_empty(shape), ins[0].new_empty(shape)
@@ -307,17 +396,20 @@ def _fwd_op_fake(op: str, ins: list[torch.Tensor]) -> tuple[torch.Tensor, torch.
 
 # the forward launch as the operator ``cirkit_tpu_torch::slse_fwd``, which
 # ``torch.export`` records as one node (``lse_einsum.launch_op``)
-_fwd_op = launch_op("slse_fwd", "(str op, Tensor[] ins) -> (Tensor, Tensor)",
-                    lambda op, ins: _launch_fwd(op, tuple(ins)), _fwd_op_fake)
+_fwd_op = launch_op("slse_fwd", "(str op, str mode, Tensor[] ins) -> (Tensor, Tensor)",
+                    lambda op, mode, ins: _launch_fwd(op, tuple(ins), mode), _fwd_op_fake)
 
 
-def _forward(ctx, op: str, *ins: torch.Tensor) -> Pair:
+def _forward(ctx, op: str, mode: str, *ins: torch.Tensor) -> Pair:
     if _on_cpu(*ins):
-        oa, os = _ENTRIES[op][2](*ins)
+        # the plain version takes a mode only where one is set
+        oa, os = _ENTRIES[op][2](*ins, mode=mode) if mode else _ENTRIES[op][2](*ins)
     else:
-        oa, os = _fwd_op(op, list(ins)) if _traced(ins[0]) else _launch_fwd(op, ins)
+        oa, os = (_fwd_op(op, mode, list(ins)) if _traced(ins[0])
+                  else _launch_fwd(op, ins, mode))
     ctx.save_for_backward(*ins, oa, os)
     ctx.mark_non_differentiable(os)
+    ctx.mode = mode
     return oa, os
 
 
@@ -325,20 +417,22 @@ def _backward(ctx, op: str, g: torch.Tensor, _g_sign) -> tuple[torch.Tensor | No
     # the sign output is piecewise constant: its cotangent is dropped
     *ins, oa, os = ctx.saved_tensors
     _no_graph_through_kernel(op, *ins)
-    return backward(op, tuple(ins), oa, os, g.contiguous(), ctx.needs_input_grad)
+    needs = ctx.needs_input_grad[: len(ins)]
+    return (*backward(op, tuple(ins), oa, os, g.contiguous(), needs, ctx.mode), None)
 
 
 # --------------------------------------------------------------------------- #
 # The differentiable ops
 # --------------------------------------------------------------------------- #
+# Each takes its speed mode as a last, non-tensor argument.
 
 
 class SlseMatmul(torch.autograd.Function):
     """:func:`slse_matmul` with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, a, s, w):
-        return _forward(ctx, "slse_matmul", a, s, w)
+    def forward(ctx, a, s, w, mode):
+        return _forward(ctx, "slse_matmul", mode, a, s, w)
 
     @staticmethod
     def backward(ctx, g, gs):
@@ -349,8 +443,8 @@ class SlseMatmulSoftmax(torch.autograd.Function):
     """:func:`slse_matmul_softmax`; the backward returns the logits' gradient."""
 
     @staticmethod
-    def forward(ctx, a, s, theta):
-        return _forward(ctx, "slse_matmul_softmax", a, s, theta)
+    def forward(ctx, a, s, theta, mode):
+        return _forward(ctx, "slse_matmul_softmax", mode, a, s, theta)
 
     @staticmethod
     def backward(ctx, g, gs):
@@ -361,8 +455,8 @@ class SlseTucker2(torch.autograd.Function):
     """:func:`slse_tucker2` with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, a1, s1, a2, s2, w):
-        return _forward(ctx, "slse_tucker2", a1, s1, a2, s2, w)
+    def forward(ctx, a1, s1, a2, s2, w, mode):
+        return _forward(ctx, "slse_tucker2", mode, a1, s1, a2, s2, w)
 
     @staticmethod
     def backward(ctx, g, gs):
@@ -373,8 +467,8 @@ class SlseTucker2Softmax(torch.autograd.Function):
     """:func:`slse_tucker2_softmax`; the backward returns the logits' gradient."""
 
     @staticmethod
-    def forward(ctx, a1, s1, a2, s2, theta):
-        return _forward(ctx, "slse_tucker2_softmax", a1, s1, a2, s2, theta)
+    def forward(ctx, a1, s1, a2, s2, theta, mode):
+        return _forward(ctx, "slse_tucker2_softmax", mode, a1, s1, a2, s2, theta)
 
     @staticmethod
     def backward(ctx, g, gs):
@@ -392,10 +486,11 @@ def slse_matmul(a: torch.Tensor, s: torch.Tensor, w: torch.Tensor) -> Pair:
     (times ``exp(m)``) over the trailing axis.
 
     ``a``, ``s``: (F, B, I) log-magnitudes and signs; ``w``: (F, O, I) real
-    weights, possibly negative. Returns two (F, B, O) tensors."""
+    weights, possibly negative (bf16 beside float32 ``a``: the serving
+    store). Returns two (F, B, O) tensors."""
     _check_pair(a, s)
     _check_dense(a, w)
-    return SlseMatmul.apply(a, s, widened(w, a))
+    return SlseMatmul.apply(a, s, _weight_for(a, w), _op_mode(a))
 
 
 def slse_matmul_softmax(a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor) -> Pair:
@@ -403,7 +498,7 @@ def slse_matmul_softmax(a: torch.Tensor, s: torch.Tensor, theta: torch.Tensor) -
     the kernel: the normalized weights are never stored."""
     _check_pair(a, s)
     _check_dense(a, theta)
-    return SlseMatmulSoftmax.apply(a, s, widened(theta, a))
+    return SlseMatmulSoftmax.apply(a, s, _weight_for(a, theta), _op_mode(a))
 
 
 def slse_tucker2(
@@ -417,7 +512,7 @@ def slse_tucker2(
     _check_pair(a1, s1)
     _check_pair(a2, s2)
     _check_tucker(a1, a2, w)
-    return SlseTucker2.apply(a1, s1, a2, s2, widened(w, a1))
+    return SlseTucker2.apply(a1, s1, a2, s2, _weight_for(a1, w), _op_mode(a1))
 
 
 def slse_tucker2_softmax(
@@ -429,4 +524,4 @@ def slse_tucker2_softmax(
     _check_pair(a1, s1)
     _check_pair(a2, s2)
     _check_tucker(a1, a2, theta)
-    return SlseTucker2Softmax.apply(a1, s1, a2, s2, widened(theta, a1))
+    return SlseTucker2Softmax.apply(a1, s1, a2, s2, _weight_for(a1, theta), _op_mode(a1))

@@ -1589,14 +1589,21 @@ def _narrow_inputs(op, f, b, i, o, dtype, real_w):
 
 
 def _fwd_kernel_names(fn):
-    """The names of the CUDA kernels that ``fn`` launches (torch.profiler)."""
+    """The names of the CUDA kernels that ``fn`` launches (torch.profiler). A
+    trace of a microsecond kernel has come back empty on the card (a
+    profiler miss, as ``chip_smoke.py``'s ``_check_route`` notes): an empty
+    trace is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return names
 
 
 @pytest.mark.parametrize("opcase", NARROW_OPS, ids=lambda c: "-".join(map(str, c)).replace(
@@ -1996,3 +2003,177 @@ def test_routing_bf16_th_equals_the_widened_run(f, b, k1, k2, o, log_weights, of
     assert T.LAUNCHES["tropical_tucker2_w16"] == 2 and T.LAUNCHES["route_tucker2_w16"] == 2
     R.tropical_tucker2(x1.double(), x2.double(), t16, log_weights=log_weights)
     assert T.LAUNCHES["tropical_tucker2_w16"] == 2  # widened: the float64 instance
+
+
+# The bf16-weight and fast-mode instances of the signed kernels (6' and 7')
+# and the fast modes of the complex kernels (10' and 11'), each held against
+# its plain version in the same mode (which rounds at the kernel's points
+# with the same bits) to the float32 bounds above, at the edges of the
+# narrow route (I and O of 7, 32 and 33), on the tiled and Tucker routes
+# (the Tucker dx with K2 = 64 and not, and past one block: the K1 split),
+# aligned and one element off (4-byte loads); the input gradients 0 where
+# that is structural (a sign or a row of 0, a row of -inf, a row of zero
+# cotangent).
+# (F, B, I, O) of the dense ops, (F, B, K1, K2, O) of the Tucker ones
+DENSE_INSTANCE_CASES = [(3, 33, 7, 32), (2, 4096, 32, 32), (2, 33, 33, 32), (2, 130, 64, 70)]
+TUCKER_INSTANCE_CASES = [(2, 13, 8, 16, 16), (2, 33, 4, 64, 64)]
+SIGNED_INSTANCE_CASES = [(op, case) for op in SIGNED_OPS for case in (
+    [*TUCKER_INSTANCE_CASES, (1, 8, 208, 208, 5)] if "tucker" in op else DENSE_INSTANCE_CASES)]
+
+
+def _structural_zeros(a, s, g):
+    """Where an input gradient of a signed op is 0 by structure."""
+    return (s == 0) | torch.isneginf(a) | (g == 0).all(dim=-1, keepdim=True)
+
+
+def _case_id(c):
+    return f"{c[0]}-" + "x".join(map(str, c[1]))
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
+@pytest.mark.parametrize("op,case", SIGNED_INSTANCE_CASES,
+                         ids=[_case_id(c) for c in SIGNED_INSTANCE_CASES])
+def test_signed_instance_kernels_match_plain(op, case, sfx, mode, offset):
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    tucker = "tucker" in op
+    f, b, *dims, o = case
+    kw = dict(k1=dims[0], k2=dims[1]) if tucker else dict(i=dims[0])
+    ins = _signed_inputs(op, f, b, o, **kw)
+    ins[0][0, min(2, b - 1)] = float("-inf")  # a row that is all -inf
+    if sfx.startswith("_w16"):
+        ins[-1] = ins[-1].to(torch.bfloat16)
+    if offset:
+        ins = [_offset(t) for t in ins]
+    got = S._launch_fwd(op, tuple(ins), mode)
+    ref = S._ENTRIES[op][2](*ins, mode=mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op + sfx] == 1
+    _signed_close(op, [*ins[:-1], ins[-1].float()], got, ref)
+    g = torch.randn(got[0].shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[-1, 3:5] = 0.0
+    needs = (True,) * len(ins)
+    grads = S._launch_bwd(op, tuple(ins), *ref, g, needs, mode)
+    again = S._launch_bwd(op, tuple(ins), *ref, g, needs, mode)
+    refs = S._ENTRIES[op][3](*ins, *ref, g, needs, mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}{sfx}_bwd"] == 2
+    for k, (d, r) in enumerate(zip(grads, refs)):
+        assert (d is None) == (r is None)
+        if d is None:
+            continue
+        assert d.dtype == torch.float32 and torch.equal(d, again[k])
+        _close(d, r)
+        if k < len(ins) - 1:
+            assert bool((d[_structural_zeros(ins[k], ins[k + 1], g)] == 0).all())
+
+
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_fast_mode_and_bf16_store_through_the_ops(op, monkeypatch):
+    """The public signed ops read ``CIRKIT_TPU_FAST`` at each call and take a
+    bf16 weight as it is (``_w16`` instances, no widened copy); the weight's
+    gradient comes back bf16; ``sr`` repeats to the bit; a bf16 weight in a
+    fast mode gives the fast mode's result on the widened weight, to the bit;
+    float64 activations run the f32-grade float64 instance on a widened bf16
+    weight."""
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    ins = _signed_inputs(op, 3, 130, 64, k1=8, k2=16, i=64)
+    w16 = ins[-1].to(torch.bfloat16).requires_grad_()
+    a = ins[0].requires_grad_()
+    for env, sfx in (("", "_w16"), ("1", "_w16_fast"), ("sr", "_w16_sr")):
+        monkeypatch.setenv("CIRKIT_TPU_FAST", env)
+        oa, _ = getattr(S, op)(*ins[:-1], w16)
+        da, dw = torch.autograd.grad(oa.sum(), [a, w16])
+        again = getattr(S, op)(*ins[:-1], w16)[0]
+        widened = getattr(S, op)(*ins[:-1], w16.detach().float())[0]
+        torch.cuda.synchronize()
+        assert dw.dtype == torch.bfloat16 and torch.equal(oa, again) and torch.equal(oa, widened)
+        assert T.LAUNCHES[f"{op}{sfx}"] == 2 and T.LAUNCHES[f"{op}{sfx}_bwd"] == 1
+        assert T.LAUNCHES[f"{op}{sfx.removeprefix('_w16')}"] == 1
+        for key in T.LAUNCHES:
+            T.LAUNCHES[key] = 0
+    monkeypatch.setenv("CIRKIT_TPU_FAST", "1")
+    x64 = [t.detach().double() for t in ins[:-1]]
+    got = getattr(S, op)(*x64, w16.detach())
+    want = S._ENTRIES[op][2](*x64, w16.detach().double())
+    assert T.LAUNCHES[op] == 1 and all(n == 0 for k, n in T.LAUNCHES.items() if k != op)
+    _signed_close(op, [*x64, w16.detach().double()], got, want, 1e-12)
+
+
+COMPLEX_INSTANCE_CASES = [(op, case) for op in COMPLEX_OPS for case in (
+    [*TUCKER_INSTANCE_CASES, (1, 8, 128, 128, 5)] if "tucker" in op else DENSE_INSTANCE_CASES)]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("real_w", [False, True], ids=["complex-w", "real-w"])
+@pytest.mark.parametrize("mode", ["bf16", "sr"])
+@pytest.mark.parametrize("op,case", COMPLEX_INSTANCE_CASES,
+                         ids=[_case_id(c) for c in COMPLEX_INSTANCE_CASES])
+def test_complex_fast_instance_kernels_match_plain(op, case, mode, real_w, offset):
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    tucker = "tucker" in op
+    f, b, *dims, o = case
+    kw = dict(k1=dims[0], k2=dims[1]) if tucker else dict(i=dims[0])
+    ins = _complex_inputs(op, f, b, o, torch.complex64, real_w=real_w, **kw)
+    ins[0][0, min(2, b - 1)] = complex(float("-inf"), 0.5)
+    if offset:
+        ins = [_offset(t) for t in ins]
+    sfx = "_fast" if mode == "bf16" else "_sr"
+    got = C._launch_fwd(op, tuple(ins), mode)
+    ref = C._ENTRIES[op][0](*ins, mode=mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[op + sfx] == 1
+    _complex_close(ins, got, ref, 1e-5)
+    g = torch.complex(*(torch.randn(got.shape, device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(k))
+                        for k in (1, 2)))
+    g[-1, 3:5] = 0.0
+    needs = (True,) * len(ins)
+    grads = C._launch_bwd(op, tuple(ins), ref, g, needs, mode)
+    again = C._launch_bwd(op, tuple(ins), ref, g, needs, mode)
+    refs = C._ENTRIES[op][1](*ins, ref, g, needs, mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}{sfx}_bwd"] == 2
+    for k, (d, r) in enumerate(zip(grads, refs)):
+        assert torch.equal(d, again[k])
+        _complex_bwd_close(d, r, 1e-4)
+        if k < len(ins) - 1:
+            zero = torch.isneginf(ins[k].real) | (g == 0).all(dim=-1, keepdim=True)
+            assert bool((d[zero] == 0).all())
+
+
+def test_complex_fast_modes_through_the_ops(monkeypatch):
+    """The public complex ops read ``CIRKIT_TPU_FAST`` at each call on
+    complex64 values, with complex and real weights, forward and backward;
+    ``sr`` repeats to the bit; complex128 runs the f32-grade instances; a
+    bf16 real weight is widened (there is no bf16 instance)."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    for op in COMPLEX_OPS:
+        for real_w in (False, True):
+            ins = [t.requires_grad_() for t in _complex_inputs(op, 3, 130, 64, torch.complex64,
+                                                               real_w=real_w, i=64)]
+            for env, sfx in (("1", "_fast"), ("sr", "_sr")):
+                monkeypatch.setenv("CIRKIT_TPU_FAST", env)
+                out = getattr(C, op)(*ins)
+                torch.autograd.grad(out.real.sum(), ins)
+                again = getattr(C, op)(*ins)
+                torch.cuda.synchronize()
+                assert torch.equal(out, again)
+                assert T.LAUNCHES[op + sfx] == 2 and T.LAUNCHES[f"{op}{sfx}_bwd"] == 1
+                for key in T.LAUNCHES:
+                    T.LAUNCHES[key] = 0
+            c128 = [t.detach().to(torch.complex128 if t.is_complex() else torch.float64)
+                    for t in ins]
+            getattr(C, op)(*c128)
+            assert T.LAUNCHES[op] == 1
+            T.LAUNCHES[op] = 0
+    monkeypatch.setenv("CIRKIT_TPU_FAST", "1")
+    x = _complex_inputs("clse_matmul", 2, 8, 16, torch.complex64, real_w=True)
+    got = C.clse_matmul(x[0], x[1].to(torch.bfloat16))
+    want = C.clse_matmul(x[0], x[1].to(torch.bfloat16).float())
+    assert torch.equal(got, want) and T.LAUNCHES["clse_matmul_fast"] == 2

@@ -1,0 +1,513 @@
+"""The bf16-weight and ``CIRKIT_TPU_FAST`` configurations of the signed
+kernels (6 and 7) and the fast modes of the complex kernels (10 and 11)
+against the JAX package, on the CPU.
+
+On CPU tensors the port runs its plain versions, which round at the port's
+kernels' points (``ops/slse_einsum.py``, ``ops/clse_einsum.py``); the JAX
+package runs ``slse_dispatch`` and ``clse_matmul_parts`` in interpret mode
+in the mode ``_cfg_fast`` gives (``CIRKIT_TPU_FORCE_PALLAS``, as
+``tests/test_torch_signed.py`` and ``tests/test_torch_complex.py`` do), the
+complex Tucker op through the log-space outer sum its semiring feeds the
+dense kernel. The two round at different points, so each is held against
+float64 (complex128) within the JAX package's fast bounds (8e-3 forward, 4e-2
+gradient, ``tests/ops/test_lse_einsum.py``'s ``_BOUNDS``) and against the
+other within twice them. A signed or complex sum that nearly cancels has no
+log-space bound, so values are compared in linear space scaled by each row's
+absolute mass A (the lse of the inputs against ``|w|``), on the real and
+imaginary parts of a complex one, and so are gradients: those of ``sum(g
+y / Y)``, the linear output ``y`` scaled by the row's absolute mass ``Y =
+exp(A)`` (the gradient of ``log|y|`` carries ``1 / y``, which no rounding
+bounds where ``y`` nearly cancels). ``sr`` has no interpret-mode lowering in
+JAX, which runs it as ``bf16``: the port's ``sr`` is held to the same bounds
+and to itself, bit for bit. A bf16 weight's gradient comes back bf16, as
+JAX's ``_sfused_p_bwd`` casts it; the f32-grade mode on a bf16 weight is
+held to float32's bounds, and a bf16 weight in a fast mode gives the fast
+mode's result on the widened weight, to the bit.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cirkit_tpu.backend.jax.utils import csafelog as jax_csafelog
+from cirkit_tpu.ops import lse_einsum as J
+from cirkit_tpu.ops.lse_einsum import clse_matmul_parts, slse_dispatch
+from cirkit_tpu_torch.ops import _build
+from cirkit_tpu_torch.ops import clse_einsum as C
+from cirkit_tpu_torch.ops import lse_einsum as L
+from cirkit_tpu_torch.ops import slse_einsum as S
+
+FWD_TOL, GRAD_TOL = 8e-3, 4e-2
+MODES = {"bf16": "1", "sr": "sr"}  # mode -> CIRKIT_TPU_FAST
+# a batch the JAX kernels' 8-row tiles leave ragged, O >= 8 (JAX's dispatch)
+F, B, O, I, K1, K2 = 2, 13, 8, 32, 4, 8
+SIGNED_OPS = ["slse_matmul", "slse_matmul_softmax", "slse_tucker2", "slse_tucker2_softmax"]
+COMPLEX_OPS = ["clse_matmul", "clse_tucker2"]
+# (B, I, O): edges of the narrow route that JAX's kernels take (O >= 8),
+# from tests/test_torch_narrow_fwd.py's SHAPES
+NARROW = [(33, 7, 32), (33, 33, 32), (1, 33, 33), (33, 32, 8)]
+
+
+@pytest.fixture(autouse=True)
+def _pallas(monkeypatch):
+    monkeypatch.setenv("CIRKIT_TPU_FORCE_PALLAS", "1")
+    monkeypatch.delenv("CIRKIT_TPU_FAST", raising=False)
+    for op in L.LAUNCHES:
+        L.LAUNCHES[op] = 0
+    yield
+    assert all(n == 0 for n in L.LAUNCHES.values()), "a CPU test launched a kernel"
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bf16 (to nearest even) and widened back, exactly."""
+    return np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+# --------------------------------------------------------------------------- #
+# Kernels 6' and 7': the signed ops
+# --------------------------------------------------------------------------- #
+
+
+def _signed_inputs(op: str, w16: bool, *, b: int = B, i: int = I, o: int = O, seed: int = 40):
+    """(log-magnitude, sign) inputs with some signs 0 and a row that is all
+    -inf, normal weights of both signs (or logits), bf16-valued for ``w16``,
+    and a cotangent of the log-magnitude output."""
+    rng = np.random.default_rng(seed)
+
+    def signed(*shape):
+        a = (rng.normal(size=shape) * 3.0 - 2.0).astype(np.float32)
+        s = rng.choice([-1.0, 0.0, 1.0], size=shape, p=[0.45, 0.1, 0.45]).astype(np.float32)
+        return [a, s]
+
+    tucker = "tucker" in op
+    xs = [*signed(F, b, K1), *signed(F, b, K2)] if tucker else signed(F, b, i)
+    xs[0][0, min(2, b - 1)] = -np.inf
+    w = rng.normal(size=(F, o, K1 * K2 if tucker else i)).astype(np.float32)
+    g = rng.normal(size=(F, b, o)).astype(np.float32)
+    return [*xs, _bf16(w) if w16 else w], g
+
+
+def _signed_port(op: str, ins, g, w16: bool):
+    """The port's op on CPU tensors and the gradients of the log-magnitude
+    inputs and of the weight for ``sum(g y / Y)`` (module docstring)."""
+    t = [torch.as_tensor(a) for a in ins]
+    if w16:
+        t[-1] = t[-1].to(torch.bfloat16)
+    for k in (*range(0, len(t) - 1, 2), len(t) - 1):
+        t[k].requires_grad_()
+    oa, os = getattr(S, op)(*t)
+    lin = torch.as_tensor(g) * os * torch.exp(oa - torch.as_tensor(_abs_mass(op, ins)).float())
+    grads = torch.autograd.grad(lin.sum(), [x for x in t if x.requires_grad])
+    assert grads[-1].dtype == t[-1].dtype  # a bf16 weight's gradient comes back bf16
+    return (oa.detach().numpy(), os.numpy()), [d.float().numpy() for d in grads]
+
+
+@functools.lru_cache(maxsize=None)
+def _signed_jax_fast(op: str, w16: bool):
+    """:func:`_signed_jax` on :func:`_signed_inputs` in a fast mode, once for
+    both: in interpret mode JAX runs ``sr`` as ``bf16``."""
+    assert J._cfg_fast(True) == "bf16"
+    return _signed_jax(op, *_signed_inputs(op, w16), w16)
+
+
+def _signed_jax(op: str, ins, g, w16: bool):
+    """``slse_dispatch`` in interpret mode and its VJP, in the mode
+    ``_cfg_fast`` gives."""
+    *xs, w = ins
+    softmax, tucker = "softmax" in op, "tucker" in op
+    wj = jnp.asarray(w).astype(jnp.bfloat16) if w16 else jnp.asarray(w)
+
+    def fn(*d):
+        full = [d[0], xs[1], d[1], xs[3]] if tucker else [d[0], xs[1]]
+        out = slse_dispatch(tuple(jnp.asarray(a) for a in full), d[-1], softmax=softmax,
+                            tucker=tucker, interpret=True)
+        assert out is not None  # the Pallas kernel ran
+        return out
+
+    args = [jnp.asarray(a) for a in xs[::2]] + [wj]
+    (oa, os), vjp = jax.vjp(fn, *args)
+    mass = jnp.asarray(_abs_mass(op, ins), jnp.float32)
+    grads = vjp((jnp.asarray(g) * os * jnp.exp(oa - mass), jnp.zeros_like(os)))
+    assert grads[-1].dtype == wj.dtype
+    return (np.asarray(oa), np.asarray(os)), [np.asarray(d.astype(jnp.float32)) for d in grads]
+
+
+def _signed_f64(op: str, ins, g):
+    """The float64 composition (the port's f32-grade plain versions) on the
+    (bf16-valued) weight."""
+    t = [torch.as_tensor(a, dtype=torch.float64) for a in ins]
+    oa, os = S._ENTRIES[op][2](*t)
+    lin = torch.as_tensor(g, dtype=torch.float64) * os * torch.exp(
+        oa - torch.as_tensor(_abs_mass(op, ins)))
+    grads = S._ENTRIES[op][3](*t, oa, os, lin)
+    return (oa.numpy(), os.numpy()), [d.numpy() for d in grads if d is not None]
+
+
+def _abs_mass(op: str, ins) -> np.ndarray:
+    """The log of each output row's absolute mass: the lse of the
+    log-magnitudes (complex: the real parts) against ``|w|`` (softmax
+    weights for logits)."""
+    t = [torch.as_tensor(np.asarray(x)) for x in ins]
+    w = torch.softmax(t[-1].double(), dim=-1) if "softmax" in op else t[-1].abs().double()
+    xs = [x.real.double() if x.is_complex() else x.double() for x in t[:-1]]
+    if op.startswith("s"):
+        xs = xs[::2]
+    if "tucker" in op:
+        return L.lse_tucker2_ref(xs[0], xs[1], w).numpy()
+    return L.lse_matmul_ref(xs[0], w).numpy()
+
+
+def _signed_held(label, op, ins, got, want, tol):
+    """``|s exp(a - A) - s' exp(a' - A)| <= tol``, -inf with sign 0 where the
+    mass is 0, no NaN; returns the error."""
+    (ga, gs), (wa, ws) = [tuple(np.asarray(v, np.float64) for v in p) for p in (got, want)]
+    m = _abs_mass(op, ins)
+    assert not np.isnan(ga).any() and not np.isnan(gs).any(), f"{label}: NaN"
+    empty = np.isneginf(m)
+    assert np.isneginf(ga[empty]).all() and (gs[empty] == 0).all(), f"{label}: empty rows"
+    with np.errstate(invalid="ignore"):
+        lin_g = np.where(empty, 0.0, gs * np.exp(ga - m))
+        lin_w = np.where(empty, 0.0, ws * np.exp(wa - m))
+    err = float(np.abs(lin_g - lin_w).max())
+    assert err <= tol, f"{label}: linear error {err:.3e} of the row's mass exceeds {tol}"
+    return err
+
+
+def _grads_held(label, got, want, tol):
+    for k, (a, b) in enumerate(zip(got, want)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        assert not np.isnan(a).any(), f"{label} grad {k}: NaN"
+        scale = max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(a - b).max())
+        assert err <= tol * scale, f"{label} grad {k}: error {err:.3e} (scale {scale:.3g})"
+
+
+@pytest.mark.parametrize("w16", [False, True], ids=["f32-w", "bf16-w"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_fast_modes_against_float64_and_the_interpret_kernel(op, mode, w16,
+                                                                   monkeypatch):
+    """The fast signed forward and backward (kernels 6' and 7'): the port's
+    and JAX's interpret-mode kernels', each within the fast bounds of
+    float64 and of each other within twice them; a row that is all -inf
+    gives (-inf, 0) and zero gradients, no NaN."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", MODES[mode])
+    ins, g = _signed_inputs(op, w16)
+    port = _signed_port(op, ins, g, w16)
+    ref = _signed_f64(op, ins, g)
+    jx = _signed_jax_fast(op, w16)
+    _signed_held("port", op, ins, port[0], ref[0], FWD_TOL)
+    _signed_held("jax", op, ins, jx[0], ref[0], FWD_TOL)
+    _signed_held("port vs jax", op, ins, port[0], jx[0], 2 * FWD_TOL)
+    _grads_held("port", port[1], ref[1], GRAD_TOL)
+    _grads_held("jax", jx[1], ref[1], GRAD_TOL)
+    _grads_held("port vs jax", port[1], jx[1], 2 * GRAD_TOL)
+    assert np.isneginf(port[0][0][0, 2]).all() and (port[0][1][0, 2] == 0).all()
+    assert (port[1][0][0, 2] == 0).all()
+
+
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_f32_grade_on_a_bf16_weight(op):
+    """The f32-grade mode on a bf16 weight (the ``_w16`` instances): the
+    port's forward and gradients against float64 on the widened weight and
+    against JAX's interpret-mode kernels on the bf16 one, within float32's
+    bounds (those of ``tests/test_torch_signed.py``)."""
+    ins, g = _signed_inputs(op, True, seed=41)
+    port = _signed_port(op, ins, g, True)
+    ref = _signed_f64(op, ins, g)
+    jx = _signed_jax(op, ins, g, True)
+    _signed_held("port", op, ins, port[0], ref[0], 1e-5)
+    _signed_held("port vs jax", op, ins, port[0], jx[0], 5e-4)
+    # dw comes back bf16: its rounding, 2^-8 relative, bounds the gradient
+    _grads_held("port dx", port[1][:-1], ref[1][:-1], 1e-4)
+    _grads_held("port dw", port[1][-1:], ref[1][-1:], 2 ** -8)
+    _grads_held("port vs jax", port[1], jx[1], 2 ** -8 + 5e-3)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_bf16_weight_in_a_fast_mode_is_the_widened_run(op, mode, monkeypatch):
+    """A bf16-valued operand is unchanged by both roundings: ``_w16_fast``
+    and ``_w16_sr`` give ``_fast`` and ``_sr`` on the widened weight, to the
+    bit, forward and backward (the weight's gradient before its cast)."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", MODES[mode])
+    ins, g = _signed_inputs(op, True, seed=42)
+    t = [torch.as_tensor(a) for a in ins]
+    t16 = [*t[:-1], t[-1].to(torch.bfloat16)]
+    got, want = S._ENTRIES[op][2](*t16, mode=mode), S._ENTRIES[op][2](*t, mode=mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gt = torch.as_tensor(g)
+    got = S._ENTRIES[op][3](*t16, *want, gt, (True,) * len(t), mode)
+    want = S._ENTRIES[op][3](*t, *want, gt, (True,) * len(t), mode)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_jax(op: str, b: int, i: int, o: int):
+    """JAX's interpret-mode signed forward on the narrow case's inputs, once
+    for both fast modes (it runs ``sr`` as ``bf16``)."""
+    assert J._cfg_fast(True) == "bf16"
+    ins, _ = _signed_inputs(op, False, b=b, i=i, o=o, seed=43)
+    out = slse_dispatch(tuple(jnp.asarray(a) for a in ins[:-1]), jnp.asarray(ins[-1]),
+                        softmax="softmax" in op, tucker=False, interpret=True)
+    return tuple(np.asarray(v) for v in out)
+
+
+@pytest.mark.parametrize("b,i,o", NARROW)
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", ["slse_matmul", "slse_matmul_softmax"])
+def test_signed_fast_modes_at_the_narrow_edges(op, mode, b, i, o, monkeypatch):
+    """The dense signed ops at the edges of the card's narrow route (I and O
+    of 7, 32 and 33, B of 1 and 33): the fast forward within the fast bound
+    of float64 and of JAX's interpret-mode kernel."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", MODES[mode])
+    ins, _ = _signed_inputs(op, False, b=b, i=i, o=o, seed=43)
+    got = getattr(S, op)(*(torch.as_tensor(a) for a in ins))
+    want = S._ENTRIES[op][2](*(torch.as_tensor(a, dtype=torch.float64) for a in ins))
+    jx = _narrow_jax(op, b, i, o)
+    _signed_held("port", op, ins, got, want, FWD_TOL)
+    _signed_held("port vs jax", op, ins, got, jx, 2 * FWD_TOL)
+
+
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_sr_repeats_to_the_bit(op, monkeypatch):
+    """``sr``'s bits are a stateless hash of each element's index and role:
+    a call repeats bit for bit (at a size whose exponentials the CPU takes
+    on one thread: threaded, ``torch.exp`` on the CPU was seen to differ in
+    its last bit between calls, which a rounding to bf16 can carry)."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", "sr")
+    ins, g = _signed_inputs(op, False, seed=44)
+    first = _signed_port(op, ins, g, False)
+    again = _signed_port(op, ins, g, False)
+    assert all(np.array_equal(a, b) for a, b in zip(first[0], again[0]))
+    assert all(np.array_equal(a, b) for a, b in zip(first[1], again[1]))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_exact_cancellation_in_the_fast_modes(op, mode, monkeypatch):
+    """Equal magnitudes with alternating signs against equal weights sum to
+    exactly 0 in every mode (the rounding of equal values is equal): log -inf
+    with sign 0 and zero gradients, no NaN."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", MODES[mode])
+    alt = np.tile(np.array([1.0, -1.0], np.float32), 8)
+    if "tucker" in op:
+        xs = [np.zeros((1, 8, 4), np.float32), np.broadcast_to(alt[:4], (1, 8, 4)).copy(),
+              np.zeros((1, 8, 4), np.float32), np.ones((1, 8, 4), np.float32)]
+    else:
+        xs = [np.zeros((1, 8, 16), np.float32), np.broadcast_to(alt, (1, 8, 16)).copy()]
+    w = (np.zeros if "softmax" in op else np.ones)((1, 8, 16), np.float32)
+    t = [torch.as_tensor(a) for a in (*xs, w)]
+    diff = [t[k] for k in (*range(0, len(t) - 1, 2), len(t) - 1)]
+    for d in diff:
+        d.requires_grad_()
+    oa, os = getattr(S, op)(*t)
+    assert torch.isneginf(oa).all() and (os == 0).all()
+    for d in torch.autograd.grad(oa, diff, torch.ones_like(oa)):
+        assert not torch.isnan(d).any() and (d == 0).all()
+
+
+def test_signed_instances_have_entries_and_counts():
+    """Every signed instance has its forward and backward entries in the
+    library's signatures, with the float32 entries' arguments, and a
+    ``LAUNCHES`` key each; the complex kernels have the fast ones alone."""
+    for sfx in L.INSTANCES:
+        for fwd, bwd in (("slse_fwd_dense", "slse_bwd_dense"),
+                         ("slse_fwd_dense_softmax", "slse_bwd_dense_softmax"),
+                         ("slse_fwd_tucker", "slse_bwd_tucker"),
+                         ("slse_fwd_tucker_softmax", "slse_bwd_tucker_softmax")):
+            assert _build._SIGNATURES[fwd + sfx] == _build._SIGNATURES[fwd]
+            assert _build._SIGNATURES[bwd + sfx] == _build._SIGNATURES[bwd]
+        assert {f"{op}{sfx}{t}" for op in SIGNED_OPS for t in ("", "_bwd")} <= set(L.LAUNCHES)
+    assert C.INSTANCES == ("_fast", "_sr")
+    for sfx in C.INSTANCES:
+        assert _build._SIGNATURES[f"clse_fwd{sfx}"] == _build._SIGNATURES["clse_fwd"]
+        assert _build._SIGNATURES[f"clse_bwd{sfx}"] == _build._SIGNATURES["clse_bwd"]
+        assert {f"{op}{sfx}{t}" for op in COMPLEX_OPS for t in ("", "_bwd")} <= set(L.LAUNCHES)
+    assert "clse_matmul_w16" not in L.LAUNCHES and "clse_fwd_w16" not in _build._SIGNATURES
+
+
+def test_modes_follow_the_value_types(monkeypatch):
+    """A mode applies to float32 and complex64 values: float64 and
+    complex128 run f32-grade and widen a bf16 weight; the complex ops widen
+    a bf16 real weight in every mode."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", "1")
+    assert S._op_mode(torch.zeros(1)) == "bf16" and S._op_mode(torch.zeros(1).double()) == ""
+    assert C._op_mode(torch.zeros(1, dtype=torch.complex64)) == "bf16"
+    assert C._op_mode(torch.zeros(1, dtype=torch.complex128)) == ""
+    w16 = torch.ones(1, 2, 3, dtype=torch.bfloat16)
+    assert S._weight_for(torch.zeros(1, 2, 3), w16).dtype == torch.bfloat16
+    assert S._weight_for(torch.zeros(1, 2, 3).double(), w16).dtype == torch.float64
+    assert C._real_weight(w16, torch.zeros(1, dtype=torch.complex64)).dtype == torch.float32
+    ins, _ = _signed_inputs("slse_matmul", True, seed=45)
+    t64 = [torch.as_tensor(a, dtype=torch.float64) for a in ins]
+    got = S.slse_matmul(*t64[:-1], t64[-1].to(torch.bfloat16))
+    want = S.slse_matmul_ref(*t64)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --------------------------------------------------------------------------- #
+# Kernels 10' and 11': the complex ops
+# --------------------------------------------------------------------------- #
+
+
+def _complex_inputs(op: str, real_w: bool, seed: int = 50):
+    """Complex log-space inputs (phases uniform in (-pi, pi]) with a row
+    whose real parts are all -inf, and normal weights, complex64 or real."""
+    rng = np.random.default_rng(seed)
+
+    def value(*shape):
+        return ((rng.normal(size=shape) * 3.0 - 2.0)
+                + 1j * rng.uniform(-np.pi, np.pi, size=shape)).astype(np.complex64)
+
+    tucker = "tucker" in op
+    xs = [value(F, B, K1), value(F, B, K2)] if tucker else [value(F, B, I)]
+    xs[0][0, 2] = complex(-np.inf, 0.5)
+    shape = (F, O, K1 * K2 if tucker else I)
+    w = rng.normal(size=shape).astype(np.float32)
+    if not real_w:
+        w = (w + 1j * rng.normal(size=shape)).astype(np.complex64)
+    return [*xs, w]
+
+
+def _loss_planes(op: str, ins, out, lib):
+    """``sum(g y / Y)`` on both planes of the linear output (module
+    docstring), with a seeded cotangent ``g``."""
+    rng = np.random.default_rng(52)
+    gr, gi = (rng.normal(size=out.shape) for _ in range(2))
+    lin = lib.exp(out - lib.asarray(_abs_mass(op, ins)).astype(out.real.dtype)) \
+        if lib is jnp else torch.exp(out - torch.as_tensor(_abs_mass(op, ins)).to(out.real.dtype))
+    return (lib.asarray(gr) * lin.real + lib.asarray(gi) * lin.imag).sum() if lib is jnp else \
+        (torch.as_tensor(gr) * lin.real + torch.as_tensor(gi) * lin.imag).sum()
+
+
+def _complex_port(op: str, ins):
+    """The port's op and the gradients of its loss (PyTorch's convention)."""
+    t = [torch.as_tensor(a).requires_grad_() for a in ins]
+    out = getattr(C, op)(*t)
+    grads = torch.autograd.grad(_loss_planes(op, ins, out, torch), t)
+    assert grads[-1].dtype == t[-1].dtype  # a real weight gets a real gradient
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+@functools.lru_cache(maxsize=None)
+def _complex_jax_fast(op: str, real_w: bool):
+    """:func:`_complex_jax` on :func:`_complex_inputs` in a fast mode, once
+    for both (JAX runs ``sr`` as ``bf16`` in interpret mode)."""
+    assert J._cfg_fast(True) == "bf16"
+    return _complex_jax(op, _complex_inputs(op, real_w))
+
+
+def _complex_jax(op: str, ins):
+    """``clse_matmul_parts`` in interpret mode plus the ``csafelog`` epilogue
+    (a real weight cast to complex64, as JAX's semiring casts it), the Tucker
+    op through the log-space outer sum, and its gradients conjugated into
+    PyTorch's convention (a real weight's: the real part)."""
+    real_w = not np.iscomplexobj(ins[-1])
+
+    def fn(*a):
+        *xs, w = a
+        x = (xs[0][:, :, :, None] + xs[1][:, :, None, :]).reshape(F, B, -1) if len(xs) == 2 \
+            else xs[0]
+        parts = clse_matmul_parts(x, w.astype(jnp.complex64), interpret=True)
+        assert parts is not None  # the Pallas kernel ran
+        yr, yi, m = parts
+        return jax_csafelog(jax.lax.complex(yr, yi)) + m
+
+    args = [jnp.asarray(a) for a in ins]
+    out = fn(*args)
+    grads = jax.grad(lambda *a: _loss_planes(op, ins, fn(*a), jnp),
+                     argnums=tuple(range(len(ins))))(*args)
+    grads = [np.conj(np.asarray(d)) for d in grads]
+    if real_w:
+        grads[-1] = grads[-1].real
+    return np.asarray(out), grads
+
+
+def _complex_held(label, op, ins, got, want, tol):
+    """``|exp(z - A) - exp(z' - A)| <= tol`` on the real and imaginary parts,
+    a real part of -inf where the mass is 0, no NaN."""
+    got, want = np.asarray(got, np.complex128), np.asarray(want, np.complex128)
+    m = _abs_mass(op, ins)
+    assert not np.isnan(got.real).any() and not np.isnan(got.imag).any(), f"{label}: NaN"
+    empty = np.isneginf(m)
+    assert np.isneginf(got.real[empty]).all(), f"{label}: empty rows"
+    with np.errstate(invalid="ignore"):
+        diff = np.where(empty, 0.0, np.exp(got - m) - np.exp(want - m))
+    err = float(np.maximum(np.abs(diff.real), np.abs(diff.imag)).max())
+    assert err <= tol, f"{label}: linear error {err:.3e} of the row's mass exceeds {tol}"
+
+
+def _complex_grads_held(label, got, want, tol):
+    for k, (a, b) in enumerate(zip(got, want)):
+        for pa, pb, tag in ((a.real, b.real, "re"), (np.imag(a), np.imag(b), "im")):
+            pa, pb = np.asarray(pa, np.float64), np.asarray(pb, np.float64)
+            assert not np.isnan(pa).any(), f"{label} grad {k} {tag}: NaN"
+            scale = max(1.0, float(np.abs(pb).max()))
+            err = float(np.abs(pa - pb).max())
+            assert err <= tol * scale, f"{label} grad {k} {tag}: {err:.3e} (scale {scale:.3g})"
+
+
+@pytest.mark.parametrize("real_w", [False, True], ids=["complex-w", "real-w"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", COMPLEX_OPS)
+def test_complex_fast_modes_against_complex128_and_the_interpret_kernel(op, mode, real_w,
+                                                                       monkeypatch):
+    """The fast complex forward and backward (kernels 10' and 11'): the
+    port's and JAX's interpret-mode kernels', each within the fast bounds of
+    complex128 on every plane and of each other within twice them; a row
+    whose real parts are all -inf gives -inf, no NaN."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", MODES[mode])
+    ins = _complex_inputs(op, real_w)
+    port = _complex_port(op, ins)
+    jx = _complex_jax_fast(op, real_w)
+    # complex128 runs no fast mode: the f32-grade plain version in complex128
+    ref = _complex_port(op, [a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
+                             for a in ins])
+    _complex_held("port", op, ins, port[0], ref[0], FWD_TOL)
+    _complex_held("jax", op, ins, jx[0], ref[0], FWD_TOL)
+    _complex_held("port vs jax", op, ins, port[0], jx[0], 2 * FWD_TOL)
+    _complex_grads_held("port", port[1], ref[1], GRAD_TOL)
+    _complex_grads_held("jax", jx[1], ref[1], GRAD_TOL)
+    _complex_grads_held("port vs jax", port[1], jx[1], 2 * GRAD_TOL)
+    assert np.isneginf(port[0].real[0, 2]).all()
+
+
+@pytest.mark.parametrize("op", COMPLEX_OPS)
+def test_complex_sr_repeats_and_complex128_runs_no_fast_mode(op, monkeypatch):
+    """``sr`` repeats to the bit; complex128 values under a fast mode run the
+    f32-grade plain version; the planes are rounded at their indices in
+    ``torch.view_as_real``'s layout."""
+    ins = _complex_inputs(op, False, seed=51)
+    monkeypatch.setenv("CIRKIT_TPU_FAST", "sr")
+    first, again = _complex_port(op, ins), _complex_port(op, ins)
+    assert np.array_equal(first[0], again[0], equal_nan=True)
+    assert all(np.array_equal(a, b) for a, b in zip(first[1], again[1]))
+    t128 = [torch.as_tensor(a.astype(np.complex128)) for a in ins]
+    assert torch.equal(getattr(C, op)(*t128), C._ENTRIES[op][0](*t128))
+    e = torch.as_tensor(ins[0])
+    r = torch.view_as_real(C.round_planes(e, "sr", L.ROLE_E))
+    want = L.round_bf16(torch.view_as_real(e).contiguous(), "sr", L.ROLE_E)
+    assert torch.equal(r, want)
+    idx = torch.arange(torch.view_as_real(e).numel()).view(*e.shape, 2)
+    assert torch.equal(idx[..., 1], 2 * torch.arange(e.numel()).view(e.shape) + 1)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", COMPLEX_OPS)
+def test_complex_exact_cancellation_in_the_fast_modes(op, mode, monkeypatch):
+    """Equal magnitudes of phase 0 against weights +1 and -1 sum to exactly
+    0 in every mode: a real part of -inf, no NaN, zero gradients."""
+    monkeypatch.setenv("CIRKIT_TPU_FAST", MODES[mode])
+    n = 2 if "tucker" in op else 1
+    xs = [np.zeros((1, 8, 4 if n == 2 else 16), np.complex64) for _ in range(n)]
+    w = np.broadcast_to(np.tile(np.array([1.0, -1.0], np.complex64), 8), (1, 8, 16)).copy()
+    t = [torch.as_tensor(a).requires_grad_() for a in (*xs, w)]
+    out = getattr(C, op)(*t)
+    assert torch.isneginf(out.real).all() and not torch.isnan(out.imag).any()
+    for d in torch.autograd.grad(out, t, torch.ones_like(out)):
+        assert (d == 0).all()
