@@ -324,7 +324,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    2's) against its plain version in the same mode, which rounds at the
    kernel's points with the same bits (forward: the phase 3 bound; backward:
    phase 3b's), at the K=64 Tucker entry, a mixing sum (F=196, I=128, O=64),
-   the dense I=4096 sum, the K=128 entry and edge shapes; each timed at its
+   the dense I=4096 sum, the K=128 entry and edge shapes, and the fast
+   instances of kernels 1 and 5 forward at batch 512 (K=64 and K=128) and
+   700 (``SERVE_BATCH_SHAPES``); each timed at its
    first shape beside its plain version and its bound (2-byte weights over
    the memory rate, a fast mode's products once at the bf16 rate); at the K=64
    Tucker entry each mode's max and mean signed error against float64; (b)
@@ -335,7 +337,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    store under ``1`` and under ``sr`` and a bf16 store under ``sr``: each
    call counted (one launch per kernel-bearing entry, every one the mode's
    instance), the median ms of 10, samples/s, the store's GB, the peak, 8
-   rows against the same store in float64 on the CPU (rtol 1e-5, the fast
+   rows spread over the first 512 (``SERVE_ROWS``) against the same store in
+   float64 on the CPU (rtol 1e-5, the fast
    modes ``SERVE_FAST_RTOL``; phase 8 holds a K=128 float32 store), the
    K=64 Tucker's device split; (c) one backward of the K=64 Tucker's mean
    NLL through the bf16 store under ``1`` and ``sr``: the gradients in the
@@ -467,10 +470,13 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     # phase 15's serving path: the bf16-weight (_w16) and fast-mode (_fast,
     # _sr) instances of kernels 1 and 5 that the flagships' forwards launch
     # (the Tucker logits and the CP flagship's are bf16 in a bf16 store; the
-    # Tucker flagship's mixing weights are computed from it in float32), and
-    # of kernel 2 that the backward through a bf16 store launches
-    **{f"lse_tucker2_softmax{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "335")
-       for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    # Tucker flagship's mixing weights are computed from it in float32; the
+    # fast modes' Tucker instances run on the bf16 tensor cores, in
+    # tucker_bf16.cu), and of kernel 2 that the backward through a bf16 store
+    # launches
+    "lse_tucker2_softmax_w16": (_CSRC + "lse_einsum.cu", _PALLAS + "335"),
+    **{f"lse_tucker2_softmax{sfx}": (_CSRC + "tucker_bf16.cu", _PALLAS + "335")
+       for sfx in ("_fast", "_sr", "_w16_fast", "_w16_sr")},
     **{f"lse_matmul{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "335") for sfx in ("_fast", "_sr")},
     "lse_matmul_softmax_w16_fast": (_CSRC + "lse_einsum.cu", _PALLAS + "335"),
     # (and phase 17's: the EM-ready K=128 flagship's mixing sums on its bf16
@@ -479,8 +485,9 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
        for sfx in ("", "_fast", "_sr")},
     **{f"lse_matmul_w16{sfx}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
        for sfx in ("", "_fast", "_sr")},
-    **{f"lse_tucker2_softmax_chunked{sfx}": (_CSRC + "lse_wide.cu", _PALLAS + "738")
-       for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
+    "lse_tucker2_softmax_chunked_w16": (_CSRC + "lse_wide.cu", _PALLAS + "738"),
+    **{f"lse_tucker2_softmax_chunked{sfx}": (_CSRC + "tucker_bf16.cu", _PALLAS + "738")
+       for sfx in ("_fast", "_sr", "_w16_fast", "_w16_sr")},
     **{key: (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
        for key in ("lse_tucker2_softmax_w16_fast_bwd", "lse_tucker2_softmax_w16_sr_bwd",
                    "lse_matmul_fast_bwd", "lse_matmul_sr_bwd")},
@@ -4884,6 +4891,20 @@ EM_MIX_SHAPES = (
     ("F=1 B=128 I=2 O=1 (K=128 root)", "dense", 1, 128, (2, 1)),
 )
 EM_MIX_INSTANCES = tuple((sfx, mode) for sfx, mode in SERVE_INSTANCES if sfx.startswith("_w16"))
+# the serving batch: the fast Tucker forwards past a batch of 128 run blocks
+# of 256 rows (four warpgroups, csrc/tucker_bf16.cu), so the fast instances
+# are held at the K=64 entry and at a K=128 one at batch 512 (two such
+# blocks) and at a batch that ends in a part block; forward only, as 15b
+# serves
+SERVE_BATCH_SHAPES = (
+    ("F=784 B=512 K1=K2=O=64", "tucker", 784, 512, (64, 64, 64)),
+    (f"F=196 B=512 K1=K2=O={WIDE_K}", "chunked", 196, 512, (WIDE_K, WIDE_K, WIDE_K)),
+    ("F=4 B=700 K1=K2=O=64", "tucker", 4, 700, (64, 64, 64)),
+)
+SERVE_FAST_INSTANCES = tuple((sfx, mode) for sfx, mode in SERVE_INSTANCES if mode)
+# rows of a served batch held against float64 (15b): two per warpgroup of the
+# fast Tucker forwards' two blocks of 256 rows at batch 512
+SERVE_ROWS = (0, 100, 150, 230, 256, 330, 400, 500)
 # the serving runs (bench_serving, bench.py:362-420): the flagships by K and
 # sum-product layer at these batches, in the two modes of record; and the
 # store and mode of each (bf16 store, CIRKIT_TPU_FAST). The other instances'
@@ -4934,10 +4955,11 @@ def _serve_bound(key: str, ins, mode: str, extra: int = 0) -> tuple[float, str]:
     each input read once, each output written once, and ``extra`` bytes:
     the blocked kernels' row max) over the memory rate,
     or its sums of products on the tensor cores: in a fast mode products of
-    bf16 values, once at the bf16 rate (the kernels deliberately run them as
-    one TF32 pass, which is exact for them, at half that rate); otherwise at
-    the TF32 rate, two passes where a bf16 weight drops its low part, three
-    (3xTF32) where it does not."""
+    bf16 values, once at the bf16 rate (the Tucker forwards of kernels 1 and
+    5 run them on the bf16 tensor cores; the backward, kernel 2, as one TF32
+    pass, which is exact for them, at half that rate); otherwise at the TF32
+    rate, two passes where a bf16 weight drops its low part, three (3xTF32)
+    where it does not."""
     *xs, w = ins
     f, b = xs[0].shape[:2]
     o, i = w.shape[1:]
@@ -4956,15 +4978,16 @@ def _serve_bound(key: str, ins, mode: str, extra: int = 0) -> tuple[float, str]:
 
 
 def phase_serving_kernels(shapes=SERVE_SHAPES, instances=SERVE_INSTANCES, *,
-                          linear_only: bool = False,
+                          linear_only: bool = False, forward_only: bool = False,
                           results: dict[str, dict] | None = None) -> dict[str, dict]:
     """15a: each bf16-weight and fast-mode instance of kernels 1, 2 and 5
     against its plain version in its mode on the same card inputs (forward:
     the phase 3 bound in log space; backward: phase 3b's), timed at its
     first shape; at the flagship's Tucker entry each mode's max and mean
     signed error of the forward against float64. ``linear_only`` skips the
-    softmax ops; ``results`` are rows to extend (an instance whose row has
-    no ``ms`` yet is timed at its first shape here)."""
+    softmax ops, ``forward_only`` the backward; ``results`` are rows to
+    extend (an instance whose row has no ``ms`` yet is timed at its first
+    shape here)."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
@@ -5007,7 +5030,7 @@ def phase_serving_kernels(shapes=SERVE_SHAPES, instances=SERVE_INSTANCES, *,
                     line += (f"; against float64: max {float(d.abs().max()):.3e}, mean signed "
                              f"{float(d.mean()):.3e}")
                 print(line)
-                if kind != "chunked":  # kernel 5's backward is kernel 2's
+                if kind != "chunked" and not forward_only:  # kernel 5's backward is kernel 2's
                     g = torch.randn(got.shape, generator=torch.Generator(device=DEV).manual_seed(1),
                                     device=DEV)
                     needs = (True,) * len(ins)
@@ -5096,7 +5119,7 @@ def phase_serving(smi: str) -> dict[str, int]:
         print(f"[serve] {spl} K={k}: compiled in {time.perf_counter() - t0:.1f} s; store "
               f"{_store_gb(st32):.3f} GB f32, {_store_gb(stores[True]):.3f} GB with the bf16 "
               f"weight store")
-        refs = {}  # float64 CPU forward of 8 rows, per store
+        refs = {}  # float64 CPU forward of the SERVE_ROWS, per store
         modes = dict(SERVE_MODES)
         if spl == "tucker":
             modes.update(SERVE_EXTRA_MODES)
@@ -5139,9 +5162,9 @@ def phase_serving(smi: str) -> dict[str, int]:
                 if bf not in refs:
                     cc64, st64 = _f64_reference(spl, False, store, k=k)
                     with torch.inference_mode():
-                        refs[bf] = cc64(st64, torch.as_tensor(x_all[:8])).numpy()
+                        refs[bf] = cc64(st64, torch.as_tensor(x_all[list(SERVE_ROWS)])).numpy()
                     del cc64, st64
-                got = out[:8].double().cpu().numpy()
+                got = out[list(SERVE_ROWS)].double().cpu().numpy()
                 rel = float(np.max(np.abs(got - refs[bf]) / np.abs(refs[bf])))
                 rtol = SERVE_FAST_RTOL if env else 1e-5
                 if not rel <= rtol:
@@ -7071,6 +7094,8 @@ def main() -> int:
                            for tail in ("", "_bwd"))}
     results.update(phase_serving_kernels(EM_MIX_SHAPES, EM_MIX_INSTANCES, linear_only=True,
                                          results=em_rows))
+    phase_serving_kernels(SERVE_BATCH_SHAPES, SERVE_FAST_INSTANCES, forward_only=True,
+                          results=results)
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
     # each kernel's launches, summed over the main-path runs of phases 4-14
     launches = dict.fromkeys(KERNELS, 0)

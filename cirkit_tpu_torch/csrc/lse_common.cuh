@@ -104,29 +104,6 @@ __device__ __forceinline__ void softmax_row_stats(const RT* row, int n, int lane
   *sum_out = s;
 }
 
-// out[r] = the max of row r of the (rows, n) table w (0 for a row that is
-// all -inf, as softmax_row_stats), one warp a row: the fast modes' global
-// softmax shift of the Tucker forwards, whose one pass over the logits
-// otherwise rescales by a running max.
-template <typename WT>
-__global__ void __launch_bounds__(256)
-row_max(const WT* __restrict__ w, float* __restrict__ out, long long rows, int n) {
-  const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (r >= rows) return;  // warp-uniform
-  float m = -INFINITY;
-  for (int k = lane; k < n; k += 32) m = fmaxf(m, widen(w[r * n + k]));
-  m = warp_max(m);
-  if (lane == 0) out[r] = m == -INFINITY ? 0.f : m;
-}
-
-template <typename WT>
-inline cudaError_t launch_row_max(const WT* w, float* out, long long rows, int n,
-                                  cudaStream_t s) {
-  row_max<WT><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(w, out, rows, n);
-  return cudaGetLastError();
-}
-
 // Four neighbouring weights, as float: one 16-byte (float) or 8-byte (bf16)
 // load, aligned to it.
 __device__ __forceinline__ float4 load_w4(const float* p) {

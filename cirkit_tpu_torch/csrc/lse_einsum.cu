@@ -47,7 +47,8 @@
 // 3xTF32 mma.sync: on the f32 CUDA cores the Tucker entry's 52.6 GFLOP take
 // 0.785 ms, in 3xTF32 on the tensor cores 0.319 ms, against 0.245 ms of
 // weight bytes); its design is described above it. wgmma and TMA are left
-// for later.
+// for later. Their fast-mode instances run on the bf16 tensor cores, in
+// csrc/tucker_bf16.cu.
 // The signed squared circuits' TensorDot entries (F = 144, I = O = 32,
 // B*Kq = 4096 rows) do 8 FLOP per element read, so there the work is bound
 // by memory: 302 MB of (a, s) read and (log|y|, sign y) written, 0.090 ms.
@@ -471,13 +472,9 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const WT* __r
 // WT is the weight's storage type: float, or bf16 (the serving store), read
 // 8 bytes for four weights and widened as staged. A bf16 weight is exact in
 // TF32, so its low plane is 0 and its product is dropped: two mma.sync where
-// three ran (logits are not: exp(theta - max) is a full f32). The fast modes
-// (MODE) round E2 and the staged weights to bf16 as they are staged (SR
-// with the bits of their flat indices in x2 and w) and run one mma.sync;
-// e1 multiplies in f32 as before. With logits they take each unit's global
-// row max from ``wmax`` (row_max, launched before) instead of the running
-// max, so each staged exp(theta - max) is the plain version's before it is
-// rounded; the normalizer sums the unrounded values in f32.
+// three ran (logits are not: exp(theta - max) is a full f32). The fast
+// modes' instances run on the bf16 tensor cores instead (tucker_fwd_bf16,
+// csrc/tucker_bf16.cu).
 namespace tk_tc {
 constexpr int BM = 128;    // batch rows a block
 constexpr int BN = 64;     // units a block
@@ -491,22 +488,19 @@ constexpr int Q = BN * JC / 4 / NT_;  // float4 slots a thread stages of a weigh
 constexpr int EQ = BM * JC / 4 / NT_; // float4 slots a thread stages of an E2 chunk (4)
 // E2's two planes, the ring's two buffers of two planes, e1, the shifts and
 // the softmax's factors and normalizers: 90 KB
-// (and the fast modes' row maxes)
-constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 4 * BN);
+constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 3 * BN);
 }  // namespace tk_tc
 
-template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+template <bool SOFTMAX, typename WT = float>
 __global__ void __launch_bounds__(tk_tc::NT_, 2)
 tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
               const float* __restrict__ x2,  // (F, B, K2)
               const WT* __restrict__ w,      // (F, O, K1*K2): weights, or logits for SOFTMAX
               float* __restrict__ out,       // (F, B, O)
-              const float* __restrict__ wmax,  // fast modes with SOFTMAX: (F, O) row maxes
               int B, int K1, int K2, int O, bool vec) {
-  constexpr bool FAST = MODE != cirkit::F32;
-  // which operands keep a low plane: E2 in the f32-grade mode, the staged
-  // weights there too unless they are bf16 weights (exact in TF32)
-  constexpr bool W_SPLIT = !FAST && (SOFTMAX || sizeof(WT) == 4);
+  // the staged weights keep a low plane unless they are bf16 weights (exact
+  // in TF32)
+  constexpr bool W_SPLIT = SOFTMAX || sizeof(WT) == 4;
   // the tile (the file's own BM and BN are the FMA kernel's)
   constexpr int BM = tk_tc::BM, BN = tk_tc::BN, JC = tk_tc::JC, IC = tk_tc::IC, S = tk_tc::S;
   constexpr int NT_ = tk_tc::NT_, NW = tk_tc::NW, RS = tk_tc::RS, Q = tk_tc::Q, EQ = tk_tc::EQ;
@@ -519,7 +513,6 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   float* m2s = m1s + BM;
   float* wscl = m2s + BM;       // softmax: [2][BN], each staged segment's rescale factors
   float* lsum = wscl + 2 * BN;  // softmax: each unit's log-normalizer
-  float* gmax = lsum + BN;      // fast softmax: each unit's row max
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -531,8 +524,6 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   const float* x1f = x1 + (size_t)f * B * K1;
   const float* x2f = x2 + (size_t)f * B * K2;
   const WT* wf = w + (size_t)f * O * I;
-  if (SOFTMAX && FAST)
-    for (int r = tid; r < BN; r += NT_) gmax[r] = o0 + r < O ? wmax[(size_t)f * O + o0 + r] : 0.f;
 
   // Prologue: the clamped row maxes of x1 and x2, the shifts of the whole
   // contraction.
@@ -585,19 +576,7 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
     for (int q = 0; q < Q; ++q) {
       const int r = sr + RS * q;
       float4 v = pw[q];
-      if (FAST) {  // the plain version's staged values, rounded (module note above)
-        if (SOFTMAX) {
-          const float sh = gmax[r];
-          v = make_float4(expf(v.x - sh), expf(v.y - sh), expf(v.z - sh), expf(v.w - sh));
-          part[q] += (v.x + v.y) + (v.z + v.w);
-          if (sc == 0) wscl[buf * BN + r] = 1.f;
-        }
-        const size_t idx = ((size_t)f * O + o0 + r) * I + (size_t)i * K2 + j0 + sc;
-        v = make_float4(round_op<MODE>(v.x, idx, cirkit::ROLE_W),
-                        round_op<MODE>(v.y, idx + 1, cirkit::ROLE_W),
-                        round_op<MODE>(v.z, idx + 2, cirkit::ROLE_W),
-                        round_op<MODE>(v.w, idx + 3, cirkit::ROLE_W));
-      } else if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
+      if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
         float cm = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
 #pragma unroll
         for (int d = 1; d < 8; d <<= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, d));
@@ -616,7 +595,7 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
         split_tf32x4(v, hi, lo);
         *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
         *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
-      } else {  // bf16-valued: exact in TF32
+      } else {  // a bf16 weight: exact in TF32
         *reinterpret_cast<uint4*>(wh + r * S + sc) = make_uint4(
             __float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z), __float_as_uint(v.w));
       }
@@ -646,13 +625,11 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
           for (int e = 0; e < 4; ++e) {
             const int j = j0 + sc + e;
             v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
-            if (FAST)
-              v[e] = round_op<MODE>(v[e], ((size_t)f * B + b) * K2 + j, cirkit::ROLE_E);
           }
           uint4 hi, lo;
           split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
           *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
-          if (!FAST) *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+          *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
         }
       }
       for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
@@ -691,11 +668,6 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
           for (int mt = 0; mt < 2; ++mt) {
             const int o = (wm + 16 * mt + g) * S + kk;
             const uint32_t ah[4] = {E2h[o], E2h[o + 8 * S], E2h[o + 4], E2h[o + 8 * S + 4]};
-            if (FAST) {
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) cirkit::mma_tf32(s[mt][nt], ah, bh[nt]);
-              continue;
-            }
             const uint32_t al[4] = {E2l[o], E2l[o + 8 * S], E2l[o + 4], E2l[o + 8 * S + 4]};
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
@@ -814,26 +786,20 @@ int launch_tucker(const T* x1, const T* x2, const T* w, T* out, int F, int B, in
   return launch<T, true, SOFTMAX>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);
 }
 
-// ``wmax``: the fast modes' (F, O) scratch of the logits' row maxes (null
-// otherwise), written by row_max first.
-template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
-int launch_tucker_tc(const float* x1, const float* x2, const WT* w, float* out, float* wmax,
-                     int F, int B, int K1, int K2, int O, int device, void* stream) {
+template <bool SOFTMAX, typename WT = float>
+int launch_tucker_tc(const float* x1, const float* x2, const WT* w, float* out, int F, int B,
+                     int K1, int K2, int O, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (SOFTMAX && MODE != cirkit::F32) {
-    err = cirkit::launch_row_max<WT>(w, wmax, (long long)F * O, K1 * K2, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  auto kernel = tucker_fwd_tc<SOFTMAX, WT, MODE>;
+  auto kernel = tucker_fwd_tc<SOFTMAX, WT>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(tk_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte (bf16: 8-byte) weight loads where every row segment starts aligned
   const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(WT)) == 0;
   const dim3 grid(F, (O + tk_tc::BN - 1) / tk_tc::BN, (B + tk_tc::BM - 1) / tk_tc::BM);
-  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, s>>>(x1, x2, w, out, wmax, B, K1, K2, O, vec);
+  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, s>>>(x1, x2, w, out, B, K1, K2, O, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -894,23 +860,14 @@ const char* cirkit_cuda_error_string(int err) {
                                        stream, s1, s2, os);                                     \
   }
 
-// the float entries' Tucker launchers, without the fast modes' scratch
-int tucker_tc_plain(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-                    int K1, int K2, int O, int device, void* stream) {
-  return launch_tucker_tc<false>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
-}
-int tucker_tc_softmax(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-                      int K1, int K2, int O, int device, void* stream) {
-  return launch_tucker_tc<true>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
-}
-LSE_FWD_ENTRIES(, float, tucker_tc_plain, tucker_tc_softmax)
+LSE_FWD_ENTRIES(, float, launch_tucker_tc<false>, launch_tucker_tc<true>)
 LSE_FWD_ENTRIES(_f64, double, (launch_tucker<double, false>), (launch_tucker<double, true>))
 #undef LSE_FWD_ENTRIES
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
 // lse forwards (ops/lse_einsum.py's INSTANCES): the dense ones, the mixing
-// sums, on the CUDA cores, the Tucker ones on the tensor cores; the Tucker
-// entry with logits takes the (F, O) row-max scratch after out.
+// sums, on the CUDA cores; the Tucker ones on a bf16 weight on the tensor
+// cores (the fast modes' Tucker instances are csrc/tucker_bf16.cu's).
 #define LSE_FWD_INSTANCES(SUFFIX, WT, MODE)                                                     \
   int lse_fwd_dense##SUFFIX(const float* x, const WT* w, float* out, int F, int B, int I,       \
                             int O, int device, void* stream) {                                  \
@@ -921,17 +878,6 @@ LSE_FWD_ENTRIES(_f64, double, (launch_tucker<double, false>), (launch_tucker<dou
                                     int I, int O, int device, void* stream) {                   \
     return launch<float, false, true, false, WT, MODE>(x, nullptr, theta, out, F, B, I, 0, 1,   \
                                                        O, device, stream);                      \
-  }                                                                                             \
-  int lse_fwd_tucker##SUFFIX(const float* x1, const float* x2, const WT* w, float* out, int F,  \
-                             int B, int K1, int K2, int O, int device, void* stream) {          \
-    return launch_tucker_tc<false, WT, MODE>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device,  \
-                                             stream);                                           \
-  }                                                                                             \
-  int lse_fwd_tucker_softmax##SUFFIX(const float* x1, const float* x2, const WT* theta,         \
-                                     float* out, float* wmax, int F, int B, int K1, int K2,     \
-                                     int O, int device, void* stream) {                         \
-    return launch_tucker_tc<true, WT, MODE>(x1, x2, theta, out, wmax, F, B, K1, K2, O, device,  \
-                                            stream);                                            \
   }
 
 LSE_FWD_INSTANCES(_fast, float, cirkit::BF16)
@@ -939,6 +885,16 @@ LSE_FWD_INSTANCES(_sr, float, cirkit::SR)
 LSE_FWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
 LSE_FWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 LSE_FWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
+
+int lse_fwd_tucker_w16(const float* x1, const float* x2, const __nv_bfloat16* w, float* out,
+                       int F, int B, int K1, int K2, int O, int device, void* stream) {
+  return launch_tucker_tc<false>(x1, x2, w, out, F, B, K1, K2, O, device, stream);
+}
+int lse_fwd_tucker_softmax_w16(const float* x1, const float* x2, const __nv_bfloat16* theta,
+                               float* out, int F, int B, int K1, int K2, int O, int device,
+                               void* stream) {
+  return launch_tucker_tc<true>(x1, x2, theta, out, F, B, K1, K2, O, device, stream);
+}
 #endif
 #undef LSE_FWD_INSTANCES
 

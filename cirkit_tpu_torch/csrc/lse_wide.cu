@@ -41,10 +41,12 @@
 // each), so the warps only load fragments and issue mma instructions;
 // sixteen warps a block, four on each SM sub-partition, since one warp
 // issues TF32 mma.sync at a fraction of the tensor core's rate. Their
-// designs are described above each kernel. The float32 K1-chunked and
-// blocked kernels also have bf16-weight and fast-mode instances (WT, MODE;
-// ops/lse_einsum.py's INSTANCES), which stage the weight as bf16 or round
-// the operands to bf16 and drop the products with their zero low parts.
+// designs are described above each kernel. The float32 K1-chunked kernel
+// also has bf16-weight instances and the blocked kernels bf16-weight and
+// fast-mode instances (WT, MODE; ops/lse_einsum.py's INSTANCES), which stage
+// the weight as bf16 or round the operands to bf16 and drop the products
+// with their zero low parts; the K1-chunked kernel's fast-mode instances run
+// on the bf16 tensor cores (tucker_fwd_bf16, csrc/tucker_bf16.cu).
 // The double instances run the register-tiled FMA loop of
 // csrc/lse_einsum.cu on the CUDA cores: 16-wide chunks staged in shared
 // memory, each thread accumulating a TMxTN tile, the next chunk loaded into
@@ -334,11 +336,10 @@ ct_fwd(const T* __restrict__ x1,  // (F, B, K1)
 // logits have all been -inf so far keeps max -inf, scale 1 and shift 0, so
 // exp(-inf) = 0 and no NaN.
 //
-// WT and MODE as in tucker_fwd_tc (csrc/lse_einsum.cu): a bf16 weight is
-// read 8 bytes for four and its zero low plane dropped (two mma.sync where
-// three ran); the fast modes round E2 and the staged weights to bf16 (SR with
-// the bits of their flat indices in x2 and w) and run one mma.sync, and
-// with logits take each unit's global row max from ``wmax`` (row_max).
+// WT as in tucker_fwd_tc (csrc/lse_einsum.cu): a bf16 weight is read 8
+// bytes for four and its zero low plane dropped (two mma.sync where three
+// ran). The fast modes' instances run on the bf16 tensor cores instead
+// (tucker_fwd_bf16, csrc/tucker_bf16.cu).
 namespace ct_tc {
 constexpr int BM = 128;     // batch rows a block
 constexpr int BN = 128;     // units a block
@@ -351,21 +352,18 @@ constexpr int RS = NT_ / 8;                // staging rows a pass
 constexpr int Q = BN * JC / 4 / NT_;       // float4 slots a thread stages of a chunk (2)
 // E2's two planes, the ring's two buffers of two planes, e1, the shifts and
 // the softmax's factors and normalizers
-// (and the fast modes' row maxes)
-constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 4 * BN);
+constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 3 * BN);
 }  // namespace ct_tc
 
-template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+template <bool SOFTMAX, typename WT = float>
 __global__ void __launch_bounds__(ct_tc::NT_, 1)
 ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
           const float* __restrict__ x2,    // (F, B, K2)
           const WT* __restrict__ w,        // (F, O, K1*K2): weights, or logits for SOFTMAX
           float* __restrict__ out,         // (F, B, O)
-          const float* __restrict__ wmax,  // fast modes with SOFTMAX: (F, O) row maxes
           int B, int K1, int K2, int O, bool vec) {
   using namespace ct_tc;
-  constexpr bool FAST = MODE != cirkit::F32;
-  constexpr bool W_SPLIT = !FAST && (SOFTMAX || sizeof(WT) == 4);
+  constexpr bool W_SPLIT = SOFTMAX || sizeof(WT) == 4;
   extern __shared__ __align__(16) uint32_t ct_smem[];
   uint32_t* E2h = ct_smem;     // [BM][S]: E2's high parts, then its low parts
   uint32_t* E2l = E2h + BM * S;
@@ -375,7 +373,6 @@ ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
   float* m2s = m1s + BM;
   float* wscl = m2s + BM;    // softmax: [2][BN], each staged segment's rescale factors
   float* lsum = wscl + 2 * BN;  // softmax: each unit's log-normalizer
-  float* gmax = lsum + BN;      // fast softmax: each unit's row max
 
   const int f = blockIdx.x;
   const int o0 = blockIdx.y * BN;
@@ -387,8 +384,6 @@ ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
   const float* x1f = x1 + (size_t)f * B * K1;
   const float* x2f = x2 + (size_t)f * B * K2;
   const WT* wf = w + (size_t)f * O * I;
-  if (SOFTMAX && FAST)
-    for (int r = tid; r < BN; r += NT_) gmax[r] = o0 + r < O ? wmax[(size_t)f * O + o0 + r] : 0.f;
 
   // Prologue: the clamped row maxes of x1 and x2 (the shifts of the whole
   // contraction) and, for softmax, each unit's log-normalizer.
@@ -441,19 +436,7 @@ ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
     for (int q = 0; q < Q; ++q) {
       const int r = sr + RS * q;
       float4 v = pw[q];
-      if (FAST) {  // the plain version's staged values, rounded
-        if (SOFTMAX) {
-          const float sh = gmax[r];
-          v = make_float4(expf(v.x - sh), expf(v.y - sh), expf(v.z - sh), expf(v.w - sh));
-          part[q] += (v.x + v.y) + (v.z + v.w);
-          if (sc == 0) wscl[buf * BN + r] = 1.f;
-        }
-        const size_t idx = ((size_t)f * O + o0 + r) * I + (size_t)i * K2 + j0 + sc;
-        v = make_float4(round_op<MODE>(v.x, idx, cirkit::ROLE_W),
-                        round_op<MODE>(v.y, idx + 1, cirkit::ROLE_W),
-                        round_op<MODE>(v.z, idx + 2, cirkit::ROLE_W),
-                        round_op<MODE>(v.w, idx + 3, cirkit::ROLE_W));
-      } else if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
+      if (SOFTMAX) {  // exp(-inf) = 0 past the edges and at logits of -inf
         float cm = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
 #pragma unroll
         for (int d = 1; d < 8; d <<= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, d));
@@ -472,7 +455,7 @@ ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
         split_tf32x4(v, hi, lo);
         *reinterpret_cast<uint4*>(wh + r * S + sc) = hi;
         *reinterpret_cast<uint4*>(wh + (BN + r) * S + sc) = lo;
-      } else {  // bf16-valued: exact in TF32
+      } else {  // a bf16 weight: exact in TF32
         *reinterpret_cast<uint4*>(wh + r * S + sc) = make_uint4(
             __float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z), __float_as_uint(v.w));
       }
@@ -502,13 +485,11 @@ ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
           for (int e = 0; e < 4; ++e) {
             const int j = j0 + sc + e;
             v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
-            if (FAST)
-              v[e] = round_op<MODE>(v[e], ((size_t)f * B + b) * K2 + j, cirkit::ROLE_E);
           }
           uint4 hi, lo;
           split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
           *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
-          if (!FAST) *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+          *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
         }
       }
       for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
@@ -547,11 +528,6 @@ ct_fwd_tc(const float* __restrict__ x1,    // (F, B, K1)
           for (int mt = 0; mt < 2; ++mt) {
             const int o = (wm + 16 * mt + g) * S + kk;
             const uint32_t ah[4] = {E2h[o], E2h[o + 8 * S], E2h[o + 4], E2h[o + 8 * S + 4]};
-            if (FAST) {
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) cirkit::mma_tf32(s[mt][nt], ah, bh[nt]);
-              continue;
-            }
             const uint32_t al[4] = {E2l[o], E2l[o + 8 * S], E2l[o + 4], E2l[o + 8 * S + 4]};
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
@@ -1669,37 +1645,21 @@ int launch_blocked_bwd(const T* x, const T* w, const T* out, const T* m, const T
   return static_cast<int>(cudaGetLastError());
 }
 
-// ``wmax``: the fast modes' (F, O) scratch of the logits' row maxes (null
-// otherwise), written by row_max first.
-template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
-int launch_ct_tc(const float* x1, const float* x2, const WT* w, float* out, float* wmax, int F,
-                 int B, int K1, int K2, int O, int device, void* stream) {
+template <bool SOFTMAX, typename WT = float>
+int launch_ct_tc(const float* x1, const float* x2, const WT* w, float* out, int F, int B, int K1,
+                 int K2, int O, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (SOFTMAX && MODE != cirkit::F32) {
-    err = cirkit::launch_row_max<WT>(w, wmax, (long long)F * O, K1 * K2, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  auto kernel = ct_fwd_tc<SOFTMAX, WT, MODE>;
+  auto kernel = ct_fwd_tc<SOFTMAX, WT>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(ct_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte (bf16: 8-byte) weight loads where every row segment starts aligned
   const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(WT)) == 0;
   const dim3 grid(F, cdiv(O, ct_tc::BN), cdiv(B, ct_tc::BM));
-  kernel<<<grid, ct_tc::NT_, ct_tc::SMEM, s>>>(x1, x2, w, out, wmax, B, K1, K2, O, vec);
+  kernel<<<grid, ct_tc::NT_, ct_tc::SMEM, s>>>(x1, x2, w, out, B, K1, K2, O, vec);
   return static_cast<int>(cudaGetLastError());
-}
-
-// the float entries' launchers, without the fast modes' scratch
-int ct_tc_plain(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-                int K1, int K2, int O, int device, void* stream) {
-  return launch_ct_tc<false>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
-}
-int ct_tc_softmax(const float* x1, const float* x2, const float* w, float* out, int F, int B,
-                  int K1, int K2, int O, int device, void* stream) {
-  return launch_ct_tc<true>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device, stream);
 }
 
 template <typename WT = float, int MODE = cirkit::F32>
@@ -1792,34 +1752,23 @@ extern "C" {
     return BWD(x, w, out, m, g, dx, dw, gy, F, B, I, O, device, stream);                       \
   }
 
-LSE_WIDE_ENTRIES(, float, ct_tc_plain, ct_tc_softmax, launch_blocked_fwd_tc,
+LSE_WIDE_ENTRIES(, float, launch_ct_tc<false>, launch_ct_tc<true>, launch_blocked_fwd_tc,
                  launch_blocked_bwd_tc)
 LSE_WIDE_ENTRIES(_f64, double, (launch_ct<double, false>), (launch_ct<double, true>),
                  launch_blocked_fwd<double>, launch_blocked_bwd<double>)
 #undef LSE_WIDE_ENTRIES
 
-// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
-// K1-chunked Tucker forward (ops/lse_einsum.py's INSTANCES); the entry with
-// logits takes the (F, O) row-max scratch after out.
-#define LSE_CT_INSTANCES(SUFFIX, WT, MODE)                                                      \
-  int lse_fwd_ct##SUFFIX(const float* x1, const float* x2, const WT* w, float* out, int F,      \
-                         int B, int K1, int K2, int O, int device, void* stream) {              \
-    return launch_ct_tc<false, WT, MODE>(x1, x2, w, out, nullptr, F, B, K1, K2, O, device,      \
-                                         stream);                                               \
-  }                                                                                             \
-  int lse_fwd_ct_softmax##SUFFIX(const float* x1, const float* x2, const WT* theta, float* out, \
-                                 float* wmax, int F, int B, int K1, int K2, int O, int device,  \
-                                 void* stream) {                                                \
-    return launch_ct_tc<true, WT, MODE>(x1, x2, theta, out, wmax, F, B, K1, K2, O, device,      \
-                                        stream);                                                \
-  }
-
-LSE_CT_INSTANCES(_fast, float, cirkit::BF16)
-LSE_CT_INSTANCES(_sr, float, cirkit::SR)
-LSE_CT_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
-LSE_CT_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
-LSE_CT_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
-#undef LSE_CT_INSTANCES
+// The bf16-weight (_w16) instances of the float K1-chunked Tucker forward
+// (ops/lse_einsum.py's INSTANCES; the fast modes' are csrc/tucker_bf16.cu's).
+int lse_fwd_ct_w16(const float* x1, const float* x2, const __nv_bfloat16* w, float* out, int F,
+                   int B, int K1, int K2, int O, int device, void* stream) {
+  return launch_ct_tc<false>(x1, x2, w, out, F, B, K1, K2, O, device, stream);
+}
+int lse_fwd_ct_softmax_w16(const float* x1, const float* x2, const __nv_bfloat16* theta,
+                           float* out, int F, int B, int K1, int K2, int O, int device,
+                           void* stream) {
+  return launch_ct_tc<true>(x1, x2, theta, out, F, B, K1, K2, O, device, stream);
+}
 #endif
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float

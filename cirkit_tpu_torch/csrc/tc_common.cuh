@@ -6,7 +6,8 @@
 // 3xTF32 product of fragments split once when they were staged (high and low
 // parts in planes of their own, so each fragment register is loaded where
 // the mma reads it, with no moves between registers), asynchronous copies
-// to shared memory, and accumulator zeroing.
+// to shared memory, and accumulator zeroing; and the bf16 wgmma of the fast
+// modes' Tucker forwards with its shared-memory layout (csrc/tucker_bf16.cu).
 //
 // A fragment of m16n8k8 with g = lane / 4, t = lane % 4: A (16 x 8, rows
 // m, columns k) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B
@@ -23,10 +24,11 @@
 namespace cirkit {
 
 // The speed modes of the float32 kernels (CIRKIT_TPU_FAST, read by the
-// Python wrappers): f32-grade 3xTF32, or one TF32 pass over operands rounded
-// to bf16, to the nearest (BF16) or stochastically (SR). A product of two
-// bf16 values is exact in TF32, so that pass is bf16 x bf16 with f32
-// accumulation.
+// Python wrappers): f32-grade 3xTF32, or one pass over operands rounded to
+// bf16, to the nearest (BF16) or stochastically (SR): on the bf16 tensor
+// cores in the Tucker forwards (csrc/tucker_bf16.cu), one TF32 pass in the
+// other tensor-core kernels. A product of two bf16 values is exact in TF32,
+// so either pass is bf16 x bf16 with f32 accumulation.
 enum Mode : int { F32 = 0, BF16 = 1, SR = 2 };
 // The operand roles of SR's bits (ops/lse_einsum.py's ROLE_*): the forward's
 // exponentials and weights, the backward's gy, weights and exponentials.
@@ -109,6 +111,62 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The bf16 tensor cores through wgmma (the fast modes' Tucker forwards,
+// csrc/tucker_bf16.cu). Operands are K-major bf16 tiles of 128-byte rows
+// (64 values) in shared memory, in the 128-byte swizzle: the 16-byte chunk
+// c of row r sits at chunk c ^ (r % 8) of its row, each tile 1024-byte
+// aligned. sw128 is the byte offset of element (r, c) in such a tile.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+
+// wgmma's matrix descriptor of such a tile at shared address ``saddr``: the
+// 8-row groups 1024 bytes apart (SBO), the 128-byte swizzle; the k16 slice
+// s of the tile is the descriptor plus 2 s (32 bytes).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (the warpgroup's 64 x 64 f32 tile) = a b, plus d where ``acc``: A 64 x
+// 16 and B 16 x 64 from their descriptors. Warp w of the warpgroup holds
+// rows 16 w + g and 16 w + g + 8 (g = lane / 4), d[4 n + 0..1] at columns
+// 8 n + 2 t, + 1 of the first and d[4 n + 2..3] of the second (t = lane %
+// 4), as mma_tf32's accumulator for each n-tile of 8.
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// wgmma's ordering: the fence before a batch (its registers were touched by
+// other instructions), the commit of a group, the wait until at most N
+// groups are pending;
+// and the proxy fence that makes this thread's shared-memory writes (stores
+// and completed cp.async copies) visible to wgmma's reads after a barrier.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // acc += A B over the 8 contraction rows k..k+7 of a staged chunk, 3xTF32:

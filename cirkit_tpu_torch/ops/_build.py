@@ -2,14 +2,17 @@
 
 The sources are compiled at first use by ``nvcc``, one process per source
 (``lse_einsum.cu`` and ``clse_einsum.cu`` in three parts, ``lse_einsum_bwd.cu``
-in five, ``lse_wide.cu`` in two) started together, and linked into a shared
-library with a plain C
-interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``; the signed log-einsum-exp kernels are template instances in
-the lse kernels' two sources, and the complex ones have a source of their
-own. The library goes to ``build/cirkit_tpu_torch/`` at the root of the
-checkout, under a name keyed on a hash of the sources and the flags, so an
-edit rebuilds and an unchanged tree reuses the build.
+in five, ``tucker_bf16.cu`` in four, ``lse_wide.cu`` in two) started
+together, and linked into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), loaded with ``ctypes``; the
+signed log-einsum-exp kernels are template instances in the lse kernels' two
+sources, the complex ones have a source of their own, and so have the fast
+modes' Tucker forwards on the bf16 tensor cores (``tucker_bf16.cu``: the
+``_fast``, ``_sr``, ``_w16_fast`` and ``_w16_sr`` entries of
+``lse_fwd_tucker[_softmax]``, which kernel 5's fast instances launch too). The library goes
+to ``build/cirkit_tpu_torch/`` at the root of the checkout, under a name
+keyed on a hash of the sources and the flags, so an edit rebuilds and an
+unchanged tree reuses the build.
 Nothing here runs when the module is imported.
 """
 
@@ -28,7 +31,8 @@ _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in (
-        "lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu", "clse_einsum.cu"
+        "lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu", "clse_einsum.cu",
+        "tucker_bf16.cu",
     )
 )
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
@@ -36,7 +40,8 @@ _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
 # instances in parts that compile side by side (each part's macro selects
 # its entries), the others whole
 _PARTS = {"lse_einsum.cu": ("CIRKIT_FWD_PART", 3), "lse_einsum_bwd.cu": ("CIRKIT_BWD_PART", 5),
-          "lse_wide.cu": ("CIRKIT_WIDE_PART", 2), "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3)}
+          "lse_wide.cu": ("CIRKIT_WIDE_PART", 2), "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3),
+          "tucker_bf16.cu": ("CIRKIT_BF16_PART", 4)}
 _UNITS = tuple(
     unit
     for src in _SOURCES
@@ -117,18 +122,19 @@ _SIGNATURES["lse_bwd_scratch"] = ((_I,) * 7, ctypes.c_size_t)
 INSTANCES = ("_fast", "_sr", "_w16", "_w16_fast", "_w16_sr")
 """The entry suffixes of the bf16-weight (``_w16``) and fast-mode (``_fast``,
 ``_sr``) instances of kernels 1-7 (float32 activations), which take the
-float entries' arguments, but for the Tucker and K1-chunked lse forwards
-with logits: they take the (F, O) scratch of the logits' row max after the
-output. The routing kernels 8 and 9 have a ``_w16`` instance alone, the
-complex kernels 10 and 11 the fast ones alone (``COMPLEX_INSTANCES``)."""
+float entries' arguments. The K1-chunked Tucker forwards
+(``lse_fwd_ct[_softmax]``) and the routing kernels 8 and 9 have a ``_w16``
+entry alone (kernel 5's fast instances launch the single-pass Tucker
+forwards' entries, one kernel for both), the complex kernels 10 and 11 the
+fast ones alone (``COMPLEX_INSTANCES``)."""
 COMPLEX_INSTANCES = ("_fast", "_sr")
 """The entry suffixes of the complex kernels' fast-mode instances
 (complex64), which take the complex entries' arguments."""
 _SIGNATURES.update({
     f"{name}{sfx}": _SIGNATURES[name]
-    for name in ("lse_fwd_dense", "lse_fwd_dense_softmax", "lse_fwd_tucker", "lse_fwd_ct",
-                 "lse_bwd_dense", "lse_bwd_dense_softmax", "lse_bwd_tucker",
-                 "lse_bwd_tucker_softmax", "lse_fwd_blocked", "lse_bwd_blocked",
+    for name in ("lse_fwd_dense", "lse_fwd_dense_softmax", "lse_fwd_tucker",
+                 "lse_fwd_tucker_softmax", "lse_bwd_dense", "lse_bwd_dense_softmax",
+                 "lse_bwd_tucker", "lse_bwd_tucker_softmax", "lse_fwd_blocked", "lse_bwd_blocked",
                  "slse_fwd_dense", "slse_fwd_dense_softmax", "slse_fwd_tucker",
                  "slse_fwd_tucker_softmax", "slse_bwd_dense", "slse_bwd_dense_softmax",
                  "slse_bwd_tucker", "slse_bwd_tucker_softmax")
@@ -136,11 +142,8 @@ _SIGNATURES.update({
 })
 _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name] for name in ("clse_fwd", "clse_bwd")
                     for sfx in COMPLEX_INSTANCES})
-_SIGNATURES.update({f"{name}_w16": _SIGNATURES[name] for name in ("tropical_tucker", "route_tucker")})
-_SIGNATURES.update({
-    f"{name}{sfx}": ((*(_P,) * 5, *(_I,) * 6, _P), ctypes.c_int)
-    for name in ("lse_fwd_tucker_softmax", "lse_fwd_ct_softmax") for sfx in INSTANCES
-})
+_SIGNATURES.update({f"{name}_w16": _SIGNATURES[name] for name in (
+    "lse_fwd_ct", "lse_fwd_ct_softmax", "tropical_tucker", "route_tucker")})
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None

@@ -57,10 +57,12 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
   unset runs the f32-grade instances (3xTF32 here; float32 FMAs in the
   signed and complex kernels 6, 7, 10 and 11, which run on the CUDA cores);
   ``sr`` stochastically rounds the contraction operands to bf16, any other
-  value rounds them to the nearest bf16; here either runs one TF32 pass
-  over bf16-valued operands, which multiplies them exactly with float32
-  accumulation, and the CUDA-core kernels the same FMAs on bf16-valued
-  operands. A mode applies to float32 (complex64) values only.
+  value rounds them to the nearest bf16; the Tucker forwards (kernels 1
+  and 5) then run their products on the bf16 tensor cores
+  (``csrc/tucker_bf16.cu``), the other tensor-core kernels one TF32 pass
+  over the bf16-valued operands, which multiplies them exactly too, both
+  with float32 accumulation, and the CUDA-core kernels the same FMAs on
+  bf16-valued operands. A mode applies to float32 (complex64) values only.
 
 The rounding points are those of the port's kernels (kernels 6, 7, 10 and
 11: ``ops/slse_einsum.py`` and ``ops/clse_einsum.py``), where the JAX
@@ -70,7 +72,11 @@ shifted exponentials of a dense input, and of a Tucker contraction only
 the tensor-core product (JAX rounds ``e1`` for its repeat selector and then
 ``e1 * e2``); logits round as ``exp(theta - max)`` over the row's global
 max, the normalizer summed unrounded in float32 (JAX rounds the normalized
-row). The backward rounds ``gy`` and the weights of ``s = gy @ w`` and
+row), but for the Tucker forwards, which read the logits once and round
+``exp(theta - r)`` over the unit's running max ``r`` of the tiles of
+``_TUCKER_JC`` columns so far (:func:`_tucker_fast_numerators`; JAX's
+K1-chunked kernel rounds over its running max too). The backward rounds
+``gy`` and the weights of ``s = gy @ w`` and
 ``gy`` and ``e`` (for Tucker ``e1 * e2``) of ``dw = gy^T e``, and the
 blocked dense kernels the same operands, the forward's ``e`` taken over
 the row's running max of the chunks of ``_BLOCKED_KC`` columns so far (the
@@ -141,6 +147,12 @@ _BLOCKED_KC = 32
 """The columns of a chunk of the float32 blocked forward kernel, over whose
 running row max the fast modes round its exponentials: ``blk_tc::KC`` of
 ``csrc/lse_wide.cu``, which must change with it (a test reads it there)."""
+_TUCKER_JC = 64
+"""The columns ``j`` of a chunk of the fast Tucker forwards: ``tb::JC`` of
+``csrc/tucker_bf16.cu``, which must change with it (a test reads it there).
+A tile is one row ``i`` of a chunk; the tiles run chunk by chunk, ``i`` in
+order within each, and the fast modes round the logits over each unit's
+running max of the tiles so far."""
 # the backward kernels' grid tiles (csrc/lse_einsum_bwd.cu): rows per warp
 # pass, and input columns of the dense dx kernel (the other grids are smaller)
 _BWD_ROWS, _BWD_DX_COLS = 8, 64
@@ -267,20 +279,57 @@ def lse_matmul_softmax_ref(x: torch.Tensor, theta: torch.Tensor, mode: str = "")
 
 
 def lse_tucker2_ref(
-    x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, mode: str = ""
+    x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, mode: str = "", *, round_w: bool = True
 ) -> torch.Tensor:
     """The Tucker contraction with the (F, B, K1*K2) outer product
-    materialized, composed from PyTorch ops."""
+    materialized, composed from PyTorch ops; ``round_w=False`` takes ``w``
+    as already rounded in a fast mode."""
     f, b, k1 = x1.shape
     k2 = x2.shape[2]
     m1 = _clamp_max(x1)
     m2 = _clamp_max(x2)
     e2, w = torch.exp(x2 - m2), w.to(x1.dtype)
     if mode:
-        e2, w = round_bf16(e2, mode, ROLE_E), round_bf16(w, mode, ROLE_W)
+        e2 = round_bf16(e2, mode, ROLE_E)
+        w = round_bf16(w, mode, ROLE_W) if round_w else w
     e = torch.exp(x1 - m1)[..., :, None] * e2[..., None, :]
     y = torch.bmm(e.reshape(f, b, k1 * k2), w.transpose(1, 2))
     return torch.log(y) + m1 + m2
+
+
+def _tucker_fast_numerators(
+    theta: torch.Tensor, k2: int, mode: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fast Tucker forwards' weights from logits ``theta`` (F, O, K1*K2)
+    and the log of their normalizer: in each tile (a row ``i`` of a chunk of
+    ``_TUCKER_JC`` columns, chunk by chunk) ``exp(theta - r)`` over the
+    unit's running max ``r`` of the tiles so far (a shift of 0 while it is
+    -inf), rounded (role ``ROLE_W``, the element's flat index in
+    ``theta``), then scaled by ``exp(r - m)`` to the final max ``m``, as the
+    kernels rescale their sums; the normalizer sums the unrounded values so
+    scaled."""
+    f, o, width = theta.shape
+    if width == 0:
+        return theta, torch.full((f, o, 1), -torch.inf, dtype=theta.dtype, device=theta.device)
+    k1, jc = width // k2, _TUCKER_JC
+    nj = -(-k2 // jc)
+    pad = nj * jc - k2
+    th = theta.view(f, o, k1, k2)
+    th = (torch.nn.functional.pad(th, (0, pad), value=-torch.inf) if pad else th).view(
+        f, o, k1, nj, jc)
+    order = th.amax(dim=-1).transpose(2, 3).reshape(f, o, nj * k1)  # the tiles' maxes in order
+    run = torch.cummax(order, dim=-1).values.view(f, o, nj, k1).transpose(2, 3)[..., None]
+    shift = torch.where(run == -torch.inf, torch.zeros_like(run), run)
+    final = shift[:, :, -1:, -1:]  # the last tile's: the row's max, or 0
+    scale = torch.where(run == -torch.inf, torch.zeros_like(run), torch.exp(shift - final))
+
+    def flat(t):  # (F, O, K1, nj, jc or 1) -> (F, O, K1 K2)
+        t = t.expand(f, o, k1, nj, jc).reshape(f, o, k1, nj * jc)
+        return t[..., :k2].reshape(f, o, width)
+
+    num, scale = flat(torch.exp(th - shift)), flat(scale)
+    lz = torch.log((num * scale).sum(dim=-1, keepdim=True))
+    return round_bf16(num, mode, ROLE_W) * scale, lz
 
 
 def lse_tucker2_softmax_ref(
@@ -289,8 +338,8 @@ def lse_tucker2_softmax_ref(
     theta = theta.to(x1.dtype)
     if not mode:
         return lse_tucker2_ref(x1, x2, torch.softmax(theta, dim=-1))
-    num, lz = _softmax_parts(theta)
-    return lse_tucker2_ref(x1, x2, num, mode) - lz.transpose(1, 2)
+    w, lz = _tucker_fast_numerators(theta, x2.shape[2], mode)
+    return lse_tucker2_ref(x1, x2, w, mode, round_w=False) - lz.transpose(1, 2)
 
 
 def _blocked_fast_e(x: torch.Tensor, m: torch.Tensor, mode: str) -> torch.Tensor:
@@ -610,16 +659,13 @@ def _check_weighted(
     return dev, suffix, ("_w16" if w.dtype == torch.bfloat16 else "") + MODE_SUFFIX[mode]
 
 
-# the forward entries that take the (F, O) scratch of the weights' row max
-# in their instances (the fast modes' global softmax shift)
-_ROW_MAX_ENTRIES = ("lse_fwd_tucker_softmax", "lse_fwd_ct_softmax")
-
-
 def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch.Tensor:
     """Check the operands, allocate the output and launch the forward entry
     of ``op`` (in ``mode``, on the weight's type) on the current stream."""
     entry = _ENTRIES[op][0]
     dev, suffix, inst = _check_weighted(op, ins[:-1], ins[-1], mode)
+    if mode:  # kernels 1 and 5 run one fast-mode kernel, under kernel 1's entries
+        entry = entry.replace("lse_fwd_ct", "lse_fwd_tucker")
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
     width = ins[-1].shape[2]  # the kernels index a weight row with an int
@@ -630,11 +676,7 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = ()
-    if inst and entry in _ROW_MAX_ENTRIES:
-        scratch = (torch.empty((f, o), device=dev, dtype=torch.float32).data_ptr() if mode
-                   else None,)
-    args = (*(t.data_ptr() for t in ins), out.data_ptr(), *scratch, *sizes, dev.index, stream)
+    args = (*(t.data_ptr() for t in ins), out.data_ptr(), *sizes, dev.index, stream)
     _call(lib, entry + suffix + inst, op, args)
     LAUNCHES[op + inst] += 1
     return out

@@ -10,14 +10,19 @@ Each ``*.cu`` of each directory is compiled for sm_90a with the flags of
 report has one line per kernel (demangled, with the template arguments
 that turn a variant off, ``false``, dropped from the end, and the scalar
 type ``float`` dropped from the front, so a kernel keeps its name when a
-later tree adds such an argument) and one column per tree:
-``registers/spill stores/spill loads/static shared bytes/SASS digest/HMMA``. The
-digest is the first 10 hex digits of the SHA-256 of the kernel's machine
+later tree adds such an argument) and one column per tree: ``registers/spill
+stores/spill loads/static shared bytes/SASS digest/tensor-core instructions``.
+The digest is the first 10 hex digits of the SHA-256 of the kernel's machine
 code as ``cuobjdump -sass`` lists it, without addresses and encodings and
 with the offsets into the kernel-parameter bank masked (a template flag's
 added parameters move the others): two trees give one digest for a kernel
-when they compile it to the same instructions. HMMA counts the kernel's
-tensor-core instructions (``HMMA``, which a TF32 ``mma.sync`` compiles to).
+when they compile it to the same instructions. The last field counts the
+kernel's tensor-core instructions (``HMMA``, which ``mma.sync`` compiles
+to, and ``HGMMA``, which ``wgmma`` compiles to) by instruction and operand
+type (``HMMA.1688.F32.TF32``: "TF32 HMMA"; ``HGMMA.64x64x16.F32.BF16``:
+"BF16 HGMMA"). A trailing mode argument of 0 (the f32-grade
+mode, a template's default) is dropped from a kernel's name too, so a
+kernel that loses that argument keeps its name.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
 def _sass_digests(obj: Path) -> dict[str, str]:
     """mangled kernel name -> digest of its instructions in ``obj`` and the
-    number of its HMMA instructions, as ``digest/count``."""
+    number of its tensor-core instructions by kind, as ``digest/count (kinds)``."""
     tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
     out = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True,
                          check=True).stdout
@@ -54,9 +59,12 @@ def _sass_digests(obj: Path) -> dict[str, str]:
     for line in [*out.splitlines(), "Function : <end>"]:
         if m := _FUNCTION.search(line):
             if name is not None:
-                hmma = sum(op.startswith("HMMA") for op in body)
+                ops = [op.split()[0] for op in body if op.startswith(("HMMA", "HGMMA"))]
+                kinds = "+".join(
+                    f"{n} {t} {i}" for i in ("HMMA", "HGMMA") for t in ("TF32", "BF16")
+                    if (n := sum(k.startswith(i + ".") and k.endswith(t) for k in ops)))
                 digests[name] = (hashlib.sha256("\n".join(body).encode()).hexdigest()[:10]
-                                 + f"/{hmma}")
+                                 + f"/{len(ops)}" + (f" ({kinds})" if kinds else ""))
             name, body = m.group(1), []
         elif name is not None and (m := _INSTR.search(line)):
             body.append(_PARAM.sub("c[0x0][.]", m.group(1)))
@@ -82,6 +90,7 @@ def _key(name: str) -> str:
     # the scalar type leads the arguments: a float instance keeps the name it
     # had before the kernels became templates over their scalar type
     name = name.replace("<float, ", "<").replace("<float>", "")
+    name = name.removesuffix(", 0>") + (">" if name.endswith(", 0>") else "")
     while name.endswith(", false>"):
         name = name[: -len(", false>")] + ">"
     return name.removesuffix("<false>")

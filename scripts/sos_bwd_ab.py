@@ -39,7 +39,6 @@ from __future__ import annotations
 import ctypes
 import math
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -49,6 +48,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
+
+from ab_turns import in_turns  # noqa: E402
 
 from cirkit_tpu_torch.ops import clse_einsum as C  # noqa: E402
 from cirkit_tpu_torch.ops import lse_einsum as L  # noqa: E402
@@ -79,20 +80,6 @@ def _library(csrc: Path, out: Path) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = (_I,) * n_args, _SIZE
     return lib
-
-
-def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _split(fn, calls: int = 10) -> str:
@@ -190,14 +177,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def in_turns(call) -> dict[str, list[float]]:
-        times = {name: [] for name in libs}
-        for name in order:
-            times[name].append(_median_ms(lambda name=name: call(name)))
-        return times
-
     def report(label, call, grads, rel):
-        times = in_turns(call)
+        times = in_turns(call, libs, order)
         for name in libs:
             call(name)
         torch.cuda.synchronize()

@@ -53,6 +53,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
+from ab_turns import in_turns  # noqa: E402
 from cirkit_tpu_torch.ops import _build  # noqa: E402
 from cirkit_tpu_torch.ops import lse_einsum as L  # noqa: E402
 from cirkit_tpu_torch.ops._build import _SIGNATURES, NVCC_FLAGS, _nvcc  # noqa: E402
@@ -152,9 +153,7 @@ def _kernels(libs, order, gen, stream) -> None:
 
 
 def _report(label, libs, order, call, outs, linear, tol, bound) -> None:
-    times = {name: [] for name in libs}
-    for name in order:
-        times[name].append(CS._median_ms(lambda name=name: call(name)))
+    times = in_turns(call, libs, order)
     for name in libs:
         call(name)
     torch.cuda.synchronize()

@@ -26,7 +26,6 @@ tree, and the card's name and power limit first.
 from __future__ import annotations
 
 import ctypes
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -36,6 +35,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
+
+from ab_turns import in_turns  # noqa: E402
 
 from cirkit_tpu_torch.ops._build import _SIGNATURES, NVCC_FLAGS, _nvcc  # noqa: E402
 
@@ -52,20 +53,6 @@ def _library(csrc: Path, out: Path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _SIGNATURES[name]
     return lib
-
-
-def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -85,12 +72,6 @@ def main() -> int:
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-
-    def in_turns(call) -> dict[str, list[float]]:
-        times = {name: [] for name in libs}
-        for name in ("other", "this", "this", "other"):
-            times[name].append(_median_ms(lambda name=name: call(name)))
-        return times
 
     def fwd_close(got, ref) -> float:
         err = (got - ref).abs()
@@ -112,7 +93,7 @@ def main() -> int:
                                              outs[name].data_ptr(), f, b, kt, kt, kt, 0, stream)
             assert err == 0, err
 
-        times = in_turns(call)
+        times = in_turns(call, libs)
         err = fwd_close(outs["this"], outs["other"])
         for name in libs:
             print(f"{entry:22s} {name:5s} ms {times[name]}  max|this - other| {err:.3e}  "
@@ -131,7 +112,7 @@ def main() -> int:
                                          m_.data_ptr(), f, b, i, k, 0, stream)
         assert err == 0, err
 
-    times = in_turns(blocked)
+    times = in_turns(blocked, libs)
     err = fwd_close(fwd["this"][0], fwd["other"][0])
     assert torch.equal(fwd["this"][1], fwd["other"][1])
     for name in libs:
@@ -152,10 +133,10 @@ def main() -> int:
 
     # the gradients alone first (dx only, dw only), then both
     for need, label in (((True, False), "dx only"), ((False, True), "dw only")):
-        part = in_turns(lambda name, need=need: bwd(name, need))
+        part = in_turns(lambda name, need=need: bwd(name, need), libs)
         for name in libs:
             print(f"{'lse_bwd_blocked':22s} {name:5s} ms {part[name]}  ({label})")
-    times = in_turns(bwd)
+    times = in_turns(bwd, libs)
     torch.cuda.synchronize()
     errs = []
     for got, ref in zip(grads["this"], grads["other"]):

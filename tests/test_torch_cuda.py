@@ -1849,6 +1849,58 @@ def test_chunked_instance_kernels_match_plain(op, sfx, mode, f, b, k1, k2, o):
     _fwd_close(out, ref)
 
 
+# The fast-mode instances of kernels 1 and 5 on the bf16 tensor cores
+# (csrc/tucker_bf16.cu): (F, B, K1, K2, O) of the single-pass ones (the K=64
+# entry; K2 of 20 and 7, ragged k16 steps; K2 = 100, two chunks of 64
+# columns, the last ragged; ragged B and O; F = 1; past a batch of 128 the
+# blocks of 256 rows: the serving batch 512, and 700, whose last block ends
+# in its third warpgroup) and of the K1-chunked ones (the widest K=128 entry,
+# I = 16384, on 8 of its 784 folds, at batch 128 and 512; K2 = 20).
+BF16_TUCKER = {
+    "lse_tucker2": [(784, 128, 64, 64, 64), (2, 130, 9, 20, 70), (1, 13, 5, 7, 1),
+                    (1, 37, 3, 100, 65), (8, 512, 64, 64, 64), (3, 700, 7, 20, 70)],
+    "lse_tucker2_chunked": [(8, 128, 128, 128, 128), (1, 130, 6, 20, 129),
+                            (8, 512, 128, 128, 128)],
+}
+BF16_TUCKER_CASES = [(op.replace("lse_tucker2", f"lse_tucker2{sm}"), case)
+                     for op, cases in BF16_TUCKER.items() for sm in ("", "_softmax")
+                     for case in cases]
+FAST_INSTANCES = [(sfx, mode) for sfx, mode in INSTANCES if mode]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("sfx,mode", FAST_INSTANCES, ids=[s for s, _ in FAST_INSTANCES])
+@pytest.mark.parametrize("key,case", BF16_TUCKER_CASES,
+                         ids=[f"{k}-" + "x".join(map(str, c)) for k, c in BF16_TUCKER_CASES])
+def test_bf16_tucker_instances_match_plain(key, case, sfx, mode, offset):
+    """Each fast-mode Tucker instance (linear and logits, float32 and bf16
+    weights, kernels 1 and 5) against its plain version in its mode, to the
+    forward bound, at the edges of ``_single_edges`` (rows of x1 and of x2
+    that are all -inf give -inf and no NaN), on a weight 16-byte aligned (the
+    ring of copies) and one element off (read element by element); a second
+    call equal to the bit (``sr`` included), and the launch on the bf16
+    kernel alone."""
+    op = key.removesuffix("_chunked")
+    f, b, k1, k2, o = case
+    ins = _single_edges(op, _inputs(op, f, b, o, k1=k1, k2=k2))
+    if sfx.startswith("_w16"):
+        ins[2] = ins[2].to(torch.bfloat16)
+    if offset:
+        ins[2] = _offset(ins[2])
+    got = T._launch_fwd(key, tuple(ins), mode)
+    again = T._launch_fwd(key, tuple(ins), mode)
+    ref = T._ENTRIES[key][2](*ins, mode=mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[key + sfx] == 2
+    _fwd_close(got, ref)
+    assert torch.equal(got, again)
+    assert torch.isneginf(got[0, 2]).all() and torch.isneginf(got[-1, 1]).all()
+    if f == 1:
+        names = _fwd_kernel_names(lambda: T._launch_fwd(key, tuple(ins), mode))
+        assert any("tucker_fwd_bf16" in n for n in names), names
+        assert not any("_fwd_tc" in n for n in names), names
+
+
 def test_fast_mode_and_bf16_store_through_the_ops(monkeypatch):
     """The public ops read ``CIRKIT_TPU_FAST`` at each call and take a bf16
     weight as it is; the weight's gradient comes back bf16; ``sr`` repeats

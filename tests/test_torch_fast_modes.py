@@ -195,6 +195,76 @@ def test_sr_mode_repeats_and_holds_the_fast_bound(op, monkeypatch):
         _held(f"{op} sr grad", g.numpy(), rg.numpy(), GRAD_TOL, scale=True)
 
 
+def _tiles_in_order(x1, x2, theta, mode):
+    """The fast Tucker forward with logits tile by tile, as the kernels of
+    ``csrc/tucker_bf16.cu`` run it: chunks of ``_TUCKER_JC`` columns, a row
+    ``i`` of a chunk a tile; each unit's running max raised by the tile's,
+    its float64 sums and normalizer shrunk by ``exp(old - new)``, the tile's
+    ``exp(theta - max)`` rounded at its flat index in ``theta``."""
+    f, b, k1 = x1.shape
+    k2, o = x2.shape[2], theta.shape[1]
+    e1 = torch.exp(x1 - T._clamp_max(x1)).double()
+    e2 = T.round_bf16(torch.exp(x2 - T._clamp_max(x2)), mode, T.ROLE_E).double()
+    run = torch.full((f, o), -torch.inf)
+    acc = torch.zeros((f, b, o), dtype=torch.float64)
+    z = torch.zeros((f, o), dtype=torch.float64)
+    th = theta.view(f, o, k1, k2)
+    for j0 in range(0, k2, T._TUCKER_JC):
+        cols = slice(j0, j0 + T._TUCKER_JC)
+        for i in range(k1):
+            seg = th[:, :, i, cols]
+            new = torch.maximum(run, seg.amax(dim=-1))
+            scl = torch.where(new == -torch.inf, 1.0, torch.exp(run - new)).double()
+            ex = torch.exp(seg - torch.where(new == -torch.inf, 0.0, new)[..., None])
+            run = new
+            z = z * scl + ex.double().sum(dim=-1)
+            staged = torch.zeros_like(th)
+            staged[:, :, i, cols] = ex
+            r = T.round_bf16(staged.view(f, o, k1 * k2), mode, T.ROLE_W).view(f, o, k1, k2)
+            s = torch.einsum("fbj,foj->fbo", e2[:, :, cols], r[:, :, i, cols].double())
+            acc = acc * scl[:, None, :] + e1[:, :, i, None] * s
+    shift = T._clamp_max(x1) + T._clamp_max(x2)
+    return torch.log(acc) - torch.log(z)[:, None, :] + shift.double()
+
+
+@pytest.mark.parametrize("mode", ["bf16", "sr"])
+@pytest.mark.parametrize("k1,k2", [(4, 20), (3, 64), (3, 130)], ids=["k2-20", "k2-64", "k2-130"])
+def test_fast_tucker_logits_round_over_the_tiles_running_max(k1, k2, mode):
+    """The plain fast Tucker forward with logits (the single-pass and the
+    K1-chunked one) rounds what the kernels round: ``exp(theta - r)`` over
+    each unit's running max of the tiles so far, in the kernels' tile order
+    (K2 of one chunk, a whole one, and three with a ragged last), held to the
+    tile-by-tile run in float64 sums to float32's rounding; with a unit whose
+    first tile is all -inf, one whose max rises tile by tile and one whose
+    logits are -inf but in the last tile."""
+    rng = np.random.default_rng(7)
+    x1 = torch.as_tensor((rng.normal(size=(2, 5, k1)) * 3.0 - 2.0).astype(np.float32))
+    x2 = torch.as_tensor((rng.normal(size=(2, 5, k2)) * 3.0 - 2.0).astype(np.float32))
+    theta = torch.as_tensor(rng.normal(size=(2, 4, k1 * k2)).astype(np.float32))
+    theta[0, 0, :k2] = -torch.inf
+    theta[0, 1] += torch.linspace(-20.0, 20.0, k1 * k2)
+    theta[1, 2, :-1] = -torch.inf
+    got = T.lse_tucker2_softmax_ref(x1, x2, theta, mode)
+    want = _tiles_in_order(x1, x2, theta, mode)
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-5, atol=2e-5)
+    f64 = T.lse_tucker2_softmax_ref(x1.double(), x2.double(), theta.double())
+    _held(f"running max {mode}", got.numpy(), f64.numpy(), FWD_TOL)
+
+
+def test_tucker_chunk_width_matches_the_kernel():
+    """The plain fast Tucker forward's tiles are ``_TUCKER_JC`` columns wide,
+    the chunk width ``tb::JC`` of ``csrc/tucker_bf16.cu``: a kernel with
+    other tiles would round over other running maxes."""
+    import re
+    from pathlib import Path
+
+    src = (Path(T.__file__).parent.parent / "csrc" / "tucker_bf16.cu").read_text()
+    ns = src[src.index("namespace tb {"):]
+    ns = ns[:ns.index("}  // namespace tb")]
+    assert re.search(r"constexpr int JC = (\d+);", ns).group(1) == str(T._TUCKER_JC)
+
+
 def test_sr_bits_are_a_stateless_hash():
     """The bits depend on the flat index and the operand's role only, use
     the full 16-bit range, and round a value up with the probability of its
