@@ -473,7 +473,7 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     # Tucker flagship's mixing weights are computed from it in float32; the
     # fast modes' Tucker instances run on the bf16 tensor cores, in
     # tucker_bf16.cu), and of kernel 2 that the backward through a bf16 store
-    # launches
+    # launches (its fast Tucker instances in tucker_bf16_bwd.cu)
     "lse_tucker2_softmax_w16": (_CSRC + "lse_einsum.cu", _PALLAS + "335"),
     **{f"lse_tucker2_softmax{sfx}": (_CSRC + "tucker_bf16.cu", _PALLAS + "335")
        for sfx in ("_fast", "_sr", "_w16_fast", "_w16_sr")},
@@ -488,9 +488,10 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     "lse_tucker2_softmax_chunked_w16": (_CSRC + "lse_wide.cu", _PALLAS + "738"),
     **{f"lse_tucker2_softmax_chunked{sfx}": (_CSRC + "tucker_bf16.cu", _PALLAS + "738")
        for sfx in ("_fast", "_sr", "_w16_fast", "_w16_sr")},
+    **{key: (_CSRC + "tucker_bf16_bwd.cu", _PALLAS + "350")
+       for key in ("lse_tucker2_softmax_w16_fast_bwd", "lse_tucker2_softmax_w16_sr_bwd")},
     **{key: (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
-       for key in ("lse_tucker2_softmax_w16_fast_bwd", "lse_tucker2_softmax_w16_sr_bwd",
-                   "lse_matmul_fast_bwd", "lse_matmul_sr_bwd")},
+       for key in ("lse_matmul_fast_bwd", "lse_matmul_sr_bwd")},
     # phase 17's paths: the bf16-weight and fast-mode instances of the blocked
     # dense forward and backward (kernels 3' and 4') that the unoptimized
     # K=128 flagships launch, from a bf16 store (its Dirichlet weights) and
@@ -1809,7 +1810,7 @@ _KERNEL_CATEGORIES = (
     ("forward kernel", ("lse_fwd", "tucker_fwd")),
     ("backward kernel", ("bwd_prep", "softmax_weights", "lse_bwd_dx", "lse_bwd_dw",
                          "softmax_vjp", "tc_softmax_stats", "tc_dx", "tc_dw", "tucker_dx_finish",
-                         "bwd_narrow", "sum_partials", "split_finish")),
+                         "bwd_narrow", "sum_partials", "split_finish", "tucker_bwd", "tbw_")),
     ("foreach optimizer", ("multi_tensor_apply",)),
     ("copies and gathers", ("copy", "cat", "index", "gather", "scatter")),
 )
@@ -4870,7 +4871,8 @@ SERVE_INSTANCES = (("_w16", ""), ("_fast", "bf16"), ("_sr", "sr"), ("_w16_fast",
 # Tucker kinds and (I, O) for the dense one; the flagship's largest Tucker
 # entry, a mixing sum, the dense I=4096 sum, kernel 5 at K=128, then edges
 # (ragged B, O of 1 and 65, K2 of 30 and 36: no 16-byte loads of f32 or bf16
-# rows in the dx kernel, a K1 the chunk rows do not divide)
+# rows in the dx kernel, a K1 the chunk rows do not divide), and the TP
+# shard's O=32
 SERVE_SHAPES = (
     ("F=784 B=128 K1=K2=O=64", "tucker", 784, 128, (64, 64, 64)),
     ("F=196 B=128 I=128 O=64", "dense", 196, 128, (128, 64)),
@@ -4880,6 +4882,7 @@ SERVE_SHAPES = (
     ("F=2 B=33 K1=8 K2=36 O=1", "tucker", 2, 33, (8, 36, 1)),
     ("F=3 B=13 I=37 O=1", "dense", 3, 13, (37, 1)),
     ("F=2 B=130 K1=40 K2=24 O=70", "chunked", 2, 130, (40, 24, 70)),
+    ("F=784 B=128 K1=K2=64 O=32 (a TP shard)", "tucker", 784, 128, (64, 64, 32)),
 )
 # phase 17a's other dense entries, the EM-ready K=128 flagship's mixing sums
 # (and its root) on bf16 Dirichlet weights: kernels 1 and 2's linear bf16
@@ -4892,10 +4895,11 @@ EM_MIX_SHAPES = (
 )
 EM_MIX_INSTANCES = tuple((sfx, mode) for sfx, mode in SERVE_INSTANCES if sfx.startswith("_w16"))
 # the serving batch: the fast Tucker forwards past a batch of 128 run blocks
-# of 256 rows (four warpgroups, csrc/tucker_bf16.cu), so the fast instances
-# are held at the K=64 entry and at a K=128 one at batch 512 (two such
-# blocks) and at a batch that ends in a part block; forward only, as 15b
-# serves
+# of 256 rows (four warpgroups, csrc/tucker_bf16.cu), and their backward a
+# dx launch over batch tiles of 128 rows and a dW launch whose blocks walk
+# them (csrc/tucker_bf16_bwd.cu), so the fast instances are held at the K=64
+# entry and at a K=128 one at batch 512 (two forward blocks, four tiles) and
+# at a batch that ends in a part block, forward and backward
 SERVE_BATCH_SHAPES = (
     ("F=784 B=512 K1=K2=O=64", "tucker", 784, 512, (64, 64, 64)),
     (f"F=196 B=512 K1=K2=O={WIDE_K}", "chunked", 196, 512, (WIDE_K, WIDE_K, WIDE_K)),
@@ -4956,10 +4960,11 @@ def _serve_bound(key: str, ins, mode: str, extra: int = 0) -> tuple[float, str]:
     the blocked kernels' row max) over the memory rate,
     or its sums of products on the tensor cores: in a fast mode products of
     bf16 values, once at the bf16 rate (the Tucker forwards of kernels 1 and
-    5 run them on the bf16 tensor cores; the backward, kernel 2, as one TF32
-    pass, which is exact for them, at half that rate); otherwise at the TF32
-    rate, two passes where a bf16 weight drops its low part, three (3xTF32)
-    where it does not."""
+    5 and their backward run them on the bf16 tensor cores; the dense
+    backward, kernel 2, as one TF32 pass, which is exact for them, at half
+    that rate); otherwise at the TF32 rate, two passes where a bf16 weight
+    drops its low part, three (3xTF32) where it does not. A backward writes
+    a gradient of each input's size (the weight's in its type)."""
     *xs, w = ins
     f, b = xs[0].shape[:2]
     o, i = w.shape[1:]
@@ -4977,17 +4982,47 @@ def _serve_bound(key: str, ins, mode: str, extra: int = 0) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _serve_grads(bkey: str, label: str, needs, grads, refs, w_dtype) -> float:
+    """Phase 3b's bound on each gradient asked for (the others None), the
+    weight's in ``w_dtype``: a bf16 gradient (the fast Tucker instances on
+    a bf16 weight) is the round-to-nearest of its float32 sum, so it may be
+    off by half a bf16 step more, up to 2^-8 |plain|. The largest error."""
+    import torch
+
+    worst = 0.0
+    names = ("dx1", "dx2", "dw") if len(grads) == 3 else ("dx", "dw")
+    for name, need, d, r in zip(names, needs, grads, refs):
+        if (d is None) != (not need):
+            raise AssertionError(f"{bkey} [{label}] {name}: asked {need}, got {d is not None}")
+        if d is None:
+            continue
+        want = w_dtype if name == "dw" else torch.float32
+        if d.dtype != want:
+            raise AssertionError(f"{bkey} [{label}] {name}: {d.dtype}, {want} expected")
+        err = (d.float() - r).abs()
+        bound = BWD_REL * (float(r.abs().max()) + r.abs())
+        if d.dtype == torch.bfloat16:
+            bound = bound + 2.0**-8 * r.abs()
+        if not bool((err <= bound).all()) or bool(torch.isnan(d).any()):
+            raise AssertionError(f"{bkey} [{label}] {name}: max|err| "
+                                 f"{float(err.max()):.3e} over the bound")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
 def phase_serving_kernels(shapes=SERVE_SHAPES, instances=SERVE_INSTANCES, *,
-                          linear_only: bool = False, forward_only: bool = False,
+                          linear_only: bool = False,
                           results: dict[str, dict] | None = None) -> dict[str, dict]:
     """15a: each bf16-weight and fast-mode instance of kernels 1, 2 and 5
     against its plain version in its mode on the same card inputs (forward:
-    the phase 3 bound in log space; backward: phase 3b's), timed at its
-    first shape; at the flagship's Tucker entry each mode's max and mean
-    signed error of the forward against float64. ``linear_only`` skips the
-    softmax ops, ``forward_only`` the backward; ``results`` are rows to
-    extend (an instance whose row has no ``ms`` yet is timed at its first
-    shape here)."""
+    the phase 3 bound in log space; backward: phase 3b's, ``_serve_grads``),
+    timed at its first shape; at the flagship's Tucker entry each mode's max
+    and mean signed error of the forward against float64. The fast Tucker
+    backward (kernel 2's fast Tucker instances, kernel 5's backward too) is
+    also held at the K1-chunked shapes, and at the Tucker ones with dx alone
+    and dW alone; it is timed at K=128 too (``k128_*``). ``linear_only``
+    skips the softmax ops; ``results`` are rows to extend (an instance whose
+    row has no ``ms`` yet is timed at its first shape here)."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
@@ -4996,6 +5031,7 @@ def phase_serving_kernels(shapes=SERVE_SHAPES, instances=SERVE_INSTANCES, *,
     for label, kind, f, b, dims in shapes:
         base = ("lse_tucker2", "lse_tucker2_softmax") if kind != "dense" else (
             "lse_matmul", "lse_matmul_softmax")
+        wide = kind == "chunked" and f"K1=K2=O={WIDE_K}" in label
         for op in base[:1] if linear_only else base:
             f64_ref = None
             for sfx, mode in instances:
@@ -5030,41 +5066,57 @@ def phase_serving_kernels(shapes=SERVE_SHAPES, instances=SERVE_INSTANCES, *,
                     line += (f"; against float64: max {float(d.abs().max()):.3e}, mean signed "
                              f"{float(d.mean()):.3e}")
                 print(line)
-                if kind != "chunked" and not forward_only:  # kernel 5's backward is kernel 2's
+                # the backward of the K1-chunked forward is kernel 2's: held there
+                # for the fast Tucker instances, which take one kernel for both
+                fast_tucker = kind != "dense" and bool(mode)
+                if kind != "chunked" or fast_tucker:
                     g = torch.randn(got.shape, generator=torch.Generator(device=DEV).manual_seed(1),
                                     device=DEV)
-                    needs = (True,) * len(ins)
-                    with torch.inference_mode():
-                        grads = L._launch_bwd(op, tuple(ins), got, g, needs, mode)
-                        refs = L._ENTRIES[op][3](*ins, got, g, needs, mode)
-                        torch.cuda.synchronize()
+                    every = (True,) * len(ins)
+                    calls = [every]
+                    if fast_tucker and kind == "tucker":
+                        calls += [(True, True, False), (False, False, True)]
                     bkey = f"{op}{sfx}_bwd"
+                    w_dtype = ins[-1].dtype if fast_tucker else torch.float32
                     worst = 0.0
-                    for name, d, r in zip(("dx1", "dx2", "dw") if len(ins) == 3 else ("dx", "dw"),
-                                          grads, refs):
-                        err = (d - r).abs()
-                        bound = BWD_REL * (float(r.abs().max()) + r.abs())
-                        if not bool((err <= bound).all()) or bool(torch.isnan(d).any()):
-                            raise AssertionError(f"{bkey} [{label}] {name}: max|err| "
-                                                 f"{float(err.max()):.3e} over the bound")
-                        worst = max(worst, float(err.max()))
+                    for needs in calls:
+                        with torch.inference_mode():
+                            grads = L._launch_bwd(op, tuple(ins), got, g, needs, mode)
+                            refs = L._ENTRIES[op][3](*ins, got, g, needs, mode)
+                            torch.cuda.synchronize()
+                        worst = max(worst, _serve_grads(bkey, label, needs, grads, refs, w_dtype))
+                        del grads, refs
                     entry = results.setdefault(bkey, {"max_abs_err": 0.0})
                     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
                     line = f"[serve] {bkey:36s} {label:28s} max|err|={worst:.3e}"
+                    if len(calls) > 1:
+                        line += " (full, dx alone, dW alone)"
+
+                    def kernel():
+                        return L._launch_bwd(op, tuple(ins), got, g, every, mode)
+
+                    def plain():
+                        return L._ENTRIES[op][3](*ins, got, g, every, mode)
+
                     if "ms" not in entry:
                         with torch.inference_mode():
-                            entry["ms"] = _median_ms(
-                                lambda: L._launch_bwd(op, tuple(ins), got, g, needs, mode))
-                            entry["plain_ms"] = _median_ms(
-                                lambda: L._ENTRIES[op][3](*ins, got, g, needs, mode), warmup=1,
-                                iters=3)
+                            entry["ms"] = _median_ms(kernel)
+                            entry["plain_ms"] = _median_ms(plain, warmup=1, iters=3)
                         entry["bound_ms"], entry["bound_by"] = _serve_bound(bkey, ins, mode)
                         entry["tc_bound_ms"] = entry["bound_ms"]
                         entry["shape"] = label
                         line += (f"  kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} "
                                  f"ms, bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+                    elif wide and "k128_ms" not in entry:  # the plain version once: seconds
+                        with torch.inference_mode():
+                            entry["k128_ms"] = _median_ms(kernel)
+                            entry["k128_plain_ms"] = _median_ms(plain, warmup=0, iters=1)
+                        entry["k128_bound_ms"], _ = _serve_bound(bkey, ins, mode)
+                        line += (f"  kernel {entry['k128_ms']:.3f} ms, plain "
+                                 f"{entry['k128_plain_ms']:.3f} ms, bound "
+                                 f"{entry['k128_bound_ms']:.3f} ms")
                     print(line)
-                    del grads, refs, g
+                    del g
                 del ins, got, ref
             del f64_ref
             gc.collect()
@@ -5097,7 +5149,7 @@ def _fast_env(value: str):
 
 
 def phase_serving(smi: str) -> dict[str, int]:
-    """15b-15e: the serving path of the flagships; returns each kernel's
+    """15b-15f: the serving path of the flagships; returns each kernel's
     launches over the counted (main-path) calls."""
     import numpy as np
     import torch
@@ -5181,6 +5233,8 @@ def phase_serving(smi: str) -> dict[str, int]:
         if spl == "tucker" and k == FLAGSHIP_K:
             _serving_backward(cc, ctx, stores[True], x_all, launches, smi)
             _serving_export(cc, stores, x_all, smi)
+        if spl == "tucker" and k == WIDE_K:
+            _serving_backward_wide(cc, stores[True], x_all, launches, smi)
         del sc, ctx, cc, st32, stores
         gc.collect()
         torch.cuda.empty_cache()
@@ -5195,7 +5249,8 @@ def _serving_backward(cc, ctx, store, x_all, launches, smi) -> None:
     """15c: one backward of the K=64 Tucker flagship's mean NLL through the
     bf16 store under ``bf16`` and ``sr``, its gradients against float64 on the
     CPU within FAST_GRAD_REL max(1, max|slot|), and (sr) repeating to the
-    bit."""
+    bit; then each mode's forward and backward at batch 128 timed (median of
+    5) with its device split."""
     import torch
 
     from cirkit_tpu_torch.ops import lse_einsum as L
@@ -5239,6 +5294,73 @@ def _serving_backward(cc, ctx, store, x_all, launches, smi) -> None:
               f"slots' gradients (dtype {grads[0][next(iter(want))].dtype}) on {GRAD_ROWS} rows, "
               f"worst error {worst:.3f} of {FAST_GRAD_REL} max(1, max|slot|); repeats "
               f"to the bit: {same} ({smi})")
+        del grads
+        with _fast_env(env):
+            ms, split = _timed_gradients(cc, tr, fr, torch.as_tensor(x_all[:BATCH], device=DEV))
+        print(f"[serve] forward and backward through the bf16 store at batch {BATCH}, "
+              f"CIRKIT_TPU_FAST={env}: {ms:.3f} ms median of 5; {split} ({smi})")
+
+
+def _gradients(cc, tr, fr, x) -> dict:
+    """The gradients of the mean NLL of ``x`` with respect to the slots
+    ``tr`` (``fr`` held)."""
+    import torch
+
+    t = {k: v.detach().requires_grad_() for k, v in tr.items()}
+    loss = -cc.evaluate({**t, **fr}, x).mean()
+    return dict(zip(t, torch.autograd.grad(loss, list(t.values()))))
+
+
+def _timed_gradients(cc, tr, fr, x) -> tuple[float, str]:
+    """The ms of one forward and backward (``_gradients``), median of 5, and
+    its device split (``_device_breakdown`` over 3 calls)."""
+    fn = lambda: _gradients(cc, tr, fr, x)  # noqa: E731
+    return _median_ms(fn, warmup=1, iters=5), _device_breakdown(fn, 3)
+
+
+def _serving_backward_wide(cc, store, x_all, launches, smi) -> None:
+    """15f: one backward of the K=128 ``optimize=True`` Tucker flagship's mean
+    NLL at batch 128 through its bf16 store under ``CIRKIT_TPU_FAST=1`` (the
+    fast Tucker backward at K1 = K2 = O = 128, kernel 5's), each slot's
+    gradient (bf16) within FAST_GRAD_REL max(1, max|slot|) of the same
+    store's f32-grade backward on the card, launches counted; then timed
+    (median of 5, forward and backward) with its device split."""
+    import torch
+
+    from cirkit_tpu_torch.ops import lse_einsum as L
+    from cirkit_tpu_torch.parallel import split_trainable
+
+    x = torch.as_tensor(x_all[:BATCH], device=DEV)
+    tr, fr = split_trainable(cc, store)
+    with _fast_env(""):
+        want = _gradients(cc, tr, fr, x)
+    with _fast_env("1"):
+        before = dict(L.LAUNCHES)
+        got = _gradients(cc, tr, fr, x)
+        torch.cuda.synchronize()
+        for op in L.LAUNCHES:
+            launches[op] += L.LAUNCHES[op] - before[op]
+        if not L.LAUNCHES["lse_tucker2_softmax_w16_fast_bwd"] > before[
+                "lse_tucker2_softmax_w16_fast_bwd"]:
+            raise AssertionError("[serve] K=128 backward: no fast Tucker backward launched")
+        worst = 0.0
+        for k, r in want.items():
+            gk = got[k]
+            if gk.dtype != store[k].dtype or not bool(torch.isfinite(gk).all()):
+                raise AssertionError(f"[serve] K=128 backward: {k} gradient {gk.dtype}, or "
+                                     "not finite")
+            err = float((gk.float() - r.float()).abs().max())
+            share = err / (FAST_GRAD_REL * max(1.0, float(r.float().abs().max())))
+            if not share <= 1.0:
+                raise AssertionError(f"[serve] K=128 backward: {k} off by {err:.3e}, "
+                                     f"shape {tuple(r.shape)}")
+            worst = max(worst, share)
+        del want, got
+        ms, split = _timed_gradients(cc, tr, fr, x)
+    print(f"[serve] tucker K={WIDE_K} forward and backward through the bf16 store at batch "
+          f"{BATCH}, CIRKIT_TPU_FAST=1: {ms:.3f} ms median of 5, worst slot "
+          f"{worst:.3f} of {FAST_GRAD_REL} max(1, max|slot|) against the f32-grade backward "
+          f"on the card; {split} ({smi})")
 
 
 _EXPORT_CHILD = r"""
@@ -7094,8 +7216,7 @@ def main() -> int:
                            for tail in ("", "_bwd"))}
     results.update(phase_serving_kernels(EM_MIX_SHAPES, EM_MIX_INSTANCES, linear_only=True,
                                          results=em_rows))
-    phase_serving_kernels(SERVE_BATCH_SHAPES, SERVE_FAST_INSTANCES, forward_only=True,
-                          results=results)
+    phase_serving_kernels(SERVE_BATCH_SHAPES, SERVE_FAST_INSTANCES, results=results)
     print(f"[time] kernels against plain done at {time.perf_counter() - t_start:.0f} s")
     # each kernel's launches, summed over the main-path runs of phases 4-14
     launches = dict.fromkeys(KERNELS, 0)
@@ -7166,6 +7287,12 @@ def main() -> int:
             # torch.bmm on complex tensors contracts, but computes neither the
             # shifted exponentials nor the logarithm of the complex ops
             "library_ms": None,
+            # the fast Tucker backward (tucker_bf16_bwd.cu) at K=128 too (15a),
+            # and the f32-grade kernel 2 with logits at both widths (phase 3b)
+            **({k: results[op][k] for k in ("k128_ms", "k128_plain_ms", "k128_bound_ms")}
+               | {"f32_grade_ms": results["lse_tucker2_softmax_bwd"]["ms"],
+                  "f32_grade_k128_ms": results["lse_tucker2_softmax_bwd"].get("k128_ms")}
+               if source.endswith("tucker_bf16_bwd.cu") else {}),
         }
         for op, (source, replaces) in KERNELS.items()
     ]

@@ -707,7 +707,10 @@ softmax_vjp(const T* __restrict__ w, T* __restrict__ dw, int O, int I) {
 // Each kernel here is also a template over the weight's storage type WT
 // (float, or bf16, the serving store: read widened; a bf16 weight is exact
 // in TF32, so the dx products with it drop its zero low part, two mma.sync
-// where three ran) and the speed mode MODE (tc_common.cuh). The fast modes
+// where three ran) and the speed mode MODE (tc_common.cuh); the Tucker
+// kernels run the f32-grade mode alone, since the fast Tucker instances are
+// tucker_bwd_bf16 (csrc/tucker_bf16_bwd.cu), and their rounding code stays
+// as it was so that those instances keep their machine code. The fast modes
 // round gy and the weights of s = gy @ w, and gy and e (Tucker: e1 * e2) of
 // dw = gy^T e, to bf16 where they are staged or read (SR with the bits of
 // their flat indices in gy, w and the (F, B, I) e), form every rounded
@@ -2027,6 +2030,7 @@ int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* ou
                   const float* g, float* dxa, float* dxb, float* dw, float* sa, float* sb,
                   float* gy, float* ws, int F, int B, int I, int K1, int K2, int O, int device,
                   void* stream) {
+  static_assert(!TUCKER || MODE == cirkit::F32, "the fast Tucker backward is tucker_bwd_bf16's");
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2047,7 +2051,7 @@ int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* ou
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dxa != nullptr || dxb != nullptr) {
-    if (TUCKER) {
+    if constexpr (TUCKER) {
       const int n_bt = static_cast<int>(cdiv(B, tc_dx::BM));
       const int n_jt = static_cast<int>(cdiv(K2, tc_dx::BN));
       const int n_it = static_cast<int>(cdiv(K1, tc_tucker::I_PER));
@@ -2213,7 +2217,9 @@ SLSE_BWD_ENTRIES(_f64, double)
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
 // lse backward (ops/lse_einsum.py's INSTANCES), with the float entries'
-// arguments; the weight's gradient is written in f32.
+// arguments; the weight's gradient is written in f32. The Tucker entries are
+// the _w16 ones alone: the fast Tucker instances are in
+// csrc/tucker_bf16_bwd.cu.
 #define LSE_BWD_INSTANCES(SUFFIX, WT, MODE)                                                     \
   int lse_bwd_dense##SUFFIX(const float* x, const WT* w, const float* out, const float* g,      \
                             float* dx, float* dw, float* sa, float* gy, int F, int B, int I,    \
@@ -2229,7 +2235,8 @@ SLSE_BWD_ENTRIES(_f64, double)
     return launch_bwd_tc<false, true, WT, MODE>(x, nullptr, theta, out, g, dx, nullptr,         \
                                                 dtheta, sa, nullptr, gy, ws, F, B, I, I, 1, O,  \
                                                 device, stream);                                \
-  }                                                                                             \
+  }
+#define LSE_BWD_TUCKER_INSTANCES(SUFFIX, WT, MODE)                                              \
   int lse_bwd_tucker##SUFFIX(const float* x1, const float* x2, const WT* w, const float* out,   \
                              const float* g, float* dx1, float* dx2, float* dw, float* sa,      \
                              float* sb, float* gy, float* ws, int F, int B, int K1, int K2,     \
@@ -2253,10 +2260,12 @@ LSE_BWD_INSTANCES(_sr, float, cirkit::SR)
 #endif
 #if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 2
 LSE_BWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+LSE_BWD_TUCKER_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
 LSE_BWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 LSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
 #endif
 #undef LSE_BWD_INSTANCES
+#undef LSE_BWD_TUCKER_INSTANCES
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
 // signed backward (ops/slse_einsum.py), with the float signed entries'

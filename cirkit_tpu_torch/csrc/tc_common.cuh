@@ -7,7 +7,9 @@
 // parts in planes of their own, so each fragment register is loaded where
 // the mma reads it, with no moves between registers), asynchronous copies
 // to shared memory, and accumulator zeroing; and the bf16 wgmma of the fast
-// modes' Tucker forwards with its shared-memory layout (csrc/tucker_bf16.cu).
+// modes' Tucker forwards and backward with its shared-memory layout, the
+// TMA copies and the mbarriers they complete on (csrc/tucker_bf16.cu,
+// csrc/tucker_bf16_bwd.cu).
 //
 // A fragment of m16n8k8 with g = lane / 4, t = lane % 4: A (16 x 8, rows
 // m, columns k) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B
@@ -17,6 +19,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "lse_common.cuh"
@@ -130,6 +133,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The descriptor of such a tile read MN-major (wgmma's transposed operand,
+// 16-bit types only): its rows are the contraction index k, its 64 columns
+// the rows of A or the columns of B (one swizzle atom wide), the 8-row
+// groups of k 1024 bytes apart; the k16 slice s starts 2048 s bytes in.
+// Both offsets are set to 1024 bytes, since with one atom across only the
+// k groups' is read.
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // d (the warpgroup's 64 x 64 f32 tile) = a b, plus d where ``acc``: A 64 x
 // 16 and B 16 x 64 from their descriptors. Warp w of the warpgroup holds
 // rows 16 w + g and 16 w + g + 8 (g = lane / 4), d[4 n + 0..1] at columns
@@ -150,6 +164,49 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 64) = a b, plus d where ``acc``, with B read MN-major
+// (sw128_desc_mn): A 64 x 16 K-major, B 16 x 64 from a tile whose rows are k.
+__device__ __forceinline__ void wgmma_64x64_tb(float (&d)[32], uint64_t da, uint64_t db,
+                                               int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 32) = a b, plus d where ``acc``, with A read MN-major
+// (sw128_desc_mn: a tile whose rows are k and whose 64 columns are A's
+// rows) and B 16 x 32 K-major. Warp w of the warpgroup holds rows 16 w + g
+// and 16 w + g + 8, d[4 n + 0..1] and d[4 n + 2..3] at columns 8 n + 2 t, + 1.
+__device__ __forceinline__ void wgmma_64x32_ta(float (&d)[16], uint64_t da, uint64_t db,
+                                               int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// Registers that an asynchronous wgmma writes, pinned: reads of them are
+// not moved above the wgmma_wait that precedes this.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) asm volatile("" : "+f"(d[k])::"memory");
+}
+
 // wgmma's ordering: the fence before a batch (its registers were touched by
 // other instructions), the commit of a group, the wait until at most N
 // groups are pending;
@@ -167,6 +224,140 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Two f32 values rounded to the nearest bf16, as a pair (the first in the
+// low half): one instruction.
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Eight f32 values rounded as MODE rounds an operand (flat indices idx, idx
+// + step, ... of role ``role``), packed as eight bf16 (the first in the low
+// half); the nearest rounding by pairs, which needs no index.
+template <int MODE>
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8], unsigned long long idx,
+                                             uint32_t role, unsigned long long step = 1) {
+  if constexpr (MODE == BF16) {
+    return make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]), bf16x2(v[4], v[5]),
+                      bf16x2(v[6], v[7]));
+  } else {
+    uint32_t h[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      h[e] = __float_as_uint(round_op<MODE>(v[e], idx + e * step, role)) >> 16;
+    return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
+                      h[6] | (h[7] << 16));
+  }
+}
+
+// The shared-memory mbarrier at ``bar``: set up for one arrival (or
+// ``count``); a plain arrival; the arrival that expects ``bytes`` of TMA
+// copies; a wait for phase ``parity``, which traps after some 8 seconds (2^34
+// cycles), so a fault that loses an arrival ends the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+
+// The TMA copy of the box of ``map`` at coordinates (c0, c1, c2[, c3]),
+// innermost first, to shared address ``dst``, completing on ``bar``.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled of libcuda, reached through the runtime's entry
+// point query (no link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of a ``rank``-dimensional array of element type T at
+// ``base`` (dims and box innermost first, the strides of the outer dims in
+// bytes, each a multiple of 16), its boxes zero past the edges; a box of
+// 128-byte rows in the 128-byte swizzle (wgmma's layout for bf16), any other
+// in plain rows.
+template <typename T>
+inline cudaError_t tiled_map(CUtensorMap* map, const T* base, int rank, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const bool swizzle = box[0] * sizeof(T) == 128;
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      rank, const_cast<T*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a Tucker weight (F, O, K1*K2) of element type WT, seen
+// as (F, O, K1, K2): boxes of 64 units x 64 columns j of one row i (a bf16
+// box in the 128-byte swizzle, a float32 one in plain rows). Every row of K2
+// weights must start 16-byte aligned.
+template <typename WT>
+inline cudaError_t weight_map(CUtensorMap* map, const WT* w, int F, int K1, int K2, int O) {
+  const cuuint64_t es = sizeof(WT);
+  const cuuint64_t dims[4] = {(cuuint64_t)K2, (cuuint64_t)K1, (cuuint64_t)O, (cuuint64_t)F};
+  const cuuint64_t strides[3] = {K2 * es, (cuuint64_t)K1 * K2 * es, (cuuint64_t)O * K1 * K2 * es};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return tiled_map(map, w, 4, dims, strides, box);
 }
 
 // acc += A B over the 8 contraction rows k..k+7 of a staged chunk, 3xTF32:

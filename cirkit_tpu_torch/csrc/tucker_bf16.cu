@@ -85,9 +85,14 @@ using cirkit::cp_async_commit;
 using cirkit::cp_async_f32;
 using cirkit::cp_async_wait;
 using cirkit::fence_proxy_async;
+using cirkit::mbar_expect;
+using cirkit::mbar_init;
+using cirkit::mbar_wait;
+using cirkit::pack_bf16x8;
 using cirkit::round_op;
 using cirkit::sw128;
 using cirkit::sw128_desc;
+using cirkit::tma_load_4d;
 using cirkit::warp_max;
 using cirkit::wgmma_64x64;
 using cirkit::wgmma_commit;
@@ -126,49 +131,6 @@ struct Cfg {
 };
 }  // namespace tb
 
-// Eight f32 values rounded as MODE rounds an operand (flat indices idx ..
-// idx + 7 of role ``role``), packed as eight bf16 (the first in the low half).
-template <int MODE>
-__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8], unsigned long long idx,
-                                             uint32_t role) {
-  uint32_t h[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = __float_as_uint(round_op<MODE>(v[e], idx + e, role)) >> 16;
-  return make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
-                    h[6] | (h[7] << 16));
-}
-
-// The shared-memory mbarrier at ``bar``: set up for one arrival; the
-// arrival that expects ``bytes`` of TMA copies; a wait for phase ``parity``.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// The TMA copy of the box of ``map`` at coordinates (c0, c1, c2, c3),
-// innermost first, to shared address ``dst``, completing on ``bar``.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
 template <int BM, bool SOFTMAX, typename WT, int MODE>
 __global__ void __launch_bounds__(tb::Cfg<BM, WT>::NT, tb::Cfg<BM, WT>::BLOCKS)
 tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
@@ -187,7 +149,8 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
   // a bf16 weight with linear values is wgmma's operand as copied
   constexpr bool RAW16 = sizeof(WT) == 2 && !SOFTMAX;
   static_assert(MODE != cirkit::F32, "the f32-grade instances are tucker_fwd_tc and ct_fwd_tc");
-  static_assert(NS >= 3 && XQ >= 1 && VQ >= 1 && JC == 8 * TPU, "tile");
+  static_assert(NS >= 3 && XQ >= 1 && VQ >= 1 && JC == 8 * TPU && JC == 64 && BN == 64,
+                "tile: weight_map's boxes");
 
   extern __shared__ __align__(16) unsigned char tb_raw[];
   unsigned char* smem = tb_raw + ((1024 - (static_cast<uint32_t>(
@@ -503,28 +466,6 @@ int launch_blocks(const float* x1, const float* x2, const WT* w, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled of libcuda, reached through the runtime's entry
-// point query (no link to libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // Blocks of 128 batch rows up to a batch of 128, of 256 past it, where each
 // converted tile then serves twice the rows. The weight goes through TMA
 // where every row segment of K2 weights starts 16-byte aligned (a bf16
@@ -537,21 +478,8 @@ int launch_bf16(const float* x1, const float* x2, const WT* w, float* out, int F
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = (K2 * sizeof(WT)) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   CUtensorMap wmap{};
-  if (vec) {
-    EncodeTiled encode;
-    if ((err = encode_tiled(&encode)) != cudaSuccess) return static_cast<int>(err);
-    const cuuint64_t es = sizeof(WT);
-    const cuuint64_t dims[4] = {(cuuint64_t)K2, (cuuint64_t)K1, (cuuint64_t)O, (cuuint64_t)F};
-    const cuuint64_t strides[3] = {K2 * es, (cuuint64_t)K1 * K2 * es,
-                                   (cuuint64_t)O * K1 * K2 * es};
-    const cuuint32_t box[4] = {tb::JC, 1, tb::BN, 1}, steps[4] = {1, 1, 1, 1};
-    const CUresult r = encode(
-        &wmap, sizeof(WT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-        4, const_cast<WT*>(w), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        sizeof(WT) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (vec && (err = cirkit::weight_map(&wmap, w, F, K1, K2, O)) != cudaSuccess)
+    return static_cast<int>(err);
   return B <= 128
              ? launch_blocks<128, SOFTMAX, WT, MODE>(x1, x2, w, out, wmap, vec, F, B, K1, K2, O, s)
              : launch_blocks<256, SOFTMAX, WT, MODE>(x1, x2, w, out, wmap, vec, F, B, K1, K2, O,

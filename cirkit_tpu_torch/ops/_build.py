@@ -2,14 +2,16 @@
 
 The sources are compiled at first use by ``nvcc``, one process per source
 (``lse_einsum.cu`` and ``clse_einsum.cu`` in three parts, ``lse_einsum_bwd.cu``
-in five, ``tucker_bf16.cu`` in four, ``lse_wide.cu`` in two) started
-together, and linked into a shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds), loaded with ``ctypes``; the
-signed log-einsum-exp kernels are template instances in the lse kernels' two
-sources, the complex ones have a source of their own, and so have the fast
-modes' Tucker forwards on the bf16 tensor cores (``tucker_bf16.cu``: the
-``_fast``, ``_sr``, ``_w16_fast`` and ``_w16_sr`` entries of
-``lse_fwd_tucker[_softmax]``, which kernel 5's fast instances launch too). The library goes
+in five, ``tucker_bf16.cu`` and ``tucker_bf16_bwd.cu`` in four,
+``lse_wide.cu`` in two) started together, and linked into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+loaded with ``ctypes``; the signed log-einsum-exp kernels are template
+instances in the lse kernels' two sources, the complex ones have a source of
+their own, and so have the fast modes' Tucker forwards and backward on the
+bf16 tensor cores (``tucker_bf16.cu``: the ``_fast``, ``_sr``, ``_w16_fast``
+and ``_w16_sr`` entries of ``lse_fwd_tucker[_softmax]``, which kernel 5's
+fast instances launch too; ``tucker_bf16_bwd.cu``: those of
+``lse_bwd_tucker[_softmax]``, kernel 5's backward too). The library goes
 to ``build/cirkit_tpu_torch/`` at the root of the checkout, under a name
 keyed on a hash of the sources and the flags, so an edit rebuilds and an
 unchanged tree reuses the build.
@@ -32,7 +34,7 @@ _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in (
         "lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu", "clse_einsum.cu",
-        "tucker_bf16.cu",
+        "tucker_bf16.cu", "tucker_bf16_bwd.cu",
     )
 )
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
@@ -41,7 +43,8 @@ _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
 # its entries), the others whole
 _PARTS = {"lse_einsum.cu": ("CIRKIT_FWD_PART", 3), "lse_einsum_bwd.cu": ("CIRKIT_BWD_PART", 5),
           "lse_wide.cu": ("CIRKIT_WIDE_PART", 2), "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3),
-          "tucker_bf16.cu": ("CIRKIT_BF16_PART", 4)}
+          "tucker_bf16.cu": ("CIRKIT_BF16_PART", 4),
+          "tucker_bf16_bwd.cu": ("CIRKIT_BF16_BWD_PART", 4)}
 _UNITS = tuple(
     unit
     for src in _SOURCES

@@ -49,7 +49,8 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
   kernels read it as bf16 and widen it on chip; the weight's gradient is
   accumulated in float32 and cast to the weight's type at the boundary, as
   the JAX package's ``_fused_p_bwd``, ``_blocked_p_bwd`` and
-  ``_sfused_p_bwd`` do. Float64 activations take a bf16 weight widened to
+  ``_sfused_p_bwd`` do (the fast Tucker backward writes that cast itself,
+  :func:`_bf16_tucker_bwd`). Float64 activations take a bf16 weight widened to
   float64 here, and the complex kernels a bf16 real weight widened to
   float32 in their op wrappers, as the JAX package widens it to complex64
   (the routing kernels read it as bf16: ``ops/routing.py``);
@@ -58,8 +59,9 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
   signed and complex kernels 6, 7, 10 and 11, which run on the CUDA cores);
   ``sr`` stochastically rounds the contraction operands to bf16, any other
   value rounds them to the nearest bf16; the Tucker forwards (kernels 1
-  and 5) then run their products on the bf16 tensor cores
-  (``csrc/tucker_bf16.cu``), the other tensor-core kernels one TF32 pass
+  and 5) and their backward then run their products on the bf16 tensor
+  cores (``csrc/tucker_bf16.cu``, ``csrc/tucker_bf16_bwd.cu``), the other
+  tensor-core kernels one TF32 pass
   over the bf16-valued operands, which multiplies them exactly too, both
   with float32 accumulation, and the CUDA-core kernels the same FMAs on
   bf16-valued operands. A mode applies to float32 (complex64) values only.
@@ -156,6 +158,12 @@ running max of the tiles so far."""
 # the backward kernels' grid tiles (csrc/lse_einsum_bwd.cu): rows per warp
 # pass, and input columns of the dense dx kernel (the other grids are smaller)
 _BWD_ROWS, _BWD_DX_COLS = 8, 64
+_BWD_UNIT_GROUP = 128
+"""The units of a block of the fast Tucker backward, ``tbw::UG`` of
+``csrc/tucker_bf16_bwd.cu`` (its columns are ``tbw::JC`` = ``_TUCKER_JC``):
+past it, and past one chunk of columns, its dx sums are partial and take
+room in the scratch (:func:`_tucker_bf16_bwd_scratch`); both must change
+with the kernel (a test reads them there)."""
 
 
 def _clamp_max(x: torch.Tensor) -> torch.Tensor:
@@ -707,21 +715,50 @@ _fwd_op = launch_op("lse_fwd", "(str op, str mode, Tensor[] ins) -> Tensor",
                     lambda op, mode, ins: _launch_fwd(op, tuple(ins), mode), _fwd_op_fake)
 
 
+def _bf16_tucker_bwd(op: str, mode: str, suffix: str) -> bool:
+    """Whether the backward of ``op`` in ``mode`` on activations of entry
+    suffix ``suffix`` runs ``tucker_bwd_bf16`` (``csrc/tucker_bf16_bwd.cu``):
+    the float32 Tucker ops in a fast mode. It writes the weight's gradient in
+    the weight's type (the round-to-nearest of its float32 sum, the cast that
+    :func:`backward` makes of the other kernels' float32 gradient) and takes
+    the scratch of :func:`_tucker_bf16_bwd_scratch`."""
+    return bool(mode) and not suffix and op.startswith("lse_tucker2")
+
+
+def _tucker_bf16_bwd_scratch(softmax: bool, f: int, b: int, k1: int, k2: int, o: int) -> int:
+    """The float32 scratch of the fast Tucker backward: e1 and e2 transposed,
+    (F, K1, Bp) and (F, K2, Bp), and the rounded gy in bf16, (F, B, Op), with
+    Bp and Op the batch and the units rounded up to 8 (rows that TMA copies);
+    for logits each weight row's lse and r_o, (F, O) each; the dx1 partials,
+    one (F, B, K1) plane a unit group and column chunk where there are more
+    than one; the dx2 partials, one (F, B, K2) plane a unit group where there
+    are more than one."""
+    n_ug, n_jc = -(-o // _BWD_UNIT_GROUP), -(-k2 // _TUCKER_JC)
+    bp, op = -(-b // 8) * 8, -(-o // 8) * 8
+    p1 = n_ug * n_jc
+    return (f * (k1 + k2) * bp + f * b * op // 2 + (2 * f * o if softmax else 0)
+            + (p1 * f * b * k1 if p1 > 1 else 0) + (n_ug * f * b * k2 if n_ug > 1 else 0))
+
+
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], out: torch.Tensor, g: torch.Tensor,
     needs: tuple[bool, ...], mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """Allocate the requested gradients and the scratch, and launch the
     backward entry of ``op`` (in ``mode``, on the weight's type) on the
-    current stream. The weight's gradient has the activations' type."""
+    current stream. The weight's gradient has the activations' type, or the
+    weight's where :func:`_bf16_tucker_bwd`."""
     dev, suffix, inst = _check_weighted(f"{op} backward", (*ins[:-1], out, g), ins[-1], mode)
+    bf16_tucker = _bf16_tucker_bwd(op, mode, suffix)
     grads = tuple(
-        torch.empty(t.shape, device=dev, dtype=ins[0].dtype) if need else None
+        torch.empty(t.shape, device=dev,
+                    dtype=t.dtype if bf16_tucker and t is ins[-1] else ins[0].dtype)
+        if need else None
         for t, need in zip(ins, needs)
     )
     if not any(needs):
         return grads
-    if out.numel() == 0 or ins[0].numel() == 0:
+    if out.numel() == 0 or any(t.numel() == 0 for t in ins):
         return tuple(None if d is None else d.zero_() for d in grads)
     sizes = _sizes(ins)
     f, b, o = sizes[0], sizes[1], sizes[-1]
@@ -745,7 +782,8 @@ def _launch_bwd(
             scratch.append(torch.empty_like(ins[-1]))
     else:
         scratch.append(torch.empty((f, b, o), device=dev, dtype=ins[0].dtype))
-        n = lib.lse_bwd_scratch(int(tucker), int(softmax), f, b, k1, k2, o)
+        n = (_tucker_bf16_bwd_scratch(softmax, f, b, k1, k2, o) if bf16_tucker
+             else lib.lse_bwd_scratch(int(tucker), int(softmax), f, b, k1, k2, o))
         if n:
             scratch.append(torch.empty(n, device=dev, dtype=torch.float32))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -866,7 +904,7 @@ def backward(
     ``needs`` (default: all) selects which, ``mode`` is the forward's speed
     mode. The plain version on CPU tensors, the backward kernel on CUDA
     tensors; the weight's gradient is accumulated in the activations' type
-    and cast to the weight's."""
+    and cast to the weight's (by the fast Tucker kernel itself)."""
     needs = (True,) * len(ins) if needs is None else tuple(needs)
     if _on_cpu(*ins, out, g):
         plain = _ENTRIES[op][3]

@@ -1,13 +1,14 @@
 """Time the fast-mode Tucker forwards (kernels 1 and 5: the ``_fast``,
-``_sr``, ``_w16_fast`` and ``_w16_sr`` instances, linear and with logits)
-and the serving forwards that run them, of two source trees side by side on
-one card.
+``_sr``, ``_w16_fast`` and ``_w16_sr`` instances, linear and with logits),
+their backward (kernel 2's fast Tucker instances, kernel 5's backward too)
+and the serving forwards and the training backward that run them, of two
+source trees side by side on one card.
 
 Run on a machine with a CUDA card and the CUDA toolkit, from the root of a
 checkout, with the root of another tree (for example the parent commit
 unpacked by ``git archive`` into a directory that ``.gitignore`` lists):
 
-    python3 scripts/tucker_bf16_ab.py OTHER_ROOT [--no-serving]
+    python3 scripts/tucker_bf16_ab.py OTHER_ROOT [--no-serving] [--no-forward]
 
 Each tree's kernel library is built by its own ``ops/_build.py`` (into its
 own ``build/``), and the port's op wrappers are pointed at one library or
@@ -22,6 +23,19 @@ entries and signatures:
   with the same -inf pattern: to ``1e-4 + 1e-5 |other|``, and in a fast mode,
   where two trees may round at other points, to the JAX package's fast bound
   ``chip_smoke.FAST_FWD_TOL`` (8e-3);
+- every instance of ``lse_bwd_tucker[_softmax]`` (the f32-grade, ``_w16``
+  and fast ones) at the K=64 entry (B=128 and 512) and at the K=128 one
+  (F=784, B=128 and F=196, B=512), every gradient; the two trees' gradients
+  held to each other to ``2e-4 (max|other| + |other|)`` and, where one of
+  them is bf16 (a tree whose fast Tucker backward writes the weight's
+  gradient in the weight's type, ``tucker_bf16_bwd.cu``), half a bf16 step
+  more, ``2^-8 |other|``. A tree without that source gets the float32
+  gradient and scratch its entries take (``lse_einsum._bf16_tucker_bwd``
+  patched for its turn);
+- one forward and backward of the K=64 Tucker flagship's mean NLL at batch
+  128 through its bf16 store under ``CIRKIT_TPU_FAST=1`` (``chip_smoke.py``'s
+  15c), each slot's gradient of the trees within ``2 chip_smoke.FAST_GRAD_REL
+  max(1, max|slot|)`` of each other;
 - the serving forward (``cc.evaluate`` of ``chip_smoke.py``'s flagships) of
   the K=64 Tucker flagship at batches 512 and 2048 and of the K=128 one at
   512, in the modes ``f32_grade`` (float32 store) and ``bf16_fast`` (bf16
@@ -56,6 +70,7 @@ MODES = (("", ""), ("_w16", ""), ("_fast", "bf16"), ("_sr", "sr"), ("_w16_fast",
          ("_w16_sr", "sr"))
 SHAPES = (("lse_tucker2", 784, 128, 64), ("lse_tucker2", 784, 512, 64),
           ("lse_tucker2_chunked", 784, 128, 128))
+BWD_SHAPES = ((784, 128, 64), (784, 512, 64), (784, 128, 128), (196, 512, 128))
 SERVING = (("tucker", 64, (512, 2048)), ("tucker", 128, (512,)))
 FAST_FWD_TOL = 8e-3  # chip_smoke.FAST_FWD_TOL: JAX's fast bound, log space
 
@@ -69,18 +84,26 @@ def _other_build(root: Path):
     return mod
 
 
+# each tree's choice of the fast Tucker backward's path (patched into the op
+# wrappers for its turn): a tree without tucker_bf16_bwd.cu takes a float32
+# weight gradient and the f32-grade scratch
+BRIDGE = {"this": L._bf16_tucker_bwd, "other": L._bf16_tucker_bwd}
+
+
 def in_both(libs: dict, call, **kw) -> tuple[dict[str, float], dict]:
     """Each tree's ms of ``call()`` in turns (the lower of its two) and its
     output: the op wrappers are pointed at the tree's library for its turn."""
 
     def run(name):
         _build._LIB = libs[name]
+        L._bf16_tucker_bwd = BRIDGE[name]
         return call()
 
     with torch.inference_mode():
         times = in_turns(run, libs, **kw)
         outs = {name: run(name) for name in libs}
     _build._LIB = libs["this"]
+    L._bf16_tucker_bwd = BRIDGE["this"]
     return {name: min(ts) for name, ts in times.items()}, outs
 
 
@@ -120,6 +143,82 @@ def kernels(libs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _close_grads(label: str, got, ref) -> float:
+    """Two trees' gradients: ``2e-4 (max|ref| + |ref|)``, and half a bf16
+    step more where either is bf16."""
+    if got.shape != ref.shape or bool(torch.isnan(got.float()).any()):
+        raise AssertionError(f"{label}: shape or NaN")
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    bound = 2e-4 * (r.abs().max() + r.abs())
+    if torch.bfloat16 in (got.dtype, ref.dtype):
+        bound = bound + 2.0**-8 * r.abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{label}: max|err| {float(err.max()):.3e} over the bound")
+    return float(err.max())
+
+
+def backward(libs: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for f, b, k in BWD_SHAPES:
+        x1 = torch.randn(f, b, k, device="cuda", generator=gen) * 3.0 - 2.0
+        x2 = torch.randn(f, b, k, device="cuda", generator=gen) * 3.0 - 2.0
+        for op in ("lse_tucker2", "lse_tucker2_softmax"):
+            w = (torch.randn(f, k, k * k, device="cuda", generator=gen) if "softmax" in op else
+                 torch.rand(f, k, k * k, device="cuda", generator=gen) * 0.99 + 0.01)
+            out = L._ENTRIES[op][2](x1, x2, w)
+            g = torch.randn(out.shape, device="cuda", generator=gen)
+            for sfx, mode in MODES:
+                ins = (x1, x2, w.to(torch.bfloat16) if sfx.startswith("_w16") else w)
+                t, outs = in_both(libs, lambda ins=ins, mode=mode, op=op: L._launch_bwd(
+                    op, ins, out, g, (True, True, True), mode))
+                err = max(_close_grads(f"{op}{sfx} {name}", a, r) for name, a, r in zip(
+                    ("dx1", "dx2", "dw"), outs["this"], outs["other"]))
+                print(f"[ab] {op + sfx + '_bwd':36s} F={f} B={b} K={k}: other "
+                      f"{t['other']:.3f} ms, this {t['this']:.3f} ms, max|this - other| "
+                      f"{err:.2e}", flush=True)
+                del ins, outs
+            del w, out, g
+        del x1, x2
+        torch.cuda.empty_cache()
+
+
+def training(libs: dict) -> None:
+    import chip_smoke as C
+
+    from cirkit_tpu_torch.backend.torch import bf16_weight_store
+    from cirkit_tpu_torch.parallel import split_trainable
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (C.BATCH, 784), generator=gen).to("cuda")
+    _, ctx, cc = C._build_flagship("tucker", False, "cuda", k=64)
+    st32 = {s: v.detach() for s, v in cc.restrict_store(ctx.parameters).items()}
+    tr, fr = split_trainable(cc, bf16_weight_store(cc, st32))
+    with C._fast_env("1"), torch.enable_grad():
+        times: dict[str, list[float]] = {"this": [], "other": []}
+        outs = {}
+        for name in ("other", "this", "this", "other"):
+            _build._LIB = libs[name]
+            L._bf16_tucker_bwd = BRIDGE[name]
+            times[name].append(C._median_ms(lambda: C._gradients(cc, tr, fr, x), warmup=1,
+                                            iters=5))
+            outs[name] = C._gradients(cc, tr, fr, x)
+        _build._LIB = libs["this"]
+        L._bf16_tucker_bwd = BRIDGE["this"]
+    worst = 0.0
+    for k, r in outs["other"].items():
+        share = float((outs["this"][k].float() - r.float()).abs().max()) / (
+            2 * C.FAST_GRAD_REL * max(1.0, float(r.float().abs().max())))
+        if not share <= 1.0:
+            raise AssertionError(f"training backward: {k} off by {share:.3f} of the bound")
+        worst = max(worst, share)
+    print(f"[ab] train tucker K=64 batch {C.BATCH} bf16 store CIRKIT_TPU_FAST=1 forward and "
+          f"backward: other {min(times['other']):.3f} ms, this {min(times['this']):.3f} ms, "
+          f"worst slot {worst:.3f} of the bound", flush=True)
+    del ctx, cc, st32, tr, fr, outs
+    torch.cuda.empty_cache()
+
+
 def serving(libs: dict) -> None:
     import chip_smoke as C
 
@@ -154,11 +253,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     print(subprocess.run(smi, capture_output=True, text=True, check=True).stdout.strip())
-    other = _other_build(Path(args[0]).resolve())
+    root = Path(args[0]).resolve()
+    other = _other_build(root)
+    if not (root / "cirkit_tpu_torch" / "csrc" / "tucker_bf16_bwd.cu").exists():
+        BRIDGE["other"] = lambda *a: False
     with ThreadPoolExecutor(2) as pool:
         other_lib, this_lib = pool.map(lambda mod: mod.library(), (other, _build))
     libs = {"other": other_lib, "this": this_lib}
-    kernels(libs)
+    if "--no-forward" not in sys.argv:
+        kernels(libs)
+    backward(libs)
+    training(libs)
     if "--no-serving" not in sys.argv:
         serving(libs)
     return 0

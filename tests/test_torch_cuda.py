@@ -1832,9 +1832,10 @@ def test_instance_kernels_match_plain(op, sfx, mode, f, b, o, k1, k2):
     refs = T._ENTRIES[op][3](*ins, out, g, needs, mode)
     torch.cuda.synchronize()
     assert T.LAUNCHES[f"{op}{sfx}_bwd"] == 1
-    for k, (got, r) in enumerate(zip(grads, refs)):
-        assert got.dtype == torch.float32
-        _close(got, r, zeros=k < len(ins) - 1)
+    for k, (got, r) in enumerate(zip(grads, refs)):  # the fast Tucker dW in the weight's type
+        weight = k == len(ins) - 1 and "tucker" in op and bool(mode)
+        assert got.dtype == (ins[-1].dtype if weight else torch.float32)
+        _close_grad(got, r, zeros=k < len(ins) - 1)
 
 
 @pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
@@ -1899,6 +1900,80 @@ def test_bf16_tucker_instances_match_plain(key, case, sfx, mode, offset):
         names = _fwd_kernel_names(lambda: T._launch_fwd(key, tuple(ins), mode))
         assert any("tucker_fwd_bf16" in n for n in names), names
         assert not any("_fwd_tc" in n for n in names), names
+
+
+def _close_grad(got, ref, *, zeros=False):
+    """``_close`` for a gradient in the weight's type: a bf16 one is the
+    round-to-nearest of a float32 sum, so it may be off by that rounding,
+    half a bf16 step, up to ``2**-8 |plain|``, on top of the float32 bound."""
+    if got.dtype == torch.float32:
+        _close(got, ref, zeros=zeros)
+        return
+    assert got.shape == ref.shape and not torch.isnan(got).any()
+    err = (got.float() - ref).abs()
+    bound = 1e-4 * ref.abs().max() + 1e-4 * ref.abs() + 2.0**-8 * ref.abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+# The fast-mode Tucker backward on the bf16 tensor cores
+# (csrc/tucker_bf16_bwd.cu), (F, B, K1, K2, O): the K=64 entry, the K=128
+# one on 8 of its folds, the TP shard's O=32 and the grown flagship's 96,
+# batches past one tile of 128 rows (512; 700, which ends in a part tile),
+# ragged B, O, K1 and K2 (20 and 7: ragged k16 steps; 100: two column
+# chunks, the last ragged), and O=200: two unit groups; each in full, and
+# the ragged ones also with dx alone (the EM flows' and expectation
+# queries' calls), with dW alone, and on a weight one element off 16-byte
+# alignment (read element by element).
+BF16_TUCKER_BWD = [
+    *(((784, 128, 64, 64, 64), "full", False), ((8, 128, 128, 128, 128), "full", False),
+      ((16, 128, 64, 64, 32), "full", False), ((4, 128, 96, 96, 96), "full", False),
+      ((8, 512, 64, 64, 64), "full", False)),
+    *((case, needs, offset) for case in ((3, 700, 7, 20, 70), (2, 130, 9, 20, 70),
+                                         (1, 13, 5, 7, 1), (1, 37, 3, 100, 65),
+                                         (2, 33, 3, 100, 200))
+      for needs, offset in (("full", False), ("full", True), ("dx", False), ("dw", False))),
+]
+_NEEDS = {"full": (True, True, True), "dx": (True, True, False), "dw": (False, False, True)}
+
+
+@pytest.mark.parametrize("sfx,mode", FAST_INSTANCES, ids=[s for s, _ in FAST_INSTANCES])
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+@pytest.mark.parametrize("case,needs,offset", BF16_TUCKER_BWD, ids=[
+    "x".join(map(str, c)) + f"-{n}" + ("-offset" if off else "") for c, n, off in BF16_TUCKER_BWD])
+def test_bf16_tucker_backward_matches_plain(case, needs, offset, op, sfx, mode):
+    """Each fast-mode Tucker backward (linear and logits, float32 and bf16
+    weights) against its plain version in its mode: the input gradients to
+    the float32 bound and 0 at the rows of -inf inputs and of zero
+    cotangent, the weight's gradient in the weight's type to the bound of
+    ``_close_grad``; the gradients not asked for None; a second call equal
+    to the bit (``sr`` too); one launch a call, of tucker_bwd_bf16 alone."""
+    f, b, k1, k2, o = case
+    ins = _single_edges(op, _inputs(op, f, b, o, k1=k1, k2=k2))
+    if sfx.startswith("_w16"):
+        ins[2] = ins[2].to(torch.bfloat16)
+    if offset:
+        ins[2] = _offset(ins[2])
+    out = T._ENTRIES[op][2](*ins, mode=mode)
+    g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[-1, : min(3, b)] = 0.0
+    want = _NEEDS[needs]
+    got = T._launch_bwd(op, tuple(ins), out, g, want, mode)
+    again = T._launch_bwd(op, tuple(ins), out, g, want, mode)
+    refs = T._ENTRIES[op][3](*ins, out, g, want, mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}{sfx}_bwd"] == 2
+    for k, (a, a2, r) in enumerate(zip(got, again, refs)):
+        assert (a is None) == (not want[k]) and (r is None) == (not want[k])
+        if a is None:
+            continue
+        assert a.dtype == (ins[2].dtype if k == 2 else torch.float32)
+        assert torch.equal(a, a2)
+        _close_grad(a, r, zeros=k < 2)
+    if f == 1 and needs == "full" and not offset:
+        names = _fwd_kernel_names(lambda: T._launch_bwd(op, tuple(ins), out, g, want, mode))
+        assert any("tucker_bwd_bf16" in n for n in names), names
+        assert not any("tc_dx_tucker" in n or "tc_dw_kernel" in n for n in names), names
 
 
 def test_fast_mode_and_bf16_store_through_the_ops(monkeypatch):

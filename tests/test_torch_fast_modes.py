@@ -265,6 +265,62 @@ def test_tucker_chunk_width_matches_the_kernel():
     assert re.search(r"constexpr int JC = (\d+);", ns).group(1) == str(T._TUCKER_JC)
 
 
+def test_fast_tucker_backward_tiles_match_the_kernel():
+    """The fast Tucker backward's scratch (``_tucker_bf16_bwd_scratch``)
+    counts the kernel's partial dx planes by its unit group ``tbw::UG`` and
+    column chunk ``tbw::JC`` of ``csrc/tucker_bf16_bwd.cu``: a kernel with
+    other tiles would write past the scratch."""
+    import re
+    from pathlib import Path
+
+    src = (Path(T.__file__).parent.parent / "csrc" / "tucker_bf16_bwd.cu").read_text()
+    ns = src[src.index("namespace tbw {"):]
+    ns = ns[:ns.index("}  // namespace tbw")]
+    assert re.search(r"constexpr int UG = (\d+);", ns).group(1) == str(T._BWD_UNIT_GROUP)
+    assert re.search(r"constexpr int JC = (\d+);", ns).group(1) == str(T._TUCKER_JC)
+
+
+@pytest.mark.parametrize("softmax,shape,want", [
+    # the K=64 entry: e1, e2 transposed and gy in bf16; one block finishes dx
+    (False, (784, 128, 64, 64, 64), 784 * 128 * 128 + 784 * 128 * 32),
+    (True, (784, 128, 64, 64, 64), 784 * 128 * 160 + 2 * 784 * 64),  # the logits' lse and r_o
+    (True, (784, 128, 128, 128, 128),  # two column chunks
+     784 * 256 * 128 + 784 * 128 * 64 + 2 * 784 * 128 + 2 * 784 * 128 * 128),
+    (False, (2, 33, 3, 100, 200),  # two unit groups too; B and O rounded up to 8
+     2 * 103 * 40 + 2 * 33 * 100 + 4 * 2 * 33 * 3 + 2 * 2 * 33 * 100),
+], ids=["k64", "k64-softmax", "k128-softmax", "o200"])
+def test_fast_tucker_backward_scratch(softmax, shape, want):
+    """The fast Tucker backward's float32 scratch: e1 and e2 transposed over
+    the batch rounded up to 8 and gy in bf16 over the units rounded up to 8;
+    lse and r_o for logits; then a dx1 plane for each unit group and column
+    chunk and a dx2 plane for each unit group, where there are more than
+    one."""
+    assert T._tucker_bf16_bwd_scratch(softmax, *shape) == want
+
+
+@pytest.mark.parametrize("mode", ["bf16", "sr"])
+@pytest.mark.parametrize("op", ["lse_tucker2", "lse_tucker2_softmax"])
+def test_fast_tucker_backward_casts_its_float32_sum(op, mode):
+    """With a bf16 weight in a fast mode the Tucker backward returns the
+    weight's gradient in bf16, the round-to-nearest of the plain version's
+    float32 sum (the kernel writes that itself), and the input gradients as
+    the plain version gives them; only these instances take the fast Tucker
+    kernel's path (``_bf16_tucker_bwd``)."""
+    ins = [torch.as_tensor(a) for a in _inputs(op)]
+    ins[-1] = ins[-1].to(torch.bfloat16)
+    out = T._ENTRIES[op][2](*ins, mode=mode)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=out.shape).astype(np.float32))
+    needs = (True, True, True)
+    got = T.backward(op, tuple(ins), out, g, needs, mode)
+    f32 = T._ENTRIES[op][3](*ins, out, g, needs, mode)
+    assert got[-1].dtype == torch.bfloat16 and f32[-1].dtype == torch.float32
+    assert torch.equal(got[-1], f32[-1].to(torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(got[:-1], f32[:-1]))
+    assert T._bf16_tucker_bwd(op, mode, "")
+    assert not T._bf16_tucker_bwd(op, "", "") and not T._bf16_tucker_bwd(op, mode, "_f64")
+    assert not T._bf16_tucker_bwd(op.replace("tucker2", "matmul"), mode, "")
+
+
 def test_sr_bits_are_a_stateless_hash():
     """The bits depend on the flat index and the operand's role only, use
     the full 16-bit range, and round a value up with the probability of its
