@@ -493,14 +493,15 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     **{key: (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "350")
        for key in ("lse_matmul_fast_bwd", "lse_matmul_sr_bwd")},
     # phase 17's paths: the bf16-weight and fast-mode instances of the blocked
-    # dense forward and backward (kernels 3' and 4') that the unoptimized
-    # K=128 flagships launch, from a bf16 store (its Dirichlet weights) and
-    # under CIRKIT_TPU_FAST (float32 weights, normalized from logits), and the
-    # bf16-th instances of the routing kernels (9' and 8') that MAP and
-    # sampling from the K=64 flagship's bf16 store launch
-    **{f"lse_matmul_blocked{sfx}": (_CSRC + "lse_wide.cu", _PALLAS + "548")
+    # dense forward and backward (kernels 3' and 4', on the bf16 tensor cores
+    # in blocked_bf16.cu) that the unoptimized K=128 flagships launch, from a
+    # bf16 store (its Dirichlet weights) and under CIRKIT_TPU_FAST (float32
+    # weights, normalized from logits), and the bf16-th instances of the
+    # routing kernels (9' and 8') that MAP and sampling from the K=64
+    # flagship's bf16 store launch
+    **{f"lse_matmul_blocked{sfx}": (_CSRC + "blocked_bf16.cu", _PALLAS + "548")
        for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
-    **{f"lse_matmul_blocked{sfx}_bwd": (_CSRC + "lse_wide.cu", _PALLAS + "572")
+    **{f"lse_matmul_blocked{sfx}_bwd": (_CSRC + "blocked_bf16.cu", _PALLAS + "572")
        for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
     "tropical_tucker2_w16": (_CSRC + "tucker_route.cu", _PALLAS + "1334"),
     "route_tucker2_w16": (_CSRC + "tucker_route.cu", _PALLAS + "1176"),
@@ -5552,8 +5553,9 @@ DIST_ROWS = 2 * 128  # evaluate_ll's rows (two batches)
 # through the host, fit the run's time limit; every distributed path runs
 DIST_SIDE = 14
 # timed calls of each distributed step; of a gloo step, which moves its 1.69
-# GB of gradients through the host in seconds, DIST_TIMED_GLOO and no warm-up
-DIST_TIMED, DIST_TIMED_GLOO = 3, 2
+# GB of gradients through the host in seconds, DIST_TIMED_GLOO (one) and no
+# warm-up
+DIST_TIMED, DIST_TIMED_GLOO = 3, 1
 DIST_SEED = 7  # the conditional sampling's generator seed
 DIST_LR = 1e-2
 
@@ -6076,6 +6078,14 @@ DIST_SETUP = None
 # entry's weight is 6.6 GB in float32)
 BLOCKED_INSTANCES = (("_fast", "bf16"), ("_sr", "sr"), ("_w16", ""), ("_w16_fast", "bf16"),
                      ("_w16_sr", "sr"))
+# (F, B, I, O, offset) at which phase 17 also holds each blocked instance
+# (csrc/blocked_bf16.cu) to its plain version: B past one batch tile of
+# either kernel (128 rows forward, 64 backward) and ragged, O ragged, I past
+# the entry's by 3 (no row 16-byte aligned, so the operands are copied
+# element by element), the operands one element off their aligned start
+# (the same), and the serving batch of 512 through TMA
+BLOCKED_EDGES = ((4, 130, WIDE_K * WIDE_K + 3, 70, False), (4, 130, WIDE_K * WIDE_K, 70, True),
+                 (4, 512, WIDE_K * WIDE_K, WIDE_K, False))
 LOWPREC_SEED = 0  # the random weights of phase 17's flagships
 LOWPREC_STEPS = 3  # the fast training run's SGD steps in each mode
 LOWPREC_MODES = {"f32_grade": "", "bf16_fast": "1", "sr": "sr"}
@@ -6085,7 +6095,9 @@ def _grads_close(bkey: str, label: str, got, ref, x, g) -> float:
     """Phase 3b's backward bound on each gradient, and the input gradient 0
     where it is so by structure (x of -inf, a row whose cotangent is 0);
     bf16-valued operands can also cancel to an exact 0 of the plain version,
-    which the bound covers. Returns the worst error."""
+    which the bound covers. A bf16 weight gradient (the nearest to its f32
+    sum) is held against the plain one rounded to bf16, one bf16 ulp of it
+    more (none for an exact 0). Returns the worst error."""
     import torch
 
     worst = 0.0
@@ -6096,8 +6108,19 @@ def _grads_close(bkey: str, label: str, got, ref, x, g) -> float:
         if name == "dx" and not bool((k[zero] == 0).all()):
             raise AssertionError(f"{bkey} [{label}] dx: not 0 at an x of -inf or a row of "
                                  "zero cotangent")
-        err = (k - p).abs()
-        if not bool((err <= BWD_REL * (p.abs().max() + p.abs())).all()):
+        bound = BWD_REL * (p.abs().max() + p.abs())
+        if k.dtype == torch.bfloat16:
+            want = p.to(torch.bfloat16).to(p.dtype)
+            # one bf16 ulp of want: the power of two at or below |want| (its
+            # float32 exponent bits, 0 for a 0) times 2^-7, in place (a dw
+            # at the entry is 6.6 GB)
+            bits = want.float().view(torch.int32) & 0x7F800000
+            bound += bits.view(torch.float32).mul_(2.0**-7)
+            del bits
+            err = k.to(p.dtype).sub_(want).abs_()
+        else:
+            err = (k - p).abs()
+        if not bool((err <= bound).all()):
             raise AssertionError(f"{bkey} [{label}] {name}: max |kernel - plain| = "
                                  f"{float(err.max()):.3e}")
         worst = max(worst, float(err.max()))
@@ -6106,11 +6129,15 @@ def _grads_close(bkey: str, label: str, got, ref, x, g) -> float:
 
 def phase_lowprec_kernels() -> dict[str, dict]:
     """Phases 3, 3b and 3c for kernels 3', 4', 8' and 9': each bf16-weight and
-    fast-mode instance of the blocked dense forward and backward at the K=128
-    dense entry against its plain version in its mode on the same card inputs
-    (phase 3's and 3b's bounds; the row max equal to the clamped max), and
-    against float64 on F64_WIDE_F of its folds (the f32-grade instance to
-    phase 3's bound, the fast ones to FAST_FWD_TOL); each routing kernel's
+    fast-mode instance of the blocked dense forward and backward
+    (csrc/blocked_bf16.cu) at the K=128 dense entry and at BLOCKED_EDGES
+    against its plain version in its mode on the same card inputs (phase 3's
+    and 3b's bounds, a bf16 weight gradient one bf16 ulp more; the row max
+    equal to the clamped max to the bit; ``sr`` equal to the bit over two
+    calls), and at the entry against float64 on F64_WIDE_F of its folds (the
+    f32-grade instance to phase 3's and 3b's bounds, the fast ones' forwards
+    to FAST_FWD_TOL); the HGMMA count and spills of each of its kernels
+    (scripts/ptxas_report.py on the built library); each routing kernel's
     bf16-th instance at the K=64 flagship's Tucker entries against its plain
     version (phase 3c's bounds) and equal to the float32 instance on the
     widened th, to the bit. Returns per-instance results, timed at the first
@@ -6139,6 +6166,9 @@ def phase_lowprec_kernels() -> dict[str, dict]:
         key, bkey = f"lse_matmul_blocked{sfx}", f"lse_matmul_blocked{sfx}_bwd"
         with torch.inference_mode():
             got, m = L._launch_blocked_fwd(x, w, mode)
+            if mode == "sr" and not all(map(torch.equal, (got, m),
+                                             L._launch_blocked_fwd(x, w, mode))):
+                raise AssertionError(f"{key} [{label}]: two calls differ")
             ref, ref_m = L.lse_matmul_blocked_ref(x, w, mode)
             torch.cuda.synchronize()
             if not (torch.equal(m, ref_m) and torch.equal(m, L._clamp_max(x))):
@@ -6174,8 +6204,20 @@ def phase_lowprec_kernels() -> dict[str, dict]:
             del again
             refs = L.lse_matmul_blocked_bwd_ref(x, w, got, m, g, (True, True), mode)
             torch.cuda.synchronize()
+            if grads[1].dtype != w.dtype:
+                raise AssertionError(f"{bkey} [{label}]: dw {grads[1].dtype}, {w.dtype} expected")
             err = _grads_close(bkey, label, grads, refs, x, g)
-            del grads, refs
+            del refs
+            line64 = ""
+            if not mode:  # the f32-grade split against float64
+                refs = L.lse_matmul_blocked_bwd_ref(x[sl].double(), w[sl].double(),
+                                                    got[sl].double(), m[sl].double(),
+                                                    g[sl].double())
+                err64 = _grads_close(f"{bkey} vs float64", label, [d[sl] for d in grads], refs,
+                                     x[sl], g[sl])
+                line64 = f", against float64 on {F64_WIDE_F} folds {err64:.3e}"
+                del refs
+            del grads
             gc.collect()
             torch.cuda.empty_cache()
             ms = _median_ms(lambda: L._launch_blocked_bwd(x, w, got, m, g, (True, True), mode))
@@ -6184,14 +6226,20 @@ def phase_lowprec_kernels() -> dict[str, dict]:
         bound, by = _serve_bound(bkey, (x, w), mode, extra=4 * f * b)
         results[bkey] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by, "tc_bound_ms": bound, "shape": label}
-        print(f"[backward] {bkey:27s} {label:36s} max|err|={err:.3e}  kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        print(f"[backward] {bkey:27s} {label:36s} max|err|={err:.3e}{line64}  kernel {ms:.3f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by})")
         del got, m
         gc.collect()
         torch.cuda.empty_cache()
     del x, w, g
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for edge in BLOCKED_EDGES:
+        for sfx, mode in BLOCKED_INSTANCES:
+            _blocked_edge(L, results, gen, sfx, mode, *edge)
+    print(f"[time] the blocked instances at BLOCKED_EDGES took {time.perf_counter() - t0:.1f} s")
+    _blocked_sass()
 
     # the routing kernels on a bf16 th, at phase 3c's K=64 rows
     gen = torch.Generator(device=DEV).manual_seed(7)
@@ -6263,6 +6311,78 @@ def phase_lowprec_kernels() -> dict[str, dict]:
             print(line)
             del x1, x2, th, th16, sel, got, scores, idx, draw
     return results
+
+
+def _blocked_edge(L, results: dict, gen, sfx: str, mode: str, f: int, b: int, i: int, o: int,
+                  offset: bool) -> None:
+    """One blocked instance at an edge shape against its plain version, as at
+    the entry (phase_lowprec_kernels); its errors join the instance's."""
+    import torch
+
+    label = f"F={f} B={b} I={i} O={o}" + (" offset" if offset else "")
+    key, bkey = f"lse_matmul_blocked{sfx}", f"lse_matmul_blocked{sfx}_bwd"
+
+    def moved(t):  # t copied one element past an aligned start
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        out = buf[1:].view_as(t)
+        out.copy_(t)
+        return out
+
+    with torch.inference_mode():
+        x = torch.randn((f, b, i), generator=gen, device=DEV) * 3.0 - 2.0
+        x[0, 5] = float("-inf")
+        x[-1, 1, -3] = 40.0  # a row whose max is in the last chunk
+        w = torch.rand((f, o, i), generator=gen, device=DEV) * 0.99 + 0.01
+        w = w.to(torch.bfloat16) if sfx.startswith("_w16") else w
+        g = torch.randn((f, b, o), generator=gen, device=DEV)
+        g[0, :3] = 0.0
+        if offset:
+            x, w, g = moved(x), moved(w), moved(g)
+        got, m = L._launch_blocked_fwd(x, w, mode)
+        ref, ref_m = L.lse_matmul_blocked_ref(x, w, mode)
+        torch.cuda.synchronize()
+        if not (torch.equal(m, ref_m) and torch.equal(m, L._clamp_max(x))):
+            raise AssertionError(f"{key} [{label}]: row max differs from the clamped max")
+        err = _max_err(key, label, got, ref)
+        grads = L._launch_blocked_bwd(x, w, got, m, g, (True, True), mode)
+        if mode == "sr":
+            again = (L._launch_blocked_fwd(x, w, mode),
+                     L._launch_blocked_bwd(x, w, got, m, g, (True, True), mode))
+            if not all(map(torch.equal, (got, m, *grads), (*again[0], *again[1]))):
+                raise AssertionError(f"{key} [{label}]: two calls differ")
+        refs = L.lse_matmul_blocked_bwd_ref(x, w, got, m, g, (True, True), mode)
+        torch.cuda.synchronize()
+        if grads[1].dtype != w.dtype:
+            raise AssertionError(f"{bkey} [{label}]: dw {grads[1].dtype}, {w.dtype} expected")
+        berr = _grads_close(bkey, label, grads, refs, x, g)
+    results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    results[bkey]["max_abs_err"] = max(results[bkey]["max_abs_err"], berr)
+    print(f"[kernel] {key:27s} {label:36s} max|err|={err:.3e}; backward {berr:.3e}"
+          f"{', two calls equal to the bit' if mode == 'sr' else ''}")
+
+
+def _blocked_sass() -> None:
+    """The registers, stack frame (spills) and tensor-core instructions of
+    blocked_bf16.cu's kernels, read from the library phase 1 built
+    (scripts/ptxas_report.py's ``library_report``): each of its products on
+    the bf16 wgmma (HGMMA)."""
+    import importlib.util
+
+    from cirkit_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location("ptxas_report",
+                                                  REPO / "scripts" / "ptxas_report.py")
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    t0 = time.perf_counter()
+    rows = report.library_report(_build.library_path(), "bb_")
+    if not rows:
+        raise AssertionError("[sass] no bb_ kernel in the built library")
+    for name, stat in sorted(rows.items()):
+        print(f"[sass] blocked_bf16.cu: {name} | {stat} (registers/stack/smem/digest/tensor-core)")
+        if name.startswith(("bb_fwd", "bb_bwd")) and "BF16 HGMMA" not in stat:
+            raise AssertionError(f"[sass] no bf16 HGMMA in {name}")
+    print(f"[time] the SASS report took {time.perf_counter() - t0:.1f} s")
 
 
 def _bit_equal(a, b) -> bool:

@@ -42,11 +42,11 @@
 // sixteen warps a block, four on each SM sub-partition, since one warp
 // issues TF32 mma.sync at a fraction of the tensor core's rate. Their
 // designs are described above each kernel. The float32 K1-chunked kernel
-// also has bf16-weight instances and the blocked kernels bf16-weight and
-// fast-mode instances (WT, MODE; ops/lse_einsum.py's INSTANCES), which stage
-// the weight as bf16 or round the operands to bf16 and drop the products
-// with their zero low parts; the K1-chunked kernel's fast-mode instances run
-// on the bf16 tensor cores (tucker_fwd_bf16, csrc/tucker_bf16.cu).
+// also has bf16-weight instances (WT; ops/lse_einsum.py's INSTANCES), which
+// stage the weight as bf16 and drop the products with its zero low parts;
+// its fast-mode instances run on the bf16 tensor cores (tucker_fwd_bf16,
+// csrc/tucker_bf16.cu), and so do the blocked kernels' bf16-weight and
+// fast-mode instances (csrc/blocked_bf16.cu).
 // The double instances run the register-tiled FMA loop of
 // csrc/lse_einsum.cu on the CUDA cores: 16-wide chunks staged in shared
 // memory, each thread accumulating a TMxTN tile, the next chunk loaded into
@@ -85,7 +85,6 @@ namespace {
 using cirkit::clamp_max;
 using cirkit::exp_t;
 using cirkit::load_w4;
-using cirkit::round_op;
 using cirkit::widen;
 using cirkit::fast_exp;
 using cirkit::fma_t;
@@ -739,24 +738,10 @@ blocked_fwd(const T* __restrict__ x,  // (F, B, I)
 // gives log(0) = -inf, never NaN; columns past I and rows past B stage as
 // -inf and 0. Plane rows of S = KC + 4 words (4 mod 32) let every fragment
 // load hit 32 banks. Ragged I or unaligned operands take 4-byte copies.
-//
-// The bf16-weight and fast-mode instances (WT, MODE: ops/lse_einsum.py's
-// INSTANCES, the counterpart of `_dispatch_blocked` passing a bf16-resident
-// w and `fast` to `_dot3`) change only what is staged and how many products
-// are taken. A bf16 weight is copied as it is stored, eight values a 16-byte
-// copy into the first half of its ring row (ragged I or unaligned: element
-// by element), and widened into the high plane alone: it is exact in TF32,
-// its low part 0, so its products with e's low parts are the only ones kept
-// beside the high ones (two TF32 products, not three). The fast modes round
-// e (ROLE_E) and a float32 weight (ROLE_W) to bf16 as they are staged, SR by
-// the sr_bits of the element's flat index in its operand, and take one TF32
-// product of the two high planes, exact for bf16 values. Each chunk's sums
-// are still added to the accumulators in f32 FMAs, and the row max is the
-// same in every instance (kernel 4 reads it).
 namespace blk_tc {
 constexpr int BM = 128;          // batch rows a block
 constexpr int BN = 128;          // units a block
-constexpr int KC = 32;           // columns a chunk (ops/lse_einsum.py's _BLOCKED_KC)
+constexpr int KC = 32;           // columns a chunk
 constexpr int S = KC + 4;        // plane and ring row stride in words
 constexpr int STAGES = 3;        // the cp.async ring
 constexpr int NT_ = 512;         // threads a block: four warps on each SM sub-partition
@@ -766,17 +751,13 @@ constexpr int CQ = ROWS * KC / 4 / NT_;  // float4 copies a thread issues a chun
 constexpr size_t SMEM = sizeof(float) * ((STAGES + 2) * ROWS * S + BM);
 }  // namespace blk_tc
 
-template <typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(blk_tc::NT_, 1)
 blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
-               const WT* __restrict__ w,     // (F, O, I)
+               const float* __restrict__ w,  // (F, O, I)
                float* __restrict__ out,      // (F, B, O)
                float* __restrict__ m_out,    // (F, B): the clamped row max of x
                int B, int I, int O, int n_ot, int n_bt, bool vec) {
   using namespace blk_tc;
-  constexpr bool FAST = MODE != cirkit::F32;
-  constexpr bool W16 = sizeof(WT) == 2;
-  constexpr bool W_SPLIT = !FAST && !W16;  // the weight has a low plane
   extern __shared__ __align__(16) float blk_smem[];
   float* ring = blk_smem;  // [STAGES][ROWS][S]
   uint32_t* Ph = reinterpret_cast<uint32_t*>(ring + STAGES * ROWS * S);  // [ROWS][S] high parts
@@ -793,13 +774,11 @@ blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;  // the warp's 32 x 32 tile
   const float* xf = x + (size_t)f * B * I;
-  const WT* wf = w + (size_t)f * O * I;
+  const float* wf = w + (size_t)f * O * I;
   const int n_ch = (I + KC - 1) / KC;
 
   // Copy map: ring rows tid / 8 + 64 q (x rows b0 + r, then w rows o0 + r -
-  // BM), columns 4 (tid % 8) .. + 3 of the chunk; a bf16 w row: columns
-  // 8 (tid % 8) .. + 7, by the threads with tid % 8 < 4, into its words
-  // 4 (tid % 8) .. + 3.
+  // BM), columns 4 (tid % 8) .. + 3 of the chunk.
   const int cr = tid >> 3, cc = 4 * (tid & 7);
   auto fetch = [&](int ch) {
     float* dst = ring + (ch % STAGES) * ROWS * S;
@@ -809,27 +788,8 @@ blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
       const int r = cr + 64 * q;
       const bool xrow = r < BM;
       const int gr = xrow ? b0 + r : o0 + r - BM;
-      if constexpr (W16) {
-        if (!xrow) {  // a bf16 w row
-          if (cc < KC / 2) {
-            const int c16 = ch * KC + 2 * cc;
-            const unsigned short* src =
-                reinterpret_cast<const unsigned short*>(wf) + (size_t)gr * I + c16;
-            unsigned short* d = reinterpret_cast<unsigned short*>(dst + r * S + cc);
-            if (vec) {  // I % 8 == 0: the eight columns are in or out together
-              const bool in = gr < O && c16 < I;
-              cirkit::cp_async_f32x4(reinterpret_cast<float*>(d),
-                                     in ? reinterpret_cast<const float*>(src) : x, in);
-            } else {  // plain stores, seen after the barrier that precedes the chunk's staging
-#pragma unroll
-              for (int e = 0; e < 8; ++e) d[e] = gr < O && c16 + e < I ? src[e] : 0;
-            }
-          }
-          continue;
-        }
-      }
       const bool in_row = gr < (xrow ? B : O);
-      const float* src = (xrow ? xf : reinterpret_cast<const float*>(wf)) + (size_t)gr * I + c;
+      const float* src = (xrow ? xf : wf) + (size_t)gr * I + c;
       float* d = dst + r * S + cc;
       if (vec) {  // I % 4 == 0: the four columns are in or out together
         const bool in = in_row && c < I;
@@ -854,13 +814,6 @@ blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
     split_tf32x4(v, h, l);
     *reinterpret_cast<uint4*>(hi) = h;
     *reinterpret_cast<uint4*>(lo) = l;
-  };
-  // eight bf16-valued floats (exact in TF32) into a high plane as they are
-  auto store_raw8 = [](uint32_t* hi, const float (&v)[8]) {
-    *reinterpret_cast<uint4*>(hi) = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                                               __float_as_uint(v[2]), __float_as_uint(v[3]));
-    *reinterpret_cast<uint4*>(hi + 4) = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]),
-                                                   __float_as_uint(v[6]), __float_as_uint(v[7]));
   };
 
   float acc[2][4][4], part[2][4][4];  // the sums so far, and the chunk's
@@ -900,42 +853,17 @@ blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
       const float mn = fmaxf(rm, clamp_max(cm));
       if ((tid & 3) == 0) rscl[sr] = expf(rm - mn);
       rm = mn;
-      if constexpr (FAST) {  // e rounded, its high plane alone
-        const size_t xi = ((size_t)f * B + b0 + sr) * I + c0;
-        float r8[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          r8[e] = round_op<MODE>(expf(v[e] - mn), xi + e, cirkit::ROLE_E);
-        store_raw8(Ph + sr * S + sc, r8);
-      } else {
-        store_split(Ph + sr * S + sc, Pl + sr * S + sc,
-                    make_float4(expf(v[0] - mn), expf(v[1] - mn), expf(v[2] - mn),
-                                expf(v[3] - mn)));
-        store_split(Ph + sr * S + sc + 4, Pl + sr * S + sc + 4,
-                    make_float4(expf(v[4] - mn), expf(v[5] - mn), expf(v[6] - mn),
-                                expf(v[7] - mn)));
-      }
-      if constexpr (W16) {  // eight bf16 at the row's words sc / 2 .. + 3, widened
-        const uint4 u = *reinterpret_cast<const uint4*>(src + (BM + sr) * S + sc / 2);
-        const float r8[8] = {__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                             __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u),
-                             __uint_as_float(u.z << 16), __uint_as_float(u.z & 0xFFFF0000u),
-                             __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xFFFF0000u)};
-        store_raw8(Ph + (BM + sr) * S + sc, r8);
-      } else if constexpr (FAST) {
-        const float* wr = src + (BM + sr) * S + sc;
-        const size_t wi = ((size_t)f * O + o0 + sr) * I + c0;
-        float r8[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) r8[e] = round_op<MODE>(wr[e], wi + e, cirkit::ROLE_W);
-        store_raw8(Ph + (BM + sr) * S + sc, r8);
-      } else {
-        const float* wr = src + (BM + sr) * S + sc;
-        store_split(Ph + (BM + sr) * S + sc, Pl + (BM + sr) * S + sc,
-                    *reinterpret_cast<const float4*>(wr));
-        store_split(Ph + (BM + sr) * S + sc + 4, Pl + (BM + sr) * S + sc + 4,
-                    *reinterpret_cast<const float4*>(wr + 4));
-      }
+      store_split(Ph + sr * S + sc, Pl + sr * S + sc,
+                  make_float4(expf(v[0] - mn), expf(v[1] - mn), expf(v[2] - mn),
+                              expf(v[3] - mn)));
+      store_split(Ph + sr * S + sc + 4, Pl + sr * S + sc + 4,
+                  make_float4(expf(v[4] - mn), expf(v[5] - mn), expf(v[6] - mn),
+                              expf(v[7] - mn)));
+      const float* wr = src + (BM + sr) * S + sc;
+      store_split(Ph + (BM + sr) * S + sc, Pl + (BM + sr) * S + sc,
+                  *reinterpret_cast<const float4*>(wr));
+      store_split(Ph + (BM + sr) * S + sc + 4, Pl + (BM + sr) * S + sc + 4,
+                  *reinterpret_cast<const float4*>(wr + 4));
     }
     __syncthreads();  // the chunk's planes and row factors are staged
 
@@ -956,30 +884,16 @@ blocked_fwd_tc(const float* __restrict__ x,  // (F, B, I)
         const int o = (wn + 8 * nt + g) * S + kk;
         bh[nt][0] = Wh[o];
         bh[nt][1] = Wh[o + 4];
-        if constexpr (W_SPLIT) {
-          bl[nt][0] = Wl[o];
-          bl[nt][1] = Wl[o + 4];
-        }
+        bl[nt][0] = Wl[o];
+        bl[nt][1] = Wl[o + 4];
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         const int o = (wm + 16 * mt + g) * S + kk;
         const uint32_t ah[4] = {Ph[o], Ph[o + 8 * S], Ph[o + 4], Ph[o + 8 * S + 4]};
-        if constexpr (FAST) {  // one TF32 product of bf16 values
+        const uint32_t al[4] = {Pl[o], Pl[o + 8 * S], Pl[o + 4], Pl[o + 8 * S + 4]};
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) cirkit::mma_tf32(part[mt][nt], ah, bh[nt]);
-        } else {
-          const uint32_t al[4] = {Pl[o], Pl[o + 8 * S], Pl[o + 4], Pl[o + 8 * S + 4]};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            if constexpr (W_SPLIT) {
-              mma3_tf32(part[mt][nt], ah, al, bh[nt], bl[nt]);
-            } else {  // the bf16 weight's low plane is 0
-              cirkit::mma_tf32(part[mt][nt], al, bh[nt]);
-              cirkit::mma_tf32(part[mt][nt], ah, bh[nt]);
-            }
-          }
-        }
+        for (int nt = 0; nt < 4; ++nt) mma3_tf32(part[mt][nt], ah, al, bh[nt], bl[nt]);
       }
     }
     // acc = acc * exp(old max - new max) + the chunk's products, in f32 FMAs
@@ -1232,8 +1146,7 @@ constexpr size_t SMEM = sizeof(float) * 2 * SW * (BC + 2 * OC + BC);
 }  // namespace bwd_tc
 
 // gy as blocked_gy computes it, written as TF32 high parts (gy) and low
-// parts (gy + F B O); in a fast mode rounded to bf16 (ROLE_GY), one plane.
-template <int MODE = cirkit::F32>
+// parts (gy + F B O).
 __global__ void __launch_bounds__(THREADS)
 blocked_gy_tc(const float* __restrict__ out, const float* __restrict__ m,
               const float* __restrict__ g, uint32_t* __restrict__ gy, int F, int B, int O) {
@@ -1246,38 +1159,20 @@ blocked_gy_tc(const float* __restrict__ out, const float* __restrict__ m,
   for (int o = lane; o < O; o += 32) {
     const size_t idx = row * O + o;
     const float v = g[idx] * expf(mb - out[idx]);
-    if constexpr (MODE == cirkit::F32) {
-      split_tf32(isfinite(v) ? v : 0.f, gy[idx], gy[plane + idx]);
-    } else {
-      gy[idx] = __float_as_uint(round_op<MODE>(isfinite(v) ? v : 0.f, idx, cirkit::ROLE_GY));
-    }
+    split_tf32(isfinite(v) ? v : 0.f, gy[idx], gy[plane + idx]);
   }
 }
 
-// The bf16-weight and fast-mode instances of the backward (WT, MODE), as
-// the forward's: a bf16 weight is read as it is stored (8-byte loads) and
-// widened into the high plane alone, so dx = gy w takes two TF32 products
-// (gy's two parts against w's high part); the fast modes take gy rounded by
-// blocked_gy_tc, a float32 weight rounded as it is loaded (ROLE_WB) and, for
-// dw = gy^T e, e rounded as it is staged (ROLE_EB), its high planes alone, in
-// one TF32 product each; dx = e * (gy w) multiplies by e unrounded, kept in
-// e's second plane. dw is accumulated and written in float32 whatever the
-// weight's type (the wrapper casts it), as `_blocked_p_bwd` does.
-
-template <typename WT = float, int MODE = cirkit::F32>
 __global__ void __launch_bounds__(bwd_tc::NT_, 1)
 blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
-               const WT* __restrict__ w,          // (F, O, I)
+               const float* __restrict__ w,       // (F, O, I)
                const float* __restrict__ m,       // (F, B) from blocked_fwd
                const uint32_t* __restrict__ gy,   // 2 x (F, B, O) from blocked_gy_tc
                float* __restrict__ dx,            // (F, B, I), or null
                float* __restrict__ dw,            // (F, O, I), or null
                int F, int B, int I, int O, int n_strips, bool vec, bool vec_gy, bool pair) {
   using namespace bwd_tc;
-  constexpr bool FAST = MODE != cirkit::F32;
-  constexpr bool W16 = sizeof(WT) == 2;
-  constexpr bool W_SPLIT = !FAST && !W16;  // the weight has a low plane
-  constexpr int NP = FAST ? 1 : 2;         // gy's planes
+  constexpr int NP = 2;  // gy's planes
   extern __shared__ __align__(16) uint32_t bwd_smem[];
   uint32_t* Eh = bwd_smem;          // [BC][SW] e: high parts
   uint32_t* El = Eh + BC * SW;      //           low parts
@@ -1322,10 +1217,6 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
     *reinterpret_cast<uint4*>(hi) = h;
     *reinterpret_cast<uint4*>(lo) = l;
   };
-  auto bits4 = [](const float4& v) {
-    return make_uint4(__float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z),
-                      __float_as_uint(v.w));
-  };
   float4 px[XQ], pw[WQ];
   auto load_x = [&](int f, int c0, int b0) {
     const float* xf = x + (size_t)f * B * I;
@@ -1336,29 +1227,11 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
     }
   };
   auto load_w = [&](int f, int c0, int o0) {
-    const WT* wf = w + (size_t)f * O * I;
+    const float* wf = w + (size_t)f * O * I;
 #pragma unroll
     for (int q = 0; q < WQ; ++q) {
       const int o = o0 + sr + RS * q;
-      if constexpr (W16) {  // vec: I % 4 == 0 and 8-byte aligned rows
-        const WT* row = wf + (size_t)o * I;
-        const int c = c0 + sc;
-        const bool in = o < O;
-        pw[q] = vec ? (in && c < I ? cirkit::load_w4(row + c) : make_float4(0.f, 0.f, 0.f, 0.f))
-                    : make_float4(in && c < I ? widen(row[c]) : 0.f,
-                                  in && c + 1 < I ? widen(row[c + 1]) : 0.f,
-                                  in && c + 2 < I ? widen(row[c + 2]) : 0.f,
-                                  in && c + 3 < I ? widen(row[c + 3]) : 0.f);
-      } else {
-        pw[q] = ld4(wf + (size_t)o * I, c0 + sc, o < O);
-        if constexpr (FAST) {
-          const size_t idx = ((size_t)f * O + o) * I + c0 + sc;
-          pw[q] = make_float4(round_op<MODE>(pw[q].x, idx, cirkit::ROLE_WB),
-                              round_op<MODE>(pw[q].y, idx + 1, cirkit::ROLE_WB),
-                              round_op<MODE>(pw[q].z, idx + 2, cirkit::ROLE_WB),
-                              round_op<MODE>(pw[q].w, idx + 3, cirkit::ROLE_WB));
-        }
-      }
+      pw[q] = ld4(wf + (size_t)o * I, c0 + sc, o < O);
     }
   };
   auto store_w = [&](int buf) {
@@ -1366,10 +1239,7 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
 #pragma unroll
     for (int q = 0; q < WQ; ++q) {
       const int r = sr + RS * q;
-      if constexpr (W_SPLIT)
-        store_split(wh + r * SW + sc, wh + (OC + r) * SW + sc, pw[q]);
-      else  // bf16-valued: exact in TF32, the high plane alone
-        *reinterpret_cast<uint4*>(wh + r * SW + sc) = bits4(pw[q]);
+      store_split(wh + r * SW + sc, wh + (OC + r) * SW + sc, pw[q]);
     }
   };
   // gy[b0 + r, o0 + k] -> Gh, Gl at row r, column k ^ (r & 4)
@@ -1421,23 +1291,10 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
         const int r = sr + RS * q, b = b0 + r;
         const float mb = b < B ? mf[b] : 0.f;
         const float4 v = px[q];
-        if constexpr (FAST) {  // e rounded for dw, and e itself for dx
-          const float4 e = b < B ? make_float4(expf(v.x - mb), expf(v.y - mb), expf(v.z - mb),
-                                               expf(v.w - mb))
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-          const size_t idx = ((size_t)f * B + b) * I + c0 + sc;
-          *reinterpret_cast<uint4*>(Eh + r * SW + sc) =
-              bits4(make_float4(round_op<MODE>(e.x, idx, cirkit::ROLE_EB),
-                                round_op<MODE>(e.y, idx + 1, cirkit::ROLE_EB),
-                                round_op<MODE>(e.z, idx + 2, cirkit::ROLE_EB),
-                                round_op<MODE>(e.w, idx + 3, cirkit::ROLE_EB)));
-          *reinterpret_cast<uint4*>(El + r * SW + sc) = bits4(e);
-        } else {
-          store_split(Eh + r * SW + sc, El + r * SW + sc,
-                      b < B ? make_float4(expf(v.x - mb), expf(v.y - mb), expf(v.z - mb),
-                                          expf(v.w - mb))
-                            : make_float4(0.f, 0.f, 0.f, 0.f));
-        }
+        store_split(Eh + r * SW + sc, El + r * SW + sc,
+                    b < B ? make_float4(expf(v.x - mb), expf(v.y - mb), expf(v.z - mb),
+                                        expf(v.w - mb))
+                          : make_float4(0.f, 0.f, 0.f, 0.f));
       }
     }
     if (dx != nullptr) store_w(step & 1);
@@ -1471,31 +1328,17 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
             const int o = kk * SW + wn + 8 * nt + g;
             bh[nt][0] = wh[o];
             bh[nt][1] = wh[o + 4 * SW];
-            if constexpr (W_SPLIT) {
-              bl[nt][0] = wl[o];
-              bl[nt][1] = wl[o + 4 * SW];
-            }
+            bl[nt][0] = wl[o];
+            bl[nt][1] = wl[o + 4 * SW];
           }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             // rows r and r + 8 share r & 4 = g & 4
             const int r = wm + 16 * mt + g, o = r * SW + (kk ^ (g & 4));
             const uint32_t ah[4] = {Gh[o], Gh[o + 8 * SW], Gh[o ^ 4], Gh[(o + 8 * SW) ^ 4]};
-            if constexpr (FAST) {
+            const uint32_t al[4] = {Gl[o], Gl[o + 8 * SW], Gl[o ^ 4], Gl[(o + 8 * SW) ^ 4]};
 #pragma unroll
-              for (int nt = 0; nt < 4; ++nt) cirkit::mma_tf32(acc[mt][nt], ah, bh[nt]);
-            } else {
-              const uint32_t al[4] = {Gl[o], Gl[o + 8 * SW], Gl[o ^ 4], Gl[(o + 8 * SW) ^ 4]};
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) {
-                if constexpr (W_SPLIT) {
-                  mma3_tf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
-                } else {  // the bf16 weight's low plane is 0
-                  cirkit::mma_tf32(acc[mt][nt], al, bh[nt]);
-                  cirkit::mma_tf32(acc[mt][nt], ah, bh[nt]);
-                }
-              }
-            }
+            for (int nt = 0; nt < 4; ++nt) mma3_tf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
           }
         }
       } else if (!dx_warp && dw != nullptr) {
@@ -1515,23 +1358,16 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
             const int o = kk * SW + dn + 8 * nt + g;
             bh[nt][0] = Eh[o];
             bh[nt][1] = Eh[o + 4 * SW];
-            if constexpr (!FAST) {
-              bl[nt][0] = El[o];
-              bl[nt][1] = El[o + 4 * SW];
-            }
+            bl[nt][0] = El[o];
+            bl[nt][1] = El[o + 4 * SW];
           }
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             const int c = dm + 16 * mt + g, o = kk * SW + c, o4 = (kk + 4) * SW + (c ^ 4);
             const uint32_t ah[4] = {Gh[o], Gh[o + 8], Gh[o4], Gh[o4 + 8]};
-            if constexpr (FAST) {
+            const uint32_t al[4] = {Gl[o], Gl[o + 8], Gl[o4], Gl[o4 + 8]};
 #pragma unroll
-              for (int nt = 0; nt < 2; ++nt) cirkit::mma_tf32(d[mt][nt], ah, bh[nt]);
-            } else {
-              const uint32_t al[4] = {Gl[o], Gl[o + 8], Gl[o4], Gl[o4 + 8]};
-#pragma unroll
-              for (int nt = 0; nt < 2; ++nt) mma3_tf32(d[mt][nt], ah, al, bh[nt], bl[nt]);
-            }
+            for (int nt = 0; nt < 2; ++nt) mma3_tf32(d[mt][nt], ah, al, bh[nt], bl[nt]);
           }
         }
       }
@@ -1581,17 +1417,11 @@ blocked_bwd_tc(const float* __restrict__ x,       // (F, B, I)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int cl = wn + 8 * nt + 2 * t, c = c0 + cl;
-            float v0, v1;
-            if constexpr (FAST) {  // e unrounded, in the second plane
-              const float2 e = *reinterpret_cast<const float2*>(El + r * SW + cl);
-              v0 = e.x * acc[mt][nt][2 * h];
-              v1 = e.y * acc[mt][nt][2 * h + 1];
-            } else {
-              const uint2 eh = *reinterpret_cast<const uint2*>(Eh + r * SW + cl);
-              const uint2 el = *reinterpret_cast<const uint2*>(El + r * SW + cl);
-              v0 = (__uint_as_float(eh.x) + __uint_as_float(el.x)) * acc[mt][nt][2 * h];
-              v1 = (__uint_as_float(eh.y) + __uint_as_float(el.y)) * acc[mt][nt][2 * h + 1];
-            }
+            const uint2 eh = *reinterpret_cast<const uint2*>(Eh + r * SW + cl);
+            const uint2 el = *reinterpret_cast<const uint2*>(El + r * SW + cl);
+            const float v0 = (__uint_as_float(eh.x) + __uint_as_float(el.x)) * acc[mt][nt][2 * h];
+            const float v1 =
+                (__uint_as_float(eh.y) + __uint_as_float(el.y)) * acc[mt][nt][2 * h + 1];
             if (pair && c < I) {
               *reinterpret_cast<float2*>(drow + c) = make_float2(v0, v1);
             } else {
@@ -1662,18 +1492,16 @@ int launch_ct_tc(const float* x1, const float* x2, const WT* w, float* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename WT = float, int MODE = cirkit::F32>
-int launch_blocked_fwd_tc(const float* x, const WT* w, float* out, float* m, int F, int B,
+int launch_blocked_fwd_tc(const float* x, const float* w, float* out, float* m, int F, int B,
                           int I, int O, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = blocked_fwd_tc<WT, MODE>;
+  auto kernel = blocked_fwd_tc;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(blk_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte copies where every row starts 16-byte aligned (a bf16 weight
-  // row: I % 8 == 0)
-  const bool vec = I % static_cast<int>(16 / sizeof(WT)) == 0 &&
+  // 16-byte copies where every row starts 16-byte aligned
+  const bool vec = I % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int n_ot = static_cast<int>(cdiv(O, blk_tc::BN));
@@ -1684,18 +1512,17 @@ int launch_blocked_fwd_tc(const float* x, const WT* w, float* out, float* m, int
 }
 
 // ``gy`` is the wrapper's scratch of 2 F B O floats: the high and low
-// planes (the fast modes: F B O floats, one plane).
-template <typename WT = float, int MODE = cirkit::F32>
-int launch_blocked_bwd_tc(const float* x, const WT* w, const float* out, const float* m,
+// planes.
+int launch_blocked_bwd_tc(const float* x, const float* w, const float* out, const float* m,
                           const float* g, float* dx, float* dw, float* gy, int F, int B, int I,
                           int O, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* gy2 = reinterpret_cast<uint32_t*>(gy);
-  blocked_gy_tc<MODE><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(out, m, g, gy2, F, B, O);
+  blocked_gy_tc<<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(out, m, g, gy2, F, B, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  auto kernel = blocked_bwd_tc<WT, MODE>;
+  auto kernel = blocked_bwd_tc;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bwd_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1706,9 +1533,9 @@ int launch_blocked_bwd_tc(const float* x, const WT* w, const float* out, const f
   auto aligned = [](const void* p, uintptr_t n) {
     return p == nullptr || reinterpret_cast<uintptr_t>(p) % n == 0;
   };
-  // 16-byte loads of x rows and w rows (bf16: 8-byte) and copies of gy
-  // rows, 8-byte stores of dx and dw pairs
-  const bool vec = I % 4 == 0 && aligned(x, 16) && aligned(w, 4 * sizeof(WT));
+  // 16-byte loads of x rows and w rows and copies of gy rows, 8-byte stores
+  // of dx and dw pairs
+  const bool vec = I % 4 == 0 && aligned(x, 16) && aligned(w, 16);
   const bool vec_gy = O % 4 == 0 && aligned(gy, 16) && ((size_t)F * B * O) % 4 == 0;
   const bool pair = I % 2 == 0 && aligned(dx, 8) && aligned(dw, 8);
   const int n_strips = static_cast<int>(cdiv(I, bwd_tc::SN));
@@ -1721,12 +1548,6 @@ int launch_blocked_bwd_tc(const float* x, const WT* w, const float* out, const f
 }  // namespace
 
 extern "C" {
-
-// The build compiles this source once for each part (-DCIRKIT_WIDE_PART=0,
-// 1; ops/_build.py), the two side by side: part 0 holds the float and double
-// entries and the K1-chunked Tucker forward's instances, part 1 the blocked
-// dense kernels' instances. A build without the macro holds all of them.
-#if !defined(CIRKIT_WIDE_PART) || CIRKIT_WIDE_PART == 0
 
 // Every entry exists for float (the plain name) and for double (_f64). The
 // float K1-chunked Tucker forward and blocked forward and backward run on the
@@ -1769,29 +1590,5 @@ int lse_fwd_ct_softmax_w16(const float* x1, const float* x2, const __nv_bfloat16
                            void* stream) {
   return launch_ct_tc<true>(x1, x2, theta, out, F, B, K1, K2, O, device, stream);
 }
-#endif
-
-// The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
-// blocked dense forward and backward, with the float entries' arguments.
-#if !defined(CIRKIT_WIDE_PART) || CIRKIT_WIDE_PART == 1
-#define LSE_BLOCKED_INSTANCES(SUFFIX, WT, MODE)                                                 \
-  int lse_fwd_blocked##SUFFIX(const float* x, const WT* w, float* out, float* m, int F, int B, \
-                              int I, int O, int device, void* stream) {                        \
-    return launch_blocked_fwd_tc<WT, MODE>(x, w, out, m, F, B, I, O, device, stream);           \
-  }                                                                                             \
-  int lse_bwd_blocked##SUFFIX(const float* x, const WT* w, const float* out, const float* m,   \
-                              const float* g, float* dx, float* dw, float* gy, int F, int B,   \
-                              int I, int O, int device, void* stream) {                        \
-    return launch_blocked_bwd_tc<WT, MODE>(x, w, out, m, g, dx, dw, gy, F, B, I, O, device,     \
-                                           stream);                                             \
-  }
-
-LSE_BLOCKED_INSTANCES(_fast, float, cirkit::BF16)
-LSE_BLOCKED_INSTANCES(_sr, float, cirkit::SR)
-LSE_BLOCKED_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
-LSE_BLOCKED_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
-LSE_BLOCKED_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
-#undef LSE_BLOCKED_INSTANCES
-#endif
 
 }  // extern "C"

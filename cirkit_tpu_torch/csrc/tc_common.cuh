@@ -7,9 +7,10 @@
 // parts in planes of their own, so each fragment register is loaded where
 // the mma reads it, with no moves between registers), asynchronous copies
 // to shared memory, and accumulator zeroing; and the bf16 wgmma of the fast
-// modes' Tucker forwards and backward with its shared-memory layout, the
-// TMA copies and the mbarriers they complete on (csrc/tucker_bf16.cu,
-// csrc/tucker_bf16_bwd.cu).
+// modes' Tucker forwards and backward and of the bf16-weight and fast-mode
+// blocked dense kernels with its shared-memory layout, the TMA copies and
+// the mbarriers they complete on (csrc/tucker_bf16.cu,
+// csrc/tucker_bf16_bwd.cu, csrc/blocked_bf16.cu).
 //
 // A fragment of m16n8k8 with g = lane / 4, t = lane % 4: A (16 x 8, rows
 // m, columns k) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B
@@ -199,12 +200,68 @@ __device__ __forceinline__ void wgmma_64x32_ta(float (&d)[16], uint64_t da, uint
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// Registers that an asynchronous wgmma writes, pinned: reads of them are
-// not moved above the wgmma_wait that precedes this.
+// d (64 x 64) = a b, plus d where ``acc``, with both operands read MN-major
+// (sw128_desc_mn): A from a tile whose rows are k and whose 64 columns are
+// A's rows, B from a tile whose rows are k and whose 64 columns are B's.
+__device__ __forceinline__ void wgmma_64x64_tt(float (&d)[32], uint64_t da, uint64_t db,
+                                               int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (the warpgroup's 64 x 128 f32 tile) = a b, plus d where ``acc``: A 64 x
+// 16 from registers, B 16 x 128 K-major from its descriptor. Warp w of the
+// warpgroup passes rows 16 w + g and 16 w + g + 8 of A as mma.m16n8k16's A
+// fragment (g = lane / 4, t = lane % 4): a[0] the first row's columns 2t,
+// 2t + 1, a[1] the second row's, a[2] and a[3] the same at 2t + 8, 2t + 9.
+// d as wgmma_64x64's, for n-tiles 0..15. The registers of ``a`` must hold
+// their values until the wgmma_wait that retires this product.
+__device__ __forceinline__ void wgmma_64x128_ra(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// Registers that an asynchronous wgmma writes (or reads), pinned: reads of
+// them are not moved above the wgmma_wait that precedes this, nor their
+// last use below it.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int k = 0; k < N; ++k) asm volatile("" : "+f"(d[k])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) asm volatile("" : "+r"(d[k])::"memory");
 }
 
 // wgmma's ordering: the fence before a batch (its registers were touched by

@@ -2,8 +2,8 @@
 
 The sources are compiled at first use by ``nvcc``, one process per source
 (``lse_einsum.cu`` and ``clse_einsum.cu`` in three parts, ``lse_einsum_bwd.cu``
-in five, ``tucker_bf16.cu`` and ``tucker_bf16_bwd.cu`` in four,
-``lse_wide.cu`` in two) started together, and linked into a shared library
+and ``blocked_bf16.cu`` in five, ``tucker_bf16.cu`` and ``tucker_bf16_bwd.cu``
+in four) started together, and linked into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``; the signed log-einsum-exp kernels are template
 instances in the lse kernels' two sources, the complex ones have a source of
@@ -11,7 +11,10 @@ their own, and so have the fast modes' Tucker forwards and backward on the
 bf16 tensor cores (``tucker_bf16.cu``: the ``_fast``, ``_sr``, ``_w16_fast``
 and ``_w16_sr`` entries of ``lse_fwd_tucker[_softmax]``, which kernel 5's
 fast instances launch too; ``tucker_bf16_bwd.cu``: those of
-``lse_bwd_tucker[_softmax]``, kernel 5's backward too). The library goes
+``lse_bwd_tucker[_softmax]``, kernel 5's backward too), and the blocked
+dense kernels' bf16-weight and fast-mode instances (``blocked_bf16.cu``: the
+``_w16``, ``_fast``, ``_sr``, ``_w16_fast`` and ``_w16_sr`` entries of
+``lse_fwd_blocked`` and ``lse_bwd_blocked``). The library goes
 to ``build/cirkit_tpu_torch/`` at the root of the checkout, under a name
 keyed on a hash of the sources and the flags, so an edit rebuilds and an
 unchanged tree reuses the build.
@@ -34,7 +37,7 @@ _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in (
         "lse_einsum.cu", "lse_einsum_bwd.cu", "lse_wide.cu", "tucker_route.cu", "clse_einsum.cu",
-        "tucker_bf16.cu", "tucker_bf16_bwd.cu",
+        "tucker_bf16.cu", "tucker_bf16_bwd.cu", "blocked_bf16.cu",
     )
 )
 _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
@@ -42,9 +45,9 @@ _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
 # instances in parts that compile side by side (each part's macro selects
 # its entries), the others whole
 _PARTS = {"lse_einsum.cu": ("CIRKIT_FWD_PART", 3), "lse_einsum_bwd.cu": ("CIRKIT_BWD_PART", 5),
-          "lse_wide.cu": ("CIRKIT_WIDE_PART", 2), "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3),
-          "tucker_bf16.cu": ("CIRKIT_BF16_PART", 4),
-          "tucker_bf16_bwd.cu": ("CIRKIT_BF16_BWD_PART", 4)}
+          "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3), "tucker_bf16.cu": ("CIRKIT_BF16_PART", 4),
+          "tucker_bf16_bwd.cu": ("CIRKIT_BF16_BWD_PART", 4),
+          "blocked_bf16.cu": ("CIRKIT_BLOCKED_PART", 5)}
 _UNITS = tuple(
     unit
     for src in _SOURCES
@@ -91,7 +94,8 @@ _SIGNATURES = {
     "slse_bwd_tucker_softmax": ((*(_P,) * 15, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     # lse_wide.cu: the K1-chunked Tucker forward (as lse_fwd_tucker); the
     # blocked dense forward (x, w, out, m) and backward (x, w, out, m, g,
-    # dx, dw, gy scratch)
+    # dx, dw, gy scratch); their bf16-weight and fast-mode instances are
+    # blocked_bf16.cu's, with the same arguments (dw of the weight's type)
     "lse_fwd_ct": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_fwd_ct_softmax": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     "lse_fwd_blocked": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ctypes.c_int),

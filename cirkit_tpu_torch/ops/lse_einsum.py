@@ -59,8 +59,9 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
   signed and complex kernels 6, 7, 10 and 11, which run on the CUDA cores);
   ``sr`` stochastically rounds the contraction operands to bf16, any other
   value rounds them to the nearest bf16; the Tucker forwards (kernels 1
-  and 5) and their backward then run their products on the bf16 tensor
-  cores (``csrc/tucker_bf16.cu``, ``csrc/tucker_bf16_bwd.cu``), the other
+  and 5) and their backward, and the blocked dense kernels 3 and 4, then
+  run their products on the bf16 tensor cores (``csrc/tucker_bf16.cu``,
+  ``csrc/tucker_bf16_bwd.cu``, ``csrc/blocked_bf16.cu``), the other
   tensor-core kernels one TF32 pass
   over the bf16-valued operands, which multiplies them exactly too, both
   with float32 accumulation, and the CUDA-core kernels the same FMAs on
@@ -145,10 +146,11 @@ _BN, _BM = 64, 128
 # the blocked forward's (batch-row, output-unit) tiles by entry suffix: the
 # float32 kernel on the tensor cores covers 128 units, the float64 one 64
 _BLOCKED_TILES = {"": (128, 128), "_f64": (128, 64)}
-_BLOCKED_KC = 32
-"""The columns of a chunk of the float32 blocked forward kernel, over whose
-running row max the fast modes round its exponentials: ``blk_tc::KC`` of
-``csrc/lse_wide.cu``, which must change with it (a test reads it there)."""
+_BLOCKED_KC = 64
+"""The columns of a chunk of the bf16-weight and fast-mode blocked forward
+kernels, over whose running row max the fast modes round their
+exponentials: ``bb::KC`` of ``csrc/blocked_bf16.cu``, which must change with
+it (a test reads it there)."""
 _TUCKER_JC = 64
 """The columns ``j`` of a chunk of the fast Tucker forwards: ``tb::JC`` of
 ``csrc/tucker_bf16.cu``, which must change with it (a test reads it there).
@@ -825,12 +827,33 @@ def _launch_blocked_fwd(
     return out, m
 
 
-def _blocked_gy_shape(f: int, b: int, o: int, suffix: str, mode: str = "") -> tuple[int, ...]:
-    """The shape of the blocked backward's gy scratch: (F, B, O), or for the
-    float32 kernel in the f32-grade mode, which keeps a plane of TF32 high
-    parts and one of low parts, room for 2 F B O floats (a fast mode keeps
-    gy rounded to bf16, one plane)."""
-    return (f, b, o) if suffix or mode else (f, b, o, 2)
+def _blocked_gy_shape(f: int, b: int, o: int, suffix: str, inst: str = "") -> tuple[int, ...]:
+    """The shape of the blocked backward's gy scratch (of the type
+    :func:`_blocked_gy_dtype` gives): (F, B, O) for the float64 kernel; for
+    the float32 one, which keeps a plane of TF32 high parts and one of low
+    parts, (F, B, O, 2); for the bf16-weight and fast-mode instances
+    (``inst``, ``csrc/blocked_bf16.cu``) gy rounded to bf16, its rows padded
+    to a multiple of 8 units, one plane, or for the f32-grade ``_w16`` its
+    split hi, lo: two."""
+    if suffix:
+        return (f, b, o)
+    if not inst:
+        return (f, b, o, 2)
+    return (2 if inst == "_w16" else 1, f, b, -(-o // 8) * 8)
+
+
+def _blocked_gy_dtype(dtype: torch.dtype, inst: str) -> torch.dtype:
+    """The type of the blocked backward's gy scratch beside activations of
+    ``dtype``: bf16 for the bf16-weight and fast-mode instances."""
+    return torch.bfloat16 if inst else dtype
+
+
+def _blocked_dw_dtype(dtype: torch.dtype, inst: str) -> torch.dtype:
+    """The type of the weight's gradient that the blocked backward writes
+    beside activations of ``dtype``: the weight's own, bf16 for the ``_w16``
+    instances (the nearest to the f32 sum), the activations' for the
+    others, whose weight has the activations' type."""
+    return torch.bfloat16 if inst.startswith("_w16") else dtype
 
 
 def _launch_blocked_bwd(
@@ -839,11 +862,11 @@ def _launch_blocked_bwd(
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Allocate the requested gradients and the gy scratch, and launch the
     blocked dense backward (in ``mode``, on the weight's type). The weight's
-    gradient has the activations' type."""
+    gradient has the weight's type (:func:`_blocked_dw_dtype`)."""
     op = "lse_matmul_blocked"
     dev, suffix, inst = _check_weighted(f"{op} backward", (x, out, m, g), w, mode)
-    dx, dw = (torch.empty(t.shape, device=dev, dtype=x.dtype) if need else None
-              for t, need in zip((x, w), needs))
+    dx, dw = (torch.empty(t.shape, device=dev, dtype=dt) if need else None
+              for t, dt, need in zip((x, w), (x.dtype, _blocked_dw_dtype(x.dtype, inst)), needs))
     if not any(needs):
         return dx, dw
     if out.numel() == 0 or x.numel() == 0:
@@ -854,7 +877,8 @@ def _launch_blocked_bwd(
     if (max(f, b, i, o) >= 2**31 or -(-b // _BWD_ROWS) > _MAX_GRID_YZ
             or f * -(-i // _BWD_DX_COLS) >= 2**31):
         raise ValueError(f"{op} backward: sizes {(f, b, i, o)} exceed the kernel's launch grid")
-    gy = torch.empty(_blocked_gy_shape(f, b, o, suffix, mode), device=dev, dtype=x.dtype)
+    gy = torch.empty(_blocked_gy_shape(f, b, o, suffix, inst), device=dev,
+                     dtype=_blocked_gy_dtype(x.dtype, inst))
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (x, w, out, m, g)),
@@ -1017,8 +1041,8 @@ _blocked_fwd_op = launch_op(
 
 class LseMatmulBlocked(torch.autograd.Function):
     """The wide :func:`lse_matmul`: the blocked forward saves the row max it
-    returns for the blocked backward; the weight's gradient is cast to its
-    type."""
+    returns for the blocked backward; the weight's gradient has the weight's
+    type (the kernels write it so; the plain version's is cast)."""
 
     @staticmethod
     def forward(ctx, x, w, mode):

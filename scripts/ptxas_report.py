@@ -3,9 +3,9 @@
 
 Run on a machine with the CUDA toolkit, from the root of a checkout:
 
-    python3 scripts/ptxas_report.py cirkit_tpu_torch/csrc [OTHER_CSRC ...]
+    python3 scripts/ptxas_report.py cirkit_tpu_torch/csrc [OTHER_CSRC ...] [--only A.cu,B.cu]
 
-Each ``*.cu`` of each directory is compiled for sm_90a with the flags of
+Each ``*.cu`` of each directory (or those ``--only`` names) is compiled for sm_90a with the flags of
 ``cirkit_tpu_torch/ops/_build.py`` (to an object that is thrown away). The
 report has one line per kernel (demangled, with the template arguments
 that turn a variant off, ``false``, dropped from the end, and the scalar
@@ -21,8 +21,16 @@ kernel's tensor-core instructions (``HMMA``, which ``mma.sync`` compiles
 to, and ``HGMMA``, which ``wgmma`` compiles to) by instruction and operand
 type (``HMMA.1688.F32.TF32``: "TF32 HMMA"; ``HGMMA.64x64x16.F32.BF16``:
 "BF16 HGMMA"). A trailing mode argument of 0 (the f32-grade
-mode, a template's default) is dropped from a kernel's name too, so a
-kernel that loses that argument keeps its name.
+mode, a template's default) is dropped from a kernel's name too, also where
+it is the only one left, so a kernel that loses that argument keeps its
+name.
+
+``library_report(lib, tag)`` reads the same of a library that
+``ops/_build.py`` has built, with no compile: registers, stack frame (where
+ptxas puts spilled registers) and static shared memory from ``cuobjdump
+-res-usage``, the digest and tensor-core instructions from ``cuobjdump
+-sass``, for the kernels whose mangled names hold ``tag``
+(``chip_smoke.py`` phase 17 reads blocked_bf16.cu's ``bb_`` kernels so).
 """
 
 from __future__ import annotations
@@ -46,14 +54,21 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 _PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
+_RES_FUNCTION = re.compile(r"Function ([^\s:]+):")
+_RES = re.compile(r"REG:(\d+) STACK:(\d+) SHARED:(\d+)")
 
 
-def _sass_digests(obj: Path) -> dict[str, str]:
-    """mangled kernel name -> digest of its instructions in ``obj`` and the
-    number of its tensor-core instructions by kind, as ``digest/count (kinds)``."""
-    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True,
-                         check=True).stdout
+def _cuobjdump() -> str:
+    return shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
+
+
+def _sass_digests(obj: Path, names: tuple[str, ...] = ()) -> dict[str, str]:
+    """mangled kernel name -> digest of its instructions in ``obj`` (only
+    those of ``names``, if given) and the number of its tensor-core
+    instructions by kind, as ``digest/count (kinds)``."""
+    only = ("-fun", ",".join(names)) if names else ()
+    out = subprocess.run([_cuobjdump(), "-sass", *only, str(obj)], capture_output=True,
+                         text=True, check=True).stdout
     digests: dict[str, str] = {}
     name, body = None, []
     for line in [*out.splitlines(), "Function : <end>"]:
@@ -91,16 +106,19 @@ def _key(name: str) -> str:
     # had before the kernels became templates over their scalar type
     name = name.replace("<float, ", "<").replace("<float>", "")
     name = name.removesuffix(", 0>") + (">" if name.endswith(", 0>") else "")
+    name = name.removesuffix("<0>")
     while name.endswith(", false>"):
         name = name[: -len(", false>")] + ">"
     return name.removesuffix("<false>")
 
 
-def report(csrc: Path) -> dict[str, str]:
+def report(csrc: Path, only: tuple[str, ...] = ()) -> dict[str, str]:
     """kernel -> "registers/spill stores/spill loads/smem" for one tree."""
     rows: dict[str, str] = {}
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(csrc.glob("*.cu")):
+            if only and src.name not in only:
+                continue
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
             log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
@@ -122,9 +140,36 @@ def report(csrc: Path) -> dict[str, str]:
     return rows
 
 
+def library_report(lib: Path, tag: str) -> dict[str, str]:
+    """kernel -> "registers/stack bytes/smem/SASS digest/tensor-core
+    instructions" of each kernel of the built library ``lib`` whose mangled
+    name holds ``tag``."""
+    out = subprocess.run([_cuobjdump(), "-res-usage", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    usage: dict[str, str] = {}
+    name = None
+    for line in out.splitlines():
+        if m := _RES_FUNCTION.search(line):
+            name = m.group(1)
+        elif name is not None and (m := _RES.search(line)):
+            if tag in name:
+                usage[name] = "/".join(m.groups())
+            name = None
+    mangled = sorted(usage)
+    sass = _sass_digests(lib, tuple(mangled)) if mangled else {}
+    return {_key(d): f"{usage[n]}/{sass.get(n, '?')}"
+            for n, d in zip(mangled, _demangle(mangled))}
+
+
 def main() -> int:
-    trees = [Path(p) for p in sys.argv[1:]] or [REPO / "cirkit_tpu_torch" / "csrc"]
-    reports = [report(t) for t in trees]
+    args = sys.argv[1:]
+    only: tuple[str, ...] = ()
+    if "--only" in args:
+        at = args.index("--only")
+        only = tuple(args[at + 1].split(","))
+        del args[at : at + 2]
+    trees = [Path(p) for p in args] or [REPO / "cirkit_tpu_torch" / "csrc"]
+    reports = [report(t, only) for t in trees]
     names = sorted(set().union(*reports))
     print("kernel | " + " | ".join(str(t) for t in trees))
     for name in names:

@@ -2015,11 +2015,32 @@ def test_export_on_the_card_embeds_the_kernel_ops():
 
 
 # The bf16-weight and fast-mode instances of the blocked dense kernels (3'
-# and 4'), held against their plain versions in the same mode as kernels 1,
-# 2 and 5's are, at the float32 blocked forward's edges (and I = 260: I % 4
-# == 0 but not I % 8, so a bf16 weight takes no 16-byte copies), aligned and
-# one element off (4-byte copies and loads).
-BLOCKED_INSTANCE_CASES = [*TC_BLOCKED_FWD, (2, 16, 260, 16)]
+# and 4', csrc/blocked_bf16.cu), held against their plain versions in the
+# same mode as kernels 1, 2 and 5's are, at the float32 blocked forward's
+# edges (and I = 260: I % 4 == 0 but not I % 8, so a bf16 weight is copied
+# element by element), aligned and one element off (no TMA copies); at B
+# past one batch tile of either kernel (128 rows forward, 64 backward), O
+# past one launch's 128 units (the later launch adding its dx) and I % 8 =
+# 3 (B=300, I=8195, O=200); and at an aligned B=200, O=72 (TMA, one unit
+# tile and a partial second).
+BLOCKED_INSTANCE_CASES = [*TC_BLOCKED_FWD, (2, 16, 260, 16), (2, 300, 8195, 200),
+                          (1, 200, 8256, 72)]
+
+
+def _close_blocked_grad(got, ref):
+    """The backward bound on a gradient of the plain version's type, or on a
+    bf16 one (the bf16-weight instances' weight gradient, the nearest to its
+    f32 sum): against the plain gradient rounded to bf16, one bf16 ulp of it
+    more (of the smallest bf16 normal at least, so an exact 0 gets none)."""
+    if got.dtype != torch.bfloat16:
+        return _close(got, ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    want = ref.to(torch.bfloat16).float()
+    exp = torch.frexp(want.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)).exponent
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+    err = (got.float() - want).abs()
+    bound = 1e-4 * ref.abs().max() + 1e-4 * ref.abs() + ulp
+    assert not torch.isnan(got).any() and bool((err <= bound).all()), float((err - bound).max())
 
 
 @pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
@@ -2043,13 +2064,17 @@ def test_blocked_instance_kernels_match_plain(sfx, mode, f, b, i, o, offset):
     g[0, 3:5] = 0.0
     grads = T._launch_blocked_bwd(x, w, out, m, g, (True, True), mode)
     again = T._launch_blocked_bwd(x, w, out, m, g, (True, True), mode)
+    dx_only = T._launch_blocked_bwd(x, w, out, m, g, (True, False), mode)
+    dw_only = T._launch_blocked_bwd(x, w, out, m, g, (False, True), mode)
     refs = T.lse_matmul_blocked_bwd_ref(x, w, out, m, g, (True, True), mode)
     torch.cuda.synchronize()
-    assert T.LAUNCHES[f"lse_matmul_blocked{sfx}_bwd"] == 2
+    assert T.LAUNCHES[f"lse_matmul_blocked{sfx}_bwd"] == 4
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
-    for k, (got, r) in enumerate(zip(grads, refs)):
-        assert got.dtype == torch.float32
-        _close(got, r, zeros=k == 0 and not mode)  # bf16 operands may cancel to an exact 0
+    assert dx_only[1] is None and dw_only[0] is None
+    assert torch.equal(dx_only[0], grads[0]) and torch.equal(dw_only[1], grads[1])
+    assert grads[0].dtype == torch.float32 and grads[1].dtype == w.dtype
+    _close(grads[0], refs[0], zeros=not mode)  # bf16 operands may cancel to an exact 0
+    _close_blocked_grad(grads[1], refs[1])
     structural = torch.isneginf(x) | (g == 0).all(dim=-1, keepdim=True)
     assert bool((grads[0][structural] == 0).all())
 

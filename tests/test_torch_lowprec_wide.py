@@ -4,7 +4,8 @@ dense kernels (3 and 4) and the bf16 ``th`` of the routing kernels (8 and
 
 On CPU tensors the port runs its plain versions, which round at the port's
 kernels' points (``ops/lse_einsum.py``: the blocked forward's exponentials
-over the row's running max of 32-column chunks, its backward's ``gy``,
+over the row's running max of chunks of ``_BLOCKED_KC`` columns, its
+backward's ``gy``,
 weights and exponentials); the JAX package runs ``_blocked_fwd_call`` and
 ``_blocked_p`` in interpret mode in the mode ``_cfg_fast`` gives
 (``CIRKIT_TPU_FORCE_PALLAS``, as ``tests/test_torch_fast_modes.py`` and
@@ -174,46 +175,64 @@ def test_blocked_bf16_weight_f32_grade(shape):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_blocked_fast_forward_rounds_over_the_running_max(mode, monkeypatch):
-    """Within one chunk of 32 columns the running max is the row max, so the
-    fast blocked forward rounds as the single-pass one does, to the bit; the
-    row max ``m`` the backward reads is the clamped max in every mode. Over
-    several chunks a row whose max sits in the last chunk rounds its early
-    exponentials against the smaller running max, as the kernel does."""
+    """Within one chunk of ``_BLOCKED_KC`` columns the running max is the row
+    max, so the fast blocked forward rounds as the single-pass one does, to
+    the bit; the row max ``m`` the backward reads is the clamped max in every
+    mode. Over several chunks a row whose max sits in the last chunk rounds
+    its early exponentials against the smaller running max, as the kernel
+    does."""
+    kc = T._BLOCKED_KC
     rng = np.random.default_rng(33)
-    x = torch.as_tensor((rng.normal(size=(2, 5, 32)) * 3.0).astype(np.float32))
-    w = torch.as_tensor(rng.uniform(0.01, 1.0, size=(2, 7, 32)).astype(np.float32))
+    x = torch.as_tensor((rng.normal(size=(2, 5, kc)) * 3.0).astype(np.float32))
+    w = torch.as_tensor(rng.uniform(0.01, 1.0, size=(2, 7, kc)).astype(np.float32))
     out, m = T.lse_matmul_blocked_ref(x, w, mode)
     assert torch.equal(out, T.lse_matmul_ref(x, w, mode))
     assert torch.equal(m, T._clamp_max(x))
     wide = torch.cat([x, x + 0.37, x - 1.0], dim=-1)  # row maxes in the second chunk
     e = T._blocked_fast_e(wide, T._clamp_max(wide), mode)
-    first = T.round_bf16(torch.exp(wide - T._clamp_max(wide[..., :32])), mode, T.ROLE_E)
-    scale = torch.exp(T._clamp_max(wide[..., :32]) - T._clamp_max(wide))
-    assert torch.equal(e[..., :32], first[..., :32] * scale)
+    first = T.round_bf16(torch.exp(wide - T._clamp_max(wide[..., :kc])), mode, T.ROLE_E)
+    scale = torch.exp(T._clamp_max(wide[..., :kc]) - T._clamp_max(wide))
+    assert torch.equal(e[..., :kc], first[..., :kc] * scale)
 
 
 def test_blocked_instances_have_entries_and_counts():
     """Every blocked instance has its forward and backward entries in the
-    library's signatures and a ``LAUNCHES`` key each; the fast modes' gy
-    scratch is one plane; the routing kernels have a ``_w16`` instance alone."""
+    library's signatures, both in ``csrc/blocked_bf16.cu``, and a
+    ``LAUNCHES`` key each; its gy scratch is bf16, one plane of rows padded to
+    8 units (the ``_w16`` split: two), the float32 kernel's two f32 planes;
+    its weight's gradient has the weight's type; the routing kernels have a
+    ``_w16`` instance alone."""
+    src = (Path(T.__file__).parent.parent / "csrc" / "blocked_bf16.cu").read_text()
     for sfx in T.INSTANCES:
         assert {f"lse_fwd_blocked{sfx}", f"lse_bwd_blocked{sfx}"} <= set(_build._SIGNATURES)
         assert {f"lse_matmul_blocked{sfx}", f"lse_matmul_blocked{sfx}_bwd"} <= set(T.LAUNCHES)
         assert _build._SIGNATURES[f"lse_fwd_blocked{sfx}"] == _build._SIGNATURES["lse_fwd_blocked"]
+        assert _build._SIGNATURES[f"lse_bwd_blocked{sfx}"] == _build._SIGNATURES["lse_bwd_blocked"]
+        assert f"BLOCKED_BF16_ENTRIES({sfx}, " in src
+        planes = 2 if sfx == "_w16" else 1
+        assert T._blocked_gy_shape(3, 130, 70, "", sfx) == (planes, 3, 130, 72)
+        assert T._blocked_gy_shape(3, 130, 64, "", sfx) == (planes, 3, 130, 64)
+        assert T._blocked_gy_dtype(torch.float32, sfx) == torch.bfloat16
+        w_dtype = torch.bfloat16 if sfx.startswith("_w16") else torch.float32
+        assert T._blocked_dw_dtype(torch.float32, sfx) == w_dtype
+    assert T._blocked_gy_shape(3, 130, 70, "", "") == (3, 130, 70, 2)
+    assert T._blocked_gy_dtype(torch.float32, "") == torch.float32
+    assert T._blocked_dw_dtype(torch.float32, "") == torch.float32
+    assert T._blocked_dw_dtype(torch.float64, "") == torch.float64
+    assert "BLOCKED_INSTANCES" not in (Path(T.__file__).parent.parent / "csrc"
+                                       / "lse_wide.cu").read_text()
     for op, entry in (("tropical_tucker2", "tropical_tucker"), ("route_tucker2", "route_tucker")):
         assert f"{op}_w16" in R.LAUNCHES and f"{op}_fast" not in R.LAUNCHES
         assert _build._SIGNATURES[f"{entry}_w16"] == _build._SIGNATURES[entry]
-    assert T._blocked_gy_shape(3, 130, 70, "", "bf16") == (3, 130, 70)
-    assert T._blocked_gy_shape(3, 130, 70, "", "") == (3, 130, 70, 2)
 
 
 def test_blocked_chunk_width_matches_the_kernel():
     """The plain fast forward rounds over the running max of chunks of
-    ``_BLOCKED_KC`` columns, the chunk width ``blk_tc::KC`` of the kernel's
+    ``_BLOCKED_KC`` columns, the chunk width ``bb::KC`` of the kernels'
     source: a kernel with other chunks would round other exponentials."""
-    src = (Path(T.__file__).parent.parent / "csrc" / "lse_wide.cu").read_text()
-    ns = src[src.index("namespace blk_tc {"):]
-    ns = ns[:ns.index("}  // namespace blk_tc")]
+    src = (Path(T.__file__).parent.parent / "csrc" / "blocked_bf16.cu").read_text()
+    ns = src[src.index("namespace bb {"):]
+    ns = ns[:ns.index("}  // namespace bb")]
     assert re.search(r"constexpr int KC = (\d+);", ns).group(1) == str(T._BLOCKED_KC)
 
 
