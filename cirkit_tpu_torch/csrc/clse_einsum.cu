@@ -66,6 +66,11 @@
 // blocks split the batch and keep the row shifts, gy and e on chip, then
 // sum_partials. A null dx or dw pointer skips that gradient.
 //
+// The complex64 Tucker backward against a real weight (the complex
+// flagship's) has entries of its own on the tensor cores,
+// clse_bwd_tucker_rw* (csrc/lse_einsum_bwd.cu's launch_cbwd_tc and
+// csrc/tucker_bf16_bwd.cu's CPLX instances); clse_bwd refuses it.
+//
 // Each extern "C" entry selects the given device, launches on the given
 // stream, checks cudaGetLastError() after each launch and returns the first
 // error (0 on success). Values are PyTorch's interleaved (re, im) pairs.
@@ -1618,25 +1623,27 @@ int launch_bwd(const void* xa, const void* xb, const void* w, const void* out, c
       xa, xb, out, g, sa, sb, gy, B, TUCKER ? K1 : I, K2, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (dxa != nullptr || dxb != nullptr) {
-    if (TUCKER && plan.split) {
-      const int n_bt = static_cast<int>(cdiv(B, TuckerDx<T>::BM));
-      const int n_jt = static_cast<int>(cdiv(K2, BN));
-      const int n_it = static_cast<int>(cdiv(K1, I_PER));
-      C* part1 = gy + plan.dx_part;
-      C* part2 = part1 + (size_t)n_jt * F * B * K1;
-      clse_bwd_dx_tucker_split<T, WCPLX, MODE><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
-          xa, xb, w, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      ctucker_split_finish<T><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
-          xa, xb, sa, sb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
-    } else if (TUCKER) {
-      const size_t smem = tucker_dx_smem<T>(K1, K2);
-      auto kernel = clse_bwd_dx_tucker<T, WCPLX, MODE>;
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<dim3(F, cdiv(B, TuckerDx<T>::BM)), THREADS, smem, s>>>(xa, xb, w, sa, sb, gy, dxa,
-                                                                     dxb, B, K1, K2, O);
+    if constexpr (TUCKER) {
+      if (plan.split) {
+        const int n_bt = static_cast<int>(cdiv(B, TuckerDx<T>::BM));
+        const int n_jt = static_cast<int>(cdiv(K2, BN));
+        const int n_it = static_cast<int>(cdiv(K1, I_PER));
+        C* part1 = gy + plan.dx_part;
+        C* part2 = part1 + (size_t)n_jt * F * B * K1;
+        clse_bwd_dx_tucker_split<T, WCPLX, MODE><<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
+            xa, xb, w, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+        ctucker_split_finish<T><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+            xa, xb, sa, sb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+      } else {
+        const size_t smem = tucker_dx_smem<T>(K1, K2);
+        auto kernel = clse_bwd_dx_tucker<T, WCPLX, MODE>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        kernel<<<dim3(F, cdiv(B, TuckerDx<T>::BM)), THREADS, smem, s>>>(xa, xb, w, sa, sb, gy,
+                                                                       dxa, dxb, B, K1, K2, O);
+      }
     } else {
       clse_bwd_dx_dense<T, WCPLX, MODE>
           <<<dim3(F, cdiv(I, BN), cdiv(B, fwd::BM)), THREADS, 0, s>>>(xa, w, sa, gy, dxa, B, I, O);
@@ -1704,8 +1711,13 @@ struct BwdCall {
   cudaStream_t s;
   template <typename T, bool TUCKER, bool WCPLX>
   int operator()() const {
-    return launch_bwd<T, TUCKER, WCPLX, MODE>(xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B, I,
-                                              K1, K2, O, s);
+    // the complex64 Tucker backward against a real weight has entries of its
+    // own, clse_bwd_tucker_rw* (csrc/lse_einsum_bwd.cu, tucker_bf16_bwd.cu)
+    if constexpr (sizeof(T) == 4 && TUCKER && !WCPLX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch_bwd<T, TUCKER, WCPLX, MODE>(xa, xb, w, out, g, dxa, dxb, dw, sa, sb, gy, F, B,
+                                                I, K1, K2, O, s);
   }
 };
 

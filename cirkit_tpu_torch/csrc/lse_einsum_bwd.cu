@@ -4,9 +4,11 @@
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of
 // cirkit_tpu/ops/lse_einsum.py (dispatched by `_call_bwd`, wired in as the
-// custom VJP of `_fused_p`), in its four configurations, and with SIGNED
-// the kernel `_s_bwd_kernel` of the same file (`_s_call_bwd`, the custom
-// VJP of `_sfused_p`), in its four. Per fold f, with
+// custom VJP of `_fused_p`), in its four configurations, with SIGNED the
+// kernel `_s_bwd_kernel` of the same file (`_s_call_bwd`, the custom VJP of
+// `_sfused_p`), in its four, and the complex64 Tucker configuration against
+// a real weight of `_c_bwd_kernel` (`_c_call_bwd`; launch_cbwd_tc below,
+// whose math is clse_einsum.cu's). Per fold f, with
 // out the forward's output, g its cotangent, shift the summed clamped row
 // maxes of the inputs and e the shifted exponentials (for Tucker
 // e[b, i*K2+j] = e1[b,i] * e2[b,j]):
@@ -29,9 +31,13 @@
 //            never reaches a parameter.
 //
 // The work is two contractions of the forward's size (s and dw). The float
-// instances of the lse backward (unsigned: the flagship's training) run both
-// on the tensor cores, section 6 below. The double instances and every
-// signed one run each contraction on the CUDA cores in the forward's
+// instances of the lse backward (unsigned: the flagship's training), the
+// float signed Tucker ones (launch_bwd_tc with SIGNED: the signs folded into
+// the staged e1 and e2 and the signed gy of bwd_prep) and the complex64
+// Tucker backward against a real weight (launch_cbwd_tc, on stacked real and
+// imaginary planes; the kernel 11 of clse_einsum.cu otherwise) run both on
+// the tensor cores, section 6 below. The double instances and the other
+// signed ones run each contraction on the CUDA cores in the forward's
 // register-tiled FMA loop (16-wide chunks staged in shared memory, the next
 // chunk loaded into registers while the current one is contracted), in
 // these launches:
@@ -105,6 +111,7 @@ using cirkit::fma_t;
 using cirkit::load4;
 using cirkit::max_t;
 using cirkit::round_op;
+using cirkit::stacked_row;
 using cirkit::store4;
 using cirkit::warp_max;
 using cirkit::warp_sum;
@@ -707,10 +714,13 @@ softmax_vjp(const T* __restrict__ w, T* __restrict__ dw, int O, int I) {
 // Each kernel here is also a template over the weight's storage type WT
 // (float, or bf16, the serving store: read widened; a bf16 weight is exact
 // in TF32, so the dx products with it drop its zero low part, two mma.sync
-// where three ran) and the speed mode MODE (tc_common.cuh); the Tucker
-// kernels run the f32-grade mode alone, since the fast Tucker instances are
-// tucker_bwd_bf16 (csrc/tucker_bf16_bwd.cu), and their rounding code stays
-// as it was so that those instances keep their machine code. The fast modes
+// where three ran) and, but for the Tucker dx, the speed mode MODE
+// (tc_common.cuh); the Tucker kernels run the f32-grade mode alone, since
+// the fast Tucker instances are tucker_bwd_bf16 (csrc/tucker_bf16_bwd.cu).
+// The Tucker kernels' SIGNED and CPLX flags (off in the lse instances, whose
+// machine code they do not move) take the signed and the complex Tucker
+// backwards: SIGNED stages e1 and e2 with their inputs' signs, CPLX reads
+// the stacked planes of launch_cbwd_tc (below tc_dw_kernel). The fast modes
 // round gy and the weights of s = gy @ w, and gy and e (Tucker: e1 * e2) of
 // dw = gy^T e, to bf16 where they are staged or read (SR with the bits of
 // their flat indices in gy, w and the (F, B, I) e), form every rounded
@@ -911,14 +921,14 @@ constexpr size_t SMEM = sizeof(float) * (STAGES * STAGE + I_PER * tc_dx::BM +
                                          tc_dx::BM * ES + 2 * tc_dx::BM * I_PER);
 }  // namespace tc_tucker
 
-template <bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+template <bool SOFTMAX, typename WT = float, bool SIGNED = false, bool CPLX = false>
 __global__ void __launch_bounds__(THREADS, 2)
 tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
              const WT* __restrict__ w, const float* __restrict__ lse,
              const float* __restrict__ sa, const float* __restrict__ sb,
              const float* __restrict__ gy, float* __restrict__ part1,
              float* __restrict__ part2, int F, int B, int K1, int K2, int O, int n_bt,
-             bool vec) {
+             bool vec, const float* __restrict__ s1, const float* __restrict__ s2, int Bc) {
   using tc_dx::BM;
   using tc_dx::BN;
   using tc_dx::BS;
@@ -940,7 +950,7 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
   const WT* wf = w + (size_t)f * O * I;
   const float* lsef = SOFTMAX ? lse + (size_t)f * O : nullptr;
   constexpr bool W16 = sizeof(WT) == 2;
-  constexpr bool A_SPLIT = MODE == cirkit::F32, B_SPLIT = split_w<MODE, WT, SOFTMAX>();
+  constexpr bool B_SPLIT = split_w<cirkit::F32, WT, SOFTMAX>();
   const int n_chunks = (O + tc::BK - 1) / tc::BK;
   const int n_steps = n_i * n_chunks;
   const int ncols = K2 - j0;
@@ -1004,16 +1014,39 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
     cp_async_commit();
   }
 
-  for (int e = tid; e < I_PER * BM; e += THREADS) {
-    const int il = e / BM, r = e - il * BM, b = b0 + r;
-    E1[e] = (b < B && il < n_i)
-                ? expf(x1[((size_t)f * B + b) * K1 + i0 + il] - sa[(size_t)f * B + b]) : 0.f;
-  }
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int r = e / BN, c = e - r * BN, b = b0 + r;
-    E2[r * ES + c] = (b < B && j0 + c < K2)
-                         ? expf(x2[((size_t)f * B + b) * K2 + j0 + c] - sb[(size_t)f * B + b])
-                         : 0.f;
+  if constexpr (CPLX) {  // x1 and x2 are the stacked planes of e1 and e2
+    for (int e = tid; e < I_PER * BM; e += THREADS) {
+      const int il = e / BM, r = e - il * BM, b = b0 + r;
+      E1[e] = b < B && il < n_i ? x1[((size_t)f * B + b) * K1 + i0 + il] : 0.f;
+    }
+    for (int e = tid; e < BM * BN; e += THREADS) {
+      const int r = e / BN, c = e - r * BN, b = b0 + r;
+      E2[r * ES + c] = b < B && j0 + c < K2 ? x2[((size_t)f * B + b) * K2 + j0 + c] : 0.f;
+    }
+  } else if constexpr (SIGNED) {  // e = s exp(x - m)
+    for (int e = tid; e < I_PER * BM; e += THREADS) {
+      const int il = e / BM, r = e - il * BM, b = b0 + r;
+      const size_t at = ((size_t)f * B + b) * K1 + i0 + il;
+      E1[e] = (b < B && il < n_i) ? expf(x1[at] - sa[(size_t)f * B + b]) * s1[at] : 0.f;
+    }
+    for (int e = tid; e < BM * BN; e += THREADS) {
+      const int r = e / BN, c = e - r * BN, b = b0 + r;
+      const size_t at = ((size_t)f * B + b) * K2 + j0 + c;
+      E2[r * ES + c] = (b < B && j0 + c < K2) ? expf(x2[at] - sb[(size_t)f * B + b]) * s2[at]
+                                               : 0.f;
+    }
+  } else {
+    for (int e = tid; e < I_PER * BM; e += THREADS) {
+      const int il = e / BM, r = e - il * BM, b = b0 + r;
+      E1[e] = (b < B && il < n_i)
+                  ? expf(x1[((size_t)f * B + b) * K1 + i0 + il] - sa[(size_t)f * B + b]) : 0.f;
+    }
+    for (int e = tid; e < BM * BN; e += THREADS) {
+      const int r = e / BN, c = e - r * BN, b = b0 + r;
+      E2[r * ES + c] = (b < B && j0 + c < K2)
+                           ? expf(x2[((size_t)f * B + b) * K2 + j0 + c] - sb[(size_t)f * B + b])
+                           : 0.f;
+    }
   }
 
   const int g = lane >> 2, t = lane & 3;
@@ -1031,23 +1064,44 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
     const auto As = reinterpret_cast<const float(*)[AK]>(st);
     const auto Bs = reinterpret_cast<const WT(*)[BS]>(st + BM * AK);
     const float* Ls = st + BM * AK + tc::BK * BS;
-    // the fast modes' rounding of gy[b0 + m][o0 + k] and w[o0 + k][row i, column j0 + n]
-    const int o0 = ck * tc::BK;
-    const size_t wrow = (size_t)(i0 + il) * K2 + j0;
-    auto ra = [&](int m, int k, float v) {
-      return round_op<MODE>(v, ((size_t)f * B + b0 + m) * O + o0 + k, cirkit::ROLE_GY);
-    };
-    auto rb = [&](int k, int n, float v) {  // softmax weights stay f32 (above)
-      return SOFTMAX ? v
-                     : round_op<MODE>(v, ((size_t)f * O + o0 + k) * I + wrow + n,
-                                      cirkit::ROLE_WB);
-    };
 #pragma unroll
     for (int k = 0; k < tc::BK; k += 8)
-      mma_k8<AK, BS, SOFTMAX ? 2 : 0, true, A_SPLIT, B_SPLIT>(
-          As, Bs, k, wm, wn, lane, SOFTMAX ? Ls[k + t] : 0.f, SOFTMAX ? Ls[k + t + 4] : 0.f, acc,
-          ra, rb);
+      mma_k8<AK, BS, SOFTMAX ? 2 : 0, true, true, B_SPLIT>(
+          As, Bs, k, wm, wn, lane, SOFTMAX ? Ls[k + t] : 0.f, SOFTMAX ? Ls[k + t + 4] : 0.f, acc);
     if (ck != n_chunks - 1) continue;
+    if constexpr (CPLX) {
+      // rows g and g + 8 of a 16-row slab are one batch row's real and
+      // imaginary planes: t = s_re + i s_im; dx2 += t conj(e1[b, i]) and
+      // the dx1 sum of conj(e2) t, both planes, the imaginary one 8 rows down
+#pragma unroll
+      for (int mt = 0; mt < tc::MT; ++mt) {
+        const int row = wm + mt * 16 + g;
+        const float e1r = E1[il * BM + row], e1i = E1[il * BM + row + 8];
+        const float* e2r = E2 + row * ES + wn + 2 * t;
+        const float* e2i = e2r + 8 * ES;
+        float pr = 0.f, pi = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float tr = acc[mt][nt][e], ti = acc[mt][nt][2 + e];
+            a2[mt][nt][e] = fmaf(ti, e1i, fmaf(tr, e1r, a2[mt][nt][e]));
+            a2[mt][nt][2 + e] = fmaf(-tr, e1i, fmaf(ti, e1r, a2[mt][nt][2 + e]));
+            const float cr = e2r[nt * 8 + e], ci = e2i[nt * 8 + e];
+            pr = fmaf(ti, ci, fmaf(tr, cr, pr));
+            pi = fmaf(-tr, ci, fmaf(ti, cr, pi));
+          }
+        pr += __shfl_xor_sync(0xffffffffu, pr, 1);
+        pr += __shfl_xor_sync(0xffffffffu, pr, 2);
+        pi += __shfl_xor_sync(0xffffffffu, pi, 1);
+        pi += __shfl_xor_sync(0xffffffffu, pi, 2);
+        if (t == 0) {
+          P1[((warp & 1) * BM + row) * I_PER + il] = pr;
+          P1[((warp & 1) * BM + row + 8) * I_PER + il] = pi;
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
@@ -1073,7 +1127,33 @@ tc_dx_tucker(const float* __restrict__ x1, const float* __restrict__ x2,
   __syncthreads();
 
   // part1[jt][f][b][i] over this block's j tile; part2[it][f][b][j] over
-  // its rows i
+  // its rows i (complex: the planes of batch row b as one value)
+  if constexpr (CPLX) {
+    auto* p1 = reinterpret_cast<float2*>(part1);
+    auto* p2 = reinterpret_cast<float2*>(part2);
+    for (int e = tid; e < BM / 2 * I_PER; e += THREADS) {
+      const int q = e / I_PER, il = e - q * I_PER;
+      const int r = cirkit::stacked_at(q), b = stacked_row(b0 + r);
+      if (b < Bc && il < n_i)
+        p1[(((size_t)blockIdx.y * F + f) * Bc + b) * K1 + i0 + il] = make_float2(
+            P1[r * I_PER + il] + P1[(BM + r) * I_PER + il],
+            P1[(r + 8) * I_PER + il] + P1[(BM + r + 8) * I_PER + il]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < tc::MT; ++mt) {
+      const int b = stacked_row(b0 + wm + mt * 16 + g);
+      if (b >= Bc) continue;
+      float2* dst = p2 + (((size_t)blockIdx.z * F + f) * Bc + b) * K2;
+#pragma unroll
+      for (int nt = 0; nt < tc::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + wn + nt * 8 + 2 * t + e;
+          if (j < K2) dst[j] = make_float2(a2[mt][nt][e], a2[mt][nt][2 + e]);
+        }
+    }
+    return;
+  }
   for (int e = tid; e < BM * I_PER; e += THREADS) {
     const int r = e / I_PER, il = e - r * I_PER, b = b0 + r;
     if (b < B && il < n_i)
@@ -1118,13 +1198,15 @@ constexpr size_t smem_bytes(int bo) {
 }
 }  // namespace tc_dw
 
-template <bool TUCKER, bool SOFTMAX, int BO, typename WT = float, int MODE = cirkit::F32>
+template <bool TUCKER, bool SOFTMAX, int BO, typename WT = float, int MODE = cirkit::F32,
+          bool SIGNED = false, bool CPLX = false>
 __global__ void __launch_bounds__(THREADS, 2)
 tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
              const float* __restrict__ sa, const float* __restrict__ sb,
              const float* __restrict__ gy, const WT* __restrict__ theta,
              const float* __restrict__ lse, const float* __restrict__ rsum,
-             float* __restrict__ dw, int B, int K1, int K2, int O, int n_it, bool pair) {
+             float* __restrict__ dw, int B, int K1, int K2, int O, int n_it, bool pair,
+             const float* __restrict__ s1, const float* __restrict__ s2) {
   using namespace tc_dw;
   constexpr int AS = BO + tc::PAD;
   constexpr int WO = BO / tc::WT;  // warps along the units in a group of 2 WO
@@ -1160,6 +1242,17 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
       Gs[k][o] = (k < nb && o0 + o < O)
                      ? round_op<MODE>(gyf[idx], (size_t)f * B * O + idx, cirkit::ROLE_GY) : 0.f;
     }
+    if constexpr (CPLX) {  // xa and xb are the stacked planes of e1 and e2
+      for (int e = tid; e < BB * BJ; e += THREADS) {
+        const int k = e / BJ, j = e - k * BJ;
+        Es[k][j] = k < nb && j0 + j < K2 ? xef[(size_t)(b0 + k) * K2 + j0 + j] : 0.f;
+      }
+      for (int e = tid; e < NI * BB; e += THREADS) {
+        const int il = e / BB, k = e - il * BB;
+        E1s[e] = k < nb && il < n_i ? x1f[(size_t)(b0 + k) * K1 + i0 + il] : 0.f;
+      }
+      return;
+    }
     for (int e = tid; e < BB * BJ; e += THREADS) {
       const int k = e / BJ, j = e - k * BJ;
       const size_t idx = (size_t)(b0 + k) * K2 + j0 + j;
@@ -1167,16 +1260,26 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
       if (k < nb && j0 + j < K2) {
         v = cirkit::mode_exp<MODE>(xef[idx] - sef[b0 + k]);
         if (!TUCKER) v = round_op<MODE>(v, (size_t)f * B * K2 + idx, cirkit::ROLE_EB);
+        if constexpr (SIGNED) v *= s2[(size_t)f * B * K2 + idx];
       }
       Es[k][j] = v;
     }
-    if (TUCKER)
+    if constexpr (SIGNED) {  // e1 = s1 exp(x1 - m1)
+      for (int e = tid; e < NI * BB; e += THREADS) {
+        const int il = e / BB, k = e - il * BB;
+        const size_t at = (size_t)(b0 + k) * K1 + i0 + il;
+        E1s[e] = (k < nb && il < n_i)
+                     ? cirkit::mode_exp<MODE>(x1f[at] - s1f[b0 + k]) * s1[(size_t)f * B * K1 + at]
+                     : 0.f;
+      }
+    } else if (TUCKER) {
       for (int e = tid; e < NI * BB; e += THREADS) {
         const int il = e / BB, k = e - il * BB;
         E1s[e] = (k < nb && il < n_i)
                      ? cirkit::mode_exp<MODE>(x1f[(size_t)(b0 + k) * K1 + i0 + il] - s1f[b0 + k])
                      : 0.f;
       }
+    }
   };
 
   const bool multi = B > BB;
@@ -1227,10 +1330,29 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                                        cirkit::ROLE_EB)
                       : v;
       };
-      for (int k = 0; k < nk; k += 8)
-        mma_k8<AS, BS, TUCKER ? 1 : 0, false, MODE == cirkit::F32, MODE == cirkit::F32>(
-            Gs, Es, k, wm, wn, lane, TUCKER ? e1[k + t] : 1.f, TUCKER ? e1[k + t + 4] : 1.f, acc,
-            cirkit::Unrounded(), rb);
+      if constexpr (CPLX) {
+        // k-steps in pairs, a slab of 16 stacked rows: the B operand of its
+        // real rows is Re(e1 e2) = e1r e2r - e1i e2i, of its imaginary rows
+        // Im(e1 e2) = e1r e2i + e1i e2r, so that dw = sum gy_re Re(e) +
+        // gy_im Im(e), the real part of gy^T conj(e)
+        auto re = [&](int kk, int n, float v) {
+          return e1[kk] * v - e1[kk + 8] * Es[kk + 8][n];
+        };
+        auto im = [&](int kk, int n, float v) {
+          return e1[kk - 8] * v + e1[kk] * Es[kk - 8][n];
+        };
+        for (int k = 0; k < nk; k += 16) {
+          mma_k8<AS, BS, 0, false, true, true>(Gs, Es, k, wm, wn, lane, 1.f, 1.f, acc,
+                                               cirkit::Unrounded(), re);
+          mma_k8<AS, BS, 0, false, true, true>(Gs, Es, k + 8, wm, wn, lane, 1.f, 1.f, acc,
+                                               cirkit::Unrounded(), im);
+        }
+      } else {
+        for (int k = 0; k < nk; k += 8)
+          mma_k8<AS, BS, TUCKER ? 1 : 0, false, MODE == cirkit::F32, MODE == cirkit::F32>(
+              Gs, Es, k, wm, wn, lane, TUCKER ? e1[k + t] : 1.f, TUCKER ? e1[k + t + 4] : 1.f,
+              acc, cirkit::Unrounded(), rb);
+      }
     }
     if (il >= n_i) continue;
 
@@ -1265,6 +1387,64 @@ tc_dw_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
         }
       }
   }
+}
+
+// The complex Tucker backward against a real weight (launch_cbwd_tc): per
+// batch row of the padded batch (a warp each), the clamped maxes of the real
+// parts (sa, sb; (F, B)), gy = g / conj(y) = g exp(shift - Re out) (cos Im
+// out + i sin Im out), zeroed where not finite (clse_einsum.cu's
+// clse_bwd_prep), and e1 = exp(x1 - m1), e2 = exp(x2 - m2), each written as
+// its two planes at the row's stacked rows of gys (F, Bs, O), e1s (F, Bs,
+// K1) and e2s (F, Bs, K2); the rows of the padding are zero.
+__global__ void __launch_bounds__(THREADS)
+ctc_prep(const float2* __restrict__ x1, const float2* __restrict__ x2,
+         const float2* __restrict__ out, const float2* __restrict__ g, float* __restrict__ sa,
+         float* __restrict__ sb, float* __restrict__ gys, float* __restrict__ e1s,
+         float* __restrict__ e2s, int B, int Bs, int K1, int K2, int O) {
+  const int lane = threadIdx.x & 31;
+  const int f = blockIdx.x, b = blockIdx.y * WARPS + (threadIdx.x >> 5);
+  if (b >= Bs / 2) return;  // warp-uniform
+  const size_t sr = (size_t)f * Bs + cirkit::stacked_at(b);  // the real plane's row
+  const size_t row = (size_t)f * B + b;
+  const bool in = b < B;
+  float m1 = 0.f, m2 = 0.f;
+  if (in) {
+    m1 = -INFINITY, m2 = -INFINITY;
+    for (int k = lane; k < K1; k += 32) m1 = fmaxf(m1, x1[row * K1 + k].x);
+    for (int k = lane; k < K2; k += 32) m2 = fmaxf(m2, x2[row * K2 + k].x);
+    m1 = clamp_max(warp_max(m1));
+    m2 = clamp_max(warp_max(m2));
+    if (lane == 0) sa[row] = m1, sb[row] = m2;
+  }
+  const float shift = m1 + m2;
+  for (int o = lane; o < O; o += 32) {
+    float vr = 0.f, vi = 0.f;
+    if (in) {
+      const float2 ov = out[row * O + o], gv = g[row * O + o];
+      float ur, ui;  // 1 / conj(y)
+      cirkit::cexp_f32(shift - ov.x, ov.y, &ur, &ui);
+      vr = gv.x * ur - gv.y * ui;
+      vi = gv.x * ui + gv.y * ur;
+      if (!(isfinite(vr) && isfinite(vi))) vr = vi = 0.f;
+    }
+    gys[sr * O + o] = vr;
+    gys[(sr + 8) * O + o] = vi;
+  }
+  const float2* xs[2] = {x1, x2};
+  float* es[2] = {e1s, e2s};
+  const int ks[2] = {K1, K2};
+  const float ms[2] = {m1, m2};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    for (int k = lane; k < ks[h]; k += 32) {
+      float er = 0.f, ei = 0.f;
+      if (in) {
+        const float2 z = xs[h][row * ks[h] + k];
+        cirkit::cexp_f32(z.x - ms[h], z.y, &er, &ei);
+      }
+      es[h][sr * ks[h] + k] = er;
+      es[h][(sr + 8) * ks[h] + k] = ei;
+    }
 }
 
 // --------------------------------------------------------------------------
@@ -1947,26 +2127,28 @@ int launch_bwd(const T* xa, const T* xb, const WT* w_in, const T* out,
     w = w_in;
   }
   if (need_dx) {
-    if (TUCKER && plan.split) {
-      const int n_bt = static_cast<int>(cdiv(B, tucker_dx::BM));
-      const int n_jt = static_cast<int>(cdiv(K2, tucker_dx::BN));
-      const int n_it = static_cast<int>(cdiv(K1, tucker_split::I_PER));
-      T* part1 = gy + plan.dx_part;
-      T* part2 = part1 + (size_t)n_jt * F * B * K1;
-      lse_bwd_dx_tucker_split<T, SIGNED, KW, MODE, ROUND_W>
-          <<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
-          xa, xb, w, sa, sb, gy, sga, sgb, part1, part2, F, B, K1, K2, O, n_bt);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      tucker_dx_finish<T, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
-          xa, xb, sa, sb, sga, sgb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
-    } else if (TUCKER) {
-      const size_t smem = tucker_dx_smem<T>(K1, K2);
-      auto kernel = lse_bwd_dx_tucker<T, SIGNED, KW, MODE, ROUND_W>;
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
-          xa, xb, w, sa, sb, gy, sga, sgb, dxa, dxb, B, K1, K2, O);
+    if constexpr (TUCKER) {
+      if (plan.split) {
+        const int n_bt = static_cast<int>(cdiv(B, tucker_dx::BM));
+        const int n_jt = static_cast<int>(cdiv(K2, tucker_dx::BN));
+        const int n_it = static_cast<int>(cdiv(K1, tucker_split::I_PER));
+        T* part1 = gy + plan.dx_part;
+        T* part2 = part1 + (size_t)n_jt * F * B * K1;
+        lse_bwd_dx_tucker_split<T, SIGNED, KW, MODE, ROUND_W>
+            <<<dim3(F * n_bt, n_jt, n_it), THREADS, 0, s>>>(
+            xa, xb, w, sa, sb, gy, sga, sgb, part1, part2, F, B, K1, K2, O, n_bt);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+        tucker_dx_finish<T, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+            xa, xb, sa, sb, sga, sgb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+      } else {
+        const size_t smem = tucker_dx_smem<T>(K1, K2);
+        auto kernel = lse_bwd_dx_tucker<T, SIGNED, KW, MODE, ROUND_W>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        kernel<<<dim3(F, cdiv(B, tucker_dx::BM)), THREADS, smem, s>>>(
+            xa, xb, w, sa, sb, gy, sga, sgb, dxa, dxb, B, K1, K2, O);
+      }
     } else {
       lse_bwd_dx_dense<T, SIGNED, KW, MODE, ROUND_W>
           <<<dim3(F, cdiv(I, dense_dx::BN), cdiv(B, dense_dx::BM)), THREADS, 0, s>>>(
@@ -2003,13 +2185,15 @@ inline size_t tc_scratch(bool tucker, bool softmax, int F, int B, int K1, int K2
 
 // The dw kernel with BO units a block: two blocks of 108 KB (BO = 128) share
 // an SM, so the launch asks for the largest shared-memory carveout.
-template <bool TUCKER, bool SOFTMAX, int BO, typename WT, int MODE>
+template <bool TUCKER, bool SOFTMAX, int BO, typename WT, int MODE, bool SIGNED = false,
+          bool CPLX = false>
 cudaError_t launch_tc_dw(const float* xa, const float* xb, const float* sa, const float* sb,
                          const float* gy, const WT* theta, const float* lse,
                          const float* rsum, float* dw, int F, int B, int K1, int K2, int O,
-                         bool pair, cudaStream_t s) {
+                         bool pair, cudaStream_t s, const float* s1 = nullptr,
+                         const float* s2 = nullptr) {
   constexpr size_t smem = tc_dw::smem_bytes(BO);
-  auto kernel = tc_dw_kernel<TUCKER, SOFTMAX, BO, WT, MODE>;
+  auto kernel = tc_dw_kernel<TUCKER, SOFTMAX, BO, WT, MODE, SIGNED, CPLX>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err == cudaSuccess)
@@ -2019,25 +2203,30 @@ cudaError_t launch_tc_dw(const float* xa, const float* xb, const float* sa, cons
   const int n_it = static_cast<int>(cdiv(K1, tc_dw::NI));
   const dim3 grid(F * n_it, cdiv(K2, tc_dw::BJ), cdiv(O, BO));
   kernel<<<grid, THREADS, smem, s>>>(xa, xb, sa, sb, gy, theta, lse, rsum, dw, B, K1, K2, O,
-                                     n_it, pair);
+                                     n_it, pair, s1, s2);
   return cudaGetLastError();
 }
 
-// The float, unsigned instances: bwd_prep, the softmax statistics, the dx
-// kernel (Tucker: and its finish), the dw kernel, on the tensor cores.
-template <bool TUCKER, bool SOFTMAX, typename WT = float, int MODE = cirkit::F32>
+// The float instances of the lse backward and, with SIGNED, the float32-grade
+// signed Tucker ones (sga, sgb: the inputs' signs, out_sign: sign(y)):
+// bwd_prep, the softmax statistics, the dx kernel (Tucker: and its finish),
+// the dw kernel, on the tensor cores.
+template <bool TUCKER, bool SOFTMAX, typename WT = float, int MODE = cirkit::F32,
+          bool SIGNED = false>
 int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* out,
                   const float* g, float* dxa, float* dxb, float* dw, float* sa, float* sb,
                   float* gy, float* ws, int F, int B, int I, int K1, int K2, int O, int device,
-                  void* stream) {
+                  void* stream, const float* sga = nullptr, const float* sgb = nullptr,
+                  const float* out_sign = nullptr) {
   static_assert(!TUCKER || MODE == cirkit::F32, "the fast Tucker backward is tucker_bwd_bf16's");
+  static_assert(!SIGNED || TUCKER, "the signed dense backward is launch_bwd's");
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int KA = TUCKER ? K1 : I;
 
-  bwd_prep<float, TUCKER, false><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
-      xa, xb, out, g, nullptr, sa, sb, gy, B, KA, K2, O);
+  bwd_prep<float, TUCKER, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+      xa, xb, out, g, out_sign, sa, sb, gy, B, KA, K2, O);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   float* lse = nullptr;
   float* rsum = nullptr;
@@ -2062,7 +2251,7 @@ int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* ou
       const bool vec = O % 4 == 0 && K2 % (16 / sizeof(WT)) == 0 &&
                        reinterpret_cast<uintptr_t>(gy) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
-      auto kernel = tc_dx_tucker<SOFTMAX, WT, MODE>;
+      auto kernel = tc_dx_tucker<SOFTMAX, WT, SIGNED>;
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(tc_tucker::SMEM));
       if (err == cudaSuccess)
@@ -2070,10 +2259,10 @@ int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* ou
                                    cudaSharedmemCarveoutMaxShared);
       if (err != cudaSuccess) return static_cast<int>(err);
       kernel<<<dim3(F * n_bt, n_jt, n_it), THREADS, tc_tucker::SMEM, s>>>(
-          xa, xb, w, lse, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt, vec);
+          xa, xb, w, lse, sa, sb, gy, part1, part2, F, B, K1, K2, O, n_bt, vec, sga, sgb, B);
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      tucker_dx_finish<float, false><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
-          xa, xb, sa, sb, nullptr, nullptr, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
+      tucker_dx_finish<float, SIGNED><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+          xa, xb, sa, sb, sga, sgb, part1, part2, dxa, dxb, F, B, K1, K2, n_jt, n_it);
     } else {
       tc_dx_dense<SOFTMAX, WT, MODE>
           <<<dim3(F, cdiv(I, tc_dx::BN), cdiv(B, tc_dx::BM)), THREADS, 0, s>>>(xa, w, lse, sa, gy,
@@ -2086,10 +2275,74 @@ int launch_bwd_tc(const float* xa, const float* xb, const WT* w, const float* ou
     const int k1 = TUCKER ? K1 : 1, k2 = TUCKER ? K2 : I;
     const bool pair = k2 % 2 == 0 && reinterpret_cast<uintptr_t>(dw) % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % (2 * sizeof(WT)) == 0;
-    err = O <= 64 ? launch_tc_dw<TUCKER, SOFTMAX, 64, WT, MODE>(xa, xb, sa, sb, gy, w, lse, rsum,
-                                                                 dw, F, B, k1, k2, O, pair, s)
-                  : launch_tc_dw<TUCKER, SOFTMAX, 128, WT, MODE>(xa, xb, sa, sb, gy, w, lse, rsum,
-                                                                  dw, F, B, k1, k2, O, pair, s);
+    err = O <= 64
+              ? launch_tc_dw<TUCKER, SOFTMAX, 64, WT, MODE, SIGNED>(
+                    xa, xb, sa, sb, gy, w, lse, rsum, dw, F, B, k1, k2, O, pair, s, sga, sgb)
+              : launch_tc_dw<TUCKER, SOFTMAX, 128, WT, MODE, SIGNED>(
+                    xa, xb, sa, sb, gy, w, lse, rsum, dw, F, B, k1, k2, O, pair, s, sga, sgb);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// The complex Tucker backward against a real weight in complex64 (the
+// complex flagship's path): the products of the float instances above over
+// stacked planes (tc_common.cuh's stacked_row: the two planes of a batch row
+// 8 rows apart in a slab of 16, Bs = 2 Bp rows with Bp the batch rounded up
+// to 8). The weight is real, so t = gy @ w is one real product whose rows
+// are gy's planes; dw = sum_b Re(gy conj(e)) = sum gy_re Re(e) + gy_im Im(e)
+// is one real product over the 2 Bp rows whose B operand tc_dw_kernel forms
+// from the planes of e1 and e2 as it reads them. ctc_prep writes gy's,
+// e1's and e2's planes (the accurate expf and sincosf), tc_dx_tucker folds
+// each t tile into complex partials of dx1 and dx2, cplx_dx_finish
+// (tc_common.cuh) adds them and multiplies by conj(e). ``ws`` (ops/clse_einsum.py's
+// _ctucker_tc_scratch floats): the planes of gy (F, Bs, O), e1 (F, Bs, K1)
+// and e2 (F, Bs, K2), then the dx partials as complex values,
+// (ceil(K2 / 64), F, B, K1) and (ceil(K1 / I_PER), F, B, K2).
+int launch_cbwd_tc(const float2* x1, const float2* x2, const float* w, const float2* out,
+                   const float2* g, float2* dx1, float2* dx2, float* dw, float* sa, float* sb,
+                   float* ws, int F, int B, int K1, int K2, int O, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int Bs = 2 * ((B + 7) / 8 * 8);
+  float* gys = ws;
+  float* e1s = gys + (size_t)F * Bs * O;
+  float* e2s = e1s + (size_t)F * Bs * K1;
+  auto* part = reinterpret_cast<float2*>(e2s + (size_t)F * Bs * K2);
+  ctc_prep<<<dim3(F, cdiv(Bs / 2, WARPS)), THREADS, 0, s>>>(x1, x2, out, g, sa, sb, gys, e1s,
+                                                            e2s, B, Bs, K1, K2, O);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (dx1 != nullptr || dx2 != nullptr) {
+    const int n_bt = static_cast<int>(cdiv(Bs, tc_dx::BM));
+    const int n_jt = static_cast<int>(cdiv(K2, tc_dx::BN));
+    const int n_it = static_cast<int>(cdiv(K1, tc_tucker::I_PER));
+    float2* part1 = part;
+    float2* part2 = part + (size_t)n_jt * F * B * K1;
+    const bool vec = O % 4 == 0 && K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    auto kernel = tc_dx_tucker<false, float, false, true>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(tc_tucker::SMEM));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(F * n_bt, n_jt, n_it), THREADS, tc_tucker::SMEM, s>>>(
+        e1s, e2s, w, nullptr, nullptr, nullptr, gys, reinterpret_cast<float*>(part1),
+        reinterpret_cast<float*>(part2), F, Bs, K1, K2, O, n_bt, vec, nullptr, nullptr, B);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    cirkit::cplx_dx_finish<8><<<dim3(F, cdiv(B, WARPS)), THREADS, 0, s>>>(
+        x1, x2, sa, sb, part1, part2, dx1, dx2, F, B, K1, K2, n_jt, n_it);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dw != nullptr) {
+    const bool pair = K2 % 2 == 0 && reinterpret_cast<uintptr_t>(dw) % 8 == 0;
+    err = O <= 64 ? launch_tc_dw<true, false, 64, float, cirkit::F32, false, true>(
+                        e1s, e2s, nullptr, nullptr, gys, w, nullptr, nullptr, dw, F, Bs, K1, K2,
+                        O, pair, s)
+                  : launch_tc_dw<true, false, 128, float, cirkit::F32, false, true>(
+                        e1s, e2s, nullptr, nullptr, gys, w, nullptr, nullptr, dw, F, Bs, K1, K2,
+                        O, pair, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -2155,6 +2408,14 @@ extern "C" {
                                             nullptr, gy, ws, F, B, I, I, 1, O, device, stream,  \
                                             s, nullptr, os);                                    \
   }                                                                                             \
+
+// The signed Tucker entries of double run the kernels of sections 1-5 and 7
+// (the CUDA-core route); those of float (and its bf16 weight, _w16) the
+// tensor-core route of section 6 (launch_bwd_tc with SIGNED), with the lse
+// Tucker entries' scratch: gy (F, B, O) and ws of lse_bwd_scratch floats.
+// Their fast-mode instances are csrc/tucker_bf16_bwd.cu's, with the same
+// arguments.
+#define SLSE_BWD_TUCKER_CORE(SUFFIX, T)                                                             \
   int slse_bwd_tucker##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2, const T* w,   \
                               const T* oa, const T* os, const T* g, T* da1, T* da2, T* dw,      \
                               T* sa, T* sb, T* gy, int F, int B, int K1, int K2, int O,         \
@@ -2172,12 +2433,33 @@ extern "C" {
                                            ws, F, B, K1 * K2, K1, K2, O, device, stream, s1,    \
                                            s2, os);                                             \
   }
+#define SLSE_BWD_TUCKER_TC(SUFFIX, WT)                                                              \
+  int slse_bwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
+                              const float* s2, const WT* w, const float* oa, const float* os,   \
+                              const float* g, float* da1, float* da2, float* dw, float* sa,     \
+                              float* sb, float* gy, float* ws, int F, int B, int K1, int K2,    \
+                              int O, int device, void* stream) {                                \
+    return launch_bwd_tc<true, false, WT, cirkit::F32, true>(                                   \
+        a1, a2, w, oa, g, da1, da2, dw, sa, sb, gy, ws, F, B, K1 * K2, K1, K2, O, device,       \
+        stream, s1, s2, os);                                                                    \
+  }                                                                                             \
+  int slse_bwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
+                                      const float* s2, const WT* theta, const float* oa,        \
+                                      const float* os, const float* g, float* da1, float* da2,  \
+                                      float* dtheta, float* sa, float* sb, float* gy, float* ws,\
+                                      int F, int B, int K1, int K2, int O, int device,          \
+                                      void* stream) {                                           \
+    return launch_bwd_tc<true, true, WT, cirkit::F32, true>(                                    \
+        a1, a2, theta, oa, g, da1, da2, dtheta, sa, sb, gy, ws, F, B, K1 * K2, K1, K2, O,       \
+        device, stream, s1, s2, os);                                                            \
+  }
 
 // The build compiles this source once for each part (-DCIRKIT_BWD_PART=0 to
-// 4; ops/_build.py), the five side by side: part 0 holds the entries above
+// 5; ops/_build.py), the six side by side: part 0 holds the entries above
 // and below, parts 1 and 2 the float32-weight and bf16-weight instances of
-// the lse entries, parts 3 and 4 those of the signed entries, at the end. A
-// build without the macro holds all of them.
+// the lse entries, parts 3 and 4 those of the signed entries, part 5 the
+// complex Tucker entry (launch_cbwd_tc), at the end. A build without the
+// macro holds all of them.
 #if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 0
 size_t lse_bwd_scratch(int tucker, int softmax, int F, int B, int K1, int K2, int O) {
   return tc_scratch(tucker != 0, softmax != 0, F, B, K1, K2, O);
@@ -2211,6 +2493,8 @@ int lse_bwd_tucker_softmax(const float* x1, const float* x2, const float* theta,
 LSE_BWD_ENTRIES(_f64, double)
 SLSE_BWD_ENTRIES(, float)
 SLSE_BWD_ENTRIES(_f64, double)
+SLSE_BWD_TUCKER_TC(, float)
+SLSE_BWD_TUCKER_CORE(_f64, double)
 #endif
 #undef LSE_BWD_ENTRIES
 #undef SLSE_BWD_ENTRIES
@@ -2268,8 +2552,10 @@ LSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
 #undef LSE_BWD_TUCKER_INSTANCES
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
-// signed backward (ops/slse_einsum.py), with the float signed entries'
-// arguments; the weight's gradient is written in f32.
+// signed dense backward (ops/slse_einsum.py), with the float signed entries'
+// arguments; the weight's gradient is written in f32. Of the Tucker entries
+// the _w16 instances are here (SLSE_BWD_TUCKER_TC), the fast ones in
+// csrc/tucker_bf16_bwd.cu.
 #define SLSE_BWD_INSTANCES(SUFFIX, WT, MODE)                                                    \
   int slse_bwd_dense##SUFFIX(const float* a, const float* s, const WT* w, const float* oa,      \
                              const float* os, const float* g, float* da, float* dw, float* sa,  \
@@ -2287,25 +2573,6 @@ LSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
                                                           dtheta, sa, nullptr, gy, ws, F, B, I, \
                                                           I, 1, O, device, stream, s, nullptr,  \
                                                           os);                                  \
-  }                                                                                             \
-  int slse_bwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
-                              const float* s2, const WT* w, const float* oa, const float* os,   \
-                              const float* g, float* da1, float* da2, float* dw, float* sa,     \
-                              float* sb, float* gy, int F, int B, int K1, int K2, int O,        \
-                              int device, void* stream) {                                       \
-    return launch_bwd<float, true, false, true, WT, MODE>(a1, a2, w, oa, g, da1, da2, dw, sa,   \
-                                                          sb, gy, nullptr, F, B, K1 * K2, K1,   \
-                                                          K2, O, device, stream, s1, s2, os);   \
-  }                                                                                             \
-  int slse_bwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
-                                      const float* s2, const WT* theta, const float* oa,        \
-                                      const float* os, const float* g, float* da1, float* da2,  \
-                                      float* dtheta, float* sa, float* sb, float* gy, float* ws,\
-                                      int F, int B, int K1, int K2, int O, int device,          \
-                                      void* stream) {                                           \
-    return launch_bwd<float, true, true, true, WT, MODE>(a1, a2, theta, oa, g, da1, da2, dtheta,\
-                                                         sa, sb, gy, ws, F, B, K1 * K2, K1, K2, \
-                                                         O, device, stream, s1, s2, os);        \
   }
 
 #if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 3
@@ -2314,9 +2581,29 @@ SLSE_BWD_INSTANCES(_sr, float, cirkit::SR)
 #endif
 #if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 4
 SLSE_BWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
+SLSE_BWD_TUCKER_TC(_w16, __nv_bfloat16)
 SLSE_BWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 SLSE_BWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
 #endif
 #undef SLSE_BWD_INSTANCES
+#undef SLSE_BWD_TUCKER_TC
+#undef SLSE_BWD_TUCKER_CORE
+
+// The complex Tucker backward against a real weight in complex64
+// (launch_cbwd_tc): the operands and gradients in PyTorch's interleaved
+// complex layout, the weight and its gradient real, the row shifts sa, sb (F,
+// B) and ws of ops/clse_einsum.py's _ctucker_tc_scratch floats; a null dx or
+// dw skips that gradient. Its fast-mode instances are
+// csrc/tucker_bf16_bwd.cu's, with the same arguments.
+#if !defined(CIRKIT_BWD_PART) || CIRKIT_BWD_PART == 5
+int clse_bwd_tucker_rw(const void* x1, const void* x2, const float* w, const void* out,
+                       const void* g, void* dx1, void* dx2, float* dw, float* sa, float* sb,
+                       float* ws, int F, int B, int K1, int K2, int O, int device, void* stream) {
+  return launch_cbwd_tc(static_cast<const float2*>(x1), static_cast<const float2*>(x2), w,
+                        static_cast<const float2*>(out), static_cast<const float2*>(g),
+                        static_cast<float2*>(dx1), static_cast<float2*>(dx2), dw, sa, sb, ws, F,
+                        B, K1, K2, O, device, stream);
+}
+#endif
 
 }  // extern "C"

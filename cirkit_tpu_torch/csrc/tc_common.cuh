@@ -84,6 +84,65 @@ __device__ __forceinline__ float mode_exp(float x) {
   return MODE == F32 ? fast_exp(x) : expf(x);
 }
 
+// The complex Tucker backward against a real weight runs real products over
+// stacked planes: batch row b's real plane at row stacked_at(b) = 16 (b / 8)
+// + b % 8 and its imaginary plane 8 rows below, so that the accumulator rows
+// g and g + 8 that a thread holds in mma.sync's and wgmma's fragments are one
+// batch row's two planes; stacked_row(s) is the batch row of stacked row s.
+__host__ __device__ __forceinline__ int stacked_at(int b) { return 16 * (b >> 3) + (b & 7); }
+__host__ __device__ __forceinline__ int stacked_row(int s) { return ((s >> 4) << 3) | (s & 7); }
+
+// exp(re) (cos im + i sin im) with the accurate expf and sincosf (the plain
+// versions' torch.exp, cos and sin); re = -inf gives 0.
+__device__ __forceinline__ void cexp_f32(float re, float im, float* er, float* ei) {
+  const float mag = expf(re);
+  float sn, cs;
+  sincosf(im, &sn, &cs);
+  *er = mag * cs;
+  *ei = mag * sn;
+}
+
+// dx = conj(e) (the sum of the n complex partial planes of the dx sums, in
+// plane order; plane p of input h at (p F B + row) K + k) for both inputs of a
+// complex Tucker backward (a null part skips one), conj(e) = exp(conj(x) - m)
+// with the row shifts sa, sb; a warp per batch row, eight rows a block. The
+// finish of the complex Tucker backward's partial dx on the tensor cores
+// (csrc/lse_einsum_bwd.cu's launch_cbwd_tc, csrc/tucker_bf16_bwd.cu's CPLX
+// products); a template, so that each source holds its own instance.
+template <int ROWS = 8>
+__global__ void __launch_bounds__(32 * ROWS)
+cplx_dx_finish(const float2* __restrict__ x1, const float2* __restrict__ x2,
+               const float* __restrict__ sa, const float* __restrict__ sb,
+               const float2* __restrict__ part1, const float2* __restrict__ part2,
+               float2* __restrict__ dx1, float2* __restrict__ dx2, int F, int B, int K1, int K2,
+               int n1, int n2) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y * ROWS + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const size_t row = (size_t)blockIdx.x * B + b, plane = (size_t)F * B;
+  const float2* xs[2] = {x1, x2};
+  const float2* parts[2] = {part1, part2};
+  float2* dxs[2] = {dx1, dx2};
+  const float ms[2] = {sa[row], sb[row]};
+  const int ks[2] = {K1, K2}, ns[2] = {n1, n2};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (parts[h] == nullptr || dxs[h] == nullptr) continue;
+    const int K = ks[h];
+    for (int k = lane; k < K; k += 32) {
+      float ar = 0.f, ai = 0.f;
+      for (int p = 0; p < ns[h]; ++p) {
+        const float2 v = parts[h][(p * plane + row) * K + k];
+        ar += v.x, ai += v.y;
+      }
+      const float2 z = xs[h][row * K + k];
+      float er, ei;  // conj(e)
+      cexp_f32(z.x - ms[h], -z.y, &er, &ei);
+      dxs[h][row * K + k] = make_float2(er * ar - ei * ai, er * ai + ei * ar);
+    }
+  }
+}
+
 // An operand that mma_k8 reads as it is staged.
 struct Unrounded {
   __device__ __forceinline__ float operator()(int, int, float v) const { return v; }

@@ -2,11 +2,17 @@
 // the _fast, _sr, _w16_fast and _w16_sr instances of kernel 2's Tucker
 // entries (lse_bwd_tucker[_softmax]*; their float32 and _w16 instances are
 // section 6 of csrc/lse_einsum_bwd.cu), which are also the backward of the
-// K1-chunked Tucker forward (kernel 5).
+// K1-chunked Tucker forward (kernel 5); those of the signed Tucker entries
+// (slse_bwd_tucker[_softmax]*, kernel 7's: the same products, with the signs
+// folded into the prep's gy and e and into the finish), and the _fast and
+// _sr instances of the complex64 Tucker backward against a real weight
+// (clse_bwd_tucker_rw*, kernel 11's: the products with CPLX on stacked
+// planes, below).
 //
-// Replaces the CIRKIT_TPU_FAST configurations of the Pallas TPU kernel
-// `_bwd_kernel` (Tucker, cirkit_tpu/ops/lse_einsum.py:350-395), which runs
-// one bf16 pass (`_fcast`) with f32 accumulation. Per fold f, with gy = g
+// Replaces the CIRKIT_TPU_FAST configurations of the Pallas TPU kernels
+// `_bwd_kernel` (Tucker, cirkit_tpu/ops/lse_einsum.py:350-395), `_s_bwd_kernel`
+// (`:957`) and `_c_bwd_kernel` (`:1439`, a real weight), which run one bf16
+// pass (`_fcast`) with f32 accumulation. Per fold f, with gy = g
 // exp(m1 + m2 - out) (zero where not finite), e1 = exp(x1 - m1) and e2 =
 // exp(x2 - m2) in f32, and W_i the weights of row i (units x K2 columns j):
 //
@@ -22,8 +28,10 @@
 // in (F, O, I); e1 e2: ROLE_EB in (F, B, I)); dx's folds stay f32, and so do
 // the softmax weights (they carry lse_o, whose last bits no plain version
 // reproduces), which s takes as a bf16 pair hi + lo (hi = r(w), lo = r(w -
-// hi)): two wgmma where one runs, an error below 2^-16 |w| against phase 3b's
-// bound of 1e-4 (max|g| + |g|). A product of two bf16 values is exact in f32,
+// hi), to the nearest): two wgmma where one runs, within 2^-17 |w| of w; the
+// plain versions form s from the same pair (ops/lse_einsum.py's bf16_pair),
+// since a signed sum that cancels carries that difference far above its
+// result. A product of two bf16 values is exact in f32,
 // so the tensor cores change only the order of the f32 sums. Every
 // exponential is the accurate expf (the plain versions' torch.exp).
 //
@@ -69,6 +77,24 @@
 // more read of theta: 0.41 GB at K=64 in bf16): lse_o is needed before the
 // first tile's weights enter s, which sums over the units, so the running
 // rescale of the forward (where the unit is the output) has no counterpart.
+//
+// The signed backward (SIGNED): e1 = s1 exp(x1 - m1), e2 = s2 exp(x2 - m2)
+// and gy = g sign(y) exp(m1 + m2 - out) in the prep (tbw_prep), dx = e (the
+// sums) in the finish; a signed bf16 value is as exact in a product as an
+// unsigned one, so the products and their rounding points are the unsigned
+// ones (ops/slse_einsum.py's slse_tucker2_bwd_ref).
+//
+// The complex backward against a real weight (CPLX): t = gy @ w is one real
+// product whose rows are gy's planes, and dW = sum_b Re(gy conj(e)) = sum
+// gy_re Re(e) + gy_im Im(e) one over the planes too. ctbw_prep stacks a batch
+// row's real plane at row 16 (b / 8) + b % 8 and its imaginary plane 8 rows
+// below (tc_common.cuh's stacked_at), so that the rows g and g + 8 that a
+// thread holds of wgmma's accumulator are one batch row's two planes: the
+// fold forms dx2 += t conj(e1) and the dx1 sum of t conj(e2) from them in
+// registers, and the conversion of the composite forms Re(e1 e2) and Im(e1
+// e2) from e1's and e2's planes 8 rows apart (ROLE_EB at the plane's flat
+// index, ops/clse_einsum.py's round_planes). A batch tile holds 64 batch
+// rows, 128 stacked ones, so the tile and the registers are the real ones.
 //
 // A batch of more than 128 rows takes two launches: the dx kernel, one block
 // per batch tile as well (the weights shared through L2), and the dW kernel,
@@ -175,13 +201,14 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 // into e1t (F, K1, Bp) and e2t (F, K2, Bp), through shared memory so that
 // each column's eight rows are one 32-byte write. Op and Bp are multiples of
 // 8: every row of the three starts 16-byte aligned, as TMA reads them.
-template <int MODE>
+template <int MODE, bool SIGNED = false>
 __global__ void __launch_bounds__(256)
 tbw_prep(const float* __restrict__ x1, const float* __restrict__ x2,
          const float* __restrict__ out, const float* __restrict__ g, float* __restrict__ sa,
          float* __restrict__ sb, float* __restrict__ gy, __nv_bfloat16* __restrict__ gyr,
          float* __restrict__ e1t, float* __restrict__ e2t, int B, int K1, int K2, int O,
-         int Op, int Bp) {
+         int Op, int Bp, const float* __restrict__ out_sign, const float* __restrict__ s1,
+         const float* __restrict__ s2) {
   constexpr int W = tbw::WARPS, TR = 128;  // rows a block, columns a transpose chunk
   __shared__ float xs[2][W][TR + 1];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -200,6 +227,7 @@ tbw_prep(const float* __restrict__ x1, const float* __restrict__ x2,
       if (o < O) {
         const size_t idx = row * O + o;
         v = g[idx] * expf(m1 + m2 - out[idx]);
+        if constexpr (SIGNED) v *= out_sign[idx];
         v = isfinite(v) ? v : 0.f;
         gy[idx] = v;
         v = round_op<MODE>(v, idx, cirkit::ROLE_GY);
@@ -212,6 +240,10 @@ tbw_prep(const float* __restrict__ x1, const float* __restrict__ x2,
       const int c = c0 + k;
       xs[0][w][k] = b < B && c < K1 ? expf(x1[row * K1 + c] - m1) : 0.f;
       xs[1][w][k] = b < B && c < K2 ? expf(x2[row * K2 + c] - m2) : 0.f;
+      if constexpr (SIGNED) {  // e = s exp(a - m)
+        if (b < B && c < K1) xs[0][w][k] *= s1[row * K1 + c];
+        if (b < B && c < K2) xs[1][w][k] *= s2[row * K2 + c];
+      }
     }
     __syncthreads();
     for (int e = threadIdx.x; e < W * TR; e += 256) {
@@ -250,13 +282,15 @@ tbw_softmax_stats(const WT* __restrict__ theta, const float* __restrict__ g,
 }
 
 // dx1 = e1 (the sum of n1 partial planes), dx2 = e2 (the sum of n2), added in
-// plane order (a null part skips its gradient); a warp per batch row.
+// plane order (a null part skips its gradient); a warp per batch row. SIGNED:
+// e = s exp(x - m) with the inputs' signs s1, s2.
+template <bool SIGNED = false>
 __global__ void __launch_bounds__(256)
 tbw_dx_finish(const float* __restrict__ x1, const float* __restrict__ x2,
               const float* __restrict__ sa, const float* __restrict__ sb,
               const float* __restrict__ part1, const float* __restrict__ part2,
               float* __restrict__ dx1, float* __restrict__ dx2, int F, int B, int K1, int K2,
-              int n1, int n2) {
+              int n1, int n2, const float* __restrict__ s1, const float* __restrict__ s2) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y * tbw::WARPS + (threadIdx.x >> 5);
   if (b >= B) return;
@@ -265,14 +299,93 @@ tbw_dx_finish(const float* __restrict__ x1, const float* __restrict__ x2,
     for (int k = lane; k < K1; k += 32) {
       float s = 0.f;
       for (int p = 0; p < n1; ++p) s += part1[(p * plane + row) * K1 + k];
-      dx1[row * K1 + k] = expf(x1[row * K1 + k] - sa[row]) * s;
+      float e = expf(x1[row * K1 + k] - sa[row]);
+      if constexpr (SIGNED) e *= s1[row * K1 + k];
+      dx1[row * K1 + k] = e * s;
     }
   if (part2 != nullptr)
     for (int k = lane; k < K2; k += 32) {
       float s = 0.f;
       for (int p = 0; p < n2; ++p) s += part2[(p * plane + row) * K2 + k];
-      dx2[row * K2 + k] = expf(x2[row * K2 + k] - sb[row]) * s;
+      float e = expf(x2[row * K2 + k] - sb[row]);
+      if constexpr (SIGNED) e *= s2[row * K2 + k];
+      dx2[row * K2 + k] = e * s;
     }
+}
+
+// The complex Tucker backward against a real weight (launch_bwd_bf16 with
+// CPLX) runs the products on stacked planes (tc_common.cuh's stacked_at: a
+// batch row's real plane at 16 (b / 8) + b % 8 of the Rs = 2 Bp stacked rows,
+// its imaginary plane 8 rows below). Per batch row (a warp each, eight rows
+// a block, the batch padded to Bp): the clamped maxes of the real parts (sa,
+// sb); gy = g / conj(y), zero where not finite (clse_einsum.cu's
+// clse_bwd_prep), each plane rounded (ROLE_GY at the plane's flat index 2 k
+// + p, k the value's in (F, B, O)) into its stacked row of gyr (F, Rs, Op);
+// e1 = exp(x1 - m1) and e2 = exp(x2 - m2) (accurate expf and sincosf), their
+// planes transposed into e1t (F, K1, Rs) and e2t (F, K2, Rs) through shared
+// memory. The padding's rows are zero.
+template <int MODE>
+__global__ void __launch_bounds__(256)
+ctbw_prep(const float2* __restrict__ x1, const float2* __restrict__ x2,
+          const float2* __restrict__ out, const float2* __restrict__ g, float* __restrict__ sa,
+          float* __restrict__ sb, __nv_bfloat16* __restrict__ gyr, float* __restrict__ e1t,
+          float* __restrict__ e2t, int B, int K1, int K2, int O, int Op, int Rs) {
+  constexpr int W = tbw::WARPS, TR = 64;  // rows a block, columns a transpose chunk
+  __shared__ float xs[2][2][W][TR + 1];   // [input][plane][row][column]
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int f = blockIdx.x, b0 = blockIdx.y * W, b = b0 + w;
+  const size_t row = (size_t)f * B + b;
+  const size_t sr = (size_t)f * Rs + 2 * b0 + w;  // b's real plane: stacked_at(b)
+  float m1 = 0.f, m2 = 0.f;
+  if (b < B) {  // warp-uniform
+    m1 = -INFINITY, m2 = -INFINITY;
+    for (int k = lane; k < K1; k += 32) m1 = fmaxf(m1, x1[row * K1 + k].x);
+    for (int k = lane; k < K2; k += 32) m2 = fmaxf(m2, x2[row * K2 + k].x);
+    m1 = clamp_max(warp_max(m1));
+    m2 = clamp_max(warp_max(m2));
+    if (lane == 0) sa[row] = m1, sb[row] = m2;
+  }
+  for (int o = lane; o < Op; o += 32) {
+    float vr = 0.f, vi = 0.f;
+    if (b < B && o < O) {
+      const size_t idx = row * O + o;
+      const float2 ov = out[idx], gv = g[idx];
+      float ur, ui;  // 1 / conj(y)
+      cirkit::cexp_f32(m1 + m2 - ov.x, ov.y, &ur, &ui);
+      vr = gv.x * ur - gv.y * ui;
+      vi = gv.x * ui + gv.y * ur;
+      if (!(isfinite(vr) && isfinite(vi))) vr = vi = 0.f;
+      vr = round_op<MODE>(vr, 2 * idx, cirkit::ROLE_GY);
+      vi = round_op<MODE>(vi, 2 * idx + 1, cirkit::ROLE_GY);
+    }
+    gyr[sr * Op + o] = __float2bfloat16_rn(vr);  // exact: bf16 already
+    gyr[(sr + 8) * Op + o] = __float2bfloat16_rn(vi);
+  }
+  for (int c0 = 0; c0 < max(K1, K2); c0 += TR) {
+    for (int k = lane; k < TR; k += 32) {
+      const int c = c0 + k;
+      float r = 0.f, i = 0.f;
+      if (b < B && c < K1) {
+        const float2 z = x1[row * K1 + c];
+        cirkit::cexp_f32(z.x - m1, z.y, &r, &i);
+      }
+      xs[0][0][w][k] = r, xs[0][1][w][k] = i;
+      r = i = 0.f;
+      if (b < B && c < K2) {
+        const float2 z = x2[row * K2 + c];
+        cirkit::cexp_f32(z.x - m2, z.y, &r, &i);
+      }
+      xs[1][0][w][k] = r, xs[1][1][w][k] = i;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * W * TR; e += 256) {
+      const int c = c0 + e / (2 * W), q = e % (2 * W), p = q / W, r = q % W;
+      const size_t at = 2 * (size_t)b0 + 8 * p + r;
+      if (c < K1) e1t[((size_t)f * K1 + c) * Rs + at] = xs[0][p][r][e / (2 * W)];
+      if (c < K2) e2t[((size_t)f * K2 + c) * Rs + at] = xs[1][p][r][e / (2 * W)];
+    }
+    __syncthreads();
+  }
 }
 
 // The shared memory of a launch of the products (tbw_layout), byte offsets
@@ -294,7 +407,7 @@ struct Layout {
 // stores (STG16). The grid's batch tiles (nbt_grid) or the block's own walk
 // over them (nbt_loop, dW alone) cover the batch. TMA copies every operand:
 // gy rounded, e1 and e2 as tbw_prep left them, the weights as they are.
-template <int NU, bool SOFTMAX, typename WT, int MODE>
+template <int NU, bool SOFTMAX, typename WT, int MODE, bool CPLX = false>
 __global__ void __launch_bounds__(tbw::NT, 1)
 tucker_bwd_bf16(const WT* __restrict__ w,  // (F, O, K1*K2): weights, or logits
                 const float* __restrict__ lse, const float* __restrict__ rsum,  // (F, O)
@@ -307,13 +420,14 @@ tucker_bwd_bf16(const WT* __restrict__ w,  // (F, O, K1*K2): weights, or logits
                 const __grid_constant__ CUtensorMap e1map,
                 const __grid_constant__ CUtensorMap e2map, const Layout lay, int F, int B,
                 int K1, int K2, int O, int n_ug, int n_jc, int nbt_grid, int nbt_loop,
-                int flags) {
+                int flags, int Bc) {
   using C = tbw::Cfg<NU, WT, SOFTMAX>;
   constexpr int BM = tbw::BM, JC = tbw::JC, UT = tbw::UT, ROW = tbw::ROW, CONS = tbw::CONS;
   constexpr int TILE = C::TILE, ET = tbw::ET, GY = C::GY;
   // a bf16 weight with linear values is the s product's operand as copied
   constexpr bool RAW16 = sizeof(WT) == 2 && !SOFTMAX;
   static_assert(MODE != cirkit::F32, "the f32-grade instances are section 6 of lse_einsum_bwd.cu");
+  static_assert(!CPLX || (!SOFTMAX && sizeof(WT) == 4), "the complex route has a real f32 weight");
 
   extern __shared__ __align__(16) unsigned char tbw_raw[];
   unsigned char* smem = tbw_raw + ((1024 - (static_cast<uint32_t>(
@@ -474,6 +588,38 @@ tucker_bwd_bf16(const WT* __restrict__ w,  // (F, O, K1*K2): weights, or logits
   // warpgroup's columns: eight batch rows a chunk, four chunks a thread.
   auto convert_e = [&](const float* e1c, const float* e2c, int i, int b0) {
     unsigned char* et = ebuf + wg * 2 * ET;
+    if constexpr (CPLX) {
+      // eight stacked rows are one plane p of eight batch rows: Re(e1 e2) =
+      // e1r e2r - e1i e2i, Im(e1 e2) = e1r e2i + e1i e2r from the row's own
+      // plane and the other one, 8 rows away; ROLE_EB at the plane's flat
+      // index 2 k + p, k the value's in (F, B, I), so eight rows step 2 I
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = tw + 128 * q, jl = c >> 4, cb = c & 15;
+        const int j = 32 * wg + jl, b = 8 * cb, bo = b ^ 8, p = cb & 1;
+        auto ld8 = [](const float* p0, const float* p1, float (&d)[8]) {
+          const float4 u = *reinterpret_cast<const float4*>(p0);
+          const float4 w4 = *reinterpret_cast<const float4*>(p1);
+          d[0] = u.x, d[1] = u.y, d[2] = u.z, d[3] = u.w;
+          d[4] = w4.x, d[5] = w4.y, d[6] = w4.z, d[7] = w4.w;
+        };
+        float e1o[8], e1q[8], e2o[8], e2q[8];
+        ld8(e1c + b, e1c + b + 4, e1o);
+        ld8(e1c + bo, e1c + bo + 4, e1q);
+        ld8(e2c + e2_at(j, b), e2c + e2_at(j, b + 4), e2o);
+        ld8(e2c + e2_at(j, bo), e2c + e2_at(j, bo + 4), e2q);
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v[k] = p == 0 ? e1o[k] * e2o[k] - e1q[k] * e2q[k] : e1q[k] * e2o[k] + e1o[k] * e2q[k];
+        const unsigned long long idx =
+            2 * (((unsigned long long)f * Bc + b0 / 2 + 8 * (cb >> 1)) * I + (size_t)i * K2 +
+                 j0 + j) + p;
+        *reinterpret_cast<uint4*>(et + (cb >> 3) * ET + sw128(jl, 8 * (cb & 7))) =
+            pack_bf16x8<MODE>(v, idx, cirkit::ROLE_EB, 2 * (unsigned long long)I);
+      }
+      return;
+    }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = tw + 128 * q, jl = c >> 4, cb = c & 15;
@@ -494,6 +640,38 @@ tucker_bwd_bf16(const WT* __restrict__ w,  // (F, O, K1*K2): weights, or logits
   // s_i into dx: dx2 += s e1[b, i] in registers, dx1[b, i] = sum_j s e2 over
   // the chunk (a quad's shuffle), finished or into its partial plane.
   auto fold = [&](const float* e1c, const float* e2c, int i, int b0) {
+    if constexpr (CPLX) {
+      // rows r0 and r0 + 8 are batch row b's planes, t = s_re + i s_im:
+      // dx2 += t conj(e1[b, i]) (x2acc's two halves the planes), the dx1 sum
+      // of t conj(e2[b, j]); dx1 = conj(e1) times it, or it into the plane
+      const float e1r = e1c[r0], e1i = e1c[r0 + 8];
+      float pr = 0.f, pi = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 4 * n + e, jl = 8 * n + 2 * t4 + e;
+          const float tr = sacc[k], ti = sacc[k + 2];
+          x2acc[k] = fmaf(ti, e1i, fmaf(tr, e1r, x2acc[k]));
+          x2acc[k + 2] = fmaf(-tr, e1i, fmaf(ti, e1r, x2acc[k + 2]));
+          const float cr = e2c[e2_at(jl, r0)], ci = e2c[e2_at(jl, r0 + 8)];
+          pr = fmaf(ti, ci, fmaf(tr, cr, pr));
+          pi = fmaf(-tr, ci, fmaf(ti, cr, pi));
+        }
+      pr += __shfl_xor_sync(0xffffffffu, pr, 1);
+      pr += __shfl_xor_sync(0xffffffffu, pr, 2);
+      pi += __shfl_xor_sync(0xffffffffu, pi, 1);
+      pi += __shfl_xor_sync(0xffffffffu, pi, 2);
+      const int b = b0 / 2 + cirkit::stacked_row(r0);
+      if (t4 == 0 && dx1 != nullptr && b < Bc) {
+        auto* d = reinterpret_cast<float2*>(dx1);
+        if (flags & tbw::DIRECT1)
+          d[((size_t)f * Bc + b) * K1 + i] = make_float2(e1r * pr + e1i * pi, e1r * pi - e1i * pr);
+        else
+          d[(((size_t)(ug * n_jc + jc) * F + f) * Bc + b) * K1 + i] = make_float2(pr, pi);
+      }
+      return;
+    }
     float p[2] = {0.f, 0.f}, eh[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) eh[h] = e1c[r0 + 8 * h];
@@ -658,6 +836,29 @@ tucker_bwd_bf16(const WT* __restrict__ w,  // (F, O, K1*K2): weights, or logits
   }
 
   // dx2 of the batch tile, finished or into its unit group's plane
+  if constexpr (CPLX) {  // x2acc's halves are the planes: dx2 = conj(e2) (x2r + i x2i)
+    if (do_dx && dx2 != nullptr) {
+      const float* e2c = reinterpret_cast<const float*>(smem + lay.res + GY);
+      const int b = btg * BM / 2 + cirkit::stacked_row(r0);
+      auto* d = reinterpret_cast<float2*>(dx2);
+      if (b < Bc)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = 8 * n + 2 * t4 + e, j = j0 + jl;
+            if (j >= K2) continue;
+            const float vr = x2acc[4 * n + e], vi = x2acc[4 * n + 2 + e];
+            if (flags & tbw::DIRECT2) {
+              const float cr = e2c[e2_at(jl, r0)], ci = e2c[e2_at(jl, r0 + 8)];
+              d[((size_t)f * Bc + b) * K2 + j] = make_float2(cr * vr + ci * vi, cr * vi - ci * vr);
+            } else {
+              d[(((size_t)ug * F + f) * Bc + b) * K2 + j] = make_float2(vr, vi);
+            }
+          }
+    }
+    return;
+  }
   if (do_dx && dx2 != nullptr) {
     const int b0 = btg * BM;
     const float* e2c = reinterpret_cast<const float*>(smem + lay.res + GY);
@@ -706,12 +907,12 @@ Layout tbw_layout(bool conv_to_smem, bool load_w, bool walk) {
   return l;
 }
 
-template <int NU, bool SOFTMAX, typename WT, int MODE>
+template <int NU, bool SOFTMAX, typename WT, int MODE, bool CPLX>
 cudaError_t launch_products(const WT* w, const float* lse, const float* rsum, float* dx1,
                             float* dx2, WT* dw, const CUtensorMap& wmap, const CUtensorMap& gmap,
                             const CUtensorMap& e1map, const CUtensorMap& e2map, int F, int B,
                             int K1, int K2, int O, int n_ug, int n_jc, int nbt_grid, int nbt_loop,
-                            int flags, cudaStream_t s) {
+                            int flags, int Bc, cudaStream_t s) {
   const long long blocks = (long long)F * n_ug * n_jc * nbt_grid;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
   const bool vec = flags & tbw::VEC, do_dx = flags & tbw::DO_DX;
@@ -719,13 +920,13 @@ cudaError_t launch_products(const WT* w, const float* lse, const float* rsum, fl
   const Layout lay = tbw_layout<NU, SOFTMAX, WT>(do_dx && !raw, vec && (do_dx || SOFTMAX),
                                                  nbt_loop > 1);
   if (lay.ns < 2) return cudaErrorInvalidConfiguration;
-  auto kernel = tucker_bwd_bf16<NU, SOFTMAX, WT, MODE>;
+  auto kernel = tucker_bwd_bf16<NU, SOFTMAX, WT, MODE, CPLX>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(lay.bytes));
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), tbw::NT, lay.bytes, s>>>(
       w, lse, rsum, dx1, dx2, dw, wmap, gmap, e1map, e2map, lay, F, B, K1, K2, O, n_ug, n_jc,
-      nbt_grid, nbt_loop, flags);
+      nbt_grid, nbt_loop, flags, Bc);
   return cudaGetLastError();
 }
 
@@ -736,22 +937,37 @@ cudaError_t launch_products(const WT* w, const float* lse, const float* rsum, fl
 // f32 and gyr (F, B, Op) in bf16, Bp and Op the batch and the units rounded
 // up to 8; for logits lse and r_o, (F, O) each; the dx1 partials (n_ug n_jc
 // planes of (F, B, K1)) where there are more than one; the dx2 partials
-// (n_ug planes of (F, B, K2)) where n_ug > 1.
-template <bool SOFTMAX, typename WT, int MODE>
+// (n_ug planes of (F, B, K2)) where n_ug > 1. SIGNED (the signed Tucker
+// backward: sga, sgb the inputs' signs, out_sign sign(y)) forms the signed gy
+// and e in the prep and the finish, and runs the same products. CPLX (the
+// complex Tucker backward against a real weight: x1, x2, out, g, dx1 and dx2
+// complex, ops/clse_einsum.py's _ctucker_bf16_scratch floats) runs them on
+// the Rs = 2 Bp stacked rows of ctbw_prep (e1t, e2t (F, K, Rs), gyr (F, Rs,
+// Op)), with complex dx partials.
+template <bool SOFTMAX, typename WT, int MODE, bool SIGNED = false, bool CPLX = false>
 int launch_bwd_bf16(const float* x1, const float* x2, const WT* w, const float* out,
                     const float* g, float* dx1, float* dx2, WT* dw, float* sa, float* sb,
                     float* gy, float* ws, int F, int B, int K1, int K2, int O, int device,
-                    void* stream) {
+                    void* stream, const float* sga = nullptr, const float* sgb = nullptr,
+                    const float* out_sign = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int I = K1 * K2, Bp = (B + 7) / 8 * 8, Op = (O + 7) / 8 * 8;
+  // the products' rows: the batch, or the stacked planes (Rs of them)
+  const int rows = CPLX ? 2 * Bp : B, Rs = CPLX ? 2 * Bp : Bp, cw = CPLX ? 2 : 1;
   float* e1t = ws;
-  float* e2t = e1t + (size_t)F * K1 * Bp;
-  auto* gyr = reinterpret_cast<__nv_bfloat16*>(e2t + (size_t)F * K2 * Bp);
-  float* part = e2t + (size_t)F * K2 * Bp + (size_t)F * B * Op / 2;
-  tbw_prep<MODE><<<dim3(F, cdiv(B, tbw::WARPS)), 256, 0, s>>>(x1, x2, out, g, sa, sb, gy, gyr,
-                                                              e1t, e2t, B, K1, K2, O, Op, Bp);
+  float* e2t = e1t + (size_t)F * K1 * Rs;
+  auto* gyr = reinterpret_cast<__nv_bfloat16*>(e2t + (size_t)F * K2 * Rs);
+  float* part = e2t + (size_t)F * K2 * Rs + (size_t)F * rows * Op / 2;
+  if constexpr (CPLX)
+    ctbw_prep<MODE><<<dim3(F, Bp / tbw::WARPS), 256, 0, s>>>(
+        reinterpret_cast<const float2*>(x1), reinterpret_cast<const float2*>(x2),
+        reinterpret_cast<const float2*>(out), reinterpret_cast<const float2*>(g), sa, sb, gyr,
+        e1t, e2t, B, K1, K2, O, Op, Rs);
+  else
+    tbw_prep<MODE, SIGNED><<<dim3(F, cdiv(B, tbw::WARPS)), 256, 0, s>>>(
+        x1, x2, out, g, sa, sb, gy, gyr, e1t, e2t, B, K1, K2, O, Op, Bp, out_sign, sga, sgb);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   float* lse = nullptr;
   float* rsum = nullptr;
@@ -766,23 +982,23 @@ int launch_bwd_bf16(const float* x1, const float* x2, const WT* w, const float* 
   const bool do_dx = dx1 != nullptr || dx2 != nullptr, do_dw = dw != nullptr;
   if (!do_dx && !do_dw) return 0;
   const int n_ug = static_cast<int>(cdiv(O, tbw::UG)), n_jc = static_cast<int>(cdiv(K2, tbw::JC));
-  const int nbt = static_cast<int>(cdiv(B, tbw::BM)), p1 = n_ug * n_jc;
+  const int nbt = static_cast<int>(cdiv(rows, tbw::BM)), p1 = n_ug * n_jc;
   float* part1 = p1 > 1 ? part : nullptr;
-  float* part2 = n_ug > 1 ? part + (p1 > 1 ? (size_t)p1 * F * B * K1 : 0) : nullptr;
+  float* part2 = n_ug > 1 ? part + (p1 > 1 ? (size_t)cw * p1 * F * B * K1 : 0) : nullptr;
   const bool vec = (K2 * sizeof(WT)) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const bool stg16 = (K2 * sizeof(WT)) % 16 == 0 && reinterpret_cast<uintptr_t>(dw) % 16 == 0;
   CUtensorMap wmap{}, gmap{}, e1map{}, e2map{};
   if (vec && (err = cirkit::weight_map(&wmap, w, F, K1, K2, O)) != cudaSuccess)
     return static_cast<int>(err);
   {
-    const cuuint64_t gd[3] = {(cuuint64_t)O, (cuuint64_t)B, (cuuint64_t)F};
-    const cuuint64_t gs[2] = {(cuuint64_t)Op * 2, (cuuint64_t)B * Op * 2};
+    const cuuint64_t gd[3] = {(cuuint64_t)O, (cuuint64_t)rows, (cuuint64_t)F};
+    const cuuint64_t gs[2] = {(cuuint64_t)Op * 2, (cuuint64_t)rows * Op * 2};
     const cuuint32_t gb[3] = {tbw::UT, tbw::BM, 1};
-    const cuuint64_t d1[3] = {(cuuint64_t)B, (cuuint64_t)K1, (cuuint64_t)F};
-    const cuuint64_t s1[2] = {(cuuint64_t)Bp * 4, (cuuint64_t)K1 * Bp * 4};
+    const cuuint64_t d1[3] = {(cuuint64_t)rows, (cuuint64_t)K1, (cuuint64_t)F};
+    const cuuint64_t s1[2] = {(cuuint64_t)Rs * 4, (cuuint64_t)K1 * Rs * 4};
     const cuuint32_t b1[3] = {tbw::BM, 1, 1};
-    const cuuint64_t d2[3] = {(cuuint64_t)B, (cuuint64_t)K2, (cuuint64_t)F};
-    const cuuint64_t s2[2] = {(cuuint64_t)Bp * 4, (cuuint64_t)K2 * Bp * 4};
+    const cuuint64_t d2[3] = {(cuuint64_t)rows, (cuuint64_t)K2, (cuuint64_t)F};
+    const cuuint64_t s2[2] = {(cuuint64_t)Rs * 4, (cuuint64_t)K2 * Rs * 4};
     const cuuint32_t b2[3] = {32, tbw::JC, 1};
     if ((err = cirkit::tiled_map(&gmap, gyr, 3, gd, gs, gb)) != cudaSuccess ||
         (err = cirkit::tiled_map(&e1map, e1t, 3, d1, s1, b1)) != cudaSuccess ||
@@ -795,12 +1011,12 @@ int launch_bwd_bf16(const float* x1, const float* x2, const WT* w, const float* 
   float* k2 = dx2 == nullptr ? nullptr : part2 != nullptr ? part2 : dx2;
   auto products = [&](int what, int nbt_grid, int nbt_loop) {
     return O > tbw::UT
-               ? launch_products<2, SOFTMAX, WT, MODE>(w, lse, rsum, k1, k2, dw, wmap, gmap,
-                                                       e1map, e2map, F, B, K1, K2, O, n_ug,
-                                                       n_jc, nbt_grid, nbt_loop, flags | what, s)
-               : launch_products<1, SOFTMAX, WT, MODE>(w, lse, rsum, k1, k2, dw, wmap, gmap,
-                                                       e1map, e2map, F, B, K1, K2, O, n_ug,
-                                                       n_jc, nbt_grid, nbt_loop, flags | what, s);
+               ? launch_products<2, SOFTMAX, WT, MODE, CPLX>(
+                     w, lse, rsum, k1, k2, dw, wmap, gmap, e1map, e2map, F, rows, K1, K2, O, n_ug,
+                     n_jc, nbt_grid, nbt_loop, flags | what, B, s)
+               : launch_products<1, SOFTMAX, WT, MODE, CPLX>(
+                     w, lse, rsum, k1, k2, dw, wmap, gmap, e1map, e2map, F, rows, K1, K2, O, n_ug,
+                     n_jc, nbt_grid, nbt_loop, flags | what, B, s);
   };
   if (do_dx && do_dw && nbt == 1) {
     err = products(tbw::DO_DX | tbw::DO_DW, 1, 1);
@@ -812,8 +1028,15 @@ int launch_bwd_bf16(const float* x1, const float* x2, const WT* w, const float* 
   const float* f1 = dx1 != nullptr ? part1 : nullptr;
   const float* f2 = dx2 != nullptr ? part2 : nullptr;
   if (f1 != nullptr || f2 != nullptr) {
-    tbw_dx_finish<<<dim3(F, cdiv(B, tbw::WARPS)), 256, 0, s>>>(x1, x2, sa, sb, f1, f2, dx1, dx2,
-                                                                F, B, K1, K2, p1, n_ug);
+    if constexpr (CPLX)
+      cirkit::cplx_dx_finish<8><<<dim3(F, cdiv(B, tbw::WARPS)), 256, 0, s>>>(
+          reinterpret_cast<const float2*>(x1), reinterpret_cast<const float2*>(x2), sa, sb,
+          reinterpret_cast<const float2*>(f1), reinterpret_cast<const float2*>(f2),
+          reinterpret_cast<float2*>(dx1), reinterpret_cast<float2*>(dx2), F, B, K1, K2, p1,
+          n_ug);
+    else
+      tbw_dx_finish<SIGNED><<<dim3(F, cdiv(B, tbw::WARPS)), 256, 0, s>>>(
+          x1, x2, sa, sb, f1, f2, dx1, dx2, F, B, K1, K2, p1, n_ug, sga, sgb);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
@@ -827,9 +1050,8 @@ extern "C" {
 // INSTANCES), with the arguments of their f32-grade twins but for the
 // weight's gradient, which has the weight's type, and the scratch ws
 // (ops/lse_einsum.py's _tucker_bf16_bwd_scratch floats). The build compiles
-// this source once for each part (-DCIRKIT_BF16_BWD_PART=0..3;
-// ops/_build.py), side by side: a part for each weight type and mode. A
-// build without the macro holds all of them.
+// this source once for each part (-DCIRKIT_BF16_BWD_PART=0..5;
+// ops/_build.py), side by side. A build without the macro holds all of them.
 #define TUCKER_BF16_BWD_ENTRIES(SUFFIX, WT, MODE)                                               \
   int lse_bwd_tucker##SUFFIX(const float* x1, const float* x2, const WT* w, const float* out,   \
                              const float* g, float* dx1, float* dx2, WT* dw, float* sa,         \
@@ -847,18 +1069,71 @@ extern "C" {
                                            ws, F, B, K1, K2, O, device, stream);                \
   }
 
+// The signed instances (ops/slse_einsum.py's slse_tucker2[_softmax] in a
+// fast mode): the signed entries' arguments, with the lse entries' scratch
+// (gy (F, B, O) and ws), the weight's gradient in the weight's type. They
+// run the products of their unsigned twins in the same part.
+#define SLSE_BF16_BWD_ENTRIES(SUFFIX, WT, MODE)                                                 \
+  int slse_bwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
+                              const float* s2, const WT* w, const float* oa, const float* os,   \
+                              const float* g, float* da1, float* da2, WT* dw, float* sa,        \
+                              float* sb, float* gy, float* ws, int F, int B, int K1, int K2,    \
+                              int O, int device, void* stream) {                                \
+    return launch_bwd_bf16<false, WT, MODE, true>(a1, a2, w, oa, g, da1, da2, dw, sa, sb, gy,   \
+                                                  ws, F, B, K1, K2, O, device, stream, s1, s2,  \
+                                                  os);                                          \
+  }                                                                                             \
+  int slse_bwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
+                                      const float* s2, const WT* theta, const float* oa,        \
+                                      const float* os, const float* g, float* da1, float* da2,  \
+                                      WT* dtheta, float* sa, float* sb, float* gy, float* ws,   \
+                                      int F, int B, int K1, int K2, int O, int device,          \
+                                      void* stream) {                                           \
+    return launch_bwd_bf16<true, WT, MODE, true>(a1, a2, theta, oa, g, da1, da2, dtheta, sa, sb,\
+                                                 gy, ws, F, B, K1, K2, O, device, stream, s1,   \
+                                                 s2, os);                                       \
+  }
+
+// The complex instances (ops/clse_einsum.py's clse_tucker2 in complex64
+// against a real weight, in a fast mode): clse_bwd_tucker_rw's arguments
+// (csrc/lse_einsum_bwd.cu), with ws of _ctucker_bf16_scratch floats.
+#define CLSE_BF16_BWD_ENTRY(SUFFIX, MODE)                                                       \
+  int clse_bwd_tucker_rw##SUFFIX(const void* x1, const void* x2, const float* w,                \
+                                 const void* out, const void* g, void* dx1, void* dx2,          \
+                                 float* dw, float* sa, float* sb, float* ws, int F, int B,      \
+                                 int K1, int K2, int O, int device, void* stream) {             \
+    return launch_bwd_bf16<false, float, MODE, false, true>(                                    \
+        static_cast<const float*>(x1), static_cast<const float*>(x2), w,                        \
+        static_cast<const float*>(out), static_cast<const float*>(g), static_cast<float*>(dx1), \
+        static_cast<float*>(dx2), dw, sa, sb, nullptr, ws, F, B, K1, K2, O, device, stream);    \
+  }
+
+// Parts 0-3 hold a weight type and mode each (the lse and signed entries),
+// parts 4 and 5 the complex entries of the two modes.
 #if !defined(CIRKIT_BF16_BWD_PART) || CIRKIT_BF16_BWD_PART == 0
 TUCKER_BF16_BWD_ENTRIES(_fast, float, cirkit::BF16)
+SLSE_BF16_BWD_ENTRIES(_fast, float, cirkit::BF16)
 #endif
 #if !defined(CIRKIT_BF16_BWD_PART) || CIRKIT_BF16_BWD_PART == 1
 TUCKER_BF16_BWD_ENTRIES(_sr, float, cirkit::SR)
+SLSE_BF16_BWD_ENTRIES(_sr, float, cirkit::SR)
 #endif
 #if !defined(CIRKIT_BF16_BWD_PART) || CIRKIT_BF16_BWD_PART == 2
 TUCKER_BF16_BWD_ENTRIES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+SLSE_BF16_BWD_ENTRIES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 #endif
 #if !defined(CIRKIT_BF16_BWD_PART) || CIRKIT_BF16_BWD_PART == 3
 TUCKER_BF16_BWD_ENTRIES(_w16_sr, __nv_bfloat16, cirkit::SR)
+SLSE_BF16_BWD_ENTRIES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#endif
+#if !defined(CIRKIT_BF16_BWD_PART) || CIRKIT_BF16_BWD_PART == 4
+CLSE_BF16_BWD_ENTRY(_fast, cirkit::BF16)
+#endif
+#if !defined(CIRKIT_BF16_BWD_PART) || CIRKIT_BF16_BWD_PART == 5
+CLSE_BF16_BWD_ENTRY(_sr, cirkit::SR)
 #endif
 #undef TUCKER_BF16_BWD_ENTRIES
+#undef SLSE_BF16_BWD_ENTRIES
+#undef CLSE_BF16_BWD_ENTRY
 
 }  // extern "C"

@@ -79,6 +79,9 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     ROLE_W,
     ROLE_WB,
     _MAX_GRID_YZ,
+    _TC_TUCKER_TILE,
+    _TUCKER_JC,
+    _BWD_UNIT_GROUP,
     _call,
     _check_cuda,
     _check_dense,
@@ -297,12 +300,52 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch
     return out
 
 
+def bwd_entry(op: str, dtype: torch.dtype, w_dtype: torch.dtype, mode: str) -> str:
+    """The backward entry of ``op`` on values of ``dtype`` and a weight of
+    ``w_dtype`` in ``mode``: the complex64 Tucker backward against a real
+    weight (the complex flagship's) has entries of its own on the tensor
+    cores, ``clse_bwd_tucker_rw`` (``csrc/lse_einsum_bwd.cu``'s
+    ``launch_cbwd_tc``) and its ``_fast`` and ``_sr`` instances
+    (``csrc/tucker_bf16_bwd.cu``'s ``tucker_bwd_bf16`` with ``CPLX``); every
+    other configuration ``clse_bwd`` (``csrc/clse_einsum.cu``)."""
+    rw = op == "clse_tucker2" and dtype == torch.complex64 and not w_dtype.is_complex
+    return ("clse_bwd_tucker_rw" if rw else "clse_bwd") + MODE_SUFFIX[mode]
+
+
+def _ctucker_tc_scratch(f: int, b: int, k1: int, k2: int, o: int) -> int:
+    """The float32 scratch of ``clse_bwd_tucker_rw``: the planes of gy, e1 and
+    e2 at the Bs = 2 Bp stacked rows (Bp the batch rounded up to 8), (F, Bs,
+    O), (F, Bs, K1) and (F, Bs, K2); then the dx partials as complex values,
+    a (F, B, K1) plane a column tile and a (F, B, K2) plane a row tile of the
+    float32 Tucker dx kernel (``_TC_TUCKER_TILE``)."""
+    bn, i_per = _TC_TUCKER_TILE
+    bs = 2 * (-(-b // 8) * 8)
+    return f * bs * (o + k1 + k2) + 2 * f * b * (-(-k2 // bn) * k1 + -(-k1 // i_per) * k2)
+
+
+def _ctucker_bf16_scratch(f: int, b: int, k1: int, k2: int, o: int) -> int:
+    """The float32 scratch of ``clse_bwd_tucker_rw_fast`` and ``_sr``: the
+    planes of e1 and e2 transposed, (F, K1, Rs) and (F, K2, Rs), at the Rs =
+    2 Bp stacked rows, and the rounded gy planes in bf16, (F, Rs, Op), with Bp
+    and Op the batch and the units rounded up to 8; then the complex dx1
+    partials, a (F, B, K1) plane a unit group and column chunk where there are
+    more than one, and the complex dx2 partials, a (F, B, K2) plane a unit
+    group where there are more than one (``lse_einsum``'s
+    ``_tucker_bf16_bwd_scratch`` of the real route)."""
+    n_ug, n_jc = -(-o // _BWD_UNIT_GROUP), -(-k2 // _TUCKER_JC)
+    rs, op = 2 * (-(-b // 8) * 8), -(-o // 8) * 8
+    p1 = n_ug * n_jc
+    return (f * (k1 + k2) * rs + f * rs * op // 2 + (2 * p1 * f * b * k1 if p1 > 1 else 0)
+            + (2 * n_ug * f * b * k2 if n_ug > 1 else 0))
+
+
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], out: torch.Tensor, g: torch.Tensor,
     needs: tuple[bool, ...], mode: str = "",
 ) -> tuple[torch.Tensor | None, ...]:
     """Allocate the requested gradients and the scratch (the row shifts and
-    gy), and launch the backward entry (in ``mode``) on the current stream."""
+    gy), and launch the backward entry (in ``mode``; :func:`bwd_entry`) on
+    the current stream."""
     name = f"{op} backward"
     dev = _check_operands(name, (*ins[:-1], out, g, ins[-1]), len(ins) + 1)
     inst = _instance(name, ins, mode)
@@ -320,12 +363,22 @@ def _launch_bwd(
     lib = _build.library()
     real = _REAL_OF[ins[0].dtype]
     shifts = [torch.empty((f, b), device=dev, dtype=real) for _ in range(2 if tucker else 1)]
+    dxs = [None if d is None else d.data_ptr() for d in grads[:-1]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = bwd_entry(op, ins[0].dtype, ins[-1].dtype, mode)
+    if entry.startswith("clse_bwd_tucker_rw"):
+        n = (_ctucker_bf16_scratch if mode else _ctucker_tc_scratch)(f, b, k1, k2, o)
+        ws = torch.empty(n, device=dev, dtype=torch.float32)
+        args = (*(t.data_ptr() for t in (*ins, out, g)), *dxs,
+                None if grads[-1] is None else grads[-1].data_ptr(),
+                *(t.data_ptr() for t in (*shifts, ws)), *sizes, dev.index, stream)
+        _call(lib, entry, name, args)
+        LAUNCHES[f"{op}{inst}_bwd"] += 1
+        return grads
     # gy, with room for the partial sums of the batch-split dw and of a
     # Tucker dx split over K1
     gy = torch.empty(lib.clse_bwd_gy_size(f, b, k1, k2, o, tucker, w_complex, double),
                      device=dev, dtype=out.dtype)
-    dxs = [None if d is None else d.data_ptr() for d in grads[:-1]]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         ins[0].data_ptr(), ins[1].data_ptr() if tucker else None, ins[-1].data_ptr(),
         out.data_ptr(), g.data_ptr(),
@@ -333,7 +386,7 @@ def _launch_bwd(
         shifts[0].data_ptr(), shifts[1].data_ptr() if tucker else None, gy.data_ptr(),
         *sizes, tucker, w_complex, double, dev.index, stream,
     )
-    _call(lib, "clse_bwd" + inst, name, args)
+    _call(lib, entry, name, args)
     LAUNCHES[f"{op}{inst}_bwd"] += 1
     return grads
 

@@ -453,6 +453,17 @@ def _fast_softmax_weights(theta: torch.Tensor) -> torch.Tensor:
     return torch.exp(theta - torch.logsumexp(theta, dim=-1, keepdim=True))
 
 
+def bf16_pair(w: torch.Tensor) -> torch.Tensor:
+    """``w`` as the fast Tucker backward's ``t = gy @ w`` takes softmax
+    weights (``csrc/tucker_bf16_bwd.cu``): the bf16 pair ``hi + lo``, ``hi``
+    and ``lo = w - hi`` each rounded to the nearest bf16, exact in float32
+    (within 2^-17 |w| of ``w``). A sum of signed terms that cancels would
+    carry that difference far above its result, so the plain versions form
+    ``t`` from the pair too."""
+    hi = w.to(torch.bfloat16).to(w.dtype)
+    return hi + (w - hi).to(torch.bfloat16).to(w.dtype)
+
+
 def lse_matmul_softmax_bwd_ref(
     x: torch.Tensor,
     theta: torch.Tensor,
@@ -544,7 +555,8 @@ def lse_tucker2_softmax_bwd_ref(
     theta = theta.to(x1.dtype)
     if mode:
         w = _fast_softmax_weights(theta)
-        dx1, dx2, dw = lse_tucker2_bwd_ref(x1, x2, w, out, g, needs, mode, round_w=False)
+        dx1, dx2, dw = lse_tucker2_bwd_ref(x1, x2, bf16_pair(w), out, g, needs, mode,
+                                           round_w=False)
         if dw is not None:
             shift = _clamp_max(x1) + _clamp_max(x2)
             dw = softmax_vjp_from_g(w, dw, g, _gy(g, out, shift))
@@ -740,6 +752,23 @@ def _tucker_bf16_bwd_scratch(softmax: bool, f: int, b: int, k1: int, k2: int, o:
     p1 = n_ug * n_jc
     return (f * (k1 + k2) * bp + f * b * op // 2 + (2 * f * o if softmax else 0)
             + (p1 * f * b * k1 if p1 > 1 else 0) + (n_ug * f * b * k2 if n_ug > 1 else 0))
+
+
+_TC_TUCKER_TILE = (64, 16)
+"""The tiles of the float32 Tucker dx kernel on the tensor cores, ``tc_dx::BN``
+columns ``j`` and ``tc_tucker::I_PER`` rows ``i`` of ``csrc/lse_einsum_bwd.cu``
+(a test reads them there): its dx1 sums are partial over the column tiles and
+its dx2 sums over the row tiles (:func:`_tucker_tc_scratch`)."""
+
+
+def _tucker_tc_scratch(softmax: bool, f: int, b: int, k1: int, k2: int, o: int) -> int:
+    """The float32 scratch ``ws`` of the float32-grade Tucker backward on the
+    tensor cores (``tc_scratch`` of ``csrc/lse_einsum_bwd.cu``, which the
+    signed Tucker ops size here): for logits each weight row's lse and r_o,
+    (F, O) each; the dx1 partials, a (F, B, K1) plane a column tile, then the
+    dx2 partials, a (F, B, K2) plane a row tile."""
+    bn, i_per = _TC_TUCKER_TILE
+    return (2 * f * o if softmax else 0) + f * b * (-(-k2 // bn) * k1 + -(-k1 // i_per) * k2)
 
 
 def _launch_bwd(

@@ -17,7 +17,10 @@ exponentials ``e = s * exp(a - m)`` against real weights:
 Each returns ``(log|y| + shift, sign y)``; an exact cancellation ``y = 0``
 gives ``(-inf, 0)``, never NaN. Each op is a ``torch.autograd.Function``
 around two entries of the hand-written CUDA kernels (``csrc/lse_einsum.cu``
-and ``csrc/lse_einsum_bwd.cu``, the lse kernels' ``SIGNED`` instances). The
+and ``csrc/lse_einsum_bwd.cu``, the lse kernels' ``SIGNED`` instances; the
+float32 Tucker backward runs the lse Tucker backward's kernels with the signs
+folded in, on the tensor cores, and in a fast mode ``csrc/tucker_bf16_bwd.cu``'s:
+:func:`bwd_route`). The
 sign output is piecewise constant: it is marked non-differentiable and its
 cotangent is dropped, as the JAX package's ``_sfused_p_bwd`` does. The
 gradients of the sign inputs are not computed (they come back as None): in
@@ -86,15 +89,20 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _check_tucker,
     _check_weighted,
     _clamp_max,
+    _fast_softmax_weights,
     _no_graph_through_kernel,
     _on_cpu,
     _op_mode,
     _softmax_parts,
     _softmax_vjp,
     _traced,
+    _tucker_bf16_bwd_scratch,
+    _tucker_tc_scratch,
     _weight_for,
+    bf16_pair,
     launch_op,
     round_bf16,
+    softmax_vjp_from_g,
 )
 
 SIGNED_OPS = ("slse_matmul", "slse_matmul_softmax", "slse_tucker2", "slse_tucker2_softmax")
@@ -263,11 +271,24 @@ def slse_tucker2_softmax_bwd_ref(
     theta: torch.Tensor, oa: torch.Tensor, os: torch.Tensor, g: torch.Tensor,
     needs: tuple[bool, ...] = (True, False, True, False, True), mode: str = "",
 ) -> tuple[torch.Tensor | None, None, torch.Tensor | None, None, torch.Tensor | None]:
-    """``(da1, None, da2, None, dtheta)`` of :func:`slse_tucker2_softmax`."""
-    w = torch.softmax(theta.to(a1.dtype), dim=-1)
-    da1, _, da2, _, dw = slse_tucker2_bwd_ref(a1, s1, a2, s2, w, oa, os, g, needs, mode,
-                                              round_w=False)
-    return da1, None, da2, None, None if dw is None else _softmax_vjp(w, dw)
+    """``(da1, None, da2, None, dtheta)`` of :func:`slse_tucker2_softmax`. A
+    fast mode forms the weights and the softmax VJP as the fast Tucker
+    backward does (the unsigned :func:`~cirkit_tpu_torch.ops.lse_einsum.
+    lse_tucker2_softmax_bwd_ref`'s): ``exp(theta - lse)``, their bf16 pair in
+    ``t = gy @ w`` (:func:`~cirkit_tpu_torch.ops.lse_einsum.bf16_pair`), and
+    the row dot ``sum_c w_c dw_c`` taken as ``sum_b g_b`` over the rows whose
+    gy is nonzero (:func:`~cirkit_tpu_torch.ops.lse_einsum.softmax_vjp_from_g`)."""
+    theta = theta.to(a1.dtype)
+    w = _fast_softmax_weights(theta) if mode else torch.softmax(theta, dim=-1)
+    da1, _, da2, _, dw = slse_tucker2_bwd_ref(a1, s1, a2, s2, bf16_pair(w) if mode else w,
+                                              oa, os, g, needs, mode, round_w=False)
+    if dw is not None:
+        if mode:
+            gy = _signed_gy(g, oa, os, _clamp_max(a1) + _clamp_max(a2))
+            dw = softmax_vjp_from_g(w, dw, g, gy)
+        else:
+            dw = _softmax_vjp(w, dw)
+    return da1, None, da2, None, dw
 
 
 # --------------------------------------------------------------------------- #
@@ -302,6 +323,31 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> Pair:
     return oa, os
 
 
+def bwd_route(op: str, suffix: str, mode: str) -> str:
+    """The kernels that the backward of ``op`` runs on activations of entry
+    suffix ``suffix`` (``"_f64"`` or ``""``) in ``mode``: the float32 Tucker
+    ops those of the lse Tucker backward with the signs folded in, on the
+    tensor cores in the f32-grade mode (``"tc"``, also on a bf16 weight;
+    ``csrc/lse_einsum_bwd.cu``'s ``launch_bwd_tc``) and on the bf16 tensor
+    cores in a fast mode (``"bf16"``, ``tucker_bwd_bf16`` of
+    ``csrc/tucker_bf16_bwd.cu``, which writes the weight's gradient in the
+    weight's type); the dense ops and float64 the CUDA-core kernels
+    (``"fma"``)."""
+    if op.startswith("slse_tucker2") and not suffix:
+        return "bf16" if mode else "tc"
+    return "fma"
+
+
+def bwd_scratch(op: str, route: str, f: int, b: int, k1: int, k2: int, o: int) -> int:
+    """The float32 values of the scratch ``ws`` of a Tucker backward on
+    ``route`` ("tc" or "bf16"; :func:`bwd_route`), beside gy (F, B, O) and
+    the row shifts."""
+    softmax = op.endswith("softmax")
+    if route == "bf16":
+        return _tucker_bf16_bwd_scratch(softmax, f, b, k1, k2, o)
+    return _tucker_tc_scratch(softmax, f, b, k1, k2, o)
+
+
 def _launch_bwd(
     op: str, ins: tuple[torch.Tensor, ...], oa: torch.Tensor, os: torch.Tensor,
     g: torch.Tensor, needs: tuple[bool, ...], mode: str = "",
@@ -309,12 +355,18 @@ def _launch_bwd(
     """Allocate the requested gradients (log-magnitude inputs and weight; the
     sign inputs' stay None) and the scratch, and launch the backward entry
     of ``op`` (in ``mode``, on the weight's type) on the current stream. The
-    weight's gradient has the activations' type."""
+    weight's gradient has the activations' type, or on the ``"bf16"`` route
+    (:func:`bwd_route`) the weight's."""
     dev, suffix, inst = _check_weighted(f"{op} backward", (*ins[:-1], oa, os, g), ins[-1], mode)
+    route = bwd_route(op, suffix, mode)
     # the log-magnitudes and the weight sit at the even positions of ``ins``
     needs = tuple(need and i % 2 == 0 for i, need in enumerate(needs))
-    grads = tuple(torch.empty(t.shape, device=dev, dtype=ins[0].dtype) if need else None
-                  for t, need in zip(ins, needs))
+    grads = tuple(
+        torch.empty(t.shape, device=dev,
+                    dtype=t.dtype if route == "bf16" and t is ins[-1] else ins[0].dtype)
+        if need else None
+        for t, need in zip(ins, needs)
+    )
     if not any(needs):
         return grads
     if oa.numel() == 0 or ins[0].numel() == 0:
@@ -326,16 +378,22 @@ def _launch_bwd(
     if max(-(-b // _BWD_ROWS), -(-o // _BWD_ROWS), -(-i // _BWD_DX_COLS)) > _MAX_GRID_YZ:
         raise ValueError(f"{op} backward: sizes {sizes} exceed the kernel's launch grid")
     lib = _build.library()
-    # scratch: the row shifts, gy with room for the partial sums of the
-    # batch-split dw and of a Tucker dx split over K1 (lse_bwd_gy_size), and
-    # for softmax the (F, O, I) weights
     k1, k2 = sizes[2:4] if tucker else (i, 1)
     scratch = [torch.empty((f, b), device=dev, dtype=ins[0].dtype)
                for _ in range(2 if tucker else 1)]
-    n = getattr(lib, "lse_bwd_gy_size" + suffix)(1, int(tucker), f, b, k1, k2, o)
-    scratch.append(torch.empty(n, device=dev, dtype=ins[0].dtype))
-    if op.endswith("softmax"):  # the softmax weights, in the activations' type
-        scratch.append(torch.empty(ins[-1].shape, device=dev, dtype=ins[0].dtype))
+    if route != "fma":
+        # the row shifts, gy and what the route's kernels ask for (bwd_scratch)
+        scratch.append(torch.empty((f, b, o), device=dev, dtype=torch.float32))
+        scratch.append(torch.empty(bwd_scratch(op, route, f, b, k1, k2, o), device=dev,
+                                   dtype=torch.float32))
+    else:
+        # the row shifts, gy with room for the partial sums of the
+        # batch-split dw and of a Tucker dx split over K1 (lse_bwd_gy_size),
+        # and for softmax the (F, O, I) weights
+        n = getattr(lib, "lse_bwd_gy_size" + suffix)(1, int(tucker), f, b, k1, k2, o)
+        scratch.append(torch.empty(n, device=dev, dtype=ins[0].dtype))
+        if op.endswith("softmax"):  # the softmax weights, in the activations' type
+            scratch.append(torch.empty(ins[-1].shape, device=dev, dtype=ins[0].dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (
         *(t.data_ptr() for t in (*ins, oa, os, g)),
@@ -377,7 +435,8 @@ def backward(
     selects which, ``mode`` is the forward's speed mode. The sign inputs'
     gradients are always None. The plain version on CPU tensors, the
     backward kernel on CUDA tensors; the weight's gradient is accumulated in
-    the activations' type and cast to the weight's."""
+    float32 and has the weight's type (cast here, or written so by the fast
+    Tucker kernel)."""
     needs = (True,) * len(ins) if needs is None else tuple(needs)
     if _on_cpu(*ins, oa, os, g):
         plain = _ENTRIES[op][3]

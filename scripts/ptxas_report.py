@@ -10,8 +10,9 @@ Each ``*.cu`` of each directory (or those ``--only`` names) is compiled for sm_9
 report has one line per kernel (demangled, with the template arguments
 that turn a variant off, ``false``, dropped from the end, and the scalar
 type ``float`` dropped from the front, so a kernel keeps its name when a
-later tree adds such an argument) and one column per tree: ``registers/spill
-stores/spill loads/static shared bytes/SASS digest/tensor-core instructions``.
+later tree adds such an argument; a mode of 0 before them goes too) and one
+column per tree: ``registers/spill stores/spill loads/static shared
+bytes/SASS digest/tensor-core instructions``.
 The digest is the first 10 hex digits of the SHA-256 of the kernel's machine
 code as ``cuobjdump -sass`` lists it, without addresses and encodings and
 with the offsets into the kernel-parameter bank masked (a template flag's
@@ -29,8 +30,10 @@ name.
 ``ops/_build.py`` has built, with no compile: registers, stack frame (where
 ptxas puts spilled registers) and static shared memory from ``cuobjdump
 -res-usage``, the digest and tensor-core instructions from ``cuobjdump
--sass``, for the kernels whose mangled names hold ``tag``
-(``chip_smoke.py`` phase 17 reads blocked_bf16.cu's ``bb_`` kernels so).
+-sass``, for the kernels whose mangled names hold ``tag``, or one of several tags
+(``chip_smoke.py`` phase 17 reads blocked_bf16.cu's ``bb_`` kernels so, phase
+18 the Tucker backwards' ``tc_dx_tucker``, ``tc_dw_kernel`` and
+``tucker_bwd_bf16``).
 """
 
 from __future__ import annotations
@@ -105,10 +108,9 @@ def _key(name: str) -> str:
     # the scalar type leads the arguments: a float instance keeps the name it
     # had before the kernels became templates over their scalar type
     name = name.replace("<float, ", "<").replace("<float>", "")
-    name = name.removesuffix(", 0>") + (">" if name.endswith(", 0>") else "")
+    while name.endswith((", 0>", ", false>")):  # a mode of 0 before flags that are off too
+        name = name[: name.rindex(", ")] + ">"
     name = name.removesuffix("<0>")
-    while name.endswith(", false>"):
-        name = name[: -len(", false>")] + ">"
     return name.removesuffix("<false>")
 
 
@@ -140,10 +142,12 @@ def report(csrc: Path, only: tuple[str, ...] = ()) -> dict[str, str]:
     return rows
 
 
-def library_report(lib: Path, tag: str) -> dict[str, str]:
+def library_report(lib: Path, tag: str | tuple[str, ...], keep=None) -> dict[str, str]:
     """kernel -> "registers/stack bytes/smem/SASS digest/tensor-core
     instructions" of each kernel of the built library ``lib`` whose mangled
-    name holds ``tag``."""
+    name holds ``tag`` (or one of the tags) and, with ``keep``, whose report
+    name ``keep`` accepts (only those are disassembled)."""
+    tags = (tag,) if isinstance(tag, str) else tag
     out = subprocess.run([_cuobjdump(), "-res-usage", str(lib)], capture_output=True, text=True,
                          check=True).stdout
     usage: dict[str, str] = {}
@@ -152,13 +156,15 @@ def library_report(lib: Path, tag: str) -> dict[str, str]:
         if m := _RES_FUNCTION.search(line):
             name = m.group(1)
         elif name is not None and (m := _RES.search(line)):
-            if tag in name:
+            if any(t in name for t in tags):
                 usage[name] = "/".join(m.groups())
             name = None
     mangled = sorted(usage)
+    keys = dict(zip(mangled, map(_key, _demangle(mangled))))
+    if keep is not None:
+        mangled = [n for n in mangled if keep(keys[n])]
     sass = _sass_digests(lib, tuple(mangled)) if mangled else {}
-    return {_key(d): f"{usage[n]}/{sass.get(n, '?')}"
-            for n, d in zip(mangled, _demangle(mangled))}
+    return {keys[n]: f"{usage[n]}/{sass.get(n, '?')}" for n in mangled}
 
 
 def main() -> int:

@@ -2216,8 +2216,11 @@ def test_signed_instance_kernels_match_plain(op, case, sfx, mode, offset):
         assert (d is None) == (r is None)
         if d is None:
             continue
-        assert d.dtype == torch.float32 and torch.equal(d, again[k])
-        _close(d, r)
+        # the fast Tucker backward writes the weight's gradient in its type
+        bf16_dw = k == len(ins) - 1 and tucker and mode
+        assert d.dtype == (ins[-1].dtype if bf16_dw else torch.float32)
+        assert torch.equal(d, again[k])
+        _close_blocked_grad(d, r)
         if k < len(ins) - 1:
             assert bool((d[_structural_zeros(ins[k], ins[k + 1], g)] == 0).all())
 
@@ -2329,3 +2332,216 @@ def test_complex_fast_modes_through_the_ops(monkeypatch):
     got = C.clse_matmul(x[0], x[1].to(torch.bfloat16))
     want = C.clse_matmul(x[0], x[1].to(torch.bfloat16).float())
     assert torch.equal(got, want) and T.LAUNCHES["clse_matmul_fast"] == 2
+
+
+# --------------------------------------------------------------------------- #
+# The signed and complex Tucker backwards on the tensor cores: the float32
+# signed instances (the f32-grade ones, float32 and bf16 weights, on
+# mma.sync in csrc/lse_einsum_bwd.cu; the fast ones on wgmma in
+# csrc/tucker_bf16_bwd.cu) and the complex64 ones against a real weight
+# (clse_bwd_tucker_rw, f32-grade and fast), (F, B, K1, K2, O): the K=64
+# entry, K1 != K2, K2 not a multiple of 8, batches that are no multiple of
+# 64 or 128, O = 1 and O > 128, K1 = K2 = 128 (past one block of the dx).
+# Fold 0 has a row of -inf inputs and a row whose terms cancel exactly (y
+# = 0: its sign 0, its gradients 0), on weights of few bits there.
+# --------------------------------------------------------------------------- #
+
+SOS_TUCKER_CASES = [(784, 128, 64, 64, 64), (2, 37, 8, 24, 16), (2, 100, 6, 13, 20),
+                    (3, 200, 16, 16, 1), (2, 33, 8, 16, 200), (1, 70, 128, 128, 16)]
+SIGNED_TUCKER_INSTANCES = [("", ""), ("_w16", ""), *FAST_INSTANCES]
+_CANCEL_ROW, _INF_ROW = 1, 2
+
+
+def _signed_tucker_inputs(op, f, b, k1, k2, o):
+    """``_signed_inputs`` with fold 0's structured rows: row ``_INF_ROW`` all
+    -inf; row ``_CANCEL_ROW`` with a = 0, s1 = +1 and s2 = +1, -1, +1, ...
+    (0 at an odd K2's last column) against weights equal in pairs of
+    columns (integers; logits all equal), so its terms cancel exactly."""
+    a1, s1, a2, s2, w = _signed_inputs(op, f, b, o, k1=k1, k2=k2)
+    a1[0, _INF_ROW] = float("-inf")
+    a1[0, _CANCEL_ROW] = a2[0, _CANCEL_ROW] = 0.0
+    s1[0, _CANCEL_ROW] = 1.0
+    alt = torch.tensor([1.0, -1.0], device="cuda").repeat(k2)[:k2]
+    if k2 % 2:
+        alt[-1] = 0.0
+    s2[0, _CANCEL_ROW] = alt
+    if "softmax" in op:
+        w[0] = 0.0
+    else:
+        pairs = torch.randint(-3, 4, (o, k1, (k2 + 1) // 2), device="cuda").float()
+        w[0] = pairs.repeat_interleave(2, dim=-1)[..., :k2].reshape(o, k1 * k2)
+    return [a1, s1, a2, s2, w]
+
+
+def _tc_kernels(names):
+    return {n for n in names if "tc_dx_tucker" in n or "tc_dw_kernel" in n
+            or "tucker_bwd_bf16" in n}
+
+
+@pytest.mark.parametrize("case", SOS_TUCKER_CASES, ids=["x".join(map(str, c)) for c in
+                                                         SOS_TUCKER_CASES])
+@pytest.mark.parametrize("sfx,mode", SIGNED_TUCKER_INSTANCES,
+                         ids=[s or "f32" for s, _ in SIGNED_TUCKER_INSTANCES])
+@pytest.mark.parametrize("op", ["slse_tucker2", "slse_tucker2_softmax"])
+def test_signed_tucker_backward_on_the_tensor_cores(op, sfx, mode, case):
+    """Each float32 signed Tucker backward against its plain version at its
+    rounding points (the input gradients to ``_close``, the weight's to
+    ``_close_blocked_grad``: a fast mode writes it in the weight's type), 0
+    where that is structural (a sign of 0, a row of -inf, a row of zero
+    cotangent, the cancelling row); dx alone and dw alone equal to the full
+    call to the bit, a second call too (``sr`` included); one launch a call,
+    of the tensor-core kernels alone (``tc_dx_tucker`` and ``tc_dw_kernel``
+    in the f32-grade mode, ``tucker_bwd_bf16`` in a fast one)."""
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    f, b, k1, k2, o = case
+    ins = _signed_tucker_inputs(op, f, b, k1, k2, o)
+    if sfx.startswith("_w16"):
+        ins[-1] = ins[-1].to(torch.bfloat16)
+    oa, os_ = S._ENTRIES[op][2](*ins, mode=mode)
+    assert bool(torch.isneginf(oa[0, _CANCEL_ROW]).all()) and bool((os_[0, _CANCEL_ROW] == 0).all())
+    g = torch.randn(oa.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    g[-1, 3:5] = 0.0
+    full = (True,) * 5
+    grads = S._launch_bwd(op, tuple(ins), oa, os_, g, full, mode)
+    again = S._launch_bwd(op, tuple(ins), oa, os_, g, full, mode)
+    dx = S._launch_bwd(op, tuple(ins), oa, os_, g, (True, False, True, False, False), mode)
+    dw = S._launch_bwd(op, tuple(ins), oa, os_, g, (False,) * 4 + (True,), mode)
+    refs = S._ENTRIES[op][3](*ins, oa, os_, g, full, mode)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"{op}{sfx}_bwd"] == 4
+    assert S.bwd_route(op, "", mode) == ("bf16" if mode else "tc")
+    if not mode:  # the scratch the op sizes is the kernels' (tc_scratch)
+        from cirkit_tpu_torch.ops import _build
+
+        assert S.bwd_scratch(op, "tc", f, b, k1, k2, o) == _build.library().lse_bwd_scratch(
+            1, int("softmax" in op), f, b, k1, k2, o)
+    assert dx[4] is None and dw[0] is None and dw[2] is None
+    zero_rows = (g == 0).all(dim=-1, keepdim=True) | (os_ == 0).all(dim=-1, keepdim=True)
+    for k, (d, r) in enumerate(zip(grads, refs)):
+        assert (d is None) == (r is None) == (k % 2 == 1)
+        if d is None:
+            continue
+        assert d.dtype == (ins[-1].dtype if k == 4 and mode else torch.float32)
+        assert torch.equal(d, again[k]) and torch.equal(d, (dw if k == 4 else dx)[k])
+        _close_blocked_grad(d, r)
+        if k < 4:
+            zeros = (ins[k + 1] == 0) | torch.isneginf(ins[k]) | zero_rows
+            assert bool((d[zeros] == 0).all())
+    if case == SOS_TUCKER_CASES[0]:
+        names = _fwd_kernel_names(lambda: S._launch_bwd(op, tuple(ins), oa, os_, g, full, mode))
+        want = {"tucker_bwd_bf16"} if mode else {"tc_dx_tucker", "tc_dw_kernel"}
+        assert all(any(w in n for n in names) for w in want), names
+        assert not any("dw_part" in n or "lse_bwd_dx" in n for n in names), names
+
+
+@pytest.mark.parametrize("sfx", ["", "_w16"], ids=["f32", "_w16"])
+@pytest.mark.parametrize("op", ["slse_tucker2", "slse_tucker2_softmax"])
+def test_signed_tucker_backward_against_float64(op, sfx):
+    """The f32-grade signed Tucker backward at the K=64 entry's widths (on 98
+    of its folds) against the plain version in float64 on the same inputs
+    (a bf16 weight widened), to ``_close``."""
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    ins = _signed_tucker_inputs(op, 98, 128, 64, 64, 64)
+    if sfx:
+        ins[-1] = ins[-1].to(torch.bfloat16)
+    x64 = [t.double() for t in ins]
+    oa, os_ = S._ENTRIES[op][2](*x64)
+    g = torch.randn(oa.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda", dtype=torch.float64)
+    grads = S._launch_bwd(op, tuple(ins), oa.float(), os_.float(), g.float(), (True,) * 5)
+    refs = S._ENTRIES[op][3](*x64, oa, os_, g, (True,) * 5)
+    torch.cuda.synchronize()
+    for d, r in zip(grads, refs):
+        if d is not None:
+            _close(d.double(), r)
+
+
+def _complex_tucker_inputs(f, b, k1, k2, o):
+    """``_complex_inputs`` (complex64, a real weight) with fold 0's
+    structured rows: row ``_INF_ROW`` with real parts -inf; row
+    ``_CANCEL_ROW`` of zeros (e = 1) against integer weights of opposite
+    signs in pairs of columns (0 at an odd K2's last), so y = 0 exactly."""
+    x1, x2, w = _complex_inputs("clse_tucker2", f, b, o, torch.complex64, real_w=True, k1=k1,
+                                k2=k2)
+    x1[0, _INF_ROW] = complex(float("-inf"), 0.5)
+    x1[0, _CANCEL_ROW] = 0
+    x2[0, _CANCEL_ROW] = 0
+    pairs = torch.randint(-3, 4, (o, k1, (k2 + 1) // 2), device="cuda").float()
+    signs = torch.tensor([1.0, -1.0], device="cuda").repeat((k2 + 1) // 2)
+    alt = pairs.repeat_interleave(2, dim=-1) * signs
+    alt[..., k2 - 1] *= 0.0 if k2 % 2 else 1.0
+    w[0] = alt[..., :k2].reshape(o, k1 * k2)
+    return [x1, x2, w]
+
+
+@pytest.mark.parametrize("case", SOS_TUCKER_CASES, ids=["x".join(map(str, c)) for c in
+                                                         SOS_TUCKER_CASES])
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"], ids=["f32", "fast", "sr"])
+def test_complex_tucker_backward_on_the_tensor_cores(mode, case):
+    """The complex64 Tucker backward against a real weight (``bwd_entry``:
+    ``clse_bwd_tucker_rw`` and its fast instances) against its plain version
+    in its mode, plane by plane to ``_complex_bwd_close``'s 1e-4, 0 at the
+    rows of -inf inputs, of zero cotangent and of exact cancellation; dx
+    alone and dw alone equal to the full call to the bit, and a second call;
+    one launch a call, of the tensor-core kernels alone."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    f, b, k1, k2, o = case
+    ins = _complex_tucker_inputs(f, b, k1, k2, o)
+    sfx = T.MODE_SUFFIX[mode]
+    out = C._ENTRIES["clse_tucker2"][0](*ins, mode=mode) if mode else \
+        C._ENTRIES["clse_tucker2"][0](*ins)
+    assert bool(torch.isneginf(out[0, _CANCEL_ROW].real).all())
+    g = torch.complex(*(torch.randn(out.shape, device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(k))
+                        for k in (1, 2)))
+    g[-1, 3:5] = 0.0
+    full = (True,) * 3
+    grads = C._launch_bwd("clse_tucker2", tuple(ins), out, g, full, mode)
+    again = C._launch_bwd("clse_tucker2", tuple(ins), out, g, full, mode)
+    dx = C._launch_bwd("clse_tucker2", tuple(ins), out, g, (True, True, False), mode)
+    dw = C._launch_bwd("clse_tucker2", tuple(ins), out, g, (False, False, True), mode)
+    plain = C._ENTRIES["clse_tucker2"][1]
+    refs = plain(*ins, out, g, full, mode) if mode else plain(*ins, out, g, full)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES[f"clse_tucker2{sfx}_bwd"] == 4
+    assert C.bwd_entry("clse_tucker2", torch.complex64, torch.float32, mode) == \
+        "clse_bwd_tucker_rw" + sfx
+    zero_rows = (g == 0).all(dim=-1, keepdim=True) | torch.isneginf(out.real).all(
+        dim=-1, keepdim=True)
+    for k, (d, r) in enumerate(zip(grads, refs)):
+        assert d.dtype == ins[k].dtype and torch.equal(d, again[k])
+        assert torch.equal(d, (dw if k == 2 else dx)[k])
+        _complex_bwd_close(d, r, 1e-4)
+        if k < 2:
+            zeros = torch.isneginf(ins[k].real) | zero_rows
+            assert bool((d[zeros] == 0).all())
+    if case == SOS_TUCKER_CASES[0]:
+        names = _fwd_kernel_names(lambda: C._launch_bwd("clse_tucker2", tuple(ins), out, g,
+                                                        full, mode))
+        want = {"tucker_bwd_bf16"} if mode else {"tc_dx_tucker", "tc_dw_kernel"}
+        assert all(any(w in n for n in names) for w in want), names
+        assert not any("clse_bwd_dw_part" in n or "clse_bwd_dx" in n for n in names), names
+
+
+def test_complex_tucker_backward_against_complex128():
+    """The f32-grade complex64 Tucker backward against a real weight at the
+    K=64 entry's widths (98 folds) against the plain version in complex128
+    on the same inputs, plane by plane to 1e-4."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    ins = _complex_tucker_inputs(98, 128, 64, 64, 64)
+    x128 = [t.to(torch.complex128 if t.is_complex() else torch.float64) for t in ins]
+    out = C._ENTRIES["clse_tucker2"][0](*x128)
+    g = torch.complex(*(torch.randn(out.shape, device="cuda", dtype=torch.float64,
+                                    generator=torch.Generator(device="cuda").manual_seed(k))
+                        for k in (1, 2)))
+    grads = C._launch_bwd("clse_tucker2", tuple(ins), out.to(torch.complex64),
+                          g.to(torch.complex64), (True,) * 3)
+    refs = C._ENTRIES["clse_tucker2"][1](*x128, out, g)
+    torch.cuda.synchronize()
+    for d, r in zip(grads, refs):
+        _complex_bwd_close(d.to(r.dtype), r, 1e-4)

@@ -511,3 +511,218 @@ def test_complex_exact_cancellation_in_the_fast_modes(op, mode, monkeypatch):
     assert torch.isneginf(out.real).all() and not torch.isnan(out.imag).any()
     for d in torch.autograd.grad(out, t, torch.ones_like(out)):
         assert (d == 0).all()
+
+
+# --------------------------------------------------------------------------- #
+# The signed and complex Tucker backwards on the tensor cores: the host-side
+# choices of their dispatch, their scratch, and the plain versions they are
+# held to on the card
+# --------------------------------------------------------------------------- #
+
+_CSRC = _build._PKG / "csrc"
+
+
+@pytest.mark.parametrize("w16", [False, True], ids=["f32-w", "bf16-w"])
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"])
+@pytest.mark.parametrize("op", SIGNED_OPS)
+def test_signed_backward_route_and_entry(op, mode, w16):
+    """The float32 signed Tucker backward runs the lse Tucker backward's
+    routes (the tensor cores in the f32-grade mode, bf16 weight included;
+    ``tucker_bwd_bf16`` in a fast mode), the dense ops and float64 the
+    CUDA-core kernels; each under the entry of its op, weight type and mode,
+    whose signature takes the route's scratch."""
+    tucker = op.startswith("slse_tucker2")
+    inst = ("_w16" if w16 else "") + L.MODE_SUFFIX[mode]
+    assert S.bwd_route(op, "", mode) == (("bf16" if mode else "tc") if tucker else "fma")
+    assert S.bwd_route(op, "_f64", "") == "fma"
+    entry = S._ENTRIES[op][1] + inst
+    assert entry == ("slse_bwd_tucker" if tucker else "slse_bwd_dense") + \
+        ("_softmax" if "softmax" in op else "") + inst
+    pointers = sum(t is _build._P for t in _build._SIGNATURES[entry][0])
+    if tucker:  # inputs, weight, outputs, g, gradients, shifts, gy, ws, the stream
+        assert pointers == 16
+    assert f"{op}{inst}_bwd" in L.LAUNCHES
+
+
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"])
+def test_complex_backward_entry(mode):
+    """Only the complex64 Tucker backward against a real weight takes the
+    tensor-core entries ``clse_bwd_tucker_rw[_fast|_sr]`` (18 arguments: five
+    operands, three gradients, three scratch, five sizes, the device and the
+    stream); a complex weight, complex128 and the dense op keep
+    ``clse_bwd``."""
+    sfx = L.MODE_SUFFIX[mode]
+    rw = C.bwd_entry("clse_tucker2", torch.complex64, torch.float32, mode)
+    assert rw == "clse_bwd_tucker_rw" + sfx
+    assert len(_build._SIGNATURES[rw][0]) == 18
+    assert C.bwd_entry("clse_tucker2", torch.complex64, torch.complex64, mode) == "clse_bwd" + sfx
+    assert C.bwd_entry("clse_matmul", torch.complex64, torch.float32, mode) == "clse_bwd" + sfx
+    assert C.bwd_entry("clse_tucker2", torch.complex128, torch.float64, "") == "clse_bwd"
+    assert f"clse_tucker2{sfx}_bwd" in L.LAUNCHES
+
+
+def _constant(src: str, pattern: str) -> int:
+    import re
+
+    found = re.search(pattern, (_CSRC / src).read_text())
+    assert found, pattern
+    return int(found.group(1))
+
+
+def test_tucker_backward_tiles_match_the_kernels():
+    """The tiles that size the tensor-core Tucker backward's partial dx
+    sums are the kernels' (``tc_dx::BN``, ``tc_tucker::I_PER``), and the fast
+    one's (``tbw::UG``, ``tbw::JC``)."""
+    assert L._TC_TUCKER_TILE == (
+        _constant("lse_einsum_bwd.cu", r"namespace tc_dx \{[^}]*?constexpr int BN = (\d+);"),
+        _constant("lse_einsum_bwd.cu", r"namespace tc_tucker \{\s*constexpr int I_PER = (\d+);"))
+    assert L._BWD_UNIT_GROUP == _constant("tucker_bf16_bwd.cu", r"constexpr int UG = (\d+);")
+    assert L._TUCKER_JC == _constant("tucker_bf16_bwd.cu", r"constexpr int JC = (\d+);")
+
+
+@pytest.mark.parametrize("case,want", [
+    # (op, route, F, B, K1, K2, O) -> float32 values of ws
+    (("slse_tucker2", "tc", 784, 128, 64, 64, 64), 784 * 128 * (64 + 4 * 64)),
+    (("slse_tucker2_softmax", "tc", 2, 100, 6, 13, 20), 2 * 2 * 20 + 2 * 100 * (6 + 13)),
+    (("slse_tucker2", "tc", 1, 70, 128, 128, 16), 70 * (2 * 128 + 8 * 128)),
+    (("slse_tucker2", "bf16", 784, 128, 64, 64, 64), 784 * 128 * 128 + 784 * 128 * 64 // 2),
+    (("slse_tucker2_softmax", "bf16", 2, 33, 8, 16, 200),
+     2 * 24 * 40 + 2 * 33 * 200 // 2 + 2 * 2 * 200 + 2 * 2 * 33 * 8 + 2 * 2 * 33 * 16),
+])
+def test_signed_tucker_backward_scratch(case, want):
+    """The scratch ``ws`` of each signed Tucker route, pinned at the K=64
+    entry and at edges: the tensor cores' (lse_bwd_scratch's layout: the
+    softmax statistics, then the dx1 partials, a plane per 64 columns j, and
+    the dx2 partials, a plane per 16 rows i) and the fast kernel's
+    (``_tucker_bf16_bwd_scratch``: e1 and e2 transposed at Bp, gy in bf16 at
+    Op, the softmax statistics, the partials of two unit groups)."""
+    op, route, *sizes = case
+    assert S.bwd_scratch(op, route, *sizes) == want
+
+
+@pytest.mark.parametrize("case,want", [
+    # (fast, F, B, K1, K2, O) -> float32 values of ws
+    ((False, 784, 128, 64, 64, 64), 784 * 256 * 192 + 2 * 784 * 128 * (64 + 4 * 64)),
+    ((False, 2, 37, 8, 24, 16), 2 * 80 * 48 + 2 * 2 * 37 * (8 + 24)),
+    ((True, 784, 128, 64, 64, 64), 784 * 128 * 256 + 784 * 256 * 64 // 2),
+    ((True, 2, 33, 8, 16, 200),
+     2 * 24 * 80 + 2 * 80 * 200 // 2 + 2 * 2 * 2 * 33 * 8 + 2 * 2 * 2 * 33 * 16),
+])
+def test_complex_tucker_backward_scratch(case, want):
+    """The scratch of ``clse_bwd_tucker_rw`` (the planes of gy, e1 and e2 at
+    the stacked rows, 2 Bp of them, then complex dx partials) and of its fast
+    instances (e1 and e2 transposed at the stacked rows, gy in bf16, complex
+    partials of two unit groups), pinned at the K=64 entry and at edges."""
+    fast, *sizes = case
+    assert (C._ctucker_bf16_scratch if fast else C._ctucker_tc_scratch)(*sizes) == want
+
+
+def _positive(op: str, seed: int = 60):
+    """Float32 Tucker inputs with every sign +1 and weights > 0 (or logits),
+    so y > 0: the signed and unsigned ops see the same values."""
+    rng = np.random.default_rng(seed)
+    x1 = (rng.normal(size=(F, B, K1)) * 3.0 - 2.0).astype(np.float32)
+    x2 = (rng.normal(size=(F, B, K2)) * 3.0 - 2.0).astype(np.float32)
+    x1[0, 2] = -np.inf
+    w = rng.normal(size=(F, O, K1 * K2)).astype(np.float32)
+    if "softmax" not in op:
+        w = np.abs(w) + 0.1
+    g = rng.normal(size=(F, B, O)).astype(np.float32)
+    g[1, 3] = 0.0
+    return [torch.as_tensor(a) for a in (x1, x2, w, g)]
+
+
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"])
+@pytest.mark.parametrize("op", ["slse_tucker2", "slse_tucker2_softmax"])
+def test_signed_tucker_backward_with_positive_signs_is_the_unsigned_one(op, mode):
+    """The claim the signed fast Tucker backward rests on: it rounds where
+    the unsigned one does. With every sign +1 the signed plain backward
+    equals the unsigned one (``lse_tucker2[_softmax]_bwd_ref``) to the bit in
+    every mode, given the same forward output (the signed forward's: its sign
+    +1 where y > 0)."""
+    x1, x2, w, g = _positive(op)
+    ones1, ones2 = torch.ones_like(x1), torch.ones_like(x2)
+    unsigned = op.replace("slse", "lse")
+    kw = {"mode": mode} if mode else {}
+    oa, os = S._ENTRIES[op][2](x1, ones1, x2, ones2, w, **kw)
+    assert bool(((os == 1) | torch.isneginf(oa)).all())
+    got = S._ENTRIES[op][3](x1, ones1, x2, ones2, w, oa, os, g, (True,) * 5, **kw)
+    want = L._ENTRIES[unsigned][3](x1, x2, w, oa, g, (True,) * 3, **kw)
+    assert got[1] is None and got[3] is None
+    for a, b in zip(got[::2], want):
+        assert torch.equal(a, b)
+
+
+def _tucker_jax_inputs(op: str, seed: int = 61):
+    """Signed Tucker inputs (signs in {-1, 0, +1}, a row of -inf) whose batch
+    is a whole number of the JAX kernel's 8-row tiles, the port's plain
+    forward outputs on them and a cotangent."""
+    rng = np.random.default_rng(seed)
+
+    def signed(*shape):
+        a = (rng.normal(size=shape) * 3.0 - 2.0).astype(np.float32)
+        s = rng.choice([-1.0, 0.0, 1.0], size=shape, p=[0.45, 0.1, 0.45]).astype(np.float32)
+        return [a, s]
+
+    xs = [*signed(F, 16, K1), *signed(F, 16, K2)]
+    xs[0][0, 2] = -np.inf
+    w = rng.normal(size=(F, O, K1 * K2)).astype(np.float32)
+    g = rng.normal(size=(F, 16, O)).astype(np.float32)
+    t = [torch.as_tensor(a) for a in (*xs, w)]
+    oa, os = S._ENTRIES[op][2](*t)
+    return t, oa, os, torch.as_tensor(g)
+
+
+def _held_rel(got: torch.Tensor, want: np.ndarray, rel: float = 1e-4) -> None:
+    want = torch.as_tensor(np.array(want))
+    err = (got - want).abs()
+    assert bool((err <= rel * (want.abs().max() + want.abs())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("op", ["slse_tucker2", "slse_tucker2_softmax"])
+def test_signed_tucker_plain_backward_matches_the_interpret_kernel(op):
+    """The signed plain Tucker backward that the tensor-core kernels are held
+    to on the card against JAX's ``_s_call_bwd`` in interpret mode (its
+    f32-grade bf16x3 passes) on the same forward outputs and cotangent, to
+    1e-4 (max + |plain|)."""
+    t, oa, os, g = _tucker_jax_inputs(op)
+    cfg = J._Cfg(bt=8, nbt=2, interpret=True, fast="", softmax="softmax" in op, tucker=True)
+    jx = J._s_call_bwd(cfg, tuple(jnp.asarray(a.numpy()) for a in t[:4]),
+                       jnp.asarray(t[4].numpy()), jnp.asarray(oa.numpy()),
+                       jnp.asarray(os.numpy()), jnp.asarray(g.numpy()))
+    got = S._ENTRIES[op][3](*t, oa, os, g, (True,) * 5)
+    for k in (0, 2, 4):
+        _held_rel(got[k], jx[k])
+
+
+def test_complex_tucker_plain_backward_matches_the_interpret_kernel():
+    """The complex Tucker plain backward against a real weight, which the
+    tensor-core kernels are held to on the card, against JAX's
+    ``_c_call_bwd`` in interpret mode on the log-space outer sum (the
+    Tucker op as JAX's semiring feeds its dense kernel), with the port's gy
+    and row shift: dx1 and dx2 the sums of its dx over j and over i, dw its
+    real plane, to 1e-4 (max + |plain|)."""
+    rng = np.random.default_rng(62)
+
+    def value(*shape):
+        return ((rng.normal(size=shape) * 3.0 - 2.0)
+                + 1j * rng.uniform(-np.pi, np.pi, size=shape)).astype(np.complex64)
+
+    x1, x2 = value(F, 16, K1), value(F, 16, K2)
+    x1[0, 2] = complex(-np.inf, 0.5)
+    w = rng.normal(size=(F, O, K1 * K2)).astype(np.float32)
+    g = (rng.normal(size=(F, 16, O)) + 1j * rng.normal(size=(F, 16, O))).astype(np.complex64)
+    t1, t2, tw, tg = (torch.as_tensor(a) for a in (x1, x2, w, g))
+    out = C.clse_tucker2_ref(t1, t2, tw)
+    got = C.clse_tucker2_bwd_ref(t1, t2, tw, out, tg)
+    shift = L._clamp_max(t1.real) + L._clamp_max(t2.real)
+    gy = C._complex_gy(tg, out, shift)
+    x = (x1[:, :, :, None] + x2[:, :, None, :]).reshape(F, 16, K1 * K2)
+    cfg = J._Cfg(bt=8, nbt=2, interpret=True, fast="", softmax=False, tucker=False)
+    dxr, dxi, dwr, _ = J._c_call_bwd(
+        cfg, jnp.asarray(x.real), jnp.asarray(x.imag), jnp.asarray(w), jnp.zeros_like(w),
+        jnp.asarray(shift.numpy()), jnp.asarray(gy.real.numpy()), jnp.asarray(gy.imag.numpy()))
+    dx = (np.asarray(dxr) + 1j * np.asarray(dxi)).reshape(F, 16, K1, K2)
+    for k, want in enumerate((dx.sum(axis=3), dx.sum(axis=2))):
+        _held_rel(torch.view_as_real(got[k]), np.stack([want.real, want.imag], axis=-1))
+    _held_rel(got[2], dwr)
