@@ -76,9 +76,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``F64_*`` bounds), the forward's kernel named by ``torch.profiler`` there
    and at the SoS entry (``slse_fwd_narrow`` exactly where I and O are at
    most 32), and every forward twice, equal to the bit; at the K=64 Tucker
-   entry (the tensor cores' route) the backward's dx alone and dw alone
-   equal to the full call to the bit and every gradient within phase 3b's
-   bound of the plain version in float64 (``_tucker_entry_extras``);
+   entry (the tensor cores' route, forward and backward) the forward also
+   within the same bound of the plain version in float64, the backward's dx
+   alone and dw alone equal to the full call to the bit and every gradient
+   within phase 3b's bound of the plain version in float64
+   (``_tucker_entry_extras``);
 3e. complex against plain: ``clse_matmul`` and ``clse_tucker2``, forward
    and backward, against their plain versions at the SoS TensorDot entry,
    the K=64 Tucker entry (with the real weights the flagship gives it, and
@@ -222,7 +224,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 4's stores loaded by slot name: forwards equal to the lse-sum ones
    (rtol 1e-5) with every sign +1, one backward's gradients within the
    ``GRAD_*`` bound of the lse-sum ones, the launches of each signed
-   kernel, and the forward's median ms beside the lse-sum one's;
+   kernel, the Tucker forward's kernel named by ``torch.profiler``
+   (``tucker_fwd_tc`` alone, the tensor cores), and the forward's median ms
+   beside the lse-sum one's;
 10. complex SoS: phase 9's circuit under the complex semiring at 12x12 and
    28x28, batch 128. (a) Phase 9's store loaded by slot name: sq's real
    part within ``SOS_SQ_RTOL`` and log Z within 1e-5 of the signed run's,
@@ -237,7 +241,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 10b. the K=64 Tucker flagship of phase 4 under the complex semiring with
    phase 4's store (softmaxed, real weights): the real part equal to the
    lse-sum forward (rtol 1e-5), phases 0, 10 ``clse_tucker2`` and 5
-   ``clse_matmul`` launches a forward, one backward's gradients within the
+   ``clse_matmul`` launches a forward (the Tucker ones on ``tucker_fwd_tc``
+   alone, by ``torch.profiler``), one backward's gradients within the
    ``GRAD_*`` bound of the lse-sum ones, the median ms beside lse-sum's and
    signed's. Phases 9 to 10b run after phase 7; phase 4's stores are freed
    before phase 8.
@@ -407,10 +412,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    zero mass, the backward to phase 3b's bound with its structural zeros
    (a fast Tucker instance's bf16 weight gradient one bf16 ulp more), both
    repeating to the bit, at the K=64 Tucker entry the checks of phase 3d's
-   entry (the f32-grade ``_w16`` instance against float64), and first the
-   SASS of the signed and complex Tucker backwards' kernels from phase 1's
-   library (``_tucker_bwd_sass``: TF32 HMMA in each ``SIGNED`` or ``CPLX``
-   instance of ``tc_dx_tucker`` and ``tc_dw_kernel``, BF16 HGMMA in each
+   entry (the forward against float64 or complex128, to ``SIGNED_TOL`` or
+   a fast mode's ``FAST_WIDE_TOL``, the f32-grade ``_w16`` instance's
+   backward against float64), and first
+   the SASS of the signed and complex Tucker forwards' and backwards'
+   kernels from phase 1's library (``_tucker_sass``: TF32 HMMA in each
+   ``SIGNED`` or ``CPLX`` instance of ``tucker_fwd_tc``, ``tc_dx_tucker``
+   and ``tc_dw_kernel``, BF16 HGMMA in each ``tucker_fwd_bf16`` and
    ``tucker_bwd_bf16``); (b) phase 4's three K=64 flagships under
    ``signed-lse-sum`` from the float32 store, its ``bf16_weight_store`` and
    that store widened, a forward and one backward each in ``f32_grade``,
@@ -475,9 +483,11 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     "route_tucker2": (_CSRC + "tucker_route.cu", _PALLAS + "1176"),
     **{op: (_CSRC + "lse_einsum.cu", _PALLAS + "938") for op in SIGNED_OPS},
     **{f"{op}_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "957") for op in SIGNED_OPS},
-    **{op: (_CSRC + "clse_einsum.cu", _PALLAS + "1424") for op in COMPLEX_OPS},
-    # the complex Tucker backward is timed against a real weight (the complex
-    # flagship's): launch_cbwd_tc, on the tensor cores
+    # the complex Tucker forward and backward are timed against a real weight
+    # (the complex flagship's): tucker_fwd_tc with CPLX and launch_cbwd_tc, on
+    # the tensor cores
+    "clse_matmul": (_CSRC + "clse_einsum.cu", _PALLAS + "1424"),
+    "clse_tucker2": (_CSRC + "lse_einsum.cu", _PALLAS + "1424"),
     "clse_matmul_bwd": (_CSRC + "clse_einsum.cu", _PALLAS + "1439"),
     "clse_tucker2_bwd": (_CSRC + "lse_einsum_bwd.cu", _PALLAS + "1439"),
     # phase 15's serving path: the bf16-weight (_w16) and fast-mode (_fast,
@@ -521,8 +531,11 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     # phase 18's paths: every bf16-weight and fast-mode instance of the signed
     # kernels (6' and 7') that the signed flagships and the squared circuit
     # launch from their bf16 stores and under CIRKIT_TPU_FAST, and the
-    # fast-mode instances of the complex kernels (10' and 11')
-    **{f"{op}{sfx}": (_CSRC + "lse_einsum.cu", _PALLAS + "938")
+    # fast-mode instances of the complex kernels (10' and 11') (the fast
+    # modes of the signed and complex Tucker forwards run tucker_fwd_bf16 on
+    # the bf16 tensor cores, the f32-grade _w16 signed one tucker_fwd_tc)
+    **{f"{op}{sfx}": (_CSRC + ("tucker_bf16.cu" if "tucker" in op and sfx != "_w16"
+                               else "lse_einsum.cu"), _PALLAS + "938")
        for op in SIGNED_OPS for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
     # (the fast modes of the signed and complex Tucker backwards run
     # tucker_bwd_bf16 on the bf16 tensor cores, the f32-grade _w16 signed one
@@ -530,7 +543,8 @@ KERNELS = {  # LAUNCHES key -> (source, the Pallas kernel it replaces)
     **{f"{op}{sfx}_bwd": (_CSRC + ("tucker_bf16_bwd.cu" if "tucker" in op and sfx != "_w16"
                                    else "lse_einsum_bwd.cu"), _PALLAS + "957")
        for op in SIGNED_OPS for sfx in ("_w16", "_fast", "_sr", "_w16_fast", "_w16_sr")},
-    **{f"{op}{sfx}": (_CSRC + "clse_einsum.cu", _PALLAS + "1424")
+    **{f"{op}{sfx}": (_CSRC + ("tucker_bf16.cu" if "tucker" in op else "clse_einsum.cu"),
+                      _PALLAS + "1424")
        for op in COMPLEX_OPS for sfx in ("_fast", "_sr")},
     **{f"{op}{sfx}_bwd": (_CSRC + ("tucker_bf16_bwd.cu" if "tucker" in op else "clse_einsum.cu"),
                           _PALLAS + "1439")
@@ -3383,6 +3397,28 @@ def _check_route(op: str, label: str, fn, i: int, o: int) -> str:
     return f"kernel {names[0]}"
 
 
+def _tucker_fwd_route(label: str, fn, want: str) -> str:
+    """The Tucker forward kernels that ``fn`` (one forward of a signed or
+    complex K=64 flagship) launches, by ``torch.profiler``: ``want``
+    (``tucker_fwd_tc`` in the f32-grade mode, ``tucker_fwd_bf16`` in a fast
+    one) and no Tucker instance of the CUDA-core loops (``lse_fwd`` or
+    ``clse_fwd_kernel`` with TUCKER). Returns their names. An empty trace is
+    a profiler miss (``_check_route``) and is taken again, up to three
+    times."""
+    for _ in range(3):
+        names = {key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+                 for key in _profile(fn, 1)[1]}
+        if names:
+            break
+    tucker = sorted(n for n in names if n.startswith("tucker_fwd"))
+    fma = sorted(n for n in names
+                 if n.startswith(("lse_fwd<float, true", "clse_fwd_kernel<float, true")))
+    if not tucker or fma or any(not n.startswith(want + "<") for n in tucker):
+        raise AssertionError(f"{label}: the Tucker forward launched {tucker + fma}, expected "
+                             f"{want} alone")
+    return ", ".join(tucker)
+
+
 def _signed_bound(key: str, ins, peak: float = F32_PEAK) -> tuple[float, str, float]:
     """``_bound`` for the signed ops: the forward reads the (log-magnitude,
     sign) inputs and the weight and writes two outputs; the backward reads
@@ -3473,6 +3509,12 @@ def phase_signed() -> dict[str, dict]:
                 entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
                 entry["sign_flips"] += flips
             line = f"[signed] {op:22s} {label:36s} linear err {max_err:.3e}, {flips} signs differ"
+            if label.startswith("F=784"):  # the widest entry of the paths: also against float64
+                wide = [t.double() for t in ins]
+                err64, _ = _signed_check(op, f"{label} against float64",
+                                         tuple(t.double() for t in got), plain(*wide), wide)
+                line += f"; against float64 {err64:.3e}"
+                del wide
             if label.startswith(("SoS entry", "narrow edge")):
                 line += "; " + _check_route(op, label, lambda: getattr(S, op)(*ins),
                                             ins[0].shape[2], ins[-1].shape[1])
@@ -3775,6 +3817,11 @@ def phase_signed_flagships(smi: str, built: list) -> tuple[dict[str, int], dict]
         if not (bool((s == 1).all()) and torch.allclose(a, ref, rtol=1e-5, atol=0.0)):
             raise AssertionError(f"{label}: forward off the lse-sum one by {rel:.3e}, or a "
                                  "sign not +1")
+        route = ""
+        if spl == "tucker":
+            with torch.inference_mode():
+                route = "; Tucker forward on " + _tucker_fwd_route(
+                    label, lambda: scc.evaluate(sst, x), "tucker_fwd_tc")
         want = dict(zip(st.keys(), torch.autograd.grad(-cc.evaluate(st, x).mean(),
                                                        list(st.values()))))
 
@@ -3791,7 +3838,7 @@ def phase_signed_flagships(smi: str, built: list) -> tuple[dict[str, int], dict]
         print(f"{label}: launches a forward {fwd}, a backward {bwd}; forward equals lse-sum "
               f"(max rel err {rel:.2e}), signs +1; gradients of {len(want)} slots within "
               f"{worst:.3f} of the bound; forward {ms:.3f} ms signed, {ms_lse:.3f} ms lse-sum "
-              f"(median of 20, batch {BATCH}) ({smi})")
+              f"(median of 20, batch {BATCH}){route} ({smi})")
         del sctx, scc, got, want, sst
     return launches, times
 
@@ -4011,6 +4058,13 @@ def phase_complex() -> dict[str, dict]:
             if ctype == "complex64":
                 entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
             line = f"[complex] {op:16s} {label:44s} linear err {max_err:.3e}"
+            if ctype == "complex64" and label.startswith("F=784") and not ins[-1].is_complex():
+                # the tensor-core kernel at the widest entry: also against complex128
+                wide = [t.to(torch.complex128 if t.is_complex() else torch.float64) for t in ins]
+                err128 = _complex_check(op, f"{label} against complex128",
+                                        got.to(torch.complex128), plain(*wide), wide, tol)
+                line += f"; against complex128 {err128:.3e}"
+                del wide
             if op == "clse_matmul" and label.startswith(("SoS entry", "narrow edge")):
                 line += "; " + _check_route(op, label, lambda: getattr(C, op)(*ins),
                                             ins[0].shape[2], ins[-1].shape[1])
@@ -4562,6 +4616,8 @@ def phase_complex_flagship(smi: str, built: list, signed_ms: dict) -> dict[str, 
     if not (bool((out.imag == 0).all()) and torch.allclose(out.real, ref, rtol=1e-5, atol=0.0)):
         raise AssertionError(f"{label}: forward off the lse-sum one by {rel:.3e}, or a phase "
                              "not 0")
+    with torch.inference_mode():
+        route = _tucker_fwd_route(label, lambda: ccc.evaluate(cst, x), "tucker_fwd_tc")
     want = dict(zip(st.keys(), torch.autograd.grad(-cc.evaluate(st, x).mean(),
                                                    list(st.values()))))
 
@@ -4577,7 +4633,8 @@ def phase_complex_flagship(smi: str, built: list, signed_ms: dict) -> dict[str, 
     print(f"{label}: launches a forward {fwd}, a backward {bwd}; the real part equals lse-sum "
           f"(max rel err {rel:.2e}), phases 0; gradients of {len(want)} slots within "
           f"{worst:.3f} of the bound; forward {ms:.3f} ms complex, {ms_lse:.3f} ms lse-sum, "
-          f"{signed_ms[(spl, em)]:.3f} ms signed (median of 20, batch {BATCH}) ({smi})")
+          f"{signed_ms[(spl, em)]:.3f} ms signed (median of 20, batch {BATCH}); Tucker forward "
+          f"on {route} ({smi})")
     return launches
 
 
@@ -5005,6 +5062,12 @@ SERVE_EXTRA_MODES = {"bf16_store": (True, ""), "fast": (False, "1"), "sr": (Fals
 # no relative bound holds for them: the mean NLL's gradients are held to
 # JAX's op bound, FAST_GRAD_REL max(1, max|slot|) per slot.
 FAST_FWD_TOL, FAST_GRAD_REL = 8e-3, 4e-2
+# A fast mode's forward against float64 (complex128; phase 18a's widest
+# entry): each term carries two roundings to bf16 (e2 and the weight; a
+# complex e2 one a plane, sqrt(2) u of it), each within u of its value (u =
+# 2^-8 to the nearest, 2^-7 stochastic), so the linear error is within 3 u of
+# the row's absolute mass, beside the float32 sums' SIGNED_TOL.
+FAST_WIDE_TOL = {"bf16": 3 * 2.0**-8 + 1e-5, "sr": 3 * 2.0**-7 + 1e-5}
 SERVE_FAST_RTOL = 1e-4
 SERVE_SEED = 3  # the warm bundle's cold and warm stores
 
@@ -6866,6 +6929,21 @@ def _lowprec_case(mod, op: str, sfx: str, mode: str, ins, label: str, shape: tup
             outs = (ref,)
         if not same:
             raise AssertionError(f"{key} [{label}]: two calls differ")
+        k64 = "tucker" in op and tuple(shape[:5]) == K64_ENTRY and (signed or shape[-1] == "real")
+        if k64:  # the widest entry of the paths: the forward also against float64 (complex128)
+            wtol = FAST_WIDE_TOL[mode] if mode else SIGNED_TOL
+            if signed:
+                wide = [t.double() for t in ins]
+                err64, _ = _signed_check(key, f"{label} against float64",
+                                         tuple(t.double() for t in got), fwd_plain(*wide), wide,
+                                         wtol)
+            else:
+                wide = [t.to(torch.complex128 if t.is_complex() else torch.float64) for t in ins]
+                err64 = _complex_check(key, f"{label} against complex128",
+                                       got.to(torch.complex128), fwd_plain(*wide), wide, wtol)
+            print(f"[lowprec signed] {key} [{label}]: forward against "
+                  f"{'float64' if signed else 'complex128'} {err64:.3e} (bound {wtol:.3e})")
+            del wide
         g = torch.randn(outs[0].shape, generator=gen, device=DEV)
         if not signed:
             g = torch.complex(g, torch.randn(outs[0].shape, generator=gen, device=DEV))
@@ -6897,7 +6975,7 @@ def _lowprec_case(mod, op: str, sfx: str, mode: str, ins, label: str, shape: tup
                 if not bool((d[zero] == 0).all()):
                     raise AssertionError(f"{bkey} [{label}] grad {n}: not 0 where it is so "
                                          "by structure")
-        if "tucker" in op and tuple(shape[:5]) == K64_ENTRY and (signed or shape[-1] == "real"):
+        if k64:
             # the K=64 entry of the tensor-core backwards (the f32-grade _w16
             # instance also against float64)
             wide = None
@@ -6919,19 +6997,22 @@ def _lowprec_case(mod, op: str, sfx: str, mode: str, ins, label: str, shape: tup
                 entry["ms"] = _median_ms(fn)
                 entry["plain_ms"] = _median_ms(pfn, warmup=1, iters=3)
             entry["bound_ms"], entry["bound_by"], entry["tc_bound_ms"] = bound(k, ins)
-            if k == bkey and mode and "tucker" in op and not ins[-1].is_complex():
-                # on the bf16 tensor cores (tucker_bwd_bf16): the products once at the bf16 rate
+            if mode and "tucker" in op and not ins[-1].is_complex():
+                # on the bf16 tensor cores (tucker_fwd_bf16, tucker_bwd_bf16): the products
+                # once at the bf16 rate
                 entry["bound_ms"], entry["bound_by"] = bound(k, ins, BF16_PEAK)[:2]
             entry["shape"] = label
     return err, berr
 
 
-def _tucker_bwd_sass() -> None:
+def _tucker_sass() -> None:
     """The registers, stack frame and tensor-core instructions of the signed
-    and complex Tucker backwards' kernels, read from the library phase 1
-    built (``library_report``, which disassembles these alone): the
-    f32-grade ones (``tc_dx_tucker`` and ``tc_dw_kernel`` with SIGNED or
-    CPLX) on mma.sync (TF32 HMMA), the fast ones on wgmma (BF16 HGMMA):
+    and complex Tucker forwards' and backwards' kernels, read from the
+    library phase 1 built (``library_report``, which disassembles these
+    alone): the f32-grade ones (``tucker_fwd_tc``, ``tc_dx_tucker`` and
+    ``tc_dw_kernel`` with SIGNED or CPLX) on mma.sync (TF32 HMMA), the fast
+    ones on wgmma (BF16 HGMMA): ``tucker_fwd_bf16``'s instances of the paths'
+    batch of 128 (SIGNED in blocks of 128 rows, CPLX of 256 stacked rows),
     ``tucker_bwd_bf16``'s CPLX instances and the one-unit-tile instances that
     the signed ones share with the unsigned (the paths' entries, O <= 64)."""
     import importlib.util
@@ -6947,19 +7028,26 @@ def _tucker_bwd_sass() -> None:
     def wanted(name: str) -> bool:
         if name.startswith("tucker_bwd_bf16"):
             return name.startswith("tucker_bwd_bf16<1,") or name.endswith("true>")
+        if name.startswith("tucker_fwd_bf16"):
+            cplx = name.endswith("false, true>")
+            return name.endswith("true>") and name.startswith(
+                "tucker_fwd_bf16<256," if cplx else "tucker_fwd_bf16<128,")
         return name.endswith("true>") and not name.startswith("tc_dw_kernel<false")
 
-    new = report.library_report(_build.library_path(),
-                                ("tc_dx_tucker", "tc_dw_kernel", "tucker_bwd_bf16"), wanted)
     kinds = {"tc_dx_tucker": "TF32 HMMA", "tc_dw_kernel": "TF32 HMMA",
-             "tucker_bwd_bf16": "BF16 HGMMA"}
-    if len([n for n in new if not n.startswith("tucker_bwd_bf16")]) < 6:
+             "tucker_bwd_bf16": "BF16 HGMMA", "tucker_fwd_tc": "TF32 HMMA",
+             "tucker_fwd_bf16": "BF16 HGMMA"}
+    new = report.library_report(_build.library_path(), tuple(kinds), wanted)
+    count = {k: sum(n.split("<")[0] == k for n in new) for k in kinds}
+    # SIGNED or CPLX: 6 backward products; the forwards 5 (mma.sync) and 10 (wgmma)
+    if (count["tc_dx_tucker"] + count["tc_dw_kernel"] < 6 or count["tucker_fwd_tc"] < 5
+            or count["tucker_fwd_bf16"] < 10):
         raise AssertionError(f"[sass] SIGNED or CPLX tensor-core kernels missing: {sorted(new)}")
     for name, stat in sorted(new.items()):
         print(f"[sass] {name} | {stat} (registers/stack/smem/digest/tensor-core)")
         if kinds[name.split("<")[0]] not in stat:
             raise AssertionError(f"[sass] no {kinds[name.split('<')[0]]} in {name}")
-    print(f"[time] the Tucker backward SASS report took {time.perf_counter() - t0:.1f} s")
+    print(f"[time] the Tucker SASS report took {time.perf_counter() - t0:.1f} s")
 
 
 def phase_lowprec_signed_kernels() -> dict[str, dict]:
@@ -6993,7 +7081,7 @@ def phase_lowprec_signed_kernels() -> dict[str, dict]:
     plan.append((C, "clse_tucker2", "real", [k64, *paths["clse_tucker2", "real"]],
                  COMPLEX_INSTANCES))
     plan.append((C, "clse_tucker2", "complex", [k64], COMPLEX_INSTANCES))
-    _tucker_bwd_sass()
+    _tucker_sass()
     t0 = time.perf_counter()
     n_cases = 0
     for mod, op, wkind, shapes, instances in plan:
@@ -7214,6 +7302,10 @@ def _lowprec_flagships(smi: str, built: list, launches: dict[str, int]) -> None:
                                                lambda: scc.evaluate(st, x), fwd, msfx, w16,
                                                launches)
                         peaks[sname, mname] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                        if spl == "tucker" and sname != "widened":
+                            _tucker_fwd_route(f"{label} {sname} {mname}",
+                                              lambda: scc.evaluate(st, x),
+                                              "tucker_fwd_bf16" if msfx else "tucker_fwd_tc")
                     t = {k: v.detach().requires_grad_() for k, v in tr.items()}
 
                     def backward():
@@ -7248,7 +7340,10 @@ def _lowprec_flagships(smi: str, built: list, launches: dict[str, int]) -> None:
                                          f"{share:.3f} of {FAST_GRAD_REL} max(1, max|slot|)")
                 notes.append(f"{sname} {mname} rows {rel:.2e}, gradients {share:.3f}")
         print(f"{label}: launches a forward {fwd}, a backward {bwd}, each an instance of its "
-              f"mode; the bf16 store's runs equal the widened store's to the bit in every mode; "
+              f"mode"
+              + ("" if spl != "tucker" else ", the Tucker forward on tucker_fwd_tc (f32-grade) "
+                 "or tucker_fwd_bf16 (fast) alone")
+              + "; the bf16 store's runs equal the widened store's to the bit in every mode; "
               f"signs +1; against the f32-grade run of the same store ({r} rows, rtol "
               f"{SERVE_FAST_RTOL}; gradients, share of {FAST_GRAD_REL} max(1, max|slot|)): "
               + "; ".join(notes) + "; forward peak above the stores " + ", ".join(
@@ -7426,6 +7521,8 @@ def _lowprec_complex(smi: str, built: list, launches: dict[str, int]) -> None:
             with torch.inference_mode():
                 out = _lowprec_counted(f"{label} {mname} forward", lambda: ccc.evaluate(st, x),
                                        fwd, msfx, False, launches)
+                _tucker_fwd_route(f"{label} {mname}", lambda: ccc.evaluate(st, x),
+                                  "tucker_fwd_bf16" if msfx else "tucker_fwd_tc")
             t = {k: v.detach().requires_grad_() for k, v in tr.items()}
 
             def backward():
@@ -7448,7 +7545,8 @@ def _lowprec_complex(smi: str, built: list, launches: dict[str, int]) -> None:
             raise AssertionError(f"{label} {mname}: {r} rows off the f32-grade run by "
                                  f"{rel:.3e}, gradients {share:.3f} of the bound")
         notes.append(f"{mname} rows {rel:.2e}, gradients {share:.3f}")
-    print(f"{label}: launches a forward {fwd}, a backward {bwd}, each an instance of its mode; "
+    print(f"{label}: launches a forward {fwd}, a backward {bwd}, each an instance of its mode, "
+          f"the Tucker forward on tucker_fwd_tc (f32-grade) or tucker_fwd_bf16 (fast) alone; "
           f"phases 0; against the f32-grade run ({r} rows, rtol {SERVE_FAST_RTOL}; gradients, "
           f"share of {FAST_GRAD_REL} max(1, max|slot|)): " + "; ".join(notes) + f" ({smi})")
     del cctx, ccc, st, runs

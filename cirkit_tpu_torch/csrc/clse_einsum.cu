@@ -66,10 +66,12 @@
 // blocks split the batch and keep the row shifts, gy and e on chip, then
 // sum_partials. A null dx or dw pointer skips that gradient.
 //
-// The complex64 Tucker backward against a real weight (the complex
-// flagship's) has entries of its own on the tensor cores,
-// clse_bwd_tucker_rw* (csrc/lse_einsum_bwd.cu's launch_cbwd_tc and
-// csrc/tucker_bf16_bwd.cu's CPLX instances); clse_bwd refuses it.
+// The complex64 Tucker forward and backward against a real weight (the
+// complex flagship's) have entries of their own on the tensor cores,
+// clse_fwd_tucker_rw* (csrc/lse_einsum.cu's tucker_fwd_tc and
+// csrc/tucker_bf16.cu's tucker_fwd_bf16, with CPLX) and clse_bwd_tucker_rw*
+// (csrc/lse_einsum_bwd.cu's launch_cbwd_tc and csrc/tucker_bf16_bwd.cu's
+// CPLX instances); clse_fwd and clse_bwd refuse it.
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream, checks cudaGetLastError() after each launch and returns the first
@@ -1699,7 +1701,12 @@ struct FwdCall {
   cudaStream_t s;
   template <typename T, bool TUCKER, bool WCPLX>
   int operator()() const {
-    return launch_fwd<T, TUCKER, WCPLX, MODE>(xa, xb, w, out, F, B, I, K1, K2, O, s);
+    // the complex64 Tucker forward against a real weight has entries of its
+    // own, clse_fwd_tucker_rw* (csrc/lse_einsum.cu, tucker_bf16.cu)
+    if constexpr (sizeof(T) == 4 && TUCKER && !WCPLX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch_fwd<T, TUCKER, WCPLX, MODE>(xa, xb, w, out, F, B, I, K1, K2, O, s);
   }
 };
 

@@ -41,14 +41,16 @@
 // chunk is contracted, and staging costs one exponential per element.
 // Accumulation is f32 FMA, at least as accurate as the TPU's bf16x3 dots.
 // Any O >= 1 is taken (the Ko=1 root layers included) and the ragged batch
-// edge is masked, with no padding. That loop runs the dense, signed and
-// double instances. The float unsigned Tucker instances, the K=64
-// flagship's forward, run on the tensor cores instead (tucker_fwd_tc, in
-// 3xTF32 mma.sync: on the f32 CUDA cores the Tucker entry's 52.6 GFLOP take
-// 0.785 ms, in 3xTF32 on the tensor cores 0.319 ms, against 0.245 ms of
-// weight bytes); its design is described above it. wgmma and TMA are left
-// for later. Their fast-mode instances run on the bf16 tensor cores, in
-// csrc/tucker_bf16.cu.
+// edge is masked, with no padding. That loop runs the dense, signed dense
+// and double instances. The float Tucker instances, the K=64 flagships'
+// forwards, run on the tensor cores instead (tucker_fwd_tc, in 3xTF32
+// mma.sync: on the f32 CUDA cores the Tucker entry's 52.6 GFLOP take 0.785
+// ms, in 3xTF32 on the tensor cores 0.319 ms, against 0.245 ms of weight
+// bytes): the unsigned ones, the signed ones (SIGNED: the signs folded into
+// e1 and e2 as they are staged) and the complex64 one against a real weight
+// (CPLX: real products over stacked real and imaginary planes); its design
+// is described above it. wgmma and TMA are left for later. Their fast-mode
+// instances run on the bf16 tensor cores, in csrc/tucker_bf16.cu.
 // The signed squared circuits' TensorDot entries (F = 144, I = O = 32,
 // B*Kq = 4096 rows) do 8 FLOP per element read, so there the work is bound
 // by memory: 302 MB of (a, s) read and (log|y|, sign y) written, 0.090 ms.
@@ -103,12 +105,10 @@ constexpr int BS = BN + 4;
 // T is float or double; the double instances hold twice the registers for
 // their accumulators, so one block of them is resident on an SM, not two.
 // WT is the weight's storage type (T, or bf16 beside float: read widened).
-// The fast modes (MODE, tc_common.cuh; the float unsigned dense instances,
-// the mixing sums, and every float signed one) stage each exponential
-// (signed: s * exp(x - m), for Tucker the chunk's product e1 * e2 as
-// s1 s2 exp((x1 - m1) + (x2 - m2)), at its flat index in (F, B, I)) and
-// weight (softmax: exp(theta - row max), the normalizer kept in f32)
-// rounded to bf16 and FMA in f32.
+// The fast modes (MODE, tc_common.cuh; the float dense instances, unsigned
+// (the mixing sums) and signed) stage each exponential (signed: s * exp(x -
+// m), at its flat index in (F, B, I)) and weight (softmax: exp(theta - row
+// max), the normalizer kept in f32) rounded to bf16 and FMA in f32.
 template <typename T, bool TUCKER, bool SOFTMAX, bool SIGNED, typename WT = T,
           int MODE = cirkit::F32>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
@@ -237,7 +237,7 @@ lse_fwd(const T* __restrict__ xa,  // dense: x (F,B,I); tucker: x1 (F,B,K1)
     // Stage this chunk: the shifted exponentials (for tucker the outer
     // product e1[b,i] * e2[b,j], formed one chunk at a time) and the
     // weights (unnormalized softmax numerators).
-    if constexpr (MODE != cirkit::F32) {  // float: unsigned dense, or signed
+    if constexpr (MODE != cirkit::F32) {  // float dense: unsigned or signed
       const int k = k0 + skk;
 #pragma unroll
       for (int n = 0; n < A_PER; ++n) {
@@ -444,8 +444,8 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const WT* __r
   }
 }
 
-// The float unsigned Tucker instances on the tensor cores (the double and
-// signed ones are lse_fwd above). The fold of the K1-chunked kernel
+// The float Tucker instances on the tensor cores (the double ones are
+// lse_fwd above). The fold of the K1-chunked kernel
 // (ct_fwd_tc in csrc/lse_wide.cu) with its tile sized for O = 64, the K=64
 // circuits' width: for a fixed row i the operand is diag(e1[:, i]) E2, so a
 // block (fold, 128 batch rows, 64 units) stages E2 = exp(x2 - m2) of its
@@ -475,6 +475,28 @@ slse_fwd_narrow(const T* __restrict__ x, const T* __restrict__ sx, const WT* __r
 // three ran (logits are not: exp(theta - max) is a full f32). The fast
 // modes' instances run on the bf16 tensor cores instead (tucker_fwd_bf16,
 // csrc/tucker_bf16.cu).
+//
+// SIGNED (the signed Tucker forward, kernel 6): x1 and x2 are the
+// log-magnitudes, s1 and s2 their signs, read beside them where e1 = s1
+// exp(x1 - m1) and E2 = s2 exp(x2 - m2) are staged (the accurate expf, as
+// everywhere here); the epilogue writes log|y| + shift (less the
+// normalizer's log) and sign y, an exact cancellation y = 0 giving (-inf,
+// 0). The logits' running-max rescale is a positive factor, so it commutes
+// with the signs.
+//
+// CPLX (the complex64 Tucker forward against a real weight, kernel 10;
+// PyTorch's interleaved complex x1, x2 and out): E2 = exp(x2 - m2) is staged
+// as two real planes, a batch row's real plane at row stacked_at(b) of the
+// block's BM rows and its imaginary plane 8 rows below (tc_common.cuh), so a
+// block takes 64 batch rows; for each row i the products are one real S_i
+// = E2 W_i^T over the stacked rows, and the thread that holds rows g and g +
+// 8 of an accumulator tile holds one batch row's S_re and S_im: the fold is
+// the complex multiply-add acc += e1[b, i] S_i in registers, e1 = exp(x1 -
+// m1) (cexp_f32: the accurate expf and sincosf, its two planes staged as
+// E2's), and the epilogue writes log|y| + m1 + m2 + i atan2(Im y, Re y).
+// Halving the batch rows a block keeps the tile, its registers and two
+// blocks an SM; the two batch tiles of a fold at B = 128 run side by side
+// (the grid is F x batch tiles), so the second reads the weight from L2.
 namespace tk_tc {
 constexpr int BM = 128;    // batch rows a block
 constexpr int BN = 64;     // units a block
@@ -491,19 +513,26 @@ constexpr int EQ = BM * JC / 4 / NT_; // float4 slots a thread stages of an E2 c
 constexpr size_t SMEM = sizeof(float) * (2 * (BM + 2 * BN) * S + IC * BM + 2 * BM + 3 * BN);
 }  // namespace tk_tc
 
-template <bool SOFTMAX, typename WT = float>
+template <bool SOFTMAX, typename WT = float, bool SIGNED = false, bool CPLX = false>
 __global__ void __launch_bounds__(tk_tc::NT_, 2)
-tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
-              const float* __restrict__ x2,  // (F, B, K2)
+tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1); CPLX: complex, (re, im) pairs
+              const float* __restrict__ x2,  // (F, B, K2); CPLX: complex
               const WT* __restrict__ w,      // (F, O, K1*K2): weights, or logits for SOFTMAX
-              float* __restrict__ out,       // (F, B, O)
-              int B, int K1, int K2, int O, bool vec) {
+              float* __restrict__ out,       // (F, B, O); SIGNED: log|y|; CPLX: complex
+              int B, int K1, int K2, int O, bool vec,
+              const float* __restrict__ s1,   // SIGNED: the signs of x1 and x2; else unused
+              const float* __restrict__ s2,
+              float* __restrict__ out_sign) {  // SIGNED: sign(y) (F, B, O)
+  static_assert(!(SIGNED && CPLX) && !(CPLX && (SOFTMAX || sizeof(WT) != 4)),
+                "CPLX: linear float32 weights, unsigned");
   // the staged weights keep a low plane unless they are bf16 weights (exact
   // in TF32)
   constexpr bool W_SPLIT = SOFTMAX || sizeof(WT) == 4;
   // the tile (the file's own BM and BN are the FMA kernel's)
   constexpr int BM = tk_tc::BM, BN = tk_tc::BN, JC = tk_tc::JC, IC = tk_tc::IC, S = tk_tc::S;
   constexpr int NT_ = tk_tc::NT_, NW = tk_tc::NW, RS = tk_tc::RS, Q = tk_tc::Q, EQ = tk_tc::EQ;
+  // batch rows a block: CPLX stacks each row's two planes in the BM rows
+  constexpr int BB = CPLX ? BM / 2 : BM;
   extern __shared__ __align__(16) uint32_t tk_smem[];
   uint32_t* E2h = tk_smem;  // [BM][S]: E2's high parts, then its low parts
   uint32_t* E2l = E2h + BM * S;
@@ -514,25 +543,41 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
   float* wscl = m2s + BM;       // softmax: [2][BN], each staged segment's rescale factors
   float* lsum = wscl + 2 * BN;  // softmax: each unit's log-normalizer
 
-  const int f = blockIdx.x;
+  int f, b0;
+  if constexpr (CPLX) {  // the batch tiles of a fold side by side: they share its weight in L2
+    const int n_bt = (B + BB - 1) / BB;
+    f = blockIdx.x / n_bt;
+    b0 = (blockIdx.x - f * n_bt) * BB;
+  } else {
+    f = blockIdx.x;
+    b0 = blockIdx.z * BM;
+  }
   const int o0 = blockIdx.y * BN;
-  const int b0 = blockIdx.z * BM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;  // the warp's 32 x 32 tile
   const int I = K1 * K2;
   const float* x1f = x1 + (size_t)f * B * K1;
   const float* x2f = x2 + (size_t)f * B * K2;
+  const float2* c1f = reinterpret_cast<const float2*>(x1) + (size_t)f * B * K1;  // CPLX
+  const float2* c2f = reinterpret_cast<const float2*>(x2) + (size_t)f * B * K2;
+  const float* s1f = s1 + (size_t)f * B * K1;  // SIGNED
+  const float* s2f = s2 + (size_t)f * B * K2;
   const WT* wf = w + (size_t)f * O * I;
 
-  // Prologue: the clamped row maxes of x1 and x2, the shifts of the whole
-  // contraction.
-  for (int r = warp; r < BM; r += NW) {
+  // Prologue: the clamped row maxes of x1 and x2 (CPLX: of their real
+  // parts), the shifts of the whole contraction.
+  for (int r = warp; r < BB; r += NW) {
     const int b = b0 + r;
     float a = -INFINITY, c = -INFINITY;
     if (b < B) {
-      for (int k = lane; k < K1; k += 32) a = fmaxf(a, x1f[(size_t)b * K1 + k]);
-      for (int k = lane; k < K2; k += 32) c = fmaxf(c, x2f[(size_t)b * K2 + k]);
+      if constexpr (CPLX) {
+        for (int k = lane; k < K1; k += 32) a = fmaxf(a, c1f[(size_t)b * K1 + k].x);
+        for (int k = lane; k < K2; k += 32) c = fmaxf(c, c2f[(size_t)b * K2 + k].x);
+      } else {
+        for (int k = lane; k < K1; k += 32) a = fmaxf(a, x1f[(size_t)b * K1 + k]);
+        for (int k = lane; k < K2; k += 32) c = fmaxf(c, x2f[(size_t)b * K2 + k]);
+      }
     }
     a = warp_max(a);
     c = warp_max(c);
@@ -617,24 +662,73 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
       __syncthreads();  // every warp is done with the buffers of the last chunk
       load_w(i0, j0);
       if (i0 == 0) {  // E2 of the chunk's columns
+        if constexpr (CPLX) {  // a batch row's real and imaginary planes at stacked rows
 #pragma unroll
-        for (int q = 0; q < EQ; ++q) {
-          const int r = sr + RS * q, b = b0 + r;
-          float v[4];
+          for (int q = 0; q < EQ / 2; ++q) {
+            const int r = sr + RS * q, b = b0 + r;
+            float re[4], im[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = j0 + sc + e;
-            v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+            for (int e = 0; e < 4; ++e) {
+              const int j = j0 + sc + e;
+              re[e] = im[e] = 0.f;
+              if (b < B && j < K2) {
+                const float2 z = c2f[(size_t)b * K2 + j];
+                cirkit::cexp_f32(z.x - m2s[r], z.y, &re[e], &im[e]);
+              }
+            }
+            const int sr_re = cirkit::stacked_at(r);
+            uint4 hi, lo;
+            split_tf32x4(make_float4(re[0], re[1], re[2], re[3]), hi, lo);
+            *reinterpret_cast<uint4*>(E2h + sr_re * S + sc) = hi;
+            *reinterpret_cast<uint4*>(E2l + sr_re * S + sc) = lo;
+            split_tf32x4(make_float4(im[0], im[1], im[2], im[3]), hi, lo);
+            *reinterpret_cast<uint4*>(E2h + (sr_re + 8) * S + sc) = hi;
+            *reinterpret_cast<uint4*>(E2l + (sr_re + 8) * S + sc) = lo;
           }
-          uint4 hi, lo;
-          split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
-          *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
-          *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+        } else {
+#pragma unroll
+          for (int q = 0; q < EQ; ++q) {
+            const int r = sr + RS * q, b = b0 + r;
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = j0 + sc + e;
+              if constexpr (SIGNED) {  // e2 = s2 exp(x2 - m2)
+                v[e] = b < B && j < K2
+                           ? s2f[(size_t)b * K2 + j] * expf(x2f[(size_t)b * K2 + j] - m2s[r])
+                           : 0.f;
+              } else {
+                v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+              }
+            }
+            uint4 hi, lo;
+            split_tf32x4(make_float4(v[0], v[1], v[2], v[3]), hi, lo);
+            *reinterpret_cast<uint4*>(E2h + r * S + sc) = hi;
+            *reinterpret_cast<uint4*>(E2l + r * S + sc) = lo;
+          }
         }
       }
-      for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
-        const int il = e / BM, r = e - il * BM, b = b0 + r;
-        E1s[e] = b < B && il < n_i ? expf(x1f[(size_t)b * K1 + i0 + il] - m1s[r]) : 0.f;
+      if constexpr (CPLX) {  // e1 of the rows i0 .. i0 + n_i - 1, both planes
+        for (int e = tid; e < IC * BB; e += NT_) {
+          const int il = e / BB, r = e - il * BB, b = b0 + r;
+          float re = 0.f, im = 0.f;
+          if (b < B && il < n_i) {
+            const float2 z = c1f[(size_t)b * K1 + i0 + il];
+            cirkit::cexp_f32(z.x - m1s[r], z.y, &re, &im);
+          }
+          E1s[il * BM + cirkit::stacked_at(r)] = re;
+          E1s[il * BM + cirkit::stacked_at(r) + 8] = im;
+        }
+      } else {
+        for (int e = tid; e < IC * BM; e += NT_) {  // e1 of the rows i0 .. i0 + n_i - 1
+          const int il = e / BM, r = e - il * BM, b = b0 + r;
+          if constexpr (SIGNED) {  // e1 = s1 exp(x1 - m1)
+            const size_t k = (size_t)b * K1 + i0 + il;
+            E1s[e] = b < B && il < n_i ? s1f[k] * expf(x1f[k] - m1s[r]) : 0.f;
+          } else {
+            E1s[e] = b < B && il < n_i ? expf(x1f[(size_t)b * K1 + i0 + il] - m1s[r]) : 0.f;
+          }
+        }
       }
       store_w(0, i0, j0);
       __syncthreads();
@@ -682,24 +776,43 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
         }
         // acc += e1[b, i] * S, softmax: acc scaled by its unit's factor first
         const float* e1 = E1s + il * BM;
-        float2 scl[4];
+        if constexpr (CPLX) {
+          // rows g and g + 8 of an m-tile are one batch row's planes: S_re
+          // and S_im, and the real and imaginary parts of its sums
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          scl[nt] = SOFTMAX ? *reinterpret_cast<const float2*>(&wscl[cur * BN + wn + 8 * nt + 2 * t])
-                            : make_float2(1.f, 1.f);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float e = e1[wm + 16 * mt + g + 8 * h];
+          for (int mt = 0; mt < 2; ++mt) {
+            const float er = e1[wm + 16 * mt + g], ei = e1[wm + 16 * mt + g + 8];
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
-              float* a = acc[mt][nt] + 2 * h;
-              const float* sv = s[mt][nt] + 2 * h;
-              a[0] = fmaf(e, sv[0], SOFTMAX ? a[0] * scl[nt].x : a[0]);
-              a[1] = fmaf(e, sv[1], SOFTMAX ? a[1] * scl[nt].y : a[1]);
+              float* a = acc[mt][nt];
+              const float* sv = s[mt][nt];
+              a[0] = fmaf(er, sv[0], fmaf(-ei, sv[2], a[0]));
+              a[1] = fmaf(er, sv[1], fmaf(-ei, sv[3], a[1]));
+              a[2] = fmaf(er, sv[2], fmaf(ei, sv[0], a[2]));
+              a[3] = fmaf(er, sv[3], fmaf(ei, sv[1], a[3]));
             }
           }
+        } else {
+          float2 scl[4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            scl[nt] = SOFTMAX
+                          ? *reinterpret_cast<const float2*>(&wscl[cur * BN + wn + 8 * nt + 2 * t])
+                          : make_float2(1.f, 1.f);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float e = e1[wm + 16 * mt + g + 8 * h];
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                float* a = acc[mt][nt] + 2 * h;
+                const float* sv = s[mt][nt] + 2 * h;
+                a[0] = fmaf(e, sv[0], SOFTMAX ? a[0] * scl[nt].x : a[0]);
+                a[1] = fmaf(e, sv[1], SOFTMAX ? a[1] * scl[nt].y : a[1]);
+              }
+            }
+        }
         if (more) store_w(cur ^ 1, i0 + il + 1, j0);
         __syncthreads();
       }
@@ -721,6 +834,25 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
 
   // Epilogue: back to log space, masking the ragged batch and unit edges.
   float* outf = out + (size_t)f * B * O;
+  if constexpr (CPLX) {  // log|y| + shift + i atan2(Im y, Re y); y = 0 gives (-inf, 0)
+    float2* outc = reinterpret_cast<float2*>(out) + (size_t)f * B * O;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = cirkit::stacked_row(wm + 16 * mt + g), b = b0 + r;
+      if (b >= B) continue;
+      const float shift = m1s[r] + m2s[r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = o0 + wn + 8 * nt + 2 * t + e;
+          const float re = acc[mt][nt][e], im = acc[mt][nt][2 + e];
+          if (o < O) outc[(size_t)b * O + o] = make_float2(logf(hypotf(re, im)) + shift,
+                                                          atan2f(im, re));
+        }
+    }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -733,9 +865,13 @@ tucker_fwd_tc(const float* __restrict__ x1,  // (F, B, K1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = wn + 8 * nt + 2 * t + e, o = o0 + c;
-          float y = logf(acc[mt][nt][2 * h + e]);
+          const float v = acc[mt][nt][2 * h + e];
+          float y = logf(SIGNED ? fabsf(v) : v);  // signed: y = 0 gives (-inf, 0)
           if (SOFTMAX) y -= lsum[c];
-          if (o < O) outf[(size_t)b * O + o] = y + shift;
+          if (o < O) {
+            outf[(size_t)b * O + o] = y + shift;
+            if (SIGNED) out_sign[(size_t)f * B * O + (size_t)b * O + o] = (v > 0.f) - (v < 0.f);
+          }
         }
     }
 }
@@ -786,21 +922,48 @@ int launch_tucker(const T* x1, const T* x2, const T* w, T* out, int F, int B, in
   return launch<T, true, SOFTMAX>(x1, x2, w, out, F, B, K1 * K2, K1, K2, O, device, stream);
 }
 
-template <bool SOFTMAX, typename WT = float>
+// The Tucker entries on the tensor cores: the unsigned and SIGNED float32
+// ones, and with CPLX the complex64 one against a real weight, whose blocks
+// take 64 batch rows (their 128 stacked planes) in a one-dimensional grid of
+// F x batch tiles, the batch tiles of a fold side by side.
+template <bool SOFTMAX, typename WT = float, bool SIGNED = false, bool CPLX = false>
 int launch_tucker_tc(const float* x1, const float* x2, const WT* w, float* out, int F, int B,
-                     int K1, int K2, int O, int device, void* stream) {
+                     int K1, int K2, int O, int device, void* stream,
+                     const float* s1 = nullptr, const float* s2 = nullptr,
+                     float* out_sign = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = tucker_fwd_tc<SOFTMAX, WT>;
+  auto kernel = tucker_fwd_tc<SOFTMAX, WT, SIGNED, CPLX>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(tk_tc::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte (bf16: 8-byte) weight loads where every row segment starts aligned
   const bool vec = K2 % 4 == 0 && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(WT)) == 0;
-  const dim3 grid(F, (O + tk_tc::BN - 1) / tk_tc::BN, (B + tk_tc::BM - 1) / tk_tc::BM);
-  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, s>>>(x1, x2, w, out, B, K1, K2, O, vec);
+  const int n_ot = (O + tk_tc::BN - 1) / tk_tc::BN;
+  dim3 grid(F, n_ot, (B + tk_tc::BM - 1) / tk_tc::BM);
+  if constexpr (CPLX) {
+    const long long blocks = (long long)F * ((B + tk_tc::BM / 2 - 1) / (tk_tc::BM / 2));
+    if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid = dim3(static_cast<unsigned>(blocks), n_ot);
+  }
+  kernel<<<grid, tk_tc::NT_, tk_tc::SMEM, s>>>(x1, x2, w, out, B, K1, K2, O, vec, s1, s2,
+                                               out_sign);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The signed Tucker entries: float32 on the tensor cores (tucker_fwd_tc with
+// SIGNED), double on lse_fwd.
+template <bool SOFTMAX, typename T, typename WT = T>
+int launch_signed_tucker(const T* a1, const T* s1, const T* a2, const T* s2, const WT* w, T* oa,
+                         T* os, int F, int B, int K1, int K2, int O, int device, void* stream) {
+  if constexpr (sizeof(T) == 8) {
+    return launch<T, true, SOFTMAX, true>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O, device,
+                                          stream, s1, s2, os);
+  } else {
+    return launch_tucker_tc<SOFTMAX, WT, true>(a1, a2, w, oa, F, B, K1, K2, O, device, stream,
+                                               s1, s2, os);
+  }
 }
 
 }  // namespace
@@ -809,9 +972,12 @@ extern "C" {
 
 // The build compiles this source once for each part (-DCIRKIT_FWD_PART=0, 1,
 // 2; ops/_build.py), the three side by side: part 0 holds the lse entries and
-// their instances and the float and double signed entries, parts 1 and 2 the
-// float32-weight and bf16-weight instances of the signed entries at the end.
-// A build without the macro holds all of them.
+// their instances and the float and double signed dense entries and the
+// double signed Tucker ones, part 1 the float signed Tucker entries, the
+// complex Tucker one against a real weight and the float32-weight fast
+// instances of the signed dense entries, part 2 the bf16-weight instances of
+// the signed entries (the signed Tucker entries' fast instances are
+// csrc/tucker_bf16.cu's). A build without the macro holds all of them.
 #if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 0
 const char* cirkit_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -819,7 +985,8 @@ const char* cirkit_cuda_error_string(int err) {
 
 // Every entry exists for float (the plain name) and for double (the name with
 // _f64). The signed entries take (log-magnitude, sign) inputs and write
-// (log|y|, sign y). The float unsigned Tucker entries run tucker_fwd_tc.
+// (log|y|, sign y). The float Tucker entries run tucker_fwd_tc (the signed
+// ones below).
 #define LSE_FWD_ENTRIES(SUFFIX, T, TK, TK_SOFTMAX)                                              \
   int lse_fwd_dense##SUFFIX(const T* x, const T* w, T* out, int F, int B, int I, int O,         \
                             int device, void* stream) {                                         \
@@ -846,23 +1013,30 @@ const char* cirkit_cuda_error_string(int err) {
                                      int F, int B, int I, int O, int device, void* stream) {    \
     return launch<T, false, true, true>(a, nullptr, theta, oa, F, B, I, 0, 1, O, device,        \
                                         stream, s, nullptr, os);                                \
-  }                                                                                             \
-  int slse_fwd_tucker##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2, const T* w,   \
-                              T* oa, T* os, int F, int B, int K1, int K2, int O, int device,    \
-                              void* stream) {                                                   \
-    return launch<T, true, false, true>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O, device,        \
-                                        stream, s1, s2, os);                                    \
-  }                                                                                             \
-  int slse_fwd_tucker_softmax##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2,       \
-                                      const T* theta, T* oa, T* os, int F, int B, int K1,       \
-                                      int K2, int O, int device, void* stream) {                \
-    return launch<T, true, true, true>(a1, a2, theta, oa, F, B, K1 * K2, K1, K2, O, device,     \
-                                       stream, s1, s2, os);                                     \
   }
 
 LSE_FWD_ENTRIES(, float, launch_tucker_tc<false>, launch_tucker_tc<true>)
 LSE_FWD_ENTRIES(_f64, double, (launch_tucker<double, false>), (launch_tucker<double, true>))
 #undef LSE_FWD_ENTRIES
+#endif
+
+// The signed Tucker entries, with the weight of type WT.
+#define SLSE_FWD_TUCKER(SUFFIX, T, WT)                                                          \
+  int slse_fwd_tucker##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2, const WT* w,  \
+                              T* oa, T* os, int F, int B, int K1, int K2, int O, int device,    \
+                              void* stream) {                                                   \
+    return launch_signed_tucker<false, T, WT>(a1, s1, a2, s2, w, oa, os, F, B, K1, K2, O,       \
+                                              device, stream);                                  \
+  }                                                                                             \
+  int slse_fwd_tucker_softmax##SUFFIX(const T* a1, const T* s1, const T* a2, const T* s2,       \
+                                      const WT* theta, T* oa, T* os, int F, int B, int K1,      \
+                                      int K2, int O, int device, void* stream) {                \
+    return launch_signed_tucker<true, T, WT>(a1, s1, a2, s2, theta, oa, os, F, B, K1, K2, O,    \
+                                             device, stream);                                   \
+  }
+
+#if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 0
+SLSE_FWD_TUCKER(_f64, double, double)
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
 // lse forwards (ops/lse_einsum.py's INSTANCES): the dense ones, the mixing
@@ -899,7 +1073,7 @@ int lse_fwd_tucker_softmax_w16(const float* x1, const float* x2, const __nv_bflo
 #undef LSE_FWD_INSTANCES
 
 // The bf16-weight (_w16) and fast-mode (_fast, _sr) instances of the float
-// signed forwards (ops/slse_einsum.py), with the float signed entries'
+// signed dense forwards (ops/slse_einsum.py), with the float signed entries'
 // arguments: lse_fwd's SIGNED instances, and slse_fwd_narrow where a dense
 // layer's I and O are at most 32.
 #define SLSE_FWD_INSTANCES(SUFFIX, WT, MODE)                                                    \
@@ -913,30 +1087,32 @@ int lse_fwd_tucker_softmax_w16(const float* x1, const float* x2, const __nv_bflo
                                      void* stream) {                                            \
     return launch<float, false, true, true, WT, MODE>(a, nullptr, theta, oa, F, B, I, 0, 1, O,  \
                                                       device, stream, s, nullptr, os);          \
-  }                                                                                             \
-  int slse_fwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
-                              const float* s2, const WT* w, float* oa, float* os, int F, int B, \
-                              int K1, int K2, int O, int device, void* stream) {                \
-    return launch<float, true, false, true, WT, MODE>(a1, a2, w, oa, F, B, K1 * K2, K1, K2, O,  \
-                                                      device, stream, s1, s2, os);              \
-  }                                                                                             \
-  int slse_fwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
-                                      const float* s2, const WT* theta, float* oa, float* os,   \
-                                      int F, int B, int K1, int K2, int O, int device,          \
-                                      void* stream) {                                           \
-    return launch<float, true, true, true, WT, MODE>(a1, a2, theta, oa, F, B, K1 * K2, K1, K2,  \
-                                                     O, device, stream, s1, s2, os);            \
   }
 
 #if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 1
+SLSE_FWD_TUCKER(, float, float)
 SLSE_FWD_INSTANCES(_fast, float, cirkit::BF16)
 SLSE_FWD_INSTANCES(_sr, float, cirkit::SR)
+
+// The complex64 Tucker forward against a real weight (the complex flagship's:
+// its softmaxed weights stay real): tucker_fwd_tc with CPLX, on PyTorch's
+// interleaved complex values; its fast-mode instances are
+// csrc/tucker_bf16.cu's, with the same arguments. ops/clse_einsum.py's
+// fwd_entry picks it; clse_fwd refuses this configuration.
+int clse_fwd_tucker_rw(const void* x1, const void* x2, const float* w, void* out, int F, int B,
+                       int K1, int K2, int O, int device, void* stream) {
+  return launch_tucker_tc<false, float, false, true>(
+      static_cast<const float*>(x1), static_cast<const float*>(x2), w, static_cast<float*>(out),
+      F, B, K1, K2, O, device, stream);
+}
 #endif
 #if !defined(CIRKIT_FWD_PART) || CIRKIT_FWD_PART == 2
+SLSE_FWD_TUCKER(_w16, float, __nv_bfloat16)
 SLSE_FWD_INSTANCES(_w16, __nv_bfloat16, cirkit::F32)
 SLSE_FWD_INSTANCES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 SLSE_FWD_INSTANCES(_w16_sr, __nv_bfloat16, cirkit::SR)
 #endif
 #undef SLSE_FWD_INSTANCES
+#undef SLSE_FWD_TUCKER
 
 }  // extern "C"

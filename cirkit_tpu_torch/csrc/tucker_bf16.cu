@@ -3,12 +3,16 @@
 // forward (kernel 1, lse_fwd_tucker[_softmax]*; its float32 and _w16 ones
 // are tucker_fwd_tc of csrc/lse_einsum.cu) and of the K1-chunked Tucker
 // forward (kernel 5; its float32 and _w16 ones are ct_fwd_tc of
-// csrc/lse_wide.cu), one kernel for both, under kernel 1's entries.
+// csrc/lse_wide.cu), one kernel for both, under kernel 1's entries; and
+// those of the signed and the complex Tucker forwards (kernels 6' and 10',
+// slse_fwd_tucker[_softmax]*, clse_fwd_tucker_rw_fast and _sr; described
+// below).
 //
 // Replaces the CIRKIT_TPU_FAST configurations of the Pallas TPU kernels
 // `_fwd_kernel` (Tucker, cirkit_tpu/ops/lse_einsum.py:335) and
 // `_ct_fwd_kernel` (:738), which run one bf16 pass (`_fcast`, `_dot1`) with
-// f32 accumulation. Per fold f, with m_h the clamped row max of x_h:
+// f32 accumulation, and of `_s_fwd_kernel` (:938) and `_c_fwd_kernel`
+// (:1424) on the Tucker entries. Per fold f, with m_h the clamped row max of x_h:
 //
 //   out[b,o] = log sum_i e1[b,i] S_i[b,o] + m1[b] + m2[b]   (- log Z_o)
 //   S_i[b,o] = sum_j r(e2[b,j]) r(w[o,i*K2+j])
@@ -62,6 +66,29 @@
 // K2 whose rows are not 16-byte multiples, or a weight that is not 16-byte
 // aligned, is read element by element by the convert step instead. Ragged
 // B, O, K1 and K2 are masked, K1 padded to a multiple of R.
+//
+// The same kernel runs the fast modes of the signed Tucker forward (kernel
+// 6', SIGNED) and of the complex64 one against a real weight (kernel 10',
+// CPLX), at the same rounding points. SIGNED: x1 and x2 are
+// log-magnitudes, s1 and s2 their signs; s2 is folded into E2 before it is
+// rounded, s1 into e1 = s1 exp(x1 - m1) in f32, and the epilogue writes
+// log|y| + shift (less log Z) and sign y, an exact cancellation giving (-inf,
+// 0). s1 goes through the ring beside x1 where a convert step hides its
+// copies; on a bf16 weight's linear values, where a stage is only its
+// products, it is read into registers from L2 as the stage begins, two rows
+// i in one load: there the ring's scattered 4-byte copies of s1, which also
+// take L1 lines that x1's share, made the kernel 1.43 times the unsigned
+// one's time, the loads 1.21; with a convert step the ring gave 1.07-1.20
+// (K=64 entry, an H100 80GB HBM3 at 700 W, scripts/sos_fwd_ab.py --tucker).
+// CPLX (PyTorch's interleaved complex x1, x2 and out): a
+// batch row's planes of r(E2) are rows stacked_at(b) and + 8 of the A tile
+// (tc_common.cuh), each plane rounded at its flat index in
+// torch.view_as_real's layout of x2, so a block takes BM / 2 batch rows
+// (blocks of 256 rows from a batch of 65: at the complex flagship's 128 a
+// fold's weight is read and converted once); the thread that holds rows rw
+// and rw + 8 holds one batch row's S_re and S_im, and the fold is the complex
+// multiply-add acc += e1 S_i with e1 = exp(x1 - m1) (cexp_f32) in f32; the
+// epilogue writes log|y| + shift + i atan2(Im y, Re y).
 //
 // Each extern "C" entry selects the given device, launches on the given
 // stream and returns the first error of its launches (0 on success).
@@ -117,40 +144,59 @@ constexpr int TPU = 8;      // threads that convert a unit's row of a tile, 8 va
 // 103 KB each, 128 registers a thread), so one block's products overlap the
 // other's staging; BM = 256, one block of 16 warps (209 KB for a float32
 // weight, 181 KB for bf16).
-template <int BM, typename WT>
+//
+// S1 (the signed instances but on a bf16 weight's linear values) stages s1
+// beside x1 (R * BM floats more a stage: 217 KB at BM = 256 on a float32
+// weight, 108 KB at BM = 128 on bf16 logits).
+template <bool SIGNED, bool SOFTMAX, typename WT>
+constexpr bool s1_in_ring = SIGNED && (SOFTMAX || sizeof(WT) == 4);
+
+template <int BM, typename WT, bool S1 = false>
 struct Cfg {
   static constexpr int NT = BM / 64 * 128;
   static constexpr int BLOCKS = BM == 128 ? 2 : 1;
   static constexpr int R = BM == 128 && sizeof(WT) == 4 ? 1 : 2;
   static constexpr int NS = BM == 128 ? 3 : sizeof(WT) == 4 ? 4 : 6;
   static constexpr int TILE = BN * JC * static_cast<int>(sizeof(WT));
-  static constexpr int STAGE = R * TILE + R * BM * 4;
+  static constexpr int STAGE = R * TILE + (S1 ? 2 : 1) * R * BM * 4;
   static constexpr size_t SMEM = (size_t)(BM + 2 * R * BN) * ROW + (size_t)NS * STAGE +
                                  sizeof(float) * ((size_t)2 * BM + (2 * R + 1) * BN) +
                                  sizeof(uint64_t) * NS + 1024;
 };
 }  // namespace tb
 
-template <int BM, bool SOFTMAX, typename WT, int MODE>
-__global__ void __launch_bounds__(tb::Cfg<BM, WT>::NT, tb::Cfg<BM, WT>::BLOCKS)
-tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
-                const float* __restrict__ x2,  // (F, B, K2)
+template <int BM, bool SOFTMAX, typename WT, int MODE, bool SIGNED = false, bool CPLX = false>
+__global__ void __launch_bounds__(tb::Cfg<BM, WT, tb::s1_in_ring<SIGNED, SOFTMAX, WT>>::NT,
+                                  tb::Cfg<BM, WT, tb::s1_in_ring<SIGNED, SOFTMAX, WT>>::BLOCKS)
+tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1); CPLX: complex, (re, im) pairs
+                const float* __restrict__ x2,  // (F, B, K2); CPLX: complex
                 const WT* __restrict__ w,      // (F, O, K1*K2): weights, or logits
-                float* __restrict__ out,       // (F, B, O)
+                float* __restrict__ out,       // (F, B, O); SIGNED: log|y|; CPLX: complex
                 // the weight as (F, O, K1, K2), 64 x 64 boxes of (units, j);
                 // unset where ``vec`` is false
                 const __grid_constant__ CUtensorMap wmap,
-                int B, int K1, int K2, int O, int n_ot, int n_bt, bool vec) {
-  using C = tb::Cfg<BM, WT>;
+                int B, int K1, int K2, int O, int n_ot, int n_bt, bool vec,
+                const float* __restrict__ s1,    // SIGNED: the signs of x1 and x2; else unused
+                const float* __restrict__ s2,
+                float* __restrict__ out_sign) {  // SIGNED: sign(y) (F, B, O)
+  // SIGNED: s1 through the ring beside x1 where a convert step hides the
+  // copies; on a bf16 weight's linear values in registers (below)
+  constexpr bool S1 = tb::s1_in_ring<SIGNED, SOFTMAX, WT>;
+  using C = tb::Cfg<BM, WT, S1>;
   constexpr int BN = tb::BN, JC = tb::JC, KS = tb::KS, R = C::R, ROW = tb::ROW, TPU = tb::TPU;
   constexpr int NT = C::NT, NW = NT / 32, NS = C::NS, STAGE = C::STAGE, TILE = C::TILE;
   constexpr int XQ = (R * BM + NT - 1) / NT;              // x1 copies a thread issues a stage
   constexpr int VQ = BN * TPU / NT;                       // unit rows a thread converts a tile
+  // batch rows a block: CPLX stacks each row's two planes in the BM rows
+  constexpr int BB = CPLX ? BM / 2 : BM;
+  constexpr int CW = CPLX ? 2 : 1;  // floats a value of x1, x2 and out
   // a bf16 weight with linear values is wgmma's operand as copied
   constexpr bool RAW16 = sizeof(WT) == 2 && !SOFTMAX;
   static_assert(MODE != cirkit::F32, "the f32-grade instances are tucker_fwd_tc and ct_fwd_tc");
   static_assert(NS >= 3 && XQ >= 1 && VQ >= 1 && JC == 8 * TPU && JC == 64 && BN == 64,
                 "tile: weight_map's boxes");
+  static_assert(!(SIGNED && CPLX) && !(CPLX && (SOFTMAX || sizeof(WT) != 4)),
+                "CPLX: linear float32 weights, unsigned");
 
   extern __shared__ __align__(16) unsigned char tb_raw[];
   unsigned char* smem = tb_raw + ((1024 - (static_cast<uint32_t>(
@@ -171,24 +217,27 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
   const int bt = blockIdx.x % n_bt;
   const int rest = blockIdx.x / n_bt;
   const int ot = rest % n_ot, f = rest / n_ot;
-  const int o0 = ot * BN, b0 = bt * BM;
+  const int o0 = ot * BN, b0 = bt * BB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wg = warp >> 2;                      // the warpgroup: rows 64 wg ..
   const int rw = 64 * wg + 16 * (warp & 3) + g;  // this thread's rows rw, rw + 8
   const int I = K1 * K2;
-  const float* x1f = x1 + (size_t)f * B * K1;
-  const float* x2f = x2 + (size_t)f * B * K2;
+  const float* x1f = x1 + (size_t)f * B * K1 * CW;
+  const float* x2f = x2 + (size_t)f * B * K2 * CW;
+  const float* s1f = s1 + (size_t)f * B * K1;  // SIGNED
+  const float* s2f = s2 + (size_t)f * B * K2;
   const WT* wf = w + (size_t)f * O * I;
 
   if (tid == 0) {
     for (int k = 0; k < NS; ++k) mbar_init(bar0 + 8 * k);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Prologue: the clamped row maxes of x1 and x2 (row warp + NW rr), each
-  // warp's loads of all its rows in flight together.
+  // Prologue: the clamped row maxes of x1 and x2 (CPLX: of their real
+  // parts; row warp + NW rr), each warp's loads of all its rows in flight
+  // together.
   {
-    constexpr int RPW = BM / NW;
+    constexpr int RPW = BB / NW;
     float a[RPW], c[RPW];
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) a[rr] = c[rr] = -INFINITY;
@@ -197,8 +246,8 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
       for (int rr = 0; rr < RPW; ++rr) {
         const int b = b0 + warp + NW * rr;
         if (b < B) {
-          if (k < K1) a[rr] = fmaxf(a[rr], x1f[(size_t)b * K1 + k]);
-          if (k < K2) c[rr] = fmaxf(c[rr], x2f[(size_t)b * K2 + k]);
+          if (k < K1) a[rr] = fmaxf(a[rr], x1f[((size_t)b * K1 + k) * CW]);
+          if (k < K2) c[rr] = fmaxf(c[rr], x2f[((size_t)b * K2 + k) * CW]);
         }
       }
 #pragma unroll
@@ -256,9 +305,20 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
         float* xs = reinterpret_cast<float*>(slot + R * TILE);
 #pragma unroll
         for (int q = 0; q < XQ; ++q) {
-          const int c = tid + NT * q, rr = c / BM, r = c - rr * BM, b = b0 + r, i = i0 + rr;
-          const bool in = b < B && i < K1;
-          if (c < R * BM) cp_async_f32(xs + c, in ? x1f + (size_t)b * K1 + i : x1f, in);
+          if constexpr (CPLX) {  // float r of row rr: part r % 2 of x1 at batch row r / 2
+            const int c = tid + NT * q, rr = c / BM, r = c - rr * BM, b = b0 + (r >> 1);
+            const int i = i0 + rr;
+            const bool in = b < B && i < K1;
+            const size_t k = ((size_t)b * K1 + i) * 2 + (r & 1);
+            if (c < R * BM) cp_async_f32(xs + c, in ? x1f + k : x1f, in);
+          } else {
+            const int c = tid + NT * q, rr = c / BM, r = c - rr * BM, b = b0 + r, i = i0 + rr;
+            const bool in = b < B && i < K1;
+            if (c < R * BM) cp_async_f32(xs + c, in ? x1f + (size_t)b * K1 + i : x1f, in);
+            if constexpr (S1)  // s1 at the same rows, after x1
+              if (c < R * BM) cp_async_f32(xs + R * BM + c, in ? s1f + (size_t)b * K1 + i : s1f,
+                                           in);
+          }
         }
       }
       cp_async_commit();
@@ -336,10 +396,36 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) convert(0, rr, 0, rr);
     }
-    const float m1a = m1s[rw], m1b = m1s[rw + 8];
-    const bool ra_in = b0 + rw < B, rb_in = b0 + rw + 8 < B;
+    // CPLX: rows rw and rw + 8 are the planes of batch row stacked_row(rw)
+    const int ra = CPLX ? cirkit::stacked_row(rw) : rw;
+    const float m1a = m1s[ra], m1b = m1s[rw + 8];
+    const bool ra_in = b0 + ra < B, rb_in = b0 + rw + 8 < B;
 
+    // SIGNED on a bf16 weight's linear values: s1 of this thread's two batch
+    // rows at a stage's rows i, read into registers from L2 (ld.global.cg,
+    // so x1's lines keep L1) as the stage begins, in flight while it lands
+    // and its products run; a stage's two rows in one 8-byte load where they
+    // are aligned so (R = 2, K1 even, s1 8-byte aligned)
+    const bool s1_pairs = SIGNED && R == 2 && K1 % 2 == 0 &&
+                          reinterpret_cast<uintptr_t>(s1) % 8 == 0;
     for (int t = 0, jc = 0, i = 0; t < NSt; ++t) {
+      float sa[R], sb[R];  // SIGNED && !S1
+      if constexpr (SIGNED && !S1) {
+        const float* pa = s1f + (size_t)(b0 + rw) * K1 + i;
+        const float* pb = pa + (size_t)8 * K1;
+        if (R == 2 && s1_pairs && i + 1 < K1) {
+          const float2 va = ra_in ? __ldcg(reinterpret_cast<const float2*>(pa)) : float2{};
+          const float2 vb = rb_in ? __ldcg(reinterpret_cast<const float2*>(pb)) : float2{};
+          sa[0] = va.x, sa[R - 1] = va.y, sb[0] = vb.x, sb[R - 1] = vb.y;
+        } else {
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr) {
+            const bool row = i + rr < K1;
+            sa[rr] = ra_in && row ? __ldcg(pa + rr) : 0.f;
+            sb[rr] = rb_in && row ? __ldcg(pb + rr) : 0.f;
+          }
+        }
+      }
       // stage t (DIRECT) or t + 1 (converted) has landed; every warp is
       // done with stage t - 1 and with the slot issued next
       cp_async_wait<DIRECT ? NS - 2 : NS - 3>();
@@ -352,17 +438,50 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
       issue(t + NS - 1);
       if (i == 0) {  // r(E2) of the chunk, as bf16
         const int j0 = jc * JC;
+        if constexpr (CPLX) {
+          // a batch row's planes at stacked rows, each rounded at its flat
+          // index in torch.view_as_real's layout of x2 (2 k and 2 k + 1)
+          const float2* c2f = reinterpret_cast<const float2*>(x2f);
 #pragma unroll
-        for (int q = 0; q < BM * (JC / 8) / NT; ++q) {
-          const int c8 = tid + NT * q, r = c8 / (JC / 8), col = 8 * (c8 % (JC / 8)), b = b0 + r;
-          float v[8];
+          for (int q = 0; q < BB * (JC / 8) / NT; ++q) {
+            const int c8 = tid + NT * q, r = c8 / (JC / 8), col = 8 * (c8 % (JC / 8)), b = b0 + r;
+            float re[8], im[8];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int j = j0 + col + e;
-            v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+            for (int e = 0; e < 8; ++e) {
+              const int j = j0 + col + e;
+              re[e] = im[e] = 0.f;
+              if (b < B && j < K2) {
+                const float2 z = c2f[(size_t)b * K2 + j];
+                cirkit::cexp_f32(z.x - m2s[r], z.y, &re[e], &im[e]);
+              }
+            }
+            const unsigned long long idx = 2 * (((unsigned long long)f * B + b) * K2 + j0 + col);
+            const int sr = cirkit::stacked_at(r);
+            *reinterpret_cast<uint4*>(E2s + sw128(sr, col)) =
+                pack_bf16x8<MODE>(re, idx, cirkit::ROLE_E, 2);
+            *reinterpret_cast<uint4*>(E2s + sw128(sr + 8, col)) =
+                pack_bf16x8<MODE>(im, idx + 1, cirkit::ROLE_E, 2);
           }
-          const unsigned long long idx = ((unsigned long long)f * B + b) * K2 + j0 + col;
-          *reinterpret_cast<uint4*>(E2s + sw128(r, col)) = pack_bf16x8<MODE>(v, idx, cirkit::ROLE_E);
+        } else {
+#pragma unroll
+          for (int q = 0; q < BM * (JC / 8) / NT; ++q) {
+            const int c8 = tid + NT * q, r = c8 / (JC / 8), col = 8 * (c8 % (JC / 8)), b = b0 + r;
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int j = j0 + col + e;
+              if constexpr (SIGNED) {  // s2 folded in before the rounding
+                v[e] = b < B && j < K2
+                           ? s2f[(size_t)b * K2 + j] * expf(x2f[(size_t)b * K2 + j] - m2s[r])
+                           : 0.f;
+              } else {
+                v[e] = b < B && j < K2 ? expf(x2f[(size_t)b * K2 + j] - m2s[r]) : 0.f;
+              }
+            }
+            const unsigned long long idx = ((unsigned long long)f * B + b) * K2 + j0 + col;
+            *reinterpret_cast<uint4*>(E2s + sw128(r, col)) =
+                pack_bf16x8<MODE>(v, idx, cirkit::ROLE_E);
+          }
         }
         fence_proxy_async();
         __syncthreads();
@@ -387,8 +506,43 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
         wgmma_commit();
         if constexpr (!DIRECT) convert(t + 1, rr, njc, ni + rr);
         const bool row = i + rr < K1;
-        const float ea = ra_in && row ? expf(xs[rr * BM + rw] - m1a) : 0.f;
-        const float eb = rb_in && row ? expf(xs[rr * BM + rw + 8] - m1b) : 0.f;
+        if constexpr (CPLX) {
+          // rows rw and rw + 8 of the tile are S_re and S_im of batch row
+          // ra: acc += e1 S_i as complex numbers, the real part in the first
+          // row's registers
+          float er = 0.f, ei = 0.f;
+          if (ra_in && row) {
+            const float2 z = reinterpret_cast<const float2*>(xs)[rr * BB + ra];
+            cirkit::cexp_f32(z.x - m1a, z.y, &er, &ei);
+          }
+          wgmma_wait<0>();
+#pragma unroll
+          for (int n8 = 0; n8 < 8; ++n8) {
+            float* a = acc + 4 * n8;
+            const float* sv = s + 4 * n8;
+            a[0] = fmaf(er, sv[0], fmaf(-ei, sv[2], a[0]));
+            a[1] = fmaf(er, sv[1], fmaf(-ei, sv[3], a[1]));
+            a[2] = fmaf(er, sv[2], fmaf(ei, sv[0], a[2]));
+            a[3] = fmaf(er, sv[3], fmaf(ei, sv[1], a[3]));
+          }
+          continue;
+        }
+        float ea, eb;
+        if constexpr (SIGNED) {  // e1 = s1 exp(x1 - m1)
+          float s1a, s1b;
+          if constexpr (S1) {
+            s1a = xs[R * BM + rr * BM + rw];
+            s1b = xs[R * BM + rr * BM + rw + 8];
+          } else {
+            s1a = sa[rr];
+            s1b = sb[rr];
+          }
+          ea = ra_in && row ? s1a * expf(xs[rr * BM + rw] - m1a) : 0.f;
+          eb = rb_in && row ? s1b * expf(xs[rr * BM + rw + 8] - m1b) : 0.f;
+        } else {
+          ea = ra_in && row ? expf(xs[rr * BM + rw] - m1a) : 0.f;
+          eb = rb_in && row ? expf(xs[rr * BM + rw + 8] - m1b) : 0.f;
+        }
         wgmma_wait<0>();
 #pragma unroll
         for (int n8 = 0; n8 < 8; ++n8) {
@@ -432,6 +586,58 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
 
   // Epilogue: back to log space, masking the ragged batch and unit edges.
   float* outf = out + (size_t)f * B * O;
+  if constexpr (CPLX) {  // log|y| + shift + i atan2(Im y, Re y); y = 0 gives (-inf, 0)
+    const int r = cirkit::stacked_row(rw), b = b0 + r;
+    if (b >= B) return;
+    float2* outc = reinterpret_cast<float2*>(out) + (size_t)f * B * O;
+    const float shift = m1s[r] + m2s[r];
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = o0 + 8 * n8 + 2 * t4 + e;
+        const float re = acc[4 * n8 + e], im = acc[4 * n8 + 2 + e];
+        if (o < O) outc[(size_t)b * O + o] = make_float2(logf(hypotf(re, im)) + shift,
+                                                        atan2f(im, re));
+      }
+    return;
+  }
+  if constexpr (SIGNED) {  // (log|y| + shift, sign y); y = 0 gives (-inf, 0)
+    // a thread's two adjacent units in one 8-byte store to each output where
+    // O is even (o is even) and both outputs 8-byte aligned
+    float* signf = out_sign + (size_t)f * B * O;
+    const bool pairs = O % 2 == 0 && (reinterpret_cast<uintptr_t>(out) |
+                                      reinterpret_cast<uintptr_t>(out_sign)) % 8 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + 8 * h, b = b0 + r;
+      if (b >= B) continue;
+      const float shift = m1s[r] + m2s[r];
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const int c = 8 * n8 + 2 * t4, o = o0 + c;
+        float y[2], sg[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc[4 * n8 + 2 * h + e];
+          y[e] = logf(fabsf(v));
+          if (SOFTMAX) y[e] -= lsum[c + e];
+          y[e] += shift;
+          sg[e] = (v > 0.f) - (v < 0.f);
+        }
+        const size_t k = (size_t)b * O + o;
+        if (pairs && o < O) {
+          *reinterpret_cast<float2*>(outf + k) = make_float2(y[0], y[1]);
+          *reinterpret_cast<float2*>(signf + k) = make_float2(sg[0], sg[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (o + e < O) outf[k + e] = y[e], signf[k + e] = sg[e];
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = rw + 8 * h, b = b0 + r;
@@ -449,30 +655,35 @@ tucker_fwd_bf16(const float* __restrict__ x1,  // (F, B, K1)
   }
 }
 
-template <int BM, bool SOFTMAX, typename WT, int MODE>
+template <int BM, bool SOFTMAX, typename WT, int MODE, bool SIGNED, bool CPLX>
 int launch_blocks(const float* x1, const float* x2, const WT* w, float* out,
                   const CUtensorMap& wmap, bool vec, int F, int B, int K1, int K2, int O,
-                  cudaStream_t s) {
-  using C = tb::Cfg<BM, WT>;
-  const long long n_ot = (O + tb::BN - 1) / tb::BN, n_bt = (B + BM - 1) / BM;
+                  const float* s1, const float* s2, float* out_sign, cudaStream_t s) {
+  using C = tb::Cfg<BM, WT, tb::s1_in_ring<SIGNED, SOFTMAX, WT>>;
+  constexpr int BB = CPLX ? BM / 2 : BM;
+  const long long n_ot = (O + tb::BN - 1) / tb::BN, n_bt = (B + BB - 1) / BB;
   const long long blocks = (long long)F * n_ot * n_bt;
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = tucker_fwd_bf16<BM, SOFTMAX, WT, MODE>;
+  auto kernel = tucker_fwd_bf16<BM, SOFTMAX, WT, MODE, SIGNED, CPLX>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), C::NT, C::SMEM, s>>>(
-      x1, x2, w, out, wmap, B, K1, K2, O, static_cast<int>(n_ot), static_cast<int>(n_bt), vec);
+      x1, x2, w, out, wmap, B, K1, K2, O, static_cast<int>(n_ot), static_cast<int>(n_bt), vec,
+      s1, s2, out_sign);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of 128 batch rows up to a batch of 128, of 256 past it, where each
-// converted tile then serves twice the rows. The weight goes through TMA
-// where every row segment of K2 weights starts 16-byte aligned (a bf16
-// tile in the 128-byte swizzle), else the convert step reads it.
-template <bool SOFTMAX, typename WT, int MODE>
+// Blocks of 128 rows up to a batch of 128, of 256 past it, where each
+// converted tile then serves twice the rows (CPLX: stacked rows, two a batch
+// row, so blocks of 256 from a batch of 65: at the complex flagship's 128 a
+// fold's weight is read and converted once). The weight goes through TMA
+// where every row segment of K2 weights starts 16-byte aligned (a bf16 tile
+// in the 128-byte swizzle), else the convert step reads it.
+template <bool SOFTMAX, typename WT, int MODE, bool SIGNED = false, bool CPLX = false>
 int launch_bf16(const float* x1, const float* x2, const WT* w, float* out, int F, int B, int K1,
-                int K2, int O, int device, void* stream) {
+                int K2, int O, int device, void* stream, const float* s1 = nullptr,
+                const float* s2 = nullptr, float* out_sign = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -480,10 +691,11 @@ int launch_bf16(const float* x1, const float* x2, const WT* w, float* out, int F
   CUtensorMap wmap{};
   if (vec && (err = cirkit::weight_map(&wmap, w, F, K1, K2, O)) != cudaSuccess)
     return static_cast<int>(err);
-  return B <= 128
-             ? launch_blocks<128, SOFTMAX, WT, MODE>(x1, x2, w, out, wmap, vec, F, B, K1, K2, O, s)
-             : launch_blocks<256, SOFTMAX, WT, MODE>(x1, x2, w, out, wmap, vec, F, B, K1, K2, O,
-                                                    s);
+  return (CPLX ? 2 * B : B) <= 128
+             ? launch_blocks<128, SOFTMAX, WT, MODE, SIGNED, CPLX>(
+                   x1, x2, w, out, wmap, vec, F, B, K1, K2, O, s1, s2, out_sign, s)
+             : launch_blocks<256, SOFTMAX, WT, MODE, SIGNED, CPLX>(
+                   x1, x2, w, out, wmap, vec, F, B, K1, K2, O, s1, s2, out_sign, s);
 }
 
 }  // namespace
@@ -493,9 +705,10 @@ extern "C" {
 // The fast-mode instances of the Tucker forwards (ops/lse_einsum.py's
 // INSTANCES), with the arguments of their f32-grade twins; the K1-chunked
 // forward's fast instances (kernel 5) launch these entries too. The build
-// compiles this source once for each part (-DCIRKIT_BF16_PART=0..3;
-// ops/_build.py), side by side: a part for each weight type and mode. A
-// build without the macro holds all of them.
+// compiles this source once for each part (-DCIRKIT_BF16_PART=0..8;
+// ops/_build.py), side by side: parts 0-3 for each weight type and mode of
+// these, 4-7 of the signed ones, 8 the complex ones. A build without the
+// macro holds all of them.
 #define TUCKER_BF16_ENTRIES(SUFFIX, WT, MODE)                                                   \
   int lse_fwd_tucker##SUFFIX(const float* x1, const float* x2, const WT* w, float* out, int F,  \
                              int B, int K1, int K2, int O, int device, void* stream) {          \
@@ -520,5 +733,55 @@ TUCKER_BF16_ENTRIES(_w16_fast, __nv_bfloat16, cirkit::BF16)
 TUCKER_BF16_ENTRIES(_w16_sr, __nv_bfloat16, cirkit::SR)
 #endif
 #undef TUCKER_BF16_ENTRIES
+
+// The fast-mode instances of the signed Tucker forwards (kernel 6',
+// ops/slse_einsum.py), with the arguments of their f32-grade twins in
+// csrc/lse_einsum.cu: parts 4-7, a part for each weight type and mode.
+#define SLSE_BF16_ENTRIES(SUFFIX, WT, MODE)                                                     \
+  int slse_fwd_tucker##SUFFIX(const float* a1, const float* s1, const float* a2,                \
+                              const float* s2, const WT* w, float* oa, float* os, int F, int B, \
+                              int K1, int K2, int O, int device, void* stream) {                \
+    return launch_bf16<false, WT, MODE, true>(a1, a2, w, oa, F, B, K1, K2, O, device, stream,   \
+                                              s1, s2, os);                                      \
+  }                                                                                             \
+  int slse_fwd_tucker_softmax##SUFFIX(const float* a1, const float* s1, const float* a2,        \
+                                      const float* s2, const WT* theta, float* oa, float* os,   \
+                                      int F, int B, int K1, int K2, int O, int device,          \
+                                      void* stream) {                                           \
+    return launch_bf16<true, WT, MODE, true>(a1, a2, theta, oa, F, B, K1, K2, O, device,        \
+                                             stream, s1, s2, os);                               \
+  }
+
+#if !defined(CIRKIT_BF16_PART) || CIRKIT_BF16_PART == 4
+SLSE_BF16_ENTRIES(_fast, float, cirkit::BF16)
+#endif
+#if !defined(CIRKIT_BF16_PART) || CIRKIT_BF16_PART == 5
+SLSE_BF16_ENTRIES(_sr, float, cirkit::SR)
+#endif
+#if !defined(CIRKIT_BF16_PART) || CIRKIT_BF16_PART == 6
+SLSE_BF16_ENTRIES(_w16_fast, __nv_bfloat16, cirkit::BF16)
+#endif
+#if !defined(CIRKIT_BF16_PART) || CIRKIT_BF16_PART == 7
+SLSE_BF16_ENTRIES(_w16_sr, __nv_bfloat16, cirkit::SR)
+#endif
+#undef SLSE_BF16_ENTRIES
+
+// The fast-mode instances of the complex64 Tucker forward against a real
+// weight (kernel 10', ops/clse_einsum.py's fwd_entry), with the arguments of
+// clse_fwd_tucker_rw (csrc/lse_einsum.cu): part 8.
+#if !defined(CIRKIT_BF16_PART) || CIRKIT_BF16_PART == 8
+int clse_fwd_tucker_rw_fast(const void* x1, const void* x2, const float* w, void* out, int F,
+                            int B, int K1, int K2, int O, int device, void* stream) {
+  return launch_bf16<false, float, cirkit::BF16, false, true>(
+      static_cast<const float*>(x1), static_cast<const float*>(x2), w, static_cast<float*>(out),
+      F, B, K1, K2, O, device, stream);
+}
+int clse_fwd_tucker_rw_sr(const void* x1, const void* x2, const float* w, void* out, int F,
+                          int B, int K1, int K2, int O, int device, void* stream) {
+  return launch_bf16<false, float, cirkit::SR, false, true>(
+      static_cast<const float*>(x1), static_cast<const float*>(x2), w, static_cast<float*>(out),
+      F, B, K1, K2, O, device, stream);
+}
+#endif
 
 }  // extern "C"

@@ -3,14 +3,17 @@
 The sources are compiled at first use by ``nvcc``, one process per source
 (``lse_einsum.cu`` and ``clse_einsum.cu`` in three parts, ``blocked_bf16.cu``
 in five, ``lse_einsum_bwd.cu`` and ``tucker_bf16_bwd.cu`` in six,
-``tucker_bf16.cu`` in four) started together, and linked into a shared library
+``tucker_bf16.cu`` in nine) started together, and linked into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``; the signed log-einsum-exp kernels are template
 instances in the lse kernels' two sources, the complex ones have a source of
 their own, and so have the fast modes' Tucker forwards and backward on the
 bf16 tensor cores (``tucker_bf16.cu``: the ``_fast``, ``_sr``, ``_w16_fast``
 and ``_w16_sr`` entries of ``lse_fwd_tucker[_softmax]``, which kernel 5's
-fast instances launch too; ``tucker_bf16_bwd.cu``: those of
+fast instances launch too, and of ``slse_fwd_tucker[_softmax]``, and the
+``_fast`` and ``_sr`` ones of ``clse_fwd_tucker_rw``, the signed and the
+complex Tucker forwards, whose float32-grade instances are
+``lse_einsum.cu``'s tensor-core ones; ``tucker_bf16_bwd.cu``: those of
 ``lse_bwd_tucker[_softmax]``, kernel 5's backward too, and of
 ``slse_bwd_tucker[_softmax]`` and ``clse_bwd_tucker_rw``, the signed and the
 complex Tucker backwards, whose float32-grade instances are
@@ -48,7 +51,7 @@ _HEADERS = (_PKG / "csrc" / "lse_common.cuh", _PKG / "csrc" / "tc_common.cuh")
 # instances in parts that compile side by side (each part's macro selects
 # its entries), the others whole
 _PARTS = {"lse_einsum.cu": ("CIRKIT_FWD_PART", 3), "lse_einsum_bwd.cu": ("CIRKIT_BWD_PART", 6),
-          "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3), "tucker_bf16.cu": ("CIRKIT_BF16_PART", 4),
+          "clse_einsum.cu": ("CIRKIT_CLSE_PART", 3), "tucker_bf16.cu": ("CIRKIT_BF16_PART", 9),
           "tucker_bf16_bwd.cu": ("CIRKIT_BF16_BWD_PART", 6),
           "blocked_bf16.cu": ("CIRKIT_BLOCKED_PART", 5)}
 _UNITS = tuple(
@@ -134,8 +137,10 @@ _SIGNATURES["lse_bwd_scratch"] = ((_I,) * 7, ctypes.c_size_t)
 # gy and ws, after the row shifts
 _SIGNATURES["slse_bwd_tucker"] = ((*(_P,) * 15, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int)
 _SIGNATURES["slse_bwd_tucker_softmax"] = _SIGNATURES["slse_bwd_tucker"]
-# the complex64 Tucker backward against a real weight: (x1, x2, w, out, g),
-# the gradients (dx1, dx2, dw), the scratch (sa, sb, ws), F, B, K1, K2, O
+# the complex64 Tucker forward and backward against a real weight: (x1, x2,
+# w, out), F, B, K1, K2, O; the backward adds g, the gradients (dx1, dx2,
+# dw) and the scratch (sa, sb, ws) after out
+_SIGNATURES["clse_fwd_tucker_rw"] = ((*(_P,) * 4, *(_I,) * 6, _P), ctypes.c_int)
 _SIGNATURES["clse_bwd_tucker_rw"] = ((*(_P,) * 11, *(_I,) * 6, _P), ctypes.c_int)
 INSTANCES = ("_fast", "_sr", "_w16", "_w16_fast", "_w16_sr")
 """The entry suffixes of the bf16-weight (``_w16``) and fast-mode (``_fast``,
@@ -159,7 +164,8 @@ _SIGNATURES.update({
     for sfx in INSTANCES
 })
 _SIGNATURES.update({f"{name}{sfx}": _SIGNATURES[name]
-                    for name in ("clse_fwd", "clse_bwd", "clse_bwd_tucker_rw")
+                    for name in ("clse_fwd", "clse_bwd", "clse_fwd_tucker_rw",
+                                 "clse_bwd_tucker_rw")
                     for sfx in COMPLEX_INSTANCES})
 _SIGNATURES.update({f"{name}_w16": _SIGNATURES[name] for name in (
     "lse_fwd_ct", "lse_fwd_ct_softmax", "tropical_tucker", "route_tucker")})

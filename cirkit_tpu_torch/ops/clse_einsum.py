@@ -22,7 +22,9 @@ is complex, or real (the softmaxed logits of a monotonic circuit): a real
 weight is read as it is, with no complex copy, and gets a real gradient.
 
 Each op is a ``torch.autograd.Function`` around the hand-written CUDA
-kernels of ``csrc/clse_einsum.cu``, forward and backward. Unlike the TPU
+kernels of ``csrc/clse_einsum.cu``, forward and backward; the complex64
+Tucker op against a real weight, the complex flagship's, runs kernels of its
+own on the tensor cores (:func:`fwd_entry`, :func:`bwd_entry`). Unlike the TPU
 kernel, which returns the linear-space ``(Re y, Im y, m)`` and leaves the
 logarithm to the caller, the CUDA forward writes ``log y + m`` itself and
 the backward folds the logarithm's VJP into its first pass. The kernels read
@@ -56,9 +58,12 @@ in ``torch.view_as_real``'s layout of its operand (``2 k`` and ``2 k + 1``
 for the value at flat index ``k``; a real weight's own flat index):
 
 - forward: the real and imaginary planes of ``e = exp(x - m)``, after the
-  ``sincos``, at their flat index in (F, B, I) (role ``ROLE_E``; for Tucker
-  the product ``e1 e2``, which the kernel forms one chunk at a time as
-  ``exp((x1 - m1) + (x2 - m2))``), and the weight's planes (``ROLE_W``);
+  ``sincos``, at their flat index in (F, B, I) (role ``ROLE_E``), and the
+  weight's planes (``ROLE_W``); for Tucker against a complex weight the
+  product ``e1 e2``, which the kernel forms one chunk at a time as
+  ``exp((x1 - m1) + (x2 - m2))``, and against a real weight (the tensor-core
+  kernels, as the unsigned and signed Tucker forwards) the planes of ``e2``
+  at their flat index in (F, B, K2), ``e1`` kept complex64;
 - backward: the planes of ``gy`` (``ROLE_GY``) and of the weights
   (``ROLE_WB``) of ``de = gy @ conj(w)``, and of ``gy`` and ``e``
   (``ROLE_EB``; for Tucker ``e1 e2``) of ``dw``; ``dx = conj(e) de`` and the
@@ -159,11 +164,14 @@ def clse_tucker2_ref(
     x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, mode: str = ""
 ) -> torch.Tensor:
     """The complex Tucker contraction with the (F, B, K1*K2) outer product
-    materialized; in a fast mode each of its elements formed as the kernel
-    forms it, ``exp((x1 - m1) + (x2 - m2))``, and rounded."""
+    materialized. In a fast mode, against a real weight (the kernel on the
+    tensor cores) the planes of ``e2 = exp(x2 - m2)`` and the weight are
+    rounded, ``e1`` kept complex64; against a complex weight each element of
+    the outer product is formed as that kernel forms it, ``exp((x1 - m1) +
+    (x2 - m2))``, and rounded."""
     f, b, k1 = x1.shape
     k2 = x2.shape[2]
-    if mode:
+    if mode and w.is_complex():
         m1, m2 = _clamp_max(x1.real), _clamp_max(x2.real)
         re = (x1.real - m1)[..., :, None] + (x2.real - m2)[..., None, :]
         e = _cis(torch.exp(re), x1.imag[..., :, None] + x2.imag[..., None, :])
@@ -172,6 +180,8 @@ def clse_tucker2_ref(
         return _from_linear(torch.bmm(e, _as(w, e.dtype).transpose(1, 2)), m1 + m2)
     e1, m1 = _complex_exp(x1)
     e2, m2 = _complex_exp(x2)
+    if mode:
+        e2, w = round_planes(e2, mode, ROLE_E), round_planes(w, mode, ROLE_W)
     e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
     return _from_linear(torch.bmm(e, _as(w, e.dtype).transpose(1, 2)), m1 + m2)
 
@@ -279,7 +289,7 @@ def _instance(op: str, ins: tuple[torch.Tensor, ...], mode: str) -> str:
 
 def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch.Tensor:
     """Check the operands, allocate the output and launch the forward entry
-    (in ``mode``) on the current stream."""
+    (in ``mode``; :func:`fwd_entry`) on the current stream."""
     dev = _check_operands(op, ins, len(ins) - 1)
     inst = _instance(op, ins, mode)
     sizes = _sizes(ins)
@@ -291,13 +301,35 @@ def _launch_fwd(op: str, ins: tuple[torch.Tensor, ...], mode: str = "") -> torch
     out = torch.empty((f, b, o), device=dev, dtype=ins[0].dtype)
     if out.numel() == 0:
         return out
-    xb = ins[1].data_ptr() if len(ins) == 3 else None
+    entry = fwd_entry(op, ins[0].dtype, ins[-1].dtype, mode)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (ins[0].data_ptr(), xb, ins[-1].data_ptr(), out.data_ptr(), *sizes, *_flags(ins),
-            dev.index, stream)
-    _call(_build.library(), "clse_fwd" + inst, op, args)
+    if entry.startswith("clse_fwd_tucker_rw"):
+        args = (*(t.data_ptr() for t in (*ins, out)), *sizes, dev.index, stream)
+    else:
+        xb = ins[1].data_ptr() if len(ins) == 3 else None
+        args = (ins[0].data_ptr(), xb, ins[-1].data_ptr(), out.data_ptr(), *sizes, *_flags(ins),
+                dev.index, stream)
+    _call(_build.library(), entry, op, args)
     LAUNCHES[op + inst] += 1
     return out
+
+
+def _tucker_rw(op: str, dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
+    """Whether ``op`` on values of ``dtype`` and a weight of ``w_dtype`` is
+    the complex64 Tucker contraction against a real weight (the complex
+    flagship's), which has entries of its own on the tensor cores."""
+    return op == "clse_tucker2" and dtype == torch.complex64 and not w_dtype.is_complex
+
+
+def fwd_entry(op: str, dtype: torch.dtype, w_dtype: torch.dtype, mode: str) -> str:
+    """The forward entry of ``op`` on values of ``dtype`` and a weight of
+    ``w_dtype`` in ``mode``: ``clse_fwd_tucker_rw`` (``csrc/lse_einsum.cu``'s
+    ``tucker_fwd_tc`` with ``CPLX``) and its ``_fast`` and ``_sr`` instances
+    (``csrc/tucker_bf16.cu``'s ``tucker_fwd_bf16`` with ``CPLX``) for the
+    complex64 Tucker op against a real weight; every other configuration
+    ``clse_fwd`` (``csrc/clse_einsum.cu``)."""
+    rw = _tucker_rw(op, dtype, w_dtype)
+    return ("clse_fwd_tucker_rw" if rw else "clse_fwd") + MODE_SUFFIX[mode]
 
 
 def bwd_entry(op: str, dtype: torch.dtype, w_dtype: torch.dtype, mode: str) -> str:
@@ -308,7 +340,7 @@ def bwd_entry(op: str, dtype: torch.dtype, w_dtype: torch.dtype, mode: str) -> s
     ``launch_cbwd_tc``) and its ``_fast`` and ``_sr`` instances
     (``csrc/tucker_bf16_bwd.cu``'s ``tucker_bwd_bf16`` with ``CPLX``); every
     other configuration ``clse_bwd`` (``csrc/clse_einsum.cu``)."""
-    rw = op == "clse_tucker2" and dtype == torch.complex64 and not w_dtype.is_complex
+    rw = _tucker_rw(op, dtype, w_dtype)
     return ("clse_bwd_tucker_rw" if rw else "clse_bwd") + MODE_SUFFIX[mode]
 
 

@@ -55,11 +55,13 @@ Weight stores and speed modes (the counterpart of ``_fast_mode``,
   float32 in their op wrappers, as the JAX package widens it to complex64
   (the routing kernels read it as bf16: ``ops/routing.py``);
 - ``CIRKIT_TPU_FAST`` (:func:`fast_mode`, read at each call as in JAX):
-  unset runs the f32-grade instances (3xTF32 here; float32 FMAs in the
-  signed and complex kernels 6, 7, 10 and 11, which run on the CUDA cores);
+  unset runs the f32-grade instances (3xTF32 here and in the signed and
+  complex Tucker kernels 6, 7, 10 and 11 against a real weight; float32
+  FMAs in their other configurations, which run on the CUDA cores);
   ``sr`` stochastically rounds the contraction operands to bf16, any other
   value rounds them to the nearest bf16; the Tucker forwards (kernels 1
-  and 5) and their backward, and the blocked dense kernels 3 and 4, then
+  and 5, and the signed and complex ones, 6 and 10 against a real weight)
+  and their backwards, and the blocked dense kernels 3 and 4, then
   run their products on the bf16 tensor cores (``csrc/tucker_bf16.cu``,
   ``csrc/tucker_bf16_bwd.cu``, ``csrc/blocked_bf16.cu``), the other
   tensor-core kernels one TF32 pass

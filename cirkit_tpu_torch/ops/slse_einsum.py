@@ -18,9 +18,9 @@ Each returns ``(log|y| + shift, sign y)``; an exact cancellation ``y = 0``
 gives ``(-inf, 0)``, never NaN. Each op is a ``torch.autograd.Function``
 around two entries of the hand-written CUDA kernels (``csrc/lse_einsum.cu``
 and ``csrc/lse_einsum_bwd.cu``, the lse kernels' ``SIGNED`` instances; the
-float32 Tucker backward runs the lse Tucker backward's kernels with the signs
-folded in, on the tensor cores, and in a fast mode ``csrc/tucker_bf16_bwd.cu``'s:
-:func:`bwd_route`). The
+float32 Tucker forward and backward run the lse Tucker kernels with the signs
+folded in, on the tensor cores, and in a fast mode ``csrc/tucker_bf16.cu``'s
+and ``csrc/tucker_bf16_bwd.cu``'s: :func:`bwd_route`). The
 sign output is piecewise constant: it is marked non-differentiable and its
 cotangent is dropped, as the JAX package's ``_sfused_p_bwd`` does. The
 gradients of the sign inputs are not computed (they come back as None): in
@@ -52,12 +52,15 @@ mode and takes a bf16 weight widened. The rounding points, which the plain
 versions share, with the bits of :func:`~cirkit_tpu_torch.ops.lse_einsum.sr_bits`:
 
 - forward: the staged signed exponentials ``e = s * exp(a - m)``, each at
-  its flat index in (F, B, I) (role ``ROLE_E``), for Tucker the product
-  ``e1 * e2``, which the kernel forms one chunk at a time as ``s1 s2 exp((a1
-  - m1) + (a2 - m2))``; and the weights (``ROLE_W``), with logits ``exp(theta
-  - row max)``, the normalizer summed unrounded in float32. The narrow dense
-  kernel rounds each row's ``e`` as it writes it to shared memory and its
-  staged weight tile;
+  its flat index in (F, B, I) (role ``ROLE_E``), and the weights
+  (``ROLE_W``), with logits ``exp(theta - row max)``, the normalizer summed
+  unrounded in float32. The narrow dense kernel rounds each row's ``e`` as
+  it writes it to shared memory and its staged weight tile. The Tucker
+  forwards round as the unsigned ones do (``ops/lse_einsum.py``): ``e2 = s2
+  exp(a2 - m2)`` at its flat index in (F, B, K2) and the weights, ``e1 = s1
+  exp(a1 - m1)`` kept float32 (the kernel folds it in after the products),
+  and with logits ``exp(theta - r)`` over each unit's running max ``r`` of
+  the tiles so far;
 - backward: ``gy`` (``ROLE_GY``, the flat index in (F, B, O)) and the
   weights (``ROLE_WB``) of ``t = gy @ w``, ``gy`` and ``e`` (``ROLE_EB``; for
   Tucker ``e1 * e2``) of ``dw = gy^T e``, as in kernel 2; ``dx = e * t``, the
@@ -97,6 +100,7 @@ from cirkit_tpu_torch.ops.lse_einsum import (
     _softmax_vjp,
     _traced,
     _tucker_bf16_bwd_scratch,
+    _tucker_fast_numerators,
     _tucker_tc_scratch,
     _weight_for,
     bf16_pair,
@@ -159,22 +163,20 @@ def slse_matmul_softmax_ref(
 
 def slse_tucker2_ref(
     a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor, w: torch.Tensor,
-    mode: str = "",
+    mode: str = "", *, round_w: bool = True,
 ) -> Pair:
     """The signed Tucker contraction with the (F, B, K1*K2) outer product
-    materialized; in a fast mode each of its elements formed as the kernel
-    forms it, ``s1 s2 exp((a1 - m1) + (a2 - m2))``, and rounded."""
+    materialized; in a fast mode with ``e2 = s2 exp(a2 - m2)`` and the
+    weights rounded, ``e1`` in float32, as the kernel rounds them
+    (``round_w=False`` takes ``w`` as already rounded)."""
     f, b, k1 = a1.shape
     k2 = a2.shape[2]
     w = w.to(a1.dtype)
-    if mode:
-        m1, m2 = _clamp_max(a1), _clamp_max(a2)
-        v = (a1 - m1)[..., :, None] + (a2 - m2)[..., None, :]
-        e = (s1[..., :, None] * s2[..., None, :]) * torch.exp(v)
-        e = round_bf16(e.reshape(f, b, k1 * k2), mode, ROLE_E)
-        return _from_linear(torch.bmm(e, round_bf16(w, mode, ROLE_W).transpose(1, 2)), m1 + m2)
     e1, m1 = _signed_exp(a1, s1)
     e2, m2 = _signed_exp(a2, s2)
+    if mode:
+        e2 = round_bf16(e2, mode, ROLE_E)
+        w = round_bf16(w, mode, ROLE_W) if round_w else w
     e = (e1[..., :, None] * e2[..., None, :]).reshape(f, b, k1 * k2)
     return _from_linear(torch.bmm(e, w.transpose(1, 2)), m1 + m2)
 
@@ -183,7 +185,16 @@ def slse_tucker2_softmax_ref(
     a1: torch.Tensor, s1: torch.Tensor, a2: torch.Tensor, s2: torch.Tensor,
     theta: torch.Tensor, mode: str = "",
 ) -> Pair:
-    return _softmax_ref(slse_tucker2_ref, theta, mode, a1, s1, a2, s2)
+    """:func:`slse_tucker2_ref` on ``softmax(theta)``; in a fast mode on the
+    unsigned fast Tucker forwards' weights (``exp(theta - r)`` over each
+    unit's running max of the tiles so far, rounded:
+    :func:`~cirkit_tpu_torch.ops.lse_einsum._tucker_fast_numerators`), the
+    log of their float32 normalizer subtracted."""
+    if not mode:
+        return _softmax_ref(slse_tucker2_ref, theta, mode, a1, s1, a2, s2)
+    w, lz = _tucker_fast_numerators(theta.to(a1.dtype), a2.shape[2], mode)
+    la, sg = slse_tucker2_ref(a1, s1, a2, s2, w, mode, round_w=False)
+    return la - lz.transpose(1, 2), sg
 
 
 # The plain backward versions: the math of the backward kernel (and of the

@@ -7,10 +7,25 @@ checkout, with the ``csrc`` directory of another tree (for example the
 parent commit unpacked by ``git archive`` into a directory that
 ``.gitignore`` lists), or alone:
 
-    python3 scripts/sos_fwd_ab.py [OTHER_CSRC]
+    python3 scripts/sos_fwd_ab.py [OTHER_CSRC] [--tucker]
 
 Each tree's ``lse_einsum.cu`` and ``clse_einsum.cu`` are compiled (flags of
 ``cirkit_tpu_torch/ops/_build.py``) into a library of its own.
+
+``--tucker`` times the Tucker forwards instead, each tree's whole library
+built by its own ``ops/_build.py`` (the tree's root is two levels above its
+``csrc``): at the K=64 Tucker entry (F=784, B=128, K1=K2=O=64) and at the
+serving batch (F=196, B=512), the float32 signed Tucker entries in every
+instance (``slse_fwd_tucker*``, plain weights and logits: f32-grade float32
+and ``_w16`` weights, ``_fast``, ``_sr``, ``_w16_fast``, ``_w16_sr``) and
+the complex64 one against a real weight (f32-grade, ``_fast``, ``_sr``:
+``clse_fwd_tucker_rw*``, which both trees must hold), with the
+unsigned Tucker forward of the same instance (``lse_fwd_tucker*``, rows 1
+and 1', on ``|w|`` or the logits) beside each as its yardstick. The trees
+are held to each other in linear space scaled by the row's absolute mass
+(1e-5 in the f32-grade mode; in a fast mode, where two trees may round at
+other points, 3 u with u the rounding's relative step, 2^-8 to the nearest
+and 2^-7 stochastic) and two calls of this tree to the bit.
 
 - **Kernels.** The forward entries of both are called on the same inputs,
   in turns (other, this, this, other), at the squared circuits' dense
@@ -54,6 +69,7 @@ import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
 from ab_turns import in_turns  # noqa: E402
+from sos_bwd_ab import _library as _tree_library, _tree_build  # noqa: E402
 from cirkit_tpu_torch.ops import _build  # noqa: E402
 from cirkit_tpu_torch.ops import lse_einsum as L  # noqa: E402
 from cirkit_tpu_torch.ops._build import _SIGNATURES, NVCC_FLAGS, _nvcc  # noqa: E402
@@ -99,10 +115,94 @@ def _complex_case(gen, shape, ctype, real_w):
     return [x, w], L.lse_matmul_ref(x.real.contiguous(), w.abs())
 
 
-def _bound_ms(ins, outs, fmas: int, double: bool) -> float:
+def _bound_ms(ins, outs, fmas: int, double: bool, peak: float | None = None) -> float:
     moved = sum(t.numel() * t.element_size() for t in (*ins, *outs))
-    peak = CS.F64_PEAK if double else CS.F32_PEAK
+    peak = peak or (CS.F64_PEAK if double else CS.F32_PEAK)
     return max(moved / CS.HBM_RATE, 2 * fmas / peak) * 1e3
+
+
+TUCKER_SHAPES = (("K=64", (784, 128, 64, 64)), ("B=512", (196, 512, 64, 64)))  # F, B, K, O
+TUCKER_INSTANCES = (("", ""), ("_w16", ""), ("_fast", "bf16"), ("_sr", "sr"),
+                    ("_w16_fast", "bf16"), ("_w16_sr", "sr"))
+FAST_TOL = {"": 1e-5, "bf16": 3 * 2.0**-8, "sr": 3 * 2.0**-7}
+
+
+def _tucker(libs, order, gen, stream) -> None:
+    """The signed and complex Tucker forwards in every instance, each with
+    the unsigned one of its instance beside it."""
+    for where, (f, b, k, o) in TUCKER_SHAPES:
+        sizes = (f, b, k, k, o)
+        for softmax in (False, True):
+            tail = "_softmax" if softmax else ""
+            a1, a2 = (torch.randn((f, b, k), generator=gen, device="cuda") * 3 - 2
+                      for _ in range(2))
+            s1, s2 = (torch.randint(-1, 2, (f, b, k), generator=gen, device="cuda").float()
+                      for _ in range(2))
+            w32 = torch.randn((f, o, k * k), generator=gen, device="cuda")
+            wabs = torch.softmax(w32, dim=-1) if softmax else w32.abs()
+            mass = L.lse_tucker2_ref(a1, a2, wabs)
+            for sfx, mode in TUCKER_INSTANCES:
+                w = w32.to(torch.bfloat16) if sfx.startswith("_w16") else w32
+                outs = {name: [torch.empty((f, b, o), device="cuda") for _ in range(2)]
+                        for name in libs}
+
+                def call(name, w=w, outs=outs, entry=f"slse_fwd_tucker{tail}{sfx}"):
+                    err = getattr(libs[name], entry)(
+                        *(t.data_ptr() for t in (a1, s1, a2, s2, w, *outs[name])), *sizes, 0,
+                        stream)
+                    assert err == 0, err
+
+                def linear(name, outs=outs):
+                    oa, os_ = outs[name]
+                    return torch.where(torch.isneginf(mass), 0.0, os_ * torch.exp(oa - mass))
+
+                peak = CS.BF16_PEAK if mode else CS.F32_PEAK
+                _report(f"slse_fwd_tucker{tail}{sfx} {where}", libs, order, call, outs, linear,
+                        FAST_TOL[mode],
+                        _bound_ms((a1, s1, a2, s2, w), outs["this"], f * b * k * k * o, False,
+                                  peak))
+                # the unsigned forward of the same instance (rows 1 and 1')
+                uw = w if softmax else w.abs()
+                uouts = {name: [torch.empty((f, b, o), device="cuda")] for name in libs}
+
+                def ucall(name, uw=uw, uouts=uouts, entry=f"lse_fwd_tucker{tail}{sfx}"):
+                    err = getattr(libs[name], entry)(
+                        *(t.data_ptr() for t in (a1, a2, uw, *uouts[name])), *sizes, 0, stream)
+                    assert err == 0, err
+
+                def ulinear(name, uouts=uouts):
+                    return torch.where(torch.isneginf(mass), 0.0, torch.exp(uouts[name][0] - mass))
+
+                _report(f"  unsigned lse_fwd_tucker{tail}{sfx} {where}", libs, order, ucall,
+                        uouts, ulinear, FAST_TOL[mode],
+                        _bound_ms((a1, a2, uw), uouts["this"], f * b * k * k * o, False, peak))
+                del outs, uouts
+            del a1, a2, s1, s2, w32, wabs, mass
+        # the complex64 Tucker forward against a real weight
+        phase = [(torch.rand((f, b, k), generator=gen, device="cuda") * 2 - 1) * math.pi
+                 for _ in range(2)]
+        x1, x2 = (torch.complex(torch.randn((f, b, k), generator=gen, device="cuda") * 3 - 2, p)
+                  for p in phase)
+        w = torch.randn((f, o, k * k), generator=gen, device="cuda")
+        mass = L.lse_tucker2_ref(x1.real.contiguous(), x2.real.contiguous(), w.abs())
+        for sfx, mode in (("", ""), ("_fast", "bf16"), ("_sr", "sr")):
+            outs = {name: [torch.empty((f, b, o), device="cuda", dtype=torch.complex64)]
+                    for name in libs}
+
+            def call(name, outs=outs, entry="clse_fwd_tucker_rw" + sfx):
+                ptrs = (x1.data_ptr(), x2.data_ptr(), w.data_ptr(), outs[name][0].data_ptr())
+                err = getattr(libs[name], entry)(*ptrs, *sizes, 0, stream)
+                assert err == 0, err
+
+            def linear(name, outs=outs):
+                return torch.where(torch.isneginf(mass), 0.0, torch.exp(outs[name][0] - mass))
+
+            _report(f"clse_fwd_tucker_rw{sfx} {where} complex64, real w", libs, order, call,
+                    outs, linear, FAST_TOL[mode],
+                    _bound_ms((x1, x2, w), outs["this"], 2 * f * b * k * k * o, False,
+                              CS.BF16_PEAK if mode else CS.F32_PEAK))
+            del outs
+        del x1, x2, w, mass
 
 
 def _kernels(libs, order, gen, stream) -> None:
@@ -203,21 +303,31 @@ def _circuits(libs, order) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) > 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    tucker = "--tucker" in args
+    args = [a for a in args if a != "--tucker"]
+    if len(args) > 1 or not torch.cuda.is_available():
         print(__doc__)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     trees = {"this": REPO / "cirkit_tpu_torch" / "csrc"}
-    if len(sys.argv) == 2:
-        trees = {"other": Path(sys.argv[1]), **trees}
+    if args:
+        trees = {"other": Path(args[0]).resolve(), **trees}
     (REPO / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=REPO / "build"))
-    libs = {name: _library(path, tmp / f"lib{name}.so") for name, path in trees.items()}
+    if tucker:
+        libs = {name: _tree_library(_tree_build(path.parents[1], name))
+                for name, path in trees.items()}
+    else:
+        libs = {name: _library(path, tmp / f"lib{name}.so") for name, path in trees.items()}
     order = ("other", "this", "this", "other") if "other" in libs else ("this", "this")
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
+        if tucker:
+            _tucker(libs, order, gen, torch.cuda.current_stream().cuda_stream)
+            return 0
         _kernels(libs, order, gen, torch.cuda.current_stream().cuda_stream)
     _circuits(libs, order)
     return 0

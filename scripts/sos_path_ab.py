@@ -1,5 +1,5 @@
-"""The paths of the signed and complex Tucker backwards, timed in one or two
-source trees on one card: ``chip_smoke.py`` phase 9b's signed K=64 Tucker
+"""The paths of the signed and complex Tucker forwards and backwards, timed
+in one or two source trees on one card: ``chip_smoke.py`` phase 9b's signed K=64 Tucker
 flagships (logits, and the EM-ready store's linear weights) and phase 10b's
 complex one (its softmaxed weights stay real), a forward and one backward
 each in the f32-grade mode, ``CIRKIT_TPU_FAST=1`` and ``sr`` (phase 18's
@@ -18,8 +18,11 @@ package, ``chip_smoke.py`` helpers and kernel library, the trees in turns
 timings after 2 warm-ups (``chip_smoke._median_ms``): the forward alone
 (under ``torch.inference_mode``) and a forward with one backward
 (``torch.autograd.grad`` of the mean log-likelihood over the store's
-tensors); the backward is their difference. Prints the card's name and
-power limit, then a line a case and tree with each turn's times.
+tensors); the backward is their difference. Each is then run 5 times under
+``torch.profiler`` (``chip_smoke._profile``): the sum of its kernels'
+device times a call is the device's busy ms, so a reading that grows while
+its busy ms do not is time the card waits on the host. Prints the card's
+name and power limit, then a line a case and tree with each turn's times.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ for em, semiring in ((False, "signed-lse-sum"), (True, "signed-lse-sum"),
         os.environ["CIRKIT_TPU_FAST"] = env
         fwd = CS._median_ms(forward, warmup=2, iters=10)
         both = CS._median_ms(step, warmup=2, iters=10)
-        rows[f"{semiring} tucker em_ready={em} {mode}"] = (fwd, both)
+        busy = [sum(CS._profile(fn, 5)[1].values()) for fn in (forward, step)]
+        rows[f"{semiring} tucker em_ready={em} {mode}"] = (fwd, both, *busy)
     os.environ["CIRKIT_TPU_FAST"] = ""
     del sctx, scc, sc, ctx, cc
 print("ROWS " + json.dumps(rows))
@@ -103,8 +107,11 @@ def main() -> int:
         for name in roots:
             fwd = [round(t[case][0], 3) for t in turns[name]]
             bwd = [round(t[case][1] - t[case][0], 3) for t in turns[name]]
+            busy = [(round(t[case][2], 3), round(t[case][3] - t[case][2], 3))
+                    for t in turns[name]]
             print(f"{case:50s} {name:5s} forward ms {fwd}, backward ms {bwd} "
-                  f"(forward and backward {[round(t[case][1], 3) for t in turns[name]]})")
+                  f"(forward and backward {[round(t[case][1], 3) for t in turns[name]]}); "
+                  f"device busy (forward, backward) ms {busy}")
     return 0
 
 

@@ -28,7 +28,10 @@ and signed kernels to 1e-10 in log space (1e-12 of the row's mass) and
 ``1e-9 (max|plain| + |plain|)`` backward. The signed and complex forwards
 are also held at the edges of their narrow route (I and O of 1, 7, 32 and
 33, B of 1, 33 and 4096), where ``torch.profiler`` names the kernel that
-runs. A
+runs, and their Tucker instances on the tensor cores (the float32 signed
+ones, the complex64 ones against a real weight) at the K=64 entry, ragged
+shapes and an unaligned weight, and against float64 and complex128 at the
+K=64 entry (``WIDE_TOL``: 1e-5 of the row's mass, 3 u more in a fast mode). A
 small circuit's forward, its gradients and its queries through the
 kernels, and a small squared circuit's, are held against the same store
 evaluated in float64 on the CPU.
@@ -681,17 +684,21 @@ def _signed_close(op, ins, got, ref, tol=1e-5):
     assert not bool(((gs != ps) & (lin_p.abs() > tol)).any())
 
 
-@pytest.mark.parametrize("f,b,o", [(3, 8, 16), (3, 13, 1), (2, 130, 70), (144, 4096, 32)])
+@pytest.mark.parametrize("f,b,o,k1,k2", [(3, 8, 16, 8, 16), (3, 13, 1, 8, 16), (2, 130, 70, 8, 16),
+                                         (144, 4096, 32, 8, 16), (784, 128, 64, 64, 64),
+                                         (3, 37, 70, 7, 10)])
 @pytest.mark.parametrize("op", SIGNED_OPS)
-def test_signed_kernels_match_plain(op, f, b, o):
+def test_signed_kernels_match_plain(op, f, b, o, k1, k2):
     """Forward and backward of each signed entry against its plain versions,
     with a row that is all -inf and a cotangent that is 0 on some rows; the
-    last shape is the SoS TensorDot entry (B*Kq = 4096, I = O = 32)."""
+    fourth shape is the SoS TensorDot entry (B*Kq = 4096, I = O = 32), the
+    fifth the K=64 Tucker entry, the last a K2 that is no multiple of 4 (the
+    dense ops take I = 32 throughout)."""
     from cirkit_tpu_torch.ops import slse_einsum as S
 
     if "tucker" in op and f == 144:
         f, b, o = 8, 512, 64  # the Tucker configurations at a larger batch instead
-    ins = _signed_inputs(op, f, b, o)
+    ins = _signed_inputs(op, f, b, o, k1=k1, k2=k2)
     ins[0][0, 2] = float("-inf")
     ins = [t.requires_grad_(k % 2 == 0 or k == len(ins) - 1) for k, t in enumerate(ins)]
     oa, os_ = getattr(S, op)(*ins)
@@ -833,12 +840,14 @@ def _complex_bwd_close(got, ref, rel, *, zeros=False):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
 @pytest.mark.parametrize("real_w", [False, True], ids=["complex-w", "real-w"])
 @pytest.mark.parametrize("f,b,o,k1,k2", [(3, 8, 16, 8, 16), (3, 13, 1, 8, 16), (2, 130, 70, 5, 9),
-                                         (2, 70, 64, 4, 64), (144, 4096, 32, 8, 16)])
+                                         (2, 70, 64, 4, 64), (144, 4096, 32, 8, 16),
+                                         (784, 128, 64, 64, 64), (3, 37, 70, 7, 10)])
 @pytest.mark.parametrize("op", COMPLEX_OPS)
 def test_complex_kernels_match_plain(op, f, b, o, k1, k2, real_w, dtype):
     """Forward and backward of the complex ops against their plain versions,
     with a row that is all -inf and a cotangent that is 0 on some rows; the
-    last shape is the SoS TensorDot entry (B*Kq = 4096, I = O = 32)."""
+    fifth shape is the SoS TensorDot entry (B*Kq = 4096, I = O = 32), the
+    sixth the K=64 Tucker entry, the last a K2 that is no multiple of 4."""
     from cirkit_tpu_torch.ops import clse_einsum as C
 
     if f == 144 and ("tucker" in op or dtype == torch.complex128):
@@ -2168,7 +2177,12 @@ def test_routing_bf16_th_equals_the_widened_run(f, b, k1, k2, o, log_weights, of
 # cotangent).
 # (F, B, I, O) of the dense ops, (F, B, K1, K2, O) of the Tucker ones
 DENSE_INSTANCE_CASES = [(3, 33, 7, 32), (2, 4096, 32, 32), (2, 33, 33, 32), (2, 130, 64, 70)]
-TUCKER_INSTANCE_CASES = [(2, 13, 8, 16, 16), (2, 33, 4, 64, 64)]
+# the Tucker forwards on the tensor cores: the K=64 entry, the serving batch
+# 512 (8 of its folds), ragged B, K1, K2 (10: no multiple of 4) and O, a
+# batch of 700 (blocks of 256 rows, the last ragged), O = 1 and O > 128
+TUCKER_INSTANCE_CASES = [(2, 13, 8, 16, 16), (2, 33, 4, 64, 64), (784, 128, 64, 64, 64),
+                         (8, 512, 64, 64, 64), (3, 37, 7, 10, 70), (2, 700, 7, 10, 70),
+                         (3, 200, 16, 16, 1), (2, 33, 8, 16, 200)]
 SIGNED_INSTANCE_CASES = [(op, case) for op in SIGNED_OPS for case in (
     [*TUCKER_INSTANCE_CASES, (1, 8, 208, 208, 5)] if "tucker" in op else DENSE_INSTANCE_CASES)]
 
@@ -2182,27 +2196,40 @@ def _case_id(c):
     return f"{c[0]}-" + "x".join(map(str, c[1]))
 
 
+SIGNED_MODES = [("", ""), *INSTANCES]
+
+
 @pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
-@pytest.mark.parametrize("sfx,mode", INSTANCES, ids=[s for s, _ in INSTANCES])
+@pytest.mark.parametrize("sfx,mode", SIGNED_MODES, ids=[s or "f32" for s, _ in SIGNED_MODES])
 @pytest.mark.parametrize("op,case", SIGNED_INSTANCE_CASES,
                          ids=[_case_id(c) for c in SIGNED_INSTANCE_CASES])
 def test_signed_instance_kernels_match_plain(op, case, sfx, mode, offset):
+    """Each float32 signed instance, forward and backward, against its plain
+    version in its mode; the Tucker ones (on the tensor cores) with fold 0's
+    row of -inf inputs and its row whose terms cancel exactly, both (-inf, 0);
+    two calls equal to the bit (``sr`` included)."""
     from cirkit_tpu_torch.ops import slse_einsum as S
 
     tucker = "tucker" in op
     f, b, *dims, o = case
-    kw = dict(k1=dims[0], k2=dims[1]) if tucker else dict(i=dims[0])
-    ins = _signed_inputs(op, f, b, o, **kw)
-    ins[0][0, min(2, b - 1)] = float("-inf")  # a row that is all -inf
+    if tucker:
+        ins = _signed_tucker_inputs(op, f, b, *dims, o)
+    else:
+        ins = _signed_inputs(op, f, b, o, i=dims[0])
+        ins[0][0, min(2, b - 1)] = float("-inf")  # a row that is all -inf
     if sfx.startswith("_w16"):
         ins[-1] = ins[-1].to(torch.bfloat16)
     if offset:
         ins = [_offset(t) for t in ins]
     got = S._launch_fwd(op, tuple(ins), mode)
+    again = S._launch_fwd(op, tuple(ins), mode)
     ref = S._ENTRIES[op][2](*ins, mode=mode)
     torch.cuda.synchronize()
-    assert T.LAUNCHES[op + sfx] == 1
+    assert T.LAUNCHES[op + sfx] == 2
     _signed_close(op, [*ins[:-1], ins[-1].float()], got, ref)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for row in (_INF_ROW, _CANCEL_ROW) if tucker else ():
+        assert bool(torch.isneginf(got[0][0, row]).all()) and bool((got[1][0, row] == 0).all())
     g = torch.randn(got[0].shape, generator=torch.Generator(device="cuda").manual_seed(1),
                     device="cuda")
     g[-1, 3:5] = 0.0
@@ -2264,25 +2291,40 @@ COMPLEX_INSTANCE_CASES = [(op, case) for op in COMPLEX_OPS for case in (
 
 @pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
 @pytest.mark.parametrize("real_w", [False, True], ids=["complex-w", "real-w"])
-@pytest.mark.parametrize("mode", ["bf16", "sr"])
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"], ids=["f32", "bf16", "sr"])
 @pytest.mark.parametrize("op,case", COMPLEX_INSTANCE_CASES,
                          ids=[_case_id(c) for c in COMPLEX_INSTANCE_CASES])
 def test_complex_fast_instance_kernels_match_plain(op, case, mode, real_w, offset):
+    """Each complex64 instance, forward and backward, against its plain
+    version in its mode; the Tucker ones against a real weight (on the tensor
+    cores, ``fwd_entry``: ``clse_fwd_tucker_rw`` and its fast instances) with
+    fold 0's row of -inf inputs and its row that cancels exactly, both of
+    real part -inf; two calls equal to the bit (``sr`` included)."""
     from cirkit_tpu_torch.ops import clse_einsum as C
 
     tucker = "tucker" in op
     f, b, *dims, o = case
     kw = dict(k1=dims[0], k2=dims[1]) if tucker else dict(i=dims[0])
-    ins = _complex_inputs(op, f, b, o, torch.complex64, real_w=real_w, **kw)
-    ins[0][0, min(2, b - 1)] = complex(float("-inf"), 0.5)
+    rows = tucker and real_w
+    if rows:
+        ins = _complex_tucker_inputs(f, b, *dims, o)
+    else:
+        ins = _complex_inputs(op, f, b, o, torch.complex64, real_w=real_w, **kw)
+        ins[0][0, min(2, b - 1)] = complex(float("-inf"), 0.5)
     if offset:
         ins = [_offset(t) for t in ins]
-    sfx = "_fast" if mode == "bf16" else "_sr"
+    sfx = T.MODE_SUFFIX[mode]
+    if rows:
+        assert C.fwd_entry(op, torch.complex64, torch.float32, mode) == "clse_fwd_tucker_rw" + sfx
     got = C._launch_fwd(op, tuple(ins), mode)
+    again = C._launch_fwd(op, tuple(ins), mode)
     ref = C._ENTRIES[op][0](*ins, mode=mode)
     torch.cuda.synchronize()
-    assert T.LAUNCHES[op + sfx] == 1
+    assert T.LAUNCHES[op + sfx] == 2
     _complex_close(ins, got, ref, 1e-5)
+    assert torch.equal(got, again)
+    for row in (_INF_ROW, _CANCEL_ROW) if rows else ():
+        assert bool(torch.isneginf(got.real[0, row]).all())
     g = torch.complex(*(torch.randn(got.shape, device="cuda",
                                     generator=torch.Generator(device="cuda").manual_seed(k))
                         for k in (1, 2)))
@@ -2545,3 +2587,55 @@ def test_complex_tucker_backward_against_complex128():
     torch.cuda.synchronize()
     for d, r in zip(grads, refs):
         _complex_bwd_close(d.to(r.dtype), r, 1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# The signed and complex Tucker forwards on the tensor cores (the float32
+# signed instances, tucker_fwd_tc and tucker_fwd_bf16 with SIGNED; the
+# complex64 ones against a real weight, with CPLX) against float64 and
+# complex128 at the K=64 entry, the widest the paths launch; against their
+# plain versions in test_signed_instance_kernels_match_plain and
+# test_complex_fast_instance_kernels_match_plain.
+# --------------------------------------------------------------------------- #
+
+# against float64 (complex128), in linear space scaled by the row's absolute
+# mass: float32's sums, and in a fast mode two roundings to bf16 a term (e2
+# and the weight; a complex e2 one a plane, sqrt(2) u of it), each within u
+# of its value (u = 2^-8 to the nearest, 2^-7 stochastic): 3 u
+WIDE_TOL = {"": 1e-5, "bf16": 3 * 2.0**-8 + 1e-5, "sr": 3 * 2.0**-7 + 1e-5}
+
+
+@pytest.mark.parametrize("sfx,mode", SIGNED_TUCKER_INSTANCES,
+                         ids=[s or "f32" for s, _ in SIGNED_TUCKER_INSTANCES])
+@pytest.mark.parametrize("op", ["slse_tucker2", "slse_tucker2_softmax"])
+def test_signed_tucker_forward_against_float64(op, sfx, mode):
+    """Each float32 signed Tucker forward at the K=64 entry (F=784, B=128,
+    K1=K2=O=64), the widest the paths launch, against the plain version in
+    float64 on the same inputs (a bf16 weight widened), in linear space
+    scaled by the row's absolute mass, to ``WIDE_TOL``."""
+    from cirkit_tpu_torch.ops import slse_einsum as S
+
+    ins = _signed_tucker_inputs(op, 784, 128, 64, 64, 64)
+    if sfx.startswith("_w16"):
+        ins[-1] = ins[-1].to(torch.bfloat16)
+    got = S._launch_fwd(op, tuple(ins), mode)
+    x64 = [t.double() for t in ins]
+    ref = S._ENTRIES[op][2](*x64)
+    torch.cuda.synchronize()
+    _signed_close(op, x64, tuple(t.double() for t in got), ref, WIDE_TOL[mode])
+
+
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"], ids=["f32", "fast", "sr"])
+def test_complex_tucker_forward_against_complex128(mode):
+    """The complex64 Tucker forward against a real weight at the K=64 entry
+    (F=784, B=128, K1=K2=O=64), the widest the paths launch, against the
+    plain version in complex128 on the same inputs, on both planes in linear
+    space scaled by the row's absolute mass, to ``WIDE_TOL``."""
+    from cirkit_tpu_torch.ops import clse_einsum as C
+
+    ins = _complex_tucker_inputs(784, 128, 64, 64, 64)
+    got = C._launch_fwd("clse_tucker2", tuple(ins), mode)
+    x128 = [t.to(torch.complex128 if t.is_complex() else torch.float64) for t in ins]
+    ref = C._ENTRIES["clse_tucker2"][0](*x128)
+    torch.cuda.synchronize()
+    _complex_close(x128, got.to(torch.complex128), ref, WIDE_TOL[mode])

@@ -514,6 +514,152 @@ def test_complex_exact_cancellation_in_the_fast_modes(op, mode, monkeypatch):
 
 
 # --------------------------------------------------------------------------- #
+# The signed and complex Tucker forwards on the tensor cores: the rounding
+# points of their fast plain versions (the kernels' own: ``e2`` and the
+# weight rounded, ``e1`` kept float32 and folded in after the products, the
+# logits over each unit's running max of the tiles so far) and the entries
+# the complex op picks
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("op", ["slse_tucker2", "slse_tucker2_softmax"])
+def test_signed_fast_tucker_forward_with_positive_signs_is_the_unsigned_one(op, mode):
+    """With every sign +1 and weights > 0 (or logits) the signed fast Tucker
+    forward's plain version is the unsigned one (``lse_tucker2[_softmax]_ref``,
+    whose rounding points the unsigned kernels are held to on the card) to
+    float32's rounding of the log (the two add the shifts in another order),
+    with every sign +1: it rounds where the unsigned one does."""
+    x1, x2, w, _ = _positive(op)
+    ones1, ones2 = torch.ones_like(x1), torch.ones_like(x2)
+    oa, os = S._ENTRIES[op][2](x1, ones1, x2, ones2, w, mode=mode)
+    want = L._ENTRIES[op.removeprefix("s")][2](x1, x2, w, mode=mode)
+    assert bool(((os == 1) | torch.isneginf(want)).all())
+    assert torch.equal(torch.isneginf(oa), torch.isneginf(want))
+    finite = torch.isfinite(want)
+    torch.testing.assert_close(oa[finite], want[finite], rtol=1e-6, atol=1e-6)
+
+
+def _signed_tiles_in_order(a1, s1, a2, s2, theta, mode):
+    """The signed fast Tucker forward with logits tile by tile, as the
+    kernels of ``csrc/tucker_bf16.cu`` run it (``tests/test_torch_fast_modes.py``'s
+    ``_tiles_in_order`` with signs): chunks of ``_TUCKER_JC`` columns, a row
+    ``i`` of a chunk a tile, each unit's running max raised by the tile's, its
+    float64 sums and normalizer shrunk by ``exp(old - new)``; the tile's
+    ``exp(theta - max)`` rounded at its flat index in ``theta``, ``e2 = s2
+    exp(a2 - m2)`` rounded at its own, ``e1 = s1 exp(a1 - m1)`` not. Returns
+    the linear ``y`` divided by the normalizer, shifted by ``exp(-shift)``."""
+    f, b, k1 = a1.shape
+    k2, o = a2.shape[2], theta.shape[1]
+    e1 = (s1 * torch.exp(a1 - L._clamp_max(a1))).double()
+    e2 = L.round_bf16(s2 * torch.exp(a2 - L._clamp_max(a2)), mode, L.ROLE_E).double()
+    run = torch.full((f, o), -torch.inf)
+    acc = torch.zeros((f, b, o), dtype=torch.float64)
+    z = torch.zeros((f, o), dtype=torch.float64)
+    th = theta.view(f, o, k1, k2)
+    for j0 in range(0, k2, L._TUCKER_JC):
+        cols = slice(j0, j0 + L._TUCKER_JC)
+        for i in range(k1):
+            seg = th[:, :, i, cols]
+            new = torch.maximum(run, seg.amax(dim=-1))
+            scl = torch.where(new == -torch.inf, 1.0, torch.exp(run - new)).double()
+            ex = torch.exp(seg - torch.where(new == -torch.inf, 0.0, new)[..., None])
+            run = new
+            z = z * scl + ex.double().sum(dim=-1)
+            staged = torch.zeros_like(th)
+            staged[:, :, i, cols] = ex
+            r = L.round_bf16(staged.view(f, o, k1 * k2), mode, L.ROLE_W).view(f, o, k1, k2)
+            acc = acc * scl[:, None, :] + e1[:, :, i, None] * torch.einsum(
+                "fbj,foj->fbo", e2[:, :, cols], r[:, :, i, cols].double())
+    # z is the normalizer over the final max; acc is over the same max
+    return acc / z[:, None, :]
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("k1,k2", [(4, 20), (3, 64), (3, 130)], ids=["k2-20", "k2-64", "k2-130"])
+def test_signed_fast_tucker_logits_round_over_the_tiles_running_max(k1, k2, mode):
+    """The signed fast Tucker forward with logits rounds what the kernels
+    round: ``e2 = s2 exp(a2 - m2)`` and ``exp(theta - r)`` over each unit's
+    running max of the tiles so far (K2 of one chunk, a whole one, and three
+    with a ragged last), ``e1`` in float32; held to the tile-by-tile run in
+    float64 sums, in linear space, to 1e-5 of the row's absolute mass (a
+    rounding of e1 or of the product would move it by some 2^-9), with a
+    unit whose first tile is all -inf and one whose max rises tile by
+    tile."""
+    rng = np.random.default_rng(63)
+
+    def signed(*shape):
+        a = torch.as_tensor((rng.normal(size=shape) * 3.0 - 2.0).astype(np.float32))
+        sg = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32))
+        return a, sg
+
+    a1, s1 = signed(2, 5, k1)
+    a2, s2 = signed(2, 5, k2)
+    theta = torch.as_tensor(rng.normal(size=(2, 4, k1 * k2)).astype(np.float32))
+    theta[0, 0, :k2] = -torch.inf
+    theta[0, 1] += torch.linspace(-20.0, 20.0, k1 * k2)
+    oa, os = S.slse_tucker2_softmax_ref(a1, s1, a2, s2, theta, mode)
+    shift = (L._clamp_max(a1) + L._clamp_max(a2)).double()
+    want = _signed_tiles_in_order(a1, s1, a2, s2, theta, mode)
+    mass = L.lse_tucker2_ref(a1.double(), a2.double(), torch.softmax(theta.double(), dim=-1))
+    got = torch.where(torch.isneginf(oa), 0.0, os.double() * torch.exp(oa.double() - mass))
+    ref = want * torch.exp(shift - mass)
+    assert not torch.isnan(oa).any()
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_complex_fast_tucker_forward_rounds_e2_and_the_weight(mode):
+    """The complex fast Tucker forward against a real weight rounds what the
+    tensor-core kernels round: the planes of ``e2 = exp(x2 - m2)`` at their
+    flat indices in ``torch.view_as_real``'s layout of x2 and the weight at
+    its own, ``e1 = exp(x1 - m1)`` kept complex64 (held to that composition
+    summed in complex128, in linear space scaled by the row's absolute mass,
+    to 1e-5: a rounding of e1 or of the product would move it by some 2^-9);
+    against a complex weight it keeps the CUDA-core kernel's points, the
+    outer product rounded."""
+    x1, x2, w = (torch.as_tensor(a) for a in _complex_inputs("clse_tucker2", True, seed=64))
+    got = C.clse_tucker2_ref(x1, x2, w, mode)
+    e1 = C._cis(torch.exp(x1.real - L._clamp_max(x1.real)), x1.imag).to(torch.complex128)
+    e2 = C._cis(torch.exp(x2.real - L._clamp_max(x2.real)), x2.imag)
+    r2 = torch.view_as_complex(L.round_bf16(torch.view_as_real(e2).contiguous(), mode,
+                                            L.ROLE_E)).to(torch.complex128)
+    rw = L.round_bf16(w, mode, L.ROLE_W).double().view(F, O, K1, K2)
+    y = torch.einsum("fbi,fbj,foij->fbo", e1, r2, rw.to(torch.complex128))
+    mass = torch.as_tensor(_abs_mass("clse_tucker2", [x1.numpy(), x2.numpy(), w.numpy()]))
+    shift = (L._clamp_max(x1.real) + L._clamp_max(x2.real)).double()
+    empty = torch.isneginf(mass)
+    lin = torch.where(empty, 0.0, torch.exp(got.to(torch.complex128) - mass))
+    ref = torch.where(empty, 0.0, y * torch.exp(shift - mass))
+    assert float((lin - ref).abs().max()) <= 1e-5
+    assert torch.isneginf(got.real[empty]).all()
+    xc, _, wc = (torch.as_tensor(a) for a in _complex_inputs("clse_tucker2", False, seed=64))
+    e = C._cis(torch.exp((x1.real - L._clamp_max(x1.real))[..., :, None]
+                         + (x2.real - L._clamp_max(x2.real))[..., None, :]),
+               x1.imag[..., :, None] + x2.imag[..., None, :]).reshape(F, B, K1 * K2)
+    outer = C._from_linear(torch.bmm(C.round_planes(e, mode, L.ROLE_E),
+                                     C.round_planes(wc, mode, L.ROLE_W).transpose(1, 2)),
+                           L._clamp_max(x1.real) + L._clamp_max(x2.real))
+    assert torch.equal(C.clse_tucker2_ref(x1, x2, wc, mode), outer)
+
+
+@pytest.mark.parametrize("mode", ["", "bf16", "sr"])
+def test_complex_forward_entry(mode):
+    """Only the complex64 Tucker forward against a real weight takes the
+    tensor-core entries ``clse_fwd_tucker_rw[_fast|_sr]`` (11 arguments: four
+    operands, five sizes, the device and the stream); a complex weight,
+    complex128 and the dense op keep ``clse_fwd``."""
+    sfx = L.MODE_SUFFIX[mode]
+    rw = C.fwd_entry("clse_tucker2", torch.complex64, torch.float32, mode)
+    assert rw == "clse_fwd_tucker_rw" + sfx
+    assert len(_build._SIGNATURES[rw][0]) == 11
+    assert C.fwd_entry("clse_tucker2", torch.complex64, torch.complex64, mode) == "clse_fwd" + sfx
+    assert C.fwd_entry("clse_matmul", torch.complex64, torch.float32, mode) == "clse_fwd" + sfx
+    assert C.fwd_entry("clse_tucker2", torch.complex128, torch.float64, "") == "clse_fwd"
+    assert f"clse_tucker2{sfx}" in L.LAUNCHES
+
+
+# --------------------------------------------------------------------------- #
 # The signed and complex Tucker backwards on the tensor cores: the host-side
 # choices of their dispatch, their scratch, and the plain versions they are
 # held to on the card
